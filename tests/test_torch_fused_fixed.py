@@ -1,0 +1,220 @@
+"""The port's fused fixed-step solve (kernel K1's module) against the JAX package.
+
+On the CPU the port's ``cdeint`` runs the plain PyTorch version of the K1
+kernels on the packed operands, and the JAX package runs its streamed XLA
+scan (its Pallas kernel declines off the TPU): the two are held together in
+values and in gradients with respect to z0, both Linear layers and the
+coefficient tensor.  The CUDA kernels themselves are held against the plain
+version on the card by ``chip_smoke.py``.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchcde_tpu as tc
+import torchcde_tpu_torch as tt
+from torchcde_tpu.solvers.fused_pallas import _pack_operands
+from torchcde_tpu.solvers.terms import MLPVectorField as JaxField
+from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+from torchcde_tpu_torch.solvers.terms import MLPVectorField
+
+torch.set_num_threads(1)
+
+C, W, B, N = 3, 32, 37, 12  # N intervals, N + 1 knots
+
+
+def _problem(H, dtype, seed=0, C_=C, W_=W):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N + 1, C_))
+    coeffs = np.array(tc.hermite_cubic_coefficients_with_backward_differences(jnp.asarray(x)))
+    params = dict(
+        # The scales of the model's U(-1/sqrt(fan_in), 1/sqrt(fan_in)) init.
+        w1=rng.standard_normal((H, W_)) * 0.2, b1=rng.standard_normal(W_) * 0.1,
+        w2=rng.standard_normal((W_, H * C_)) * 0.1, b2=rng.standard_normal(H * C_) * 0.1,
+        z0=rng.standard_normal((B, H)),
+    )
+    params = {k: v.astype(dtype) for k, v in params.items()}
+    return coeffs.astype(dtype), params
+
+
+def _times(which):
+    grid = np.linspace(0.0, float(N), N + 1)
+    return {"all": grid, "terminal": grid[[0, -1]], "subset": grid[[2, 5, 6, 9]]}[which]
+
+
+def _jax_solve(coeffs, p, H, t, method, step):
+    C_ = coeffs.shape[-1] // 4
+
+    def run(c, z0, w1, b1, w2, b2):
+        X = tc.CubicSpline(c)
+        return tc.cdeint(X, JaxField(w1, b1, w2, b2, H, C_), z0, t, adjoint=False,
+                         method=method, options=dict(step_size=step))
+
+    args = tuple(jnp.asarray(a) for a in (coeffs, p["z0"], p["w1"], p["b1"], p["w2"], p["b2"]))
+    out = run(*args)
+    proj = np.random.default_rng(9).standard_normal(out.shape).astype(out.dtype)
+    grads = jax.grad(lambda *a: jnp.sum(run(*a) * proj), argnums=tuple(range(6)))(*args)
+    return np.asarray(out), proj, [np.asarray(g) for g in grads]
+
+
+def _torch_solve(coeffs, p, H, t, method, step, proj):
+    dtype = torch.from_numpy(coeffs).dtype
+    field = MLPVectorField(H, coeffs.shape[-1] // 4, p["w1"].shape[1], dtype=dtype)
+    with torch.no_grad():
+        field.linear1.weight.copy_(torch.from_numpy(p["w1"].T))
+        field.linear1.bias.copy_(torch.from_numpy(p["b1"]))
+        field.linear2.weight.copy_(torch.from_numpy(p["w2"].T))
+        field.linear2.bias.copy_(torch.from_numpy(p["b2"]))
+    c = torch.from_numpy(coeffs).requires_grad_()
+    z0 = torch.from_numpy(p["z0"]).requires_grad_()
+    out = tt.cdeint(tt.CubicSpline(c), field, z0, t, adjoint=False, method=method,
+                    options=dict(step_size=step))
+    (out * torch.from_numpy(proj)).sum().backward()
+    grads = [c.grad, z0.grad, field.linear1.weight.grad.T, field.linear1.bias.grad,
+             field.linear2.weight.grad.T, field.linear2.bias.grad]
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _compare(coeffs, p, H, which, method, m, rtol, atol):
+    t = _times(which)
+    out_j, proj, grads_j = _jax_solve(coeffs, p, H, t, method, 1.0 / m)
+    out_t, grads_t = _torch_solve(coeffs, p, H, t, method, 1.0 / m, proj)
+    assert out_t.shape == out_j.shape == (B, len(t), H)
+    # atol is relative to the array's largest magnitude: a gradient entry is a
+    # sum over the batch and the steps, and one that cancels to near zero
+    # keeps the rounding of its largest terms.
+    pairs = zip(["solution", "coeffs", "z0", "w1", "b1", "w2", "b2"],
+                [out_t] + grads_t, [out_j] + grads_j)
+    for name, got, expected in pairs:
+        scale = max(1.0, float(np.abs(expected).max()))
+        np.testing.assert_allclose(got, expected, rtol=rtol, atol=atol * scale, err_msg=name)
+
+
+# float64: both sides evaluate the same arithmetic in another order.
+@pytest.mark.parametrize("which", ["all", "terminal", "subset"])
+@pytest.mark.parametrize("H", [8, 5])
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4"])
+def test_cdeint_matches_jax_float64(method, m, H, which):
+    coeffs, p = _problem(H, np.float64)
+    _compare(coeffs, p, H, which, method, m, rtol=1e-9, atol=1e-11)
+
+
+# Other shapes inside the JAX kernel's caps (C * H <= 512, 3 * C <= 16,
+# width <= 512), which the CUDA kernels' generic variant runs on the card.
+@pytest.mark.parametrize("H, C_, W_", [(7, 2, 64), (16, 5, 512), (100, 5, 16)])
+def test_cdeint_matches_jax_inside_the_caps(H, C_, W_):
+    coeffs, p = _problem(H, np.float64, C_=C_, W_=W_)
+    _compare(coeffs, p, H, "subset", "midpoint", 2, rtol=1e-9, atol=1e-11)
+
+
+def test_cdeint_matches_jax_float32():
+    # float32: the two sides round 12 intervals of rk4 in different orders.
+    coeffs, p = _problem(8, np.float32)
+    _compare(coeffs, p, 8, "terminal", "rk4", 1, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_path_runs_the_plain_version():
+    coeffs, p = _problem(8, np.float64)
+    k1.reset_launch_counts()
+    _torch_solve(coeffs, p, 8, _times("terminal"), "rk4", 1.0,
+                 np.ones((B, 2, 8)))
+    assert (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES) == (0, 0)
+
+
+def test_packing_matches_jax():
+    H = 5
+    coeffs, p = _problem(H, np.float32)
+    c = jnp.asarray(coeffs)
+    rows = tuple(c[..., i * C:(i + 1) * C] for i in (1, 2, 3))
+    field_j = JaxField(*(jnp.asarray(p[k]) for k in ("w1", "b1", "w2", "b2")), H, C)
+    packed_j = _pack_operands(*rows, jnp.asarray(p["z0"]), field_j, N, ct_store="native")
+
+    field = MLPVectorField(H, C, W)
+    with torch.no_grad():
+        field.linear1.weight.copy_(torch.from_numpy(p["w1"].T))
+        field.linear1.bias.copy_(torch.from_numpy(p["b1"]))
+        field.linear2.weight.copy_(torch.from_numpy(p["w2"].T))
+        field.linear2.bias.copy_(torch.from_numpy(p["b2"]))
+    ct = torch.from_numpy(coeffs)
+    packed = k1.pack_operands(*(ct[..., i * C:(i + 1) * C] for i in (1, 2, 3)),
+                              torch.from_numpy(p["z0"]), field)
+
+    # The JAX layout pads H to 8, C*H to 8, the batch to 128 lanes and each
+    # interval's slab to 16 rows; the port keeps none of that padding.
+    slab = np.asarray(packed_j.ct2).reshape(N, 16, -1)[:, :3 * C, :B]
+    np.testing.assert_array_equal(packed.ct.numpy(), slab.reshape(N, 3, C, B))
+    np.testing.assert_array_equal(packed.z0t.numpy(), np.asarray(packed_j.z0t)[:H, :B])
+    np.testing.assert_array_equal(packed.w1t.detach().numpy(), np.asarray(packed_j.w1t)[:, :H])
+    np.testing.assert_array_equal(packed.b1.detach().numpy(), np.asarray(packed_j.b1c)[:, 0])
+    np.testing.assert_array_equal(packed.w2t.detach().numpy(), np.asarray(packed_j.w2t)[:C * H])
+    np.testing.assert_array_equal(packed.b2.detach().numpy(), np.asarray(packed_j.b2c)[:C * H, 0])
+
+
+def _field(H=8, C_=C, W_=W, dtype=torch.float64):
+    return MLPVectorField(H, C_, W_, dtype=dtype)
+
+
+def _rows(C_=C, dtype=torch.float64):
+    return tuple(torch.zeros(4, N, C_, dtype=dtype) for _ in range(3))
+
+
+def test_eligibility_declines():
+    z0 = torch.zeros(4, 8, dtype=torch.float64)
+    assert k1.try_fused_mlp(_rows(), z0, _field(), "rk4", 1, 1.0, N) is not None
+    assert k1.try_fused_mlp(_rows(), z0, _field(), "dopri5", 1, 1.0, N) is None
+    assert k1.try_fused_mlp(_rows(), z0, _field(), "rk4", 9, 1.0, N) is None
+    assert k1.try_fused_mlp(_rows(), z0, _field(W_=513), "rk4", 1, 1.0, N) is None
+    assert k1.try_fused_mlp(_rows(6), z0, _field(C_=6), "rk4", 1, 1.0, N) is None
+    assert k1.try_fused_mlp(_rows(), z0.float(), _field(), "rk4", 1, 1.0, N) is None
+    assert k1.try_fused_mlp(_rows(), z0, _field(), "rk4", 1, 1.0, N, out_knots=(0,)) is None
+    # Shapes at the caps stay eligible.
+    assert k1.try_fused_mlp(_rows(5), torch.zeros(4, 102, dtype=torch.float64),
+                            _field(102, 5, 512), "rk4", 8, 1.0, N) is not None
+    # bfloat16, which the JAX kernel takes, raises until its port lands.
+    bf = torch.bfloat16
+    with pytest.raises(NotImplementedError, match=re.escape(k1.BF16_NOT_PORTED)):
+        k1.try_fused_mlp(_rows(dtype=bf), z0.to(bf), _field(dtype=bf), "rk4", 1, 1.0, N)
+
+
+@pytest.mark.parametrize("kwargs, item", [
+    (dict(method="dopri5"), "Adaptive solves and the adjoint"),
+    (dict(method="rk4", adjoint=True), "Adaptive solves and the adjoint"),
+    (dict(method="rk4", options=dict(per_sample=True)), "Per-sample stepping"),
+    (dict(method="rk4", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
+    (dict(method="rk4", return_stats=True), "Rest of the solver surface"),
+    (dict(method="scipy_solver"), "Rest of the solver surface"),
+    (dict(method="reversible_heun"), "Reversible Heun"),
+])
+def test_not_ported_options_raise(kwargs, item):
+    kwargs = dict(dict(adjoint=False, step_size=1.0), **kwargs)
+    X = tt.CubicSpline(torch.zeros(4, N, 4 * C, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP.md queue 1, '{item}'")):
+        tt.cdeint(X, _field(), torch.zeros(4, 8, dtype=torch.float64), X.interval, **kwargs)
+
+
+def test_general_integrator_matches_fused_path():
+    # A closure is not an MLPVectorField, and t off the knot grid declines the
+    # knot-aligned plan: both take the general fixed-step integrator.
+    coeffs, p = _problem(5, np.float64)
+    field = _field(5)
+    X = tt.CubicSpline(torch.from_numpy(coeffs))
+    z0 = torch.from_numpy(p["z0"])
+    fused = tt.cdeint(X, field, z0, X.grid_points, adjoint=False, method="rk4", step_size=0.5)
+    general = tt.cdeint(X, lambda t, z: field(t, z), z0, X.grid_points, adjoint=False,
+                        method="rk4", step_size=0.5)
+    torch.testing.assert_close(general, fused, rtol=1e-12, atol=1e-12)
+    t = np.array([0.25, 3.75, 11.5])
+    off_grid = tt.cdeint(X, field, z0, t, adjoint=False, method="rk4", step_size=0.25)
+    expected = tc.cdeint(
+        tc.CubicSpline(jnp.asarray(coeffs)),
+        JaxField(*(jnp.asarray(v) for v in (
+            field.linear1.weight.detach().numpy().T, field.linear1.bias.detach().numpy(),
+            field.linear2.weight.detach().numpy().T, field.linear2.bias.detach().numpy())), 5, C),
+        jnp.asarray(p["z0"]), t, adjoint=False, method="rk4", step_size=0.25)
+    np.testing.assert_allclose(off_grid.detach().numpy(), np.asarray(expected), rtol=1e-9, atol=1e-11)

@@ -1,0 +1,45 @@
+"""The port stands without JAX, and its chip check refuses to run without a card."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _run(args, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import torchcde_tpu_torch, torchcde_tpu_torch.models, torchcde_tpu_torch.interop\n"
+        "import torchcde_tpu_torch.solvers.fused_fixed_kernel, torchcde_tpu_torch._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchcde_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax():
+    for path in (ROOT / "torchcde_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax")), (path, line)
+            assert not stripped.startswith(("import torchcde_tpu ", "from torchcde_tpu.",
+                                            "from torchcde_tpu ")), (path, line)
+
+
+def test_chip_smoke_fails_without_a_card():
+    # This box has no CUDA device: the script must exit non-zero at its first
+    # phase, before building any kernel, and print no result line.
+    proc = _run(["chip_smoke.py"])
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert '"ok"' not in proc.stdout
+    assert "build:" not in proc.stdout

@@ -1,0 +1,107 @@
+"""The port's Neural CDE training step against the JAX package, on the CPU in float64.
+
+The flagship configuration (cubic control, rk4, step 1, direct backprop) at a
+small size: JAX-initialised parameters are carried across with
+``from_jax_params``, and three Adam steps on each side must track each other.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import torchcde_tpu as tc
+import torchcde_tpu_torch as tt
+from torchcde_tpu.models.neural_cde import NeuralCDEConfig as JaxConfig
+from torchcde_tpu.models.neural_cde import init_neural_cde, neural_cde_apply
+from torchcde_tpu.models.training import accuracy as jax_accuracy
+from torchcde_tpu.models.training import make_train_step as jax_make_train_step
+from torchcde_tpu_torch.interop import from_jax_params
+from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig, accuracy, make_train_step
+
+torch.set_num_threads(1)
+
+BATCH, LENGTH, WIDTH = 16, 20, 32
+FLAGSHIP = dict(input_channels=3, hidden_channels=8, output_channels=1, width=WIDTH,
+                interpolation="cubic", solver="rk4", adjoint=False, step_size=1.0)
+
+
+def _spiral(batch, length, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 4 * math.pi, length)
+    phase = rng.uniform(0, 2 * math.pi, size=(batch, 1))
+    y = (rng.random(batch) > 0.5).astype(np.float64)
+    direction = np.where(y > 0.5, 1.0, -1.0)[:, None]
+    radius = 0.5 + t / (4 * math.pi)
+    x1 = radius * np.cos(direction * t + phase)
+    x2 = radius * np.sin(direction * t + phase)
+    X = np.stack([np.broadcast_to(t, x1.shape), x1, x2], axis=-1)
+    return X, y
+
+
+def _jax_setup():
+    cfg = JaxConfig(**FLAGSHIP)
+    params = init_neural_cde(jax.random.PRNGKey(0), cfg, dtype=jnp.float64)
+    return cfg, params
+
+
+def _torch_model(params):
+    model = NeuralCDE(NeuralCDEConfig(**FLAGSHIP), dtype=torch.float64)
+    model.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    return model
+
+
+def _coeffs(X):
+    cj = tc.hermite_cubic_coefficients_with_backward_differences(jnp.asarray(X))
+    ct = tt.hermite_cubic_coefficients_with_backward_differences(torch.from_numpy(X))
+    return cj, ct
+
+
+def test_forward_matches_neural_cde_apply():
+    X, y = _spiral(BATCH, LENGTH)
+    cfg, params = _jax_setup()
+    model = _torch_model(params)
+    cj, ct = _coeffs(X)
+    expected = neural_cde_apply(params, cfg, cj)
+    got = model(ct)
+    assert got.shape == expected.shape == (BATCH, 1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(expected), rtol=1e-10, atol=1e-12)
+    acc = accuracy(model, ct, torch.from_numpy(y))
+    assert float(acc) == pytest.approx(float(jax_accuracy(params, cfg, cj, jnp.asarray(y))))
+
+
+def test_three_adam_steps_track_optax():
+    X, y = _spiral(BATCH, LENGTH, seed=1)
+    cfg, params = _jax_setup()
+    model = _torch_model(params)
+    cj, ct = _coeffs(X)
+
+    optimizer = optax.adam(1e-3)
+    opt_state = optimizer.init(params)
+    jax_step = jax_make_train_step(cfg, optimizer)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+
+    for _ in range(3):
+        params, opt_state, loss_j = jax_step(params, opt_state, cj, jnp.asarray(y))
+        loss_t = step(ct, torch.from_numpy(y))
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-8)
+    state = model.state_dict()
+    for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, params)).items():
+        np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-8, atol=1e-12,
+                                   err_msg=name)
+
+
+def test_initialisation_is_seeded_and_bounded():
+    cfg = NeuralCDEConfig(**FLAGSHIP)
+    a = NeuralCDE(cfg, generator=torch.Generator().manual_seed(3))
+    b = NeuralCDE(cfg, generator=torch.Generator().manual_seed(3))
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name
+    bound = 1.0 / math.sqrt(WIDTH)
+    assert float(a.func.linear2.weight.detach().abs().max()) <= bound
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="bfloat16"))

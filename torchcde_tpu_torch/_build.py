@@ -1,0 +1,89 @@
+"""Builds the package's CUDA kernels from ``csrc/`` and loads them.
+
+The sources are compiled at first use with ``nvcc`` into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds), and
+loaded with ``ctypes``.  The library goes to ``_build/`` beside this file,
+named by a hash of the sources and flags, so an edited source builds anew.
+A missing ``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parent
+CSRC = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded = {}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidate = Path(os.environ[var]) / "bin" / "nvcc"
+            if candidate.exists():
+                return str(candidate)
+    candidate = Path("/usr/local/cuda/bin/nvcc")  # the CUDA toolkit's default prefix
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc was not found (PATH, CUDA_HOME, CUDA_PATH): the CUDA toolkit is "
+        "needed to build the kernels in torchcde_tpu_torch/csrc."
+    )
+
+
+def library_path():
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libtorchcde_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compiles the kernels if the library for these sources is missing.
+
+    Returns (path, seconds spent compiling, compiler log)."""
+    path = library_path()
+    log_path = path.with_suffix(".log")
+    if path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return path, 0.0, log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, path)
+    return path, seconds, log
+
+
+def load_library():
+    """The kernels' shared library, built and loaded once per process."""
+    if "lib" not in _loaded:
+        path, _seconds, _log = build()
+        _loaded["lib"] = ctypes.CDLL(str(path))
+    return _loaded["lib"]

@@ -1,0 +1,927 @@
+// Fixed-step Neural CDE solve, forward and backward, as two CUDA kernels for
+// Hopper (sm_90a).
+//
+// Replaces torchcde_tpu/solvers/fused_pallas.py::_fwd_kernel (stage math
+// _stage_forward) and ::_bwd_kernel (stage math _stage_backward).  The whole
+// euler / midpoint / heun / rk4 solve of dz = MLP(z) . dX/dt over uniform
+// knots, with m substeps per interval, runs inside one launch, and its
+// reverse walk inside a second one.
+//
+// What bounds it.  The work is a serial chain of small dependent
+// matrix-vector products per batch lane: each stage evaluates
+// h1 = relu(W1 y + b1) (W x H) and g = tanh(W2 h1 + b2) (CH x W) for one lane,
+// 2 W H (1 + C) FLOP.  At the flagship shapes (B 4096, 99 intervals, rk4,
+// H 8, W 128, C 3) that is 13.3 GFLOP forward.  The backward evaluates each
+// stage twice (the replay and the VJP's recompute) and adds the VJP's products
+// (dh1 and dy, 2 W H (1 + C); the weight gradients as many again): 53.2 GFLOP.
+// Slab and residual traffic is
+// ~65 MB: latency- and compute-bound on the CUDA cores, not memory-bound.
+//
+// Both variants drop the TPU padding (H to 8 sublanes, the batch to 128
+// lanes, 16 slab rows per interval): operands are packed (feature, batch)
+// without padding.  No --use_fast_math: tanhf stays the accurate version.
+//
+// Two variants compute the same function; ff_variant picks one from the
+// shapes, and every shape inside the JAX package's caps (W <= 512,
+// C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
+//
+// Specialised variant (H and C compile-time; instantiated for the flagship
+// H 8, C 3 at widths whose backward fits in shared memory, W <= 432).
+//  * One thread per batch lane loops over the intervals; this replaces the
+//    TPU's sequential grid axis and its VMEM carry of z.  Blocks are one warp
+//    (32 lanes), so a 4096 batch spreads over 128 SMs.
+//  * The weights (W*H + C*H*W + W + C*H floats, ~17 KB at the flagship) sit
+//    in shared memory and are read as warp-wide broadcasts.
+//  * The hidden layer streams over W: each h1_w is computed and folded into
+//    the C*H pre-activation accumulators at once, so h1 never sits in
+//    registers whole.
+//  * The backward recomputes each interval's substeps and stages from the
+//    stored knot state, as the TPU kernel does.  Weight gradients are reduced
+//    per block: each stage's per-lane h1, dpre1, dpre2 and y are staged in
+//    shared memory, and each thread sums the 32 lanes for the weight columns
+//    it owns.  The per-block partials are written out and summed after the
+//    launch, as the JAX package sums its per-tile partials, so the result is
+//    deterministic: no float atomics.
+//
+// Generic variant (H, C and W at run time; every other shape).
+//  * One block of GEN_THREADS threads per batch lane (blocks stride over the
+//    lanes); the lane's state and activations sit in shared memory, and the
+//    threads split each matrix-vector product over its output rows.
+//  * The weights are read from device memory through L1: up to
+//    512 x 512 floats, more than a block's shared memory.
+//  * Weight gradients accumulate per block, in shared memory when they fit
+//    and in the block's own slice of the partials otherwise; each element
+//    has one owning thread, so the sums are deterministic.  The number of
+//    blocks is capped so the partials stay under 256 MB.
+//
+// Layouts (all float32, batch minor):
+//   ct   (n, 3, C, B)  rows b, 2c, 3d of the control's cubic per interval
+//   z0t  (H, B)        w1t (W, H)  b1 (W)  w2t (C*H, W)  b2 (C*H)
+//   w2t/b2 rows are in the kernel order q = i*H + h (the model's h*C + i,
+//   permuted by the wrapper).
+//   slot (n) int32     output slot of knot j + 1, or -1
+//   out  (n_out, H, B) zres (n, H, B): the state after every interval
+// Backward outputs: dct (n, 3, C, B), dz0 (H, B) and per-block partials
+//   dw1p (blocks, W, H), db1p (blocks, W), dw2p (blocks, W, C*H),
+//   db2p (blocks, C*H), with blocks = ff_backward_blocks(...).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int LANES = 32;        // threads per block, one batch lane each
+constexpr int PAD = LANES + 1;   // row stride of the per-lane staging buffers
+constexpr int GEN_THREADS = 128; // threads per block of the generic variant
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_SUBSTEPS = 8;
+constexpr size_t MAX_SMEM = 232448;          // dynamic shared memory a block may use
+constexpr size_t MAX_PARTIALS = size_t(1) << 26;  // floats of generic partials
+constexpr int BAD_ARGUMENT = -2;
+constexpr int BAD_VARIANT = -3;
+constexpr int SPECIALISED = 0;
+constexpr int GENERIC = 1;
+
+// An explicit RK tableau whose stage s reads only stage s - 1 (euler,
+// midpoint, heun, rk4): y_s = z + a_dt[s] * k_{s-1}.
+struct Tableau {
+  int n_stages;
+  double alpha_dt[MAX_STAGES];  // alpha_s * dt_sub, the stage's time offset
+  float a_dt[MAX_STAGES];       // dt_sub * A[s][s-1]
+  float c_dt[MAX_STAGES];       // dt_sub * b_s
+};
+
+template <int H, int C>
+struct Smem {
+  static constexpr int CH = C * H;
+  float* w1;  // [W][H]
+  float* w2;  // [W][CH]
+  float* b1;  // [W]
+  float* b2;  // [CH]
+  __device__ explicit Smem(float* base, int W)
+      : w1(base), w2(base + W * H), b1(base + W * H + W * CH),
+        b2(base + W * H + W * CH + W) {}
+  __device__ float* end() const { return b2 + CH; }
+};
+
+template <int H, int C>
+__device__ void load_field(const Smem<H, C>& s, const float* __restrict__ w1t,
+                           const float* __restrict__ b1,
+                           const float* __restrict__ w2t,
+                           const float* __restrict__ b2, int W) {
+  constexpr int CH = C * H;
+  for (int i = threadIdx.x; i < W * H; i += blockDim.x) s.w1[i] = w1t[i];
+  for (int i = threadIdx.x; i < W * CH; i += blockDim.x) {
+    const int w = i / CH, q = i - w * CH;
+    s.w2[i] = w2t[q * W + w];
+  }
+  for (int i = threadIdx.x; i < W; i += blockDim.x) s.b1[i] = b1[i];
+  for (int i = threadIdx.x; i < CH; i += blockDim.x) s.b2[i] = b2[i];
+}
+
+// dX/dt at fraction fr of the interval: b + (2c + 3d fr) fr.
+template <int C>
+__device__ __forceinline__ void control_derivative(const float (&sb)[C],
+                                                   const float (&sc)[C],
+                                                   const float (&sd)[C],
+                                                   float fr, float (&dx)[C]) {
+#pragma unroll
+  for (int i = 0; i < C; ++i) dx[i] = sb[i] + (sc[i] + sd[i] * fr) * fr;
+}
+
+// g = tanh(W2 relu(W1 y + b1) + b2), streaming the hidden layer over W.
+// With STAGE_H1, each h1_w is also stored in column threadIdx.x of h1buf.
+template <int H, int C, bool STAGE_H1>
+__device__ __forceinline__ void mlp_forward(const Smem<H, C>& s, int W,
+                                            const float (&y)[H],
+                                            float (&g)[C * H], float* h1buf) {
+  constexpr int CH = C * H;
+  float pre2[CH];
+#pragma unroll
+  for (int q = 0; q < CH; ++q) pre2[q] = 0.f;
+  for (int w = 0; w < W; ++w) {
+    const float* r1 = s.w1 + w * H;
+    float a = 0.f;
+#pragma unroll
+    for (int h = 0; h < H; ++h) a = fmaf(r1[h], y[h], a);
+    a += s.b1[w];
+    a = (a < 0.f) ? 0.f : a;
+    if (STAGE_H1) h1buf[w * PAD + threadIdx.x] = a;
+    const float* r2 = s.w2 + w * CH;
+#pragma unroll
+    for (int q = 0; q < CH; ++q) pre2[q] = fmaf(r2[q], a, pre2[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < CH; ++q) g[q] = tanhf(pre2[q] + s.b2[q]);
+}
+
+// k_h = sum_i g[i*H + h] dx_i
+template <int H, int C>
+__device__ __forceinline__ void contract(const float (&g)[C * H],
+                                         const float (&dx)[C], float (&k)[H]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    float acc = g[h] * dx[0];
+#pragma unroll
+    for (int i = 1; i < C; ++i) acc += g[i * H + h] * dx[i];
+    k[h] = acc;
+  }
+}
+
+__device__ __forceinline__ float stage_fraction(const Tableau& tab, int s,
+                                                int st, double dt) {
+  return (float)((double)s * dt + tab.alpha_dt[st]);
+}
+
+// One substep (all stages) from z, in place.  With ys != nullptr the stage
+// inputs are kept for the backward.
+template <int H, int C>
+__device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
+                        int s, double dt, const float (&sb)[C],
+                        const float (&sc)[C], const float (&sd)[C],
+                        float (&z)[H], float (*ys)[H]) {
+  constexpr int CH = C * H;
+  float znew[H], k[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) { znew[h] = z[h]; k[h] = 0.f; }
+  for (int st = 0; st < tab.n_stages; ++st) {
+    float y[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) y[h] = st ? z[h] + tab.a_dt[st] * k[h] : z[h];
+    if (ys) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) ys[st][h] = y[h];
+    }
+    float dx[C], g[CH];
+    control_derivative<C>(sb, sc, sd, stage_fraction(tab, s, st, dt), dx);
+    mlp_forward<H, C, false>(sm, W, y, g, nullptr);
+    contract<H, C>(g, dx, k);
+    if (tab.c_dt[st] != 0.f) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) znew[h] += tab.c_dt[st] * k[h];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) z[h] = znew[h];
+}
+
+template <int H, int C>
+__device__ __forceinline__ void load_slab(const float* __restrict__ ct, int j,
+                                          int B, int lane, bool live,
+                                          float (&sb)[C], float (&sc)[C],
+                                          float (&sd)[C]) {
+  const float* row = ct + (size_t)j * 3 * C * B + lane;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    sb[i] = live ? row[(size_t)i * B] : 0.f;
+    sc[i] = live ? row[(size_t)(C + i) * B] : 0.f;
+    sd[i] = live ? row[(size_t)(2 * C + i) * B] : 0.f;
+  }
+}
+
+template <int H, int C>
+__global__ void __launch_bounds__(LANES)
+    fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
+               const float* __restrict__ w1t, const float* __restrict__ b1,
+               const float* __restrict__ w2t, const float* __restrict__ b2,
+               const int* __restrict__ slot, float* __restrict__ out,
+               float* __restrict__ zres, int B, int n, int W, int m,
+               double dt, Tableau tab) {
+  extern __shared__ float smem[];
+  const Smem<H, C> sm(smem, W);
+  load_field<H, C>(sm, w1t, b1, w2t, b2, W);
+  __syncthreads();
+  const int lane = blockIdx.x * LANES + threadIdx.x;
+  if (lane >= B) return;
+
+  float z[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) z[h] = z0t[(size_t)h * B + lane];
+  for (int j = 0; j < n; ++j) {
+    float sb[C], sc[C], sd[C];
+    load_slab<H, C>(ct, j, B, lane, true, sb, sc, sd);
+    for (int s = 0; s < m; ++s)
+      substep<H, C>(sm, W, tab, s, dt, sb, sc, sd, z, nullptr);
+#pragma unroll
+    for (int h = 0; h < H; ++h) zres[((size_t)j * H + h) * B + lane] = z[h];
+    const int sl = slot[j];
+    if (sl >= 0) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) out[((size_t)sl * H + h) * B + lane] = z[h];
+    }
+  }
+}
+
+template <int H, int C>
+struct BwdSmem {
+  static constexpr int CH = C * H;
+  Smem<H, C> field;
+  float* h1;      // [W][PAD]   h1 of the stage, column = lane
+  float* dpre1;   // [W][PAD]
+  float* dpre2;   // [LANES][CH]
+  float* y;       // [LANES][H]
+  float* acc_w1;  // [W][H]
+  float* acc_w2;  // [W][CH]
+  float* acc_b1;  // [W]
+  float* acc_b2;  // [CH]
+  __device__ BwdSmem(float* base, int W) : field(base, W) {
+    h1 = field.end();
+    dpre1 = h1 + W * PAD;
+    dpre2 = dpre1 + W * PAD;
+    y = dpre2 + LANES * CH;
+    acc_w1 = y + LANES * H;
+    acc_w2 = acc_w1 + W * H;
+    acc_b1 = acc_w2 + W * CH;
+    acc_b2 = acc_b1 + W;
+  }
+};
+
+// VJP of one vector-field evaluation k = contract(mlp(y), dx) for cotangent
+// u of k: returns dy and ddx, and adds this stage's weight gradients, summed
+// over the block's lanes, to the shared accumulators.  Every thread of the
+// block calls it (lanes past the batch with zero state and cotangent).
+template <int H, int C>
+__device__ void stage_vjp(const BwdSmem<H, C>& sm, int W, const float (&u)[H],
+                          const float (&y)[H], const float (&dx)[C],
+                          float (&dy)[H], float (&ddx)[C]) {
+  constexpr int CH = C * H;
+  const int tid = threadIdx.x;
+  float g[CH];
+  mlp_forward<H, C, true>(sm.field, W, y, g, sm.h1);
+
+  float dp2[CH];
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int q = i * H + h;
+      acc += u[h] * g[q];
+      dp2[q] = (u[h] * dx[i]) * (1.f - g[q] * g[q]);
+    }
+    ddx[i] = acc;
+  }
+#pragma unroll
+  for (int q = 0; q < CH; ++q) sm.dpre2[tid * CH + q] = dp2[q];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    sm.y[tid * H + h] = y[h];
+    dy[h] = 0.f;
+  }
+  for (int w = 0; w < W; ++w) {
+    const float* r2 = sm.field.w2 + w * CH;
+    float dh = 0.f;
+#pragma unroll
+    for (int q = 0; q < CH; ++q) dh = fmaf(r2[q], dp2[q], dh);
+    const float dp1 = sm.h1[w * PAD + tid] > 0.f ? dh : 0.f;
+    sm.dpre1[w * PAD + tid] = dp1;
+    const float* r1 = sm.field.w1 + w * H;
+#pragma unroll
+    for (int h = 0; h < H; ++h) dy[h] = fmaf(r1[h], dp1, dy[h]);
+  }
+  __syncthreads();
+
+  // Thread tid owns weight columns w = tid, tid + LANES, ...
+  for (int w = tid; w < W; w += LANES) {
+    float a2[CH], a1[H], ab1 = 0.f;
+#pragma unroll
+    for (int q = 0; q < CH; ++q) a2[q] = 0.f;
+#pragma unroll
+    for (int h = 0; h < H; ++h) a1[h] = 0.f;
+    for (int l = 0; l < LANES; ++l) {
+      const float hv = sm.h1[w * PAD + l];
+      const float pv = sm.dpre1[w * PAD + l];
+      const float* p2 = sm.dpre2 + l * CH;
+      const float* yl = sm.y + l * H;
+#pragma unroll
+      for (int q = 0; q < CH; ++q) a2[q] = fmaf(p2[q], hv, a2[q]);
+#pragma unroll
+      for (int h = 0; h < H; ++h) a1[h] = fmaf(pv, yl[h], a1[h]);
+      ab1 += pv;
+    }
+#pragma unroll
+    for (int q = 0; q < CH; ++q) sm.acc_w2[w * CH + q] += a2[q];
+#pragma unroll
+    for (int h = 0; h < H; ++h) sm.acc_w1[w * H + h] += a1[h];
+    sm.acc_b1[w] += ab1;
+  }
+  for (int q = tid; q < CH; q += LANES) {
+    float acc = 0.f;
+    for (int l = 0; l < LANES; ++l) acc += sm.dpre2[l * CH + q];
+    sm.acc_b2[q] += acc;
+  }
+  __syncthreads();
+}
+
+template <int H, int C>
+__global__ void __launch_bounds__(LANES)
+    bwd_kernel(const float* __restrict__ ct, const float* __restrict__ zres,
+               const float* __restrict__ z0t, const float* __restrict__ gz,
+               const float* __restrict__ w1t, const float* __restrict__ b1,
+               const float* __restrict__ w2t, const float* __restrict__ b2,
+               const int* __restrict__ slot, float* __restrict__ dct,
+               float* __restrict__ dz0, float* __restrict__ dw1p,
+               float* __restrict__ db1p, float* __restrict__ dw2p,
+               float* __restrict__ db2p, int B, int n, int W, int m,
+               double dt, Tableau tab) {
+  constexpr int CH = C * H;
+  extern __shared__ float smem[];
+  const BwdSmem<H, C> sm(smem, W);
+  load_field<H, C>(sm.field, w1t, b1, w2t, b2, W);
+  for (int i = threadIdx.x; i < W * H; i += LANES) sm.acc_w1[i] = 0.f;
+  for (int i = threadIdx.x; i < W * CH; i += LANES) sm.acc_w2[i] = 0.f;
+  for (int i = threadIdx.x; i < W; i += LANES) sm.acc_b1[i] = 0.f;
+  for (int i = threadIdx.x; i < CH; i += LANES) sm.acc_b2[i] = 0.f;
+  __syncthreads();
+
+  const int lane = blockIdx.x * LANES + threadIdx.x;
+  const bool live = lane < B;
+  const int S = tab.n_stages;
+  float lam[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) lam[h] = 0.f;
+  float zs[MAX_SUBSTEPS][H];
+
+  for (int jr = 0; jr < n; ++jr) {
+    const int j = n - 1 - jr;
+    // Fold in the cotangent of a requested knot at this interval's end.
+    const int sl = slot[j];
+    if (live && sl >= 0) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) lam[h] += gz[((size_t)sl * H + h) * B + lane];
+    }
+    float sb[C], sc[C], sd[C];
+    load_slab<H, C>(ct, j, B, lane, live, sb, sc, sd);
+    // Interval j starts from knot j: z0 or the residual of interval j - 1.
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float v = 0.f;
+      if (live)
+        v = j == 0 ? z0t[(size_t)h * B + lane]
+                   : zres[((size_t)(j - 1) * H + h) * B + lane];
+      zs[0][h] = v;
+    }
+    // Recompute the substep chain z_0 .. z_{m-1}.
+    for (int s = 0; s + 1 < m; ++s) {
+      float z[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) z[h] = zs[s][h];
+      substep<H, C>(sm.field, W, tab, s, dt, sb, sc, sd, z, nullptr);
+#pragma unroll
+      for (int h = 0; h < H; ++h) zs[s + 1][h] = z[h];
+    }
+
+    float acc_b[C], acc_c[C], acc_d[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) acc_b[i] = acc_c[i] = acc_d[i] = 0.f;
+    for (int s = m - 1; s >= 0; --s) {
+      float ys[MAX_STAGES][H];
+      {
+        float z[H];
+#pragma unroll
+        for (int h = 0; h < H; ++h) z[h] = zs[s][h];
+        substep<H, C>(sm.field, W, tab, s, dt, sb, sc, sd, z, ys);
+      }
+      float v[MAX_STAGES][H];
+      for (int st = S - 1; st >= 0; --st) {
+        float u[H], y[H], dy[H], dx[C], ddx[C];
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          float uh = tab.c_dt[st] != 0.f ? tab.c_dt[st] * lam[h] : 0.f;
+          if (st + 1 < S) uh += tab.a_dt[st + 1] * v[st + 1][h];
+          u[h] = uh;
+          y[h] = ys[st][h];
+        }
+        const float fr = stage_fraction(tab, s, st, dt);
+        control_derivative<C>(sb, sc, sd, fr, dx);
+        stage_vjp<H, C>(sm, W, u, y, dx, dy, ddx);
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          acc_b[i] += ddx[i];
+          acc_c[i] += fr * ddx[i];
+          acc_d[i] += (fr * fr) * ddx[i];
+        }
+#pragma unroll
+        for (int h = 0; h < H; ++h) v[st][h] = dy[h];
+      }
+      for (int st = 0; st < S; ++st) {
+#pragma unroll
+        for (int h = 0; h < H; ++h) lam[h] += v[st][h];
+      }
+    }
+    if (live) {
+      float* row = dct + (size_t)j * 3 * C * B + lane;
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        row[(size_t)i * B] = acc_b[i];
+        row[(size_t)(C + i) * B] = acc_c[i];
+        row[(size_t)(2 * C + i) * B] = acc_d[i];
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) dz0[(size_t)h * B + lane] = lam[h];
+  }
+  __syncthreads();
+  const size_t blk = blockIdx.x;
+  for (int i = threadIdx.x; i < W * H; i += LANES) dw1p[blk * W * H + i] = sm.acc_w1[i];
+  for (int i = threadIdx.x; i < W * CH; i += LANES) dw2p[blk * W * CH + i] = sm.acc_w2[i];
+  for (int i = threadIdx.x; i < W; i += LANES) db1p[blk * W + i] = sm.acc_b1[i];
+  for (int i = threadIdx.x; i < CH; i += LANES) db2p[blk * CH + i] = sm.acc_b2[i];
+}
+
+// ---------------------------------------------------------------------------
+// Generic variant: H, C and W at run time.
+
+struct GenField {
+  const float* w1t;  // (W, H)
+  const float* b1;   // (W)
+  const float* w2t;  // (C*H, W)
+  const float* b2;   // (C*H)
+  int H, C, W;
+};
+
+// One block's weight-gradient sums, in the layout of the partials.
+struct Grads {
+  float* w1;  // [W][H]
+  float* b1;  // [W]
+  float* w2;  // [W][CH]
+  float* b2;  // [CH]
+};
+
+__host__ __device__ inline size_t partial_floats(int H, int C, int W) {
+  return (size_t)W * H + W + (size_t)W * C * H + (size_t)C * H;
+}
+
+__host__ __device__ inline size_t take(size_t& top, size_t count) {
+  const size_t at = top;
+  top += count;
+  return at;
+}
+
+// Offsets, in floats, of the generic kernels' shared-memory vectors.
+struct GenLayout {
+  size_t z, znew, k, y, h1, g, dx, slab;     // both kernels
+  size_t lam, zs, ys, v, u, dp1, dp2, acc;   // backward only
+  size_t total;
+  __host__ __device__ GenLayout(int H, int C, int W, int m, int S, bool bwd,
+                                bool acc_smem) {
+    const int CH = C * H;
+    size_t top = 0;
+    z = take(top, H);
+    znew = take(top, H);
+    k = take(top, H);
+    y = take(top, H);
+    h1 = take(top, W);
+    g = take(top, CH);
+    dx = take(top, C);
+    slab = take(top, 3 * C);
+    lam = zs = ys = v = u = dp1 = dp2 = acc = top;
+    if (bwd) {
+      lam = take(top, H);
+      zs = take(top, (size_t)m * H);
+      ys = take(top, (size_t)S * H);
+      v = take(top, (size_t)S * H);
+      u = take(top, H);
+      dp1 = take(top, W);
+      dp2 = take(top, CH);
+      if (acc_smem) acc = take(top, partial_floats(H, C, W));
+    }
+    total = top;
+  }
+};
+
+struct GenVecs {
+  float *z, *znew, *k, *y, *h1, *g, *dx, *slab;
+  float *lam, *zs, *ys, *v, *u, *dp1, *dp2, *acc;
+  __device__ GenVecs(float* base, const GenLayout& L)
+      : z(base + L.z), znew(base + L.znew), k(base + L.k), y(base + L.y),
+        h1(base + L.h1), g(base + L.g), dx(base + L.dx), slab(base + L.slab),
+        lam(base + L.lam), zs(base + L.zs), ys(base + L.ys), v(base + L.v),
+        u(base + L.u), dp1(base + L.dp1), dp2(base + L.dp2),
+        acc(base + L.acc) {}
+};
+
+// h1 = relu(W1 y + b1), then g = tanh(W2 h1 + b2), each output row to one
+// thread.  Starts after, and ends with, a barrier.
+__device__ void gen_mlp(const GenField& f, const float* y, float* h1,
+                        float* g) {
+  const int H = f.H, W = f.W, CH = f.C * f.H;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const float* r1 = f.w1t + (size_t)w * H;
+    float a = 0.f;
+    for (int h = 0; h < H; ++h) a = fmaf(r1[h], y[h], a);
+    a += f.b1[w];
+    h1[w] = (a < 0.f) ? 0.f : a;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < CH; q += blockDim.x) {
+    const float* r2 = f.w2t + (size_t)q * W;
+    float a = 0.f;
+    for (int w = 0; w < W; ++w) a = fmaf(r2[w], h1[w], a);
+    g[q] = tanhf(a + f.b2[q]);
+  }
+  __syncthreads();
+}
+
+// dX/dt at fraction fr of the interval for channel i (thread i < C).
+__device__ __forceinline__ float gen_dx(const GenVecs& s, int C, int i,
+                                        float fr) {
+  return s.slab[i] + (s.slab[C + i] + s.slab[2 * C + i] * fr) * fr;
+}
+
+// One substep (all stages) from z in shared memory, in place; with ys the
+// stage inputs are kept (ys[st * H + h]).  Each state entry h belongs to one
+// thread throughout.  Starts after, and ends with, a barrier.
+__device__ void gen_substep(const GenField& f, const GenVecs& s,
+                            const Tableau& tab, int step, double dt, float* z,
+                            float* ys) {
+  const int H = f.H, C = f.C, tid = threadIdx.x, nt = blockDim.x;
+  for (int st = 0; st < tab.n_stages; ++st) {
+    for (int h = tid; h < H; h += nt) {
+      if (st == 0) s.znew[h] = z[h];
+      const float yh = st ? z[h] + tab.a_dt[st] * s.k[h] : z[h];
+      s.y[h] = yh;
+      if (ys) ys[st * H + h] = yh;
+    }
+    if (tid < C) s.dx[tid] = gen_dx(s, C, tid, stage_fraction(tab, step, st, dt));
+    __syncthreads();
+    gen_mlp(f, s.y, s.h1, s.g);
+    for (int h = tid; h < H; h += nt) {
+      float acc = s.g[h] * s.dx[0];
+      for (int i = 1; i < C; ++i) acc += s.g[i * H + h] * s.dx[i];
+      s.k[h] = acc;
+      if (tab.c_dt[st] != 0.f) s.znew[h] += tab.c_dt[st] * acc;
+    }
+    __syncthreads();
+  }
+  for (int h = tid; h < H; h += nt) z[h] = s.znew[h];
+  __syncthreads();
+}
+
+// VJP of one vector-field evaluation k = contract(mlp(y), dx) for the
+// cotangent s.u of k, with dx in s.dx: writes dy and adds the stage's weight
+// gradients to gr.  Returns ddx_i to thread i < C.  Starts after, and ends
+// with, a barrier.
+__device__ float gen_stage_vjp(const GenField& f, const GenVecs& s,
+                               const float* y, float* dy, const Grads& gr) {
+  const int H = f.H, C = f.C, W = f.W, CH = C * H;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  gen_mlp(f, y, s.h1, s.g);
+  for (int q = tid; q < CH; q += nt) {
+    const int i = q / H, h = q - i * H;
+    const float gq = s.g[q];
+    s.dp2[q] = (s.u[h] * s.dx[i]) * (1.f - gq * gq);
+  }
+  float ddx = 0.f;
+  if (tid < C) {
+    for (int h = 0; h < H; ++h) ddx += s.u[h] * s.g[tid * H + h];
+  }
+  __syncthreads();
+  for (int w = tid; w < W; w += nt) {
+    float dh = 0.f;
+    for (int q = 0; q < CH; ++q) dh = fmaf(f.w2t[(size_t)q * W + w], s.dp2[q], dh);
+    s.dp1[w] = s.h1[w] > 0.f ? dh : 0.f;
+  }
+  __syncthreads();
+  for (int h = tid; h < H; h += nt) {
+    float acc = 0.f;
+    for (int w = 0; w < W; ++w) acc = fmaf(f.w1t[(size_t)w * H + h], s.dp1[w], acc);
+    dy[h] = acc;
+  }
+  for (int e = tid; e < W * H; e += nt) {
+    const int w = e / H;
+    gr.w1[e] += s.dp1[w] * y[e - w * H];
+  }
+  for (int e = tid; e < W * CH; e += nt) {
+    const int w = e / CH;
+    gr.w2[e] += s.h1[w] * s.dp2[e - w * CH];
+  }
+  for (int w = tid; w < W; w += nt) gr.b1[w] += s.dp1[w];
+  for (int q = tid; q < CH; q += nt) gr.b2[q] += s.dp2[q];
+  __syncthreads();
+  return ddx;
+}
+
+__global__ void __launch_bounds__(GEN_THREADS)
+    gen_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
+                   GenField f, const int* __restrict__ slot,
+                   float* __restrict__ out, float* __restrict__ zres, int B,
+                   int n, int m, double dt, Tableau tab) {
+  extern __shared__ float smem[];
+  const GenVecs s(smem, GenLayout(f.H, f.C, f.W, m, tab.n_stages, false, false));
+  const int H = f.H, C3 = 3 * f.C, tid = threadIdx.x, nt = blockDim.x;
+  for (int lane = blockIdx.x; lane < B; lane += gridDim.x) {
+    for (int h = tid; h < H; h += nt) s.z[h] = z0t[(size_t)h * B + lane];
+    for (int j = 0; j < n; ++j) {
+      for (int r = tid; r < C3; r += nt) s.slab[r] = ct[((size_t)j * C3 + r) * B + lane];
+      __syncthreads();
+      for (int step = 0; step < m; ++step) gen_substep(f, s, tab, step, dt, s.z, nullptr);
+      const int sl = slot[j];
+      for (int h = tid; h < H; h += nt) {
+        zres[((size_t)j * H + h) * B + lane] = s.z[h];
+        if (sl >= 0) out[((size_t)sl * H + h) * B + lane] = s.z[h];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(GEN_THREADS)
+    gen_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ zres,
+                   const float* __restrict__ z0t, const float* __restrict__ gz,
+                   GenField f, const int* __restrict__ slot,
+                   float* __restrict__ dct, float* __restrict__ dz0,
+                   float* __restrict__ dw1p, float* __restrict__ db1p,
+                   float* __restrict__ dw2p, float* __restrict__ db2p, int B,
+                   int n, int m, double dt, Tableau tab, bool acc_smem) {
+  extern __shared__ float smem[];
+  const int H = f.H, C = f.C, W = f.W, CH = C * H, S = tab.n_stages;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const GenLayout L(H, C, W, m, S, true, acc_smem);
+  const GenVecs s(smem, L);
+  const size_t blk = blockIdx.x;
+  const Grads mine{dw1p + blk * W * H, db1p + blk * W, dw2p + blk * W * CH,
+                   db2p + blk * CH};
+  const Grads gr = acc_smem ? Grads{s.acc, s.acc + W * H, s.acc + W * H + W,
+                                    s.acc + W * H + W + W * CH}
+                            : mine;
+  // Each element of gr is zeroed, summed into and copied out by one thread.
+  for (int e = tid; e < W * H; e += nt) gr.w1[e] = 0.f;
+  for (int e = tid; e < W * CH; e += nt) gr.w2[e] = 0.f;
+  for (int w = tid; w < W; w += nt) gr.b1[w] = 0.f;
+  for (int q = tid; q < CH; q += nt) gr.b2[q] = 0.f;
+
+  for (int lane = blockIdx.x; lane < B; lane += gridDim.x) {
+    for (int h = tid; h < H; h += nt) s.lam[h] = 0.f;
+    for (int jr = 0; jr < n; ++jr) {
+      const int j = n - 1 - jr;
+      // Fold in the cotangent of a requested knot at this interval's end;
+      // interval j starts from knot j: z0 or the residual of interval j - 1.
+      const int sl = slot[j];
+      for (int h = tid; h < H; h += nt) {
+        if (sl >= 0) s.lam[h] += gz[((size_t)sl * H + h) * B + lane];
+        s.zs[h] = j == 0 ? z0t[(size_t)h * B + lane]
+                         : zres[((size_t)(j - 1) * H + h) * B + lane];
+      }
+      for (int r = tid; r < 3 * C; r += nt) s.slab[r] = ct[((size_t)j * 3 * C + r) * B + lane];
+      __syncthreads();
+      // Recompute the substep chain z_0 .. z_{m-1}.
+      for (int step = 0; step + 1 < m; ++step) {
+        float* next = s.zs + (size_t)(step + 1) * H;
+        for (int h = tid; h < H; h += nt) next[h] = s.zs[(size_t)step * H + h];
+        gen_substep(f, s, tab, step, dt, next, nullptr);
+      }
+      float acc_b = 0.f, acc_c = 0.f, acc_d = 0.f;  // channel tid < C
+      for (int step = m - 1; step >= 0; --step) {
+        for (int h = tid; h < H; h += nt) s.z[h] = s.zs[(size_t)step * H + h];
+        gen_substep(f, s, tab, step, dt, s.z, s.ys);
+        for (int st = S - 1; st >= 0; --st) {
+          for (int h = tid; h < H; h += nt) {
+            float uh = tab.c_dt[st] != 0.f ? tab.c_dt[st] * s.lam[h] : 0.f;
+            if (st + 1 < S) uh += tab.a_dt[st + 1] * s.v[(st + 1) * H + h];
+            s.u[h] = uh;
+          }
+          const float fr = stage_fraction(tab, step, st, dt);
+          if (tid < C) s.dx[tid] = gen_dx(s, C, tid, fr);
+          __syncthreads();
+          const float ddx = gen_stage_vjp(f, s, s.ys + st * H, s.v + st * H, gr);
+          acc_b += ddx;
+          acc_c += fr * ddx;
+          acc_d += (fr * fr) * ddx;
+        }
+        for (int h = tid; h < H; h += nt) {
+          for (int st = 0; st < S; ++st) s.lam[h] += s.v[st * H + h];
+        }
+      }
+      if (tid < C) {
+        float* row = dct + (size_t)j * 3 * C * B + lane;
+        row[(size_t)tid * B] = acc_b;
+        row[(size_t)(C + tid) * B] = acc_c;
+        row[(size_t)(2 * C + tid) * B] = acc_d;
+      }
+    }
+    for (int h = tid; h < H; h += nt) dz0[(size_t)h * B + lane] = s.lam[h];
+  }
+  if (acc_smem) {
+    for (int e = tid; e < W * H; e += nt) mine.w1[e] = gr.w1[e];
+    for (int e = tid; e < W * CH; e += nt) mine.w2[e] = gr.w2[e];
+    for (int w = tid; w < W; w += nt) mine.b1[w] = gr.b1[w];
+    for (int q = tid; q < CH; q += nt) mine.b2[q] = gr.b2[q];
+  }
+}
+
+size_t fwd_smem_bytes(int H, int C, int W) {
+  return sizeof(float) * ((size_t)W * H + (size_t)W * C * H + W + C * H);
+}
+
+size_t bwd_smem_bytes(int H, int C, int W) {
+  return fwd_smem_bytes(H, C, W) +
+         sizeof(float) * (2 * (size_t)W * PAD + (size_t)LANES * C * H +
+                          (size_t)LANES * H) +
+         fwd_smem_bytes(H, C, W);
+}
+
+int make_tableau(int n_stages, const double* alpha, const double* a,
+                 const double* c, double dt, Tableau* tab) {
+  if (n_stages < 1 || n_stages > MAX_STAGES) return BAD_ARGUMENT;
+  tab->n_stages = n_stages;
+  for (int s = 0; s < MAX_STAGES; ++s) {
+    const bool on = s < n_stages;
+    tab->alpha_dt[s] = on ? alpha[s] * dt : 0.0;
+    tab->a_dt[s] = on ? (float)(a[s] * dt) : 0.f;
+    tab->c_dt[s] = on ? (float)(c[s] * dt) : 0.f;
+  }
+  return 0;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int H, int C>
+int launch_fwd(const float* ct, const float* z0t, const float* w1t,
+               const float* b1, const float* w2t, const float* b2,
+               const int* slot, float* out, float* zres, int B, int n, int W,
+               int m, double dt, const Tableau& tab, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes(H, C, W);
+  cudaError_t err = set_smem(fwd_kernel<H, C>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + LANES - 1) / LANES);
+  fwd_kernel<H, C><<<grid, LANES, smem, stream>>>(ct, z0t, w1t, b1, w2t, b2,
+                                                  slot, out, zres, B, n, W, m,
+                                                  dt, tab);
+  return (int)cudaGetLastError();
+}
+
+template <int H, int C>
+int launch_bwd(const float* ct, const float* zres, const float* z0t,
+               const float* gz, const float* w1t, const float* b1,
+               const float* w2t, const float* b2, const int* slot, float* dct,
+               float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
+               int B, int n, int W, int m, double dt, const Tableau& tab,
+               cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(H, C, W);
+  cudaError_t err = set_smem(bwd_kernel<H, C>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + LANES - 1) / LANES);
+  bwd_kernel<H, C><<<grid, LANES, smem, stream>>>(
+      ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct, dz0, dw1p, db1p, dw2p,
+      db2p, B, n, W, m, dt, tab);
+  return (int)cudaGetLastError();
+}
+
+int launch_gen_fwd(const float* ct, const float* z0t, const GenField& f,
+                   const int* slot, float* out, float* zres, int B, int n,
+                   int m, double dt, const Tableau& tab, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * GenLayout(f.H, f.C, f.W, m, tab.n_stages, false, false).total;
+  if (smem > MAX_SMEM) return BAD_ARGUMENT;
+  cudaError_t err = set_smem(gen_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gen_fwd_kernel<<<B, GEN_THREADS, smem, stream>>>(ct, z0t, f, slot, out, zres,
+                                                   B, n, m, dt, tab);
+  return (int)cudaGetLastError();
+}
+
+int gen_backward_blocks(int B, int H, int C, int W) {
+  const size_t cap = MAX_PARTIALS / partial_floats(H, C, W);
+  return (int)(cap < 1 ? 1 : (cap < (size_t)B ? cap : (size_t)B));
+}
+
+int launch_gen_bwd(const float* ct, const float* zres, const float* z0t,
+                   const float* gz, const GenField& f, const int* slot,
+                   float* dct, float* dz0, float* dw1p, float* db1p,
+                   float* dw2p, float* db2p, int B, int n, int m, double dt,
+                   const Tableau& tab, cudaStream_t stream) {
+  const int S = tab.n_stages;
+  const bool acc_smem =
+      sizeof(float) * GenLayout(f.H, f.C, f.W, m, S, true, true).total <= MAX_SMEM;
+  const size_t smem =
+      sizeof(float) * GenLayout(f.H, f.C, f.W, m, S, true, acc_smem).total;
+  if (smem > MAX_SMEM) return BAD_ARGUMENT;
+  cudaError_t err = set_smem(gen_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gen_bwd_kernel<<<gen_backward_blocks(B, f.H, f.C, f.W), GEN_THREADS, smem,
+                   stream>>>(ct, zres, z0t, gz, f, slot, dct, dz0, dw1p, db1p,
+                             dw2p, db2p, B, n, m, dt, tab, acc_smem);
+  return (int)cudaGetLastError();
+}
+
+bool specialised_fits(int H, int C, int W) {
+  return H == 8 && C == 3 && bwd_smem_bytes(8, 3, W) <= MAX_SMEM;
+}
+
+int check_call(int B, int n, int H, int C, int W, int m, int variant,
+               int n_stages, const double* alpha, const double* a,
+               const double* c, double dt, Tableau* tab) {
+  if (B < 1 || n < 1 || H < 1 || C < 1 || W < 1 || m < 1 || m > MAX_SUBSTEPS)
+    return BAD_ARGUMENT;
+  if (variant != GENERIC && !(variant == SPECIALISED && specialised_fits(H, C, W)))
+    return BAD_VARIANT;
+  return make_tableau(n_stages, alpha, a, c, dt, tab);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ff_error_string(int code) {
+  if (code == BAD_ARGUMENT) return "invalid argument";
+  if (code == BAD_VARIANT) return "no such kernel variant for these shapes";
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// The variant that runs these shapes: 0 specialised, 1 generic.
+int ff_variant(int H, int C, int W, int force_generic) {
+  return !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
+}
+
+// Blocks of the backward launch: the leading size of its weight partials.
+int ff_backward_blocks(int B, int H, int C, int W, int variant) {
+  return variant == SPECIALISED ? (B + LANES - 1) / LANES
+                                : gen_backward_blocks(B, H, C, W);
+}
+
+int ff_forward(const float* ct, const float* z0t, const float* w1t,
+               const float* b1, const float* w2t, const float* b2,
+               const int* slot, float* out, float* zres, int B, int n, int H,
+               int C, int W, int m, double dt, int n_stages,
+               const double* alpha, const double* a, const double* c,
+               int variant, void* stream) {
+  Tableau tab;
+  const int rc = check_call(B, n, H, C, W, m, variant, n_stages, alpha, a, c, dt, &tab);
+  if (rc) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (variant == SPECIALISED)
+    return launch_fwd<8, 3>(ct, z0t, w1t, b1, w2t, b2, slot, out, zres, B, n,
+                            W, m, dt, tab, st);
+  return launch_gen_fwd(ct, z0t, GenField{w1t, b1, w2t, b2, H, C, W}, slot,
+                        out, zres, B, n, m, dt, tab, st);
+}
+
+int ff_backward(const float* ct, const float* zres, const float* z0t,
+                const float* gz, const float* w1t, const float* b1,
+                const float* w2t, const float* b2, const int* slot,
+                float* dct, float* dz0, float* dw1p, float* db1p, float* dw2p,
+                float* db2p, int B, int n, int H, int C, int W, int m,
+                double dt, int n_stages, const double* alpha, const double* a,
+                const double* c, int variant, void* stream) {
+  Tableau tab;
+  const int rc = check_call(B, n, H, C, W, m, variant, n_stages, alpha, a, c, dt, &tab);
+  if (rc) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (variant == SPECIALISED)
+    return launch_bwd<8, 3>(ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct,
+                            dz0, dw1p, db1p, dw2p, db2p, B, n, W, m, dt, tab,
+                            st);
+  return launch_gen_bwd(ct, zres, z0t, gz, GenField{w1t, b1, w2t, b2, H, C, W},
+                        slot, dct, dz0, dw1p, db1p, dw2p, db2p, B, n, m, dt,
+                        tab, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,94 @@
+"""Neural CDE model (port of ``torchcde_tpu/models/neural_cde.py``).
+
+    vector field: Linear -> ReLU -> Linear -> tanh, reshaped to
+                  (..., hidden_channels, input_channels)
+    NeuralCDE:    z0 = initial(X(t0));  z_T = cdeint(X, f, z0, interval);
+                  pred = readout(z_T)
+"""
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..interpolation import CubicSpline
+from ..solvers import cdeint
+from ..solvers.terms import MLPVectorField
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralCDEConfig:
+    input_channels: int
+    hidden_channels: int
+    output_channels: int
+    width: int = 128
+    interpolation: str = "cubic"
+    solver: str = "dopri5"
+    adjoint: bool = True
+    rtol: float = 1e-4
+    atol: float = 1e-6
+    step_size: float = None
+    compute_dtype: str = None
+
+
+def make_control(coeffs, cfg: NeuralCDEConfig, t=None):
+    if cfg.interpolation == "cubic":
+        return CubicSpline(coeffs, t)
+    if cfg.interpolation == "linear":
+        raise NotImplementedError(
+            "LinearInterpolation is not ported to torchcde_tpu_torch yet "
+            "(ROADMAP.md queue 1, 'NaN and irregular preprocessing')."
+        )
+    raise ValueError(f"Unknown interpolation {cfg.interpolation!r}")
+
+
+def _uniform_(linear, generator):
+    """U(-1/sqrt(n_in), 1/sqrt(n_in)) for weight and bias, as the JAX init."""
+    bound = 1.0 / math.sqrt(linear.in_features)
+    with torch.no_grad():
+        linear.weight.uniform_(-bound, bound, generator=generator)
+        linear.bias.uniform_(-bound, bound, generator=generator)
+
+
+class NeuralCDE(nn.Module):
+    """Neural CDE: coeffs (..., L', 4 * channels) -> predictions (..., output)."""
+
+    def __init__(self, cfg: NeuralCDEConfig, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if cfg.compute_dtype is not None:
+            raise NotImplementedError(
+                "compute_dtype (bf16 coefficient storage) is not ported to "
+                "torchcde_tpu_torch yet (ROADMAP.md queue 2, 'K1 bf16 slab storage')."
+            )
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.initial = nn.Linear(cfg.input_channels, cfg.hidden_channels, **kw)
+        self.func = MLPVectorField(cfg.hidden_channels, cfg.input_channels,
+                                   cfg.width, **kw)
+        self.readout = nn.Linear(cfg.hidden_channels, cfg.output_channels, **kw)
+        for linear in (self.initial, self.func.linear1, self.func.linear2,
+                       self.readout):
+            _uniform_(linear, generator)
+
+    def forward(self, coeffs, t=None):
+        cfg = self.cfg
+        X = make_control(coeffs, cfg, t)
+        interval = X.interval
+        z0 = self.initial(X.evaluate(interval[0]))
+        kwargs = {}
+        if cfg.step_size is not None:
+            kwargs["options"] = {"step_size": cfg.step_size}
+        z_t = cdeint(X=X, func=self.func, z0=z0, t=interval,
+                     adjoint=cfg.adjoint, method=cfg.solver, rtol=cfg.rtol,
+                     atol=cfg.atol, **kwargs)
+        return self.readout(z_t[..., -1, :])
+
+
+def bce_with_logits(logits, labels):
+    """Binary cross entropy on logits (mean over the batch)."""
+    return torch.mean(
+        torch.clamp(logits, min=0) - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    )

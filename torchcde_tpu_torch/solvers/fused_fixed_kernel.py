@@ -1,0 +1,336 @@
+"""The whole fixed-step Neural CDE solve as one CUDA kernel pair.
+
+Replaces ``torchcde_tpu/solvers/fused_pallas.py::_fwd_kernel`` and
+``_bwd_kernel`` (built by ``_make_fused_solve``, reached through
+``try_fused_mlp_pallas``).  The kernels live in ``csrc/fused_fixed.cu``,
+whose header notes what bounds them on the card and what their design does
+about it.  This module holds what surrounds them:
+
+* ``pack_operands``: the kernel layout, made by differentiable tensor ops so
+  autograd carries gradients through the packing, as in the JAX package;
+* ``fused_fixed_solve_reference``: the plain PyTorch version of the kernels'
+  function on the same operands, differentiable by autograd;
+* ``fused_fixed_solve``: launches the kernels for CUDA tensors (through a
+  ``torch.autograd.Function`` whose backward is the backward kernel) and runs
+  the plain version for CPU tensors;
+* ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches.
+
+Eligibility mirrors the JAX package's ``_pack_operands`` caps (width <= 512,
+C * H <= 512, 3 * C <= 16, m <= 8, one dtype) and is decided from shapes
+before any launch; a declined solve returns None and ``try_fused_fixed``
+streams the rows instead.  On the card the kernels take float32, and every
+float32 shape inside the caps launches one of their two variants (see the
+CUDA source); bfloat16, which the JAX kernel also takes, raises
+``NotImplementedError``.  A CUDA tensor never falls back to the plain
+version: the kernel launches or raises.
+"""
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from .runge_kutta import TABLEAUS
+
+# Caps mirrored from the JAX package's _pack_operands.
+MAX_WIDTH = 512
+MAX_CONTRACT = 512  # C * H
+MAX_SLAB_ROWS = 16  # 3 * C
+MAX_SUBSTEPS = 8
+
+BF16_NOT_PORTED = (
+    "bfloat16 operands of the fused fixed-step solve are not ported to "
+    "torchcde_tpu_torch yet (ROADMAP.md queue 2, 'K1 bf16 slab storage').")
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+def reset_launch_counts():
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    FWD_LAUNCHES = 0
+    BWD_LAUNCHES = 0
+
+
+def _chain_form(method):
+    """(stage time fractions, weight of the previous stage, solution weights).
+
+    Every tableau here reads only the previous stage (A is zero off its
+    subdiagonal), which is what lets the kernels carry one stage at a time."""
+    alpha, beta, c_sol = TABLEAUS[method]
+    prev = [0.0]
+    for s, row in enumerate(beta, start=1):
+        if any(coef != 0.0 for coef in row[:-1]) or len(row) != s:
+            raise ValueError(f"{method}: stage {s} reads more than the previous stage")
+        prev.append(row[-1])
+    return (0.0,) + tuple(alpha), tuple(prev), tuple(c_sol)
+
+
+class Packed(NamedTuple):
+    ct: torch.Tensor    # (n, 3, C, B): rows b, 2c, 3d per interval
+    z0t: torch.Tensor   # (H, B)
+    w1t: torch.Tensor   # (W, H)
+    b1: torch.Tensor    # (W,)
+    w2t: torch.Tensor   # (C*H, W), rows in the kernel order i*H + h
+    b2: torch.Tensor    # (C*H,)
+    z0f: torch.Tensor   # (B, H)
+    batch: tuple
+    H: int
+
+
+def pack_operands(b_rows, c_rows, d_rows, z0, field):
+    """Validate shapes and pack the kernel operands, or None if ineligible.
+
+    b_rows, c_rows, d_rows: (..., n, C) spline rows b, 2c, 3d; z0 (..., H);
+    field: an ``MLPVectorField``."""
+    C = b_rows.shape[-1]
+    H = field.hidden_channels
+    w1, b1 = field.linear1.weight, field.linear1.bias
+    w2, b2 = field.linear2.weight, field.linear2.bias
+    W = w1.shape[0]
+    if (w1.shape != (W, H) or w2.shape != (H * C, W)
+            or field.input_channels != C or z0.shape[-1] != H):
+        return None
+    if W > MAX_WIDTH or C * H > MAX_CONTRACT or 3 * C > MAX_SLAB_ROWS:
+        return None
+    arrays = (b_rows, c_rows, d_rows, z0, w1, b1, w2, b2)
+    if any(a.dtype != z0.dtype or a.device != z0.device for a in arrays):
+        return None
+    if z0.dtype == torch.bfloat16:
+        raise NotImplementedError(BF16_NOT_PORTED)
+    if z0.is_cuda and z0.dtype != torch.float32:
+        return None  # as in the JAX package, whose kernel takes f32 and bf16
+    n = b_rows.shape[-2]
+    if c_rows.shape[-2:] != (n, C) or d_rows.shape[-2:] != (n, C):
+        return None
+    batch = tuple(torch.broadcast_shapes(b_rows.shape[:-2], c_rows.shape[:-2],
+                                         d_rows.shape[:-2], z0.shape[:-1]))
+    B = 1
+    for size in batch:
+        B *= size
+    if B == 0:
+        return None
+
+    def flat_rows(r):
+        return r.expand(batch + (n, C)).reshape(B, n, C)
+
+    ct = torch.stack([flat_rows(b_rows), flat_rows(c_rows), flat_rows(d_rows)])
+    ct = ct.permute(2, 0, 3, 1).contiguous()  # (n, 3, C, B)
+    z0f = z0.expand(batch + (H,)).reshape(B, H)
+    # Vector-field rows from the model's h*C + i order to the kernel's i*H + h.
+    w2t = w2.reshape(H, C, W).transpose(0, 1).reshape(C * H, W).contiguous()
+    b2p = b2.reshape(H, C).t().reshape(C * H).contiguous()
+    return Packed(ct, z0f.t().contiguous(), w1.contiguous(), b1.contiguous(),
+                  w2t, b2p, z0f, batch, H)
+
+
+def fused_fixed_solve_reference(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub,
+                                out_knots):
+    """Plain PyTorch version of the kernels' function on the same operands.
+
+    Returns the states at ``out_knots`` (each >= 1; knot k is the state after
+    interval k - 1) as (len(out_knots), H, B)."""
+    frac, prev, c_sol = _chain_form(method)
+    n, _, C, B = ct.shape
+    H = z0t.shape[0]
+    slab = ct.permute(0, 3, 1, 2)  # (n, B, 3, C)
+    wanted = set(out_knots)
+    outs = {}
+    z = z0t.t()
+    for j in range(n):
+        b_j, c_j, d_j = slab[j, :, 0], slab[j, :, 1], slab[j, :, 2]
+        for s in range(m):
+            z_next, k = z, None
+            for st in range(len(c_sol)):
+                y = z if st == 0 else z + (dt_sub * prev[st]) * k
+                fr = s * dt_sub + frac[st] * dt_sub
+                dx = b_j + (c_j + d_j * fr) * fr
+                h1 = torch.relu(y @ w1t.t() + b1)
+                g = torch.tanh(h1 @ w2t.t() + b2)
+                k = (g.reshape(B, C, H) * dx[:, :, None]).sum(dim=1)
+                if c_sol[st] != 0.0:
+                    z_next = z_next + (dt_sub * c_sol[st]) * k
+            z = z_next
+        if j + 1 in wanted:
+            outs[j + 1] = z
+    return torch.stack([outs[k].t() for k in out_knots])
+
+
+class _Plan(NamedTuple):
+    method: str
+    m: int
+    dt_sub: float
+    out_knots: tuple
+    generic: bool = False  # run the generic variant even where the specialised one fits
+
+
+def _library():
+    lib = _build.load_library()
+    if not getattr(lib, "_ff_declared", False):
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        dp = ctypes.POINTER(ctypes.c_double)
+        lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, p]
+        lib.ff_forward.restype = i
+        lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, p]
+        lib.ff_backward.restype = i
+        lib.ff_variant.argtypes = [i] * 4
+        lib.ff_variant.restype = i
+        lib.ff_backward_blocks.argtypes = [i] * 5
+        lib.ff_backward_blocks.restype = i
+        lib.ff_error_string.argtypes = [i]
+        lib.ff_error_string.restype = ctypes.c_char_p
+        lib._ff_declared = True
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _knot_slots(out_knots, n, device):
+    """slot[j] = position of knot j + 1 in out_knots, or -1."""
+    slot = [-1] * n
+    for pos, knot in enumerate(out_knots):
+        slot[knot - 1] = pos
+    return torch.tensor(slot, dtype=torch.int32, device=device)
+
+
+def _check_operands(tensors, names):
+    device = tensors[0].device
+    for t, name in zip(tensors, names):
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must lie on {device}, found {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, found {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _tableau_args(method):
+    frac, prev, c_sol = _chain_form(method)
+    arr = ctypes.c_double * len(c_sol)
+    return len(c_sol), arr(*frac), arr(*prev), arr(*c_sol)
+
+
+def _raise_on(lib, rc, which):
+    if rc != 0:
+        raise RuntimeError(
+            f"fused fixed-step {which} kernel failed: "
+            f"{lib.ff_error_string(rc).decode()} (code {rc})")
+
+
+def _shapes(ct, z0t, w1t, w2t):
+    n, three, C, B = ct.shape
+    H, W = z0t.shape[0], w1t.shape[0]
+    if (three != 3 or z0t.shape != (H, B) or w1t.shape != (W, H)
+            or w2t.shape != (C * H, W)):
+        raise ValueError("inconsistent fused-solve operand shapes")
+    return n, C, B, H, W
+
+
+def kernel_variant(H, C, W, plan):
+    """Name of the kernel variant that runs these shapes."""
+    return ("specialised", "generic")[_library().ff_variant(H, C, W, int(plan.generic))]
+
+
+def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
+    """Forward kernel: returns (out (n_out, H, B), zres (n, H, B))."""
+    global FWD_LAUNCHES
+    _check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"))
+    n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
+    lib = _library()
+    variant = lib.ff_variant(H, C, W, int(plan.generic))
+    out = torch.empty((len(plan.out_knots), H, B), dtype=ct.dtype, device=ct.device)
+    zres = torch.empty((n, H, B), dtype=ct.dtype, device=ct.device)
+    slot = _knot_slots(plan.out_knots, n, ct.device)
+    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (ct, z0t, w1t, b1, w2t, b2, slot, out, zres)]
+    with torch.cuda.device(ct.device):
+        rc = lib.ff_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
+                            *_tableau_args(plan.method), variant, stream)
+    _raise_on(lib, rc, "forward")
+    FWD_LAUNCHES += 1
+    return out, zres
+
+
+def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
+    """Backward kernel: returns (dct, dz0, dw1t, db1, dw2t, db2)."""
+    global BWD_LAUNCHES
+    ops = (ct, zres, z0t, gz, w1t, b1, w2t, b2)
+    _check_operands(ops, ("ct", "zres", "z0t", "gz", "w1t", "b1", "w2t", "b2"))
+    n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
+    if zres.shape != (n, H, B) or gz.shape != (len(plan.out_knots), H, B):
+        raise ValueError("inconsistent fused-solve cotangent shapes")
+    lib = _library()
+    variant = lib.ff_variant(H, C, W, int(plan.generic))
+    blocks = lib.ff_backward_blocks(B, H, C, W, variant)
+    empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
+    dct, dz0 = empty(ct.shape), empty((H, B))
+    dw1p, db1p = empty((blocks, W, H)), empty((blocks, W))
+    dw2p, db2p = empty((blocks, W, C * H)), empty((blocks, C * H))
+    slot = _knot_slots(plan.out_knots, n, ct.device)
+    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (*ops, slot, dct, dz0, dw1p, db1p, dw2p, db2p)]
+    with torch.cuda.device(ct.device):
+        rc = lib.ff_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
+                             *_tableau_args(plan.method), variant, stream)
+    _raise_on(lib, rc, "backward")
+    BWD_LAUNCHES += 1
+    # Per-block partials are summed after the launch (deterministic).
+    return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0))
+
+
+class _FusedFixedSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ct, z0t, w1t, b1, w2t, b2, plan):
+        out, zres = launch_forward(ct, z0t, w1t, b1, w2t, b2, plan)
+        ctx.save_for_backward(ct, zres, z0t, w1t, b1, w2t, b2)
+        ctx.plan = plan
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        ct, zres, z0t, w1t, b1, w2t, b2 = ctx.saved_tensors
+        grads = launch_backward(ct, zres, z0t, gout.contiguous(), w1t, b1,
+                                w2t, b2, ctx.plan)
+        return grads + (None,)
+
+
+def fused_fixed_solve(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub, out_knots):
+    """The fused solve over packed operands (see ``pack_operands``).
+
+    CUDA tensors run the kernels; CPU tensors run the plain version."""
+    if ct.is_cuda:
+        plan = _Plan(method, int(m), float(dt_sub), tuple(out_knots))
+        return _FusedFixedSolve.apply(ct, z0t, w1t, b1, w2t, b2, plan)
+    if ct.device.type != "cpu":
+        raise ValueError(f"no fused fixed-step solve for device {ct.device}")
+    return fused_fixed_solve_reference(ct, z0t, w1t, b1, w2t, b2, method, m,
+                                       dt_sub, out_knots)
+
+
+def try_fused_mlp(rows, z0, field, method, m, dt_sub, n, out_knots=None):
+    """Attempt the fused solve.
+
+    rows: (b, two_c, three_d) spline rows, each (..., n, C); z0 (..., H);
+    field: an ``MLPVectorField``; m substeps of size dt_sub per interval;
+    out_knots: increasing knot indices in [0, n] to return (None: all).
+    Returns the states at ``out_knots``, time leading, or None when the
+    solve is not eligible."""
+    if method not in TABLEAUS or m > MAX_SUBSTEPS:
+        return None
+    if out_knots is None:
+        out_knots = tuple(range(n + 1))
+    kernel_knots = tuple(int(k) for k in out_knots if k > 0)
+    if not kernel_knots:
+        return None
+    p = pack_operands(*rows, z0, field)
+    if p is None:
+        return None
+    outk = fused_fixed_solve(p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2, method, m,
+                             dt_sub, kernel_knots)
+    sel = outk.permute(0, 2, 1).reshape((len(kernel_knots),) + p.batch + (p.H,))
+    if 0 in out_knots:  # knot 0 is z0 itself
+        z0b = p.z0f.reshape(p.batch + (p.H,))
+        return torch.cat([z0b[None], sel], dim=0)
+    return sel
