@@ -183,11 +183,11 @@ def test_eligibility_declines():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(method="dopri5"), "Adaptive solves and the adjoint"),
-    (dict(method="rk4", adjoint=True), "Adaptive solves and the adjoint"),
+    (dict(method="bosh3"), "Rest of the solver surface"),
+    (dict(method="dopri8", adjoint=True), "Rest of the solver surface"),
     (dict(method="rk4", options=dict(per_sample=True)), "Per-sample stepping"),
     (dict(method="rk4", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
-    (dict(method="rk4", return_stats=True), "Rest of the solver surface"),
+    (dict(method="dopri5", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
     (dict(method="scipy_solver"), "Rest of the solver surface"),
     (dict(method="reversible_heun"), "Reversible Heun"),
 ])

@@ -105,3 +105,61 @@ def test_initialisation_is_seeded_and_bounded():
     assert float(a.func.linear2.weight.detach().abs().max()) <= bound
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="bfloat16"))
+
+
+# The reference default: dopri5 with the adjoint.  The port routes it to K2
+# (on the CPU its plain version: frozen-mesh gradients through a replay of the
+# realised mesh).  The JAX package's own kernel declines off the TPU, and its
+# adjoint would take the backsolve, so the JAX function with the same
+# gradients is direct backprop through its XLA dense loop: adjoint=False.
+#
+# The paths are linear in time, not spirals: a cubic spline through a spiral
+# has a jump in its second derivative at every knot, and where a step ends
+# just past a knot the error estimate magnifies rounding without bound, so
+# two float64 implementations' step meshes drift apart (by ~1e-2 in the
+# logits here).  A linear path has no such kinks.
+DEFAULT = dict(input_channels=3, hidden_channels=8, output_channels=1, width=WIDTH)
+
+
+def _lines(batch, length, seed):
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, length)[None, :, None]
+    X = rng.standard_normal((batch, 1, 3)) + rng.uniform(-2, 2, (batch, 1, 3)) * t
+    return X, (rng.random(batch) > 0.5).astype(np.float64)
+
+
+def _default_setup():
+    cfg = JaxConfig(**DEFAULT, adjoint=False)
+    params = init_neural_cde(jax.random.PRNGKey(0), cfg, dtype=jnp.float64)
+    model = NeuralCDE(NeuralCDEConfig(**DEFAULT), dtype=torch.float64)
+    model.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    assert (model.cfg.solver, model.cfg.adjoint) == ("dopri5", True)
+    return cfg, params, model
+
+
+def test_default_config_forward_matches_neural_cde_apply():
+    X, _ = _lines(BATCH, LENGTH, seed=2)
+    cfg, params, model = _default_setup()
+    cj, ct = _coeffs(X)
+    expected = neural_cde_apply(params, cfg, cj)
+    got = model(ct)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(expected), rtol=1e-9,
+                               atol=1e-12)
+
+
+def test_default_config_three_adam_steps_track_optax():
+    X, y = _lines(BATCH, LENGTH, seed=3)
+    cfg, params, model = _default_setup()
+    cj, ct = _coeffs(X)
+    optimizer = optax.adam(1e-3)
+    opt_state = optimizer.init(params)
+    jax_step = jax_make_train_step(cfg, optimizer)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    for _ in range(3):
+        params, opt_state, loss_j = jax_step(params, opt_state, cj, jnp.asarray(y))
+        loss_t = step(ct, torch.from_numpy(y))
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-9)
+    state = model.state_dict()
+    for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, params)).items():
+        np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-8, atol=1e-12,
+                                   err_msg=name)

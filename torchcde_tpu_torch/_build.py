@@ -1,8 +1,9 @@
 """Builds the package's CUDA kernels from ``csrc/`` and loads them.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds), and
-loaded with ``ctypes``.  The library goes to ``_build/`` beside this file,
+The sources are compiled at first use with ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded with
+``ctypes``.  The library goes to ``_build/`` beside this file,
 named by a hash of the sources and flags, so an edited source builds anew.
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -20,7 +21,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded = {}
@@ -66,16 +67,28 @@ def build():
         log = log_path.read_text() if log_path.exists() else ""
         return path, 0.0, log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    objects = [path.with_name(f"{src.stem}.{os.getpid()}.o")
+               for src in _sources() if src.suffix == ".cu"]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip((s for s in _sources() if s.suffix == ".cu"), objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        failed = [link.returncode] if link.returncode != 0 else []
     seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{log}")
     log_path.write_text(log)
     os.replace(tmp, path)
     return path, seconds, log

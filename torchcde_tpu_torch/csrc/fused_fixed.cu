@@ -26,7 +26,9 @@
 // C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
 //
 // Specialised variant (H and C compile-time; instantiated for the flagship
-// H 8, C 3 at widths whose backward fits in shared memory, W <= 432).
+// H 8, C 3 at widths whose backward fits in shared memory, W <= 432).  Its
+// stage math (mlp_forward, stage_vjp) is in cde_stage.cuh, shared with the
+// adaptive kernels of fused_dopri.cu.
 //  * One thread per batch lane loops over the intervals; this replaces the
 //    TPU's sequential grid axis and its VMEM carry of z.  Blocks are one warp
 //    (32 lanes), so a 4096 batch spreads over 128 SMs.
@@ -65,14 +67,12 @@
 //   dw1p (blocks, W, H), db1p (blocks, W), dw2p (blocks, W, C*H),
 //   db2p (blocks, C*H), with blocks = ff_backward_blocks(...).
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stddef.h>
+
+#include "cde_stage.cuh"
 
 namespace {
 
-constexpr int LANES = 32;        // threads per block, one batch lane each
-constexpr int PAD = LANES + 1;   // row stride of the per-lane staging buffers
 constexpr int GEN_THREADS = 128; // threads per block of the generic variant
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_SUBSTEPS = 8;
@@ -91,83 +91,6 @@ struct Tableau {
   float a_dt[MAX_STAGES];       // dt_sub * A[s][s-1]
   float c_dt[MAX_STAGES];       // dt_sub * b_s
 };
-
-template <int H, int C>
-struct Smem {
-  static constexpr int CH = C * H;
-  float* w1;  // [W][H]
-  float* w2;  // [W][CH]
-  float* b1;  // [W]
-  float* b2;  // [CH]
-  __device__ explicit Smem(float* base, int W)
-      : w1(base), w2(base + W * H), b1(base + W * H + W * CH),
-        b2(base + W * H + W * CH + W) {}
-  __device__ float* end() const { return b2 + CH; }
-};
-
-template <int H, int C>
-__device__ void load_field(const Smem<H, C>& s, const float* __restrict__ w1t,
-                           const float* __restrict__ b1,
-                           const float* __restrict__ w2t,
-                           const float* __restrict__ b2, int W) {
-  constexpr int CH = C * H;
-  for (int i = threadIdx.x; i < W * H; i += blockDim.x) s.w1[i] = w1t[i];
-  for (int i = threadIdx.x; i < W * CH; i += blockDim.x) {
-    const int w = i / CH, q = i - w * CH;
-    s.w2[i] = w2t[q * W + w];
-  }
-  for (int i = threadIdx.x; i < W; i += blockDim.x) s.b1[i] = b1[i];
-  for (int i = threadIdx.x; i < CH; i += blockDim.x) s.b2[i] = b2[i];
-}
-
-// dX/dt at fraction fr of the interval: b + (2c + 3d fr) fr.
-template <int C>
-__device__ __forceinline__ void control_derivative(const float (&sb)[C],
-                                                   const float (&sc)[C],
-                                                   const float (&sd)[C],
-                                                   float fr, float (&dx)[C]) {
-#pragma unroll
-  for (int i = 0; i < C; ++i) dx[i] = sb[i] + (sc[i] + sd[i] * fr) * fr;
-}
-
-// g = tanh(W2 relu(W1 y + b1) + b2), streaming the hidden layer over W.
-// With STAGE_H1, each h1_w is also stored in column threadIdx.x of h1buf.
-template <int H, int C, bool STAGE_H1>
-__device__ __forceinline__ void mlp_forward(const Smem<H, C>& s, int W,
-                                            const float (&y)[H],
-                                            float (&g)[C * H], float* h1buf) {
-  constexpr int CH = C * H;
-  float pre2[CH];
-#pragma unroll
-  for (int q = 0; q < CH; ++q) pre2[q] = 0.f;
-  for (int w = 0; w < W; ++w) {
-    const float* r1 = s.w1 + w * H;
-    float a = 0.f;
-#pragma unroll
-    for (int h = 0; h < H; ++h) a = fmaf(r1[h], y[h], a);
-    a += s.b1[w];
-    a = (a < 0.f) ? 0.f : a;
-    if (STAGE_H1) h1buf[w * PAD + threadIdx.x] = a;
-    const float* r2 = s.w2 + w * CH;
-#pragma unroll
-    for (int q = 0; q < CH; ++q) pre2[q] = fmaf(r2[q], a, pre2[q]);
-  }
-#pragma unroll
-  for (int q = 0; q < CH; ++q) g[q] = tanhf(pre2[q] + s.b2[q]);
-}
-
-// k_h = sum_i g[i*H + h] dx_i
-template <int H, int C>
-__device__ __forceinline__ void contract(const float (&g)[C * H],
-                                         const float (&dx)[C], float (&k)[H]) {
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    float acc = g[h] * dx[0];
-#pragma unroll
-    for (int i = 1; i < C; ++i) acc += g[i * H + h] * dx[i];
-    k[h] = acc;
-  }
-}
 
 __device__ __forceinline__ float stage_fraction(const Tableau& tab, int s,
                                                 int st, double dt) {
@@ -251,107 +174,6 @@ __global__ void __launch_bounds__(LANES)
       for (int h = 0; h < H; ++h) out[((size_t)sl * H + h) * B + lane] = z[h];
     }
   }
-}
-
-template <int H, int C>
-struct BwdSmem {
-  static constexpr int CH = C * H;
-  Smem<H, C> field;
-  float* h1;      // [W][PAD]   h1 of the stage, column = lane
-  float* dpre1;   // [W][PAD]
-  float* dpre2;   // [LANES][CH]
-  float* y;       // [LANES][H]
-  float* acc_w1;  // [W][H]
-  float* acc_w2;  // [W][CH]
-  float* acc_b1;  // [W]
-  float* acc_b2;  // [CH]
-  __device__ BwdSmem(float* base, int W) : field(base, W) {
-    h1 = field.end();
-    dpre1 = h1 + W * PAD;
-    dpre2 = dpre1 + W * PAD;
-    y = dpre2 + LANES * CH;
-    acc_w1 = y + LANES * H;
-    acc_w2 = acc_w1 + W * H;
-    acc_b1 = acc_w2 + W * CH;
-    acc_b2 = acc_b1 + W;
-  }
-};
-
-// VJP of one vector-field evaluation k = contract(mlp(y), dx) for cotangent
-// u of k: returns dy and ddx, and adds this stage's weight gradients, summed
-// over the block's lanes, to the shared accumulators.  Every thread of the
-// block calls it (lanes past the batch with zero state and cotangent).
-template <int H, int C>
-__device__ void stage_vjp(const BwdSmem<H, C>& sm, int W, const float (&u)[H],
-                          const float (&y)[H], const float (&dx)[C],
-                          float (&dy)[H], float (&ddx)[C]) {
-  constexpr int CH = C * H;
-  const int tid = threadIdx.x;
-  float g[CH];
-  mlp_forward<H, C, true>(sm.field, W, y, g, sm.h1);
-
-  float dp2[CH];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int q = i * H + h;
-      acc += u[h] * g[q];
-      dp2[q] = (u[h] * dx[i]) * (1.f - g[q] * g[q]);
-    }
-    ddx[i] = acc;
-  }
-#pragma unroll
-  for (int q = 0; q < CH; ++q) sm.dpre2[tid * CH + q] = dp2[q];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    sm.y[tid * H + h] = y[h];
-    dy[h] = 0.f;
-  }
-  for (int w = 0; w < W; ++w) {
-    const float* r2 = sm.field.w2 + w * CH;
-    float dh = 0.f;
-#pragma unroll
-    for (int q = 0; q < CH; ++q) dh = fmaf(r2[q], dp2[q], dh);
-    const float dp1 = sm.h1[w * PAD + tid] > 0.f ? dh : 0.f;
-    sm.dpre1[w * PAD + tid] = dp1;
-    const float* r1 = sm.field.w1 + w * H;
-#pragma unroll
-    for (int h = 0; h < H; ++h) dy[h] = fmaf(r1[h], dp1, dy[h]);
-  }
-  __syncthreads();
-
-  // Thread tid owns weight columns w = tid, tid + LANES, ...
-  for (int w = tid; w < W; w += LANES) {
-    float a2[CH], a1[H], ab1 = 0.f;
-#pragma unroll
-    for (int q = 0; q < CH; ++q) a2[q] = 0.f;
-#pragma unroll
-    for (int h = 0; h < H; ++h) a1[h] = 0.f;
-    for (int l = 0; l < LANES; ++l) {
-      const float hv = sm.h1[w * PAD + l];
-      const float pv = sm.dpre1[w * PAD + l];
-      const float* p2 = sm.dpre2 + l * CH;
-      const float* yl = sm.y + l * H;
-#pragma unroll
-      for (int q = 0; q < CH; ++q) a2[q] = fmaf(p2[q], hv, a2[q]);
-#pragma unroll
-      for (int h = 0; h < H; ++h) a1[h] = fmaf(pv, yl[h], a1[h]);
-      ab1 += pv;
-    }
-#pragma unroll
-    for (int q = 0; q < CH; ++q) sm.acc_w2[w * CH + q] += a2[q];
-#pragma unroll
-    for (int h = 0; h < H; ++h) sm.acc_w1[w * H + h] += a1[h];
-    sm.acc_b1[w] += ab1;
-  }
-  for (int q = tid; q < CH; q += LANES) {
-    float acc = 0.f;
-    for (int l = 0; l < LANES; ++l) acc += sm.dpre2[l * CH + q];
-    sm.acc_b2[q] += acc;
-  }
-  __syncthreads();
 }
 
 template <int H, int C>

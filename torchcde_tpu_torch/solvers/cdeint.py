@@ -1,14 +1,14 @@
-"""cdeint: the solver front-end, fixed-step methods.
+"""cdeint: the solver front-end.
 
-Port of ``torchcde_tpu/solvers/cdeint.py::cdeint`` for euler, midpoint, heun
-and rk4 with direct backpropagation (autograd through the steps, or the
-fused kernel's backward):
+Port of ``torchcde_tpu/solvers/cdeint.py::cdeint`` for dopri5 (adaptive, or
+at a fixed step_size) and euler, midpoint, heun and rk4, with direct
+backpropagation or the backsolve adjoint:
 
     cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs)
 
 solves z_t = z_{t0} + int_{t0}^t f(s, z_s) dX_s and returns z at each t[i]
-with shape (..., len(t), hidden_channels).  The validation and its error
-texts are the JAX package's.  What is not ported yet raises
+with shape (..., len(t), hidden_channels).  The dispatch, the validation and
+the error texts are the JAX package's.  What is not ported yet raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
@@ -17,8 +17,10 @@ import warnings
 import numpy as np
 import torch
 
+from .adjoint import closure_params, odeint_adjoint
+from .fused_dopri import try_fused_dopri5
 from .fused_fixed import try_fused_fixed
-from .integrate import SolverConfig, odeint
+from .integrate import SolverConfig, host_times, odeint
 from .terms import make_cde_rhs
 
 _FIXED_METHODS = ("euler", "midpoint", "heun", "rk4")
@@ -113,6 +115,30 @@ def _check_compatability(X, func, z0, t):
             _check_compatability_per_tensor_forward(control_gradient, system, z0)
 
 
+def _knots_hint_of(X):
+    """The control's knot count, sizing the default adaptive step budget."""
+    grid = getattr(X, "grid_points", None)
+    if grid is None:
+        return None
+    try:
+        return int(np.shape(grid)[-1])
+    except (TypeError, IndexError):
+        return None
+
+
+def _derive_fixed_adjoint_max_steps(adjoint_max_steps, adjoint_method,
+                                    adjoint_step_size, t):
+    """A fixed-step adjoint's per-interval step bound, derived from t."""
+    if adjoint_max_steps is None and adjoint_method in _FIXED_METHODS:
+        if adjoint_step_size is not None:
+            tv = np.asarray(host_times(t, torch.float64), dtype=np.float64)
+            return max(
+                1,
+                int(np.max(np.ceil(np.diff(tv, axis=-1) / float(adjoint_step_size) - 1e-9))),
+            )
+    return adjoint_max_steps
+
+
 def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
     r"""Solves a system of controlled differential equations.
 
@@ -123,24 +149,32 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
             e.g. ``CubicSpline``.
         func: callable f(t, z) -> (..., hidden_channels, input_channels), or an
             object with a ``prod(t, z, dXdt) -> (..., hidden_channels)``
-            method.  An ``MLPVectorField`` lets knot-aligned solves run as
-            one fused kernel.
+            method.  An ``MLPVectorField`` over a uniform ``CubicSpline`` lets
+            dopri5 and knot-aligned fixed-step solves run as fused kernels.
         z0: initial state (..., hidden_channels).
         t: 1-D output times (strictly increasing); a NumPy array such as
             ``X.interval`` keeps the step plan on the host.
-        adjoint: must be False in this port for now: gradients come from
-            direct backpropagation.
+        adjoint: whether to backpropagate through the backsolve adjoint
+            (``solvers/adjoint.py``) instead of through the solver's steps.
+            Solves that the fused kernels take route to them either way:
+            their backward walks the stored steps, within the adjoint's
+            memory contract.  The backsolve gives gradients to z0, to
+            ``func.parameters()`` (for an ``nn.Module`` field), to the
+            control's coefficient tensors and to ``t`` when it is a tensor
+            that requires grad.
         backend: "native", or the alias "torchdiffeq".
-        **kwargs: method (euler, midpoint, heun, rk4), step_size or
-            options={'step_size': ...}, dt (alias for step_size), max_steps,
-            rtol and atol (accepted, unused by fixed-step methods).
+        **kwargs: method (dopri5, euler, midpoint, heun, rk4), rtol, atol,
+            step_size or options={'step_size': ...}, dt (alias for
+            step_size), max_steps, return_stats (adjoint=False only: returns
+            ``(out, stats)``), adjoint_rtol/atol/method/options/params/
+            max_steps.
 
     Returns:
         z at each t[i]: shape (..., len(t), hidden_channels).
     """
     kwargs = dict(kwargs)
-    kwargs.pop("atol", None)
-    kwargs.pop("rtol", None)
+    atol = kwargs.pop("atol", 1e-6)
+    rtol = kwargs.pop("rtol", 1e-4)
 
     options = dict(kwargs.pop("options", {}) or {})
     step_size = kwargs.pop("step_size", None)
@@ -167,20 +201,22 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
         raise _not_ported("method='scipy_solver'", "Rest of the solver surface")
     if method == "reversible_heun":
         raise _not_ported("method='reversible_heun'", "Reversible Heun")
-    if method in ("dopri5", "bosh3", "dopri8", "adaptive_heun", "fehlberg2"):
-        raise _not_ported(f"Adaptive method={method!r}", "Adaptive solves and the adjoint")
-    if method not in _FIXED_METHODS:
+    if method not in _FIXED_METHODS + ("dopri5",):
         raise _not_ported(f"method={method!r}", "Rest of the solver surface")
 
     max_steps = kwargs.pop("max_steps", None)
-    if kwargs.pop("return_stats", False):
-        raise _not_ported("return_stats=True", "Rest of the solver surface")
-    for name in [k for k in kwargs if k.startswith("adjoint_")]:
-        kwargs.pop(name)
+    return_stats = kwargs.pop("return_stats", False)
+    adjoint_rtol = kwargs.pop("adjoint_rtol", rtol)
+    adjoint_atol = kwargs.pop("adjoint_atol", atol)
+    adjoint_method = kwargs.pop("adjoint_method", method)
+    adjoint_options = dict(kwargs.pop("adjoint_options", {}) or {})
+    adjoint_step_size = adjoint_options.pop("step_size", step_size)
+    adjoint_params = kwargs.pop("adjoint_params", None)
+    adjoint_max_steps = kwargs.pop("adjoint_max_steps", max_steps)
     if kwargs:
         warnings.warn(f"Ignoring unsupported cdeint kwargs: {sorted(kwargs)}")
-    if adjoint:
-        raise _not_ported("adjoint=True", "Adaptive solves and the adjoint")
+    if adjoint and adjoint_method not in _FIXED_METHODS + ("dopri5",):
+        raise _not_ported(f"adjoint_method={adjoint_method!r}", "Rest of the solver surface")
 
     if not isinstance(t, np.ndarray):
         t = torch.as_tensor(t)
@@ -196,9 +232,51 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
 
     _check_compatability(X, func, z0, t)
 
-    out = try_fused_fixed(X, func, z0, t, method, step_size)
-    if out is None:
-        cfg = SolverConfig(method=method, step_size=step_size, max_steps=max_steps)
-        out = odeint(make_cde_rhs(func, X), z0, t, cfg)
+    knots_hint = _knots_hint_of(X)
+    cfg = SolverConfig(method=method, rtol=rtol, atol=atol, step_size=step_size,
+                       max_steps=max_steps, knots_hint=knots_hint)
+    if return_stats and adjoint:
+        raise ValueError(
+            "return_stats=True requires adjoint=False (solver statistics are "
+            "collected on the direct path)."
+        )
+
+    adaptive_fused = method == "dopri5" and step_size is None
+    out, stats = None, None
+    if (adjoint and adjoint_params is None and adjoint_method == method
+            and adjoint_step_size == step_size):
+        # The fused kernels store only per-knot / per-accepted-step states,
+        # within the adjoint's memory contract, and reverse the exact forward
+        # computation; a fixed-step solve takes only the kernel (not the
+        # streamed walk, whose autograd would keep every stage).
+        if adaptive_fused:
+            if adjoint_rtol == rtol and adjoint_atol == atol:
+                out = try_fused_dopri5(X, func, z0, t, cfg)
+        else:
+            out = try_fused_fixed(X, func, z0, t, method, step_size, kernel_only=True)
+
+    if out is None and adjoint:
+        adjoint_cfg = SolverConfig(
+            method=adjoint_method, rtol=adjoint_rtol, atol=adjoint_atol,
+            step_size=adjoint_step_size,
+            max_steps=_derive_fixed_adjoint_max_steps(
+                adjoint_max_steps, adjoint_method, adjoint_step_size, t),
+            knots_hint=knots_hint,
+        )
+        params = closure_params(func, X, t[0], z0, adjoint_params)
+        out = odeint_adjoint(make_cde_rhs(func, X), params, z0, t, cfg, adjoint_cfg)
+    elif out is None:
+        if not return_stats:
+            if adaptive_fused:
+                out = try_fused_dopri5(X, func, z0, t, cfg)
+            else:
+                out = try_fused_fixed(X, func, z0, t, method, step_size)
+        if out is None:
+            out = odeint(make_cde_rhs(func, X), z0, t, cfg, collect_stats=return_stats)
+            if return_stats:
+                out, stats = out
     # Time from leading to second-to-last.
-    return torch.movedim(out, 0, -2)
+    out = torch.movedim(out, 0, -2)
+    if return_stats:
+        return out, stats
+    return out

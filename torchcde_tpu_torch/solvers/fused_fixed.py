@@ -70,8 +70,11 @@ def plan_fixed_grid(X, ts, step_size):
     return rows, grid, out_idx, j0, jN, m, step_size_val, uniform
 
 
-def try_fused_fixed(X, func, z0, ts, method, step_size):
-    """Returns the solution (time leading) or None if not applicable."""
+def try_fused_fixed(X, func, z0, ts, method, step_size, kernel_only=False):
+    """Returns the solution (time leading) or None if not applicable.
+
+    ``kernel_only=True`` takes only the fused kernel, not the streamed walk
+    (the adjoint's route: autograd through the walk would keep every stage)."""
     if method not in TABLEAUS or not isinstance(z0, torch.Tensor):
         return None
     plan = plan_fixed_grid(X, ts, step_size)
@@ -87,6 +90,8 @@ def try_fused_fixed(X, func, z0, ts, method, step_size):
         )
         if out is not None:
             return out
+    if kernel_only:
+        return None
 
     # The streamed walk: the general fallback when the kernel declines.
     tableau = TABLEAUS[method]

@@ -59,7 +59,8 @@ def _chain_form(method):
 
     Every tableau here reads only the previous stage (A is zero off its
     subdiagonal), which is what lets the kernels carry one stage at a time."""
-    alpha, beta, c_sol = TABLEAUS[method]
+    tab = TABLEAUS[method]
+    alpha, beta, c_sol = tab.alpha, tab.beta, tab.c_sol
     prev = [0.0]
     for s, row in enumerate(beta, start=1):
         if any(coef != 0.0 for coef in row[:-1]) or len(row) != s:

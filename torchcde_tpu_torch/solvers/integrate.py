@@ -1,41 +1,54 @@
-"""The fixed-step ODE integrator.
+"""The ODE integration driver.
 
-Port of the fixed-step branch of ``torchcde_tpu/solvers/integrate.py``:
-``SolverConfig``, ``_advance_fixed``, ``_static_fixed_steps`` and ``odeint``.
-The JAX ``lax.scan`` loops become Python loops over host-side step times, and
-autograd differentiates through them, so ``loops.py`` (a reverse-differentiable
-bounded while loop) has no counterpart.  Adaptive stepping is ROADMAP queue 1
-item 6.
+Port of ``torchcde_tpu/solvers/integrate.py``: ``SolverConfig``, the fixed-step
+branch (stateless RK methods, and dopri5 with an explicit ``step_size``) and
+the adaptive dense-output branch with its PI controller, initial-step
+heuristic, quartic dense output and loud NaN poisoning when the step budget
+runs out.
+
+The JAX loops become Python loops on host scalars.  Times and step sizes are
+NumPy scalars in the state's precision, so they round as the JAX integrator's
+do, and the adaptive controller reads one error ratio from the device per
+attempted step.  The step sizes are host numbers, outside autograd: gradients
+are those of the scheme on the realised mesh (the frozen mesh that the JAX
+package gets from ``stop_gradient``), and output times receive none.
 """
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..utils.misc import numpy_dtype
-from .runge_kutta import TABLEAUS, rk_step
+from .runge_kutta import STEPPERS, TABLEAUS, rk_step
 
 _FIXED_DEFAULT_MAX_STEPS = 65536
+_ADAPTIVE_DEFAULT_MAX_STEPS = 4096
 
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Static solver configuration (the typed form of ``cdeint``'s kwargs).
-
-    The adaptive controller's fields arrive with adaptive stepping."""
+    """Static solver configuration (the typed form of ``cdeint``'s kwargs)."""
 
     method: str = "dopri5"
     rtol: float = 1e-4
     atol: float = 1e-6
     step_size: Optional[float] = None
     max_steps: Optional[int] = None
+    safety: float = 0.9
+    ifactor: float = 10.0
+    dfactor: float = 0.2
+    # Knot count of the control (cdeint sets it from X.grid_points); sizes
+    # only the default adaptive step budget.
+    knots_hint: Optional[int] = None
 
     def tableau(self):
         if self.method not in TABLEAUS:
             raise ValueError(
-                f"Unrecognised method={self.method!r}; expected one of {sorted(TABLEAUS)}"
+                f"Unrecognised method={self.method!r}; expected one of "
+                f"{sorted(set(TABLEAUS) | set(STEPPERS))}"
             )
         return TABLEAUS[self.method]
 
@@ -50,19 +63,114 @@ def host_times(ts, dtype):
     return np.asarray(ts).astype(numpy_dtype(dtype))
 
 
-def _advance_fixed(rhs, z0, t0, t1, step_size, tableau, max_steps):
-    """Fixed steps of ``step_size`` (last step clamped) from t0 to exactly t1.
+def _rms_norm(x):
+    return torch.sqrt(torch.sum(torch.square(x)) / x.numel())
 
-    t0, t1 and step_size are NumPy scalars in the state's precision, so the
-    step times round as the JAX integrator's do.  Steps with dt == 0 are the JAX
-    loop's padding iterations, exact identities, and are skipped."""
-    t, z = t0, z0
-    for _ in range(max_steps):
-        dt = np.clip(t1 - t, 0.0, step_size)
-        if dt > 0:
-            z = rk_step(tableau, rhs, float(t), z, float(dt))
-        t = t + dt
-    return z
+
+def _error_ratio(err, rtol, atol, z0, z1):
+    return _rms_norm(err / (atol + rtol * torch.maximum(torch.abs(z0), torch.abs(z1))))
+
+
+@torch.no_grad()
+def select_initial_step(rhs, t0, z0, order, rtol, atol, f0):
+    """Hairer/Wanner initial step heuristic (as used by torchdiffeq).
+
+    Returns a 0-d tensor on z0's device: it is mesh data, outside autograd."""
+    scale = atol + torch.abs(z0) * rtol
+    d0 = _rms_norm(z0 / scale)
+    d1 = _rms_norm(f0 / scale)
+    small = (d0 < 1e-5) | (d1 < 1e-5)
+    h0 = torch.where(small, torch.full_like(d0, 1e-6), 0.01 * d0 / torch.clamp(d1, min=1e-30))
+    z1 = z0 + h0 * f0
+    f1 = rhs(torch.as_tensor(t0, dtype=z0.dtype, device=z0.device) + h0, z1)
+    d2 = _rms_norm((f1 - f0) / scale) / h0
+    dmax = torch.maximum(d1, d2)
+    h1 = torch.where(
+        dmax <= 1e-15,
+        torch.clamp(h0 * 1e-3, min=1e-6),
+        (0.01 / torch.clamp(dmax, min=1e-30)) ** (1.0 / (order + 1)),
+    )
+    return torch.minimum(100 * h0, h1)
+
+
+def _optimal_factor(ratio, order, cfg: SolverConfig, accepted):
+    """clip(safety * ratio^(-1/order), dfactor, ifactor, or 1 after a
+    rejection), on host scalars of the state's precision."""
+    sc = type(ratio)
+    ratio = max(ratio, sc(1e-10))
+    factor = sc(cfg.safety) * ratio ** sc(-1.0 / order)
+    if not math.isfinite(factor):
+        factor = sc(cfg.dfactor)
+    upper = sc(cfg.ifactor) if accepted else sc(1.0)
+    return min(max(factor, sc(cfg.dfactor)), upper)
+
+
+# p(theta) = z0 + dt*f0*theta + c2*theta^2 + c3*theta^3 + c4*theta^4 with
+# p(1) = z1, p'(1) = dt*f1, p(1/2) = y_mid: the 3x3 system for (c4, c3, c2)
+# is the same for every step.
+_QUARTIC_MINV = np.linalg.inv(
+    np.array([[1.0, 1.0, 1.0], [4.0, 3.0, 2.0], [1 / 16, 1 / 8, 1 / 4]])
+)
+
+
+def _interp_quartic(z0, z1, f0, f1, y_mid, dt, theta):
+    """The quartic dense-output polynomial at the host scalar theta."""
+    m = _QUARTIC_MINV
+    sc = type(dt)
+    rA = z1 - z0 - float(dt) * f0
+    rB = float(dt) * (f1 - f0)
+    rC = y_mid - z0 - float(sc(0.5) * dt) * f0
+    c4 = m[0][0] * rA + m[0][1] * rB + m[0][2] * rC
+    c3 = m[1][0] * rA + m[1][1] * rB + m[1][2] * rC
+    c2 = m[2][0] * rA + m[2][1] * rB + m[2][2] * rC
+    th = float(theta)
+    return z0 + th * (float(dt) * f0 + th * (c2 + th * (c3 + th * c4)))
+
+
+def _poisoned(out):
+    """NaN everywhere, as ``jnp.where(incomplete, nan, out)``."""
+    return torch.where(torch.ones((), dtype=torch.bool, device=out.device),
+                       torch.full_like(out, math.nan), out)
+
+
+def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps):
+    """One continuous adaptive solve over [ts[0], ts[-1]] with dense output.
+
+    Each accepted step writes the 4th-order interpolant into every output row
+    whose time falls inside (t, t + dt]; steps clamp only to ts[-1], so the
+    step count does not grow with len(ts).  Returns (out, (attempted,
+    accepted)) with out time-leading, NaN everywhere if the budget ran out
+    before ts[-1]."""
+    sc = ts.dtype.type
+    t_end = ts[-1]
+    out = [z0] * len(ts)
+    t, z, dt, state = ts[0], z0, dt0, state0
+    attempted = accepted = 0
+    while t < t_end and attempted < max_steps:
+        dt = max(dt, sc(1e-14))
+        dt_c = min(dt, t_end - t)
+        z1, err, state1, (f0, f1, y_mid) = stepper.step_dense(rhs, t, z, dt_c, state)
+        with torch.no_grad():
+            ratio = sc(_error_ratio(err, cfg.rtol, cfg.atol, z, z1).item())
+        accept = bool(ratio <= 1.0)
+        dt_new = dt_c * _optimal_factor(ratio, stepper.order, cfg, accept)
+        # A step that was only short because it was clamped to the end does
+        # not shrink the carried proposal.
+        if accept and dt_c < dt:
+            dt_new = max(dt, dt_new)
+        if accept:
+            for k, tk in enumerate(ts):
+                if t < tk <= t + dt_c:
+                    theta = min(max((tk - t) / max(dt_c, sc(1e-30)), sc(0.0)), sc(1.0))
+                    out[k] = _interp_quartic(z, z1, f0, f1, y_mid, dt_c, theta)
+            t, z, state = t + dt_c, z1, state1
+        dt = dt_new
+        attempted += 1
+        accepted += int(accept)
+    out = torch.stack(out, dim=0)
+    if t < t_end:
+        out = _poisoned(out)
+    return out, (attempted, accepted)
 
 
 def _static_fixed_steps(ts, step_size):
@@ -77,20 +185,89 @@ def _static_fixed_steps(ts, step_size):
     return max(n, 1)
 
 
-def odeint(rhs, z0, ts, cfg: SolverConfig):
-    """Integrates dz/dt = rhs(t, z) from ts[0] with a fixed-step method,
-    returning z at every ts[i], time leading: (len(ts), ...)."""
+def _adaptive_max_steps(cfg, order, differentiable):
+    """The default adaptive step budget of the JAX package: with direct
+    backprop and a known knot count, 8 steps per knot scaled by the
+    tolerance, at least 1024 and at most 4096; else 4096."""
+    default_steps = _ADAPTIVE_DEFAULT_MAX_STEPS
+    if differentiable and order >= 4 and cfg.max_steps is None and cfg.knots_hint is not None:
+        inv_order = 1.0 / (order + 1)
+        tol_scale = max(
+            1.0,
+            (1e-4 / max(cfg.rtol, 1e-30)) ** inv_order,
+            (1e-6 / max(cfg.atol, 1e-30)) ** inv_order,
+        )
+        default_steps = int(min(default_steps, max(1024, 8 * cfg.knots_hint * tol_scale)))
+    return cfg.max_steps or default_steps
+
+
+def _stats(attempted, accepted, init_nfe, stages):
+    return {
+        "steps_attempted": attempted,
+        "steps_accepted": accepted,
+        "steps_rejected": attempted - accepted,
+        "nfe": init_nfe + attempted * stages,
+    }
+
+
+def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=False):
+    """Integrates dz/dt = rhs(t, z) from ts[0], returning z at every ts[i],
+    time leading: (len(ts), ...).
+
+    ``differentiable=False`` (inside the adjoint) only changes the default
+    adaptive step budget, as in the JAX package.  With ``collect_stats=True``
+    returns ``(out, stats)`` with the step and evaluation counts."""
     ts = host_times(ts, z0.dtype)
     if ts.shape[0] > 1 and not bool(np.all(np.diff(ts) > 0)):
         raise ValueError("t must be monotonically increasing.")
-    tableau = cfg.tableau()
-    n_static = min(_static_fixed_steps(ts, cfg.step_size),
-                   cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
+    sc = ts.dtype.type
 
-    out = [z0]
-    z = z0
-    for t0, t1 in zip(ts[:-1], ts[1:]):
-        step_size = ts.dtype.type(cfg.step_size if cfg.step_size is not None else t1 - t0)
-        z = _advance_fixed(rhs, z, t0, t1, step_size, tableau, n_static)
-        out.append(z)
-    return torch.stack(out, dim=0)
+    if cfg.method not in STEPPERS:
+        tableau = cfg.tableau()
+        n_static = min(_static_fixed_steps(ts, cfg.step_size),
+                       cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
+        out, z, steps = [z0], z0, 0
+        for t0, t1 in zip(ts[:-1], ts[1:]):
+            step_size = sc(cfg.step_size if cfg.step_size is not None else t1 - t0)
+            t = t0
+            # Steps with dt == 0 are the JAX loop's padding iterations.
+            for _ in range(n_static):
+                dt = np.clip(t1 - t, sc(0.0), step_size)
+                if dt > 0:
+                    z = rk_step(tableau, rhs, float(t), z, float(dt))
+                    steps += 1
+                t = t + dt
+            out.append(z)
+        out = torch.stack(out, dim=0)
+        if not collect_stats:
+            return out
+        return out, _stats(steps, steps, 0, len(tableau.c_sol))
+
+    stepper = STEPPERS[cfg.method]
+    state = stepper.init(rhs, ts[0], z0)
+    init_nfe = stepper.init_nfe
+    if cfg.step_size is None:
+        dt0 = sc(select_initial_step(rhs, ts[0], z0, stepper.order, cfg.rtol, cfg.atol,
+                                     state).item())
+        init_nfe += 2  # the initial-step heuristic
+        max_steps = _adaptive_max_steps(cfg, stepper.order, differentiable)
+        out, (attempted, accepted) = _integrate_adaptive_dense(
+            rhs, z0, ts, dt0, state, cfg, stepper, max_steps)
+    else:
+        # dopri5 at fixed steps of step_size (last step of each interval
+        # clamped), carrying the first-same-as-last stage.
+        n_static = min(_static_fixed_steps(ts, cfg.step_size),
+                       cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
+        outs, z, attempted = [z0], z0, 0
+        for t0, t1 in zip(ts[:-1], ts[1:]):
+            t, n = t0, 0
+            while t < t1 and n < n_static:
+                dt = min(sc(cfg.step_size), t1 - t)
+                z, _err, state = stepper.step(rhs, t, z, dt, state)
+                t, n = t + dt, n + 1
+            attempted += n
+            outs.append(z)
+        out, accepted = torch.stack(outs, dim=0), attempted
+    if not collect_stats:
+        return out
+    return out, _stats(attempted, accepted, init_nfe, stepper.nfe_per_step)
