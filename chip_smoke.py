@@ -23,7 +23,23 @@ Phases, each of which raises on failure:
 8. timing: K1 (both variants), K2 and both train steps against the plain
    version, by CUDA events;
 9. profile: torch.profiler over train steps of both configurations: the
-   device's busy share, kernels per step and the fused kernels' device time.
+   device's busy share, kernels per step and the fused kernels' device time;
+10. K3-K7 checks: the fill (K3), tridiagonal (K4), gappy tridiagonal (K5)
+   and masked cubic fit (K6/K7) kernels against their plain versions run in
+   float64 on the same inputs: lengths 2 to 4096, odd row counts, NaN
+   densities 0 to 1, leading and trailing NaN runs, single-observation and
+   all-NaN rows, both imputation versions, irregular times; and the public
+   fit on bfloat16 values (upcast at the kernels' boundary);
+11. fit slice: BASELINE config 3 (8192 series of length 4096, one channel,
+   20 % NaN, as benchmarks/run_benchmarks.py's bench_cubic_fit makes them)
+   through the public natural_cubic_coeffs, forward and gradient, with and
+   without NaNs, launch counts asserted, against the float64 plain path;
+12. NaN spiral slice: natural cubic coefficients of the spiral data with 30 %
+   of the values missing, then five Adam steps of the default Neural CDE;
+   phases 11 and 12 run with every kernel's plain version patched to raise;
+13. timing of the new kernels, their plain versions and K4's library call
+   (torch.linalg.solve of the shared dense system) at config 3, and a
+   torch.profiler reading of the NaN-masked fit's gradient.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -135,6 +151,8 @@ def phase_build():
     path, seconds, log = _build.build()
     k1._library()
     k2._library()
+    for module in fit_kernel_modules().values():
+        module._library()
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -345,22 +363,19 @@ def time_train_steps(model, coeffs, labels, plain_loss, counts=(5, 2)):
     return {k: statistics.median(v) for k, v in samples.items()}, samples
 
 
-def profile_train_steps(model, coeffs, labels, kinds, steps=3):
-    """torch.profiler over a few train steps: device busy share, launches, and
-    the device ms per step of the kernels whose names match kinds' patterns."""
+def profile_calls(fn, kinds, calls):
+    """torch.profiler over calls of fn, after one warm-up call: the device's
+    busy share, kernels and copies per call, and the device ms per call of
+    the kernels whose names match kinds' patterns and of all other kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from torchcde_tpu_torch.models import make_train_step
-
-    model = copy.deepcopy(model)
-    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
-    step(coeffs, labels)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for _ in range(steps):
-            step(coeffs, labels)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     device = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -372,16 +387,28 @@ def profile_train_steps(model, coeffs, labels, kinds, steps=3):
         busy_us += max(0.0, end_us - max(start_us, reach))
         reach = max(reach, end_us)
     kernels = [e for e in device if not e[2].startswith(("Memcpy", "Memset"))]
-    fused_us = {name: sum(e[1] - e[0] for e in kernels if re.search(pattern, e[2]))
-                for name, pattern in kinds.items()}
+    kind_us = {name: sum(e[1] - e[0] for e in kernels if re.search(pattern, e[2]))
+               for name, pattern in kinds.items()}
+    other_us = sum(e[1] - e[0] for e in kernels
+                   if not any(re.search(pattern, e[2]) for pattern in kinds.values()))
     return {
-        "steps": steps, "wall_ms_per_step": wall_ms / steps,
-        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "calls": calls, "wall_ms_per_call": wall_ms / calls,
+        "device_busy_ms_per_call": busy_us / 1e3 / calls,
         "device_busy_share": busy_us / 1e3 / wall_ms,
-        "device_kernels_per_step": len(kernels) / steps,
-        "device_copies_per_step": (len(device) - len(kernels)) / steps,
-        **{f"{name}_ms_per_step": us / 1e3 / steps for name, us in fused_us.items()},
+        "device_kernels_per_call": len(kernels) / calls,
+        "device_copies_per_call": (len(device) - len(kernels)) / calls,
+        **{f"{name}_ms_per_call": us / 1e3 / calls for name, us in kind_us.items()},
+        "other_kernels_ms_per_call": other_us / 1e3 / calls,
     }
+
+
+def profile_train_steps(model, coeffs, labels, kinds, steps=3):
+    """profile_calls over a few train steps of a copy of model."""
+    from torchcde_tpu_torch.models import make_train_step
+
+    model = copy.deepcopy(model)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    return profile_calls(lambda: step(coeffs, labels), kinds, steps)
 
 
 K2_SOURCE = "torchcde_tpu_torch/csrc/fused_dopri.cu"
@@ -645,6 +672,531 @@ def time_k2(device):
             "k2_steps_attempted": mesh.attempted}
 
 
+# --------------------------------------------------------------------------
+# The natural cubic fit: K3 (fill), K4 (tridiagonal), K5 (gappy tridiagonal),
+# K6/K7 (the fused masked fit).
+# --------------------------------------------------------------------------
+
+FIT_SOURCES = {
+    "K3": "torchcde_tpu_torch/csrc/masked_fill.cu",
+    "K4": "torchcde_tpu_torch/csrc/tridiagonal.cu",
+    "K5": "torchcde_tpu_torch/csrc/masked_tridiagonal.cu",
+    "K6/K7": "torchcde_tpu_torch/csrc/masked_cubic.cu",
+}
+FIT_REPLACES = {
+    "K3": "torchcde_tpu/ops/fill_pallas.py:37",
+    "K4": "torchcde_tpu/ops/tridiagonal_pallas.py:70",
+    "K5": "torchcde_tpu/ops/masked_tridiagonal_pallas.py:69",
+    # K6's streaming kernels start at masked_cubic_pallas.py:148; at config
+    # 3's length the TPU runs the resident K7, which the same kernel replaces.
+    "K6/K7": "torchcde_tpu/ops/masked_cubic_resident.py:68",
+}
+# BASELINE config 3 (benchmarks/run_benchmarks.py:389-419, bench_cubic_fit).
+FIT_BATCH, FIT_LENGTH, FIT_NAN = 8192, 4096, 0.2
+FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096)
+FIT_DENSITIES = (0.0, 0.2, 0.8, 1.0)
+SPIRAL_NAN = 0.3
+# The H100 SXM's datasheet rates: HBM
+# bytes per second, and float32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+BF16_RTOL = 1e-2
+# The fills are selections: the kernel must reproduce the plain version
+# exactly.  The solves and the fit are held, like K1's forward, within
+# FWD_RTOL of the largest magnitude (or 1) against the plain version in
+# float64: float32 rounding in a stable elimination stays orders below it.
+# Each of the fit's four outputs is held to its own largest magnitude: on
+# irregular times three_d reaches ~1e3 while a and b stay ~1.
+FIT_PARTS = ("a", "b", "two_c", "three_d")
+# The new kernels' names as the profiler reports them (csrc/*.cu).
+FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b", "K4": r"\bthomas_kernel\b",
+                    "K5": r"\bmasked_thomas_kernel\b", "K6/K7": r"\bmasked_fit_kernel\b"}
+
+
+def fit_kernel_modules():
+    from torchcde_tpu_torch.ops import (
+        fill_kernel,
+        masked_cubic_kernel,
+        masked_tridiagonal_kernel,
+        tridiagonal_kernel,
+    )
+
+    return {"K3": fill_kernel, "K4": tridiagonal_kernel, "K5": masked_tridiagonal_kernel,
+            "K6/K7": masked_cubic_kernel}
+
+
+def reset_fit_counts():
+    for module in fit_kernel_modules().values():
+        module.reset_launch_counts()
+
+
+def fit_counts():
+    return {name: module.LAUNCHES for name, module in fit_kernel_modules().items()}
+
+
+def plain_versions_raise():
+    """Patches every kernel's plain version to raise, so a run inside shows
+    that nothing on the path fell back to one."""
+    import contextlib
+
+    from torchcde_tpu_torch.interpolation import cubic
+    from torchcde_tpu_torch.ops import fill, tridiagonal
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    mods = fit_kernel_modules()
+    targets = [(fill, "masked_fill_scan"), (mods["K3"], "masked_fill_scan"),
+               (tridiagonal, "tridiagonal_solve_thomas"), (tridiagonal, "tridiagonal_solve_pcr"),
+               (mods["K4"], "tridiagonal_solve_thomas"),
+               (cubic, "_masked_thomas_observed"), (mods["K5"], "_masked_thomas_observed"),
+               (cubic, "_masked_fit_plain"), (mods["K6/K7"], "_masked_fit_plain"),
+               (k1, "fused_fixed_solve_reference"), (k2, "fused_dopri5_solve_reference"),
+               (k2, "fused_dopri5_replay")]
+
+    def raiser(name):
+        def fail(*args, **kwargs):
+            raise AssertionError(f"the plain version {name} ran on the kernel path")
+        return fail
+
+    stack = contextlib.ExitStack()
+    for module, name in targets:
+        stack.enter_context(mock.patch.object(module, name, raiser(f"{module.__name__}.{name}")))
+    return stack
+
+
+def kernels_off():
+    """Routes every fit-path call to its plain version (for timing it)."""
+    from torchcde_tpu_torch.ops import dispatch
+
+    return mock.patch.object(dispatch, "runs_kernel", lambda *tensors: False)
+
+
+def _rel(got, ref):
+    """(max abs error, largest |ref|) of got against a float64 reference."""
+    err = float((got.double() - ref).abs().max()) if ref.numel() else 0.0
+    return err, float(ref.abs().max()) if ref.numel() else 0.0
+
+
+def _report(label, err, scale, limit, failures, finite=True):
+    print(f"{label}: max_abs_err {err:.3e} (largest |value| {scale:.3e}; limit {limit:.3e})",
+          flush=True)
+    if not finite or not err <= limit:
+        failures.append(label)
+
+
+def _report_parts(label, got, ref, rtol, failures):
+    """The fit's four outputs (a, b, two_c, three_d) against their float64
+    references, each within rtol of its own largest magnitude (or 1).
+    Returns the largest error."""
+    line, worst = [], 0.0
+    for name, g, r in zip(FIT_PARTS, got, ref):
+        err, scale = _rel(g, r)
+        limit = rtol * max(scale, 1.0)
+        line.append(f"{name} {err:.3e} (largest |value| {scale:.3e}; limit {limit:.3e})")
+        worst = max(worst, err)
+        if not bool(g.isfinite().all()) or not err <= limit:
+            failures.append(f"{label} {name}")
+    print(f"{label}: max_abs_err " + ", ".join(line), flush=True)
+    return worst
+
+
+def nan_rows(rows, length, density, seed):
+    """float32 values (rows, length), NaN at the given density; with enough
+    rows, a leading and a trailing NaN run, a single-observation row and an
+    all-NaN row."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, length)).astype(np.float32)
+    x[rng.random(x.shape) < density] = np.nan
+    if rows >= 4 and length >= 3:
+        run = max(1, length // 5)
+        x[0, :run] = np.nan
+        x[1, -run:] = np.nan
+        x[2] = np.nan
+        x[2, length // 2] = 1.5
+        x[3] = np.nan
+    return x
+
+
+def irregular_times(length, seed):
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.uniform(0.2, 1.5, length)).astype(np.float32)
+
+
+def _rows_for(length, i):
+    return 1001 if length >= 1025 else 77 + 2 * i  # odd row counts
+
+
+def check_k3(device):
+    from torchcde_tpu_torch.ops import fill, fill_kernel
+
+    failures, worst = [], 0.0
+    for i, length in enumerate(FIT_LENGTHS):
+        rows = FIT_BATCH if length == FIT_LENGTH else _rows_for(length, i)
+        for n_values in (1, 2, 5):
+            for reverse in (False, True):
+                density = FIT_DENSITIES[(i + n_values + reverse) % len(FIT_DENSITIES)]
+                x = torch.from_numpy(nan_rows(rows, length, density, seed=i)).to(device)
+                obs = ~torch.isnan(x)
+                gen = torch.Generator(device=device).manual_seed(n_values)
+                vals = (torch.where(obs, x, 0.0),) + tuple(
+                    torch.randn(x.shape, generator=gen, device=device) for _ in range(n_values - 1))
+                got = fill_kernel.masked_fill_kernel(vals, obs, reverse)
+                ref = fill.masked_fill_scan(tuple(v.double() for v in vals), obs, -1, reverse)
+                err = max(_rel(g, r)[0] for g, r in zip(got, ref))
+                worst = max(worst, err)
+                _report(f"K3 fill {rows}x{length} values {n_values} reverse {reverse} "
+                        f"NaN {density:g}", err, max(_rel(g, r)[1] for g, r in zip(got, ref)),
+                        0.0, failures)
+    return worst, failures
+
+
+def check_k4(device):
+    from torchcde_tpu_torch.ops import tridiagonal_kernel
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_thomas
+
+    failures, worst = [], 0.0
+    for i, length in enumerate(FIT_LENGTHS):
+        for shared in (True, False):
+            rows = FIT_BATCH if (length == FIT_LENGTH and shared) else _rows_for(length, i)
+            gen = torch.Generator(device=device).manual_seed(i)
+            b = torch.randn((rows, length), generator=gen, device=device)
+            if shared:  # the dense spline fit's system: bands from the times
+                t = torch.from_numpy(irregular_times(length, i)).to(device)
+                hr = 1.0 / (t[1:] - t[:-1])
+                zero = hr.new_zeros(1)
+                u = l = hr
+                d = 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero]))
+            else:  # per-row, diagonally dominant
+                u = torch.randn((rows, length - 1), generator=gen, device=device)
+                l = torch.randn((rows, length - 1), generator=gen, device=device)
+                pad = u.new_zeros((rows, 1))
+                d = 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1)
+            got = tridiagonal_kernel.launch(b, u, d, l)
+            ref = tridiagonal_solve_thomas(b.double(), u.double(), d.double(), l.double())
+            err, scale = _rel(got, ref)
+            worst = max(worst, err)
+            _report(f"K4 tridiagonal {rows}x{length} {'shared' if shared else 'per-row'} bands",
+                    err, scale, FWD_RTOL * max(scale, 1.0), failures, bool(got.isfinite().all()))
+    return worst, failures
+
+
+def check_k5(device):
+    from torchcde_tpu_torch.interpolation.cubic import _masked_thomas_observed
+    from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
+
+    failures, worst = [], 0.0
+    for i, length in enumerate(FIT_LENGTHS):
+        for j, density in enumerate(FIT_DENSITIES):
+            rows = _rows_for(length, i)
+            obs = ~torch.isnan(torch.from_numpy(nan_rows(rows, length, density, seed=10 * i + j))
+                               .to(device))
+            gen = torch.Generator(device=device).manual_seed(10 * i + j)
+            hr = torch.where(obs, torch.rand(obs.shape, generator=gen, device=device) + 0.2, 0.0)
+            hr_prev = torch.rand(obs.shape, generator=gen, device=device) + 0.2
+            diag = 2 * (hr + hr_prev) + 0.5
+            rhs = torch.randn(obs.shape, generator=gen, device=device)
+            got = masked_tridiagonal_kernel.launch(diag, rhs, hr, hr_prev, obs)
+            ref = _masked_thomas_observed(diag.double(), rhs.double(), hr.double(),
+                                          hr_prev.double(), obs)
+            err, scale = _rel(got, ref)
+            worst = max(worst, err)
+            _report(f"K5 gappy tridiagonal {rows}x{length} NaN {density:g}", err, scale,
+                    FWD_RTOL * max(scale, 1.0), failures, bool(got.isfinite().all()))
+    return worst, failures
+
+
+def check_k6(device):
+    from torchcde_tpu_torch.interpolation.cubic import _masked_fit_plain
+    from torchcde_tpu_torch.ops import masked_cubic_kernel
+
+    failures, worst = [], 0.0
+    for i, length in enumerate(FIT_LENGTHS):
+        t = torch.from_numpy(irregular_times(length, i)).to(device)
+        for j, density in enumerate(FIT_DENSITIES):
+            rows = _rows_for(length, i)
+            x = torch.from_numpy(nan_rows(rows, length, density, seed=100 + 10 * i + j)).to(device)
+            for version in (0, 1):
+                got = masked_cubic_kernel.launch(t, x, version)
+                ref = _masked_fit_plain(t.double(), x.double(), version)
+                worst = max(worst, _report_parts(
+                    f"K6/K7 masked fit {rows}x{length} NaN {density:g} version {version}",
+                    got, ref, FWD_RTOL, failures))
+    return worst, failures
+
+
+def check_bf16_fit(device):
+    """bfloat16 values enter the fit's kernels as float32 and leave as
+    bfloat16: the public fit, masked (K6/K7) and dense (K4), against the
+    float64 plain path on the same (bfloat16) values, within BF16_RTOL of
+    each output's largest magnitude (the output's own rounding is 2**-8 of
+    each value)."""
+    import torchcde_tpu_torch as tt
+
+    failures = []
+    for density in (0.2, 0.0):
+        x = torch.from_numpy(nan_rows(77, 100, density, seed=7)).to(device).bfloat16()[..., None]
+        got = tt.natural_cubic_coeffs(x)
+        ref = tt.natural_cubic_coeffs(x.double())
+        label = f"bfloat16 fit 77x100 NaN {density:g}"
+        if got.dtype != torch.bfloat16:
+            failures.append(f"{label}: dtype {got.dtype}")
+        _report_parts(label, got.chunk(4, dim=-1), ref.chunk(4, dim=-1), BF16_RTOL, failures)
+    return failures
+
+
+def check_fit_kernels(device):
+    """Phase 10: K3, K4, K5 and K6/K7 against their plain versions."""
+    errors, failures = {}, []
+    for name, check in (("K3", check_k3), ("K4", check_k4), ("K5", check_k5),
+                        ("K6/K7", check_k6)):
+        errors[name], failed = check(device)
+        failures += failed
+    failures += check_bf16_fit(device)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("fit kernels disagree with the plain version: " + "; ".join(failures))
+    return errors
+
+
+def config3_data():
+    """x (8192, 4096, 1) float32 as bench_cubic_fit makes it, and the same
+    draw before the NaNs went in."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((FIT_BATCH, FIT_LENGTH, 1)).astype(np.float32)
+    dense = x.copy()
+    x[rng.random(x.shape) < FIT_NAN] = np.nan
+    return x, dense
+
+
+def fit_slice(device, recorded):
+    """Phase 11: the config-3 fit through natural_cubic_coeffs, forward and
+    gradient, masked and dense.  ``recorded`` collects the arguments of the
+    K3 and K5 launches of the masked gradient, for the timing phase."""
+    import torchcde_tpu_torch as tt
+
+    masked, dense = config3_data()
+    w = torch.randn((FIT_BATCH, FIT_LENGTH - 1, 4),
+                    generator=torch.Generator(device=device).manual_seed(3), device=device)
+    expected = {"masked": ({"K3": 0, "K4": 0, "K5": 0, "K6/K7": 1},
+                           {"K3": 10, "K4": 0, "K5": 2, "K6/K7": 1}),
+                "dense": ({"K3": 0, "K4": 1, "K5": 0, "K6/K7": 0},
+                          {"K3": 0, "K4": 2, "K5": 0, "K6/K7": 0})}
+    launches, errors, failures = {"K3": 0, "K4": 0, "K5": 0, "K6/K7": 0}, {}, []
+    mods = fit_kernel_modules()
+    fill_launch, solve_launch = mods["K3"].launch, mods["K5"].launch
+
+    def record_fill(values, observed, reverse):
+        if len(values) == 5:
+            recorded["K3"] = (values, observed, reverse)
+        return fill_launch(values, observed, reverse)
+
+    def record_solve(*args):
+        recorded["K5"] = args
+        return solve_launch(*args)
+
+    for label, data in (("masked", masked), ("dense", dense)):
+        x = torch.from_numpy(data).to(device)
+        # The float64 plain path (the dtype rule), before the plain versions
+        # are patched to raise.
+        x64 = x.double().requires_grad_()
+        ref = tt.natural_cubic_coeffs(x64)
+        (ref_grad,) = torch.autograd.grad((ref * w.double()).sum(), x64)
+        ref = ref.detach()
+        with plain_versions_raise(), \
+                mock.patch.object(mods["K3"], "launch", record_fill), \
+                mock.patch.object(mods["K5"], "launch", record_solve):
+            reset_fit_counts()
+            coeffs = tt.natural_cubic_coeffs(x)
+            torch.cuda.synchronize()
+            fwd = fit_counts()
+            reset_fit_counts()
+            xg = x.clone().requires_grad_()
+            (grad,) = torch.autograd.grad((tt.natural_cubic_coeffs(xg) * w).sum(), xg)
+            torch.cuda.synchronize()
+            bwd = fit_counts()
+        print(f"fit slice {label} {tuple(x.shape)}: launches forward {fwd}, gradient {bwd}",
+              flush=True)
+        if (fwd, bwd) != expected[label]:
+            raise AssertionError(f"the {label} fit did not launch {expected[label]}: {fwd}, {bwd}")
+        for name in launches:
+            launches[name] += fwd[name] + bwd[name]
+        if coeffs.shape != (FIT_BATCH, FIT_LENGTH - 1, 4):
+            raise AssertionError(f"coefficients of shape {tuple(coeffs.shape)}")
+        # The packed coefficients' four blocks (one channel each).
+        errors[(label, "coefficients")] = _report_parts(
+            f"fit slice {label} coefficients vs plain float64", coeffs.chunk(4, dim=-1),
+            ref.chunk(4, dim=-1), FWD_RTOL, failures)
+        err, scale = _rel(grad, ref_grad)
+        errors[(label, "gradient")] = err
+        _report(f"fit slice {label} gradient vs plain float64", err, scale,
+                FWD_RTOL * max(scale, 1.0), failures, bool(grad.isfinite().all()))
+    if failures:
+        raise AssertionError("the config-3 fit disagrees with the plain path: " + "; ".join(failures))
+    return launches, errors
+
+
+def nan_spiral_slice(device):
+    """Phase 12: the spiral data with 30 % of the values missing, natural
+    cubic coefficients, five Adam steps of the default Neural CDE."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig, make_train_step
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    X_np, y_np = spiral_data(BATCH, LENGTH)
+    values = X_np[..., 1:]  # the time channel stays observed
+    values[np.random.default_rng(1).random(values.shape) < SPIRAL_NAN] = np.nan
+    X, labels = torch.from_numpy(X_np).to(device), torch.from_numpy(y_np).to(device)
+    ref = tt.natural_cubic_coeffs(X.double())
+    with plain_versions_raise():
+        reset_fit_counts()
+        coeffs = tt.natural_cubic_coeffs(X)
+        torch.cuda.synchronize()
+        fit = fit_counts()
+        model = NeuralCDE(NeuralCDEConfig(**DEFAULT), generator=torch.Generator().manual_seed(0))
+        if next(model.parameters()).device.type != device.type or model.cfg.solver != "dopri5":
+            raise AssertionError("the default Neural CDE is not the card's dopri5 model")
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+        k2.reset_launch_counts()
+        losses = [float(step(coeffs, labels)) for _ in range(5)]
+        torch.cuda.synchronize()
+        k2_counts = {"fwd": k2.FWD_LAUNCHES, "bwd": k2.BWD_LAUNCHES}
+    failures = []
+    err = _report_parts(f"NaN spiral slice B{BATCH} coefficients {tuple(coeffs.shape)} vs plain "
+                        "float64", coeffs.chunk(4, dim=-1), ref.chunk(4, dim=-1), FWD_RTOL,
+                        failures)
+    print(f"NaN spiral slice: fit launches {fit}; 5 Adam steps, losses {losses}, "
+          f"K2 launches {k2_counts}", flush=True)
+    if fit != {"K3": 0, "K4": 0, "K5": 0, "K6/K7": 1}:
+        raise AssertionError(f"the NaN spiral fit did not launch K6/K7 once: {fit}")
+    if failures:
+        raise AssertionError("the NaN spiral coefficients disagree with the plain path: "
+                             + "; ".join(failures))
+    if not all(math.isfinite(v) for v in losses) or losses[-1] == losses[0]:
+        raise AssertionError(f"the loss is not finite or does not change: {losses}")
+    if k2_counts != {"fwd": 5, "bwd": 5}:
+        raise AssertionError(f"the NaN spiral steps did not run K2 once per step: {k2_counts}")
+    return fit, k2_counts, err
+
+
+def bound(bytes_moved, flops):
+    """(least ms, what bounds it): bytes over the HBM rate against float32
+    operations over the CUDA cores' rate."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_fit_kernels(device, recorded):
+    """Phase 13: each new kernel and its plain version (float32, on the card)
+    at config 3, K4's library call, the public fit's forward and gradient
+    with kernels on and off, and a profile of the NaN-masked gradient.
+    Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}, the
+    end-to-end times and the profile."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.interpolation.cubic import _masked_fit_plain, _masked_thomas_observed
+    from torchcde_tpu_torch.ops.fill import masked_fill_scan
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_thomas
+
+    mods = fit_kernel_modules()
+    masked, dense = config3_data()
+    n, k = FIT_BATCH, FIT_LENGTH
+    x2 = torch.from_numpy(masked[..., 0]).to(device).contiguous()
+    t = torch.arange(k, dtype=torch.float32, device=device)
+    hr = 1.0 / (t[1:] - t[:-1])
+    zero = hr.new_zeros(1)
+    diag = 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero]))
+    rhs = torch.randn((n, k), generator=torch.Generator(device=device).manual_seed(4),
+                      device=device)
+    values, observed, reverse = recorded["K3"]
+    solve_args = recorded["K5"]
+    nv = len(values)
+    # (kernel, its plain version, repeats of the plain version, bytes, flops):
+    # bytes count each input read once and each output written once.
+    work = {
+        "K6/K7": (lambda: mods["K6/K7"].launch(t, x2, 1), lambda: _masked_fit_plain(t, x2, 1), 2,
+                  4 * (n * k + k + 4 * n * (k - 1)), 42 * n * k),
+        "K4": (lambda: mods["K4"].launch(rhs, hr, diag, hr),
+               lambda: tridiagonal_solve_thomas(rhs, hr, diag, hr), 2,
+               4 * (2 * n * k + 3 * k), 8 * n * k),
+        "K5": (lambda: mods["K5"].launch(*solve_args),
+               lambda: _masked_thomas_observed(*solve_args), 2, 4 * 5 * n * k + n * k, 10 * n * k),
+        "K3": (lambda: mods["K3"].launch(values, observed, reverse),
+               lambda: masked_fill_scan(tuple(values), observed, -1, reverse), 3,
+               4 * 2 * nv * n * k + n * k, 0),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (kernel, plain, repeats, bytes_moved, flops) in work.items():
+            ms = _event_ms(kernel, 10)
+            with kernels_off():
+                plain_ms = _event_ms(plain, repeats)
+            out[name] = (ms, plain_ms, *bound(bytes_moved, flops), None)
+        # K4's library call: at these inputs all rows share one band system,
+        # so torch.linalg.solve of the dense (k, k) matrix against the rows
+        # as columns computes the same function.  Building the matrix is
+        # set-up, outside the timed window.  The other kernels have none: a
+        # fill is cummax and a gather, and no call solves a gappy system or
+        # fits a masked spline.
+        A = torch.diag(diag) + torch.diag(hr, 1) + torch.diag(hr, -1)
+        columns = rhs.t().contiguous()
+        library_ms = _event_ms(lambda: torch.linalg.solve(A, columns), 3)
+        err, scale = _rel(torch.linalg.solve(A, columns).t(), mods["K4"].launch(rhs, hr, diag, hr)
+                          .double())
+        print(f"K4 library call torch.linalg.solve (dense {k}x{k}, {n} columns): {library_ms:.4f} ms, "
+              f"max_abs_err {err:.3e} against the kernel (largest |value| {scale:.3e})", flush=True)
+        if not err <= FWD_RTOL * max(scale, 1.0):
+            raise AssertionError("torch.linalg.solve disagrees with K4: not the same function")
+        out["K4"] = out["K4"][:4] + (library_ms,)
+
+    xm, xd = (torch.from_numpy(a).to(device) for a in (masked, dense))
+    w = torch.ones((n, k - 1, 4), device=device)
+
+    def grad_of(x):
+        xg = x.clone().requires_grad_()
+        return torch.autograd.grad((tt.natural_cubic_coeffs(xg) * w).sum(), xg)
+
+    end_to_end = {}
+    for label, x in (("masked", xm), ("dense", xd)):
+        with torch.no_grad():
+            end_to_end[f"{label}_fit_ms"] = _event_ms(lambda: tt.natural_cubic_coeffs(x), 5)
+        end_to_end[f"{label}_fit_grad_ms"] = _event_ms(lambda: grad_of(x), 3)
+        with kernels_off():
+            with torch.no_grad():
+                end_to_end[f"{label}_fit_plain_ms"] = _event_ms(
+                    lambda: tt.natural_cubic_coeffs(x), 2)
+            end_to_end[f"{label}_fit_grad_plain_ms"] = _event_ms(lambda: grad_of(x), 1)
+    end_to_end["k3_timed_fill"] = f"{nv} values, reverse {reverse}, {n}x{k}"
+    # Where the NaN-masked gradient's time goes: the new kernels, the other
+    # (PyTorch) kernels of the recomputed pipeline and its autograd, idle.
+    profiled = profile_calls(lambda: grad_of(xm), FIT_KERNEL_NAMES, 2)
+    return out, end_to_end, profiled
+
+
+def fused_bounds(k2_ms):
+    """The least times of K1 (flagship shapes) and K2 (default configuration,
+    batch 4096, this run's realised mesh): 2 W H (1 + C) float32 operations
+    per stage evaluation of one lane's MLP field.  K1: rk4, 4 stages per
+    interval forward; the backward needs one recompute of the 4 stages from
+    the stored interval state, then the VJP's products and the weight
+    gradients' products, as many again each: 3 times the forward's (the
+    flagship's one substep per interval leaves nothing to replay; the
+    kernel's replay before its recompute is its own choice).  K2: 6 new
+    stage evaluations per attempted step (the first stage is the last
+    one's) and one to start; the backward recomputes the 7 stages of every
+    accepted step and adds the VJP's and the weight gradients' products, 3
+    times 7 per accepted step.  Bytes (the control's coefficients, states
+    and cotangents) are far below: operations bound."""
+    f = 2 * WIDTH * HIDDEN * (1 + CHANNELS)
+    n = LENGTH - 1
+    ct_bytes = 4 * n * 3 * CHANNELS * BATCH
+    state = 4 * HIDDEN * BATCH
+    k1_fwd = bound(ct_bytes + state + 4 * n * HIDDEN * BATCH, n * 4 * BATCH * f)
+    k1_bwd = bound(2 * ct_bytes + 2 * 4 * n * HIDDEN * BATCH + 2 * state, 3 * n * 4 * BATCH * f)
+    acc, att = k2_ms["k2_steps_accepted"], k2_ms["k2_steps_attempted"]
+    k2_fwd = bound(ct_bytes + state + 4 * acc * HIDDEN * BATCH, (6 * att + 1) * BATCH * f)
+    k2_bwd = bound(2 * ct_bytes + 4 * acc * HIDDEN * BATCH + 2 * state, 3 * 7 * acc * BATCH * f)
+    return k1_fwd, k1_bwd, k2_fwd, k2_bwd
+
+
 def main():
     smi, device = phase_device()
 
@@ -734,23 +1286,57 @@ def main():
         print("profile: " + json.dumps(dict(
             profile_train_steps(*default_model(device, batch), k2_kinds),
             config=f"default dopri5 adjoint B{batch}", card=smi)))
+    # 10-13. The natural cubic fit: its kernels, the config-3 slice, the NaN
+    # spiral slice and the timing.
+    fit_errors = check_fit_kernels(device)
+    recorded = {}
+    fit_launches, slice_errors = fit_slice(device, recorded)
+    spiral_fit, spiral_k2, spiral_err = nan_spiral_slice(device)
+    for name, count in spiral_fit.items():
+        fit_launches[name] += count
+    fit_ms, fit_end_to_end, fit_profile = time_fit_kernels(device, recorded)
+    print("profile: " + json.dumps(dict(fit_profile, config="config-3 NaN-masked fit gradient",
+                                        card=smi)))
+    print("timing: " + json.dumps({
+        "card": smi, **{f"{name}_ms": v[0] for name, v in fit_ms.items()},
+        **{f"{name}_plain_ms": v[1] for name, v in fit_ms.items()},
+        **{f"{name}_bound_ms": v[2] for name, v in fit_ms.items()},
+        "K4_library_ms": fit_ms["K4"][4], **fit_end_to_end,
+        "fit_slice_max_abs_err": {" ".join(key): v for key, v in slice_errors.items()},
+        "nan_spiral_fit_max_abs_err": spiral_err, "nan_spiral_k2_launches": spiral_k2,
+    }))
+
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
-    print(json.dumps({"kernels": [
+    k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)
+    # No single PyTorch call computes a fused CDE solve: K1's and K2's
+    # library_ms is null (the fit kernels': time_fit_kernels).
+    kernels = [
         {"name": "K1-fwd", "route": "cuda", "source": SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:182", "launches": launches["fwd"],
-         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms},
+         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+         "bound_ms": k1_fwd_bound[0], "bound_by": k1_fwd_bound[1], "library_ms": None},
         {"name": "K1-bwd", "route": "cuda", "source": SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:265", "launches": launches["bwd"],
-         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms},
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+         "bound_ms": k1_bwd_bound[0], "bound_by": k1_bwd_bound[1], "library_ms": None},
         {"name": "K2-fwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_dopri_pallas.py:161",
          "launches": k2_total["fwd"], "max_abs_err": k2_fwd_err, "ms": k2_ms["k2_fwd_ms"],
-         "plain_ms": k2_ms["k2_fwd_plain_ms"]},
+         "plain_ms": k2_ms["k2_fwd_plain_ms"], "bound_ms": k2_fwd_bound[0],
+         "bound_by": k2_fwd_bound[1], "library_ms": None},
         {"name": "K2-bwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_dopri_pallas.py:295",
          "launches": k2_total["bwd"], "max_abs_err": k2_bwd_err, "ms": k2_ms["k2_bwd_ms"],
-         "plain_ms": k2_ms["k2_bwd_plain_ms"]},
-    ]}))
+         "plain_ms": k2_ms["k2_bwd_plain_ms"], "bound_ms": k2_bwd_bound[0],
+         "bound_by": k2_bwd_bound[1], "library_ms": None},
+    ]
+    for name in ("K3", "K4", "K5", "K6/K7"):
+        ms, plain_ms, bound_ms, bound_by, library_ms = fit_ms[name]
+        kernels.append({"name": name, "route": "cuda", "source": FIT_SOURCES[name],
+                        "replaces": FIT_REPLACES[name], "launches": fit_launches[name],
+                        "max_abs_err": fit_errors[name], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

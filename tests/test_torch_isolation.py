@@ -19,6 +19,10 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import torchcde_tpu_torch, torchcde_tpu_torch.models, torchcde_tpu_torch.interop\n"
         "import torchcde_tpu_torch.solvers.fused_fixed_kernel, torchcde_tpu_torch._build\n"
+        "import torchcde_tpu_torch.misc, torchcde_tpu_torch.ops.dispatch\n"
+        "import torchcde_tpu_torch.ops.fill_kernel, torchcde_tpu_torch.ops.tridiagonal_kernel\n"
+        "import torchcde_tpu_torch.ops.masked_tridiagonal_kernel\n"
+        "import torchcde_tpu_torch.ops.masked_cubic_kernel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchcde_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -22,6 +22,7 @@ from torchcde_tpu.models.training import accuracy as jax_accuracy
 from torchcde_tpu.models.training import make_train_step as jax_make_train_step
 from torchcde_tpu_torch.interop import from_jax_params
 from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig, accuracy, make_train_step
+from torchcde_tpu_torch.models.training import loss_fn as tt_loss_fn
 
 torch.set_num_threads(1)
 
@@ -50,7 +51,7 @@ def _jax_setup():
 
 
 def _torch_model(params):
-    model = NeuralCDE(NeuralCDEConfig(**FLAGSHIP), dtype=torch.float64)
+    model = NeuralCDE(NeuralCDEConfig(**FLAGSHIP), device="cpu", dtype=torch.float64)
     model.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
     return model
 
@@ -97,14 +98,14 @@ def test_three_adam_steps_track_optax():
 
 def test_initialisation_is_seeded_and_bounded():
     cfg = NeuralCDEConfig(**FLAGSHIP)
-    a = NeuralCDE(cfg, generator=torch.Generator().manual_seed(3))
-    b = NeuralCDE(cfg, generator=torch.Generator().manual_seed(3))
+    a = NeuralCDE(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    b = NeuralCDE(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(pa, pb), name
     bound = 1.0 / math.sqrt(WIDTH)
     assert float(a.func.linear2.weight.detach().abs().max()) <= bound
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="bfloat16"))
+        NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="bfloat16"), device="cpu")
 
 
 # The reference default: dopri5 with the adjoint.  The port routes it to K2
@@ -131,7 +132,7 @@ def _lines(batch, length, seed):
 def _default_setup():
     cfg = JaxConfig(**DEFAULT, adjoint=False)
     params = init_neural_cde(jax.random.PRNGKey(0), cfg, dtype=jnp.float64)
-    model = NeuralCDE(NeuralCDEConfig(**DEFAULT), dtype=torch.float64)
+    model = NeuralCDE(NeuralCDEConfig(**DEFAULT), device="cpu", dtype=torch.float64)
     model.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
     assert (model.cfg.solver, model.cfg.adjoint) == ("dopri5", True)
     return cfg, params, model
@@ -163,3 +164,58 @@ def test_default_config_three_adam_steps_track_optax():
     for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, params)).items():
         np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-8, atol=1e-12,
                                    err_msg=name)
+
+
+def test_default_device_is_the_card():
+    # Entry points run on the card unless the caller asks for the CPU: the
+    # model is built on the CUDA card by default, and without one it raises
+    # rather than carrying on on the CPU.  The weights are drawn on the CPU
+    # and then moved, so a seed gives the same weights on every device.
+    cfg = NeuralCDEConfig(**DEFAULT)
+    on_cpu = NeuralCDE(cfg, generator=torch.Generator().manual_seed(4), device="cpu")
+    assert all(p.device.type == "cpu" for p in on_cpu.parameters())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            NeuralCDE(cfg, generator=torch.Generator().manual_seed(4))
+        return
+    on_card = NeuralCDE(cfg, generator=torch.Generator().manual_seed(4))
+    for (name, a), b in zip(on_card.named_parameters(), on_cpu.parameters()):
+        assert a.device.type == "cuda", name
+        assert torch.equal(a.cpu(), b), name
+
+
+# The NaN spiral slice: 30 % of the two value channels' entries missing (the
+# time channel observed), natural cubic coefficients, then the default
+# configuration.  A natural cubic spline is twice continuously
+# differentiable, so the two float64 step meshes agree here.
+def _nan_spiral(batch, length, seed):
+    X, y = _spiral(batch, length, seed)
+    rng = np.random.default_rng(seed + 100)
+    X[..., 1:][rng.random(X[..., 1:].shape) < 0.3] = np.nan
+    return X, y
+
+
+def test_nan_spiral_default_config_matches_jax():
+    X, y = _nan_spiral(8, LENGTH, seed=5)
+    cfg, params, model = _default_setup()
+    cj = tc.natural_cubic_coeffs(jnp.asarray(X))
+    ct = tt.natural_cubic_coeffs(torch.from_numpy(X))
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-12, atol=1e-12)
+
+    def jax_loss(p):
+        logits = neural_cde_apply(p, cfg, cj)[..., 0]
+        return jnp.mean(jnp.clip(logits, 0) - logits * y + jnp.log1p(jnp.exp(-jnp.abs(logits))))
+
+    np.testing.assert_allclose(model(ct).detach().numpy(),
+                               np.asarray(neural_cde_apply(params, cfg, cj)),
+                               rtol=1e-9, atol=1e-12)
+    loss_j, grads_j = jax.value_and_grad(jax_loss)(params)
+    loss_t = tt_loss_fn(model, ct, torch.from_numpy(y))
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-9)
+    # Gradients: rtol 1e-8, and atol 1e-10 for entries many orders below the
+    # largest (~0.3), where the two summation orders' rounding shows.
+    grads = dict(model.named_parameters())
+    for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, grads_j)).items():
+        np.testing.assert_allclose(grads[name].grad.numpy(), value.numpy(), rtol=1e-8,
+                                   atol=1e-10, err_msg=name)

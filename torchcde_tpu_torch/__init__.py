@@ -1,26 +1,34 @@
 """torchcde_tpu_torch: the PyTorch and CUDA port of torchcde_tpu.
 
 A second package beside the JAX one, written in PyTorch for an NVIDIA H100.
-It carries the spiral Neural CDE training step: Hermite coefficients,
+It carries the spiral Neural CDE training step: Hermite coefficients, the
+natural cubic spline fit of data with missing values (NaN-masked),
 ``CubicSpline``, ``cdeint`` (fixed-step and adaptive dopri5, direct
 backpropagation or the backsolve adjoint) with the canonical MLP vector
 field, whose whole solve runs as a hand-written CUDA kernel pair on the
-card, BCE loss and Adam.  The package imports torch and numpy, never jax.
+card, BCE loss and Adam.  The spline fit, its fills and tridiagonal solves run
+as CUDA kernels on the card too.  The package imports torch and numpy, never jax.
 """
 
 from .interpolation import (
     CubicSpline,
     InterpolationBase,
+    NaturalCubicSpline,
     hermite_cubic_coefficients_with_backward_differences,
     linear_interpolation_coeffs,
+    natural_cubic_coeffs,
+    natural_cubic_spline_coeffs,
 )
 from .solvers import SolverConfig, cdeint
 
 __all__ = [
     "CubicSpline",
     "InterpolationBase",
+    "NaturalCubicSpline",
     "SolverConfig",
     "cdeint",
     "hermite_cubic_coefficients_with_backward_differences",
     "linear_interpolation_coeffs",
+    "natural_cubic_coeffs",
+    "natural_cubic_spline_coeffs",
 ]

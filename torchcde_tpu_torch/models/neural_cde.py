@@ -52,9 +52,15 @@ def _uniform_(linear, generator):
 
 
 class NeuralCDE(nn.Module):
-    """Neural CDE: coeffs (..., L', 4 * channels) -> predictions (..., output)."""
+    """Neural CDE: coeffs (..., L', 4 * channels) -> predictions (..., output).
 
-    def __init__(self, cfg: NeuralCDEConfig, generator=None, device=None,
+    Built on the CUDA card unless ``device`` says otherwise (``device="cpu"``
+    builds on the CPU); without a card the default raises.  The weights are
+    drawn on the CPU from ``generator`` (a CPU generator, or the global CPU
+    generator when None) and then moved, so one seed gives the same weights
+    on every device."""
+
+    def __init__(self, cfg: NeuralCDEConfig, generator=None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
         if cfg.compute_dtype is not None:
@@ -62,8 +68,15 @@ class NeuralCDE(nn.Module):
                 "compute_dtype (bf16 coefficient storage) is not ported to "
                 "torchcde_tpu_torch yet (ROADMAP.md queue 2, 'K1 bf16 slab storage')."
             )
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "NeuralCDE is built on the CUDA card by default, and "
+                "torch.cuda.is_available() is False: pass device='cpu' to build "
+                "it on the CPU."
+            )
         self.cfg = cfg
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device="cpu", dtype=dtype)
         self.initial = nn.Linear(cfg.input_channels, cfg.hidden_channels, **kw)
         self.func = MLPVectorField(cfg.hidden_channels, cfg.input_channels,
                                    cfg.width, **kw)
@@ -71,6 +84,7 @@ class NeuralCDE(nn.Module):
         for linear in (self.initial, self.func.linear1, self.func.linear2,
                        self.readout):
             _uniform_(linear, generator)
+        self.to(device)
 
     def forward(self, coeffs, t=None):
         cfg = self.cfg

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..ops.dispatch import check_operands, stream_of
 from ..utils.misc import numpy_dtype
 from .integrate import _QUARTIC_MINV
 from .runge_kutta import DOPRI5, DOPRI5_BMID
@@ -260,17 +261,6 @@ def _library():
     return lib
 
 
-def _check_operands(tensors, names):
-    device = tensors[0].device
-    for t, name in zip(tensors, names):
-        if not t.is_cuda or t.device != device:
-            raise ValueError(f"{name} must lie on {device}, found {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, found {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _shapes(ct, z0t, w1t, w2t):
     n, three, C, B = ct.shape
     H, W = z0t.shape[0], w1t.shape[0]
@@ -308,7 +298,7 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     attempted steps), all left on the device."""
     global FWD_LAUNCHES
     ops = (ct, z0t, w1t, b1, w2t, b2, dt0)
-    _check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2", "dt0"))
+    check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2", "dt0"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     lib = _library()
     variant = lib.fd_variant(H, C, W)
@@ -318,7 +308,7 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     stats = torch.empty(2, dtype=torch.int32, device=ct.device)
     scratch = torch.zeros(lib.fd_scratch_floats(B, H, C, W, variant, 0), dtype=torch.float32,
                           device=ct.device)
-    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (*ops, zout, zfin, dtfin, zst, tst, dtst, stats, scratch)]
     with torch.cuda.device(ct.device):
         rc = lib.fd_forward(*ptrs, B, n, H, C, W, plan.cap, len(plan.out_ts), *_out_times(plan),
@@ -335,7 +325,7 @@ def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
     global BWD_LAUNCHES
     zst, tst, dtst, stats = store
     ops = (ct, zst, tst, dtst, gzout, gzfin, w1t, b1, w2t, b2)
-    _check_operands(ops, ("ct", "zst", "tst", "dtst", "gzout", "gzfin", "w1t", "b1", "w2t", "b2"))
+    check_operands(ops, ("ct", "zst", "tst", "dtst", "gzout", "gzfin", "w1t", "b1", "w2t", "b2"))
     n, _, C, B = ct.shape
     H, W = gzfin.shape[0], w1t.shape[0]
     if (gzfin.shape != (H, B) or gzout.shape != (len(plan.out_ts), H, B)
@@ -349,7 +339,7 @@ def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
     dw1p, db1p = zeros((blocks, W, H)), zeros((blocks, W))
     dw2p, db2p = zeros((blocks, W, C * H)), zeros((blocks, C * H))
     scratch = zeros(lib.fd_scratch_floats(B, H, C, W, variant, 1))
-    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (*ops, stats, dct, dz0, dw1p, db1p, dw2p, db2p, scratch)]
     with torch.cuda.device(ct.device):
         rc = lib.fd_backward(*ptrs, B, n, H, C, W, len(plan.out_ts), *_out_times(plan),

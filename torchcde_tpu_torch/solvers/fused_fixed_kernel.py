@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..ops.dispatch import check_operands, stream_of
 from .runge_kutta import TABLEAUS
 
 # Caps mirrored from the JAX package's _pack_operands.
@@ -195,17 +196,6 @@ def _knot_slots(out_knots, n, device):
     return torch.tensor(slot, dtype=torch.int32, device=device)
 
 
-def _check_operands(tensors, names):
-    device = tensors[0].device
-    for t, name in zip(tensors, names):
-        if not t.is_cuda or t.device != device:
-            raise ValueError(f"{name} must lie on {device}, found {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, found {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _tableau_args(method):
     frac, prev, c_sol = _chain_form(method)
     arr = ctypes.c_double * len(c_sol)
@@ -236,14 +226,14 @@ def kernel_variant(H, C, W, plan):
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
     """Forward kernel: returns (out (n_out, H, B), zres (n, H, B))."""
     global FWD_LAUNCHES
-    _check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"))
+    check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     lib = _library()
     variant = lib.ff_variant(H, C, W, int(plan.generic))
     out = torch.empty((len(plan.out_knots), H, B), dtype=ct.dtype, device=ct.device)
     zres = torch.empty((n, H, B), dtype=ct.dtype, device=ct.device)
     slot = _knot_slots(plan.out_knots, n, ct.device)
-    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (ct, z0t, w1t, b1, w2t, b2, slot, out, zres)]
     with torch.cuda.device(ct.device):
         rc = lib.ff_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
@@ -257,7 +247,7 @@ def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
     """Backward kernel: returns (dct, dz0, dw1t, db1, dw2t, db2)."""
     global BWD_LAUNCHES
     ops = (ct, zres, z0t, gz, w1t, b1, w2t, b2)
-    _check_operands(ops, ("ct", "zres", "z0t", "gz", "w1t", "b1", "w2t", "b2"))
+    check_operands(ops, ("ct", "zres", "z0t", "gz", "w1t", "b1", "w2t", "b2"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     if zres.shape != (n, H, B) or gz.shape != (len(plan.out_knots), H, B):
         raise ValueError("inconsistent fused-solve cotangent shapes")
@@ -269,7 +259,7 @@ def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
     dw1p, db1p = empty((blocks, W, H)), empty((blocks, W))
     dw2p, db2p = empty((blocks, W, C * H)), empty((blocks, C * H))
     slot = _knot_slots(plan.out_knots, n, ct.device)
-    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (*ops, slot, dct, dz0, dw1p, db1p, dw2p, db2p)]
     with torch.cuda.device(ct.device):
         rc = lib.ff_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
