@@ -39,7 +39,25 @@ Phases, each of which raises on failure:
    phases 11 and 12 run with every kernel's plain version patched to raise;
 13. timing of the new kernels, their plain versions and K4's library call
    (torch.linalg.solve of the shared dense system) at config 3, and a
-   torch.profiler reading of the NaN-masked fit's gradient.
+   torch.profiler reading of the NaN-masked fit's gradient;
+14. K2 linear mode: the adaptive kernels over a LinearInterpolation against
+   their plain version, per realised mesh as in phase 6, on every launch of
+   the config-4 control's solve and of five cases (the specialised variant,
+   16 channels, three chunks with lead and output times on chunk-boundary
+   knots, two groups, an exhausted budget), and the slope chosen at exact
+   knots (hand-made one-step meshes through the backward kernel);
+15. log-ODE slice: BASELINE config 4 (256 spirals of length 10 000,
+   logsig_windows at depth 3, window 100, linear_interpolation_coeffs, the
+   linear Neural CDE with dopri5 and the adjoint): five Adam steps and one
+   accuracy call, without and with 30 % NaN, every plain version patched to
+   raise, launch counts asserted (K2 linear 6 forward, 5 backward; K3 2 for
+   the NaN infill);
+16. irregular slice: BASELINE config 2's preprocessing (1024 x 256 x 9, 30 %
+   NaN) with and without rectilinear=0, against the float64 plain path (K3
+   2 and 3 launches);
+17. timing of K2-linear at config 4 against its plain version, the config-4
+   train step, logsig_windows alone, and a torch.profiler reading of the
+   train step.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -47,6 +65,7 @@ exits non-zero before building anything.
 """
 
 import copy
+import functools
 import json
 import math
 import re
@@ -54,6 +73,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -448,22 +468,27 @@ def paths(batch, length, channels, seed):
     return np.stack(cols, axis=-1).astype(np.float32)
 
 
-def k2_problem(batch, length, hidden, channels, width, seed, device):
+def k2_problem(batch, length, hidden, channels, width, seed, device, interpolation="cubic"):
     """(control, vector field, z0) of a seeded NeuralCDE on smooth paths, as
-    the model's forward builds them."""
+    the model's forward builds them: a Hermite ``CubicSpline``, or a
+    ``LinearInterpolation`` of the paths' knots."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig
 
-    model = NeuralCDE(NeuralCDEConfig(channels, hidden, 1, width=width),
+    model = NeuralCDE(NeuralCDEConfig(channels, hidden, 1, width=width,
+                                      interpolation=interpolation),
                       generator=torch.Generator().manual_seed(seed)).to(device)
-    X = tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(
-        torch.from_numpy(paths(batch, length, channels, seed)).to(device)))
+    x = torch.from_numpy(paths(batch, length, channels, seed)).to(device)
+    if interpolation == "linear":
+        X = tt.LinearInterpolation(tt.linear_interpolation_coeffs(x))
+    else:
+        X = tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(x))
     with torch.no_grad():
         z0 = model.initial(X.evaluate(X.interval[0]))
     return X, model.func, z0
 
 
-def _k2_grads(ops, dt0, plan, store, mesh, gz, gzfin):
+def _k2_grads(ops, plan, store, mesh, gz, gzfin):
     """The backward kernel's gradients and autograd's through the float64
     replay of the kernel's mesh."""
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
@@ -525,7 +550,15 @@ def check_k2_launch(label, ops, dt0, plan):
     gen = torch.Generator(device=got.device).manual_seed(2)
     gz = torch.randn(zout.shape, generator=gen, device=got.device)
     gzfin = torch.randn(zfin.shape, generator=gen, device=got.device)
-    grads, ref_grads = _k2_grads(ops, dt0, plan, store, mesh, gz, gzfin)
+    bwd_err, bwd_failures = check_k2_backward(label, ops, plan, store, mesh, gz, gzfin)
+    return fwd_err, bwd_err, accuracy, failures + bwd_failures
+
+
+def check_k2_backward(label, ops, plan, store, mesh, gz, gzfin):
+    """The backward kernel over a stored mesh against autograd through the
+    float64 replay, with K1's ReLU-kink lane screen."""
+    H, (n, _, C, B), W = ops[1].shape[0], ops[0].shape, ops[2].shape[0]
+    grads, ref_grads = _k2_grads(ops, plan, store, mesh, gz, gzfin)
     lane_err = torch.maximum(_lane_rel_l2(grads[0], ref_grads[0]),
                              _lane_rel_l2(grads[1], ref_grads[1]))
     kinked = torch.nonzero(lane_err > LANE_RTOL).flatten().tolist()
@@ -533,11 +566,12 @@ def check_k2_launch(label, ops, dt0, plan):
     worst = float(lane_err.max())
     print(f"K2-bwd {label}: {len(kinked)} lanes past {LANE_RTOL:g} (limit {allowed}), "
           f"largest lane error {worst:.2e}")
+    failures = []
     if len(kinked) > allowed or worst > LANE_GROSS:
         failures.append(f"K2 backward: lanes disagree ({label})")
     gz[..., kinked] = 0.0
     gzfin[..., kinked] = 0.0
-    grads, ref_grads = _k2_grads(ops, dt0, plan, store, mesh, gz, gzfin)
+    grads, ref_grads = _k2_grads(ops, plan, store, mesh, gz, gzfin)
     bwd_err = 0.0
     for name, g, r in zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads, ref_grads):
         err, scale = _err(g.double(), r)
@@ -547,7 +581,7 @@ def check_k2_launch(label, ops, dt0, plan):
         if not torch.isfinite(g).all() or rel > BWD_RTOL:
             failures.append(f"K2 backward d{name} ({label})")
         bwd_err = max(bwd_err, err)
-    return fwd_err, bwd_err, accuracy, failures
+    return bwd_err, failures
 
 
 def recorded_k2_launches(X, field, z0, ts, cfg):
@@ -567,6 +601,27 @@ def recorded_k2_launches(X, field, z0, ts, cfg):
     return calls
 
 
+def output_times(which, n):
+    """A case's output times over n intervals: the two ends, twenty times
+    off the knots, or times on the chunk-boundary knots 128 and 256."""
+    if which == "terminal":
+        return np.array([0.0, float(n)])
+    if which == "boundaries":
+        return np.array([0.0, 50.5, 128.0, 200.0, 256.0, float(n)])
+    return np.concatenate([[0.0], np.linspace(n / 20, n, 20) - 0.37 * (np.arange(20) % 2)])
+
+
+def k2_accuracy_failures(errors):
+    """The sum over all launches of the kernel's and the plain float32
+    solve's errors against the float64 solve (see EXACT_TOL)."""
+    kernel_sum, plain_sum = (sum(e[2][i] for e in errors) for i in (0, 1))
+    print(f"K2 accuracy over all launches, in units of rtol x largest magnitude: "
+          f"kernel {kernel_sum:.3f}, plain float32 {plain_sum:.3f} (limit {2 * plain_sum:.3f})")
+    if not kernel_sum <= 2 * plain_sum:
+        return ["K2 forward less accurate than the plain float32 solve over all launches"]
+    return []
+
+
 def check_k2(device):
     """Phase 6: every K2 case, every launch."""
     from torchcde_tpu_torch.solvers import SolverConfig
@@ -575,19 +630,13 @@ def check_k2(device):
     for seed, (label, B, L, H, C, W, which, options) in enumerate(K2_CASES, start=1):
         X, field, z0 = k2_problem(B, L, H, C, W, seed, device)
         n = L - 1
-        ts = (np.array([0.0, float(n)]) if which == "terminal"
-              else np.concatenate([[0.0], np.linspace(n / 20, n, 20) - 0.37 * (np.arange(20) % 2)]))
+        ts = output_times(which, n)
         calls = recorded_k2_launches(X, field, z0, ts, SolverConfig(**options))
         print(f"K2 {label}: B{B} n{n} H{H} C{C} W{W}, {len(ts)} output times, "
               f"{len(calls)} launches", flush=True)
         for i, (*ops, dt0, plan) in enumerate(calls):
             errors.append(check_k2_launch(f"{label} #{i}", tuple(ops), dt0, plan))
-    failures = [f for e in errors for f in e[3]]
-    kernel_sum, plain_sum = (sum(e[2][i] for e in errors) for i in (0, 1))
-    print(f"K2 accuracy over all launches, in units of rtol x largest magnitude: "
-          f"kernel {kernel_sum:.3f}, plain float32 {plain_sum:.3f} (limit {2 * plain_sum:.3f})")
-    if not kernel_sum <= 2 * plain_sum:
-        failures.append("K2 forward less accurate than the plain float32 solve over all launches")
+    failures = [f for e in errors for f in e[3]] + k2_accuracy_failures(errors)
     if failures:
         raise AssertionError("K2 disagrees with the plain version: " + "; ".join(failures))
     return max(e[0] for e in errors), max(e[1] for e in errors)
@@ -645,11 +694,17 @@ def plain_k2_loss(coeffs, labels):
 def time_k2(device):
     """K2 ms at the default configuration, batch 4096, and its plain version's."""
     import torchcde_tpu_torch as tt
+
+    model, coeffs, _ = default_model(device, 4096)
+    return time_k2_solve(tt.CubicSpline(coeffs), model)
+
+
+def time_k2_solve(X, model):
+    """K2 ms of the model's one-launch solve over X, forward and backward,
+    and its plain version's (float32, on the card)."""
     from torchcde_tpu_torch.solvers import SolverConfig
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 
-    model, coeffs, _ = default_model(device, 4096)
-    X = tt.CubicSpline(coeffs)
     with torch.no_grad():
         z0 = model.initial(X.evaluate(X.interval[0]))
     (*ops, dt0, plan), = recorded_k2_launches(X, model.func, z0, X.interval, SolverConfig())
@@ -1078,6 +1133,257 @@ def nan_spiral_slice(device):
     return fit, k2_counts, err
 
 
+# --------------------------------------------------------------------------
+# The log-ODE Neural RDE path (BASELINE config 4) and the irregular
+# preprocessing (config 2): K2's linear-control mode, and K3 in the NaN
+# infill of linear interpolation.
+# --------------------------------------------------------------------------
+
+# BASELINE config 4 (benchmarks/run_benchmarks.py:451-497, bench_log_ode_train):
+# depth-3 windowed logsignatures of 256 spirals of length 10 000, window 100
+# (101 knots of 14 channels), linear interpolation, dopri5 with the adjoint,
+# hidden 8, width 128.
+LOG_ODE_BATCH, LOG_ODE_LENGTH, LOG_ODE_DEPTH, LOG_ODE_WINDOW = 256, 10000, 3, 100.0
+LOG_ODE_CHANNELS = 14
+LOG_ODE = dict(input_channels=LOG_ODE_CHANNELS, hidden_channels=HIDDEN, output_channels=1,
+               width=WIDTH, interpolation="linear")
+# BASELINE config 2 (run_benchmarks.py:348-386, bench_irregular): 1024 series
+# of length 256, a time channel and 8 values of which 30 % are missing.
+IRREGULAR_BATCH, IRREGULAR_LENGTH, IRREGULAR_VALUES, IRREGULAR_NAN = 1024, 256, 8, 0.3
+# K2 linear-mode cases beside the config-4 control itself: (label, batch,
+# length, hidden, channels, width, output times, solver options).
+K2_LINEAR_CASES = [
+    ("specialised H8 C3 B4096", 4096, LENGTH, HIDDEN, CHANNELS, WIDTH, "terminal", {}),
+    ("cap C16 B300", 300, 60, HIDDEN, 16, WIDTH, "terminal", {}),
+    ("chunks with lead n300", 256, 301, HIDDEN, LOG_ODE_CHANNELS, WIDTH, "boundaries", {}),
+    ("two groups B5000", 5000, LENGTH, HIDDEN, CHANNELS, WIDTH, "terminal", {}),
+    ("exhausted budget", 256, LENGTH, HIDDEN, LOG_ODE_CHANNELS, WIDTH, "twenty",
+     dict(max_steps=8)),
+]
+K2_KINDS = {"k2_fwd": r"\bdopri_fwd_kernel\b", "k2_bwd": r"\bdopri_bwd_kernel\b"}
+
+
+def log_ode_data(device, nan):
+    """Config 4's spirals (256 x 10 000 x 3) on the card; with ``nan``, 30 %
+    of the two value channels' entries missing (numpy rng seed 1, as phase
+    12; the time channel stays observed)."""
+    X_np, y_np = spiral_data(LOG_ODE_BATCH, LOG_ODE_LENGTH)
+    if nan:
+        values = X_np[..., 1:]
+        values[np.random.default_rng(1).random(values.shape) < SPIRAL_NAN] = np.nan
+    return torch.from_numpy(X_np).to(device), torch.from_numpy(y_np).to(device)
+
+
+def log_ode_model(device, seed=0):
+    from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig
+
+    model = NeuralCDE(NeuralCDEConfig(**LOG_ODE), generator=torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def probe_knot_slopes(X, field, z0):
+    """K2-linear's choice of slope at exact knots: the backward kernel over
+    hand-made one-step meshes whose stages land on knots, from knot 1 to
+    knot 2 (stage times 1, 1.2, 1.3, 1.8, 1.89, 2, 2) and, in a chunk that
+    starts at knot 2 with ``lead``, from knot 2 to knot 3.  The slope rows
+    its dct touches must be those that ``LinearInterpolation.derivative``
+    reads at the stage times (the left one at a knot), and its gradients
+    must agree with the float64 replay."""
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers.fused_fixed_kernel import pack_operands
+    from torchcde_tpu_torch.solvers.runge_kutta import DOPRI5
+
+    with torch.no_grad():
+        p = pack_operands(X._derivs, None, None, z0, field, linear=True)
+    device, (H, B) = p.ct.device, p.z0t.shape
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    errors, failures = [], []
+    # (step start, the chunk's first interval j0 on the grid 0, 1, ..., lead)
+    for t0, j0, lead in ((1.0, 0, False), (2.0, 2, True)):
+        base = j0 - lead  # the table's first row is interval base
+        ct = p.ct[base:].contiguous()
+        plan = k2.Plan((), t0, t0 + 1.0, float(j0), 1.0, 1e-4, 1e-6, 1, linear=True, lead=lead)
+        stage_times = np.float32(t0) + np.float32([0.0] + list(DOPRI5.alpha)) * np.float32(1.0)
+        store = (p.z0t[None].contiguous(), f32([t0]), f32([1.0]),
+                 torch.tensor([1, 1], dtype=torch.int32, device=device))
+        mesh = k2.Mesh(np.float32([t0]), np.float32([1.0]), 1)
+        gzout = torch.zeros((0, H, B), device=device)
+        gzfin = torch.randn((H, B), generator=gen, device=device)
+        ops = (ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+        dct = k2.launch_backward(ct, store, gzout, gzfin, *ops[2:], plan)[0]
+        touched = torch.nonzero(dct.abs().sum(dim=(1, 2, 3)) > 0).flatten().tolist()
+        _, index = X._interpret_t(torch.from_numpy(stage_times).to(device))
+        expected = sorted(set((index - base).tolist()))
+        label = f"linear knot probe t {t0:g} to {t0 + 1:g}, lead {lead}"
+        print(f"K2-bwd {label}: slope rows touched {touched}, LinearInterpolation.derivative "
+              f"reads {expected}", flush=True)
+        if touched != expected:
+            failures.append(f"K2 linear slope choice at knots ({label})")
+        err, failed = check_k2_backward(label, ops, plan, store, mesh, gzout, gzfin)
+        errors.append(err)
+        failures += failed
+    return max(errors), failures
+
+
+def check_k2_linear(device, coeffs, model):
+    """Phase 14: K2's linear mode against its plain version, per realised
+    mesh as phase 6 holds the cubic mode, on every launch of the config-4
+    control's solve and of the K2_LINEAR_CASES, then the slope chosen at
+    exact knots.  Returns the largest forward and backward errors."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import SolverConfig
+
+    X = tt.LinearInterpolation(coeffs)
+    with torch.no_grad():
+        z0 = model.initial(X.evaluate(X.interval[0]))
+    problems = [("config 4", X, model.func, z0, X.interval, {})]
+    for seed, (label, B, L, H, C, W, which, options) in enumerate(K2_LINEAR_CASES, start=1):
+        Xc, field, z0c = k2_problem(B, L, H, C, W, seed, device, "linear")
+        problems.append((label, Xc, field, z0c, output_times(which, L - 1), options))
+    errors, failures, leads = [], [], 0
+    for label, Xc, field, z0c, ts, options in problems:
+        calls = recorded_k2_launches(Xc, field, z0c, ts, SolverConfig(**options))
+        (B, H), (n, C) = z0c.shape, Xc._derivs.shape[-2:]
+        print(f"K2-linear {label}: B{B} n{n} H{H} C{C} W{field.linear1.out_features}, "
+              f"{len(ts)} output times, {len(calls)} launches, lead "
+              f"{[plan.lead for *_, plan in calls]}", flush=True)
+        if not all(plan.linear for *_, plan in calls):
+            failures.append(f"K2 linear mode not taken ({label})")
+        leads += sum(plan.lead for *_, plan in calls)
+        for i, (*ops, dt0, plan) in enumerate(calls):
+            errors.append(check_k2_launch(f"linear {label} #{i}", tuple(ops), dt0, plan))
+    failures += [f for e in errors for f in e[3]] + k2_accuracy_failures(errors)
+    if not leads:
+        failures.append("no K2 linear launch ran with lead")
+    probe_err, probe_failures = probe_knot_slopes(X, model.func, z0)
+    failures += probe_failures
+    if failures:
+        raise AssertionError("K2's linear mode disagrees with the plain version: "
+                             + "; ".join(failures))
+    return max(e[0] for e in errors), max(max(e[1] for e in errors), probe_err)
+
+
+def log_ode_slice(device):
+    """Phase 15: config 4 through the public entry points, without and with
+    30 % NaN: logsig_windows on the card against the same code in float64,
+    linear_interpolation_coeffs, then five Adam steps and one accuracy call
+    of the linear Neural CDE (dopri5, adjoint), with K2's and K3's launches
+    counted and every plain version patched to raise."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models import accuracy, make_train_step
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    results = {}
+    for label, nan in (("dense", False), ("30 % NaN", True)):
+        x, labels = log_ode_data(device, nan)
+        ref = tt.logsig_windows(x.double(), LOG_ODE_DEPTH, LOG_ODE_WINDOW)
+        with plain_versions_raise():
+            reset_fit_counts()
+            logsig = tt.logsig_windows(x, LOG_ODE_DEPTH, LOG_ODE_WINDOW)
+            coeffs = tt.linear_interpolation_coeffs(logsig)
+            torch.cuda.synchronize()
+            fit = fit_counts()
+            model = log_ode_model(device)
+            step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+            k2.reset_launch_counts()
+            losses = [float(step(coeffs, labels)) for _ in range(5)]
+            acc = float(accuracy(model, coeffs, labels))
+            torch.cuda.synchronize()
+            counts = {"fwd": k2.FWD_LAUNCHES, "bwd": k2.BWD_LAUNCHES,
+                      "linear_fwd": k2.LINEAR_FWD_LAUNCHES, "linear_bwd": k2.LINEAR_BWD_LAUNCHES}
+        failures = []
+        err, scale = _rel(logsig, ref)
+        _report(f"log-ODE slice {label}: logsig_windows {tuple(logsig.shape)} vs plain float64",
+                err, scale, FWD_RTOL * max(scale, 1.0), failures, bool(logsig.isfinite().all()))
+        print(f"log-ODE slice {label}: fit launches {fit}; 5 Adam steps, losses {losses}, "
+              f"accuracy {acc:.4f}, K2 launches {counts}", flush=True)
+        expected_fit = {"K3": 2 if nan else 0, "K4": 0, "K5": 0, "K6/K7": 0}
+        if logsig.shape != (LOG_ODE_BATCH, LOG_ODE_LENGTH // 100 + 1, LOG_ODE_CHANNELS):
+            failures.append(f"logsig_windows of shape {tuple(logsig.shape)}")
+        if fit != expected_fit:
+            failures.append(f"the fills did not launch {expected_fit}: {fit}")
+        if not all(math.isfinite(v) for v in losses) or losses[-1] == losses[0]:
+            failures.append(f"the loss is not finite or does not change: {losses}")
+        if counts != {"fwd": 6, "bwd": 5, "linear_fwd": 6, "linear_bwd": 5}:
+            failures.append(f"the steps did not run K2's linear mode once per step: {counts}")
+        if failures:
+            raise AssertionError(f"the log-ODE slice ({label}) failed: " + "; ".join(failures))
+        results[label] = {"logsig_max_abs_err": err, "losses": losses, "accuracy": acc,
+                          "k2_launches": counts, "fit_launches": fit}
+    return results
+
+
+def irregular_data():
+    """x (1024, 256, 9) float32 as bench_irregular makes it: a time channel,
+    then 8 values with 30 % NaN."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((IRREGULAR_BATCH, IRREGULAR_LENGTH, IRREGULAR_VALUES)).astype(np.float32)
+    x[rng.random(x.shape) < IRREGULAR_NAN] = np.nan
+    t_chan = np.broadcast_to(np.linspace(0, 1, IRREGULAR_LENGTH)[:, None],
+                             (IRREGULAR_BATCH, IRREGULAR_LENGTH, 1)).astype(np.float32)
+    return np.concatenate([t_chan, x], axis=-1)
+
+
+def irregular_slice(device):
+    """Phase 16: config 2's preprocessing, linear_interpolation_coeffs with
+    and without rectilinear=0, against the float64 plain path, with K3's
+    launches counted and every plain version patched to raise: two fills
+    for the infill, and a forward fill before it for rectilinear."""
+    import torchcde_tpu_torch as tt
+
+    x = torch.from_numpy(irregular_data()).to(device)
+    launches, errors, failures = 0, {}, []
+    for label, kwargs, expected_k3, length in (
+            ("linear", {}, 2, IRREGULAR_LENGTH),
+            ("rectilinear", dict(rectilinear=0), 3, 2 * IRREGULAR_LENGTH - 1)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ref = tt.linear_interpolation_coeffs(x.double(), **kwargs)
+            with plain_versions_raise():
+                reset_fit_counts()
+                got = tt.linear_interpolation_coeffs(x, **kwargs)
+                torch.cuda.synchronize()
+                fit = fit_counts()
+        err, scale = _rel(got, ref)
+        errors[label] = err
+        _report(f"irregular slice {label} {tuple(got.shape)} vs plain float64 (fit launches "
+                f"{fit}, {len(caught)} warnings)", err, scale, FWD_RTOL * max(scale, 1.0),
+                failures, bool(got.isfinite().all()))
+        if got.shape != (IRREGULAR_BATCH, length, IRREGULAR_VALUES + 1):
+            failures.append(f"{label} coefficients of shape {tuple(got.shape)}")
+        if fit != {"K3": expected_k3, "K4": 0, "K5": 0, "K6/K7": 0}:
+            failures.append(f"{label}: the fills did not launch K3 {expected_k3} times: {fit}")
+        launches += fit["K3"]
+    if failures:
+        raise AssertionError("the config-2 preprocessing failed: " + "; ".join(failures))
+    return launches, errors
+
+
+def time_log_ode(device, coeffs, labels, x):
+    """Phase 17: K2-linear at config 4 against its plain version (float32,
+    on the card) and its bound, the config-4 train step against the plain
+    version, logsig_windows by itself, and a profile of the train step."""
+    import torchcde_tpu_torch as tt
+
+    model = log_ode_model(device)
+    k2_ms = time_k2_solve(tt.LinearInterpolation(coeffs), model)
+    fwd_bound, bwd_bound = k2_bounds(k2_ms, LOG_ODE_BATCH, coeffs.shape[-2] - 1, LOG_ODE_CHANNELS, 1)
+    medians, samples = time_train_steps(model, coeffs, labels, plain_k2_loss(coeffs, labels),
+                                        counts=(5, 1))
+    with torch.no_grad():
+        logsig_ms = _event_ms(lambda: tt.logsig_windows(x, LOG_ODE_DEPTH, LOG_ODE_WINDOW), 3)
+    profile = profile_train_steps(model, coeffs, labels, K2_KINDS)
+    if "device_busy_ms_per_call" in profile:
+        profile["k2_share_of_busy"] = ((profile["k2_fwd_ms_per_call"] + profile["k2_bwd_ms_per_call"])
+                                       / profile["device_busy_ms_per_call"])
+    timing = {f"linear_{k}": v for k, v in k2_ms.items()}
+    timing.update({"linear_k2_fwd_bound_ms": fwd_bound[0], "linear_k2_bwd_bound_ms": bwd_bound[0],
+                   "log_ode_train_step_ms": medians, "log_ode_train_step_samples_ms": samples,
+                   "logsig_windows_ms": logsig_ms})
+    return timing, (fwd_bound, bwd_bound), profile
+
+
 def bound(bytes_moved, flops):
     """(least ms, what bounds it): bytes over the HBM rate against float32
     operations over the CUDA cores' rate."""
@@ -1191,10 +1497,19 @@ def fused_bounds(k2_ms):
     state = 4 * HIDDEN * BATCH
     k1_fwd = bound(ct_bytes + state + 4 * n * HIDDEN * BATCH, n * 4 * BATCH * f)
     k1_bwd = bound(2 * ct_bytes + 2 * 4 * n * HIDDEN * BATCH + 2 * state, 3 * n * 4 * BATCH * f)
+    return (k1_fwd, k1_bwd) + k2_bounds(k2_ms, BATCH, n, CHANNELS, 3)
+
+
+def k2_bounds(k2_ms, batch, n, channels, rows):
+    """K2's least times, forward and backward, for this run's realised mesh
+    (see fused_bounds) over n intervals of rows * channels table rows (3 * C
+    cubic, C linear)."""
+    f = 2 * WIDTH * HIDDEN * (1 + channels)
+    ct_bytes = 4 * n * rows * channels * batch
+    state = 4 * HIDDEN * batch
     acc, att = k2_ms["k2_steps_accepted"], k2_ms["k2_steps_attempted"]
-    k2_fwd = bound(ct_bytes + state + 4 * acc * HIDDEN * BATCH, (6 * att + 1) * BATCH * f)
-    k2_bwd = bound(2 * ct_bytes + 4 * acc * HIDDEN * BATCH + 2 * state, 3 * 7 * acc * BATCH * f)
-    return k1_fwd, k1_bwd, k2_fwd, k2_bwd
+    return (bound(ct_bytes + state + 4 * acc * HIDDEN * batch, (6 * att + 1) * batch * f),
+            bound(2 * ct_bytes + 4 * acc * HIDDEN * batch + 2 * state, 3 * 7 * acc * batch * f))
 
 
 def main():
@@ -1279,12 +1594,11 @@ def main():
         **{f"default_B{b}_train_step_samples_ms": v for b, (_, v) in default_steps.items()},
     }))
     k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_kernel\b"}
-    k2_kinds = {"k2_fwd": r"\bdopri_fwd_kernel\b", "k2_bwd": r"\bdopri_bwd_kernel\b"}
     print("profile: " + json.dumps(dict(
         profile_train_steps(model, coeffs, labels, k1_kinds), config="flagship rk4", card=smi)))
     for batch in DEFAULT_BATCHES:
         print("profile: " + json.dumps(dict(
-            profile_train_steps(*default_model(device, batch), k2_kinds),
+            profile_train_steps(*default_model(device, batch), K2_KINDS),
             config=f"default dopri5 adjoint B{batch}", card=smi)))
     # 10-13. The natural cubic fit: its kernels, the config-3 slice, the NaN
     # spiral slice and the timing.
@@ -1305,6 +1619,24 @@ def main():
         "fit_slice_max_abs_err": {" ".join(key): v for key, v in slice_errors.items()},
         "nan_spiral_fit_max_abs_err": spiral_err, "nan_spiral_k2_launches": spiral_k2,
     }))
+
+    # 14-17. The log-ODE Neural RDE path (config 4): K2's linear mode, the
+    # slice without and with NaNs, config 2's preprocessing, the timing.
+    x_log, log_labels = log_ode_data(device, nan=False)
+    log_coeffs = tt.linear_interpolation_coeffs(
+        tt.logsig_windows(x_log, LOG_ODE_DEPTH, LOG_ODE_WINDOW))
+    k2l_fwd_err, k2l_bwd_err = check_k2_linear(device, log_coeffs, log_ode_model(device))
+    log_slice = log_ode_slice(device)
+    irregular_k3, irregular_errors = irregular_slice(device)
+    fit_launches["K3"] += irregular_k3 + log_slice["30 % NaN"]["fit_launches"]["K3"]
+    log_ms, (k2l_fwd_bound, k2l_bwd_bound), log_profile = time_log_ode(
+        device, log_coeffs, log_labels, x_log)
+    print("profile: " + json.dumps(dict(log_profile, config="config-4 log-ODE train step",
+                                        card=smi)))
+    print("timing: " + json.dumps({"card": smi, **log_ms, "log_ode_slice": log_slice,
+                                   "irregular_max_abs_err": irregular_errors}))
+    k2l_launches = {kind: sum(r["k2_launches"][f"linear_{kind}"] for r in log_slice.values())
+                    for kind in ("fwd", "bwd")}
 
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)
@@ -1329,6 +1661,16 @@ def main():
          "launches": k2_total["bwd"], "max_abs_err": k2_bwd_err, "ms": k2_ms["k2_bwd_ms"],
          "plain_ms": k2_ms["k2_bwd_plain_ms"], "bound_ms": k2_bwd_bound[0],
          "bound_by": k2_bwd_bound[1], "library_ms": None},
+        {"name": "K2-linear-fwd", "route": "cuda", "source": K2_SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_dopri_pallas.py:161",
+         "launches": k2l_launches["fwd"], "max_abs_err": k2l_fwd_err,
+         "ms": log_ms["linear_k2_fwd_ms"], "plain_ms": log_ms["linear_k2_fwd_plain_ms"],
+         "bound_ms": k2l_fwd_bound[0], "bound_by": k2l_fwd_bound[1], "library_ms": None},
+        {"name": "K2-linear-bwd", "route": "cuda", "source": K2_SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_dopri_pallas.py:295",
+         "launches": k2l_launches["bwd"], "max_abs_err": k2l_bwd_err,
+         "ms": log_ms["linear_k2_bwd_ms"], "plain_ms": log_ms["linear_k2_bwd_plain_ms"],
+         "bound_ms": k2l_bwd_bound[0], "bound_by": k2l_bwd_bound[1], "library_ms": None},
     ]
     for name in ("K3", "K4", "K5", "K6/K7"):
         ms, plain_ms, bound_ms, bound_by, library_ms = fit_ms[name]

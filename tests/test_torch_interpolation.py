@@ -65,14 +65,19 @@ def test_hermite_coefficients(irregular):
 
 
 def test_not_ported_preprocessing_raises():
-    x = torch.zeros(2, 5, 3, dtype=torch.float64)
-    x[0, 2, 1] = float("nan")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.linear_interpolation_coeffs(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.hermite_cubic_coefficients_with_backward_differences(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.linear_interpolation_coeffs(torch.zeros(2, 5, 3), rectilinear=0)
+    # The NaN infill and the rectilinear scheme of linear_interpolation_coeffs
+    # used to raise here; they are ported now, and so is the Hermite fit of
+    # data with missing values, which fills through them.  Each matches JAX.
+    x = np.random.default_rng(5).standard_normal((2, 5, 3))
+    x[0, 2, 1] = x[1, 0, 2] = np.nan
+    for fn in ("linear_interpolation_coeffs",
+               "hermite_cubic_coefficients_with_backward_differences"):
+        got = getattr(tt, fn)(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(tc, fn)(jnp.asarray(x))),
+                                   rtol=RTOL, atol=ATOL)
+    with pytest.warns(UserWarning, match="not causal"):
+        rect = tt.linear_interpolation_coeffs(torch.from_numpy(x), rectilinear=0)
+    assert rect.shape == (2, 9, 3) and not torch.isnan(rect).any()
     clean = torch.randn(2, 5, 3, dtype=torch.float64)
     assert tt.linear_interpolation_coeffs(clean) is clean
 

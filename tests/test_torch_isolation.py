@@ -23,6 +23,8 @@ def test_port_imports_no_jax():
         "import torchcde_tpu_torch.ops.fill_kernel, torchcde_tpu_torch.ops.tridiagonal_kernel\n"
         "import torchcde_tpu_torch.ops.masked_tridiagonal_kernel\n"
         "import torchcde_tpu_torch.ops.masked_cubic_kernel\n"
+        "import torchcde_tpu_torch.log_ode, torchcde_tpu_torch.ops.logsignature\n"
+        "import torchcde_tpu_torch.interpolation.linear\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchcde_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -219,3 +219,45 @@ def test_nan_spiral_default_config_matches_jax():
     for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, grads_j)).items():
         np.testing.assert_allclose(grads[name].grad.numpy(), value.numpy(), rtol=1e-8,
                                    atol=1e-10, err_msg=name)
+
+
+# The log-ODE slice (a Neural RDE): windowed logsignatures of the series,
+# linear interpolation of the transformed path, the default solve (dopri5,
+# adjoint) over it.  The paths are lines with a little noise, so the
+# transformed control is nearly straight and the two float64 step meshes
+# agree (see above).
+LOG_ODE = dict(input_channels=6, hidden_channels=8, output_channels=1, width=WIDTH,
+               interpolation="linear")
+
+
+def test_log_ode_linear_config_three_adam_steps_track_optax():
+    rng = np.random.default_rng(0)
+    t = np.linspace(0.0, 1.0, 41)[None, :, None]
+    X = (rng.standard_normal((BATCH, 1, 3)) + rng.uniform(-2, 2, (BATCH, 1, 3)) * t
+         + 0.01 * rng.standard_normal((BATCH, 41, 3)))
+    y = (rng.random(BATCH) > 0.5).astype(np.float64)
+    cj = tc.linear_interpolation_coeffs(tc.logsig_windows(jnp.asarray(X), 2, 10.0))
+    ct = tt.linear_interpolation_coeffs(tt.logsig_windows(torch.from_numpy(X), 2, 10.0))
+    assert ct.shape == (BATCH, 5, 6)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-10, atol=1e-12)
+
+    cfg = JaxConfig(**LOG_ODE, adjoint=False)
+    params = init_neural_cde(jax.random.PRNGKey(0), cfg, dtype=jnp.float64)
+    model = NeuralCDE(NeuralCDEConfig(**LOG_ODE), device="cpu", dtype=torch.float64)
+    model.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    assert (model.cfg.solver, model.cfg.adjoint) == ("dopri5", True)
+    np.testing.assert_allclose(model(ct).detach().numpy(),
+                               np.asarray(neural_cde_apply(params, cfg, cj)), rtol=1e-9,
+                               atol=1e-12)
+    optimizer = optax.adam(1e-3)
+    opt_state = optimizer.init(params)
+    jax_step = jax_make_train_step(cfg, optimizer)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    for _ in range(3):
+        params, opt_state, loss_j = jax_step(params, opt_state, cj, jnp.asarray(y))
+        loss_t = step(ct, torch.from_numpy(y))
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-9)
+    state = model.state_dict()
+    for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, params)).items():
+        np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-8, atol=1e-12,
+                                   err_msg=name)

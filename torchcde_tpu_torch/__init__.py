@@ -7,28 +7,37 @@ natural cubic spline fit of data with missing values (NaN-masked),
 backpropagation or the backsolve adjoint) with the canonical MLP vector
 field, whose whole solve runs as a hand-written CUDA kernel pair on the
 card, BCE loss and Adam.  The spline fit, its fills and tridiagonal solves run
-as CUDA kernels on the card too.  The package imports torch and numpy, never jax.
+as CUDA kernels on the card too.  It also carries the log-ODE Neural RDE
+path: the windowed logsignature transform (``logsig_windows``), linear and
+rectilinear interpolation with NaN infill (``linear_interpolation_coeffs``,
+``LinearInterpolation``), and the adaptive kernel pair's linear-control
+mode.  The package imports torch and numpy, never jax.
 """
 
 from .interpolation import (
     CubicSpline,
     InterpolationBase,
+    LinearInterpolation,
     NaturalCubicSpline,
     hermite_cubic_coefficients_with_backward_differences,
     linear_interpolation_coeffs,
     natural_cubic_coeffs,
     natural_cubic_spline_coeffs,
 )
+from .log_ode import logsig_windows, logsignature_windows
 from .solvers import SolverConfig, cdeint
 
 __all__ = [
     "CubicSpline",
     "InterpolationBase",
+    "LinearInterpolation",
     "NaturalCubicSpline",
     "SolverConfig",
     "cdeint",
     "hermite_cubic_coefficients_with_backward_differences",
     "linear_interpolation_coeffs",
+    "logsig_windows",
+    "logsignature_windows",
     "natural_cubic_coeffs",
     "natural_cubic_spline_coeffs",
 ]

@@ -2,16 +2,16 @@
 // forward and backward, as two CUDA kernels for Hopper (sm_90a).
 //
 // Replaces torchcde_tpu/solvers/fused_dopri_pallas.py::_dopri_fwd_kernel and
-// ::_dopri_bwd_kernel (cubic controls; the JAX kernel's linear-control mode
-// waits for LinearInterpolation).  The forward runs the whole PI-controlled
-// solve of dz = MLP(z) . dX/dt over one chunk of a uniform knot grid: seven
-// stages per attempted step (the first same as the last), one error norm over
-// the group, the controller of integrate.py, the quartic dense output at the
-// output times inside each accepted step, and a store of the accepted steps
-// (t, dt, z).  The backward walks that store in reverse, recomputes each
-// step's stages from the stored state, and propagates the cotangents of the
-// dense output and the state back through them: the frozen-mesh gradients of
-// direct backpropagation through the adaptive loop.
+// ::_dopri_bwd_kernel, for cubic controls and in their linear-control mode.
+// The forward runs the whole PI-controlled solve of dz = MLP(z) . dX/dt over
+// one chunk of a uniform knot grid: seven stages per attempted step (the
+// first same as the last), one error norm over the group, the controller of
+// integrate.py, the quartic dense output at the output times inside each
+// accepted step, and a store of the accepted steps (t, dt, z).  The
+// backward walks that store in reverse, recomputes each step's stages from
+// the stored state, and propagates the cotangents of the dense output and the
+// state back through them: the frozen-mesh gradients of direct
+// backpropagation through the adaptive loop.
 //
 // What bounds it.  As in fused_fixed.cu, a serial chain of small
 // matrix-vector products per lane (2 W H (1 + C) FLOP per stage; 6 stages per
@@ -34,6 +34,14 @@
 //    and read past L1 (__ldcg).
 //  * t and dt are float32, as the JAX kernel carries them.  Each stage's
 //    interval is floor((t - t0g) / w), read directly (CUDA can gather).
+//  * Linear-control mode (the log-ODE / Neural RDE control): the table holds
+//    one slope row per interval and dX/dt is that row.  The interval is
+//    ceil((t - t0g) / w) - 1, computed in float32 in the JAX kernel's order,
+//    so that a stage exactly on a knot (every step clamped to a chunk end
+//    lands on one) reads the slope on its left, as
+//    LinearInterpolation.derivative does.  With `lead`, row 0 is the
+//    interval left of the chunk's first knot t0g and the rule drops the - 1.
+//    The backward adds each stage's ddx to its slope row only.
 //  * The lane's vectors (state, the seven stages, ...) live in shared memory
 //    (specialised variant) or in a per-lane global scratch (generic variant),
 //    lane-minor; the stage math is cde_stage.cuh's (specialised) or its
@@ -42,18 +50,19 @@
 //    launch.  Each lane owns its dct column (no atomics); weight gradients are
 //    deterministic per-block partials, as in K1.
 //
-// Two variants compute the same function; fd_variant picks one from the
-// shapes.  Specialised: H 8, C 3 (the flagship), weights in shared memory,
-// widths whose backward fits (W <= 391).  Generic: H, C, W at run time,
-// weights read through L1, every other shape inside the JAX kernel's caps
-// (W <= 512, C*H <= 512, 3*C <= 16).
+// Two variants compute the same function, in either mode; fd_variant picks
+// one from the shapes.  Specialised: H 8, C 3 (the flagship), weights in
+// shared memory, widths whose backward fits (W <= 391).  Generic: H, C, W at
+// run time, weights read through L1, every other shape inside the JAX
+// kernel's caps (W <= 512, C*H <= 512, 3*C <= 16 cubic, C <= 16 linear).
 //
 // Layouts (float32, lane minor; B = lanes of the group):
-//   ct (n, 3, C, B) rows b, 2c, 3d of the chunk's intervals; z0t (H, B);
+//   ct (n, 3, C, B) rows b, 2c, 3d of the chunk's intervals, or (n, 1, C, B)
+//   the slopes in linear mode; z0t (H, B);
 //   w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H) with rows q = i*H + h;
 //   zout (n_out, H, B), zfin (H, B), dtfin (1), zst (cap, H, B), tst (cap),
 //   dtst (cap), stats (2) int32: accepted and attempted steps.
-// Backward: gzout (n_out, H, B), gzfin (H, B) -> dct (n, 3, C, B), dz0 (H, B)
+// Backward: gzout (n_out, H, B), gzfin (H, B) -> dct (ct's shape), dz0 (H, B)
 //   and per-block partials dw1p (blocks, W, H), db1p (blocks, W),
 //   dw2p (blocks, W, C*H), db2p (blocks, C*H), blocks = fd_blocks(B).
 
@@ -65,7 +74,7 @@
 namespace {
 
 constexpr int NS = 7;            // dopri5 stages
-constexpr int MAX_C = 5;         // 3 * C <= 16
+constexpr int MAX_ROWS = 16;     // table rows per interval: 3 * C cubic, C linear
 constexpr int MAX_OUT = 64;      // output times per chunk
 constexpr size_t MAX_SMEM = 232448;
 constexpr int BAD_ARGUMENT = -2;
@@ -116,6 +125,7 @@ struct Common {
   FieldArgs f;
   float* scratch;  // [2][blocks] norm partials, a barrier counter, vectors
   int B, n, n_out;
+  int linear, lead;  // linear-control mode; row 0 is the interval left of t0g
   float t0g, w;
   float out_ts[MAX_OUT];
   float bmid[NS];  // weights of the 4th-order midpoint (runge_kutta.py)
@@ -151,21 +161,45 @@ struct Vecs {
   __device__ float& at(int i, int h) const { return base[((size_t)i * H + h) * stride]; }
 };
 
-// dX/dt of the lane at time tval on the chunk's uniform grid:
-// interval j = clamp(floor((tval - t0g) / w), 0, n - 1), fraction fr.
+// dX/dt of the lane at time tval on the chunk's uniform grid, for MC >= C
+// channels (unrolled, so that the caller's dx stays in registers).  Cubic:
+// interval j = clamp(floor((tval - t0g) / w), 0, n - 1) and fraction fr.
+// Linear: j = clamp(ceil((tval - t0g) / w) - (lead ? 0 : 1), 0, n - 1), the
+// slope on the left of a knot; fr is unused (0).
+template <int MC>
 __device__ void control_at(const Common& c, size_t lane, bool live, float tval,
-                           float (&dx)[MAX_C], int& j, float& fr) {
-  const float pos = floorf((tval - c.t0g) / c.w);
-  j = (int)fminf(fmaxf(pos, 0.f), (float)(c.n - 1));
-  fr = tval - (c.t0g + (float)j * c.w);
+                           float (&dx)[MC], int& j, float& fr) {
   const int C = c.f.C;
-  const float* row = c.ct + (size_t)j * 3 * C * c.B + lane;
-  for (int i = 0; i < C; ++i) {
-    const float b = live ? row[(size_t)i * c.B] : 0.f;
-    const float cc = live ? row[(size_t)(C + i) * c.B] : 0.f;
-    const float d = live ? row[(size_t)(2 * C + i) * c.B] : 0.f;
-    dx[i] = b + (cc + d * fr) * fr;
+  const float pos = (tval - c.t0g) / c.w;
+  if (c.linear) {
+    const float jf = ceilf(pos) - (c.lead ? 0.f : 1.f);
+    j = (int)fminf(fmaxf(jf, 0.f), (float)(c.n - 1));
+    fr = 0.f;
+    const float* row = c.ct + (size_t)j * C * c.B + lane;
+#pragma unroll
+    for (int i = 0; i < MC; ++i)
+      if (i < C) dx[i] = live ? row[(size_t)i * c.B] : 0.f;
+    return;
   }
+  j = (int)fminf(fmaxf(floorf(pos), 0.f), (float)(c.n - 1));
+  fr = tval - (c.t0g + (float)j * c.w);
+  const float* row = c.ct + (size_t)j * 3 * C * c.B + lane;
+#pragma unroll
+  for (int i = 0; i < MC; ++i) {
+    if (i < C) {
+      const float b = live ? row[(size_t)i * c.B] : 0.f;
+      const float cc = live ? row[(size_t)(C + i) * c.B] : 0.f;
+      const float d = live ? row[(size_t)(2 * C + i) * c.B] : 0.f;
+      dx[i] = b + (cc + d * fr) * fr;
+    }
+  }
+}
+
+// t + alpha * dt with the product and the sum rounded apart, never fused
+// into one FMA: as the plain version computes a stage's time, so that a
+// stage on a knot selects the same interval in both.
+__device__ __forceinline__ float stage_time(float t, float alpha, float dt) {
+  return __fadd_rn(t, __fmul_rn(alpha, dt));
 }
 
 __device__ __forceinline__ void dense_coeffs(const float* m, float theta,
@@ -181,7 +215,7 @@ __device__ __forceinline__ void dense_coeffs(const float* m, float theta,
 // memory; the stage math of cde_stage.cuh.
 
 struct SpecField {
-  static constexpr int H = 8, C = 3;
+  static constexpr int H = 8, C = 3, MC = 3;
   BwdSmem<8, 3> sm;  // the forward uses sm.field only
   int W;
   float* vec;
@@ -196,7 +230,7 @@ struct SpecField {
     vec = bwd ? sm.end() : sm.field.end();
   }
   __device__ Vecs vecs(size_t) const { return Vecs{vec + threadIdx.x, LANES, H}; }
-  __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MAX_C]) const {
+  __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MC]) const {
     float y[H], g[C * H], k[H], d[C];
 #pragma unroll
     for (int h = 0; h < H; ++h) y[h] = v.at(iy, h);
@@ -208,8 +242,8 @@ struct SpecField {
     for (int h = 0; h < H; ++h) v.at(ik, h) = k[h];
   }
   // Every thread of the block calls it.
-  __device__ void vjp(const Vecs& v, int iu, int iy, int iv, const float (&dx)[MAX_C],
-                      float (&ddx)[MAX_C]) const {
+  __device__ void vjp(const Vecs& v, int iu, int iy, int iv, const float (&dx)[MC],
+                      float (&ddx)[MC]) const {
     float u[H], y[H], dy[H], d[C], dd[C];
 #pragma unroll
     for (int h = 0; h < H; ++h) {
@@ -235,6 +269,7 @@ struct SpecField {
 // lanes' vectors and activations in a global scratch, lane-minor.
 
 struct GenField {
+  static constexpr int MC = MAX_ROWS;  // channels: C <= 16 in linear mode
   FieldArgs f;
   float* scr;     // row r of lane l at scr[r * stride + l]
   size_t stride;  // lanes of the launch (blocks * LANES)
@@ -274,7 +309,7 @@ struct GenField {
       row(g_row() + q, lane) = tanhf(a + f.b2[q]);
     }
   }
-  __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MAX_C]) const {
+  __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MC]) const {
     const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
     const int H = f.H;
     mlp(v, iy, lane);
@@ -285,8 +320,8 @@ struct GenField {
     }
   }
   // Every thread of the block calls it.
-  __device__ void vjp(const Vecs& v, int iu, int iy, int iv, const float (&dx)[MAX_C],
-                      float (&ddx)[MAX_C]) const {
+  __device__ void vjp(const Vecs& v, int iu, int iy, int iv, const float (&dx)[MC],
+                      float (&ddx)[MC]) const {
     const int tid = threadIdx.x;
     const size_t lane = (size_t)blockIdx.x * LANES + tid;
     const int H = f.H, C = f.C, W = f.W, CH = C * H;
@@ -409,7 +444,7 @@ __global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
     if (live)
       for (int k = 0; k < c.n_out; ++k) a.zout[((size_t)k * H + h) * B + lane] = z;
   }
-  float dx[MAX_C];
+  float dx[F::MC];
   int j;
   float fr;
   float t = a.t_start;
@@ -432,7 +467,7 @@ __global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
         }
         v.at(Y, h) = y;
       }
-      control_at(c, lane, live, t + kAlpha[s - 1] * dc, dx, j, fr);
+      control_at(c, lane, live, stage_time(t, kAlpha[s - 1], dc), dx, j, fr);
       field.eval(v, Y, K0 + s, dx);
     }
     float part = 0.f;
@@ -526,7 +561,7 @@ __global__ void __launch_bounds__(LANES) dopri_bwd_kernel(BwdArgs a) {
 
   for (int h = 0; h < H; ++h) v.at(LAM, h) = live ? a.gzfin[h * B + lane] : 0.f;
   uint64_t emitted = 0;
-  float dx[MAX_C], ddx[MAX_C];
+  float dx[F::MC], ddx[F::MC];
   int j;
   float fr;
   for (int i = 0; i < cnt; ++i) {
@@ -546,7 +581,7 @@ __global__ void __launch_bounds__(LANES) dopri_bwd_kernel(BwdArgs a) {
         }
         v.at(YS + st, h) = y;
       }
-      control_at(c, lane, live, t + kAlpha[st - 1] * dt, dx, j, fr);
+      control_at(c, lane, live, stage_time(t, kAlpha[st - 1], dt), dx, j, fr);
       field.eval(v, YS + st, KV + st, dx);
     }
     // Cotangents of the dense-output rows this step emitted.
@@ -583,14 +618,22 @@ __global__ void __launch_bounds__(LANES) dopri_bwd_kernel(BwdArgs a) {
         }
         v.at(U, h) = u;
       }
-      control_at(c, lane, live, st == 0 ? t : t + kAlpha[st - 1] * dt, dx, j, fr);
+      control_at(c, lane, live, st == 0 ? t : stage_time(t, kAlpha[st - 1], dt), dx, j, fr);
       field.vjp(v, U, YS + st, KV + st, dx, ddx);
-      if (live) {
+      if (live && c.linear) {  // the slope row only
+        float* row = a.dct + (size_t)j * C * B + lane;
+#pragma unroll
+        for (int q = 0; q < F::MC; ++q)
+          if (q < C) row[(size_t)q * B] += ddx[q];
+      } else if (live) {
         float* row = a.dct + (size_t)j * 3 * C * B + lane;
-        for (int q = 0; q < C; ++q) {
-          row[(size_t)q * B] += ddx[q];
-          row[(size_t)(C + q) * B] += fr * ddx[q];
-          row[(size_t)(2 * C + q) * B] += (fr * fr) * ddx[q];
+#pragma unroll
+        for (int q = 0; q < F::MC; ++q) {
+          if (q < C) {
+            row[(size_t)q * B] += ddx[q];
+            row[(size_t)(C + q) * B] += fr * ddx[q];
+            row[(size_t)(2 * C + q) * B] += (fr * fr) * ddx[q];
+          }
         }
       }
     }
@@ -650,9 +693,10 @@ int launch_bwd(const BwdArgs& a, size_t smem, cudaStream_t stream) {
 int make_common(Common& c, const float* ct, const float* w1t, const float* b1,
                 const float* w2t, const float* b2, float* scratch, int B, int n, int H,
                 int C, int W, int n_out, const float* out_ts, const float* dense,
-                float t0g, float w, int variant) {
-  if (B < 1 || n < 1 || H < 1 || C < 1 || C > MAX_C || W < 1 || n_out < 0 ||
-      n_out > MAX_OUT || !(w > 0.f))
+                float t0g, float w, int linear, int lead, int variant) {
+  const int rows = linear ? C : 3 * C;
+  if (B < 1 || n < 1 || H < 1 || C < 1 || rows > MAX_ROWS || W < 1 || n_out < 0 ||
+      n_out > MAX_OUT || !(w > 0.f) || (lead && !linear))
     return BAD_ARGUMENT;
   if (variant != GENERIC && !(variant == SPECIALISED && specialised_fits(H, C, W)))
     return BAD_VARIANT;
@@ -662,6 +706,8 @@ int make_common(Common& c, const float* ct, const float* w1t, const float* b1,
   c.B = B;
   c.n = n;
   c.n_out = n_out;
+  c.linear = linear != 0;
+  c.lead = lead != 0;
   c.t0g = t0g;
   c.w = w;
   for (int k = 0; k < MAX_OUT; ++k) c.out_ts[k] = k < n_out ? out_ts[k] : 0.f;
@@ -698,16 +744,19 @@ long fd_scratch_floats(int B, int H, int C, int W, int variant, int bwd) {
 }
 
 // dense: the 7 midpoint weights, then the 3x3 quartic inverse row-major.
+// linear: ct holds a linear control's slopes; lead: its row 0 is the
+// interval left of t0g.
 int fd_forward(const float* ct, const float* z0t, const float* w1t, const float* b1,
                const float* w2t, const float* b2, const float* dt0, float* zout,
                float* zfin, float* dtfin, float* zst, float* tst, float* dtst,
                int* stats, float* scratch, int B, int n, int H, int C, int W, int cap,
                int n_out, const float* out_ts, const float* dense, float t_start,
                float t_end, float t0g, float w, float rtol, float atol, float safety,
-               float ifactor, float dfactor, int variant, void* stream) {
+               float ifactor, float dfactor, int linear, int lead, int variant,
+               void* stream) {
   FwdArgs a;
   int rc = make_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out,
-                       out_ts, dense, t0g, w, variant);
+                       out_ts, dense, t0g, w, linear, lead, variant);
   if (rc) return rc;
   if (cap < 1) return BAD_ARGUMENT;
   a.z0t = z0t;
@@ -739,10 +788,10 @@ int fd_backward(const float* ct, const float* zst, const float* tst, const float
                 float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
                 float* scratch, int B, int n, int H, int C, int W, int n_out,
                 const float* out_ts, const float* dense, float t0g, float w,
-                int variant, void* stream) {
+                int linear, int lead, int variant, void* stream) {
   BwdArgs a;
   int rc = make_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out,
-                       out_ts, dense, t0g, w, variant);
+                       out_ts, dense, t0g, w, linear, lead, variant);
   if (rc) return rc;
   a.zst = zst;
   a.tst = tst;

@@ -6,11 +6,12 @@ from .cubic import (
     natural_cubic_spline_coeffs,
 )
 from .hermite import hermite_cubic_coefficients_with_backward_differences
-from .linear import linear_interpolation_coeffs
+from .linear import LinearInterpolation, linear_interpolation_coeffs
 
 __all__ = [
     "CubicSpline",
     "InterpolationBase",
+    "LinearInterpolation",
     "NaturalCubicSpline",
     "hermite_cubic_coefficients_with_backward_differences",
     "linear_interpolation_coeffs",

@@ -12,7 +12,7 @@ import math
 import torch
 from torch import nn
 
-from ..interpolation import CubicSpline
+from ..interpolation import CubicSpline, LinearInterpolation
 from ..solvers import cdeint
 from ..solvers.terms import MLPVectorField
 
@@ -36,10 +36,7 @@ def make_control(coeffs, cfg: NeuralCDEConfig, t=None):
     if cfg.interpolation == "cubic":
         return CubicSpline(coeffs, t)
     if cfg.interpolation == "linear":
-        raise NotImplementedError(
-            "LinearInterpolation is not ported to torchcde_tpu_torch yet "
-            "(ROADMAP.md queue 1, 'NaN and irregular preprocessing')."
-        )
+        return LinearInterpolation(coeffs, t)
     raise ValueError(f"Unknown interpolation {cfg.interpolation!r}")
 
 
@@ -52,7 +49,9 @@ def _uniform_(linear, generator):
 
 
 class NeuralCDE(nn.Module):
-    """Neural CDE: coeffs (..., L', 4 * channels) -> predictions (..., output).
+    """Neural CDE: coeffs -> predictions (..., output).  The coefficients
+    are (..., L', 4 * channels) for ``interpolation="cubic"`` and the knots
+    (..., L, channels) for ``"linear"``.
 
     Built on the CUDA card unless ``device`` says otherwise (``device="cpu"``
     builds on the CPU); without a card the default raises.  The weights are

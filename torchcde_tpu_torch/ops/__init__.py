@@ -1,1 +1,1 @@
-"""Fills and tridiagonal solves, with their CUDA kernels (K3, K4, K5, K6/K7)."""
+"""Fills, tridiagonal solves and their CUDA kernels (K3, K4, K5, K6/K7); logsignatures."""

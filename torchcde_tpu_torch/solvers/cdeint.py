@@ -146,11 +146,13 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
 
     Arguments:
         X: a control with a ``derivative(t) -> (..., input_channels)`` method,
-            e.g. ``CubicSpline``.
+            e.g. ``CubicSpline`` or ``LinearInterpolation``.
         func: callable f(t, z) -> (..., hidden_channels, input_channels), or an
             object with a ``prod(t, z, dXdt) -> (..., hidden_channels)``
             method.  An ``MLPVectorField`` over a uniform ``CubicSpline`` lets
-            dopri5 and knot-aligned fixed-step solves run as fused kernels.
+            dopri5 and knot-aligned fixed-step solves run as fused kernels;
+            over a uniform ``LinearInterpolation``, dopri5 runs the adaptive
+            kernel's linear-control mode.
         z0: initial state (..., hidden_channels).
         t: 1-D output times (strictly increasing); a NumPy array such as
             ``X.interval`` keeps the step plan on the host.

@@ -1,9 +1,10 @@
 """The fused adaptive dopri5 Neural CDE solve: grouping, chunking and dispatch.
 
 Port of ``torchcde_tpu/solvers/fused_dopri_pallas.py::try_fused_dopri5`` and
-``_chunk_plan`` for cubic controls.  The whole tolerance-controlled solve of
-the canonical ``MLPVectorField`` over a ``CubicSpline`` with a uniform host
-grid runs as one kernel launch per group of lanes and chunk of intervals
+``_chunk_plan``.  The whole tolerance-controlled solve of the canonical
+``MLPVectorField`` over a ``CubicSpline`` or a ``LinearInterpolation`` with a
+uniform host grid runs as one kernel launch per group of lanes and chunk of
+intervals
 (``fused_dopri_kernel.py``); its backward walks the stored accepted-step
 mesh, which gives the frozen-mesh gradients of direct backpropagation
 through the adaptive loop.  So one route serves ``adjoint=False`` and
@@ -16,7 +17,10 @@ Composition, as in the JAX package:
   group, i.e. the whole-batch norm of the general integrator.
 * Tables beyond ``MAX_INTERVALS`` intervals stream as chunks, with the state
   and the (detached) step proposal carried between them and the first stage
-  re-evaluated at each chunk entry.  Steps clamp to chunk boundaries.
+  re-evaluated at each chunk entry.  Steps clamp to chunk boundaries.  A
+  linear control's chunks after the first carry one extra interval on their
+  left (``Plan.lead``), so that a stage on the chunk's first knot reads the
+  slope on its left, as the unchunked solve does.
 * Each chunk's step budget is ``min(max_steps, 256 + 64 * n_c)`` attempted
   steps, with ``max_steps = min(cfg.max_steps or 4096, STORE_CAP)``.
 
@@ -26,14 +30,14 @@ port always runs chunks of ``MAX_INTERVALS`` (the plans agree wherever the
 JAX one fits whole chunks in VMEM, as at 99 intervals and 4096 lanes).
 
 Returns None where the JAX package declines; bfloat16 raises
-``NotImplementedError``.  The linear-control mode of the JAX kernel waits for
-``LinearInterpolation`` (ROADMAP queue 1 items 7 and 9).
+``NotImplementedError``.
 """
 
 import numpy as np
 import torch
 
 from ..interpolation.cubic import CubicSpline
+from ..interpolation.linear import LinearInterpolation
 from . import fused_dopri_kernel as k2
 from .fused_fixed_kernel import pack_operands
 from .integrate import select_initial_step
@@ -74,12 +78,17 @@ def _chunk_plan(grid, ts_np, max_intervals):
 def try_fused_dopri5(X, func, z0, ts, cfg):
     """The fused adaptive dopri5 solve, time leading, or None if not eligible.
 
-    Requires an ``MLPVectorField`` over a ``CubicSpline`` with a uniform host
-    knot grid, a tensor state, no step_size (the caller checks), and the
-    shapes and dtype ``pack_operands`` admits."""
+    Requires an ``MLPVectorField`` over a ``CubicSpline`` or a
+    ``LinearInterpolation`` with a uniform host knot grid, a tensor state,
+    no step_size (the caller checks), and the shapes and dtype
+    ``pack_operands`` admits."""
     if not isinstance(func, MLPVectorField) or not isinstance(z0, torch.Tensor):
         return None
-    if not isinstance(X, CubicSpline):
+    if isinstance(X, CubicSpline):
+        rows, linear = (X._b, X._two_c, X._three_d), False
+    elif isinstance(X, LinearInterpolation):
+        rows, linear = (X._derivs, None, None), True
+    else:
         return None
     grid = X.grid_points
     if not isinstance(grid, np.ndarray) or grid.shape[0] < 2:
@@ -100,7 +109,7 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     max_steps = min(cfg.max_steps or 4096, k2.STORE_CAP)
     if z0.dtype == torch.bfloat16:
         raise NotImplementedError(k2.BF16_NOT_PORTED)
-    p = pack_operands(X._b, X._two_c, X._three_d, z0, func)
+    p = pack_operands(*rows, z0, func, linear=linear)
     if p is None:
         return None
 
@@ -129,11 +138,12 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
         z, dt = p.z0t[:, lanes], dt0
         rows = [z] + [None] * (len(ts_np) - 1)
         for j0, j1, t_start, t_end, out_ts, out_idx in chunks:
+            lead = linear and j0 > 0
             plan = k2.Plan(out_ts, t_start, t_end, float(grid[j0]), w, float(cfg.rtol),
                            float(cfg.atol), chunk_cap(j1 - j0), float(cfg.safety),
-                           float(cfg.ifactor), float(cfg.dfactor))
-            zout, z, dt = k2.fused_dopri5_solve(ct[j0:j1], z.contiguous(), p.w1t, p.b1,
-                                                p.w2t, p.b2, dt, plan)
+                           float(cfg.ifactor), float(cfg.dfactor), linear, lead)
+            zout, z, dt = k2.fused_dopri5_solve(ct[j0 - lead:j1], z.contiguous(), p.w1t,
+                                                p.b1, p.w2t, p.b2, dt, plan)
             for row, k in enumerate(out_idx):
                 rows[k] = zout[row]
         groups.append(torch.stack(rows))  # (n_out, H, lanes)

@@ -1,9 +1,10 @@
 """One chunk of the adaptive dopri5 Neural CDE solve as a CUDA kernel pair.
 
 Replaces ``torchcde_tpu/solvers/fused_dopri_pallas.py::_dopri_fwd_kernel``
-and ``_dopri_bwd_kernel`` (built by ``_make_fused_dopri``) for cubic
-controls.  The kernels live in ``csrc/fused_dopri.cu``, whose header notes
-what bounds them on the card and what their design does about it.  This
+and ``_dopri_bwd_kernel`` (built by ``_make_fused_dopri``), for cubic
+controls and in their linear-control mode (``Plan.linear``, ``Plan.lead``).
+The kernels live in ``csrc/fused_dopri.cu``, whose header notes what bounds
+them on the card and what their design does about it.  This
 module holds what surrounds them:
 
 * ``fused_dopri5_solve_reference``: the plain PyTorch version of the forward
@@ -15,7 +16,8 @@ module holds what surrounds them:
 * ``fused_dopri5_solve``: launches the kernels for CUDA tensors (through a
   ``torch.autograd.Function`` whose backward is the backward kernel) and runs
   the plain versions for CPU tensors;
-* ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches.
+* ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches, and
+  ``LINEAR_FWD_LAUNCHES`` / ``LINEAR_BWD_LAUNCHES`` of those in linear mode.
 
 Times and step sizes are carried in the state's precision: float32 in the
 kernel (as the JAX kernel carries them) and in the plain version on float32
@@ -50,19 +52,22 @@ BF16_NOT_PORTED = (
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+LINEAR_FWD_LAUNCHES = 0
+LINEAR_BWD_LAUNCHES = 0
 
 
 def reset_launch_counts():
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = 0
-    BWD_LAUNCHES = 0
+    global FWD_LAUNCHES, BWD_LAUNCHES, LINEAR_FWD_LAUNCHES, LINEAR_BWD_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = LINEAR_FWD_LAUNCHES = LINEAR_BWD_LAUNCHES = 0
 
 
 class Plan(NamedTuple):
     """One chunk solve over [t_start, t_end] (static, like the JAX kernel's
     closure): output times in (t_start, t_end], the uniform grid's first
     knot t0g and spacing w, the controller's constants and the step budget
-    (cap: attempted steps and stored accepted steps)."""
+    (cap: attempted steps and stored accepted steps).  ``linear``: the
+    table holds a linear control's slopes, read left-continuously at knots;
+    ``lead``: its first row is the interval left of t0g (see ``_field``)."""
     out_ts: tuple
     t_start: float
     t_end: float
@@ -74,6 +79,8 @@ class Plan(NamedTuple):
     safety: float = 0.9
     ifactor: float = 10.0
     dfactor: float = 0.2
+    linear: bool = False
+    lead: bool = False
 
 
 class Mesh(NamedTuple):
@@ -85,18 +92,30 @@ class Mesh(NamedTuple):
 
 
 def _field(ct, w1t, b1, w2t, b2, plan, sc):
-    """f(y (B, H), host time) -> k (B, H): the vector field at the interval
-    floor((t - t0g) / w) of the uniform grid, clamped to the table.  The
-    interval and the fraction are computed in the time type sc."""
+    """f(y (B, H), host time) -> k (B, H) at the time's interval of the
+    uniform grid, clamped to the table; positions are computed in the time
+    type sc, by the kernel's rule.
+
+    Cubic (ct (n, 3, C, B)): interval floor((t - t0g) / w) and the monomials
+    at the fraction.  Linear (ct (n, 1, C, B), the slopes): interval
+    ceil((t - t0g) / w) - 1, so that a time exactly on a knot reads the
+    slope on its left, as ``LinearInterpolation.derivative`` does; with
+    ``plan.lead`` row 0 is the interval left of t0g and the rule drops the
+    - 1 (``fused_dopri_pallas.py::_slab_at``)."""
     n, _, C, B = ct.shape
     H = w1t.shape[1]
-    slab = ct.permute(0, 3, 1, 2)  # (n, B, 3, C)
+    slab = ct.permute(0, 3, 1, 2)  # (n, B, R, C)
     t0g, w = sc(plan.t0g), sc(plan.w)
 
     def f(y, tval):
-        j = int(min(max(np.floor((tval - t0g) / w), 0), n - 1))
-        fr = float(tval - (t0g + sc(j) * w))
-        dx = slab[j, :, 0] + (slab[j, :, 1] + slab[j, :, 2] * fr) * fr
+        pos = (tval - t0g) / w
+        if plan.linear:
+            j = int(min(max(np.ceil(pos) - (0 if plan.lead else 1), 0), n - 1))
+            dx = slab[j, :, 0]
+        else:
+            j = int(min(max(np.floor(pos), 0), n - 1))
+            fr = float(tval - (t0g + sc(j) * w))
+            dx = slab[j, :, 0] + (slab[j, :, 1] + slab[j, :, 2] * fr) * fr
         h1 = torch.relu(y @ w1t.t() + b1)
         g = torch.tanh(h1 @ w2t.t() + b2)
         return (g.reshape(B, C, H) * dx[:, :, None]).sum(dim=1)
@@ -160,7 +179,7 @@ def _poison(zout, zfin):
 def fused_dopri5_solve_reference(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     """Plain PyTorch version of the forward kernel's function.
 
-    ct (n, 3, C, B), z0t (H, B), the packed field, dt0 (1,) the proposal
+    ct (n, R, C, B), z0t (H, B), the packed field, dt0 (1,) the proposal
     to start from.  Returns (zout (n_out, H, B), zfin (H, B), dtfin (1,),
     mesh): outputs at ``plan.out_ts`` (z0 where no accepted step reached
     them), the state at t_end and the step proposal there; NaN in zout and
@@ -245,9 +264,9 @@ def _library():
     if not getattr(lib, "_fd_declared", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fp = ctypes.POINTER(ctypes.c_float)
-        lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i, p]
+        lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i] * 3 + [p]
         lib.fd_forward.restype = i
-        lib.fd_backward.argtypes = [p] * 18 + [i] * 6 + [fp, fp] + [f] * 2 + [i, p]
+        lib.fd_backward.argtypes = [p] * 18 + [i] * 6 + [fp, fp] + [f] * 2 + [i] * 3 + [p]
         lib.fd_backward.restype = i
         lib.fd_variant.argtypes = [i] * 3
         lib.fd_variant.restype = i
@@ -261,10 +280,10 @@ def _library():
     return lib
 
 
-def _shapes(ct, z0t, w1t, w2t):
-    n, three, C, B = ct.shape
+def _shapes(ct, z0t, w1t, w2t, plan):
+    n, rows, C, B = ct.shape
     H, W = z0t.shape[0], w1t.shape[0]
-    if (three != 3 or z0t.shape != (H, B) or w1t.shape != (W, H)
+    if (rows != (1 if plan.linear else 3) or z0t.shape != (H, B) or w1t.shape != (W, H)
             or w2t.shape != (C * H, W)):
         raise ValueError("inconsistent fused-solve operand shapes")
     return n, C, B, H, W
@@ -296,10 +315,10 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     """Forward kernel: returns (zout, zfin, dtfin, store) with store =
     (zst (cap, H, B), tst (cap,), dtst (cap,), stats (2,) int32: accepted and
     attempted steps), all left on the device."""
-    global FWD_LAUNCHES
+    global FWD_LAUNCHES, LINEAR_FWD_LAUNCHES
     ops = (ct, z0t, w1t, b1, w2t, b2, dt0)
     check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2", "dt0"))
-    n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
+    n, C, B, H, W = _shapes(ct, z0t, w1t, w2t, plan)
     lib = _library()
     variant = lib.fd_variant(H, C, W)
     empty = functools.partial(torch.empty, dtype=torch.float32, device=ct.device)
@@ -313,21 +332,22 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     with torch.cuda.device(ct.device):
         rc = lib.fd_forward(*ptrs, B, n, H, C, W, plan.cap, len(plan.out_ts), *_out_times(plan),
                             plan.t_start, plan.t_end, plan.t0g, plan.w, plan.rtol, plan.atol,
-                            plan.safety, plan.ifactor, plan.dfactor, variant, stream)
+                            plan.safety, plan.ifactor, plan.dfactor, int(plan.linear),
+                            int(plan.lead), variant, stream)
     _raise_on(lib, rc, "forward")
     FWD_LAUNCHES += 1
+    LINEAR_FWD_LAUNCHES += int(plan.linear)
     return zout, zfin, dtfin, (zst, tst, dtst, stats)
 
 
 def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
     """Backward kernel over the stored mesh: returns (dct, dz0, dw1t, db1,
     dw2t, db2) for the cotangents of zout and zfin."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, LINEAR_BWD_LAUNCHES
     zst, tst, dtst, stats = store
     ops = (ct, zst, tst, dtst, gzout, gzfin, w1t, b1, w2t, b2)
     check_operands(ops, ("ct", "zst", "tst", "dtst", "gzout", "gzfin", "w1t", "b1", "w2t", "b2"))
-    n, _, C, B = ct.shape
-    H, W = gzfin.shape[0], w1t.shape[0]
+    n, C, B, H, W = _shapes(ct, gzfin, w1t, w2t, plan)
     if (gzfin.shape != (H, B) or gzout.shape != (len(plan.out_ts), H, B)
             or zst.shape != (plan.cap, H, B) or stats.dtype != torch.int32):
         raise ValueError("inconsistent fused dopri5 cotangent or store shapes")
@@ -343,9 +363,11 @@ def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
     ptrs = [t.data_ptr() for t in (*ops, stats, dct, dz0, dw1p, db1p, dw2p, db2p, scratch)]
     with torch.cuda.device(ct.device):
         rc = lib.fd_backward(*ptrs, B, n, H, C, W, len(plan.out_ts), *_out_times(plan),
-                             plan.t0g, plan.w, variant, stream)
+                             plan.t0g, plan.w, int(plan.linear), int(plan.lead), variant,
+                             stream)
     _raise_on(lib, rc, "backward")
     BWD_LAUNCHES += 1
+    LINEAR_BWD_LAUNCHES += int(plan.linear)
     # Per-block partials are summed after the launch (deterministic).
     return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0))
 

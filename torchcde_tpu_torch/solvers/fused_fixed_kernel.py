@@ -16,7 +16,8 @@ about it.  This module holds what surrounds them:
 * ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches.
 
 Eligibility mirrors the JAX package's ``_pack_operands`` caps (width <= 512,
-C * H <= 512, 3 * C <= 16, m <= 8, one dtype) and is decided from shapes
+C * H <= 512, 3 * C <= 16, or C <= 16 for a linear control's slopes, m <= 8,
+one dtype) and is decided from shapes
 before any launch; a declined solve returns None and ``try_fused_fixed``
 streams the rows instead.  On the card the kernels take float32, and every
 float32 shape inside the caps launches one of their two variants (see the
@@ -38,7 +39,7 @@ from .runge_kutta import TABLEAUS
 # Caps mirrored from the JAX package's _pack_operands.
 MAX_WIDTH = 512
 MAX_CONTRACT = 512  # C * H
-MAX_SLAB_ROWS = 16  # 3 * C
+MAX_SLAB_ROWS = 16  # rows per interval: 3 * C (cubic), C (linear slopes)
 MAX_SUBSTEPS = 8
 
 BF16_NOT_PORTED = (
@@ -71,7 +72,7 @@ def _chain_form(method):
 
 
 class Packed(NamedTuple):
-    ct: torch.Tensor    # (n, 3, C, B): rows b, 2c, 3d per interval
+    ct: torch.Tensor    # (n, R, C, B): rows b, 2c, 3d (R 3) or the slopes (R 1) per interval
     z0t: torch.Tensor   # (H, B)
     w1t: torch.Tensor   # (W, H)
     b1: torch.Tensor    # (W,)
@@ -82,11 +83,14 @@ class Packed(NamedTuple):
     H: int
 
 
-def pack_operands(b_rows, c_rows, d_rows, z0, field):
+def pack_operands(b_rows, c_rows, d_rows, z0, field, linear=False):
     """Validate shapes and pack the kernel operands, or None if ineligible.
 
     b_rows, c_rows, d_rows: (..., n, C) spline rows b, 2c, 3d; z0 (..., H);
-    field: an ``MLPVectorField``."""
+    field: an ``MLPVectorField``.  ``linear=True``: b_rows are a
+    ``LinearInterpolation``'s slopes and c_rows, d_rows are None; the table
+    holds C rows per interval, so C <= 16 instead of 3 * C <= 16 (the
+    depth-3 log-ODE control's 14 channels fit)."""
     C = b_rows.shape[-1]
     H = field.hidden_channels
     w1, b1 = field.linear1.weight, field.linear1.bias
@@ -95,9 +99,11 @@ def pack_operands(b_rows, c_rows, d_rows, z0, field):
     if (w1.shape != (W, H) or w2.shape != (H * C, W)
             or field.input_channels != C or z0.shape[-1] != H):
         return None
-    if W > MAX_WIDTH or C * H > MAX_CONTRACT or 3 * C > MAX_SLAB_ROWS:
+    slab_rows = C if linear else 3 * C
+    if W > MAX_WIDTH or C * H > MAX_CONTRACT or slab_rows > MAX_SLAB_ROWS:
         return None
-    arrays = (b_rows, c_rows, d_rows, z0, w1, b1, w2, b2)
+    rows = (b_rows,) if linear else (b_rows, c_rows, d_rows)
+    arrays = rows + (z0, w1, b1, w2, b2)
     if any(a.dtype != z0.dtype or a.device != z0.device for a in arrays):
         return None
     if z0.dtype == torch.bfloat16:
@@ -105,10 +111,9 @@ def pack_operands(b_rows, c_rows, d_rows, z0, field):
     if z0.is_cuda and z0.dtype != torch.float32:
         return None  # as in the JAX package, whose kernel takes f32 and bf16
     n = b_rows.shape[-2]
-    if c_rows.shape[-2:] != (n, C) or d_rows.shape[-2:] != (n, C):
+    if any(r.shape[-2:] != (n, C) for r in rows):
         return None
-    batch = tuple(torch.broadcast_shapes(b_rows.shape[:-2], c_rows.shape[:-2],
-                                         d_rows.shape[:-2], z0.shape[:-1]))
+    batch = tuple(torch.broadcast_shapes(*(r.shape[:-2] for r in rows), z0.shape[:-1]))
     B = 1
     for size in batch:
         B *= size
@@ -118,8 +123,8 @@ def pack_operands(b_rows, c_rows, d_rows, z0, field):
     def flat_rows(r):
         return r.expand(batch + (n, C)).reshape(B, n, C)
 
-    ct = torch.stack([flat_rows(b_rows), flat_rows(c_rows), flat_rows(d_rows)])
-    ct = ct.permute(2, 0, 3, 1).contiguous()  # (n, 3, C, B)
+    ct = torch.stack([flat_rows(r) for r in rows])
+    ct = ct.permute(2, 0, 3, 1).contiguous()  # (n, R, C, B)
     z0f = z0.expand(batch + (H,)).reshape(B, H)
     # Vector-field rows from the model's h*C + i order to the kernel's i*H + h.
     w2t = w2.reshape(H, C, W).transpose(0, 1).reshape(C * H, W).contiguous()
