@@ -57,7 +57,22 @@ Phases, each of which raises on failure:
    2 and 3 launches);
 17. timing of K2-linear at config 4 against its plain version, the config-4
    train step, logsig_windows alone, and a torch.profiler reading of the
-   train step.
+   train step;
+18. K8 forward and backward: the reversible-Heun kernels against their plain
+   version run in float64 (forward y and ŷ within FWD_RTOL of the largest
+   magnitude; backward after the lane screen, relative Frobenius error
+   within BWD_RTOL in each gradient), at config 5's operands in both
+   variants and at odd cases (m 1, 2 and 8, shapes at the caps, batches
+   that are not a multiple of 32, cotangents on all, the terminal or some
+   interior knots);
+19. config-5 slice: BASELINE config 5 (16384 spirals of length 100, Hermite
+   coefficients, reversible Heun at step 1.0), with direct backpropagation
+   and with the adjoint: the logits against the plain version, then five
+   Adam steps and one accuracy call each with every plain version patched
+   to raise, K8 launches asserted (6 forward, 5 backward per mode);
+20. timing of K8 (both variants) against its plain version and of the
+   config-5 train step of each mode against the same step with the plain
+   version; 21. a torch.profiler reading of each mode's train step.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -273,36 +288,48 @@ def check_k1(label, operands, plan):
     if not torch.isfinite(out).all() or fwd_err > FWD_RTOL * max(fwd_scale, 1.0):
         failures.append(f"K1 forward ({label})")
 
-    # Lanes where rounding crossed a ReLU kink differ by a whole term (see
-    # BWD_RTOL); they are found by their own gradients (dct, dz0), and the
-    # comparison is repeated with their cotangent set to zero.
     gz = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(1),
                      device=out.device)
-    grads, ref_grads, _ = _gradients(operands, zres, gz, plan)
+    relu_evals = B * n * plan.m * len(k1._chain_form(plan.method)[2]) * W
+    bwd_err, bwd_failures = screened_backward(
+        "K1", label, lambda g: _gradients(operands, zres, g, plan), gz, relu_evals)
+    return fwd_err, bwd_err, failures + bwd_failures
+
+
+def screened_backward(kernel, label, gradients, gz, relu_evals):
+    """A backward kernel's six gradients (ct, z0, w1, b1, w2, b2) against
+    autograd through its plain version in float64; ``gradients(gz)`` returns
+    the kernel's and the plain version's in float64 and float32.  Lanes
+    where rounding crossed a ReLU kink differ by a whole term (see
+    BWD_RTOL); they are found by their own gradients (dct, dz0), and the
+    comparison is repeated with their cotangent set to zero.  Returns the
+    largest error and the failures."""
+    grads, ref_grads, _ = gradients(gz)
     lane_err = torch.maximum(_lane_rel_l2(grads[0], ref_grads[0]),
                              _lane_rel_l2(grads[1], ref_grads[1]))
     kinked = torch.nonzero(lane_err > LANE_RTOL).flatten().tolist()
-    allowed = 2 + int(KINKED_PER_RELU * B * n * plan.m * len(k1._chain_form(plan.method)[2]) * W)
+    allowed = 2 + int(KINKED_PER_RELU * relu_evals)
     worst = float(lane_err.max())
-    print(f"K1-bwd {label}: {len(kinked)} lanes past {LANE_RTOL:g} (limit {allowed}), "
+    print(f"{kernel}-bwd {label}: {len(kinked)} lanes past {LANE_RTOL:g} (limit {allowed}), "
           f"largest lane error {worst:.2e}, largest of the other lanes "
           f"{float(lane_err.masked_fill(lane_err > LANE_RTOL, 0.0).max()):.2e}")
+    failures = []
     if len(kinked) > allowed or worst > LANE_GROSS:
-        failures.append(f"K1 backward: lanes disagree ({label})")
+        failures.append(f"{kernel} backward: lanes disagree ({label})")
     gz[..., kinked] = 0.0
-    grads, ref_grads, ref32_grads = _gradients(operands, zres, gz, plan)
+    grads, ref_grads, ref32_grads = gradients(gz)
 
     bwd_err = 0.0
     for name, g, r, r32 in zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads, ref_grads, ref32_grads):
         err, scale = _err(g.double(), r)
         rel, rel32 = _rel_l2(g, r), _rel_l2(r32, r)
-        print(f"K1-bwd {label} d{name}: rel_l2 {rel:.3e} max_abs_err {err:.3e} "
+        print(f"{kernel}-bwd {label} d{name}: rel_l2 {rel:.3e} max_abs_err {err:.3e} "
               f"(largest |value| {scale:.3e}; plain float32 rel_l2 {rel32:.3e} "
               f"max_abs_err {_err(r32.double(), r)[0]:.3e})")
         if not torch.isfinite(g).all() or rel > BWD_RTOL:
-            failures.append(f"K1 backward d{name} ({label})")
+            failures.append(f"{kernel} backward d{name} ({label})")
         bwd_err = max(bwd_err, err)
-    return fwd_err, bwd_err, failures
+    return bwd_err, failures
 
 
 def _event_ms(fn, repeats):
@@ -642,12 +669,13 @@ def check_k2(device):
     return max(e[0] for e in errors), max(e[1] for e in errors)
 
 
-def default_model(device, batch, seed=0):
-    """The default configuration and its spiral data."""
+def default_model(device, batch, seed=0, config=DEFAULT):
+    """A configuration (the default one unless given), built on the card, and
+    its spiral data's Hermite coefficients and labels."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig
 
-    model = NeuralCDE(NeuralCDEConfig(**DEFAULT), generator=torch.Generator().manual_seed(seed))
+    model = NeuralCDE(NeuralCDEConfig(**config), generator=torch.Generator().manual_seed(seed))
     X_np, y_np = spiral_data(batch, LENGTH, seed)
     coeffs = tt.hermite_cubic_coefficients_with_backward_differences(
         torch.from_numpy(X_np).to(device))
@@ -793,12 +821,16 @@ def plain_versions_raise():
     """Patches every kernel's plain version to raise, so a run inside shows
     that nothing on the path fell back to one."""
     import contextlib
+    import importlib
 
     from torchcde_tpu_torch.interpolation import cubic
     from torchcde_tpu_torch.ops import fill, tridiagonal
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+    from torchcde_tpu_torch.solvers import reversible_adjoint, runge_kutta
 
+    cdeint_module = importlib.import_module("torchcde_tpu_torch.solvers.cdeint")
     mods = fit_kernel_modules()
     targets = [(fill, "masked_fill_scan"), (mods["K3"], "masked_fill_scan"),
                (tridiagonal, "tridiagonal_solve_thomas"), (tridiagonal, "tridiagonal_solve_pcr"),
@@ -806,7 +838,10 @@ def plain_versions_raise():
                (cubic, "_masked_thomas_observed"), (mods["K5"], "_masked_thomas_observed"),
                (cubic, "_masked_fit_plain"), (mods["K6/K7"], "_masked_fit_plain"),
                (k1, "fused_fixed_solve_reference"), (k2, "fused_dopri5_solve_reference"),
-               (k2, "fused_dopri5_replay")]
+               (k2, "fused_dopri5_replay"), (k8, "fused_reversible_solve_reference"),
+               (k8, "fused_reversible_backward_reference"),
+               (reversible_adjoint, "reversible_heun_solve"),
+               (cdeint_module, "reversible_heun_solve")]
 
     def raiser(name):
         def fail(*args, **kwargs):
@@ -816,6 +851,10 @@ def plain_versions_raise():
     stack = contextlib.ExitStack()
     for module, name in targets:
         stack.enter_context(mock.patch.object(module, name, raiser(f"{module.__name__}.{name}")))
+    # The reversible-Heun stepper of the plain (odeint) path.
+    stepper = runge_kutta.STEPPERS["reversible_heun"]
+    stack.enter_context(mock.patch.dict(runge_kutta.STEPPERS, {"reversible_heun": stepper._replace(
+        init=raiser("the reversible-Heun stepper"), step=raiser("the reversible-Heun stepper"))}))
     return stack
 
 
@@ -1384,6 +1423,215 @@ def time_log_ode(device, coeffs, labels, x):
     return timing, (fwd_bound, bwd_bound), profile
 
 
+# --------------------------------------------------------------------------
+# The reversible-Heun Neural CDE (BASELINE config 5): K8.
+# --------------------------------------------------------------------------
+
+K8_SOURCE = "torchcde_tpu_torch/csrc/fused_reversible.cu"
+# BASELINE config 5 (benchmarks/run_benchmarks.py:500-578, bench_rev_heun):
+# the spiral data at batch 16384, Hermite coefficients, reversible Heun at
+# step 1.0, hidden 8, width 128, with direct backpropagation and with the
+# exact inverse-map adjoint.
+CONFIG5_BATCH = 16384
+CONFIG5 = dict(input_channels=CHANNELS, hidden_channels=HIDDEN, output_channels=1, width=WIDTH,
+               interpolation="cubic", solver="reversible_heun", step_size=1.0)
+# Odd K8 cases: (batch, intervals, hidden, channels, width, substeps, knots
+# whose cotangent is nonzero).  Every m in {1, 2, 8}, shapes at the caps
+# (C * H <= 512, 3 * C <= 16, width <= 512), batches that are not a multiple
+# of 32, and H 8, C 3 past width 432, which runs the generic variant.
+K8_CASES = [
+    (1000, 99, 8, 3, 128, 2, "terminal"),
+    (333, 20, 8, 3, 128, 8, "subset"),
+    (300, 12, 100, 5, 512, 8, "subset"),
+    (520, 40, 16, 5, 512, 2, "terminal"),
+    (77, 30, 7, 2, 64, 1, "all"),
+    (250, 30, 8, 3, 500, 1, "all"),
+]
+K8_KINDS = {"k8_fwd": r"\brev_fwd_kernel\b", "k8_bwd": r"\brev_bwd_kernel\b"}
+
+
+def _k8_gradients(operands, y, yhat, gy, plan):
+    """The backward kernel's gradients, and autograd's through the plain
+    version in float64 and in float32."""
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    grads = k8.launch_backward(operands[0], y, yhat, gy, *operands[2:], plan)
+    plain = []
+    for dtype in (torch.float64, torch.float32):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in operands]
+        ref, _ = k8.fused_reversible_solve_reference(*leaves, plan.m, plan.dt_sub)
+        plain.append(torch.autograd.grad(ref, leaves, gy.to(dtype)))
+    torch.cuda.synchronize()
+    return grads, plain[0], plain[1]
+
+
+def check_k8(label, operands, plan, which):
+    """K8 forward (y and ŷ) against the plain version in float64, and the
+    backward, for a cotangent on the knots ``which``, against autograd
+    through it (``screened_backward``)."""
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    H, (n, _, C, B), W = operands[1].shape[0], operands[0].shape, operands[2].shape[0]
+    label = f"{label} [{k8.kernel_variant(H, C, W, plan)}]"
+    y, yhat = k8.launch_forward(*operands, plan)
+    with torch.no_grad():
+        refs = [torch.cat(k8.fused_reversible_solve_reference(
+            *(t.to(dtype) for t in operands), plan.m, plan.dt_sub))
+            for dtype in (torch.float64, torch.float32)]
+    torch.cuda.synchronize()
+    got = torch.cat([y, yhat])
+    failures = []
+    fwd_err, fwd_scale = _err(got.double(), refs[0])
+    print(f"K8-fwd {label}: max_abs_err {fwd_err:.3e} (largest |value| {fwd_scale:.3e}; "
+          f"plain float32 {_err(refs[1].double(), refs[0])[0]:.3e})", flush=True)
+    if not torch.isfinite(got).all() or fwd_err > FWD_RTOL * max(fwd_scale, 1.0):
+        failures.append(f"K8 forward ({label})")
+
+    gy = torch.zeros_like(y)
+    knots = [k - 1 for k in knot_set(which, n)]
+    gy[knots] = torch.randn(gy[knots].shape, device=y.device,
+                            generator=torch.Generator(device=y.device).manual_seed(1))
+    bwd_err, bwd_failures = screened_backward(
+        "K8", label, lambda g: _k8_gradients(operands, y, yhat, g, plan), gy,
+        B * n * (plan.m + 1) * W)
+    return fwd_err, bwd_err, failures + bwd_failures
+
+
+def config5_problem(device, adjoint):
+    """Config 5's model, Hermite coefficients of its spiral data, and labels."""
+    return default_model(device, CONFIG5_BATCH, config=dict(CONFIG5, adjoint=adjoint))
+
+
+def check_k8_cases(device):
+    """Phase 18: K8 against its plain version at config 5's operands, in both
+    variants, and at the odd cases."""
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    model, coeffs, _ = config5_problem(device, adjoint=True)
+    with torch.no_grad():
+        p = packed_operands(model, coeffs)
+    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+    errors = [check_k8(f"config 5 B{CONFIG5_BATCH} H{HIDDEN} C{CHANNELS} W{WIDTH} m1 terminal",
+                       ops, k8._Plan(1, 1.0, generic), "terminal")
+              for generic in (False, True)]
+    for seed, (B, n, H, C, W, m, which) in enumerate(K8_CASES, start=1):
+        errors.append(check_k8(f"odd B{B} n{n} H{H} C{C} W{W} m{m} {which}",
+                               random_operands(B, n, H, C, W, seed, device),
+                               k8._Plan(m, 1.0 / m), which))
+    failures = [f for e in errors for f in e[2]]
+    if failures:
+        raise AssertionError("K8 disagrees with the plain version: " + "; ".join(failures))
+    return max(e[0] for e in errors), max(e[1] for e in errors)
+
+
+def plain_k8():
+    """Routes the fused reversible solve to K8's plain version (for timing
+    and checking it on the card)."""
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    reference = k8.fused_reversible_solve_reference
+    return mock.patch.object(k8, "fused_reversible_solve", lambda *a: reference(*a)[0])
+
+
+def config5_slice(device):
+    """Phase 19: config 5 through the public entry points, with direct
+    backpropagation and with the adjoint: the logits against the plain
+    version, five Adam steps and one accuracy call with every plain version
+    patched to raise, K8's launches counted."""
+    from torchcde_tpu_torch.models import accuracy, make_train_step
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    results = {}
+    for adjoint in (False, True):
+        model, coeffs, labels = config5_problem(device, adjoint)
+        with torch.no_grad():
+            with plain_k8():
+                plain_logits = model(coeffs)
+            logits = model(coeffs)
+        err, scale = _err(logits, plain_logits)
+        with plain_versions_raise():
+            step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+            k8.reset_launch_counts()
+            losses = [float(step(coeffs, labels)) for _ in range(5)]
+            acc = float(accuracy(model, coeffs, labels))
+            torch.cuda.synchronize()
+            counts = {"fwd": k8.FWD_LAUNCHES, "bwd": k8.BWD_LAUNCHES}
+        label = f"config 5 B{CONFIG5_BATCH} adjoint={adjoint}"
+        print(f"{label}: logits vs plain version max_abs_err {err:.3e} (largest |value| "
+              f"{scale:.3e}); 5 Adam steps, losses {losses}, accuracy {acc:.4f}, K8 launches "
+              f"{counts}", flush=True)
+        failures = []
+        if (logits.shape != (CONFIG5_BATCH, 1) or not torch.isfinite(logits).all()
+                or err > FWD_RTOL * max(scale, 1.0)):
+            failures.append("the logits disagree with the plain version")
+        if not all(math.isfinite(v) for v in losses) or losses[-1] == losses[0]:
+            failures.append(f"the loss is not finite or does not change: {losses}")
+        if counts != {"fwd": 6, "bwd": 5}:
+            failures.append(f"the steps did not run K8 once per step: {counts}")
+        if failures:
+            raise AssertionError(f"the config-5 slice ({label}) failed: " + "; ".join(failures))
+        results[adjoint] = {"logits_max_abs_err": err, "losses": losses, "accuracy": acc,
+                            "k8_launches": counts}
+    return results
+
+
+def time_k8(device):
+    """Phase 20: K8 at config 5's operands (both variants) against its plain
+    version (float32, on the card), and the config-5 train step of each
+    adjoint mode against the same step with the plain version."""
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    model, coeffs, labels = config5_problem(device, adjoint=True)
+    with torch.no_grad():
+        p = packed_operands(model, coeffs)
+    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+    timing = {}
+    for name, generic in (("", False), ("_generic", True)):
+        plan = k8._Plan(1, 1.0, generic)
+        y, yhat = k8.launch_forward(*ops, plan)
+        gy = torch.ones_like(y)
+        timing[f"k8_fwd{name}_ms"] = _event_ms(lambda: k8.launch_forward(*ops, plan), 10)
+        timing[f"k8_bwd{name}_ms"] = _event_ms(
+            lambda: k8.launch_backward(p.ct, y, yhat, gy, *ops[2:], plan), 5)
+    with torch.no_grad():
+        timing["k8_fwd_plain_ms"] = _event_ms(
+            lambda: k8.fused_reversible_solve_reference(*ops, 1, 1.0), 3)
+    leaves = [t.detach().clone().requires_grad_() for t in ops]
+    ref, _ = k8.fused_reversible_solve_reference(*leaves, 1, 1.0)
+    timing["k8_bwd_plain_ms"] = _event_ms(
+        lambda: torch.autograd.grad(ref, leaves, gy, retain_graph=True), 3)
+
+    def plain_loss(m):
+        from torchcde_tpu_torch.models.training import loss_fn
+
+        with plain_k8():
+            return loss_fn(m, coeffs, labels)
+
+    for adjoint in (False, True):
+        medians, samples = time_train_steps(config5_problem(device, adjoint)[0], coeffs, labels,
+                                            plain_loss, counts=(5, 2))
+        timing[f"config5_adjoint_{adjoint}_train_step_ms"] = medians
+        timing[f"config5_adjoint_{adjoint}_train_step_samples_ms"] = samples
+    return timing
+
+
+def k8_bounds(batch, n, m):
+    """K8's least times at config 5, forward and backward: 2 W H (1 + C)
+    float32 operations per evaluation of one lane's MLP field.  The forward
+    evaluates (m + 1) times per interval; the backward evaluates the two of
+    each substep again and adds the two VJPs, whose products and weight
+    gradients count as many again each: 6 per substep.  Bytes: the control's
+    rows and the initial state read, y and ŷ written (forward); the rows, y,
+    ŷ and their cotangent read, the rows' cotangent and dz0 written
+    (backward)."""
+    f = 2 * WIDTH * HIDDEN * (1 + CHANNELS)
+    ct_bytes = 4 * n * 3 * CHANNELS * batch
+    states = 4 * n * HIDDEN * batch
+    state = 4 * HIDDEN * batch
+    return (bound(ct_bytes + state + 2 * states, (m + 1) * n * batch * f),
+            bound(2 * ct_bytes + 3 * states + state, 6 * m * n * batch * f))
+
+
 def bound(bytes_moved, flops):
     """(least ms, what bounds it): bytes over the HBM rate against float32
     operations over the CUDA cores' rate."""
@@ -1638,9 +1886,30 @@ def main():
     k2l_launches = {kind: sum(r["k2_launches"][f"linear_{kind}"] for r in log_slice.values())
                     for kind in ("fwd", "bwd")}
 
+    # 18-21. The reversible-Heun Neural CDE (config 5): K8 against its plain
+    # version, the slice in both adjoint modes, the timing and the profiles.
+    k8_fwd_err, k8_bwd_err = check_k8_cases(device)
+    config5 = config5_slice(device)
+    k8_ms = time_k8(device)
+    k8_fwd_bound, k8_bwd_bound = k8_bounds(CONFIG5_BATCH, LENGTH - 1, 1)
+    print("timing: " + json.dumps({
+        "card": smi, **k8_ms, "k8_fwd_bound_ms": k8_fwd_bound[0],
+        "k8_bwd_bound_ms": k8_bwd_bound[0],
+        "config5_slice": {f"adjoint={a}": r for a, r in config5.items()}}))
+    for adjoint in (False, True):
+        profile = profile_train_steps(*config5_problem(device, adjoint), K8_KINDS)
+        if "device_busy_ms_per_call" in profile:
+            profile["k8_share_of_busy"] = ((profile["k8_fwd_ms_per_call"]
+                                            + profile["k8_bwd_ms_per_call"])
+                                           / profile["device_busy_ms_per_call"])
+        print("profile: " + json.dumps(dict(profile, config=f"config-5 reversible Heun "
+                                            f"adjoint={adjoint} B{CONFIG5_BATCH}", card=smi)))
+    k8_launches = {kind: sum(r["k8_launches"][kind] for r in config5.values())
+                   for kind in ("fwd", "bwd")}
+
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)
-    # No single PyTorch call computes a fused CDE solve: K1's and K2's
+    # No single PyTorch call computes a fused CDE solve: K1's, K2's and K8's
     # library_ms is null (the fit kernels': time_fit_kernels).
     kernels = [
         {"name": "K1-fwd", "route": "cuda", "source": SOURCE,
@@ -1671,6 +1940,14 @@ def main():
          "launches": k2l_launches["bwd"], "max_abs_err": k2l_bwd_err,
          "ms": log_ms["linear_k2_bwd_ms"], "plain_ms": log_ms["linear_k2_bwd_plain_ms"],
          "bound_ms": k2l_bwd_bound[0], "bound_by": k2l_bwd_bound[1], "library_ms": None},
+        {"name": "K8-fwd", "route": "cuda", "source": K8_SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_pallas.py:741", "launches": k8_launches["fwd"],
+         "max_abs_err": k8_fwd_err, "ms": k8_ms["k8_fwd_ms"], "plain_ms": k8_ms["k8_fwd_plain_ms"],
+         "bound_ms": k8_fwd_bound[0], "bound_by": k8_fwd_bound[1], "library_ms": None},
+        {"name": "K8-bwd", "route": "cuda", "source": K8_SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_pallas.py:783", "launches": k8_launches["bwd"],
+         "max_abs_err": k8_bwd_err, "ms": k8_ms["k8_bwd_ms"], "plain_ms": k8_ms["k8_bwd_plain_ms"],
+         "bound_ms": k8_bwd_bound[0], "bound_by": k8_bwd_bound[1], "library_ms": None},
     ]
     for name in ("K3", "K4", "K5", "K6/K7"):
         ms, plain_ms, bound_ms, bound_by, library_ms = fit_ms[name]

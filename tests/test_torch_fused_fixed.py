@@ -189,7 +189,6 @@ def test_eligibility_declines():
     (dict(method="rk4", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
     (dict(method="dopri5", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
     (dict(method="scipy_solver"), "Rest of the solver surface"),
-    (dict(method="reversible_heun"), "Reversible Heun"),
 ])
 def test_not_ported_options_raise(kwargs, item):
     kwargs = dict(dict(adjoint=False, step_size=1.0), **kwargs)

@@ -1,0 +1,241 @@
+"""The port's fused reversible-Heun solve (kernel K8's module) against the JAX package.
+
+On the CPU the port's ``cdeint`` over an ``MLPVectorField`` runs the plain
+PyTorch version of the K8 kernels.  It is held against the JAX K8 kernel run
+in Pallas interpret mode (float32), and against the JAX package's XLA
+reversible path (float64), from which it differs only in where it evaluates
+dX/dt at a knot: the kernels read the next interval's rows at fraction 0, the
+XLA path the left interval at its end, equal for a C1 control up to rounding.
+The gradients compared are those to the raw data (through the Hermite
+coefficients), z0 and the four weights, which both routings share.  The CUDA
+kernels themselves are held against the plain version on the card by
+``chip_smoke.py``.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchcde_tpu as tc
+import torchcde_tpu_torch as tt
+from torchcde_tpu.solvers import fused_pallas
+from torchcde_tpu.solvers.terms import MLPVectorField as JaxField
+from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+from torchcde_tpu_torch.solvers.terms import MLPVectorField
+
+torch.set_num_threads(1)
+
+
+def _problem(B, L, C, H, W, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrays = dict(x=rng.standard_normal((B, L, C)), w1=rng.standard_normal((H, W)) * 0.2,
+                  b1=rng.standard_normal(W) * 0.2, w2=rng.standard_normal((W, H * C)) * 0.2,
+                  b2=rng.standard_normal(H * C) * 0.2, z0=rng.standard_normal((B, H)))
+    return {k: v.astype(dtype) for k, v in arrays.items()}
+
+
+NAMES = ("x", "z0", "w1", "b1", "w2", "b2")
+
+
+def _jax_run(p, H, t, use_kernel, **kwargs):
+    """Values and gradients of sum(sin(out)) through the JAX cdeint, with its
+    K8 kernel in interpret mode or its XLA path."""
+    C = p["x"].shape[-1]
+
+    def run(x, z0, w1, b1, w2, b2):
+        fused_pallas.force_fused_pallas(use_kernel)
+        try:
+            X = tc.CubicSpline(tc.hermite_cubic_coefficients_with_backward_differences(x))
+            return tc.cdeint(X, JaxField(w1, b1, w2, b2, H, C), z0, t, method="reversible_heun",
+                             **kwargs)
+        finally:
+            fused_pallas.force_fused_pallas(None)
+
+    def loss(*a):
+        out = run(*a)
+        return jnp.sum(jnp.sin(out)), out
+
+    args = tuple(jnp.asarray(p[k]) for k in NAMES)
+    (_, out), grads = jax.value_and_grad(loss, argnums=tuple(range(6)), has_aux=True)(*args)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _field(p, H):
+    C, W = p["x"].shape[-1], p["w1"].shape[1]
+    field = MLPVectorField(H, C, W, dtype=torch.from_numpy(p["x"]).dtype)
+    with torch.no_grad():
+        field.linear1.weight.copy_(torch.from_numpy(p["w1"].T))
+        field.linear1.bias.copy_(torch.from_numpy(p["b1"]))
+        field.linear2.weight.copy_(torch.from_numpy(p["w2"].T))
+        field.linear2.bias.copy_(torch.from_numpy(p["b2"]))
+    return field
+
+
+def _torch_run(p, H, t, **kwargs):
+    """The port's cdeint over the MLP field: values and gradients of sum(sin(out))."""
+    field = _field(p, H)
+    x = torch.from_numpy(p["x"]).requires_grad_()
+    z0 = torch.from_numpy(p["z0"]).requires_grad_()
+    X = tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(x))
+    out = tt.cdeint(X, field, z0, t, method="reversible_heun", **kwargs)
+    torch.sin(out).sum().backward()
+    grads = [x.grad, z0.grad, field.linear1.weight.grad.T, field.linear1.bias.grad,
+             field.linear2.weight.grad.T, field.linear2.bias.grad]
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _assert_close(got, expected, rtol, name):
+    # atol is a tenth of rtol relative to the largest magnitude: an entry that
+    # cancels to near zero keeps the rounding of its largest terms.
+    np.testing.assert_allclose(got, expected, rtol=rtol,
+                               atol=rtol * 0.1 * float(np.abs(expected).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("H", [4, 8])
+def test_plain_k8_matches_jax_kernel(H):
+    # float32 on both sides: the JAX K8 kernel in interpret mode (its forward
+    # and its inverse-map backward) against the port's plain K8 and autograd
+    # through it; they round in different orders.  The values hold to 1e-6;
+    # the gradients to 1e-4 (at 1e-5 one entry of 384 differs by 1.2e-4).
+    p = _problem(3, 7, 3, H, 16, np.float32, seed=2)
+    t = np.array([0.0, 3.0, 6.0], dtype=np.float32)
+    kwargs = dict(adjoint=True, backend="torchsde", dt=0.5)
+    out_j, grads_j = _jax_run(p, H, t, True, **kwargs)
+    out_t, grads_t = _torch_run(p, H, t, **kwargs)
+    assert out_t.shape == out_j.shape == (3, 3, H)
+    _assert_close(out_t, out_j, 1e-6, "solution")
+    for name, got, expected in zip(NAMES, grads_t, grads_j):
+        _assert_close(got, expected, 1e-4, name)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("t, step", [(np.linspace(0.0, 8.0, 9), 0.5),
+                                     (np.array([1.0, 4.0, 8.0]), 1.0)])
+def test_port_routing_matches_jax_xla_path(adjoint, t, step):
+    # float64: the port's plain K8 against the JAX package's XLA reversible
+    # path (reversible_heun_solve with the adjoint, the stepper without).
+    p = _problem(4, 9, 3, 8, 16, np.float64, seed=3)
+    out_j, grads_j = _jax_run(p, 8, t, False, adjoint=adjoint, step_size=step)
+    out_t, grads_t = _torch_run(p, 8, t, adjoint=adjoint, step_size=step)
+    _assert_close(out_t, out_j, 1e-10, "solution")
+    for name, got, expected in zip(NAMES, grads_t, grads_j):
+        _assert_close(got, expected, 1e-9, name)
+
+
+def test_cpu_path_runs_the_plain_version():
+    p = _problem(4, 9, 3, 8, 16, np.float64, seed=3)
+    k8.reset_launch_counts()
+    _torch_run(p, 8, np.linspace(0.0, 8.0, 9), adjoint=True, step_size=0.5)
+    assert (k8.FWD_LAUNCHES, k8.BWD_LAUNCHES) == (0, 0)
+
+
+def _spline(B, L, C, dtype=torch.float64, t=None):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((B, L, C))).to(dtype)
+    return tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(x, t), t)
+
+
+# (label, control, field (H, C, W), output times, step): each declined, as
+# the JAX package declines it.
+DECLINES = [
+    ("9 substeps", lambda: _spline(3, 6, 3), (8, 3, 16), np.arange(6.0), 1 / 9),
+    ("non-uniform knots", lambda: _spline(3, 4, 3, t=np.array([0.0, 1.0, 3.0, 4.0])),
+     (8, 3, 16), np.array([0.0, 1.0, 3.0, 4.0]), 1.0),
+    ("3 C > 16", lambda: _spline(3, 5, 6), (4, 6, 16), np.arange(5.0), 1.0),
+    ("C H > 512", lambda: _spline(3, 5, 5), (103, 5, 16), np.arange(5.0), 1.0),
+    ("times off the grid", lambda: _spline(3, 6, 3), (8, 3, 16), np.array([0.0, 2.5, 5.0]), 0.5),
+]
+
+
+@pytest.mark.parametrize("label, control, shape, t, step", DECLINES, ids=[d[0] for d in DECLINES])
+def test_declines_where_jax_declines(label, control, shape, t, step):
+    X = control()
+    H, C, W = shape
+    field = MLPVectorField(H, C, W, dtype=torch.float64)
+    z0 = torch.from_numpy(np.random.default_rng(1).standard_normal((3, H)))
+    assert k8.try_fused_reversible_heun(X, field, z0, t, step) is None
+    # The declined solve takes the plain reversible path: the same values as
+    # the same field seen as a closure, which only that path takes.
+    with torch.no_grad():
+        for adjoint in (False, True):
+            got = tt.cdeint(X, field, z0, t, adjoint=adjoint, method="reversible_heun",
+                            step_size=step)
+            plain = tt.cdeint(X, lambda s, z: field(s, z), z0, t, adjoint=adjoint,
+                              method="reversible_heun", step_size=step)
+            assert torch.equal(got, plain)
+
+
+def test_takes_shapes_at_the_caps():
+    X = _spline(3, 6, 5)
+    field = MLPVectorField(102, 5, 512, dtype=torch.float64)
+    z0 = torch.zeros(3, 102, dtype=torch.float64)
+    assert k8.try_fused_reversible_heun(X, field, z0, np.arange(6.0), 0.125) is not None
+
+
+def test_bf16_raises_the_k1_message():
+    X = _spline(3, 6, 3, dtype=torch.bfloat16)
+    field = MLPVectorField(8, 3, 16, dtype=torch.bfloat16)
+    z0 = torch.zeros(3, 8, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=re.escape(k1.BF16_NOT_PORTED)):
+        k8.try_fused_reversible_heun(X, field, z0, np.arange(6.0), 1.0)
+
+
+def _operands(n, C, B, H, W, seed):
+    rng = np.random.default_rng(seed)
+    arrays = (0.3 * rng.standard_normal((n, 3, C, B)), rng.standard_normal((H, B)),
+              rng.standard_normal((W, H)) * 0.3, rng.standard_normal(W) * 0.1,
+              rng.standard_normal((C * H, W)) * 0.3, rng.standard_normal(C * H) * 0.1)
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("m", [1, 3])
+def test_backward_walk_matches_autograd(m):
+    # The backward kernel's algorithm in plain PyTorch: from the stored
+    # states, the inverse map and the per-step VJPs give autograd's
+    # gradients through the forward (float64; the inverse map's rounding).
+    ops = _operands(5, 3, 4, 8, 16, seed=m)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    y, yhat = k8.fused_reversible_solve_reference(*leaves, m, 1.0 / m)
+    gy = torch.from_numpy(np.random.default_rng(7).standard_normal(y.shape))
+    expected = torch.autograd.grad(y, leaves, gy)
+    got = k8.fused_reversible_backward_reference(ops[0], y.detach(), yhat.detach(), gy,
+                                                 *ops[2:], m, 1.0 / m)
+    for name, g, e in zip(("ct", "z0", "w1", "b1", "w2", "b2"), got, expected):
+        torch.testing.assert_close(g, e, rtol=1e-12, atol=1e-12, msg=name)
+
+
+def test_autograd_function_and_launch_counts_with_stand_ins(monkeypatch):
+    # The kernels run only on the card: stand-ins for the launches (the plain
+    # forward and the plain backward walk, counting) drive the autograd
+    # Function, the selection of the output knots and the counters.
+    def forward(ct, z0t, w1t, b1, w2t, b2, plan):
+        k8.FWD_LAUNCHES += 1
+        with torch.no_grad():
+            return k8.fused_reversible_solve_reference(ct, z0t, w1t, b1, w2t, b2, plan.m,
+                                                       plan.dt_sub)
+
+    def backward(ct, y, yhat, gy, w1t, b1, w2t, b2, plan):
+        k8.BWD_LAUNCHES += 1
+        return k8.fused_reversible_backward_reference(ct, y, yhat, gy, w1t, b1, w2t, b2,
+                                                      plan.m, plan.dt_sub)
+
+    def solve(ct, z0t, w1t, b1, w2t, b2, m, dt_sub):
+        return k8._FusedReversibleSolve.apply(ct, z0t, w1t, b1, w2t, b2, k8._Plan(m, dt_sub))
+
+    p = _problem(4, 9, 3, 8, 16, np.float64, seed=4)
+    t = np.array([0.0, 3.0, 8.0])
+    expected = _torch_run(p, 8, t, adjoint=True, step_size=0.5)
+    monkeypatch.setattr(k8, "launch_forward", forward)
+    monkeypatch.setattr(k8, "launch_backward", backward)
+    monkeypatch.setattr(k8, "fused_reversible_solve", solve)
+    k8.reset_launch_counts()
+    got = _torch_run(p, 8, t, adjoint=True, step_size=0.5)
+    assert (k8.FWD_LAUNCHES, k8.BWD_LAUNCHES) == (1, 1)
+    np.testing.assert_array_equal(got[0], expected[0])
+    for name, g, e in zip(NAMES, got[1], expected[1]):
+        _assert_close(g, e, 1e-12, name)
+    k8.reset_launch_counts()

@@ -261,3 +261,39 @@ def test_log_ode_linear_config_three_adam_steps_track_optax():
     for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, params)).items():
         np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-8, atol=1e-12,
                                    err_msg=name)
+
+
+# BASELINE config 5: reversible Heun at step 1.0, with direct backpropagation
+# and with the exact inverse-map adjoint.  On the CPU the port's MLP field
+# takes K8's plain version, which evaluates dX/dt at a knot with the next
+# interval's rows; the JAX package's XLA path (its kernel declines off the
+# TPU) reads the left interval there.  A Hermite spline is C1, so the two
+# agree up to rounding, and the weights' gradients with them.
+CONFIG5 = dict(input_channels=3, hidden_channels=8, output_channels=1, width=WIDTH,
+               interpolation="cubic", solver="reversible_heun", step_size=1.0)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_reversible_heun_config_three_adam_steps_track_optax(adjoint):
+    X, y = _spiral(BATCH, LENGTH, seed=6)
+    cfg = JaxConfig(**CONFIG5, adjoint=adjoint)
+    params = init_neural_cde(jax.random.PRNGKey(0), cfg, dtype=jnp.float64)
+    model = NeuralCDE(NeuralCDEConfig(**CONFIG5, adjoint=adjoint), device="cpu",
+                      dtype=torch.float64)
+    model.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    cj, ct = _coeffs(X)
+    np.testing.assert_allclose(model(ct).detach().numpy(),
+                               np.asarray(neural_cde_apply(params, cfg, cj)), rtol=1e-10,
+                               atol=1e-12)
+    optimizer = optax.adam(1e-3)
+    opt_state = optimizer.init(params)
+    jax_step = jax_make_train_step(cfg, optimizer)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    for _ in range(3):
+        params, opt_state, loss_j = jax_step(params, opt_state, cj, jnp.asarray(y))
+        loss_t = step(ct, torch.from_numpy(y))
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-9)
+    state = model.state_dict()
+    for name, value in from_jax_params(jax.tree_util.tree_map(np.asarray, params)).items():
+        np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-8, atol=1e-12,
+                                   err_msg=name)

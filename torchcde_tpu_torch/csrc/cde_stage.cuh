@@ -1,7 +1,8 @@
 // Stage math shared by the fused Neural CDE kernels (fused_fixed.cu,
-// fused_dopri.cu): one evaluation of the canonical vector field
-// k = tanh(W2 relu(W1 y + b1) + b2) . dX/dt for one batch lane per thread,
-// with H and C known at compile time, and its vector-Jacobian product.
+// fused_dopri.cu, fused_reversible.cu): one evaluation of the canonical
+// vector field k = tanh(W2 relu(W1 y + b1) + b2) . dX/dt for one batch lane
+// per thread, with H and C known at compile time, and its vector-Jacobian
+// product.
 //
 // Replaces the stage math of the TPU kernels,
 // torchcde_tpu/solvers/fused_pallas.py::_stage_forward and ::_stage_backward.
@@ -61,6 +62,22 @@ __device__ __forceinline__ void control_derivative(const float (&sb)[C],
                                                    float fr, float (&dx)[C]) {
 #pragma unroll
   for (int i = 0; i < C; ++i) dx[i] = sb[i] + (sc[i] + sd[i] * fr) * fr;
+}
+
+// The rows b, 2c, 3d of interval j for one lane, from ct (n, 3, C, B); zero
+// for a lane past the batch.
+template <int H, int C>
+__device__ __forceinline__ void load_slab(const float* __restrict__ ct, int j,
+                                          int B, int lane, bool live,
+                                          float (&sb)[C], float (&sc)[C],
+                                          float (&sd)[C]) {
+  const float* row = ct + (size_t)j * 3 * C * B + lane;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    sb[i] = live ? row[(size_t)i * B] : 0.f;
+    sc[i] = live ? row[(size_t)(C + i) * B] : 0.f;
+    sd[i] = live ? row[(size_t)(2 * C + i) * B] : 0.f;
+  }
 }
 
 // g = tanh(W2 relu(W1 y + b1) + b2), streaming the hidden layer over W.
@@ -149,16 +166,19 @@ struct BwdSmem {
 
 // VJP of one vector-field evaluation k = contract(mlp(y), dx) for cotangent
 // u of k: returns dy and ddx, and adds this stage's weight gradients, summed
-// over the block's lanes, to the shared accumulators.  Every thread of the
-// block calls it (lanes past the batch with zero state and cotangent).
+// over the block's lanes, to the shared accumulators.  With k, the
+// evaluation itself is returned too.  Every thread of the block calls it
+// (lanes past the batch with zero state and cotangent).
 template <int H, int C>
 __device__ void stage_vjp(const BwdSmem<H, C>& sm, int W, const float (&u)[H],
                           const float (&y)[H], const float (&dx)[C],
-                          float (&dy)[H], float (&ddx)[C]) {
+                          float (&dy)[H], float (&ddx)[C],
+                          float (*k)[H] = nullptr) {
   constexpr int CH = C * H;
   const int tid = threadIdx.x;
   float g[CH];
   mlp_forward<H, C, true>(sm.field, W, y, g, sm.h1);
+  if (k) contract<H, C>(g, dx, *k);
 
   float dp2[CH];
 #pragma unroll

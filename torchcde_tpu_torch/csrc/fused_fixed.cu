@@ -28,7 +28,8 @@
 // Specialised variant (H and C compile-time; instantiated for the flagship
 // H 8, C 3 at widths whose backward fits in shared memory, W <= 432).  Its
 // stage math (mlp_forward, stage_vjp) is in cde_stage.cuh, shared with the
-// adaptive kernels of fused_dopri.cu.
+// adaptive kernels of fused_dopri.cu and the reversible ones of
+// fused_reversible.cu.
 //  * One thread per batch lane loops over the intervals; this replaces the
 //    TPU's sequential grid axis and its VMEM carry of z.  Blocks are one warp
 //    (32 lanes), so a 4096 batch spreads over 128 SMs.
@@ -45,7 +46,9 @@
 //    launch, as the JAX package sums its per-tile partials, so the result is
 //    deterministic: no float atomics.
 //
-// Generic variant (H, C and W at run time; every other shape).
+// Generic variant (H, C and W at run time; every other shape).  Its stage
+// math (gen_mlp, gen_stage_vjp) is in cde_generic.cuh, shared with the
+// reversible kernels.
 //  * One block of GEN_THREADS threads per batch lane (blocks stride over the
 //    lanes); the lane's state and activations sit in shared memory, and the
 //    threads split each matrix-vector product over its output rows.
@@ -69,19 +72,13 @@
 
 #include <stddef.h>
 
+#include "cde_generic.cuh"
 #include "cde_stage.cuh"
 
 namespace {
 
-constexpr int GEN_THREADS = 128; // threads per block of the generic variant
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_SUBSTEPS = 8;
-constexpr size_t MAX_SMEM = 232448;          // dynamic shared memory a block may use
-constexpr size_t MAX_PARTIALS = size_t(1) << 26;  // floats of generic partials
-constexpr int BAD_ARGUMENT = -2;
-constexpr int BAD_VARIANT = -3;
-constexpr int SPECIALISED = 0;
-constexpr int GENERIC = 1;
 
 // An explicit RK tableau whose stage s reads only stage s - 1 (euler,
 // midpoint, heun, rk4): y_s = z + a_dt[s] * k_{s-1}.
@@ -127,20 +124,6 @@ __device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
   }
 #pragma unroll
   for (int h = 0; h < H; ++h) z[h] = znew[h];
-}
-
-template <int H, int C>
-__device__ __forceinline__ void load_slab(const float* __restrict__ ct, int j,
-                                          int B, int lane, bool live,
-                                          float (&sb)[C], float (&sc)[C],
-                                          float (&sd)[C]) {
-  const float* row = ct + (size_t)j * 3 * C * B + lane;
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    sb[i] = live ? row[(size_t)i * B] : 0.f;
-    sc[i] = live ? row[(size_t)(C + i) * B] : 0.f;
-    sd[i] = live ? row[(size_t)(2 * C + i) * B] : 0.f;
-  }
 }
 
 template <int H, int C>
@@ -295,33 +278,7 @@ __global__ void __launch_bounds__(LANES)
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: H, C and W at run time.
-
-struct GenField {
-  const float* w1t;  // (W, H)
-  const float* b1;   // (W)
-  const float* w2t;  // (C*H, W)
-  const float* b2;   // (C*H)
-  int H, C, W;
-};
-
-// One block's weight-gradient sums, in the layout of the partials.
-struct Grads {
-  float* w1;  // [W][H]
-  float* b1;  // [W]
-  float* w2;  // [W][CH]
-  float* b2;  // [CH]
-};
-
-__host__ __device__ inline size_t partial_floats(int H, int C, int W) {
-  return (size_t)W * H + W + (size_t)W * C * H + (size_t)C * H;
-}
-
-__host__ __device__ inline size_t take(size_t& top, size_t count) {
-  const size_t at = top;
-  top += count;
-  return at;
-}
+// Generic variant: H, C and W at run time (shared pieces: cde_generic.cuh).
 
 // Offsets, in floats, of the generic kernels' shared-memory vectors.
 struct GenLayout {
@@ -364,29 +321,8 @@ struct GenVecs {
         lam(base + L.lam), zs(base + L.zs), ys(base + L.ys), v(base + L.v),
         u(base + L.u), dp1(base + L.dp1), dp2(base + L.dp2),
         acc(base + L.acc) {}
+  __device__ GenStage stage() const { return GenStage{h1, g, dx, u, dp1, dp2}; }
 };
-
-// h1 = relu(W1 y + b1), then g = tanh(W2 h1 + b2), each output row to one
-// thread.  Starts after, and ends with, a barrier.
-__device__ void gen_mlp(const GenField& f, const float* y, float* h1,
-                        float* g) {
-  const int H = f.H, W = f.W, CH = f.C * f.H;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const float* r1 = f.w1t + (size_t)w * H;
-    float a = 0.f;
-    for (int h = 0; h < H; ++h) a = fmaf(r1[h], y[h], a);
-    a += f.b1[w];
-    h1[w] = (a < 0.f) ? 0.f : a;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < CH; q += blockDim.x) {
-    const float* r2 = f.w2t + (size_t)q * W;
-    float a = 0.f;
-    for (int w = 0; w < W; ++w) a = fmaf(r2[w], h1[w], a);
-    g[q] = tanhf(a + f.b2[q]);
-  }
-  __syncthreads();
-}
 
 // dX/dt at fraction fr of the interval for channel i (thread i < C).
 __device__ __forceinline__ float gen_dx(const GenVecs& s, int C, int i,
@@ -421,50 +357,6 @@ __device__ void gen_substep(const GenField& f, const GenVecs& s,
   }
   for (int h = tid; h < H; h += nt) z[h] = s.znew[h];
   __syncthreads();
-}
-
-// VJP of one vector-field evaluation k = contract(mlp(y), dx) for the
-// cotangent s.u of k, with dx in s.dx: writes dy and adds the stage's weight
-// gradients to gr.  Returns ddx_i to thread i < C.  Starts after, and ends
-// with, a barrier.
-__device__ float gen_stage_vjp(const GenField& f, const GenVecs& s,
-                               const float* y, float* dy, const Grads& gr) {
-  const int H = f.H, C = f.C, W = f.W, CH = C * H;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  gen_mlp(f, y, s.h1, s.g);
-  for (int q = tid; q < CH; q += nt) {
-    const int i = q / H, h = q - i * H;
-    const float gq = s.g[q];
-    s.dp2[q] = (s.u[h] * s.dx[i]) * (1.f - gq * gq);
-  }
-  float ddx = 0.f;
-  if (tid < C) {
-    for (int h = 0; h < H; ++h) ddx += s.u[h] * s.g[tid * H + h];
-  }
-  __syncthreads();
-  for (int w = tid; w < W; w += nt) {
-    float dh = 0.f;
-    for (int q = 0; q < CH; ++q) dh = fmaf(f.w2t[(size_t)q * W + w], s.dp2[q], dh);
-    s.dp1[w] = s.h1[w] > 0.f ? dh : 0.f;
-  }
-  __syncthreads();
-  for (int h = tid; h < H; h += nt) {
-    float acc = 0.f;
-    for (int w = 0; w < W; ++w) acc = fmaf(f.w1t[(size_t)w * H + h], s.dp1[w], acc);
-    dy[h] = acc;
-  }
-  for (int e = tid; e < W * H; e += nt) {
-    const int w = e / H;
-    gr.w1[e] += s.dp1[w] * y[e - w * H];
-  }
-  for (int e = tid; e < W * CH; e += nt) {
-    const int w = e / CH;
-    gr.w2[e] += s.h1[w] * s.dp2[e - w * CH];
-  }
-  for (int w = tid; w < W; w += nt) gr.b1[w] += s.dp1[w];
-  for (int q = tid; q < CH; q += nt) gr.b2[q] += s.dp2[q];
-  __syncthreads();
-  return ddx;
 }
 
 __global__ void __launch_bounds__(GEN_THREADS)
@@ -548,7 +440,7 @@ __global__ void __launch_bounds__(GEN_THREADS)
           const float fr = stage_fraction(tab, step, st, dt);
           if (tid < C) s.dx[tid] = gen_dx(s, C, tid, fr);
           __syncthreads();
-          const float ddx = gen_stage_vjp(f, s, s.ys + st * H, s.v + st * H, gr);
+          const float ddx = gen_stage_vjp(f, s.stage(), s.ys + st * H, s.v + st * H, gr);
           acc_b += ddx;
           acc_c += fr * ddx;
           acc_d += (fr * fr) * ddx;
@@ -598,13 +490,6 @@ int make_tableau(int n_stages, const double* alpha, const double* a,
   return 0;
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <int H, int C>
 int launch_fwd(const float* ct, const float* z0t, const float* w1t,
                const float* b1, const float* w2t, const float* b2,
@@ -648,11 +533,6 @@ int launch_gen_fwd(const float* ct, const float* z0t, const GenField& f,
   gen_fwd_kernel<<<B, GEN_THREADS, smem, stream>>>(ct, z0t, f, slot, out, zres,
                                                    B, n, m, dt, tab);
   return (int)cudaGetLastError();
-}
-
-int gen_backward_blocks(int B, int H, int C, int W) {
-  const size_t cap = MAX_PARTIALS / partial_floats(H, C, W);
-  return (int)(cap < 1 ? 1 : (cap < (size_t)B ? cap : (size_t)B));
 }
 
 int launch_gen_bwd(const float* ct, const float* zres, const float* z0t,

@@ -1,8 +1,9 @@
 """cdeint: the solver front-end.
 
 Port of ``torchcde_tpu/solvers/cdeint.py::cdeint`` for dopri5 (adaptive, or
-at a fixed step_size) and euler, midpoint, heun and rk4, with direct
-backpropagation or the backsolve adjoint:
+at a fixed step_size), euler, midpoint, heun and rk4, with direct
+backpropagation or the backsolve adjoint, and for reversible Heun with its
+exact adjoint (the torchsde backend's method):
 
     cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs)
 
@@ -20,10 +21,12 @@ import torch
 from .adjoint import closure_params, odeint_adjoint
 from .fused_dopri import try_fused_dopri5
 from .fused_fixed import try_fused_fixed
+from .fused_reversible_kernel import try_fused_reversible_heun
 from .integrate import SolverConfig, host_times, odeint
+from .reversible_adjoint import reversible_heun_solve
 from .terms import make_cde_rhs
 
-_FIXED_METHODS = ("euler", "midpoint", "heun", "rk4")
+_FIXED_METHODS = ("euler", "midpoint", "heun", "rk4", "reversible_heun")
 
 
 def _not_ported(what, item):
@@ -150,9 +153,10 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
         func: callable f(t, z) -> (..., hidden_channels, input_channels), or an
             object with a ``prod(t, z, dXdt) -> (..., hidden_channels)``
             method.  An ``MLPVectorField`` over a uniform ``CubicSpline`` lets
-            dopri5 and knot-aligned fixed-step solves run as fused kernels;
-            over a uniform ``LinearInterpolation``, dopri5 runs the adaptive
-            kernel's linear-control mode.
+            dopri5 and knot-aligned fixed-step solves (reversible Heun
+            among them) run as fused kernels; over a uniform
+            ``LinearInterpolation``, dopri5 runs the adaptive kernel's
+            linear-control mode.
         z0: initial state (..., hidden_channels).
         t: 1-D output times (strictly increasing); a NumPy array such as
             ``X.interval`` keeps the step plan on the host.
@@ -163,13 +167,20 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
             memory contract.  The backsolve gives gradients to z0, to
             ``func.parameters()`` (for an ``nn.Module`` field), to the
             control's coefficient tensors and to ``t`` when it is a tensor
-            that requires grad.
-        backend: "native", or the alias "torchdiffeq".
-        **kwargs: method (dopri5, euler, midpoint, heun, rk4), rtol, atol,
-            step_size or options={'step_size': ...}, dt (alias for
-            step_size), max_steps, return_stats (adjoint=False only: returns
-            ``(out, stats)``), adjoint_rtol/atol/method/options/params/
-            max_steps.
+            that requires grad.  ``method="reversible_heun"`` takes its exact
+            adjoint instead (``solvers/reversible_adjoint.py``: the inverse
+            map rebuilds the steps, so the gradients are those of direct
+            backpropagation), with ``step_size`` defaulting to the largest
+            output interval; the adjoint_method/rtol/atol/options are not
+            consulted there.
+        backend: "native", the alias "torchdiffeq", or "torchsde", whose
+            default method is "midpoint" and whose "milstein" and
+            "euler_heun" are "euler" (the diffusion of a CDE is zero).
+        **kwargs: method (dopri5, euler, midpoint, heun, rk4,
+            reversible_heun), rtol, atol, step_size or options={'step_size':
+            ...}, dt (alias for step_size), max_steps, return_stats
+            (adjoint=False only: returns ``(out, stats)``), adjoint_rtol/atol/
+            method/options/params/max_steps.
 
     Returns:
         z at each t[i]: shape (..., len(t), hidden_channels).
@@ -195,14 +206,15 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
         warnings.warn(f"Ignoring unsupported solver options: {sorted(options)}")
 
     if backend == "torchsde":
-        raise _not_ported("backend='torchsde'", "Reversible Heun")
-    if backend not in ("native", "torchdiffeq"):
+        method = kwargs.pop("method", "midpoint")
+        # With no diffusion, milstein's and euler_heun's steps are Euler's.
+        method = {"milstein": "euler", "euler_heun": "euler"}.get(method, method)
+    elif backend in ("native", "torchdiffeq"):
+        method = kwargs.pop("method", None) or "dopri5"
+    else:
         raise ValueError(f"Unrecognised backend={backend}")
-    method = kwargs.pop("method", None) or "dopri5"
     if method == "scipy_solver":
         raise _not_ported("method='scipy_solver'", "Rest of the solver surface")
-    if method == "reversible_heun":
-        raise _not_ported("method='reversible_heun'", "Reversible Heun")
     if method not in _FIXED_METHODS + ("dopri5",):
         raise _not_ported(f"method={method!r}", "Rest of the solver surface")
 
@@ -243,6 +255,18 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
             "collected on the direct path)."
         )
 
+    if adjoint and method == "reversible_heun":
+        # The algebraically reversible stepper takes its exact O(1)-memory
+        # adjoint, fused into the K8 kernel pair where the solve is
+        # knot-aligned over an MLP field.
+        if step_size is None:
+            step_size = float(np.max(np.diff(host_times(t, torch.float64))))
+        out = try_fused_reversible_heun(X, func, z0, t, step_size)
+        if out is None:
+            params = closure_params(func, X, t[0], z0, adjoint_params)
+            out = reversible_heun_solve(make_cde_rhs(func, X), params, z0, t, step_size)
+        return torch.movedim(out, 0, -2)
+
     adaptive_fused = method == "dopri5" and step_size is None
     out, stats = None, None
     if (adjoint and adjoint_params is None and adjoint_method == method
@@ -269,7 +293,12 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
         out = odeint_adjoint(make_cde_rhs(func, X), params, z0, t, cfg, adjoint_cfg)
     elif out is None:
         if not return_stats:
-            if adaptive_fused:
+            if method == "reversible_heun":
+                # The K8 backward's inverse-map walk gives the gradients of
+                # direct backpropagation through the steps.
+                if step_size is not None:
+                    out = try_fused_reversible_heun(X, func, z0, t, step_size)
+            elif adaptive_fused:
                 out = try_fused_dopri5(X, func, z0, t, cfg)
             else:
                 out = try_fused_fixed(X, func, z0, t, method, step_size)

@@ -1,10 +1,10 @@
 """The ODE integration driver.
 
 Port of ``torchcde_tpu/solvers/integrate.py``: ``SolverConfig``, the fixed-step
-branch (stateless RK methods, and dopri5 with an explicit ``step_size``) and
-the adaptive dense-output branch with its PI controller, initial-step
-heuristic, quartic dense output and loud NaN poisoning when the step budget
-runs out.
+branch (stateless RK methods, and the steppers with a state: dopri5 with an
+explicit ``step_size``, reversible Heun) and the adaptive dense-output branch
+with its PI controller, initial-step heuristic, quartic dense output and loud
+NaN poisoning when the step budget runs out.
 
 The JAX loops become Python loops on host scalars.  Times and step sizes are
 NumPy scalars in the state's precision, so they round as the JAX integrator's
@@ -246,7 +246,7 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
     stepper = STEPPERS[cfg.method]
     state = stepper.init(rhs, ts[0], z0)
     init_nfe = stepper.init_nfe
-    if cfg.step_size is None:
+    if stepper.adaptive and cfg.step_size is None:
         dt0 = sc(select_initial_step(rhs, ts[0], z0, stepper.order, cfg.rtol, cfg.atol,
                                      state).item())
         init_nfe += 2  # the initial-step heuristic
@@ -254,15 +254,18 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
         out, (attempted, accepted) = _integrate_adaptive_dense(
             rhs, z0, ts, dt0, state, cfg, stepper, max_steps)
     else:
-        # dopri5 at fixed steps of step_size (last step of each interval
-        # clamped), carrying the first-same-as-last stage.
+        # Fixed steps of step_size (last step of each interval clamped),
+        # carrying the stepper's state (dopri5's first-same-as-last stage,
+        # reversible Heun's companion) across output times.  With no
+        # step_size, one step per output interval.
         n_static = min(_static_fixed_steps(ts, cfg.step_size),
                        cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
         outs, z, attempted = [z0], z0, 0
         for t0, t1 in zip(ts[:-1], ts[1:]):
             t, n = t0, 0
+            step_size = sc(cfg.step_size if cfg.step_size is not None else t1 - t0)
             while t < t1 and n < n_static:
-                dt = min(sc(cfg.step_size), t1 - t)
+                dt = min(step_size, t1 - t)
                 z, _err, state = stepper.step(rhs, t, z, dt, state)
                 t, n = t + dt, n + 1
             attempted += n

@@ -1,10 +1,11 @@
 """Explicit Runge–Kutta steps.
 
 Port of ``torchcde_tpu/solvers/runge_kutta.py`` for euler, midpoint, heun and
-rk4 (``TABLEAUS``, ``rk_step``) and for dopri5 with its error estimate, its
+rk4 (``TABLEAUS``, ``rk_step``), for dopri5 with its error estimate, its
 4th-order dense-output midpoint and the first-same-as-last stepper
-(``DOPRI5``, ``STEPPERS``).  State is a tensor.  The other adaptive, multistep
-and reversible methods are ROADMAP queue 1 items 8 and 11.
+(``DOPRI5``), and for the algebraically reversible Heun method, whose
+stepper carries its companion state (``STEPPERS``).  State is a tensor.  The
+other adaptive and multistep methods are ROADMAP queue 1 item 11.
 
 ``TABLEAUS`` holds only the methods whose stage s reads only stage s - 1:
 the fused fixed-step kernel admits every method in it.  dopri5 reads all its
@@ -105,11 +106,14 @@ DOPRI5_BMID = _solve_dense_midpoint(DOPRI5)
 
 class Stepper(NamedTuple):
     init: Callable  # (rhs, t0, z0) -> state
-    step: Callable  # (rhs, t, z, dt, state) -> (z1, err, state1)
+    step: Callable  # (rhs, t, z, dt, state) -> (z1, err or None, state1)
     order: int
+    # Adaptive steppers take the controller when no step_size is given;
+    # the others take fixed steps (integrate.py).
+    adaptive: bool
     # (rhs, t, z, dt, state) -> (z1, err, state1, (f0, f1, y_mid)): the triple
-    # feeds the quartic dense output (integrate.py).
-    step_dense: Callable
+    # feeds the quartic dense output (integrate.py); None for fixed steps.
+    step_dense: Optional[Callable]
     nfe_per_step: int
     init_nfe: int
 
@@ -143,8 +147,28 @@ def _make_dopri5_fsal() -> Stepper:
         y_mid = z + float(dt) * _weighted_sum(DOPRI5_BMID, ks)
         return z1, err, ks[-1], (ks[0], ks[-1], y_mid)
 
-    return Stepper(init=init, step=step, order=tab.order, step_dense=step_dense,
-                   nfe_per_step=6, init_nfe=1)
+    return Stepper(init=init, step=step, order=tab.order, adaptive=True,
+                   step_dense=step_dense, nfe_per_step=6, init_nfe=1)
 
 
-STEPPERS = {"dopri5": _make_dopri5_fsal()}
+def _make_reversible_heun() -> Stepper:
+    """Algebraically reversible Heun (Kidger et al. 2021, the torchsde
+    capability).  The state is the companion (ŷ, f(t, ŷ)); one evaluation per
+    step; second order.  The update is exactly invertible, which
+    ``reversible_adjoint.py`` uses to rebuild the trajectory backwards."""
+
+    def init(rhs, t0, z0):
+        return (z0, rhs(t0, z0))
+
+    def step(rhs, t, z, dt, state):
+        yhat, fhat = state
+        yhat1 = (2.0 * z - yhat) + float(dt) * fhat
+        fhat1 = rhs(t + dt, yhat1)
+        z1 = z + float(0.5 * dt) * (fhat + fhat1)
+        return z1, None, (yhat1, fhat1)  # no error estimate: never adaptive
+
+    return Stepper(init=init, step=step, order=2, adaptive=False, step_dense=None,
+                   nfe_per_step=1, init_nfe=1)
+
+
+STEPPERS = {"dopri5": _make_dopri5_fsal(), "reversible_heun": _make_reversible_heun()}
