@@ -72,7 +72,24 @@ Phases, each of which raises on failure:
    to raise, K8 launches asserted (6 forward, 5 backward per mode);
 20. timing of K8 (both variants) against its plain version and of the
    config-5 train step of each mode against the same step with the plain
-   version; 21. a torch.profiler reading of each mode's train step.
+   version; 21. a torch.profiler reading of each mode's train step;
+22. K9 forward and backward: the per-sample adaptive kernels against their
+   plain version per realised per-lane mesh (forward against the float64
+   replay, accuracy against a tight float64 solve, backward after the lane
+   screen) on the per-sample slice's first launch in each variant and on
+   seven odd cases (linear with lead over three chunks,
+   batched rows, 64 output rows, an exhausted max_steps, H 4 C 3 W 8, C 16
+   linear, a batch that is not a multiple of 32);
+23. per-sample slice: benchmarks/run_benchmarks.py's bench_per_sample at its
+   TPU shapes (256 series of length 1024, hidden 8, width 32, dopri5) through
+   cdeint(..., options={'per_sample': True}) with every plain version
+   patched to raise: the forward (its first 16 series against a float64
+   solve), five Adam steps on z0 and the field under each adjoint mode, and
+   a solve with batched output times and its gradient, K9 launches asserted
+   (8 per solve, 8 per gradient);
+24. timing of K9 over the slice's launches against its plain version, and of
+   the slice's solve and gradient against the same with the plain version;
+   25. a torch.profiler reading of the slice's gradient.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -133,6 +150,11 @@ BWD_RTOL = 1e-5
 # largest magnitude, may not exceed twice the plain solve's.
 EXACT_TOL = 1e-2
 EXACT_CAP = 16384
+# The per-sample slice's small input (batch, length, hidden, channels, width):
+# at rtol 1e-4 the slice's own global error reaches a few percent of the
+# largest magnitude over 1023 intervals, and a float64 solve tight enough to
+# hold it against needs more steps than a chunk stores.
+PS_CHECK = (16, 33, 8, 3, 32)
 SOURCE = "torchcde_tpu_torch/csrc/fused_fixed.cu"
 # Odd K1 cases: (batch, intervals, hidden, channels, width, method, substeps,
 # output knots).  Shapes up to the JAX kernel's caps (C * H <= 512,
@@ -181,11 +203,13 @@ def phase_device():
 def phase_build():
     from torchcde_tpu_torch import _build
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
     path, seconds, log = _build.build()
     k1._library()
     k2._library()
+    k9._library()
     for module in fit_kernel_modules().values():
         module._library()
     ptxas = [line.strip() for line in log.splitlines()
@@ -299,7 +323,8 @@ def check_k1(label, operands, plan):
 def screened_backward(kernel, label, gradients, gz, relu_evals):
     """A backward kernel's six gradients (ct, z0, w1, b1, w2, b2) against
     autograd through its plain version in float64; ``gradients(gz)`` returns
-    the kernel's and the plain version's in float64 and float32.  Lanes
+    the kernel's and the plain version's in float64 and float32 (or None,
+    not printed).  Lanes
     where rounding crossed a ReLU kink differ by a whole term (see
     BWD_RTOL); they are found by their own gradients (dct, dz0), and the
     comparison is repeated with their cotangent set to zero.  Returns the
@@ -320,12 +345,16 @@ def screened_backward(kernel, label, gradients, gz, relu_evals):
     grads, ref_grads, ref32_grads = gradients(gz)
 
     bwd_err = 0.0
-    for name, g, r, r32 in zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads, ref_grads, ref32_grads):
+    for i, (name, g, r) in enumerate(zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads, ref_grads)):
         err, scale = _err(g.double(), r)
-        rel, rel32 = _rel_l2(g, r), _rel_l2(r32, r)
+        rel = _rel_l2(g, r)
+        plain = ""
+        if ref32_grads is not None:
+            r32 = ref32_grads[i]
+            plain = (f"; plain float32 rel_l2 {_rel_l2(r32, r):.3e} max_abs_err "
+                     f"{_err(r32.double(), r)[0]:.3e}")
         print(f"{kernel}-bwd {label} d{name}: rel_l2 {rel:.3e} max_abs_err {err:.3e} "
-              f"(largest |value| {scale:.3e}; plain float32 rel_l2 {rel32:.3e} "
-              f"max_abs_err {_err(r32.double(), r)[0]:.3e})")
+              f"(largest |value| {scale:.3e}{plain})")
         if not torch.isfinite(g).all() or rel > BWD_RTOL:
             failures.append(f"{kernel} backward d{name} ({label})")
         bwd_err = max(bwd_err, err)
@@ -826,6 +855,7 @@ def plain_versions_raise():
     from torchcde_tpu_torch.interpolation import cubic
     from torchcde_tpu_torch.ops import fill, tridiagonal
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
     from torchcde_tpu_torch.solvers import reversible_adjoint, runge_kutta
@@ -838,7 +868,8 @@ def plain_versions_raise():
                (cubic, "_masked_thomas_observed"), (mods["K5"], "_masked_thomas_observed"),
                (cubic, "_masked_fit_plain"), (mods["K6/K7"], "_masked_fit_plain"),
                (k1, "fused_fixed_solve_reference"), (k2, "fused_dopri5_solve_reference"),
-               (k2, "fused_dopri5_replay"), (k8, "fused_reversible_solve_reference"),
+               (k2, "fused_dopri5_replay"), (k9, "fused_dopri5_per_sample_reference"),
+               (k9, "fused_dopri5_per_sample_replay"), (k8, "fused_reversible_solve_reference"),
                (k8, "fused_reversible_backward_reference"),
                (reversible_adjoint, "reversible_heun_solve"),
                (cdeint_module, "reversible_heun_solve")]
@@ -1615,6 +1646,484 @@ def time_k8(device):
     return timing
 
 
+# --------------------------------------------------------------------------
+# Per-sample adaptive stepping (options={'per_sample': True}): K9.
+# --------------------------------------------------------------------------
+
+K9_SOURCE = "torchcde_tpu_torch/csrc/fused_dopri_persample.cu"
+K9_KINDS = {"k9_fwd": r"\bps_fwd_kernel\b", "k9_bwd": r"\bps_bwd_kernel\b"}
+# benchmarks/run_benchmarks.py:652-772, bench_per_sample, at its TPU shapes:
+# 256 series of length 1024 with 3 channels, x = N(0, 1) * 0.06 * 10^s with s
+# spread over -0.5..0.5 across the series (numpy rng seed 0), Hermite
+# coefficients, an MLPVectorField of hidden 8 and width 32 whose weights are
+# N(0, 1) * 0.2 from the same rng, z0 standard normal, dopri5 at rtol 1e-4 and
+# atol 1e-6 over X.interval: 1023 intervals, eight chunks.
+PS_BATCH, PS_LENGTH, PS_HIDDEN, PS_WIDTH, PS_STEPS = 256, 1024, 8, 32, 5
+# Batched output times: five per series over [0, t_end], t_end spread from
+# 511 to 1023 (examples/irregular_data.py's variable-length use).
+PS_ENDS = (511.0, 1023.0)
+# Odd K9 cases: (label, batch, length, hidden, channels, width, control,
+# output times, solver options, intervals per chunk).  Every launch of each
+# case is held against the plain version on its own realised per-lane mesh;
+# the short chunks make three chunks of a short table (the plain version's
+# lockstep replay costs a pass of small launches per step of the longest
+# lane, so the cases are kept short).
+K9_CASES = [
+    ("linear lead, 3 chunks", 64, 13, 8, 3, 32, "linear", "knots", {}, 4),
+    ("batched rows", 96, 13, 8, 3, 32, "cubic", "rows", {}, 128),
+    ("64 output rows", 64, 5, 8, 3, 32, "cubic", "sixty-four", {}, 128),
+    ("exhausted max_steps, 3 chunks", 64, 13, 8, 3, 32, "cubic", "five", dict(max_steps=20), 4),
+    ("H4 C3 W8", 70, 13, 4, 3, 8, "cubic", "five", {}, 128),
+    ("C16 linear", 50, 7, 8, 16, 32, "linear", "five", {}, 128),
+    ("odd batch B77", 77, 13, 8, 3, 32, "cubic", "five", {}, 128),
+]
+# The slice's launches held against the plain version, as (launch, generic,
+# accuracy, backward): forward and backward against the replay of the
+# kernel's own meshes on the first chunk in each variant; on the last chunk
+# (the state and controller rows carried in from seven chunks) the forward,
+# and its accuracy against a float64 solve beside the plain float32 solve's.
+K9_SLICE_CHECKS = ((0, False, False, True), (-1, False, True, False), (0, True, False, True))
+# A lane whose poison flag differs between the kernel and the plain float32
+# solve (their meshes part) must be at the edge of its attempt limit: within
+# this many attempts of it, or this share of the chunk's allowance if
+# larger, in the plain float64 solve (one ulp on z0 moves a lane of the
+# exhausted-budget case by 4 attempts in the plain float32 solve).
+K9_EDGE_STEPS, K9_EDGE_SHARE = 4, 0.25
+
+
+def per_sample_problem(device, shape=None, interpolation="cubic", seed=0):
+    """(control, vector field, z0) of bench_per_sample's problem at shape
+    (batch, length, hidden, channels, width), by default the slice's."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers.terms import MLPVectorField
+
+    batch, length, hidden, channels, width = shape or (PS_BATCH, PS_LENGTH, PS_HIDDEN, 3,
+                                                       PS_WIDTH)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, length, channels)).astype(np.float32) * 0.06
+    x *= (10.0 ** np.linspace(-0.5, 0.5, batch))[:, None, None].astype(np.float32)
+    w1, b1, w2, b2 = (rng.standard_normal(shape) * 0.2 for shape in (
+        (hidden, width), (width,), (width, hidden * channels), (hidden * channels,)))
+    z0 = rng.standard_normal((batch, hidden)).astype(np.float32)
+    field = MLPVectorField(hidden, channels, width, device=device)
+    with torch.no_grad():
+        for layer, w, b in ((field.linear1, w1, b1), (field.linear2, w2, b2)):
+            layer.weight.copy_(torch.tensor(w.T, dtype=torch.float32))
+            layer.bias.copy_(torch.tensor(b, dtype=torch.float32))
+    xt = torch.from_numpy(x).to(device)
+    if interpolation == "linear":
+        X = tt.LinearInterpolation(tt.linear_interpolation_coeffs(xt))
+    else:
+        X = tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(xt))
+    return X, field, torch.from_numpy(z0).to(device)
+
+
+def per_sample_times(which, batch, n, seed=0):
+    """A K9 case's output times: (t, t_rows) for shared times or per-series rows."""
+    if which == "rows" or which == "slice rows":
+        lo, hi = PS_ENDS if which == "slice rows" else (n / 2, float(n))
+        ends = np.random.default_rng(seed).uniform(lo, hi, batch)
+        ends[np.argmax(ends)] = hi
+        return None, np.stack([np.linspace(0.0, e, 5) for e in ends]).astype(np.float32)
+    if which == "sixty-four":
+        return np.linspace(0.0, float(n), 64), None
+    if which == "knots":  # on the chunk-boundary knots of 4-interval chunks
+        return np.array([0.0, 2.5, 4.0, 8.0, float(n)]), None
+    return np.linspace(0.0, float(n), 5), None
+
+
+def recorded_k9_launches(X, field, z0, ts, t_rows, options):
+    """The arguments of every K9 forward launch of one fused per-sample solve."""
+    from torchcde_tpu_torch.solvers import fused_dopri_persample as fdps
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+
+    calls = []
+    launch = k9.launch_forward
+
+    def record(*args):
+        calls.append(args)
+        return launch(*args)
+
+    with mock.patch.object(k9, "launch_forward", record), torch.no_grad():
+        if fdps.try_fused_dopri5_per_sample(
+                X, field, z0, ts, rtol=options.get("rtol", 1e-4), atol=options.get("atol", 1e-6),
+                max_steps=options.get("max_steps"),
+                t_rows=None if t_rows is None else torch.from_numpy(t_rows)) is None:
+            raise AssertionError("the fused per-sample solve declined")
+    return calls
+
+
+def _k9_gradients(ops, plan, store, mesh, g, dzin):
+    """K9's backward gradients and autograd's through the float64 replay of
+    the kernel's meshes; g stacks the cotangents of the output rows and of
+    the state.  Returns the six (dct, dz0, dw1, db1, dw2, db2) of each, and
+    None for the float32 replay, which is not run; appends the kernel's and
+    the replay's dzout_in to dzin."""
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+
+    gz, gzfin = g[:-1].contiguous(), g[-1].contiguous()
+    *grads, dzin_k = k9.launch_backward(ops[0], store, ops[7], gz, gzfin, *ops[2:6], plan)
+    leaves = [t.detach().double().requires_grad_() for t in (*ops[:6], ops[9])]
+    outs = k9.fused_dopri5_per_sample_replay(*leaves[:6], ops[6].double(), ops[7].double(),
+                                             leaves[6], mesh, plan)
+    ref = torch.autograd.grad(outs, leaves, (gz.double(), gzfin.double()), allow_unused=True)
+    torch.cuda.synchronize()
+    dzin.append((dzin_k, ref[6]))
+    return grads, ref[:6], None
+
+
+def check_k9_launch(label, args, generic=False, accuracy=True, backward=True):
+    """One K9 launch against the plain version: the forward against the
+    float64 replay of the kernel's own per-lane meshes, the kernel's and the
+    plain float32 solve's accuracy against a float64 solve at EXACT_TOL x the
+    tolerances, and the backward against autograd through the replay (with
+    the ReLU-kink lane screen; not with backward false).  Returns (forward
+    error, backward error (0 without the backward),
+    (kernel, plain) accuracy, steps attempted, failures)."""
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+
+    *ops, plan = args
+    plan = plan._replace(generic=generic)
+    # A lane that entered poisoned carries NaN; it only idles, and zeros keep
+    # the plain version's replay (whose masked lanes still multiply their
+    # state into the weight gradients) finite.
+    ops[1], ops[9] = torch.nan_to_num(ops[1]), torch.nan_to_num(ops[9])
+    H, (n, _, C, B), W = ops[1].shape[0], ops[0].shape, ops[2].shape[0]
+    label = f"{label} [{k9.kernel_variant(H, C, W, plan)}]"
+    zout, zfin, ctlout, nacc, natt, store = k9.launch_forward(*ops, plan)
+    mesh = k9.read_mesh(store, ctlout)
+    ops64 = [t.double() for t in ops]
+    with torch.no_grad():
+        ref = k9.fused_dopri5_per_sample_replay(*ops64[:8], ops64[9], mesh, plan)
+        if accuracy:
+            p_out, p_fin, p_ctl, _, p_natt, _ = k9.fused_dopri5_per_sample_reference(*ops, plan)
+            tight = plan._replace(rtol=plan.rtol * EXACT_TOL, atol=plan.atol * EXACT_TOL,
+                                  cap=EXACT_CAP, budget=float(1 << 30))
+            # On the host's CPU, where the plain version's lockstep loop runs
+            # several times faster than its small launches on the card.
+            e_out, e_fin = (t.to(zout.device) for t in k9.fused_dopri5_per_sample_reference(
+                *(t.cpu() for t in ops64), tight)[:2])
+        else:  # the replay stands in: both errors read 0
+            p_out, p_fin, p_ctl, p_natt, e_out, e_fin = zout, zfin, ctlout, natt, zout, zfin
+    flat = [torch.cat([o.flatten(), f.flatten()]) for o, f in
+            ((zout, zfin), ref, (p_out, p_fin), (e_out, e_fin))]
+    got, ref, plain, exact = flat[0].double(), flat[1], flat[2].double(), flat[3].double()
+    bad = ctlout[3] > 0.5
+    attempted = float((natt - ops[6][2]).sum())
+    failures = []
+    # A lane is poisoned iff it entered poisoned or its own accepted steps
+    # stop short of its target, and then only with no attempt left: the
+    # budget spent or the chunk's cap reached.
+    ctl_in = ops[6].cpu().numpy()
+    entered = ctl_in[3] > 0.5
+    t1 = np.minimum(ops[8].cpu().numpy(), np.float32(plan.t_chunk_end))
+    last = np.maximum(mesh.cnt - 1, 0), np.arange(B)
+    end = np.where(mesh.cnt > 0, mesh.t[last] + mesh.dt[last], ctl_in[0])
+    short = (end < t1) | entered
+    bad_np = bad.cpu().numpy()
+    if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not np.array_equal(bad_np, short):
+        failures.append(f"K9 poisons other lanes than its own steps say ({label})")
+    limit = np.minimum(np.float32(plan.budget), ctl_in[2] + plan.cap)
+    k_att, p_att = natt.cpu().numpy(), p_natt.cpu().numpy()
+    # No attempt past the limit, and a lane that ran out used every one.
+    ran_out = bad_np & ~entered
+    if (k_att > limit).any() or (k_att[ran_out] != limit[ran_out]).any():
+        failures.append(f"K9 counts attempts against their limit otherwise ({label})")
+    # The plain float32 solve's mesh is another, so a lane whose need is at
+    # the edge of its limit may end otherwise there.  Such a lane must be at
+    # the edge in a third mesh too: the plain float64 solve at the same
+    # tolerances poisons it or ends it within K9_EDGE of the limit.
+    differ = np.nonzero(bad_np != (p_ctl[3].cpu().numpy() > 0.5))[0]
+    if differ.size:
+        with torch.no_grad():
+            _, _, d_ctl, _, d_natt, _ = k9.fused_dopri5_per_sample_reference(
+                *(t.cpu() for t in ops64), plan)
+        d_att, d_bad = d_natt.cpu().numpy(), d_ctl[3].cpu().numpy() > 0.5
+        edge = np.maximum(K9_EDGE_STEPS, K9_EDGE_SHARE * (limit - ctl_in[2]))
+        inner = differ[~d_bad[differ] & (limit[differ] - d_att[differ] > edge[differ])]
+        print(f"K9-fwd {label}: poison differs from the plain float32 solve on lanes "
+              f"{differ.tolist()}: attempts kernel {k_att[differ].tolist()}, plain float32 "
+              f"{p_att[differ].tolist()}, plain float64 {d_att[differ].tolist()} (poisoned "
+              f"{d_bad[differ].astype(int).tolist()}), limit {limit[differ].tolist()}", flush=True)
+        if inner.size:
+            failures.append(f"K9 and the plain float32 solve poison lanes {inner.tolist()} "
+                            f"away from the edge of their attempt limit ({label})")
+    finite = torch.isfinite(ref)
+    fwd_err, scale = _err(got[finite], ref[finite]) if finite.any() else (0.0, 0.0)
+    good = finite & torch.isfinite(plain) & torch.isfinite(exact)
+    kernel_err = float((got - exact)[good].abs().max()) if good.any() else 0.0
+    plain_err = float((plain - exact)[good].abs().max()) if good.any() else 0.0
+    unit = plan.rtol * max(scale, 1.0)
+    limit = 10 * plain_err + unit
+    print(f"K9-fwd {label}: max_abs_err {fwd_err:.3e} (largest |value| {scale:.3e}); "
+          f"{int(bad.sum())} lanes poisoned (plain float32 {int((p_ctl[3] > 0.5).sum())}); "
+          f"steps accepted {int(nacc.sum())} / attempted {attempted:.0f} (longest lane "
+          f"{int(mesh.cnt.max())} accepted); error against "
+          f"float64 at {EXACT_TOL:g} x tolerances: kernel {kernel_err:.3e}, plain float32 "
+          f"{plain_err:.3e} (limit {limit:.3e})", flush=True)
+    if fwd_err > FWD_RTOL * max(scale, 1.0):
+        failures.append(f"K9 forward ({label})")
+    if not kernel_err <= limit:
+        failures.append(f"K9 forward less accurate than the plain float32 solve ({label})")
+
+    if not backward:
+        return fwd_err, 0.0, (kernel_err / unit, plain_err / unit), attempted, failures
+    gen = torch.Generator(device=got.device).manual_seed(3)
+    g = torch.randn((zout.shape[0] + 1,) + tuple(zfin.shape), generator=gen, device=got.device)
+    g[..., bad] = 0.0  # a poisoned lane's outputs are NaN
+    relu_evals = int(mesh.cnt.sum()) * 7 * W
+    dzin = []
+    bwd_err, bwd_failures = screened_backward(
+        "K9", label, lambda gz: _k9_gradients(ops, plan, store, mesh, gz, dzin), g, relu_evals)
+    dzin, dzin_ref = dzin[-1]
+    dzin_err = float((dzin.double() - dzin_ref).abs().max()) if dzin.numel() else 0.0
+    if dzin_err > 0.0:
+        failures.append(f"K9 backward dzout_in ({label}): {dzin_err:.3e}")
+    return fwd_err, bwd_err, (kernel_err / unit, plain_err / unit), attempted, (
+        failures + bwd_failures)
+
+
+def check_k9(device):
+    """Phase 22: K9 against its plain version on the slice's launches of
+    K9_SLICE_CHECKS and on every launch of the odd cases."""
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+
+    X, field, z0 = per_sample_problem(device)
+    calls = recorded_k9_launches(X, field, z0, X.interval, None, {})
+    print(f"K9 slice: B{PS_BATCH} n{PS_LENGTH - 1} H{PS_HIDDEN} C3 W{PS_WIDTH}, "
+          f"{len(calls)} launches", flush=True)
+    errors = []
+    for i, generic, accuracy, backward in K9_SLICE_CHECKS:
+        errors.append(check_k9_launch(f"slice #{i % len(calls)}", calls[i], generic, accuracy,
+                                      backward))
+        print(f"K9 slice #{i % len(calls)} checked at {time.perf_counter() - START:.1f} s",
+              flush=True)
+    for seed, (label, B, L, H, C, W, kind, which, options, chunk) in enumerate(K9_CASES,
+                                                                               start=1):
+        X, field, z0 = per_sample_problem(device, (B, L, H, C, W), kind, seed)
+        ts, rows = per_sample_times(which, B, L - 1, seed)
+        with mock.patch.object(k9, "MAX_INTERVALS", chunk):
+            calls = recorded_k9_launches(X, field, z0, ts, rows, options)
+        print(f"K9 {label}: B{B} n{L - 1} H{H} C{C} W{W} {kind}, {len(calls)} launches "
+              f"(at {time.perf_counter() - START:.1f} s)", flush=True)
+        errors += [check_k9_launch(f"{label} #{i}", args) for i, args in enumerate(calls)]
+    kernel_sum, plain_sum = (sum(e[2][i] for e in errors) for i in (0, 1))
+    print(f"K9 accuracy over all launches, in units of rtol x largest magnitude: kernel "
+          f"{kernel_sum:.3f}, plain float32 {plain_sum:.3f} (limit {2 * plain_sum + 1:.3f})")
+    failures = [f for e in errors for f in e[4]]
+    if not kernel_sum <= 2 * plain_sum + 1:
+        failures.append("K9 forward less accurate than the plain float32 solve over all launches")
+    if failures:
+        raise AssertionError("K9 disagrees with the plain version: " + "; ".join(failures))
+    return max(e[0] for e in errors), max(e[1] for e in errors)
+
+
+def per_sample_loss(X, field, adjoint, t=None):
+    """sum(z_T^2) of the per-sample solve, as tests/test_per_sample.py's
+    gradient test takes it."""
+    import torchcde_tpu_torch as tt
+
+    def loss(z0):
+        out = tt.cdeint(X, field, z0, X.interval if t is None else t, adjoint=adjoint,
+                        method="dopri5", options=dict(per_sample=True))
+        return (out[..., -1, :] ** 2).sum()
+
+    return loss
+
+
+def per_sample_slice(device):
+    """Phase 23: the slice through the public cdeint with every plain version
+    patched to raise: the forward, five Adam steps on z0 and the field's
+    weights under each adjoint mode, and a solve with batched output times
+    and its gradient, each with its K9 launches counted."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+
+    X, field, z0 = per_sample_problem(device)
+    n_chunks = math.ceil((PS_LENGTH - 1) / k9.MAX_INTERVALS)
+    results, failures = {}, []
+
+    def counted(label, fn, expected):
+        k9.reset_launch_counts()
+        with plain_versions_raise():
+            value = fn()
+            torch.cuda.synchronize()
+        counts = {"fwd": k9.FWD_LAUNCHES, "bwd": k9.BWD_LAUNCHES}
+        results[label] = {"k9_launches": counts}
+        if counts != expected:
+            failures.append(f"{label}: K9 launches {counts}, expected {expected}")
+        return value
+
+    with torch.no_grad():
+        out = counted("forward", lambda: tt.cdeint(X, field, z0, X.interval, adjoint=False,
+                                                   options=dict(per_sample=True)),
+                      {"fwd": n_chunks, "bwd": 0})
+    # A small input: the slice's problem cut to PS_CHECK shapes, through the
+    # kernels and through the plain version in float32, each held against a
+    # float64 solve by the plain version at EXACT_TOL x the tolerances.
+    small, small_field, small_z0 = per_sample_problem(device, PS_CHECK)
+    small64, field64 = copy.copy(small), copy.deepcopy(small_field).double()
+    for name in ("_a", "_b", "_two_c", "_three_d"):
+        setattr(small64, name, getattr(small, name).double())
+
+    def solve(X_, f_, z0_, **kwargs):
+        return tt.cdeint(X_, f_, z0_, X_.interval, adjoint=False, options=dict(per_sample=True),
+                         **kwargs).double()
+
+    with torch.no_grad():
+        got = solve(small, small_field, small_z0)
+        with mock.patch.object(k9, "_runs_kernel", lambda ct: False):
+            plain = solve(small, small_field, small_z0)
+            exact = solve(small64, field64, small_z0.double(), rtol=1e-4 * EXACT_TOL,
+                          atol=1e-6 * EXACT_TOL)
+    err, scale = _err(got, exact)
+    plain_err = _err(plain, exact)[0]
+    limit = 10 * plain_err + 1e-4 * max(scale, 1.0)
+    results["forward"].update(small_input=PS_CHECK, max_abs_err_vs_float64=err,
+                              plain_float32_err=plain_err, limit=limit, largest=scale,
+                              finite_lanes=int(torch.isfinite(out).all(dim=(1, 2)).sum()))
+    print(f"per-sample slice forward: shape {tuple(out.shape)}, {results['forward']} "
+          f"(at {time.perf_counter() - START:.1f} s)", flush=True)
+    if out.shape != (PS_BATCH, 2, PS_HIDDEN) or not torch.isfinite(out).all():
+        failures.append("the forward is not finite or has the wrong shape")
+    if not err <= limit:
+        failures.append(f"the small input's forward is {err:.3e} from the float64 solve")
+
+    for adjoint in (False, True):
+        f = copy.deepcopy(field)
+        z = z0.clone().requires_grad_()
+        opt = torch.optim.Adam([z, *f.parameters()], lr=1e-2)
+        loss_fn = per_sample_loss(X, f, adjoint)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(z)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        losses = counted(f"adjoint={adjoint}", lambda: [step() for _ in range(PS_STEPS)],
+                         {"fwd": PS_STEPS * n_chunks, "bwd": PS_STEPS * n_chunks})
+        results[f"adjoint={adjoint}"]["losses"] = losses
+        print(f"per-sample slice adjoint={adjoint}: {PS_STEPS} Adam steps, losses {losses}, "
+              f"launches {results[f'adjoint={adjoint}']['k9_launches']} "
+              f"(at {time.perf_counter() - START:.1f} s)", flush=True)
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            failures.append(f"adjoint={adjoint}: the loss is not finite or does not fall")
+
+    _, rows = per_sample_times("slice rows", PS_BATCH, PS_LENGTH - 1)
+    rows = torch.from_numpy(rows).to(device)
+    z = z0.clone().requires_grad_()
+
+    def batched():
+        out = tt.cdeint(X, field, z, rows, adjoint=False, options=dict(per_sample=True))
+        (out[..., -1, :] ** 2).sum().backward()
+        return out
+
+    out = counted("batched rows", batched, {"fwd": n_chunks, "bwd": n_chunks})
+    results["batched rows"]["finite"] = bool(torch.isfinite(out).all()
+                                             and torch.isfinite(z.grad).all())
+    print(f"per-sample slice batched rows: shape {tuple(out.shape)}, {results['batched rows']}",
+          flush=True)
+    if out.shape != (PS_BATCH, 5, PS_HIDDEN) or not results["batched rows"]["finite"]:
+        failures.append("the batched-rows solve is not finite or has the wrong shape")
+    if failures:
+        raise AssertionError("the per-sample slice failed: " + "; ".join(failures))
+    return results
+
+
+def time_k9(device):
+    """Phase 24: K9's forward and backward per launch over the slice's eight
+    launches and on its first launch alone, the plain version (float32, on
+    the card) on that first launch, and the slice's solve and gradient.  The
+    plain version, a lockstep pass of small launches per attempt of the
+    chunk's longest lane, runs once, without a warm-up.  Phase 25 profiles
+    the slice's gradient."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+
+    X, field, z0 = per_sample_problem(device)
+    calls = recorded_k9_launches(X, field, z0, X.interval, None, {})
+    launched = [(args, k9.launch_forward(*args)) for args in calls]
+    gzs = [(torch.ones_like(out[0]), torch.ones_like(out[1])) for _, out in launched]
+
+    def forward(pairs):
+        for args, _ in pairs:
+            k9.launch_forward(*args)
+
+    def backward(pairs, cotangents):
+        for (args, out), (gz, gzfin) in zip(pairs, cotangents):
+            k9.launch_backward(args[0], out[5], args[7], gz, gzfin, *args[2:6], args[-1])
+
+    n = len(calls)
+    meshes = [k9.read_mesh(out[5], out[2]) for _, out in launched]
+    timing = {"k9_fwd_ms": _event_ms(lambda: forward(launched), 3) / n,
+              "k9_bwd_ms": _event_ms(lambda: backward(launched, gzs), 3) / n,
+              "k9_fwd_first_launch_ms": _event_ms(lambda: forward(launched[:1]), 3),
+              "k9_bwd_first_launch_ms": _event_ms(lambda: backward(launched[:1], gzs), 3),
+              "k9_launches_per_solve": n,
+              "k9_steps_accepted": int(sum(m.cnt.sum() for m in meshes)),
+              "k9_steps_attempted": int(sum(float((out[4] - args[6][2]).sum())
+                                            for args, out in launched)),
+              "k9_longest_lane_accepted": int(sum(m.cnt.max() for m in meshes))}
+
+    # The plain version on the first launch: the forward's lockstep solve,
+    # then autograd through the replay of the kernel's mesh (what the plain
+    # path's backward runs).
+    (*ops, plan), _ = launched[0]
+    leaves = [t.detach().clone().requires_grad_() for t in (*ops[:6], ops[9])]
+
+    def plain_backward():
+        outs = k9.fused_dopri5_per_sample_replay(*leaves[:6], ops[6], ops[7], leaves[6],
+                                                 meshes[0], plan)
+        torch.autograd.grad(outs, leaves, gzs[0], allow_unused=True)
+
+    with torch.no_grad():
+        timing["k9_fwd_plain_first_launch_ms"] = _once_ms(
+            lambda: k9.fused_dopri5_per_sample_reference(*ops, plan))
+    timing["k9_bwd_plain_first_launch_ms"] = _once_ms(plain_backward)
+
+    loss = per_sample_loss(X, field, adjoint=False)
+    z = z0.clone().requires_grad_()
+    with torch.no_grad():
+        timing["slice_solve_ms"] = _event_ms(
+            lambda: tt.cdeint(X, field, z0, X.interval, adjoint=False,
+                              options=dict(per_sample=True)), 3)
+    timing["slice_grad_ms"] = _event_ms(lambda: torch.autograd.grad(loss(z), z), 3)
+    profile = profile_calls(lambda: torch.autograd.grad(loss(z), z), K9_KINDS, 1)
+    return timing, k9_bounds(timing), profile
+
+
+def _once_ms(fn):
+    """Milliseconds of one call of fn() on the current stream, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def k9_bounds(timing):
+    """K9's least times per launch at the slice, forward and backward, for
+    this run's realised meshes: 2 W H (1 + C) float32 operations per stage
+    evaluation of one lane's MLP field; the forward makes 6 per attempted step
+    and 1 at each chunk entry, the backward recomputes the 7 of each accepted
+    step and adds the VJP's and the weight gradients' products, 3 x 7 per
+    accepted step (as K2).  Bytes: the table and the state read, the accepted
+    steps' store and the rows written (forward); the table, the store and the
+    cotangents read, the table's cotangent and dz0 written (backward)."""
+    f = 2 * PS_WIDTH * PS_HIDDEN * (1 + 3)
+    launches = timing["k9_launches_per_solve"]
+    acc, att = timing["k9_steps_accepted"], timing["k9_steps_attempted"]
+    ct = 4 * (PS_LENGTH - 1) * 3 * 3 * PS_BATCH
+    state = 4 * PS_HIDDEN * PS_BATCH * launches
+    store = 4 * acc * (PS_HIDDEN + 2)
+    fwd = bound(ct + 2 * state + store, (6 * att + PS_BATCH * launches) * f)
+    bwd = bound(2 * ct + store + 3 * state, 3 * 7 * acc * f)
+    return tuple((ms / launches, by) for ms, by in (fwd, bwd))
+
+
 def k8_bounds(batch, n, m):
     """K8's least times at config 5, forward and backward: 2 W H (1 + C)
     float32 operations per evaluation of one lane's MLP field.  The forward
@@ -1760,6 +2269,11 @@ def k2_bounds(k2_ms, batch, n, channels, rows):
             bound(2 * ct_bytes + 4 * acc * HIDDEN * batch + 2 * state, 3 * 7 * acc * batch * f))
 
 
+def elapsed(phase):
+    """Prints the seconds since the script started, before a phase."""
+    print(f"chip_smoke: phase {phase} at {time.perf_counter() - START:.1f} s", flush=True)
+
+
 def main():
     smi, device = phase_device()
 
@@ -1814,10 +2328,12 @@ def main():
     if (fwd_after_steps, bwd_after_steps) != (5, 5) or launches != {"fwd": 6, "bwd": 5}:
         raise AssertionError(f"the main path did not run the kernels once per step: {launches}")
 
+    elapsed("6")
     # 6. K2 against its plain version, and 7. the default configuration.
     k2_fwd_err, k2_bwd_err = check_k2(device)
     k2_launches = k2_slice(device)
 
+    elapsed("8")
     # 8. Timing, and 9. the profiles.
     kernel_ms, plain_fwd_ms, plain_bwd_ms = time_k1(model, coeffs)
     (fwd_ms, bwd_ms), generic_ms = kernel_ms["specialised"], kernel_ms["generic"]
@@ -1848,6 +2364,7 @@ def main():
         print("profile: " + json.dumps(dict(
             profile_train_steps(*default_model(device, batch), K2_KINDS),
             config=f"default dopri5 adjoint B{batch}", card=smi)))
+    elapsed("10")
     # 10-13. The natural cubic fit: its kernels, the config-3 slice, the NaN
     # spiral slice and the timing.
     fit_errors = check_fit_kernels(device)
@@ -1868,6 +2385,7 @@ def main():
         "nan_spiral_fit_max_abs_err": spiral_err, "nan_spiral_k2_launches": spiral_k2,
     }))
 
+    elapsed("14")
     # 14-17. The log-ODE Neural RDE path (config 4): K2's linear mode, the
     # slice without and with NaNs, config 2's preprocessing, the timing.
     x_log, log_labels = log_ode_data(device, nan=False)
@@ -1886,6 +2404,7 @@ def main():
     k2l_launches = {kind: sum(r["k2_launches"][f"linear_{kind}"] for r in log_slice.values())
                     for kind in ("fwd", "bwd")}
 
+    elapsed("18")
     # 18-21. The reversible-Heun Neural CDE (config 5): K8 against its plain
     # version, the slice in both adjoint modes, the timing and the profiles.
     k8_fwd_err, k8_bwd_err = check_k8_cases(device)
@@ -1905,6 +2424,22 @@ def main():
         print("profile: " + json.dumps(dict(profile, config=f"config-5 reversible Heun "
                                             f"adjoint={adjoint} B{CONFIG5_BATCH}", card=smi)))
     k8_launches = {kind: sum(r["k8_launches"][kind] for r in config5.values())
+                   for kind in ("fwd", "bwd")}
+
+    elapsed("22")
+    # 22-25. Per-sample stepping: K9 against its plain version, the slice
+    # with its launches counted, the timing and the profile.
+    k9_fwd_err, k9_bwd_err = check_k9(device)
+    elapsed("23")
+    ps_slice = per_sample_slice(device)
+    elapsed("24")
+    k9_ms, (k9_fwd_bound, k9_bwd_bound), k9_profile = time_k9(device)
+    print("timing: " + json.dumps({
+        "card": smi, **k9_ms, "k9_fwd_bound_ms": k9_fwd_bound[0],
+        "k9_bwd_bound_ms": k9_bwd_bound[0], "per_sample_slice": ps_slice}))
+    print("profile: " + json.dumps(dict(k9_profile, config=f"per-sample slice gradient "
+                                        f"B{PS_BATCH} n{PS_LENGTH - 1}", card=smi)))
+    k9_launches = {kind: sum(r["k9_launches"][kind] for r in ps_slice.values())
                    for kind in ("fwd", "bwd")}
 
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
@@ -1949,6 +2484,19 @@ def main():
          "max_abs_err": k8_bwd_err, "ms": k8_ms["k8_bwd_ms"], "plain_ms": k8_ms["k8_bwd_plain_ms"],
          "bound_ms": k8_bwd_bound[0], "bound_by": k8_bwd_bound[1], "library_ms": None},
     ]
+    # No PyTorch call computes a per-lane adaptive solve: K9's library_ms is null.
+    kernels += [
+        {"name": "K9-fwd", "route": "cuda", "source": K9_SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_dopri_persample.py:145",
+         "launches": k9_launches["fwd"], "max_abs_err": k9_fwd_err, "ms": k9_ms["k9_fwd_ms"],
+         "plain_ms": k9_ms["k9_fwd_plain_first_launch_ms"], "bound_ms": k9_fwd_bound[0],
+         "bound_by": k9_fwd_bound[1], "library_ms": None},
+        {"name": "K9-bwd", "route": "cuda", "source": K9_SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_dopri_persample.py:330",
+         "launches": k9_launches["bwd"], "max_abs_err": k9_bwd_err, "ms": k9_ms["k9_bwd_ms"],
+         "plain_ms": k9_ms["k9_bwd_plain_first_launch_ms"], "bound_ms": k9_bwd_bound[0],
+         "bound_by": k9_bwd_bound[1], "library_ms": None},
+    ]
     for name in ("K3", "K4", "K5", "K6/K7"):
         ms, plain_ms, bound_ms, bound_by, library_ms = fit_ms[name]
         kernels.append({"name": name, "route": "cuda", "source": FIT_SOURCES[name],
@@ -1960,7 +2508,8 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
+START = time.perf_counter()
+
 if __name__ == "__main__":
-    start = time.perf_counter()
     main()
-    print(f"chip_smoke: {time.perf_counter() - start:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {time.perf_counter() - START:.1f} s", file=sys.stderr)

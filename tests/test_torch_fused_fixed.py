@@ -185,7 +185,6 @@ def test_eligibility_declines():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(method="bosh3"), "Rest of the solver surface"),
     (dict(method="dopri8", adjoint=True), "Rest of the solver surface"),
-    (dict(method="rk4", options=dict(per_sample=True)), "Per-sample stepping"),
     (dict(method="rk4", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
     (dict(method="dopri5", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
     (dict(method="scipy_solver"), "Rest of the solver surface"),

@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
         "import torchcde_tpu_torch.interpolation.linear\n"
         "import torchcde_tpu_torch.solvers.reversible_adjoint\n"
         "import torchcde_tpu_torch.solvers.fused_reversible_kernel\n"
+        "import torchcde_tpu_torch.solvers.fused_dopri_persample\n"
+        "import torchcde_tpu_torch.solvers.fused_dopri_persample_kernel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchcde_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -16,6 +16,8 @@ Gradients flow to z0, to the given tensors (``params``), and to ``ts`` when it
 is a tensor that requires grad.
 """
 
+import copy
+import functools
 import warnings
 
 import numpy as np
@@ -27,49 +29,185 @@ from .terms import make_cde_rhs
 
 def _reached(rhs, t0, z0, tensors):
     """The tensors that rhs(t0, z0) depends on, as the arrays a JAX trace of
-    the vector field closes over."""
+    the vector field closes over.  The graph is kept: the control's tensors
+    may hang on a graph that the caller's backward pass still needs."""
     tensors = [p for p in tensors if p.requires_grad]
     if not tensors:
         return []
     with torch.enable_grad():
         f = rhs(t0, z0.detach())
-        grads = torch.autograd.grad(f, tensors, torch.ones_like(f), allow_unused=True)
+        grads = torch.autograd.grad(f, tensors, torch.ones_like(f), allow_unused=True,
+                                    retain_graph=True)
     return [p for p, g in zip(tensors, grads) if g is not None]
 
 
-def closure_params(func, X, t0, z0, adjoint_params=None):
-    """The tensors that receive adjoint gradients.
+def _closure_tensors(func):
+    """Tensors the vector field closes over: a Python closure's cells, a
+    ``functools.partial``'s arguments, an ``nn.Module``'s parameters and
+    buffers, a bound method's object."""
+    found, seen = [], set()
 
-    By default every tensor the vector field reads: ``func.parameters()``
-    (for an ``nn.Module`` field) and the control's coefficient tensors, as
-    the JAX package's closure conversion finds every array the field closes
-    over.  ``adjoint_params`` narrows that set; if one of its tensors is not
-    read by the field, the whole set is used, with the JAX package's
-    warning."""
+    def visit(obj, depth):
+        if id(obj) in seen or depth > 3:
+            return
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            found.append(obj)
+        elif isinstance(obj, torch.nn.Module):
+            found.extend(obj.parameters())
+            found.extend(obj.buffers())
+        elif isinstance(obj, functools.partial):
+            for v in (obj.func, *obj.args, *obj.keywords.values()):
+                visit(v, depth + 1)
+        elif isinstance(obj, (tuple, list)):
+            for v in obj:
+                visit(v, depth + 1)
+        elif callable(obj):
+            for cell in getattr(obj, "__closure__", None) or ():
+                try:
+                    visit(cell.cell_contents, depth + 1)
+                except ValueError:  # an empty cell
+                    pass
+            visit(getattr(obj, "__self__", None), depth + 1)
+
+    visit(func, 0)
+    return found
+
+
+def _walk(roots, stops, keep):
+    """Walks the autograd graph down from the (node, index) pairs ``roots``;
+    returns {id: tensor} of the tensors of ``stops`` ({(node, index):
+    tensor}) and of the leaves that it meets first on each path.  ``keep``
+    holds every node met, so that node identities stay valid."""
+    met, seen, todo = {}, set(), list(roots)
+    while todo:
+        node, idx = todo.pop()
+        if node is None or (node, idx) in seen:
+            continue
+        seen.add((node, idx))
+        keep.append(node)
+        hit = stops.get((node, idx))
+        if hit is not None:
+            met[id(hit)] = hit
+            continue
+        variable = getattr(node, "variable", None)
+        if isinstance(variable, torch.Tensor):  # an AccumulateGrad node: a leaf
+            met[id(variable)] = variable
+            continue
+        todo.extend(node.next_functions)
+    return met
+
+
+def _frontier(f, controls, closed):
+    """The tensors that receive the adjoint's gradients: a cut of the graph
+    of f between f and every leaf that requires grad.
+
+    The walk down from f stops at the control's tensors, at the tensors the
+    field closes over and at leaves.  The control's tensors are read as
+    independent inputs (``FieldClosure``), so each may lie upstream of
+    another.  Any other member of the cut that is derived from another
+    member is replaced by what lies below it, so that every leaf receives
+    the gradient of each path once."""
+    keep = []
+    candidates = controls + closed
+    stops = {(c.grad_fn, c.output_nr): c for c in reversed(candidates)
+             if c.requires_grad and c.grad_fn is not None}
+    cut = _walk([(f.grad_fn, 0)], stops, keep)
+    independent = {id(c) for c in controls}
+    while True:
+        derived = None
+        for c in cut.values():
+            if c.grad_fn is None or id(c) in independent:
+                continue
+            others = {k: v for k, v in stops.items() if id(v) in cut and v is not c}
+            below = _walk(list(c.grad_fn.next_functions), others, keep)
+            if any(key in cut and key not in independent for key in below):
+                derived = c
+                break
+        if derived is None:
+            break
+        del cut[id(derived)]
+        stops = {k: v for k, v in stops.items() if v is not derived}
+        cut.update(_walk(list(derived.grad_fn.next_functions), stops, keep))
+    # The control's tensors first, as the JAX trace meets them, then the
+    # field's: the order of the adjoint's augmented state, whose error norm
+    # sums in that order.
+    rank = {id(c): i for i, c in enumerate(candidates)}
+    return sorted(cut.values(), key=lambda c: rank.get(id(c), len(rank)))
+
+
+class FieldClosure:
+    """The CDE right-hand side f(t, z) . dX/dt and the tensors that receive
+    the adjoint's gradients (``params``).
+
+    ``field(t, z, values)`` reads ``values`` in place of those params that
+    are the control's attributes, and ``leaves()`` gives detached copies of
+    them: a vector-Jacobian product then holds the others fixed, as the JAX
+    package's closure-converted constants are independent inputs whose
+    gradients its outer autodiff carries upstream.  So a control whose
+    tensors hang on one another (a linear control's slopes on its knot
+    values, a spline's rows on a knot tensor) passes each path's gradient
+    once."""
+
+    def __init__(self, func, X, params):
+        self.func, self.X, self.params = func, X, list(params)
+        names = {id(v): k for k, v in vars(X).items() if isinstance(v, torch.Tensor)}
+        self._slots = [names.get(id(p)) for p in self.params]
+
+    def __call__(self, t, z, values=None):
+        X = self.X
+        if values is not None and any(self._slots):
+            X = copy.copy(X)
+            for name, v in zip(self._slots, values):
+                if name is not None:
+                    setattr(X, name, v)
+        return make_cde_rhs(self.func, X)(t, z)
+
+    def leaves(self):
+        return [p.detach().requires_grad_() if name is not None else p
+                for name, p in zip(self._slots, self.params)]
+
+
+def closure_params(func, X, t0, z0, adjoint_params=None):
+    """The vector field's ``FieldClosure``: its right-hand side and the
+    tensors that receive adjoint gradients.
+
+    By default every tensor the field reads: the control's tensors and the
+    tensors ``func`` closes over (its parameters and buffers, a closure's
+    cells, a partial's arguments), and in place of any of the latter that
+    hangs on another, or of one the search does not find, the leaves below
+    it (see ``_frontier``), as the JAX package's closure conversion finds
+    every array the field closes over.  ``adjoint_params`` narrows that set;
+    if one of its tensors is not read by the field, the whole set is used,
+    with the JAX package's warning."""
     rhs = make_cde_rhs(func, X)
+    if isinstance(t0, torch.Tensor):
+        t0 = t0.detach()  # the output times' gradient is the adjoint's own
     if adjoint_params is not None:
         wanted = list({id(p): p for p in adjoint_params}.values())
         found = _reached(rhs, t0, z0, wanted)
         if len(found) == len(wanted):
-            return found
+            return FieldClosure(func, X, found)
         warnings.warn(
             "Could not identify every adjoint_params entry among the "
             "arrays the vector field closes over; computing adjoint "
             "gradients for the full closure superset instead."
         )
-    # The control's tensors first, as the JAX trace meets them.
-    candidates = [v for v in vars(X).values()
-                  if isinstance(v, torch.Tensor) and v.is_floating_point()]
-    if callable(getattr(func, "parameters", None)):
-        candidates += list(func.parameters())
-    return _reached(rhs, t0, z0, list({id(p): p for p in candidates}.values()))
+    with torch.enable_grad():
+        f = rhs(t0, z0.detach())
+    if f.grad_fn is None:
+        return FieldClosure(func, X, [])
+    controls = [v for v in vars(X).values() if isinstance(v, torch.Tensor)]
+    closed = [c for c in {id(c): c for c in _closure_tensors(func)}.values()
+              if all(c is not v for v in controls)]
+    return FieldClosure(func, X, _frontier(f, controls, closed))
 
 
 class _OdeintAdjoint(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rhs, cfg, adjoint_cfg, ts, z0, *params):
-        zs = odeint(rhs, z0, ts, cfg, differentiable=False)
-        ctx.rhs, ctx.adjoint_cfg, ctx.params = rhs, adjoint_cfg, params
+    def forward(ctx, field, cfg, adjoint_cfg, ts, z0, *params):
+        zs = odeint(field, z0, ts, cfg, differentiable=False)
+        ctx.field, ctx.adjoint_cfg = field, adjoint_cfg
         ctx.ts = ts
         ctx.save_for_backward(zs)
         return zs
@@ -78,7 +216,7 @@ class _OdeintAdjoint(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (zs,) = ctx.saved_tensors
-        rhs, params = ctx.rhs, ctx.params
+        rhs, params = ctx.field, ctx.field.params
         ts = host_times(ctx.ts, zs.dtype)
         shape, nz = zs.shape[1:], zs[0].numel()
         sizes = [nz, nz] + [p.numel() for p in params]
@@ -88,10 +226,14 @@ class _OdeintAdjoint(torch.autograd.Function):
             z, a = aug[:nz].view(shape), aug[nz:2 * nz].view(shape)
             with torch.enable_grad():
                 z_ = z.detach().requires_grad_()
-                f = rhs(-s, z_)
-                vjps = torch.autograd.grad(f, (z_,) + tuple(params), a, allow_unused=True)
+                leaves = rhs.leaves()
+                f = rhs(-s, z_, leaves)
+                # A param found below the field's tensors hangs on a graph
+                # that the next evaluation walks again: keep it.
+                vjps = torch.autograd.grad(f, [z_] + leaves, a, allow_unused=True,
+                                           retain_graph=True)
             parts = [-f.detach()] + [torch.zeros_like(p) if v is None else v
-                                     for v, p in zip(vjps, (z_,) + tuple(params))]
+                                     for v, p in zip(vjps, [z_] + leaves)]
             return torch.cat([v.reshape(-1) for v in parts])
 
         want_t = isinstance(ctx.ts, torch.Tensor) and ctx.needs_input_grad[3]
@@ -116,9 +258,9 @@ class _OdeintAdjoint(torch.autograd.Function):
         return (None, None, None, ts_bar, a + g[0], *grads)
 
 
-def odeint_adjoint(rhs, params, z0, ts, cfg: SolverConfig, adjoint_cfg: SolverConfig):
-    """Solve dz/dt = rhs(t, z) with backsolve-adjoint gradients.
+def odeint_adjoint(field, z0, ts, cfg: SolverConfig, adjoint_cfg: SolverConfig):
+    """Solve dz/dt = field(t, z) with backsolve-adjoint gradients.
 
-    ``params``: the tensors rhs reads that receive gradients (see
-    ``closure_params``).  Output is time-leading, like ``odeint``."""
-    return _OdeintAdjoint.apply(rhs, cfg, adjoint_cfg, ts, z0, *params)
+    ``field``: a ``FieldClosure`` (see ``closure_params``), whose params
+    receive gradients.  Output is time-leading, like ``odeint``."""
+    return _OdeintAdjoint.apply(field, cfg, adjoint_cfg, ts, z0, *field.params)

@@ -80,8 +80,8 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
 
     Requires an ``MLPVectorField`` over a ``CubicSpline`` or a
     ``LinearInterpolation`` with a uniform host knot grid, a tensor state,
-    no step_size (the caller checks), and the shapes and dtype
-    ``pack_operands`` admits."""
+    no step_size (the caller checks), output times that do not require grad,
+    and the shapes and dtype ``pack_operands`` admits."""
     if not isinstance(func, MLPVectorField) or not isinstance(z0, torch.Tensor):
         return None
     if isinstance(X, CubicSpline):
@@ -94,7 +94,9 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     if not isinstance(grid, np.ndarray) or grid.shape[0] < 2:
         return None
     if isinstance(ts, torch.Tensor):
-        ts = ts.detach().cpu().numpy()
+        if ts.requires_grad:  # the JAX plan declines traced output times
+            return None
+        ts = ts.cpu().numpy()
     ts_np = np.asarray(ts, dtype=np.float64)
     spans = np.diff(grid.astype(np.float64))
     if not np.allclose(spans, spans[0], rtol=1e-9, atol=1e-12):

@@ -36,9 +36,13 @@ def plan_fixed_grid(X, ts, step_size):
     Returns ``(rows, grid, out_idx, j0, jN, m, step_size_val, uniform)`` when
     the solve is a knot-aligned fixed-step walk over a cubic control, else
     None.  Preconditions: a host knot grid, output times on the grid, and a
-    step_size dividing every knot span the same number (m) of times.
+    step_size dividing every knot span the same number (m) of times.  Output
+    times that require grad decline, as the JAX plan declines traced ones:
+    the general integrator differentiates them.
     """
     if step_size is None or isinstance(step_size, torch.Tensor):
+        return None
+    if isinstance(ts, torch.Tensor) and ts.requires_grad:
         return None
     if not isinstance(X, CubicSpline):
         return None
@@ -47,7 +51,7 @@ def plan_fixed_grid(X, ts, step_size):
     if not isinstance(grid, np.ndarray):
         return None
     if isinstance(ts, torch.Tensor):
-        ts_np = ts.detach().cpu().numpy().astype(np.float64)
+        ts_np = ts.cpu().numpy().astype(np.float64)
     else:
         ts_np = np.asarray(ts, dtype=np.float64)
     out_idx = _knot_indices(grid, ts_np)

@@ -9,9 +9,15 @@ NaN poisoning when the step budget runs out.
 The JAX loops become Python loops on host scalars.  Times and step sizes are
 NumPy scalars in the state's precision, so they round as the JAX integrator's
 do, and the adaptive controller reads one error ratio from the device per
-attempted step.  The step sizes are host numbers, outside autograd: gradients
-are those of the scheme on the realised mesh (the frozen mesh that the JAX
-package gets from ``stop_gradient``), and output times receive none.
+attempted step.  The adaptive step sizes are host numbers, outside autograd:
+gradients are those of the scheme on the realised mesh (the frozen mesh that
+the JAX package gets from ``stop_gradient``).
+
+Output times that are a tensor requiring grad receive the JAX integrator's
+gradient: the host scalars still decide every branch, and beside them the
+loops carry 0-d tensors of the same values whose graph is JAX's (``_follow``):
+the clamped fixed step clip(t1 - t, 0, step) with ties split in half, stage
+times t0 + sum of the frozen adaptive steps, and the dense output's theta.
 """
 
 import dataclasses
@@ -22,7 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.misc import numpy_dtype
-from .runge_kutta import STEPPERS, TABLEAUS, rk_step
+from .runge_kutta import STEPPERS, TABLEAUS, rk_step, unknown_method
 
 _FIXED_DEFAULT_MAX_STEPS = 65536
 _ADAPTIVE_DEFAULT_MAX_STEPS = 4096
@@ -46,10 +52,7 @@ class SolverConfig:
 
     def tableau(self):
         if self.method not in TABLEAUS:
-            raise ValueError(
-                f"Unrecognised method={self.method!r}; expected one of "
-                f"{sorted(set(TABLEAUS) | set(STEPPERS))}"
-            )
+            raise unknown_method(self.method)
         return TABLEAUS[self.method]
 
 
@@ -113,8 +116,22 @@ _QUARTIC_MINV = np.linalg.inv(
 )
 
 
+def _follow(value, expr):
+    """A 0-d tensor with the host scalar's value and the gradient of expr
+    (whose value equals it): the host keeps deciding the branches."""
+    return expr - expr.detach() + float(value)
+
+
+def _clip(x, lo, hi):
+    """jnp.clip's value and gradient, ties split in half between the bounds'
+    branches (torch.maximum/minimum split them as lax.max/min do)."""
+    hi = hi if isinstance(hi, torch.Tensor) else torch.zeros_like(x) + hi
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x) + lo), hi)
+
+
 def _interp_quartic(z0, z1, f0, f1, y_mid, dt, theta):
-    """The quartic dense-output polynomial at the host scalar theta."""
+    """The quartic dense-output polynomial at theta, a host scalar or a 0-d
+    tensor that carries the output time's gradient."""
     m = _QUARTIC_MINV
     sc = type(dt)
     rA = z1 - z0 - float(dt) * f0
@@ -123,7 +140,7 @@ def _interp_quartic(z0, z1, f0, f1, y_mid, dt, theta):
     c4 = m[0][0] * rA + m[0][1] * rB + m[0][2] * rC
     c3 = m[1][0] * rA + m[1][1] * rB + m[1][2] * rC
     c2 = m[2][0] * rA + m[2][1] * rB + m[2][2] * rC
-    th = float(theta)
+    th = theta if isinstance(theta, torch.Tensor) else float(theta)
     return z0 + th * (float(dt) * f0 + th * (c2 + th * (c3 + th * c4)))
 
 
@@ -133,23 +150,26 @@ def _poisoned(out):
                        torch.full_like(out, math.nan), out)
 
 
-def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps):
+def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps, tts=None):
     """One continuous adaptive solve over [ts[0], ts[-1]] with dense output.
 
     Each accepted step writes the 4th-order interpolant into every output row
     whose time falls inside (t, t + dt]; steps clamp only to ts[-1], so the
     step count does not grow with len(ts).  Returns (out, (attempted,
     accepted)) with out time-leading, NaN everywhere if the budget ran out
-    before ts[-1]."""
+    before ts[-1].  ``tts``: the output times as a tensor that carries their
+    gradient, or None."""
     sc = ts.dtype.type
     t_end = ts[-1]
     out = [z0] * len(ts)
     t, z, dt, state = ts[0], z0, dt0, state0
+    tt = None if tts is None else tts[0]  # t = ts[0] + the frozen steps
     attempted = accepted = 0
     while t < t_end and attempted < max_steps:
         dt = max(dt, sc(1e-14))
         dt_c = min(dt, t_end - t)
-        z1, err, state1, (f0, f1, y_mid) = stepper.step_dense(rhs, t, z, dt_c, state)
+        z1, err, state1, (f0, f1, y_mid) = stepper.step_dense(
+            rhs, t if tt is None else tt, z, dt_c, state)
         with torch.no_grad():
             ratio = sc(_error_ratio(err, cfg.rtol, cfg.atol, z, z1).item())
         accept = bool(ratio <= 1.0)
@@ -162,8 +182,13 @@ def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps)
             for k, tk in enumerate(ts):
                 if t < tk <= t + dt_c:
                     theta = min(max((tk - t) / max(dt_c, sc(1e-30)), sc(0.0)), sc(1.0))
+                    if tt is not None:
+                        theta = _follow(theta, _clip((tts[k] - tt) / float(max(dt_c, sc(1e-30))),
+                                                     0.0, 1.0))
                     out[k] = _interp_quartic(z, z1, f0, f1, y_mid, dt_c, theta)
             t, z, state = t + dt_c, z1, state1
+            if tt is not None:
+                tt = _follow(t, tt)
         dt = dt_new
         attempted += 1
         accepted += int(accept)
@@ -217,6 +242,9 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
     ``differentiable=False`` (inside the adjoint) only changes the default
     adaptive step budget, as in the JAX package.  With ``collect_stats=True``
     returns ``(out, stats)`` with the step and evaluation counts."""
+    tts = None
+    if isinstance(ts, torch.Tensor) and ts.requires_grad and torch.is_grad_enabled():
+        tts = ts.to(z0.dtype)
     ts = host_times(ts, z0.dtype)
     if ts.shape[0] > 1 and not bool(np.all(np.diff(ts) > 0)):
         raise ValueError("t must be monotonically increasing.")
@@ -227,13 +255,23 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
         n_static = min(_static_fixed_steps(ts, cfg.step_size),
                        cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
         out, z, steps = [z0], z0, 0
-        for t0, t1 in zip(ts[:-1], ts[1:]):
+        for i, (t0, t1) in enumerate(zip(ts[:-1], ts[1:])):
             step_size = sc(cfg.step_size if cfg.step_size is not None else t1 - t0)
             t = t0
-            # Steps with dt == 0 are the JAX loop's padding iterations.
+            if tts is not None:
+                tt = tts[i]
+                size = cfg.step_size if cfg.step_size is not None else tts[i + 1] - tts[i]
+            # Steps with dt == 0 are the JAX loop's padding iterations: they
+            # change nothing but the output times' gradient, so they run
+            # only where that is wanted.
             for _ in range(n_static):
                 dt = np.clip(t1 - t, sc(0.0), step_size)
-                if dt > 0:
+                if tts is not None:
+                    dtt = _follow(dt, _clip(tts[i + 1] - tt, 0.0, size))
+                    z = rk_step(tableau, rhs, tt, z, dtt)
+                    tt = _follow(t + dt, tt + dtt)
+                    steps += int(dt > 0)
+                elif dt > 0:
                     z = rk_step(tableau, rhs, float(t), z, float(dt))
                     steps += 1
                 t = t + dt
@@ -244,7 +282,7 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
         return out, _stats(steps, steps, 0, len(tableau.c_sol))
 
     stepper = STEPPERS[cfg.method]
-    state = stepper.init(rhs, ts[0], z0)
+    state = stepper.init(rhs, ts[0] if tts is None else tts[0], z0)
     init_nfe = stepper.init_nfe
     if stepper.adaptive and cfg.step_size is None:
         dt0 = sc(select_initial_step(rhs, ts[0], z0, stepper.order, cfg.rtol, cfg.atol,
@@ -252,7 +290,7 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
         init_nfe += 2  # the initial-step heuristic
         max_steps = _adaptive_max_steps(cfg, stepper.order, differentiable)
         out, (attempted, accepted) = _integrate_adaptive_dense(
-            rhs, z0, ts, dt0, state, cfg, stepper, max_steps)
+            rhs, z0, ts, dt0, state, cfg, stepper, max_steps, tts)
     else:
         # Fixed steps of step_size (last step of each interval clamped),
         # carrying the stepper's state (dopri5's first-same-as-last stage,
@@ -261,12 +299,20 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
         n_static = min(_static_fixed_steps(ts, cfg.step_size),
                        cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
         outs, z, attempted = [z0], z0, 0
-        for t0, t1 in zip(ts[:-1], ts[1:]):
+        for i, (t0, t1) in enumerate(zip(ts[:-1], ts[1:])):
             t, n = t0, 0
             step_size = sc(cfg.step_size if cfg.step_size is not None else t1 - t0)
+            if tts is not None:
+                tt = tts[i]
+                size = cfg.step_size if cfg.step_size is not None else tts[i + 1] - tts[i]
             while t < t1 and n < n_static:
                 dt = min(step_size, t1 - t)
-                z, _err, state = stepper.step(rhs, t, z, dt, state)
+                if tts is None:
+                    z, _err, state = stepper.step(rhs, t, z, dt, state)
+                else:
+                    dtt = _follow(dt, torch.minimum(tts[i + 1] - tt, torch.zeros_like(tt) + size))
+                    z, _err, state = stepper.step(rhs, tt, z, dtt, state)
+                    tt = _follow(t + dt, tt + dtt)
                 t, n = t + dt, n + 1
             attempted += n
             outs.append(z)

@@ -57,6 +57,7 @@ def _inv_step(rhs, t1, dt, y1, yhat1):
 class _ReversibleHeun(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rhs, h, ts, z0, *params):
+        # rhs: a FieldClosure (adjoint.py) whose params are ``params``.
         tv = host_times(ts, z0.dtype)
         y, yhat = z0, z0
         # f̂ is carried through each interval and across output times: each
@@ -73,7 +74,7 @@ class _ReversibleHeun(torch.autograd.Function):
                 yhat, fhat = yhat1, fhat1
             ys.append(y)
             yhats.append(yhat)
-        ctx.rhs, ctx.h, ctx.ts, ctx.params = rhs, h, ts, params
+        ctx.rhs, ctx.h, ctx.ts = rhs, h, ts
         ys, yhats = torch.stack(ys), torch.stack(yhats)
         ctx.save_for_backward(ys, yhats)
         return ys
@@ -82,7 +83,7 @@ class _ReversibleHeun(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         ys, yhats = ctx.saved_tensors
-        rhs, h, params = ctx.rhs, ctx.h, ctx.params
+        rhs, h, params = ctx.rhs, ctx.h, ctx.rhs.params
         tv = host_times(ctx.ts, ys.dtype)
         want_t = isinstance(ctx.ts, torch.Tensor) and ctx.needs_input_grad[2]
         ts_bar = np.zeros(len(tv), dtype=np.float64)
@@ -99,15 +100,21 @@ class _ReversibleHeun(torch.autograd.Function):
                     y, yhat = _inv_step(rhs, t_next, float(dt), y, yhat)
                 with torch.enable_grad():
                     y_, yhat_ = y.detach().requires_grad_(), yhat.detach().requires_grad_()
-                    leaves = [y_, yhat_, *params]
+                    values = rhs.leaves()
+                    leaves = [y_, yhat_, *values]
+
+                    def field(tt, z):
+                        return rhs(tt, z, values)
+
                     if want_t:
                         t_ = torch.tensor(t, dtype=ys.dtype, device=ys.device, requires_grad=True)
                         dt_ = torch.tensor(dt, dtype=ys.dtype, device=ys.device, requires_grad=True)
                         leaves += [t_, dt_]
-                        outs = _fwd_step(rhs, t_, dt_, y_, yhat_)
+                        outs = _fwd_step(field, t_, dt_, y_, yhat_)
                     else:
-                        outs = _fwd_step(rhs, t, float(dt), y_, yhat_)
-                    vjps = torch.autograd.grad(outs, leaves, (a_y, a_yhat), allow_unused=True)
+                        outs = _fwd_step(field, t, float(dt), y_, yhat_)
+                    vjps = torch.autograd.grad(outs, leaves, (a_y, a_yhat), allow_unused=True,
+                                               retain_graph=True)
                 vjps = [torch.zeros_like(x) if v is None else v for v, x in zip(vjps, leaves)]
                 a_y, a_yhat = vjps[0], vjps[1]
                 a_params = [a + v for a, v in zip(a_params, vjps[2:2 + len(params)])]
@@ -128,12 +135,12 @@ class _ReversibleHeun(torch.autograd.Function):
         return (None, None, ts_grad, z0_bar, *a_params)
 
 
-def reversible_heun_solve(rhs, params, z0, ts, step_size):
-    """Solve dz/dt = rhs(t, z) with the reversible Heun method and its exact
+def reversible_heun_solve(field, z0, ts, step_size):
+    """Solve dz/dt = field(t, z) with the reversible Heun method and its exact
     adjoint; output time-leading, like ``odeint``.
 
-    ``params``: the tensors rhs reads that receive gradients (see
-    ``adjoint.closure_params``).  Each interval [ts[i], ts[i + 1]] takes
+    ``field``: a ``FieldClosure`` (see ``adjoint.closure_params``), whose
+    params receive gradients.  Each interval [ts[i], ts[i + 1]] takes
     ceil((ts[i + 1] - ts[i]) / step_size) steps, the last one clamped to its
     end."""
-    return _ReversibleHeun.apply(rhs, float(step_size), ts, z0, *params)
+    return _ReversibleHeun.apply(field, float(step_size), ts, z0, *field.params)

@@ -15,6 +15,7 @@ earlier stages, so it lives in ``STEPPERS`` alone.
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 def _weighted_sum(coeffs, ks):
@@ -68,8 +69,16 @@ DOPRI5 = ButcherTableau(
 )
 
 
+def scalar(x):
+    """A step's time or size as a factor of a tensor: host scalars become
+    Python floats, tensors (times that carry a gradient) stay tensors."""
+    return x if isinstance(x, torch.Tensor) else float(x)
+
+
 def rk_step(tableau: ButcherTableau, rhs, t0, z0, dt):
-    """One explicit RK step of size dt from (t0, z0); returns z1."""
+    """One explicit RK step of size dt from (t0, z0); returns z1.  t0 and dt
+    are host scalars, or 0-d tensors where the output times carry a
+    gradient."""
     ks = [rhs(t0, z0)]
     for alpha_i, beta_i in zip(tableau.alpha, tableau.beta):
         ti = t0 + alpha_i * dt
@@ -129,13 +138,15 @@ def _make_dopri5_fsal() -> Stepper:
         return rhs(t0, z0)
 
     # t and dt are host scalars (NumPy scalars keep the state's precision in
-    # the stage times); the tensor products take dt as a Python float.
+    # the stage times), or 0-d tensors where the output times carry a
+    # gradient; the tensor products take dt through ``scalar``.
     def stages(rhs, t, z, dt, k1):
         ks = [k1]
+        h = scalar(dt)
         for alpha_i, beta_i in zip(tab.alpha, tab.beta):
-            ks.append(rhs(t + alpha_i * dt, z + float(dt) * _weighted_sum(beta_i, ks)))
-        z1 = z + float(dt) * _weighted_sum(tab.c_sol, ks)
-        err = float(dt) * _weighted_sum(tab.c_error, ks)
+            ks.append(rhs(t + alpha_i * dt, z + h * _weighted_sum(beta_i, ks)))
+        z1 = z + h * _weighted_sum(tab.c_sol, ks)
+        err = h * _weighted_sum(tab.c_error, ks)
         return ks, z1, err
 
     def step(rhs, t, z, dt, k1):
@@ -144,7 +155,7 @@ def _make_dopri5_fsal() -> Stepper:
 
     def step_dense(rhs, t, z, dt, k1):
         ks, z1, err = stages(rhs, t, z, dt, k1)
-        y_mid = z + float(dt) * _weighted_sum(DOPRI5_BMID, ks)
+        y_mid = z + scalar(dt) * _weighted_sum(DOPRI5_BMID, ks)
         return z1, err, ks[-1], (ks[0], ks[-1], y_mid)
 
     return Stepper(init=init, step=step, order=tab.order, adaptive=True,
@@ -162,9 +173,9 @@ def _make_reversible_heun() -> Stepper:
 
     def step(rhs, t, z, dt, state):
         yhat, fhat = state
-        yhat1 = (2.0 * z - yhat) + float(dt) * fhat
+        yhat1 = (2.0 * z - yhat) + scalar(dt) * fhat
         fhat1 = rhs(t + dt, yhat1)
-        z1 = z + float(0.5 * dt) * (fhat + fhat1)
+        z1 = z + scalar(0.5 * dt) * (fhat + fhat1)
         return z1, None, (yhat1, fhat1)  # no error estimate: never adaptive
 
     return Stepper(init=init, step=step, order=2, adaptive=False, step_dense=None,
@@ -172,3 +183,15 @@ def _make_reversible_heun() -> Stepper:
 
 
 STEPPERS = {"dopri5": _make_dopri5_fsal(), "reversible_heun": _make_reversible_heun()}
+
+# Every method name of the JAX package (its runge_kutta.STEPPERS).  A name
+# here that the port lacks is not ported yet; any other name is unknown.
+METHODS = ("euler", "midpoint", "heun", "heun3", "rk4", "bosh3", "dopri5", "dopri5_nofsal",
+           "dopri8", "adaptive_heun", "fehlberg2", "reversible_heun", "explicit_adams",
+           "implicit_adams", "fixed_adams")
+
+
+def unknown_method(name):
+    """The JAX package's error for a method name it does not know (for an
+    adjoint_method too: its solver configuration raises it)."""
+    return ValueError(f"Unrecognised method={name!r}; expected one of {sorted(METHODS)}")
