@@ -89,7 +89,23 @@ Phases, each of which raises on failure:
    (8 per solve, 8 per gradient);
 24. timing of K9 over the slice's launches against its plain version, and of
    the slice's solve and gradient against the same with the plain version;
-   25. a torch.profiler reading of the slice's gradient.
+   25. a torch.profiler reading of the slice's gradient;
+26. K1's bfloat16 mode (bench.py's ``compute_dtype="bfloat16"``): its
+   forward and backward against its plain version on the card, run with the
+   same bfloat16 rounding points in float64 and float32 (see BF16_ORDER), at
+   the flagship's operands (specialised variant) and at two generic shapes,
+   one with H % 8 != 0 (the selection products round) and one with H 16;
+27. the bfloat16 slices: bench.py's configuration (the flagship in
+   bfloat16) through the public entry points, its logits against the plain
+   version and the float32 solve of the same quantized problem, five Adam
+   steps and one accuracy call with every plain version patched to raise
+   (K1 launches asserted, 6 forward and 5 backward, all in the bfloat16
+   mode; master gradients float32); one bfloat16 default-configuration
+   step (dopri5, adjoint, B 256) through K2, and one small bfloat16 solve
+   and gradient each through K8 and K9 (route, dtype, closeness);
+28. timing of K1's bfloat16 mode and its plain version, and of the bfloat16
+   flagship step beside the float32 one and the plain bfloat16 step, in
+   turns, and a torch.profiler reading of the bfloat16 step.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -97,6 +113,7 @@ exits non-zero before building anything.
 """
 
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -219,21 +236,27 @@ def phase_build():
         print(f"  ptxas: {line}")
 
 
-def make_model(device, seed=0):
+def make_model(device, seed=0, config=FLAGSHIP):
     from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig
 
     gen = torch.Generator().manual_seed(seed)
-    return NeuralCDE(NeuralCDEConfig(**FLAGSHIP), generator=gen).to(device)
+    return NeuralCDE(NeuralCDEConfig(**config), generator=gen).to(device)
 
 
 def packed_operands(model, coeffs):
-    """The K1 operands exactly as the model's forward builds them."""
+    """The K1 operands exactly as the model's forward builds them (for a
+    model with a compute_dtype, from its views of the layers)."""
     import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models.neural_cde import _field_as, _linear_as
     from torchcde_tpu_torch.solvers.fused_fixed_kernel import pack_operands
 
+    initial, func = model.initial, model.func
+    if model.cfg.compute_dtype is not None:
+        dtype = getattr(torch, model.cfg.compute_dtype)
+        initial, func, coeffs = _linear_as(initial, dtype), _field_as(func, dtype), coeffs.to(dtype)
     X = tt.CubicSpline(coeffs)
-    z0 = model.initial(X.evaluate(X.interval[0]))
-    return pack_operands(X._b, X._two_c, X._three_d, z0, model.func)
+    z0 = initial(X.evaluate(X.interval[0]))
+    return pack_operands(X._b, X._two_c, X._three_d, z0, func, ct_store="native")
 
 
 def plain_forward(model, coeffs):
@@ -808,10 +831,12 @@ FIT_BATCH, FIT_LENGTH, FIT_NAN = 8192, 4096, 0.2
 FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096)
 FIT_DENSITIES = (0.0, 0.2, 0.8, 1.0)
 SPIRAL_NAN = 0.3
-# The H100 SXM's datasheet rates: HBM
-# bytes per second, and float32 operations per second outside the tensor cores.
+# The H100 SXM's datasheet rates: HBM bytes per second, float32 operations
+# per second outside the tensor cores, and dense bfloat16 operations (float32
+# sums) per second on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 BF16_RTOL = 1e-2
 # The fills are selections: the kernel must reproduce the plain version
 # exactly.  The solves and the fit are held, like K1's forward, within
@@ -2094,6 +2119,370 @@ def time_k9(device):
     return timing, k9_bounds(timing), profile
 
 
+# K1's bfloat16 mode rounds the stage products' operands to bfloat16 where
+# the TPU kernel feeds its matrix unit.  Any two float32 summation orders
+# (kernel and plain version, or the plain version in float32 and float64)
+# put a few operands on the other side of a bfloat16 rounding boundary, a
+# one-ulp flip (2^-8 relative) that the serial solve carries on: on an H100
+# the plain version in float32 differed from its float64 run by 3e-4
+# (forward) to 5e-3 (gradients) relative at the flagship, a fifth of the
+# mode's own gap to the unrounded solve (measured on one H100).  So the kernel
+# is held against the plain version run in float64 with the same rounding
+# points: its relative Frobenius error may be at most BF16_ORDER times the
+# plain float32 version's (or 1e-5), and at most BF16_SHARE of the mode's own
+# gap (the plain float64 version with against without the rounding), which a
+# kernel that did not round would fail.  The lane screen: a lane whose
+# gradients (dct, dz0) differ by more than BF16_LANE_RTOL took a flip or a
+# ReLU kink that moved a whole term; the kernel may have at most twice as
+# many such lanes as the plain float32 version, plus 2, and their cotangents
+# are set to zero for the comparison of the six gradients.
+BF16_ORDER = 2.0
+BF16_SHARE = 0.5
+BF16_LANE_RTOL = 1e-2
+# K1-bf16 cases: (label, batch, intervals, hidden, channels, width, method,
+# substeps, output knots): the flagship's shapes (the specialised variant),
+# a generic shape with H % 8 != 0 (the TPU kernel's padded layout, whose
+# selection products round too) and a generic one with H 16 (no selection
+# rounding, as in the TPU kernel's matrix-free path).
+K1_BF16_CASES = [
+    ("H5 generic", 1000, 99, 5, 3, 128, "euler", 2, "all"),
+    ("H16 generic", 333, 24, 16, 5, 512, "rk4", 1, "all"),
+]
+# bench.py:152-160, the repository's headline benchmark: the flagship in
+# mixed precision.
+BF16_FLAGSHIP = dict(FLAGSHIP, compute_dtype="bfloat16")
+# bf16 against float32 on the same bf16-quantized problem (tests/
+# test_fused_pallas.py, tests/test_fused_dopri.py of the JAX package): bf16
+# keeps ~3 decimal digits.
+BF16_CLOSE = 0.06
+
+
+def _bf16_operands(operands):
+    """K1's bfloat16-mode operands: the slab table in bfloat16, the rest
+    float32 holding bfloat16 values (as the model's casts give them)."""
+    return (operands[0].bfloat16(),) + tuple(t.bfloat16().float() for t in operands[1:])
+
+
+def _bf16_plain(operands, plan, dtype, mx, gz=None):
+    """K1's plain version on bfloat16-mode operands in dtype, with the
+    rounding (the slab table kept bfloat16) or without it (the table upcast):
+    the solution, or with gz the six gradients."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    ct = operands[0].detach().clone() if mx else operands[0].detach().to(dtype)
+    leaves = [ct] + [t.detach().to(dtype) for t in operands[1:]]
+    if gz is None:
+        with torch.no_grad():
+            return k1.fused_fixed_solve_reference(*leaves, plan.method, plan.m, plan.dt_sub,
+                                                  plan.out_knots)
+    leaves = [t.requires_grad_() for t in leaves]
+    out = k1.fused_fixed_solve_reference(*leaves, plan.method, plan.m, plan.dt_sub,
+                                         plan.out_knots)
+    return torch.autograd.grad(out, leaves, gz.to(dtype))
+
+
+def _bf16_verdict(what, got, ref64, ref32, unrounded, failures):
+    """Holds one output of K1's bfloat16 mode (see BF16_ORDER); returns its
+    max abs error against the float64 plain version."""
+    ref64, ref32, unrounded = ref64.double(), ref32.double(), unrounded.double()
+    e_k, e_p, gap = _rel_l2(got, ref64), _rel_l2(ref32, ref64), _rel_l2(unrounded, ref64)
+    err = float((got.double() - ref64.double()).abs().max())
+    print(f"  {what}: rel_l2 {e_k:.3e} (plain float32 {e_p:.3e}, limit {max(BF16_ORDER * e_p, 1e-5):.3e};"
+          f" the mode's gap {gap:.3e}, limit {BF16_SHARE * gap:.3e}) max_abs_err {err:.3e}")
+    if (not torch.isfinite(got).all() or e_k > max(BF16_ORDER * e_p, 1e-5)
+            or e_k > BF16_SHARE * gap):
+        failures.append(what)
+    return err
+
+
+def check_k1_bf16(label, operands, plan):
+    """Phase 26: K1's bfloat16 mode, forward and backward, against its plain
+    version on the card (see BF16_ORDER)."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    H, (n, _, C, B), W = operands[1].shape[0], operands[0].shape, operands[2].shape[0]
+    label = f"{label} [{k1.kernel_variant(H, C, W, plan)}]"
+    out, zres = k1.launch_forward(*operands, plan)
+    torch.cuda.synchronize()
+    refs = [_bf16_plain(operands, plan, dtype, mx)
+            for dtype, mx in ((torch.float64, True), (torch.float32, True), (torch.float64, False))]
+    failures = []
+    print(f"K1-bf16-fwd {label}:")
+    fwd_err = _bf16_verdict("solution", out, *refs, failures)
+
+    gz = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(1),
+                     device=out.device)
+
+    def gradients(gz):
+        grads = k1.launch_backward(operands[0], zres, operands[1], gz, *operands[2:], plan)
+        plain = [_bf16_plain(operands, plan, dtype, mx, gz)
+                 for dtype, mx in ((torch.float64, True), (torch.float32, True),
+                                   (torch.float64, False))]
+        torch.cuda.synchronize()
+        return grads, plain
+
+    grads, (ref64, ref32, _) = gradients(gz)
+    if grads[0].dtype != torch.bfloat16 or any(g.dtype != torch.float32 for g in grads[1:]):
+        failures.append(f"gradient dtypes {[str(g.dtype) for g in grads]}")
+
+    def lanes(got, ref):
+        err = torch.maximum(_lane_rel_l2(got[0].float(), ref[0].double()),
+                            _lane_rel_l2(got[1], ref[1].double()))
+        return set(torch.nonzero(err > BF16_LANE_RTOL).flatten().tolist())
+
+    kernel_lanes, plain_lanes = lanes(grads, ref64), lanes(ref32, ref64)
+    print(f"K1-bf16-bwd {label}: {len(kernel_lanes)} lanes past {BF16_LANE_RTOL:g} "
+          f"(plain float32 {len(plain_lanes)}, limit {2 * len(plain_lanes) + 2})")
+    if len(kernel_lanes) > 2 * len(plain_lanes) + 2:
+        failures.append("lanes")
+    gz[..., sorted(kernel_lanes | plain_lanes)] = 0.0
+    grads, plain = gradients(gz)
+    bwd_err = max(_bf16_verdict(f"d{name}", g, *(p[i] for p in plain), failures)
+                  for i, (name, g) in enumerate(zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads)))
+    return fwd_err, bwd_err, [f"K1-bf16 {f} ({label})" for f in failures]
+
+
+def check_k1_bf16_cases(device, model, coeffs):
+    """Phase 26 over the flagship's operands (from the bfloat16 model) and
+    K1_BF16_CASES."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    with torch.no_grad():
+        p = packed_operands(model, coeffs)
+    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+    if ops[0].dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in ops[1:]):
+        raise AssertionError("the bfloat16 model's packing is not K1's bfloat16 mode")
+    errors = [check_k1_bf16(f"flagship B{BATCH} H{HIDDEN} C{CHANNELS} W{WIDTH} rk4 m1 terminal",
+                            ops, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)))]
+    for seed, (name, B, n, H, C, W, method, m, which) in enumerate(K1_BF16_CASES, start=1):
+        plan = k1._Plan(method, m, 1.0 / m, knot_set(which, n))
+        errors.append(check_k1_bf16(f"{name} B{B} n{n} H{H} C{C} W{W} {method} m{m} {which}",
+                                    _bf16_operands(random_operands(B, n, H, C, W, seed, device)),
+                                    plan))
+    failures = [f for e in errors for f in e[2]]
+    if failures:
+        raise AssertionError("K1's bfloat16 mode disagrees with its plain version: "
+                             + "; ".join(failures))
+    return max(e[0] for e in errors), max(e[1] for e in errors)
+
+
+def plain_k1():
+    """Routes the fused fixed-step solve to K1's plain version (with the
+    bfloat16 mode's rounding for a bfloat16 slab table), on the card."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    return mock.patch.object(k1, "fused_fixed_solve", k1.fused_fixed_solve_reference)
+
+
+def quantized_f32(model, coeffs):
+    """A float32 copy of a bfloat16 model whose weights are its masters
+    rounded to bfloat16, and the coefficients rounded the same way: the
+    float32 solve of the bfloat16 model's problem."""
+    f32 = copy.deepcopy(model)
+    f32.cfg = dataclasses.replace(f32.cfg, compute_dtype=None)
+    with torch.no_grad():
+        for param in f32.parameters():
+            param.copy_(param.bfloat16().float())
+    return f32, coeffs.bfloat16().float()
+
+
+def _close(got, ref):
+    """bf16 values against float32 (BF16_CLOSE of the largest magnitude, or
+    of 1): (max abs error, largest |ref|, ok)."""
+    err, scale = _err(got.double(), ref.double())
+    return err, scale, bool(torch.isfinite(got).all()) and err <= BF16_CLOSE * max(scale, 1.0)
+
+
+def _close_grad(got, ref):
+    """A bf16 gradient against float32: relative Frobenius error within
+    BF16_CLOSE (a gradient's entries cancel; the JAX package holds its bf16
+    gradients in this norm): (rel_l2, ok)."""
+    rel = _rel_l2(got, ref.double())
+    return rel, bool(torch.isfinite(got).all()) and rel <= BF16_CLOSE
+
+
+def bf16_slices(device, model, coeffs, labels):
+    """Phase 27: bench.py's configuration (the flagship in bfloat16): the
+    logits against the plain version and the float32 solve of the same
+    quantized problem, five Adam steps and one accuracy call with every plain
+    version patched to raise and K1's launches counted by mode; then one
+    bfloat16 default-configuration step through K2 (B 256) and one small
+    bfloat16 solve and gradient each through K8 and K9, for route, dtype and
+    closeness to the float32 solve of the same quantized problem."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models import accuracy, make_train_step
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+    from torchcde_tpu_torch.solvers.terms import MLPVectorField
+
+    failures, report = [], {}
+    with torch.no_grad():
+        logits = model(coeffs)
+        with plain_k1():
+            plain_logits = model(coeffs)
+        f32_model, f32_coeffs = quantized_f32(model, coeffs)
+        f32_logits = f32_model(f32_coeffs)
+    e_plain = _rel_l2(logits, plain_logits.double())
+    gap = _rel_l2(f32_logits, plain_logits.double())
+    err, scale, close = _close(logits, f32_logits)
+    print(f"bf16 flagship logits: dtype {logits.dtype}, rel_l2 against the plain version "
+          f"{e_plain:.3e} (limit {BF16_SHARE * gap:.3e}, half its gap to float32 {gap:.3e}); "
+          f"against float32 max_abs_err {err:.3e} (largest |value| {scale:.3e})", flush=True)
+    if logits.dtype != torch.bfloat16 or logits.shape != (BATCH, 1) or not close \
+            or e_plain > BF16_SHARE * gap:
+        failures.append("flagship logits")
+
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    with plain_versions_raise():
+        k1.reset_launch_counts()
+        losses = [float(step(coeffs, labels)) for _ in range(5)]
+        after_steps = (k1.BF16_FWD_LAUNCHES, k1.BF16_BWD_LAUNCHES)
+        acc = float(accuracy(model, coeffs, labels))
+        torch.cuda.synchronize()
+    launches = {"fwd": k1.FWD_LAUNCHES, "bwd": k1.BWD_LAUNCHES,
+                "bf16_fwd": k1.BF16_FWD_LAUNCHES, "bf16_bwd": k1.BF16_BWD_LAUNCHES}
+    grad_dtypes = sorted({str(param.grad.dtype) for param in model.parameters()})
+    print(f"bf16 flagship slice: 5 Adam steps, losses {losses}, accuracy {acc:.4f}, "
+          f"K1 launches {launches}, master gradients {grad_dtypes}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or losses[-1] == losses[0]:
+        failures.append(f"losses {losses}")
+    if after_steps != (5, 5) or launches != {"fwd": 6, "bwd": 5, "bf16_fwd": 6, "bf16_bwd": 5}:
+        failures.append(f"K1 launches {launches}")
+    if grad_dtypes != ["torch.float32"]:
+        failures.append(f"master gradients {grad_dtypes}")
+    report["flagship"] = {"losses": losses, "accuracy": acc, "k1_launches": launches,
+                          "logits_rel_l2_vs_plain": e_plain, "logits_max_abs_err_vs_f32": err}
+
+    # The default configuration (dopri5, adjoint) in bfloat16 through K2.
+    d_model, d_coeffs, d_labels = default_model(device, 256, config=dict(DEFAULT, compute_dtype="bfloat16"))
+    with torch.no_grad():
+        f32_model, f32_coeffs = quantized_f32(d_model, d_coeffs)
+        f32_logits = f32_model(f32_coeffs)
+    d_step = make_train_step(d_model, torch.optim.Adam(d_model.parameters(), lr=1e-3, eps=1e-8))
+    with plain_versions_raise():
+        k2.reset_launch_counts()
+        with torch.no_grad():
+            d_logits = d_model(d_coeffs)
+        d_loss = float(d_step(d_coeffs, d_labels))
+        torch.cuda.synchronize()
+    counts = {"fwd": k2.FWD_LAUNCHES, "bwd": k2.BWD_LAUNCHES}
+    err, scale, close = _close(d_logits, f32_logits)
+    print(f"bf16 default B256: logits dtype {d_logits.dtype}, against float32 max_abs_err "
+          f"{err:.3e} (largest |value| {scale:.3e}); one step, loss {d_loss:.5f}, K2 launches "
+          f"{counts}", flush=True)
+    if d_logits.dtype != torch.bfloat16 or not close or not math.isfinite(d_loss) \
+            or counts != {"fwd": 2, "bwd": 1}:
+        failures.append("default configuration through K2")
+    report["default_B256"] = {"loss": d_loss, "k2_launches": counts, "logits_max_abs_err_vs_f32": err}
+
+    # One small solve and its gradient each through K8 and K9.
+    X_np, _ = spiral_data(64, 33, seed=5)
+    x = torch.from_numpy(X_np).to(device)
+    gen = torch.Generator().manual_seed(5)
+    field32 = MLPVectorField(HIDDEN, CHANNELS, WIDTH)
+    for layer in (field32.linear1, field32.linear2):
+        bound_ = 1.0 / math.sqrt(layer.in_features)
+        with torch.no_grad():
+            layer.weight.uniform_(-bound_, bound_, generator=gen)
+            layer.bias.uniform_(-bound_, bound_, generator=gen)
+    field32 = field32.to(device)
+    z0_32 = torch.randn((64, HIDDEN), generator=gen).to(device)
+    cases = {
+        "K8": (k8, dict(method="reversible_heun", adjoint=True, backend="torchsde", dt=1.0)),
+        "K9": (k9, dict(method="dopri5", adjoint=False, options={"per_sample": True})),
+    }
+    for name, (module, kwargs) in cases.items():
+        outs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            X = tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(
+                x.to(torch.bfloat16).to(dtype)))
+            field = copy.deepcopy(field32)
+            with torch.no_grad():
+                for param in field.parameters():
+                    param.copy_(param.bfloat16().float())
+            field = field.to(dtype)
+            z0 = z0_32.bfloat16().to(dtype).requires_grad_()
+            module.reset_launch_counts()
+            with plain_versions_raise():
+                out = tt.cdeint(X, field, z0, X.interval, **kwargs)
+                out.float().square().sum().backward()
+                torch.cuda.synchronize()
+            outs[dtype] = (out, z0.grad, {"fwd": module.FWD_LAUNCHES, "bwd": module.BWD_LAUNCHES})
+        (out16, g16, counts16), (out32, g32, _) = outs[torch.bfloat16], outs[torch.float32]
+        err, scale, close = _close(out16, out32)
+        gerr, gclose = _close_grad(g16, g32)
+        print(f"bf16 {name}: solution dtype {out16.dtype} max_abs_err against float32 {err:.3e} "
+              f"(largest |value| {scale:.3e}); z0 gradient dtype {g16.dtype} rel_l2 {gerr:.3e}; "
+              f"launches {counts16}", flush=True)
+        if (out16.dtype != torch.bfloat16 or g16.dtype != torch.bfloat16 or not close
+                or not gclose or counts16["fwd"] < 1 or counts16["bwd"] < 1):
+            failures.append(f"{name} in bfloat16")
+        report[name] = {"launches": counts16, "max_abs_err_vs_f32": err, "grad_rel_l2_vs_f32": gerr}
+    if failures:
+        raise AssertionError("the bfloat16 slices failed: " + "; ".join(failures))
+    return report
+
+
+def time_bf16(device, model, f32_model, coeffs, labels):
+    """Phase 28: K1's bfloat16 mode and its plain version at the flagship,
+    and the bfloat16 flagship step beside the float32 one and the bfloat16
+    plain step, by CUDA events, in turns; then a profile of the bf16 step."""
+    from torchcde_tpu_torch.models import make_train_step
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    with torch.no_grad():
+        p = packed_operands(model, coeffs)
+    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+    n = p.ct.shape[0]
+    plan = k1._Plan("rk4", 1, 1.0, (n,))
+    out, zres = k1.launch_forward(*ops, plan)
+    gz = torch.ones_like(out)
+    timing = {
+        "k1_bf16_fwd_ms": _event_ms(lambda: k1.launch_forward(*ops, plan), 10),
+        "k1_bf16_bwd_ms": _event_ms(lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5),
+    }
+    with torch.no_grad():
+        timing["k1_bf16_fwd_plain_ms"] = _event_ms(
+            lambda: k1.fused_fixed_solve_reference(*ops, "rk4", 1, 1.0, (n,)), 3)
+    leaves = [ops[0].detach().clone().requires_grad_()] + [t.detach().clone().requires_grad_()
+                                                           for t in ops[1:]]
+    ref = k1.fused_fixed_solve_reference(*leaves, "rk4", 1, 1.0, (n,))
+    timing["k1_bf16_bwd_plain_ms"] = _event_ms(
+        lambda: torch.autograd.grad(ref, leaves, gz, retain_graph=True), 3)
+
+    models = {"bf16": copy.deepcopy(model), "f32": copy.deepcopy(f32_model),
+              "bf16_plain": copy.deepcopy(model)}
+    steps = {name: make_train_step(m, torch.optim.Adam(m.parameters(), lr=1e-3, eps=1e-8))
+             for name, m in models.items()}
+
+    def plain_step():
+        with plain_k1():
+            steps["bf16_plain"](coeffs, labels)
+
+    fns = {"bf16": lambda: steps["bf16"](coeffs, labels), "f32": lambda: steps["f32"](coeffs, labels),
+           "bf16_plain": plain_step}
+    samples = {name: [] for name in fns}
+    for name, fn in fns.items():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    for order in (("f32", "bf16", "bf16_plain"), ("bf16_plain", "bf16", "f32")):
+        for name in order:
+            for _ in range(2 if name == "bf16_plain" else 5):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fns[name]()
+                end.record()
+                torch.cuda.synchronize()
+                samples[name].append(start.elapsed_time(end))
+    timing.update({f"{name}_flagship_train_step_ms": statistics.median(v) for name, v in samples.items()})
+    timing["flagship_train_step_samples_ms"] = samples
+    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_kernel\b"}
+    profile = profile_train_steps(model, coeffs, labels, k1_kinds)
+    return timing, profile
+
+
 def _once_ms(fn):
     """Milliseconds of one call of fn() on the current stream, by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2141,10 +2530,11 @@ def k8_bounds(batch, n, m):
             bound(2 * ct_bytes + 3 * states + state, 6 * m * n * batch * f))
 
 
-def bound(bytes_moved, flops):
-    """(least ms, what bounds it): bytes over the HBM rate against float32
-    operations over the CUDA cores' rate."""
-    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound(bytes_moved, flops, flops_per_s=FP32_FLOPS):
+    """(least ms, what bounds it): bytes over the HBM rate against the
+    operations over their type's peak rate (float32 on the CUDA cores unless
+    flops_per_s says otherwise)."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -2248,13 +2638,23 @@ def fused_bounds(k2_ms):
     accepted step and adds the VJP's and the weight gradients' products, 3
     times 7 per accepted step.  Bytes (the control's coefficients, states
     and cotangents) are far below: operations bound."""
+    n = LENGTH - 1
+    return k1_bounds(bf16=False) + k2_bounds(k2_ms, BATCH, n, CHANNELS, 3)
+
+
+def k1_bounds(bf16):
+    """K1's least times at the flagship (see fused_bounds), forward and
+    backward.  The bfloat16 mode's slabs (and their cotangents) take 2 bytes
+    instead of 4, and its stage products, whose operands are bfloat16 summed
+    in float32, count at the tensor cores' bfloat16 rate."""
     f = 2 * WIDTH * HIDDEN * (1 + CHANNELS)
     n = LENGTH - 1
-    ct_bytes = 4 * n * 3 * CHANNELS * BATCH
+    ct_bytes = (2 if bf16 else 4) * n * 3 * CHANNELS * BATCH
     state = 4 * HIDDEN * BATCH
-    k1_fwd = bound(ct_bytes + state + 4 * n * HIDDEN * BATCH, n * 4 * BATCH * f)
-    k1_bwd = bound(2 * ct_bytes + 2 * 4 * n * HIDDEN * BATCH + 2 * state, 3 * n * 4 * BATCH * f)
-    return (k1_fwd, k1_bwd) + k2_bounds(k2_ms, BATCH, n, CHANNELS, 3)
+    rate = BF16_TENSOR_FLOPS if bf16 else FP32_FLOPS
+    return (bound(ct_bytes + state + 4 * n * HIDDEN * BATCH, n * 4 * BATCH * f, rate),
+            bound(2 * ct_bytes + 2 * 4 * n * HIDDEN * BATCH + 2 * state,
+                  3 * n * 4 * BATCH * f, rate))
 
 
 def k2_bounds(k2_ms, batch, n, channels, rows):
@@ -2442,6 +2842,23 @@ def main():
     k9_launches = {kind: sum(r["k9_launches"][kind] for r in ps_slice.values())
                    for kind in ("fwd", "bwd")}
 
+    elapsed("26")
+    # 26-28. Mixed precision (bench.py's configuration): K1's bfloat16 mode
+    # against its plain version, the slices (the flagship, and bf16 through
+    # K2, K8 and K9), the timing beside the float32 flagship and a profile.
+    bf16_model = make_model(device, config=BF16_FLAGSHIP)
+    k1b_fwd_err, k1b_bwd_err = check_k1_bf16_cases(device, bf16_model, coeffs)
+    elapsed("27")
+    bf16_report = bf16_slices(device, copy.deepcopy(bf16_model), coeffs, labels)
+    bf16_launches = bf16_report["flagship"]["k1_launches"]
+    elapsed("28")
+    bf16_ms, bf16_profile = time_bf16(device, bf16_model, model, coeffs, labels)
+    k1b_fwd_bound, k1b_bwd_bound = k1_bounds(bf16=True)
+    print("timing: " + json.dumps({"card": smi, **bf16_ms, "k1_bf16_fwd_bound_ms": k1b_fwd_bound[0],
+                                   "k1_bf16_bwd_bound_ms": k1b_bwd_bound[0],
+                                   "bf16_slices": bf16_report}))
+    print("profile: " + json.dumps(dict(bf16_profile, config="flagship bf16 (bench.py)", card=smi)))
+
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)
     # No single PyTorch call computes a fused CDE solve: K1's, K2's and K8's
@@ -2496,6 +2913,18 @@ def main():
          "launches": k9_launches["bwd"], "max_abs_err": k9_bwd_err, "ms": k9_ms["k9_bwd_ms"],
          "plain_ms": k9_ms["k9_bwd_plain_first_launch_ms"], "bound_ms": k9_bwd_bound[0],
          "bound_by": k9_bwd_bound[1], "library_ms": None},
+    ]
+    kernels += [
+        {"name": "K1-bf16-fwd", "route": "cuda", "source": SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_pallas.py:182",
+         "launches": bf16_launches["bf16_fwd"], "max_abs_err": k1b_fwd_err,
+         "ms": bf16_ms["k1_bf16_fwd_ms"], "plain_ms": bf16_ms["k1_bf16_fwd_plain_ms"],
+         "bound_ms": k1b_fwd_bound[0], "bound_by": k1b_fwd_bound[1], "library_ms": None},
+        {"name": "K1-bf16-bwd", "route": "cuda", "source": SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_pallas.py:265",
+         "launches": bf16_launches["bf16_bwd"], "max_abs_err": k1b_bwd_err,
+         "ms": bf16_ms["k1_bf16_bwd_ms"], "plain_ms": bf16_ms["k1_bf16_bwd_plain_ms"],
+         "bound_ms": k1b_bwd_bound[0], "bound_by": k1b_bwd_bound[1], "library_ms": None},
     ]
     for name in ("K3", "K4", "K5", "K6/K7"):
         ms, plain_ms, bound_ms, bound_by, library_ms = fit_ms[name]

@@ -176,10 +176,21 @@ def test_eligibility_declines():
     # Shapes at the caps stay eligible.
     assert k1.try_fused_mlp(_rows(5), torch.zeros(4, 102, dtype=torch.float64),
                             _field(102, 5, 512), "rk4", 8, 1.0, N) is not None
-    # bfloat16, which the JAX kernel takes, raises until its port lands.
+    # bfloat16 takes the kernels' bfloat16 mode, returns bfloat16 and stays
+    # near the float32 solve of the same quantized problem (bfloat16 keeps ~3
+    # digits); mixed dtypes decline (tests/test_fused_pallas.py).
     bf = torch.bfloat16
-    with pytest.raises(NotImplementedError, match=re.escape(k1.BF16_NOT_PORTED)):
-        k1.try_fused_mlp(_rows(dtype=bf), z0.to(bf), _field(dtype=bf), "rk4", 1, 1.0, N)
+    rng = np.random.default_rng(4)
+    rows = tuple(torch.from_numpy(rng.standard_normal((4, N, C)) * 0.3).to(bf) for _ in range(3))
+    z0 = torch.from_numpy(rng.standard_normal((4, 8))).to(bf)
+    field = _field(dtype=bf)
+    out = k1.try_fused_mlp(rows, z0, field, "rk4", 1, 1.0, N)
+    ref = k1.try_fused_mlp(tuple(r.float() for r in rows), z0.float(), field.float(), "rk4", 1,
+                           1.0, N)
+    assert out.dtype == bf and ref.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().float().numpy(), ref.detach().numpy(), rtol=0.06,
+                               atol=0.06)
+    assert k1.try_fused_mlp(rows, z0.float(), field, "rk4", 1, 1.0, N) is None
 
 
 @pytest.mark.parametrize("kwargs, item", [

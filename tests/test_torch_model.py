@@ -104,8 +104,23 @@ def test_initialisation_is_seeded_and_bounded():
         assert torch.equal(pa, pb), name
     bound = 1.0 / math.sqrt(WIDTH)
     assert float(a.func.linear2.weight.detach().abs().max()) <= bound
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="bfloat16"), device="cpu")
+    # compute_dtype keeps the same float32 masters and computes in bfloat16:
+    # the logits come back bfloat16, near the float32 model's on the same
+    # quantized problem (tests/test_solver_extras.py, bfloat16 end to end).
+    c = NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="bfloat16"),
+                  generator=torch.Generator().manual_seed(3), device="cpu")
+    for (name, pa), pc in zip(a.named_parameters(), c.parameters()):
+        assert pc.dtype == torch.float32 and torch.equal(pa, pc), name
+    X, _ = _spiral(4, 8)
+    coeffs = tt.hermite_cubic_coefficients_with_backward_differences(torch.from_numpy(X).float())
+    with torch.no_grad():
+        for param in a.parameters():
+            param.copy_(param.bfloat16().float())
+        out16, out32 = c(coeffs), a(coeffs.bfloat16().float())
+    assert out16.dtype == torch.bfloat16 and out32.dtype == torch.float32
+    np.testing.assert_allclose(out16.float().numpy(), out32.numpy(), rtol=0.06, atol=0.06)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        NeuralCDE(NeuralCDEConfig(**FLAGSHIP, compute_dtype="int32"), device="cpu")
 
 
 # The reference default: dopri5 with the adjoint.  The port routes it to K2

@@ -21,6 +21,17 @@
 // lanes, 16 slab rows per interval): operands are packed (feature, batch)
 // without padding.  No --use_fast_math: tanhf stays the accurate version.
 //
+// Two modes, as the TPU kernels have (their mx and ct_dtype): float32, and
+// bfloat16 for bfloat16 models (mode 1).  In the bfloat16 mode the slab
+// table ct and its cotangent dct are bfloat16: slabs are upcast on load and
+// dct is summed in float32 and stored rounded, which halves the slab bytes.
+// The state, the weights and every sum stay float32, and the operands of the
+// stage products are rounded to bfloat16 where the TPU kernel feeds its
+// matrix unit bfloat16 operands (cde_stage.cuh, cde_generic.cuh; in the
+// generic variant also the selection products of the TPU kernel's padded
+// layout, used where H % 8 != 0).  Each rounding is two conversions; the
+// products stay on the CUDA cores.  Both modes have the same bound.
+//
 // Two variants compute the same function; ff_variant picks one from the
 // shapes, and every shape inside the JAX package's caps (W <= 512,
 // C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
@@ -61,6 +72,7 @@
 //
 // Layouts (all float32, batch minor):
 //   ct   (n, 3, C, B)  rows b, 2c, 3d of the control's cubic per interval
+//                      (float32, or bfloat16 in the bfloat16 mode, as dct)
 //   z0t  (H, B)        w1t (W, H)  b1 (W)  w2t (C*H, W)  b2 (C*H)
 //   w2t/b2 rows are in the kernel order q = i*H + h (the model's h*C + i,
 //   permuted by the wrapper).
@@ -96,7 +108,7 @@ __device__ __forceinline__ float stage_fraction(const Tableau& tab, int s,
 
 // One substep (all stages) from z, in place.  With ys != nullptr the stage
 // inputs are kept for the backward.
-template <int H, int C>
+template <int H, int C, bool MX>
 __device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
                         int s, double dt, const float (&sb)[C],
                         const float (&sc)[C], const float (&sd)[C],
@@ -115,7 +127,7 @@ __device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
     }
     float dx[C], g[CH];
     control_derivative<C>(sb, sc, sd, stage_fraction(tab, s, st, dt), dx);
-    mlp_forward<H, C, false>(sm, W, y, g, nullptr);
+    mlp_forward<H, C, false, MX>(sm, W, y, g, nullptr);
     contract<H, C>(g, dx, k);
     if (tab.c_dt[st] != 0.f) {
 #pragma unroll
@@ -126,9 +138,9 @@ __device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
   for (int h = 0; h < H; ++h) z[h] = znew[h];
 }
 
-template <int H, int C>
+template <int H, int C, typename T, bool MX>
 __global__ void __launch_bounds__(LANES)
-    fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
+    fwd_kernel(const T* __restrict__ ct, const float* __restrict__ z0t,
                const float* __restrict__ w1t, const float* __restrict__ b1,
                const float* __restrict__ w2t, const float* __restrict__ b2,
                const int* __restrict__ slot, float* __restrict__ out,
@@ -146,9 +158,9 @@ __global__ void __launch_bounds__(LANES)
   for (int h = 0; h < H; ++h) z[h] = z0t[(size_t)h * B + lane];
   for (int j = 0; j < n; ++j) {
     float sb[C], sc[C], sd[C];
-    load_slab<H, C>(ct, j, B, lane, true, sb, sc, sd);
+    load_slab<H, C, T>(ct, j, B, lane, true, sb, sc, sd);
     for (int s = 0; s < m; ++s)
-      substep<H, C>(sm, W, tab, s, dt, sb, sc, sd, z, nullptr);
+      substep<H, C, MX>(sm, W, tab, s, dt, sb, sc, sd, z, nullptr);
 #pragma unroll
     for (int h = 0; h < H; ++h) zres[((size_t)j * H + h) * B + lane] = z[h];
     const int sl = slot[j];
@@ -159,13 +171,13 @@ __global__ void __launch_bounds__(LANES)
   }
 }
 
-template <int H, int C>
+template <int H, int C, typename T, bool MX>
 __global__ void __launch_bounds__(LANES)
-    bwd_kernel(const float* __restrict__ ct, const float* __restrict__ zres,
+    bwd_kernel(const T* __restrict__ ct, const float* __restrict__ zres,
                const float* __restrict__ z0t, const float* __restrict__ gz,
                const float* __restrict__ w1t, const float* __restrict__ b1,
                const float* __restrict__ w2t, const float* __restrict__ b2,
-               const int* __restrict__ slot, float* __restrict__ dct,
+               const int* __restrict__ slot, T* __restrict__ dct,
                float* __restrict__ dz0, float* __restrict__ dw1p,
                float* __restrict__ db1p, float* __restrict__ dw2p,
                float* __restrict__ db2p, int B, int n, int W, int m,
@@ -197,7 +209,7 @@ __global__ void __launch_bounds__(LANES)
       for (int h = 0; h < H; ++h) lam[h] += gz[((size_t)sl * H + h) * B + lane];
     }
     float sb[C], sc[C], sd[C];
-    load_slab<H, C>(ct, j, B, lane, live, sb, sc, sd);
+    load_slab<H, C, T>(ct, j, B, lane, live, sb, sc, sd);
     // Interval j starts from knot j: z0 or the residual of interval j - 1.
 #pragma unroll
     for (int h = 0; h < H; ++h) {
@@ -212,7 +224,7 @@ __global__ void __launch_bounds__(LANES)
       float z[H];
 #pragma unroll
       for (int h = 0; h < H; ++h) z[h] = zs[s][h];
-      substep<H, C>(sm.field, W, tab, s, dt, sb, sc, sd, z, nullptr);
+      substep<H, C, MX>(sm.field, W, tab, s, dt, sb, sc, sd, z, nullptr);
 #pragma unroll
       for (int h = 0; h < H; ++h) zs[s + 1][h] = z[h];
     }
@@ -226,7 +238,7 @@ __global__ void __launch_bounds__(LANES)
         float z[H];
 #pragma unroll
         for (int h = 0; h < H; ++h) z[h] = zs[s][h];
-        substep<H, C>(sm.field, W, tab, s, dt, sb, sc, sd, z, ys);
+        substep<H, C, MX>(sm.field, W, tab, s, dt, sb, sc, sd, z, ys);
       }
       float v[MAX_STAGES][H];
       for (int st = S - 1; st >= 0; --st) {
@@ -240,7 +252,7 @@ __global__ void __launch_bounds__(LANES)
         }
         const float fr = stage_fraction(tab, s, st, dt);
         control_derivative<C>(sb, sc, sd, fr, dx);
-        stage_vjp<H, C>(sm, W, u, y, dx, dy, ddx);
+        stage_vjp<H, C, MX>(sm, W, u, y, dx, dy, ddx);
 #pragma unroll
         for (int i = 0; i < C; ++i) {
           acc_b[i] += ddx[i];
@@ -256,12 +268,12 @@ __global__ void __launch_bounds__(LANES)
       }
     }
     if (live) {
-      float* row = dct + (size_t)j * 3 * C * B + lane;
+      T* row = dct + (size_t)j * 3 * C * B + lane;
 #pragma unroll
       for (int i = 0; i < C; ++i) {
-        row[(size_t)i * B] = acc_b[i];
-        row[(size_t)(C + i) * B] = acc_c[i];
-        row[(size_t)(2 * C + i) * B] = acc_d[i];
+        store_as(row + (size_t)i * B, acc_b[i]);
+        store_as(row + (size_t)(C + i) * B, acc_c[i]);
+        store_as(row + (size_t)(2 * C + i) * B, acc_d[i]);
       }
     }
   }
@@ -332,10 +344,13 @@ __device__ __forceinline__ float gen_dx(const GenVecs& s, int C, int i,
 
 // One substep (all stages) from z in shared memory, in place; with ys the
 // stage inputs are kept (ys[st * H + h]).  Each state entry h belongs to one
-// thread throughout.  Starts after, and ends with, a barrier.
+// thread throughout.  With MX and sel (H % 8 != 0), k sums the rounded
+// g dx_rounded, as the TPU kernel's selection product sel (g (rep dx)) does.
+// Starts after, and ends with, a barrier.
+template <bool MX>
 __device__ void gen_substep(const GenField& f, const GenVecs& s,
                             const Tableau& tab, int step, double dt, float* z,
-                            float* ys) {
+                            float* ys, bool sel) {
   const int H = f.H, C = f.C, tid = threadIdx.x, nt = blockDim.x;
   for (int st = 0; st < tab.n_stages; ++st) {
     for (int h = tid; h < H; h += nt) {
@@ -346,10 +361,18 @@ __device__ void gen_substep(const GenField& f, const GenVecs& s,
     }
     if (tid < C) s.dx[tid] = gen_dx(s, C, tid, stage_fraction(tab, step, st, dt));
     __syncthreads();
-    gen_mlp(f, s.y, s.h1, s.g);
+    gen_mlp<MX>(f, s.y, s.h1, s.g);
+    const bool rsel = MX && sel;
     for (int h = tid; h < H; h += nt) {
-      float acc = s.g[h] * s.dx[0];
-      for (int i = 1; i < C; ++i) acc += s.g[i * H + h] * s.dx[i];
+      float acc;
+      if (rsel) {
+        acc = 0.f;
+        for (int i = 0; i < C; ++i)
+          acc += mx_round<true>(s.g[i * H + h] * mx_round<true>(s.dx[i]));
+      } else {
+        acc = s.g[h] * s.dx[0];
+        for (int i = 1; i < C; ++i) acc += s.g[i * H + h] * s.dx[i];
+      }
       s.k[h] = acc;
       if (tab.c_dt[st] != 0.f) s.znew[h] += tab.c_dt[st] * acc;
     }
@@ -359,20 +382,23 @@ __device__ void gen_substep(const GenField& f, const GenVecs& s,
   __syncthreads();
 }
 
+template <typename T, bool MX>
 __global__ void __launch_bounds__(GEN_THREADS)
-    gen_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
+    gen_fwd_kernel(const T* __restrict__ ct, const float* __restrict__ z0t,
                    GenField f, const int* __restrict__ slot,
                    float* __restrict__ out, float* __restrict__ zres, int B,
                    int n, int m, double dt, Tableau tab) {
   extern __shared__ float smem[];
   const GenVecs s(smem, GenLayout(f.H, f.C, f.W, m, tab.n_stages, false, false));
   const int H = f.H, C3 = 3 * f.C, tid = threadIdx.x, nt = blockDim.x;
+  const bool sel = H % 8 != 0;
   for (int lane = blockIdx.x; lane < B; lane += gridDim.x) {
     for (int h = tid; h < H; h += nt) s.z[h] = z0t[(size_t)h * B + lane];
     for (int j = 0; j < n; ++j) {
-      for (int r = tid; r < C3; r += nt) s.slab[r] = ct[((size_t)j * C3 + r) * B + lane];
+      for (int r = tid; r < C3; r += nt) s.slab[r] = to_float(ct[((size_t)j * C3 + r) * B + lane]);
       __syncthreads();
-      for (int step = 0; step < m; ++step) gen_substep(f, s, tab, step, dt, s.z, nullptr);
+      for (int step = 0; step < m; ++step)
+        gen_substep<MX>(f, s, tab, step, dt, s.z, nullptr, sel);
       const int sl = slot[j];
       for (int h = tid; h < H; h += nt) {
         zres[((size_t)j * H + h) * B + lane] = s.z[h];
@@ -382,17 +408,19 @@ __global__ void __launch_bounds__(GEN_THREADS)
   }
 }
 
+template <typename T, bool MX>
 __global__ void __launch_bounds__(GEN_THREADS)
-    gen_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ zres,
+    gen_bwd_kernel(const T* __restrict__ ct, const float* __restrict__ zres,
                    const float* __restrict__ z0t, const float* __restrict__ gz,
                    GenField f, const int* __restrict__ slot,
-                   float* __restrict__ dct, float* __restrict__ dz0,
+                   T* __restrict__ dct, float* __restrict__ dz0,
                    float* __restrict__ dw1p, float* __restrict__ db1p,
                    float* __restrict__ dw2p, float* __restrict__ db2p, int B,
                    int n, int m, double dt, Tableau tab, bool acc_smem) {
   extern __shared__ float smem[];
   const int H = f.H, C = f.C, W = f.W, CH = C * H, S = tab.n_stages;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const bool sel = H % 8 != 0;
   const GenLayout L(H, C, W, m, S, true, acc_smem);
   const GenVecs s(smem, L);
   const size_t blk = blockIdx.x;
@@ -419,18 +447,18 @@ __global__ void __launch_bounds__(GEN_THREADS)
         s.zs[h] = j == 0 ? z0t[(size_t)h * B + lane]
                          : zres[((size_t)(j - 1) * H + h) * B + lane];
       }
-      for (int r = tid; r < 3 * C; r += nt) s.slab[r] = ct[((size_t)j * 3 * C + r) * B + lane];
+      for (int r = tid; r < 3 * C; r += nt) s.slab[r] = to_float(ct[((size_t)j * 3 * C + r) * B + lane]);
       __syncthreads();
       // Recompute the substep chain z_0 .. z_{m-1}.
       for (int step = 0; step + 1 < m; ++step) {
         float* next = s.zs + (size_t)(step + 1) * H;
         for (int h = tid; h < H; h += nt) next[h] = s.zs[(size_t)step * H + h];
-        gen_substep(f, s, tab, step, dt, next, nullptr);
+        gen_substep<MX>(f, s, tab, step, dt, next, nullptr, sel);
       }
       float acc_b = 0.f, acc_c = 0.f, acc_d = 0.f;  // channel tid < C
       for (int step = m - 1; step >= 0; --step) {
         for (int h = tid; h < H; h += nt) s.z[h] = s.zs[(size_t)step * H + h];
-        gen_substep(f, s, tab, step, dt, s.z, s.ys);
+        gen_substep<MX>(f, s, tab, step, dt, s.z, s.ys, sel);
         for (int st = S - 1; st >= 0; --st) {
           for (int h = tid; h < H; h += nt) {
             float uh = tab.c_dt[st] != 0.f ? tab.c_dt[st] * s.lam[h] : 0.f;
@@ -440,7 +468,8 @@ __global__ void __launch_bounds__(GEN_THREADS)
           const float fr = stage_fraction(tab, step, st, dt);
           if (tid < C) s.dx[tid] = gen_dx(s, C, tid, fr);
           __syncthreads();
-          const float ddx = gen_stage_vjp(f, s.stage(), s.ys + st * H, s.v + st * H, gr);
+          const float ddx =
+              gen_stage_vjp<MX>(f, s.stage(), s.ys + st * H, s.v + st * H, gr, sel);
           acc_b += ddx;
           acc_c += fr * ddx;
           acc_d += (fr * fr) * ddx;
@@ -450,10 +479,10 @@ __global__ void __launch_bounds__(GEN_THREADS)
         }
       }
       if (tid < C) {
-        float* row = dct + (size_t)j * 3 * C * B + lane;
-        row[(size_t)tid * B] = acc_b;
-        row[(size_t)(C + tid) * B] = acc_c;
-        row[(size_t)(2 * C + tid) * B] = acc_d;
+        T* row = dct + (size_t)j * 3 * C * B + lane;
+        store_as(row + (size_t)tid * B, acc_b);
+        store_as(row + (size_t)(C + tid) * B, acc_c);
+        store_as(row + (size_t)(2 * C + tid) * B, acc_d);
       }
     }
     for (int h = tid; h < H; h += nt) dz0[(size_t)h * B + lane] = s.lam[h];
@@ -490,54 +519,55 @@ int make_tableau(int n_stages, const double* alpha, const double* a,
   return 0;
 }
 
-template <int H, int C>
-int launch_fwd(const float* ct, const float* z0t, const float* w1t,
+template <int H, int C, typename T, bool MX>
+int launch_fwd(const T* ct, const float* z0t, const float* w1t,
                const float* b1, const float* w2t, const float* b2,
                const int* slot, float* out, float* zres, int B, int n, int W,
                int m, double dt, const Tableau& tab, cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes(H, C, W);
-  cudaError_t err = set_smem(fwd_kernel<H, C>, smem);
+  cudaError_t err = set_smem(fwd_kernel<H, C, T, MX>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + LANES - 1) / LANES);
-  fwd_kernel<H, C><<<grid, LANES, smem, stream>>>(ct, z0t, w1t, b1, w2t, b2,
-                                                  slot, out, zres, B, n, W, m,
-                                                  dt, tab);
+  fwd_kernel<H, C, T, MX><<<grid, LANES, smem, stream>>>(
+      ct, z0t, w1t, b1, w2t, b2, slot, out, zres, B, n, W, m, dt, tab);
   return (int)cudaGetLastError();
 }
 
-template <int H, int C>
-int launch_bwd(const float* ct, const float* zres, const float* z0t,
+template <int H, int C, typename T, bool MX>
+int launch_bwd(const T* ct, const float* zres, const float* z0t,
                const float* gz, const float* w1t, const float* b1,
-               const float* w2t, const float* b2, const int* slot, float* dct,
+               const float* w2t, const float* b2, const int* slot, T* dct,
                float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
                int B, int n, int W, int m, double dt, const Tableau& tab,
                cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(H, C, W);
-  cudaError_t err = set_smem(bwd_kernel<H, C>, smem);
+  cudaError_t err = set_smem(bwd_kernel<H, C, T, MX>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + LANES - 1) / LANES);
-  bwd_kernel<H, C><<<grid, LANES, smem, stream>>>(
+  bwd_kernel<H, C, T, MX><<<grid, LANES, smem, stream>>>(
       ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct, dz0, dw1p, db1p, dw2p,
       db2p, B, n, W, m, dt, tab);
   return (int)cudaGetLastError();
 }
 
-int launch_gen_fwd(const float* ct, const float* z0t, const GenField& f,
+template <typename T, bool MX>
+int launch_gen_fwd(const T* ct, const float* z0t, const GenField& f,
                    const int* slot, float* out, float* zres, int B, int n,
                    int m, double dt, const Tableau& tab, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * GenLayout(f.H, f.C, f.W, m, tab.n_stages, false, false).total;
   if (smem > MAX_SMEM) return BAD_ARGUMENT;
-  cudaError_t err = set_smem(gen_fwd_kernel, smem);
+  cudaError_t err = set_smem(gen_fwd_kernel<T, MX>, smem);
   if (err != cudaSuccess) return (int)err;
-  gen_fwd_kernel<<<B, GEN_THREADS, smem, stream>>>(ct, z0t, f, slot, out, zres,
-                                                   B, n, m, dt, tab);
+  gen_fwd_kernel<T, MX><<<B, GEN_THREADS, smem, stream>>>(ct, z0t, f, slot, out,
+                                                          zres, B, n, m, dt, tab);
   return (int)cudaGetLastError();
 }
 
-int launch_gen_bwd(const float* ct, const float* zres, const float* z0t,
+template <typename T, bool MX>
+int launch_gen_bwd(const T* ct, const float* zres, const float* z0t,
                    const float* gz, const GenField& f, const int* slot,
-                   float* dct, float* dz0, float* dw1p, float* db1p,
+                   T* dct, float* dz0, float* dw1p, float* db1p,
                    float* dw2p, float* db2p, int B, int n, int m, double dt,
                    const Tableau& tab, cudaStream_t stream) {
   const int S = tab.n_stages;
@@ -546,12 +576,45 @@ int launch_gen_bwd(const float* ct, const float* zres, const float* z0t,
   const size_t smem =
       sizeof(float) * GenLayout(f.H, f.C, f.W, m, S, true, acc_smem).total;
   if (smem > MAX_SMEM) return BAD_ARGUMENT;
-  cudaError_t err = set_smem(gen_bwd_kernel, smem);
+  cudaError_t err = set_smem(gen_bwd_kernel<T, MX>, smem);
   if (err != cudaSuccess) return (int)err;
-  gen_bwd_kernel<<<gen_backward_blocks(B, f.H, f.C, f.W), GEN_THREADS, smem,
-                   stream>>>(ct, zres, z0t, gz, f, slot, dct, dz0, dw1p, db1p,
-                             dw2p, db2p, B, n, m, dt, tab, acc_smem);
+  gen_bwd_kernel<T, MX><<<gen_backward_blocks(B, f.H, f.C, f.W), GEN_THREADS, smem,
+                          stream>>>(ct, zres, z0t, gz, f, slot, dct, dz0, dw1p, db1p,
+                                    dw2p, db2p, B, n, m, dt, tab, acc_smem);
   return (int)cudaGetLastError();
+}
+
+// Both variants of one mode: T the slab storage, MX the operand rounding.
+template <typename T, bool MX>
+int forward_mode(const void* ct, const float* z0t, const float* w1t,
+                 const float* b1, const float* w2t, const float* b2,
+                 const int* slot, float* out, float* zres, int B, int n, int H,
+                 int C, int W, int m, double dt, const Tableau& tab, int variant,
+                 cudaStream_t st) {
+  const T* slabs = static_cast<const T*>(ct);
+  if (variant == SPECIALISED)
+    return launch_fwd<8, 3, T, MX>(slabs, z0t, w1t, b1, w2t, b2, slot, out, zres,
+                                   B, n, W, m, dt, tab, st);
+  return launch_gen_fwd<T, MX>(slabs, z0t, GenField{w1t, b1, w2t, b2, H, C, W},
+                               slot, out, zres, B, n, m, dt, tab, st);
+}
+
+template <typename T, bool MX>
+int backward_mode(const void* ct, const float* zres, const float* z0t,
+                  const float* gz, const float* w1t, const float* b1,
+                  const float* w2t, const float* b2, const int* slot, void* dct,
+                  float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
+                  int B, int n, int H, int C, int W, int m, double dt,
+                  const Tableau& tab, int variant, cudaStream_t st) {
+  const T* slabs = static_cast<const T*>(ct);
+  T* dslabs = static_cast<T*>(dct);
+  if (variant == SPECIALISED)
+    return launch_bwd<8, 3, T, MX>(slabs, zres, z0t, gz, w1t, b1, w2t, b2, slot,
+                                   dslabs, dz0, dw1p, db1p, dw2p, db2p, B, n, W,
+                                   m, dt, tab, st);
+  return launch_gen_bwd<T, MX>(slabs, zres, z0t, gz,
+                               GenField{w1t, b1, w2t, b2, H, C, W}, slot, dslabs,
+                               dz0, dw1p, db1p, dw2p, db2p, B, n, m, dt, tab, st);
 }
 
 bool specialised_fits(int H, int C, int W) {
@@ -559,9 +622,10 @@ bool specialised_fits(int H, int C, int W) {
 }
 
 int check_call(int B, int n, int H, int C, int W, int m, int variant,
-               int n_stages, const double* alpha, const double* a,
+               int mode, int n_stages, const double* alpha, const double* a,
                const double* c, double dt, Tableau* tab) {
-  if (B < 1 || n < 1 || H < 1 || C < 1 || W < 1 || m < 1 || m > MAX_SUBSTEPS)
+  if (B < 1 || n < 1 || H < 1 || C < 1 || W < 1 || m < 1 || m > MAX_SUBSTEPS ||
+      (mode != 0 && mode != 1))
     return BAD_ARGUMENT;
   if (variant != GENERIC && !(variant == SPECIALISED && specialised_fits(H, C, W)))
     return BAD_VARIANT;
@@ -589,41 +653,45 @@ int ff_backward_blocks(int B, int H, int C, int W, int variant) {
                                 : gen_backward_blocks(B, H, C, W);
 }
 
-int ff_forward(const float* ct, const float* z0t, const float* w1t,
+// mode 0: float32 ct and dct; mode 1: bfloat16 ct and dct, bfloat16
+// operands in the stage products (the other pointers are float32 in both).
+int ff_forward(const void* ct, const float* z0t, const float* w1t,
                const float* b1, const float* w2t, const float* b2,
                const int* slot, float* out, float* zres, int B, int n, int H,
                int C, int W, int m, double dt, int n_stages,
                const double* alpha, const double* a, const double* c,
-               int variant, void* stream) {
+               int variant, int mode, void* stream) {
   Tableau tab;
-  const int rc = check_call(B, n, H, C, W, m, variant, n_stages, alpha, a, c, dt, &tab);
+  const int rc = check_call(B, n, H, C, W, m, variant, mode, n_stages, alpha, a, c, dt, &tab);
   if (rc) return rc;
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED)
-    return launch_fwd<8, 3>(ct, z0t, w1t, b1, w2t, b2, slot, out, zres, B, n,
-                            W, m, dt, tab, st);
-  return launch_gen_fwd(ct, z0t, GenField{w1t, b1, w2t, b2, H, C, W}, slot,
-                        out, zres, B, n, m, dt, tab, st);
+  if (mode == 1)
+    return forward_mode<__nv_bfloat16, true>(ct, z0t, w1t, b1, w2t, b2, slot, out,
+                                             zres, B, n, H, C, W, m, dt, tab,
+                                             variant, st);
+  return forward_mode<float, false>(ct, z0t, w1t, b1, w2t, b2, slot, out, zres, B,
+                                    n, H, C, W, m, dt, tab, variant, st);
 }
 
-int ff_backward(const float* ct, const float* zres, const float* z0t,
+int ff_backward(const void* ct, const float* zres, const float* z0t,
                 const float* gz, const float* w1t, const float* b1,
                 const float* w2t, const float* b2, const int* slot,
-                float* dct, float* dz0, float* dw1p, float* db1p, float* dw2p,
+                void* dct, float* dz0, float* dw1p, float* db1p, float* dw2p,
                 float* db2p, int B, int n, int H, int C, int W, int m,
                 double dt, int n_stages, const double* alpha, const double* a,
-                const double* c, int variant, void* stream) {
+                const double* c, int variant, int mode, void* stream) {
   Tableau tab;
-  const int rc = check_call(B, n, H, C, W, m, variant, n_stages, alpha, a, c, dt, &tab);
+  const int rc = check_call(B, n, H, C, W, m, variant, mode, n_stages, alpha, a, c, dt, &tab);
   if (rc) return rc;
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED)
-    return launch_bwd<8, 3>(ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct,
-                            dz0, dw1p, db1p, dw2p, db2p, B, n, W, m, dt, tab,
-                            st);
-  return launch_gen_bwd(ct, zres, z0t, gz, GenField{w1t, b1, w2t, b2, H, C, W},
-                        slot, dct, dz0, dw1p, db1p, dw2p, db2p, B, n, m, dt,
-                        tab, st);
+  if (mode == 1)
+    return backward_mode<__nv_bfloat16, true>(ct, zres, z0t, gz, w1t, b1, w2t, b2,
+                                              slot, dct, dz0, dw1p, db1p, dw2p,
+                                              db2p, B, n, H, C, W, m, dt, tab,
+                                              variant, st);
+  return backward_mode<float, false>(ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct,
+                                     dz0, dw1p, db1p, dw2p, db2p, B, n, H, C, W, m,
+                                     dt, tab, variant, st);
 }
 
 }  // extern "C"

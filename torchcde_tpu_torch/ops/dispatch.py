@@ -44,12 +44,14 @@ def upcast_kernel_operands(*arrays):
     return arrays, lambda out: out
 
 
-def check_operands(tensors, names, mask=None):
-    """Every kernel operand: float32, contiguous, on the first one's CUDA
-    device; ``mask``, where a kernel takes one, bool on the same device and
-    contiguous.  Raises on anything the kernels do not take."""
+def check_operands(tensors, names, mask=None, dtypes=None):
+    """Every kernel operand: float32 (or its entry in ``dtypes``, by name),
+    contiguous, on the first one's CUDA device; ``mask``, where a kernel
+    takes one, bool on the same device and contiguous.  Raises on anything
+    the kernels do not take."""
     device = tensors[0].device
-    checked = [(t, name, torch.float32) for t, name in zip(tensors, names)]
+    dtypes = dtypes or {}
+    checked = [(t, name, dtypes.get(name, torch.float32)) for t, name in zip(tensors, names)]
     if mask is not None:
         checked.append((mask, "observed", torch.bool))
     for t, name, dtype in checked:

@@ -29,8 +29,9 @@ counterpart on the GPU, whose trajectory store lives in device memory, so the
 port always runs chunks of ``MAX_INTERVALS`` (the plans agree wherever the
 JAX one fits whole chunks in VMEM, as at 99 intervals and 4096 lanes).
 
-Returns None where the JAX package declines; bfloat16 raises
-``NotImplementedError``.
+bfloat16 operands are upcast to float32 at the boundary (the initial-step
+heuristic runs on them as given) and the solution is cast back, as the JAX
+package solves them.  Returns None where the JAX package declines.
 """
 
 import numpy as np
@@ -109,8 +110,6 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     if cfg.max_steps is not None and cfg.max_steps > k2.STORE_CAP:
         return None
     max_steps = min(cfg.max_steps or 4096, k2.STORE_CAP)
-    if z0.dtype == torch.bfloat16:
-        raise NotImplementedError(k2.BF16_NOT_PORTED)
     p = pack_operands(*rows, z0, func, linear=linear)
     if p is None:
         return None
@@ -127,7 +126,7 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     # The initial-step heuristic on the batch-shaped state, left on the
     # device: it is mesh data, outside autograd.
     rhs = make_cde_rhs(func, X)
-    t0 = torch.tensor(float(np.float32(ts_np[0])), dtype=z0.dtype, device=z0.device)
+    t0 = torch.tensor(float(np.float32(ts_np[0])), dtype=p.ct.dtype, device=z0.device)
     z0b = z0.detach().expand(p.batch + (p.H,))
     dt0 = select_initial_step(rhs, t0, z0b, DOPRI5.order, cfg.rtol, cfg.atol, rhs(t0, z0b))
     dt0 = dt0.reshape(1).to(p.ct.dtype)
@@ -150,4 +149,4 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
                 rows[k] = zout[row]
         groups.append(torch.stack(rows))  # (n_out, H, lanes)
     out = torch.cat(groups, dim=-1).transpose(1, 2)  # (n_out, B, H)
-    return out.reshape((len(ts_np),) + p.batch + (p.H,))
+    return out.reshape((len(ts_np),) + p.batch + (p.H,)).to(p.out_dtype)

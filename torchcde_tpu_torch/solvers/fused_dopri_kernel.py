@@ -46,10 +46,6 @@ MAX_INTERVALS = 128  # intervals per chunk
 MAX_OUT_TIMES = 64   # dense-output rows per chunk
 STORE_CAP = 2048     # accepted-step trajectory rows
 
-BF16_NOT_PORTED = (
-    "bfloat16 operands of the fused adaptive dopri5 solve are not ported to "
-    "torchcde_tpu_torch yet (ROADMAP.md queue 2, 'K1 bf16 slab storage').")
-
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 LINEAR_FWD_LAUNCHES = 0

@@ -37,9 +37,10 @@ memory, so the port runs every lane in one launch and chunks of
 ``MAX_INTERVALS`` (at the slice's shapes the JAX plan is the same eight
 128-interval chunks).
 
-Returns None where the JAX package declines, and where the output times
-require grad (the JAX plan declines traced ones); bfloat16 raises
-``NotImplementedError``.
+bfloat16 operands are upcast to float32 at the boundary (the initial-step
+heuristic runs on them as given) and the solution is cast back, as the JAX
+package solves them.  Returns None where the JAX package declines, and where
+the output times require grad (the JAX plan declines traced ones).
 """
 
 import numpy as np
@@ -175,8 +176,6 @@ def try_fused_dopri5_per_sample(X, func, z0, ts, *, rtol, atol, max_steps, t_row
     n = grid.shape[0] - 1
     if t_lo < float(grid[0]) - 1e-9 or t_hi > float(grid[-1]) + 1e-9:
         return None
-    if z0.dtype == torch.bfloat16:
-        raise NotImplementedError(k9.BF16_NOT_PORTED)
     p = pack_operands(*rows, z0, func, linear=linear)
     if p is None:
         return None
@@ -198,7 +197,7 @@ def try_fused_dopri5_per_sample(X, func, z0, ts, *, rtol, atol, max_steps, t_row
 
     dtype, device = p.ct.dtype, p.ct.device
     B, H = p.z0t.shape[1], p.H
-    z0b = p.z0f.detach()
+    z0b = p.z0f.detach().to(p.out_dtype)
     if t_rows is None:
         t0 = torch.tensor(t_lo, dtype=dtype, device=device)
         dt0 = _per_lane_initial_step(make_cde_rhs(func, X), t0, z0b, DOPRI5.order, rtol, atol)
@@ -224,4 +223,4 @@ def try_fused_dopri5_per_sample(X, func, z0, ts, *, rtol, atol, max_steps, t_row
         zout, z, ctl, _nacc, _natt = k9.fused_dopri5_per_sample_solve(
             p.ct[j0 - lead:j1], z.contiguous(), p.w1t, p.b1, p.w2t, p.b2, ctl, ts_rows,
             tend.contiguous(), zout, plan)
-    return zout.transpose(1, 2)  # (n_out, B, H)
+    return zout.transpose(1, 2).to(p.out_dtype)  # (n_out, B, H)

@@ -50,10 +50,6 @@ MAX_INTERVALS = 128  # intervals per chunk
 MAX_OUT_TIMES = 64   # output rows per lane
 STORE_CAP = 2048     # attempted steps per lane and chunk
 
-BF16_NOT_PORTED = (
-    "bfloat16 operands of the fused per-sample dopri5 solve are not ported to "
-    "torchcde_tpu_torch yet (ROADMAP.md queue 2, 'K1 bf16 slab storage').")
-
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 LINEAR_FWD_LAUNCHES = 0

@@ -13,7 +13,8 @@ about it.  This module holds what surrounds them:
 * ``fused_fixed_solve``: launches the kernels for CUDA tensors (through a
   ``torch.autograd.Function`` whose backward is the backward kernel) and runs
   the plain version for CPU tensors;
-* ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches.
+* ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches, and
+  ``BF16_FWD_LAUNCHES`` / ``BF16_BWD_LAUNCHES`` of those in the bfloat16 mode.
 
 Eligibility mirrors the JAX package's ``_pack_operands`` caps (width <= 512,
 C * H <= 512, 3 * C <= 16, or C <= 16 for a linear control's slopes, m <= 8,
@@ -21,9 +22,16 @@ one dtype) and is decided from shapes
 before any launch; a declined solve returns None and ``try_fused_fixed``
 streams the rows instead.  On the card the kernels take float32, and every
 float32 shape inside the caps launches one of their two variants (see the
-CUDA source); bfloat16, which the JAX kernel also takes, raises
-``NotImplementedError``.  A CUDA tensor never falls back to the plain
-version: the kernel launches or raises.
+CUDA source).
+
+Mixed precision follows the JAX package's dtype policy.  A bfloat16 model's
+solve keeps the coefficient slabs in bfloat16 (``ct_store="native"``), holds
+the state, the weights and every sum in float32, and rounds the operands of
+each stage product to bfloat16 where the JAX kernel feeds its matrix unit;
+the solution comes back bfloat16, and so do the slabs' cotangents.
+On the card that is the kernels' bfloat16 mode, which a bfloat16 slab table
+always launches.  A CUDA tensor never falls back to the plain version: the
+kernel launches or raises.
 """
 
 import ctypes
@@ -42,18 +50,15 @@ MAX_CONTRACT = 512  # C * H
 MAX_SLAB_ROWS = 16  # rows per interval: 3 * C (cubic), C (linear slopes)
 MAX_SUBSTEPS = 8
 
-BF16_NOT_PORTED = (
-    "bfloat16 operands of the fused fixed-step solve are not ported to "
-    "torchcde_tpu_torch yet (ROADMAP.md queue 2, 'K1 bf16 slab storage').")
-
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_FWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 
 
 def reset_launch_counts():
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = 0
-    BWD_LAUNCHES = 0
+    global FWD_LAUNCHES, BWD_LAUNCHES, BF16_FWD_LAUNCHES, BF16_BWD_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = BF16_FWD_LAUNCHES = BF16_BWD_LAUNCHES = 0
 
 
 def _chain_form(method):
@@ -73,7 +78,7 @@ def _chain_form(method):
 
 class Packed(NamedTuple):
     ct: torch.Tensor    # (n, R, C, B): rows b, 2c, 3d (R 3) or the slopes (R 1) per interval
-    z0t: torch.Tensor   # (H, B)
+    z0t: torch.Tensor   # (H, B); this and the weights float32 for a bfloat16 model
     w1t: torch.Tensor   # (W, H)
     b1: torch.Tensor    # (W,)
     w2t: torch.Tensor   # (C*H, W), rows in the kernel order i*H + h
@@ -81,16 +86,22 @@ class Packed(NamedTuple):
     z0f: torch.Tensor   # (B, H)
     batch: tuple
     H: int
+    out_dtype: torch.dtype  # the operands' own dtype, which the solution takes
 
 
-def pack_operands(b_rows, c_rows, d_rows, z0, field, linear=False):
+def pack_operands(b_rows, c_rows, d_rows, z0, field, linear=False, ct_store=None):
     """Validate shapes and pack the kernel operands, or None if ineligible.
 
     b_rows, c_rows, d_rows: (..., n, C) spline rows b, 2c, 3d; z0 (..., H);
     field: an ``MLPVectorField``.  ``linear=True``: b_rows are a
     ``LinearInterpolation``'s slopes and c_rows, d_rows are None; the table
     holds C rows per interval, so C <= 16 instead of 3 * C <= 16 (the
-    depth-3 log-ODE control's 14 channels fit)."""
+    depth-3 log-ODE control's 14 channels fit).
+
+    bfloat16 operands (the JAX package's policy): z0 and the weights are
+    upcast to float32, and so is the slab table unless ``ct_store="native"``
+    (K1's bfloat16 mode), which keeps it bfloat16.  The casts are autograd
+    ops, so bfloat16 inputs receive bfloat16 cotangents."""
     C = b_rows.shape[-1]
     H = field.hidden_channels
     w1, b1 = field.linear1.weight, field.linear1.bias
@@ -105,10 +116,13 @@ def pack_operands(b_rows, c_rows, d_rows, z0, field, linear=False):
     rows = (b_rows,) if linear else (b_rows, c_rows, d_rows)
     arrays = rows + (z0, w1, b1, w2, b2)
     if any(a.dtype != z0.dtype or a.device != z0.device for a in arrays):
-        return None
-    if z0.dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_NOT_PORTED)
-    if z0.is_cuda and z0.dtype != torch.float32:
+        return None  # mixed dtypes decline, as in the JAX package
+    out_dtype = z0.dtype
+    if out_dtype == torch.bfloat16:
+        z0, w1, b1, w2, b2 = (a.float() for a in (z0, w1, b1, w2, b2))
+        if ct_store != "native":
+            rows = tuple(r.float() for r in rows)
+    elif z0.is_cuda and out_dtype != torch.float32:
         return None  # as in the JAX package, whose kernel takes f32 and bf16
     n = b_rows.shape[-2]
     if any(r.shape[-2:] != (n, C) for r in rows):
@@ -130,7 +144,40 @@ def pack_operands(b_rows, c_rows, d_rows, z0, field, linear=False):
     w2t = w2.reshape(H, C, W).transpose(0, 1).reshape(C * H, W).contiguous()
     b2p = b2.reshape(H, C).t().reshape(C * H).contiguous()
     return Packed(ct, z0f.t().contiguous(), w1.contiguous(), b1.contiguous(),
-                  w2t, b2p, z0f, batch, H)
+                  w2t, b2p, z0f, batch, H, out_dtype)
+
+
+def round_bf16(x):
+    """x rounded to the nearest bfloat16, kept in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _MxDot(torch.autograd.Function):
+    """a @ b with both operands rounded to bfloat16 and the products summed
+    in a's dtype: the JAX kernels' ``_dot``/``_dg`` with bfloat16 operands
+    and float32 accumulation.  Its VJP is theirs too: each backward product
+    rounds its operands, the incoming cotangent included."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a, b = round_bf16(a), round_bf16(b)
+        ctx.save_for_backward(a, b)
+        return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = round_bf16(g)
+        return g @ b.t(), a.t() @ g
+
+
+def _mx_selection(C, H, dtype, device):
+    """The 0/1 matrices of the JAX kernels' padded layout (H % 8 != 0):
+    rep (C, C*H) repeats dx over h, sel (C*H, H) sums over i."""
+    rep = torch.kron(torch.eye(C, dtype=dtype, device=device),
+                     torch.ones((1, H), dtype=dtype, device=device))
+    sel = torch.eye(H, dtype=dtype, device=device).repeat(C, 1)
+    return rep, sel
 
 
 def fused_fixed_solve_reference(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub,
@@ -138,11 +185,28 @@ def fused_fixed_solve_reference(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub,
     """Plain PyTorch version of the kernels' function on the same operands.
 
     Returns the states at ``out_knots`` (each >= 1; knot k is the state after
-    interval k - 1) as (len(out_knots), H, B)."""
+    interval k - 1) as (len(out_knots), H, B), in z0t's dtype, in which it
+    computes (a bfloat16 slab table is upcast to it).
+
+    A bfloat16 slab table runs the bfloat16 mode, as it does on the card:
+    the operands of the stage products are rounded to bfloat16 exactly where
+    the JAX kernel feeds its matrix unit: y before W1 y and h1 before W2 h1; in the backward (by ``_MxDot``),
+    dpre2 in dW2 and dh1, h1 in dW2, dpre1 in dW1 and dy, y in dW1; and,
+    only when H % 8 != 0, the selection products of the padded layout (dx
+    in rep dx, g (rep dx) in sel (...), u in sel^T u, and (sel^T u) g in
+    rep^T (...)).  db1, db2, dx, the stage combinations and the carried
+    state stay unrounded."""
     frac, prev, c_sol = _chain_form(method)
     n, _, C, B = ct.shape
     H = z0t.shape[0]
-    slab = ct.permute(0, 3, 1, 2)  # (n, B, 3, C)
+    mx = ct.dtype == torch.bfloat16
+    slab = ct.to(z0t.dtype).permute(0, 3, 1, 2)  # (n, B, 3, C)
+    if mx:
+        dot = _MxDot.apply
+        if H % 8:
+            rep, sel = _mx_selection(C, H, z0t.dtype, z0t.device)
+    else:
+        dot = torch.matmul
     wanted = set(out_knots)
     outs = {}
     z = z0t.t()
@@ -154,9 +218,12 @@ def fused_fixed_solve_reference(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub,
                 y = z if st == 0 else z + (dt_sub * prev[st]) * k
                 fr = s * dt_sub + frac[st] * dt_sub
                 dx = b_j + (c_j + d_j * fr) * fr
-                h1 = torch.relu(y @ w1t.t() + b1)
-                g = torch.tanh(h1 @ w2t.t() + b2)
-                k = (g.reshape(B, C, H) * dx[:, :, None]).sum(dim=1)
+                h1 = torch.relu(dot(y, w1t.t()) + b1)
+                g = torch.tanh(dot(h1, w2t.t()) + b2)
+                if mx and H % 8:
+                    k = dot(g * dot(dx, rep), sel)
+                else:
+                    k = (g.reshape(B, C, H) * dx[:, :, None]).sum(dim=1)
                 if c_sol[st] != 0.0:
                     z_next = z_next + (dt_sub * c_sol[st]) * k
             z = z_next
@@ -178,9 +245,9 @@ def _library():
     if not getattr(lib, "_ff_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         dp = ctypes.POINTER(ctypes.c_double)
-        lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, p]
+        lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
         lib.ff_forward.restype = i
-        lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, p]
+        lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
         lib.ff_backward.restype = i
         lib.ff_variant.argtypes = [i] * 4
         lib.ff_variant.restype = i
@@ -228,39 +295,56 @@ def kernel_variant(H, C, W, plan):
     return ("specialised", "generic")[_library().ff_variant(H, C, W, int(plan.generic))]
 
 
+def _slab_mode(ct):
+    """The kernels' mode: 1 for a bfloat16 slab table (bfloat16 operands in
+    the stage products), 0 for float32."""
+    if ct.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ct must be float32 or bfloat16, found {ct.dtype}")
+    return int(ct.dtype == torch.bfloat16)
+
+
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
-    """Forward kernel: returns (out (n_out, H, B), zres (n, H, B))."""
-    global FWD_LAUNCHES
-    check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"))
+    """Forward kernel: returns (out (n_out, H, B), zres (n, H, B)), float32.
+
+    A bfloat16 ``ct`` launches the bfloat16 mode; the other operands are
+    float32 either way."""
+    global FWD_LAUNCHES, BF16_FWD_LAUNCHES
+    mode = _slab_mode(ct)
+    check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"),
+                   dtypes={"ct": ct.dtype})
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     lib = _library()
     variant = lib.ff_variant(H, C, W, int(plan.generic))
-    out = torch.empty((len(plan.out_knots), H, B), dtype=ct.dtype, device=ct.device)
-    zres = torch.empty((n, H, B), dtype=ct.dtype, device=ct.device)
+    out = torch.empty((len(plan.out_knots), H, B), dtype=z0t.dtype, device=ct.device)
+    zres = torch.empty((n, H, B), dtype=z0t.dtype, device=ct.device)
     slot = _knot_slots(plan.out_knots, n, ct.device)
     stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (ct, z0t, w1t, b1, w2t, b2, slot, out, zres)]
     with torch.cuda.device(ct.device):
         rc = lib.ff_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
-                            *_tableau_args(plan.method), variant, stream)
+                            *_tableau_args(plan.method), variant, mode, stream)
     _raise_on(lib, rc, "forward")
     FWD_LAUNCHES += 1
+    BF16_FWD_LAUNCHES += mode
     return out, zres
 
 
 def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
-    """Backward kernel: returns (dct, dz0, dw1t, db1, dw2t, db2)."""
-    global BWD_LAUNCHES
+    """Backward kernel: returns (dct, dz0, dw1t, db1, dw2t, db2); dct in
+    ct's dtype, the others float32."""
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
+    mode = _slab_mode(ct)
     ops = (ct, zres, z0t, gz, w1t, b1, w2t, b2)
-    check_operands(ops, ("ct", "zres", "z0t", "gz", "w1t", "b1", "w2t", "b2"))
+    check_operands(ops, ("ct", "zres", "z0t", "gz", "w1t", "b1", "w2t", "b2"),
+                   dtypes={"ct": ct.dtype})
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     if zres.shape != (n, H, B) or gz.shape != (len(plan.out_knots), H, B):
         raise ValueError("inconsistent fused-solve cotangent shapes")
     lib = _library()
     variant = lib.ff_variant(H, C, W, int(plan.generic))
     blocks = lib.ff_backward_blocks(B, H, C, W, variant)
-    empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
-    dct, dz0 = empty(ct.shape), empty((H, B))
+    empty = functools.partial(torch.empty, dtype=z0t.dtype, device=ct.device)
+    dct, dz0 = torch.empty_like(ct), empty((H, B))
     dw1p, db1p = empty((blocks, W, H)), empty((blocks, W))
     dw2p, db2p = empty((blocks, W, C * H)), empty((blocks, C * H))
     slot = _knot_slots(plan.out_knots, n, ct.device)
@@ -268,9 +352,10 @@ def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
     ptrs = [t.data_ptr() for t in (*ops, slot, dct, dz0, dw1p, db1p, dw2p, db2p)]
     with torch.cuda.device(ct.device):
         rc = lib.ff_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
-                             *_tableau_args(plan.method), variant, stream)
+                             *_tableau_args(plan.method), variant, mode, stream)
     _raise_on(lib, rc, "backward")
     BWD_LAUNCHES += 1
+    BF16_BWD_LAUNCHES += mode
     # Per-block partials are summed after the launch (deterministic).
     return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0))
 
@@ -293,7 +378,8 @@ class _FusedFixedSolve(torch.autograd.Function):
 
 
 def fused_fixed_solve(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub, out_knots):
-    """The fused solve over packed operands (see ``pack_operands``).
+    """The fused solve over packed operands (see ``pack_operands``); a
+    bfloat16 slab table runs the bfloat16 mode.
 
     CUDA tensors run the kernels; CPU tensors run the plain version."""
     if ct.is_cuda:
@@ -320,7 +406,7 @@ def try_fused_mlp(rows, z0, field, method, m, dt_sub, n, out_knots=None):
     kernel_knots = tuple(int(k) for k in out_knots if k > 0)
     if not kernel_knots:
         return None
-    p = pack_operands(*rows, z0, field)
+    p = pack_operands(*rows, z0, field, ct_store="native")
     if p is None:
         return None
     outk = fused_fixed_solve(p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2, method, m,
@@ -328,5 +414,5 @@ def try_fused_mlp(rows, z0, field, method, m, dt_sub, n, out_knots=None):
     sel = outk.permute(0, 2, 1).reshape((len(kernel_knots),) + p.batch + (p.H,))
     if 0 in out_knots:  # knot 0 is z0 itself
         z0b = p.z0f.reshape(p.batch + (p.H,))
-        return torch.cat([z0b[None], sel], dim=0)
-    return sel
+        sel = torch.cat([z0b[None], sel], dim=0)
+    return sel.to(p.out_dtype)

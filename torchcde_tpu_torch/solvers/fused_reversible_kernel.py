@@ -28,9 +28,10 @@ agree up to rounding; the plain version here follows the kernels.
 
 Eligibility is K1's: the caps of ``pack_operands``, m <= 8, one dtype,
 uniform knots.  On the card the kernels take float32, and every float32 shape
-inside the caps launches one of their two variants; bfloat16 raises
-``NotImplementedError``.  A CUDA tensor never falls back to the plain
-version: the kernel launches or raises.
+inside the caps launches one of their two variants.  bfloat16 operands are
+upcast to float32 at the boundary and the solution is cast back, as the JAX
+package's K8 takes them (it has no bfloat16 mode).  A CUDA tensor never
+falls back to the plain version: the kernel launches or raises.
 """
 
 import ctypes
@@ -257,4 +258,5 @@ def try_fused_reversible_heun(X, func, z0, ts, step_size):
     knots = y.permute(0, 2, 1).reshape((jN - j0,) + p.batch + (p.H,))
     # Knot 0 is z0 itself, taken outside the kernels.
     z0b = p.z0f.reshape(p.batch + (p.H,))
-    return torch.stack([knots[k - 1] if k else z0b for k in (int(i) - j0 for i in out_idx)])
+    out = torch.stack([knots[k - 1] if k else z0b for k in (int(i) - j0 for i in out_idx)])
+    return out.to(p.out_dtype)
