@@ -5,7 +5,11 @@
 Phases, each of which raises on failure:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
-2. build: compiles torchcde_tpu_torch/csrc with nvcc (one process per source);
+2. build: compiles torchcde_tpu_torch/csrc with nvcc (one process per source)
+   and prints ptxas's registers and spills, by name for the team backward
+   kernels (K2, K9), and the team launches' plans (teams per block, shared
+   memory) at the default configuration, at config 4 and at the per-sample
+   slice;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
    PyTorch version on the card, at the flagship shapes (in both kernel
    variants) and at odd cases covering every tableau, up to 8 substeps, odd
@@ -16,7 +20,9 @@ Phases, each of which raises on failure:
 6. K2 forward and backward: the adaptive dopri5 kernels against their plain
    version, per realised mesh, on every launch of nine cases (the default
    configuration at batch 4096 and 256, two groups, three chunks, 20 output
-   times, the caps, tight tolerances, an odd shape, an exhausted budget);
+   times, the caps, tight tolerances, an odd shape, an exhausted budget),
+   each backward also against a second launch on the same inputs, bit for
+   bit;
 7. K2 slice: five Adam steps of the default Neural CDE configuration (dopri5,
    adjoint) at batch 4096 and at batch 256, each with the K2 launch counts
    read around it, then one ``accuracy`` call each;
@@ -76,10 +82,11 @@ Phases, each of which raises on failure:
 22. K9 forward and backward: the per-sample adaptive kernels against their
    plain version per realised per-lane mesh (forward against the float64
    replay, accuracy against a tight float64 solve, backward after the lane
-   screen) on the per-sample slice's first launch in each variant and on
-   seven odd cases (linear with lead over three chunks,
-   batched rows, 64 output rows, an exhausted max_steps, H 4 C 3 W 8, C 16
-   linear, a batch that is not a multiple of 32);
+   screen, and against a second launch, bit for bit) on the per-sample
+   slice's first launch in each variant and on seven odd cases (linear with
+   lead over three chunks, batched rows, 64 output rows, an exhausted
+   max_steps, H 4 C 3 W 8, C 16 linear, a batch that is not a multiple of
+   32);
 23. per-sample slice: benchmarks/run_benchmarks.py's bench_per_sample at its
    TPU shapes (256 series of length 1024, hidden 8, width 32, dopri5) through
    cdeint(..., options={'per_sample': True}) with every plain version
@@ -222,6 +229,7 @@ def phase_build():
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
     from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers.team_backward import team_plan
 
     path, seconds, log = _build.build()
     k1._library()
@@ -234,6 +242,28 @@ def phase_build():
     print(f"build: {path.name} in {seconds:.1f} s", flush=True)
     for line in ptxas:
         print(f"  ptxas: {line}")
+    for name, lines in team_kernels_ptxas(log).items():
+        print(f"  team kernel {name}: {'; '.join(lines)}")
+    for label, shape in (("the default B4096", (4096, HIDDEN, CHANNELS, WIDTH)),
+                         ("config 4", (LOG_ODE_BATCH, HIDDEN, LOG_ODE_CHANNELS, WIDTH)),
+                         ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH))):
+        print(f"  team backward at {label} (B H C W {shape}): {team_plan(*shape)}")
+
+
+def team_kernels_ptxas(log):
+    """{kernel<shared, rows>: ptxas's lines} of the team backward kernels
+    (registers, spills, stack frame)."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            kernel = re.search(r"(dopri_bwd_team_kernel|ps_bwd_kernel)ILb(\d)ELi(\d)E",
+                               found.group(1))
+            entry = (f"{kernel.group(1)}<shared={kernel.group(2)}, rows={kernel.group(3)}>"
+                     if kernel else None)
+        elif entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return report
 
 
 def make_model(device, seed=0, config=FLAGSHIP):
@@ -567,12 +597,28 @@ def k2_problem(batch, length, hidden, channels, width, seed, device, interpolati
     return X, model.func, z0
 
 
+def k2_backward(ops, plan, store, gz, gzfin):
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    return k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan)
+
+
+def bit_identical(kernel, label, grads, launch):
+    """A second backward launch on the same inputs must give the same bits
+    (the weight gradients are summed in one fixed order, without atomics)."""
+    again = launch()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    print(f"{kernel}-bwd {label}: a second launch bit-identical: {same}")
+    return [] if same else [f"{kernel} backward differs between two launches ({label})"]
+
+
 def _k2_grads(ops, plan, store, mesh, gz, gzfin):
     """The backward kernel's gradients and autograd's through the float64
     replay of the kernel's mesh."""
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 
-    grads = k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan)
+    grads = k2_backward(ops, plan, store, gz, gzfin)
     leaves = [t.detach().double().requires_grad_() for t in ops]
     outs = k2.fused_dopri5_replay(*leaves, mesh, plan)
     pairs = [(o, g.double()) for o, g in zip(outs, (gz, gzfin)) if o.numel()]
@@ -635,7 +681,8 @@ def check_k2_launch(label, ops, dt0, plan):
 
 def check_k2_backward(label, ops, plan, store, mesh, gz, gzfin):
     """The backward kernel over a stored mesh against autograd through the
-    float64 replay, with K1's ReLU-kink lane screen."""
+    float64 replay, with K1's ReLU-kink lane screen, and against a second
+    launch on the same inputs, bit for bit."""
     H, (n, _, C, B), W = ops[1].shape[0], ops[0].shape, ops[2].shape[0]
     grads, ref_grads = _k2_grads(ops, plan, store, mesh, gz, gzfin)
     lane_err = torch.maximum(_lane_rel_l2(grads[0], ref_grads[0]),
@@ -651,6 +698,7 @@ def check_k2_backward(label, ops, plan, store, mesh, gz, gzfin):
     gz[..., kinked] = 0.0
     gzfin[..., kinked] = 0.0
     grads, ref_grads = _k2_grads(ops, plan, store, mesh, gz, gzfin)
+    failures += bit_identical("K2", label, grads, lambda: k2_backward(ops, plan, store, gz, gzfin))
     bwd_err = 0.0
     for name, g, r in zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads, ref_grads):
         err, scale = _err(g.double(), r)
@@ -1255,7 +1303,7 @@ K2_LINEAR_CASES = [
     ("exhausted budget", 256, LENGTH, HIDDEN, LOG_ODE_CHANNELS, WIDTH, "twenty",
      dict(max_steps=8)),
 ]
-K2_KINDS = {"k2_fwd": r"\bdopri_fwd_kernel\b", "k2_bwd": r"\bdopri_bwd_kernel\b"}
+K2_KINDS = {"k2_fwd": r"\bdopri_fwd_kernel\b", "k2_bwd": r"\bdopri_bwd(_team)?_kernel\b"}
 
 
 def log_ode_data(device, nan):
@@ -1900,6 +1948,12 @@ def check_k9_launch(label, args, generic=False, accuracy=True, backward=True):
     dzin = []
     bwd_err, bwd_failures = screened_backward(
         "K9", label, lambda gz: _k9_gradients(ops, plan, store, mesh, gz, dzin), g, relu_evals)
+
+    def k9_backward():
+        return k9.launch_backward(ops[0], store, ops[7], g[:-1].contiguous(), g[-1].contiguous(),
+                                  *ops[2:6], plan)
+
+    bwd_failures += bit_identical("K9", label, k9_backward(), k9_backward)
     dzin, dzin_ref = dzin[-1]
     dzin_err = float((dzin.double() - dzin_ref).abs().max()) if dzin.numel() else 0.0
     if dzin_err > 0.0:

@@ -9,6 +9,8 @@ replayed by the port, and its chunked solve).  The CUDA kernels are held
 against the plain versions on the card by ``chip_smoke.py``.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,12 +144,13 @@ def test_field_reads_the_left_slope_at_knots_and_lead_keeps_it(dtype):
             torch.testing.assert_close(chunk(y, tv), expected, rtol=0, atol=0)
 
 
-def _kernel_problem():
-    Bk, Lk, Ck, Hk, Wk = 3, 6, 2, 8, 8
+def _kernel_problem(shape=(3, 6, 2, 8, 8)):
+    Bk, Lk, Ck, Hk, Wk = shape
     rng = np.random.default_rng(1)
     arrays = [rng.standard_normal((Bk, Lk, Ck)), rng.standard_normal((Bk, Hk)),
               rng.standard_normal((Hk, Wk)) * 0.3, rng.standard_normal(Wk) * 0.3,
-              rng.standard_normal((Wk, Hk * Ck)) * 0.3, rng.standard_normal(Hk * Ck) * 0.3]
+              rng.standard_normal((Wk, Hk * Ck)) * 0.3 / np.sqrt(Wk / 8),
+              rng.standard_normal(Hk * Ck) * 0.3]
     return (Bk, Lk, Ck, Hk, Wk), [jnp.asarray(a, jnp.float32) for a in arrays]
 
 
@@ -166,7 +169,22 @@ def test_replay_of_the_jax_linear_kernels_mesh_matches_the_jax_kernel():
     """The JAX kernel in its linear mode, in interpret mode, realises a mesh;
     the port's replay of that mesh in float64 must give the kernel's outputs
     and gradients."""
-    (Bk, Lk, Ck, Hk, Wk), arrays = _kernel_problem()
+    _replay_matches_the_jax_kernel(_kernel_problem())
+
+
+def test_replay_at_config4_widths_matches_the_jax_kernel():
+    """As above at BASELINE config 4's widths (hidden 8, the depth-3
+    logsignature's 14 channels, width 128), the shapes of the team backward
+    kernel (K2's generic variant), at a small batch and length."""
+    _replay_matches_the_jax_kernel(_kernel_problem((2, 6, 14, 8, 128)), scaled=True)
+
+
+def _replay_matches_the_jax_kernel(problem, scaled=False):
+    """The replay's outputs within rtol 1e-4 and atol 1e-5 of the kernel's,
+    its gradients too, or with ``scaled`` within atol 1e-5 of each
+    gradient's largest magnitude: the float32 kernel's sums over 128 rows
+    and 112 outputs carry that much rounding."""
+    (Bk, Lk, Ck, Hk, Wk), arrays = problem
     x, z0, w1, b1, w2, b2 = arrays
     ts = np.array([0.0, 5.0])
     rtol, atol = 1e-5, 1e-7
@@ -209,8 +227,9 @@ def test_replay_of_the_jax_linear_kernels_mesh_matches_the_jax_kernel():
     grads = torch.autograd.grad(torch.sin(out).sum(), leaves)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_k), rtol=1e-4, atol=1e-5)
     for name, got, expected in zip(["x", "z0", "w1", "b1", "w2", "b2"], grads, grads_k):
-        np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-4, atol=1e-5,
-                                   err_msg=name)
+        expected = np.asarray(expected)
+        atol = 1e-5 * (max(1.0, float(np.abs(expected).max())) if scaled else 1.0)
+        np.testing.assert_allclose(got.numpy(), expected, rtol=1e-4, atol=atol, err_msg=name)
 
 
 def test_chunked_solve_with_lead_matches_the_jax_chunked_solve(monkeypatch):
@@ -300,3 +319,76 @@ def test_fixed_step_solves_decline_linear_controls():
     expected = tc.cdeint(Xj, jf, jnp.asarray(p["z0"]), Xj.grid_points, adjoint=False,
                          method="rk4", step_size=1.0)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(expected), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("C", [3, 14])  # the flagship's H 8, C 3; the log-ODE control's C 14
+def test_launch_wrappers_with_plain_stand_ins(C, monkeypatch):
+    """K2's kernel route in linear mode, in chunks of 3 intervals, with the
+    launches replaced by plain stand-ins: the forward runs the plain solve;
+    the backward kernel (one team kernel for every shape) replays the mesh
+    lane by lane, writes dct and dz0, and adds lane l's weight gradients into
+    team slot l % 3 in the kernel's partials layout (dW1 (H, S), dW2 (C*H,
+    S), rows padded to S), as the team kernel leaves them.  The wrapper's
+    sums over the slots give the plain route's values and gradients
+    (float64; the sums run in another order), with one forward and one
+    backward launch per chunk, all in linear mode."""
+    slots, row = 3, 20
+    monkeypatch.setattr(k2, "MAX_INTERVALS", 3)
+    x, p = _problem(5, C)
+    stores = {}
+
+    def forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
+        zout, zfin, dtfin, mesh = k2.fused_dopri5_solve_reference(ct, z0t, w1t, b1, w2t, b2,
+                                                                  dt0, plan)
+        cnt = len(mesh.t)
+        tst, dtst = ct.new_zeros(plan.cap), ct.new_zeros(plan.cap)
+        tst[:cnt], dtst[:cnt] = torch.from_numpy(mesh.t), torch.from_numpy(mesh.dt)
+        store = (ct.new_zeros((plan.cap,) + tuple(z0t.shape)), tst, dtst,
+                 torch.tensor([cnt, mesh.attempted], dtype=torch.int32))
+        stores[id(tst)] = ((ct, z0t, w1t, b1, w2t, b2), mesh)
+        k2.FWD_LAUNCHES += 1
+        k2.LINEAR_FWD_LAUNCHES += int(plan.linear)
+        return zout, zfin, dtfin, store
+
+    def kernel(lib, tensors, sizes, plan, layout):
+        ct, _zst, tst, _dtst, gzout, gzfin, *_w, stats, dct, dz0, dw1p, db1p, dw2p, db2p = tensors
+        (ct, z0t, *weights), mesh = stores[id(tst)]
+        assert layout == (slots, row)
+        assert dw1p.shape == (slots, H, row) and dw2p.shape == (slots, C * H, row)
+        assert tensors[6].shape == (H, row) and tensors[8].shape == (C * H, row)  # padded
+        dw1p, db1p, dw2p, db2p = dw1p[..., :W], db1p[..., :W], dw2p[..., :W], db2p[..., :C * H]
+        for lane in range(ct.shape[-1]):
+            sl = slice(lane, lane + 1)
+            leaves = [t.detach().requires_grad_() for t in (ct[..., sl], z0t[:, sl], *weights)]
+            with torch.enable_grad():
+                outs = k2.fused_dopri5_replay(*leaves, mesh, plan)
+                pairs = [(o, g) for o, g in zip(outs, (gzout[..., sl], gzfin[:, sl])) if o.numel()]
+                g = torch.autograd.grad([o for o, _ in pairs], leaves, [c for _, c in pairs])
+            dct[..., sl], dz0[:, sl] = g[0], g[1]
+            dw1p[lane % slots] += g[2].t()
+            db1p[lane % slots] += g[3]
+            dw2p[lane % slots] += g[4]
+            db2p[lane % slots] += g[5]
+        return 0
+
+    def run():
+        field = _field(p, C)
+        z0 = torch.from_numpy(p["z0"]).requires_grad_()
+        xt = torch.from_numpy(x).requires_grad_()
+        out = fused_dopri.try_fused_dopri5(_control(xt), field, z0, T_OUT, SolverConfig())
+        out.sin().sum().backward()
+        return [out.detach(), xt.grad, z0.grad] + [q.grad for q in field.parameters()]
+
+    plain = run()
+    k2.reset_launch_counts()
+    with mock.patch.object(k2, "_runs_kernel", lambda ct: True), \
+            mock.patch.object(k2, "launch_forward", forward), \
+            mock.patch.object(k2, "_backward_kernel", kernel), \
+            mock.patch.object(k2, "_library", lambda: None), \
+            mock.patch.object(k2, "team_plan", lambda *a: dict(slots=slots, row=row)), \
+            mock.patch.object(k2, "check_operands", lambda *a: None):
+        routed = run()
+    assert (k2.FWD_LAUNCHES, k2.BWD_LAUNCHES) == (3, 3)
+    assert (k2.LINEAR_FWD_LAUNCHES, k2.LINEAR_BWD_LAUNCHES) == (3, 3)
+    for a, b in zip(plain, routed):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)

@@ -12,6 +12,7 @@ and the launch wrappers driven with plain stand-ins.  The CUDA kernels are
 held against the plain versions on the card by ``chip_smoke.py``.
 """
 
+from types import SimpleNamespace
 from unittest import mock
 
 import jax
@@ -35,6 +36,7 @@ from torchcde_tpu_torch.solvers.terms import MLPVectorField, make_cde_rhs
 torch.set_num_threads(1)
 
 B, L, C, H, W = 5, 9, 3, 8, 16
+ROW = 20  # the team partials' padded row length for W
 
 
 @pytest.fixture(autouse=True)
@@ -295,51 +297,116 @@ def test_declines_where_jax_declines():
     assert _solve(_control(x16), field16, z0.float(), ts) is None
 
 
-@pytest.mark.parametrize("linear", [False, True])
-def test_launch_wrappers_with_plain_stand_ins(linear, monkeypatch):
-    """The autograd Function's kernel route, with the launches replaced by
-    plain stand-ins, gives the plain route's values and gradients and counts
-    one forward and one backward launch per chunk."""
-    monkeypatch.setattr(k9, "MAX_INTERVALS", 3)
-    x, p = _problem(6, batch=4, length=8)
+def _stand_ins(partials):
+    """Stand-ins for K9's launches, remembering each chunk's operands and
+    meshes by the store: the forward runs the plain version; the backward
+    kernel replays the meshes, writes dct, dz0 and dzout_in, and hands the
+    weight gradients to ``partials(grads, dw1p, db1p, dw2p, db2p, replay)``,
+    which fills the team partials the wrapper sums (``replay(lane)`` gives a
+    lane's own gradients), each cut to the field's widths."""
     stores = {}
 
     def forward(*args):
         *ops, plan = args
         zout, zfin, ctlout, nacc, natt, mesh = k9.fused_dopri5_per_sample_reference(*args)
-        store = (torch.zeros(1), torch.from_numpy(mesh.t.copy()), torch.from_numpy(mesh.dt.copy()),
+        store = (torch.zeros((mesh.t.shape[0],) + tuple(ops[1].shape), dtype=ops[1].dtype),
+                 torch.from_numpy(mesh.t.copy()), torch.from_numpy(mesh.dt.copy()),
                  torch.as_tensor(mesh.cnt, dtype=torch.int32))
         stores[id(store[1])] = (ops, mesh)
         k9.FWD_LAUNCHES += 1
         k9.LINEAR_FWD_LAUNCHES += int(plan.linear)
         return zout, zfin, ctlout, nacc, natt, store
 
-    def backward(ct, store, ts_rows, gzout, gzfin, w1t, b1, w2t, b2, plan):
-        ops, mesh = stores[id(store[1])]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (*ops[:6], ops[9])]
-            outs = k9.fused_dopri5_per_sample_replay(*leaves[:6], ops[6], ts_rows, leaves[6],
-                                                     mesh, plan)
-            grads = torch.autograd.grad(outs, leaves, (gzout, gzfin))
-        k9.BWD_LAUNCHES += 1
-        k9.LINEAR_BWD_LAUNCHES += int(plan.linear)
-        return grads
+    def kernel(lib, tensors, sizes, plan, layout):
+        ct, _zst, tst, _dtst, ts_rows, gzout, gzfin, *_w, cnt, dct, dz0, dzout_in = tensors[:15]
+        assert layout == (tensors[15].shape[0], ROW)
+        ops, mesh = stores[id(tst)]
 
-    def run():
-        field = _field(p)
-        z0 = torch.from_numpy(p["z0"]).requires_grad_()
-        xt = torch.from_numpy(x).requires_grad_()
-        out = _solve(_control(xt, linear), field, z0, np.array([0.0, 3.5, 7.0]))
-        (out.sin()).sum().backward()
-        return [out.detach(), xt.grad, z0.grad] + [q.grad for q in field.parameters()]
+        def replay(lanes):
+            sl = slice(lanes, lanes + 1) if isinstance(lanes, int) else slice(None)
+            cols = [ops[0][..., sl], ops[1][:, sl], *ops[2:6], ops[9][..., sl]]
+            leaves = [t.detach().requires_grad_() for t in cols]
+            lane_mesh = k9.PsMesh(mesh.t[:, sl], mesh.dt[:, sl], mesh.cnt[sl], mesh.bad[sl])
+            with torch.enable_grad():
+                outs = k9.fused_dopri5_per_sample_replay(*leaves[:6], ops[6][:, sl], ts_rows[:, sl],
+                                                         leaves[6], lane_mesh, plan)
+                return torch.autograd.grad(outs, leaves, (gzout[..., sl], gzfin[:, sl]))
 
-    plain = run()
+        grads = replay(None)
+        for out, g in zip((dct, dz0, dzout_in), (grads[0], grads[1], grads[6])):
+            out.copy_(g)
+        dw1p, db1p, dw2p, db2p = tensors[15:]
+        assert dw1p.shape[2] == db1p.shape[1] == dw2p.shape[2] == ROW
+        partials(grads, dw1p[:, :, :W], db1p[:, :W], dw2p[:, :, :W], db2p[:, :C * H], replay)
+        return 0
+
+    return forward, kernel
+
+
+def _route(x, p, linear, forward, kernel, slots):
+    """The solve and its gradients on the kernel route, with the launches'
+    stand-ins and a team plan of ``slots`` slots and rows padded to ROW."""
     k9.reset_launch_counts()
     with mock.patch.object(k9, "_runs_kernel", lambda ct: True), \
             mock.patch.object(k9, "launch_forward", forward), \
-            mock.patch.object(k9, "launch_backward", backward):
-        routed = run()
+            mock.patch.object(k9, "_backward_kernel", kernel), \
+            mock.patch.object(k9, "_library", lambda: None), \
+            mock.patch.object(k9, "team_plan", lambda *a: dict(slots=slots, row=ROW)), \
+            mock.patch.object(k9, "check_operands", lambda *a: None):
+        return _run_solve(x, p, linear)
+
+
+def _run_solve(x, p, linear):
+    field = _field(p)
+    z0 = torch.from_numpy(p["z0"]).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = _solve(_control(xt, linear), field, z0, np.array([0.0, 3.5, 7.0]))
+    (out.sin()).sum().backward()
+    return [out.detach(), xt.grad, z0.grad] + [q.grad for q in field.parameters()]
+
+
+@pytest.mark.parametrize("linear", [False, True])
+def test_launch_wrappers_with_plain_stand_ins(linear, monkeypatch):
+    """The autograd Function's kernel route, with the launches replaced by
+    plain stand-ins, gives the plain route's values and gradients and counts
+    one forward and one backward launch per chunk.  The backward stand-in
+    writes the weight gradients into the first of three team slots in the
+    kernel's partials layout (dW1 (H, S), dW2 (C*H, S), rows padded to S),
+    which the wrapper sums over the slots, cuts and transposes back."""
+    monkeypatch.setattr(k9, "MAX_INTERVALS", 3)
+    x, p = _problem(6, batch=4, length=8)
+
+    def first_slot(grads, dw1p, db1p, dw2p, db2p, replay):
+        dw1p[0], db1p[0], dw2p[0], db2p[0] = grads[2].t(), grads[3], grads[4], grads[5]
+
+    plain = _run_solve(x, p, linear)
+    routed = _route(x, p, linear, *_stand_ins(first_slot), slots=3)
     assert (k9.FWD_LAUNCHES, k9.BWD_LAUNCHES) == (3, 3)
     assert (k9.LINEAR_FWD_LAUNCHES, k9.LINEAR_BWD_LAUNCHES) == ((3, 3) if linear else (0, 0))
     for a, b in zip(plain, routed):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("slots", [2, 5])
+def test_team_partials_sum_to_the_replays_gradients(slots, monkeypatch):
+    """As the team kernel leaves them: lane l's own weight gradients added
+    into slot l % slots (teams stride over the lanes when there are fewer
+    slots than lanes; a slot past the batch stays zero).  The wrapper's sums
+    over the slots give the plain route's gradients (float64; the sums run
+    in another order)."""
+    monkeypatch.setattr(k9, "MAX_INTERVALS", 3)
+    x, p = _problem(7, batch=4, length=8)
+
+    def per_lane(grads, dw1p, db1p, dw2p, db2p, replay):
+        for lane in range(grads[1].shape[1]):
+            g, slot = replay(lane), lane % slots
+            dw1p[slot] += g[2].t()
+            db1p[slot] += g[3]
+            dw2p[slot] += g[4]
+            db2p[slot] += g[5]
+
+    plain = _run_solve(x, p, False)
+    routed = _route(x, p, False, *_stand_ins(per_lane), slots=slots)
+    assert k9.BWD_LAUNCHES == 3
+    for a, b in zip(plain, routed):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)

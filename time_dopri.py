@@ -8,10 +8,11 @@ default this script's directory), builds its kernels, and prints one JSON
 line: the card's name and power limit, K2's forward and backward ms at the
 default configuration (batch 4096, as ``chip_smoke.py``'s phase 8 times
 them), the train step's median ms at batch 4096 (CUDA events, 20 steps),
-K9's forward and backward ms per launch at the per-sample slice (as phase
-24 times them; where the checkout has K9), and ptxas's report for each
-kernel of the two (registers, stack frame).  To compare two commits on one
-card, unpack both and run this for each on the same card, in turns: parent,
+K2's linear mode at config 4 (as phase 17 times it), K9's forward and
+backward ms per launch at the per-sample slice (as phase 24 times them;
+where the checkout has K9), and ptxas's report for each kernel of the two
+(registers, stack frame).  To compare two commits on one card,
+unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
 
@@ -23,7 +24,7 @@ import sys
 import torch
 
 
-def ptxas_report(log, pattern=r"(dopri|ps)_(fwd|bwd)_kernel"):
+def ptxas_report(log, pattern=r"(dopri|ps)_(fwd|bwd)(_team)?_kernel"):
     """{entry function: [ptxas lines]} for the entries matching pattern."""
     report, entry = {}, None
     for line in log.splitlines():
@@ -33,6 +34,27 @@ def ptxas_report(log, pattern=r"(dopri|ps)_(fwd|bwd)_kernel"):
         elif entry and ("stack frame" in line or "registers" in line):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
+
+
+def time_k2_linear(cs, device):
+    """K2's linear mode at config 4: forward and backward ms of its one
+    launch."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import SolverConfig
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    x, _ = cs.log_ode_data(device, nan=False)
+    X = tt.LinearInterpolation(tt.linear_interpolation_coeffs(
+        tt.logsig_windows(x, cs.LOG_ODE_DEPTH, cs.LOG_ODE_WINDOW)))
+    model = cs.log_ode_model(device)
+    with torch.no_grad():
+        z0 = model.initial(X.evaluate(X.interval[0]))
+    (*ops, dt0, plan), = cs.recorded_k2_launches(X, model.func, z0, X.interval, SolverConfig())
+    zout, zfin, _, store = k2.launch_forward(*ops, dt0, plan)
+    gz, gzfin = torch.ones_like(zout), torch.ones_like(zfin)
+    return {"k2_linear_fwd_ms": cs._event_ms(lambda: k2.launch_forward(*ops, dt0, plan), 3),
+            "k2_linear_bwd_ms": cs._event_ms(
+                lambda: k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan), 5)}
 
 
 def time_k9(cs, device):
@@ -67,13 +89,14 @@ def main():
     model, coeffs, labels = cs.default_model(device, 4096)
     medians, samples = cs.time_train_steps(model, coeffs, labels,
                                            cs.plain_k2_loss(coeffs, labels), counts=(10, 1))
+    k2_linear = time_k2_linear(cs, device)
     k9 = time_k9(cs, device) if hasattr(cs, "per_sample_problem") else {}
     print(json.dumps({"root": root, "card": smi, "build_s": seconds,
                       "k2_fwd_ms": k2["k2_fwd_ms"], "k2_bwd_ms": k2["k2_bwd_ms"],
                       "k2_steps_accepted": k2["k2_steps_accepted"],
                       "default_B4096_train_step_ms": medians["kernel"],
-                      "default_B4096_train_step_samples_ms": samples["kernel"], **k9,
-                      "ptxas": ptxas_report(log)}), flush=True)
+                      "default_B4096_train_step_samples_ms": samples["kernel"], **k2_linear,
+                      **k9, "ptxas": ptxas_report(log)}), flush=True)
 
 
 if __name__ == "__main__":

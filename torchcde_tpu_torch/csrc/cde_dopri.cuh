@@ -1,26 +1,55 @@
 // The adaptive dopri5 step math shared by the two adaptive Neural CDE kernel
 // pairs: the whole-group solve (fused_dopri.cu, K2) and the per-lane solve
-// (fused_dopri_persample.cu, K9).  One thread per batch lane, blocks of one
-// warp (LANES): the dopri5 tableau, the control's dX/dt at a stage time on a
-// uniform knot grid (cubic or, left-continuous at knots, linear), the two
-// forms of the vector field (specialised, H 8 and C 3 with the weights in
-// shared memory; generic, H, C and W at run time with the vectors in a
-// per-lane global scratch), an attempted step's stages, error and controller,
-// the quartic dense output, and the backward of one accepted step.
-//
-// Every step function is forced inline: the kernels that call them are
-// then the code they were before the step math was shared, and their
-// registers hold the lane's values across it.
+// (fused_dopri_persample.cu, K9): the dopri5 tableau, the control's dX/dt at
+// a stage time on a uniform knot grid (cubic or, left-continuous at knots,
+// linear), an attempted step's stages, error and controller, the quartic
+// dense output, and the backward of one accepted step.
 //
 // Replaces the step math of torchcde_tpu/solvers/fused_dopri_pallas.py
 // (_dopri_fwd_kernel, _dopri_bwd_kernel) and of
 // torchcde_tpu/solvers/fused_dopri_persample.py (_psd_fwd_kernel,
 // _psd_bwd_kernel).
-
+//
+// Two layouts.  The forwards run one thread per batch lane in blocks of one
+// warp (LANES), with the field specialised (H 8, C 3, weights and vectors in
+// shared memory, cde_stage.cuh's stage math) or generic (H, C, W at run
+// time, vectors in a per-lane global scratch, weights through L1).  Every
+// step function of that layout is forced inline, so the kernels hold the
+// lane's values in registers across it.
+//
+// The backwards of K2 and K9, for every shape, run in teams: T = 32
+// threads, one warp, per lane.  What bounds a backward is the serial chain
+// of small products of the field's VJP, 2 W C H per stage and again as many
+// for the weight gradients; one thread per lane would leave 8 warps on the
+// card at B 256 and need a block-wide reduction of the weight gradients per
+// stage.  A team
+// splits each product: thread r owns quads of hidden rows (h1, dp1, the
+// ReLU mask, dh1 = W2^T dp2) and outputs q = r (mod T) of the second layer;
+// the sums over the rows (g, dy) go through the team's shared slice or warp
+// shuffles, each in one fixed order, and every pass reads four floats at
+// once along the rows.  The lane's vectors (stage inputs, stages and
+// cotangents, lambda, the dense output's terms), each stage's h1, g, dp1,
+// dp2 and dX/dt live in the team's slice of shared memory; thread r owns
+// channels h = r (mod T) of every vector, so the step's axpys need no
+// synchronisation, and the team meets at __syncwarp between the passes of
+// an evaluation.  The weights sit once per block in shared memory, rows
+// padded to an odd multiple of four floats so that a quarter-warp's
+// 16-byte reads of different rows fall in different banks.  At the step's
+// end each thread adds the step's weight gradients of its rows (dW1[w, :],
+// db1[w], dW2[:, w]), summed over the seven stages, and of its outputs
+// (db2[q]) to the team's private accumulators, across every step of every
+// lane the team walks, and the team writes them once at the end to its slot
+// of the partials, which the wrapper sums over the slots in order: no
+// block-wide barrier inside a step and no float atomics.  Where the weights
+// and the accumulators do not fit in shared memory (inside the JAX kernels'
+// caps W <= 512, C*H <= 512) they stay in device memory, the accumulators in
+// the team's own slot.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "cde_stage.cuh"
 
@@ -134,6 +163,20 @@ __device__ __forceinline__ void control_at(const Table& c, size_t lane, bool liv
   }
 }
 
+// The interval j and fraction fr of time tval, by control_at's rule (kept
+// apart from it, so that the forwards compile as they did).
+__device__ __forceinline__ void locate(const Table& c, float tval, int& j, float& fr) {
+  const float pos = (tval - c.t0g) / c.w;
+  if (c.linear) {
+    const float jf = ceilf(pos) - (c.lead ? 0.f : 1.f);
+    j = (int)fminf(fmaxf(jf, 0.f), (float)(c.n - 1));
+    fr = 0.f;
+    return;
+  }
+  j = (int)fminf(fmaxf(floorf(pos), 0.f), (float)(c.n - 1));
+  fr = tval - (c.t0g + (float)j * c.w);
+}
+
 // t + alpha * dt with the product and the sum rounded apart, never fused
 // into one FMA: as the plain versions compute a stage's time, so that a
 // stage on a knot selects the same interval in both.
@@ -155,91 +198,54 @@ __device__ __forceinline__ void dense_coeffs(const float* m, float theta,
 
 struct SpecField {
   static constexpr int H = 8, C = 3, MC = 3;
-  BwdSmem<8, 3> sm;  // the forward uses sm.field only
+  Smem<8, 3> sm;
   int W;
   // The hidden size as the launch passes it bounds the step loops, which
-  // then stay rolled (unrolled, K2 took 12.4 / 35.7 ms and not 9.9 / 28.4,
-  // forward / backward at the default configuration on an H100).
+  // then stay rolled (unrolled, K2's forward took 12.4 ms and not 9.9 at the
+  // default configuration on an H100); it also addresses the vectors (the
+  // constant 8 there made the forward 12.7 ms).
   int Hv;
   float* vec;
-  static size_t smem_floats(int W, bool bwd) {
-    return bwd ? BwdSmem<8, 3>::floats(W) + (size_t)NV_BWD * H * LANES
-               : Smem<8, 3>::floats(W) + (size_t)NV_FWD * H * LANES;
+  static size_t smem_floats(int W) {
+    return Smem<8, 3>::floats(W) + (size_t)NV_FWD * H * LANES;
   }
-  __device__ SpecField(float* smem, const FieldArgs& f, bool bwd)
-      : sm(smem, f.W), W(f.W), Hv(f.H) {
-    load_field<8, 3>(sm.field, f.w1t, f.b1, f.w2t, f.b2, W);
-    if (bwd) sm.zero_acc(W);
-    vec = bwd ? sm.end() : sm.field.end();
+  __device__ SpecField(float* smem, const FieldArgs& f) : sm(smem, f.W), W(f.W), Hv(f.H) {
+    load_field<8, 3>(sm, f.w1t, f.b1, f.w2t, f.b2, W);
+    vec = sm.end();
   }
-  // `fixed` addresses the vectors with the constant 8, not the size as
-  // passed: on an H100 K2's backward is faster so (28.4 ms against 32.7 at
-  // the default configuration), K2's forward and K9's backward slower (12.7
-  // against 9.9; 86.0 against 53.8 at the per-sample slice).
-  __device__ Vecs vecs(size_t, bool fixed) const {
-    return Vecs{vec + threadIdx.x, LANES, Hv, fixed ? H : Hv};
-  }
+  __device__ Vecs vecs(size_t) const { return Vecs{vec + threadIdx.x, LANES, Hv, Hv}; }
   __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MC]) const {
     float y[H], g[C * H], k[H], d[C];
 #pragma unroll
     for (int h = 0; h < H; ++h) y[h] = v.at(iy, h);
 #pragma unroll
     for (int i = 0; i < C; ++i) d[i] = dx[i];
-    mlp_forward<H, C, false>(sm.field, W, y, g, nullptr);
+    mlp_forward<H, C, false>(sm, W, y, g, nullptr);
     contract<H, C>(g, d, k);
 #pragma unroll
     for (int h = 0; h < H; ++h) v.at(ik, h) = k[h];
   }
-  // Every thread of the block calls it.
-  __device__ void vjp(const Vecs& v, int iu, int iy, int iv, const float (&dx)[MC],
-                      float (&ddx)[MC]) const {
-    float u[H], y[H], dy[H], d[C], dd[C];
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      u[h] = v.at(iu, h);
-      y[h] = v.at(iy, h);
-    }
-#pragma unroll
-    for (int i = 0; i < C; ++i) d[i] = dx[i];
-    stage_vjp<H, C>(sm, W, u, y, d, dy, dd);
-#pragma unroll
-    for (int h = 0; h < H; ++h) v.at(iv, h) = dy[h];
-#pragma unroll
-    for (int i = 0; i < C; ++i) ddx[i] = dd[i];
-  }
-  __device__ void finish(const Partials& p) const {
-    __syncthreads();
-    sm.store_acc(W, p.dw1, p.db1, p.dw2, p.db2);
-  }
 };
 
 // ---------------------------------------------------------------------------
-// Generic field: H, C, W at run time; the weights read through L1, the
-// lanes' vectors and activations in a global scratch, lane-minor.
+// Generic field of the forwards: H, C, W at run time; the weights read
+// through L1, the lanes' vectors and activations in a global scratch,
+// lane-minor.
 
 struct GenField {
   static constexpr int MC = MAX_ROWS;  // channels: C <= 16 in linear mode
   FieldArgs f;
   float* scr;     // row r of lane l at scr[r * stride + l]
   size_t stride;  // lanes of the launch (blocks * LANES)
-  int nv;         // rows of vectors before the activations
-  Partials p;     // this block's slice of the partials (backward)
-  static size_t rows(int H, int C, int W, bool bwd) {
-    return (size_t)(bwd ? NV_BWD : NV_FWD) * H + 2 * (size_t)W + 2 * (size_t)C * H;
+  static size_t rows(int H, int C, int W) {
+    return (size_t)NV_FWD * H + (size_t)W + (size_t)C * H;
   }
-  __device__ GenField(float* scratch, const FieldArgs& fa, bool bwd, const Partials& all)
-      : f(fa), scr(scratch), stride((size_t)gridDim.x * LANES),
-        nv(bwd ? NV_BWD : NV_FWD) {
-    const size_t blk = blockIdx.x, W = f.W, CH = (size_t)f.C * f.H;
-    p = Partials{all.dw1 + blk * W * f.H, all.db1 + blk * W, all.dw2 + blk * W * CH,
-                 all.db2 + blk * CH};
-  }
+  __device__ GenField(float* scratch, const FieldArgs& fa)
+      : f(fa), scr(scratch), stride((size_t)gridDim.x * LANES) {}
   __device__ float& row(size_t r, size_t lane) const { return scr[r * stride + lane]; }
-  __device__ size_t h1_row() const { return (size_t)nv * f.H; }
+  __device__ size_t h1_row() const { return (size_t)NV_FWD * f.H; }
   __device__ size_t g_row() const { return h1_row() + f.W; }
-  __device__ size_t dp2_row() const { return g_row() + (size_t)f.C * f.H; }
-  __device__ size_t dp1_row() const { return dp2_row() + (size_t)f.C * f.H; }
-  __device__ Vecs vecs(size_t lane, bool) const { return Vecs{scr + lane, stride, f.H, f.H}; }
+  __device__ Vecs vecs(size_t lane) const { return Vecs{scr + lane, stride, f.H, f.H}; }
 
   // h1 = relu(W1 y + b1) and g = tanh(W2 h1 + b2) of the lane, to the scratch.
   __device__ void mlp(const Vecs& v, int iy, size_t lane) const {
@@ -268,84 +274,23 @@ struct GenField {
       v.at(ik, h) = acc;
     }
   }
-  // Every thread of the block calls it.
-  __device__ void vjp(const Vecs& v, int iu, int iy, int iv, const float (&dx)[MC],
-                      float (&ddx)[MC]) const {
-    const int tid = threadIdx.x;
-    const size_t lane = (size_t)blockIdx.x * LANES + tid;
-    const int H = f.H, C = f.C, W = f.W, CH = C * H;
-    mlp(v, iy, lane);
-    for (int i = 0; i < C; ++i) {
-      float acc = 0.f;
-      for (int h = 0; h < H; ++h) {
-        const int q = i * H + h;
-        const float uh = v.at(iu, h), gq = row(g_row() + q, lane);
-        acc += uh * gq;
-        row(dp2_row() + q, lane) = (uh * dx[i]) * (1.f - gq * gq);
-      }
-      ddx[i] = acc;
-    }
-    for (int w = 0; w < W; ++w) {
-      float dh = 0.f;
-      for (int q = 0; q < CH; ++q) dh = fmaf(f.w2t[(size_t)q * W + w], row(dp2_row() + q, lane), dh);
-      row(dp1_row() + w, lane) = row(h1_row() + w, lane) > 0.f ? dh : 0.f;
-    }
-    for (int h = 0; h < H; ++h) {
-      float acc = 0.f;
-      for (int w = 0; w < W; ++w) acc = fmaf(f.w1t[(size_t)w * H + h], row(dp1_row() + w, lane), acc);
-      v.at(iv, h) = acc;
-    }
-    __syncthreads();
-    // The block's weight gradients: thread tid owns elements tid, tid + 32,
-    // ... and sums the block's lanes in order.
-    const size_t l0 = (size_t)blockIdx.x * LANES;
-    for (int e = tid; e < W * H; e += LANES) {
-      const int w = e / H, h = e - w * H;
-      float s = 0.f;
-      for (int l = 0; l < LANES; ++l)
-        s = fmaf(row(dp1_row() + w, l0 + l), row(((size_t)iy * H + h), l0 + l), s);
-      p.dw1[e] += s;
-    }
-    for (int e = tid; e < W * CH; e += LANES) {
-      const int w = e / CH, q = e - w * CH;
-      float s = 0.f;
-      for (int l = 0; l < LANES; ++l)
-        s = fmaf(row(dp2_row() + q, l0 + l), row(h1_row() + w, l0 + l), s);
-      p.dw2[e] += s;
-    }
-    for (int w = tid; w < W; w += LANES) {
-      float s = 0.f;
-      for (int l = 0; l < LANES; ++l) s += row(dp1_row() + w, l0 + l);
-      p.db1[w] += s;
-    }
-    for (int q = tid; q < CH; q += LANES) {
-      float s = 0.f;
-      for (int l = 0; l < LANES; ++l) s += row(dp2_row() + q, l0 + l);
-      p.db2[q] += s;
-    }
-    __syncthreads();
-  }
-  __device__ void finish(const Partials&) const {}
 };
 
-// The field of a launch: the specialised one in shared memory, the generic
-// one in `scratch`.
+// The field of a forward launch: the specialised one in shared memory, the
+// generic one in `scratch`.
 template <class F>
-__device__ __forceinline__ F make_field(float* smem, float* scratch, const FieldArgs& f, bool bwd,
-                        const Partials& p);
+__device__ __forceinline__ F make_field(float* smem, float* scratch, const FieldArgs& f);
 
 template <>
 __device__ __forceinline__ SpecField make_field<SpecField>(float* smem, float*,
-                                                           const FieldArgs& f, bool bwd,
-                                                           const Partials&) {
-  return SpecField(smem, f, bwd);
+                                                           const FieldArgs& f) {
+  return SpecField(smem, f);
 }
 
 template <>
 __device__ __forceinline__ GenField make_field<GenField>(float*, float* scratch,
-                                                         const FieldArgs& f, bool bwd,
-                                                         const Partials& p) {
-  return GenField(scratch, f, bwd, p);
+                                                         const FieldArgs& f) {
+  return GenField(scratch, f);
 }
 
 // ---------------------------------------------------------------------------
@@ -425,113 +370,581 @@ __device__ __forceinline__ float theta_of(float tk, float t, float dc) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward of one accepted step (t, dt) from the stored state in YS.
+// The backward in teams (K2, K9): T threads per lane.
+//
+// Layouts, padded so that every pass reads four floats at once: H4, CH4
+// are H and C*H rounded up to a multiple of 4, and S, the row length of the
+// weights and accumulators, is W rounded up to an odd multiple of 4 (rows of
+// a quarter-warp's 16-byte reads then fall in distinct banks).  Thread r
+// owns the quads of hidden rows 4p .. 4p + 3, p = r (mod T), the outputs
+// q = r (mod T) of the second layer and the channels h = r (mod T).
 
-// The step's stage inputs into YS .. YS + 6 and stages into KV .. KV + 6.
-template <class F>
-__device__ __forceinline__ void recompute_stages(const F& field, const Vecs& v, const Table& tab,
-                                                 size_t lane, bool live, float t, float dt) {
-  const int H = v.H;
-  float dx[F::MC];
-  int j;
-  float fr;
-  control_at(tab, lane, live, t, dx, j, fr);
-  field.eval(v, YS, KV, dx);
-  for (int st = 1; st < NS; ++st) {
+// Threads per lane: one warp.  The team code reads it from the plan
+// (TeamPlan::T, Team::T), not as this constant: compiled with the constant,
+// the kernels that keep the weights in device memory stopped with an
+// illegal instruction on an H100 (CUDA 12.8).
+constexpr int TEAM = 32;
+constexpr int MAX_TEAM_BLOCK = 256;   // threads per block
+constexpr size_t MAX_PARTIALS = size_t(1) << 26;  // floats of the partials
+constexpr int PS = 4;                 // partial sums a long dot product keeps apart
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int team_row(int W) {
+  const int r = round4(W);
+  return (r / 4) % 2 ? r : r + 4;
+}
+
+// The weights as the wrapper pads them (fd_backward, ps_backward): w1
+// [H4][S] (w1[h][w] = W1[w, h]), b1 [S], w2 [CH4][S] (w2[q][w] = W2[q, w]),
+// b2 [CH4], zero outside W, H and C*H.
+__host__ __device__ inline size_t team_weight_floats(int H, int C, int W) {
+  return ((size_t)round4(H) + 1 + round4(C * H)) * team_row(W) + round4(C * H);
+}
+// One team's vectors: [NV_BWD][H4] the lane's vectors, and for each stage
+// of the step [NS][MAX_ROWS] its dX/dt, [NS][S] h1, [NS][CH4] g (then u g),
+// [NS][S] dp1, [NS][CH4] dp2, [NS][MAX_ROWS] ddx.
+__host__ __device__ inline size_t team_vec_floats(int H, int C, int W) {
+  return (size_t)NV_BWD * round4(H) +
+         2 * NS * ((size_t)MAX_ROWS + team_row(W) + round4(C * H));
+}
+// One slot of the partials (a team's accumulators): w1 [H][S], b1 [S],
+// w2 [C*H][S], b2 [CH4]; columns past W stay zero.
+__host__ __device__ inline size_t team_acc_floats(int H, int C, int W) {
+  return ((size_t)H + 1 + (size_t)C * H) * team_row(W) + round4(C * H);
+}
+
+// A team launch: T (TEAM) threads per lane, L teams per block, the slots
+// of the partials (one per team; teams stride over the lanes when the
+// partials would pass MAX_PARTIALS), the outputs of the second layer a
+// thread carries at once (4 where each thread owns more than two, else 1),
+// and whether the weights and the accumulators sit in shared memory.
+struct TeamPlan {
+  int T, L, blocks, slots, rows;
+  bool smem;
+  size_t bytes;  // dynamic shared memory of a block
+};
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 1;
+  }
+  return n;
+}
+
+// Enough teams per block to spread B lanes over the SMs, as many as fit.
+int team_plan(TeamPlan& p, int B, int H, int C, int W) {
+  if (B < 1) return BAD_ARGUMENT;
+  p.T = TEAM;
+  const size_t smem = MAX_SMEM / sizeof(float), acc = team_acc_floats(H, C, W);
+  const size_t vec = team_vec_floats(H, C, W), wts = team_weight_floats(H, C, W);
+  const size_t teams = std::min((size_t)B, std::max<size_t>(1, MAX_PARTIALS / acc));
+  const size_t spread = (teams + sm_count() - 1) / sm_count();
+  const size_t want = std::min<size_t>(std::max<size_t>(spread, 1), MAX_TEAM_BLOCK / TEAM);
+  const size_t slice = vec + acc;
+  p.smem = wts + slice <= smem;
+  const size_t fit = p.smem ? (smem - wts) / slice : smem / vec;
+  if (fit < 1) return BAD_VARIANT;
+  p.L = (int)std::min(want, fit);
+  p.bytes = sizeof(float) * (p.smem ? wts + p.L * slice : p.L * vec);
+  p.blocks = (int)((teams + p.L - 1) / p.L);
+  p.slots = p.blocks * p.L;
+  p.rows = C * H > 2 * TEAM ? 4 : 1;
+  return 0;
+}
+
+// The partial sums added in one fixed order.
+__device__ __forceinline__ float partial_sum(const float (&a)[PS]) {
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float at4(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+struct TeamShape {
+  int H, C, W, CH;
+  int H4, CH4, S, Wq;  // padded sizes; Wq: W rounded up to a multiple of 4
+};
+
+struct TeamWeights {
+  const float *w1, *b1, *w2, *b2;  // w1 [H4][S], b1 [S], w2 [CH4][S], b2 [CH4]
+};
+
+struct Team {
+  int T;          // threads per team: the plan's T
+  int r;          // rank in the team (the lane of its warp)
+  int slot;       // the team's slot of the partials
+  float *vec, *dx, *h1, *g, *dp1, *dp2, *ddx;
+  Partials acc;   // w1 [H][S], b1 [S], w2 [C*H][S], b2 [CH4]
+  __device__ void sync() const { __syncwarp(); }
+  __device__ float& at(const TeamShape& s, int i, int h) const { return vec[i * s.H4 + h]; }
+};
+
+// A team's slot of the partials dw1p (slots, H, S), db1p (slots, S), dw2p
+// (slots, C*H, S), db2p (slots, CH4).
+__device__ __forceinline__ Partials team_slot(const Partials& part, const TeamShape& s,
+                                              size_t slot) {
+  const size_t S = s.S;
+  return Partials{part.dw1 + slot * s.H * S, part.db1 + slot * S,
+                  part.dw2 + slot * s.CH * S, part.db2 + slot * s.CH4};
+}
+
+// The block's weights (copied to shared memory with SMEM) and this thread's
+// team: its zeroed slice of shared memory and its accumulators, zeroed (in
+// shared memory) or its slot of the zeroed partials.  Ends with the block's
+// one barrier.
+template <bool SMEM>
+__device__ __forceinline__ Team team_setup(float* smem, const FieldArgs& f, const TeamPlan& p,
+                                           const Partials& part, TeamWeights& wt,
+                                           TeamShape& s) {
+  const int H = f.H, C = f.C, W = f.W, CH = C * H;
+  s = TeamShape{H, C, W, CH, round4(H), round4(CH), team_row(W), round4(W)};
+  const size_t S = s.S;
+  float* top = smem;
+  if (SMEM) {
+    // The padded weights are one contiguous copy: w1, b1, w2, b2.
+    const float* src[4] = {f.w1t, f.b1, f.w2t, f.b2};
+    const size_t len[4] = {s.H4 * S, S, s.CH4 * S, (size_t)s.CH4};
+    float* dst = top;
+    for (int k = 0; k < 4; ++k) {
+      for (size_t i = 4 * threadIdx.x; i < len[k]; i += 4 * blockDim.x) st4(dst + i, ld4(src[k] + i));
+      dst += len[k];
+    }
+    wt = TeamWeights{top, top + s.H4 * S, top + (s.H4 + 1) * S, top + (s.H4 + 1 + s.CH4) * S};
+    top += team_weight_floats(H, C, W);
+  } else {
+    wt = TeamWeights{f.w1t, f.b1, f.w2t, f.b2};
+  }
+  const int ti = threadIdx.x / TEAM;
+  Team tm;
+  tm.r = threadIdx.x % TEAM;
+  tm.T = p.T;
+  tm.slot = blockIdx.x * p.L + ti;
+  const size_t vec = team_vec_floats(H, C, W), acc = team_acc_floats(H, C, W);
+  float* base = top + (size_t)ti * (vec + (SMEM ? acc : 0));
+  for (size_t i = 4 * tm.r; i < vec + (SMEM ? acc : 0); i += 4 * tm.T)
+    st4(base + i, make_float4(0.f, 0.f, 0.f, 0.f));
+  tm.vec = base;
+  tm.dx = tm.vec + NV_BWD * s.H4;
+  tm.h1 = tm.dx + NS * MAX_ROWS;
+  tm.g = tm.h1 + NS * S;
+  tm.dp1 = tm.g + (size_t)NS * s.CH4;
+  tm.dp2 = tm.dp1 + NS * S;
+  tm.ddx = tm.dp2 + (size_t)NS * s.CH4;
+  if (SMEM) {
+    float* a = base + vec;
+    tm.acc = Partials{a, a + H * S, a + (H + 1) * S, a + (H + 1 + (size_t)CH) * S};
+  } else {
+    tm.acc = team_slot(part, s, tm.slot);
+  }
+  __syncthreads();
+  return tm;
+}
+
+// The team's accumulators to its slot of the partials (after the team's
+// last barrier).
+template <bool SMEM>
+__device__ __forceinline__ void team_finish(const Team& tm, const TeamShape& s,
+                                            const Partials& part) {
+  if (!SMEM) return;
+  const Partials dst = team_slot(part, s, tm.slot);
+  const float* src[4] = {tm.acc.dw1, tm.acc.db1, tm.acc.dw2, tm.acc.db2};
+  float* out[4] = {dst.dw1, dst.db1, dst.dw2, dst.db2};
+  const size_t len[4] = {s.H * (size_t)s.S, (size_t)s.S, s.CH * (size_t)s.S, (size_t)s.CH4};
+  for (int k = 0; k < 4; ++k)
+    for (size_t i = 4 * tm.r; i < len[k]; i += 4 * tm.T) st4(out[k] + i, ld4(src[k] + i));
+}
+
+// dX/dt at the seven stage times of the step (t, dt) into tm.dx (threads
+// i = r (mod T) < C): every load of the step issued at once.
+__device__ __forceinline__ void team_load_dx(const Table& tab, const Team& tm, size_t lane,
+                                             float t, float dt) {
+  const int C = tab.C;
+  const size_t B = tab.B;
+  for (int i = tm.r; i < C; i += tm.T) {
+    for (int st = 0; st < NS; ++st) {
+      int j;
+      float fr;
+      locate(tab, st == 0 ? t : stage_time(t, kAlpha[st - 1], dt), j, fr);
+      float d;
+      if (tab.linear) {
+        d = tab.ct[((size_t)j * C + i) * B + lane];
+      } else {
+        const float* row = tab.ct + (size_t)j * 3 * C * B + lane;
+        d = row[(size_t)i * B] +
+            (row[(size_t)(C + i) * B] + row[(size_t)(2 * C + i) * B] * fr) * fr;
+      }
+      tm.dx[st * MAX_ROWS + i] = d;
+    }
+  }
+}
+
+// Stage st's evaluation k = g(y) . dX/dt, y = vector YS + st, into KV + st;
+// keeps the stage's h1 and g for its VJP.  The caller has written y (each
+// thread its own channels) and the step's dX/dt.  RB outputs q at a time.
+template <int RB>
+__device__ __forceinline__ void team_eval(const TeamWeights& wt, const TeamShape& s,
+                                          const Team& tm, int st) {
+  const int H = s.H, CH = s.CH, T = tm.T, r = tm.r;
+  const size_t S = s.S;
+  tm.sync();
+  const float* y = tm.vec + (YS + st) * s.H4;
+  float* h1 = tm.h1 + st * S;
+  for (int w = 4 * r; w < s.Wq; w += 4 * T) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int h = 0; h < H; h += 4) {
+      const float4 yv = ld4(y + h);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 wv = ld4(wt.w1 + (h + u) * S + w);
+        const float yu = at4(yv, u);
+        a[0] = fmaf(wv.x, yu, a[0]);
+        a[1] = fmaf(wv.y, yu, a[1]);
+        a[2] = fmaf(wv.z, yu, a[2]);
+        a[3] = fmaf(wv.w, yu, a[3]);
+      }
+    }
+    const float4 bv = ld4(wt.b1 + w);
+    const float4 o = make_float4(fmaxf(a[0] + bv.x, 0.f), fmaxf(a[1] + bv.y, 0.f),
+                                 fmaxf(a[2] + bv.z, 0.f), fmaxf(a[3] + bv.w, 0.f));
+    st4(h1 + w, o);
+  }
+  tm.sync();
+  float* g = tm.g + st * s.CH4;
+  for (int q0 = r; q0 < CH; q0 += RB * T) {
+    const float* row[RB];
+    float a[RB][PS];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      row[k] = wt.w2 + (size_t)min(q0 + k * T, CH - 1) * S;
+#pragma unroll
+      for (int u = 0; u < PS; ++u) a[k][u] = 0.f;
+    }
+    for (int w = 0; w < s.Wq; w += 4) {
+      const float4 hv = ld4(h1 + w);
+#pragma unroll
+      for (int k = 0; k < RB; ++k) {
+        const float4 wv = ld4(row[k] + w);
+        a[k][0] = fmaf(wv.x, hv.x, a[k][0]);
+        a[k][1] = fmaf(wv.y, hv.y, a[k][1]);
+        a[k][2] = fmaf(wv.z, hv.z, a[k][2]);
+        a[k][3] = fmaf(wv.w, hv.w, a[k][3]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int q = q0 + k * T;
+      if (q < CH) g[q] = tanhf(partial_sum(a[k]) + wt.b2[q]);
+    }
+  }
+  tm.sync();
+  const float* dx = tm.dx + st * MAX_ROWS;
+  for (int h = r; h < H; h += T) {
+    float acc = g[h] * dx[0];
+    for (int i = 1; i < s.C; ++i) acc += g[i * H + h] * dx[i];
+    tm.at(s, KV + st, h) = acc;
+  }
+}
+
+// VJP of stage st for the cotangent in vector U, which the caller has
+// written (each thread its own channels): dy into KV + st, and the stage's
+// dp2, dp1 and ddx kept for the step's end.
+__device__ __forceinline__ void team_vjp(const TeamWeights& wt, const TeamShape& s,
+                                         const Team& tm, int st) {
+  const int H = s.H, C = s.C, CH = s.CH, T = tm.T, r = tm.r;
+  const size_t S = s.S;
+  tm.sync();
+  // dp2 = u dx (1 - g^2) of the outputs q this thread owns; g becomes u g.
+  const float* u = tm.vec + U * s.H4;
+  const float* dx = tm.dx + st * MAX_ROWS;
+  float* g = tm.g + st * s.CH4;
+  float* dp2 = tm.dp2 + st * s.CH4;
+  for (int q = r; q < CH; q += T) {
+    const int i = q / H, h = q - i * H;
+    const float gq = g[q], uh = u[h];
+    dp2[q] = (uh * dx[i]) * (1.f - gq * gq);
+    g[q] = uh * gq;
+  }
+  tm.sync();
+  // ddx_i = sum_h u_h g_(i H + h).
+  for (int i = r; i < C; i += T) {
+    float acc = 0.f;
+    for (int h = 0; h < H; ++h) acc += g[i * H + h];
+    tm.ddx[st * MAX_ROWS + i] = acc;
+  }
+  // The quads of rows this thread owns: dh1 = W2^T dp2 (four outputs apart)
+  // and dp1 behind the ReLU mask.
+  const float* h1 = tm.h1 + st * S;
+  float* dp1 = tm.dp1 + st * S;
+  for (int w = 4 * r; w < s.Wq; w += 4 * T) {
+    float dh[4][PS];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u2 = 0; u2 < PS; ++u2) dh[j][u2] = 0.f;
+    for (int q = 0; q < CH; q += 4) {
+      const float4 dv = ld4(dp2 + q);
+#pragma unroll
+      for (int u2 = 0; u2 < 4; ++u2) {
+        const float4 wv = ld4(wt.w2 + (q + u2) * S + w);
+        const float d = at4(dv, u2);
+        dh[0][u2] = fmaf(wv.x, d, dh[0][u2]);
+        dh[1][u2] = fmaf(wv.y, d, dh[1][u2]);
+        dh[2][u2] = fmaf(wv.z, d, dh[2][u2]);
+        dh[3][u2] = fmaf(wv.w, d, dh[3][u2]);
+      }
+    }
+    const float4 hv = ld4(h1 + w);
+    st4(dp1 + w, make_float4(hv.x > 0.f ? partial_sum(dh[0]) : 0.f,
+                             hv.y > 0.f ? partial_sum(dh[1]) : 0.f,
+                             hv.z > 0.f ? partial_sum(dh[2]) : 0.f,
+                             hv.w > 0.f ? partial_sum(dh[3]) : 0.f));
+  }
+  tm.sync();
+  // dy_h = sum_w W1[w, h] dp1_w: Hp channels at a time, each summed by
+  // T / Hp threads over interleaved quads of rows, then across them by
+  // shuffles.
+  int Hp = 1;
+  while (Hp < H && Hp < T) Hp <<= 1;
+  const int G = T / Hp, hh = r & (Hp - 1), seg = r / Hp;
+  for (int base = 0; base < H; base += Hp) {
+    const int h = base + hh;
+    float a4[PS] = {0.f, 0.f, 0.f, 0.f};
+    if (h < H) {
+      for (int w = 4 * seg; w < s.Wq; w += 4 * G) {
+        const float4 wv = ld4(wt.w1 + h * S + w), pv = ld4(dp1 + w);
+        a4[0] = fmaf(wv.x, pv.x, a4[0]);
+        a4[1] = fmaf(wv.y, pv.y, a4[1]);
+        a4[2] = fmaf(wv.z, pv.z, a4[2]);
+        a4[3] = fmaf(wv.w, pv.w, a4[3]);
+      }
+    }
+    float a = partial_sum(a4);
+    for (int o = Hp; o < T; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (seg == 0 && h < H) tm.at(s, KV + st, h) = a;
+  }
+}
+
+// The step's weight gradients into the team's accumulators, each entry by
+// the thread that owns it, summed over the seven stages first: dW1[w, h] +=
+// sum_st dp1_st[w] y_st[h], db1[w] += sum_st dp1_st[w], dW2[q, w] += sum_st
+// dp2_st[q] h1_st[w], db2[q] += sum_st dp2_st[q].  A quad of rows at a
+// time, so that each broadcast y_st and dp2_st serves four.  Reads only what
+// the step's passes left behind their barriers.
+__device__ __forceinline__ void team_step_weights(const TeamShape& s, const Team& tm) {
+  const int H = s.H, CH = s.CH, T = tm.T;
+  const size_t S = s.S;
+  for (int w = 4 * tm.r; w < s.Wq; w += 4 * T) {
+    float4 hv[NS], pv[NS];
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      hv[st] = ld4(tm.h1 + st * S + w);
+      pv[st] = ld4(tm.dp1 + st * S + w);
+    }
+    {
+      float4 b = ld4(tm.acc.db1 + w);
+      float sb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        sb[0] += pv[st].x;
+        sb[1] += pv[st].y;
+        sb[2] += pv[st].z;
+        sb[3] += pv[st].w;
+      }
+      b.x += sb[0];
+      b.y += sb[1];
+      b.z += sb[2];
+      b.w += sb[3];
+      st4(tm.acc.db1 + w, b);
+    }
     for (int h = 0; h < H; ++h) {
-      float y = v.at(YS, h);
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        const float yv = tm.vec[(YS + st) * s.H4 + h];
+        a[0] = fmaf(pv[st].x, yv, a[0]);
+        a[1] = fmaf(pv[st].y, yv, a[1]);
+        a[2] = fmaf(pv[st].z, yv, a[2]);
+        a[3] = fmaf(pv[st].w, yv, a[3]);
+      }
+      float* dst = tm.acc.dw1 + h * S + w;
+      float4 o = ld4(dst);
+      o.x += a[0];
+      o.y += a[1];
+      o.z += a[2];
+      o.w += a[3];
+      st4(dst, o);
+    }
+    for (int q = 0; q < CH; ++q) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        const float d = tm.dp2[st * s.CH4 + q];
+        a[0] = fmaf(d, hv[st].x, a[0]);
+        a[1] = fmaf(d, hv[st].y, a[1]);
+        a[2] = fmaf(d, hv[st].z, a[2]);
+        a[3] = fmaf(d, hv[st].w, a[3]);
+      }
+      float* dst = tm.acc.dw2 + q * S + w;
+      float4 o = ld4(dst);
+      o.x += a[0];
+      o.y += a[1];
+      o.z += a[2];
+      o.w += a[3];
+      st4(dst, o);
+    }
+  }
+  for (int q = tm.r; q < CH; q += T) {
+    float a = 0.f;
+#pragma unroll
+    for (int st = 0; st < NS; ++st) a += tm.dp2[st * s.CH4 + q];
+    tm.acc.db2[q] += a;
+  }
+}
+
+// The step's ddx into the lane's dct rows (threads i = r (mod T) < C):
+// stages in one interval (their times do not decrease) are summed first.
+__device__ __forceinline__ void team_flush_dct(const Table& tab, const Team& tm, size_t lane,
+                                               float t, float dt, float* dct) {
+  const int C = tab.C;
+  const size_t B = tab.B;
+  for (int i = tm.r; i < C; i += tm.T) {
+    int jc = -1;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    for (int st = 0; st <= NS; ++st) {
+      int j = -2;
+      float fr = 0.f;
+      if (st < NS) locate(tab, st == 0 ? t : stage_time(t, kAlpha[st - 1], dt), j, fr);
+      if (j != jc && jc >= 0) {
+        if (tab.linear) {
+          dct[((size_t)jc * C + i) * B + lane] += a0;
+        } else {
+          float* row = dct + (size_t)jc * 3 * C * B + lane;
+          row[(size_t)i * B] += a0;
+          row[(size_t)(C + i) * B] += a1;
+          row[(size_t)(2 * C + i) * B] += a2;
+        }
+        a0 = a1 = a2 = 0.f;
+      }
+      if (st == NS) break;
+      jc = j;
+      const float d = tm.ddx[st * MAX_ROWS + i];
+      a0 += d;
+      a1 += fr * d;
+      a2 += (fr * fr) * d;
+    }
+  }
+}
+
+// The step's stored state z (z[h * stride]) into YS and its dX/dt, the
+// loads of both issued before either is stored.
+__device__ __forceinline__ void team_load_step(const TeamShape& s, const Team& tm,
+                                               const Table& tab, size_t lane, float t, float dt,
+                                               const float* z, size_t stride) {
+  const float z0 = tm.r < s.H ? z[(size_t)tm.r * stride] : 0.f;
+  for (int h = tm.r + tm.T; h < s.H; h += tm.T) tm.at(s, YS, h) = z[(size_t)h * stride];
+  team_load_dx(tab, tm, lane, t, dt);
+  if (tm.r < s.H) tm.at(s, YS, tm.r) = z0;
+}
+
+// The step's stage inputs into YS .. YS + 6 and stages into KV .. KV + 6,
+// after team_load_step.
+template <int RB>
+__device__ __forceinline__ void team_recompute(const TeamWeights& wt, const TeamShape& s,
+                                               const Team& tm, float dt) {
+  // One copy of the evaluation in the code: with a second call site for
+  // stage 0, K9's backward took 2 % longer on an H100.
+#pragma unroll 1
+  for (int st = 0; st < NS; ++st) {
+    for (int h = tm.r; st > 0 && h < s.H; h += tm.T) {
+      float y = tm.at(s, YS, h);
       for (int q = 0; q < st; ++q) {
         const float coef = kBeta[st - 1][q];
-        if (coef != 0.f) y = y + (dt * coef) * v.at(KV + q, h);
+        if (coef != 0.f) y = y + (dt * coef) * tm.at(s, KV + q, h);
       }
-      v.at(YS + st, h) = y;
+      tm.at(s, YS + st, h) = y;
     }
-    control_at(tab, lane, live, stage_time(t, kAlpha[st - 1], dt), dx, j, fr);
-    field.eval(v, YS + st, KV + st, dx);
+    team_eval<RB>(wt, s, tm, st);
   }
 }
 
 // The dense output's cotangent terms before any output row: lambda flows
 // into z1.
-__device__ __forceinline__ void start_step_cotangents(const Vecs& v) {
-  for (int h = 0; h < v.H; ++h) {
-    v.at(LZ, h) = 0.f;
-    v.at(LZ1, h) = v.at(LAM, h);
-    v.at(E0, h) = v.at(E6, h) = v.at(UMID, h) = 0.f;
+__device__ __forceinline__ void team_start_cotangents(const TeamShape& s, const Team& tm) {
+  for (int h = tm.r; h < s.H; h += tm.T) {
+    tm.at(s, LZ, h) = 0.f;
+    tm.at(s, LZ1, h) = tm.at(s, LAM, h);
+    tm.at(s, E0, h) = tm.at(s, E6, h) = tm.at(s, UMID, h) = 0.f;
   }
 }
 
 // Adds the cotangent gk (gk[h * stride]) of the output row at theta.
-__device__ __forceinline__ void add_row_cotangent(const Vecs& v, const Dense& d, float theta,
-                                                  float dt, const float* gk, size_t stride,
-                                                  bool live) {
+__device__ __forceinline__ void team_add_row(const TeamShape& s, const Team& tm, const Dense& d,
+                                             float theta, float dt, const float* gk,
+                                             size_t stride) {
   float cA, cB, cC;
   dense_coeffs(d.minv, theta, cA, cB, cC);
-  for (int h = 0; h < v.H; ++h) {
-    const float g = live ? gk[(size_t)h * stride] : 0.f;
-    v.at(LZ, h) += (1.f - cA - cC) * g;
-    v.at(LZ1, h) += cA * g;
-    v.at(E0, h) += (dt * (theta - cA - cB - 0.5f * cC)) * g;
-    v.at(E6, h) += (dt * cB) * g;
-    v.at(UMID, h) += cC * g;
+  for (int h = tm.r; h < s.H; h += tm.T) {
+    const float g = gk[(size_t)h * stride];
+    tm.at(s, LZ, h) += (1.f - cA - cC) * g;
+    tm.at(s, LZ1, h) += cA * g;
+    tm.at(s, E0, h) += (dt * (theta - cA - cB - 0.5f * cC)) * g;
+    tm.at(s, E6, h) += (dt * cB) * g;
+    tm.at(s, UMID, h) += cC * g;
   }
 }
 
-// The stages' cotangents in reverse, each through the field's VJP, adding the
-// control's cotangent to the lane's dct rows; then lambda before the step.
-// Every thread of the block calls it; a lane with act false (no step at this
-// iteration) comes with dt 0 and no output rows, so its cotangents are zero,
-// and it keeps its lambda.
-template <class F>
-__device__ __forceinline__ void step_backward(const F& field, const Vecs& v, const Table& tab,
-                                              const Dense& d, size_t lane, bool live, bool act,
-                                              float t, float dt, float* dct) {
-  const int H = v.H, C = tab.C;
-  const size_t B = tab.B;
-  float dx[F::MC], ddx[F::MC];
-  int j;
-  float fr;
+// The stages' cotangents in reverse, each through the field's VJP, then
+// lambda before the step, the step's weight gradients and its dct rows.
+// Ends with the team at a barrier.
+template <int RB>
+__device__ __forceinline__ void team_step_backward(const TeamWeights& wt, const TeamShape& s,
+                                                   const Team& tm, const Table& tab,
+                                                   const Dense& d, size_t lane, float t,
+                                                   float dt, float* dct) {
+  const int H = s.H;
   // y_mid = z + dt sum bmid_q k_q and z1 = z + dt sum csol_q k_q.
-  for (int h = 0; h < H; ++h) v.at(LZ, h) = v.at(LZ, h) + v.at(UMID, h) + v.at(LZ1, h);
+  for (int h = tm.r; h < H; h += tm.T)
+    tm.at(s, LZ, h) = tm.at(s, LZ, h) + tm.at(s, UMID, h) + tm.at(s, LZ1, h);
   for (int st = NS - 1; st >= 0; --st) {
-    for (int h = 0; h < H; ++h) {
-      float u = st == 0 ? v.at(E0, h) : (st == NS - 1 ? v.at(E6, h) : 0.f);
-      u = u + (dt * d.bmid[st]) * v.at(UMID, h) + (dt * kCsol[st]) * v.at(LZ1, h);
+    for (int h = tm.r; h < H; h += tm.T) {
+      float u = st == 0 ? tm.at(s, E0, h) : (st == NS - 1 ? tm.at(s, E6, h) : 0.f);
+      u = u + (dt * d.bmid[st]) * tm.at(s, UMID, h) + (dt * kCsol[st]) * tm.at(s, LZ1, h);
       for (int s2 = st + 1; s2 < NS; ++s2) {
         const float coef = kBeta[s2 - 1][st];
-        if (coef != 0.f) u = u + (dt * coef) * v.at(KV + s2, h);
+        if (coef != 0.f) u = u + (dt * coef) * tm.at(s, KV + s2, h);
       }
-      v.at(U, h) = u;
+      tm.at(s, U, h) = u;
     }
-    control_at(tab, lane, live, st == 0 ? t : stage_time(t, kAlpha[st - 1], dt), dx, j, fr);
-    field.vjp(v, U, YS + st, KV + st, dx, ddx);
-    if (live && act && tab.linear) {  // the slope row only
-      float* row = dct + (size_t)j * C * B + lane;
-#pragma unroll
-      for (int q = 0; q < F::MC; ++q)
-        if (q < C) row[(size_t)q * B] += ddx[q];
-    } else if (live && act) {
-      float* row = dct + (size_t)j * 3 * C * B + lane;
-#pragma unroll
-      for (int q = 0; q < F::MC; ++q) {
-        if (q < C) {
-          row[(size_t)q * B] += ddx[q];
-          row[(size_t)(C + q) * B] += fr * ddx[q];
-          row[(size_t)(2 * C + q) * B] += (fr * fr) * ddx[q];
-        }
-      }
-    }
+    team_vjp(wt, s, tm, st);
   }
-  if (!act) return;
-  for (int h = 0; h < H; ++h) {
-    float lz = v.at(LZ, h);
-    for (int st = 0; st < NS; ++st) lz = lz + v.at(KV + st, h);
-    v.at(LAM, h) = lz;
+  for (int h = tm.r; h < H; h += tm.T) {
+    float lz = tm.at(s, LZ, h);
+    for (int st = 0; st < NS; ++st) lz = lz + tm.at(s, KV + st, h);
+    tm.at(s, LAM, h) = lz;
   }
+  team_step_weights(s, tm);
+  team_flush_dct(tab, tm, lane, t, dt, dct);
+  tm.sync();
 }
 
+// The specialised variant runs H 8, C 3 up to the widths at which it has
+// been held against the plain version on the card (the bound its shared
+// memory had while K2's backward ran one thread per lane on it).
+constexpr int MAX_SPECIALISED_W = 391;
+
 bool specialised_fits(int H, int C, int W) {
-  return H == 8 && C == 3 && sizeof(float) * SpecField::smem_floats(W, true) <= MAX_SMEM;
+  return H == 8 && C == 3 && W <= MAX_SPECIALISED_W;
 }
 
 int blocks_of(int B) { return (B + LANES - 1) / LANES; }

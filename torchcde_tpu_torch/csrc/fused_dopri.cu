@@ -13,18 +13,20 @@
 // state back through them: the frozen-mesh gradients of direct
 // backpropagation through the adaptive loop.
 //
-// What bounds it.  As in fused_fixed.cu, a serial chain of small
-// matrix-vector products per lane (2 W H (1 + C) FLOP per stage; 6 stages per
-// attempted step), latency- and compute-bound on the CUDA cores.  On top of
-// that, every attempted step needs the error norm of the whole group: a
-// reduction across every block, after which every block must take the same
-// accept / step-size decision bit for bit.
+// What bounds it.  A serial chain of small matrix-vector products per lane
+// (2 W H (1 + C) FLOP per stage; 6 stages per attempted step), latency-bound
+// on the CUDA cores.  The forward also needs the error norm of the whole
+// group at every attempted step: a reduction across every block, after
+// which every block must take the same accept / step-size decision bit for
+// bit.  The backward needs no norm; with one thread per lane it would leave
+// most of the card idle (8 one-warp blocks at B 256), each thread carrying
+// its lane's whole field.
 //
 // Design.
-//  * One thread per batch lane, blocks of one warp (32 lanes), as K1.  A group
-//    of up to 4096 lanes is one cooperative launch of up to 128 blocks, all
-//    resident at once (cudaLaunchCooperativeKernel refuses a grid that could
-//    not be), so they can wait for each other.
+//  * Forward: one thread per batch lane, blocks of one warp (32 lanes), as
+//    K1.  A group of up to 4096 lanes is one cooperative launch of up to 128
+//    blocks, all resident at once (cudaLaunchCooperativeKernel refuses a
+//    grid that could not be), so they can wait for each other.
 //  * The norm: each block sums its lanes' squares with warp shuffles and
 //    writes one partial; a barrier on a global counter; then every thread of
 //    every block sums the partials in block order.  The same float operations
@@ -42,18 +44,24 @@
 //    LinearInterpolation.derivative does.  With `lead`, row 0 is the
 //    interval left of the chunk's first knot t0g and the rule drops the - 1.
 //    The backward adds each stage's ddx to its slope row only.
-//  * The lane's vectors (state, the seven stages, ...) live in shared memory
-//    (specialised variant) or in a per-lane global scratch (generic variant),
-//    lane-minor; the step math is cde_dopri.cuh's, shared with the per-lane
-//    solve (fused_dopri_persample.cu).
-//  * The backward needs no norm: the mesh is fixed, so it is an ordinary
-//    launch.  Each lane owns its dct column (no atomics); weight gradients are
-//    deterministic per-block partials, as in K1.
+//  * The forward's lane vectors (state, the seven stages, ...) live in shared
+//    memory (specialised variant) or in a per-lane global scratch (generic
+//    variant), lane-minor; the step math is cde_dopri.cuh's, shared with the
+//    per-lane solve (fused_dopri_persample.cu).
+//  * The backward is an ordinary launch over the fixed mesh, every lane
+//    walking the group's accepted steps in reverse, one kernel for every
+//    shape: a team of 32 threads (a warp) per lane, 256 warps at B 256 and
+//    4096 at the default B 4096, with the weights in shared memory once per
+//    block, each thread's rows of the hidden layer, the lane's vectors and
+//    each stage's activations in the team's slice, and weight gradients the
+//    team keeps privately and writes once to its slot of the partials
+//    (cde_dopri.cuh, "The backward in teams").  Each lane owns its dct
+//    column (no atomics).
 //
-// Two variants compute the same function, in either mode; fd_variant picks
-// one from the shapes.  Specialised: H 8, C 3 (the flagship), weights in
-// shared memory, widths whose backward fits (W <= 391).  Generic: H, C, W at
-// run time, weights read through L1, every other shape inside the JAX
+// The forward has two variants that compute the same function, in either
+// mode; fd_variant picks one from the shapes.  Specialised: H 8, C 3 (the
+// flagship), weights and vectors in shared memory, W <= 391.  Generic: H, C,
+// W at run time, weights read through L1, every other shape inside the JAX
 // kernel's caps (W <= 512, C*H <= 512, 3*C <= 16 cubic, C <= 16 linear).
 //
 // Layouts (float32, lane minor; B = lanes of the group):
@@ -63,8 +71,9 @@
 //   zout (n_out, H, B), zfin (H, B), dtfin (1), zst (cap, H, B), tst (cap),
 //   dtst (cap), stats (2) int32: accepted and attempted steps.
 // Backward: gzout (n_out, H, B), gzfin (H, B) -> dct (ct's shape), dz0 (H, B)
-//   and per-block partials dw1p (blocks, W, H), db1p (blocks, W),
-//   dw2p (blocks, W, C*H), db2p (blocks, C*H), blocks = fd_blocks(B).
+//   and, over the padded weights, weight partials dw1p (slots, H, S), db1p
+//   (slots, S), dw2p (slots, C*H, S), db2p (slots, round4(C*H)), one per
+//   team (fd_team_plan).
 
 #include "cde_dopri.cuh"
 
@@ -134,12 +143,11 @@ template <class F>
 __global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
   const Common& c = a.c;
-  const F field = make_field<F>(smem, c.scratch + head_floats(gridDim.x), c.f, false,
-                                Partials{});
+  const F field = make_field<F>(smem, c.scratch + head_floats(gridDim.x), c.f);
   __syncthreads();
   const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
   const bool live = lane < (size_t)c.tab.B;
-  const Vecs v = field.vecs(lane, false);
+  const Vecs v = field.vecs(lane);
   const int H = c.f.H;
   const size_t B = c.tab.B;
   float* partials = c.scratch;
@@ -215,49 +223,49 @@ __global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <class F>
-__global__ void __launch_bounds__(LANES) dopri_bwd_kernel(BwdArgs a) {
+// The backward, for every shape: a team of threads per lane (cde_dopri.cuh),
+// every lane walking the group's accepted steps; teams stride over the lanes.
+template <bool SMEM, int RB>
+__global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_bwd_team_kernel(BwdArgs a, TeamPlan p) {
   extern __shared__ float smem[];
   const Common& c = a.c;
-  const F field = make_field<F>(smem, c.scratch + head_floats(gridDim.x), c.f, true, a.p);
-  __syncthreads();
-  const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
-  const bool live = lane < (size_t)c.tab.B;
-  const Vecs v = field.vecs(lane, true);  // cde_dopri.cuh: SpecField::vecs
-  const int H = c.f.H;
+  TeamWeights wt;
+  TeamShape s;
+  const Team tm = team_setup<SMEM>(smem, c.f, p, a.p, wt, s);
+  const int H = s.H;
   const size_t B = c.tab.B;
   const int cnt = a.stats[0];
-
-  for (int h = 0; h < H; ++h) v.at(LAM, h) = live ? a.gzfin[h * B + lane] : 0.f;
-  uint64_t emitted = 0;
-  for (int i = 0; i < cnt; ++i) {
-    const int s = cnt - 1 - i;
-    const float t = a.tst[s], dt = a.dtst[s];
-    // Recompute the step's stages from the stored state.
-    for (int h = 0; h < H; ++h)
-      v.at(YS, h) = live ? a.zst[((size_t)s * H + h) * B + lane] : 0.f;
-    recompute_stages(field, v, c.tab, lane, live, t, dt);
-    // Cotangents of the dense-output rows this step emitted.
-    start_step_cotangents(v);
-    for (int k = 0; k < c.n_out; ++k) {
-      const float tk = c.out_ts[k];
-      if (!(tk > t && tk <= t + dt)) continue;
-      emitted |= uint64_t(1) << k;
-      add_row_cotangent(v, c.d, theta_of(tk, t, dt), dt, a.gzout + (size_t)k * H * B + lane, B,
-                        live);
+  for (size_t lane = tm.slot; lane < B; lane += p.slots) {
+    for (int h = tm.r; h < H; h += tm.T) tm.at(s, LAM, h) = a.gzfin[h * B + lane];
+    uint64_t emitted = 0;
+    // Each step's t and dt are read during the step before.
+    float t_next = cnt > 0 ? a.tst[cnt - 1] : 0.f, dt_next = cnt > 0 ? a.dtst[cnt - 1] : 0.f;
+    for (int i = 0; i < cnt; ++i) {
+      const int st = cnt - 1 - i;
+      const float t = t_next, dt = dt_next;
+      if (st > 0) {
+        t_next = a.tst[st - 1];
+        dt_next = a.dtst[st - 1];
+      }
+      team_load_step(s, tm, c.tab, lane, t, dt, a.zst + (size_t)st * H * B + lane, B);
+      team_recompute<RB>(wt, s, tm, dt);
+      team_start_cotangents(s, tm);
+      for (int k = 0; k < c.n_out; ++k) {
+        const float tk = c.out_ts[k];
+        if (!(tk > t && tk <= t + dt)) continue;
+        emitted |= uint64_t(1) << k;
+        team_add_row(s, tm, c.d, theta_of(tk, t, dt), dt, a.gzout + (size_t)k * H * B + lane, B);
+      }
+      team_step_backward<RB>(wt, s, tm, c.tab, c.d, lane, t, dt, a.dct);
     }
-    step_backward(field, v, c.tab, c.d, lane, live, true, t, dt, a.dct);
-  }
-  // dz0: lambda at the chunk start, plus the rows never emitted (they kept z0).
-  if (live) {
-    for (int h = 0; h < H; ++h) {
-      float d = v.at(LAM, h);
+    for (int h = tm.r; h < H; h += tm.T) {
+      float d = tm.at(s, LAM, h);
       for (int k = 0; k < c.n_out; ++k)
         if (!((emitted >> k) & 1)) d = d + a.gzout[((size_t)k * H + h) * B + lane];
       a.dz0[h * B + lane] = d;
     }
   }
-  field.finish(a.p);
+  team_finish<SMEM>(tm, s, a.p);
 }
 
 template <class F>
@@ -273,12 +281,12 @@ int launch_fwd(FwdArgs a, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int launch_bwd(const BwdArgs& a, size_t smem, cudaStream_t stream) {
-  auto kernel = dopri_bwd_kernel<F>;
-  cudaError_t err = set_smem(kernel, smem);
+template <bool SMEM, int RB>
+int launch_bwd_team(const BwdArgs& a, const TeamPlan& p, cudaStream_t stream) {
+  auto kernel = dopri_bwd_team_kernel<SMEM, RB>;
+  cudaError_t err = set_smem(kernel, p.bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_of(a.c.tab.B), LANES, smem, stream>>>(a);
+  kernel<<<p.blocks, p.L * TEAM, p.bytes, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -310,15 +318,26 @@ int fd_variant(int H, int C, int W) {
   return specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
 }
 
-// Blocks of a launch over B lanes: the leading size of the weight partials.
-int fd_blocks(int B) { return blocks_of(B); }
+// The team backward's launch for these shapes (K2 and K9): teams per block, blocks, slots of the partials, outputs a thread
+// carries at once, weights and accumulators in shared memory (1) or not
+// (0), the bytes of shared memory a block takes, and S, the padded row
+// length of the weights and partials, into out[0..6]; returns 0 or an error
+// code.  The wrappers size the padded weights and the partials from it;
+// fd_backward and ps_backward check that they did.
+int fd_team_plan(int B, int H, int C, int W, long* out) {
+  TeamPlan p;
+  const int rc = team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  const long v[7] = {p.L, p.blocks, p.slots, p.rows, p.smem, (long)p.bytes, team_row(W)};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
 
-// Floats of the zeroed scratch a launch needs.
-long fd_scratch_floats(int B, int H, int C, int W, int variant, int bwd) {
+// Floats of the zeroed scratch a forward launch needs.
+long fd_scratch_floats(int B, int H, int C, int W, int variant) {
   const int blocks = blocks_of(B);
   size_t floats = head_floats(blocks);
-  if (variant == GENERIC)
-    floats += GenField::rows(H, C, W, bwd != 0) * (size_t)blocks * LANES;
+  if (variant == GENERIC) floats += GenField::rows(H, C, W) * (size_t)blocks * LANES;
   return (long)floats;
 }
 
@@ -357,20 +376,23 @@ int fd_forward(const float* ct, const float* z0t, const float* w1t, const float*
   a.dfactor = dfactor;
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == SPECIALISED)
-    return launch_fwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W, false), st);
+    return launch_fwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W), st);
   return launch_fwd<GenField>(a, 0, st);
 }
 
+// The weights padded (cde_dopri.cuh, team_weight_floats) and zeroed
+// partials (slots, H, S), (slots, S), (slots, C*H, S), (slots, CH4), with
+// the slots and S of fd_team_plan.
 int fd_backward(const float* ct, const float* zst, const float* tst, const float* dtst,
                 const float* gzout, const float* gzfin, const float* w1t, const float* b1,
                 const float* w2t, const float* b2, const int* stats, float* dct,
                 float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
-                float* scratch, int B, int n, int H, int C, int W, int n_out,
+                int B, int n, int H, int C, int W, int n_out,
                 const float* out_ts, const float* dense, float t0g, float w,
-                int linear, int lead, int variant, void* stream) {
+                int linear, int lead, int slots, int row, void* stream) {
   BwdArgs a;
-  int rc = make_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out,
-                       out_ts, dense, t0g, w, linear, lead, variant);
+  int rc = make_common(a.c, ct, w1t, b1, w2t, b2, nullptr, B, n, H, C, W, n_out,
+                       out_ts, dense, t0g, w, linear, lead, GENERIC);
   if (rc) return rc;
   a.zst = zst;
   a.tst = tst;
@@ -382,9 +404,12 @@ int fd_backward(const float* ct, const float* zst, const float* tst, const float
   a.dz0 = dz0;
   a.p = Partials{dw1p, db1p, dw2p, db2p};
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED)
-    return launch_bwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W, true), st);
-  return launch_bwd<GenField>(a, 0, st);
+  TeamPlan p;
+  rc = team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  if (p.slots != slots || team_row(W) != row) return BAD_ARGUMENT;
+  if (p.smem) return p.rows == 4 ? launch_bwd_team<true, 4>(a, p, st) : launch_bwd_team<true, 1>(a, p, st);
+  return p.rows == 4 ? launch_bwd_team<false, 4>(a, p, st) : launch_bwd_team<false, 1>(a, p, st);
 }
 
 }  // extern "C"

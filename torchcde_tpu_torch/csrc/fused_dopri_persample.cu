@@ -16,31 +16,33 @@
 //
 // What bounds it.  As K2 (fused_dopri.cu), a serial chain of small
 // matrix-vector products per lane, 2 W H (1 + C) FLOP per stage evaluation,
-// latency- and compute-bound on the CUDA cores; here each lane's step count
-// is its own, so a warp runs as long as its slowest lane.
+// latency-bound on the CUDA cores; here each lane's step count is its own,
+// so a launch lasts as long as its hardest lane's chain.
 //
 // Design.
 //  * Lanes are independent: no norm to share, so no cooperative launch and
-//    no cross-block reduction.  One thread per lane, blocks of one warp
-//    (32 lanes), each thread running its own loop.  This is the JAX kernel's
-//    lockstep loop seen from one lane: there a lane is active from the first
-//    iteration until it finishes and idle after, so its attempts in a chunk
-//    are min(need, cap) either way.
+//    no cross-block reduction.  The forward runs one thread per lane, blocks
+//    of one warp (32 lanes), each thread running its own loop.  This is the
+//    JAX kernel's lockstep loop seen from one lane: there a lane is active
+//    from the first iteration until it finishes and idle after, so its
+//    attempts in a chunk are min(need, cap) either way.
 //  * Each lane reads its own interval of the table (CUDA can gather; the TPU
 //    kernel evaluates every resident interval and reduces one-hot).
 //  * The store keeps each lane's accepted steps only (t, dt and the entry
 //    state): a rejected or idle iteration of the TPU kernel's store has
 //    accept 0 and contributes nothing to any gradient.
-//  * The backward runs the block's lanes in lockstep for as many iterations
-//    as the block's longest mesh, each lane on its own steps in reverse; a
-//    lane past its count passes zero cotangents, so that the field's VJP
-//    can reduce the block's weight gradients behind its barriers.  Each lane
-//    owns its dct column (no atomics); weight gradients are deterministic
-//    per-block partials, as in K1, K2 and K8.
-//  * The step math (stages, error, controller, dense output, the backward
-//    of a step) and both variants of the field are cde_dopri.cuh's, shared
-//    with K2.  ps_variant picks one from the shapes: specialised H 8, C 3,
-//    W <= 391; generic otherwise inside the JAX kernel's caps.
+//  * The backward, in either variant, runs a team of 32 threads per lane
+//    (cde_dopri.cuh, "The backward in teams"): 256 warps at B 256 instead of
+//    8, each team walking its own lane's accepted steps in reverse, with no
+//    lockstep and no barrier across lanes: the weights in shared memory once
+//    per block, each thread's rows of the hidden layer, the lane's vectors
+//    and each stage's activations in the team's slice, and weight gradients
+//    the team keeps privately and writes once to its slot of the partials.
+//    Each lane owns its dct column (no atomics).
+//  * The forward's step math (stages, error, controller, dense output) and
+//    both variants of its field are cde_dopri.cuh's, shared with K2.
+//    ps_variant picks one from the shapes: specialised H 8, C 3, W <= 391;
+//    generic otherwise inside the JAX kernel's caps.
 //
 // Layouts (float32, lane minor; B = lanes):
 //   ct (n, 3, C, B) or (n, 1, C, B) as in fused_dopri.cu; z0t (H, B);
@@ -50,8 +52,9 @@
 //   Forward out: zout (n_out, H, B), zfin (H, B), ctlout (4, B), nacc (B),
 //   natt (B), zst (cap, H, B), tst (cap, B), dtst (cap, B), cnt (B) int32.
 // Backward: gzout (n_out, H, B), gzfin (H, B) -> dct (ct's shape), dz0
-//   (H, B), dzout_in (n_out, H, B) and per-block partials dw1p (blocks, W, H),
-//   db1p (blocks, W), dw2p (blocks, W, C*H), db2p (blocks, C*H).
+//   (H, B), dzout_in (n_out, H, B) and, over the padded weights, weight
+//   partials dw1p (slots, H, S), db1p (slots, S), dw2p (slots, C*H, S),
+//   db2p (slots, round4(C*H)), one per team (fd_team_plan in fused_dopri.cu).
 
 #include "cde_dopri.cuh"
 
@@ -86,11 +89,11 @@ template <class F>
 __global__ void __launch_bounds__(LANES) ps_fwd_kernel(PsFwdArgs a) {
   extern __shared__ float smem[];
   const PsCommon& c = a.c;
-  const F field = make_field<F>(smem, c.scratch, c.f, false, Partials{});
+  const F field = make_field<F>(smem, c.scratch, c.f);
   __syncthreads();
   const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
   if (lane >= (size_t)c.tab.B) return;  // the forward has no block-wide step
-  const Vecs v = field.vecs(lane, false);
+  const Vecs v = field.vecs(lane);
   const int H = c.f.H;
   const size_t B = c.tab.B;
 
@@ -158,53 +161,53 @@ __global__ void __launch_bounds__(LANES) ps_fwd_kernel(PsFwdArgs a) {
         for (int h = 0; h < H; ++h) a.zout[((size_t)k * H + h) * B + lane] = NAN;
 }
 
-template <class F>
-__global__ void __launch_bounds__(LANES) ps_bwd_kernel(PsBwdArgs a) {
+// A team of threads per lane (cde_dopri.cuh), each walking its own lane's
+// accepted steps in reverse; teams stride over the lanes.
+template <bool SMEM, int RB>
+__global__ void __launch_bounds__(MAX_TEAM_BLOCK) ps_bwd_kernel(PsBwdArgs a, TeamPlan p) {
   extern __shared__ float smem[];
   const PsCommon& c = a.c;
-  const F field = make_field<F>(smem, c.scratch, c.f, true, a.p);
-  __syncthreads();
-  const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
-  const bool live = lane < (size_t)c.tab.B;
-  const Vecs v = field.vecs(lane, false);
-  const int H = c.f.H;
+  TeamWeights wt;
+  TeamShape s;
+  const Team tm = team_setup<SMEM>(smem, c.f, p, a.p, wt, s);
+  const int H = s.H;
   const size_t B = c.tab.B;
-  const int cnt = live ? a.cnt[lane] : 0;
-  int steps = cnt;  // the block's (one warp's) longest mesh
-  for (int off = LANES / 2; off > 0; off >>= 1)
-    steps = max(steps, __shfl_xor_sync(0xffffffffu, steps, off));
-
-  for (int h = 0; h < H; ++h) v.at(LAM, h) = live ? a.gzfin[h * B + lane] : 0.f;
-  uint64_t emitted = 0;
-  for (int i = 0; i < steps; ++i) {
-    const bool act = i < cnt;
-    const int s = cnt - 1 - i;
-    const float t = act ? a.tst[(size_t)s * B + lane] : 0.f;
-    const float dt = act ? a.dtst[(size_t)s * B + lane] : 0.f;
-    for (int h = 0; h < H; ++h)
-      v.at(YS, h) = act ? a.zst[((size_t)s * H + h) * B + lane] : 0.f;
-    recompute_stages(field, v, c.tab, lane, live, t, dt);
-    start_step_cotangents(v);
-    for (int k = 0; act && k < c.n_out; ++k) {
-      const float tk = a.ts_rows[(size_t)k * B + lane];
-      if (!(tk > t && tk <= t + dt)) continue;
-      emitted |= uint64_t(1) << k;
-      add_row_cotangent(v, c.d, theta_of(tk, t, dt), dt, a.gzout + (size_t)k * H * B + lane, B,
-                        live);
+  for (size_t lane = tm.slot; lane < B; lane += p.slots) {
+    const int cnt = a.cnt[lane];
+    for (int h = tm.r; h < H; h += tm.T) tm.at(s, LAM, h) = a.gzfin[h * B + lane];
+    uint64_t emitted = 0;
+    // Each step's t and dt are read during the step before.
+    float t_next = cnt > 0 ? a.tst[(size_t)(cnt - 1) * B + lane] : 0.f;
+    float dt_next = cnt > 0 ? a.dtst[(size_t)(cnt - 1) * B + lane] : 0.f;
+    for (int i = 0; i < cnt; ++i) {
+      const int st = cnt - 1 - i;
+      const float t = t_next, dt = dt_next;
+      if (st > 0) {
+        t_next = a.tst[(size_t)(st - 1) * B + lane];
+        dt_next = a.dtst[(size_t)(st - 1) * B + lane];
+      }
+      team_load_step(s, tm, c.tab, lane, t, dt, a.zst + (size_t)st * H * B + lane, B);
+      team_recompute<RB>(wt, s, tm, dt);
+      team_start_cotangents(s, tm);
+      for (int k = 0; k < c.n_out; ++k) {
+        const float tk = a.ts_rows[(size_t)k * B + lane];
+        if (!(tk > t && tk <= t + dt)) continue;
+        emitted |= uint64_t(1) << k;
+        team_add_row(s, tm, c.d, theta_of(tk, t, dt), dt, a.gzout + (size_t)k * H * B + lane, B);
+      }
+      team_step_backward<RB>(wt, s, tm, c.tab, c.d, lane, t, dt, a.dct);
     }
-    step_backward(field, v, c.tab, c.d, lane, live, act, t, dt, a.dct);
-  }
-  if (live) {
-    for (int h = 0; h < H; ++h) a.dz0[h * B + lane] = v.at(LAM, h);
-    // The rows this chunk did not emit pass their cotangent to the rows it
-    // was given.
-    for (int k = 0; k < c.n_out; ++k)
-      for (int h = 0; h < H; ++h) {
+    for (int h = tm.r; h < H; h += tm.T) {
+      a.dz0[h * B + lane] = tm.at(s, LAM, h);
+      // The rows this chunk did not emit pass their cotangent to the rows it
+      // was given.
+      for (int k = 0; k < c.n_out; ++k) {
         const size_t at = ((size_t)k * H + h) * B + lane;
         a.dzout_in[at] = ((emitted >> k) & 1) ? 0.f : a.gzout[at];
       }
+    }
   }
-  field.finish(a.p);
+  team_finish<SMEM>(tm, s, a.p);
 }
 
 template <class F>
@@ -216,12 +219,12 @@ int launch_fwd(const PsFwdArgs& a, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int launch_bwd(const PsBwdArgs& a, size_t smem, cudaStream_t stream) {
-  auto kernel = ps_bwd_kernel<F>;
-  cudaError_t err = set_smem(kernel, smem);
+template <bool SMEM, int RB>
+int launch_bwd(const PsBwdArgs& a, const TeamPlan& p, cudaStream_t stream) {
+  auto kernel = ps_bwd_kernel<SMEM, RB>;
+  cudaError_t err = set_smem(kernel, p.bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_of(a.c.tab.B), LANES, smem, stream>>>(a);
+  kernel<<<p.blocks, p.L * TEAM, p.bytes, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -252,13 +255,10 @@ int ps_variant(int H, int C, int W) {
   return specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
 }
 
-// Blocks of a launch over B lanes: the leading size of the weight partials.
-int ps_blocks(int B) { return blocks_of(B); }
-
-// Floats of the zeroed scratch a launch needs.
-long ps_scratch_floats(int B, int H, int C, int W, int variant, int bwd) {
+// Floats of the zeroed scratch a forward launch needs.
+long ps_scratch_floats(int B, int H, int C, int W, int variant) {
   if (variant != GENERIC) return 1;
-  return (long)(GenField::rows(H, C, W, bwd != 0) * (size_t)blocks_of(B) * LANES);
+  return (long)(GenField::rows(H, C, W) * (size_t)blocks_of(B) * LANES);
 }
 
 // dense: the 7 midpoint weights, then the 3x3 quartic inverse row-major.
@@ -300,20 +300,23 @@ int ps_forward(const float* ct, const float* z0t, const float* w1t, const float*
   a.dfactor = dfactor;
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == SPECIALISED)
-    return launch_fwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W, false), st);
+    return launch_fwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W), st);
   return launch_fwd<GenField>(a, 0, st);
 }
 
+// The weights padded (cde_dopri.cuh, team_weight_floats) and zeroed
+// partials (slots, H, S), (slots, S), (slots, C*H, S), (slots, CH4), with
+// the slots and S of fused_dopri.cu's fd_team_plan.
 int ps_backward(const float* ct, const float* zst, const float* tst, const float* dtst,
                 const float* ts_rows, const float* gzout, const float* gzfin, const float* w1t,
                 const float* b1, const float* w2t, const float* b2, const int* cnt, float* dct,
                 float* dz0, float* dzout_in, float* dw1p, float* db1p, float* dw2p,
-                float* db2p, float* scratch, int B, int n, int H, int C, int W, int n_out,
-                const float* dense, float t0g, float w, int linear, int lead, int variant,
-                void* stream) {
+                float* db2p, int B, int n, int H, int C, int W, int n_out,
+                const float* dense, float t0g, float w, int linear, int lead, int slots,
+                int row, void* stream) {
   PsBwdArgs a;
-  int rc = make_ps_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out, dense, t0g,
-                          w, linear, lead, variant);
+  int rc = make_ps_common(a.c, ct, w1t, b1, w2t, b2, nullptr, B, n, H, C, W, n_out, dense, t0g,
+                          w, linear, lead, GENERIC);
   if (rc) return rc;
   a.zst = zst;
   a.tst = tst;
@@ -326,10 +329,13 @@ int ps_backward(const float* ct, const float* zst, const float* tst, const float
   a.dz0 = dz0;
   a.dzout_in = dzout_in;
   a.p = Partials{dw1p, db1p, dw2p, db2p};
+  TeamPlan p;
+  rc = team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  if (p.slots != slots || team_row(W) != row) return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED)
-    return launch_bwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W, true), st);
-  return launch_bwd<GenField>(a, 0, st);
+  if (p.smem) return p.rows == 4 ? launch_bwd<true, 4>(a, p, st) : launch_bwd<true, 1>(a, p, st);
+  return p.rows == 4 ? launch_bwd<false, 4>(a, p, st) : launch_bwd<false, 1>(a, p, st);
 }
 
 }  // extern "C"

@@ -40,6 +40,7 @@ from ..ops.dispatch import check_operands, stream_of
 from ..utils.misc import numpy_dtype
 from .integrate import _QUARTIC_MINV
 from .runge_kutta import DOPRI5, DOPRI5_BMID
+from .team_backward import sum_team_partials, team_partials, team_plan, team_weights
 
 MAX_TILE = 4096      # lanes per group: one error norm couples one group
 MAX_INTERVALS = 128  # intervals per chunk
@@ -262,13 +263,11 @@ def _library():
         fp = ctypes.POINTER(ctypes.c_float)
         lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i] * 3 + [p]
         lib.fd_forward.restype = i
-        lib.fd_backward.argtypes = [p] * 18 + [i] * 6 + [fp, fp] + [f] * 2 + [i] * 3 + [p]
+        lib.fd_backward.argtypes = [p] * 17 + [i] * 6 + [fp, fp] + [f] * 2 + [i] * 4 + [p]
         lib.fd_backward.restype = i
         lib.fd_variant.argtypes = [i] * 3
         lib.fd_variant.restype = i
-        lib.fd_blocks.argtypes = [i]
-        lib.fd_blocks.restype = i
-        lib.fd_scratch_floats.argtypes = [i] * 6
+        lib.fd_scratch_floats.argtypes = [i] * 5
         lib.fd_scratch_floats.restype = ctypes.c_long
         lib.fd_error_string.argtypes = [i]
         lib.fd_error_string.restype = ctypes.c_char_p
@@ -321,7 +320,7 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     zout, zfin, dtfin = empty((len(plan.out_ts), H, B)), empty((H, B)), empty((1,))
     zst, tst, dtst = empty((plan.cap, H, B)), empty((plan.cap,)), empty((plan.cap,))
     stats = torch.empty(2, dtype=torch.int32, device=ct.device)
-    scratch = torch.zeros(lib.fd_scratch_floats(B, H, C, W, variant, 0), dtype=torch.float32,
+    scratch = torch.zeros(lib.fd_scratch_floats(B, H, C, W, variant), dtype=torch.float32,
                           device=ct.device)
     stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (*ops, zout, zfin, dtfin, zst, tst, dtst, stats, scratch)]
@@ -336,9 +335,20 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
     return zout, zfin, dtfin, (zst, tst, dtst, stats)
 
 
+def _backward_kernel(lib, tensors, sizes, plan, layout):
+    """The backward kernel's launch over ``fd_backward``'s tensors, in its
+    order, sizes (B, n, H, C, W, n_out) and the team plan's slots and row;
+    returns its code."""
+    with torch.cuda.device(tensors[0].device):
+        return lib.fd_backward(*(t.data_ptr() for t in tensors), *sizes, *_out_times(plan),
+                               plan.t0g, plan.w, int(plan.linear), int(plan.lead), *layout,
+                               stream_of(tensors[0]))
+
+
 def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
-    """Backward kernel over the stored mesh: returns (dct, dz0, dw1t, db1,
-    dw2t, db2) for the cotangents of zout and zfin."""
+    """Backward kernel over the stored mesh, a team of threads per lane, for
+    every shape: returns (dct, dz0, dw1t, db1, dw2t, db2) for the cotangents
+    of zout and zfin."""
     global BWD_LAUNCHES, LINEAR_BWD_LAUNCHES
     zst, tst, dtst, stats = store
     ops = (ct, zst, tst, dtst, gzout, gzfin, w1t, b1, w2t, b2)
@@ -348,24 +358,18 @@ def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
             or zst.shape != (plan.cap, H, B) or stats.dtype != torch.int32):
         raise ValueError("inconsistent fused dopri5 cotangent or store shapes")
     lib = _library()
-    variant = lib.fd_variant(H, C, W)
-    blocks = lib.fd_blocks(B)
-    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=ct.device)
+    team = team_plan(B, H, C, W)
+    zeros = functools.partial(torch.zeros, dtype=ct.dtype, device=ct.device)
     dct, dz0 = zeros(ct.shape), zeros((H, B))
-    dw1p, db1p = zeros((blocks, W, H)), zeros((blocks, W))
-    dw2p, db2p = zeros((blocks, W, C * H)), zeros((blocks, C * H))
-    scratch = zeros(lib.fd_scratch_floats(B, H, C, W, variant, 1))
-    stream = stream_of(ct)
-    ptrs = [t.data_ptr() for t in (*ops, stats, dct, dz0, dw1p, db1p, dw2p, db2p, scratch)]
-    with torch.cuda.device(ct.device):
-        rc = lib.fd_backward(*ptrs, B, n, H, C, W, len(plan.out_ts), *_out_times(plan),
-                             plan.t0g, plan.w, int(plan.linear), int(plan.lead), variant,
-                             stream)
+    weights = team_weights(w1t, b1, w2t, b2, team["row"])
+    partials = team_partials(team["slots"], H, C, team["row"], ct.dtype, ct.device)
+    rc = _backward_kernel(lib, (*ops[:6], *weights, stats, dct, dz0, *partials),
+                          (B, n, H, C, W, len(plan.out_ts)), plan, (team["slots"], team["row"]))
     _raise_on(lib, rc, "backward")
     BWD_LAUNCHES += 1
     LINEAR_BWD_LAUNCHES += int(plan.linear)
-    # Per-block partials are summed after the launch (deterministic).
-    return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0))
+    # The partials are summed after the launch (deterministic).
+    return (dct, dz0, *sum_team_partials(*partials, W))
 
 
 def read_mesh(store):

@@ -45,6 +45,7 @@ from .. import _build
 from ..ops.dispatch import check_operands, stream_of
 from .integrate import _QUARTIC_MINV
 from .runge_kutta import DOPRI5, DOPRI5_BMID
+from .team_backward import sum_team_partials, team_partials, team_plan, team_weights
 
 MAX_INTERVALS = 128  # intervals per chunk
 MAX_OUT_TIMES = 64   # output rows per lane
@@ -301,13 +302,11 @@ def _library():
         fp = ctypes.POINTER(ctypes.c_float)
         lib.ps_forward.argtypes = [p] * 20 + [i] * 7 + [fp] + [f] * 9 + [i] * 3 + [p]
         lib.ps_forward.restype = i
-        lib.ps_backward.argtypes = [p] * 20 + [i] * 6 + [fp] + [f] * 2 + [i] * 3 + [p]
+        lib.ps_backward.argtypes = [p] * 19 + [i] * 6 + [fp] + [f] * 2 + [i] * 4 + [p]
         lib.ps_backward.restype = i
         lib.ps_variant.argtypes = [i] * 3
         lib.ps_variant.restype = i
-        lib.ps_blocks.argtypes = [i]
-        lib.ps_blocks.restype = i
-        lib.ps_scratch_floats.argtypes = [i] * 6
+        lib.ps_scratch_floats.argtypes = [i] * 5
         lib.ps_scratch_floats.restype = ctypes.c_long
         lib.ps_error_string.argtypes = [i]
         lib.ps_error_string.restype = ctypes.c_char_p
@@ -364,7 +363,7 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan)
     nacc, natt = empty((B,)), empty((B,))
     zst, tst, dtst = empty((plan.cap, H, B)), empty((plan.cap, B)), empty((plan.cap, B))
     cnt = torch.empty(B, dtype=torch.int32, device=ct.device)
-    scratch = torch.zeros(lib.ps_scratch_floats(B, H, C, W, variant, 0), dtype=torch.float32,
+    scratch = torch.zeros(lib.ps_scratch_floats(B, H, C, W, variant), dtype=torch.float32,
                           device=ct.device)
     stream = stream_of(ct)
     ptrs = [t.data_ptr() for t in (*ops, zout, zfin, ctlout, nacc, natt, zst, tst, dtst, cnt,
@@ -380,9 +379,20 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan)
     return zout, zfin, ctlout, nacc, natt, (zst, tst, dtst, cnt)
 
 
+def _backward_kernel(lib, tensors, sizes, plan, layout):
+    """The backward kernel's launch over ``ps_backward``'s tensors, in its
+    order, sizes (B, n, H, C, W, n_out) and the team plan's slots and row;
+    returns its code."""
+    with torch.cuda.device(tensors[0].device):
+        return lib.ps_backward(*(t.data_ptr() for t in tensors), *sizes, _dense(), plan.t0g,
+                               plan.w, int(plan.linear), int(plan.lead), *layout,
+                               stream_of(tensors[0]))
+
+
 def launch_backward(ct, store, ts_rows, gzout, gzfin, w1t, b1, w2t, b2, plan):
-    """Backward kernel over each lane's stored steps: returns (dct, dz0,
-    dw1t, db1, dw2t, db2, dzout_in) for the cotangents of zout and zfin."""
+    """Backward kernel over each lane's stored steps, a team of threads per
+    lane, in either variant: returns (dct, dz0, dw1t, db1, dw2t, db2,
+    dzout_in) for the cotangents of zout and zfin."""
     global BWD_LAUNCHES, LINEAR_BWD_LAUNCHES
     zst, tst, dtst, cnt = store
     ops = (ct, zst, tst, dtst, ts_rows, gzout, gzfin, w1t, b1, w2t, b2)
@@ -394,24 +404,18 @@ def launch_backward(ct, store, ts_rows, gzout, gzfin, w1t, b1, w2t, b2, plan):
             or cnt.shape != (B,)):
         raise ValueError("inconsistent fused per-sample cotangent or store shapes")
     lib = _library()
-    variant = 1 if plan.generic else lib.ps_variant(H, C, W)
-    blocks = lib.ps_blocks(B)
-    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=ct.device)
+    team = team_plan(B, H, C, W)
+    zeros = functools.partial(torch.zeros, dtype=ct.dtype, device=ct.device)
     dct, dz0, dzout_in = zeros(ct.shape), zeros((H, B)), zeros((n_out, H, B))
-    dw1p, db1p = zeros((blocks, W, H)), zeros((blocks, W))
-    dw2p, db2p = zeros((blocks, W, C * H)), zeros((blocks, C * H))
-    scratch = zeros(lib.ps_scratch_floats(B, H, C, W, variant, 1))
-    stream = stream_of(ct)
-    ptrs = [t.data_ptr() for t in (*ops, cnt, dct, dz0, dzout_in, dw1p, db1p, dw2p, db2p,
-                                   scratch)]
-    with torch.cuda.device(ct.device):
-        rc = lib.ps_backward(*ptrs, B, n, H, C, W, n_out, _dense(), plan.t0g, plan.w,
-                             int(plan.linear), int(plan.lead), variant, stream)
+    weights = team_weights(w1t, b1, w2t, b2, team["row"])
+    partials = team_partials(team["slots"], H, C, team["row"], ct.dtype, ct.device)
+    rc = _backward_kernel(lib, (*ops[:7], *weights, cnt, dct, dz0, dzout_in, *partials),
+                          (B, n, H, C, W, n_out), plan, (team["slots"], team["row"]))
     _raise_on(lib, rc, "backward")
     BWD_LAUNCHES += 1
     LINEAR_BWD_LAUNCHES += int(plan.linear)
-    # Per-block partials are summed after the launch (deterministic).
-    return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0), dzout_in)
+    # The partials are summed after the launch (deterministic).
+    return (dct, dz0, *sum_team_partials(*partials, W), dzout_in)
 
 
 def read_mesh(store, ctlout):
