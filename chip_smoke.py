@@ -6,9 +6,10 @@ Phases, each of which raises on failure:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
 2. build: compiles torchcde_tpu_torch/csrc with nvcc (one process per source)
-   and prints ptxas's registers and spills, by name for the team backward
-   kernels (K2, K9), and the team launches' plans (teams per block, shared
-   memory) at the default configuration, at config 4 and at the per-sample
+   and prints ptxas's registers and spills, by name for the team kernels
+   (K2's and K9's forwards and backwards), and the team launches' plans
+   (teams per block, lanes per team, shared memory) at the default
+   configuration, at config 4 (B 256 and B 4096) and at the per-sample
    slice;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
    PyTorch version on the card, at the flagship shapes (in both kernel
@@ -18,9 +19,10 @@ Phases, each of which raises on failure:
    configuration (rk4, step 1) through the public entry points, with the K1
    launch counts read around that run, then one ``accuracy`` call;
 6. K2 forward and backward: the adaptive dopri5 kernels against their plain
-   version, per realised mesh, on every launch of nine cases (the default
+   version, per realised mesh, on every launch of ten cases (the default
    configuration at batch 4096 and 256, two groups, three chunks, 20 output
-   times, the caps, tight tolerances, an odd shape, an exhausted budget),
+   times, the caps, tight tolerances, an odd shape, an exhausted budget, a
+   width of 32, where the team forward takes one first-layer row per thread),
    each backward also against a second launch on the same inputs, bit for
    bit;
 7. K2 slice: five Adam steps of the default Neural CDE configuration (dopri5,
@@ -48,10 +50,12 @@ Phases, each of which raises on failure:
    torch.profiler reading of the NaN-masked fit's gradient;
 14. K2 linear mode: the adaptive kernels over a LinearInterpolation against
    their plain version, per realised mesh as in phase 6, on every launch of
-   the config-4 control's solve and of five cases (the specialised variant,
+   the config-4 control's solve and of six cases (the specialised variant,
    16 channels, three chunks with lead and output times on chunk-boundary
-   knots, two groups, an exhausted budget), and the slope chosen at exact
-   knots (hand-made one-step meshes through the backward kernel);
+   knots, two groups, an exhausted budget, config 4's widths at the group
+   cap B 4096, where each team of the forward walks two lanes on an H100),
+   the config-4 launch's forward again, bit for bit, and the slope chosen at
+   exact knots (hand-made one-step meshes through the backward kernel);
 15. log-ODE slice: BASELINE config 4 (256 spirals of length 10 000,
    logsig_windows at depth 3, window 100, linear_interpolation_coeffs, the
    linear Neural CDE with dopri5 and the adjoint): five Adam steps and one
@@ -83,7 +87,8 @@ Phases, each of which raises on failure:
    plain version per realised per-lane mesh (forward against the float64
    replay, accuracy against a tight float64 solve, backward after the lane
    screen, and against a second launch, bit for bit) on the per-sample
-   slice's first launch in each variant and on seven odd cases (linear with
+   slice's first launch (its forward also against a second launch, bit for
+   bit) and on seven odd cases (linear with
    lead over three chunks, batched rows, 64 output rows, an exhausted
    max_steps, H 4 C 3 W 8, C 16 linear, a batch that is not a multiple of
    32);
@@ -229,7 +234,7 @@ def phase_build():
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
     from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
-    from torchcde_tpu_torch.solvers.team_backward import team_plan
+    from torchcde_tpu_torch.solvers.team import team_forward_plan, team_plan
 
     path, seconds, log = _build.build()
     k1._library()
@@ -248,19 +253,26 @@ def phase_build():
                          ("config 4", (LOG_ODE_BATCH, HIDDEN, LOG_ODE_CHANNELS, WIDTH)),
                          ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH))):
         print(f"  team backward at {label} (B H C W {shape}): {team_plan(*shape)}")
+    for label, shape, cooperative in (
+            ("config 4", (LOG_ODE_BATCH, HIDDEN, LOG_ODE_CHANNELS, WIDTH), True),
+            ("config 4's widths at B4096", (4096, HIDDEN, LOG_ODE_CHANNELS, WIDTH), True),
+            ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH), False)):
+        print(f"  team forward at {label} (B H C W {shape}): "
+              f"{team_forward_plan(*shape, cooperative)}")
 
 
 def team_kernels_ptxas(log):
-    """{kernel<shared, rows>: ptxas's lines} of the team backward kernels
-    (registers, spills, stack frame)."""
+    """{kernel<shared, rows>: ptxas's lines} of the team kernels, K2's and
+    K9's forwards and backwards (registers, spills, stack frame)."""
     report, entry = {}, None
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
-            kernel = re.search(r"(dopri_bwd_team_kernel|ps_bwd_kernel)ILb(\d)ELi(\d)E",
-                               found.group(1))
-            entry = (f"{kernel.group(1)}<shared={kernel.group(2)}, rows={kernel.group(3)}>"
-                     if kernel else None)
+            kernel = re.search(r"(dopri_(?:fwd|bwd)_team_kernel|ps_(?:fwd|bwd)_kernel)"
+                               r"ILb(\d)ELi(\d)E(?:Lb(\d)E)?", found.group(1))
+            narrow = f", row per thread={kernel.group(4)}" if kernel and kernel.group(4) else ""
+            entry = (f"{kernel.group(1)}<shared={kernel.group(2)}, rows={kernel.group(3)}"
+                     f"{narrow}>" if kernel else None)
         elif entry and ("registers" in line or "spill" in line):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
@@ -560,6 +572,7 @@ K2_CASES = [
      dict(rtol=1e-6, atol=1e-8)),
     ("odd H5 C2 B77", 77, 40, 5, 2, 64, "terminal", {}),
     ("exhausted budget", 256, LENGTH, HIDDEN, CHANNELS, WIDTH, "twenty", dict(max_steps=8)),
+    ("narrow W32 H6 C4 B200", 200, 60, 6, 4, 32, "twenty", {}),
 ]
 
 
@@ -603,6 +616,45 @@ def k2_backward(ops, plan, store, gz, gzfin):
     return k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan)
 
 
+def _same_bits(a, b):
+    """Whether two tensors hold the same bits (NaN included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+def forward_bit_identical(kernel, label, first, launch, parts):
+    """A second forward launch on the same inputs must give the same bits:
+    ``parts(outputs)`` names the outputs and the written part of the store
+    (the realised mesh and its states) of each launch."""
+    again = launch()
+    torch.cuda.synchronize()
+    a, b = parts(first), parts(again)
+    differ = [name for name in a if not _same_bits(a[name], b[name])]
+    print(f"{kernel}-fwd {label}: a second launch bit-identical in {sorted(a)}: "
+          f"{not differ}")
+    return [f"{kernel} forward's {differ} differ between two launches ({label})"] if differ else []
+
+
+def k2_forward_parts(out):
+    """K2's outputs and the written rows of its store."""
+    zout, zfin, dtfin, (zst, tst, dtst, stats) = out
+    cnt = int(stats[0])
+    return {"zout": zout, "zfin": zfin, "dtfin": dtfin, "stats": stats, "zst": zst[:cnt],
+            "tst": tst[:cnt], "dtst": dtst[:cnt]}
+
+
+def k9_forward_parts(out):
+    """K9's outputs and each lane's written rows of its store."""
+    zout, zfin, ctlout, nacc, natt, (zst, tst, dtst, cnt) = out
+    written = torch.arange(zst.shape[0], device=cnt.device)[:, None] < cnt[None, :]
+    return {"zout": zout, "zfin": zfin, "ctlout": ctlout, "nacc": nacc, "natt": natt,
+            "cnt": cnt, "tst": tst[written], "dtst": dtst[written],
+            "zst": zst.transpose(1, 2)[written]}
+
+
 def bit_identical(kernel, label, grads, launch):
     """A second backward launch on the same inputs must give the same bits
     (the weight gradients are summed in one fixed order, without atomics)."""
@@ -627,16 +679,20 @@ def _k2_grads(ops, plan, store, mesh, gz, gzfin):
     return grads, ref
 
 
-def check_k2_launch(label, ops, dt0, plan):
+def check_k2_launch(label, ops, dt0, plan, repeat=False):
     """One K2 launch against the plain version: the forward against the
     float64 replay of the kernel's own mesh, the kernel's mesh against the
     plain float32 solve's, and the backward against autograd through the
-    replay (with K1's ReLU-kink lane screen)."""
+    replay (with K1's ReLU-kink lane screen); with ``repeat`` the forward
+    also against a second launch, bit for bit."""
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 
     H, (n, _, C, B), W = ops[1].shape[0], ops[0].shape, ops[2].shape[0]
     label = f"{label} [{k2.kernel_variant(H, C, W)}]"
-    zout, zfin, _dtfin, store = k2.launch_forward(*ops, dt0, plan)
+    first = k2.launch_forward(*ops, dt0, plan)
+    zout, zfin, _dtfin, store = first
+    repeated = forward_bit_identical("K2", label, first, lambda: k2.launch_forward(
+        *ops, dt0, plan), k2_forward_parts) if repeat else []
     mesh = k2.read_mesh(store)
     ops64 = [t.double() for t in ops]
     with torch.no_grad():
@@ -648,8 +704,9 @@ def check_k2_launch(label, ops, dt0, plan):
     if not k2.reaches_end(mesh, plan):
         nan = bool(torch.isnan(got).all() and torch.isnan(plain).all() and torch.isnan(ref).all())
         print(f"K2 {label}: budget exhausted ({counts} accepted/attempted), all NaN: {nan}")
-        return 0.0, 0.0, (0.0, 0.0), [] if nan else [f"K2 exhausted budget not NaN ({label})"]
-    failures = []
+        return 0.0, 0.0, (0.0, 0.0), repeated + (
+            [] if nan else [f"K2 exhausted budget not NaN ({label})"])
+    failures = repeated
     fwd_err, scale = _err(got.double(), ref)
     # The two float32 solves take different meshes (see EXACT_TOL), so each
     # is held against a float64 solve at a hundredth of the tolerances.
@@ -718,9 +775,9 @@ def recorded_k2_launches(X, field, z0, ts, cfg):
     calls = []
     launch = k2.launch_forward
 
-    def record(*args):
+    def record(*args, **kwargs):
         calls.append(args)
-        return launch(*args)
+        return launch(*args, **kwargs)
 
     with mock.patch.object(k2, "launch_forward", record), torch.no_grad():
         if fused_dopri.try_fused_dopri5(X, field, z0, ts, cfg) is None:
@@ -1302,8 +1359,9 @@ K2_LINEAR_CASES = [
     ("two groups B5000", 5000, LENGTH, HIDDEN, CHANNELS, WIDTH, "terminal", {}),
     ("exhausted budget", 256, LENGTH, HIDDEN, LOG_ODE_CHANNELS, WIDTH, "twenty",
      dict(max_steps=8)),
+    ("config-4 widths B4096", 4096, LENGTH, HIDDEN, LOG_ODE_CHANNELS, WIDTH, "terminal", {}),
 ]
-K2_KINDS = {"k2_fwd": r"\bdopri_fwd_kernel\b", "k2_bwd": r"\bdopri_bwd(_team)?_kernel\b"}
+K2_KINDS = {"k2_fwd": r"\bdopri_fwd(_team)?_kernel\b", "k2_bwd": r"\bdopri_bwd(_team)?_kernel\b"}
 
 
 def log_ode_data(device, nan):
@@ -1395,7 +1453,8 @@ def check_k2_linear(device, coeffs, model):
             failures.append(f"K2 linear mode not taken ({label})")
         leads += sum(plan.lead for *_, plan in calls)
         for i, (*ops, dt0, plan) in enumerate(calls):
-            errors.append(check_k2_launch(f"linear {label} #{i}", tuple(ops), dt0, plan))
+            errors.append(check_k2_launch(f"linear {label} #{i}", tuple(ops), dt0, plan,
+                                          repeat=label == "config 4"))
     failures += [f for e in errors for f in e[3]] + k2_accuracy_failures(errors)
     if not leads:
         failures.append("no K2 linear launch ran with lead")
@@ -1750,12 +1809,13 @@ K9_CASES = [
     ("C16 linear", 50, 7, 8, 16, 32, "linear", "five", {}, 128),
     ("odd batch B77", 77, 13, 8, 3, 32, "cubic", "five", {}, 128),
 ]
-# The slice's launches held against the plain version, as (launch, generic,
-# accuracy, backward): forward and backward against the replay of the
-# kernel's own meshes on the first chunk in each variant; on the last chunk
-# (the state and controller rows carried in from seven chunks) the forward,
-# and its accuracy against a float64 solve beside the plain float32 solve's.
-K9_SLICE_CHECKS = ((0, False, False, True), (-1, False, True, False), (0, True, False, True))
+# The slice's launches held against the plain version, as (launch, accuracy,
+# backward, repeat): forward and backward against the replay of the kernel's
+# own meshes on the first chunk, and its forward against a second launch,
+# bit for bit; on the last chunk (the state and controller rows carried in
+# from seven chunks) the forward, and its accuracy against a float64 solve
+# beside the plain float32 solve's.
+K9_SLICE_CHECKS = ((0, False, True, True), (-1, True, False, False))
 # A lane whose poison flag differs between the kernel and the plain float32
 # solve (their meshes part) must be at the edge of its attempt limit: within
 # this many attempts of it, or this share of the chunk's allowance if
@@ -1813,9 +1873,9 @@ def recorded_k9_launches(X, field, z0, ts, t_rows, options):
     calls = []
     launch = k9.launch_forward
 
-    def record(*args):
+    def record(*args, **kwargs):
         calls.append(args)
-        return launch(*args)
+        return launch(*args, **kwargs)
 
     with mock.patch.object(k9, "launch_forward", record), torch.no_grad():
         if fdps.try_fused_dopri5_per_sample(
@@ -1845,25 +1905,27 @@ def _k9_gradients(ops, plan, store, mesh, g, dzin):
     return grads, ref[:6], None
 
 
-def check_k9_launch(label, args, generic=False, accuracy=True, backward=True):
+def check_k9_launch(label, args, accuracy=True, backward=True, repeat=False):
     """One K9 launch against the plain version: the forward against the
     float64 replay of the kernel's own per-lane meshes, the kernel's and the
     plain float32 solve's accuracy against a float64 solve at EXACT_TOL x the
     tolerances, and the backward against autograd through the replay (with
-    the ReLU-kink lane screen; not with backward false).  Returns (forward
+    the ReLU-kink lane screen; not with backward false); with ``repeat`` the
+    forward also against a second launch, bit for bit.  Returns (forward
     error, backward error (0 without the backward),
     (kernel, plain) accuracy, steps attempted, failures)."""
     from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
 
     *ops, plan = args
-    plan = plan._replace(generic=generic)
     # A lane that entered poisoned carries NaN; it only idles, and zeros keep
     # the plain version's replay (whose masked lanes still multiply their
     # state into the weight gradients) finite.
     ops[1], ops[9] = torch.nan_to_num(ops[1]), torch.nan_to_num(ops[9])
     H, (n, _, C, B), W = ops[1].shape[0], ops[0].shape, ops[2].shape[0]
-    label = f"{label} [{k9.kernel_variant(H, C, W, plan)}]"
-    zout, zfin, ctlout, nacc, natt, store = k9.launch_forward(*ops, plan)
+    first = k9.launch_forward(*ops, plan)
+    zout, zfin, ctlout, nacc, natt, store = first
+    repeated = forward_bit_identical("K9", label, first, lambda: k9.launch_forward(*ops, plan),
+                                     k9_forward_parts) if repeat else []
     mesh = k9.read_mesh(store, ctlout)
     ops64 = [t.double() for t in ops]
     with torch.no_grad():
@@ -1883,7 +1945,7 @@ def check_k9_launch(label, args, generic=False, accuracy=True, backward=True):
     got, ref, plain, exact = flat[0].double(), flat[1], flat[2].double(), flat[3].double()
     bad = ctlout[3] > 0.5
     attempted = float((natt - ops[6][2]).sum())
-    failures = []
+    failures = repeated
     # A lane is poisoned iff it entered poisoned or its own accepted steps
     # stop short of its target, and then only with no attempt left: the
     # budget spent or the chunk's cap reached.
@@ -1972,9 +2034,9 @@ def check_k9(device):
     print(f"K9 slice: B{PS_BATCH} n{PS_LENGTH - 1} H{PS_HIDDEN} C3 W{PS_WIDTH}, "
           f"{len(calls)} launches", flush=True)
     errors = []
-    for i, generic, accuracy, backward in K9_SLICE_CHECKS:
-        errors.append(check_k9_launch(f"slice #{i % len(calls)}", calls[i], generic, accuracy,
-                                      backward))
+    for i, accuracy, backward, repeat in K9_SLICE_CHECKS:
+        errors.append(check_k9_launch(f"slice #{i % len(calls)}", calls[i], accuracy, backward,
+                                      repeat))
         print(f"K9 slice #{i % len(calls)} checked at {time.perf_counter() - START:.1f} s",
               flush=True)
     for seed, (label, B, L, H, C, W, kind, which, options, chunk) in enumerate(K9_CASES,

@@ -9,6 +9,7 @@ replayed by the port, and its chunked solve).  The CUDA kernels are held
 against the plain versions on the card by ``chip_smoke.py``.
 """
 
+from types import SimpleNamespace
 from unittest import mock
 
 import jax
@@ -30,6 +31,7 @@ from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 from torchcde_tpu_torch.solvers import fused_fixed
 from torchcde_tpu_torch.solvers.fused_fixed_kernel import pack_operands
 from torchcde_tpu_torch.solvers.integrate import SolverConfig
+from torchcde_tpu_torch.solvers.team import team_weights
 from torchcde_tpu_torch.solvers.terms import MLPVectorField
 
 torch.set_num_threads(1)
@@ -256,9 +258,9 @@ def test_chunked_solve_with_lead_matches_the_jax_chunked_solve(monkeypatch):
     calls = []
     solve = k2.fused_dopri5_solve
 
-    def record(ct, *args):
+    def record(ct, *args, **kwargs):
         calls.append((ct.shape[0], args[-1]))
-        return solve(ct, *args)
+        return solve(ct, *args, **kwargs)
 
     monkeypatch.setattr(k2, "fused_dopri5_solve", record)
     leaves, field = _torch_leaves(arrays, Hk, Ck, Wk)
@@ -321,41 +323,52 @@ def test_fixed_step_solves_decline_linear_controls():
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(expected), rtol=1e-10, atol=1e-12)
 
 
-@pytest.mark.parametrize("C", [3, 14])  # the flagship's H 8, C 3; the log-ODE control's C 14
-def test_launch_wrappers_with_plain_stand_ins(C, monkeypatch):
-    """K2's kernel route in linear mode, in chunks of 3 intervals, with the
-    launches replaced by plain stand-ins: the forward runs the plain solve;
-    the backward kernel (one team kernel for every shape) replays the mesh
-    lane by lane, writes dct and dz0, and adds lane l's weight gradients into
-    team slot l % 3 in the kernel's partials layout (dW1 (H, S), dW2 (C*H,
-    S), rows padded to S), as the team kernel leaves them.  The wrapper's
-    sums over the slots give the plain route's values and gradients
-    (float64; the sums run in another order), with one forward and one
-    backward launch per chunk, all in linear mode."""
-    slots, row = 3, 20
-    monkeypatch.setattr(k2, "MAX_INTERVALS", 3)
-    x, p = _problem(5, C)
+SLOTS, ROW, BLOCKS, SCRATCH = 3, 20, 2, 40  # the stand-ins' team plans; ROW is W's padded row
+
+
+def _stand_ins(padded):
+    """Stand-ins for K2's kernel launches, remembering each chunk's operands
+    and mesh by its store.  The forward kernel's stand-in receives the
+    solve's padded weights (``padded`` collects them) and the team plan's
+    blocks and row, or, in the specialised variant, the field as it is; it
+    runs the plain solve on the field (unpadded) and writes the kernel's
+    outputs and store.  The backward kernel's stand-in replays the mesh lane
+    by lane, writes dct and dz0, and adds lane l's weight gradients into
+    team slot l % SLOTS in the kernel's partials layout (dW1 (H, S), dW2
+    (C*H, S), rows padded to S), as the team kernel leaves them."""
     stores = {}
 
-    def forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
-        zout, zfin, dtfin, mesh = k2.fused_dopri5_solve_reference(ct, z0t, w1t, b1, w2t, b2,
-                                                                  dt0, plan)
+    def forward(lib, tensors, sizes, plan, variant, layout):
+        ct, z0t, w1, b1, w2, b2, dt0, zout, zfin, dtfin, zst, tst, dtst, stats, scratch = tensors
+        B_, n, H_, C, W_ = sizes
+        if variant:
+            assert layout == (BLOCKS, ROW) and scratch.shape == (SCRATCH,)
+            assert w1.shape == (H, ROW) and w2.shape == (C * H, ROW)  # padded
+            padded.append(w1)
+            field = tuple(t.contiguous() for t in (w1[:H, :W].t(), b1[:W], w2[:C * H, :W],
+                                                   b2[:C * H]))
+        else:
+            assert layout == (0, 0) and w1.shape == (W, H)
+            field = (w1, b1, w2, b2)
+        out, fin, dtf, mesh = k2.fused_dopri5_solve_reference(ct, z0t, *field, dt0, plan)
         cnt = len(mesh.t)
-        tst, dtst = ct.new_zeros(plan.cap), ct.new_zeros(plan.cap)
+        zout.copy_(out)
+        zfin.copy_(fin)
+        dtfin.copy_(dtf)
+        zst.zero_()
         tst[:cnt], dtst[:cnt] = torch.from_numpy(mesh.t), torch.from_numpy(mesh.dt)
-        store = (ct.new_zeros((plan.cap,) + tuple(z0t.shape)), tst, dtst,
-                 torch.tensor([cnt, mesh.attempted], dtype=torch.int32))
-        stores[id(tst)] = ((ct, z0t, w1t, b1, w2t, b2), mesh)
-        k2.FWD_LAUNCHES += 1
-        k2.LINEAR_FWD_LAUNCHES += int(plan.linear)
-        return zout, zfin, dtfin, store
+        stats.copy_(torch.tensor([cnt, mesh.attempted], dtype=torch.int32))
+        stores[id(tst)] = ((ct, z0t, *field), mesh)
+        return 0
 
-    def kernel(lib, tensors, sizes, plan, layout):
+    def backward(lib, tensors, sizes, plan, layout):
         ct, _zst, tst, _dtst, gzout, gzfin, *_w, stats, dct, dz0, dw1p, db1p, dw2p, db2p = tensors
         (ct, z0t, *weights), mesh = stores[id(tst)]
-        assert layout == (slots, row)
-        assert dw1p.shape == (slots, H, row) and dw2p.shape == (slots, C * H, row)
-        assert tensors[6].shape == (H, row) and tensors[8].shape == (C * H, row)  # padded
+        C = ct.shape[2]
+        assert layout == (SLOTS, ROW)
+        assert dw1p.shape == (SLOTS, H, ROW) and dw2p.shape == (SLOTS, C * H, ROW)
+        assert tensors[6].shape == (H, ROW) and tensors[8].shape == (C * H, ROW)  # padded
+        padded.append(tensors[6])
         dw1p, db1p, dw2p, db2p = dw1p[..., :W], db1p[..., :W], dw2p[..., :W], db2p[..., :C * H]
         for lane in range(ct.shape[-1]):
             sl = slice(lane, lane + 1)
@@ -365,30 +378,80 @@ def test_launch_wrappers_with_plain_stand_ins(C, monkeypatch):
                 pairs = [(o, g) for o, g in zip(outs, (gzout[..., sl], gzfin[:, sl])) if o.numel()]
                 g = torch.autograd.grad([o for o, _ in pairs], leaves, [c for _, c in pairs])
             dct[..., sl], dz0[:, sl] = g[0], g[1]
-            dw1p[lane % slots] += g[2].t()
-            db1p[lane % slots] += g[3]
-            dw2p[lane % slots] += g[4]
-            db2p[lane % slots] += g[5]
+            dw1p[lane % SLOTS] += g[2].t()
+            db1p[lane % SLOTS] += g[3]
+            dw2p[lane % SLOTS] += g[4]
+            db2p[lane % SLOTS] += g[5]
         return 0
 
-    def run():
-        field = _field(p, C)
-        z0 = torch.from_numpy(p["z0"]).requires_grad_()
-        xt = torch.from_numpy(x).requires_grad_()
-        out = fused_dopri.try_fused_dopri5(_control(xt), field, z0, T_OUT, SolverConfig())
-        out.sin().sum().backward()
-        return [out.detach(), xt.grad, z0.grad] + [q.grad for q in field.parameters()]
+    return forward, backward
 
-    plain = run()
-    k2.reset_launch_counts()
+
+def _routed(C, forward, backward, run):
+    """run() on the kernel route, the launches replaced by the stand-ins,
+    the specialised variant for C 3 (the flagship's H 8, C 3) and the team
+    variant otherwise."""
     with mock.patch.object(k2, "_runs_kernel", lambda ct: True), \
-            mock.patch.object(k2, "launch_forward", forward), \
-            mock.patch.object(k2, "_backward_kernel", kernel), \
-            mock.patch.object(k2, "_library", lambda: None), \
-            mock.patch.object(k2, "team_plan", lambda *a: dict(slots=slots, row=row)), \
+            mock.patch.object(k2, "_forward_kernel", forward), \
+            mock.patch.object(k2, "_backward_kernel", backward), \
+            mock.patch.object(k2, "_library", lambda: SimpleNamespace(
+                fd_scratch_floats=lambda B: SCRATCH)), \
+            mock.patch.object(k2, "kernel_variant",
+                              lambda H, C, W: "specialised" if C == 3 else "team"), \
+            mock.patch.object(k2, "team_forward_plan", lambda *a, **k: dict(
+                blocks=BLOCKS, row=ROW, scratch_floats=SCRATCH)), \
+            mock.patch.object(k2, "team_plan", lambda *a: dict(slots=SLOTS, row=ROW)), \
             mock.patch.object(k2, "check_operands", lambda *a: None):
-        routed = run()
+        return run()
+
+
+def _solve_and_grads(x, p, C):
+    field = _field(p, C)
+    z0 = torch.from_numpy(p["z0"]).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = fused_dopri.try_fused_dopri5(_control(xt), field, z0, T_OUT, SolverConfig())
+    out.sin().sum().backward()
+    return [out.detach(), xt.grad, z0.grad] + [q.grad for q in field.parameters()]
+
+
+@pytest.mark.parametrize("C", [3, 14])  # the flagship's H 8, C 3; the log-ODE control's C 14
+def test_launch_wrappers_with_plain_stand_ins(C, monkeypatch):
+    """K2's kernel route in linear mode, in chunks of 3 intervals, with the
+    kernel launches replaced by plain stand-ins (``_stand_ins``): the
+    wrappers' own code pads the weights, plans and sizes the launches, and
+    sums the backward's team partials.  They give the plain route's values
+    and gradients (float64; the sums run in another order), with one
+    forward and one backward launch per chunk, all in linear mode."""
+    monkeypatch.setattr(k2, "MAX_INTERVALS", 3)
+    x, p = _problem(5, C)
+    plain = _solve_and_grads(x, p, C)
+    k2.reset_launch_counts()
+    routed = _routed(C, *_stand_ins([]), lambda: _solve_and_grads(x, p, C))
     assert (k2.FWD_LAUNCHES, k2.BWD_LAUNCHES) == (3, 3)
     assert (k2.LINEAR_FWD_LAUNCHES, k2.LINEAR_BWD_LAUNCHES) == (3, 3)
     for a, b in zip(plain, routed):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("C", [3, 14])
+def test_weights_are_padded_once_per_solve_for_both_directions(C, monkeypatch):
+    """A solve of two groups in three chunks each pads the field once: every
+    forward launch of the team variant and every backward launch reads the
+    same padded tensors (the specialised forward, C 3, reads the field as it
+    is)."""
+    monkeypatch.setattr(k2, "MAX_INTERVALS", 3)
+    monkeypatch.setattr(k2, "MAX_TILE", 3)
+    x, p = _problem(6, C)
+    pads, seen = [], []
+
+    def counted(*args):
+        pads.append(team_weights(*args))
+        return pads[-1]
+
+    k2.reset_launch_counts()
+    with mock.patch.object(k2, "team_weights", counted):
+        _routed(C, *_stand_ins(seen), lambda: _solve_and_grads(x, p, C))
+    assert (k2.FWD_LAUNCHES, k2.BWD_LAUNCHES) == (6, 6)
+    assert len(pads) == 1
+    assert len(seen) == (6 if C == 3 else 12)
+    assert all(w is pads[0].w1 for w in seen)

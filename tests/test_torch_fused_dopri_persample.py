@@ -31,6 +31,7 @@ from torchcde_tpu.solvers.terms import make_cde_rhs as jax_rhs
 from torchcde_tpu_torch.solvers import fused_dopri_persample as fdps
 from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
 from torchcde_tpu_torch.solvers.fused_fixed_kernel import pack_operands
+from torchcde_tpu_torch.solvers.team import team_weights
 from torchcde_tpu_torch.solvers.terms import MLPVectorField, make_cde_rhs
 
 torch.set_num_threads(1)
@@ -297,29 +298,44 @@ def test_declines_where_jax_declines():
     assert _solve(_control(x16), field16, z0.float(), ts) is None
 
 
-def _stand_ins(partials):
-    """Stand-ins for K9's launches, remembering each chunk's operands and
-    meshes by the store: the forward runs the plain version; the backward
-    kernel replays the meshes, writes dct, dz0 and dzout_in, and hands the
-    weight gradients to ``partials(grads, dw1p, db1p, dw2p, db2p, replay)``,
-    which fills the team partials the wrapper sums (``replay(lane)`` gives a
+BLOCKS = 2  # the stand-ins' forward plan
+
+
+def _stand_ins(partials, padded=None):
+    """Stand-ins for K9's kernel launches, remembering each chunk's operands
+    and meshes by the store.  The forward kernel's stand-in receives the
+    solve's padded weights (collected in ``padded``) and the team plan's
+    blocks and row, runs the plain version on the field (unpadded) and
+    writes the kernel's outputs and store; the backward kernel's stand-in
+    replays the meshes, writes dct, dz0 and dzout_in, and hands the weight
+    gradients to ``partials(grads, dw1p, db1p, dw2p, db2p, replay)``, which
+    fills the team partials the wrapper sums (``replay(lane)`` gives a
     lane's own gradients), each cut to the field's widths."""
     stores = {}
+    padded = [] if padded is None else padded
 
-    def forward(*args):
-        *ops, plan = args
-        zout, zfin, ctlout, nacc, natt, mesh = k9.fused_dopri5_per_sample_reference(*args)
-        store = (torch.zeros((mesh.t.shape[0],) + tuple(ops[1].shape), dtype=ops[1].dtype),
-                 torch.from_numpy(mesh.t.copy()), torch.from_numpy(mesh.dt.copy()),
-                 torch.as_tensor(mesh.cnt, dtype=torch.int32))
-        stores[id(store[1])] = (ops, mesh)
-        k9.FWD_LAUNCHES += 1
-        k9.LINEAR_FWD_LAUNCHES += int(plan.linear)
-        return zout, zfin, ctlout, nacc, natt, store
+    def forward(lib, tensors, sizes, plan, layout):
+        ct, z0t, w1, b1, w2, b2, ctl, ts_rows, tend, zout_in = tensors[:10]
+        zout, zfin, ctlout, nacc, natt, zst, tst, dtst, cnt = tensors[10:]
+        assert layout == (BLOCKS, ROW) and w1.shape == (H, ROW) and w2.shape == (C * H, ROW)
+        padded.append(w1)
+        field = tuple(t.contiguous() for t in (w1[:H, :W].t(), b1[:W], w2[:C * H, :W],
+                                               b2[:C * H]))
+        ops = [ct, z0t, *field, ctl, ts_rows, tend, zout_in]
+        *outs, mesh = k9.fused_dopri5_per_sample_reference(*ops, plan)
+        for out, value in zip((zout, zfin, ctlout, nacc, natt), outs):
+            out.copy_(value)
+        S = mesh.t.shape[0]
+        zst.zero_()
+        tst[:S], dtst[:S] = torch.from_numpy(mesh.t), torch.from_numpy(mesh.dt)
+        cnt.copy_(torch.as_tensor(mesh.cnt))
+        stores[id(tst)] = (ops, mesh)
+        return 0
 
     def kernel(lib, tensors, sizes, plan, layout):
         ct, _zst, tst, _dtst, ts_rows, gzout, gzfin, *_w, cnt, dct, dz0, dzout_in = tensors[:15]
         assert layout == (tensors[15].shape[0], ROW)
+        padded.append(tensors[7])
         ops, mesh = stores[id(tst)]
 
         def replay(lanes):
@@ -348,9 +364,11 @@ def _route(x, p, linear, forward, kernel, slots):
     stand-ins and a team plan of ``slots`` slots and rows padded to ROW."""
     k9.reset_launch_counts()
     with mock.patch.object(k9, "_runs_kernel", lambda ct: True), \
-            mock.patch.object(k9, "launch_forward", forward), \
+            mock.patch.object(k9, "_forward_kernel", forward), \
             mock.patch.object(k9, "_backward_kernel", kernel), \
             mock.patch.object(k9, "_library", lambda: None), \
+            mock.patch.object(k9, "team_forward_plan",
+                              lambda *a, **k: dict(blocks=BLOCKS, row=ROW)), \
             mock.patch.object(k9, "team_plan", lambda *a: dict(slots=slots, row=ROW)), \
             mock.patch.object(k9, "check_operands", lambda *a: None):
         return _run_solve(x, p, linear)
@@ -367,12 +385,14 @@ def _run_solve(x, p, linear):
 
 @pytest.mark.parametrize("linear", [False, True])
 def test_launch_wrappers_with_plain_stand_ins(linear, monkeypatch):
-    """The autograd Function's kernel route, with the launches replaced by
-    plain stand-ins, gives the plain route's values and gradients and counts
-    one forward and one backward launch per chunk.  The backward stand-in
-    writes the weight gradients into the first of three team slots in the
-    kernel's partials layout (dW1 (H, S), dW2 (C*H, S), rows padded to S),
-    which the wrapper sums over the slots, cuts and transposes back."""
+    """The autograd Function's kernel route, with the kernel launches
+    replaced by plain stand-ins (the forward's receives the padded weights
+    and the team plan's blocks and row), gives the plain route's values and
+    gradients and counts one forward and one backward launch per chunk.  The
+    backward stand-in writes the weight gradients into the first of three
+    team slots in the kernel's partials layout (dW1 (H, S), dW2 (C*H, S),
+    rows padded to S), which the wrapper sums over the slots, cuts and
+    transposes back."""
     monkeypatch.setattr(k9, "MAX_INTERVALS", 3)
     x, p = _problem(6, batch=4, length=8)
 
@@ -410,3 +430,25 @@ def test_team_partials_sum_to_the_replays_gradients(slots, monkeypatch):
     assert k9.BWD_LAUNCHES == 3
     for a, b in zip(plain, routed):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("linear", [False, True])
+def test_weights_are_padded_once_per_solve_for_both_directions(linear, monkeypatch):
+    """A solve in three chunks pads the field once: every forward and every
+    backward launch reads the same padded tensors."""
+    monkeypatch.setattr(k9, "MAX_INTERVALS", 3)
+    x, p = _problem(8, batch=4, length=8)
+    pads, seen = [], []
+
+    def counted(*args):
+        pads.append(team_weights(*args))
+        return pads[-1]
+
+    def first_slot(grads, dw1p, db1p, dw2p, db2p, replay):
+        dw1p[0], db1p[0], dw2p[0], db2p[0] = grads[2].t(), grads[3], grads[4], grads[5]
+
+    with mock.patch.object(k9, "team_weights", counted):
+        _route(x, p, linear, *_stand_ins(first_slot, seen), slots=3)
+    assert (k9.FWD_LAUNCHES, k9.BWD_LAUNCHES) == (3, 3)
+    assert len(pads) == 1 and len(seen) == 6
+    assert all(w is pads[0].w1 for w in seen)

@@ -6,12 +6,14 @@ train step in one checkout.
 imports the port and its ``chip_smoke.py`` from the checkout at ROOT (by
 default this script's directory), builds its kernels, and prints one JSON
 line: the card's name and power limit, K2's forward and backward ms at the
-default configuration (batch 4096, as ``chip_smoke.py``'s phase 8 times
-them), the train step's median ms at batch 4096 (CUDA events, 20 steps),
-K2's linear mode at config 4 (as phase 17 times it), K9's forward and
-backward ms per launch at the per-sample slice (as phase 24 times them;
-where the checkout has K9), and ptxas's report for each kernel of the two
-(registers, stack frame).  To compare two commits on one card,
+default configuration (batch 4096, the specialised forward, as
+``chip_smoke.py``'s phase 8 times them), the train step's median ms at
+batch 4096 (CUDA events, 20 steps), K2's linear mode at config 4 (as phase
+17 times it), K2 at phase 6's caps case (B 300, W 512, H 16, C 5), K9's
+forward and backward ms per launch at the per-sample slice (as phase 24
+times them; where the checkout has K9), the accepted steps of each timed
+mesh (a backward's time follows them), and ptxas's report for each kernel
+of the two (registers, stack frame).  To compare two commits on one card,
 unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
@@ -54,7 +56,27 @@ def time_k2_linear(cs, device):
     gz, gzfin = torch.ones_like(zout), torch.ones_like(zfin)
     return {"k2_linear_fwd_ms": cs._event_ms(lambda: k2.launch_forward(*ops, dt0, plan), 3),
             "k2_linear_bwd_ms": cs._event_ms(
-                lambda: k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan), 5)}
+                lambda: k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan), 5),
+            "k2_linear_steps_accepted": len(k2.read_mesh(store).t)}
+
+
+def time_k2_caps(cs, device):
+    """K2 at phase 6's caps case (B 300, length 30, W 512, H 16, C 5, cubic):
+    forward and backward ms of its one launch."""
+    import numpy as np
+
+    from torchcde_tpu_torch.solvers import SolverConfig
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    X, field, z0 = cs.k2_problem(300, 30, 16, 5, 512, 6, device)
+    (*ops, dt0, plan), = cs.recorded_k2_launches(X, field, z0, np.array([0.0, 29.0]),
+                                                 SolverConfig())
+    zout, zfin, _, store = k2.launch_forward(*ops, dt0, plan)
+    gz, gzfin = torch.ones_like(zout), torch.ones_like(zfin)
+    return {"k2_caps_fwd_ms": cs._event_ms(lambda: k2.launch_forward(*ops, dt0, plan), 5),
+            "k2_caps_bwd_ms": cs._event_ms(
+                lambda: k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan), 5),
+            "k2_caps_steps_accepted": len(k2.read_mesh(store).t)}
 
 
 def time_k9(cs, device):
@@ -72,7 +94,8 @@ def time_k9(cs, device):
 
     n = len(calls)
     return {"k9_fwd_ms": cs._event_ms(lambda: [k9.launch_forward(*a) for a in calls], 3) / n,
-            "k9_bwd_ms": cs._event_ms(backward, 3) / n}
+            "k9_bwd_ms": cs._event_ms(backward, 3) / n,
+            "k9_steps_accepted": int(sum(int(out[5][3].sum()) for _, out in launched))}
 
 
 def main():
@@ -90,13 +113,14 @@ def main():
     medians, samples = cs.time_train_steps(model, coeffs, labels,
                                            cs.plain_k2_loss(coeffs, labels), counts=(10, 1))
     k2_linear = time_k2_linear(cs, device)
+    k2_caps = time_k2_caps(cs, device)
     k9 = time_k9(cs, device) if hasattr(cs, "per_sample_problem") else {}
     print(json.dumps({"root": root, "card": smi, "build_s": seconds,
                       "k2_fwd_ms": k2["k2_fwd_ms"], "k2_bwd_ms": k2["k2_bwd_ms"],
                       "k2_steps_accepted": k2["k2_steps_accepted"],
                       "default_B4096_train_step_ms": medians["kernel"],
                       "default_B4096_train_step_samples_ms": samples["kernel"], **k2_linear,
-                      **k9, "ptxas": ptxas_report(log)}), flush=True)
+                      **k2_caps, **k9, "ptxas": ptxas_report(log)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,19 +10,20 @@
 // torchcde_tpu/solvers/fused_dopri_persample.py (_psd_fwd_kernel,
 // _psd_bwd_kernel).
 //
-// Two layouts.  The forwards run one thread per batch lane in blocks of one
-// warp (LANES), with the field specialised (H 8, C 3, weights and vectors in
-// shared memory, cde_stage.cuh's stage math) or generic (H, C, W at run
-// time, vectors in a per-lane global scratch, weights through L1).  Every
-// step function of that layout is forced inline, so the kernels hold the
-// lane's values in registers across it.
+// Two layouts.  K2's forward at the flagship's widths runs one thread per
+// batch lane in blocks of one warp (LANES), with the field specialised (H 8,
+// C 3, weights and vectors in shared memory, cde_stage.cuh's stage math);
+// every step function of that layout is forced inline, so the kernel holds
+// the lane's values in registers across it.
 //
-// The backwards of K2 and K9, for every shape, run in teams: T = 32
-// threads, one warp, per lane.  What bounds a backward is the serial chain
-// of small products of the field's VJP, 2 W C H per stage and again as many
-// for the weight gradients; one thread per lane would leave 8 warps on the
-// card at B 256 and need a block-wide reduction of the weight gradients per
-// stage.  A team
+// Every other forward (K2's other shapes, in both modes, and every K9
+// shape) and every backward of K2 and K9 run in teams: T = 32 threads, one
+// warp, per lane, on one stage evaluation (team_eval), so that a forward's
+// stages and its backward's recompute round alike.  What bounds them is the
+// serial chain of small products of the field, W H (1 + C) multiply-adds
+// per stage evaluation, and in the backward again twice as many for the
+// VJP and the weight gradients; one thread per lane would leave 8 warps on
+// the card at B 256 and walk each lane's whole field serially.  A team
 // splits each product: thread r owns quads of hidden rows (h1, dp1, the
 // ReLU mask, dh1 = W2^T dp2) and outputs q = r (mod T) of the second layer;
 // the sums over the rows (g, dy) go through the team's shared slice or warp
@@ -34,16 +35,28 @@
 // synchronisation, and the team meets at __syncwarp between the passes of
 // an evaluation.  The weights sit once per block in shared memory, rows
 // padded to an odd multiple of four floats so that a quarter-warp's
-// 16-byte reads of different rows fall in different banks.  At the step's
-// end each thread adds the step's weight gradients of its rows (dW1[w, :],
-// db1[w], dW2[:, w]), summed over the seven stages, and of its outputs
-// (db2[q]) to the team's private accumulators, across every step of every
-// lane the team walks, and the team writes them once at the end to its slot
-// of the partials, which the wrapper sums over the slots in order: no
-// block-wide barrier inside a step and no float atomics.  Where the weights
-// and the accumulators do not fit in shared memory (inside the JAX kernels'
-// caps W <= 512, C*H <= 512) they stay in device memory, the accumulators in
-// the team's own slot.
+// 16-byte reads of different rows fall in different banks.
+//
+// The forward in teams: every thread of a team carries the same t, dt and
+// attempt count.  An attempt issues the dX/dt loads of its seven stage times
+// at once, evaluates stages 1..6 (the first is the last of the step before),
+// and sums the lane's squared scaled errors over its channels, each thread
+// its own channels, then across the team by a butterfly of shuffles: one
+// fixed order, the same bits in every thread, so that every thread takes the
+// same accept decision and step size.  The channels' owners write the dense
+// output, the store of accepted steps and the FSAL swap.  The forward keeps
+// one h1 and one g, shared by the stages.
+//
+// The backward in teams: at the step's end each thread adds the step's
+// weight gradients of its rows (dW1[w, :], db1[w], dW2[:, w]), summed over
+// the seven stages, and of its outputs (db2[q]) to the team's private
+// accumulators, across every step of every lane the team walks, and the
+// team writes them once at the end to its slot of the partials, which the
+// wrapper sums over the slots in order: no block-wide barrier inside a step
+// and no float atomics.  Where the weights (and, in the backward, the
+// accumulators) do not fit in shared memory (inside the JAX kernels' caps
+// W <= 512, C*H <= 512) they stay in device memory, the accumulators in the
+// team's own slot.
 #pragma once
 
 #include <stddef.h>
@@ -62,13 +75,15 @@ constexpr size_t MAX_SMEM = 232448;
 constexpr int BAD_ARGUMENT = -2;
 constexpr int BAD_VARIANT = -3;
 constexpr int SPECIALISED = 0;
-constexpr int GENERIC = 1;
-// Vectors of a lane.  Forward: the state, the stages, a stage input.
+constexpr int TEAMS = 1;
+// Vectors of a lane.  The specialised forward: the state, the stages, a
+// stage input.
 constexpr int Z = 0, K0 = 1, Y = 8, NV_FWD = 9;
-// Backward: stage inputs, stages (then their cotangents), lambda and the
-// dense output's cotangent terms.
-constexpr int YS = 0, KV = 7, LAM = 14, LZ = 15, LZ1 = 16, UMID = 17, E0 = 18,
-              E6 = 19, U = 20, NV_BWD = 21;
+// In teams: stage inputs (the first the state z, the last the step's
+// solution z1), stages (then, in the backward, their cotangents), and in the
+// backward lambda and the dense output's cotangent terms.
+constexpr int YS = 0, KV = 7, NV_TEAM_FWD = 14, LAM = 14, LZ = 15, LZ1 = 16, UMID = 17,
+              E0 = 18, E6 = 19, U = 20, NV_BWD = 21;
 
 // The dopri5 tableau, rounded to float32 as the JAX kernels round their
 // Python constants.
@@ -228,73 +243,8 @@ struct SpecField {
 };
 
 // ---------------------------------------------------------------------------
-// Generic field of the forwards: H, C, W at run time; the weights read
-// through L1, the lanes' vectors and activations in a global scratch,
-// lane-minor.
-
-struct GenField {
-  static constexpr int MC = MAX_ROWS;  // channels: C <= 16 in linear mode
-  FieldArgs f;
-  float* scr;     // row r of lane l at scr[r * stride + l]
-  size_t stride;  // lanes of the launch (blocks * LANES)
-  static size_t rows(int H, int C, int W) {
-    return (size_t)NV_FWD * H + (size_t)W + (size_t)C * H;
-  }
-  __device__ GenField(float* scratch, const FieldArgs& fa)
-      : f(fa), scr(scratch), stride((size_t)gridDim.x * LANES) {}
-  __device__ float& row(size_t r, size_t lane) const { return scr[r * stride + lane]; }
-  __device__ size_t h1_row() const { return (size_t)NV_FWD * f.H; }
-  __device__ size_t g_row() const { return h1_row() + f.W; }
-  __device__ Vecs vecs(size_t lane) const { return Vecs{scr + lane, stride, f.H, f.H}; }
-
-  // h1 = relu(W1 y + b1) and g = tanh(W2 h1 + b2) of the lane, to the scratch.
-  __device__ void mlp(const Vecs& v, int iy, size_t lane) const {
-    const int H = f.H, W = f.W, CH = f.C * f.H;
-    for (int w = 0; w < W; ++w) {
-      const float* r1 = f.w1t + (size_t)w * H;
-      float a = 0.f;
-      for (int h = 0; h < H; ++h) a = fmaf(r1[h], v.at(iy, h), a);
-      a += f.b1[w];
-      row(h1_row() + w, lane) = (a < 0.f) ? 0.f : a;
-    }
-    for (int q = 0; q < CH; ++q) {
-      const float* r2 = f.w2t + (size_t)q * W;
-      float a = 0.f;
-      for (int w = 0; w < W; ++w) a = fmaf(r2[w], row(h1_row() + w, lane), a);
-      row(g_row() + q, lane) = tanhf(a + f.b2[q]);
-    }
-  }
-  __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MC]) const {
-    const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
-    const int H = f.H;
-    mlp(v, iy, lane);
-    for (int h = 0; h < H; ++h) {
-      float acc = row(g_row() + h, lane) * dx[0];
-      for (int i = 1; i < f.C; ++i) acc += row(g_row() + i * H + h, lane) * dx[i];
-      v.at(ik, h) = acc;
-    }
-  }
-};
-
-// The field of a forward launch: the specialised one in shared memory, the
-// generic one in `scratch`.
-template <class F>
-__device__ __forceinline__ F make_field(float* smem, float* scratch, const FieldArgs& f);
-
-template <>
-__device__ __forceinline__ SpecField make_field<SpecField>(float* smem, float*,
-                                                           const FieldArgs& f) {
-  return SpecField(smem, f);
-}
-
-template <>
-__device__ __forceinline__ GenField make_field<GenField>(float*, float* scratch,
-                                                         const FieldArgs& f) {
-  return GenField(scratch, f);
-}
-
-// ---------------------------------------------------------------------------
-// Forward: one attempted step of size dc from (t, Z) with first stage K0.
+// The specialised forward: one attempted step of size dc from (t, Z) with
+// first stage K0.
 
 // Stages 2..7 into K0 + 1 .. K0 + 6, each stage input in Y.
 template <class F>
@@ -370,7 +320,7 @@ __device__ __forceinline__ float theta_of(float tk, float t, float dc) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward in teams (K2, K9): T threads per lane.
+// Teams (K2, K9): T threads per lane.
 //
 // Layouts, padded so that every pass reads four floats at once: H4, CH4
 // are H and C*H rounded up to a multiple of 4, and S, the row length of the
@@ -400,7 +350,17 @@ __host__ __device__ inline int team_row(int W) {
 __host__ __device__ inline size_t team_weight_floats(int H, int C, int W) {
   return ((size_t)round4(H) + 1 + round4(C * H)) * team_row(W) + round4(C * H);
 }
-// One team's vectors: [NV_BWD][H4] the lane's vectors, and for each stage
+// The forward's team slice: for each of the p.lanes lanes it walks
+// [NV_TEAM_FWD][H4] vectors, then [NS][MAX_ROWS] dX/dt, [S] h1 and [CH4] g,
+// which its lanes and stages share.
+__host__ __device__ inline size_t team_fwd_floats(int H, int C, int W, int lanes) {
+  return (size_t)lanes * NV_TEAM_FWD * round4(H) + (size_t)NS * MAX_ROWS + team_row(W) +
+         round4(C * H);
+}
+// Floats before the forward's weights and slices: a block's team sums of
+// the group norm (K2).
+constexpr int FWD_HEAD = 16;
+// One backward team's vectors: [NV_BWD][H4] the lane's vectors, and for each stage
 // of the step [NS][MAX_ROWS] its dX/dt, [NS][S] h1, [NS][CH4] g (then u g),
 // [NS][S] dp1, [NS][CH4] dp2, [NS][MAX_ROWS] ddx.
 __host__ __device__ inline size_t team_vec_floats(int H, int C, int W) {
@@ -414,13 +374,17 @@ __host__ __device__ inline size_t team_acc_floats(int H, int C, int W) {
 }
 
 // A team launch: T (TEAM) threads per lane, L teams per block, the slots
-// of the partials (one per team; teams stride over the lanes when the
-// partials would pass MAX_PARTIALS), the outputs of the second layer a
-// thread carries at once (4 where each thread owns more than two, else 1),
-// and whether the weights and the accumulators sit in shared memory.
+// (the teams: blocks * L; in the backward one slot of the partials per
+// team, teams striding over the lanes when the partials would pass
+// MAX_PARTIALS), the lanes a forward team walks at each attempt (lane
+// slot + l * slots, l < lanes), the outputs of the second layer a thread
+// carries at once (4 where each thread owns more than two, else 1),
+// whether the weights (and the backward's accumulators) sit in shared
+// memory, and whether a forward's first layer takes one row per thread
+// (narrow: W <= T).
 struct TeamPlan {
-  int T, L, blocks, slots, rows;
-  bool smem;
+  int T, L, blocks, slots, lanes, rows;
+  bool smem, narrow;
   size_t bytes;  // dynamic shared memory of a block
 };
 
@@ -452,8 +416,50 @@ int team_plan(TeamPlan& p, int B, int H, int C, int W) {
   p.bytes = sizeof(float) * (p.smem ? wts + p.L * slice : p.L * vec);
   p.blocks = (int)((teams + p.L - 1) / p.L);
   p.slots = p.blocks * p.L;
+  p.lanes = 1;
   p.rows = C * H > 2 * TEAM ? 4 : 1;
+  p.narrow = false;
   return 0;
+}
+
+// The team forward's launch: a team per lane, as many per block as spread
+// the teams over the SMs (at most MAX_TEAM_BLOCK threads), the weights in
+// shared memory where they fit beside one team's slice, as in team_plan.
+// A cooperative launch (K2: the group norm needs every block resident at
+// once) takes the least lanes per team whose grid `resident(p, threads,
+// bytes)`, the blocks of the plan's kernel an SM holds, allows; BAD_VARIANT
+// where even one team per block cannot be resident.
+template <class Resident>
+int team_fwd_plan(TeamPlan& p, int B, int H, int C, int W, bool cooperative,
+                  Resident resident) {
+  if (B < 1) return BAD_ARGUMENT;
+  p.T = TEAM;
+  p.rows = C * H > 2 * TEAM ? 4 : 1;
+  p.narrow = round4(W) <= TEAM;
+  const size_t smem = MAX_SMEM / sizeof(float) - FWD_HEAD, wts = team_weight_floats(H, C, W);
+  p.smem = wts + team_fwd_floats(H, C, W, 1) <= smem;
+  const size_t base = p.smem ? wts : 0;
+  const size_t sms = sm_count();
+  size_t teams_before = 0;
+  for (size_t lanes = 1; lanes <= (cooperative ? (size_t)B : 1); ++lanes) {
+    const size_t teams = (B + lanes - 1) / lanes;
+    if (teams == teams_before) continue;
+    teams_before = teams;
+    const size_t slice = team_fwd_floats(H, C, W, (int)lanes);
+    if (base + slice > smem) return BAD_VARIANT;
+    const size_t want = std::min<size_t>((teams + sms - 1) / sms, MAX_TEAM_BLOCK / TEAM);
+    for (size_t L = std::min(want, (smem - base) / slice); L >= 1; --L) {
+      p.L = (int)L;
+      p.lanes = (int)lanes;
+      p.bytes = sizeof(float) * (FWD_HEAD + base + L * slice);
+      p.blocks = (int)((teams + L - 1) / L);
+      p.slots = p.blocks * p.L;
+      const int per_sm = cooperative ? resident(p, (int)L * TEAM, p.bytes) : 1;
+      if (!cooperative || (size_t)p.blocks <= (size_t)per_sm * sms) return 0;
+      if (L == 1 && per_sm < 1) return BAD_VARIANT;
+    }
+  }
+  return BAD_VARIANT;
 }
 
 // The partial sums added in one fixed order.
@@ -483,7 +489,7 @@ struct TeamWeights {
 struct Team {
   int T;          // threads per team: the plan's T
   int r;          // rank in the team (the lane of its warp)
-  int slot;       // the team's slot of the partials
+  int slot;       // the team's slot (of the partials, in the backward)
   float *vec, *dx, *h1, *g, *dp1, *dp2, *ddx;
   Partials acc;   // w1 [H][S], b1 [S], w2 [C*H][S], b2 [CH4]
   __device__ void sync() const { __syncwarp(); }
@@ -499,32 +505,40 @@ __device__ __forceinline__ Partials team_slot(const Partials& part, const TeamSh
                   part.dw2 + slot * s.CH * S, part.db2 + slot * s.CH4};
 }
 
-// The block's weights (copied to shared memory with SMEM) and this thread's
-// team: its zeroed slice of shared memory and its accumulators, zeroed (in
-// shared memory) or its slot of the zeroed partials.  Ends with the block's
-// one barrier.
+// The block's shapes and weights: copied from the padded weights in f to
+// shared memory at top with SMEM (one contiguous copy: w1, b1, w2, b2),
+// else read where they are.  Returns the first float past them.
+template <bool SMEM>
+__device__ __forceinline__ float* team_load_weights(float* top, const FieldArgs& f,
+                                                   TeamWeights& wt, TeamShape& s) {
+  const int H = f.H, C = f.C, W = f.W, CH = C * H;
+  s = TeamShape{H, C, W, CH, round4(H), round4(CH), team_row(W), round4(W)};
+  const size_t S = s.S;
+  if (!SMEM) {
+    wt = TeamWeights{f.w1t, f.b1, f.w2t, f.b2};
+    return top;
+  }
+  const float* src[4] = {f.w1t, f.b1, f.w2t, f.b2};
+  const size_t len[4] = {s.H4 * S, S, s.CH4 * S, (size_t)s.CH4};
+  float* dst = top;
+  for (int k = 0; k < 4; ++k) {
+    for (size_t i = 4 * threadIdx.x; i < len[k]; i += 4 * blockDim.x) st4(dst + i, ld4(src[k] + i));
+    dst += len[k];
+  }
+  wt = TeamWeights{top, top + s.H4 * S, top + (s.H4 + 1) * S, top + (s.H4 + 1 + s.CH4) * S};
+  return top + team_weight_floats(H, C, W);
+}
+
+// The block's weights and this thread's backward team: its zeroed slice of
+// shared memory and its accumulators, zeroed (in shared memory) or its slot
+// of the zeroed partials.  Ends with the block's one barrier.
 template <bool SMEM>
 __device__ __forceinline__ Team team_setup(float* smem, const FieldArgs& f, const TeamPlan& p,
                                            const Partials& part, TeamWeights& wt,
                                            TeamShape& s) {
   const int H = f.H, C = f.C, W = f.W, CH = C * H;
-  s = TeamShape{H, C, W, CH, round4(H), round4(CH), team_row(W), round4(W)};
+  float* top = team_load_weights<SMEM>(smem, f, wt, s);
   const size_t S = s.S;
-  float* top = smem;
-  if (SMEM) {
-    // The padded weights are one contiguous copy: w1, b1, w2, b2.
-    const float* src[4] = {f.w1t, f.b1, f.w2t, f.b2};
-    const size_t len[4] = {s.H4 * S, S, s.CH4 * S, (size_t)s.CH4};
-    float* dst = top;
-    for (int k = 0; k < 4; ++k) {
-      for (size_t i = 4 * threadIdx.x; i < len[k]; i += 4 * blockDim.x) st4(dst + i, ld4(src[k] + i));
-      dst += len[k];
-    }
-    wt = TeamWeights{top, top + s.H4 * S, top + (s.H4 + 1) * S, top + (s.H4 + 1 + s.CH4) * S};
-    top += team_weight_floats(H, C, W);
-  } else {
-    wt = TeamWeights{f.w1t, f.b1, f.w2t, f.b2};
-  }
   const int ti = threadIdx.x / TEAM;
   Team tm;
   tm.r = threadIdx.x % TEAM;
@@ -549,6 +563,39 @@ __device__ __forceinline__ Team team_setup(float* smem, const FieldArgs& f, cons
   }
   __syncthreads();
   return tm;
+}
+
+// The block's weights (behind FWD_HEAD floats) and this thread's forward
+// team: its zeroed slice of shared memory, p.lanes lanes' vectors (lane l's
+// by team_lane), then dX/dt and one h1 and g.  Ends with the block's
+// barrier.
+template <bool SMEM>
+__device__ __forceinline__ Team team_fwd_setup(float* smem, const FieldArgs& f,
+                                               const TeamPlan& p, TeamWeights& wt,
+                                               TeamShape& s) {
+  float* top = team_load_weights<SMEM>(smem + FWD_HEAD, f, wt, s);
+  const int ti = threadIdx.x / TEAM;
+  Team tm{};
+  tm.r = threadIdx.x % TEAM;
+  tm.T = p.T;
+  tm.slot = blockIdx.x * p.L + ti;
+  const size_t slice = team_fwd_floats(f.H, f.C, f.W, p.lanes);
+  float* base = top + (size_t)ti * slice;
+  for (size_t i = 4 * tm.r; i < slice; i += 4 * tm.T)
+    st4(base + i, make_float4(0.f, 0.f, 0.f, 0.f));
+  tm.vec = base;
+  tm.dx = base + (size_t)p.lanes * NV_TEAM_FWD * s.H4;
+  tm.h1 = tm.dx + NS * MAX_ROWS;
+  tm.g = tm.h1 + s.S;
+  __syncthreads();
+  return tm;
+}
+
+// The forward team's view of its lane l: the same team with lane l's vectors.
+__device__ __forceinline__ Team team_lane(const Team& tm, const TeamShape& s, int l) {
+  Team v = tm;
+  v.vec = tm.vec + (size_t)l * NV_TEAM_FWD * s.H4;
+  return v;
 }
 
 // The team's accumulators to its slot of the partials (after the team's
@@ -590,16 +637,28 @@ __device__ __forceinline__ void team_load_dx(const Table& tab, const Team& tm, s
 }
 
 // Stage st's evaluation k = g(y) . dX/dt, y = vector YS + st, into KV + st;
-// keeps the stage's h1 and g for its VJP.  The caller has written y (each
-// thread its own channels) and the step's dX/dt.  RB outputs q at a time.
-template <int RB>
+// keeps the stage's h1 and g for its VJP (in the stage's slots; with ONE,
+// the forward's, in the one slot its stages share).  The caller has written
+// y (each thread its own channels) and the step's dX/dt.  RB outputs q at a
+// time.  NARROW (the forwards' kernels for W <= T): where the rows fit the
+// team, one hidden row per thread in the first layer, not a quad; each
+// row's sum runs over h in the same order either way, so both give the
+// same bits.
+template <int RB, bool ONE, bool NARROW = false>
 __device__ __forceinline__ void team_eval(const TeamWeights& wt, const TeamShape& s,
                                           const Team& tm, int st) {
   const int H = s.H, CH = s.CH, T = tm.T, r = tm.r;
   const size_t S = s.S;
   tm.sync();
   const float* y = tm.vec + (YS + st) * s.H4;
-  float* h1 = tm.h1 + st * S;
+  float* h1 = ONE ? tm.h1 : tm.h1 + st * S;
+  if (NARROW && s.Wq <= T) {
+    if (r < s.Wq) {
+      float a = 0.f;
+      for (int h = 0; h < H; ++h) a = fmaf(wt.w1[h * S + r], y[h], a);
+      h1[r] = fmaxf(a + wt.b1[r], 0.f);
+    }
+  } else
   for (int w = 4 * r; w < s.Wq; w += 4 * T) {
     float a[4] = {0.f, 0.f, 0.f, 0.f};
     for (int h = 0; h < H; h += 4) {
@@ -620,7 +679,7 @@ __device__ __forceinline__ void team_eval(const TeamWeights& wt, const TeamShape
     st4(h1 + w, o);
   }
   tm.sync();
-  float* g = tm.g + st * s.CH4;
+  float* g = ONE ? tm.g : tm.g + st * s.CH4;
   for (int q0 = r; q0 < CH; q0 += RB * T) {
     const float* row[RB];
     float a[RB][PS];
@@ -857,15 +916,17 @@ __device__ __forceinline__ void team_load_step(const TeamShape& s, const Team& t
   if (tm.r < s.H) tm.at(s, YS, tm.r) = z0;
 }
 
-// The step's stage inputs into YS .. YS + 6 and stages into KV .. KV + 6,
-// after team_load_step.
-template <int RB>
-__device__ __forceinline__ void team_recompute(const TeamWeights& wt, const TeamShape& s,
-                                               const Team& tm, float dt) {
+// Stages first .. 6 of the step of size dt into KV + first .., each
+// stage's input into YS + st, after the step's dX/dt (team_load_dx): the
+// backward's recompute (first 0, after team_load_step) and the forward's
+// attempt (ONE, first 1: the first stage is the last of the step before).
+template <int RB, bool ONE, bool NARROW = false>
+__device__ __forceinline__ void team_stages(const TeamWeights& wt, const TeamShape& s,
+                                            const Team& tm, float dt, int first) {
   // One copy of the evaluation in the code: with a second call site for
   // stage 0, K9's backward took 2 % longer on an H100.
 #pragma unroll 1
-  for (int st = 0; st < NS; ++st) {
+  for (int st = first; st < NS; ++st) {
     for (int h = tm.r; st > 0 && h < s.H; h += tm.T) {
       float y = tm.at(s, YS, h);
       for (int q = 0; q < st; ++q) {
@@ -874,7 +935,56 @@ __device__ __forceinline__ void team_recompute(const TeamWeights& wt, const Team
       }
       tm.at(s, YS + st, h) = y;
     }
-    team_eval<RB>(wt, s, tm, st);
+    team_eval<RB, ONE, NARROW>(wt, s, tm, st);
+  }
+}
+
+// The lane's sum over its hidden channels of the attempted step's squared
+// scaled error (z in YS, z1 the last stage input YS + 6, which the plain
+// versions' z + dt sum csol_q k_q is): each thread sums its own channels,
+// then the team adds across by a butterfly of shuffles, one fixed order
+// whose sum has the same bits in every thread (float addition commutes).
+__device__ __forceinline__ float team_error(const TeamShape& s, const Team& tm, float dc,
+                                            float rtol, float atol) {
+  float part = 0.f;
+  for (int h = tm.r; h < s.H; h += tm.T) {
+    const float z = tm.at(s, YS, h), z1 = tm.at(s, YS + NS - 1, h);
+    float e = 0.f;
+    for (int q = 0; q < NS; ++q)
+      if (kCerr[q] != 0.f) e = e + kCerr[q] * tm.at(s, KV + q, h);
+    e = dc * e;
+    const float scaled = e / (atol + rtol * fmaxf(fabsf(z), fabsf(z1)));
+    part += scaled * scaled;
+  }
+  for (int o = 1; o < tm.T; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  return part;
+}
+
+// The dense output at theta of the accepted step (z to z1) into out[h *
+// stride], by the channels' owners.
+__device__ __forceinline__ void team_dense(const TeamShape& s, const Team& tm, const Dense& d,
+                                           float dc, float theta, float* out, size_t stride) {
+  float cA, cB, cC;
+  dense_coeffs(d.minv, theta, cA, cB, cC);
+  for (int h = tm.r; h < s.H; h += tm.T) {
+    const float z = tm.at(s, YS, h), z1 = tm.at(s, YS + NS - 1, h);
+    const float k0 = tm.at(s, KV, h), k6 = tm.at(s, KV + NS - 1, h);
+    float ymid = z;
+    for (int q = 0; q < NS; ++q)
+      if (d.bmid[q] != 0.f) ymid = ymid + (dc * d.bmid[q]) * tm.at(s, KV + q, h);
+    const float rA = z1 - z - dc * k0;
+    const float rB = dc * (k6 - k0);
+    const float rC = ymid - z - (0.5f * dc) * k0;
+    out[(size_t)h * stride] = z + (theta * dc) * k0 + cA * rA + cB * rB + cC * rC;
+  }
+}
+
+// An accepted step's end, by the channels' owners: z becomes z1 and the
+// first stage the last (FSAL).
+__device__ __forceinline__ void team_advance(const TeamShape& s, const Team& tm) {
+  for (int h = tm.r; h < s.H; h += tm.T) {
+    tm.at(s, YS, h) = tm.at(s, YS + NS - 1, h);
+    tm.at(s, KV, h) = tm.at(s, KV + NS - 1, h);
   }
 }
 
@@ -959,14 +1069,11 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 // Fills the table, the field and the dense constants; 0 or an error code.
 int make_table(Table& tab, FieldArgs& f, Dense& d, const float* ct, const float* w1t,
                const float* b1, const float* w2t, const float* b2, int B, int n, int H, int C,
-               int W, int n_out, const float* dense, float t0g, float w, int linear, int lead,
-               int variant) {
+               int W, int n_out, const float* dense, float t0g, float w, int linear, int lead) {
   const int rows = linear ? C : 3 * C;
   if (B < 1 || n < 1 || H < 1 || C < 1 || rows > MAX_ROWS || W < 1 || n_out < 0 ||
       n_out > MAX_OUT || !(w > 0.f) || (lead && !linear))
     return BAD_ARGUMENT;
-  if (variant != GENERIC && !(variant == SPECIALISED && specialised_fits(H, C, W)))
-    return BAD_VARIANT;
   tab = Table{ct, B, n, C, linear != 0, lead != 0, t0g, w};
   f = FieldArgs{w1t, b1, w2t, b2, H, C, W};
   for (int q = 0; q < NS; ++q) d.bmid[q] = dense[q];

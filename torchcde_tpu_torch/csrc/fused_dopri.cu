@@ -23,17 +23,29 @@
 // its lane's whole field.
 //
 // Design.
-//  * Forward: one thread per batch lane, blocks of one warp (32 lanes), as
-//    K1.  A group of up to 4096 lanes is one cooperative launch of up to 128
-//    blocks, all resident at once (cudaLaunchCooperativeKernel refuses a
-//    grid that could not be), so they can wait for each other.
-//  * The norm: each block sums its lanes' squares with warp shuffles and
-//    writes one partial; a barrier on a global counter; then every thread of
-//    every block sums the partials in block order.  The same float operations
-//    in the same order give the same value everywhere, so every block takes
-//    the same decision: no float atomics in the norm.  The partials are
-//    double-buffered by step parity (a block can run at most one step ahead)
-//    and read past L1 (__ldcg).
+//  * Forward at the flagship's widths (H 8, C 3, W <= 391: the specialised
+//    variant): one thread per batch lane, blocks of one warp (32 lanes), as
+//    K1, the weights and the lanes' vectors in shared memory.
+//  * Forward at every other shape, in either mode (the team variant): a team
+//    of 32 threads (a warp) per lane, on the team backward's stage
+//    evaluation (cde_dopri.cuh, "The forward in teams"), the padded weights
+//    in shared memory once per block where they fit.  Where the group's
+//    teams cannot all be resident, each team walks several lanes per
+//    attempt (fd_forward_plan: the least number that fits, by the runtime's
+//    occupancy of the kernel).
+//  * Either forward is one cooperative launch per group of up to 4096
+//    lanes, every block resident at once (cudaLaunchCooperativeKernel
+//    refuses a grid that could not be), so they can wait for each other.
+//  * The norm: each block sums its lanes' squares in one fixed order (the
+//    specialised kernel with warp shuffles; the team kernel each lane over
+//    its channels by a butterfly, each team over its lanes in order, then
+//    one thread over the block's teams in order) and writes one partial; a
+//    barrier on a global counter; then the partials are summed in block
+//    order (by every thread, or by one thread per block and shared).  The
+//    same float operations in the same order give the same value
+//    everywhere, so every block takes the same decision: no float atomics
+//    in the norm.  The partials are double-buffered by step parity (a block
+//    can run at most one step ahead) and read past L1 (__ldcg).
 //  * t and dt are float32, as the JAX kernel carries them.  Each stage's
 //    interval is floor((t - t0g) / w), read directly (CUDA can gather).
 //  * Linear-control mode (the log-ODE / Neural RDE control): the table holds
@@ -44,10 +56,6 @@
 //    LinearInterpolation.derivative does.  With `lead`, row 0 is the
 //    interval left of the chunk's first knot t0g and the rule drops the - 1.
 //    The backward adds each stage's ddx to its slope row only.
-//  * The forward's lane vectors (state, the seven stages, ...) live in shared
-//    memory (specialised variant) or in a per-lane global scratch (generic
-//    variant), lane-minor; the step math is cde_dopri.cuh's, shared with the
-//    per-lane solve (fused_dopri_persample.cu).
 //  * The backward is an ordinary launch over the fixed mesh, every lane
 //    walking the group's accepted steps in reverse, one kernel for every
 //    shape: a team of 32 threads (a warp) per lane, 256 warps at B 256 and
@@ -58,16 +66,13 @@
 //    (cde_dopri.cuh, "The backward in teams").  Each lane owns its dct
 //    column (no atomics).
 //
-// The forward has two variants that compute the same function, in either
-// mode; fd_variant picks one from the shapes.  Specialised: H 8, C 3 (the
-// flagship), weights and vectors in shared memory, W <= 391.  Generic: H, C,
-// W at run time, weights read through L1, every other shape inside the JAX
-// kernel's caps (W <= 512, C*H <= 512, 3*C <= 16 cubic, C <= 16 linear).
-//
 // Layouts (float32, lane minor; B = lanes of the group):
 //   ct (n, 3, C, B) rows b, 2c, 3d of the chunk's intervals, or (n, 1, C, B)
 //   the slopes in linear mode; z0t (H, B);
-//   w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H) with rows q = i*H + h;
+//   w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H) with rows q = i*H + h (the
+//   specialised forward), or the weights padded as the team kernels read
+//   them (cde_dopri.cuh, team_weight_floats; the team forward and the
+//   backward);
 //   zout (n_out, H, B), zfin (H, B), dtfin (1), zst (cap, H, B), tst (cap),
 //   dtst (cap), stats (2) int32: accepted and attempted steps.
 // Backward: gzout (n_out, H, B), gzfin (H, B) -> dct (ct's shape), dz0 (H, B)
@@ -83,7 +88,7 @@ struct Common {
   Table tab;
   FieldArgs f;
   Dense d;
-  float* scratch;  // [2][blocks] norm partials, a barrier counter, vectors
+  float* scratch;  // [2][blocks] norm partials, a barrier counter
   int n_out;
   float out_ts[MAX_OUT];
 };
@@ -143,7 +148,7 @@ template <class F>
 __global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
   const Common& c = a.c;
-  const F field = make_field<F>(smem, c.scratch + head_floats(gridDim.x), c.f);
+  const F field(smem, c.f);
   __syncthreads();
   const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
   const bool live = lane < (size_t)c.tab.B;
@@ -223,6 +228,123 @@ __global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
   }
 }
 
+// The sum of every team's `part` over the launch, the same bits in every
+// thread: the block's teams in team order (in smem[0 .. L - 1], by one
+// thread), then, after the barrier, the blocks in block order (by one
+// thread, shared through smem[L]).
+__device__ float team_group_sum(float part, const Team& tm, const TeamPlan& p, float* smem,
+                                float* partials, unsigned* counter, unsigned& generation) {
+  const unsigned nb = gridDim.x;
+  float* slot = partials + (generation & 1u) * nb;
+  if (tm.r == 0) smem[threadIdx.x / TEAM] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (int i = 0; i < p.L; ++i) total += smem[i];
+    slot[blockIdx.x] = total;
+  }
+  ++generation;
+  grid_barrier(counter, generation * nb);
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (unsigned b = 0; b < nb; ++b) total += __ldcg(slot + b);
+    smem[p.L] = total;
+  }
+  __syncthreads();
+  return smem[p.L];
+}
+
+// The team forward (every shape but the specialised variant's): a team of
+// threads per lane (cde_dopri.cuh, "The forward in teams"), each team
+// walking lanes slot + l * slots, l < p.lanes, at every attempt.
+template <bool SMEM, int RB, bool NARROW>
+__global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_fwd_team_kernel(FwdArgs a, TeamPlan p) {
+  extern __shared__ float smem[];
+  const Common& c = a.c;
+  TeamWeights wt;
+  TeamShape s;
+  const Team tm = team_fwd_setup<SMEM>(smem, c.f, p, wt, s);
+  const int H = s.H;
+  const size_t B = c.tab.B;
+  float* partials = c.scratch;
+  unsigned* counter = reinterpret_cast<unsigned*>(c.scratch + 2 * gridDim.x);
+  int live = 0;  // the team's lanes inside the group
+  while (live < p.lanes && tm.slot + (size_t)live * p.slots < B) ++live;
+
+  float t = a.t_start;
+  const float t1 = a.t_end;
+  float dt = *a.dt0;
+  for (int l = 0; l < live; ++l) {
+    const Team tl = team_lane(tm, s, l);
+    const size_t lane = tm.slot + (size_t)l * p.slots;
+    for (int h = tl.r; h < H; h += tl.T) {
+      const float z = a.z0t[h * B + lane];
+      tl.at(s, YS, h) = z;
+      for (int k = 0; k < c.n_out; ++k) a.zout[((size_t)k * H + h) * B + lane] = z;
+    }
+    tl.sync();
+    team_load_dx(c.tab, tl, lane, t, dt);
+    team_eval<RB, true, NARROW>(wt, s, tl, 0);
+  }
+  int attempted = 0, cnt = 0;
+  unsigned generation = 0;
+
+  while (t < t1 && attempted < a.cap && cnt < a.cap) {
+    dt = fmaxf(dt, 1e-14f);
+    const float dc = fminf(dt, t1 - t);
+    float part = 0.f;
+    for (int l = 0; l < live; ++l) {
+      const Team tl = team_lane(tm, s, l);
+      // The previous evaluation's reads of dX/dt, h1 and g are done.
+      tl.sync();
+      team_load_dx(c.tab, tl, tm.slot + (size_t)l * p.slots, t, dc);
+      team_stages<RB, true, NARROW>(wt, s, tl, dc, 1);
+      part += team_error(s, tl, dc, a.rtol, a.atol);
+    }
+    const float ratio = sqrtf(
+        team_group_sum(part, tm, p, smem, partials, counter, generation) / (float)(B * H));
+    const bool accept = ratio <= 1.f;
+    const float dt_new = next_step(ratio, dc, dt, accept, a.safety, a.ifactor, a.dfactor);
+    if (accept) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        a.tst[cnt] = t;
+        a.dtst[cnt] = dc;
+      }
+      for (int l = 0; l < live; ++l) {
+        const Team tl = team_lane(tm, s, l);
+        const size_t lane = tm.slot + (size_t)l * p.slots;
+        for (int h = tl.r; h < H; h += tl.T)
+          a.zst[((size_t)cnt * H + h) * B + lane] = tl.at(s, YS, h);
+        for (int k = 0; k < c.n_out; ++k) {
+          const float tk = c.out_ts[k];
+          if (!(tk > t && tk <= t + dc)) continue;
+          team_dense(s, tl, c.d, dc, theta_of(tk, t, dc), a.zout + (size_t)k * H * B + lane, B);
+        }
+        team_advance(s, tl);
+      }
+      t = t + dc;
+      ++cnt;
+    }
+    dt = dt_new;
+    ++attempted;
+  }
+  // Loud exhaustion, as the JAX kernel: t < t1 means the budget ran out.
+  for (int l = 0; l < live; ++l) {
+    const Team tl = team_lane(tm, s, l);
+    const size_t lane = tm.slot + (size_t)l * p.slots;
+    for (int h = tl.r; h < H; h += tl.T) {
+      a.zfin[h * B + lane] = t < t1 ? NAN : tl.at(s, YS, h);
+      if (t < t1)
+        for (int k = 0; k < c.n_out; ++k) a.zout[((size_t)k * H + h) * B + lane] = NAN;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.dtfin = dt;
+    a.stats[0] = cnt;
+    a.stats[1] = attempted;
+  }
+}
+
 // The backward, for every shape: a team of threads per lane (cde_dopri.cuh),
 // every lane walking the group's accepted steps; teams stride over the lanes.
 template <bool SMEM, int RB>
@@ -248,7 +370,7 @@ __global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_bwd_team_kernel(BwdArgs 
         dt_next = a.dtst[st - 1];
       }
       team_load_step(s, tm, c.tab, lane, t, dt, a.zst + (size_t)st * H * B + lane, B);
-      team_recompute<RB>(wt, s, tm, dt);
+      team_stages<RB, false>(wt, s, tm, dt, 0);
       team_start_cotangents(s, tm);
       for (int k = 0; k < c.n_out; ++k) {
         const float tk = c.out_ts[k];
@@ -268,15 +390,53 @@ __global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_bwd_team_kernel(BwdArgs 
   team_finish<SMEM>(tm, s, a.p);
 }
 
-template <class F>
 int launch_fwd(FwdArgs a, size_t smem, cudaStream_t stream) {
-  auto kernel = dopri_fwd_kernel<F>;
+  auto kernel = dopri_fwd_kernel<SpecField>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
   // Cooperative: every block of the group resident at once, or a refusal.
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks_of(a.c.tab.B)),
                                     dim3(LANES), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+using TeamFwdKernel = void (*)(FwdArgs, TeamPlan);
+
+template <bool SMEM, int RB>
+TeamFwdKernel team_fwd_kernel(bool narrow) {
+  return narrow ? dopri_fwd_team_kernel<SMEM, RB, true> : dopri_fwd_team_kernel<SMEM, RB, false>;
+}
+
+TeamFwdKernel team_fwd_kernel(const TeamPlan& p) {
+  if (p.smem) return p.rows == 4 ? team_fwd_kernel<true, 4>(p.narrow) : team_fwd_kernel<true, 1>(p.narrow);
+  return p.rows == 4 ? team_fwd_kernel<false, 4>(p.narrow) : team_fwd_kernel<false, 1>(p.narrow);
+}
+
+// Blocks of the plan's team forward kernel an SM holds at once (0 where
+// the runtime cannot tell).
+int team_fwd_resident(const TeamPlan& p, int threads, size_t bytes) {
+  const TeamFwdKernel kernel = team_fwd_kernel(p);
+  int n = 0;
+  if (set_smem(kernel, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+int fwd_team_plan(TeamPlan& p, int B, int H, int C, int W) {
+  return team_fwd_plan(p, B, H, C, W, true, team_fwd_resident);
+}
+
+int launch_fwd_team(FwdArgs a, TeamPlan p, cudaStream_t stream) {
+  const TeamFwdKernel kernel = team_fwd_kernel(p);
+  cudaError_t err = set_smem(kernel, p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a, &p};
+  // Cooperative: every block of the group resident at once, or a refusal.
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(p.blocks), dim3(p.L * TEAM), args,
+                                    p.bytes, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -293,9 +453,9 @@ int launch_bwd_team(const BwdArgs& a, const TeamPlan& p, cudaStream_t stream) {
 int make_common(Common& c, const float* ct, const float* w1t, const float* b1,
                 const float* w2t, const float* b2, float* scratch, int B, int n, int H,
                 int C, int W, int n_out, const float* out_ts, const float* dense,
-                float t0g, float w, int linear, int lead, int variant) {
+                float t0g, float w, int linear, int lead) {
   const int rc = make_table(c.tab, c.f, c.d, ct, w1t, b1, w2t, b2, B, n, H, C, W, n_out, dense,
-                            t0g, w, linear, lead, variant);
+                            t0g, w, linear, lead);
   if (rc) return rc;
   c.scratch = scratch;
   c.n_out = n_out;
@@ -309,13 +469,30 @@ extern "C" {
 
 const char* fd_error_string(int code) {
   if (code == BAD_ARGUMENT) return "invalid argument";
-  if (code == BAD_VARIANT) return "no such kernel variant for these shapes";
+  if (code == BAD_VARIANT) return "no kernel variant or launch fits these shapes";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The variant that runs these shapes: 0 specialised, 1 generic.
+// The forward variant that runs these shapes: 0 specialised, 1 teams.
 int fd_variant(int H, int C, int W) {
-  return specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
+  return specialised_fits(H, C, W) ? SPECIALISED : TEAMS;
+}
+
+// The team forward's launch for these shapes (K2's team variant): teams per
+// block, blocks, lanes each team walks, outputs a thread carries at once,
+// weights in shared memory (1) or not (0), the bytes of shared memory a
+// block takes, S (the padded row length of the weights), the floats of the
+// zeroed scratch (the norm's partials and counter) and one first-layer row
+// per thread (1) or quads (0) into out[0..8]; returns 0 or an error code.  fd_forward checks the blocks and S it is
+// given against its own plan.
+int fd_forward_plan(int B, int H, int C, int W, long* out) {
+  TeamPlan p;
+  const int rc = fwd_team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  const long v[9] = {p.L, p.blocks, p.lanes, p.rows, p.smem, (long)p.bytes, team_row(W),
+                     (long)head_floats(p.blocks), p.narrow};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The team backward's launch for these shapes (K2 and K9): teams per block, blocks, slots of the partials, outputs a thread
@@ -333,30 +510,29 @@ int fd_team_plan(int B, int H, int C, int W, long* out) {
   return 0;
 }
 
-// Floats of the zeroed scratch a forward launch needs.
-long fd_scratch_floats(int B, int H, int C, int W, int variant) {
-  const int blocks = blocks_of(B);
-  size_t floats = head_floats(blocks);
-  if (variant == GENERIC) floats += GenField::rows(H, C, W) * (size_t)blocks * LANES;
-  return (long)floats;
-}
+// Floats of the zeroed scratch the specialised forward needs.
+long fd_scratch_floats(int B) { return (long)head_floats(blocks_of(B)); }
 
 // dense: the 7 midpoint weights, then the 3x3 quartic inverse row-major.
 // linear: ct holds a linear control's slopes; lead: its row 0 is the
-// interval left of t0g.
+// interval left of t0g.  The team variant takes the padded weights and the
+// blocks and row length of fd_forward_plan (the specialised one ignores
+// them).
 int fd_forward(const float* ct, const float* z0t, const float* w1t, const float* b1,
                const float* w2t, const float* b2, const float* dt0, float* zout,
                float* zfin, float* dtfin, float* zst, float* tst, float* dtst,
                int* stats, float* scratch, int B, int n, int H, int C, int W, int cap,
                int n_out, const float* out_ts, const float* dense, float t_start,
                float t_end, float t0g, float w, float rtol, float atol, float safety,
-               float ifactor, float dfactor, int linear, int lead, int variant,
-               void* stream) {
+               float ifactor, float dfactor, int linear, int lead, int variant, int blocks,
+               int row, void* stream) {
   FwdArgs a;
   int rc = make_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out,
-                       out_ts, dense, t0g, w, linear, lead, variant);
+                       out_ts, dense, t0g, w, linear, lead);
   if (rc) return rc;
   if (cap < 1) return BAD_ARGUMENT;
+  if (variant != TEAMS && !(variant == SPECIALISED && specialised_fits(H, C, W)))
+    return BAD_VARIANT;
   a.z0t = z0t;
   a.dt0 = dt0;
   a.zout = zout;
@@ -375,9 +551,12 @@ int fd_forward(const float* ct, const float* z0t, const float* w1t, const float*
   a.ifactor = ifactor;
   a.dfactor = dfactor;
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED)
-    return launch_fwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W), st);
-  return launch_fwd<GenField>(a, 0, st);
+  if (variant == SPECIALISED) return launch_fwd(a, sizeof(float) * SpecField::smem_floats(W), st);
+  TeamPlan p;
+  rc = fwd_team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  if (p.blocks != blocks || team_row(W) != row) return BAD_ARGUMENT;
+  return launch_fwd_team(a, p, st);
 }
 
 // The weights padded (cde_dopri.cuh, team_weight_floats) and zeroed
@@ -392,7 +571,7 @@ int fd_backward(const float* ct, const float* zst, const float* tst, const float
                 int linear, int lead, int slots, int row, void* stream) {
   BwdArgs a;
   int rc = make_common(a.c, ct, w1t, b1, w2t, b2, nullptr, B, n, H, C, W, n_out,
-                       out_ts, dense, t0g, w, linear, lead, GENERIC);
+                       out_ts, dense, t0g, w, linear, lead);
   if (rc) return rc;
   a.zst = zst;
   a.tst = tst;

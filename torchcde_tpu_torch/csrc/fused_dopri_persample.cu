@@ -21,32 +21,31 @@
 //
 // Design.
 //  * Lanes are independent: no norm to share, so no cooperative launch and
-//    no cross-block reduction.  The forward runs one thread per lane, blocks
-//    of one warp (32 lanes), each thread running its own loop.  This is the
-//    JAX kernel's lockstep loop seen from one lane: there a lane is active
-//    from the first iteration until it finishes and idle after, so its
-//    attempts in a chunk are min(need, cap) either way.
+//    no cross-block reduction.  The forward and the backward each run a team
+//    of 32 threads (a warp) per lane, 256 warps at B 256, each team walking
+//    its own lane with no lockstep and no barrier across lanes: a warp ends
+//    when its own lane ends.  The forward is the JAX kernel's lockstep loop
+//    seen from one lane: there a lane is active from the first iteration
+//    until it finishes and idle after, so its attempts in a chunk are
+//    min(need, cap) either way.  Both run on one stage evaluation
+//    (cde_dopri.cuh, "The forward in teams" and "The backward in teams"),
+//    so the backward's recompute rounds as the forward's stages did: the
+//    padded weights in shared memory once per block, each thread's rows of
+//    the hidden layer, the lane's vectors and the activations in the team's
+//    slice; the backward's weight gradients are kept privately by the team
+//    and written once to its slot of the partials.  Each lane owns its dct
+//    column (no atomics).
 //  * Each lane reads its own interval of the table (CUDA can gather; the TPU
 //    kernel evaluates every resident interval and reduces one-hot).
 //  * The store keeps each lane's accepted steps only (t, dt and the entry
 //    state): a rejected or idle iteration of the TPU kernel's store has
 //    accept 0 and contributes nothing to any gradient.
-//  * The backward, in either variant, runs a team of 32 threads per lane
-//    (cde_dopri.cuh, "The backward in teams"): 256 warps at B 256 instead of
-//    8, each team walking its own lane's accepted steps in reverse, with no
-//    lockstep and no barrier across lanes: the weights in shared memory once
-//    per block, each thread's rows of the hidden layer, the lane's vectors
-//    and each stage's activations in the team's slice, and weight gradients
-//    the team keeps privately and writes once to its slot of the partials.
-//    Each lane owns its dct column (no atomics).
-//  * The forward's step math (stages, error, controller, dense output) and
-//    both variants of its field are cde_dopri.cuh's, shared with K2.
-//    ps_variant picks one from the shapes: specialised H 8, C 3, W <= 391;
-//    generic otherwise inside the JAX kernel's caps.
 //
 // Layouts (float32, lane minor; B = lanes):
 //   ct (n, 3, C, B) or (n, 1, C, B) as in fused_dopri.cu; z0t (H, B);
-//   w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H); ctl (4, B) the carried rows
+//   the weights padded as the team kernels read them (cde_dopri.cuh,
+//   team_weight_floats; from w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H));
+//   ctl (4, B) the carried rows
 //   t, step proposal, attempted steps so far, poisoned; ts_rows (n_out, B);
 //   tend (B); zout_in (n_out, H, B).
 //   Forward out: zout (n_out, H, B), zfin (H, B), ctlout (4, B), nacc (B),
@@ -64,7 +63,6 @@ struct PsCommon {
   Table tab;
   FieldArgs f;
   Dense d;
-  float* scratch;  // the generic field's vectors
   int n_out;
 };
 
@@ -85,20 +83,21 @@ struct PsBwdArgs {
   Partials p;
 };
 
-template <class F>
-__global__ void __launch_bounds__(LANES) ps_fwd_kernel(PsFwdArgs a) {
+// The forward: a team of threads per lane (cde_dopri.cuh, "The forward in
+// teams"), each team walking its own lane until it ends.
+template <bool SMEM, int RB, bool NARROW>
+__global__ void __launch_bounds__(MAX_TEAM_BLOCK) ps_fwd_kernel(PsFwdArgs a, TeamPlan p) {
   extern __shared__ float smem[];
   const PsCommon& c = a.c;
-  const F field = make_field<F>(smem, c.scratch, c.f);
-  __syncthreads();
-  const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
-  if (lane >= (size_t)c.tab.B) return;  // the forward has no block-wide step
-  const Vecs v = field.vecs(lane);
-  const int H = c.f.H;
-  const size_t B = c.tab.B;
+  TeamWeights wt;
+  TeamShape s;
+  const Team tm = team_fwd_setup<SMEM>(smem, c.f, p, wt, s);
+  const size_t lane = tm.slot, B = c.tab.B;
+  if (lane >= B) return;  // the forward has no block-wide step after the setup
+  const int H = s.H;
 
-  for (int h = 0; h < H; ++h) {
-    v.at(Z, h) = a.z0t[h * B + lane];
+  for (int h = tm.r; h < H; h += tm.T) {
+    tm.at(s, YS, h) = a.z0t[h * B + lane];
     for (int k = 0; k < c.n_out; ++k) {
       const size_t at = ((size_t)k * H + h) * B + lane;
       a.zout[at] = a.zout_in[at];
@@ -108,36 +107,33 @@ __global__ void __launch_bounds__(LANES) ps_fwd_kernel(PsFwdArgs a) {
   const bool poisoned = a.ctl[3 * B + lane] > 0.5f;
   const float t_in = t;
   const float t1 = fminf(a.tend[lane], a.t_chunk_end);
-  float dx[F::MC];
-  int j;
-  float fr;
-  control_at(c.tab, lane, true, t, dx, j, fr);
-  field.eval(v, Z, K0, dx);
+  tm.sync();
+  team_load_dx(c.tab, tm, lane, t, dt);
+  team_eval<RB, true, NARROW>(wt, s, tm, 0);
   int it = 0, acc = 0;
   while (it < a.cap && t < t1 && att < a.budget && !poisoned) {
     const float dtm = fmaxf(dt, 1e-14f);
     const float dc = fminf(dtm, fmaxf(t1 - t, 0.f));
-    attempt_stages(field, v, c.tab, lane, true, t, dc);
-    const float ratio = sqrtf(step_error(v, dc, a.rtol, a.atol) / (float)H);
+    // The previous evaluation's reads of dX/dt, h1 and g are done.
+    tm.sync();
+    team_load_dx(c.tab, tm, lane, t, dc);
+    team_stages<RB, true, NARROW>(wt, s, tm, dc, 1);
+    const float ratio = sqrtf(team_error(s, tm, dc, a.rtol, a.atol) / (float)H);
     const bool accept = ratio <= 1.f;
     const float dt_new = next_step(ratio, dc, dtm, accept, a.safety, a.ifactor, a.dfactor);
     if (accept) {
-      a.tst[(size_t)acc * B + lane] = t;
-      a.dtst[(size_t)acc * B + lane] = dc;
-      for (int h = 0; h < H; ++h) a.zst[((size_t)acc * H + h) * B + lane] = v.at(Z, h);
+      if (tm.r == 0) {
+        a.tst[(size_t)acc * B + lane] = t;
+        a.dtst[(size_t)acc * B + lane] = dc;
+      }
+      for (int h = tm.r; h < H; h += tm.T)
+        a.zst[((size_t)acc * H + h) * B + lane] = tm.at(s, YS, h);
       for (int k = 0; k < c.n_out; ++k) {
         const float tk = a.ts_rows[(size_t)k * B + lane];
         if (!(tk > t && tk <= t + dc)) continue;
-        const float theta = theta_of(tk, t, dc);
-        float cA, cB, cC;
-        dense_coeffs(c.d.minv, theta, cA, cB, cC);
-        for (int h = 0; h < H; ++h)
-          a.zout[((size_t)k * H + h) * B + lane] = dense_value(v, c.d, h, dc, theta, cA, cB, cC);
+        team_dense(s, tm, c.d, dc, theta_of(tk, t, dc), a.zout + (size_t)k * H * B + lane, B);
       }
-      for (int h = 0; h < H; ++h) {
-        v.at(Z, h) = v.at(Y, h);
-        v.at(K0, h) = v.at(K0 + 6, h);
-      }
+      team_advance(s, tm);
       t = t + dc;
       ++acc;
     }
@@ -147,18 +143,21 @@ __global__ void __launch_bounds__(LANES) ps_fwd_kernel(PsFwdArgs a) {
   }
   // Loud exhaustion per lane: short of its target, or poisoned before.
   const bool bad = t < t1 || poisoned;
-  a.ctlout[lane] = t;
-  a.ctlout[B + lane] = dt;
-  a.ctlout[2 * B + lane] = att;
-  a.ctlout[3 * B + lane] = bad ? 1.f : 0.f;
-  a.nacc[lane] = (float)acc;
-  a.natt[lane] = att;
-  a.cnt[lane] = acc;
-  for (int h = 0; h < H; ++h) a.zfin[h * B + lane] = bad ? NAN : v.at(Z, h);
-  if (bad)
-    for (int k = 0; k < c.n_out; ++k)
-      if (a.ts_rows[(size_t)k * B + lane] > t_in)
-        for (int h = 0; h < H; ++h) a.zout[((size_t)k * H + h) * B + lane] = NAN;
+  if (tm.r == 0) {
+    a.ctlout[lane] = t;
+    a.ctlout[B + lane] = dt;
+    a.ctlout[2 * B + lane] = att;
+    a.ctlout[3 * B + lane] = bad ? 1.f : 0.f;
+    a.nacc[lane] = (float)acc;
+    a.natt[lane] = att;
+    a.cnt[lane] = acc;
+  }
+  for (int h = tm.r; h < H; h += tm.T) {
+    a.zfin[h * B + lane] = bad ? NAN : tm.at(s, YS, h);
+    if (bad)
+      for (int k = 0; k < c.n_out; ++k)
+        if (a.ts_rows[(size_t)k * B + lane] > t_in) a.zout[((size_t)k * H + h) * B + lane] = NAN;
+  }
 }
 
 // A team of threads per lane (cde_dopri.cuh), each walking its own lane's
@@ -187,7 +186,7 @@ __global__ void __launch_bounds__(MAX_TEAM_BLOCK) ps_bwd_kernel(PsBwdArgs a, Tea
         dt_next = a.dtst[(size_t)(st - 1) * B + lane];
       }
       team_load_step(s, tm, c.tab, lane, t, dt, a.zst + (size_t)st * H * B + lane, B);
-      team_recompute<RB>(wt, s, tm, dt);
+      team_stages<RB, false>(wt, s, tm, dt, 0);
       team_start_cotangents(s, tm);
       for (int k = 0; k < c.n_out; ++k) {
         const float tk = a.ts_rows[(size_t)k * B + lane];
@@ -210,13 +209,17 @@ __global__ void __launch_bounds__(MAX_TEAM_BLOCK) ps_bwd_kernel(PsBwdArgs a, Tea
   team_finish<SMEM>(tm, s, a.p);
 }
 
-template <class F>
-int launch_fwd(const PsFwdArgs& a, size_t smem, cudaStream_t stream) {
-  auto kernel = ps_fwd_kernel<F>;
-  cudaError_t err = set_smem(kernel, smem);
+template <bool SMEM, int RB>
+int launch_fwd(const PsFwdArgs& a, const TeamPlan& p, cudaStream_t stream) {
+  auto kernel = p.narrow ? ps_fwd_kernel<SMEM, RB, true> : ps_fwd_kernel<SMEM, RB, false>;
+  cudaError_t err = set_smem(kernel, p.bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_of(a.c.tab.B), LANES, smem, stream>>>(a);
+  kernel<<<p.blocks, p.L * TEAM, p.bytes, stream>>>(a, p);
   return (int)cudaGetLastError();
+}
+
+int fwd_team_plan(TeamPlan& p, int B, int H, int C, int W) {
+  return team_fwd_plan(p, B, H, C, W, false, [](const TeamPlan&, int, size_t) { return 1; });
 }
 
 template <bool SMEM, int RB>
@@ -229,13 +232,11 @@ int launch_bwd(const PsBwdArgs& a, const TeamPlan& p, cudaStream_t stream) {
 }
 
 int make_ps_common(PsCommon& c, const float* ct, const float* w1t, const float* b1,
-                   const float* w2t, const float* b2, float* scratch, int B, int n, int H,
-                   int C, int W, int n_out, const float* dense, float t0g, float w,
-                   int linear, int lead, int variant) {
+                   const float* w2t, const float* b2, int B, int n, int H, int C, int W,
+                   int n_out, const float* dense, float t0g, float w, int linear, int lead) {
   const int rc = make_table(c.tab, c.f, c.d, ct, w1t, b1, w2t, b2, B, n, H, C, W, n_out, dense,
-                            t0g, w, linear, lead, variant);
+                            t0g, w, linear, lead);
   if (rc) return rc;
-  c.scratch = scratch;
   c.n_out = n_out;
   return 0;
 }
@@ -246,34 +247,41 @@ extern "C" {
 
 const char* ps_error_string(int code) {
   if (code == BAD_ARGUMENT) return "invalid argument";
-  if (code == BAD_VARIANT) return "no such kernel variant for these shapes";
+  if (code == BAD_VARIANT) return "no kernel variant or launch fits these shapes";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The variant that runs these shapes: 0 specialised, 1 generic.
-int ps_variant(int H, int C, int W) {
-  return specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
-}
-
-// Floats of the zeroed scratch a forward launch needs.
-long ps_scratch_floats(int B, int H, int C, int W, int variant) {
-  if (variant != GENERIC) return 1;
-  return (long)(GenField::rows(H, C, W) * (size_t)blocks_of(B) * LANES);
+// The team forward's launch for these shapes: teams per block, blocks,
+// lanes each team walks (1), outputs a thread carries at once, weights in
+// shared memory (1) or not (0), the bytes of shared memory a block takes, S
+// (the padded row length of the weights), the floats of a scratch (0) and
+// one first-layer row per thread (1) or quads (0) into out[0..8], as
+// fd_forward_plan; returns 0 or an error code.
+// ps_forward checks the blocks and S it is given against its own plan.
+int ps_forward_plan(int B, int H, int C, int W, long* out) {
+  TeamPlan p;
+  const int rc = fwd_team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  const long v[9] = {p.L, p.blocks, p.lanes, p.rows, p.smem, (long)p.bytes, team_row(W), 0,
+                     p.narrow};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }
 
 // dense: the 7 midpoint weights, then the 3x3 quartic inverse row-major.
 // budget: the global cap on a lane's attempted steps; cap: this chunk's.
+// The weights padded, with the blocks and row length of ps_forward_plan.
 int ps_forward(const float* ct, const float* z0t, const float* w1t, const float* b1,
                const float* w2t, const float* b2, const float* ctl, const float* ts_rows,
                const float* tend, const float* zout_in, float* zout, float* zfin,
                float* ctlout, float* nacc, float* natt, float* zst, float* tst, float* dtst,
-               int* cnt, float* scratch, int B, int n, int H, int C, int W, int cap, int n_out,
+               int* cnt, int B, int n, int H, int C, int W, int cap, int n_out,
                const float* dense, float t_chunk_end, float t0g, float w, float rtol,
                float atol, float budget, float safety, float ifactor, float dfactor,
-               int linear, int lead, int variant, void* stream) {
+               int linear, int lead, int blocks, int row, void* stream) {
   PsFwdArgs a;
-  int rc = make_ps_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out, dense, t0g,
-                          w, linear, lead, variant);
+  int rc = make_ps_common(a.c, ct, w1t, b1, w2t, b2, B, n, H, C, W, n_out, dense, t0g, w,
+                          linear, lead);
   if (rc) return rc;
   if (cap < 1) return BAD_ARGUMENT;
   a.z0t = z0t;
@@ -298,10 +306,13 @@ int ps_forward(const float* ct, const float* z0t, const float* w1t, const float*
   a.safety = safety;
   a.ifactor = ifactor;
   a.dfactor = dfactor;
+  TeamPlan p;
+  rc = fwd_team_plan(p, B, H, C, W);
+  if (rc) return rc;
+  if (p.blocks != blocks || team_row(W) != row) return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED)
-    return launch_fwd<SpecField>(a, sizeof(float) * SpecField::smem_floats(W), st);
-  return launch_fwd<GenField>(a, 0, st);
+  if (p.smem) return p.rows == 4 ? launch_fwd<true, 4>(a, p, st) : launch_fwd<true, 1>(a, p, st);
+  return p.rows == 4 ? launch_fwd<false, 4>(a, p, st) : launch_fwd<false, 1>(a, p, st);
 }
 
 // The weights padded (cde_dopri.cuh, team_weight_floats) and zeroed
@@ -315,8 +326,8 @@ int ps_backward(const float* ct, const float* zst, const float* tst, const float
                 const float* dense, float t0g, float w, int linear, int lead, int slots,
                 int row, void* stream) {
   PsBwdArgs a;
-  int rc = make_ps_common(a.c, ct, w1t, b1, w2t, b2, nullptr, B, n, H, C, W, n_out, dense, t0g,
-                          w, linear, lead, GENERIC);
+  int rc = make_ps_common(a.c, ct, w1t, b1, w2t, b2, B, n, H, C, W, n_out, dense, t0g, w,
+                          linear, lead);
   if (rc) return rc;
   a.zst = zst;
   a.tst = tst;

@@ -132,6 +132,7 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     dt0 = dt0.reshape(1).to(p.ct.dtype)
 
     B, tile = p.z0t.shape[1], min(p.z0t.shape[1], k2.MAX_TILE)
+    weights = k2.padded_weights(p.ct, p.w1t, p.b1, p.w2t, p.b2)  # once per solve
     groups = []
     for g0 in range(0, B, tile):
         lanes = slice(g0, min(g0 + tile, B))
@@ -144,7 +145,7 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
                            float(cfg.atol), chunk_cap(j1 - j0), float(cfg.safety),
                            float(cfg.ifactor), float(cfg.dfactor), linear, lead)
             zout, z, dt = k2.fused_dopri5_solve(ct[j0 - lead:j1], z.contiguous(), p.w1t,
-                                                p.b1, p.w2t, p.b2, dt, plan)
+                                                p.b1, p.w2t, p.b2, dt, plan, weights=weights)
             for row, k in enumerate(out_idx):
                 rows[k] = zout[row]
         groups.append(torch.stack(rows))  # (n_out, H, lanes)

@@ -15,7 +15,8 @@ module holds what surrounds them:
   dopri5 steps plus the quartic dense output), differentiable by autograd;
 * ``fused_dopri5_solve``: launches the kernels for CUDA tensors (through a
   ``torch.autograd.Function`` whose backward is the backward kernel) and runs
-  the plain versions for CPU tensors;
+  the plain versions for CPU tensors; ``padded_weights`` pads the field once
+  per solve for both directions of every launch;
 * ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches, and
   ``LINEAR_FWD_LAUNCHES`` / ``LINEAR_BWD_LAUNCHES`` of those in linear mode.
 
@@ -40,7 +41,8 @@ from ..ops.dispatch import check_operands, stream_of
 from ..utils.misc import numpy_dtype
 from .integrate import _QUARTIC_MINV
 from .runge_kutta import DOPRI5, DOPRI5_BMID
-from .team_backward import sum_team_partials, team_partials, team_plan, team_weights
+from .team import (sum_team_partials, team_forward_plan, team_partials, team_plan,
+                   team_weights)
 
 MAX_TILE = 4096      # lanes per group: one error norm couples one group
 MAX_INTERVALS = 128  # intervals per chunk
@@ -261,13 +263,13 @@ def _library():
     if not getattr(lib, "_fd_declared", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fp = ctypes.POINTER(ctypes.c_float)
-        lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i] * 3 + [p]
+        lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i] * 5 + [p]
         lib.fd_forward.restype = i
         lib.fd_backward.argtypes = [p] * 17 + [i] * 6 + [fp, fp] + [f] * 2 + [i] * 4 + [p]
         lib.fd_backward.restype = i
         lib.fd_variant.argtypes = [i] * 3
         lib.fd_variant.restype = i
-        lib.fd_scratch_floats.argtypes = [i] * 5
+        lib.fd_scratch_floats.argtypes = [i]
         lib.fd_scratch_floats.restype = ctypes.c_long
         lib.fd_error_string.argtypes = [i]
         lib.fd_error_string.restype = ctypes.c_char_p
@@ -301,34 +303,58 @@ def _out_times(plan):
             (ctypes.c_float * len(dense))(*dense))
 
 
+VARIANTS = ("specialised", "team")
+
+
 def kernel_variant(H, C, W):
-    """Name of the kernel variant that runs these shapes."""
-    return ("specialised", "generic")[_library().fd_variant(H, C, W)]
+    """Name of the forward kernel's variant that runs these shapes: the
+    specialised one at the flagship's widths, the team one elsewhere."""
+    return VARIANTS[_library().fd_variant(H, C, W)]
 
 
-def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
+def padded_weights(ct, w1t, b1, w2t, b2):
+    """The field padded for the team kernels (``team.team_weights``) where
+    ct runs the kernels, else None: a solve pads once and passes the result
+    to every launch, forward and backward."""
+    return team_weights(w1t, b1, w2t, b2) if _runs_kernel(ct) else None
+
+
+def _forward_kernel(lib, tensors, sizes, plan, variant, layout):
+    """The forward kernel's launch over ``fd_forward``'s tensors, in its
+    order, sizes (B, n, H, C, W), the variant's index and, for the team
+    variant, its plan's blocks and row length; returns its code."""
+    with torch.cuda.device(tensors[0].device):
+        return lib.fd_forward(*(t.data_ptr() for t in tensors), *sizes, plan.cap,
+                              len(plan.out_ts), *_out_times(plan), plan.t_start, plan.t_end,
+                              plan.t0g, plan.w, plan.rtol, plan.atol, plan.safety, plan.ifactor,
+                              plan.dfactor, int(plan.linear), int(plan.lead), variant, *layout,
+                              stream_of(tensors[0]))
+
+
+def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan, weights=None):
     """Forward kernel: returns (zout, zfin, dtfin, store) with store =
     (zst (cap, H, B), tst (cap,), dtst (cap,), stats (2,) int32: accepted and
-    attempted steps), all left on the device."""
+    attempted steps), all left on the device.  The team variant reads the
+    padded ``weights`` (``padded_weights``; padded here if not given)."""
     global FWD_LAUNCHES, LINEAR_FWD_LAUNCHES
     ops = (ct, z0t, w1t, b1, w2t, b2, dt0)
     check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2", "dt0"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t, plan)
     lib = _library()
-    variant = lib.fd_variant(H, C, W)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=ct.device)
+    variant = VARIANTS.index(kernel_variant(H, C, W))
+    if variant:
+        weights = team_weights(w1t, b1, w2t, b2) if weights is None else weights
+        team = team_forward_plan(B, H, C, W, cooperative=True)
+        field, layout, scratch = weights[:4], (team["blocks"], team["row"]), team["scratch_floats"]
+    else:
+        field, layout, scratch = (w1t, b1, w2t, b2), (0, 0), lib.fd_scratch_floats(B)
+    empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
     zout, zfin, dtfin = empty((len(plan.out_ts), H, B)), empty((H, B)), empty((1,))
     zst, tst, dtst = empty((plan.cap, H, B)), empty((plan.cap,)), empty((plan.cap,))
     stats = torch.empty(2, dtype=torch.int32, device=ct.device)
-    scratch = torch.zeros(lib.fd_scratch_floats(B, H, C, W, variant), dtype=torch.float32,
-                          device=ct.device)
-    stream = stream_of(ct)
-    ptrs = [t.data_ptr() for t in (*ops, zout, zfin, dtfin, zst, tst, dtst, stats, scratch)]
-    with torch.cuda.device(ct.device):
-        rc = lib.fd_forward(*ptrs, B, n, H, C, W, plan.cap, len(plan.out_ts), *_out_times(plan),
-                            plan.t_start, plan.t_end, plan.t0g, plan.w, plan.rtol, plan.atol,
-                            plan.safety, plan.ifactor, plan.dfactor, int(plan.linear),
-                            int(plan.lead), variant, stream)
+    scratch = torch.zeros(scratch, dtype=ct.dtype, device=ct.device)
+    rc = _forward_kernel(lib, (ct, z0t, *field, dt0, zout, zfin, dtfin, zst, tst, dtst, stats,
+                               scratch), (B, n, H, C, W), plan, variant, layout)
     _raise_on(lib, rc, "forward")
     FWD_LAUNCHES += 1
     LINEAR_FWD_LAUNCHES += int(plan.linear)
@@ -345,10 +371,11 @@ def _backward_kernel(lib, tensors, sizes, plan, layout):
                                stream_of(tensors[0]))
 
 
-def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
+def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan, weights=None):
     """Backward kernel over the stored mesh, a team of threads per lane, for
-    every shape: returns (dct, dz0, dw1t, db1, dw2t, db2) for the cotangents
-    of zout and zfin."""
+    every shape, on the padded ``weights`` (padded here if not given):
+    returns (dct, dz0, dw1t, db1, dw2t, db2) for the cotangents of zout and
+    zfin."""
     global BWD_LAUNCHES, LINEAR_BWD_LAUNCHES
     zst, tst, dtst, stats = store
     ops = (ct, zst, tst, dtst, gzout, gzfin, w1t, b1, w2t, b2)
@@ -361,9 +388,11 @@ def launch_backward(ct, store, gzout, gzfin, w1t, b1, w2t, b2, plan):
     team = team_plan(B, H, C, W)
     zeros = functools.partial(torch.zeros, dtype=ct.dtype, device=ct.device)
     dct, dz0 = zeros(ct.shape), zeros((H, B))
-    weights = team_weights(w1t, b1, w2t, b2, team["row"])
+    weights = team_weights(w1t, b1, w2t, b2) if weights is None else weights
+    if weights.w1.shape[1] != team["row"]:
+        raise ValueError("padded weights of another row length than the team plan's")
     partials = team_partials(team["slots"], H, C, team["row"], ct.dtype, ct.device)
-    rc = _backward_kernel(lib, (*ops[:6], *weights, stats, dct, dz0, *partials),
+    rc = _backward_kernel(lib, (*ops[:6], *weights[:4], stats, dct, dz0, *partials),
                           (B, n, H, C, W, len(plan.out_ts)), plan, (team["slots"], team["row"]))
     _raise_on(lib, rc, "backward")
     BWD_LAUNCHES += 1
@@ -388,10 +417,12 @@ def _runs_kernel(ct):
 
 class _FusedDopriSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ct, z0t, w1t, b1, w2t, b2, dt0, plan):
+    def forward(ctx, ct, z0t, w1t, b1, w2t, b2, dt0, plan, weights):
         ctx.plan, ctx.kernel = plan, _runs_kernel(ct)
         if ctx.kernel:
-            zout, zfin, dtfin, store = launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan)
+            ctx.weights = weights
+            zout, zfin, dtfin, store = launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan,
+                                                      weights=weights)
             ctx.save_for_backward(ct, w1t, b1, w2t, b2, *store)
         else:
             zout, zfin, dtfin, ctx.mesh = fused_dopri5_solve_reference(
@@ -406,7 +437,7 @@ class _FusedDopriSolve(torch.autograd.Function):
         if ctx.kernel:
             ct, w1t, b1, w2t, b2, *store = ctx.saved_tensors
             grads = launch_backward(ct, store, gzout.contiguous(), gzfin.contiguous(),
-                                    w1t, b1, w2t, b2, ctx.plan)
+                                    w1t, b1, w2t, b2, ctx.plan, weights=ctx.weights)
         else:
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
@@ -414,12 +445,14 @@ class _FusedDopriSolve(torch.autograd.Function):
                 pairs = [(o, g) for o, g in zip(outs, (gzout, gzfin)) if o.requires_grad]
                 grads = torch.autograd.grad([o for o, _ in pairs], leaves,
                                             [g for _, g in pairs], allow_unused=True)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
-def fused_dopri5_solve(ct, z0t, w1t, b1, w2t, b2, dt0, plan):
+def fused_dopri5_solve(ct, z0t, w1t, b1, w2t, b2, dt0, plan, weights=None):
     """One chunk solve for one group over packed operands (see
     ``fused_fixed_kernel.pack_operands``): (zout, zfin, dtfin).
 
-    CUDA tensors run the kernels; CPU tensors run the plain versions."""
-    return _FusedDopriSolve.apply(ct, z0t, w1t, b1, w2t, b2, dt0, plan)
+    CUDA tensors run the kernels, on the padded ``weights`` of the solve
+    (``padded_weights``; each launch pads its own if not given); CPU tensors
+    run the plain versions."""
+    return _FusedDopriSolve.apply(ct, z0t, w1t, b1, w2t, b2, dt0, plan, weights)

@@ -216,11 +216,12 @@ def try_fused_dopri5_per_sample(X, func, z0, ts, *, rtol, atol, max_steps, t_row
     zero = torch.zeros_like(t_start)
     ctl = torch.stack([t_start, dt0.reshape(B).to(dtype), zero, zero])
     budget = float(max_steps) if max_steps is not None else float(1 << 30)
+    weights = k9.padded_weights(p.ct, p.w1t, p.b1, p.w2t, p.b2)  # once per solve
     for j0, j1, c_end in chunks:
         lead = linear and j0 > 0
         plan = k9.PsPlan(float(c_end), float(grid[j0]), w, float(rtol), float(atol), budget,
                          chunk_cap(j1 - j0), linear=linear, lead=lead)
         zout, z, ctl, _nacc, _natt = k9.fused_dopri5_per_sample_solve(
             p.ct[j0 - lead:j1], z.contiguous(), p.w1t, p.b1, p.w2t, p.b2, ctl, ts_rows,
-            tend.contiguous(), zout, plan)
+            tend.contiguous(), zout, plan, weights=weights)
     return zout.transpose(1, 2).to(p.out_dtype)  # (n_out, B, H)

@@ -18,7 +18,8 @@ it.  This module holds what surrounds them:
   differentiable by autograd;
 * ``fused_dopri5_per_sample_solve``: launches the kernels for CUDA tensors
   (through a ``torch.autograd.Function`` whose backward is the backward
-  kernel) and runs the plain versions for CPU tensors;
+  kernel) and runs the plain versions for CPU tensors; ``padded_weights``
+  pads the field once per solve for both directions of every launch;
 * ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches, and
   ``LINEAR_FWD_LAUNCHES`` / ``LINEAR_BWD_LAUNCHES`` of those in linear mode.
 
@@ -45,7 +46,8 @@ from .. import _build
 from ..ops.dispatch import check_operands, stream_of
 from .integrate import _QUARTIC_MINV
 from .runge_kutta import DOPRI5, DOPRI5_BMID
-from .team_backward import sum_team_partials, team_partials, team_plan, team_weights
+from .team import (sum_team_partials, team_forward_plan, team_partials, team_plan,
+                   team_weights)
 
 MAX_INTERVALS = 128  # intervals per chunk
 MAX_OUT_TIMES = 64   # output rows per lane
@@ -81,7 +83,6 @@ class PsPlan(NamedTuple):
     dfactor: float = 0.2
     linear: bool = False
     lead: bool = False
-    generic: bool = False  # run the generic variant even where the specialised one fits
 
 
 class PsMesh(NamedTuple):
@@ -300,14 +301,10 @@ def _library():
     if not getattr(lib, "_ps_declared", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fp = ctypes.POINTER(ctypes.c_float)
-        lib.ps_forward.argtypes = [p] * 20 + [i] * 7 + [fp] + [f] * 9 + [i] * 3 + [p]
+        lib.ps_forward.argtypes = [p] * 19 + [i] * 7 + [fp] + [f] * 9 + [i] * 4 + [p]
         lib.ps_forward.restype = i
         lib.ps_backward.argtypes = [p] * 19 + [i] * 6 + [fp] + [f] * 2 + [i] * 4 + [p]
         lib.ps_backward.restype = i
-        lib.ps_variant.argtypes = [i] * 3
-        lib.ps_variant.restype = i
-        lib.ps_scratch_floats.argtypes = [i] * 5
-        lib.ps_scratch_floats.restype = ctypes.c_long
         lib.ps_error_string.argtypes = [i]
         lib.ps_error_string.restype = ctypes.c_char_p
         lib._ps_declared = True
@@ -339,15 +336,30 @@ def _dense():
     return (ctypes.c_float * len(dense))(*dense)
 
 
-def kernel_variant(H, C, W, plan):
-    """Name of the kernel variant that runs these shapes under plan."""
-    return ("specialised", "generic")[1 if plan.generic else _library().ps_variant(H, C, W)]
+def padded_weights(ct, w1t, b1, w2t, b2):
+    """The field padded for the team kernels (``team.team_weights``) where
+    ct runs the kernels, else None: a solve pads once and passes the result
+    to every launch, forward and backward."""
+    return team_weights(w1t, b1, w2t, b2) if _runs_kernel(ct) else None
 
 
-def launch_forward(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan):
-    """Forward kernel: returns (zout, zfin, ctlout, nacc, natt, store) with
-    store = (zst (cap, H, B), tst (cap, B), dtst (cap, B), cnt (B,) int32):
-    each lane's accepted steps, left on the device."""
+def _forward_kernel(lib, tensors, sizes, plan, layout):
+    """The forward kernel's launch over ``ps_forward``'s tensors, in its
+    order, sizes (B, n, H, C, W, n_out) and the team plan's blocks and row;
+    returns its code."""
+    with torch.cuda.device(tensors[0].device):
+        return lib.ps_forward(*(t.data_ptr() for t in tensors), *sizes[:5], plan.cap, sizes[5],
+                              _dense(), plan.t_chunk_end, plan.t0g, plan.w, plan.rtol, plan.atol,
+                              plan.budget, plan.safety, plan.ifactor, plan.dfactor,
+                              int(plan.linear), int(plan.lead), *layout, stream_of(tensors[0]))
+
+
+def launch_forward(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan, weights=None):
+    """Forward kernel, a team of threads per lane, on the padded ``weights``
+    (``padded_weights``; padded here if not given): returns (zout, zfin,
+    ctlout, nacc, natt, store) with store = (zst (cap, H, B), tst (cap, B),
+    dtst (cap, B), cnt (B,) int32): each lane's accepted steps, left on the
+    device."""
     global FWD_LAUNCHES, LINEAR_FWD_LAUNCHES
     ops = (ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in)
     check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2", "ctl", "ts_rows", "tend",
@@ -357,22 +369,16 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan)
     if ctl.shape != (4, B) or tend.shape != (B,) or zout_in.shape != (n_out, H, B):
         raise ValueError("inconsistent fused per-sample controller or output rows")
     lib = _library()
-    variant = 1 if plan.generic else lib.ps_variant(H, C, W)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=ct.device)
+    weights = team_weights(w1t, b1, w2t, b2) if weights is None else weights
+    team = team_forward_plan(B, H, C, W, cooperative=False)
+    empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
     zout, zfin, ctlout = empty((n_out, H, B)), empty((H, B)), empty((4, B))
     nacc, natt = empty((B,)), empty((B,))
     zst, tst, dtst = empty((plan.cap, H, B)), empty((plan.cap, B)), empty((plan.cap, B))
     cnt = torch.empty(B, dtype=torch.int32, device=ct.device)
-    scratch = torch.zeros(lib.ps_scratch_floats(B, H, C, W, variant), dtype=torch.float32,
-                          device=ct.device)
-    stream = stream_of(ct)
-    ptrs = [t.data_ptr() for t in (*ops, zout, zfin, ctlout, nacc, natt, zst, tst, dtst, cnt,
-                                   scratch)]
-    with torch.cuda.device(ct.device):
-        rc = lib.ps_forward(*ptrs, B, n, H, C, W, plan.cap, n_out, _dense(), plan.t_chunk_end,
-                            plan.t0g, plan.w, plan.rtol, plan.atol, plan.budget, plan.safety,
-                            plan.ifactor, plan.dfactor, int(plan.linear), int(plan.lead),
-                            variant, stream)
+    rc = _forward_kernel(lib, (ct, z0t, *weights[:4], *ops[6:], zout, zfin, ctlout, nacc, natt,
+                               zst, tst, dtst, cnt), (B, n, H, C, W, n_out), plan,
+                         (team["blocks"], team["row"]))
     _raise_on(lib, rc, "forward")
     FWD_LAUNCHES += 1
     LINEAR_FWD_LAUNCHES += int(plan.linear)
@@ -389,10 +395,11 @@ def _backward_kernel(lib, tensors, sizes, plan, layout):
                                stream_of(tensors[0]))
 
 
-def launch_backward(ct, store, ts_rows, gzout, gzfin, w1t, b1, w2t, b2, plan):
+def launch_backward(ct, store, ts_rows, gzout, gzfin, w1t, b1, w2t, b2, plan, weights=None):
     """Backward kernel over each lane's stored steps, a team of threads per
-    lane, in either variant: returns (dct, dz0, dw1t, db1, dw2t, db2,
-    dzout_in) for the cotangents of zout and zfin."""
+    lane, on the padded ``weights`` (padded here if not given): returns
+    (dct, dz0, dw1t, db1, dw2t, db2, dzout_in) for the cotangents of zout
+    and zfin."""
     global BWD_LAUNCHES, LINEAR_BWD_LAUNCHES
     zst, tst, dtst, cnt = store
     ops = (ct, zst, tst, dtst, ts_rows, gzout, gzfin, w1t, b1, w2t, b2)
@@ -407,9 +414,11 @@ def launch_backward(ct, store, ts_rows, gzout, gzfin, w1t, b1, w2t, b2, plan):
     team = team_plan(B, H, C, W)
     zeros = functools.partial(torch.zeros, dtype=ct.dtype, device=ct.device)
     dct, dz0, dzout_in = zeros(ct.shape), zeros((H, B)), zeros((n_out, H, B))
-    weights = team_weights(w1t, b1, w2t, b2, team["row"])
+    weights = team_weights(w1t, b1, w2t, b2) if weights is None else weights
+    if weights.w1.shape[1] != team["row"]:
+        raise ValueError("padded weights of another row length than the team plan's")
     partials = team_partials(team["slots"], H, C, team["row"], ct.dtype, ct.device)
-    rc = _backward_kernel(lib, (*ops[:7], *weights, cnt, dct, dz0, dzout_in, *partials),
+    rc = _backward_kernel(lib, (*ops[:7], *weights[:4], cnt, dct, dz0, dzout_in, *partials),
                           (B, n, H, C, W, n_out), plan, (team["slots"], team["row"]))
     _raise_on(lib, rc, "backward")
     BWD_LAUNCHES += 1
@@ -439,11 +448,12 @@ def _runs_kernel(ct):
 
 class _FusedPerSampleSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan):
+    def forward(ctx, ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan, weights):
         ctx.plan, ctx.kernel = plan, _runs_kernel(ct)
         if ctx.kernel:
+            ctx.weights = weights
             zout, zfin, ctlout, nacc, natt, store = launch_forward(
-                ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan)
+                ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan, weights=weights)
             ctx.save_for_backward(ct, w1t, b1, w2t, b2, ts_rows, *store)
         else:
             zout, zfin, ctlout, nacc, natt, ctx.mesh = fused_dopri5_per_sample_reference(
@@ -458,7 +468,8 @@ class _FusedPerSampleSolve(torch.autograd.Function):
         if ctx.kernel:
             ct, w1t, b1, w2t, b2, ts_rows, *store = ctx.saved_tensors
             *grads, dzout_in = launch_backward(ct, store, ts_rows, gzout.contiguous(),
-                                               gzfin.contiguous(), w1t, b1, w2t, b2, ctx.plan)
+                                               gzfin.contiguous(), w1t, b1, w2t, b2, ctx.plan,
+                                               weights=ctx.weights)
         else:
             ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, zout_in = ctx.saved_tensors
             with torch.enable_grad():
@@ -469,13 +480,16 @@ class _FusedPerSampleSolve(torch.autograd.Function):
                 pairs = [(o, g) for o, g in zip(outs, (gzout, gzfin)) if o.requires_grad]
                 *grads, dzout_in = torch.autograd.grad(
                     [o for o, _ in pairs], leaves, [g for _, g in pairs], allow_unused=True)
-        return (*grads, None, None, None, dzout_in, None)
+        return (*grads, None, None, None, dzout_in, None, None)
 
 
-def fused_dopri5_per_sample_solve(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan):
+def fused_dopri5_per_sample_solve(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in, plan,
+                                  weights=None):
     """One chunk of the per-sample solve over packed operands: (zout, zfin,
     ctlout, nacc, natt).
 
-    CUDA tensors run the kernels; CPU tensors run the plain versions."""
+    CUDA tensors run the kernels, on the padded ``weights`` of the solve
+    (``padded_weights``; each launch pads its own if not given); CPU tensors
+    run the plain versions."""
     return _FusedPerSampleSolve.apply(ct, z0t, w1t, b1, w2t, b2, ctl, ts_rows, tend, zout_in,
-                                      plan)
+                                      plan, weights)
