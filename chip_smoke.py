@@ -10,7 +10,9 @@ Phases, each of which raises on failure:
    (K2's and K9's forwards and backwards), and the team launches' plans
    (teams per block, lanes per team, shared memory) at the default
    configuration, at config 4 (B 256 and B 4096) and at the per-sample
-   slice;
+   slice, and K8's backward plan at config 5 (blocks, warps per block,
+   blocks an SM holds by the occupancy API, SMs, waves) with its ptxas
+   lines;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
    PyTorch version on the card, at the flagship shapes (in both kernel
    variants) and at odd cases covering every tableau, up to 8 substeps, odd
@@ -71,10 +73,12 @@ Phases, each of which raises on failure:
 18. K8 forward and backward: the reversible-Heun kernels against their plain
    version run in float64 (forward y and ŷ within FWD_RTOL of the largest
    magnitude; backward after the lane screen, relative Frobenius error
-   within BWD_RTOL in each gradient), at config 5's operands in both
-   variants and at odd cases (m 1, 2 and 8, shapes at the caps, batches
-   that are not a multiple of 32, cotangents on all, the terminal or some
-   interior knots);
+   within BWD_RTOL in each gradient; each backward also against a second
+   launch, bit for bit), at config 5's operands in both variants and at odd
+   cases (m 1, 2 and 8, shapes at the caps, batches that are not a multiple
+   of the backward's 128-lane blocks, the top of the specialised range at
+   W 512, a batch whose lane groups outnumber the resident blocks, so that
+   blocks stride, cotangents on all, the terminal or some interior knots);
 19. config-5 slice: BASELINE config 5 (16384 spirals of length 100, Hermite
    coefficients, reversible Heun at step 1.0), with direct backpropagation
    and with the adjoint: the logits against the plain version, then five
@@ -234,11 +238,13 @@ def phase_build():
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
     from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
     from torchcde_tpu_torch.solvers.team import team_forward_plan, team_plan
 
     path, seconds, log = _build.build()
     k1._library()
     k2._library()
+    k8._library()
     k9._library()
     for module in fit_kernel_modules().values():
         module._library()
@@ -259,6 +265,37 @@ def phase_build():
             ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH), False)):
         print(f"  team forward at {label} (B H C W {shape}): "
               f"{team_forward_plan(*shape, cooperative)}")
+    print(f"  K8 backward at config 5: {k8_backward_plan_line()}")
+    for name, lines in k8_backward_ptxas(log).items():
+        print(f"  K8 backward kernel {name}: {'; '.join(lines)}")
+
+
+def k8_backward_plan_line():
+    """K8's specialised backward launch at config 5, from the occupancy API
+    of the kernel it launches, as one line of text."""
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    p = k8.backward_plan(CONFIG5_BATCH, HIDDEN, CHANNELS, WIDTH, k8._Plan(1, 1.0),
+                         torch.device("cuda", 0))
+    waves = math.ceil(p["lane_groups"] / (p["resident_per_sm"] * p["sms"]))
+    return (f"B {CONFIG5_BATCH} H {HIDDEN} C {CHANNELS} W {WIDTH}: {p['blocks']} blocks of "
+            f"{p['threads'] // 32} warps ({p['lanes_per_block']} lanes), "
+            f"{p['resident_per_sm']} resident per SM x {p['sms']} SMs, "
+            f"{p['lane_groups']} lane groups, {waves} wave(s), {p['shared_bytes']} shared bytes "
+            f"a block")
+
+
+def k8_backward_ptxas(log):
+    """{rev_bwd_tiles_kernel<chunks>: ptxas's lines} (registers, spills, stack)."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            kernel = re.search(r"rev_bwd_tiles_kernelILi(\d)E", found.group(1))
+            entry = f"rev_bwd_tiles_kernel<{kernel.group(1)}>" if kernel else None
+        elif entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return report
 
 
 def team_kernels_ptxas(log):
@@ -1601,7 +1638,10 @@ CONFIG5 = dict(input_channels=CHANNELS, hidden_channels=HIDDEN, output_channels=
 # Odd K8 cases: (batch, intervals, hidden, channels, width, substeps, knots
 # whose cotangent is nonzero).  Every m in {1, 2, 8}, shapes at the caps
 # (C * H <= 512, 3 * C <= 16, width <= 512), batches that are not a multiple
-# of 32, and H 8, C 3 past width 432, which runs the generic variant.
+# of 32 or of the specialised backward's 128-lane blocks, H 8, C 3 at widths
+# of two (W 200) and four (W 500, and the top of the range, W 512) chunks of
+# the backward's 128 staged rows, and a batch of 313 lane groups, more than
+# an H100's SMs hold at once, so that the backward's blocks stride.
 K8_CASES = [
     (1000, 99, 8, 3, 128, 2, "terminal"),
     (333, 20, 8, 3, 128, 8, "subset"),
@@ -1609,8 +1649,12 @@ K8_CASES = [
     (520, 40, 16, 5, 512, 2, "terminal"),
     (77, 30, 7, 2, 64, 1, "all"),
     (250, 30, 8, 3, 500, 1, "all"),
+    (16300, 20, 8, 3, 128, 1, "all"),
+    (700, 12, 8, 3, 512, 2, "subset"),
+    (400, 10, 8, 3, 200, 1, "all"),
+    (40000, 6, 8, 3, 128, 1, "terminal"),
 ]
-K8_KINDS = {"k8_fwd": r"\brev_fwd_kernel\b", "k8_bwd": r"\brev_bwd_kernel\b"}
+K8_KINDS = {"k8_fwd": r"\brev_fwd_kernel\b", "k8_bwd": r"\brev_bwd_tiles_kernel\b"}
 
 
 def _k8_gradients(operands, y, yhat, gy, plan):
@@ -1657,6 +1701,12 @@ def check_k8(label, operands, plan, which):
     bwd_err, bwd_failures = screened_backward(
         "K8", label, lambda g: _k8_gradients(operands, y, yhat, g, plan), gy,
         B * n * (plan.m + 1) * W)
+
+    def backward():
+        return k8.launch_backward(operands[0], y, yhat, gy, *operands[2:], plan)
+
+    first = backward()
+    failures += bit_identical("K8", label, first, backward)
     return fwd_err, bwd_err, failures + bwd_failures
 
 
@@ -1748,7 +1798,7 @@ def time_k8(device):
     with torch.no_grad():
         p = packed_operands(model, coeffs)
     ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-    timing = {}
+    timing = {"k8_bwd_plan": k8_backward_plan_line()}
     for name, generic in (("", False), ("_generic", True)):
         plan = k8._Plan(1, 1.0, generic)
         y, yhat = k8.launch_forward(*ops, plan)

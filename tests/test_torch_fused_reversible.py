@@ -227,20 +227,36 @@ def test_backward_walk_matches_autograd(m):
         torch.testing.assert_close(g, e, rtol=1e-12, atol=1e-12, msg=name)
 
 
-def test_autograd_function_and_launch_counts_with_stand_ins(monkeypatch):
-    # The kernels run only on the card: stand-ins for the launches (the plain
-    # forward and the plain backward walk, counting) drive the autograd
-    # Function, the selection of the output knots and the counters.
+# The backward plans of a 4-lane batch: the specialised variant's one block
+# of 128 lanes, the generic variant's block per lane.
+STAND_IN_PLANS = [dict(variant=0, blocks=1), dict(variant=1, blocks=4)]
+
+
+@pytest.mark.parametrize("launch", STAND_IN_PLANS, ids=["specialised", "generic"])
+def test_autograd_function_and_launch_counts_with_stand_ins(launch, monkeypatch):
+    # The kernels run only on the card: stand-ins for the forward launch (the
+    # plain forward, counting) and for the backward kernel (the plain
+    # backward walk, its weight gradients split over the plan's blocks) drive
+    # the autograd Function, the backward wrapper's sizing of the partials
+    # from the plan and their sum, the selection of the output knots and the
+    # counters.
     def forward(ct, z0t, w1t, b1, w2t, b2, plan):
         k8.FWD_LAUNCHES += 1
         with torch.no_grad():
             return k8.fused_reversible_solve_reference(ct, z0t, w1t, b1, w2t, b2, plan.m,
                                                        plan.dt_sub)
 
-    def backward(ct, y, yhat, gy, w1t, b1, w2t, b2, plan):
-        k8.BWD_LAUNCHES += 1
-        return k8.fused_reversible_backward_reference(ct, y, yhat, gy, w1t, b1, w2t, b2,
-                                                      plan.m, plan.dt_sub)
+    def backward_kernel(ops, outs, shape, plan, planned):
+        assert planned is launch and shape == (4, 8, 8, 3, 16)
+        dct, dz0, dw1t, db1, dw2t, db2 = k8.fused_reversible_backward_reference(
+            *ops, plan.m, plan.dt_sub)
+        outs[0].copy_(dct)
+        outs[1].copy_(dz0)
+        blocks = launch["blocks"]
+        shares = torch.arange(1.0, blocks + 1, dtype=dct.dtype) / (blocks * (blocks + 1) / 2)
+        for partial, grad in zip(outs[2:], (dw1t, db1, dw2t.t(), db2)):
+            assert partial.shape == (blocks,) + grad.shape
+            partial.copy_(shares.reshape((blocks,) + (1,) * grad.dim()) * grad)
 
     def solve(ct, z0t, w1t, b1, w2t, b2, m, dt_sub):
         return k8._FusedReversibleSolve.apply(ct, z0t, w1t, b1, w2t, b2, k8._Plan(m, dt_sub))
@@ -249,7 +265,9 @@ def test_autograd_function_and_launch_counts_with_stand_ins(monkeypatch):
     t = np.array([0.0, 3.0, 8.0])
     expected = _torch_run(p, 8, t, adjoint=True, step_size=0.5)
     monkeypatch.setattr(k8, "launch_forward", forward)
-    monkeypatch.setattr(k8, "launch_backward", backward)
+    monkeypatch.setattr(k8, "backward_plan", lambda B, H, C, W, plan, device: launch)
+    monkeypatch.setattr(k8, "_backward_kernel", backward_kernel)
+    monkeypatch.setattr(k8, "check_operands", lambda *a: None)
     monkeypatch.setattr(k8, "fused_reversible_solve", solve)
     k8.reset_launch_counts()
     got = _torch_run(p, 8, t, adjoint=True, step_size=0.5)

@@ -1,7 +1,7 @@
-"""Times the adaptive kernels K2 and K9 and the default configuration's
-train step in one checkout.
+"""Times the fused kernels (K1 in float32 and bfloat16, K2, K8, K9) and the
+default configuration's and config 5's train steps in one checkout.
 
-    python3 time_dopri.py [ROOT]
+    python3 time_kernels.py [ROOT]
 
 imports the port and its ``chip_smoke.py`` from the checkout at ROOT (by
 default this script's directory), builds its kernels, and prints one JSON
@@ -12,8 +12,12 @@ batch 4096 (CUDA events, 20 steps), K2's linear mode at config 4 (as phase
 17 times it), K2 at phase 6's caps case (B 300, W 512, H 16, C 5), K9's
 forward and backward ms per launch at the per-sample slice (as phase 24
 times them; where the checkout has K9), the accepted steps of each timed
-mesh (a backward's time follows them), and ptxas's report for each kernel
-of the two (registers, stack frame).  To compare two commits on one card,
+mesh (a backward's time follows them), K8's forward and backward at config
+5's operands (as phase 20 times them) with the backward's launch plan where
+the checkout reports it, config 5's train step with the adjoint, K1's
+forward and backward at the flagship in float32 and in bfloat16 (as phases
+8 and 28 time them), and ptxas's report for each kernel of K1, K2, K8 and
+K9 (registers, stack frame).  To compare two commits on one card,
 unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
@@ -21,12 +25,13 @@ change, change, parent.  Needs one CUDA card.
 import json
 import os
 import re
+import statistics
 import sys
 
 import torch
 
 
-def ptxas_report(log, pattern=r"(dopri|ps)_(fwd|bwd)(_team)?_kernel"):
+def ptxas_report(log, pattern=r"_kernel"):
     """{entry function: [ptxas lines]} for the entries matching pattern."""
     report, entry = {}, None
     for line in log.splitlines():
@@ -98,6 +103,54 @@ def time_k9(cs, device):
             "k9_steps_accepted": int(sum(int(out[5][3].sum()) for _, out in launched))}
 
 
+def time_k8(cs, device):
+    """K8's forward and backward ms at config 5's operands (specialised
+    variant), its backward's launch plan where the checkout has one, and
+    config 5's train step (adjoint) median ms."""
+    from torchcde_tpu_torch.models import make_train_step
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    model, coeffs, labels = cs.config5_problem(device, adjoint=True)
+    with torch.no_grad():
+        p = cs.packed_operands(model, coeffs)
+    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+    plan = k8._Plan(1, 1.0)
+    y, yhat = k8.launch_forward(*ops, plan)
+    gy = torch.ones_like(y)
+    timing = {"k8_fwd_ms": cs._event_ms(lambda: k8.launch_forward(*ops, plan), 10),
+              "k8_bwd_ms": cs._event_ms(
+                  lambda: k8.launch_backward(p.ct, y, yhat, gy, *ops[2:], plan), 5)}
+    if hasattr(k8, "backward_plan"):
+        C, B = p.ct.shape[2], p.ct.shape[3]
+        timing["k8_bwd_plan"] = k8.backward_plan(B, p.z0t.shape[0], C, p.w1t.shape[0], plan,
+                                                 device)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    step(coeffs, labels)  # warm-up
+    samples = [cs._once_ms(lambda: step(coeffs, labels)) for _ in range(10)]
+    timing["config5_adjoint_train_step_ms"] = statistics.median(samples)
+    timing["config5_adjoint_train_step_samples_ms"] = samples
+    return timing
+
+
+def time_k1(cs, device, coeffs):
+    """K1's forward and backward ms at the flagship (specialised variant),
+    float32 and bfloat16."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    timing = {}
+    for name, config in (("k1", cs.FLAGSHIP), ("k1_bf16", cs.BF16_FLAGSHIP)):
+        with torch.no_grad():
+            p = cs.packed_operands(cs.make_model(device, config=config), coeffs)
+        ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+        plan = k1._Plan("rk4", 1, 1.0, (p.ct.shape[0],))
+        out, zres = k1.launch_forward(*ops, plan)
+        gz = torch.ones_like(out)
+        timing[f"{name}_fwd_ms"] = cs._event_ms(lambda: k1.launch_forward(*ops, plan), 10)
+        timing[f"{name}_bwd_ms"] = cs._event_ms(
+            lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5)
+    return timing
+
+
 def main():
     root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(__file__))
     sys.path.insert(0, root)
@@ -105,7 +158,7 @@ def main():
     from torchcde_tpu_torch import _build
 
     if not _build.__file__.startswith(root):
-        raise SystemExit(f"time_dopri: imported the port from {_build.__file__}, not from {root}")
+        raise SystemExit(f"time_kernels: imported the port from {_build.__file__}, not from {root}")
     smi, device = cs.phase_device()
     _path, seconds, log = _build.build()
     k2 = cs.time_k2(device)
@@ -115,12 +168,14 @@ def main():
     k2_linear = time_k2_linear(cs, device)
     k2_caps = time_k2_caps(cs, device)
     k9 = time_k9(cs, device) if hasattr(cs, "per_sample_problem") else {}
+    k8 = time_k8(cs, device)
+    k1 = time_k1(cs, device, coeffs)
     print(json.dumps({"root": root, "card": smi, "build_s": seconds,
                       "k2_fwd_ms": k2["k2_fwd_ms"], "k2_bwd_ms": k2["k2_bwd_ms"],
                       "k2_steps_accepted": k2["k2_steps_accepted"],
                       "default_B4096_train_step_ms": medians["kernel"],
                       "default_B4096_train_step_samples_ms": samples["kernel"], **k2_linear,
-                      **k2_caps, **k9, "ptxas": ptxas_report(log)}), flush=True)
+                      **k2_caps, **k9, **k8, **k1, "ptxas": ptxas_report(log)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -33,12 +33,15 @@
 // shapes, and every shape inside the JAX package's caps (W <= 512,
 // C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
 //
-// Specialised variant (H 8, C 3 at widths whose backward fits in shared
-// memory, W <= 432): one thread per batch lane, blocks of one warp, the
-// weights in shared memory, the stage math of cde_stage.cuh; a batch of 16384
-// is 512 warps.  Weight gradients are reduced per block in shared memory and
-// written as per-block partials, summed after the launch (deterministic, no
-// float atomics).
+// Specialised variant (H 8, C 3, every width of the caps, W <= 512): one
+// thread per batch lane.  The forward runs blocks of one warp with the
+// weights in shared memory and the stage math of cde_stage.cuh; a batch of
+// 16384 is 512 warps.  The backward ("Specialised backward" below) runs
+// blocks of RB_LANES lanes that share one copy of the weights, as many as
+// the SMs hold at once (at config 5, 128 blocks of 4 warps, one wave), and
+// reduces the weight gradients over each block's lanes in register tiles,
+// written once as per-block partials and summed after the launch
+// (deterministic, no float atomics).
 //
 // Generic variant (H, C and W at run time): one block of GEN_THREADS threads
 // per lane (blocks stride over the lanes), the lane's vectors in shared
@@ -53,10 +56,12 @@
 //   y, yh (n, H, B)    the state and its companion after every interval
 // Backward: gy (n, H, B), the cotangent of y; outputs dct (n, 3, C, B),
 // dz0 (H, B) and per-block partials dw1p (blocks, W, H), db1p (blocks, W),
-// dw2p (blocks, W, C*H), db2p (blocks, C*H), with blocks =
-// fr_backward_blocks(...).
+// dw2p (blocks, W, C*H), db2p (blocks, C*H), with blocks from
+// fr_backward_plan(...).
 
 #include <stddef.h>
+
+#include <algorithm>
 
 #include "cde_generic.cuh"
 #include "cde_stage.cuh"
@@ -123,101 +128,402 @@ __global__ void __launch_bounds__(LANES)
   }
 }
 
-template <int H, int C>
-__global__ void __launch_bounds__(LANES)
-    rev_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ yres,
-                   const float* __restrict__ yhres, const float* __restrict__ gy,
-                   const float* __restrict__ w1t, const float* __restrict__ b1,
-                   const float* __restrict__ w2t, const float* __restrict__ b2,
-                   float* __restrict__ dct, float* __restrict__ dz0,
-                   float* __restrict__ dw1p, float* __restrict__ db1p,
-                   float* __restrict__ dw2p, float* __restrict__ db2p, int B,
-                   int n, int W, int m, double dt) {
-  extern __shared__ float smem[];
-  const BwdSmem<H, C> sm(smem, W);
-  load_field<H, C>(sm.field, w1t, b1, w2t, b2, W);
-  sm.zero_acc(W);
+// ---------------------------------------------------------------------------
+// Specialised backward (H 8, C 3): blocks of RB_LANES lanes, one thread per
+// lane, as many blocks as the SMs hold at once (one resident wave), the
+// weight gradients reduced in register tiles.
+//
+// The JAX kernel walks a tile of lanes per program and accumulates the
+// tile's weight gradients across all intervals as products over the tile's
+// lanes (dw1_acc ... db2_acc).  Here a block's RB_LANES lanes are the tile,
+// and the block holds one copy of the weights in shared memory.  Per VJP
+// each thread runs its lane's evaluation and backward pass, reading weight
+// rows as float4 broadcasts, and stages what the weight gradients need: per
+// lane dp2 and y (the right operands), and h1 and dp1 for a chunk of up to
+// RB_CHUNK weight rows (the left operands; the backward pass recomputes h1,
+// 8 FMAs a row, so nothing of the evaluation is kept across the passes).
+// Then the block reduces the chunk over its lanes as a product: thread
+// (group g = tid % 4, quad k = tid / 4) owns a register tile of 4 rows x 8
+// columns, of dW2 (g < 3: columns 8g..8g+7, h1 x dp2) or of dW1 (g = 3:
+// dp1 x y): three float4 loads and 32 FMAs per lane, into a partial that
+// is added to the tile once per VJP.  The tile holds its sums for the
+// whole walk and is written once, as the block's partial.  Blocks stride over the lane groups where the grid is
+// smaller than their number.  Deterministic: lanes, lane groups and (on
+// the host) blocks are summed in a fixed order, without atomics.
+
+constexpr int RB_H = 8, RB_C = 3, RB_CH = RB_C * RB_H;
+constexpr int RB_LANES = 128;     // lanes (threads) per block
+constexpr int RB_CHUNK = 128;     // weight rows per staged chunk: a quad per tile thread
+constexpr int RB_MAX_CHUNKS = 4;  // W <= 512, the JAX kernel's cap
+constexpr int RB_RIGHT = 36;      // row stride of the right operands: dp2 (24), y (8), pad
+static_assert(RB_CHUNK == RB_LANES, "4 groups x RB_LANES / 4 quads of rows");
+
+__host__ __device__ inline int rb_round4(int W) { return (W + 3) & ~3; }
+
+__host__ __device__ inline int rb_chunks(int W) {
+  return (rb_round4(W) + RB_CHUNK - 1) / RB_CHUNK;
+}
+
+// Row stride of the left operands: the chunk's rows rounded to an odd
+// multiple of 4, so that eight consecutive lanes' float4 stores fall in
+// distinct banks.
+__host__ __device__ inline int rb_stride(int W) {
+  const int rows = rb_round4(W) < RB_CHUNK ? rb_round4(W) : RB_CHUNK;
+  return 4 * ((rows / 4) | 1);
+}
+
+__host__ __device__ inline size_t rb_smem_floats(int W) {
+  return (size_t)rb_round4(W) * (RB_H + RB_CH + 1) + RB_CH +
+         2 * (size_t)RB_LANES * rb_stride(W) + (size_t)RB_LANES * RB_RIGHT;
+}
+
+// The block's shared memory; every offset is a multiple of 4 floats.
+struct RbShared {
+  float* w1;     // [W4][8]    w1t, zero rows past W
+  float* w2;     // [W4][24]   w2t transposed, zero rows past W
+  float* b1;     // [W4]
+  float* b2;     // [24]
+  float* left;   // [2][RB_LANES][S]  h1, then dp1, of the chunk's rows per lane
+  float* right;  // [RB_LANES][RB_RIGHT]  dp2, y per lane
+  int W4, S;
+  __device__ RbShared(float* base, int W) : W4(rb_round4(W)), S(rb_stride(W)) {
+    w1 = base;
+    w2 = w1 + W4 * RB_H;
+    b1 = w2 + W4 * RB_CH;
+    b2 = b1 + W4;
+    left = b2 + RB_CH;
+    right = left + 2 * RB_LANES * S;
+  }
+};
+
+__device__ void rb_load_field(const RbShared& s, const float* __restrict__ w1t,
+                              const float* __restrict__ b1, const float* __restrict__ w2t,
+                              const float* __restrict__ b2, int W) {
+  for (int i = threadIdx.x; i < s.W4 * RB_H; i += blockDim.x)
+    s.w1[i] = i < W * RB_H ? w1t[i] : 0.f;
+  for (int i = threadIdx.x; i < s.W4 * RB_CH; i += blockDim.x) {
+    const int w = i / RB_CH, q = i - w * RB_CH;
+    s.w2[i] = w < W ? w2t[(size_t)q * W + w] : 0.f;
+  }
+  for (int i = threadIdx.x; i < s.W4; i += blockDim.x) s.b1[i] = i < W ? b1[i] : 0.f;
+  for (int i = threadIdx.x; i < RB_CH; i += blockDim.x) s.b2[i] = b2[i];
+}
+
+// h1_w = relu(W1 y + b1)_w in mlp_forward's order (cde_stage.cuh), so the
+// recomputed evaluation rounds as the forward kernel's; a0, a1: row w of W1.
+__device__ __forceinline__ float rb_hidden(const RbShared& s, int w, const float (&y)[RB_H],
+                                           float4& a0, float4& a1) {
+  const float4* r1 = reinterpret_cast<const float4*>(s.w1 + w * RB_H);
+  a0 = r1[0];
+  a1 = r1[1];
+  float a = 0.f;
+  a = fmaf(a0.x, y[0], a);
+  a = fmaf(a0.y, y[1], a);
+  a = fmaf(a0.z, y[2], a);
+  a = fmaf(a0.w, y[3], a);
+  a = fmaf(a1.x, y[4], a);
+  a = fmaf(a1.y, y[5], a);
+  a = fmaf(a1.z, y[6], a);
+  a = fmaf(a1.w, y[7], a);
+  a += s.b1[w];
+  return (a < 0.f) ? 0.f : a;
+}
+
+// A thread's share of the block's weight gradients.
+template <int R>
+struct RbTile {
+  float w[R][4][8];  // rows RB_CHUNK c + 4k + e; columns 8g + j of dW2 (g < 3), j of dW1 (g = 3)
+  float b1[R][4];    // db1 of those rows (g = 3)
+  float b2[8];       // db2 columns 8g + j (k = 0, g < 3)
+};
+
+// Adds the staged chunk's products over the block's lanes to this thread's
+// tile of the chunk (and db2's columns once per VJP): summed over the lanes
+// in order into a fresh partial first, so the tile's running sums take one
+// addition per VJP rather than one per lane and VJP.
+__device__ __forceinline__ void rb_reduce(const RbShared& s, int rows, bool bias2,
+                                          float (&acc)[4][8], float (&acc_b1)[4],
+                                          float (&acc_b2)[8]) {
+  const int g = threadIdx.x & 3, k = threadIdx.x >> 2;
+  if (4 * k >= rows) return;
+  const float* lp = s.left + (g == 3 ? RB_LANES * s.S : 0) + 4 * k;
+  const float* rp = s.right + 8 * g;
+  const bool db1 = g == 3, db2 = bias2 && k == 0 && g < 3;
+  float part[4][8], part_b1[4], part_b2[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    part_b1[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[e][j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) part_b2[j] = 0.f;
+#pragma unroll 2
+  for (int l = 0; l < RB_LANES; ++l) {
+    const float4 lv = *reinterpret_cast<const float4*>(lp + l * s.S);
+    const float4 r0 = *reinterpret_cast<const float4*>(rp + l * RB_RIGHT);
+    const float4 r1 = *reinterpret_cast<const float4*>(rp + l * RB_RIGHT + 4);
+    const float L[4] = {lv.x, lv.y, lv.z, lv.w};
+    const float Rt[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[e][j] = fmaf(L[e], Rt[j], part[e][j]);
+    }
+    if (db1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part_b1[e] += L[e];
+    }
+    if (db2) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part_b2[j] += Rt[j];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc_b1[e] += part_b1[e];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[e][j] += part[e][j];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc_b2[j] += part_b2[j];
+}
+
+// One evaluation k = f(y) along dx and its VJP for the cotangent u of k, for
+// this thread's lane: k, dy and ddx, and the evaluation's weight gradients,
+// summed over the block's lanes, added to the tiles.  Every thread of the
+// block calls it (lanes past the batch with zero state and cotangent).
+template <int R>
+__device__ __forceinline__ void rb_vjp(const RbShared& s, const float (&u)[RB_H],
+                                       const float (&y)[RB_H], const float (&dx)[RB_C],
+                                       float (&k)[RB_H], float (&dy)[RB_H],
+                                       float (&ddx)[RB_C], RbTile<R>& t) {
+  const int tid = threadIdx.x;
+  float pre2[RB_CH];
+#pragma unroll
+  for (int q = 0; q < RB_CH; ++q) pre2[q] = 0.f;
+#pragma unroll 4
+  for (int w = 0; w < s.W4; ++w) {
+    float4 a0, a1;
+    const float a = rb_hidden(s, w, y, a0, a1);
+    const float4* r2 = reinterpret_cast<const float4*>(s.w2 + w * RB_CH);
+#pragma unroll
+    for (int j = 0; j < RB_CH / 4; ++j) {
+      const float4 v = r2[j];
+      pre2[4 * j] = fmaf(v.x, a, pre2[4 * j]);
+      pre2[4 * j + 1] = fmaf(v.y, a, pre2[4 * j + 1]);
+      pre2[4 * j + 2] = fmaf(v.z, a, pre2[4 * j + 2]);
+      pre2[4 * j + 3] = fmaf(v.w, a, pre2[4 * j + 3]);
+    }
+  }
+  float g[RB_CH];
+#pragma unroll
+  for (int q = 0; q < RB_CH; ++q) g[q] = tanhf(pre2[q] + s.b2[q]);
+  contract<RB_H, RB_C>(g, dx, k);
+
+  float dp2[RB_CH];
+#pragma unroll
+  for (int i = 0; i < RB_C; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int h = 0; h < RB_H; ++h) {
+      const int q = i * RB_H + h;
+      acc += u[h] * g[q];
+      dp2[q] = (u[h] * dx[i]) * (1.f - g[q] * g[q]);
+    }
+    ddx[i] = acc;
+  }
+  float4* right = reinterpret_cast<float4*>(s.right + tid * RB_RIGHT);
+#pragma unroll
+  for (int j = 0; j < RB_CH / 4; ++j)
+    right[j] = make_float4(dp2[4 * j], dp2[4 * j + 1], dp2[4 * j + 2], dp2[4 * j + 3]);
+  right[RB_CH / 4] = make_float4(y[0], y[1], y[2], y[3]);
+  right[RB_CH / 4 + 1] = make_float4(y[4], y[5], y[6], y[7]);
+#pragma unroll
+  for (int h = 0; h < RB_H; ++h) dy[h] = 0.f;
+
+  float4* h1s = reinterpret_cast<float4*>(s.left + tid * s.S);
+  float4* dp1s = reinterpret_cast<float4*>(s.left + (RB_LANES + tid) * s.S);
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    const int w0 = c * RB_CHUNK;
+    const int rows = s.W4 - w0 < RB_CHUNK ? s.W4 - w0 : RB_CHUNK;
+    for (int wq = 0; wq < rows; wq += 4) {
+      float hq[4], pq[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int w = w0 + wq + e;
+        float4 a0, a1;
+        const float h = rb_hidden(s, w, y, a0, a1);
+        const float4* r2 = reinterpret_cast<const float4*>(s.w2 + w * RB_CH);
+        float dh = 0.f;
+#pragma unroll
+        for (int j = 0; j < RB_CH / 4; ++j) {
+          const float4 v = r2[j];
+          dh = fmaf(v.x, dp2[4 * j], dh);
+          dh = fmaf(v.y, dp2[4 * j + 1], dh);
+          dh = fmaf(v.z, dp2[4 * j + 2], dh);
+          dh = fmaf(v.w, dp2[4 * j + 3], dh);
+        }
+        const float p = h > 0.f ? dh : 0.f;
+        dy[0] = fmaf(a0.x, p, dy[0]);
+        dy[1] = fmaf(a0.y, p, dy[1]);
+        dy[2] = fmaf(a0.z, p, dy[2]);
+        dy[3] = fmaf(a0.w, p, dy[3]);
+        dy[4] = fmaf(a1.x, p, dy[4]);
+        dy[5] = fmaf(a1.y, p, dy[5]);
+        dy[6] = fmaf(a1.z, p, dy[6]);
+        dy[7] = fmaf(a1.w, p, dy[7]);
+        hq[e] = h;
+        pq[e] = p;
+      }
+      h1s[wq / 4] = make_float4(hq[0], hq[1], hq[2], hq[3]);
+      dp1s[wq / 4] = make_float4(pq[0], pq[1], pq[2], pq[3]);
+    }
+    __syncthreads();
+    rb_reduce(s, rows, c == 0, t.w[c], t.b1[c], t.b2);
+    __syncthreads();
+  }
+}
+
+// Writes the thread's tiles into the block's slice of the partials.
+template <int R>
+__device__ void rb_store(const RbTile<R>& t, int W, float* __restrict__ dw1p,
+                         float* __restrict__ db1p, float* __restrict__ dw2p,
+                         float* __restrict__ db2p) {
+  const int g = threadIdx.x & 3, k = threadIdx.x >> 2;
+  const size_t blk = blockIdx.x;
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int w = c * RB_CHUNK + 4 * k + e;
+      if (w >= W) continue;
+      if (g < 3) {
+        float* row = dw2p + (blk * W + w) * RB_CH + 8 * g;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) row[j] = t.w[c][e][j];
+      } else {
+        float* row = dw1p + (blk * W + w) * RB_H;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) row[j] = t.w[c][e][j];
+        db1p[blk * W + w] = t.b1[c][e];
+      }
+    }
+  }
+  if (k == 0 && g < 3) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) db2p[blk * RB_CH + 8 * g + j] = t.b2[j];
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(RB_LANES)
+    rev_bwd_tiles_kernel(const float* __restrict__ ct, const float* __restrict__ yres,
+                         const float* __restrict__ yhres, const float* __restrict__ gy,
+                         const float* __restrict__ w1t, const float* __restrict__ b1,
+                         const float* __restrict__ w2t, const float* __restrict__ b2,
+                         float* __restrict__ dct, float* __restrict__ dz0,
+                         float* __restrict__ dw1p, float* __restrict__ db1p,
+                         float* __restrict__ dw2p, float* __restrict__ db2p, int B, int n,
+                         int W, int m, double dt) {
+  extern __shared__ float4 rb_smem[];
+  const RbShared s(reinterpret_cast<float*>(rb_smem), W);
+  rb_load_field(s, w1t, b1, w2t, b2, W);
+  RbTile<R> t;
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t.b1[c][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) t.w[c][e][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t.b2[j] = 0.f;
   __syncthreads();
 
-  const int lane = blockIdx.x * LANES + threadIdx.x;
-  const bool live = lane < B;
   const float dtf = (float)dt, hdt = (float)(0.5 * dt);
-  float ay[H], ayh[H];
+  for (int grp = blockIdx.x; grp < (B + RB_LANES - 1) / RB_LANES; grp += gridDim.x) {
+    const int lane = grp * RB_LANES + threadIdx.x;
+    const bool live = lane < B;
+    float ay[RB_H], ayh[RB_H];
 #pragma unroll
-  for (int h = 0; h < H; ++h) ay[h] = ayh[h] = 0.f;
+    for (int h = 0; h < RB_H; ++h) ay[h] = ayh[h] = 0.f;
 
-  for (int jr = 0; jr < n; ++jr) {
-    const int j = n - 1 - jr;
-    // Knot j + 1's cotangent enters as its interval's walk starts, from the
-    // state stored there (lanes past the batch walk zeros).
-    float y1[H], yh1[H];
+    for (int jr = 0; jr < n; ++jr) {
+      const int j = n - 1 - jr;
+      // Knot j + 1's cotangent enters as its interval's walk starts, from
+      // the state stored there (lanes past the batch walk zeros).
+      float y1[RB_H], yh1[RB_H];
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const size_t at = ((size_t)j * H + h) * B + lane;
-      if (live) ay[h] += gy[at];
-      y1[h] = live ? yres[at] : 0.f;
-      yh1[h] = live ? yhres[at] : 0.f;
-    }
-    float sb[C], sc[C], sd[C];
-    load_slab<H, C>(ct, j, B, lane, live, sb, sc, sd);
-    float acc_b[C], acc_c[C], acc_d[C];
+      for (int h = 0; h < RB_H; ++h) {
+        const size_t at = ((size_t)j * RB_H + h) * B + lane;
+        if (live) ay[h] += gy[at];
+        y1[h] = live ? yres[at] : 0.f;
+        yh1[h] = live ? yhres[at] : 0.f;
+      }
+      float sb[RB_C], sc[RB_C], sd[RB_C];
+      load_slab<RB_H, RB_C>(ct, j, B, lane, live, sb, sc, sd);
+      float acc_b[RB_C], acc_c[RB_C], acc_d[RB_C];
 #pragma unroll
-    for (int i = 0; i < C; ++i) acc_b[i] = acc_c[i] = acc_d[i] = 0.f;
+      for (int i = 0; i < RB_C; ++i) acc_b[i] = acc_c[i] = acc_d[i] = 0.f;
 
-    for (int s = m - 1; s >= 0; --s) {
-      const float fr1 = fraction(s + 1, dt), fr0 = fraction(s, dt);
-      float dx[C], ddx[C], u[H], v[H], f1[H], f0[H], yh0[H];
-      // The step's second evaluation: f1 = f(yh1) and its VJP.
-      control_derivative<C>(sb, sc, sd, fr1, dx);
+      for (int st = m - 1; st >= 0; --st) {
+        const float fr1 = fraction(st + 1, dt), fr0 = fraction(st, dt);
+        float dx[RB_C], ddx[RB_C], u[RB_H], v[RB_H], f1[RB_H], f0[RB_H], yh0[RB_H];
+        // The step's second evaluation: f1 = f(yh1) and its VJP.
+        control_derivative<RB_C>(sb, sc, sd, fr1, dx);
 #pragma unroll
-      for (int h = 0; h < H; ++h) u[h] = hdt * ay[h];
-      stage_vjp<H, C>(sm, W, u, yh1, dx, v, ddx, &f1);
+        for (int h = 0; h < RB_H; ++h) u[h] = hdt * ay[h];
+        rb_vjp<R>(s, u, yh1, dx, f1, v, ddx, t);
 #pragma unroll
-      for (int i = 0; i < C; ++i) {
-        acc_b[i] += ddx[i];
-        acc_c[i] += fr1 * ddx[i];
-        acc_d[i] += (fr1 * fr1) * ddx[i];
+        for (int i = 0; i < RB_C; ++i) {
+          acc_b[i] += ddx[i];
+          acc_c[i] += fr1 * ddx[i];
+          acc_d[i] += (fr1 * fr1) * ddx[i];
+        }
+        // The inverse map's companion, then its evaluation f0 = f(yh0) and VJP.
+#pragma unroll
+        for (int h = 0; h < RB_H; ++h) {
+          yh0[h] = 2.f * y1[h] - yh1[h] - dtf * f1[h];
+          ayh[h] += v[h];
+          u[h] = hdt * ay[h] + dtf * ayh[h];
+        }
+        control_derivative<RB_C>(sb, sc, sd, fr0, dx);
+        rb_vjp<R>(s, u, yh0, dx, f0, v, ddx, t);
+#pragma unroll
+        for (int i = 0; i < RB_C; ++i) {
+          acc_b[i] += ddx[i];
+          acc_c[i] += fr0 * ddx[i];
+          acc_d[i] += (fr0 * fr0) * ddx[i];
+        }
+#pragma unroll
+        for (int h = 0; h < RB_H; ++h) {
+          y1[h] = y1[h] - hdt * (f1[h] + f0[h]);
+          yh1[h] = yh0[h];
+          ay[h] = ay[h] + 2.f * ayh[h];
+          ayh[h] = -ayh[h] + v[h];
+        }
       }
-      // The inverse map's companion, then its evaluation f0 = f(yh0) and VJP.
+      if (live) {
+        float* row = dct + (size_t)j * 3 * RB_C * B + lane;
 #pragma unroll
-      for (int h = 0; h < H; ++h) {
-        yh0[h] = 2.f * y1[h] - yh1[h] - dtf * f1[h];
-        ayh[h] += v[h];
-        u[h] = hdt * ay[h] + dtf * ayh[h];
-      }
-      control_derivative<C>(sb, sc, sd, fr0, dx);
-      stage_vjp<H, C>(sm, W, u, yh0, dx, v, ddx, &f0);
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        acc_b[i] += ddx[i];
-        acc_c[i] += fr0 * ddx[i];
-        acc_d[i] += (fr0 * fr0) * ddx[i];
-      }
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        y1[h] = y1[h] - hdt * (f1[h] + f0[h]);
-        yh1[h] = yh0[h];
-        ay[h] = ay[h] + 2.f * ayh[h];
-        ayh[h] = -ayh[h] + v[h];
+        for (int i = 0; i < RB_C; ++i) {
+          row[(size_t)i * B] = acc_b[i];
+          row[(size_t)(RB_C + i) * B] = acc_c[i];
+          row[(size_t)(2 * RB_C + i) * B] = acc_d[i];
+        }
       }
     }
+    // y and yh both start at z0: both adjoints flow there.
     if (live) {
-      float* row = dct + (size_t)j * 3 * C * B + lane;
 #pragma unroll
-      for (int i = 0; i < C; ++i) {
-        row[(size_t)i * B] = acc_b[i];
-        row[(size_t)(C + i) * B] = acc_c[i];
-        row[(size_t)(2 * C + i) * B] = acc_d[i];
-      }
+      for (int h = 0; h < RB_H; ++h) dz0[(size_t)h * B + lane] = ay[h] + ayh[h];
     }
   }
-  // y and yh both start at z0: both adjoints flow there.
-  if (live) {
-#pragma unroll
-    for (int h = 0; h < H; ++h) dz0[(size_t)h * B + lane] = ay[h] + ayh[h];
-  }
-  __syncthreads();
-  sm.store_acc(W, dw1p, db1p, dw2p, db2p);
+  rb_store<R>(t, W, dw1p, db1p, dw2p, db2p);
 }
 
 // ---------------------------------------------------------------------------
@@ -404,7 +710,8 @@ __global__ void __launch_bounds__(GEN_THREADS)
 }
 
 bool specialised_fits(int H, int C, int W) {
-  return H == 8 && C == 3 && sizeof(float) * BwdSmem<8, 3>::floats(W) <= MAX_SMEM;
+  return H == RB_H && C == RB_C && rb_chunks(W) <= RB_MAX_CHUNKS &&
+         sizeof(float) * rb_smem_floats(W) <= MAX_SMEM;
 }
 
 int check_call(int B, int n, int H, int C, int W, int m, int variant) {
@@ -413,6 +720,62 @@ int check_call(int B, int n, int H, int C, int W, int m, int variant) {
   if (variant != GENERIC && !(variant == SPECIALISED && specialised_fits(H, C, W)))
     return BAD_VARIANT;
   return 0;
+}
+
+using RbKernel = decltype(&rev_bwd_tiles_kernel<1>);
+
+RbKernel rb_kernel(int W) {
+  switch (rb_chunks(W)) {
+    case 1: return rev_bwd_tiles_kernel<1>;
+    case 2: return rev_bwd_tiles_kernel<2>;
+    case 3: return rev_bwd_tiles_kernel<3>;
+    default: return rev_bwd_tiles_kernel<4>;
+  }
+}
+
+// The backward launch for some shapes.
+struct BwdPlan {
+  int variant, blocks, threads, lanes;  // lanes a block walks at once
+  int resident, sms, groups;            // blocks an SM holds; SMs; lane groups
+  size_t bytes;                         // shared memory of a block
+  bool acc_smem;                        // generic: weight gradients in shared memory
+};
+
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t bytes, int& n) {
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes);
+  return (int)err;
+}
+
+// The specialised variant runs as many blocks as the SMs hold at once, at
+// most one per lane group (blocks stride over the rest); the generic one a
+// block per lane, capped by its partials.
+int backward_plan(BwdPlan& p, int B, int H, int C, int W, int force_generic) {
+  p.variant = !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
+  int dev = 0, rc = (int)cudaGetDevice(&dev);
+  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc) return rc;
+  if (p.variant == SPECIALISED) {
+    p.acc_smem = false;
+    p.threads = p.lanes = RB_LANES;
+    p.bytes = sizeof(float) * rb_smem_floats(W);
+    p.groups = (B + RB_LANES - 1) / RB_LANES;
+    rc = resident_blocks(rb_kernel(W), p.threads, p.bytes, p.resident);
+    if (rc) return rc;
+    if (p.resident < 1) return BAD_ARGUMENT;
+    p.blocks = std::min<long>(p.groups, (long)p.resident * p.sms);
+    return 0;
+  }
+  p.threads = GEN_THREADS;
+  p.lanes = 1;
+  p.acc_smem = sizeof(float) * RevLayout(H, C, W, true, true).total <= MAX_SMEM;
+  p.bytes = sizeof(float) * RevLayout(H, C, W, true, p.acc_smem).total;
+  if (p.bytes > MAX_SMEM) return BAD_ARGUMENT;
+  p.groups = B;
+  p.blocks = gen_backward_blocks(B, H, C, W);
+  return resident_blocks(gen_rev_bwd_kernel, p.threads, p.bytes, p.resident);
 }
 
 }  // namespace
@@ -430,10 +793,18 @@ int fr_variant(int H, int C, int W, int force_generic) {
   return !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
 }
 
-// Blocks of the backward launch: the leading size of its weight partials.
-int fr_backward_blocks(int B, int H, int C, int W, int variant) {
-  return variant == SPECIALISED ? (B + LANES - 1) / LANES
-                                : gen_backward_blocks(B, H, C, W);
+// The backward launch for these shapes, into out[8]: the variant, blocks
+// (the leading size of the weight partials), threads per block, lanes a
+// block walks at once, blocks an SM holds, SMs, lane groups, shared bytes.
+int fr_backward_plan(int B, int H, int C, int W, int force_generic, long* out) {
+  BwdPlan p;
+  if (B < 1 || W < 1) return BAD_ARGUMENT;
+  const int rc = backward_plan(p, B, H, C, W, force_generic);
+  if (rc) return rc;
+  const long values[] = {p.variant, p.blocks, p.threads, p.lanes,
+                         p.resident, p.sms, p.groups, (long)p.bytes};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return 0;
 }
 
 int fr_forward(const float* ct, const float* z0t, const float* w1t,
@@ -461,33 +832,30 @@ int fr_forward(const float* ct, const float* z0t, const float* w1t,
   return (int)cudaGetLastError();
 }
 
+// The backward launch of fr_backward_plan's variant and blocks, which the
+// caller passes and this entry checks against its own plan.
 int fr_backward(const float* ct, const float* yres, const float* yhres,
                 const float* gy, const float* w1t, const float* b1,
                 const float* w2t, const float* b2, float* dct, float* dz0,
                 float* dw1p, float* db1p, float* dw2p, float* db2p, int B,
                 int n, int H, int C, int W, int m, double dt, int variant,
-                void* stream) {
-  const int rc = check_call(B, n, H, C, W, m, variant);
+                int blocks, void* stream) {
+  int rc = check_call(B, n, H, C, W, m, variant);
   if (rc) return rc;
+  BwdPlan p;
+  rc = backward_plan(p, B, H, C, W, variant == GENERIC);
+  if (rc) return rc;
+  if (p.variant != variant || p.blocks != blocks) return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
   if (variant == SPECIALISED) {
-    const size_t smem = sizeof(float) * BwdSmem<8, 3>::floats(W);
-    err = set_smem(rev_bwd_kernel<8, 3>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rev_bwd_kernel<8, 3><<<(B + LANES - 1) / LANES, LANES, smem, st>>>(
-        ct, yres, yhres, gy, w1t, b1, w2t, b2, dct, dz0, dw1p, db1p, dw2p,
-        db2p, B, n, W, m, dt);
+    rb_kernel(W)<<<p.blocks, p.threads, p.bytes, st>>>(
+        ct, yres, yhres, gy, w1t, b1, w2t, b2, dct, dz0, dw1p, db1p, dw2p, db2p, B, n, W, m,
+        dt);
     return (int)cudaGetLastError();
   }
-  const bool acc_smem = sizeof(float) * RevLayout(H, C, W, true, true).total <= MAX_SMEM;
-  const size_t smem = sizeof(float) * RevLayout(H, C, W, true, acc_smem).total;
-  if (smem > MAX_SMEM) return BAD_ARGUMENT;
-  err = set_smem(gen_rev_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gen_rev_bwd_kernel<<<gen_backward_blocks(B, H, C, W), GEN_THREADS, smem, st>>>(
+  gen_rev_bwd_kernel<<<p.blocks, p.threads, p.bytes, st>>>(
       ct, yres, yhres, gy, GenField{w1t, b1, w2t, b2, H, C, W}, dct, dz0, dw1p,
-      db1p, dw2p, db2p, B, n, m, dt, acc_smem);
+      db1p, dw2p, db2p, B, n, m, dt, p.acc_smem);
   return (int)cudaGetLastError();
 }
 

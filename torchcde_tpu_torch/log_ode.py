@@ -18,7 +18,7 @@ import torch
 
 from .interpolation.linear import linear_interpolation_coeffs
 from .ops.logsignature import logsignature_channels, windowed_logsignatures
-from .utils.misc import numpy_dtype, validate_input_path
+from .utils.misc import host_array, numpy_dtype, validate_input_path
 
 
 def _merge_window_grid(t_np, window_length):
@@ -83,7 +83,7 @@ def _logsignature_windows(x, depth, window_length, t, _version):
     # The JAX package refuses traced inputs here ("requires concrete
     # inputs"); PyTorch has no tracer, so every input is concrete.
     if isinstance(t, torch.Tensor):
-        t = t.detach().cpu().numpy()
+        t = host_array(t)
     t_np = np.asarray(t, dtype=np.float64)
     merged_t, boundaries, new_t = _merge_window_grid(t_np, float(window_length))
 

@@ -39,6 +39,7 @@ import torch
 
 from ..interpolation.cubic import CubicSpline
 from ..interpolation.linear import LinearInterpolation
+from ..utils.misc import host_array
 from . import fused_dopri_kernel as k2
 from .fused_fixed_kernel import pack_operands
 from .integrate import select_initial_step
@@ -97,7 +98,7 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     if isinstance(ts, torch.Tensor):
         if ts.requires_grad:  # the JAX plan declines traced output times
             return None
-        ts = ts.cpu().numpy()
+        ts = host_array(ts)
     ts_np = np.asarray(ts, dtype=np.float64)
     spans = np.diff(grid.astype(np.float64))
     if not np.allclose(spans, spans[0], rtol=1e-9, atol=1e-12):

@@ -48,6 +48,7 @@ import torch
 
 from ..interpolation.cubic import CubicSpline
 from ..interpolation.linear import LinearInterpolation
+from ..utils.misc import host_array
 from . import fused_dopri_persample_kernel as k9
 from .fused_fixed_kernel import pack_operands
 from .runge_kutta import DOPRI5
@@ -66,7 +67,10 @@ def _initial_step(f0, f1_of, z0, order, rtol, atol):
     d1 = _rms(f0 / scale)
     small = (d0 < 1e-5) | (d1 < 1e-5)
     h0 = torch.where(small, torch.full_like(d0, 1e-6), 0.01 * d0 / torch.clamp(d1, min=1e-30))
-    f1 = f1_of(h0, z0 + h0[..., None] * f0)
+    # The probe state in the state's dtype, as integrate.select_initial_step
+    # keeps it: with batched times f0 and h0 are float32 for a bfloat16
+    # state, and the field takes only the state's dtype.
+    f1 = f1_of(h0, (z0 + h0[..., None] * f0).to(z0.dtype))
     d2 = _rms((f1 - f0) / scale) / h0
     dmax = torch.maximum(d1, d2)
     h1 = torch.where(dmax <= 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
@@ -141,7 +145,7 @@ def _host_times(ts):
     if isinstance(ts, torch.Tensor):
         if ts.requires_grad:
             return None
-        ts = ts.cpu().numpy()
+        ts = host_array(ts)
     return np.asarray(ts, dtype=np.float64)
 
 

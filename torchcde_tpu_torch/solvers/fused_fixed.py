@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..interpolation.cubic import CubicSpline
-from ..utils.misc import numpy_dtype
+from ..utils.misc import host_array, numpy_dtype
 from .fused_fixed_kernel import try_fused_mlp
 from .runge_kutta import TABLEAUS, rk_step
 from .terms import MLPVectorField
@@ -51,7 +51,7 @@ def plan_fixed_grid(X, ts, step_size):
     if not isinstance(grid, np.ndarray):
         return None
     if isinstance(ts, torch.Tensor):
-        ts_np = ts.cpu().numpy().astype(np.float64)
+        ts_np = host_array(ts).astype(np.float64)
     else:
         ts_np = np.asarray(ts, dtype=np.float64)
     out_idx = _knot_indices(grid, ts_np)

@@ -142,12 +142,12 @@ def _library():
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.fr_forward.argtypes = [p] * 8 + [i] * 6 + [d, i, p]
         lib.fr_forward.restype = i
-        lib.fr_backward.argtypes = [p] * 14 + [i] * 6 + [d, i, p]
+        lib.fr_backward.argtypes = [p] * 14 + [i] * 6 + [d, i, i, p]
         lib.fr_backward.restype = i
         lib.fr_variant.argtypes = [i] * 4
         lib.fr_variant.restype = i
-        lib.fr_backward_blocks.argtypes = [i] * 5
-        lib.fr_backward_blocks.restype = i
+        lib.fr_backward_plan.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_long)]
+        lib.fr_backward_plan.restype = i
         lib.fr_error_string.argtypes = [i]
         lib.fr_error_string.restype = ctypes.c_char_p
         lib._fr_declared = True
@@ -164,6 +164,26 @@ def _raise_on(lib, rc, which):
 def kernel_variant(H, C, W, plan):
     """Name of the kernel variant that runs these shapes."""
     return ("specialised", "generic")[_library().fr_variant(H, C, W, int(plan.generic))]
+
+
+BACKWARD_PLAN_KEYS = ("variant", "blocks", "threads", "lanes_per_block", "resident_per_sm",
+                      "sms", "lane_groups", "shared_bytes")
+
+
+def backward_plan(B, H, C, W, plan, device):
+    """The backward kernel's launch for these shapes, as a dict
+    (``BACKWARD_PLAN_KEYS``): the variant (0 specialised, 1 generic), blocks
+    (the leading size of the weight partials), threads per block, lanes a
+    block walks at once, blocks an SM holds, the card's SMs, lane groups
+    (blocks stride over them) and the shared memory of a block.  The
+    specialised variant launches as many blocks as the SMs of ``device``
+    hold at once."""
+    lib = _library()
+    out = (ctypes.c_long * len(BACKWARD_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        rc = lib.fr_backward_plan(B, H, C, W, int(plan.generic), out)
+    _raise_on(lib, rc, "backward")
+    return dict(zip(BACKWARD_PLAN_KEYS, out))
 
 
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
@@ -192,21 +212,28 @@ def launch_backward(ct, y, yhat, gy, w1t, b1, w2t, b2, plan):
     n, C, B, H, W = _shapes(ct, y[0], w1t, w2t)
     if any(t.shape != (n, H, B) for t in (y, yhat, gy)):
         raise ValueError("inconsistent fused-solve state shapes")
-    lib = _library()
-    variant = lib.fr_variant(H, C, W, int(plan.generic))
-    blocks = lib.fr_backward_blocks(B, H, C, W, variant)
+    launch = backward_plan(B, H, C, W, plan, ct.device)
+    blocks = launch["blocks"]
     empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
-    dct, dz0 = empty(ct.shape), empty((H, B))
-    dw1p, db1p = empty((blocks, W, H)), empty((blocks, W))
-    dw2p, db2p = empty((blocks, W, C * H)), empty((blocks, C * H))
-    ptrs = [t.data_ptr() for t in (*ops, dct, dz0, dw1p, db1p, dw2p, db2p)]
-    with torch.cuda.device(ct.device):
-        rc = lib.fr_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub, variant,
-                             stream_of(ct))
-    _raise_on(lib, rc, "backward")
+    outs = (empty(ct.shape), empty((H, B)), empty((blocks, W, H)), empty((blocks, W)),
+            empty((blocks, W, C * H)), empty((blocks, C * H)))
+    _backward_kernel(ops, outs, (B, n, H, C, W), plan, launch)
     BWD_LAUNCHES += 1
+    dct, dz0, dw1p, db1p, dw2p, db2p = outs
     # Per-block partials are summed after the launch (deterministic).
     return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0))
+
+
+def _backward_kernel(ops, outs, shape, plan, launch):
+    """The backward kernel on ``ops`` into ``outs`` (dct, dz0 and the
+    partials), as ``launch`` (``backward_plan``) plans it."""
+    lib = _library()
+    B, n, H, C, W = shape
+    ptrs = [t.data_ptr() for t in (*ops, *outs)]
+    with torch.cuda.device(ops[0].device):
+        rc = lib.fr_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub, launch["variant"],
+                             launch["blocks"], stream_of(ops[0]))
+    _raise_on(lib, rc, "backward")
 
 
 class _FusedReversibleSolve(torch.autograd.Function):

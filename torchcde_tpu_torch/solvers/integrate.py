@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.misc import numpy_dtype
+from ..utils.misc import host_array, numpy_dtype
 from .runge_kutta import STEPPERS, TABLEAUS, rk_step, unknown_method
 
 _FIXED_DEFAULT_MAX_STEPS = 65536
@@ -62,7 +62,7 @@ def host_times(ts, dtype):
     The step sequence is planned on the host, as the JAX package plans it from
     concrete times."""
     if isinstance(ts, torch.Tensor):
-        ts = ts.detach().cpu().numpy()
+        ts = host_array(ts)
     return np.asarray(ts).astype(numpy_dtype(dtype))
 
 

@@ -22,6 +22,14 @@ def numpy_dtype(dtype):
     return np.dtype(_NUMPY_DTYPES.get(dtype, np.float32))
 
 
+def host_array(t):
+    """A tensor's values as a host NumPy array.  NumPy has no bfloat16, so a
+    bfloat16 tensor is upcast to float32 first (exactly: every bfloat16 is a
+    float32); the caller casts to the precision it plans in."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def cheap_stack(tensors, axis):
     if len(tensors) == 1:
         return tensors[0].unsqueeze(axis)
