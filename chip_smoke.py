@@ -192,8 +192,9 @@ SOURCE = "torchcde_tpu_torch/csrc/fused_fixed.cu"
 # Odd K1 cases: (batch, intervals, hidden, channels, width, method, substeps,
 # output knots).  Shapes up to the JAX kernel's caps (C * H <= 512,
 # 3 * C <= 16, width <= 512, 8 substeps).  H 8, C 3 runs the specialised
-# variant up to width 432 and the generic one past it; every tableau runs in
-# both variants.
+# variant at every width of the caps (its backward in blocks of 32 lanes:
+# batches of 4090 and 33 end in a part block, one of 40000 has its blocks
+# stride over the lane groups); every tableau runs in both variants.
 ODD_CASES = [
     (1000, 99, 5, 3, 128, "euler", 2, "all"),
     (520, 40, 8, 3, 64, "euler", 1, "all"),
@@ -203,6 +204,10 @@ ODD_CASES = [
     (333, 24, 16, 5, 512, "rk4", 1, "all"),
     (300, 12, 100, 5, 512, "midpoint", 8, "subset"),
     (77, 30, 7, 2, 64, "heun", 1, "all"),
+    (4090, 30, 8, 3, 128, "rk4", 1, "subset"),
+    (33, 40, 8, 3, 128, "midpoint", 2, "all"),
+    (40000, 12, 8, 3, 128, "rk4", 1, "terminal"),
+    (200, 16, 8, 3, 512, "heun", 2, "all"),
 ]
 
 
@@ -260,6 +265,8 @@ def phase_build():
                          ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH))):
         print(f"  team backward at {label} (B H C W {shape}): {team_plan(*shape)}")
     for label, shape, cooperative in (
+            ("the default B4096", (4096, HIDDEN, CHANNELS, WIDTH), True),
+            ("the default B256", (256, HIDDEN, CHANNELS, WIDTH), True),
             ("config 4", (LOG_ODE_BATCH, HIDDEN, LOG_ODE_CHANNELS, WIDTH), True),
             ("config 4's widths at B4096", (4096, HIDDEN, LOG_ODE_CHANNELS, WIDTH), True),
             ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH), False)):
@@ -268,6 +275,43 @@ def phase_build():
     print(f"  K8 backward at config 5: {k8_backward_plan_line()}")
     for name, lines in k8_backward_ptxas(log).items():
         print(f"  K8 backward kernel {name}: {'; '.join(lines)}")
+    for mode in (0, 1):
+        print(f"  K1 backward at the flagship, mode {mode}: {k1_backward_plan_line(mode)}")
+    for name, lines in k1_backward_ptxas(log).items():
+        print(f"  K1 backward kernel {name}: {'; '.join(lines)}")
+
+
+def k1_backward_plan(mode):
+    """K1's specialised backward launch at the flagship in mode 0 (float32)
+    or 1 (bfloat16), from the occupancy API of the kernel it launches."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    return k1.backward_plan(BATCH, HIDDEN, CHANNELS, WIDTH, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)),
+                            mode, torch.device("cuda", 0))
+
+
+def k1_backward_plan_line(mode):
+    """k1_backward_plan as one line of text."""
+    p = k1_backward_plan(mode)
+    groups = math.ceil(BATCH / p["lanes_per_block"])
+    waves = math.ceil(groups / (p["resident_per_sm"] * p["sms"]))
+    return (f"B {BATCH} H {HIDDEN} C {CHANNELS} W {WIDTH}: {p['blocks']} blocks of "
+            f"{p['threads'] // 32} warps ({p['lanes_per_block']} lanes, "
+            f"{p['threads_per_lane']} threads per lane), {p['resident_per_sm']} resident per "
+            f"SM x {p['sms']} SMs, {groups} lane groups, {waves} wave(s), "
+            f"{p['shared_bytes']} shared bytes a block")
+
+
+def k1_backward_ptxas(log):
+    """{bwd_group_kernel<chunks, slab type>: ptxas's lines}."""
+    def label(name):
+        kernel = re.search(r"bwd_group_kernelILi(\d)E(f|13__nv_bfloat16)", name)
+        if not kernel:
+            return None
+        slabs = "float" if kernel.group(2) == "f" else "bfloat16"
+        return f"bwd_group_kernel<{kernel.group(1)}, {slabs}>"
+
+    return ptxas_lines(log, label)
 
 
 def k8_backward_plan_line():
@@ -285,34 +329,41 @@ def k8_backward_plan_line():
             f"a block")
 
 
-def k8_backward_ptxas(log):
-    """{rev_bwd_tiles_kernel<chunks>: ptxas's lines} (registers, spills, stack)."""
+def ptxas_lines(log, label):
+    """{label(entry): ptxas's lines} (registers, spills, stack frame) of the
+    compiled entry functions that label names (it returns None for the
+    others)."""
     report, entry = {}, None
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
-            kernel = re.search(r"rev_bwd_tiles_kernelILi(\d)E", found.group(1))
-            entry = f"rev_bwd_tiles_kernel<{kernel.group(1)}>" if kernel else None
+            entry = label(found.group(1))
         elif entry and ("registers" in line or "spill" in line):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
+
+
+def k8_backward_ptxas(log):
+    """{rev_bwd_tiles_kernel<chunks>: ptxas's lines}."""
+    def label(name):
+        kernel = re.search(r"rev_bwd_tiles_kernelILi(\d)E", name)
+        return f"rev_bwd_tiles_kernel<{kernel.group(1)}>" if kernel else None
+
+    return ptxas_lines(log, label)
 
 
 def team_kernels_ptxas(log):
     """{kernel<shared, rows>: ptxas's lines} of the team kernels, K2's and
-    K9's forwards and backwards (registers, spills, stack frame)."""
-    report, entry = {}, None
-    for line in log.splitlines():
-        found = re.search(r"Compiling entry function '([^']+)'", line)
-        if found:
-            kernel = re.search(r"(dopri_(?:fwd|bwd)_team_kernel|ps_(?:fwd|bwd)_kernel)"
-                               r"ILb(\d)ELi(\d)E(?:Lb(\d)E)?", found.group(1))
-            narrow = f", row per thread={kernel.group(4)}" if kernel and kernel.group(4) else ""
-            entry = (f"{kernel.group(1)}<shared={kernel.group(2)}, rows={kernel.group(3)}"
-                     f"{narrow}>" if kernel else None)
-        elif entry and ("registers" in line or "spill" in line):
-            report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
-    return report
+    K9's forwards and backwards."""
+    def label(name):
+        kernel = re.search(r"(dopri_(?:fwd|bwd)_team_kernel|ps_(?:fwd|bwd)_kernel)"
+                           r"ILb(\d)ELi(\d)E(?:Lb(\d)E)?", name)
+        if not kernel:
+            return None
+        narrow = f", row per thread={kernel.group(4)}" if kernel.group(4) else ""
+        return f"{kernel.group(1)}<shared={kernel.group(2)}, rows={kernel.group(3)}{narrow}>"
+
+    return ptxas_lines(log, label)
 
 
 def make_model(device, seed=0, config=FLAGSHIP):
@@ -419,7 +470,18 @@ def check_k1(label, operands, plan):
     relu_evals = B * n * plan.m * len(k1._chain_form(plan.method)[2]) * W
     bwd_err, bwd_failures = screened_backward(
         "K1", label, lambda g: _gradients(operands, zres, g, plan), gz, relu_evals)
-    return fwd_err, bwd_err, failures + bwd_failures
+    return fwd_err, bwd_err, failures + bwd_failures + k1_bit_identical(
+        "K1", label, operands, zres, gz, plan)
+
+
+def k1_bit_identical(kernel, label, operands, zres, gz, plan):
+    """Two K1 backward launches on the same inputs give the same bits."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    def launch():
+        return k1.launch_backward(operands[0], zres, operands[1], gz, *operands[2:], plan)
+
+    return bit_identical(kernel, label, launch(), launch)
 
 
 def screened_backward(kernel, label, gradients, gz, relu_evals):
@@ -597,7 +659,8 @@ DEFAULT = dict(input_channels=CHANNELS, hidden_channels=HIDDEN, output_channels=
 DEFAULT_BATCHES = (4096, 256)
 # K2 cases: (label, batch, length, hidden, channels, width, output times,
 # solver options).  Each launch of each case is checked against the plain
-# version on its own realised mesh.
+# version on its own realised mesh; the default cells' forwards also against
+# a second launch, bit for bit (K2_REPEATED).
 K2_CASES = [
     ("default B4096", 4096, LENGTH, HIDDEN, CHANNELS, WIDTH, "terminal", {}),
     ("default B256", 256, LENGTH, HIDDEN, CHANNELS, WIDTH, "terminal", {}),
@@ -611,6 +674,7 @@ K2_CASES = [
     ("exhausted budget", 256, LENGTH, HIDDEN, CHANNELS, WIDTH, "twenty", dict(max_steps=8)),
     ("narrow W32 H6 C4 B200", 200, 60, 6, 4, 32, "twenty", {}),
 ]
+K2_REPEATED = ("default B4096", "default B256")
 
 
 def paths(batch, length, channels, seed):
@@ -724,8 +788,10 @@ def check_k2_launch(label, ops, dt0, plan, repeat=False):
     also against a second launch, bit for bit."""
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 
+    from torchcde_tpu_torch.solvers.team import team_forward_plan
+
     H, (n, _, C, B), W = ops[1].shape[0], ops[0].shape, ops[2].shape[0]
-    label = f"{label} [{k2.kernel_variant(H, C, W)}]"
+    label = f"{label} [{team_forward_plan(B, H, C, W, True)['lanes_per_team']} lane(s) per team]"
     first = k2.launch_forward(*ops, dt0, plan)
     zout, zfin, _dtfin, store = first
     repeated = forward_bit_identical("K2", label, first, lambda: k2.launch_forward(
@@ -856,7 +922,8 @@ def check_k2(device):
         print(f"K2 {label}: B{B} n{n} H{H} C{C} W{W}, {len(ts)} output times, "
               f"{len(calls)} launches", flush=True)
         for i, (*ops, dt0, plan) in enumerate(calls):
-            errors.append(check_k2_launch(f"{label} #{i}", tuple(ops), dt0, plan))
+            errors.append(check_k2_launch(f"{label} #{i}", tuple(ops), dt0, plan,
+                                          repeat=label in K2_REPEATED))
     failures = [f for e in errors for f in e[3]] + k2_accuracy_failures(errors)
     if failures:
         raise AssertionError("K2 disagrees with the plain version: " + "; ".join(failures))
@@ -1398,7 +1465,7 @@ K2_LINEAR_CASES = [
      dict(max_steps=8)),
     ("config-4 widths B4096", 4096, LENGTH, HIDDEN, LOG_ODE_CHANNELS, WIDTH, "terminal", {}),
 ]
-K2_KINDS = {"k2_fwd": r"\bdopri_fwd(_team)?_kernel\b", "k2_bwd": r"\bdopri_bwd(_team)?_kernel\b"}
+K2_KINDS = {"k2_fwd": r"\bdopri_fwd_team_kernel\b", "k2_bwd": r"\bdopri_bwd_team_kernel\b"}
 
 
 def log_ode_data(device, nan):
@@ -2313,6 +2380,9 @@ BF16_LANE_RTOL = 1e-2
 K1_BF16_CASES = [
     ("H5 generic", 1000, 99, 5, 3, 128, "euler", 2, "all"),
     ("H16 generic", 333, 24, 16, 5, 512, "rk4", 1, "all"),
+    ("part block", 2049, 40, 8, 3, 128, "heun", 2, "all"),
+    ("striding blocks", 40000, 12, 8, 3, 128, "rk4", 1, "terminal"),
+    ("caps width", 200, 16, 8, 3, 512, "midpoint", 3, "subset"),
 ]
 # bench.py:152-160, the repository's headline benchmark: the flagship in
 # mixed precision.
@@ -2405,7 +2475,8 @@ def check_k1_bf16(label, operands, plan):
     grads, plain = gradients(gz)
     bwd_err = max(_bf16_verdict(f"d{name}", g, *(p[i] for p in plain), failures)
                   for i, (name, g) in enumerate(zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads)))
-    return fwd_err, bwd_err, [f"K1-bf16 {f} ({label})" for f in failures]
+    return fwd_err, bwd_err, [f"K1-bf16 {f} ({label})" for f in failures] + k1_bit_identical(
+        "K1-bf16", label, operands, zres, gz, plan)
 
 
 def check_k1_bf16_cases(device, model, coeffs):
@@ -2644,7 +2715,7 @@ def time_bf16(device, model, f32_model, coeffs, labels):
                 samples[name].append(start.elapsed_time(end))
     timing.update({f"{name}_flagship_train_step_ms": statistics.median(v) for name, v in samples.items()})
     timing["flagship_train_step_samples_ms"] = samples
-    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_kernel\b"}
+    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_group_kernel\b"}
     profile = profile_train_steps(model, coeffs, labels, k1_kinds)
     return timing, profile
 
@@ -2911,6 +2982,7 @@ def main():
         "k1_fwd_ms": fwd_ms, "k1_fwd_plain_ms": plain_fwd_ms,
         "k1_bwd_ms": bwd_ms, "k1_bwd_plain_ms": plain_bwd_ms,
         "k1_fwd_generic_ms": generic_ms[0], "k1_bwd_generic_ms": generic_ms[1],
+        "k1_bwd_plan": k1_backward_plan(0),
     }))
     k2_ms = time_k2(device)
     default_steps = {}
@@ -2923,7 +2995,7 @@ def main():
         **{f"default_B{b}_train_step_ms": m for b, (m, _) in default_steps.items()},
         **{f"default_B{b}_train_step_samples_ms": v for b, (_, v) in default_steps.items()},
     }))
-    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_kernel\b"}
+    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_group_kernel\b"}
     print("profile: " + json.dumps(dict(
         profile_train_steps(model, coeffs, labels, k1_kinds), config="flagship rk4", card=smi)))
     for batch in DEFAULT_BATCHES:
@@ -3020,7 +3092,8 @@ def main():
     elapsed("28")
     bf16_ms, bf16_profile = time_bf16(device, bf16_model, model, coeffs, labels)
     k1b_fwd_bound, k1b_bwd_bound = k1_bounds(bf16=True)
-    print("timing: " + json.dumps({"card": smi, **bf16_ms, "k1_bf16_fwd_bound_ms": k1b_fwd_bound[0],
+    print("timing: " + json.dumps({"card": smi, **bf16_ms, "k1_bf16_bwd_plan": k1_backward_plan(1),
+                                   "k1_bf16_fwd_bound_ms": k1b_fwd_bound[0],
                                    "k1_bf16_bwd_bound_ms": k1b_bwd_bound[0],
                                    "bf16_slices": bf16_report}))
     print("profile: " + json.dumps(dict(bf16_profile, config="flagship bf16 (bench.py)", card=smi)))

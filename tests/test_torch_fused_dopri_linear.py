@@ -330,26 +330,21 @@ def _stand_ins(padded):
     """Stand-ins for K2's kernel launches, remembering each chunk's operands
     and mesh by its store.  The forward kernel's stand-in receives the
     solve's padded weights (``padded`` collects them) and the team plan's
-    blocks and row, or, in the specialised variant, the field as it is; it
-    runs the plain solve on the field (unpadded) and writes the kernel's
-    outputs and store.  The backward kernel's stand-in replays the mesh lane
+    blocks and row; it runs the plain solve on the field (unpadded) and
+    writes the kernel's outputs and store.  The backward kernel's stand-in replays the mesh lane
     by lane, writes dct and dz0, and adds lane l's weight gradients into
     team slot l % SLOTS in the kernel's partials layout (dW1 (H, S), dW2
     (C*H, S), rows padded to S), as the team kernel leaves them."""
     stores = {}
 
-    def forward(lib, tensors, sizes, plan, variant, layout):
+    def forward(lib, tensors, sizes, plan, layout):
         ct, z0t, w1, b1, w2, b2, dt0, zout, zfin, dtfin, zst, tst, dtst, stats, scratch = tensors
         B_, n, H_, C, W_ = sizes
-        if variant:
-            assert layout == (BLOCKS, ROW) and scratch.shape == (SCRATCH,)
-            assert w1.shape == (H, ROW) and w2.shape == (C * H, ROW)  # padded
-            padded.append(w1)
-            field = tuple(t.contiguous() for t in (w1[:H, :W].t(), b1[:W], w2[:C * H, :W],
-                                                   b2[:C * H]))
-        else:
-            assert layout == (0, 0) and w1.shape == (W, H)
-            field = (w1, b1, w2, b2)
+        assert layout == (BLOCKS, ROW) and scratch.shape == (SCRATCH,)
+        assert w1.shape == (H, ROW) and w2.shape == (C * H, ROW)  # padded
+        padded.append(w1)
+        field = tuple(t.contiguous() for t in (w1[:H, :W].t(), b1[:W], w2[:C * H, :W],
+                                               b2[:C * H]))
         out, fin, dtf, mesh = k2.fused_dopri5_solve_reference(ct, z0t, *field, dt0, plan)
         cnt = len(mesh.t)
         zout.copy_(out)
@@ -387,17 +382,14 @@ def _stand_ins(padded):
     return forward, backward
 
 
-def _routed(C, forward, backward, run):
-    """run() on the kernel route, the launches replaced by the stand-ins,
-    the specialised variant for C 3 (the flagship's H 8, C 3) and the team
-    variant otherwise."""
+def _routed(forward, backward, run):
+    """run() on the kernel route, the launches replaced by the stand-ins:
+    the team forward and backward for every C, the flagship's H 8, C 3
+    included."""
     with mock.patch.object(k2, "_runs_kernel", lambda ct: True), \
             mock.patch.object(k2, "_forward_kernel", forward), \
             mock.patch.object(k2, "_backward_kernel", backward), \
-            mock.patch.object(k2, "_library", lambda: SimpleNamespace(
-                fd_scratch_floats=lambda B: SCRATCH)), \
-            mock.patch.object(k2, "kernel_variant",
-                              lambda H, C, W: "specialised" if C == 3 else "team"), \
+            mock.patch.object(k2, "_library", SimpleNamespace), \
             mock.patch.object(k2, "team_forward_plan", lambda *a, **k: dict(
                 blocks=BLOCKS, row=ROW, scratch_floats=SCRATCH)), \
             mock.patch.object(k2, "team_plan", lambda *a: dict(slots=SLOTS, row=ROW)), \
@@ -426,7 +418,7 @@ def test_launch_wrappers_with_plain_stand_ins(C, monkeypatch):
     x, p = _problem(5, C)
     plain = _solve_and_grads(x, p, C)
     k2.reset_launch_counts()
-    routed = _routed(C, *_stand_ins([]), lambda: _solve_and_grads(x, p, C))
+    routed = _routed(*_stand_ins([]), lambda: _solve_and_grads(x, p, C))
     assert (k2.FWD_LAUNCHES, k2.BWD_LAUNCHES) == (3, 3)
     assert (k2.LINEAR_FWD_LAUNCHES, k2.LINEAR_BWD_LAUNCHES) == (3, 3)
     for a, b in zip(plain, routed):
@@ -436,9 +428,8 @@ def test_launch_wrappers_with_plain_stand_ins(C, monkeypatch):
 @pytest.mark.parametrize("C", [3, 14])
 def test_weights_are_padded_once_per_solve_for_both_directions(C, monkeypatch):
     """A solve of two groups in three chunks each pads the field once: every
-    forward launch of the team variant and every backward launch reads the
-    same padded tensors (the specialised forward, C 3, reads the field as it
-    is)."""
+    forward and every backward launch reads the same padded tensors, at the
+    flagship's C 3 as at C 14."""
     monkeypatch.setattr(k2, "MAX_INTERVALS", 3)
     monkeypatch.setattr(k2, "MAX_TILE", 3)
     x, p = _problem(6, C)
@@ -450,8 +441,8 @@ def test_weights_are_padded_once_per_solve_for_both_directions(C, monkeypatch):
 
     k2.reset_launch_counts()
     with mock.patch.object(k2, "team_weights", counted):
-        _routed(C, *_stand_ins(seen), lambda: _solve_and_grads(x, p, C))
+        _routed(*_stand_ins(seen), lambda: _solve_and_grads(x, p, C))
     assert (k2.FWD_LAUNCHES, k2.BWD_LAUNCHES) == (6, 6)
     assert len(pads) == 1
-    assert len(seen) == (6 if C == 3 else 12)
+    assert len(seen) == 12
     assert all(w is pads[0].w1 for w in seen)

@@ -227,3 +227,105 @@ def test_general_integrator_matches_fused_path():
             field.linear2.weight.detach().numpy().T, field.linear2.bias.detach().numpy())), 5, C),
         jnp.asarray(p["z0"]), t, adjoint=False, method="rk4", step_size=0.25)
     np.testing.assert_allclose(off_grid.detach().numpy(), np.asarray(expected), rtol=1e-9, atol=1e-11)
+
+
+def _plain_field(dtype):
+    """An H 8 field holding ``_problem``'s weights, in dtype."""
+    _, p = _problem(8, np.float32, seed=7)
+    field = MLPVectorField(8, C, W, dtype=dtype)
+    with torch.no_grad():
+        field.linear1.weight.copy_(torch.from_numpy(p["w1"].T))
+        field.linear1.bias.copy_(torch.from_numpy(p["b1"]))
+        field.linear2.weight.copy_(torch.from_numpy(p["w2"].T))
+        field.linear2.bias.copy_(torch.from_numpy(p["b2"]))
+    return field
+
+
+def _fused_solve_and_grads(field, dtype):
+    """try_fused_mlp over fixed rows and z0 in dtype (rk4, two substeps per
+    interval, three output knots): the solution and the gradients of a fixed
+    projection of it with respect to the rows, z0 and the field's weights."""
+    rng = np.random.default_rng(8)
+    rows = [torch.from_numpy(rng.standard_normal((B, N, C)) * 0.3).to(dtype).requires_grad_()
+            for _ in range(3)]
+    z0 = torch.from_numpy(rng.standard_normal((B, 8))).to(dtype).requires_grad_()
+    proj = torch.from_numpy(rng.standard_normal((3, B, 8))).float()
+    field.zero_grad(set_to_none=True)
+    out = k1.try_fused_mlp(rows, z0, field, "rk4", 2, 0.5, N, out_knots=(0, 5, N))
+    (out.float() * proj).sum().backward()
+    return [out.detach()] + [r.grad for r in rows] + [z0.grad] + [
+        q.grad for q in (field.linear1.weight, field.linear1.bias, field.linear2.weight,
+                         field.linear2.bias)]
+
+
+@pytest.mark.parametrize("blocks", [1, 3])  # one block; several, whose lanes stride
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])  # the slab table's modes
+def test_backward_launch_wrapper_with_plain_stand_ins(dtype, blocks, monkeypatch):
+    """The kernels run only on the card: stand-ins for the forward launch
+    (the plain forward, counting) and for the backward kernel (autograd
+    through the plain version, its weight gradients split over the plan's
+    blocks) drive the autograd Function and the backward wrapper's own code,
+    which sizes the partials from the plan (``backward_plan``, stood in for)
+    and sums them in block order.  One forward and one backward launch per
+    solve, in the slab table's mode; the gradients are the plain route's up
+    to the split's rounding (float32: 1e-6 of each gradient's largest
+    magnitude; bfloat16 weights: one bfloat16 step, 2^-7 of it, since a
+    float32 difference in the last bit can round to either neighbour)."""
+    mode = int(dtype == torch.bfloat16)
+    launch = dict(variant=0, blocks=blocks, threads=128, lanes_per_block=32, threads_per_lane=4,
+                  resident_per_sm=1, sms=blocks, shared_bytes=0)
+    field = _plain_field(dtype)
+    expected = _fused_solve_and_grads(field, dtype)
+
+    def forward(ct, z0t, w1t, b1, w2t, b2, plan):
+        k1.FWD_LAUNCHES += 1
+        k1.BF16_FWD_LAUNCHES += int(ct.dtype == torch.bfloat16)
+        n = ct.shape[0]
+        with torch.no_grad():
+            zres = k1.fused_fixed_solve_reference(ct, z0t, w1t, b1, w2t, b2, plan.method, plan.m,
+                                                  plan.dt_sub, tuple(range(1, n + 1)))
+        return zres[[k - 1 for k in plan.out_knots]], zres
+
+    def planned(B_, H, C_, W_, plan, mode_, device):
+        assert (B_, H, C_, W_, mode_) == (B, 8, C, W, mode) and device == torch.device("cpu")
+        return launch
+
+    def backward_kernel(ops, outs, shape, plan, mode_, planned_launch):
+        assert planned_launch is launch and shape == (B, N, 8, C, W) and mode_ == mode
+        ct, zres, z0t, gz, w1t, b1, w2t, b2 = ops
+        leaves = [t.detach().requires_grad_() for t in (ct, z0t, w1t, b1, w2t, b2)]
+        with torch.enable_grad():
+            ref = k1.fused_fixed_solve_reference(*leaves, plan.method, plan.m, plan.dt_sub,
+                                                 plan.out_knots)
+            dct, dz0, dw1t, db1, dw2t, db2 = torch.autograd.grad(ref, leaves, gz)
+        assert outs[0].dtype == ct.dtype and all(o.dtype == torch.float32 for o in outs[1:])
+        outs[0].copy_(dct)
+        outs[1].copy_(dz0)
+        shares = torch.arange(1.0, blocks + 1) / (blocks * (blocks + 1) / 2)
+        for partial, grad in zip(outs[2:], (dw1t, db1, dw2t.t(), db2)):
+            assert partial.shape == (blocks,) + grad.shape
+            partial.copy_(shares.reshape((blocks,) + (1,) * grad.dim()) * grad)
+
+    def solve(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub, out_knots):
+        return k1._FusedFixedSolve.apply(ct, z0t, w1t, b1, w2t, b2,
+                                         k1._Plan(method, m, dt_sub, tuple(out_knots)))
+
+    monkeypatch.setattr(k1, "launch_forward", forward)
+    monkeypatch.setattr(k1, "backward_plan", planned)
+    monkeypatch.setattr(k1, "_backward_kernel", backward_kernel)
+    monkeypatch.setattr(k1, "check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(k1, "fused_fixed_solve", solve)
+    k1.reset_launch_counts()
+    got = _fused_solve_and_grads(field, dtype)
+    assert (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES) == (1, 1)
+    assert (k1.BF16_FWD_LAUNCHES, k1.BF16_BWD_LAUNCHES) == (mode, mode)
+    k1.reset_launch_counts()
+    names = ["solution", "b", "two_c", "three_d", "z0", "w1", "b1", "w2", "b2"]
+    for name, g, e in zip(names, got, expected):
+        assert g.dtype == e.dtype, name
+        if name in ("solution", "b", "two_c", "three_d", "z0"):
+            torch.testing.assert_close(g, e, rtol=1e-6, atol=0.0, msg=name)
+            continue
+        step = 2.0 ** -7 if mode else 1e-6
+        scale = float(e.abs().max())
+        torch.testing.assert_close(g.float(), e.float(), rtol=0.0, atol=step * scale, msg=name)

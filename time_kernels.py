@@ -1,14 +1,16 @@
 """Times the fused kernels (K1 in float32 and bfloat16, K2, K8, K9) and the
-default configuration's and config 5's train steps in one checkout.
+flagship's, the default configuration's and config 5's train steps in one
+checkout.
 
     python3 time_kernels.py [ROOT]
 
 imports the port and its ``chip_smoke.py`` from the checkout at ROOT (by
 default this script's directory), builds its kernels, and prints one JSON
 line: the card's name and power limit, K2's forward and backward ms at the
-default configuration (batch 4096, the specialised forward, as
-``chip_smoke.py``'s phase 8 times them), the train step's median ms at
-batch 4096 (CUDA events, 20 steps), K2's linear mode at config 4 (as phase
+default configuration at batch 4096 and 256 (as ``chip_smoke.py``'s phase 8
+times them) with each mesh's accepted and attempted steps and the
+forward's launch plan, the default train step's median ms at batch 4096
+and 256 (CUDA events, 10 steps), K2's linear mode at config 4 (as phase
 17 times it), K2 at phase 6's caps case (B 300, W 512, H 16, C 5), K9's
 forward and backward ms per launch at the per-sample slice (as phase 24
 times them; where the checkout has K9), the accepted steps of each timed
@@ -16,8 +18,10 @@ mesh (a backward's time follows them), K8's forward and backward at config
 5's operands (as phase 20 times them) with the backward's launch plan where
 the checkout reports it, config 5's train step with the adjoint, K1's
 forward and backward at the flagship in float32 and in bfloat16 (as phases
-8 and 28 time them), and ptxas's report for each kernel of K1, K2, K8 and
-K9 (registers, stack frame).  To compare two commits on one card,
+8 and 28 time them) with the backward's launch plan where the checkout
+reports it, the flagship's train step in both precisions (median of 10),
+and ptxas's report for each kernel of K1, K2, K8 and K9 (registers, stack
+frame, spills).  To compare two commits on one card,
 unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
@@ -38,7 +42,7 @@ def ptxas_report(log, pattern=r"_kernel"):
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
             entry = found.group(1) if re.search(pattern, found.group(1)) else None
-        elif entry and ("stack frame" in line or "registers" in line):
+        elif entry and ("stack frame" in line or "registers" in line or "spill" in line):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
 
@@ -132,15 +136,54 @@ def time_k8(cs, device):
     return timing
 
 
-def time_k1(cs, device, coeffs):
+def time_k2_default(cs, device, batch):
+    """K2's forward and backward ms at the default configuration at this
+    batch (its one launch), the mesh's accepted and attempted steps and,
+    where the checkout has the team forward's plan, that plan."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import SolverConfig
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import team
+
+    model, coeffs, _ = cs.default_model(device, batch)
+    X = tt.CubicSpline(coeffs)
+    with torch.no_grad():
+        z0 = model.initial(X.evaluate(X.interval[0]))
+    (*ops, dt0, plan), = cs.recorded_k2_launches(X, model.func, z0, X.interval, SolverConfig())
+    zout, zfin, _, store = k2.launch_forward(*ops, dt0, plan)
+    gz, gzfin = torch.ones_like(zout), torch.ones_like(zfin)
+    mesh = k2.read_mesh(store)
+    key = f"k2_default_B{batch}"
+    timing = {f"{key}_fwd_ms": cs._event_ms(lambda: k2.launch_forward(*ops, dt0, plan), 5),
+              f"{key}_bwd_ms": cs._event_ms(
+                  lambda: k2.launch_backward(ops[0], store, gz, gzfin, *ops[2:], plan), 5),
+              f"{key}_steps_accepted": len(mesh.t), f"{key}_steps_attempted": mesh.attempted}
+    if not hasattr(k2, "kernel_variant"):  # every forward on the team kernel
+        C, W = ops[0].shape[2], ops[2].shape[0]
+        timing[f"{key}_fwd_plan"] = team.team_forward_plan(batch, z0.shape[-1], C, W, True)
+    return timing
+
+
+def step_ms(cs, model, coeffs, labels, count=10):
+    """The median ms of count train steps (CUDA events), after one."""
+    from torchcde_tpu_torch.models import make_train_step
+
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+    step(coeffs, labels)  # warm-up
+    return statistics.median(cs._once_ms(lambda: step(coeffs, labels)) for _ in range(count))
+
+
+def time_k1(cs, device, coeffs, labels):
     """K1's forward and backward ms at the flagship (specialised variant),
-    float32 and bfloat16."""
+    float32 and bfloat16, the backward's plan where the checkout reports
+    it, and the flagship's train step in both precisions."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
     timing = {}
-    for name, config in (("k1", cs.FLAGSHIP), ("k1_bf16", cs.BF16_FLAGSHIP)):
+    for mode, (name, config) in enumerate((("k1", cs.FLAGSHIP), ("k1_bf16", cs.BF16_FLAGSHIP))):
+        model = cs.make_model(device, config=config)
         with torch.no_grad():
-            p = cs.packed_operands(cs.make_model(device, config=config), coeffs)
+            p = cs.packed_operands(model, coeffs)
         ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
         plan = k1._Plan("rk4", 1, 1.0, (p.ct.shape[0],))
         out, zres = k1.launch_forward(*ops, plan)
@@ -148,6 +191,11 @@ def time_k1(cs, device, coeffs):
         timing[f"{name}_fwd_ms"] = cs._event_ms(lambda: k1.launch_forward(*ops, plan), 10)
         timing[f"{name}_bwd_ms"] = cs._event_ms(
             lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5)
+        if hasattr(k1, "backward_plan"):
+            timing[f"{name}_bwd_plan"] = k1.backward_plan(
+                p.ct.shape[3], p.z0t.shape[0], p.ct.shape[2], p.w1t.shape[0], plan, mode, device)
+        flagship = "flagship" if mode == 0 else "flagship_bf16"
+        timing[f"{flagship}_train_step_ms"] = step_ms(cs, model, coeffs, labels)
     return timing
 
 
@@ -161,21 +209,20 @@ def main():
         raise SystemExit(f"time_kernels: imported the port from {_build.__file__}, not from {root}")
     smi, device = cs.phase_device()
     _path, seconds, log = _build.build()
-    k2 = cs.time_k2(device)
-    model, coeffs, labels = cs.default_model(device, 4096)
-    medians, samples = cs.time_train_steps(model, coeffs, labels,
-                                           cs.plain_k2_loss(coeffs, labels), counts=(10, 1))
+    k2, default_steps = {}, {}
+    for batch in (4096, 256):
+        k2.update(time_k2_default(cs, device, batch))
+        default_steps[f"default_B{batch}_train_step_ms"] = step_ms(
+            cs, *cs.default_model(device, batch))
+    _model, coeffs, labels = cs.default_model(device, 4096)
     k2_linear = time_k2_linear(cs, device)
     k2_caps = time_k2_caps(cs, device)
     k9 = time_k9(cs, device) if hasattr(cs, "per_sample_problem") else {}
     k8 = time_k8(cs, device)
-    k1 = time_k1(cs, device, coeffs)
-    print(json.dumps({"root": root, "card": smi, "build_s": seconds,
-                      "k2_fwd_ms": k2["k2_fwd_ms"], "k2_bwd_ms": k2["k2_bwd_ms"],
-                      "k2_steps_accepted": k2["k2_steps_accepted"],
-                      "default_B4096_train_step_ms": medians["kernel"],
-                      "default_B4096_train_step_samples_ms": samples["kernel"], **k2_linear,
-                      **k2_caps, **k9, **k8, **k1, "ptxas": ptxas_report(log)}), flush=True)
+    k1 = time_k1(cs, device, coeffs, labels)
+    print(json.dumps({"root": root, "card": smi, "build_s": seconds, **k2, **default_steps,
+                      **k2_linear, **k2_caps, **k9, **k8, **k1, "ptxas": ptxas_report(log)}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -10,16 +10,10 @@
 // torchcde_tpu/solvers/fused_dopri_persample.py (_psd_fwd_kernel,
 // _psd_bwd_kernel).
 //
-// Two layouts.  K2's forward at the flagship's widths runs one thread per
-// batch lane in blocks of one warp (LANES), with the field specialised (H 8,
-// C 3, weights and vectors in shared memory, cde_stage.cuh's stage math);
-// every step function of that layout is forced inline, so the kernel holds
-// the lane's values in registers across it.
-//
-// Every other forward (K2's other shapes, in both modes, and every K9
-// shape) and every backward of K2 and K9 run in teams: T = 32 threads, one
-// warp, per lane, on one stage evaluation (team_eval), so that a forward's
-// stages and its backward's recompute round alike.  What bounds them is the
+// Every forward and every backward of K2 (in both modes) and of K9 runs in
+// teams: T = 32 threads, one warp, per lane, on one stage evaluation
+// (team_eval), so that a forward's stages and its backward's recompute
+// round alike.  What bounds them is the
 // serial chain of small products of the field, W H (1 + C) multiply-adds
 // per stage evaluation, and in the backward again twice as many for the
 // VJP and the weight gradients; one thread per lane would leave 8 warps on
@@ -45,7 +39,11 @@
 // fixed order, the same bits in every thread, so that every thread takes the
 // same accept decision and step size.  The channels' owners write the dense
 // output, the store of accepted steps and the FSAL swap.  The forward keeps
-// one h1 and one g, shared by the stages.
+// one h1 and one g, shared by the stages.  Where a team walks two or more
+// lanes (K2 where its teams cannot all be resident), it evaluates two lanes'
+// stages at once (team_eval_pair): each weight read from shared memory
+// serves both, and each lane's sums run in team_eval's order, so it gets the
+// same bits as alone; the pair takes a second dX/dt, h1 and g.
 //
 // The backward in teams: at the step's end each thread adds the step's
 // weight gradients of its rows (dW1[w, :], db1[w], dW2[:, w]), summed over
@@ -62,9 +60,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include <cuda_runtime.h>
+#include <math.h>
 
-#include "cde_stage.cuh"
+#include <algorithm>
 
 namespace {
 
@@ -74,12 +73,7 @@ constexpr int MAX_OUT = 64;      // output times per chunk (per lane in K9)
 constexpr size_t MAX_SMEM = 232448;
 constexpr int BAD_ARGUMENT = -2;
 constexpr int BAD_VARIANT = -3;
-constexpr int SPECIALISED = 0;
-constexpr int TEAMS = 1;
-// Vectors of a lane.  The specialised forward: the state, the stages, a
-// stage input.
-constexpr int Z = 0, K0 = 1, Y = 8, NV_FWD = 9;
-// In teams: stage inputs (the first the state z, the last the step's
+// Vectors of a lane in its team's slice: stage inputs (the first the state z, the last the step's
 // solution z1), stages (then, in the backward, their cotangents), and in the
 // backward lambda and the dense output's cotangent terms.
 constexpr int YS = 0, KV = 7, NV_TEAM_FWD = 14, LAM = 14, LZ = 15, LZ1 = 16, UMID = 17,
@@ -134,52 +128,10 @@ struct Dense {
   float minv[9];
 };
 
-// A lane's vectors, lane-minor with the given stride: channel h < H of
-// vector i at base[(i * ld + h) * stride].
-struct Vecs {
-  float* base;
-  size_t stride;
-  int H;   // hidden channels: what the step loops run over
-  int ld;  // channels of the layout
-  __device__ float& at(int i, int h) const { return base[((size_t)i * ld + h) * stride]; }
-};
-
-// dX/dt of the lane at time tval on the chunk's uniform grid, for MC >= C
-// channels (unrolled, so that the caller's dx stays in registers).  Cubic:
-// interval j = clamp(floor((tval - t0g) / w), 0, n - 1) and fraction fr.
-// Linear: j = clamp(ceil((tval - t0g) / w) - (lead ? 0 : 1), 0, n - 1), the
-// slope on the left of a knot; fr is unused (0).
-template <int MC>
-__device__ __forceinline__ void control_at(const Table& c, size_t lane, bool live,
-                                           float tval, float (&dx)[MC], int& j, float& fr) {
-  const int C = c.C;
-  const float pos = (tval - c.t0g) / c.w;
-  if (c.linear) {
-    const float jf = ceilf(pos) - (c.lead ? 0.f : 1.f);
-    j = (int)fminf(fmaxf(jf, 0.f), (float)(c.n - 1));
-    fr = 0.f;
-    const float* row = c.ct + (size_t)j * C * c.B + lane;
-#pragma unroll
-    for (int i = 0; i < MC; ++i)
-      if (i < C) dx[i] = live ? row[(size_t)i * c.B] : 0.f;
-    return;
-  }
-  j = (int)fminf(fmaxf(floorf(pos), 0.f), (float)(c.n - 1));
-  fr = tval - (c.t0g + (float)j * c.w);
-  const float* row = c.ct + (size_t)j * 3 * C * c.B + lane;
-#pragma unroll
-  for (int i = 0; i < MC; ++i) {
-    if (i < C) {
-      const float b = live ? row[(size_t)i * c.B] : 0.f;
-      const float cc = live ? row[(size_t)(C + i) * c.B] : 0.f;
-      const float d = live ? row[(size_t)(2 * C + i) * c.B] : 0.f;
-      dx[i] = b + (cc + d * fr) * fr;
-    }
-  }
-}
-
-// The interval j and fraction fr of time tval, by control_at's rule (kept
-// apart from it, so that the forwards compile as they did).
+// The interval j and fraction fr of time tval on the chunk's uniform grid.
+// Cubic: j = clamp(floor((tval - t0g) / w), 0, n - 1).  Linear: j =
+// clamp(ceil((tval - t0g) / w) - (lead ? 0 : 1), 0, n - 1), the slope on
+// the left of a knot; fr is unused (0).
 __device__ __forceinline__ void locate(const Table& c, float tval, int& j, float& fr) {
   const float pos = (tval - c.t0g) / c.w;
   if (c.linear) {
@@ -207,87 +159,6 @@ __device__ __forceinline__ void dense_coeffs(const float* m, float theta,
   cC = p2 * m[8] + p3 * m[5] + p4 * m[2];
 }
 
-// ---------------------------------------------------------------------------
-// Specialised field: H 8, C 3, the weights and the lanes' vectors in shared
-// memory; the stage math of cde_stage.cuh.
-
-struct SpecField {
-  static constexpr int H = 8, C = 3, MC = 3;
-  Smem<8, 3> sm;
-  int W;
-  // The hidden size as the launch passes it bounds the step loops, which
-  // then stay rolled (unrolled, K2's forward took 12.4 ms and not 9.9 at the
-  // default configuration on an H100); it also addresses the vectors (the
-  // constant 8 there made the forward 12.7 ms).
-  int Hv;
-  float* vec;
-  static size_t smem_floats(int W) {
-    return Smem<8, 3>::floats(W) + (size_t)NV_FWD * H * LANES;
-  }
-  __device__ SpecField(float* smem, const FieldArgs& f) : sm(smem, f.W), W(f.W), Hv(f.H) {
-    load_field<8, 3>(sm, f.w1t, f.b1, f.w2t, f.b2, W);
-    vec = sm.end();
-  }
-  __device__ Vecs vecs(size_t) const { return Vecs{vec + threadIdx.x, LANES, Hv, Hv}; }
-  __device__ void eval(const Vecs& v, int iy, int ik, const float (&dx)[MC]) const {
-    float y[H], g[C * H], k[H], d[C];
-#pragma unroll
-    for (int h = 0; h < H; ++h) y[h] = v.at(iy, h);
-#pragma unroll
-    for (int i = 0; i < C; ++i) d[i] = dx[i];
-    mlp_forward<H, C, false>(sm, W, y, g, nullptr);
-    contract<H, C>(g, d, k);
-#pragma unroll
-    for (int h = 0; h < H; ++h) v.at(ik, h) = k[h];
-  }
-};
-
-// ---------------------------------------------------------------------------
-// The specialised forward: one attempted step of size dc from (t, Z) with
-// first stage K0.
-
-// Stages 2..7 into K0 + 1 .. K0 + 6, each stage input in Y.
-template <class F>
-__device__ __forceinline__ void attempt_stages(const F& field, const Vecs& v, const Table& tab,
-                                               size_t lane, bool live, float t, float dc) {
-  const int H = v.H;
-  float dx[F::MC];
-  int j;
-  float fr;
-  for (int s = 1; s < NS; ++s) {
-    for (int h = 0; h < H; ++h) {
-      float y = v.at(Z, h);
-      for (int q = 0; q < s; ++q) {
-        const float coef = kBeta[s - 1][q];
-        if (coef != 0.f) y = y + (dc * coef) * v.at(K0 + q, h);
-      }
-      v.at(Y, h) = y;
-    }
-    control_at(tab, lane, live, stage_time(t, kAlpha[s - 1], dc), dx, j, fr);
-    field.eval(v, Y, K0 + s, dx);
-  }
-}
-
-// The step's solution z1 into Y; returns the lane's sum over its hidden
-// channels of the squared scaled error.
-__device__ __forceinline__ float step_error(const Vecs& v, float dc, float rtol, float atol) {
-  float part = 0.f;
-  for (int h = 0; h < v.H; ++h) {
-    const float z = v.at(Z, h);
-    float z1 = z, e = 0.f;
-    for (int q = 0; q < NS; ++q) {
-      const float kq = v.at(K0 + q, h);
-      if (kCsol[q] != 0.f) z1 = z1 + (dc * kCsol[q]) * kq;
-      if (kCerr[q] != 0.f) e = e + kCerr[q] * kq;
-    }
-    e = dc * e;
-    const float scaled = e / (atol + rtol * fmaxf(fabsf(z), fabsf(z1)));
-    part += scaled * scaled;
-    v.at(Y, h) = z1;
-  }
-  return part;
-}
-
 // integrate.py's controller: clip(safety * ratio^(-1/5), dfactor, ifactor if
 // accepted else 1); a clamped accepted step keeps the proposal.
 __device__ __forceinline__ float next_step(float ratio, float dc, float dt, bool accept,
@@ -298,20 +169,6 @@ __device__ __forceinline__ float next_step(float ratio, float dc, float dt, bool
   float dt_new = dc * fminf(fmaxf(factor, dfactor), upper);
   if (accept && dc < dt) dt_new = fmaxf(dt, dt_new);
   return dt_new;
-}
-
-// The dense output of an accepted step (Z to z1 in Y) at theta, channel h.
-__device__ __forceinline__ float dense_value(const Vecs& v, const Dense& d, int h, float dc,
-                                             float theta, float cA, float cB, float cC) {
-  const float z = v.at(Z, h), z1 = v.at(Y, h);
-  const float k0 = v.at(K0, h), k6 = v.at(K0 + 6, h);
-  float ymid = z;
-  for (int q = 0; q < NS; ++q)
-    if (d.bmid[q] != 0.f) ymid = ymid + (dc * d.bmid[q]) * v.at(K0 + q, h);
-  const float rA = z1 - z - dc * k0;
-  const float rB = dc * (k6 - k0);
-  const float rC = ymid - z - (0.5f * dc) * k0;
-  return z + (theta * dc) * k0 + cA * rA + cB * rB + cC * rC;
 }
 
 // theta of output time tk in the step (t, dc].
@@ -352,10 +209,11 @@ __host__ __device__ inline size_t team_weight_floats(int H, int C, int W) {
 }
 // The forward's team slice: for each of the p.lanes lanes it walks
 // [NV_TEAM_FWD][H4] vectors, then [NS][MAX_ROWS] dX/dt, [S] h1 and [CH4] g,
-// which its lanes and stages share.
+// which its lanes and stages share, and with two lanes or more a second
+// dX/dt, h1 and g for the second lane of a pair (team_pair_view).
 __host__ __device__ inline size_t team_fwd_floats(int H, int C, int W, int lanes) {
-  return (size_t)lanes * NV_TEAM_FWD * round4(H) + (size_t)NS * MAX_ROWS + team_row(W) +
-         round4(C * H);
+  const size_t shared = (size_t)NS * MAX_ROWS + team_row(W) + round4(C * H);
+  return (size_t)lanes * NV_TEAM_FWD * round4(H) + (lanes > 1 ? 2 : 1) * shared;
 }
 // Floats before the forward's weights and slices: a block's team sums of
 // the group norm (K2).
@@ -595,6 +453,16 @@ __device__ __forceinline__ Team team_fwd_setup(float* smem, const FieldArgs& f,
 __device__ __forceinline__ Team team_lane(const Team& tm, const TeamShape& s, int l) {
   Team v = tm;
   v.vec = tm.vec + (size_t)l * NV_TEAM_FWD * s.H4;
+  return v;
+}
+
+// A lane view tl with the slice's second dX/dt, h1 and g: the second lane
+// of a pair (team_fwd_floats with two lanes or more).
+__device__ __forceinline__ Team team_pair_view(const Team& tl, const TeamShape& s) {
+  Team v = tl;
+  v.dx = tl.g + s.CH4;
+  v.h1 = v.dx + NS * MAX_ROWS;
+  v.g = v.h1 + s.S;
   return v;
 }
 
@@ -939,6 +807,112 @@ __device__ __forceinline__ void team_stages(const TeamWeights& wt, const TeamSha
   }
 }
 
+// Stage st's evaluation of two lanes at once, a and b (the forward's, each
+// with its own dX/dt, h1 and g; not NARROW): team_eval<RB, true>'s
+// operations on each lane in its order, so each gets the same bits as
+// alone, with every weight read once for both.
+template <int RB>
+__device__ __forceinline__ void team_eval_pair(const TeamWeights& wt, const TeamShape& s,
+                                               const Team& a, const Team& b, int st) {
+  const int H = s.H, CH = s.CH, T = a.T, r = a.r;
+  const size_t S = s.S;
+  a.sync();
+  const float* ya = a.vec + (YS + st) * s.H4;
+  const float* yb = b.vec + (YS + st) * s.H4;
+  for (int w = 4 * r; w < s.Wq; w += 4 * T) {
+    float pa[4] = {0.f, 0.f, 0.f, 0.f}, pb[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int h = 0; h < H; h += 4) {
+      const float4 va = ld4(ya + h), vb = ld4(yb + h);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 wv = ld4(wt.w1 + (h + u) * S + w);
+        const float ua = at4(va, u), ub = at4(vb, u);
+        pa[0] = fmaf(wv.x, ua, pa[0]);
+        pa[1] = fmaf(wv.y, ua, pa[1]);
+        pa[2] = fmaf(wv.z, ua, pa[2]);
+        pa[3] = fmaf(wv.w, ua, pa[3]);
+        pb[0] = fmaf(wv.x, ub, pb[0]);
+        pb[1] = fmaf(wv.y, ub, pb[1]);
+        pb[2] = fmaf(wv.z, ub, pb[2]);
+        pb[3] = fmaf(wv.w, ub, pb[3]);
+      }
+    }
+    const float4 bv = ld4(wt.b1 + w);
+    st4(a.h1 + w, make_float4(fmaxf(pa[0] + bv.x, 0.f), fmaxf(pa[1] + bv.y, 0.f),
+                              fmaxf(pa[2] + bv.z, 0.f), fmaxf(pa[3] + bv.w, 0.f)));
+    st4(b.h1 + w, make_float4(fmaxf(pb[0] + bv.x, 0.f), fmaxf(pb[1] + bv.y, 0.f),
+                              fmaxf(pb[2] + bv.z, 0.f), fmaxf(pb[3] + bv.w, 0.f)));
+  }
+  a.sync();
+  for (int q0 = r; q0 < CH; q0 += RB * T) {
+    const float* row[RB];
+    float ga[RB][PS], gb[RB][PS];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      row[k] = wt.w2 + (size_t)min(q0 + k * T, CH - 1) * S;
+#pragma unroll
+      for (int u = 0; u < PS; ++u) ga[k][u] = gb[k][u] = 0.f;
+    }
+    for (int w = 0; w < s.Wq; w += 4) {
+      const float4 ha = ld4(a.h1 + w), hb = ld4(b.h1 + w);
+#pragma unroll
+      for (int k = 0; k < RB; ++k) {
+        const float4 wv = ld4(row[k] + w);
+        ga[k][0] = fmaf(wv.x, ha.x, ga[k][0]);
+        ga[k][1] = fmaf(wv.y, ha.y, ga[k][1]);
+        ga[k][2] = fmaf(wv.z, ha.z, ga[k][2]);
+        ga[k][3] = fmaf(wv.w, ha.w, ga[k][3]);
+        gb[k][0] = fmaf(wv.x, hb.x, gb[k][0]);
+        gb[k][1] = fmaf(wv.y, hb.y, gb[k][1]);
+        gb[k][2] = fmaf(wv.z, hb.z, gb[k][2]);
+        gb[k][3] = fmaf(wv.w, hb.w, gb[k][3]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int q = q0 + k * T;
+      if (q < CH) {
+        a.g[q] = tanhf(partial_sum(ga[k]) + wt.b2[q]);
+        b.g[q] = tanhf(partial_sum(gb[k]) + wt.b2[q]);
+      }
+    }
+  }
+  a.sync();
+  const float *dxa = a.dx + st * MAX_ROWS, *dxb = b.dx + st * MAX_ROWS;
+  for (int h = r; h < H; h += T) {
+    float acc = a.g[h] * dxa[0], bcc = b.g[h] * dxb[0];
+    for (int i = 1; i < s.C; ++i) {
+      acc += a.g[i * H + h] * dxa[i];
+      bcc += b.g[i * H + h] * dxb[i];
+    }
+    a.at(s, KV + st, h) = acc;
+    b.at(s, KV + st, h) = bcc;
+  }
+}
+
+// team_stages<RB, true> of the forward's attempt (stages 1 .. 6) for two
+// lanes at once, after both lanes' dX/dt.
+template <int RB>
+__device__ __forceinline__ void team_stages_pair(const TeamWeights& wt, const TeamShape& s,
+                                                 const Team& a, const Team& b, float dt) {
+#pragma unroll 1
+  for (int st = 1; st < NS; ++st) {
+    for (int h = a.r; h < s.H; h += a.T) {
+      float ya = a.at(s, YS, h), yb = b.at(s, YS, h);
+      for (int q = 0; q < st; ++q) {
+        const float coef = kBeta[st - 1][q];
+        if (coef != 0.f) {
+          ya = ya + (dt * coef) * a.at(s, KV + q, h);
+          yb = yb + (dt * coef) * b.at(s, KV + q, h);
+        }
+      }
+      a.at(s, YS + st, h) = ya;
+      b.at(s, YS + st, h) = yb;
+    }
+    team_eval_pair<RB>(wt, s, a, b, st);
+  }
+}
+
 // The lane's sum over its hidden channels of the attempted step's squared
 // scaled error (z in YS, z1 the last stage input YS + 6, which the plain
 // versions' z + dt sum csol_q k_q is): each thread sums its own channels,
@@ -1047,17 +1021,6 @@ __device__ __forceinline__ void team_step_backward(const TeamWeights& wt, const 
   team_flush_dct(tab, tm, lane, t, dt, dct);
   tm.sync();
 }
-
-// The specialised variant runs H 8, C 3 up to the widths at which it has
-// been held against the plain version on the card (the bound its shared
-// memory had while K2's backward ran one thread per lane on it).
-constexpr int MAX_SPECIALISED_W = 391;
-
-bool specialised_fits(int H, int C, int W) {
-  return H == 8 && C == 3 && W <= MAX_SPECIALISED_W;
-}
-
-int blocks_of(int B) { return (B + LANES - 1) / LANES; }
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {

@@ -168,4 +168,14 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Blocks of `kernel` an SM holds at once with these threads and shared
+// bytes, into n; 0 or an error code.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t bytes, int& n) {
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes);
+  return (int)err;
+}
+
 }  // namespace

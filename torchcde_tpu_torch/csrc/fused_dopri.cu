@@ -23,29 +23,28 @@
 // its lane's whole field.
 //
 // Design.
-//  * Forward at the flagship's widths (H 8, C 3, W <= 391: the specialised
-//    variant): one thread per batch lane, blocks of one warp (32 lanes), as
-//    K1, the weights and the lanes' vectors in shared memory.
-//  * Forward at every other shape, in either mode (the team variant): a team
-//    of 32 threads (a warp) per lane, on the team backward's stage
-//    evaluation (cde_dopri.cuh, "The forward in teams"), the padded weights
-//    in shared memory once per block where they fit.  Where the group's
-//    teams cannot all be resident, each team walks several lanes per
-//    attempt (fd_forward_plan: the least number that fits, by the runtime's
-//    occupancy of the kernel).
-//  * Either forward is one cooperative launch per group of up to 4096
-//    lanes, every block resident at once (cudaLaunchCooperativeKernel
-//    refuses a grid that could not be), so they can wait for each other.
-//  * The norm: each block sums its lanes' squares in one fixed order (the
-//    specialised kernel with warp shuffles; the team kernel each lane over
-//    its channels by a butterfly, each team over its lanes in order, then
-//    one thread over the block's teams in order) and writes one partial; a
-//    barrier on a global counter; then the partials are summed in block
-//    order (by every thread, or by one thread per block and shared).  The
-//    same float operations in the same order give the same value
-//    everywhere, so every block takes the same decision: no float atomics
-//    in the norm.  The partials are double-buffered by step parity (a block
-//    can run at most one step ahead) and read past L1 (__ldcg).
+//  * The forward, at every shape and in either mode: a team of 32 threads
+//    (a warp) per lane, on the team backward's stage evaluation
+//    (cde_dopri.cuh, "The forward in teams"), the padded weights in shared
+//    memory once per block where they fit.  Where the group's teams cannot
+//    all be resident, each team walks several lanes per attempt
+//    (fd_forward_plan: the least number that fits, by the runtime's
+//    occupancy of the kernel), two at once (team_eval_pair: each weight
+//    read serves both; at the default B 4096, 2 lanes a team); a shape that
+//    no plan fits is refused.
+//  * The forward is one cooperative launch per group of up to 4096 lanes,
+//    every block resident at once (cudaLaunchCooperativeKernel refuses a
+//    grid that could not be), so they can wait for each other.
+//  * The norm: each block sums its lanes' squares in one fixed order (each
+//    lane over its channels by a butterfly, each team over its lanes in
+//    order, then one thread over the block's teams in order) and writes one
+//    partial; a barrier on a global counter; then each block's first warp
+//    sums the partials (lane i over blocks i, i + 32, ..., then a butterfly
+//    across the lanes) and shares the total.  The same float operations in
+//    the same order give the same value everywhere, so every block takes
+//    the same decision: no float atomics in the norm.  The partials are
+//    double-buffered by step parity (a block can run at most one step
+//    ahead) and read past L1 (__ldcg).
 //  * t and dt are float32, as the JAX kernel carries them.  Each stage's
 //    interval is floor((t - t0g) / w), read directly (CUDA can gather).
 //  * Linear-control mode (the log-ODE / Neural RDE control): the table holds
@@ -69,10 +68,8 @@
 // Layouts (float32, lane minor; B = lanes of the group):
 //   ct (n, 3, C, B) rows b, 2c, 3d of the chunk's intervals, or (n, 1, C, B)
 //   the slopes in linear mode; z0t (H, B);
-//   w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H) with rows q = i*H + h (the
-//   specialised forward), or the weights padded as the team kernels read
-//   them (cde_dopri.cuh, team_weight_floats; the team forward and the
-//   backward);
+//   the weights padded as the team kernels read them (cde_dopri.cuh,
+//   team_weight_floats), rows q = i*H + h of the second layer;
 //   zout (n_out, H, B), zfin (H, B), dtfin (1), zst (cap, H, B), tst (cap),
 //   dtst (cap), stats (2) int32: accepted and attempted steps.
 // Backward: gzout (n_out, H, B), gzfin (H, B) -> dct (ct's shape), dz0 (H, B)
@@ -128,110 +125,12 @@ __device__ void grid_barrier(unsigned* counter, unsigned goal) {
   __syncthreads();
 }
 
-// The sum of `part` over every thread of the launch, the same bits in every
-// thread.
-__device__ float group_sum(float part, float* partials, unsigned* counter,
-                           unsigned& generation) {
-  for (int off = LANES / 2; off > 0; off >>= 1)
-    part += __shfl_down_sync(0xffffffffu, part, off);
-  const unsigned nb = gridDim.x;
-  float* slot = partials + (generation & 1u) * nb;
-  if (threadIdx.x == 0) slot[blockIdx.x] = part;
-  ++generation;
-  grid_barrier(counter, generation * nb);
-  float total = 0.f;
-  for (unsigned b = 0; b < nb; ++b) total += __ldcg(slot + b);
-  return total;
-}
-
-template <class F>
-__global__ void __launch_bounds__(LANES) dopri_fwd_kernel(FwdArgs a) {
-  extern __shared__ float smem[];
-  const Common& c = a.c;
-  const F field(smem, c.f);
-  __syncthreads();
-  const size_t lane = (size_t)blockIdx.x * LANES + threadIdx.x;
-  const bool live = lane < (size_t)c.tab.B;
-  const Vecs v = field.vecs(lane);
-  const int H = c.f.H;
-  const size_t B = c.tab.B;
-  float* partials = c.scratch;
-  unsigned* counter = reinterpret_cast<unsigned*>(c.scratch + 2 * gridDim.x);
-
-  for (int h = 0; h < H; ++h) {
-    const float z = live ? a.z0t[h * B + lane] : 0.f;
-    v.at(Z, h) = z;
-    if (live)
-      for (int k = 0; k < c.n_out; ++k) a.zout[((size_t)k * H + h) * B + lane] = z;
-  }
-  float dx[F::MC];
-  int j;
-  float fr;
-  float t = a.t_start;
-  const float t1 = a.t_end;
-  float dt = *a.dt0;
-  control_at(c.tab, lane, live, t, dx, j, fr);
-  field.eval(v, Z, K0, dx);
-  int attempted = 0, cnt = 0;
-  unsigned generation = 0;
-
-  while (t < t1 && attempted < a.cap && cnt < a.cap) {
-    dt = fmaxf(dt, 1e-14f);
-    const float dc = fminf(dt, t1 - t);
-    attempt_stages(field, v, c.tab, lane, live, t, dc);
-    const float part = step_error(v, dc, a.rtol, a.atol);
-    const float ratio =
-        sqrtf(group_sum(live ? part : 0.f, partials, counter, generation) / (float)(B * H));
-    const bool accept = ratio <= 1.f;
-    const float dt_new = next_step(ratio, dc, dt, accept, a.safety, a.ifactor, a.dfactor);
-    if (accept) {
-      if (blockIdx.x == 0 && threadIdx.x == 0) {
-        a.tst[cnt] = t;
-        a.dtst[cnt] = dc;
-      }
-      if (live)
-        for (int h = 0; h < H; ++h) a.zst[((size_t)cnt * H + h) * B + lane] = v.at(Z, h);
-      for (int k = 0; k < c.n_out; ++k) {
-        const float tk = c.out_ts[k];
-        if (!(tk > t && tk <= t + dc)) continue;
-        const float theta = theta_of(tk, t, dc);
-        float cA, cB, cC;
-        dense_coeffs(c.d.minv, theta, cA, cB, cC);
-        for (int h = 0; h < H; ++h) {
-          const float val = dense_value(v, c.d, h, dc, theta, cA, cB, cC);
-          if (live) a.zout[((size_t)k * H + h) * B + lane] = val;
-        }
-      }
-      for (int h = 0; h < H; ++h) {
-        v.at(Z, h) = v.at(Y, h);
-        v.at(K0, h) = v.at(K0 + 6, h);
-      }
-      t = t + dc;
-      ++cnt;
-    }
-    dt = dt_new;
-    ++attempted;
-  }
-  if (live)
-    for (int h = 0; h < H; ++h) a.zfin[h * B + lane] = v.at(Z, h);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *a.dtfin = dt;
-    a.stats[0] = cnt;
-    a.stats[1] = attempted;
-  }
-  // Loud exhaustion, as the JAX kernel: t < t1 means the budget ran out.
-  if (t < t1 && live) {
-    for (int h = 0; h < H; ++h) {
-      a.zfin[h * B + lane] = NAN;
-      for (int k = 0; k < c.n_out; ++k) a.zout[((size_t)k * H + h) * B + lane] = NAN;
-    }
-  }
-}
-
 // The sum of every team's `part` over the launch, the same bits in every
 // thread: the block's teams in team order (in smem[0 .. L - 1], by one
-// thread), then, after the barrier, the blocks in block order (by one
-// thread, shared through smem[L]).
+// thread), then, after the barrier, the blocks' partials by the first warp,
+// lane i over blocks i, i + 32, ... in order and the lanes by a butterfly
+// of shuffles (so every block forms the same sum, with the same bits, and
+// reads the partials 32 at a time), shared through smem[L].
 __device__ float team_group_sum(float part, const Team& tm, const TeamPlan& p, float* smem,
                                 float* partials, unsigned* counter, unsigned& generation) {
   const unsigned nb = gridDim.x;
@@ -245,18 +144,19 @@ __device__ float team_group_sum(float part, const Team& tm, const TeamPlan& p, f
   }
   ++generation;
   grid_barrier(counter, generation * nb);
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 32) {
     float total = 0.f;
-    for (unsigned b = 0; b < nb; ++b) total += __ldcg(slot + b);
-    smem[p.L] = total;
+    for (unsigned b = threadIdx.x; b < nb; b += 32) total += __ldcg(slot + b);
+    for (int m = 16; m > 0; m >>= 1) total += __shfl_xor_sync(0xffffffffu, total, m);
+    if (threadIdx.x == 0) smem[p.L] = total;
   }
   __syncthreads();
   return smem[p.L];
 }
 
-// The team forward (every shape but the specialised variant's): a team of
-// threads per lane (cde_dopri.cuh, "The forward in teams"), each team
-// walking lanes slot + l * slots, l < p.lanes, at every attempt.
+// The forward, for every shape: a team of threads per lane (cde_dopri.cuh,
+// "The forward in teams"), each team walking lanes slot + l * slots,
+// l < p.lanes, at every attempt, two at once where it has two.
 template <bool SMEM, int RB, bool NARROW>
 __global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_fwd_team_kernel(FwdArgs a, TeamPlan p) {
   extern __shared__ float smem[];
@@ -298,6 +198,15 @@ __global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_fwd_team_kernel(FwdArgs 
       // The previous evaluation's reads of dX/dt, h1 and g are done.
       tl.sync();
       team_load_dx(c.tab, tl, tm.slot + (size_t)l * p.slots, t, dc);
+      if (!NARROW && l + 1 < live) {  // lanes l and l + 1 at once
+        const Team tb = team_pair_view(team_lane(tm, s, l + 1), s);
+        team_load_dx(c.tab, tb, tm.slot + (size_t)(l + 1) * p.slots, t, dc);
+        team_stages_pair<RB>(wt, s, tl, tb, dc);
+        part += team_error(s, tl, dc, a.rtol, a.atol);
+        part += team_error(s, tb, dc, a.rtol, a.atol);
+        ++l;
+        continue;
+      }
       team_stages<RB, true, NARROW>(wt, s, tl, dc, 1);
       part += team_error(s, tl, dc, a.rtol, a.atol);
     }
@@ -390,18 +299,6 @@ __global__ void __launch_bounds__(MAX_TEAM_BLOCK) dopri_bwd_team_kernel(BwdArgs 
   team_finish<SMEM>(tm, s, a.p);
 }
 
-int launch_fwd(FwdArgs a, size_t smem, cudaStream_t stream) {
-  auto kernel = dopri_fwd_kernel<SpecField>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a};
-  // Cooperative: every block of the group resident at once, or a refusal.
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks_of(a.c.tab.B)),
-                                    dim3(LANES), args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 using TeamFwdKernel = void (*)(FwdArgs, TeamPlan);
 
 template <bool SMEM, int RB>
@@ -469,16 +366,11 @@ extern "C" {
 
 const char* fd_error_string(int code) {
   if (code == BAD_ARGUMENT) return "invalid argument";
-  if (code == BAD_VARIANT) return "no kernel variant or launch fits these shapes";
+  if (code == BAD_VARIANT) return "no launch fits these shapes";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The forward variant that runs these shapes: 0 specialised, 1 teams.
-int fd_variant(int H, int C, int W) {
-  return specialised_fits(H, C, W) ? SPECIALISED : TEAMS;
-}
-
-// The team forward's launch for these shapes (K2's team variant): teams per
+// The forward's launch for these shapes: teams per
 // block, blocks, lanes each team walks, outputs a thread carries at once,
 // weights in shared memory (1) or not (0), the bytes of shared memory a
 // block takes, S (the padded row length of the weights), the floats of the
@@ -510,29 +402,23 @@ int fd_team_plan(int B, int H, int C, int W, long* out) {
   return 0;
 }
 
-// Floats of the zeroed scratch the specialised forward needs.
-long fd_scratch_floats(int B) { return (long)head_floats(blocks_of(B)); }
-
 // dense: the 7 midpoint weights, then the 3x3 quartic inverse row-major.
 // linear: ct holds a linear control's slopes; lead: its row 0 is the
-// interval left of t0g.  The team variant takes the padded weights and the
-// blocks and row length of fd_forward_plan (the specialised one ignores
-// them).
+// interval left of t0g.  The forward takes the padded weights and the blocks
+// and row length of fd_forward_plan.
 int fd_forward(const float* ct, const float* z0t, const float* w1t, const float* b1,
                const float* w2t, const float* b2, const float* dt0, float* zout,
                float* zfin, float* dtfin, float* zst, float* tst, float* dtst,
                int* stats, float* scratch, int B, int n, int H, int C, int W, int cap,
                int n_out, const float* out_ts, const float* dense, float t_start,
                float t_end, float t0g, float w, float rtol, float atol, float safety,
-               float ifactor, float dfactor, int linear, int lead, int variant, int blocks,
-               int row, void* stream) {
+               float ifactor, float dfactor, int linear, int lead, int blocks, int row,
+               void* stream) {
   FwdArgs a;
   int rc = make_common(a.c, ct, w1t, b1, w2t, b2, scratch, B, n, H, C, W, n_out,
                        out_ts, dense, t0g, w, linear, lead);
   if (rc) return rc;
   if (cap < 1) return BAD_ARGUMENT;
-  if (variant != TEAMS && !(variant == SPECIALISED && specialised_fits(H, C, W)))
-    return BAD_VARIANT;
   a.z0t = z0t;
   a.dt0 = dt0;
   a.zout = zout;
@@ -550,13 +436,11 @@ int fd_forward(const float* ct, const float* z0t, const float* w1t, const float*
   a.safety = safety;
   a.ifactor = ifactor;
   a.dfactor = dfactor;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED) return launch_fwd(a, sizeof(float) * SpecField::smem_floats(W), st);
   TeamPlan p;
   rc = fwd_team_plan(p, B, H, C, W);
   if (rc) return rc;
   if (p.blocks != blocks || team_row(W) != row) return BAD_ARGUMENT;
-  return launch_fwd_team(a, p, st);
+  return launch_fwd_team(a, p, (cudaStream_t)stream);
 }
 
 // The weights padded (cde_dopri.cuh, team_weight_floats) and zeroed

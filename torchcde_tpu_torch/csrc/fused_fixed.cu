@@ -37,25 +37,25 @@
 // C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
 //
 // Specialised variant (H and C compile-time; instantiated for the flagship
-// H 8, C 3 at widths whose backward fits in shared memory, W <= 432).  Its
-// stage math (mlp_forward, stage_vjp) is in cde_stage.cuh, shared with the
-// adaptive kernels of fused_dopri.cu and the reversible ones of
-// fused_reversible.cu.
-//  * One thread per batch lane loops over the intervals; this replaces the
-//    TPU's sequential grid axis and its VMEM carry of z.  Blocks are one warp
-//    (32 lanes), so a 4096 batch spreads over 128 SMs.
-//  * The weights (W*H + C*H*W + W + C*H floats, ~17 KB at the flagship) sit
-//    in shared memory and are read as warp-wide broadcasts.
-//  * The hidden layer streams over W: each h1_w is computed and folded into
-//    the C*H pre-activation accumulators at once, so h1 never sits in
-//    registers whole.
-//  * The backward recomputes each interval's substeps and stages from the
-//    stored knot state, as the TPU kernel does.  Weight gradients are reduced
-//    per block: each stage's per-lane h1, dpre1, dpre2 and y are staged in
-//    shared memory, and each thread sums the 32 lanes for the weight columns
-//    it owns.  The per-block partials are written out and summed after the
-//    launch, as the JAX package sums its per-tile partials, so the result is
-//    deterministic: no float atomics.
+// H 8, C 3 at every width of the caps, W <= 512).
+//  * The forward: one thread per batch lane loops over the intervals; this
+//    replaces the TPU's sequential grid axis and its VMEM carry of z.
+//    Blocks are one warp (32 lanes), so a 4096 batch spreads over 128 SMs.
+//    The weights (W*H + C*H*W + W + C*H floats, ~17 KB at the flagship) sit
+//    in shared memory and are read as warp-wide broadcasts, and the hidden
+//    layer streams over W: each h1_w is computed and folded into the C*H
+//    pre-activation accumulators at once (mlp_forward, cde_stage.cuh,
+//    shared with the reversible forward of fused_reversible.cu).
+//  * The backward ("Specialised backward" below) recomputes each interval's
+//    substeps and stages from the stored knot state, as the TPU kernel
+//    does, with a group of FB_G threads per lane, each owning every FB_G-th
+//    hidden row, so that a 4096 batch fills the card with several warps per
+//    SM.  Blocks of FB_LANES lanes share one copy of the weights, as many
+//    blocks as the SMs hold (at the flagship one wave), and each thread
+//    keeps a register tile of the weight gradients summed over its block's
+//    lanes, written once as the block's partial and summed after the
+//    launch, as the JAX package sums its per-tile partials: deterministic,
+//    no float atomics.
 //
 // Generic variant (H, C and W at run time; every other shape).  Its stage
 // math (gen_mlp, gen_stage_vjp) is in cde_generic.cuh, shared with the
@@ -80,9 +80,11 @@
 //   out  (n_out, H, B) zres (n, H, B): the state after every interval
 // Backward outputs: dct (n, 3, C, B), dz0 (H, B) and per-block partials
 //   dw1p (blocks, W, H), db1p (blocks, W), dw2p (blocks, W, C*H),
-//   db2p (blocks, C*H), with blocks = ff_backward_blocks(...).
+//   db2p (blocks, C*H), with the blocks of ff_backward_plan(...).
 
 #include <stddef.h>
+
+#include <algorithm>
 
 #include "cde_generic.cuh"
 #include "cde_stage.cuh"
@@ -127,7 +129,7 @@ __device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
     }
     float dx[C], g[CH];
     control_derivative<C>(sb, sc, sd, stage_fraction(tab, s, st, dt), dx);
-    mlp_forward<H, C, false, MX>(sm, W, y, g, nullptr);
+    mlp_forward<H, C, MX>(sm, W, y, g);
     contract<H, C>(g, dx, k);
     if (tab.c_dt[st] != 0.f) {
 #pragma unroll
@@ -171,122 +173,557 @@ __global__ void __launch_bounds__(LANES)
   }
 }
 
-template <int H, int C, typename T, bool MX>
-__global__ void __launch_bounds__(LANES)
-    bwd_kernel(const T* __restrict__ ct, const float* __restrict__ zres,
-               const float* __restrict__ z0t, const float* __restrict__ gz,
-               const float* __restrict__ w1t, const float* __restrict__ b1,
-               const float* __restrict__ w2t, const float* __restrict__ b2,
-               const int* __restrict__ slot, T* __restrict__ dct,
-               float* __restrict__ dz0, float* __restrict__ dw1p,
-               float* __restrict__ db1p, float* __restrict__ dw2p,
-               float* __restrict__ db2p, int B, int n, int W, int m,
-               double dt, Tableau tab) {
-  constexpr int CH = C * H;
-  extern __shared__ float smem[];
-  const BwdSmem<H, C> sm(smem, W);
-  load_field<H, C>(sm.field, w1t, b1, w2t, b2, W);
-  for (int i = threadIdx.x; i < W * H; i += LANES) sm.acc_w1[i] = 0.f;
-  for (int i = threadIdx.x; i < W * CH; i += LANES) sm.acc_w2[i] = 0.f;
-  for (int i = threadIdx.x; i < W; i += LANES) sm.acc_b1[i] = 0.f;
-  for (int i = threadIdx.x; i < CH; i += LANES) sm.acc_b2[i] = 0.f;
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// Specialised backward (H 8, C 3): a group of FB_G threads per lane, blocks
+// of FB_LANES lanes that share one copy of the weights, as many blocks as
+// the SMs hold at once (blocks stride over the lane groups beyond that), and
+// the weight gradients reduced in register tiles.
+//
+// The JAX kernel walks a tile of lanes per program and sums the tile's
+// weight gradients over every interval as products over its lanes.  Here a
+// block's FB_LANES lanes are the tile.  Per evaluation or VJP, thread r of
+// a lane's group owns the hidden rows w = r (mod FB_G): it computes their
+// h1 (and in the VJP their dp1 and the products for dy), reading each row
+// of the weights as float4 broadcasts from a record of FB_REC floats (row
+// w of W1, column w of W2, b1[w]; records 36 floats apart, so the group's
+// rows fall in distinct banks).  The group's partial pre-activations of
+// the second layer are summed across its threads by a butterfly of
+// shuffles that leaves each thread C*H/FB_G of the sums; the thread takes
+// their tanh, and a second butterfly gathers g back into every thread, the
+// same bits in each.  dy is summed by a butterfly too.  So the lane's
+// chain (the stage inputs and cotangents, lambda, the recomputed substeps)
+// runs replicated in each thread of its group, in registers, with no
+// synchronisation.  A VJP stages what the weight gradients need in shared
+// memory, per lane: h1 and dp1 of every row (the left operands), dp2 and y
+// (the right ones); then the block reduces them over its lanes as a
+// product: thread (lane k, r) owns a register tile of rows 4k .. 4k + 3 of
+// each chunk of FB_CHUNK rows by FB_NC columns, of dW2 (columns
+// FB_NC r .. of dp2, left h1) or of dW1 (columns of y, left dp1), with db1
+// and db2 beside them.  Each VJP's lanes are summed in order into a fresh
+// partial, which is then added to the tile; the tile holds its sums over
+// the whole walk and is written once, as the block's partial.  Every sum
+// runs in a fixed order, without atomics: two launches give the same bits.
+//
+// Mixed precision (MX): the operands of each product are rounded to
+// bfloat16 where the JAX kernel's _stage_forward and _stage_backward (_dg)
+// feed bfloat16 to its matrix unit: y and h1 in the evaluation, dp2 in dh1
+// and dW2, h1 in dW2, dp1 in dy and dW1, y in dW1; db1 and db2 sum the
+// unrounded dp1 and dp2 (a lane's unrounded dp2 is staged beside the
+// rounded one).
 
-  const int lane = blockIdx.x * LANES + threadIdx.x;
-  const bool live = lane < B;
-  const int S = tab.n_stages;
-  float lam[H];
-#pragma unroll
-  for (int h = 0; h < H; ++h) lam[h] = 0.f;
-  float zs[MAX_SUBSTEPS][H];
+constexpr int FB_G = 8;                 // threads per lane (a power of two)
+constexpr int FB_LANES = 32;            // lanes per block
+constexpr int FB_THREADS = FB_LANES * FB_G;
+constexpr int FB_H = 8, FB_C = 3, FB_CH = FB_C * FB_H;
+constexpr int FB_COLS = FB_CH + FB_H;   // tile columns: dW2's, then dW1's
+constexpr int FB_NC = FB_COLS / FB_G;   // columns of one thread's tile
+constexpr int FB_OWN = FB_CH / FB_G;    // second-layer outputs a thread finishes
+constexpr int FB_CHUNK = 4 * FB_LANES;  // weight rows per tile chunk: a quad per lane
+constexpr int FB_MAX_CHUNKS = 4;        // W <= 512, the JAX kernel's cap
+constexpr int FB_REC = 36;              // floats of a weight record: w1 (8), w2 (24), b1, pad
+constexpr int FB_RIGHT = 60;            // floats per lane: dp2 and y as the products take
+                                        // them, the unrounded dp2 (MX), pad
+constexpr int FB_DP2 = 32;              // offset of the unrounded dp2 in a lane's right operands
+static_assert(FB_CH % FB_NC == 0 && FB_NC % 4 == 0 && FB_CH % FB_G == 0,
+              "each thread's tile columns are whole float4s of dW2 or of dW1");
 
-  for (int jr = 0; jr < n; ++jr) {
-    const int j = n - 1 - jr;
-    // Fold in the cotangent of a requested knot at this interval's end.
-    const int sl = slot[j];
-    if (live && sl >= 0) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) lam[h] += gz[((size_t)sl * H + h) * B + lane];
-    }
-    float sb[C], sc[C], sd[C];
-    load_slab<H, C, T>(ct, j, B, lane, live, sb, sc, sd);
-    // Interval j starts from knot j: z0 or the residual of interval j - 1.
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      float v = 0.f;
-      if (live)
-        v = j == 0 ? z0t[(size_t)h * B + lane]
-                   : zres[((size_t)(j - 1) * H + h) * B + lane];
-      zs[0][h] = v;
-    }
-    // Recompute the substep chain z_0 .. z_{m-1}.
-    for (int s = 0; s + 1 < m; ++s) {
-      float z[H];
-#pragma unroll
-      for (int h = 0; h < H; ++h) z[h] = zs[s][h];
-      substep<H, C, MX>(sm.field, W, tab, s, dt, sb, sc, sd, z, nullptr);
-#pragma unroll
-      for (int h = 0; h < H; ++h) zs[s + 1][h] = z[h];
-    }
+// Rows the groups walk: W rounded up to a multiple of FB_G (and of 4).
+__host__ __device__ inline int fb_rows(int W) { return (W + FB_G - 1) / FB_G * FB_G; }
 
-    float acc_b[C], acc_c[C], acc_d[C];
-#pragma unroll
-    for (int i = 0; i < C; ++i) acc_b[i] = acc_c[i] = acc_d[i] = 0.f;
-    for (int s = m - 1; s >= 0; --s) {
-      float ys[MAX_STAGES][H];
-      {
-        float z[H];
-#pragma unroll
-        for (int h = 0; h < H; ++h) z[h] = zs[s][h];
-        substep<H, C, MX>(sm.field, W, tab, s, dt, sb, sc, sd, z, ys);
-      }
-      float v[MAX_STAGES][H];
-      for (int st = S - 1; st >= 0; --st) {
-        float u[H], y[H], dy[H], dx[C], ddx[C];
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          float uh = tab.c_dt[st] != 0.f ? tab.c_dt[st] * lam[h] : 0.f;
-          if (st + 1 < S) uh += tab.a_dt[st + 1] * v[st + 1][h];
-          u[h] = uh;
-          y[h] = ys[st][h];
-        }
-        const float fr = stage_fraction(tab, s, st, dt);
-        control_derivative<C>(sb, sc, sd, fr, dx);
-        stage_vjp<H, C, MX>(sm, W, u, y, dx, dy, ddx);
-#pragma unroll
-        for (int i = 0; i < C; ++i) {
-          acc_b[i] += ddx[i];
-          acc_c[i] += fr * ddx[i];
-          acc_d[i] += (fr * fr) * ddx[i];
-        }
-#pragma unroll
-        for (int h = 0; h < H; ++h) v[st][h] = dy[h];
-      }
-      for (int st = 0; st < S; ++st) {
-#pragma unroll
-        for (int h = 0; h < H; ++h) lam[h] += v[st][h];
-      }
+__host__ __device__ inline int fb_chunks(int W) {
+  return (fb_rows(W) + FB_CHUNK - 1) / FB_CHUNK;
+}
+
+// Row stride of the staged h1 and dp1: the rows rounded up to FB_G (mod 32),
+// so that the stores of a warp's lanes (FB_G threads each) hit distinct banks.
+__host__ __device__ inline int fb_stride(int W) {
+  const int rows = fb_rows(W);
+  return rows + ((FB_G - rows) % 32 + 32) % 32;
+}
+
+__host__ __device__ inline size_t fb_smem_floats(int W) {
+  return (size_t)fb_rows(W) * FB_REC + FB_CH + 2 * (size_t)FB_LANES * fb_stride(W) + 16 +
+         (size_t)FB_LANES * FB_RIGHT;
+}
+
+// The block's shared memory; every offset is a multiple of 4 floats.
+struct FbShared {
+  float* rec;    // [rows][FB_REC]  w1t row, w2t column, b1; zero past W
+  float* b2;     // [24]
+  float* h1;     // [FB_LANES][S]   the lanes' h1 ...
+  float* dp1;    // [FB_LANES][S]   ... and dp1, 16 floats (half the banks) further on
+  float* right;  // [FB_LANES][FB_RIGHT]
+  int rows, S;
+  __device__ FbShared(float* base, int W) : rows(fb_rows(W)), S(fb_stride(W)) {
+    rec = base;
+    b2 = rec + (size_t)rows * FB_REC;
+    h1 = b2 + FB_CH;
+    dp1 = h1 + FB_LANES * S + 16;
+    right = dp1 + FB_LANES * S;
+  }
+};
+
+__device__ void fb_load_field(const FbShared& s, const float* __restrict__ w1t,
+                              const float* __restrict__ b1, const float* __restrict__ w2t,
+                              const float* __restrict__ b2, int W) {
+  for (int i = threadIdx.x; i < s.rows * FB_REC; i += blockDim.x) {
+    const int w = i / FB_REC, e = i - w * FB_REC;
+    float v = 0.f;
+    if (w < W) {
+      if (e < FB_H) v = w1t[w * FB_H + e];
+      else if (e < FB_H + FB_CH) v = w2t[(size_t)(e - FB_H) * W + w];
+      else if (e == FB_H + FB_CH) v = b1[w];
     }
-    if (live) {
-      T* row = dct + (size_t)j * 3 * C * B + lane;
+    s.rec[i] = v;
+  }
+  for (int i = threadIdx.x; i < FB_CH; i += blockDim.x) s.b2[i] = b2[i];
+}
+
+// The sums of v over the group's FB_G threads, scattered: a butterfly of
+// shuffles from the highest bit of r down, each step keeping half of the
+// live entries, leaves thread r the sums of entries [r N/FB_G, (r+1) N/FB_G)
+// in v[0 .. N/FB_G).
+template <int M, int N, int LIVE>
+struct Scatter {
+  static __device__ __forceinline__ void run(float (&v)[N], int r) {
+    constexpr int HALF = LIVE / 2;
+    const bool hi = r & M;
 #pragma unroll
-      for (int i = 0; i < C; ++i) {
-        store_as(row + (size_t)i * B, acc_b[i]);
-        store_as(row + (size_t)(C + i) * B, acc_c[i]);
-        store_as(row + (size_t)(2 * C + i) * B, acc_d[i]);
+    for (int i = 0; i < HALF; ++i) {
+      const float keep = hi ? v[HALF + i] : v[i];
+      const float send = hi ? v[i] : v[HALF + i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    }
+    Scatter<M / 2, N, HALF>::run(v, r);
+  }
+};
+template <int N, int LIVE>
+struct Scatter<0, N, LIVE> {
+  static __device__ __forceinline__ void run(float (&)[N], int) {}
+};
+
+// The inverse: thread r's block v[0 .. N/FB_G) of entries [r N/FB_G, ...)
+// gathered from the group into v[0 .. N) of every thread, each entry a copy
+// of its one owner's.
+template <int M, int N, int LIVE>
+struct Gather {
+  static __device__ __forceinline__ void run(float (&v)[N], int r) {
+    const bool hi = r & M;
+#pragma unroll
+    for (int i = 0; i < LIVE; ++i) {
+      const float mine = v[i];
+      const float other = __shfl_xor_sync(0xffffffffu, mine, M);
+      v[i] = hi ? other : mine;
+      v[LIVE + i] = hi ? mine : other;
+    }
+    Gather<2 * M, N, 2 * LIVE>::run(v, r);
+  }
+};
+template <int N, int LIVE>
+struct Gather<FB_G, N, LIVE> {
+  static __device__ __forceinline__ void run(float (&)[N], int) {}
+};
+
+// v summed over the group's threads, the same bits in each (a butterfly:
+// at every step both partners add the same two values).
+template <int N>
+__device__ __forceinline__ void fb_group_sum(float (&v)[N]) {
+#pragma unroll
+  for (int m = 1; m < FB_G; m *= 2) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], m);
+  }
+}
+
+// g = tanh(W2 relu(W1 y + b1) + b2) for lane l, by its group; thread r
+// walks rows r, r + FB_G, ... in mlp_forward's order per row.  With STAGE,
+// each row's h1 goes to the lane's row of s.h1.
+template <bool MX, bool STAGE>
+__device__ __forceinline__ void fb_eval(const FbShared& s, int l, int r,
+                                        const float (&y)[FB_H], float (&g)[FB_CH]) {
+  float yr[FB_H];
+#pragma unroll
+  for (int h = 0; h < FB_H; ++h) yr[h] = mx_round<MX>(y[h]);
+#pragma unroll
+  for (int q = 0; q < FB_CH; ++q) g[q] = 0.f;
+  float* h1 = s.h1 + l * s.S;
+#pragma unroll 2
+  for (int w = r; w < s.rows; w += FB_G) {
+    const float* rec = s.rec + w * FB_REC;
+    const float4 a0 = *reinterpret_cast<const float4*>(rec);
+    const float4 a1 = *reinterpret_cast<const float4*>(rec + 4);
+    float a = 0.f;
+    a = fmaf(a0.x, yr[0], a);
+    a = fmaf(a0.y, yr[1], a);
+    a = fmaf(a0.z, yr[2], a);
+    a = fmaf(a0.w, yr[3], a);
+    a = fmaf(a1.x, yr[4], a);
+    a = fmaf(a1.y, yr[5], a);
+    a = fmaf(a1.z, yr[6], a);
+    a = fmaf(a1.w, yr[7], a);
+    a += rec[FB_H + FB_CH];
+    a = (a < 0.f) ? 0.f : a;
+    if (STAGE) h1[w] = a;
+    const float ar = mx_round<MX>(a);
+    const float4* r2 = reinterpret_cast<const float4*>(rec + FB_H);
+#pragma unroll
+    for (int j = 0; j < FB_CH / 4; ++j) {
+      const float4 v = r2[j];
+      g[4 * j] = fmaf(v.x, ar, g[4 * j]);
+      g[4 * j + 1] = fmaf(v.y, ar, g[4 * j + 1]);
+      g[4 * j + 2] = fmaf(v.z, ar, g[4 * j + 2]);
+      g[4 * j + 3] = fmaf(v.w, ar, g[4 * j + 3]);
+    }
+  }
+  Scatter<FB_G / 2, FB_CH, FB_CH>::run(g, r);
+#pragma unroll
+  for (int j = 0; j < FB_OWN; ++j) g[j] = tanhf(g[j] + s.b2[r * FB_OWN + j]);
+  Gather<1, FB_CH, FB_OWN>::run(g, r);
+}
+
+// A thread's share of the block's weight gradients.
+template <int R>
+struct FbTile {
+  float w[R][4][FB_NC];  // rows FB_CHUNK c + 4k + e, columns FB_NC r + j of [dW2 | dW1]
+  float b1[R][4];        // db1 of those rows (the first dW1 group)
+  float b2[FB_NC];       // db2 columns FB_NC r + j (lane k = 0, dW2 groups)
+};
+
+// Adds chunk c of the staged products over the block's lanes to thread
+// (lane k, r)'s tile (and db2 once per VJP, with chunk 0): summed over the
+// lanes in order into a fresh partial first.
+template <bool MX>
+__device__ __forceinline__ void fb_reduce(const FbShared& s, int k, int r, int c,
+                                          float (&acc)[4][FB_NC], float (&acc_b1)[4],
+                                          float (&acc_b2)[FB_NC]) {
+  const int row0 = c * FB_CHUNK + 4 * k;
+  if (row0 >= s.rows) return;
+  const bool w1cols = r * FB_NC >= FB_CH;
+  const bool db1 = r * FB_NC == FB_CH, db2 = c == 0 && k == 0 && !w1cols;
+  const float* lp = (w1cols ? s.dp1 : s.h1) + row0;
+  const float* rp = s.right + r * FB_NC;
+  float part[4][FB_NC], part_b1[4], part_b2[FB_NC];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    part_b1[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < FB_NC; ++j) part[e][j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < FB_NC; ++j) part_b2[j] = 0.f;
+#pragma unroll 2
+  for (int l = 0; l < FB_LANES; ++l) {
+    const float4 lv = *reinterpret_cast<const float4*>(lp + l * s.S);
+    const float L[4] = {lv.x, lv.y, lv.z, lv.w};
+    float Rt[FB_NC];
+#pragma unroll
+    for (int j = 0; j < FB_NC / 4; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(rp + l * FB_RIGHT + 4 * j);
+      Rt[4 * j] = v.x;
+      Rt[4 * j + 1] = v.y;
+      Rt[4 * j + 2] = v.z;
+      Rt[4 * j + 3] = v.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float le = mx_round<MX>(L[e]);
+#pragma unroll
+      for (int j = 0; j < FB_NC; ++j) part[e][j] = fmaf(le, Rt[j], part[e][j]);
+    }
+    if (db1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part_b1[e] += L[e];
+    }
+    if (db2) {
+#pragma unroll
+      for (int j = 0; j < FB_NC / 4; ++j) {
+        const float4 v = MX ? *reinterpret_cast<const float4*>(rp + l * FB_RIGHT + FB_DP2 + 4 * j)
+                            : make_float4(Rt[4 * j], Rt[4 * j + 1], Rt[4 * j + 2], Rt[4 * j + 3]);
+        part_b2[4 * j] += v.x;
+        part_b2[4 * j + 1] += v.y;
+        part_b2[4 * j + 2] += v.z;
+        part_b2[4 * j + 3] += v.w;
       }
     }
   }
-  if (live) {
 #pragma unroll
-    for (int h = 0; h < H; ++h) dz0[(size_t)h * B + lane] = lam[h];
+  for (int e = 0; e < 4; ++e) {
+    acc_b1[e] += part_b1[e];
+#pragma unroll
+    for (int j = 0; j < FB_NC; ++j) acc[e][j] += part[e][j];
   }
+#pragma unroll
+  for (int j = 0; j < FB_NC; ++j) acc_b2[j] += part_b2[j];
+}
+
+// VJP of one evaluation k = contract(mlp(y), dx) for the cotangent u of k,
+// for lane l by its group: dy and ddx (the same bits in every thread of the
+// group), and the evaluation's weight gradients, summed over the block's
+// lanes, added to the tiles.  Every thread of the block calls it (lanes
+// past the batch with zero state and cotangent).
+template <int R, bool MX>
+__device__ __forceinline__ void fb_vjp(const FbShared& s, int l, int r, const float (&u)[FB_H],
+                                       const float (&y)[FB_H], const float (&dx)[FB_C],
+                                       float (&dy)[FB_H], float (&ddx)[FB_C], FbTile<R>& t) {
+  float g[FB_CH];
+  fb_eval<MX, true>(s, l, r, y, g);
+  float dp2[FB_CH];
+#pragma unroll
+  for (int i = 0; i < FB_C; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int h = 0; h < FB_H; ++h) {
+      const int q = i * FB_H + h;
+      acc += u[h] * g[q];
+      dp2[q] = (u[h] * dx[i]) * (1.f - g[q] * g[q]);
+    }
+    ddx[i] = acc;
+  }
+  // This thread's float4s of the lane's right operands: dp2 and y rounded
+  // as the products take them (float4s 0-7), the unrounded dp2 (8-13, MX).
+  float4* right = reinterpret_cast<float4*>(s.right + l * FB_RIGHT);
+  if (MX) {
+#pragma unroll
+    for (int j = 0; j < FB_CH / 4; ++j) {
+      if ((FB_DP2 / 4 + j) % FB_G == r)
+        right[FB_DP2 / 4 + j] =
+            make_float4(dp2[4 * j], dp2[4 * j + 1], dp2[4 * j + 2], dp2[4 * j + 3]);
+    }
+#pragma unroll
+    for (int q = 0; q < FB_CH; ++q) dp2[q] = mx_round<MX>(dp2[q]);
+  }
+#pragma unroll
+  for (int j = 0; j < FB_CH / 4; ++j) {
+    if (j % FB_G == r)
+      right[j] = make_float4(dp2[4 * j], dp2[4 * j + 1], dp2[4 * j + 2], dp2[4 * j + 3]);
+  }
+#pragma unroll
+  for (int j = 0; j < FB_H / 4; ++j) {
+    if ((FB_CH / 4 + j) % FB_G == r)
+      right[FB_CH / 4 + j] = make_float4(mx_round<MX>(y[4 * j]), mx_round<MX>(y[4 * j + 1]),
+                                         mx_round<MX>(y[4 * j + 2]), mx_round<MX>(y[4 * j + 3]));
+  }
+#pragma unroll
+  for (int h = 0; h < FB_H; ++h) dy[h] = 0.f;
+  const float* h1 = s.h1 + l * s.S;
+  float* dp1 = s.dp1 + l * s.S;
+#pragma unroll 2
+  for (int w = r; w < s.rows; w += FB_G) {
+    const float* rec = s.rec + w * FB_REC;
+    const float4* r2 = reinterpret_cast<const float4*>(rec + FB_H);
+    float dh = 0.f;
+#pragma unroll
+    for (int j = 0; j < FB_CH / 4; ++j) {
+      const float4 v = r2[j];
+      dh = fmaf(v.x, dp2[4 * j], dh);
+      dh = fmaf(v.y, dp2[4 * j + 1], dh);
+      dh = fmaf(v.z, dp2[4 * j + 2], dh);
+      dh = fmaf(v.w, dp2[4 * j + 3], dh);
+    }
+    const float p = h1[w] > 0.f ? dh : 0.f;
+    dp1[w] = p;
+    const float pr = mx_round<MX>(p);
+    const float4 a0 = *reinterpret_cast<const float4*>(rec);
+    const float4 a1 = *reinterpret_cast<const float4*>(rec + 4);
+    dy[0] = fmaf(a0.x, pr, dy[0]);
+    dy[1] = fmaf(a0.y, pr, dy[1]);
+    dy[2] = fmaf(a0.z, pr, dy[2]);
+    dy[3] = fmaf(a0.w, pr, dy[3]);
+    dy[4] = fmaf(a1.x, pr, dy[4]);
+    dy[5] = fmaf(a1.y, pr, dy[5]);
+    dy[6] = fmaf(a1.z, pr, dy[6]);
+    dy[7] = fmaf(a1.w, pr, dy[7]);
+  }
+  fb_group_sum(dy);
   __syncthreads();
+#pragma unroll
+  for (int c = 0; c < R; ++c) fb_reduce<MX>(s, l, r, c, t.w[c], t.b1[c], t.b2);
+  __syncthreads();
+}
+
+// One substep from z, all stages, in place; with ys, only the stage inputs
+// ys[0 .. S-1] (the last stage is not evaluated) and z is left as it was.
+template <bool MX>
+__device__ __forceinline__ void fb_substep(const FbShared& s, int l, int r, const Tableau& tab,
+                                           int step, double dt, const float (&sb)[FB_C],
+                                           const float (&sc)[FB_C], const float (&sd)[FB_C],
+                                           float (&z)[FB_H], float (*ys)[FB_H]) {
+  float znew[FB_H], k[FB_H];
+#pragma unroll
+  for (int h = 0; h < FB_H; ++h) {
+    znew[h] = z[h];
+    k[h] = 0.f;
+  }
+  for (int st = 0; st < tab.n_stages; ++st) {
+    float y[FB_H];
+#pragma unroll
+    for (int h = 0; h < FB_H; ++h) y[h] = st ? z[h] + tab.a_dt[st] * k[h] : z[h];
+    if (ys) {
+#pragma unroll
+      for (int h = 0; h < FB_H; ++h) ys[st][h] = y[h];
+      if (st + 1 == tab.n_stages) break;
+    }
+    float dx[FB_C], g[FB_CH];
+    control_derivative<FB_C>(sb, sc, sd, stage_fraction(tab, step, st, dt), dx);
+    fb_eval<MX, false>(s, l, r, y, g);
+    contract<FB_H, FB_C>(g, dx, k);
+    if (tab.c_dt[st] != 0.f) {
+#pragma unroll
+      for (int h = 0; h < FB_H; ++h) znew[h] += tab.c_dt[st] * k[h];
+    }
+  }
+  if (!ys) {
+#pragma unroll
+    for (int h = 0; h < FB_H; ++h) z[h] = znew[h];
+  }
+}
+
+// Writes the thread's tiles into the block's slice of the partials.
+template <int R>
+__device__ void fb_store(const FbTile<R>& t, int k, int r, int W, float* __restrict__ dw1p,
+                         float* __restrict__ db1p, float* __restrict__ dw2p,
+                         float* __restrict__ db2p) {
   const size_t blk = blockIdx.x;
-  for (int i = threadIdx.x; i < W * H; i += LANES) dw1p[blk * W * H + i] = sm.acc_w1[i];
-  for (int i = threadIdx.x; i < W * CH; i += LANES) dw2p[blk * W * CH + i] = sm.acc_w2[i];
-  for (int i = threadIdx.x; i < W; i += LANES) db1p[blk * W + i] = sm.acc_b1[i];
-  for (int i = threadIdx.x; i < CH; i += LANES) db2p[blk * CH + i] = sm.acc_b2[i];
+  const int col = r * FB_NC;
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int w = c * FB_CHUNK + 4 * k + e;
+      if (w >= W) continue;
+      float* row = col < FB_CH ? dw2p + (blk * W + w) * FB_CH + col
+                               : dw1p + (blk * W + w) * FB_H + (col - FB_CH);
+#pragma unroll
+      for (int j = 0; j < FB_NC; ++j) row[j] = t.w[c][e][j];
+      if (col == FB_CH) db1p[blk * W + w] = t.b1[c][e];
+    }
+  }
+  if (k == 0 && col < FB_CH) {
+#pragma unroll
+    for (int j = 0; j < FB_NC; ++j) db2p[blk * FB_CH + col + j] = t.b2[j];
+  }
+}
+
+template <int R, typename T, bool MX>
+__global__ void __launch_bounds__(FB_THREADS)
+    bwd_group_kernel(const T* __restrict__ ct, const float* __restrict__ zres,
+                     const float* __restrict__ z0t, const float* __restrict__ gz,
+                     const float* __restrict__ w1t, const float* __restrict__ b1,
+                     const float* __restrict__ w2t, const float* __restrict__ b2,
+                     const int* __restrict__ slot, T* __restrict__ dct,
+                     float* __restrict__ dz0, float* __restrict__ dw1p,
+                     float* __restrict__ db1p, float* __restrict__ dw2p,
+                     float* __restrict__ db2p, int B, int n, int W, int m, double dt,
+                     Tableau tab) {
+  extern __shared__ float4 fb_smem[];
+  const FbShared s(reinterpret_cast<float*>(fb_smem), W);
+  fb_load_field(s, w1t, b1, w2t, b2, W);
+  FbTile<R> t;
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t.b1[c][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < FB_NC; ++j) t.w[c][e][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < FB_NC; ++j) t.b2[j] = 0.f;
+  __syncthreads();
+
+  const int l = threadIdx.x / FB_G, r = threadIdx.x % FB_G;
+  const int S = tab.n_stages;
+  for (int grp = blockIdx.x; grp < (B + FB_LANES - 1) / FB_LANES; grp += gridDim.x) {
+    const int lane = grp * FB_LANES + l;
+    const bool live = lane < B;
+    float lam[FB_H];
+#pragma unroll
+    for (int h = 0; h < FB_H; ++h) lam[h] = 0.f;
+    float zs[MAX_SUBSTEPS][FB_H];
+
+    for (int jr = 0; jr < n; ++jr) {
+      const int j = n - 1 - jr;
+      // Fold in the cotangent of a requested knot at this interval's end.
+      const int sl = slot[j];
+      if (live && sl >= 0) {
+#pragma unroll
+        for (int h = 0; h < FB_H; ++h) lam[h] += gz[((size_t)sl * FB_H + h) * B + lane];
+      }
+      float sb[FB_C], sc[FB_C], sd[FB_C];
+      load_slab<FB_H, FB_C, T>(ct, j, B, lane, live, sb, sc, sd);
+      // Interval j starts from knot j: z0 or the residual of interval j - 1.
+#pragma unroll
+      for (int h = 0; h < FB_H; ++h) {
+        float v = 0.f;
+        if (live)
+          v = j == 0 ? z0t[(size_t)h * B + lane] : zres[((size_t)(j - 1) * FB_H + h) * B + lane];
+        zs[0][h] = v;
+      }
+      // Recompute the substep chain z_0 .. z_{m-1}.
+      for (int step = 0; step + 1 < m; ++step) {
+        float z[FB_H];
+#pragma unroll
+        for (int h = 0; h < FB_H; ++h) z[h] = zs[step][h];
+        fb_substep<MX>(s, l, r, tab, step, dt, sb, sc, sd, z, nullptr);
+#pragma unroll
+        for (int h = 0; h < FB_H; ++h) zs[step + 1][h] = z[h];
+      }
+
+      float acc_b[FB_C], acc_c[FB_C], acc_d[FB_C];
+#pragma unroll
+      for (int i = 0; i < FB_C; ++i) acc_b[i] = acc_c[i] = acc_d[i] = 0.f;
+      for (int step = m - 1; step >= 0; --step) {
+        float ys[MAX_STAGES][FB_H];
+        {
+          float z[FB_H];
+#pragma unroll
+          for (int h = 0; h < FB_H; ++h) z[h] = zs[step][h];
+          fb_substep<MX>(s, l, r, tab, step, dt, sb, sc, sd, z, ys);
+        }
+        float v[MAX_STAGES][FB_H];
+        for (int st = S - 1; st >= 0; --st) {
+          float u[FB_H], y[FB_H], dy[FB_H], dx[FB_C], ddx[FB_C];
+#pragma unroll
+          for (int h = 0; h < FB_H; ++h) {
+            float uh = tab.c_dt[st] != 0.f ? tab.c_dt[st] * lam[h] : 0.f;
+            if (st + 1 < S) uh += tab.a_dt[st + 1] * v[st + 1][h];
+            u[h] = uh;
+            y[h] = ys[st][h];
+          }
+          const float fr = stage_fraction(tab, step, st, dt);
+          control_derivative<FB_C>(sb, sc, sd, fr, dx);
+          fb_vjp<R, MX>(s, l, r, u, y, dx, dy, ddx, t);
+#pragma unroll
+          for (int i = 0; i < FB_C; ++i) {
+            acc_b[i] += ddx[i];
+            acc_c[i] += fr * ddx[i];
+            acc_d[i] += (fr * fr) * ddx[i];
+          }
+#pragma unroll
+          for (int h = 0; h < FB_H; ++h) v[st][h] = dy[h];
+        }
+        for (int st = 0; st < S; ++st) {
+#pragma unroll
+          for (int h = 0; h < FB_H; ++h) lam[h] += v[st][h];
+        }
+      }
+      if (live && r == 0) {
+        T* row = dct + (size_t)j * 3 * FB_C * B + lane;
+#pragma unroll
+        for (int i = 0; i < FB_C; ++i) {
+          store_as(row + (size_t)i * B, acc_b[i]);
+          store_as(row + (size_t)(FB_C + i) * B, acc_c[i]);
+          store_as(row + (size_t)(2 * FB_C + i) * B, acc_d[i]);
+        }
+      }
+    }
+    if (live && r == 0) {
+#pragma unroll
+      for (int h = 0; h < FB_H; ++h) dz0[(size_t)h * B + lane] = lam[h];
+    }
+  }
+  fb_store<R>(t, l, r, W, dw1p, db1p, dw2p, db2p);
 }
 
 // ---------------------------------------------------------------------------
@@ -499,13 +936,6 @@ size_t fwd_smem_bytes(int H, int C, int W) {
   return sizeof(float) * ((size_t)W * H + (size_t)W * C * H + W + C * H);
 }
 
-size_t bwd_smem_bytes(int H, int C, int W) {
-  return fwd_smem_bytes(H, C, W) +
-         sizeof(float) * (2 * (size_t)W * PAD + (size_t)LANES * C * H +
-                          (size_t)LANES * H) +
-         fwd_smem_bytes(H, C, W);
-}
-
 int make_tableau(int n_stages, const double* alpha, const double* a,
                  const double* c, double dt, Tableau* tab) {
   if (n_stages < 1 || n_stages > MAX_STAGES) return BAD_ARGUMENT;
@@ -533,23 +963,6 @@ int launch_fwd(const T* ct, const float* z0t, const float* w1t,
   return (int)cudaGetLastError();
 }
 
-template <int H, int C, typename T, bool MX>
-int launch_bwd(const T* ct, const float* zres, const float* z0t,
-               const float* gz, const float* w1t, const float* b1,
-               const float* w2t, const float* b2, const int* slot, T* dct,
-               float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
-               int B, int n, int W, int m, double dt, const Tableau& tab,
-               cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(H, C, W);
-  cudaError_t err = set_smem(bwd_kernel<H, C, T, MX>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + LANES - 1) / LANES);
-  bwd_kernel<H, C, T, MX><<<grid, LANES, smem, stream>>>(
-      ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct, dz0, dw1p, db1p, dw2p,
-      db2p, B, n, W, m, dt, tab);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, bool MX>
 int launch_gen_fwd(const T* ct, const float* z0t, const GenField& f,
                    const int* slot, float* out, float* zres, int B, int n,
@@ -561,26 +974,6 @@ int launch_gen_fwd(const T* ct, const float* z0t, const GenField& f,
   if (err != cudaSuccess) return (int)err;
   gen_fwd_kernel<T, MX><<<B, GEN_THREADS, smem, stream>>>(ct, z0t, f, slot, out,
                                                           zres, B, n, m, dt, tab);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool MX>
-int launch_gen_bwd(const T* ct, const float* zres, const float* z0t,
-                   const float* gz, const GenField& f, const int* slot,
-                   T* dct, float* dz0, float* dw1p, float* db1p,
-                   float* dw2p, float* db2p, int B, int n, int m, double dt,
-                   const Tableau& tab, cudaStream_t stream) {
-  const int S = tab.n_stages;
-  const bool acc_smem =
-      sizeof(float) * GenLayout(f.H, f.C, f.W, m, S, true, true).total <= MAX_SMEM;
-  const size_t smem =
-      sizeof(float) * GenLayout(f.H, f.C, f.W, m, S, true, acc_smem).total;
-  if (smem > MAX_SMEM) return BAD_ARGUMENT;
-  cudaError_t err = set_smem(gen_bwd_kernel<T, MX>, smem);
-  if (err != cudaSuccess) return (int)err;
-  gen_bwd_kernel<T, MX><<<gen_backward_blocks(B, f.H, f.C, f.W), GEN_THREADS, smem,
-                          stream>>>(ct, zres, z0t, gz, f, slot, dct, dz0, dw1p, db1p,
-                                    dw2p, db2p, B, n, m, dt, tab, acc_smem);
   return (int)cudaGetLastError();
 }
 
@@ -599,26 +992,90 @@ int forward_mode(const void* ct, const float* z0t, const float* w1t,
                                slot, out, zres, B, n, m, dt, tab, st);
 }
 
+bool specialised_fits(int H, int C, int W) {
+  return H == FB_H && C == FB_C && fb_chunks(W) <= FB_MAX_CHUNKS &&
+         sizeof(float) * fb_smem_floats(W) <= MAX_SMEM;
+}
+
+template <typename T, bool MX>
+using FbKernel = decltype(&bwd_group_kernel<1, T, MX>);
+
+template <typename T, bool MX>
+FbKernel<T, MX> fb_kernel(int W) {
+  switch (fb_chunks(W)) {
+    case 1: return bwd_group_kernel<1, T, MX>;
+    case 2: return bwd_group_kernel<2, T, MX>;
+    case 3: return bwd_group_kernel<3, T, MX>;
+    default: return bwd_group_kernel<4, T, MX>;
+  }
+}
+
+// The backward launch for some shapes.
+struct BwdPlan {
+  int variant, blocks, threads, lanes, group;  // lanes a block walks at once; threads per lane
+  int resident, sms;                           // blocks an SM holds; SMs
+  size_t bytes;                                // shared memory of a block
+  bool acc_smem;                               // generic: weight gradients in shared memory
+};
+
+// The specialised variant runs as many blocks as the SMs hold at once, at
+// most one per group of FB_LANES lanes (blocks stride over the rest); the
+// generic one a block per lane, capped by its partials.
+template <typename T, bool MX>
+int backward_plan(BwdPlan& p, int B, int H, int C, int W, int m, int n_stages,
+                  int force_generic) {
+  p.variant = !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
+  int dev = 0, rc = (int)cudaGetDevice(&dev);
+  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc) return rc;
+  if (p.variant == SPECIALISED) {
+    p.acc_smem = false;
+    p.threads = FB_THREADS;
+    p.lanes = FB_LANES;
+    p.group = FB_G;
+    p.bytes = sizeof(float) * fb_smem_floats(W);
+    rc = resident_blocks(fb_kernel<T, MX>(W), p.threads, p.bytes, p.resident);
+    if (rc) return rc;
+    if (p.resident < 1) return BAD_VARIANT;
+    p.blocks = std::min<long>((B + FB_LANES - 1) / FB_LANES, (long)p.resident * p.sms);
+    return 0;
+  }
+  p.threads = p.group = GEN_THREADS;
+  p.lanes = 1;
+  p.acc_smem =
+      sizeof(float) * GenLayout(H, C, W, m, n_stages, true, true).total <= MAX_SMEM;
+  p.bytes = sizeof(float) * GenLayout(H, C, W, m, n_stages, true, p.acc_smem).total;
+  if (p.bytes > MAX_SMEM) return BAD_ARGUMENT;
+  p.blocks = gen_backward_blocks(B, H, C, W);
+  return resident_blocks(gen_bwd_kernel<T, MX>, p.threads, p.bytes, p.resident);
+}
+
+// The backward launch of one mode, as backward_plan plans it.
 template <typename T, bool MX>
 int backward_mode(const void* ct, const float* zres, const float* z0t,
                   const float* gz, const float* w1t, const float* b1,
                   const float* w2t, const float* b2, const int* slot, void* dct,
                   float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
                   int B, int n, int H, int C, int W, int m, double dt,
-                  const Tableau& tab, int variant, cudaStream_t st) {
+                  const Tableau& tab, int variant, int blocks, cudaStream_t st) {
+  BwdPlan p;
+  const int rc = backward_plan<T, MX>(p, B, H, C, W, m, tab.n_stages, variant == GENERIC);
+  if (rc) return rc;
+  if (p.variant != variant || p.blocks != blocks) return BAD_ARGUMENT;
   const T* slabs = static_cast<const T*>(ct);
   T* dslabs = static_cast<T*>(dct);
-  if (variant == SPECIALISED)
-    return launch_bwd<8, 3, T, MX>(slabs, zres, z0t, gz, w1t, b1, w2t, b2, slot,
-                                   dslabs, dz0, dw1p, db1p, dw2p, db2p, B, n, W,
-                                   m, dt, tab, st);
-  return launch_gen_bwd<T, MX>(slabs, zres, z0t, gz,
-                               GenField{w1t, b1, w2t, b2, H, C, W}, slot, dslabs,
-                               dz0, dw1p, db1p, dw2p, db2p, B, n, m, dt, tab, st);
-}
-
-bool specialised_fits(int H, int C, int W) {
-  return H == 8 && C == 3 && bwd_smem_bytes(8, 3, W) <= MAX_SMEM;
+  if (variant == SPECIALISED) {
+    fb_kernel<T, MX>(W)<<<p.blocks, p.threads, p.bytes, st>>>(
+        slabs, zres, z0t, gz, w1t, b1, w2t, b2, slot, dslabs, dz0, dw1p, db1p, dw2p, db2p, B,
+        n, W, m, dt, tab);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t err = set_smem(gen_bwd_kernel<T, MX>, p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  gen_bwd_kernel<T, MX><<<p.blocks, p.threads, p.bytes, st>>>(
+      slabs, zres, z0t, gz, GenField{w1t, b1, w2t, b2, H, C, W}, slot, dslabs, dz0, dw1p,
+      db1p, dw2p, db2p, B, n, m, dt, tab, p.acc_smem);
+  return (int)cudaGetLastError();
 }
 
 int check_call(int B, int n, int H, int C, int W, int m, int variant,
@@ -647,10 +1104,25 @@ int ff_variant(int H, int C, int W, int force_generic) {
   return !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
 }
 
-// Blocks of the backward launch: the leading size of its weight partials.
-int ff_backward_blocks(int B, int H, int C, int W, int variant) {
-  return variant == SPECIALISED ? (B + LANES - 1) / LANES
-                                : gen_backward_blocks(B, H, C, W);
+// The backward launch for these shapes in this mode, into out[8]: the
+// variant, blocks (the leading size of the weight partials), threads per
+// block, lanes a block walks at once, threads per lane, blocks an SM holds,
+// SMs, shared bytes of a block.
+int ff_backward_plan(int B, int H, int C, int W, int m, int n_stages, int force_generic,
+                     int mode, long* out) {
+  if (B < 1 || H < 1 || C < 1 || W < 1 || m < 1 || m > MAX_SUBSTEPS || n_stages < 1 ||
+      n_stages > MAX_STAGES || (mode != 0 && mode != 1))
+    return BAD_ARGUMENT;
+  BwdPlan p;
+  const int rc = mode == 1 ? backward_plan<__nv_bfloat16, true>(p, B, H, C, W, m, n_stages,
+                                                               force_generic)
+                           : backward_plan<float, false>(p, B, H, C, W, m, n_stages,
+                                                         force_generic);
+  if (rc) return rc;
+  const long values[] = {p.variant, p.blocks, p.threads, p.lanes,
+                         p.group, p.resident, p.sms, (long)p.bytes};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return 0;
 }
 
 // mode 0: float32 ct and dct; mode 1: bfloat16 ct and dct, bfloat16
@@ -679,7 +1151,7 @@ int ff_backward(const void* ct, const float* zres, const float* z0t,
                 void* dct, float* dz0, float* dw1p, float* db1p, float* dw2p,
                 float* db2p, int B, int n, int H, int C, int W, int m,
                 double dt, int n_stages, const double* alpha, const double* a,
-                const double* c, int variant, int mode, void* stream) {
+                const double* c, int variant, int mode, int blocks, void* stream) {
   Tableau tab;
   const int rc = check_call(B, n, H, C, W, m, variant, mode, n_stages, alpha, a, c, dt, &tab);
   if (rc) return rc;
@@ -688,10 +1160,10 @@ int ff_backward(const void* ct, const float* zres, const float* z0t,
     return backward_mode<__nv_bfloat16, true>(ct, zres, z0t, gz, w1t, b1, w2t, b2,
                                               slot, dct, dz0, dw1p, db1p, dw2p,
                                               db2p, B, n, H, C, W, m, dt, tab,
-                                              variant, st);
+                                              variant, blocks, st);
   return backward_mode<float, false>(ct, zres, z0t, gz, w1t, b1, w2t, b2, slot, dct,
                                      dz0, dw1p, db1p, dw2p, db2p, B, n, H, C, W, m,
-                                     dt, tab, variant, st);
+                                     dt, tab, variant, blocks, st);
 }
 
 }  // extern "C"

@@ -80,7 +80,7 @@ __device__ __forceinline__ void field(const Smem<H, C>& sm, int W,
                                       const float (&y)[H],
                                       const float (&dx)[C], float (&k)[H]) {
   float g[C * H];
-  mlp_forward<H, C, false>(sm, W, y, g, nullptr);
+  mlp_forward<H, C>(sm, W, y, g);
   contract<H, C>(g, dx, k);
 }
 
@@ -740,14 +740,6 @@ struct BwdPlan {
   size_t bytes;                         // shared memory of a block
   bool acc_smem;                        // generic: weight gradients in shared memory
 };
-
-template <typename Kernel>
-int resident_blocks(Kernel kernel, int threads, size_t bytes, int& n) {
-  cudaError_t err = set_smem(kernel, bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes);
-  return (int)err;
-}
 
 // The specialised variant runs as many blocks as the SMs hold at once, at
 // most one per lane group (blocks stride over the rest); the generic one a

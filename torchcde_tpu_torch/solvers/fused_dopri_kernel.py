@@ -263,14 +263,10 @@ def _library():
     if not getattr(lib, "_fd_declared", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fp = ctypes.POINTER(ctypes.c_float)
-        lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i] * 5 + [p]
+        lib.fd_forward.argtypes = [p] * 15 + [i] * 7 + [fp, fp] + [f] * 9 + [i] * 4 + [p]
         lib.fd_forward.restype = i
         lib.fd_backward.argtypes = [p] * 17 + [i] * 6 + [fp, fp] + [f] * 2 + [i] * 4 + [p]
         lib.fd_backward.restype = i
-        lib.fd_variant.argtypes = [i] * 3
-        lib.fd_variant.restype = i
-        lib.fd_scratch_floats.argtypes = [i]
-        lib.fd_scratch_floats.restype = ctypes.c_long
         lib.fd_error_string.argtypes = [i]
         lib.fd_error_string.restype = ctypes.c_char_p
         lib._fd_declared = True
@@ -303,15 +299,6 @@ def _out_times(plan):
             (ctypes.c_float * len(dense))(*dense))
 
 
-VARIANTS = ("specialised", "team")
-
-
-def kernel_variant(H, C, W):
-    """Name of the forward kernel's variant that runs these shapes: the
-    specialised one at the flagship's widths, the team one elsewhere."""
-    return VARIANTS[_library().fd_variant(H, C, W)]
-
-
 def padded_weights(ct, w1t, b1, w2t, b2):
     """The field padded for the team kernels (``team.team_weights``) where
     ct runs the kernels, else None: a solve pads once and passes the result
@@ -319,42 +306,41 @@ def padded_weights(ct, w1t, b1, w2t, b2):
     return team_weights(w1t, b1, w2t, b2) if _runs_kernel(ct) else None
 
 
-def _forward_kernel(lib, tensors, sizes, plan, variant, layout):
+def _forward_kernel(lib, tensors, sizes, plan, layout):
     """The forward kernel's launch over ``fd_forward``'s tensors, in its
-    order, sizes (B, n, H, C, W), the variant's index and, for the team
-    variant, its plan's blocks and row length; returns its code."""
+    order, sizes (B, n, H, C, W) and its plan's blocks and row length;
+    returns its code."""
     with torch.cuda.device(tensors[0].device):
         return lib.fd_forward(*(t.data_ptr() for t in tensors), *sizes, plan.cap,
                               len(plan.out_ts), *_out_times(plan), plan.t_start, plan.t_end,
                               plan.t0g, plan.w, plan.rtol, plan.atol, plan.safety, plan.ifactor,
-                              plan.dfactor, int(plan.linear), int(plan.lead), variant, *layout,
+                              plan.dfactor, int(plan.linear), int(plan.lead), *layout,
                               stream_of(tensors[0]))
 
 
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, dt0, plan, weights=None):
     """Forward kernel: returns (zout, zfin, dtfin, store) with store =
     (zst (cap, H, B), tst (cap,), dtst (cap,), stats (2,) int32: accepted and
-    attempted steps), all left on the device.  The team variant reads the
-    padded ``weights`` (``padded_weights``; padded here if not given)."""
+    attempted steps), all left on the device.  A team of threads per lane,
+    for every shape, on the padded ``weights`` (``padded_weights``; padded
+    here if not given); a shape that no launch plan fits raises."""
     global FWD_LAUNCHES, LINEAR_FWD_LAUNCHES
     ops = (ct, z0t, w1t, b1, w2t, b2, dt0)
     check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2", "dt0"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t, plan)
     lib = _library()
-    variant = VARIANTS.index(kernel_variant(H, C, W))
-    if variant:
-        weights = team_weights(w1t, b1, w2t, b2) if weights is None else weights
-        team = team_forward_plan(B, H, C, W, cooperative=True)
-        field, layout, scratch = weights[:4], (team["blocks"], team["row"]), team["scratch_floats"]
-    else:
-        field, layout, scratch = (w1t, b1, w2t, b2), (0, 0), lib.fd_scratch_floats(B)
+    weights = team_weights(w1t, b1, w2t, b2) if weights is None else weights
+    team = team_forward_plan(B, H, C, W, cooperative=True)
+    if weights.w1.shape[1] != team["row"]:
+        raise ValueError("padded weights of another row length than the team plan's")
     empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
     zout, zfin, dtfin = empty((len(plan.out_ts), H, B)), empty((H, B)), empty((1,))
     zst, tst, dtst = empty((plan.cap, H, B)), empty((plan.cap,)), empty((plan.cap,))
     stats = torch.empty(2, dtype=torch.int32, device=ct.device)
-    scratch = torch.zeros(scratch, dtype=ct.dtype, device=ct.device)
-    rc = _forward_kernel(lib, (ct, z0t, *field, dt0, zout, zfin, dtfin, zst, tst, dtst, stats,
-                               scratch), (B, n, H, C, W), plan, variant, layout)
+    scratch = torch.zeros(team["scratch_floats"], dtype=ct.dtype, device=ct.device)
+    rc = _forward_kernel(lib, (ct, z0t, *weights[:4], dt0, zout, zfin, dtfin, zst, tst, dtst,
+                               stats, scratch), (B, n, H, C, W), plan,
+                         (team["blocks"], team["row"]))
     _raise_on(lib, rc, "forward")
     FWD_LAUNCHES += 1
     LINEAR_FWD_LAUNCHES += int(plan.linear)

@@ -247,12 +247,12 @@ def _library():
         dp = ctypes.POINTER(ctypes.c_double)
         lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
         lib.ff_forward.restype = i
-        lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
+        lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, i, i, p]
         lib.ff_backward.restype = i
         lib.ff_variant.argtypes = [i] * 4
         lib.ff_variant.restype = i
-        lib.ff_backward_blocks.argtypes = [i] * 5
-        lib.ff_backward_blocks.restype = i
+        lib.ff_backward_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_long)]
+        lib.ff_backward_plan.restype = i
         lib.ff_error_string.argtypes = [i]
         lib.ff_error_string.restype = ctypes.c_char_p
         lib._ff_declared = True
@@ -329,6 +329,27 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
     return out, zres
 
 
+BACKWARD_PLAN_KEYS = ("variant", "blocks", "threads", "lanes_per_block", "threads_per_lane",
+                      "resident_per_sm", "sms", "shared_bytes")
+
+
+def backward_plan(B, H, C, W, plan, mode, device):
+    """The backward kernel's launch for these shapes in ``mode`` (0 float32,
+    1 bfloat16), as a dict (``BACKWARD_PLAN_KEYS``): the variant (0
+    specialised, 1 generic), blocks (the leading size of the weight
+    partials), threads per block, lanes a block walks at once, threads per
+    lane, blocks an SM holds, the card's SMs and the shared memory of a
+    block.  The specialised variant launches as many blocks as the SMs of
+    ``device`` hold at once, striding over the lanes beyond that."""
+    lib = _library()
+    out = (ctypes.c_long * len(BACKWARD_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        rc = lib.ff_backward_plan(B, H, C, W, plan.m, len(_chain_form(plan.method)[2]),
+                                  int(plan.generic), mode, out)
+    _raise_on(lib, rc, "backward")
+    return dict(zip(BACKWARD_PLAN_KEYS, out))
+
+
 def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
     """Backward kernel: returns (dct, dz0, dw1t, db1, dw2t, db2); dct in
     ct's dtype, the others float32."""
@@ -340,24 +361,31 @@ def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     if zres.shape != (n, H, B) or gz.shape != (len(plan.out_knots), H, B):
         raise ValueError("inconsistent fused-solve cotangent shapes")
-    lib = _library()
-    variant = lib.ff_variant(H, C, W, int(plan.generic))
-    blocks = lib.ff_backward_blocks(B, H, C, W, variant)
+    launch = backward_plan(B, H, C, W, plan, mode, ct.device)
+    blocks = launch["blocks"]
     empty = functools.partial(torch.empty, dtype=z0t.dtype, device=ct.device)
-    dct, dz0 = torch.empty_like(ct), empty((H, B))
-    dw1p, db1p = empty((blocks, W, H)), empty((blocks, W))
-    dw2p, db2p = empty((blocks, W, C * H)), empty((blocks, C * H))
-    slot = _knot_slots(plan.out_knots, n, ct.device)
-    stream = stream_of(ct)
-    ptrs = [t.data_ptr() for t in (*ops, slot, dct, dz0, dw1p, db1p, dw2p, db2p)]
-    with torch.cuda.device(ct.device):
-        rc = lib.ff_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
-                             *_tableau_args(plan.method), variant, mode, stream)
-    _raise_on(lib, rc, "backward")
+    outs = (torch.empty_like(ct), empty((H, B)), empty((blocks, W, H)), empty((blocks, W)),
+            empty((blocks, W, C * H)), empty((blocks, C * H)))
+    _backward_kernel(ops, outs, (B, n, H, C, W), plan, mode, launch)
     BWD_LAUNCHES += 1
     BF16_BWD_LAUNCHES += mode
+    dct, dz0, dw1p, db1p, dw2p, db2p = outs
     # Per-block partials are summed after the launch (deterministic).
     return (dct, dz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0).t(), db2p.sum(0))
+
+
+def _backward_kernel(ops, outs, shape, plan, mode, launch):
+    """The backward kernel on ``ops`` into ``outs`` (dct, dz0 and the
+    partials), in ``mode``, as ``launch`` (``backward_plan``) plans it."""
+    lib = _library()
+    B, n, H, C, W = shape
+    slot = _knot_slots(plan.out_knots, n, ops[0].device)
+    ptrs = [t.data_ptr() for t in (*ops, slot, *outs)]
+    with torch.cuda.device(ops[0].device):
+        rc = lib.ff_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
+                             *_tableau_args(plan.method), launch["variant"], mode,
+                             launch["blocks"], stream_of(ops[0]))
+    _raise_on(lib, rc, "backward")
 
 
 class _FusedFixedSolve(torch.autograd.Function):
