@@ -12,11 +12,14 @@ Phases, each of which raises on failure:
    configuration, at config 4 (B 256 and B 4096) and at the per-sample
    slice, and K8's backward plan at config 5 (blocks, warps per block,
    blocks an SM holds by the occupancy API, SMs, waves) with its ptxas
-   lines;
+   lines, K1's forward and backward plans at the flagship in both modes with
+   their kernels' ptxas lines, and K6/K7's plan at config 3 with its
+   kernels' ptxas lines;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
    PyTorch version on the card, at the flagship shapes (in both kernel
    variants) and at odd cases covering every tableau, up to 8 substeps, odd
-   batches and shapes at the JAX kernel's caps;
+   batches and shapes at the JAX kernel's caps, each forward and backward
+   also against a second launch on the same inputs, bit for bit;
 5. K1 slice: five Adam steps of the spiral Neural CDE at the flagship
    configuration (rk4, step 1) through the public entry points, with the K1
    launch counts read around that run, then one ``accuracy`` call;
@@ -36,10 +39,13 @@ Phases, each of which raises on failure:
    device's busy share, kernels per step and the fused kernels' device time;
 10. K3-K7 checks: the fill (K3), tridiagonal (K4), gappy tridiagonal (K5)
    and masked cubic fit (K6/K7) kernels against their plain versions run in
-   float64 on the same inputs: lengths 2 to 4096, odd row counts, NaN
+   float64 on the same inputs: lengths 2 to 4097 (K6/K7's plan boundaries:
+   one row of one warp at 512, a row of two warps at 513, the resident
+   maximum 4096 and the long-row variant at 4097), odd row counts, NaN
    densities 0 to 1, leading and trailing NaN runs, single-observation and
-   all-NaN rows, both imputation versions, irregular times; and the public
-   fit on bfloat16 values (upcast at the kernels' boundary);
+   all-NaN rows, both imputation versions, irregular times, each K6/K7 case
+   also against a second launch, bit for bit; and the public fit on
+   bfloat16 values (upcast at the kernels' boundary);
 11. fit slice: BASELINE config 3 (8192 series of length 4096, one channel,
    20 % NaN, as benchmarks/run_benchmarks.py's bench_cubic_fit makes them)
    through the public natural_cubic_coeffs, forward and gradient, with and
@@ -109,8 +115,11 @@ Phases, each of which raises on failure:
 26. K1's bfloat16 mode (bench.py's ``compute_dtype="bfloat16"``): its
    forward and backward against its plain version on the card, run with the
    same bfloat16 rounding points in float64 and float32 (see BF16_ORDER), at
-   the flagship's operands (specialised variant) and at two generic shapes,
-   one with H % 8 != 0 (the selection products round) and one with H 16;
+   the flagship's operands (specialised variant), at two generic shapes,
+   one with H % 8 != 0 (the selection products round) and one with H 16,
+   and at four specialised ones (a part block, striding blocks, W 512, 8
+   substeps), each forward and backward also against a second launch, bit
+   for bit;
 27. the bfloat16 slices: bench.py's configuration (the flagship in
    bfloat16) through the public entry points, its logits against the plain
    version and the float32 solve of the same quantized problem, five Adam
@@ -189,12 +198,15 @@ EXACT_CAP = 16384
 # hold it against needs more steps than a chunk stores.
 PS_CHECK = (16, 33, 8, 3, 32)
 SOURCE = "torchcde_tpu_torch/csrc/fused_fixed.cu"
+# K1's kernels as the profiler names them (the specialised variant's).
+K1_KINDS = {"k1_fwd": r"\bfwd_group_kernel\b", "k1_bwd": r"\bbwd_group_kernel\b"}
 # Odd K1 cases: (batch, intervals, hidden, channels, width, method, substeps,
 # output knots).  Shapes up to the JAX kernel's caps (C * H <= 512,
 # 3 * C <= 16, width <= 512, 8 substeps).  H 8, C 3 runs the specialised
-# variant at every width of the caps (its backward in blocks of 32 lanes:
-# batches of 4090 and 33 end in a part block, one of 40000 has its blocks
-# stride over the lane groups); every tableau runs in both variants.
+# variant at every width of the caps (its forward in blocks of 8 lanes and
+# its backward in blocks of 32: batches of 4090 and 33 end in a part block,
+# one of 40000 has its blocks stride over the lane groups) and up to 8
+# substeps; every tableau runs in both variants.
 ODD_CASES = [
     (1000, 99, 5, 3, 128, "euler", 2, "all"),
     (520, 40, 8, 3, 64, "euler", 1, "all"),
@@ -208,6 +220,7 @@ ODD_CASES = [
     (33, 40, 8, 3, 128, "midpoint", 2, "all"),
     (40000, 12, 8, 3, 128, "rk4", 1, "terminal"),
     (200, 16, 8, 3, 512, "heun", 2, "all"),
+    (600, 20, 8, 3, 128, "rk4", 8, "subset"),
 ]
 
 
@@ -276,23 +289,31 @@ def phase_build():
     for name, lines in k8_backward_ptxas(log).items():
         print(f"  K8 backward kernel {name}: {'; '.join(lines)}")
     for mode in (0, 1):
-        print(f"  K1 backward at the flagship, mode {mode}: {k1_backward_plan_line(mode)}")
-    for name, lines in k1_backward_ptxas(log).items():
-        print(f"  K1 backward kernel {name}: {'; '.join(lines)}")
+        print(f"  K1 forward at the flagship, mode {mode}: {k1_plan_line(mode, 'forward')}")
+        print(f"  K1 backward at the flagship, mode {mode}: {k1_plan_line(mode, 'backward')}")
+    for name, lines in k1_ptxas(log).items():
+        print(f"  K1 kernel {name}: {'; '.join(lines)}")
+    from torchcde_tpu_torch.ops.masked_cubic_kernel import fit_plan
+
+    print(f"  K6/K7 at config 3 (k {FIT_LENGTH}): {fit_plan(FIT_LENGTH)}")
+    for name, lines in ptxas_lines(log, fit_kernel_label).items():
+        print(f"  K6/K7 kernel {name}: {'; '.join(lines)}")
 
 
-def k1_backward_plan(mode):
-    """K1's specialised backward launch at the flagship in mode 0 (float32)
-    or 1 (bfloat16), from the occupancy API of the kernel it launches."""
+def k1_plan(mode, which):
+    """K1's specialised forward or backward launch at the flagship in mode
+    0 (float32) or 1 (bfloat16), from the occupancy API of the kernel it
+    launches."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
-    return k1.backward_plan(BATCH, HIDDEN, CHANNELS, WIDTH, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)),
-                            mode, torch.device("cuda", 0))
+    planner = k1.backward_plan if which == "backward" else k1.forward_plan
+    return planner(BATCH, HIDDEN, CHANNELS, WIDTH, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)), mode,
+                   torch.device("cuda", 0))
 
 
-def k1_backward_plan_line(mode):
-    """k1_backward_plan as one line of text."""
-    p = k1_backward_plan(mode)
+def k1_plan_line(mode, which):
+    """k1_plan as one line of text."""
+    p = k1_plan(mode, which)
     groups = math.ceil(BATCH / p["lanes_per_block"])
     waves = math.ceil(groups / (p["resident_per_sm"] * p["sms"]))
     return (f"B {BATCH} H {HIDDEN} C {CHANNELS} W {WIDTH}: {p['blocks']} blocks of "
@@ -302,16 +323,26 @@ def k1_backward_plan_line(mode):
             f"{p['shared_bytes']} shared bytes a block")
 
 
-def k1_backward_ptxas(log):
-    """{bwd_group_kernel<chunks, slab type>: ptxas's lines}."""
+def k1_ptxas(log):
+    """{bwd_group_kernel<chunks, slab type> or fwd_group_kernel<slab type>:
+    ptxas's lines}."""
     def label(name):
         kernel = re.search(r"bwd_group_kernelILi(\d)E(f|13__nv_bfloat16)", name)
-        if not kernel:
-            return None
-        slabs = "float" if kernel.group(2) == "f" else "bfloat16"
-        return f"bwd_group_kernel<{kernel.group(1)}, {slabs}>"
+        if kernel:
+            slabs = "float" if kernel.group(2) == "f" else "bfloat16"
+            return f"bwd_group_kernel<{kernel.group(1)}, {slabs}>"
+        kernel = re.search(r"fwd_group_kernelI(f|13__nv_bfloat16)", name)
+        if kernel:
+            return f"fwd_group_kernel<{'float' if kernel.group(1) == 'f' else 'bfloat16'}>"
+        return None
 
     return ptxas_lines(log, label)
+
+
+def fit_kernel_label(name):
+    """K6/K7's kernels' names in ptxas's log, or None."""
+    kernel = re.search(r"(resident|long)_fit_kernel", name)
+    return kernel.group(0) if kernel else None
 
 
 def k8_backward_plan_line():
@@ -470,8 +501,17 @@ def check_k1(label, operands, plan):
     relu_evals = B * n * plan.m * len(k1._chain_form(plan.method)[2]) * W
     bwd_err, bwd_failures = screened_backward(
         "K1", label, lambda g: _gradients(operands, zres, g, plan), gz, relu_evals)
-    return fwd_err, bwd_err, failures + bwd_failures + k1_bit_identical(
-        "K1", label, operands, zres, gz, plan)
+    return fwd_err, bwd_err, (failures + bwd_failures
+                              + k1_forward_bit_identical("K1", label, operands, (out, zres), plan)
+                              + k1_bit_identical("K1", label, operands, zres, gz, plan))
+
+
+def k1_forward_bit_identical(kernel, label, operands, first, plan):
+    """Two K1 forward launches on the same inputs give the same bits."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    return forward_bit_identical(kernel, label, first, lambda: k1.launch_forward(*operands, plan),
+                                 lambda o: {"out": o[0], "zres": o[1]})
 
 
 def k1_bit_identical(kernel, label, operands, zres, gz, plan):
@@ -1037,7 +1077,11 @@ FIT_REPLACES = {
 }
 # BASELINE config 3 (benchmarks/run_benchmarks.py:389-419, bench_cubic_fit).
 FIT_BATCH, FIT_LENGTH, FIT_NAN = 8192, 4096, 0.2
-FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096)
+# The lengths after 4096 are K6/K7's plan boundaries (a row of one warp,
+# 16 x 32 positions, and one past it) and one past the resident maximum,
+# which takes the long-row variant; they come last so that the earlier
+# lengths keep their seeds.
+FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096, 511, 512, 513, 4097)
 FIT_DENSITIES = (0.0, 0.2, 0.8, 1.0)
 SPIRAL_NAN = 0.3
 # The H100 SXM's datasheet rates: HBM bytes per second, float32 operations
@@ -1056,7 +1100,8 @@ BF16_RTOL = 1e-2
 FIT_PARTS = ("a", "b", "two_c", "three_d")
 # The new kernels' names as the profiler reports them (csrc/*.cu).
 FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b", "K4": r"\bthomas_kernel\b",
-                    "K5": r"\bmasked_thomas_kernel\b", "K6/K7": r"\bmasked_fit_kernel\b"}
+                    "K5": r"\bmasked_thomas_kernel\b",
+                    "K6/K7": r"\b(?:resident|long)_fit_kernel\b"}
 
 
 def fit_kernel_modules():
@@ -1270,6 +1315,7 @@ def check_k6(device):
 
     failures, worst = [], 0.0
     for i, length in enumerate(FIT_LENGTHS):
+        plan = masked_cubic_kernel.fit_plan(length)
         t = torch.from_numpy(irregular_times(length, i)).to(device)
         for j, density in enumerate(FIT_DENSITIES):
             rows = _rows_for(length, i)
@@ -1277,9 +1323,13 @@ def check_k6(device):
             for version in (0, 1):
                 got = masked_cubic_kernel.launch(t, x, version)
                 ref = _masked_fit_plain(t.double(), x.double(), version)
-                worst = max(worst, _report_parts(
-                    f"K6/K7 masked fit {rows}x{length} NaN {density:g} version {version}",
-                    got, ref, FWD_RTOL, failures))
+                label = (f"K6/K7 masked fit {rows}x{length} NaN {density:g} version {version} "
+                         f"[{plan.variant}, {plan.threads_per_row} threads a row]")
+                worst = max(worst, _report_parts(label, got, ref, FWD_RTOL, failures))
+                again = masked_cubic_kernel.launch(t, x, version)
+                torch.cuda.synchronize()
+                if not all(_same_bits(a, b) for a, b in zip(got, again)):
+                    failures.append(f"{label}: a second launch differs")
     return worst, failures
 
 
@@ -2383,6 +2433,7 @@ K1_BF16_CASES = [
     ("part block", 2049, 40, 8, 3, 128, "heun", 2, "all"),
     ("striding blocks", 40000, 12, 8, 3, 128, "rk4", 1, "terminal"),
     ("caps width", 200, 16, 8, 3, 512, "midpoint", 3, "subset"),
+    ("eight substeps", 2049, 20, 8, 3, 128, "euler", 8, "subset"),
 ]
 # bench.py:152-160, the repository's headline benchmark: the flagship in
 # mixed precision.
@@ -2475,8 +2526,10 @@ def check_k1_bf16(label, operands, plan):
     grads, plain = gradients(gz)
     bwd_err = max(_bf16_verdict(f"d{name}", g, *(p[i] for p in plain), failures)
                   for i, (name, g) in enumerate(zip(["ct", "z0", "w1", "b1", "w2", "b2"], grads)))
-    return fwd_err, bwd_err, [f"K1-bf16 {f} ({label})" for f in failures] + k1_bit_identical(
-        "K1-bf16", label, operands, zres, gz, plan)
+    return fwd_err, bwd_err, ([f"K1-bf16 {f} ({label})" for f in failures]
+                              + k1_forward_bit_identical("K1-bf16", label, operands, (out, zres),
+                                                         plan)
+                              + k1_bit_identical("K1-bf16", label, operands, zres, gz, plan))
 
 
 def check_k1_bf16_cases(device, model, coeffs):
@@ -2715,8 +2768,7 @@ def time_bf16(device, model, f32_model, coeffs, labels):
                 samples[name].append(start.elapsed_time(end))
     timing.update({f"{name}_flagship_train_step_ms": statistics.median(v) for name, v in samples.items()})
     timing["flagship_train_step_samples_ms"] = samples
-    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_group_kernel\b"}
-    profile = profile_train_steps(model, coeffs, labels, k1_kinds)
+    profile = profile_train_steps(model, coeffs, labels, K1_KINDS)
     return timing, profile
 
 
@@ -2982,7 +3034,7 @@ def main():
         "k1_fwd_ms": fwd_ms, "k1_fwd_plain_ms": plain_fwd_ms,
         "k1_bwd_ms": bwd_ms, "k1_bwd_plain_ms": plain_bwd_ms,
         "k1_fwd_generic_ms": generic_ms[0], "k1_bwd_generic_ms": generic_ms[1],
-        "k1_bwd_plan": k1_backward_plan(0),
+        "k1_fwd_plan": k1_plan(0, "forward"), "k1_bwd_plan": k1_plan(0, "backward"),
     }))
     k2_ms = time_k2(device)
     default_steps = {}
@@ -2995,9 +3047,8 @@ def main():
         **{f"default_B{b}_train_step_ms": m for b, (m, _) in default_steps.items()},
         **{f"default_B{b}_train_step_samples_ms": v for b, (_, v) in default_steps.items()},
     }))
-    k1_kinds = {"k1_fwd": r"\bfwd_kernel\b", "k1_bwd": r"\bbwd_group_kernel\b"}
     print("profile: " + json.dumps(dict(
-        profile_train_steps(model, coeffs, labels, k1_kinds), config="flagship rk4", card=smi)))
+        profile_train_steps(model, coeffs, labels, K1_KINDS), config="flagship rk4", card=smi)))
     for batch in DEFAULT_BATCHES:
         print("profile: " + json.dumps(dict(
             profile_train_steps(*default_model(device, batch), K2_KINDS),
@@ -3092,7 +3143,8 @@ def main():
     elapsed("28")
     bf16_ms, bf16_profile = time_bf16(device, bf16_model, model, coeffs, labels)
     k1b_fwd_bound, k1b_bwd_bound = k1_bounds(bf16=True)
-    print("timing: " + json.dumps({"card": smi, **bf16_ms, "k1_bf16_bwd_plan": k1_backward_plan(1),
+    print("timing: " + json.dumps({"card": smi, **bf16_ms, "k1_bf16_fwd_plan": k1_plan(1, "forward"),
+                                   "k1_bf16_bwd_plan": k1_plan(1, "backward"),
                                    "k1_bf16_fwd_bound_ms": k1b_fwd_bound[0],
                                    "k1_bf16_bwd_bound_ms": k1b_bwd_bound[0],
                                    "bf16_slices": bf16_report}))

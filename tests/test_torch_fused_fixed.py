@@ -329,3 +329,56 @@ def test_backward_launch_wrapper_with_plain_stand_ins(dtype, blocks, monkeypatch
         step = 2.0 ** -7 if mode else 1e-6
         scale = float(e.abs().max())
         torch.testing.assert_close(g.float(), e.float(), rtol=0.0, atol=step * scale, msg=name)
+
+
+@pytest.mark.parametrize("blocks", [1, 3])  # one block; several, whose lanes stride
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])  # the slab table's modes
+def test_forward_launch_wrapper_with_plain_stand_ins(dtype, blocks, monkeypatch):
+    """The forward kernel runs only on the card: stand-ins for its plan
+    (``forward_plan``) and for the kernel (the plain forward into the
+    wrapper's outputs) drive the forward wrapper's own code, which plans the
+    launch, allocates the outputs and passes the plan's blocks on.  One
+    forward launch per solve, in the slab table's mode, and the solution is
+    the plain route's."""
+    mode = int(dtype == torch.bfloat16)
+    launch = dict(variant=0, blocks=blocks, threads=64, lanes_per_block=8, threads_per_lane=8,
+                  resident_per_sm=8, sms=blocks, shared_bytes=18528)
+    field = _plain_field(dtype)
+    expected = _fused_solve_and_grads(field, dtype)[0]
+    seen = []
+
+    def planned(B_, H, C_, W_, plan, mode_, device):
+        assert (B_, H, C_, W_, mode_) == (B, 8, C, W, mode) and device == torch.device("cpu")
+        return launch
+
+    def forward_kernel(ops, outs, shape, plan, mode_, planned_launch):
+        assert planned_launch is launch and shape == (B, N, 8, C, W) and mode_ == mode
+        out, zres = outs
+        assert out.shape == (len(plan.out_knots), 8, B) and zres.shape == (N, 8, B)
+        assert out.dtype == zres.dtype == torch.float32 and ops[0].dtype == dtype
+        with torch.no_grad():
+            zres.copy_(k1.fused_fixed_solve_reference(*ops, plan.method, plan.m, plan.dt_sub,
+                                                      tuple(range(1, N + 1))))
+        out.copy_(zres[[k - 1 for k in plan.out_knots]])
+        seen.append(plan)
+
+    def solve(ct, z0t, w1t, b1, w2t, b2, method, m, dt_sub, out_knots):
+        return k1._FusedFixedSolve.apply(ct, z0t, w1t, b1, w2t, b2,
+                                         k1._Plan(method, m, dt_sub, tuple(out_knots)))
+
+    monkeypatch.setattr(k1, "forward_plan", planned)
+    monkeypatch.setattr(k1, "_forward_kernel", forward_kernel)
+    monkeypatch.setattr(k1, "check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(k1, "fused_fixed_solve", solve)
+    k1.reset_launch_counts()
+    rng = np.random.default_rng(8)
+    rows = [torch.from_numpy(rng.standard_normal((B, N, C)) * 0.3).to(dtype) for _ in range(3)]
+    z0 = torch.from_numpy(rng.standard_normal((B, 8))).to(dtype)
+    with torch.no_grad():
+        got = k1.try_fused_mlp(rows, z0, field, "rk4", 2, 0.5, N, out_knots=(0, 5, N))
+    assert (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES) == (1, 0)
+    assert (k1.BF16_FWD_LAUNCHES, k1.BF16_BWD_LAUNCHES) == (mode, 0)
+    assert [p.out_knots for p in seen] == [(5, N)]
+    k1.reset_launch_counts()
+    assert got.dtype == expected.dtype
+    torch.testing.assert_close(got, expected, rtol=1e-6, atol=0.0)

@@ -233,3 +233,249 @@ def test_exports_and_alias():
     np.testing.assert_allclose(spline.evaluate(3.0).numpy(),
                                np.asarray(tc.NaturalCubicSpline(jnp.asarray(coeffs.numpy()))
                                           .evaluate(3.0)), rtol=VALUE_TOL, atol=VALUE_TOL)
+
+
+# --------------------------------------------------------------------------
+# The algebra of K6/K7's resident design (csrc/masked_cubic.cu): each row cut
+# into chunks of consecutive positions, every recurrence of the masked fit
+# composed per chunk and scanned across the chunks, then run in each chunk
+# from its carry-in.  A short emulation in torch, vectorised over rows and
+# chunks, with the scans as Hillis-Steele doubling over the chunks.
+
+def _shifted(elems, d, identity, reverse):
+    """elems (tuples of (rows, chunks) tensors) moved d chunks along the
+    scan's direction, the identity shifted in."""
+    out = []
+    for e, i in zip(elems, identity):
+        fill = torch.full_like(e[:, :d], i)
+        out.append(torch.cat([e[:, d:], fill], 1) if reverse else torch.cat([fill, e[:, :-d]], 1))
+    return tuple(out)
+
+
+def _scan(elems, compose, identity, reverse=False):
+    """Exclusive scan over the chunks: chunk c gets the composition of the
+    chunks before it in the scan's direction (after it when reverse)."""
+    d = 1
+    while d < elems[0].shape[1]:
+        elems = compose(_shifted(elems, d, identity, reverse), elems)
+        d *= 2
+    return _shifted(elems, 1, identity, reverse)
+
+
+def _select(first, second):  # (present, values...): the later present element wins
+    present = second[0] > 0
+    return tuple(torch.where(present, s, f) for f, s in zip(first, second))
+
+
+def _affine(first, second):  # x -> a x + b, first applied first
+    return second[0] * first[0], second[0] * first[1] + second[1]
+
+
+def _rescale(m, rescale):
+    """A 2x2 Moebius matrix divided by the power of two at or below its
+    largest entry (which lands in [1, 2)): the map it stands for is
+    unchanged, its entries stay in range."""
+    if not rescale:
+        return m
+    big = torch.stack([v.abs() for v in m]).amax(0)
+    _, exponent = torch.frexp(big)
+    exponent = torch.where(big > 0, exponent - 1, 0)
+    return tuple(torch.ldexp(v, -exponent) for v in m)
+
+
+def _moebius(rescale):
+    def compose(first, second):  # second @ first
+        a, b, c, d = first
+        e, f, g, h = second
+        return _rescale((e * a + f * c, e * b + f * d, g * a + h * c, g * b + h * d), rescale)
+    return compose
+
+
+def _chunked_fit(t, x, version, positions=16, rescale=True):
+    """K6/K7's function (``_masked_fit_plain``) by chunks and scans, in x's
+    dtype: t (k,), x (rows, k) -> (a, b, two_c, three_d), each (rows, k - 1)."""
+    rows, k = x.shape
+    nc = -(-k // positions)
+    K = nc * positions
+    pos = torch.arange(K)
+    xp = torch.full((rows, K), float("nan"), dtype=x.dtype)
+    xp[:, :k] = x
+    tp = torch.zeros(K, dtype=x.dtype)
+    tp[:k] = t
+    # Phase 0: the first and last observed positions (a reduction).
+    seen = ~torch.isnan(xp)
+    first = torch.where(seen, pos, K).amin(-1, keepdim=True)
+    last = torch.where(seen, pos, -1).amax(-1, keepdim=True)
+    first, last = torch.where(first == K, 0, first), torch.where(first == K, k - 1, last)
+    v_first, v_last = xp.gather(1, first), xp.gather(1, last)
+    missing = torch.isnan(xp) & (pos < k)
+    if version == 0:
+        fill = torch.where(pos == 0, v_first, torch.where(pos == k - 1, v_last, xp))
+    else:
+        fill = torch.where(pos < first, v_first, torch.where(pos > last, v_last, xp))
+    v = torch.where(missing, fill, xp)
+    obs = (~torch.isnan(v)) & (pos < k)
+    xs = torch.where(obs, v, 0.0)
+    ob, xs = obs.reshape(rows, nc, positions), xs.reshape(rows, nc, positions)
+    tc_ = tp.reshape(nc, positions).expand(rows, nc, positions)
+    zero = torch.zeros((rows, nc), dtype=x.dtype)
+    one = torch.ones_like(zero)
+    U = range(positions)
+
+    # Phase 1 (reverse): the next observed (value, time), a select-carry.
+    elem = (zero, zero, zero)
+    for u in reversed(U):
+        elem = _select(elem, (ob[..., u].to(x.dtype), xs[..., u], tc_[..., u]))
+    later, cx, ct = _scan(elem, _select, (0.0, 0.0, 0.0), reverse=True)
+    later = later > 0
+    hr, sph, pds = (torch.zeros_like(xs) for _ in range(3))
+    for u in reversed(U):
+        o = ob[..., u]
+        on = o & later
+        h = torch.where(on, 1.0 / torch.where(on, ct - tc_[..., u], 1.0), 0.0)
+        hr[..., u] = h
+        sph[..., u] = 6.0 * (cx - xs[..., u]) * h
+        pds[..., u] = 0.5 * sph[..., u] * h
+        cx, ct = torch.where(o, xs[..., u], cx), torch.where(o, tc_[..., u], ct)
+        later = later | o
+
+    # Phase 2: the previous observed (hr, pds), a select-carry; the Thomas
+    # diagonal, a Moebius scan; its right-hand side, an affine scan.
+    elem = (zero, zero, zero)
+    for u in U:
+        elem = _select(elem, (ob[..., u].to(x.dtype), hr[..., u], pds[..., u]))
+    _, hp0, pp0 = _scan(elem, _select, (0.0, 0.0, 0.0))
+    mob = _moebius(rescale)
+    m, hp = (one, zero, zero, one), hp0
+    for u in U:
+        o = ob[..., u]
+        dg = 2.0 * (hp + hr[..., u])
+        dg = torch.where(dg > 0, dg, 1.0)
+        step = mob(m, (dg, -hp * hp, one, zero))
+        m = tuple(torch.where(o, s, v) for s, v in zip(step, m))
+        hp = torch.where(o, hr[..., u], hp)
+    a, b, c, d = _scan(m, mob, (1.0, 0.0, 0.0, 1.0))
+    prev_d = (a + b) / (c + d)  # the carried map applied to d = 1
+    nd, nb, w, r = (torch.zeros_like(xs) for _ in range(4))
+    aff, hp, pp = (one, zero), hp0, pp0
+    for u in U:
+        o = ob[..., u]
+        dg = 2.0 * (hp + hr[..., u])
+        dg = torch.where(dg > 0, dg, 1.0)
+        wu = hp / prev_d
+        ru = pp + pds[..., u]
+        du = dg - wu * hp
+        nd[..., u], w[..., u], r[..., u] = torch.where(o, du, 1.0), wu, ru
+        aff = tuple(torch.where(o, s, v) for s, v in zip(_affine(aff, (-wu, ru)), aff))
+        prev_d = torch.where(o, du, prev_d)
+        hp, pp = torch.where(o, hr[..., u], hp), torch.where(o, pds[..., u], pp)
+    _, prev_b = _scan(aff, _affine, (1.0, 0.0))
+    for u in U:
+        o = ob[..., u]
+        bu = r[..., u] - w[..., u] * prev_b
+        nb[..., u] = torch.where(o, bu, 0.0)
+        prev_b = torch.where(o, bu, prev_b)
+
+    # Phase 3 (reverse): back substitution, an affine scan of kd in kd at
+    # the next observed knot.
+    aff = (one, zero)
+    for u in reversed(U):
+        o = ob[..., u]
+        step = _affine(aff, (-hr[..., u] / nd[..., u], nb[..., u] / nd[..., u]))
+        aff = tuple(torch.where(o, s, v) for s, v in zip(step, aff))
+    _, kdn = _scan(aff, _affine, (1.0, 0.0), reverse=True)
+    kd, c0, d0 = (torch.zeros_like(xs) for _ in range(3))
+    for u in reversed(U):
+        o = ob[..., u]
+        h, s6 = hr[..., u], sph[..., u]
+        kdu = torch.where(o, (nb[..., u] - h * kdn) / nd[..., u], 0.0)
+        kd[..., u] = kdu
+        c0[..., u] = (s6 - 4.0 * kdu - 2.0 * kdn) * h
+        d0[..., u] = (-s6 + 3.0 * (kdu + kdn)) * h * h
+        kdn = torch.where(o, kdu, kdn)
+
+    # Phase 4: the polynomial of the last observed knot at or before each
+    # position (position 0's before any), a select-carry, re-based.
+    start = ob | (pos.reshape(nc, positions) == 0)
+    elem = (zero,) * 6
+    for u in U:
+        elem = _select(elem, (start[..., u].to(x.dtype), xs[..., u], kd[..., u], c0[..., u],
+                              d0[..., u], tc_[..., u]))
+    carry = _scan(elem, _select, (0.0,) * 6)[1:]
+    outs = [torch.zeros_like(xs) for _ in range(4)]
+    for u in U:
+        carry = tuple(torch.where(start[..., u], v, cv) for v, cv in zip(
+            (xs[..., u], kd[..., u], c0[..., u], d0[..., u], tc_[..., u]), carry))
+        ca, cb, cc, cd, cto = carry
+        off = cto - tc_[..., u]
+        outs[0][..., u] = ca + ((0.5 * cc - cd * off / 3.0) * off - cb) * off
+        outs[1][..., u] = cb + (cd * off - cc) * off
+        outs[2][..., u] = cc - 2.0 * cd * off
+        outs[3][..., u] = cd
+    return tuple(o.reshape(rows, K)[:, :k - 1] for o in outs)
+
+
+def _chunked_case(density, seed):
+    """Eight rows of length 4096 at this NaN density, with a leading and a
+    trailing NaN run, a single observation and an all-NaN row; irregular
+    times."""
+    rng = np.random.default_rng(seed)
+    k = 4096
+    x = rng.standard_normal((8, k)).astype(np.float32)
+    x[rng.random(x.shape) < density] = np.nan
+    x[0, :800] = np.nan
+    x[1, -800:] = np.nan
+    x[2] = np.nan
+    x[2, 2000] = 1.5
+    x[3] = np.nan
+    t = np.cumsum(rng.uniform(0.2, 1.5, k)).astype(np.float32)
+    return torch.from_numpy(t), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("version", [0, 1])
+@pytest.mark.parametrize("density", [0.0, 0.2, 0.8, 1.0])
+def test_chunked_scans_give_the_masked_fit(density, version):
+    """In float32 at k 4096 in 256 chunks of 16 positions, the chunked
+    recurrences and scans give the plain pipeline's fit in float64 within
+    1e-4 of each output's largest magnitude (or 1), as chip_smoke.py holds
+    the kernel."""
+    t, x = _chunked_case(density, seed=int(10 * density) + version)
+    got = _chunked_fit(t, x, version)
+    expected = cubic._masked_fit_plain(t.double(), x.double(), version)
+    for name, g, e in zip(("a", "b", "two_c", "three_d"), got, expected):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        limit = 1e-4 * max(1.0, float(e.abs().max()))
+        assert float((g.double() - e).abs().max()) <= limit, name
+
+
+def test_unrescaled_moebius_scan_overflows():
+    """Without rescaling, the Moebius product over a long observed run
+    overflows float32 (the diagonal grows by ~3.7 a knot over 4096 knots),
+    and the fit is lost: why each composition is rescaled."""
+    t, x = _chunked_case(0.0, seed=0)
+    got = _chunked_fit(t, x, 0, rescale=False)
+    assert not all(bool(torch.isfinite(g).all()) for g in got)
+    assert all(bool(torch.isfinite(g).all()) for g in _chunked_fit(t, x, 0))
+
+
+@pytest.mark.parametrize("k, variant, threads_per_row", [
+    (2, "resident", 1), (3, "resident", 1), (16, "resident", 1), (17, "resident", 2),
+    (16 * 32 - 1, "resident", 32), (16 * 32, "resident", 32), (16 * 32 + 1, "resident", 64),
+    (4096, "resident", 256), (4097, "long", 1)])
+def test_fit_plan_boundaries(k, variant, threads_per_row):
+    """The plan picks K6/K7's variant and threads per row from k: the
+    resident variant holds 16 positions a thread, a row in a power of two of
+    threads (several rows a block of 256 for short rows) up to 4096
+    positions; longer rows take the long-row variant, one thread a row."""
+    plan = masked_cubic_kernel.fit_plan(k)
+    assert (plan.variant, plan.threads_per_row) == (variant, threads_per_row)
+    assert plan.threads_per_row * plan.rows_per_block == plan.threads
+    if variant == "resident":
+        assert (plan.threads, plan.positions) == (256, 16)
+        assert plan.threads_per_row * 16 >= k > plan.threads_per_row * 8 or k <= 16
+    assert masked_cubic_kernel.RESIDENT_MAX == 4096
+
+
+def test_fit_plan_rejects_short_rows():
+    with pytest.raises(ValueError):
+        masked_cubic_kernel.fit_plan(1)

@@ -1,8 +1,8 @@
-"""Times the fused kernels (K1 in float32 and bfloat16, K2, K8, K9) and the
-flagship's, the default configuration's and config 5's train steps in one
-checkout.
+"""Times the fused kernels (K1 in float32 and bfloat16, K2, K8, K9), the
+masked fit's K6/K7, and the flagship's, the default configuration's and
+config 5's train steps and config 3's masked fit in one checkout.
 
-    python3 time_kernels.py [ROOT]
+    python3 time_kernels.py [ROOT] [--parts k2,k9,k8,k1,fit]
 
 imports the port and its ``chip_smoke.py`` from the checkout at ROOT (by
 default this script's directory), builds its kernels, and prints one JSON
@@ -18,10 +18,14 @@ mesh (a backward's time follows them), K8's forward and backward at config
 5's operands (as phase 20 times them) with the backward's launch plan where
 the checkout reports it, config 5's train step with the adjoint, K1's
 forward and backward at the flagship in float32 and in bfloat16 (as phases
-8 and 28 time them) with the backward's launch plan where the checkout
-reports it, the flagship's train step in both precisions (median of 10),
-and ptxas's report for each kernel of K1, K2, K8 and K9 (registers, stack
-frame, spills).  To compare two commits on one card,
+8 and 28 time them) with both launch plans where the checkout reports
+them, the flagship's train step in both precisions (median of 10), K6/K7
+at config 3 (as phase 13 times it) and config 3's NaN-masked fit forward
+through ``natural_cubic_coeffs``, and ptxas's report for each kernel of
+K1, K2, K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts``
+keeps some of the groups (k2: K2 and the default steps, K2's linear mode
+and caps case; k9; k8: K8 and config 5's step; k1: K1 and the flagship
+steps; fit: K6/K7 and the fit).  To compare two commits on one card,
 unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
@@ -191,16 +195,44 @@ def time_k1(cs, device, coeffs, labels):
         timing[f"{name}_fwd_ms"] = cs._event_ms(lambda: k1.launch_forward(*ops, plan), 10)
         timing[f"{name}_bwd_ms"] = cs._event_ms(
             lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5)
-        if hasattr(k1, "backward_plan"):
-            timing[f"{name}_bwd_plan"] = k1.backward_plan(
-                p.ct.shape[3], p.z0t.shape[0], p.ct.shape[2], p.w1t.shape[0], plan, mode, device)
+        shape = (p.ct.shape[3], p.z0t.shape[0], p.ct.shape[2], p.w1t.shape[0], plan, mode, device)
+        for which, short in (("forward", "fwd"), ("backward", "bwd")):
+            if hasattr(k1, f"{which}_plan"):
+                timing[f"{name}_{short}_plan"] = getattr(k1, f"{which}_plan")(*shape)
         flagship = "flagship" if mode == 0 else "flagship_bf16"
         timing[f"{flagship}_train_step_ms"] = step_ms(cs, model, coeffs, labels)
     return timing
 
 
+def time_fit(cs, device):
+    """K6/K7's ms at config 3 (one launch, version 1, as phase 13 times it)
+    and config 3's NaN-masked fit forward through ``natural_cubic_coeffs``
+    (CUDA events, 5 calls)."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.ops import masked_cubic_kernel as mk
+
+    masked, _ = cs.config3_data()
+    x = torch.from_numpy(masked).to(device)
+    x2 = x[..., 0].contiguous()
+    t = torch.arange(x2.shape[1], dtype=torch.float32, device=device)
+    timing = {"k6_ms": cs._event_ms(lambda: mk.launch(t, x2, 1), 10)}
+    with torch.no_grad():
+        timing["masked_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(x), 5)
+    if hasattr(mk, "fit_plan"):
+        timing["k6_plan"] = mk.fit_plan(x2.shape[1])._asdict()
+    return timing
+
+
+PARTS = ("k2", "k9", "k8", "k1", "fit")
+
+
 def main():
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(__file__))
+    args = [a for a in sys.argv[1:] if not a.startswith("--parts")]
+    parts = PARTS
+    for a in sys.argv[1:]:
+        if a.startswith("--parts="):
+            parts = tuple(a.split("=", 1)[1].split(","))
+    root = os.path.abspath(args[0] if args else os.path.dirname(__file__))
     sys.path.insert(0, root)
     import chip_smoke as cs
     from torchcde_tpu_torch import _build
@@ -209,20 +241,25 @@ def main():
         raise SystemExit(f"time_kernels: imported the port from {_build.__file__}, not from {root}")
     smi, device = cs.phase_device()
     _path, seconds, log = _build.build()
-    k2, default_steps = {}, {}
-    for batch in (4096, 256):
-        k2.update(time_k2_default(cs, device, batch))
-        default_steps[f"default_B{batch}_train_step_ms"] = step_ms(
-            cs, *cs.default_model(device, batch))
-    _model, coeffs, labels = cs.default_model(device, 4096)
-    k2_linear = time_k2_linear(cs, device)
-    k2_caps = time_k2_caps(cs, device)
-    k9 = time_k9(cs, device) if hasattr(cs, "per_sample_problem") else {}
-    k8 = time_k8(cs, device)
-    k1 = time_k1(cs, device, coeffs, labels)
-    print(json.dumps({"root": root, "card": smi, "build_s": seconds, **k2, **default_steps,
-                      **k2_linear, **k2_caps, **k9, **k8, **k1, "ptxas": ptxas_report(log)}),
-          flush=True)
+    timing = {}
+    if "k2" in parts:
+        for batch in (4096, 256):
+            timing.update(time_k2_default(cs, device, batch))
+            timing[f"default_B{batch}_train_step_ms"] = step_ms(
+                cs, *cs.default_model(device, batch))
+        timing.update(time_k2_linear(cs, device))
+        timing.update(time_k2_caps(cs, device))
+    if "k9" in parts and hasattr(cs, "per_sample_problem"):
+        timing.update(time_k9(cs, device))
+    if "k8" in parts:
+        timing.update(time_k8(cs, device))
+    if "k1" in parts:
+        _model, coeffs, labels = cs.default_model(device, 4096)
+        timing.update(time_k1(cs, device, coeffs, labels))
+    if "fit" in parts:
+        timing.update(time_fit(cs, device))
+    print(json.dumps({"root": root, "card": smi, "build_s": seconds, "parts": list(parts),
+                      **timing, "ptxas": ptxas_report(log)}), flush=True)
 
 
 if __name__ == "__main__":

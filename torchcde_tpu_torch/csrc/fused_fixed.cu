@@ -37,26 +37,26 @@
 // C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
 //
 // Specialised variant (H and C compile-time; instantiated for the flagship
-// H 8, C 3 at every width of the caps, W <= 512).
-//  * The forward: one thread per batch lane loops over the intervals; this
-//    replaces the TPU's sequential grid axis and its VMEM carry of z.
-//    Blocks are one warp (32 lanes), so a 4096 batch spreads over 128 SMs.
-//    The weights (W*H + C*H*W + W + C*H floats, ~17 KB at the flagship) sit
-//    in shared memory and are read as warp-wide broadcasts, and the hidden
-//    layer streams over W: each h1_w is computed and folded into the C*H
-//    pre-activation accumulators at once (mlp_forward, cde_stage.cuh,
-//    shared with the reversible forward of fused_reversible.cu).
+// H 8, C 3 at every width of the caps, W <= 512).  Both directions run a
+// group of FB_G threads per batch lane, each owning every FB_G-th hidden
+// row, so that a 4096 batch fills the card with several warps per SM, and
+// blocks of lanes share one copy of the weights (FB_REC-float records), as
+// many blocks as the SMs hold at once (blocks stride over the lane groups
+// beyond that).
+//  * The forward ("Specialised forward" below): a group of FB_G threads per
+//    lane runs the lane's chain replicated in registers, each evaluation
+//    split over the group's rows (fb_eval, the same stage evaluation as the
+//    backward's recompute); blocks of FF_LANES lanes.  Its shared memory is
+//    the weight records and b2 alone.  This replaces the TPU's sequential
+//    grid axis and its VMEM carry of z.
 //  * The backward ("Specialised backward" below) recomputes each interval's
 //    substeps and stages from the stored knot state, as the TPU kernel
-//    does, with a group of FB_G threads per lane, each owning every FB_G-th
-//    hidden row, so that a 4096 batch fills the card with several warps per
-//    SM.  Blocks of FB_LANES lanes share one copy of the weights, as many
-//    blocks as the SMs hold (at the flagship one wave), and each thread
-//    keeps a register tile of the weight gradients summed over its block's
-//    lanes, written once as the block's partial and summed after the
+//    does, with FB_G threads per lane and blocks of FB_LANES lanes, and each
+//    thread keeps a register tile of the weight gradients summed over its
+//    block's lanes, written once as the block's partial and summed after the
 //    launch, as the JAX package sums its per-tile partials: deterministic,
 //    no float atomics.
-//
+
 // Generic variant (H, C and W at run time; every other shape).  Its stage
 // math (gen_mlp, gen_stage_vjp) is in cde_generic.cuh, shared with the
 // reversible kernels.
@@ -106,71 +106,6 @@ struct Tableau {
 __device__ __forceinline__ float stage_fraction(const Tableau& tab, int s,
                                                 int st, double dt) {
   return (float)((double)s * dt + tab.alpha_dt[st]);
-}
-
-// One substep (all stages) from z, in place.  With ys != nullptr the stage
-// inputs are kept for the backward.
-template <int H, int C, bool MX>
-__device__ void substep(const Smem<H, C>& sm, int W, const Tableau& tab,
-                        int s, double dt, const float (&sb)[C],
-                        const float (&sc)[C], const float (&sd)[C],
-                        float (&z)[H], float (*ys)[H]) {
-  constexpr int CH = C * H;
-  float znew[H], k[H];
-#pragma unroll
-  for (int h = 0; h < H; ++h) { znew[h] = z[h]; k[h] = 0.f; }
-  for (int st = 0; st < tab.n_stages; ++st) {
-    float y[H];
-#pragma unroll
-    for (int h = 0; h < H; ++h) y[h] = st ? z[h] + tab.a_dt[st] * k[h] : z[h];
-    if (ys) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) ys[st][h] = y[h];
-    }
-    float dx[C], g[CH];
-    control_derivative<C>(sb, sc, sd, stage_fraction(tab, s, st, dt), dx);
-    mlp_forward<H, C, MX>(sm, W, y, g);
-    contract<H, C>(g, dx, k);
-    if (tab.c_dt[st] != 0.f) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) znew[h] += tab.c_dt[st] * k[h];
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < H; ++h) z[h] = znew[h];
-}
-
-template <int H, int C, typename T, bool MX>
-__global__ void __launch_bounds__(LANES)
-    fwd_kernel(const T* __restrict__ ct, const float* __restrict__ z0t,
-               const float* __restrict__ w1t, const float* __restrict__ b1,
-               const float* __restrict__ w2t, const float* __restrict__ b2,
-               const int* __restrict__ slot, float* __restrict__ out,
-               float* __restrict__ zres, int B, int n, int W, int m,
-               double dt, Tableau tab) {
-  extern __shared__ float smem[];
-  const Smem<H, C> sm(smem, W);
-  load_field<H, C>(sm, w1t, b1, w2t, b2, W);
-  __syncthreads();
-  const int lane = blockIdx.x * LANES + threadIdx.x;
-  if (lane >= B) return;
-
-  float z[H];
-#pragma unroll
-  for (int h = 0; h < H; ++h) z[h] = z0t[(size_t)h * B + lane];
-  for (int j = 0; j < n; ++j) {
-    float sb[C], sc[C], sd[C];
-    load_slab<H, C, T>(ct, j, B, lane, true, sb, sc, sd);
-    for (int s = 0; s < m; ++s)
-      substep<H, C, MX>(sm, W, tab, s, dt, sb, sc, sd, z, nullptr);
-#pragma unroll
-    for (int h = 0; h < H; ++h) zres[((size_t)j * H + h) * B + lane] = z[h];
-    const int sl = slot[j];
-    if (sl >= 0) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) out[((size_t)sl * H + h) * B + lane] = z[h];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -246,24 +181,34 @@ __host__ __device__ inline size_t fb_smem_floats(int W) {
          (size_t)FB_LANES * FB_RIGHT;
 }
 
-// The block's shared memory; every offset is a multiple of 4 floats.
-struct FbShared {
-  float* rec;    // [rows][FB_REC]  w1t row, w2t column, b1; zero past W
-  float* b2;     // [24]
+// The weights in a block's shared memory, all the forward keeps there.
+struct FbWeights {
+  float* rec;  // [rows][FB_REC]  w1t row, w2t column, b1; zero past W
+  float* b2;   // [24]
+  int rows;
+  __device__ FbWeights(float* base, int W)
+      : rec(base), b2(base + (size_t)fb_rows(W) * FB_REC), rows(fb_rows(W)) {}
+};
+
+__host__ __device__ inline size_t fb_weight_floats(int W) {
+  return (size_t)fb_rows(W) * FB_REC + FB_CH;
+}
+
+// The backward's shared memory: the weights, then the staged products;
+// every offset is a multiple of 4 floats.
+struct FbShared : FbWeights {
   float* h1;     // [FB_LANES][S]   the lanes' h1 ...
   float* dp1;    // [FB_LANES][S]   ... and dp1, 16 floats (half the banks) further on
   float* right;  // [FB_LANES][FB_RIGHT]
-  int rows, S;
-  __device__ FbShared(float* base, int W) : rows(fb_rows(W)), S(fb_stride(W)) {
-    rec = base;
-    b2 = rec + (size_t)rows * FB_REC;
+  int S;
+  __device__ FbShared(float* base, int W) : FbWeights(base, W), S(fb_stride(W)) {
     h1 = b2 + FB_CH;
     dp1 = h1 + FB_LANES * S + 16;
     right = dp1 + FB_LANES * S;
   }
 };
 
-__device__ void fb_load_field(const FbShared& s, const float* __restrict__ w1t,
+__device__ void fb_load_field(const FbWeights& s, const float* __restrict__ w1t,
                               const float* __restrict__ b1, const float* __restrict__ w2t,
                               const float* __restrict__ b2, int W) {
   for (int i = threadIdx.x; i < s.rows * FB_REC; i += blockDim.x) {
@@ -335,18 +280,17 @@ __device__ __forceinline__ void fb_group_sum(float (&v)[N]) {
   }
 }
 
-// g = tanh(W2 relu(W1 y + b1) + b2) for lane l, by its group; thread r
+// g = tanh(W2 relu(W1 y + b1) + b2) for one lane, by its group; thread r
 // walks rows r, r + FB_G, ... in mlp_forward's order per row.  With STAGE,
-// each row's h1 goes to the lane's row of s.h1.
+// each row's h1 goes to the lane's row h1 (in shared memory).
 template <bool MX, bool STAGE>
-__device__ __forceinline__ void fb_eval(const FbShared& s, int l, int r,
+__device__ __forceinline__ void fb_eval(const FbWeights& s, float* h1, int r,
                                         const float (&y)[FB_H], float (&g)[FB_CH]) {
   float yr[FB_H];
 #pragma unroll
   for (int h = 0; h < FB_H; ++h) yr[h] = mx_round<MX>(y[h]);
 #pragma unroll
   for (int q = 0; q < FB_CH; ++q) g[q] = 0.f;
-  float* h1 = s.h1 + l * s.S;
 #pragma unroll 2
   for (int w = r; w < s.rows; w += FB_G) {
     const float* rec = s.rec + w * FB_REC;
@@ -466,7 +410,7 @@ __device__ __forceinline__ void fb_vjp(const FbShared& s, int l, int r, const fl
                                        const float (&y)[FB_H], const float (&dx)[FB_C],
                                        float (&dy)[FB_H], float (&ddx)[FB_C], FbTile<R>& t) {
   float g[FB_CH];
-  fb_eval<MX, true>(s, l, r, y, g);
+  fb_eval<MX, true>(s, s.h1 + l * s.S, r, y, g);
   float dp2[FB_CH];
 #pragma unroll
   for (int i = 0; i < FB_C; ++i) {
@@ -541,10 +485,11 @@ __device__ __forceinline__ void fb_vjp(const FbShared& s, int l, int r, const fl
   __syncthreads();
 }
 
-// One substep from z, all stages, in place; with ys, only the stage inputs
-// ys[0 .. S-1] (the last stage is not evaluated) and z is left as it was.
+// One substep from z, all stages, in place, by the lane's group; with ys,
+// only the stage inputs ys[0 .. S-1] (the last stage is not evaluated) and
+// z is left as it was.
 template <bool MX>
-__device__ __forceinline__ void fb_substep(const FbShared& s, int l, int r, const Tableau& tab,
+__device__ __forceinline__ void fb_substep(const FbWeights& s, int r, const Tableau& tab,
                                            int step, double dt, const float (&sb)[FB_C],
                                            const float (&sc)[FB_C], const float (&sd)[FB_C],
                                            float (&z)[FB_H], float (*ys)[FB_H]) {
@@ -565,7 +510,7 @@ __device__ __forceinline__ void fb_substep(const FbShared& s, int l, int r, cons
     }
     float dx[FB_C], g[FB_CH];
     control_derivative<FB_C>(sb, sc, sd, stage_fraction(tab, step, st, dt), dx);
-    fb_eval<MX, false>(s, l, r, y, g);
+    fb_eval<MX, false>(s, nullptr, r, y, g);
     contract<FB_H, FB_C>(g, dx, k);
     if (tab.c_dt[st] != 0.f) {
 #pragma unroll
@@ -575,6 +520,69 @@ __device__ __forceinline__ void fb_substep(const FbShared& s, int l, int r, cons
   if (!ys) {
 #pragma unroll
     for (int h = 0; h < FB_H; ++h) z[h] = znew[h];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Specialised forward (H 8, C 3): the backward's group of FB_G threads per
+// lane, blocks of FF_LANES lanes that share one copy of the weights, as
+// many blocks as the SMs hold at once (blocks stride over the lane groups
+// beyond that).
+//
+// The lane's chain (z, the stage inputs and k) runs replicated in its
+// group's threads, in registers; each evaluation is fb_eval, thread r
+// owning the hidden rows w = r (mod FB_G), the second layer's sums scattered
+// and gathered by shuffle butterflies, so every thread of the group holds
+// the same bits of g and of the state, and the forward's stage values are
+// the backward's recompute's.  In the bfloat16 mode y and each thread's own
+// h1 are rounded where fb_eval rounds them, off the lane's serial chain.
+// The block's shared memory holds the weight records and b2 only
+// (fb_weight_floats: 18.5 KB at W 128), so many blocks fit an SM.  Thread r
+// writes state row h = r of zres and of the requested outputs (H = FB_G);
+// the slab rows are read by every thread of the group (one address a group,
+// served by L1).
+
+// 8-lane blocks: on an H100 at the flagship, 32-lane blocks took 1.30x as
+// long and 16-lane ones up to 2 % longer; 4 threads a lane in 8-, 16- or
+// 32-lane blocks gained nothing (PERF.md).
+constexpr int FF_LANES = 8;  // lanes per block of the forward
+constexpr int FF_THREADS = FF_LANES * FB_G;
+static_assert(FB_H == FB_G, "thread r of a group writes state row r");
+
+template <typename T, bool MX>
+__global__ void __launch_bounds__(FF_THREADS)
+    fwd_group_kernel(const T* __restrict__ ct, const float* __restrict__ z0t,
+                     const float* __restrict__ w1t, const float* __restrict__ b1,
+                     const float* __restrict__ w2t, const float* __restrict__ b2,
+                     const int* __restrict__ slot, float* __restrict__ out,
+                     float* __restrict__ zres, int B, int n, int W, int m, double dt,
+                     Tableau tab) {
+  extern __shared__ float4 ff_smem[];
+  const FbWeights s(reinterpret_cast<float*>(ff_smem), W);
+  fb_load_field(s, w1t, b1, w2t, b2, W);
+  __syncthreads();
+
+  const int l = threadIdx.x / FB_G, r = threadIdx.x % FB_G;
+  for (int grp = blockIdx.x; grp < (B + FF_LANES - 1) / FF_LANES; grp += gridDim.x) {
+    const int lane = grp * FF_LANES + l;
+    const bool live = lane < B;
+    float z[FB_H];
+#pragma unroll
+    for (int h = 0; h < FB_H; ++h) z[h] = live ? z0t[(size_t)h * B + lane] : 0.f;
+    for (int j = 0; j < n; ++j) {
+      float sb[FB_C], sc[FB_C], sd[FB_C];
+      load_slab<FB_H, FB_C, T>(ct, j, B, lane, live, sb, sc, sd);
+      for (int step = 0; step < m; ++step)
+        fb_substep<MX>(s, r, tab, step, dt, sb, sc, sd, z, nullptr);
+      if (!live) continue;
+      const int sl = slot[j];
+#pragma unroll
+      for (int h = 0; h < FB_H; ++h) {
+        if (h != r) continue;
+        zres[((size_t)j * FB_H + h) * B + lane] = z[h];
+        if (sl >= 0) out[((size_t)sl * FB_H + h) * B + lane] = z[h];
+      }
+    }
   }
 }
 
@@ -665,7 +673,7 @@ __global__ void __launch_bounds__(FB_THREADS)
         float z[FB_H];
 #pragma unroll
         for (int h = 0; h < FB_H; ++h) z[h] = zs[step][h];
-        fb_substep<MX>(s, l, r, tab, step, dt, sb, sc, sd, z, nullptr);
+        fb_substep<MX>(s, r, tab, step, dt, sb, sc, sd, z, nullptr);
 #pragma unroll
         for (int h = 0; h < FB_H; ++h) zs[step + 1][h] = z[h];
       }
@@ -679,7 +687,7 @@ __global__ void __launch_bounds__(FB_THREADS)
           float z[FB_H];
 #pragma unroll
           for (int h = 0; h < FB_H; ++h) z[h] = zs[step][h];
-          fb_substep<MX>(s, l, r, tab, step, dt, sb, sc, sd, z, ys);
+          fb_substep<MX>(s, r, tab, step, dt, sb, sc, sd, z, ys);
         }
         float v[MAX_STAGES][FB_H];
         for (int st = S - 1; st >= 0; --st) {
@@ -932,10 +940,6 @@ __global__ void __launch_bounds__(GEN_THREADS)
   }
 }
 
-size_t fwd_smem_bytes(int H, int C, int W) {
-  return sizeof(float) * ((size_t)W * H + (size_t)W * C * H + W + C * H);
-}
-
 int make_tableau(int n_stages, const double* alpha, const double* a,
                  const double* c, double dt, Tableau* tab) {
   if (n_stages < 1 || n_stages > MAX_STAGES) return BAD_ARGUMENT;
@@ -947,49 +951,6 @@ int make_tableau(int n_stages, const double* alpha, const double* a,
     tab->c_dt[s] = on ? (float)(c[s] * dt) : 0.f;
   }
   return 0;
-}
-
-template <int H, int C, typename T, bool MX>
-int launch_fwd(const T* ct, const float* z0t, const float* w1t,
-               const float* b1, const float* w2t, const float* b2,
-               const int* slot, float* out, float* zres, int B, int n, int W,
-               int m, double dt, const Tableau& tab, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(H, C, W);
-  cudaError_t err = set_smem(fwd_kernel<H, C, T, MX>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + LANES - 1) / LANES);
-  fwd_kernel<H, C, T, MX><<<grid, LANES, smem, stream>>>(
-      ct, z0t, w1t, b1, w2t, b2, slot, out, zres, B, n, W, m, dt, tab);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool MX>
-int launch_gen_fwd(const T* ct, const float* z0t, const GenField& f,
-                   const int* slot, float* out, float* zres, int B, int n,
-                   int m, double dt, const Tableau& tab, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * GenLayout(f.H, f.C, f.W, m, tab.n_stages, false, false).total;
-  if (smem > MAX_SMEM) return BAD_ARGUMENT;
-  cudaError_t err = set_smem(gen_fwd_kernel<T, MX>, smem);
-  if (err != cudaSuccess) return (int)err;
-  gen_fwd_kernel<T, MX><<<B, GEN_THREADS, smem, stream>>>(ct, z0t, f, slot, out,
-                                                          zres, B, n, m, dt, tab);
-  return (int)cudaGetLastError();
-}
-
-// Both variants of one mode: T the slab storage, MX the operand rounding.
-template <typename T, bool MX>
-int forward_mode(const void* ct, const float* z0t, const float* w1t,
-                 const float* b1, const float* w2t, const float* b2,
-                 const int* slot, float* out, float* zres, int B, int n, int H,
-                 int C, int W, int m, double dt, const Tableau& tab, int variant,
-                 cudaStream_t st) {
-  const T* slabs = static_cast<const T*>(ct);
-  if (variant == SPECIALISED)
-    return launch_fwd<8, 3, T, MX>(slabs, z0t, w1t, b1, w2t, b2, slot, out, zres,
-                                   B, n, W, m, dt, tab, st);
-  return launch_gen_fwd<T, MX>(slabs, z0t, GenField{w1t, b1, w2t, b2, H, C, W},
-                               slot, out, zres, B, n, m, dt, tab, st);
 }
 
 bool specialised_fits(int H, int C, int W) {
@@ -1010,23 +971,79 @@ FbKernel<T, MX> fb_kernel(int W) {
   }
 }
 
-// The backward launch for some shapes.
-struct BwdPlan {
+// A launch of the forward or the backward for some shapes.
+struct LaunchPlan {
   int variant, blocks, threads, lanes, group;  // lanes a block walks at once; threads per lane
   int resident, sms;                           // blocks an SM holds; SMs
   size_t bytes;                                // shared memory of a block
-  bool acc_smem;                               // generic: weight gradients in shared memory
+  bool acc_smem;                               // generic backward: partials in shared memory
 };
+
+int card_sms(LaunchPlan& p) {
+  int dev = 0, rc = (int)cudaGetDevice(&dev);
+  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  return rc;
+}
+
+// The specialised forward runs as many blocks as the SMs hold at once, at
+// most one per group of FF_LANES lanes (blocks stride over the rest); the
+// generic one a block per lane.
+template <typename T, bool MX>
+int forward_plan(LaunchPlan& p, int B, int H, int C, int W, int m, int n_stages,
+                 int force_generic) {
+  p.variant = !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
+  p.acc_smem = false;
+  const int rc = card_sms(p);
+  if (rc) return rc;
+  if (p.variant == SPECIALISED) {
+    p.threads = FF_THREADS;
+    p.lanes = FF_LANES;
+    p.group = FB_G;
+    p.bytes = sizeof(float) * fb_weight_floats(W);
+    const int err = resident_blocks(fwd_group_kernel<T, MX>, p.threads, p.bytes, p.resident);
+    if (err) return err;
+    if (p.resident < 1) return BAD_VARIANT;
+    p.blocks = std::min<long>((B + FF_LANES - 1) / FF_LANES, (long)p.resident * p.sms);
+    return 0;
+  }
+  p.threads = p.group = GEN_THREADS;
+  p.lanes = 1;
+  p.bytes = sizeof(float) * GenLayout(H, C, W, m, n_stages, false, false).total;
+  if (p.bytes > MAX_SMEM) return BAD_ARGUMENT;
+  p.blocks = B;
+  return resident_blocks(gen_fwd_kernel<T, MX>, p.threads, p.bytes, p.resident);
+}
+
+// The forward launch of one mode, as forward_plan plans it: T the slab
+// storage, MX the operand rounding.
+template <typename T, bool MX>
+int forward_mode(const void* ct, const float* z0t, const float* w1t, const float* b1,
+                 const float* w2t, const float* b2, const int* slot, float* out,
+                 float* zres, int B, int n, int H, int C, int W, int m, double dt,
+                 const Tableau& tab, int variant, int blocks, cudaStream_t st) {
+  LaunchPlan p;
+  const int rc = forward_plan<T, MX>(p, B, H, C, W, m, tab.n_stages, variant == GENERIC);
+  if (rc) return rc;
+  if (p.variant != variant || p.blocks != blocks) return BAD_ARGUMENT;
+  const T* slabs = static_cast<const T*>(ct);
+  if (variant == SPECIALISED) {
+    fwd_group_kernel<T, MX><<<p.blocks, p.threads, p.bytes, st>>>(
+        slabs, z0t, w1t, b1, w2t, b2, slot, out, zres, B, n, W, m, dt, tab);
+  } else {
+    gen_fwd_kernel<T, MX><<<p.blocks, p.threads, p.bytes, st>>>(
+        slabs, z0t, GenField{w1t, b1, w2t, b2, H, C, W}, slot, out, zres, B, n, m, dt, tab);
+  }
+  return (int)cudaGetLastError();
+}
 
 // The specialised variant runs as many blocks as the SMs hold at once, at
 // most one per group of FB_LANES lanes (blocks stride over the rest); the
 // generic one a block per lane, capped by its partials.
 template <typename T, bool MX>
-int backward_plan(BwdPlan& p, int B, int H, int C, int W, int m, int n_stages,
+int backward_plan(LaunchPlan& p, int B, int H, int C, int W, int m, int n_stages,
                   int force_generic) {
   p.variant = !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
-  int dev = 0, rc = (int)cudaGetDevice(&dev);
-  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  int rc = card_sms(p);
   if (rc) return rc;
   if (p.variant == SPECIALISED) {
     p.acc_smem = false;
@@ -1058,7 +1075,7 @@ int backward_mode(const void* ct, const float* zres, const float* z0t,
                   float* dz0, float* dw1p, float* db1p, float* dw2p, float* db2p,
                   int B, int n, int H, int C, int W, int m, double dt,
                   const Tableau& tab, int variant, int blocks, cudaStream_t st) {
-  BwdPlan p;
+  LaunchPlan p;
   const int rc = backward_plan<T, MX>(p, B, H, C, W, m, tab.n_stages, variant == GENERIC);
   if (rc) return rc;
   if (p.variant != variant || p.blocks != blocks) return BAD_ARGUMENT;
@@ -1076,6 +1093,17 @@ int backward_mode(const void* ct, const float* zres, const float* z0t,
       slabs, zres, z0t, gz, GenField{w1t, b1, w2t, b2, H, C, W}, slot, dslabs, dz0, dw1p,
       db1p, dw2p, db2p, B, n, m, dt, tab, p.acc_smem);
   return (int)cudaGetLastError();
+}
+
+bool plan_args_ok(int B, int H, int C, int W, int m, int n_stages, int mode) {
+  return B >= 1 && H >= 1 && C >= 1 && W >= 1 && m >= 1 && m <= MAX_SUBSTEPS &&
+         n_stages >= 1 && n_stages <= MAX_STAGES && (mode == 0 || mode == 1);
+}
+
+void write_plan(const LaunchPlan& p, long* out) {
+  const long values[] = {p.variant, p.blocks, p.threads, p.lanes,
+                         p.group, p.resident, p.sms, (long)p.bytes};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
 }
 
 int check_call(int B, int n, int H, int C, int W, int m, int variant,
@@ -1104,35 +1132,44 @@ int ff_variant(int H, int C, int W, int force_generic) {
   return !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
 }
 
-// The backward launch for these shapes in this mode, into out[8]: the
-// variant, blocks (the leading size of the weight partials), threads per
-// block, lanes a block walks at once, threads per lane, blocks an SM holds,
-// SMs, shared bytes of a block.
+// The forward launch for these shapes in this mode, into out[8]: the
+// variant, blocks, threads per block, lanes a block walks at once, threads
+// per lane, blocks an SM holds, SMs, shared bytes of a block.
+int ff_forward_plan(int B, int H, int C, int W, int m, int n_stages, int force_generic,
+                    int mode, long* out) {
+  if (!plan_args_ok(B, H, C, W, m, n_stages, mode)) return BAD_ARGUMENT;
+  LaunchPlan p;
+  const int rc = mode == 1 ? forward_plan<__nv_bfloat16, true>(p, B, H, C, W, m, n_stages,
+                                                              force_generic)
+                           : forward_plan<float, false>(p, B, H, C, W, m, n_stages,
+                                                        force_generic);
+  if (!rc) write_plan(p, out);
+  return rc;
+}
+
+// The backward launch, as ff_forward_plan reports the forward's; its blocks
+// are the leading size of the weight partials.
 int ff_backward_plan(int B, int H, int C, int W, int m, int n_stages, int force_generic,
                      int mode, long* out) {
-  if (B < 1 || H < 1 || C < 1 || W < 1 || m < 1 || m > MAX_SUBSTEPS || n_stages < 1 ||
-      n_stages > MAX_STAGES || (mode != 0 && mode != 1))
-    return BAD_ARGUMENT;
-  BwdPlan p;
+  if (!plan_args_ok(B, H, C, W, m, n_stages, mode)) return BAD_ARGUMENT;
+  LaunchPlan p;
   const int rc = mode == 1 ? backward_plan<__nv_bfloat16, true>(p, B, H, C, W, m, n_stages,
                                                                force_generic)
                            : backward_plan<float, false>(p, B, H, C, W, m, n_stages,
                                                          force_generic);
-  if (rc) return rc;
-  const long values[] = {p.variant, p.blocks, p.threads, p.lanes,
-                         p.group, p.resident, p.sms, (long)p.bytes};
-  for (int i = 0; i < 8; ++i) out[i] = values[i];
-  return 0;
+  if (!rc) write_plan(p, out);
+  return rc;
 }
 
 // mode 0: float32 ct and dct; mode 1: bfloat16 ct and dct, bfloat16
 // operands in the stage products (the other pointers are float32 in both).
+// blocks: as ff_forward_plan (ff_backward_plan for ff_backward) plans them.
 int ff_forward(const void* ct, const float* z0t, const float* w1t,
                const float* b1, const float* w2t, const float* b2,
                const int* slot, float* out, float* zres, int B, int n, int H,
                int C, int W, int m, double dt, int n_stages,
                const double* alpha, const double* a, const double* c,
-               int variant, int mode, void* stream) {
+               int variant, int mode, int blocks, void* stream) {
   Tableau tab;
   const int rc = check_call(B, n, H, C, W, m, variant, mode, n_stages, alpha, a, c, dt, &tab);
   if (rc) return rc;
@@ -1140,9 +1177,9 @@ int ff_forward(const void* ct, const float* z0t, const float* w1t,
   if (mode == 1)
     return forward_mode<__nv_bfloat16, true>(ct, z0t, w1t, b1, w2t, b2, slot, out,
                                              zres, B, n, H, C, W, m, dt, tab,
-                                             variant, st);
+                                             variant, blocks, st);
   return forward_mode<float, false>(ct, z0t, w1t, b1, w2t, b2, slot, out, zres, B,
-                                    n, H, C, W, m, dt, tab, variant, st);
+                                    n, H, C, W, m, dt, tab, variant, blocks, st);
 }
 
 int ff_backward(const void* ct, const float* zres, const float* z0t,

@@ -6,10 +6,11 @@
 // _rebase_kernel, entries masked_natural_cubic_full and
 // masked_natural_cubic_pallas) and ops/masked_cubic_resident.py
 // (_resident_kernel, entry masked_natural_cubic_resident).  The TPU split
-// between the streaming and the resident kernel follows VMEM's size; one
-// kernel serves both here.  From raw values x (n, k) with NaNs and the
-// times t (k) it computes the coefficients (a, b, two_c, three_d), each
-// (n, k - 1), of interpolation/cubic.py's masked pipeline applied to the
+// between the streaming and the resident kernel follows VMEM's size; here
+// one launch serves all three entries, in one of two variants (below).
+// From raw values x (n, k) with NaNs and the times t (k) it computes the
+// coefficients (a, b, two_c, three_d), each (n, k - 1), of
+// interpolation/cubic.py's masked pipeline applied to the
 // endpoint-imputed values (version 0: a missing first or last entry takes
 // the nearest observation; version 1: the values before the first and after
 // the last observation do).  Rows without any observation come out as
@@ -19,15 +20,10 @@
 // arrays: at 8192 x 4096 float32, 671 MB, 0.20 ms at 3.35 TB/s; ~40 flops
 // per position (1.3 GFLOP in all) are nothing.  The five phases are
 // sequential recurrences along each row, two of them in reverse, and pass
-// per-row intermediates between them: 14 reads and 14 writes of (n, k)
-// arrays in all.  With one thread per row (8192 rows are 256 warps) the
-// scratch traffic and the memory parallelism of few warps bind.
-//
-// Design.  One thread per row runs the reference recurrences
-// (torchcde_tpu/interpolation/cubic.py:_masked_coeffs_xla after
-// _impute_endpoints), phase by phase, each a loop over the row:
-//  0. the first and last observed positions, found by scanning in from each
-//     end (the TPU kernel reduces over the whole row);
+// per-row intermediates between them (the reference recurrences,
+// torchcde_tpu/interpolation/cubic.py:_masked_coeffs_xla after
+// _impute_endpoints):
+//  0. the first and last observed positions;
 //  1. reverse: endpoint imputation, the next-observed (value, time) carry,
 //     and the interval quantities hr = 1 / h, sph = 6 dx hr, pds = sph hr / 2
 //     (zero where no later observation follows);
@@ -37,22 +33,56 @@
 //     observed knot being the substitution's carry;
 //  4. forward: the last-observed polynomial carry, re-based onto every grid
 //     interval.
-// The TPU's Hillis-Steele and Moebius prefix scans exist only because its
-// grid is sequential and its lanes must be full; here each recurrence runs
-// as written, with its carry in registers.  The per-row intermediates live
-// in seven scratch arrays from PyTorch's allocator, reused in place as the
-// TPU kernel reuses its VMEM slabs: phase 3 writes b0, c0, d0 over pds, nd,
-// nb.  Nothing is sized to VMEM or shared memory.
+//
+// Two variants; mc_plan (the wrapper's fit_plan) picks one from k.
+//
+// Resident variant (k <= RES_MAX = 4096): each row stays on chip from x to
+// the outputs, so x is read once and the four outputs written once.  A row
+// belongs to a power of two of threads (threads_per_row, as few as hold it
+// at RP = 16 positions a thread; short rows share a block of RT = 256
+// threads), and each thread holds RP consecutive positions in registers
+// through all five phases.  Every phase becomes a chunk-local recurrence
+// joined by a scan across the row's threads, as the TPU kernels run them
+// (masked_cubic_pallas.py:16-27, :227-330): each thread composes its
+// chunk's operator, the operators are scanned across the row (warp shuffles,
+// then, for rows of more than one warp, one pass over the warps' totals in
+// shared memory, in order), and each thread runs its chunk from its
+// carry-in with the reference arithmetic:
+//  0. a min/max reduction;
+//  1. a select-carry suffix scan (the next observation's value and time);
+//  2. a select-carry scan (the previous observation's hr, pds); the
+//     diagonal by a scan of its Moebius maps d -> dg - hp^2 / d as 2 x 2
+//     matrices, each product divided by the power of two at or below its
+//     largest entry (the map is unchanged, and a float32 product over a long
+//     observed run would overflow; _rescale2, masked_cubic_pallas.py:209);
+//     the right-hand side by an affine scan; unobserved positions are the
+//     identity;
+//  3. an affine suffix scan of kd in kd at the next observed knot;
+//  4. a select-carry scan of the last observed knot's polynomial.
+// x is staged through shared memory with coalesced loads (rows start at
+// row * k, outputs at row * (k - 1): not 16-byte aligned for most k): the
+// block's rows are one contiguous range of x, staged as they lie, with a
+// float of padding after every RP, so that a warp's reads of its chunks fall
+// in distinct banks; each output leaves the same way, laid out as in its
+// own array (rows k - 1 apart).  Every scan runs in a
+// fixed order without atomics: two launches give the same bits.
+//
+// Long-row variant (k > RES_MAX): one thread per row runs the reference
+// recurrences phase by phase, each a loop over the row:
+//  0. scanning in from each end;
+//  1-4. as above, with the carries in registers.
+// The per-row intermediates live in seven scratch arrays from PyTorch's
+// allocator, reused in place as the TPU kernel reuses its VMEM slabs: phase
+// 3 writes b0, c0, d0 over pds, nd, nb: 14 reads and 14 writes of (n, k)
+// arrays in all.
 //
 // The scratch is tiled: the row is cut into tiles of TILE = 16 positions,
 // and tile q of row r is 16 contiguous elements at (q * n + r) * 16.  A
 // thread loads or stores a whole tile with four 16-byte vector accesses,
 // and the 32 threads of a warp touch 2 KB of contiguous memory: the loads
 // of a tile do not depend on the recurrence, so all of them are in flight
-// at once, and every DRAM access is a long contiguous burst.  (Scratch laid
-// out length-major instead, one 128-byte line per warp and position,
-// measured 8.6 ms at config 3 against 0.3 ms per array pass here.)  Blocks
-// are one warp, so the rows spread over every SM.
+// at once, and every DRAM access is a long contiguous burst.  Blocks are
+// one warp, so the rows spread over every SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,9 +90,10 @@
 
 namespace {
 
-constexpr int THREADS = 32;  // one warp per block: the rows spread over every SM
+constexpr int THREADS = 32;  // long rows: one warp per block, the rows spread over every SM
 constexpr int TILE = 16;     // positions per scratch tile
 constexpr int BAD_ARGUMENT = -2;
+constexpr int RESIDENT = 0, LONG_ROWS = 1;  // the variants
 
 struct Scratch {  // tiled: position j of row r at ((j / TILE) * n + r) * TILE + j % TILE
   float* __restrict__ xs;     // observed values, 0 where missing (a0)
@@ -108,7 +139,7 @@ __device__ __forceinline__ void store_tile(uint8_t* p, const bool (&v)[TILE]) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-    masked_fit_kernel(const float* __restrict__ x, const float* __restrict__ t,
+    long_fit_kernel(const float* __restrict__ x, const float* __restrict__ t,
                       float* __restrict__ a, float* __restrict__ b,
                       float* __restrict__ c, float* __restrict__ d, Scratch s,
                       long long n, int k, int version) {
@@ -272,6 +303,384 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Resident variant: a row's RP-position chunks in the registers of
+// threads_per_row (tpr) consecutive threads, the five phases joined by
+// scans across them.
+
+constexpr int RP = 16;                      // positions a thread holds
+constexpr int RT = 256;                     // threads per block
+constexpr int RES_MAX = RP * RT;            // longest resident row
+constexpr int RES_BUF = RES_MAX / RP * (RP + 1);  // staging floats: a pad after every RP
+constexpr int SCAN_SLOT = 8;                // floats per warp total in the scan scratch
+constexpr size_t RES_SMEM = sizeof(float) * (2 * RES_BUF + RT / 32 * SCAN_SLOT);
+constexpr float NO_POSITION = 1e30f;        // phase 0's identity for the first position
+
+// Staging index of element i of the block's range: a pad after every RP.
+__device__ __forceinline__ int staged(int i) { return i + i / RP; }
+
+template <int N>
+struct Vec {
+  float v[N];
+};
+
+template <int N>
+__device__ __forceinline__ Vec<N> shfl_up(const Vec<N>& a, int d, int width) {
+  Vec<N> r;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.v[i] = __shfl_up_sync(0xffffffffu, a.v[i], d, width);
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Vec<N> shfl_down(const Vec<N>& a, int d, int width) {
+  Vec<N> r;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.v[i] = __shfl_down_sync(0xffffffffu, a.v[i], d, width);
+  return r;
+}
+
+// The scans' operators: compose(first, second) is first, then second in
+// the scan's direction; identity() composes to no change.
+
+// Select-carry: v[0] != 0 marks a present value; the later one wins.
+template <int N>
+struct SelectOp {
+  static __device__ __forceinline__ Vec<N> identity() {
+    Vec<N> r;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.v[i] = 0.f;
+    return r;
+  }
+  static __device__ __forceinline__ Vec<N> compose(const Vec<N>& f, const Vec<N>& s) {
+    return s.v[0] != 0.f ? s : f;
+  }
+};
+
+// x -> v[0] x + v[1].
+struct AffineOp {
+  static __device__ __forceinline__ Vec<2> identity() { return {{1.f, 0.f}}; }
+  static __device__ __forceinline__ Vec<2> compose(const Vec<2>& f, const Vec<2>& s) {
+    return {{s.v[0] * f.v[0], s.v[0] * f.v[1] + s.v[1]}};
+  }
+};
+
+// The Moebius map d -> (v[0] d + v[1]) / (v[2] d + v[3]) as a 2 x 2 matrix,
+// products divided by the power of two at or below their largest entry (an
+// exact scaling, by the exponent bits: the largest entry lands in [1, 2)).
+struct MoebiusOp {
+  static __device__ __forceinline__ Vec<4> identity() { return {{1.f, 0.f, 0.f, 1.f}}; }
+  static __device__ __forceinline__ Vec<4> compose(const Vec<4>& f, const Vec<4>& s) {
+    Vec<4> m = {{s.v[0] * f.v[0] + s.v[1] * f.v[2], s.v[0] * f.v[1] + s.v[1] * f.v[3],
+                 s.v[2] * f.v[0] + s.v[3] * f.v[2], s.v[2] * f.v[1] + s.v[3] * f.v[3]}};
+    const float big = fmaxf(fmaxf(fabsf(m.v[0]), fabsf(m.v[1])),
+                            fmaxf(fabsf(m.v[2]), fabsf(m.v[3])));
+    const int e = (__float_as_int(big) >> 23) & 0xff;  // biased exponent
+    if (e > 0 && e < 254) {  // normal and finite: scale by 2^(127 - e)
+      const float scale = __int_as_float((254 - e) << 23);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m.v[i] *= scale;
+    }
+    return m;
+  }
+};
+
+// First and last observed positions (as floats, exact below 2^24).
+struct SpanOp {
+  static __device__ __forceinline__ Vec<2> identity() { return {{NO_POSITION, -1.f}}; }
+  static __device__ __forceinline__ Vec<2> compose(const Vec<2>& f, const Vec<2>& s) {
+    return {{fminf(f.v[0], s.v[0]), fmaxf(f.v[1], s.v[1])}};
+  }
+};
+
+// The composition of the row's chunks before this thread's in the scan's
+// direction (after it when REV), this thread's chunk element being mine:
+// an exclusive scan over the row's tpr threads, by shuffles within a warp
+// and, for rows of several warps, over the warps' totals in order.  Every
+// thread of the block calls it (tpr is the same for all).
+template <class Op, bool REV, int N>
+__device__ __forceinline__ Vec<N> row_scan(const Vec<N>& mine, int tpr, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int width = tpr < 32 ? tpr : 32;
+  const int li = lane & (width - 1);
+  Vec<N> incl = mine;
+  for (int d = 1; d < width; d <<= 1) {
+    const Vec<N> o = REV ? shfl_down(incl, d, width) : shfl_up(incl, d, width);
+    if (REV ? li + d < width : li >= d) incl = Op::compose(o, incl);
+  }
+  const Vec<N> prev = REV ? shfl_down(incl, 1, width) : shfl_up(incl, 1, width);
+  Vec<N> excl = (REV ? li + 1 < width : li >= 1) ? prev : Op::identity();
+  if (tpr > 32) {
+    if (lane == (REV ? 0 : 31)) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) scratch[warp * SCAN_SLOT + i] = incl.v[i];
+    }
+    __syncthreads();
+    const int wpr = tpr >> 5, wr = warp & (wpr - 1), first = warp - wr;
+    Vec<N> carry = Op::identity();
+    for (int i = 0; i < wpr; ++i) {
+      const int w = REV ? wpr - 1 - i : i;
+      if (REV ? w <= wr : w >= wr) break;
+      Vec<N> total;
+#pragma unroll
+      for (int e = 0; e < N; ++e) total.v[e] = scratch[(first + w) * SCAN_SLOT + e];
+      carry = Op::compose(carry, total);
+    }
+    excl = Op::compose(carry, excl);
+    __syncthreads();
+  }
+  return excl;
+}
+
+// The row's first and last observed positions in every thread of the row.
+__device__ __forceinline__ Vec<2> row_span(Vec<2> v, int tpr, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int width = tpr < 32 ? tpr : 32;
+  for (int m = 1; m < width; m <<= 1) {
+    Vec<2> o;
+    o.v[0] = __shfl_xor_sync(0xffffffffu, v.v[0], m, width);
+    o.v[1] = __shfl_xor_sync(0xffffffffu, v.v[1], m, width);
+    v = SpanOp::compose(v, o);
+  }
+  if (tpr > 32) {
+    if (lane == 0) {
+      scratch[warp * SCAN_SLOT] = v.v[0];
+      scratch[warp * SCAN_SLOT + 1] = v.v[1];
+    }
+    __syncthreads();
+    const int wpr = tpr >> 5, first = warp - (warp & (wpr - 1));
+    v = SpanOp::identity();
+    for (int w = 0; w < wpr; ++w)
+      v = SpanOp::compose(v, {{scratch[(first + w) * SCAN_SLOT],
+                               scratch[(first + w) * SCAN_SLOT + 1]}});
+    __syncthreads();
+  }
+  return v;
+}
+
+// Three blocks an SM: the cap of 80 registers a thread costs ~400 bytes of
+// spills to L1, and on an H100 at config 3 it ran 5 % faster than two
+// blocks without spills (PERF.md).
+__global__ void __launch_bounds__(RT, 3)
+    resident_fit_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                        float* __restrict__ a, float* __restrict__ b,
+                        float* __restrict__ c, float* __restrict__ d, long long n, int k,
+                        int tpr, int version) {
+  extern __shared__ float mc_smem[];
+  float* buf = mc_smem;             // [RES_BUF] the block's rows of x, then of each output
+  float* tb = buf + RES_BUF;        // [RES_BUF] t, shared by the rows
+  float* scratch = tb + RES_BUF;    // [RT / 32][SCAN_SLOT] the scans' warp totals
+  const int rpb = RT / tpr;         // rows per block
+  const long long row0 = (long long)blockIdx.x * rpb;
+  const int rows = (int)(n - row0 < rpb ? n - row0 : rpb);
+  const int tid = threadIdx.x, rb = tid / tpr, ch = tid % tpr;
+  const bool live = rb < rows;
+  const int j0 = ch * RP;         // the thread's first position in its row
+  const int to = ch * (RP + 1);   // its chunk in tb
+
+  // Stage t and the block's rows of x (one contiguous range), coalesced.
+  for (int i = tid; i < k; i += RT) tb[staged(i)] = t[i];
+  const float* xb = x + row0 * k;
+  for (int i = tid; i < rows * k; i += RT) buf[staged(i)] = xb[i];
+  __syncthreads();
+  float xs[RP];
+#pragma unroll
+  for (int u = 0; u < RP; ++u)
+    xs[u] = live && j0 + u < k ? buf[staged(rb * k + j0 + u)] : NAN;
+
+  // Phase 0: first and last observed positions (argmax semantics for a row
+  // with none: 0 and k - 1, whose values are NaN and impute nothing).
+  Vec<2> sp = SpanOp::identity();
+#pragma unroll
+  for (int u = RP - 1; u >= 0; --u) {
+    if (!isnan(xs[u])) {
+      sp.v[0] = (float)(j0 + u);
+      if (sp.v[1] < 0.f) sp.v[1] = (float)(j0 + u);
+    }
+  }
+  sp = row_span(sp, tpr, scratch);
+  int first = 0, last = k - 1;
+  if (sp.v[0] < NO_POSITION) {
+    first = (int)sp.v[0];
+    last = (int)sp.v[1];
+  }
+  const float v_first = live ? buf[staged(rb * k + first)] : NAN;
+  const float v_last = live ? buf[staged(rb * k + last)] : NAN;
+
+  // Imputation: the observed positions (a bit each) and values (0 where missing).
+  unsigned obs = 0u;
+#pragma unroll
+  for (int u = 0; u < RP; ++u) {
+    const int j = j0 + u;
+    float v = xs[u];
+    if (isnan(v) && live && j < k) {
+      if (version == 0) {
+        if (j == 0) v = v_first;
+        else if (j == k - 1) v = v_last;
+      } else {
+        if (j < first) v = v_first;
+        else if (j > last) v = v_last;
+      }
+    }
+    const bool o = !isnan(v);
+    obs |= (unsigned)o << u;
+    xs[u] = o ? v : 0.f;
+  }
+#define OBS(u) ((obs >> (u)) & 1u)
+
+  // Phase 1 (reverse): the next observed (value, time) after the chunk, then
+  // the interval quantities.
+  Vec<3> e3 = SelectOp<3>::identity();
+#pragma unroll
+  for (int u = RP - 1; u >= 0; --u) {
+    if (OBS(u)) e3 = {{1.f, xs[u], tb[to + u]}};
+  }
+  e3 = row_scan<SelectOp<3>, true>(e3, tpr, scratch);
+  bool later = e3.v[0] != 0.f;
+  float cx = e3.v[1], ct = e3.v[2];
+  float hr[RP], sph[RP], pds[RP];
+#pragma unroll
+  for (int u = RP - 1; u >= 0; --u) {
+    const float tj = tb[to + u];
+    hr[u] = sph[u] = pds[u] = 0.f;
+    if (OBS(u) && later) {
+      hr[u] = 1.f / (ct - tj);
+      sph[u] = 6.f * (cx - xs[u]) * hr[u];
+      pds[u] = 0.5f * sph[u] * hr[u];
+    }
+    if (OBS(u)) {
+      cx = xs[u];
+      ct = tj;
+      later = true;
+    }
+  }
+
+  // Phase 2: the previous observed (hr, pds) before the chunk; the Thomas
+  // diagonal's carry-in by the Moebius scan; the diagonal in the chunk and
+  // the right-hand side's affine maps (nb holds each w until the carry-in
+  // of the right-hand side is known); the right-hand side.
+  e3 = SelectOp<3>::identity();
+#pragma unroll
+  for (int u = 0; u < RP; ++u) {
+    if (OBS(u)) e3 = {{1.f, hr[u], pds[u]}};
+  }
+  e3 = row_scan<SelectOp<3>, false>(e3, tpr, scratch);
+  const float hp0 = e3.v[1], pp0 = e3.v[2];  // 0 with none (the identity)
+  Vec<4> mob = MoebiusOp::identity();
+  float hp = hp0;
+#pragma unroll
+  for (int u = 0; u < RP; ++u) {
+    if (OBS(u)) {
+      float dg = 2.f * (hp + hr[u]);
+      if (!(dg > 0.f)) dg = 1.f;
+      mob = MoebiusOp::compose(mob, {{dg, -hp * hp, 1.f, 0.f}});
+      hp = hr[u];
+    }
+  }
+  mob = row_scan<MoebiusOp, false>(mob, tpr, scratch);
+  const float d_in = (mob.v[0] + mob.v[1]) / (mob.v[2] + mob.v[3]);  // applied to d = 1
+  float nd[RP], nb[RP];
+  Vec<2> aff = AffineOp::identity();
+  float prev_d = d_in, pp = pp0;
+  hp = hp0;
+#pragma unroll
+  for (int u = 0; u < RP; ++u) {
+    nd[u] = 1.f;
+    nb[u] = 0.f;
+    if (OBS(u)) {
+      float dg = 2.f * (hp + hr[u]);
+      if (!(dg > 0.f)) dg = 1.f;
+      const float r = pp + pds[u];
+      const float w = hp / prev_d;
+      prev_d = dg - w * hp;
+      aff = AffineOp::compose(aff, {{-w, r}});
+      nd[u] = prev_d;
+      nb[u] = w;
+      hp = hr[u];
+      pp = pds[u];
+    }
+  }
+  aff = row_scan<AffineOp, false>(aff, tpr, scratch);
+  float prev_b = aff.v[1];  // applied to b = 0
+  pp = pp0;
+#pragma unroll
+  for (int u = 0; u < RP; ++u) {
+    if (OBS(u)) {
+      const float r = pp + pds[u];
+      prev_b = r - nb[u] * prev_b;
+      nb[u] = prev_b;
+      pp = pds[u];
+    }
+  }
+
+  // Phase 3 (reverse): back substitution; kdn, the knot derivative at the
+  // next observed knot, is the substitution's carry.  kd, two_c0 and
+  // three_d0 take the places of nd, sph and nb.
+  aff = AffineOp::identity();
+#pragma unroll
+  for (int u = RP - 1; u >= 0; --u) {
+    if (OBS(u)) {
+      const float inv = 1.f / nd[u];
+      aff = AffineOp::compose(aff, {{-hr[u] * inv, nb[u] * inv}});
+    }
+  }
+  aff = row_scan<AffineOp, true>(aff, tpr, scratch);
+  float kdn = aff.v[1];  // applied to kd = 0
+#pragma unroll
+  for (int u = RP - 1; u >= 0; --u) {
+    const float h = hr[u], s6 = sph[u];
+    float kd = 0.f;
+    if (OBS(u)) kd = (nb[u] - h * kdn) / nd[u];
+    nd[u] = kd;
+    sph[u] = (s6 - 4.f * kd - 2.f * kdn) * h;
+    nb[u] = (-s6 + 3.f * (kd + kdn)) * h * h;
+    if (OBS(u)) kdn = kd;
+  }
+  const float(&kd)[RP] = nd;
+  const float(&c0)[RP] = sph;
+  const float(&d0)[RP] = nb;
+
+  // Phase 4: the polynomial of the last observed knot at or before each
+  // interval (position 0's before any), re-based onto it; each output
+  // leaves through buf in turn.
+  Vec<6> e6 = SelectOp<6>::identity();
+#pragma unroll
+  for (int u = 0; u < RP; ++u) {
+    if (OBS(u) || j0 + u == 0) e6 = {{1.f, xs[u], kd[u], c0[u], d0[u], tb[to + u]}};
+  }
+  e6 = row_scan<SelectOp<6>, false>(e6, tpr, scratch);
+  __syncthreads();  // every read of x in buf is done
+  const long long out0 = row0 * (k - 1);
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    float ca = e6.v[1], cb = e6.v[2], cc = e6.v[3], cd = e6.v[4], cto = e6.v[5];
+#pragma unroll
+    for (int u = 0; u < RP; ++u) {
+      const float tj = tb[to + u];
+      if (OBS(u) || j0 + u == 0) {
+        ca = xs[u];
+        cb = kd[u];
+        cc = c0[u];
+        cd = d0[u];
+        cto = tj;
+      }
+      const float off = cto - tj;
+      float v;
+      if (o == 0) v = ca + ((0.5f * cc - cd * off / 3.f) * off - cb) * off;
+      else if (o == 1) v = cb + (cd * off - cc) * off;
+      else if (o == 2) v = cc - 2.f * cd * off;
+      else v = cd;
+      if (live && j0 + u < k - 1) buf[staged(rb * (k - 1) + j0 + u)] = v;
+    }
+    __syncthreads();
+    float* dst = (o == 0 ? a : o == 1 ? b : o == 2 ? c : d) + out0;
+    for (int i = tid; i < rows * (k - 1); i += RT) dst[i] = buf[staged(i)];
+    __syncthreads();
+  }
+#undef OBS
+}
+
 }  // namespace
 
 extern "C" {
@@ -281,12 +690,37 @@ const char* mc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// The resident variant's shape, into out[3]: positions a thread holds,
+// threads per block, the longest row it takes.
+void mc_resident_shape(int* out) {
+  out[0] = RP;
+  out[1] = RT;
+  out[2] = RES_MAX;
+}
+
+// The resident variant: x (n, k) and t (k) float32 contiguous, k <= RES_MAX;
+// a, b, c, d (n, k - 1); tpr threads per row, a power of two with
+// tpr * RP >= k (the wrapper's fit_plan), RT / tpr rows per block.
+int mc_fit_resident(const float* x, const float* t, float* a, float* b, float* c, float* d,
+                    long long n, int k, int tpr, int version, void* stream) {
+  if (n <= 0 || k < 2 || k > RES_MAX || tpr < 1 || tpr > RT || (tpr & (tpr - 1)) ||
+      (long long)tpr * RP < k || (version != 0 && version != 1) || !x || !t || !a || !b ||
+      !c || !d)
+    return BAD_ARGUMENT;
+  const long long rpb = RT / tpr, blocks = (n + rpb - 1) / rpb;
+  if (blocks > 0x7fffffffLL) return BAD_ARGUMENT;
+  resident_fit_kernel<<<(unsigned)blocks, RT, RES_SMEM, (cudaStream_t)stream>>>(
+      x, t, a, b, c, d, n, k, tpr, version);
+  return (int)cudaGetLastError();
+}
+
 // The positions of a scratch array per row: k rounded up to whole tiles.
 int mc_scratch_positions(int k) { return (k + TILE - 1) / TILE * TILE; }
 
-// x (n, k) and t (k) float32 contiguous; a, b, c, d (n, k - 1); scratch:
-// six float32 arrays (xs, hr, pds, sph, nd, nb) and one byte array (obs) of
-// n * mc_scratch_positions(k) elements each, 16-byte aligned.
+// The long-row variant: x (n, k) and t (k) float32 contiguous; a, b, c, d
+// (n, k - 1); scratch: six float32 arrays (xs, hr, pds, sph, nd, nb) and one
+// byte array (obs) of n * mc_scratch_positions(k) elements each, 16-byte
+// aligned.
 int mc_fit(const float* x, const float* t, float* a, float* b, float* c,
            float* d, float* xs, uint8_t* obs, float* hr, float* pds,
            float* sph, float* nd, float* nb, long long n, int k, int version,
@@ -297,7 +731,7 @@ int mc_fit(const float* x, const float* t, float* a, float* b, float* c,
     return BAD_ARGUMENT;
   Scratch s = {xs, obs, hr, pds, sph, nd, nb};
   const long long blocks = (n + THREADS - 1) / THREADS;
-  masked_fit_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  long_fit_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       x, t, a, b, c, d, s, n, k, version);
   return (int)cudaGetLastError();
 }

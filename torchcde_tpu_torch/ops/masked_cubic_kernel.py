@@ -14,10 +14,14 @@ then the masked pipeline.
   gradient recomputes the plain pipeline: ``cubic._MaskedFitFused``), the
   plain version otherwise.  Rows without an observation are the caller's
   to mask;
+* ``fit_plan(k)``: the variant that fits rows of length k (each row
+  resident in the registers of a power of two of threads, up to
+  ``RESIDENT_MAX`` positions; a thread per row through scratch beyond);
 * ``LAUNCHES``: the count of kernel launches.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +30,36 @@ from ..interpolation.cubic import _MaskedFitFused, _masked_fit_plain  # the plai
 from . import dispatch
 
 LAUNCHES = 0
+
+# The resident variant's shape (csrc/masked_cubic.cu: RP, RT, RES_MAX); the
+# library's own is checked against it when it loads.
+POSITIONS = 16         # positions a thread holds
+BLOCK_THREADS = 256    # threads per block
+RESIDENT_MAX = POSITIONS * BLOCK_THREADS
+LONG_THREADS = 32      # the long-row variant: one thread per row, one warp per block
+
+
+class FitPlan(NamedTuple):
+    variant: str          # "resident" or "long"
+    threads_per_row: int
+    rows_per_block: int
+    threads: int          # per block
+    positions: int        # per thread (the long-row variant: the row)
+
+
+def fit_plan(k):
+    """The launch for rows of length k: the resident variant, its threads
+    per row the least power of two that holds k at ``POSITIONS`` a thread,
+    ``BLOCK_THREADS / threads_per_row`` rows a block; past
+    ``RESIDENT_MAX``, the long-row variant."""
+    if k < 2:
+        raise ValueError(f"the fit needs rows of at least 2 positions, got {k}")
+    if k > RESIDENT_MAX:
+        return FitPlan("long", 1, LONG_THREADS, LONG_THREADS, k)
+    tpr = 1
+    while tpr * POSITIONS < k:
+        tpr *= 2
+    return FitPlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS)
 
 
 def reset_launch_counts():
@@ -39,6 +73,13 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mc_fit.argtypes = [p] * 13 + [ll, i, i, p]
         lib.mc_fit.restype = i
+        lib.mc_fit_resident.argtypes = [p] * 6 + [ll, i, i, i, p]
+        lib.mc_fit_resident.restype = i
+        shape = (ctypes.c_int * 3)()
+        lib.mc_resident_shape(shape)
+        if tuple(shape) != (POSITIONS, BLOCK_THREADS, RESIDENT_MAX):
+            raise RuntimeError(f"masked cubic fit library's resident shape {tuple(shape)} is "
+                               "not the wrapper's")
         lib.mc_scratch_positions.argtypes = [i]
         lib.mc_scratch_positions.restype = i
         lib.mc_error_string.argtypes = [i]
@@ -58,15 +99,21 @@ def launch(t, x, version):
         raise ValueError(f"version must be 0 or 1, got {version!r}")
     n, k = x.shape
     lib = _library()
+    plan = fit_plan(k)
     outs = [torch.empty((n, k - 1), dtype=x.dtype, device=x.device) for _ in range(4)]
-    # Per-row intermediates, laid out in tiles by the kernel.
-    size = n * lib.mc_scratch_positions(k)
-    scratch = [torch.empty(size, dtype=x.dtype, device=x.device) for _ in range(6)]
-    obs = torch.empty(size, dtype=torch.uint8, device=x.device)
-    xs, hr, pds, sph, nd, nb = scratch
-    ptrs = [a.data_ptr() for a in (x, t, *outs, xs, obs, hr, pds, sph, nd, nb)]
-    with torch.cuda.device(x.device):
-        rc = lib.mc_fit(*ptrs, n, k, int(version), dispatch.stream_of(x))
+    ptrs = [a.data_ptr() for a in (x, t, *outs)]
+    stream = dispatch.stream_of(x)
+    if plan.variant == "resident":
+        with torch.cuda.device(x.device):
+            rc = lib.mc_fit_resident(*ptrs, n, k, plan.threads_per_row, int(version), stream)
+    else:
+        # Per-row intermediates, laid out in tiles by the kernel.
+        size = n * lib.mc_scratch_positions(k)
+        scratch = [torch.empty(size, dtype=x.dtype, device=x.device) for _ in range(6)]
+        obs = torch.empty(size, dtype=torch.uint8, device=x.device)
+        ptrs += [a.data_ptr() for a in (*scratch[:1], obs, *scratch[1:])]
+        with torch.cuda.device(x.device):
+            rc = lib.mc_fit(*ptrs, n, k, int(version), stream)
     if rc != 0:
         raise RuntimeError(f"masked cubic fit kernel failed: {lib.mc_error_string(rc).decode()} "
                            f"(code {rc})")

@@ -13,6 +13,9 @@ about it.  This module holds what surrounds them:
 * ``fused_fixed_solve``: launches the kernels for CUDA tensors (through a
   ``torch.autograd.Function`` whose backward is the backward kernel) and runs
   the plain version for CPU tensors;
+* ``forward_plan`` / ``backward_plan``: each kernel's launch for some shapes,
+  from the occupancy API of the kernel it launches (the specialised
+  variants run as many blocks of lanes as the SMs hold, striding beyond);
 * ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches, and
   ``BF16_FWD_LAUNCHES`` / ``BF16_BWD_LAUNCHES`` of those in the bfloat16 mode.
 
@@ -245,14 +248,15 @@ def _library():
     if not getattr(lib, "_ff_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         dp = ctypes.POINTER(ctypes.c_double)
-        lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
+        lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, i, i, p]
         lib.ff_forward.restype = i
         lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, i, i, p]
         lib.ff_backward.restype = i
         lib.ff_variant.argtypes = [i] * 4
         lib.ff_variant.restype = i
-        lib.ff_backward_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_long)]
-        lib.ff_backward_plan.restype = i
+        for plan in (lib.ff_forward_plan, lib.ff_backward_plan):
+            plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_long)]
+            plan.restype = i
         lib.ff_error_string.argtypes = [i]
         lib.ff_error_string.restype = ctypes.c_char_p
         lib._ff_declared = True
@@ -303,6 +307,37 @@ def _slab_mode(ct):
     return int(ct.dtype == torch.bfloat16)
 
 
+PLAN_KEYS = ("variant", "blocks", "threads", "lanes_per_block", "threads_per_lane",
+             "resident_per_sm", "sms", "shared_bytes")
+
+
+def _plan(which, B, H, C, W, plan, mode, device):
+    lib = _library()
+    out = (ctypes.c_long * len(PLAN_KEYS))()
+    planner = lib.ff_forward_plan if which == "forward" else lib.ff_backward_plan
+    with torch.cuda.device(device):
+        rc = planner(B, H, C, W, plan.m, len(_chain_form(plan.method)[2]), int(plan.generic),
+                     mode, out)
+    _raise_on(lib, rc, which)
+    return dict(zip(PLAN_KEYS, out))
+
+
+def forward_plan(B, H, C, W, plan, mode, device):
+    """The forward kernel's launch for these shapes in ``mode`` (0 float32,
+    1 bfloat16), as a dict (``PLAN_KEYS``): the variant (0 specialised, 1
+    generic), blocks, threads per block, lanes a block walks at once, threads
+    per lane, blocks an SM holds, the card's SMs and the shared memory of a
+    block.  The specialised variant launches as many blocks as the SMs of
+    ``device`` hold at once, striding over the lanes beyond that."""
+    return _plan("forward", B, H, C, W, plan, mode, device)
+
+
+def backward_plan(B, H, C, W, plan, mode, device):
+    """The backward kernel's launch, as ``forward_plan`` gives the
+    forward's; its blocks are the leading size of the weight partials."""
+    return _plan("backward", B, H, C, W, plan, mode, device)
+
+
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
     """Forward kernel: returns (out (n_out, H, B), zres (n, H, B)), float32.
 
@@ -310,44 +345,30 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
     float32 either way."""
     global FWD_LAUNCHES, BF16_FWD_LAUNCHES
     mode = _slab_mode(ct)
-    check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"),
-                   dtypes={"ct": ct.dtype})
+    ops = (ct, z0t, w1t, b1, w2t, b2)
+    check_operands(ops, ("ct", "z0t", "w1t", "b1", "w2t", "b2"), dtypes={"ct": ct.dtype})
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
-    lib = _library()
-    variant = lib.ff_variant(H, C, W, int(plan.generic))
+    launch = forward_plan(B, H, C, W, plan, mode, ct.device)
     out = torch.empty((len(plan.out_knots), H, B), dtype=z0t.dtype, device=ct.device)
     zres = torch.empty((n, H, B), dtype=z0t.dtype, device=ct.device)
-    slot = _knot_slots(plan.out_knots, n, ct.device)
-    stream = stream_of(ct)
-    ptrs = [t.data_ptr() for t in (ct, z0t, w1t, b1, w2t, b2, slot, out, zres)]
-    with torch.cuda.device(ct.device):
-        rc = lib.ff_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
-                            *_tableau_args(plan.method), variant, mode, stream)
-    _raise_on(lib, rc, "forward")
+    _forward_kernel(ops, (out, zres), (B, n, H, C, W), plan, mode, launch)
     FWD_LAUNCHES += 1
     BF16_FWD_LAUNCHES += mode
     return out, zres
 
 
-BACKWARD_PLAN_KEYS = ("variant", "blocks", "threads", "lanes_per_block", "threads_per_lane",
-                      "resident_per_sm", "sms", "shared_bytes")
-
-
-def backward_plan(B, H, C, W, plan, mode, device):
-    """The backward kernel's launch for these shapes in ``mode`` (0 float32,
-    1 bfloat16), as a dict (``BACKWARD_PLAN_KEYS``): the variant (0
-    specialised, 1 generic), blocks (the leading size of the weight
-    partials), threads per block, lanes a block walks at once, threads per
-    lane, blocks an SM holds, the card's SMs and the shared memory of a
-    block.  The specialised variant launches as many blocks as the SMs of
-    ``device`` hold at once, striding over the lanes beyond that."""
+def _forward_kernel(ops, outs, shape, plan, mode, launch):
+    """The forward kernel on ``ops`` into ``outs`` (out, zres), in ``mode``,
+    as ``launch`` (``forward_plan``) plans it."""
     lib = _library()
-    out = (ctypes.c_long * len(BACKWARD_PLAN_KEYS))()
-    with torch.cuda.device(device):
-        rc = lib.ff_backward_plan(B, H, C, W, plan.m, len(_chain_form(plan.method)[2]),
-                                  int(plan.generic), mode, out)
-    _raise_on(lib, rc, "backward")
-    return dict(zip(BACKWARD_PLAN_KEYS, out))
+    B, n, H, C, W = shape
+    slot = _knot_slots(plan.out_knots, n, ops[0].device)
+    ptrs = [t.data_ptr() for t in (*ops, slot, *outs)]
+    with torch.cuda.device(ops[0].device):
+        rc = lib.ff_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
+                            *_tableau_args(plan.method), launch["variant"], mode,
+                            launch["blocks"], stream_of(ops[0]))
+    _raise_on(lib, rc, "forward")
 
 
 def launch_backward(ct, zres, z0t, gz, w1t, b1, w2t, b2, plan):
