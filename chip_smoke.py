@@ -12,9 +12,9 @@ Phases, each of which raises on failure:
    configuration, at config 4 (B 256 and B 4096) and at the per-sample
    slice, and K8's backward plan at config 5 (blocks, warps per block,
    blocks an SM holds by the occupancy API, SMs, waves) with its ptxas
-   lines, K1's forward and backward plans at the flagship in both modes with
-   their kernels' ptxas lines, and K6/K7's plan at config 3 with its
-   kernels' ptxas lines;
+   lines and its forward's, K1's forward and backward plans at the flagship
+   in both modes with their kernels' ptxas lines, and K6/K7's and K4's
+   plans at config 3 with their kernels' ptxas lines;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
    PyTorch version on the card, at the flagship shapes (in both kernel
    variants) and at odd cases covering every tableau, up to 8 substeps, odd
@@ -43,8 +43,9 @@ Phases, each of which raises on failure:
    one row of one warp at 512, a row of two warps at 513, the resident
    maximum 4096 and the long-row variant at 4097), odd row counts, NaN
    densities 0 to 1, leading and trailing NaN runs, single-observation and
-   all-NaN rows, both imputation versions, irregular times, each K6/K7 case
-   also against a second launch, bit for bit; and the public fit on
+   all-NaN rows, both imputation versions, irregular times, each K4 (both
+   routes: bands shared by every row and bands per row) and K6/K7 case also
+   against a second launch, bit for bit; and the public fit on
    bfloat16 values (upcast at the kernels' boundary);
 11. fit slice: BASELINE config 3 (8192 series of length 4096, one channel,
    20 % NaN, as benchmarks/run_benchmarks.py's bench_cubic_fit makes them)
@@ -79,12 +80,13 @@ Phases, each of which raises on failure:
 18. K8 forward and backward: the reversible-Heun kernels against their plain
    version run in float64 (forward y and ŷ within FWD_RTOL of the largest
    magnitude; backward after the lane screen, relative Frobenius error
-   within BWD_RTOL in each gradient; each backward also against a second
-   launch, bit for bit), at config 5's operands in both variants and at odd
-   cases (m 1, 2 and 8, shapes at the caps, batches that are not a multiple
-   of the backward's 128-lane blocks, the top of the specialised range at
-   W 512, a batch whose lane groups outnumber the resident blocks, so that
-   blocks stride, cotangents on all, the terminal or some interior knots);
+   within BWD_RTOL in each gradient; each forward and backward also against
+   a second launch, bit for bit), at config 5's operands in both variants
+   and at odd cases (m 1, 2 and 8, shapes at the caps, batches that are not
+   a multiple of the backward's 128-lane blocks, the top of the specialised
+   range at W 512, a batch whose lane groups outnumber the resident blocks,
+   so that blocks stride, cotangents on all, the terminal or some interior
+   knots);
 19. config-5 slice: BASELINE config 5 (16384 spirals of length 100, Hermite
    coefficients, reversible Heun at step 1.0), with direct backpropagation
    and with the adjoint: the logits against the plain version, then five
@@ -288,16 +290,22 @@ def phase_build():
     print(f"  K8 backward at config 5: {k8_backward_plan_line()}")
     for name, lines in k8_backward_ptxas(log).items():
         print(f"  K8 backward kernel {name}: {'; '.join(lines)}")
+    for name, lines in ptxas_lines(log, k8_forward_label).items():
+        print(f"  K8 forward kernel {name}: {'; '.join(lines)}")
     for mode in (0, 1):
         print(f"  K1 forward at the flagship, mode {mode}: {k1_plan_line(mode, 'forward')}")
         print(f"  K1 backward at the flagship, mode {mode}: {k1_plan_line(mode, 'backward')}")
     for name, lines in k1_ptxas(log).items():
         print(f"  K1 kernel {name}: {'; '.join(lines)}")
     from torchcde_tpu_torch.ops.masked_cubic_kernel import fit_plan
+    from torchcde_tpu_torch.ops.tridiagonal_kernel import solve_plan
 
     print(f"  K6/K7 at config 3 (k {FIT_LENGTH}): {fit_plan(FIT_LENGTH)}")
     for name, lines in ptxas_lines(log, fit_kernel_label).items():
         print(f"  K6/K7 kernel {name}: {'; '.join(lines)}")
+    print(f"  K4 at config 3 (k {FIT_LENGTH}, shared bands): {solve_plan(FIT_LENGTH, True)}")
+    for name, lines in ptxas_lines(log, k4_label).items():
+        print(f"  K4 kernel {name}: {'; '.join(lines)}")
 
 
 def k1_plan(mode, which):
@@ -343,6 +351,18 @@ def fit_kernel_label(name):
     """K6/K7's kernels' names in ptxas's log, or None."""
     kernel = re.search(r"(resident|long)_fit_kernel", name)
     return kernel.group(0) if kernel else None
+
+
+def k4_label(name):
+    """K4's kernels' names in ptxas's log, or None (K5's masked_thomas_kernel
+    is not one)."""
+    kernel = re.search(r"\d(thomas|shared_band|band_pivot)_kernel", name)
+    return kernel.group(1) + "_kernel" if kernel else None
+
+
+def k8_forward_label(name):
+    """K8's tensor-core forward's name in ptxas's log, or None."""
+    return "rev_fwd_tc_kernel" if "rev_fwd_tc_kernel" in name else None
 
 
 def k8_backward_plan_line():
@@ -1085,11 +1105,12 @@ FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096, 511, 512, 513, 4097)
 FIT_DENSITIES = (0.0, 0.2, 0.8, 1.0)
 SPIRAL_NAN = 0.3
 # The H100 SXM's datasheet rates: HBM bytes per second, float32 operations
-# per second outside the tensor cores, and dense bfloat16 operations (float32
-# sums) per second on the tensor cores.
+# per second outside the tensor cores, and dense bfloat16 and TF32
+# operations (float32 sums) per second on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 BF16_RTOL = 1e-2
 # The fills are selections: the kernel must reproduce the plain version
 # exactly.  The solves and the fit are held, like K1's forward, within
@@ -1099,7 +1120,8 @@ BF16_RTOL = 1e-2
 # irregular times three_d reaches ~1e3 while a and b stay ~1.
 FIT_PARTS = ("a", "b", "two_c", "three_d")
 # The new kernels' names as the profiler reports them (csrc/*.cu).
-FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b", "K4": r"\bthomas_kernel\b",
+FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b",
+                    "K4": r"\b(?:thomas|shared_band|band_pivot)_kernel\b",
                     "K5": r"\bmasked_thomas_kernel\b",
                     "K6/K7": r"\b(?:resident|long)_fit_kernel\b"}
 
@@ -1279,8 +1301,15 @@ def check_k4(device):
             ref = tridiagonal_solve_thomas(b.double(), u.double(), d.double(), l.double())
             err, scale = _rel(got, ref)
             worst = max(worst, err)
-            _report(f"K4 tridiagonal {rows}x{length} {'shared' if shared else 'per-row'} bands",
-                    err, scale, FWD_RTOL * max(scale, 1.0), failures, bool(got.isfinite().all()))
+            plan = tridiagonal_kernel.solve_plan(length, shared)
+            label = (f"K4 tridiagonal {rows}x{length} {'shared' if shared else 'per-row'} bands "
+                     f"[{plan.variant}, {plan.threads_per_row} threads a row]")
+            _report(label, err, scale, FWD_RTOL * max(scale, 1.0), failures,
+                    bool(got.isfinite().all()))
+            again = tridiagonal_kernel.launch(b, u, d, l)
+            torch.cuda.synchronize()
+            if not _same_bits(got, again):
+                failures.append(f"{label}: a second launch differs")
     return worst, failures
 
 
@@ -1771,7 +1800,7 @@ K8_CASES = [
     (400, 10, 8, 3, 200, 1, "all"),
     (40000, 6, 8, 3, 128, 1, "terminal"),
 ]
-K8_KINDS = {"k8_fwd": r"\brev_fwd_kernel\b", "k8_bwd": r"\brev_bwd_tiles_kernel\b"}
+K8_KINDS = {"k8_fwd": r"\brev_fwd_tc_kernel\b", "k8_bwd": r"\brev_bwd_tiles_kernel\b"}
 
 
 def _k8_gradients(operands, y, yhat, gy, plan):
@@ -1810,6 +1839,9 @@ def check_k8(label, operands, plan, which):
           f"plain float32 {_err(refs[1].double(), refs[0])[0]:.3e})", flush=True)
     if not torch.isfinite(got).all() or fwd_err > FWD_RTOL * max(fwd_scale, 1.0):
         failures.append(f"K8 forward ({label})")
+    failures += forward_bit_identical("K8", label, (y, yhat),
+                                      lambda: k8.launch_forward(*operands, plan),
+                                      lambda out: {"y": out[0], "yhat": out[1]})
 
     gy = torch.zeros_like(y)
     knots = [k - 1 for k in knot_set(which, n)]
@@ -2803,20 +2835,24 @@ def k9_bounds(timing):
 
 
 def k8_bounds(batch, n, m):
-    """K8's least times at config 5, forward and backward: 2 W H (1 + C)
-    float32 operations per evaluation of one lane's MLP field.  The forward
-    evaluates (m + 1) times per interval; the backward evaluates the two of
-    each substep again and adds the two VJPs, whose products and weight
-    gradients count as many again each: 6 per substep.  Bytes: the control's
-    rows and the initial state read, y and ŷ written (forward); the rows, y,
-    ŷ and their cotangent read, the rows' cotangent and dz0 written
-    (backward)."""
+    """K8's least times at config 5, forward and backward, and the forward's
+    on the CUDA cores: 2 W H (1 + C) operations per evaluation of one lane's
+    MLP field.  The forward evaluates (m + 1) times per interval, its
+    products on the tensor cores in three TF32 passes, counted at the TF32
+    rate (and, third, once at the float32 rate); the backward evaluates the
+    two of each substep again and adds the two VJPs, whose products and
+    weight gradients count as many again each: 6 per substep, float32.
+    Bytes: the control's rows and the initial state read, y and ŷ written
+    (forward); the rows, y, ŷ and their cotangent read, the rows' cotangent
+    and dz0 written (backward)."""
     f = 2 * WIDTH * HIDDEN * (1 + CHANNELS)
     ct_bytes = 4 * n * 3 * CHANNELS * batch
     states = 4 * n * HIDDEN * batch
     state = 4 * HIDDEN * batch
-    return (bound(ct_bytes + state + 2 * states, (m + 1) * n * batch * f),
-            bound(2 * ct_bytes + 3 * states + state, 6 * m * n * batch * f))
+    fwd_bytes, fwd_flops = ct_bytes + state + 2 * states, (m + 1) * n * batch * f
+    return (bound(fwd_bytes, 3 * fwd_flops, TF32_TENSOR_FLOPS),
+            bound(2 * ct_bytes + 3 * states + state, 6 * m * n * batch * f),
+            bound(fwd_bytes, fwd_flops))
 
 
 def bound(bytes_moved, flops, flops_per_s=FP32_FLOPS):
@@ -3099,10 +3135,10 @@ def main():
     k8_fwd_err, k8_bwd_err = check_k8_cases(device)
     config5 = config5_slice(device)
     k8_ms = time_k8(device)
-    k8_fwd_bound, k8_bwd_bound = k8_bounds(CONFIG5_BATCH, LENGTH - 1, 1)
+    k8_fwd_bound, k8_bwd_bound, k8_fwd_fp32_bound = k8_bounds(CONFIG5_BATCH, LENGTH - 1, 1)
     print("timing: " + json.dumps({
         "card": smi, **k8_ms, "k8_fwd_bound_ms": k8_fwd_bound[0],
-        "k8_bwd_bound_ms": k8_bwd_bound[0],
+        "k8_fwd_fp32_bound_ms": k8_fwd_fp32_bound[0], "k8_bwd_bound_ms": k8_bwd_bound[0],
         "config5_slice": {f"adjoint={a}": r for a, r in config5.items()}}))
     for adjoint in (False, True):
         profile = profile_train_steps(*config5_problem(device, adjoint), K8_KINDS)

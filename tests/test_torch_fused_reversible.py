@@ -276,3 +276,206 @@ def test_autograd_function_and_launch_counts_with_stand_ins(launch, monkeypatch)
     for name, g, e in zip(NAMES, got[1], expected[1]):
         _assert_close(g, e, 1e-12, name)
     k8.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# A numpy mirror of the specialised forward kernel's arithmetic
+# (csrc/fused_reversible.cu, rev_fwd_tc_kernel): a warp per 16 batch lanes,
+# the stage products as mma.sync m16n8k8 tiles in TF32, three passes
+# (lo.hi and hi.lo summed apart, then added to hi.hi) with each float32
+# operand split as hi = tf32(x), lo = tf32(x - hi), W in chunks of 8 hidden
+# units padded with zero weights,
+# every operand in the kernel's fragment layout with the contraction index
+# permuted (k t is column 2t, k t + 4 column 2t + 1).  Sums are float64:
+# what is held against the plain version is the algorithm (the layout, the
+# permutation, the padding and the TF32 passes), not the card's rounding of
+# its sums, which chip_smoke.py holds against the plain version.
+
+_G, _T = np.arange(32) // 4, np.arange(32) % 4  # a thread's group and index in it
+
+
+def _tf32(x):
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as cvt.rna.tf32.f32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """(hi, lo) of float32 x: hi = tf32(x), lo = tf32(x - hi)."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mma(a, b, c):
+    """D = A B + C of one m16n8k8 tile per warp from the threads' fragments:
+    a (..., 32, 4), b (32, 2), c (..., 32, 4) as PTX lays them out."""
+    A = np.zeros(a.shape[:-2] + (16, 8))
+    A[..., _G, _T], A[..., _G + 8, _T] = a[..., 0], a[..., 1]
+    A[..., _G, _T + 4], A[..., _G + 8, _T + 4] = a[..., 2], a[..., 3]
+    B = np.zeros((8, 8))
+    B[_T, _G], B[_T + 4, _G] = b[:, 0], b[:, 1]
+    C = np.zeros(c.shape[:-2] + (16, 8))
+    C[..., _G, 2 * _T], C[..., _G, 2 * _T + 1] = c[..., 0], c[..., 1]
+    C[..., _G + 8, 2 * _T], C[..., _G + 8, 2 * _T + 1] = c[..., 2], c[..., 3]
+    D = A @ B + C
+    return np.stack([D[..., _G, 2 * _T], D[..., _G, 2 * _T + 1], D[..., _G + 8, 2 * _T],
+                     D[..., _G + 8, 2 * _T + 1]], axis=-1)
+
+
+def _mma3(d, x, a, b, passes=3):
+    """The kernel's passes of d += a b: a = (hi, lo) fragments, b (32, 4)
+    staged as (hi0, hi1, lo0, lo1); the cross terms lo.hi and hi.lo into x,
+    hi.hi into d.  One pass: hi.hi alone.  Returns (d, x)."""
+    ahi, alo = a
+    if passes == 3:
+        x = _mma(ahi, b[:, 2:], _mma(alo, b[:, :2], x))
+    return _mma(ahi, b[:, :2], d), x
+
+
+def _as_a(c):
+    """The A fragments (hi, lo) of an operand held as an accumulator
+    fragment: (c0, c2, c1, c3), rounded to the kernel's float32 first."""
+    return _split(np.asarray(c)[..., [0, 2, 1, 3]])
+
+
+def _stage(w1t, b1, w2t, b2):
+    """The block's weights as the kernel stages them (tc_load_field):
+    fragments (chunks, 4, 32, 4), b1 padded to whole chunks, b2."""
+    w1t, b1, w2t, b2 = (np.asarray(a, dtype=np.float32) for a in (w1t, b1, w2t, b2))
+    W = w1t.shape[0]
+    chunks = -(-W // 8)
+    frag = np.zeros((chunks, 4, 32, 4), np.float32)
+    for c in range(chunks):
+        for j in range(4):
+            v = np.zeros((2, 32), np.float32)
+            if j == 0:  # W1's chunk: B[k][n] = w1t[8c + n][perm k]
+                w = c * 8 + _G
+                ok = w < W
+                v[0, ok], v[1, ok] = w1t[w[ok], 2 * _T[ok]], w1t[w[ok], 2 * _T[ok] + 1]
+            else:  # channel j - 1's W2: B[k][n] = w2t[8 (j - 1) + n][8c + perm k]
+                q, w = (j - 1) * 8 + _G, c * 8 + 2 * _T
+                for e in range(2):
+                    ok = w + e < W
+                    v[e, ok] = w2t[q[ok], w[ok] + e]
+            (h0, l0), (h1, l1) = _split(v[0]), _split(v[1])
+            frag[c, j] = np.stack([h0, h1, l0, l1], axis=-1)
+    b1s = np.zeros(chunks * 8, np.float32)
+    b1s[:W] = b1
+    return frag, b1s, b2
+
+
+def _tc_field(stage, y, dx, passes=3):
+    """k = f(y) . dx for warps of 16 lanes: y (warps, 32, 4) in the
+    accumulator layout (r // 2: lane g or g + 8; r % 2: component 2t or
+    2t + 1), dx (warps, 32, 2, 3) of each thread's two lanes."""
+    frag, b1s, b2 = stage
+    a = _as_a(y)
+
+    def bias(v, at):  # (v[at], v[at + 1]) at both of a thread's lanes
+        pair = np.stack([v[at], v[at + 1], v[at], v[at + 1]], axis=-1).astype(np.float64)
+        return np.broadcast_to(pair, y.shape)
+
+    G = [bias(b2, i * 8 + 2 * _T) for i in range(3)]
+    X = [np.zeros(y.shape) for _ in range(3)]
+    for c in range(frag.shape[0]):
+        h, hx = _mma3(bias(b1s, c * 8 + 2 * _T), np.zeros(y.shape), a, frag[c, 0], passes)
+        hl = _as_a(np.maximum(h + hx, 0.0))
+        for i in range(3):
+            G[i], X[i] = _mma3(G[i], X[i], hl, frag[c, 1 + i], passes)
+    G = [g + x for g, x in zip(G, X)]
+    lane_of = np.array([0, 0, 1, 1])
+    return sum(np.tanh(G[i]) * dx[..., lane_of, i] for i in range(3))
+
+
+def _lane_index(B):
+    """(components, lanes) gathering (H, B) arrays into the threads'
+    registers (warps, 32, 4), for B padded to whole warps."""
+    warps = -(-B // 16)
+    w, L, r = np.meshgrid(np.arange(warps), np.arange(32), np.arange(4), indexing="ij")
+    return 2 * (L % 4) + (r & 1), w * 16 + L // 4 + 8 * (r >> 1)
+
+
+def _tc_solve(ct, z0t, w1t, b1, w2t, b2, m, dt, passes=3):
+    """The kernel's walk (rev_fwd_tc_kernel) on the mirror's field: (y, ŷ),
+    each (n, H, B), float64, lanes past B on zeros."""
+    n, _, C, B = ct.shape
+    warps = -(-B // 16)
+    stage = _stage(w1t, b1, w2t, b2)
+    hs, lanes = _lane_index(B)
+    pad = np.zeros((n, 3, C, warps * 16))
+    pad[..., :B] = ct
+    zp = np.zeros((8, warps * 16))
+    zp[:, :B] = z0t
+    y = yh = zp[hs, lanes]
+    two = (np.arange(warps)[:, None, None] * 16 + _G[None, :, None] + 8 * np.arange(2))
+    ys, yhs = [], []
+    for j in range(n):
+        rows = pad[j][..., two]  # (3, C, warps, 32, 2)
+        sb, sc, sd = (np.moveaxis(r, 0, -1) for r in rows)  # (warps, 32, 2, C)
+
+        def dxdt(fr):
+            return sb + (sc + sd * fr) * fr
+
+        f = _tc_field(stage, yh, dxdt(0.0), passes)
+        for s in range(m):
+            yn = 2.0 * y - yh + dt * f
+            f1 = _tc_field(stage, yn, dxdt(float(np.float32((s + 1) * dt))), passes)
+            y, yh, f = y + 0.5 * dt * (f + f1), yn, f1
+        for out, v in ((ys, y), (yhs, yh)):
+            full = np.zeros((8, warps * 16))
+            full[hs, lanes] = v
+            out.append(full[:, :B])
+    return np.stack(ys), np.stack(yhs)
+
+
+def _f32_operands(n, C, B, H, W, seed):
+    """K8's operands rounded to float32, as float64 tensors."""
+    return [t.float().double() for t in _operands(n, C, B, H, W, seed)]
+
+
+def test_tensor_core_field_matches_the_plain_field():
+    # B 37 (three warps, the last part-filled), W 40 (five chunks, the last
+    # padded): the mirror's field against the plain field in float64 on the
+    # same float32 inputs, within 1e-6 of its largest magnitude; one TF32
+    # pass is ~2^-11 off, which is why the kernel takes three.
+    ops = _f32_operands(1, 3, 37, 8, 40, seed=11)
+    ct, z0t, w1t, b1, w2t, b2 = (t.numpy() for t in ops)
+    stage = _stage(w1t, b1, w2t, b2)
+    hs, lanes = _lane_index(37)
+    zp = np.zeros((8, 48))
+    zp[:, :37] = z0t
+    two = np.arange(3)[:, None, None] * 16 + _G[None, :, None] + 8 * np.arange(2)
+    rows = np.zeros((3, 3, 48))
+    rows[..., :37] = ct[0]
+    dx = np.moveaxis(rows[0][:, two], 0, -1)  # dX/dt at fraction 0: the b row
+    full = np.zeros((8, 48))
+    errors = {}
+    for passes in (3, 1):
+        full[hs, lanes] = _tc_field(stage, zp[hs, lanes], dx, passes)
+        got = full[:, :37]
+        with torch.no_grad():
+            ref = k8._field(ops[1].t(), 0.0, tuple(ops[0][0].permute(0, 2, 1)),
+                            *ops[2:]).t().numpy()
+        errors[passes] = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+    print(f"field relative error: three passes {errors[3]:.2e}, one pass {errors[1]:.2e}")
+    assert errors[3] <= 1e-6, errors
+
+
+@pytest.mark.parametrize("m", [1, 3])
+def test_tensor_core_walk_matches_the_reference_solve(m):
+    # The kernel's walk on the mirror's field against the plain version in
+    # float64: B 37 and W 40 are no multiples of the tile; within 1e-5 of
+    # the largest magnitude (the one-pass error is printed beside it).
+    ops = _f32_operands(9, 3, 37, 8, 40, seed=20 + m)
+    with torch.no_grad():
+        ref = torch.cat(k8.fused_reversible_solve_reference(*ops, m, 1.0 / m)).numpy()
+    scale = float(np.abs(ref).max())
+    errors = {}
+    for passes in (3, 1):
+        got = np.concatenate(_tc_solve(*(t.numpy() for t in ops), m, 1.0 / m, passes))
+        assert got.shape == ref.shape
+        errors[passes] = float(np.abs(got - ref).max()) / scale
+    print(f"solve relative error (m {m}): three passes {errors[3]:.2e}, one pass {errors[1]:.2e}")
+    assert errors[3] <= 1e-5, errors

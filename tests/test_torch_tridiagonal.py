@@ -141,3 +141,197 @@ def test_matches_the_jax_kernel_in_interpret_mode():
     expected = tridiagonal_solve_pallas(*map(jnp.asarray, (b, u, d, l)), interpret=True)
     got = tridiagonal.tridiagonal_solve(*map(torch.from_numpy, (b, u, d, l)))
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4's shared-band route (csrc/tridiagonal.cu: band_pivot_kernel, then
+# shared_band_kernel), mirrored in numpy: the pivots by a scan of Moebius
+# maps with power-of-two rescaling, then per row the elimination and the
+# substitution as affine scans, over chunks of POSITIONS positions in
+# solve_plan's threads per row, joined across the threads in the kernel's
+# order (row_scan.cuh: shuffle levels within a warp, then the warps' totals
+# in order).
+
+POSITIONS = tridiagonal_kernel.POSITIONS
+
+
+def _moebius(f, s):
+    """s after f as 2 x 2 matrices (entries along the last axis), divided
+    by the power of two at or below the largest entry where it is normal
+    (MoebiusOp)."""
+    m = np.stack([s[..., 0] * f[..., 0] + s[..., 1] * f[..., 2],
+                  s[..., 0] * f[..., 1] + s[..., 1] * f[..., 3],
+                  s[..., 2] * f[..., 0] + s[..., 3] * f[..., 2],
+                  s[..., 2] * f[..., 1] + s[..., 3] * f[..., 3]], axis=-1)
+    big = np.abs(m).max(axis=-1, keepdims=True)
+    normal = np.isfinite(big) & (big >= np.finfo(m.dtype).tiny)
+    scale = np.ldexp(np.ones_like(big), 1 - np.frexp(np.where(normal, big, 1))[1])
+    return np.where(normal, m * scale, m)
+
+
+def _affine(f, s):
+    """s after f, x -> v[0] x + v[1] (AffineOp)."""
+    return np.stack([s[..., 0] * f[..., 0], s[..., 0] * f[..., 1] + s[..., 1]], axis=-1)
+
+
+def _row_scan(ops, compose, identity, rev):
+    """The exclusive scan of the threads' operators (..., tpr, N) across
+    the row, as row_scan orders it."""
+    tpr = ops.shape[-2]
+    width = min(tpr, 32)
+    idx = np.arange(tpr)
+    li = idx % width
+    incl = ops
+    d = 1
+    while d < width:
+        take = (li + d < width) if rev else (li >= d)
+        other = incl[..., np.clip(idx + d if rev else idx - d, 0, tpr - 1), :]
+        incl = np.where(take[:, None], compose(other, incl), incl)
+        d *= 2
+    take = (li + 1 < width) if rev else (li >= 1)
+    ident = np.broadcast_to(identity, incl.shape).astype(incl.dtype)
+    excl = np.where(take[:, None], incl[..., np.clip(idx + 1 if rev else idx - 1, 0, tpr - 1), :],
+                    ident)
+    if tpr > 32:
+        wpr = tpr // 32
+        totals = incl[..., np.arange(wpr) * 32 + (0 if rev else 31), :]
+        carries = []
+        for wr in range(wpr):
+            carry = ident[..., 0, :]
+            for w in (range(wpr - 1, wr, -1) if rev else range(wr)):
+                carry = compose(carry, totals[..., w, :])
+            carries.append(carry)
+        excl = compose(np.stack(carries, axis=-2)[..., idx // 32, :], excl)
+    return excl
+
+
+def _pivots(u, d, l, tpr):
+    """band_pivot_kernel: w, r, c, each (tpr, POSITIONS), zero past k."""
+    dtype, k, P = d.dtype, d.shape[0], tpr * POSITIONS
+    dv, lu = np.ones(P, dtype), np.zeros(P, dtype)
+    dv[:k] = d
+    lu[1:k] = l * u
+    j = np.arange(P).reshape(tpr, POSITIONS)
+    mob = np.broadcast_to(np.array([1, 0, 0, 1], dtype), (tpr, 4))
+    for s in range(POSITIONS):
+        step = np.stack([dv[j[:, s]], -lu[j[:, s]], np.ones(tpr, dtype), np.zeros(tpr, dtype)], -1)
+        mob = np.where((j[:, s] < k)[:, None], _moebius(mob, step), mob)
+    mob = _row_scan(mob, _moebius, np.array([1, 0, 0, 1], dtype), rev=False)
+    prev = (mob[:, 0] + mob[:, 1]) / (mob[:, 2] + mob[:, 3])  # nd before the chunk
+    w, r, c = (np.zeros((tpr, POSITIONS), dtype) for _ in range(3))
+    lp = np.concatenate([np.zeros(1, dtype), l, np.zeros(P, dtype)])  # l_{j-1}
+    up = np.concatenate([u, np.zeros(P + 1, dtype)])  # u_j, zero from k - 1
+    for s in range(POSITIONS):
+        js = j[:, s]
+        live = js < k
+        w[:, s] = np.where(live, lp[js] / prev, 0)
+        prev = np.where(live, dv[js] - lu[js] / prev, prev)
+        r[:, s] = np.where(live, 1 / prev, 0)
+        c[:, s] = np.where(live, up[js] / prev, 0)
+    return w, r, c
+
+
+def _resident_solve(b, u, d, l):
+    """shared_band_kernel on every row of b (n, k), in b's dtype."""
+    n, k = b.shape
+    plan = tridiagonal_kernel.solve_plan(k, shared=True)
+    tpr = plan.threads_per_row
+    w, r, c = _pivots(u, d, l, tpr)
+    v = np.zeros((n, tpr * POSITIONS), b.dtype)
+    v[:, :k] = b
+    v = v.reshape(n, tpr, POSITIONS)
+    one, zero = np.ones((n, tpr), b.dtype), np.zeros((n, tpr), b.dtype)
+    ident = np.array([1, 0], b.dtype)
+    aff = np.stack([one, zero], -1)
+    for s in range(POSITIONS):
+        aff = _affine(aff, np.stack([np.broadcast_to(-w[:, s], (n, tpr)), v[..., s]], -1))
+    carry = _row_scan(aff, _affine, ident, rev=False)[..., 1]
+    for s in range(POSITIONS):
+        carry = v[..., s] - w[:, s] * carry
+        v[..., s] = carry
+    aff = np.stack([one, zero], -1)
+    for s in reversed(range(POSITIONS)):
+        aff = _affine(aff, np.stack([np.broadcast_to(-c[:, s], (n, tpr)), r[:, s] * v[..., s]], -1))
+    carry = _row_scan(aff, _affine, ident, rev=True)[..., 1]
+    for s in reversed(range(POSITIONS)):
+        carry = r[:, s] * v[..., s] - c[:, s] * carry
+        v[..., s] = carry
+    return v.reshape(n, -1)[:, :k]
+
+
+def _fit_system(rows, k, seed, dtype):
+    """The dense natural cubic fit's system on irregular times: one band
+    for every row (u = l = 1 / h, d = 2 (1 / h_prev + 1 / h)), b per row."""
+    rng = np.random.default_rng(seed)
+    hr = 1.0 / rng.uniform(0.2, 1.5, k - 1)
+    pad = np.zeros(1)
+    d = 2 * (np.concatenate([pad, hr]) + np.concatenate([hr, pad]))
+    b = rng.standard_normal((rows, k))
+    return tuple(a.astype(dtype) for a in (b, hr, d, hr))
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("k", [2, 3, 17, 513, 4096])
+def test_shared_band_route_mirror_matches_jax_thomas(k, dtype, tol):
+    # The route's arithmetic (in dtype) against the JAX package's Thomas
+    # solve in float64 on the same inputs, within tol of the largest
+    # magnitude: the pivot scan's rescaled Moebius products and the affine
+    # scans reassociate the recurrences, nothing else.
+    b, u, d, l = _fit_system(5, k, seed=k, dtype=dtype)
+    got = _resident_solve(b, u, d, l)
+    expected = np.asarray(jtri.tridiagonal_solve_thomas(
+        *(jnp.asarray(a, dtype=jnp.float64) for a in (b, u, d, l))))
+    assert got.dtype == dtype and got.shape == expected.shape
+    np.testing.assert_allclose(got, expected, rtol=0, atol=tol * float(np.abs(expected).max()))
+
+
+def test_solve_plan_routes():
+    # Shared bands up to RESIDENT_MAX take the resident route, in K6/K7's
+    # threads per row; longer rows and per-row bands take thomas_kernel.
+    for k, tpr in ((1, 1), (2, 1), (16, 1), (17, 2), (512, 32), (513, 64), (4096, 256)):
+        plan = tridiagonal_kernel.solve_plan(k, shared=True)
+        assert plan == ("resident", tpr, 256 // tpr, 256, POSITIONS), (k, plan)
+    assert tridiagonal_kernel.solve_plan(4097, shared=True).variant == "thomas"
+    for k in (2, 100, 4096):
+        plan = tridiagonal_kernel.solve_plan(k, shared=False)
+        assert plan == ("thomas", 1, 32, 32, k), (k, plan)
+
+
+@pytest.mark.parametrize("k", [17, 4097])
+def test_kernel_wrapper_routes_with_stand_ins(k, monkeypatch):
+    # The launches run only on the card: a stand-in for the route's kernels
+    # (the mirror above for the resident route, filling the pivot scratch;
+    # the plain Thomas solve for thomas_kernel) drives the wrapper's own
+    # code: the band strides, the route, its scratch and the count.
+    routes = []
+
+    def kernel(plan, operands, x, scratch, sizes):
+        b2, u2, d2, l2 = operands
+        n, kk, sb, su, sd, sl = sizes
+        assert kk == k and b2.shape == (n, k) and sb == k
+        routes.append((plan.variant, (su, sd, sl), tuple(scratch.shape)))
+        if plan.variant == "resident":
+            arrays = [a.numpy() for a in (b2, u2[0], d2[0], l2[0])]
+            scratch.copy_(torch.from_numpy(np.stack(
+                _pivots(*arrays[1:], plan.threads_per_row)).reshape(3, -1)))
+            x.copy_(torch.from_numpy(_resident_solve(*arrays)))
+        else:
+            rows = torch.arange(n)[:, None]
+            x.copy_(tridiagonal.tridiagonal_solve_thomas(
+                b2, u2[rows * su // (k - 1)].squeeze(1), d2[rows * sd // k].squeeze(1),
+                l2[rows * sl // (k - 1)].squeeze(1)))
+
+    monkeypatch.setattr(tridiagonal_kernel.dispatch, "check_operands", lambda *a: None)
+    monkeypatch.setattr(tridiagonal_kernel, "_kernel", kernel)
+    tridiagonal_kernel.reset_launch_counts()
+    b, u, d, l = map(torch.from_numpy, _fit_system(6, k, seed=1, dtype=np.float64))
+    for bands in ((u, d, l), tuple(a.expand(6, -1).reshape(2, 3, -1).clone() for a in (u, d, l))):
+        got = tridiagonal_kernel.launch(b.reshape(2, 3, k), *bands)
+        expected = tridiagonal.tridiagonal_solve_thomas(b.reshape(2, 3, k), *bands)
+        assert got.shape == (2, 3, k)
+        torch.testing.assert_close(got, expected, rtol=1e-10, atol=1e-10)
+    resident = (("resident", (0, 0, 0), (3, 32)),) if k == 17 else (("thomas", (0, 0, 0), (k, 6)),)
+    assert routes == [*resident, ("thomas", (k - 1, k, k - 1), (k, 6))]
+    assert tridiagonal_kernel.LAUNCHES == 2
+    tridiagonal_kernel.reset_launch_counts()

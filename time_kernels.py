@@ -1,6 +1,6 @@
 """Times the fused kernels (K1 in float32 and bfloat16, K2, K8, K9), the
-masked fit's K6/K7, and the flagship's, the default configuration's and
-config 5's train steps and config 3's masked fit in one checkout.
+fit's K6/K7 and K4, and the flagship's, the default configuration's and
+config 5's train steps and config 3's fits in one checkout.
 
     python3 time_kernels.py [ROOT] [--parts k2,k9,k8,k1,fit]
 
@@ -16,16 +16,17 @@ forward and backward ms per launch at the per-sample slice (as phase 24
 times them; where the checkout has K9), the accepted steps of each timed
 mesh (a backward's time follows them), K8's forward and backward at config
 5's operands (as phase 20 times them) with the backward's launch plan where
-the checkout reports it, config 5's train step with the adjoint, K1's
+the checkout reports it, config 5's train step in both adjoint modes, K1's
 forward and backward at the flagship in float32 and in bfloat16 (as phases
 8 and 28 time them) with both launch plans where the checkout reports
 them, the flagship's train step in both precisions (median of 10), K6/K7
-at config 3 (as phase 13 times it) and config 3's NaN-masked fit forward
-through ``natural_cubic_coeffs``, and ptxas's report for each kernel of
-K1, K2, K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts``
-keeps some of the groups (k2: K2 and the default steps, K2's linear mode
-and caps case; k9; k8: K8 and config 5's step; k1: K1 and the flagship
-steps; fit: K6/K7 and the fit).  To compare two commits on one card,
+and K4 at config 3 (as phase 13 times them), config 3's NaN-masked fit
+forward and its dense fit's forward and gradient through
+``natural_cubic_coeffs``, and ptxas's report for each kernel of K1, K2, K4,
+K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts`` keeps some
+of the groups (k2: K2 and the default steps, K2's linear mode and caps
+case; k9; k8: K8 and config 5's step; k1: K1 and the flagship steps; fit:
+K6/K7, K4 and the fits).  To compare two commits on one card,
 unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
@@ -114,7 +115,8 @@ def time_k9(cs, device):
 def time_k8(cs, device):
     """K8's forward and backward ms at config 5's operands (specialised
     variant), its backward's launch plan where the checkout has one, and
-    config 5's train step (adjoint) median ms."""
+    config 5's train step's median ms with the adjoint and with direct
+    backpropagation."""
     from torchcde_tpu_torch.models import make_train_step
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
@@ -132,11 +134,15 @@ def time_k8(cs, device):
         C, B = p.ct.shape[2], p.ct.shape[3]
         timing["k8_bwd_plan"] = k8.backward_plan(B, p.z0t.shape[0], C, p.w1t.shape[0], plan,
                                                  device)
-    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
-    step(coeffs, labels)  # warm-up
-    samples = [cs._once_ms(lambda: step(coeffs, labels)) for _ in range(10)]
-    timing["config5_adjoint_train_step_ms"] = statistics.median(samples)
-    timing["config5_adjoint_train_step_samples_ms"] = samples
+    for adjoint in (True, False):
+        if not adjoint:
+            model = cs.config5_problem(device, adjoint=False)[0]
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+        step(coeffs, labels)  # warm-up
+        samples = [cs._once_ms(lambda: step(coeffs, labels)) for _ in range(10)]
+        mode = "adjoint" if adjoint else "direct"
+        timing[f"config5_{mode}_train_step_ms"] = statistics.median(samples)
+        timing[f"config5_{mode}_train_step_samples_ms"] = samples
     return timing
 
 
@@ -205,21 +211,42 @@ def time_k1(cs, device, coeffs, labels):
 
 
 def time_fit(cs, device):
-    """K6/K7's ms at config 3 (one launch, version 1, as phase 13 times it)
-    and config 3's NaN-masked fit forward through ``natural_cubic_coeffs``
-    (CUDA events, 5 calls)."""
+    """K6/K7's and K4's ms at config 3 (one launch each, K6/K7 version 1 and
+    K4 on the dense fit's shared system, as phase 13 times them), config 3's
+    NaN-masked fit forward and its dense fit's forward and gradient through
+    ``natural_cubic_coeffs`` (CUDA events), and both kernels' plans where
+    the checkout has them."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.ops import masked_cubic_kernel as mk
+    from torchcde_tpu_torch.ops import tridiagonal_kernel as k4
 
-    masked, _ = cs.config3_data()
+    masked, dense = cs.config3_data()
     x = torch.from_numpy(masked).to(device)
     x2 = x[..., 0].contiguous()
-    t = torch.arange(x2.shape[1], dtype=torch.float32, device=device)
-    timing = {"k6_ms": cs._event_ms(lambda: mk.launch(t, x2, 1), 10)}
+    n, k = x2.shape
+    t = torch.arange(k, dtype=torch.float32, device=device)
+    hr = 1.0 / (t[1:] - t[:-1])
+    zero = hr.new_zeros(1)
+    diag = 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero]))
+    rhs = torch.randn((n, k), generator=torch.Generator(device=device).manual_seed(4),
+                      device=device)
+    timing = {"k6_ms": cs._event_ms(lambda: mk.launch(t, x2, 1), 10),
+              "k4_ms": cs._event_ms(lambda: k4.launch(rhs, hr, diag, hr), 10)}
+    xd = torch.from_numpy(dense).to(device)
+    w = torch.ones((n, k - 1, 4), device=device)
+
+    def grad_of(values):
+        xg = values.clone().requires_grad_()
+        return torch.autograd.grad((tt.natural_cubic_coeffs(xg) * w).sum(), xg)
+
     with torch.no_grad():
         timing["masked_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(x), 5)
+        timing["dense_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(xd), 5)
+    timing["dense_fit_grad_ms"] = cs._event_ms(lambda: grad_of(xd), 3)
     if hasattr(mk, "fit_plan"):
-        timing["k6_plan"] = mk.fit_plan(x2.shape[1])._asdict()
+        timing["k6_plan"] = mk.fit_plan(k)._asdict()
+    if hasattr(k4, "solve_plan"):
+        timing["k4_plan"] = k4.solve_plan(k, True)._asdict()
     return timing
 
 

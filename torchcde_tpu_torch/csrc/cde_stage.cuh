@@ -1,14 +1,11 @@
 // Stage math shared by the fused Neural CDE kernels' specialised variants
 // (fused_fixed.cu, fused_reversible.cu, with H and C known at compile
-// time): the control's rows and dX/dt, and one evaluation of the canonical
-// vector field k = tanh(W2 relu(W1 y + b1) + b2) . dX/dt for one batch lane
-// per thread, as the forwards run it.
+// time): the control's rows and dX/dt, the contraction k = g . dX/dt of the
+// canonical vector field's output g = tanh(W2 relu(W1 y + b1) + b2), and
+// the bfloat16 rounding of K1's mixed-precision mode.
 //
 // Replaces the stage math of the TPU kernels,
 // torchcde_tpu/solvers/fused_pallas.py::_stage_forward.
-//
-// Weights sit in shared memory and are read as warp-wide broadcasts; the
-// hidden layer streams over W, so h1 never sits in registers whole.
 //
 // Layouts (float32): w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H); the rows of
 // w2t and b2 are in the kernel order q = i*H + h.
@@ -26,8 +23,6 @@
 
 namespace {
 
-constexpr int LANES = 32;  // threads per block of the forwards, one batch lane each
-
 // x rounded to the nearest bfloat16 when MX, else x.
 template <bool MX>
 __device__ __forceinline__ float mx_round(float x) {
@@ -39,34 +34,6 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-template <int H, int C>
-struct Smem {
-  static constexpr int CH = C * H;
-  float* w1;  // [W][H]
-  float* w2;  // [W][CH]
-  float* b1;  // [W]
-  float* b2;  // [CH]
-  __device__ explicit Smem(float* base, int W)
-      : w1(base), w2(base + W * H), b1(base + W * H + W * CH),
-        b2(base + W * H + W * CH + W) {}
-  static constexpr size_t floats(int W) { return (size_t)W * H + (size_t)W * CH + W + CH; }
-};
-
-template <int H, int C>
-__device__ void load_field(const Smem<H, C>& s, const float* __restrict__ w1t,
-                           const float* __restrict__ b1,
-                           const float* __restrict__ w2t,
-                           const float* __restrict__ b2, int W) {
-  constexpr int CH = C * H;
-  for (int i = threadIdx.x; i < W * H; i += blockDim.x) s.w1[i] = w1t[i];
-  for (int i = threadIdx.x; i < W * CH; i += blockDim.x) {
-    const int w = i / CH, q = i - w * CH;
-    s.w2[i] = w2t[q * W + w];
-  }
-  for (int i = threadIdx.x; i < W; i += blockDim.x) s.b1[i] = b1[i];
-  for (int i = threadIdx.x; i < CH; i += blockDim.x) s.b2[i] = b2[i];
-}
 
 // dX/dt at fraction fr of the interval: b + (2c + 3d fr) fr.
 template <int C>
@@ -92,35 +59,6 @@ __device__ __forceinline__ void load_slab(const T* __restrict__ ct, int j,
     sc[i] = live ? to_float(row[(size_t)(C + i) * B]) : 0.f;
     sd[i] = live ? to_float(row[(size_t)(2 * C + i) * B]) : 0.f;
   }
-}
-
-// g = tanh(W2 relu(W1 y + b1) + b2), streaming the hidden layer over W.
-// With MX, y is rounded once before the W1 products and each h1_w before
-// it is folded into the W2 products.
-template <int H, int C, bool MX = false>
-__device__ __forceinline__ void mlp_forward(const Smem<H, C>& s, int W,
-                                            const float (&y)[H],
-                                            float (&g)[C * H]) {
-  constexpr int CH = C * H;
-  float pre2[CH], yr[H];
-#pragma unroll
-  for (int q = 0; q < CH; ++q) pre2[q] = 0.f;
-#pragma unroll
-  for (int h = 0; h < H; ++h) yr[h] = mx_round<MX>(y[h]);
-  for (int w = 0; w < W; ++w) {
-    const float* r1 = s.w1 + w * H;
-    float a = 0.f;
-#pragma unroll
-    for (int h = 0; h < H; ++h) a = fmaf(r1[h], yr[h], a);
-    a += s.b1[w];
-    a = (a < 0.f) ? 0.f : a;
-    const float ar = mx_round<MX>(a);
-    const float* r2 = s.w2 + w * CH;
-#pragma unroll
-    for (int q = 0; q < CH; ++q) pre2[q] = fmaf(r2[q], ar, pre2[q]);
-  }
-#pragma unroll
-  for (int q = 0; q < CH; ++q) g[q] = tanhf(pre2[q] + s.b2[q]);
 }
 
 // k_h = sum_i g[i*H + h] dx_i

@@ -281,7 +281,7 @@ __device__ __forceinline__ void fb_group_sum(float (&v)[N]) {
 }
 
 // g = tanh(W2 relu(W1 y + b1) + b2) for one lane, by its group; thread r
-// walks rows r, r + FB_G, ... in mlp_forward's order per row.  With STAGE,
+// walks rows r, r + FB_G, ..., each row's sum over h in order.  With STAGE,
 // each row's h1 goes to the lane's row h1 (in shared memory).
 template <bool MX, bool STAGE>
 __device__ __forceinline__ void fb_eval(const FbWeights& s, float* h1, int r,

@@ -27,21 +27,27 @@
 // evaluates 2 m n B times and adds the VJPs' products and the weight
 // gradients' products, 6 m n B evaluations' worth, 79.7 GFLOP.  The control
 // rows (58 MB) and the stored states (104 MB, written once, read once) are
-// below that: compute-bound on the CUDA cores.
+// below that: compute-bound, the forward on the tensor cores (three TF32
+// passes, 0.161 ms at their rate), the backward on the CUDA cores.
 //
 // Two variants compute the same function; fr_variant picks one from the
 // shapes, and every shape inside the JAX package's caps (W <= 512,
 // C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
 //
-// Specialised variant (H 8, C 3, every width of the caps, W <= 512): one
-// thread per batch lane.  The forward runs blocks of one warp with the
-// weights in shared memory and the stage math of cde_stage.cuh; a batch of
-// 16384 is 512 warps.  The backward ("Specialised backward" below) runs
+// Specialised variant (H 8, C 3, every width of the caps, W <= 512).  The
+// forward ("Specialised forward" below) runs a warp per 16 batch lanes and
+// the stage products on the tensor cores (mma.sync m16n8k8 in TF32, three
+// passes for float32 accuracy), in blocks of four warps that share one copy
+// of the weights, staged in fragment order; a batch of 16384 is 1024 warps.
+// The backward ("Specialised backward" below) runs one thread per lane, in
 // blocks of RB_LANES lanes that share one copy of the weights, as many as
 // the SMs hold at once (at config 5, 128 blocks of 4 warps, one wave), and
 // reduces the weight gradients over each block's lanes in register tiles,
 // written once as per-block partials and summed after the launch
-// (deterministic, no float atomics).
+// (deterministic, no float atomics).  Its recompute runs the evaluations on
+// the CUDA cores in float32, so it rounds otherwise than the forward did:
+// the inverse map starts from each interval's stored state, so the two
+// roundings never accumulate across intervals.
 //
 // Generic variant (H, C and W at run time): one block of GEN_THREADS threads
 // per lane (blocks stride over the lanes), the lane's vectors in shared
@@ -60,6 +66,7 @@
 // fr_backward_plan(...).
 
 #include <stddef.h>
+#include <stdint.h>
 
 #include <algorithm>
 
@@ -75,55 +82,240 @@ __device__ __forceinline__ float fraction(int s, double dt) {
   return (float)((double)s * dt);
 }
 
-template <int H, int C>
-__device__ __forceinline__ void field(const Smem<H, C>& sm, int W,
-                                      const float (&y)[H],
-                                      const float (&dx)[C], float (&k)[H]) {
-  float g[C * H];
-  mlp_forward<H, C>(sm, W, y, g);
-  contract<H, C>(g, dx, k);
+// ---------------------------------------------------------------------------
+// Specialised forward (H 8, C 3, W <= 512): a warp per 16 batch lanes, the
+// stage products on the tensor cores.
+//
+// Replaces the TPU kernel's walk (fused_pallas.py::_rev_fwd_kernel), which
+// runs these products on its matrix unit (_dot), float32 as several passes.
+// What bounds it: the two products of every evaluation, 2 W H (1 + C) flops
+// a lane.  As float32 on the CUDA cores, one thread a lane issues a shared
+// load per few FMAs, and at config 5 (B 16384, 99 intervals, m 1, W 128)
+// the issue slots set the pace (1.14 ms against the FMAs' 0.40).  Here the
+// products run as mma.sync.m16n8k8 in TF32: three passes, lo.hi, hi.lo and
+// hi.hi, with each float32 operand split as hi = tf32(x), lo = tf32(x -
+// hi), summed in float32, the two cross terms in an accumulator of their
+// own that joins hi.hi's at the end (smallest terms first): the float32
+// products to about 2^-21, as the TPU kernel's multi-pass f32 dots.  Apart,
+// the two accumulators are two dependent chains of MMAs where one would be
+// three in a row, which the card runs slower (PERF.md).  Three times
+// the 26.6 GFLOP at 495 TFLOP/s TF32 is 0.161 ms.
+//
+// The tile.  A warp's 16 lanes are the M of the products; a chunk of 8
+// hidden units is the K of the first (N = 8 of them from the H = 8 state
+// components) and of the second (N = 8 state components per channel, three
+// n-tiles).  Thread (g = lane / 4, t = lane % 4) holds, in the accumulator
+// layout, rows g and g + 8 (two batch lanes) at columns 2t and 2t + 1.  An
+// accumulator fragment read as an A fragment with k-index t standing for
+// column 2t and t + 4 for 2t + 1 (as_a) needs no shuffle: the state (the
+// first product's A, K = H = 8), each chunk's h1 (the first product's C,
+// the second's A) and g (the second's C) all stay in the registers that
+// hold them, and dX/dt . g and the step are thread-local.  The contraction
+// index is permuted to match when the block stages the weights: W1's
+// columns and W2's rows within a chunk, both in B-fragment order, split
+// into hi and lo once per block (tc_load_field).  W is padded with zero
+// weights to a multiple of 8.  Lanes past B run on zeros and are not
+// written.  Blocks of TC_WARPS warps share one copy of the weights: 2 KB a
+// chunk, 32 KB at W 128, 130 KB at W 512.
+
+constexpr int TC_H = 8, TC_C = 3, TC_CH = TC_H * TC_C;
+constexpr int TC_LANES = 16;                    // batch lanes a warp: the M of a product
+constexpr int TC_WARPS = 4;                     // warps a block
+constexpr int TC_BLOCK = TC_LANES * TC_WARPS;   // batch lanes a block
+constexpr int TC_K = 8;                         // hidden units a chunk
+constexpr int TC_FRAGS = 4;                     // B fragments a chunk: W1's, W2's of 3 channels
+
+__host__ __device__ inline int tc_chunks(int W) { return (W + TC_K - 1) / TC_K; }
+
+__host__ __device__ inline size_t tc_smem_bytes(int W) {
+  return sizeof(float4) * (size_t)tc_chunks(W) * TC_FRAGS * 32 +
+         sizeof(float) * ((size_t)tc_chunks(W) * TC_K + TC_CH);
 }
 
-template <int H, int C>
-__global__ void __launch_bounds__(LANES)
-    rev_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
-                   const float* __restrict__ w1t, const float* __restrict__ b1,
-                   const float* __restrict__ w2t, const float* __restrict__ b2,
-                   float* __restrict__ yres, float* __restrict__ yhres, int B,
-                   int n, int W, int m, double dt) {
-  extern __shared__ float smem[];
-  const Smem<H, C> sm(smem, W);
-  load_field<H, C>(sm, w1t, b1, w2t, b2, W);
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo up to 2^-22 |x|: hi rounds x to TF32, lo what hi missed.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_of(x);
+  lo = tf32_of(x - __uint_as_float(hi));
+}
+
+// d += a b on one 16 x 8 x 8 tile, fragments as PTX lays them out.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// The three passes of d += a b, b as staged (hi0, hi1, lo0, lo1): the
+// cross terms lo.hi and hi.lo into x, hi.hi into d; the caller adds x to d
+// once every pass is in.
+__device__ __forceinline__ void mma3(float (&d)[4], float (&x)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], const float4 b) {
+  mma_tf32(x, alo, b.x, b.y);
+  mma_tf32(x, ahi, b.z, b.w);
+  mma_tf32(d, ahi, b.x, b.y);
+}
+
+// The A fragments (hi, lo) of an operand held as an accumulator fragment
+// (c: rows g, g + 8 at columns 2t, 2t + 1): a0 row g k t, a1 row g + 8 k t,
+// a2 row g k t + 4, a3 row g + 8 k t + 4, with k t column 2t and k t + 4
+// column 2t + 1.
+__device__ __forceinline__ void as_a(const float (&c)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  tf32_split(c[0], hi[0], lo[0]);
+  tf32_split(c[2], hi[1], lo[1]);
+  tf32_split(c[1], hi[2], lo[2]);
+  tf32_split(c[3], hi[3], lo[3]);
+}
+
+// The block's weights in fragment order: frag[(c * TC_FRAGS + j) * 32 + lane]
+// holds the B fragment (b0, b1 for k t and t + 4, column g) of chunk c of
+// W1 (j = 0: B[k][n] = w1t[8c + n][perm k]) or of channel j - 1's W2 (B[k][n]
+// = w2t[8 (j - 1) + n][8c + perm k]), perm t = 2t, perm t + 4 = 2t + 1, as
+// (hi0, hi1, lo0, lo1); b1s[w], zero past W; b2s[q].
+__device__ void tc_load_field(float4* frag, float* b1s, float* b2s, const float* __restrict__ w1t,
+                              const float* __restrict__ b1, const float* __restrict__ w2t,
+                              const float* __restrict__ b2, int W) {
+  const int chunks = tc_chunks(W);
+  for (int e = threadIdx.x; e < chunks * TC_FRAGS * 32; e += blockDim.x) {
+    const int lane = e & 31, j = (e >> 5) % TC_FRAGS, c = (e >> 5) / TC_FRAGS;
+    const int g = lane >> 2, t = lane & 3;
+    float v0 = 0.f, v1 = 0.f;
+    if (j == 0) {
+      const int w = c * TC_K + g;
+      if (w < W) {
+        v0 = w1t[w * TC_H + 2 * t];
+        v1 = w1t[w * TC_H + 2 * t + 1];
+      }
+    } else {
+      const float* row = w2t + (size_t)((j - 1) * TC_H + g) * W;
+      const int w = c * TC_K + 2 * t;
+      if (w < W) v0 = row[w];
+      if (w + 1 < W) v1 = row[w + 1];
+    }
+    uint32_t h0, l0, h1, l1;
+    tf32_split(v0, h0, l0);
+    tf32_split(v1, h1, l1);
+    frag[e] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                          __uint_as_float(l1));
+  }
+  for (int i = threadIdx.x; i < chunks * TC_K; i += blockDim.x) b1s[i] = i < W ? b1[i] : 0.f;
+  for (int i = threadIdx.x; i < TC_CH; i += blockDim.x) b2s[i] = b2[i];
+}
+
+// k = f(y) along dx for the warp's 16 lanes: this thread's y and k at
+// positions r (r / 2: lane g or g + 8; r % 2: component 2t or 2t + 1), dx
+// of its two lanes.
+__device__ __forceinline__ void tc_field(const float4* __restrict__ frag,
+                                         const float* __restrict__ b1s,
+                                         const float* __restrict__ b2s, int chunks,
+                                         const float (&y)[4], const float (&dx)[2][TC_C],
+                                         float (&k)[4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  uint32_t yhi[4], ylo[4];
+  as_a(y, yhi, ylo);
+  float G[TC_C][4], X[TC_C][4];  // hi.hi from b2; the cross terms
+#pragma unroll
+  for (int i = 0; i < TC_C; ++i) {
+    const float2 bias = *reinterpret_cast<const float2*>(b2s + i * TC_H + 2 * t);
+    G[i][0] = G[i][2] = bias.x;
+    G[i][1] = G[i][3] = bias.y;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) X[i][r] = 0.f;
+  }
+  const float4* f = frag + lane;
+#pragma unroll 4
+  for (int c = 0; c < chunks; ++c, f += TC_FRAGS * 32) {
+    const float2 bias = *reinterpret_cast<const float2*>(b1s + c * TC_K + 2 * t);
+    float h[4] = {bias.x, bias.y, bias.x, bias.y}, hx[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3(h, hx, yhi, ylo, f[0]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      h[r] += hx[r];
+      h[r] = (h[r] < 0.f) ? 0.f : h[r];
+    }
+    uint32_t hhi[4], hlo[4];
+    as_a(h, hhi, hlo);
+#pragma unroll
+    for (int i = 0; i < TC_C; ++i) mma3(G[i], X[i], hhi, hlo, f[(1 + i) * 32]);
+  }
+#pragma unroll
+  for (int i = 0; i < TC_C; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) G[i][r] += X[i][r];
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float(&d)[TC_C] = dx[r >> 1];
+    float acc = tanhf(G[0][r]) * d[0];
+#pragma unroll
+    for (int i = 1; i < TC_C; ++i) acc += tanhf(G[i][r]) * d[i];
+    k[r] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(TC_WARPS * 32)
+    rev_fwd_tc_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
+                      const float* __restrict__ w1t, const float* __restrict__ b1,
+                      const float* __restrict__ w2t, const float* __restrict__ b2,
+                      float* __restrict__ yres, float* __restrict__ yhres, int B, int n, int W,
+                      int m, double dt) {
+  extern __shared__ float4 tc_smem[];
+  const int chunks = tc_chunks(W);
+  float4* frag = tc_smem;
+  float* b1s = reinterpret_cast<float*>(tc_smem + chunks * TC_FRAGS * 32);
+  float* b2s = b1s + chunks * TC_K;
+  tc_load_field(frag, b1s, b2s, w1t, b1, w2t, b2, W);
   __syncthreads();
-  const int lane = blockIdx.x * LANES + threadIdx.x;
-  if (lane >= B) return;
+  const int base = blockIdx.x * TC_BLOCK + (threadIdx.x >> 5) * TC_LANES;
+  if (base >= B) return;  // the whole warp: mma.sync needs all its threads
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int row[2] = {base + g, base + g + 8};
+  const bool live[2] = {row[0] < B, row[1] < B};
   const float dtf = (float)dt, hdt = (float)(0.5 * dt);
 
-  float y[H], yh[H];
+  float y[4], yh[4];
 #pragma unroll
-  for (int h = 0; h < H; ++h) y[h] = yh[h] = z0t[(size_t)h * B + lane];
+  for (int r = 0; r < 4; ++r) {
+    const int h = 2 * t + (r & 1);
+    y[r] = yh[r] = live[r >> 1] ? z0t[(size_t)h * B + row[r >> 1]] : 0.f;
+  }
   for (int j = 0; j < n; ++j) {
-    float sb[C], sc[C], sd[C], dx[C], f[H];
-    load_slab<H, C>(ct, j, B, lane, true, sb, sc, sd);
-    control_derivative<C>(sb, sc, sd, 0.f, dx);
-    field<H, C>(sm, W, yh, dx, f);
+    float sb[2][TC_C], sc[2][TC_C], sd[2][TC_C], dx[2][TC_C], f[4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      load_slab<TC_H, TC_C>(ct, j, B, row[p], live[p], sb[p], sc[p], sd[p]);
+      control_derivative<TC_C>(sb[p], sc[p], sd[p], 0.f, dx[p]);
+    }
+    tc_field(frag, b1s, b2s, chunks, yh, dx, f);
     for (int s = 0; s < m; ++s) {
-      float yn[H], f1[H];
+      float yn[4], f1[4];
 #pragma unroll
-      for (int h = 0; h < H; ++h) yn[h] = 2.f * y[h] - yh[h] + dtf * f[h];
-      control_derivative<C>(sb, sc, sd, fraction(s + 1, dt), dx);
-      field<H, C>(sm, W, yn, dx, f1);
+      for (int r = 0; r < 4; ++r) yn[r] = 2.f * y[r] - yh[r] + dtf * f[r];
 #pragma unroll
-      for (int h = 0; h < H; ++h) {
-        y[h] = y[h] + hdt * (f[h] + f1[h]);
-        yh[h] = yn[h];
-        f[h] = f1[h];
+      for (int p = 0; p < 2; ++p)
+        control_derivative<TC_C>(sb[p], sc[p], sd[p], fraction(s + 1, dt), dx[p]);
+      tc_field(frag, b1s, b2s, chunks, yn, dx, f1);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        y[r] = y[r] + hdt * (f[r] + f1[r]);
+        yh[r] = yn[r];
+        f[r] = f1[r];
       }
     }
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      yres[((size_t)j * H + h) * B + lane] = y[h];
-      yhres[((size_t)j * H + h) * B + lane] = yh[h];
+    for (int r = 0; r < 4; ++r) {
+      if (!live[r >> 1]) continue;
+      const size_t at = ((size_t)j * TC_H + 2 * t + (r & 1)) * B + row[r >> 1];
+      yres[at] = y[r];
+      yhres[at] = yh[r];
     }
   }
 }
@@ -209,8 +401,8 @@ __device__ void rb_load_field(const RbShared& s, const float* __restrict__ w1t,
   for (int i = threadIdx.x; i < RB_CH; i += blockDim.x) s.b2[i] = b2[i];
 }
 
-// h1_w = relu(W1 y + b1)_w in mlp_forward's order (cde_stage.cuh), so the
-// recomputed evaluation rounds as the forward kernel's; a0, a1: row w of W1.
+// h1_w = relu(W1 y + b1)_w, in float32 on the CUDA cores (the forward's
+// products ran on the tensor cores, rounding otherwise); a0, a1: row w of W1.
 __device__ __forceinline__ float rb_hidden(const RbShared& s, int w, const float (&y)[RB_H],
                                            float4& a0, float4& a1) {
   const float4* r1 = reinterpret_cast<const float4*>(s.w1 + w * RB_H);
@@ -808,10 +1000,10 @@ int fr_forward(const float* ct, const float* z0t, const float* w1t,
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (variant == SPECIALISED) {
-    const size_t smem = sizeof(float) * Smem<8, 3>::floats(W);
-    err = set_smem(rev_fwd_kernel<8, 3>, smem);
+    const size_t smem = tc_smem_bytes(W);
+    err = set_smem(rev_fwd_tc_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    rev_fwd_kernel<8, 3><<<(B + LANES - 1) / LANES, LANES, smem, st>>>(
+    rev_fwd_tc_kernel<<<(B + TC_BLOCK - 1) / TC_BLOCK, TC_WARPS * 32, smem, st>>>(
         ct, z0t, w1t, b1, w2t, b2, yres, yhres, B, n, W, m, dt);
     return (int)cudaGetLastError();
   }

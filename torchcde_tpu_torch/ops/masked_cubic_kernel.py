@@ -31,7 +31,7 @@ from . import dispatch
 
 LAUNCHES = 0
 
-# The resident variant's shape (csrc/masked_cubic.cu: RP, RT, RES_MAX); the
+# The resident variant's shape (csrc/row_scan.cuh: RP, RT, RES_MAX); the
 # library's own is checked against it when it loads.
 POSITIONS = 16         # positions a thread holds
 BLOCK_THREADS = 256    # threads per block
@@ -47,6 +47,15 @@ class FitPlan(NamedTuple):
     positions: int        # per thread (the long-row variant: the row)
 
 
+def threads_per_row(k):
+    """The least power of two of threads that holds a row of k positions at
+    ``POSITIONS`` a thread (the resident kernels' rows, ``csrc/row_scan.cuh``)."""
+    tpr = 1
+    while tpr * POSITIONS < k:
+        tpr *= 2
+    return tpr
+
+
 def fit_plan(k):
     """The launch for rows of length k: the resident variant, its threads
     per row the least power of two that holds k at ``POSITIONS`` a thread,
@@ -56,9 +65,7 @@ def fit_plan(k):
         raise ValueError(f"the fit needs rows of at least 2 positions, got {k}")
     if k > RESIDENT_MAX:
         return FitPlan("long", 1, LONG_THREADS, LONG_THREADS, k)
-    tpr = 1
-    while tpr * POSITIONS < k:
-        tpr *= 2
+    tpr = threads_per_row(k)
     return FitPlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS)
 
 

@@ -1,4 +1,4 @@
-"""K4: the batched tridiagonal solve as a CUDA kernel (``csrc/tridiagonal.cu``).
+"""K4: the batched tridiagonal solve as CUDA kernels (``csrc/tridiagonal.cu``).
 
 Replaces ``torchcde_tpu/ops/tridiagonal_pallas.py::_pcr_thomas_kernel``
 (entry ``tridiagonal_solve_pallas``) and its custom VJP ``_tp_bwd``: for
@@ -14,19 +14,48 @@ Its plain version is ``ops.tridiagonal.tridiagonal_solve_thomas``.
 * ``tridiagonal_solve_kernel(b, A_upper, A_diagonal, A_lower)``: the
   reference's signature and broadcasting; the kernel for CUDA
   float32/bfloat16 operands, the plain version otherwise;
-* ``LAUNCHES``: the count of kernel launches (forward and transpose solves).
+* ``solve_plan(k, shared)``: the route that solves rows of length k (one
+  band for every row up to ``RESIDENT_MAX`` positions: each row resident in
+  the registers of a power of two of threads, after one pass that
+  eliminates the shared diagonal; otherwise one thread per row);
+* ``LAUNCHES``: the count of solves launched (forward and transpose solves;
+  a shared-band solve's two kernels count once).
 """
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from . import dispatch
+from .masked_cubic_kernel import BLOCK_THREADS, POSITIONS, RESIDENT_MAX, threads_per_row
 from .tridiagonal import tridiagonal_solve_thomas  # the plain version
 
 LAUNCHES = 0
+THOMAS_THREADS = 32  # one thread per row, one warp per block
+
+
+class SolvePlan(NamedTuple):
+    variant: str          # "resident" (shared bands) or "thomas"
+    threads_per_row: int
+    rows_per_block: int
+    threads: int          # per block
+    positions: int        # per thread (thomas: the row)
+
+
+def solve_plan(k, shared):
+    """The launch for rows of length k whose bands are one for every row
+    (``shared``) or one per row: the resident route for shared bands up to
+    ``RESIDENT_MAX`` positions (K6/K7's threads per row), ``thomas_kernel``
+    otherwise."""
+    if k < 1:
+        raise ValueError(f"the solve needs rows of at least 1 position, got {k}")
+    if not shared or k > RESIDENT_MAX:
+        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k)
+    tpr = threads_per_row(k)
+    return SolvePlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS)
 
 
 def reset_launch_counts():
@@ -40,6 +69,8 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.td_solve.argtypes = [p] * 6 + [ll, i, ll, ll, ll, ll, p]
         lib.td_solve.restype = i
+        lib.td_solve_shared.argtypes = [p] * 6 + [ll, i, i, p]
+        lib.td_solve_shared.restype = i
         lib.td_error_string.argtypes = [i]
         lib.td_error_string.restype = ctypes.c_char_p
         lib._td_declared = True
@@ -58,7 +89,7 @@ def _rows(a, shape):
 
 
 def launch(b, A_upper, A_diagonal, A_lower):
-    """One launch: b (..., k) float32 on a CUDA device, bands broadcasting
+    """One solve: b (..., k) float32 on a CUDA device, bands broadcasting
     against it (A_diagonal (..., k), A_upper/A_lower (..., k - 1))."""
     global LAUNCHES
     shape = tuple(b.shape)
@@ -73,17 +104,33 @@ def launch(b, A_upper, A_diagonal, A_lower):
     x = torch.empty((n, k), dtype=b.dtype, device=b.device)
     if n == 0:
         return x.reshape(shape)
-    nd = torch.empty((k, n), dtype=b.dtype, device=b.device)
+    plan = solve_plan(k, shared=su == sd == sl == 0)
+    if plan.variant == "resident":
+        # The pivots w, r, c of the shared band, zero past k.
+        scratch = torch.empty((3, plan.threads_per_row * plan.positions), dtype=b.dtype,
+                              device=b.device)
+    else:
+        scratch = torch.empty((k, n), dtype=b.dtype, device=b.device)  # the eliminated diagonal
+    _kernel(plan, (b2, u2, d2, l2), x, scratch, (n, k, sb, su, sd, sl))
+    LAUNCHES += 1
+    return x.reshape(shape)
+
+
+def _kernel(plan, operands, x, scratch, sizes):
+    """The route of ``plan`` on the operands (b, u, d, l as rows, ``_rows``)
+    into x (n, k), with its scratch."""
     lib = _library()
-    with torch.cuda.device(b.device):
-        rc = lib.td_solve(b2.data_ptr(), u2.data_ptr(), d2.data_ptr(), l2.data_ptr(),
-                          x.data_ptr(), nd.data_ptr(), n, k, sb, su, sd, sl,
-                          dispatch.stream_of(b))
+    n, k, sb, su, sd, sl = sizes
+    ptrs = [t.data_ptr() for t in (*operands, x, scratch)]
+    stream = dispatch.stream_of(x)
+    with torch.cuda.device(x.device):
+        if plan.variant == "resident":
+            rc = lib.td_solve_shared(*ptrs, n, k, plan.threads_per_row, stream)
+        else:
+            rc = lib.td_solve(*ptrs, n, k, sb, su, sd, sl, stream)
     if rc != 0:
         raise RuntimeError(f"tridiagonal solve kernel failed: {lib.td_error_string(rc).decode()} "
                            f"(code {rc})")
-    LAUNCHES += 1
-    return x.reshape(shape)
 
 
 def _sum_to(grad, shape):
