@@ -44,13 +44,16 @@ Phases, each of which raises on failure:
    maximum 4096 and the long-row variant at 4097), odd row counts, NaN
    densities 0 to 1, leading and trailing NaN runs, single-observation and
    all-NaN rows, both imputation versions, irregular times, each K4 (both
-   routes: bands shared by every row and bands per row) and K6/K7 case also
+   routes: bands shared by every row and bands per row), K5 (the resident
+   route up to 4096, masked_thomas_kernel at 4097) and K6/K7 case also
    against a second launch, bit for bit; and the public fit on
    bfloat16 values (upcast at the kernels' boundary);
 11. fit slice: BASELINE config 3 (8192 series of length 4096, one channel,
    20 % NaN, as benchmarks/run_benchmarks.py's bench_cubic_fit makes them)
    through the public natural_cubic_coeffs, forward and gradient, with and
-   without NaNs, launch counts asserted, against the float64 plain path;
+   without NaNs, launch counts asserted, against the float64 plain path,
+   and K5 on the masked gradient's own operands against its float64 plain
+   version and a second launch;
 12. NaN spiral slice: natural cubic coefficients of the spiral data with 30 %
    of the values missing, then five Adam steps of the default Neural CDE;
    phases 11 and 12 run with every kernel's plain version patched to raise;
@@ -297,6 +300,7 @@ def phase_build():
         print(f"  K1 backward at the flagship, mode {mode}: {k1_plan_line(mode, 'backward')}")
     for name, lines in k1_ptxas(log).items():
         print(f"  K1 kernel {name}: {'; '.join(lines)}")
+    from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
     from torchcde_tpu_torch.ops.masked_cubic_kernel import fit_plan
     from torchcde_tpu_torch.ops.tridiagonal_kernel import solve_plan
 
@@ -306,6 +310,9 @@ def phase_build():
     print(f"  K4 at config 3 (k {FIT_LENGTH}, shared bands): {solve_plan(FIT_LENGTH, True)}")
     for name, lines in ptxas_lines(log, k4_label).items():
         print(f"  K4 kernel {name}: {'; '.join(lines)}")
+    print(f"  K5 at config 3 (k {FIT_LENGTH}): {masked_tridiagonal_kernel.solve_plan(FIT_LENGTH)}")
+    for name, lines in ptxas_lines(log, k5_label).items():
+        print(f"  K5 kernel {name}: {'; '.join(lines)}")
 
 
 def k1_plan(mode, which):
@@ -355,9 +362,15 @@ def fit_kernel_label(name):
 
 def k4_label(name):
     """K4's kernels' names in ptxas's log, or None (K5's masked_thomas_kernel
-    is not one)."""
+    and resident_gappy_kernel are not ones)."""
     kernel = re.search(r"\d(thomas|shared_band|band_pivot)_kernel", name)
     return kernel.group(1) + "_kernel" if kernel else None
+
+
+def k5_label(name):
+    """K5's kernels' names in ptxas's log, or None."""
+    kernel = re.search(r"(resident_gappy|masked_thomas)_kernel", name)
+    return kernel.group(0) if kernel else None
 
 
 def k8_forward_label(name):
@@ -1119,10 +1132,12 @@ BF16_RTOL = 1e-2
 # Each of the fit's four outputs is held to its own largest magnitude: on
 # irregular times three_d reaches ~1e3 while a and b stay ~1.
 FIT_PARTS = ("a", "b", "two_c", "three_d")
+# K5's kernel for each route of its solve_plan.
+K5_VARIANTS = {"resident": "resident_gappy_kernel", "thomas": "masked_thomas_kernel"}
 # The new kernels' names as the profiler reports them (csrc/*.cu).
 FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b",
                     "K4": r"\b(?:thomas|shared_band|band_pivot)_kernel\b",
-                    "K5": r"\bmasked_thomas_kernel\b",
+                    "K5": r"\b(?:resident_gappy|masked_thomas)_kernel\b",
                     "K6/K7": r"\b(?:resident|long)_fit_kernel\b"}
 
 
@@ -1314,11 +1329,11 @@ def check_k4(device):
 
 
 def check_k5(device):
-    from torchcde_tpu_torch.interpolation.cubic import _masked_thomas_observed
     from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
 
     failures, worst = [], 0.0
     for i, length in enumerate(FIT_LENGTHS):
+        plan = masked_tridiagonal_kernel.solve_plan(length)
         for j, density in enumerate(FIT_DENSITIES):
             rows = _rows_for(length, i)
             obs = ~torch.isnan(torch.from_numpy(nan_rows(rows, length, density, seed=10 * i + j))
@@ -1328,14 +1343,28 @@ def check_k5(device):
             hr_prev = torch.rand(obs.shape, generator=gen, device=device) + 0.2
             diag = 2 * (hr + hr_prev) + 0.5
             rhs = torch.randn(obs.shape, generator=gen, device=device)
-            got = masked_tridiagonal_kernel.launch(diag, rhs, hr, hr_prev, obs)
-            ref = _masked_thomas_observed(diag.double(), rhs.double(), hr.double(),
-                                          hr_prev.double(), obs)
-            err, scale = _rel(got, ref)
-            worst = max(worst, err)
-            _report(f"K5 gappy tridiagonal {rows}x{length} NaN {density:g}", err, scale,
-                    FWD_RTOL * max(scale, 1.0), failures, bool(got.isfinite().all()))
+            label = (f"K5 gappy tridiagonal {rows}x{length} NaN {density:g} "
+                     f"[{plan.variant}, {plan.threads_per_row} threads a row]")
+            worst = max(worst, check_k5_case(label, (diag, rhs, hr, hr_prev, obs), failures))
     return worst, failures
+
+
+def check_k5_case(label, operands, failures):
+    """One K5 launch on float32 operands (and the mask) against the float64
+    plain version, and a second launch bit for bit.  Returns the error."""
+    from torchcde_tpu_torch.interpolation.cubic import _masked_thomas_observed
+    from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
+
+    operands = tuple(a.detach() for a in operands)
+    got = masked_tridiagonal_kernel.launch(*operands)
+    ref = _masked_thomas_observed(*(a.double() for a in operands[:4]), operands[4])
+    err, scale = _rel(got, ref)
+    _report(label, err, scale, FWD_RTOL * max(scale, 1.0), failures, bool(got.isfinite().all()))
+    again = masked_tridiagonal_kernel.launch(*operands)
+    torch.cuda.synchronize()
+    if not _same_bits(got, again):
+        failures.append(f"{label}: a second launch differs")
+    return err
 
 
 def check_k6(device):
@@ -1409,7 +1438,8 @@ def config3_data():
 def fit_slice(device, recorded):
     """Phase 11: the config-3 fit through natural_cubic_coeffs, forward and
     gradient, masked and dense.  ``recorded`` collects the arguments of the
-    K3 and K5 launches of the masked gradient, for the timing phase."""
+    K3 and K5 launches of the masked gradient, for the timing phase; K5 is
+    held against its float64 plain version on the last of them."""
     import torchcde_tpu_torch as tt
 
     masked, dense = config3_data()
@@ -1468,6 +1498,10 @@ def fit_slice(device, recorded):
         errors[(label, "gradient")] = err
         _report(f"fit slice {label} gradient vs plain float64", err, scale,
                 FWD_RTOL * max(scale, 1.0), failures, bool(grad.isfinite().all()))
+    # K5 on the masked gradient's own operands (its transpose solve).
+    errors[("masked", "K5")] = check_k5_case(
+        f"K5 gappy tridiagonal on the config-3 masked gradient's operands "
+        f"{tuple(recorded['K5'][0].shape)}", recorded["K5"], failures)
     if failures:
         raise AssertionError("the config-3 fit disagrees with the plain path: " + "; ".join(failures))
     return launches, errors
@@ -2912,8 +2946,9 @@ def time_fit_kernels(device, recorded):
         # so torch.linalg.solve of the dense (k, k) matrix against the rows
         # as columns computes the same function.  Building the matrix is
         # set-up, outside the timed window.  The other kernels have none: a
-        # fill is cummax and a gather, and no call solves a gappy system or
-        # fits a masked spline.
+        # fill is cummax and a gather; no call solves K5's 8192 distinct
+        # gappy systems (a dense batched solve would hold 8192 x 4096^2
+        # floats) or fits a masked spline.
         A = torch.diag(diag) + torch.diag(hr, 1) + torch.diag(hr, -1)
         columns = rhs.t().contiguous()
         library_ms = _event_ms(lambda: torch.linalg.solve(A, columns), 3)
@@ -3095,6 +3130,7 @@ def main():
     fit_errors = check_fit_kernels(device)
     recorded = {}
     fit_launches, slice_errors = fit_slice(device, recorded)
+    fit_errors["K5"] = max(fit_errors["K5"], slice_errors[("masked", "K5")])
     spiral_fit, spiral_k2, spiral_err = nan_spiral_slice(device)
     for name, count in spiral_fit.items():
         fit_launches[name] += count
@@ -3259,6 +3295,9 @@ def main():
                         "replaces": FIT_REPLACES[name], "launches": fit_launches[name],
                         "max_abs_err": fit_errors[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+        if name == "K5":  # the kernel of K5's route at config 3's length
+            kernels[-1]["variant"] = K5_VARIANTS[
+                fit_kernel_modules()["K5"].solve_plan(FIT_LENGTH).variant]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

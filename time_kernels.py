@@ -1,5 +1,5 @@
 """Times the fused kernels (K1 in float32 and bfloat16, K2, K8, K9), the
-fit's K6/K7 and K4, and the flagship's, the default configuration's and
+fit's K6/K7, K4 and K5, and the flagship's, the default configuration's and
 config 5's train steps and config 3's fits in one checkout.
 
     python3 time_kernels.py [ROOT] [--parts k2,k9,k8,k1,fit]
@@ -19,14 +19,15 @@ mesh (a backward's time follows them), K8's forward and backward at config
 the checkout reports it, config 5's train step in both adjoint modes, K1's
 forward and backward at the flagship in float32 and in bfloat16 (as phases
 8 and 28 time them) with both launch plans where the checkout reports
-them, the flagship's train step in both precisions (median of 10), K6/K7
-and K4 at config 3 (as phase 13 times them), config 3's NaN-masked fit
-forward and its dense fit's forward and gradient through
+them, the flagship's train step in both precisions (median of 10), K6/K7,
+K4 and K5 at config 3 (as phase 13 times them; K5 on the operands of one
+masked gradient's last launch, recorded as phase 11 records them), config
+3's NaN-masked and dense fits' forwards and gradients through
 ``natural_cubic_coeffs``, and ptxas's report for each kernel of K1, K2, K4,
-K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts`` keeps some
+K5, K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts`` keeps some
 of the groups (k2: K2 and the default steps, K2's linear mode and caps
 case; k9; k8: K8 and config 5's step; k1: K1 and the flagship steps; fit:
-K6/K7, K4 and the fits).  To compare two commits on one card,
+K6/K7, K4, K5 and the fits).  To compare two commits on one card,
 unpack both and run this for each on the same card, in turns: parent,
 change, change, parent.  Needs one CUDA card.
 """
@@ -36,6 +37,7 @@ import os
 import re
 import statistics
 import sys
+from unittest import mock
 
 import torch
 
@@ -210,14 +212,32 @@ def time_k1(cs, device, coeffs, labels):
     return timing
 
 
+def recorded_k5_operands(grad_of, x):
+    """The operands of the last K5 launch (the transpose solve) of one
+    masked gradient of x, as phase 11 records them."""
+    from torchcde_tpu_torch.ops import masked_tridiagonal_kernel as k5
+
+    launch, recorded = k5.launch, []
+
+    def record(*args):
+        recorded.append(args)
+        return launch(*args)
+
+    with mock.patch.object(k5, "launch", record):
+        grad_of(x)
+    return recorded[-1]
+
+
 def time_fit(cs, device):
-    """K6/K7's and K4's ms at config 3 (one launch each, K6/K7 version 1 and
-    K4 on the dense fit's shared system, as phase 13 times them), config 3's
-    NaN-masked fit forward and its dense fit's forward and gradient through
-    ``natural_cubic_coeffs`` (CUDA events), and both kernels' plans where
-    the checkout has them."""
+    """K6/K7's, K4's and K5's ms at config 3 (one launch each, K6/K7 version
+    1, K4 on the dense fit's shared system and K5 on the operands of one
+    masked gradient's last launch, as phase 13 times them), config 3's
+    NaN-masked fit forward and gradient and its dense fit's forward and
+    gradient through ``natural_cubic_coeffs`` (CUDA events), and the
+    kernels' plans where the checkout has them."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.ops import masked_cubic_kernel as mk
+    from torchcde_tpu_torch.ops import masked_tridiagonal_kernel as k5
     from torchcde_tpu_torch.ops import tridiagonal_kernel as k4
 
     masked, dense = cs.config3_data()
@@ -239,14 +259,19 @@ def time_fit(cs, device):
         xg = values.clone().requires_grad_()
         return torch.autograd.grad((tt.natural_cubic_coeffs(xg) * w).sum(), xg)
 
+    solve_args = recorded_k5_operands(grad_of, x)
+    timing["k5_ms"] = cs._event_ms(lambda: k5.launch(*solve_args), 10)
     with torch.no_grad():
         timing["masked_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(x), 5)
         timing["dense_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(xd), 5)
+    timing["masked_fit_grad_ms"] = cs._event_ms(lambda: grad_of(x), 3)
     timing["dense_fit_grad_ms"] = cs._event_ms(lambda: grad_of(xd), 3)
     if hasattr(mk, "fit_plan"):
         timing["k6_plan"] = mk.fit_plan(k)._asdict()
     if hasattr(k4, "solve_plan"):
         timing["k4_plan"] = k4.solve_plan(k, True)._asdict()
+    if hasattr(k5, "solve_plan"):
+        timing["k5_plan"] = k5.solve_plan(k)._asdict()
     return timing
 
 

@@ -1,7 +1,7 @@
 // Scans across a row held in the registers of a power of two of threads,
 // shared by the resident kernels of the natural cubic fit: K6/K7's
-// resident_fit_kernel (masked_cubic.cu) and K4's shared-band solve
-// (tridiagonal.cu).
+// resident_fit_kernel (masked_cubic.cu), K4's shared-band solve
+// (tridiagonal.cu) and K5's resident_gappy_kernel (masked_tridiagonal.cu).
 //
 // A row of k <= RES_MAX positions belongs to threads_per_row (tpr)
 // consecutive threads of a block of RT, tpr the least power of two with

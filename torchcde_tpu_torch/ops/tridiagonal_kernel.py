@@ -38,7 +38,7 @@ THOMAS_THREADS = 32  # one thread per row, one warp per block
 
 
 class SolvePlan(NamedTuple):
-    variant: str          # "resident" (shared bands) or "thomas"
+    variant: str          # "resident" or "thomas" (K4 and K5 alike)
     threads_per_row: int
     rows_per_block: int
     threads: int          # per block
