@@ -135,7 +135,19 @@ Phases, each of which raises on failure:
    and gradient each through K8 and K9 (route, dtype, closeness);
 28. timing of K1's bfloat16 mode and its plain version, and of the bfloat16
    flagship step beside the float32 one and the plain bfloat16 step, in
-   turns, and a torch.profiler reading of the bfloat16 step.
+   turns, and a torch.profiler reading of the bfloat16 step;
+29. the rest of the solver surface, plain PyTorch ops on the card: the
+   spiral problem at the flagship's width (an MLPVectorField over Hermite
+   coefficients, float32), its length cut to 10, through heun3, bosh3,
+   dopri5_nofsal, dopri8, adaptive_heun, fehlberg2, explicit_adams and
+   implicit_adams (forwards at B 4096, one direct gradient each at B 256),
+   dopri5 with a jump at every interior knot in both adjoint modes, a
+   two-member TupleControl state and scipy_solver at B 16, each held against
+   the port's float64 solve (see SURFACE_FIXED_RTOL, SURFACE_ADAPTIVE_RTOL,
+   SURFACE_BACKSOLVE_RTOL and SURFACE_SCIPY_RTOL), with K1, K2, K8 and K9
+   launched zero times, as the JAX package declines them;
+30. the example examples/torch_time_series_classification.py on the card
+   for one epoch: a finite accuracy and K2 launched forward and backward.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -3029,6 +3041,270 @@ def k2_bounds(k2_ms, batch, n, channels, rows):
             bound(2 * ct_bytes + 4 * acc * HIDDEN * batch + 2 * state, 3 * 7 * acc * batch * f))
 
 
+# 29-30. The rest of the solver surface and the first example.  The methods,
+# jump_t, tuple states and scipy_solver run as plain PyTorch ops on the card
+# (the JAX package runs them as XLA ops, no Pallas kernel): no fused kernel
+# may launch for them.  Problem: the spiral data at the flagship's width
+# (3 channels, hidden 8, width 128, an MLPVectorField over Hermite
+# coefficients, float32), its length cut to SURFACE_LENGTH so that both
+# phases stay within 40 s; forwards at SURFACE_BATCH, one direct gradient
+# per method at SURFACE_GRAD_BATCH (low-order adaptive meshes are long), on
+# the first lanes of the same problem.  Each solve is held against the
+# port's float64 solve of the same problem: a fixed-step method on the same
+# steps, within SURFACE_FIXED_RTOL of the largest magnitude (values) or
+# SURFACE_FIXED_GRAD_RTOL in the relative Frobenius norm (gradients: where
+# rounding puts a ReLU pre-activation on the other side of zero, a lane's
+# gradient differs by a whole term, as in K1's checks above; one such lane
+# of 256 moved implicit_adams's to 4e-4 on an H100); an adaptive one's values against
+# one float64 dopri5 solve at rtol 1e-10, atol 1e-12 and a budget of
+# EXACT_CAP steps, whose first lanes serve the smaller batches (its float32
+# mesh parts from any float64 one, ROADMAP section 3), its gradients against
+# one float64 direct gradient of dopri5 at rtol 1e-8, atol 1e-10 with a jump
+# at every interior knot (GRAD_TIGHT; the direct gradient at rtol 1e-10
+# takes minutes, and on a CPU rehearsal one at rtol 1e-7 lay 6e-4 from it),
+# each within SURFACE_ADAPTIVE_RTOL: the global error of a solve at rtol
+# 1e-4 over the knot intervals, which reaches ~1e-2 of the largest magnitude
+# on this data (EXACT_TOL above), with room for the order-2 pairs.  The
+# backsolve adjoint's gradient carries its own error at rtol 1e-4, 2-3e-2
+# from direct gradients (ROADMAP section 3, in float64 on the CPU): it is
+# held within SURFACE_BACKSOLVE_RTOL.  scipy_solver (RK45 at rtol 1e-6, atol
+# 1e-8) is held within SURFACE_SCIPY_RTOL of the tight solve.
+SURFACE_METHODS = ("heun3", "bosh3", "dopri5_nofsal", "dopri8", "adaptive_heun", "fehlberg2",
+                   "explicit_adams", "implicit_adams")
+SURFACE_FIXED = ("heun3", "explicit_adams", "implicit_adams")
+SURFACE_BATCH, SURFACE_GRAD_BATCH, SURFACE_SCIPY_BATCH = 4096, 256, 16
+SURFACE_LENGTH = 10
+SURFACE_FIXED_RTOL = 1e-4
+SURFACE_FIXED_GRAD_RTOL = 5e-3
+SURFACE_ADAPTIVE_RTOL = 5e-2
+SURFACE_SCIPY_RTOL = 1e-3
+SURFACE_BACKSOLVE_RTOL = 1e-1
+TIGHT = dict(method="dopri5", rtol=1e-10, atol=1e-12, max_steps=EXACT_CAP)
+GRAD_TIGHT = dict(method="dopri5", rtol=1e-8, atol=1e-10, max_steps=EXACT_CAP)
+
+
+class SurfaceProblem:
+    """The phase's problem: the spiral data's control, an MLPVectorField and
+    z0 in float32 on the card, and their float64 twins; ``lanes(n)`` gives
+    the first n lanes of each."""
+
+    def __init__(self, device, batch, seed=0):
+        import torchcde_tpu_torch as tt
+        from torchcde_tpu_torch.solvers.terms import MLPVectorField
+
+        X_np, _ = spiral_data(batch, SURFACE_LENGTH, seed)
+        self.x = torch.from_numpy(X_np).to(device)
+        torch.manual_seed(seed)
+        self.field = MLPVectorField(HIDDEN, CHANNELS, WIDTH).to(device)
+        self.field64 = copy.deepcopy(self.field).double()
+        gen = torch.Generator().manual_seed(seed)
+        self.z0 = (0.5 * torch.randn(batch, HIDDEN, generator=gen)).to(device)
+        self.coeffs = tt.hermite_cubic_coefficients_with_backward_differences(self.x)
+
+    def lanes(self, n, dtype=torch.float32):
+        """(X, field, z0) of the first n lanes in dtype."""
+        import torchcde_tpu_torch as tt
+
+        field = self.field if dtype == torch.float32 else self.field64
+        return tt.CubicSpline(self.coeffs[:n].to(dtype)), field, self.z0[:n].to(dtype)
+
+
+def surface_kwargs(method):
+    if method in SURFACE_FIXED:
+        return dict(method=method, options=dict(step_size=1.0))
+    return dict(method=method)
+
+
+def fused_launches():
+    """Every launch count of the fused solver kernels K1, K2, K8 and K9."""
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    return {name: (m.FWD_LAUNCHES, m.BWD_LAUNCHES)
+            for name, m in (("K1", k1), ("K2", k2), ("K8", k8), ("K9", k9))}
+
+
+def reset_fused_launches():
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    for m in (k1, k2, k8, k9):
+        m.reset_launch_counts()
+
+
+def _timed(fn):
+    """(fn()'s result, its wall milliseconds, the card synchronised)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - start)
+
+
+def _grads(X, field, z0, proj, **kwargs):
+    """Direct gradients of sum(out[..., -1, :] * proj) w.r.t. z0 and the field."""
+    import torchcde_tpu_torch as tt
+
+    z0 = z0.detach().requires_grad_()
+    params = [z0] + list(field.parameters())
+    out = tt.cdeint(X, field, z0, X.interval, **kwargs)
+    return torch.autograd.grad((out[..., -1, :] * proj).sum(), params)
+
+
+def _rel_frobenius(got, ref):
+    return max(float(torch.linalg.vector_norm(g.double() - r) / torch.linalg.vector_norm(r))
+               for g, r in zip(got, ref))
+
+
+def surface_slice(device):
+    """Phase 29: every method the earlier phases do not run, jump_t, a tuple
+    state and scipy_solver through the public ``cdeint`` on the card, each
+    held against a float64 solve, with K1, K2, K8 and K9 launched zero times."""
+    import torchcde_tpu_torch as tt
+
+    failures, report = [], {}
+
+    def hold(label, err, limit, key="err"):
+        report[label][key] = err
+        if not err <= limit:
+            failures.append(f"{label} {key}: {err:.3e} > {limit:.1e}")
+
+    def rel_err(out, ref):
+        err, scale = _err(out.double(), ref)
+        return err / scale
+
+    reset_fused_launches()
+    problem = SurfaceProblem(device, SURFACE_BATCH)
+    X, field, z0 = problem.lanes(SURFACE_BATCH)
+    X64, field64, z064 = problem.lanes(SURFACE_BATCH, torch.float64)
+    with torch.no_grad():
+        (tight, stats), tight_ms = _timed(lambda: tt.cdeint(
+            X64, field64, z064, X64.interval, adjoint=False, return_stats=True, **TIGHT))
+        report[f"float64 rtol 1e-10 B{SURFACE_BATCH}"] = dict(
+            ms=tight_ms, steps=int(stats["steps_attempted"]))
+        for method in SURFACE_METHODS:
+            (out, stats), ms = _timed(lambda: tt.cdeint(
+                X, field, z0, X.interval, adjoint=False, return_stats=True,
+                **surface_kwargs(method)))
+            label = f"{method} B{SURFACE_BATCH}"
+            report[label] = dict(ms=ms, steps=int(stats["steps_attempted"]))
+            if method in SURFACE_FIXED:
+                ref, report[label]["reference_ms"] = _timed(lambda: tt.cdeint(
+                    X64, field64, z064, X64.interval, adjoint=False, **surface_kwargs(method)))
+                limit = SURFACE_FIXED_RTOL
+            else:
+                ref, limit = tight, SURFACE_ADAPTIVE_RTOL
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                failures.append(f"{label}: shape {tuple(out.shape)} or not finite")
+            hold(label, rel_err(out, ref), limit)
+            print(f"surface {label}: {ms:.1f} ms, {report[label]['steps']} steps, error "
+                  f"against float64 {report[label]['err']:.3e} of the largest magnitude",
+                  flush=True)
+
+    B = SURFACE_GRAD_BATCH
+    X, field, z0 = problem.lanes(B)
+    X64, field64, z064 = problem.lanes(B, torch.float64)
+    proj = torch.randn(B, HIDDEN, generator=torch.Generator().manual_seed(2)).to(device)
+    jumps = X.grid_points[1:-1]
+    grad_ref, ref_ms = _timed(lambda: _grads(X64, field64, z064, proj.double(), adjoint=False,
+                                             options=dict(jump_t=jumps), **GRAD_TIGHT))
+    report[f"float64 gradient rtol 1e-8 B{B}"] = dict(ms=ref_ms)
+    for method in SURFACE_METHODS:
+        grads, ms = _timed(lambda: _grads(X, field, z0, proj, adjoint=False,
+                                          **surface_kwargs(method)))
+        label = f"{method} gradient B{B}"
+        report[label] = dict(ms=ms)
+        if method in SURFACE_FIXED:
+            ref, report[label]["reference_ms"] = _timed(lambda: _grads(
+                X64, field64, z064, proj.double(), adjoint=False, **surface_kwargs(method)))
+            hold(label, _rel_frobenius(grads, ref), SURFACE_FIXED_GRAD_RTOL)
+        else:
+            hold(label, _rel_frobenius(grads, grad_ref), SURFACE_ADAPTIVE_RTOL)
+        print(f"surface {label}: {ms:.1f} ms, rel_frobenius {report[label]['err']:.3e}",
+              flush=True)
+
+    # dopri5 with a jump at every interior knot, in both adjoint modes.
+    for adjoint in (False, True):
+        label = f"dopri5 jump_t adjoint={adjoint} B{B}"
+        with torch.no_grad():
+            out, ms = _timed(lambda: tt.cdeint(X, field, z0, X.interval, adjoint=adjoint,
+                                               options=dict(jump_t=jumps)))
+        grads, grad_ms = _timed(lambda: _grads(X, field, z0, proj, adjoint=adjoint,
+                                               options=dict(jump_t=jumps)))
+        report[label] = dict(ms=ms, gradient_ms=grad_ms)
+        hold(label, rel_err(out, tight[:B]), SURFACE_ADAPTIVE_RTOL)
+        hold(label, _rel_frobenius(grads, grad_ref),
+             SURFACE_BACKSOLVE_RTOL if adjoint else SURFACE_ADAPTIVE_RTOL, "gradient_err")
+        print(f"surface {label}: {ms:.1f} ms, gradient {grad_ms:.1f} ms, errors "
+              f"{report[label]['err']:.3e}, {report[label]['gradient_err']:.3e}", flush=True)
+
+    # A two-member tuple state: the MLP field on the spline, and on a second
+    # control (the spline of the last two channels) a constant field A, whose
+    # solution z0 + A (X(t) - X(t0)) is known.
+    A = 0.5 * torch.randn(4, 2, generator=torch.Generator().manual_seed(3)).to(device)
+    Xb = tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(
+        problem.x[:B, :, 1:]))
+    zb0 = torch.full((B, 4), 0.1, device=device)
+
+    def func(t, zs):
+        za, zb = zs
+        return field(t, za), A.expand(zb.shape[:-1] + A.shape)
+
+    Xt = tt.TupleControl(X, Xb)
+    with torch.no_grad():
+        out, ms = _timed(lambda: tt.cdeint(Xt, func, (z0, zb0), Xt.interval, adjoint=False))
+        end = Xb.evaluate(Xb.interval[-1]) - Xb.evaluate(Xb.interval[0])
+        exact_b = zb0.double() + end.double() @ A.double().t()
+    label = f"tuple state dopri5 B{B}"
+    report[label] = dict(ms=ms)
+    hold(label, max(rel_err(out[0], tight[:B]), rel_err(out[1][..., -1, :], exact_b)),
+         SURFACE_ADAPTIVE_RTOL)
+    print(f"surface {label}: {ms:.1f} ms, error {report[label]['err']:.3e}", flush=True)
+
+    # scipy_solver: solve_ivp steps on the host, the right-hand side on the card.
+    X, field, z0 = problem.lanes(SURFACE_SCIPY_BATCH)
+    with torch.no_grad():
+        out, ms = _timed(lambda: tt.cdeint(X, field, z0, X.interval, adjoint=False,
+                                           method="scipy_solver", rtol=1e-6, atol=1e-8))
+    label = f"scipy_solver RK45 B{SURFACE_SCIPY_BATCH}"
+    report[label] = dict(ms=ms)
+    hold(label, rel_err(out, tight[:SURFACE_SCIPY_BATCH]), SURFACE_SCIPY_RTOL)
+    print(f"surface {label}: {ms:.1f} ms, error {report[label]['err']:.3e}", flush=True)
+
+    launches = fused_launches()
+    report["fused_launches"] = launches
+    print(f"surface: fused kernel launches {launches}", flush=True)
+    if any(n for pair in launches.values() for n in pair):
+        failures.append(f"a fused kernel launched on the solver surface: {launches}")
+    if failures:
+        raise AssertionError("solver surface: " + "; ".join(failures))
+    return report
+
+
+def example_slice():
+    """Phase 30: examples/torch_time_series_classification.py's main on the
+    card for one epoch: a finite accuracy, and K2 launched both ways."""
+    import os
+
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import torch_time_series_classification as example
+
+    k2.reset_launch_counts()
+    acc, ms = _timed(lambda: example.main(num_epochs=1, device="cuda"))
+    launches = {"fwd": k2.FWD_LAUNCHES, "bwd": k2.BWD_LAUNCHES}
+    print(f"example: accuracy {acc:.4f} after one epoch, {ms:.1f} ms, K2 launches {launches}",
+          flush=True)
+    if not math.isfinite(acc) or not launches["fwd"] > 0 or not launches["bwd"] > 0:
+        raise AssertionError(f"the example did not run through K2: {acc}, {launches}")
+    return dict(accuracy=acc, ms=ms, k2_launches=launches)
+
+
 def elapsed(phase):
     """Prints the seconds since the script started, before a phase."""
     print(f"chip_smoke: phase {phase} at {time.perf_counter() - START:.1f} s", flush=True)
@@ -3221,6 +3497,14 @@ def main():
                                    "k1_bf16_bwd_bound_ms": k1b_bwd_bound[0],
                                    "bf16_slices": bf16_report}))
     print("profile: " + json.dumps(dict(bf16_profile, config="flagship bf16 (bench.py)", card=smi)))
+
+    elapsed("29")
+    # 29-30. The rest of the solver surface (plain PyTorch on the card, no
+    # fused kernel) and the first example.
+    surface = surface_slice(device)
+    elapsed("30")
+    example = example_slice()
+    print("timing: " + json.dumps({"card": smi, "solver_surface": surface, "example": example}))
 
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)

@@ -8,7 +8,7 @@ coefficient tensor.  The CUDA kernels themselves are held against the plain
 version on the card by ``chip_smoke.py``.
 """
 
-import re
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -193,18 +193,52 @@ def test_eligibility_declines():
     assert k1.try_fused_mlp(rows, z0.float(), field, "rk4", 1, 1.0, N) is None
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(method="bosh3"), "Rest of the solver surface"),
-    (dict(method="dopri8", adjoint=True), "Rest of the solver surface"),
-    (dict(method="rk4", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
-    (dict(method="dopri5", options=dict(jump_t=np.array([1.0]))), "Rest of the solver surface"),
-    (dict(method="scipy_solver"), "Rest of the solver surface"),
+@pytest.mark.parametrize("kwargs", [
+    dict(method="bosh3"),
+    dict(method="dopri8", adjoint=True),
+    dict(method="rk4", options=dict(jump_t=np.array([1.0]))),
+    dict(method="dopri5", options=dict(jump_t=np.array([1.0]))),
+    dict(method="scipy_solver"),
 ])
-def test_not_ported_options_raise(kwargs, item):
+def test_not_ported_options_raise(kwargs):
+    """These options once raised NotImplementedError in the port; now each
+    runs through the port and the JAX package, whose values and z0
+    gradients agree within 1e-8 of their largest magnitudes (the fixed-step
+    cases with jump_t warn on both sides, scipy_solver has no gradient).
+    The path is linear in time, so that the adaptive meshes (scipy's too)
+    do not part on rounding at the knots."""
     kwargs = dict(dict(adjoint=False, step_size=1.0), **kwargs)
-    X = tt.CubicSpline(torch.zeros(4, N, 4 * C, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP.md queue 1, '{item}'")):
-        tt.cdeint(X, _field(), torch.zeros(4, 8, dtype=torch.float64), X.interval, **kwargs)
+    _coeffs, p = _problem(8, np.float64, seed=3)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 1, C)) + rng.standard_normal((4, 1, C)) * np.arange(N + 1)[:, None]
+    coeffs = np.asarray(tc.hermite_cubic_coefficients_with_backward_differences(jnp.asarray(x)))
+    z0 = p["z0"][:4]
+    jkwargs = dict(kwargs)
+    if "jump_t" in kwargs.get("options", {}):
+        jkwargs["options"] = dict(jump_t=jnp.asarray(kwargs["options"]["jump_t"]))
+    field_j = JaxField(*(jnp.asarray(p[k]) for k in ("w1", "b1", "w2", "b2")), 8, C)
+    Xj = tc.CubicSpline(jnp.asarray(coeffs))
+    grads = kwargs["method"] != "scipy_solver"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out_j = np.asarray(tc.cdeint(Xj, field_j, jnp.asarray(z0), Xj.interval, **jkwargs))
+        g_j = np.asarray(jax.grad(lambda z: jnp.sum(tc.cdeint(
+            Xj, field_j, z, Xj.interval, **jkwargs) ** 2))(jnp.asarray(z0))) if grads else None
+        field = _field()
+        with torch.no_grad():
+            field.linear1.weight.copy_(torch.from_numpy(p["w1"].T))
+            field.linear1.bias.copy_(torch.from_numpy(p["b1"]))
+            field.linear2.weight.copy_(torch.from_numpy(p["w2"].T))
+            field.linear2.bias.copy_(torch.from_numpy(p["b2"]))
+        X = tt.CubicSpline(torch.from_numpy(coeffs))
+        z = torch.tensor(z0, requires_grad=grads)
+        out = tt.cdeint(X, field, z, X.interval, **kwargs)
+        if grads:
+            (out ** 2).sum().backward()
+    scale = np.abs(out_j).max()
+    np.testing.assert_allclose(out.detach().numpy(), out_j, rtol=0, atol=1e-8 * scale)
+    if grads:
+        np.testing.assert_allclose(z.grad.numpy(), g_j, rtol=0, atol=1e-8 * np.abs(g_j).max())
 
 
 def test_general_integrator_matches_fused_path():

@@ -29,18 +29,31 @@ def test_port_imports_no_jax():
         "import torchcde_tpu_torch.solvers.fused_reversible_kernel\n"
         "import torchcde_tpu_torch.solvers.fused_dopri_persample\n"
         "import torchcde_tpu_torch.solvers.fused_dopri_persample_kernel\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchcde_tpu'))\n"
+        "import torchcde_tpu_torch.utils.tuple_control, torchcde_tpu_torch.solvers.runge_kutta\n"
+        "import torchcde_tpu_torch.solvers.integrate, torchcde_tpu_torch.solvers.adjoint\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import torch_time_series_classification, torch_logsignature_example\n"
+        "import torch_irregular_data\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'torchcde_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
 
 
+EXAMPLES = ("torch_time_series_classification.py", "torch_logsignature_example.py",
+            "torch_irregular_data.py")
+
+
 def test_port_sources_name_no_jax():
-    for path in (ROOT / "torchcde_tpu_torch").rglob("*.py"):
+    paths = list((ROOT / "torchcde_tpu_torch").rglob("*.py"))
+    paths += [ROOT / "examples" / name for name in EXAMPLES]
+    for path in paths:
         for line in path.read_text().splitlines():
             stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), (path, line)
+            assert not stripped.startswith(("import jax", "from jax", "import optax",
+                                            "from optax")), (path, line)
             assert not stripped.startswith(("import torchcde_tpu ", "from torchcde_tpu.",
                                             "from torchcde_tpu ")), (path, line)
 

@@ -133,7 +133,8 @@ def test_unknown_method_and_shim():
     assert misc.tridiagonal_solve is tridiagonal.tridiagonal_solve
     assert misc.tridiagonal_solve_thomas is tridiagonal.tridiagonal_solve_thomas
     assert misc.tridiagonal_solve_pcr is tridiagonal.tridiagonal_solve_pcr
-    assert not hasattr(misc, "TupleControl")
+    from torchcde_tpu_torch.utils.tuple_control import TupleControl
+    assert misc.TupleControl is TupleControl
 
 
 def test_matches_the_jax_kernel_in_interpret_mode():

@@ -11,7 +11,9 @@ as CUDA kernels on the card too.  It also carries the log-ODE Neural RDE
 path: the windowed logsignature transform (``logsig_windows``), linear and
 rectilinear interpolation with NaN infill (``linear_interpolation_coeffs``,
 ``LinearInterpolation``), and the adaptive kernel pair's linear-control
-mode.  The package imports torch and numpy, never jax.
+mode.  Its ``cdeint`` has every method of the JAX package, ``jump_t``,
+per-sample stepping, tuple states over a ``TupleControl`` and
+``method="scipy_solver"``.  The package imports torch and numpy, never jax.
 """
 
 from .interpolation import (
@@ -26,6 +28,9 @@ from .interpolation import (
 )
 from .log_ode import logsig_windows, logsignature_windows
 from .solvers import SolverConfig, cdeint
+from .utils.tuple_control import TupleControl
+
+__version__ = "0.3.0"
 
 __all__ = [
     "CubicSpline",
@@ -33,6 +38,7 @@ __all__ = [
     "LinearInterpolation",
     "NaturalCubicSpline",
     "SolverConfig",
+    "TupleControl",
     "cdeint",
     "hermite_cubic_coefficients_with_backward_differences",
     "linear_interpolation_coeffs",
@@ -40,4 +46,5 @@ __all__ = [
     "logsignature_windows",
     "natural_cubic_coeffs",
     "natural_cubic_spline_coeffs",
+    "__version__",
 ]

@@ -2,8 +2,7 @@
 
 Port of ``torchcde_tpu/misc.py``: users migrating from the reference find
 ``forward_fill``, the tridiagonal solves, ``cheap_stack`` and
-``validate_input_path`` under the same names.  ``TupleControl`` is not
-ported yet (ROADMAP.md queue 1, item 11).
+``validate_input_path`` and ``TupleControl`` under the same names.
 """
 
 from .ops.fill import forward_fill
@@ -13,6 +12,7 @@ from .ops.tridiagonal import (
     tridiagonal_solve_thomas,
 )
 from .utils.misc import cheap_stack, validate_input_path
+from .utils.tuple_control import TupleControl
 
 __all__ = [
     "cheap_stack",
@@ -21,4 +21,5 @@ __all__ = [
     "tridiagonal_solve_pcr",
     "tridiagonal_solve_thomas",
     "validate_input_path",
+    "TupleControl",
 ]

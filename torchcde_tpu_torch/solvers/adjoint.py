@@ -13,7 +13,8 @@ is the same number.  Vector-Jacobian products come from
 ``torch.autograd.grad``.
 
 Gradients flow to z0, to the given tensors (``params``), and to ``ts`` when it
-is a tensor that requires grad.
+is a tensor that requires grad.  With ``jump_t``, the forward steps land on
+the jumps and the reverse solve on their negated copies.
 """
 
 import copy
@@ -23,8 +24,32 @@ import warnings
 import numpy as np
 import torch
 
-from .integrate import SolverConfig, host_times, odeint
+from ..utils.tuple_control import TupleControl
+from .integrate import SolverConfig, host_jumps, host_times, odeint, warn_fixed_jumps
 from .terms import make_cde_rhs
+
+
+def control_tensors(X):
+    """[(path, tensor)] of the control's tensors: its attributes by name, and
+    a ``TupleControl``'s members' under their index."""
+    if isinstance(X, TupleControl):
+        return [((i,) + path, v) for i, c in enumerate(X.controls)
+                for path, v in control_tensors(c)]
+    return [((name,), v) for name, v in vars(X).items() if isinstance(v, torch.Tensor)]
+
+
+def with_control_tensors(X, values):
+    """A copy of the control that reads ``values`` ({path: tensor}) in place of
+    the tensors at those paths."""
+    X = copy.copy(X)
+    if isinstance(X, TupleControl):
+        X.controls = tuple(
+            with_control_tensors(c, {p[1:]: v for p, v in values.items() if p[0] == i})
+            for i, c in enumerate(X.controls))
+        return X
+    for (name,), v in values.items():
+        setattr(X, name, v)
+    return X
 
 
 def _reached(rhs, t0, z0, tensors):
@@ -62,6 +87,8 @@ def _closure_tensors(func):
         elif isinstance(obj, (tuple, list)):
             for v in obj:
                 visit(v, depth + 1)
+        elif hasattr(obj, "__wrapped__"):  # a wrapper of the user's field
+            visit(obj.__wrapped__, depth)
         elif callable(obj):
             for cell in getattr(obj, "__closure__", None) or ():
                 try:
@@ -151,16 +178,14 @@ class FieldClosure:
 
     def __init__(self, func, X, params):
         self.func, self.X, self.params = func, X, list(params)
-        names = {id(v): k for k, v in vars(X).items() if isinstance(v, torch.Tensor)}
-        self._slots = [names.get(id(p)) for p in self.params]
+        paths = {id(v): path for path, v in control_tensors(X)}
+        self._slots = [paths.get(id(p)) for p in self.params]
 
     def __call__(self, t, z, values=None):
         X = self.X
         if values is not None and any(self._slots):
-            X = copy.copy(X)
-            for name, v in zip(self._slots, values):
-                if name is not None:
-                    setattr(X, name, v)
+            X = with_control_tensors(X, {path: v for path, v in zip(self._slots, values)
+                                         if path is not None})
         return make_cde_rhs(self.func, X)(t, z)
 
     def leaves(self):
@@ -197,7 +222,7 @@ def closure_params(func, X, t0, z0, adjoint_params=None):
         f = rhs(t0, z0.detach())
     if f.grad_fn is None:
         return FieldClosure(func, X, [])
-    controls = [v for v in vars(X).values() if isinstance(v, torch.Tensor)]
+    controls = [v for _path, v in control_tensors(X)]
     closed = [c for c in {id(c): c for c in _closure_tensors(func)}.values()
               if all(c is not v for v in controls)]
     return FieldClosure(func, X, _frontier(f, controls, closed))
@@ -205,9 +230,9 @@ def closure_params(func, X, t0, z0, adjoint_params=None):
 
 class _OdeintAdjoint(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, field, cfg, adjoint_cfg, ts, z0, *params):
-        zs = odeint(field, z0, ts, cfg, differentiable=False)
-        ctx.field, ctx.adjoint_cfg = field, adjoint_cfg
+    def forward(ctx, field, cfg, adjoint_cfg, jump_t, ts, z0, *params):
+        zs = odeint(field, z0, ts, cfg, jump_t, differentiable=False)
+        ctx.field, ctx.adjoint_cfg, ctx.jump_t = field, adjoint_cfg, jump_t
         ctx.ts = ts
         ctx.save_for_backward(zs)
         return zs
@@ -236,7 +261,15 @@ class _OdeintAdjoint(torch.autograd.Function):
                                      for v, p in zip(vjps, [z_] + leaves)]
             return torch.cat([v.reshape(-1) for v in parts])
 
-        want_t = isinstance(ctx.ts, torch.Tensor) and ctx.needs_input_grad[3]
+        neg_jump = None
+        if ctx.jump_t is not None:
+            neg_jump = np.sort(-host_jumps(ctx.jump_t, zs.dtype))
+            adjoint_stepper = ctx.adjoint_cfg.stepper()
+            if not (adjoint_stepper.adaptive and ctx.adjoint_cfg.step_size is None):
+                # Fixed steps ignore the jumps: warn once, not per interval.
+                warn_fixed_jumps()
+                neg_jump = None
+        want_t = isinstance(ctx.ts, torch.Tensor) and ctx.needs_input_grad[4]
         ts_bar = torch.zeros(len(ts), dtype=zs.dtype, device=zs.device) if want_t else None
         a = torch.zeros_like(zs[0])
         a_params = torch.zeros(sum(sizes[2:]), dtype=zs.dtype, device=zs.device)
@@ -247,7 +280,8 @@ class _OdeintAdjoint(torch.autograd.Function):
                 ts_bar[i] = torch.sum(g[i] * rhs(ts[i], zs[i]))
             aug0 = torch.cat([zs[i].reshape(-1), a.reshape(-1), a_params])
             span = np.stack([-ts[i], -ts[i - 1]])
-            aug1 = odeint(aug_rhs, aug0, span, ctx.adjoint_cfg, differentiable=False)[1]
+            aug1 = odeint(aug_rhs, aug0, span, ctx.adjoint_cfg, neg_jump,
+                          differentiable=False)[1]
             a, a_params = aug1[nz:2 * nz].view(shape), aug1[2 * nz:]
         if want_t:
             # dL/dts[0] = -a(t0) . f(t0, z0), with a(t0) excluding g_0.
@@ -255,12 +289,12 @@ class _OdeintAdjoint(torch.autograd.Function):
             ts_bar = ts_bar.to(ctx.ts.dtype)
         grads = [v.view(p.shape) for v, p in zip(torch.split(a_params, sizes[2:]), params)
                  ] if params else []
-        return (None, None, None, ts_bar, a + g[0], *grads)
+        return (None, None, None, None, ts_bar, a + g[0], *grads)
 
 
-def odeint_adjoint(field, z0, ts, cfg: SolverConfig, adjoint_cfg: SolverConfig):
+def odeint_adjoint(field, z0, ts, cfg: SolverConfig, adjoint_cfg: SolverConfig, jump_t=None):
     """Solve dz/dt = field(t, z) with backsolve-adjoint gradients.
 
     ``field``: a ``FieldClosure`` (see ``closure_params``), whose params
     receive gradients.  Output is time-leading, like ``odeint``."""
-    return _OdeintAdjoint.apply(field, cfg, adjoint_cfg, ts, z0, *field.params)
+    return _OdeintAdjoint.apply(field, cfg, adjoint_cfg, jump_t, ts, z0, *field.params)

@@ -2,9 +2,13 @@
 
 Port of ``torchcde_tpu/solvers/integrate.py``: ``SolverConfig``, the fixed-step
 branch (stateless RK methods, and the steppers with a state: dopri5 with an
-explicit ``step_size``, reversible Heun) and the adaptive dense-output branch
-with its PI controller, initial-step heuristic, quartic dense output and loud
-NaN poisoning when the step budget runs out.
+explicit ``step_size``, reversible Heun, the Adams methods), the adaptive
+dense-output branch with its PI controller, initial-step heuristic, quartic
+dense output and loud NaN poisoning when the step budget runs out, the
+adaptive driver that restarts at every output time for steppers without a
+dense step (``_advance_adaptive``), and ``jump_t``: adaptive steps land on
+the declared derivative discontinuities, which fixed steps ignore with the
+JAX package's warning.
 
 The JAX loops become Python loops on host scalars.  Times and step sizes are
 NumPy scalars in the state's precision, so they round as the JAX integrator's
@@ -22,13 +26,14 @@ times t0 + sum of the frozen adaptive steps, and the dense output's theta.
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..utils.misc import host_array, numpy_dtype
-from .runge_kutta import STEPPERS, TABLEAUS, rk_step, unknown_method
+from .runge_kutta import STEPPERS, rk_step, unknown_method
 
 _FIXED_DEFAULT_MAX_STEPS = 65536
 _ADAPTIVE_DEFAULT_MAX_STEPS = 4096
@@ -50,10 +55,10 @@ class SolverConfig:
     # only the default adaptive step budget.
     knots_hint: Optional[int] = None
 
-    def tableau(self):
-        if self.method not in TABLEAUS:
+    def stepper(self):
+        if self.method not in STEPPERS:
             raise unknown_method(self.method)
-        return TABLEAUS[self.method]
+        return STEPPERS[self.method]
 
 
 def host_times(ts, dtype):
@@ -64,6 +69,30 @@ def host_times(ts, dtype):
     if isinstance(ts, torch.Tensor):
         ts = host_array(ts)
     return np.asarray(ts).astype(numpy_dtype(dtype))
+
+
+def host_jumps(jump_t, dtype):
+    """``jump_t`` as a sorted host NumPy array in the state's precision: the
+    drivers search it for the next jump, and an unsorted caller list would
+    otherwise let the mesh straddle the kinks it hides."""
+    return np.sort(host_times(jump_t, dtype).reshape(-1))
+
+
+def _next_jump(jump_t, t):
+    """The smallest jump time strictly greater than t (inf if none)."""
+    idx = int(np.searchsorted(jump_t, t, side="right"))
+    return jump_t[idx] if idx < jump_t.shape[0] else jump_t.dtype.type(np.inf)
+
+
+def warn_fixed_jumps():
+    """The JAX package's warning for ``jump_t`` given to fixed steps."""
+    warnings.warn(
+        "options={'jump_t': ...} is ignored by fixed-step methods "
+        "(and by adaptive methods run with an explicit step_size): "
+        "steps may straddle the declared derivative discontinuities. "
+        "Use an adaptive method without step_size, or choose a "
+        "step_size that divides the jump times."
+    )
 
 
 def _rms_norm(x):
@@ -150,15 +179,18 @@ def _poisoned(out):
                        torch.full_like(out, math.nan), out)
 
 
-def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps, tts=None):
+def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps, jump_t=None,
+                              tts=None):
     """One continuous adaptive solve over [ts[0], ts[-1]] with dense output.
 
     Each accepted step writes the 4th-order interpolant into every output row
-    whose time falls inside (t, t + dt]; steps clamp only to ts[-1], so the
-    step count does not grow with len(ts).  Returns (out, (attempted,
-    accepted)) with out time-leading, NaN everywhere if the budget ran out
-    before ts[-1].  ``tts``: the output times as a tensor that carries their
-    gradient, or None."""
+    whose time falls inside (t, t + dt]; steps clamp only to ts[-1] and to the
+    jumps, so the step count does not grow with len(ts) (a method of order
+    above 5 also lands on every output time: the quartic would lower its
+    order).  Returns (out, (attempted, accepted)) with out time-leading, NaN
+    everywhere if the budget ran out before ts[-1].  ``jump_t``: the sorted
+    host jumps, or None; ``tts``: the output times as a tensor that carries
+    their gradient, or None."""
     sc = ts.dtype.type
     t_end = ts[-1]
     out = [z0] * len(ts)
@@ -168,14 +200,18 @@ def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps,
     while t < t_end and attempted < max_steps:
         dt = max(dt, sc(1e-14))
         dt_c = min(dt, t_end - t)
+        if jump_t is not None:
+            dt_c = min(dt_c, _next_jump(jump_t, t) - t)
+        if stepper.order > 5:
+            dt_c = min(dt_c, _next_jump(ts, t) - t)
         z1, err, state1, (f0, f1, y_mid) = stepper.step_dense(
             rhs, t if tt is None else tt, z, dt_c, state)
         with torch.no_grad():
             ratio = sc(_error_ratio(err, cfg.rtol, cfg.atol, z, z1).item())
         accept = bool(ratio <= 1.0)
         dt_new = dt_c * _optimal_factor(ratio, stepper.order, cfg, accept)
-        # A step that was only short because it was clamped to the end does
-        # not shrink the carried proposal.
+        # A step that was only short because it was clamped to the end (or a
+        # jump) does not shrink the carried proposal.
         if accept and dt_c < dt:
             dt_new = max(dt, dt_new)
         if accept:
@@ -198,6 +234,48 @@ def _integrate_adaptive_dense(rhs, z0, ts, dt0, state0, cfg, stepper, max_steps,
     return out, (attempted, accepted)
 
 
+def _advance_adaptive(rhs, z0, t0, t1, dt0, state0, cfg, stepper, max_steps, jump_t, tt=None,
+                      tt1=None):
+    """Adaptive steps from t0 to exactly t1, for steppers without a dense
+    step.  Returns (z1, dt_next, state1, (attempted, accepted), complete); z1
+    is NaN everywhere if the budget ran out first.  ``tt``, ``tt1``: t0 and t1
+    as 0-d tensors that carry the output times' gradient, or None; the clamp
+    to t1 (and to a jump) stays differentiable, as in the JAX package."""
+    sc = type(t0)
+    t, z, dt, state = t0, z0, dt0, state0
+    attempted = accepted = 0
+    while t < t1 and attempted < max_steps:
+        dt = max(dt, sc(1e-14))
+        dt_c = min(dt, t1 - t)
+        jump = None
+        if jump_t is not None:
+            jump = _next_jump(jump_t, t)
+            dt_c = min(dt_c, jump - t)
+        dtt = None
+        if tt is not None:
+            d = torch.minimum(torch.zeros_like(tt) + float(dt), tt1 - tt)
+            if jump is not None:
+                d = torch.minimum(d, float(jump) - tt)
+            dtt = _follow(dt_c, d)
+        z1, err, state1 = stepper.step(rhs, t if tt is None else tt, z,
+                                       dt_c if tt is None else dtt, state)
+        with torch.no_grad():
+            ratio = sc(_error_ratio(err, cfg.rtol, cfg.atol, z, z1).item())
+        accept = bool(ratio <= 1.0)
+        dt_new = dt_c * _optimal_factor(ratio, stepper.order, cfg, accept)
+        if accept and dt_c < dt:
+            dt_new = max(dt, dt_new)
+        if accept:
+            t, z, state = t + dt_c, z1, state1
+            if tt is not None:
+                tt = _follow(t, tt + dtt)
+        dt = dt_new
+        attempted += 1
+        accepted += int(accept)
+    complete = not t < t1
+    return (z if complete else _poisoned(z)), dt, state, (attempted, accepted), complete
+
+
 def _static_fixed_steps(ts, step_size):
     """Exact per-interval step bound for host times."""
     if step_size is None:
@@ -213,7 +291,10 @@ def _static_fixed_steps(ts, step_size):
 def _adaptive_max_steps(cfg, order, differentiable):
     """The default adaptive step budget of the JAX package: with direct
     backprop and a known knot count, 8 steps per knot scaled by the
-    tolerance, at least 1024 and at most 4096; else 4096."""
+    tolerance, at least 1024 and at most 4096; else 4096; eight times that
+    for methods of order below 3, whose step counts grow much faster as the
+    tolerance tightens."""
+    order_scale = 8 if order < 3 else 1
     default_steps = _ADAPTIVE_DEFAULT_MAX_STEPS
     if differentiable and order >= 4 and cfg.max_steps is None and cfg.knots_hint is not None:
         inv_order = 1.0 / (order + 1)
@@ -223,7 +304,7 @@ def _adaptive_max_steps(cfg, order, differentiable):
             (1e-6 / max(cfg.atol, 1e-30)) ** inv_order,
         )
         default_steps = int(min(default_steps, max(1024, 8 * cfg.knots_hint * tol_scale)))
-    return cfg.max_steps or default_steps
+    return cfg.max_steps or default_steps * order_scale
 
 
 def _stats(attempted, accepted, init_nfe, stages):
@@ -235,13 +316,16 @@ def _stats(attempted, accepted, init_nfe, stages):
     }
 
 
-def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=False):
+def odeint(rhs, z0, ts, cfg: SolverConfig, jump_t=None, differentiable=True,
+           collect_stats=False):
     """Integrates dz/dt = rhs(t, z) from ts[0], returning z at every ts[i],
     time leading: (len(ts), ...).
 
-    ``differentiable=False`` (inside the adjoint) only changes the default
-    adaptive step budget, as in the JAX package.  With ``collect_stats=True``
-    returns ``(out, stats)`` with the step and evaluation counts."""
+    ``jump_t``: times of derivative discontinuities (any order, host array or
+    tensor), on which adaptive steps land.  ``differentiable=False`` (inside
+    the adjoint) only changes the default adaptive step budget, as in the JAX
+    package.  With ``collect_stats=True`` returns ``(out, stats)`` with the
+    step and evaluation counts."""
     tts = None
     if isinstance(ts, torch.Tensor) and ts.requires_grad and torch.is_grad_enabled():
         tts = ts.to(z0.dtype)
@@ -249,9 +333,20 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
     if ts.shape[0] > 1 and not bool(np.all(np.diff(ts) > 0)):
         raise ValueError("t must be monotonically increasing.")
     sc = ts.dtype.type
+    if jump_t is not None:
+        jump_t = host_jumps(jump_t, z0.dtype)
 
-    if cfg.method not in STEPPERS:
-        tableau = cfg.tableau()
+    stepper = cfg.stepper()
+    if cfg.method == "dopri5" and jump_t is not None:
+        # The cached first stage is not valid across a discontinuity.
+        stepper = STEPPERS["dopri5_nofsal"]
+    init_nfe = stepper.init_nfe
+    adaptive = stepper.adaptive and cfg.step_size is None
+    if jump_t is not None and not adaptive:
+        warn_fixed_jumps()
+
+    if stepper.tableau is not None and not adaptive:
+        # Stateless RK steps: clip(t1 - t, 0, step) in every interval.
         n_static = min(_static_fixed_steps(ts, cfg.step_size),
                        cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
         out, z, steps = [z0], z0, 0
@@ -268,34 +363,50 @@ def odeint(rhs, z0, ts, cfg: SolverConfig, differentiable=True, collect_stats=Fa
                 dt = np.clip(t1 - t, sc(0.0), step_size)
                 if tts is not None:
                     dtt = _follow(dt, _clip(tts[i + 1] - tt, 0.0, size))
-                    z = rk_step(tableau, rhs, tt, z, dtt)
+                    z = rk_step(stepper.tableau, rhs, tt, z, dtt)
                     tt = _follow(t + dt, tt + dtt)
                     steps += int(dt > 0)
                 elif dt > 0:
-                    z = rk_step(tableau, rhs, float(t), z, float(dt))
+                    z = rk_step(stepper.tableau, rhs, float(t), z, float(dt))
                     steps += 1
                 t = t + dt
             out.append(z)
         out = torch.stack(out, dim=0)
         if not collect_stats:
             return out
-        return out, _stats(steps, steps, 0, len(tableau.c_sol))
+        return out, _stats(steps, steps, init_nfe, stepper.nfe_per_step)
 
-    stepper = STEPPERS[cfg.method]
     state = stepper.init(rhs, ts[0] if tts is None else tts[0], z0)
-    init_nfe = stepper.init_nfe
-    if stepper.adaptive and cfg.step_size is None:
-        dt0 = sc(select_initial_step(rhs, ts[0], z0, stepper.order, cfg.rtol, cfg.atol,
-                                     state).item())
+    if adaptive:
+        with torch.no_grad():
+            f0 = state if stepper.init_nfe else rhs(ts[0], z0)
+            dt0 = sc(select_initial_step(rhs, ts[0], z0, stepper.order, cfg.rtol, cfg.atol,
+                                         f0).item())
         init_nfe += 2  # the initial-step heuristic
         max_steps = _adaptive_max_steps(cfg, stepper.order, differentiable)
-        out, (attempted, accepted) = _integrate_adaptive_dense(
-            rhs, z0, ts, dt0, state, cfg, stepper, max_steps, tts)
+        if stepper.step_dense is not None:
+            out, (attempted, accepted) = _integrate_adaptive_dense(
+                rhs, z0, ts, dt0, state, cfg, stepper, max_steps, jump_t, tts)
+        else:
+            # No dense step: restart at every output time, each interval
+            # with its own budget.  Once one runs out, its NaN state rejects
+            # every attempt of the intervals after it, which only count.
+            outs, z, dt, attempted, accepted, complete = [z0], z0, dt0, 0, 0, True
+            for i, (t0, t1) in enumerate(zip(ts[:-1], ts[1:])):
+                if complete:
+                    z, dt, state, (a, c), complete = _advance_adaptive(
+                        rhs, z, t0, t1, dt, state, cfg, stepper, max_steps, jump_t,
+                        *((None, None) if tts is None else (tts[i], tts[i + 1])))
+                else:
+                    a, c = max_steps, 0
+                attempted, accepted = attempted + a, accepted + c
+                outs.append(z)
+            out = torch.stack(outs, dim=0)
     else:
         # Fixed steps of step_size (last step of each interval clamped),
         # carrying the stepper's state (dopri5's first-same-as-last stage,
-        # reversible Heun's companion) across output times.  With no
-        # step_size, one step per output interval.
+        # reversible Heun's companion, the Adams history) across output
+        # times.  With no step_size, one step per output interval.
         n_static = min(_static_fixed_steps(ts, cfg.step_size),
                        cfg.max_steps or _FIXED_DEFAULT_MAX_STEPS)
         outs, z, attempted = [z0], z0, 0
