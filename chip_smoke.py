@@ -6,7 +6,8 @@ Phases, each of which raises on failure:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
 2. build: compiles torchcde_tpu_torch/csrc with nvcc (one process per source)
-   and prints ptxas's registers and spills, by name for the team kernels
+   and, beside them, the host library (torchcde_tpu_torch/native/src with
+   g++; its seconds and flags), and prints ptxas's registers and spills, by name for the team kernels
    (K2's and K9's forwards and backwards), and the team launches' plans
    (teams per block, lanes per team, shared memory) at the default
    configuration, at config 4 (B 256 and B 4096) and at the per-sample
@@ -147,22 +148,49 @@ Phases, each of which raises on failure:
    SURFACE_BACKSOLVE_RTOL and SURFACE_SCIPY_RTOL), with K1, K2, K8 and K9
    launched zero times, as the JAX package declines them;
 30. the example examples/torch_time_series_classification.py on the card
-   for one epoch: a finite accuracy and K2 launched forward and backward.
+   for one epoch: a finite accuracy and K2 launched forward and backward;
+31. the host runtime (torchcde_tpu_torch.native, C++ through ctypes) on the
+   loader routes' full-width data against the port's public functions on
+   the card, within FWD_RTOL of the largest magnitude: Hermite coefficients
+   of the flagship spirals, the masked cubic fit of phase 12's NaN spirals
+   (the card's K6/K7), and logsig_windows of config 4's spirals without and
+   with 30 % NaN (the card's K3), every plain version patched to raise; the
+   host's CPU model and threads and its ms per batch of each route;
+32. loader-fed slices: CoefficientDataLoader(num_workers=4, prefetch=2)
+   feeding five Adam steps each of the flagship (Hermite route; K1 5 and 5
+   launches), the default configuration on 30 %-NaN spirals (cubic route;
+   K2 5 and 5) and config 4 (logsig route; K2's linear mode 5 and 5), every
+   plain version patched to raise; the first batch's coefficients within
+   FWD_RTOL of the card's own coefficients of its rows, and its logits
+   against the logits on those (FWD_RTOL; for the adaptive slices, see
+   loader_slices);
+33. observability on the loader-fed flagship: trace() of two steps with
+   annotate("train_step") naming K1's kernels and the annotation, a
+   checkpoint after step 3 from which steps 4-5 repeat bit for bit,
+   device_profile listing K1's kernels with a device time within 25 % of
+   phase 9's; then the loader-fed step against the in-memory step on the
+   same batches, in turns, with each one's device-idle share.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
 exits non-zero before building anything.
 """
 
+import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
+import glob
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from unittest import mock
@@ -255,6 +283,15 @@ def spiral_data(batch, length, seed=0):
     return X, y
 
 
+def nan_spiral_data(batch, length, seed=0):
+    """spiral_data with SPIRAL_NAN of the two value channels' entries
+    missing (numpy rng seed 1; the time channel stays observed)."""
+    X, y = spiral_data(batch, length, seed)
+    values = X[..., 1:]
+    values[np.random.default_rng(1).random(values.shape) < SPIRAL_NAN] = np.nan
+    return X, y
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card")
@@ -276,7 +313,17 @@ def phase_build():
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
     from torchcde_tpu_torch.solvers.team import team_forward_plan, team_plan
 
-    path, seconds, log = _build.build()
+    from torchcde_tpu_torch import native
+
+    # The host library's g++ runs beside the kernels' nvcc processes.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(native.build)
+        path, seconds, log = _build.build()
+        host_path, host_seconds = host_build.result()
+    if not native.available():
+        raise AssertionError(f"the host library {host_path} does not load")
+    print(f"build: host library {host_path.name} in {host_seconds:.1f} s: "
+          f"{native.CXX} {' '.join(native.CXX_FLAGS + native.LIBS)}", flush=True)
     k1._library()
     k2._library()
     k8._library()
@@ -1177,7 +1224,6 @@ def fit_counts():
 def plain_versions_raise():
     """Patches every kernel's plain version to raise, so a run inside shows
     that nothing on the path fell back to one."""
-    import contextlib
     import importlib
 
     from torchcde_tpu_torch.interpolation import cubic
@@ -1526,9 +1572,7 @@ def nan_spiral_slice(device):
     from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig, make_train_step
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 
-    X_np, y_np = spiral_data(BATCH, LENGTH)
-    values = X_np[..., 1:]  # the time channel stays observed
-    values[np.random.default_rng(1).random(values.shape) < SPIRAL_NAN] = np.nan
+    X_np, y_np = nan_spiral_data(BATCH, LENGTH)
     X, labels = torch.from_numpy(X_np).to(device), torch.from_numpy(y_np).to(device)
     ref = tt.natural_cubic_coeffs(X.double())
     with plain_versions_raise():
@@ -1597,10 +1641,8 @@ def log_ode_data(device, nan):
     """Config 4's spirals (256 x 10 000 x 3) on the card; with ``nan``, 30 %
     of the two value channels' entries missing (numpy rng seed 1, as phase
     12; the time channel stays observed)."""
-    X_np, y_np = spiral_data(LOG_ODE_BATCH, LOG_ODE_LENGTH)
-    if nan:
-        values = X_np[..., 1:]
-        values[np.random.default_rng(1).random(values.shape) < SPIRAL_NAN] = np.nan
+    data = nan_spiral_data if nan else spiral_data
+    X_np, y_np = data(LOG_ODE_BATCH, LOG_ODE_LENGTH)
     return torch.from_numpy(X_np).to(device), torch.from_numpy(y_np).to(device)
 
 
@@ -3288,8 +3330,6 @@ def surface_slice(device):
 def example_slice():
     """Phase 30: examples/torch_time_series_classification.py's main on the
     card for one epoch: a finite accuracy, and K2 launched both ways."""
-    import os
-
     from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
@@ -3303,6 +3343,468 @@ def example_slice():
     if not math.isfinite(acc) or not launches["fwd"] > 0 or not launches["bwd"] > 0:
         raise AssertionError(f"the example did not run through K2: {acc}, {launches}")
     return dict(accuracy=acc, ms=ms, k2_launches=launches)
+
+
+# --------------------------------------------------------------------------
+# The host side (phases 31-33): the C++ preprocessing runtime against the
+# card's own preprocessing, the prefetching loader feeding three slices, and
+# the observability utilities on the flagship.
+# --------------------------------------------------------------------------
+
+# The loader of phases 32-33: four preprocessing threads, two batches ahead.
+LOADER_WORKERS, LOADER_PREFETCH = 4, 2
+LOADER_STEPS = 5
+# Phase 33's timing.  A pass is one epoch of a loader, longer than
+# examples/parallel_training.py's 32 batches.  Its steady steps are those
+# during which the loader is still making batches at its in-flight bound
+# (prefetch + workers - 1 ahead of the consumer): from the first step past
+# the batches made at the pass's start, to the last before the loader runs
+# out of batches to make.  Medians are taken over those steps alone.
+TIMED_BATCHES = 48
+TIMED_PASSES = 4  # of each variant, in turns, the order reversed every other turn
+IN_FLIGHT = LOADER_PREFETCH + LOADER_WORKERS - 1
+STEADY = slice(IN_FLIGHT + 1, TIMED_BATCHES - IN_FLIGHT)
+PROFILED_CALLS = 3
+HOST_REPEATS = 3
+# device_profile's device time against phase 9's kernel time of the same step.
+PROFILE_AGREEMENT = 0.25
+
+
+def host_cpu():
+    """The host's CPU (/proc/cpuinfo's first entry: model name, vendor,
+    family, model, MHz) and the threads this process may use."""
+    fields = {"model name": "cpu", "vendor_id": "vendor", "cpu family": "family",
+              "model": "model", "cpu MHz": "mhz"}
+    cpu = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if not line.strip():
+                break
+            if key.strip() in fields:
+                cpu[fields[key.strip()]] = value.strip()
+    return {**cpu, "threads": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count()}
+
+
+def _host_ms(fn, repeats=HOST_REPEATS):
+    """Median wall ms of fn() on the host (the native calls are synchronous)."""
+    samples = []
+    for _ in range(repeats):
+        start = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(samples)
+
+
+def native_slice(device):
+    """Phase 31: the host runtime on each loader route's full-width data
+    against the port's public function on the card (float32, within
+    FWD_RTOL of its largest magnitude), the card side with every plain
+    version patched to raise and its fit launches asserted; and the host's
+    preprocessing ms per batch of each route."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch import native
+
+    cpu = host_cpu()
+    print(f"host: {json.dumps(cpu)}; the native calls use {native._default_threads()} threads",
+          flush=True)
+    x_flag, _ = spiral_data(BATCH, LENGTH)
+    x_nan, _ = nan_spiral_data(BATCH, LENGTH)
+    t = np.arange(LENGTH, dtype=np.float32)
+    t_log = np.arange(LOG_ODE_LENGTH, dtype=np.float32)
+    x_log, _ = spiral_data(LOG_ODE_BATCH, LOG_ODE_LENGTH)
+    x_log_nan, _ = nan_spiral_data(LOG_ODE_BATCH, LOG_ODE_LENGTH)
+    no_fit = {"K3": 0, "K4": 0, "K5": 0, "K6/K7": 0}
+    routes = [
+        ("hermite", f"flagship spirals {x_flag.shape}", lambda: native.hermite_coeffs(t, x_flag),
+         lambda: tt.hermite_cubic_coefficients_with_backward_differences(
+             torch.from_numpy(x_flag).to(device)), no_fit),
+        ("cubic", f"NaN spirals {x_nan.shape}", lambda: native.natural_cubic_masked(t, x_nan),
+         lambda: tt.natural_cubic_coeffs(torch.from_numpy(x_nan).to(device)),
+         dict(no_fit, **{"K6/K7": 1})),
+        ("logsig", f"config-4 spirals {x_log.shape}",
+         lambda: native.logsig_windows_host(t_log, x_log, LOG_ODE_DEPTH, LOG_ODE_WINDOW),
+         lambda: tt.logsig_windows(torch.from_numpy(x_log).to(device), LOG_ODE_DEPTH,
+                                   LOG_ODE_WINDOW), no_fit),
+        ("logsig NaN", f"config-4 spirals {x_log_nan.shape}, 30 % NaN",
+         lambda: native.logsig_windows_host(t_log, x_log_nan, LOG_ODE_DEPTH, LOG_ODE_WINDOW),
+         lambda: tt.logsig_windows(torch.from_numpy(x_log_nan).to(device), LOG_ODE_DEPTH,
+                                   LOG_ODE_WINDOW), dict(no_fit, K3=2)),
+    ]
+    failures, report = [], {"host": cpu}
+    for route, label, host_fn, card_fn, expected in routes:
+        host = host_fn()
+        with plain_versions_raise():
+            reset_fit_counts()
+            card = card_fn()
+            torch.cuda.synchronize()
+            fit = fit_counts()
+        if host.shape != tuple(card.shape) or host.dtype != np.float32:
+            failures.append(f"{route}: host {host.shape} {host.dtype}, card {tuple(card.shape)}")
+            continue
+        err, scale = _rel(torch.from_numpy(host).to(device), card.double())
+        _report(f"native {route} of the {label} vs the card", err, scale,
+                FWD_RTOL * max(scale, 1.0), failures, bool(np.isfinite(host).all()))
+        if fit != expected:
+            failures.append(f"{route}: the card's fit launched {fit}, not {expected}")
+        report[route] = {"max_abs_err": err, "largest": scale, "card_fit_launches": fit,
+                         "host_ms_per_batch": _host_ms(host_fn)}
+    print("native: " + json.dumps(report), flush=True)
+    if failures:
+        raise AssertionError("the host runtime disagrees with the card: " + "; ".join(failures))
+    return report
+
+
+def _loader(device, x, y, batch, workers=LOADER_WORKERS, **kwargs):
+    from torchcde_tpu_torch.data import CoefficientDataLoader
+
+    return CoefficientDataLoader(x, y, batch, shuffle=True, seed=0, num_workers=workers,
+                                 prefetch=LOADER_PREFETCH, device=device, **kwargs)
+
+
+def _adam_step(model):
+    from torchcde_tpu_torch.models import make_train_step
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+    return make_train_step(model, optimizer), optimizer
+
+
+def logits_on_own_meshes(model, own_coeffs, fed_coeffs):
+    """The model's logits on own_coeffs through K2, each launch's accepted
+    mesh recorded, and its logits on fed_coeffs with each fused solve
+    replayed in float64 along the mesh K2 took on own_coeffs.  An adaptive
+    solve's mesh hangs on rounding-level changes of its input (see
+    EXACT_TOL), so two inputs are held against each other on one mesh."""
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+
+    meshes, launch = [], k2.launch_forward
+
+    def record(*args, **kwargs):
+        out = launch(*args, **kwargs)
+        meshes.append(k2.read_mesh(out[3]))
+        return out
+
+    with mock.patch.object(k2, "launch_forward", record), torch.no_grad():
+        own = model(own_coeffs)
+    pinned = iter(meshes)
+
+    def replay(ct, z0t, w1t, b1, w2t, b2, dt0, plan, weights=None):
+        ops = (v.double() for v in (ct, z0t, w1t, b1, w2t, b2))
+        zout, zfin = k2.fused_dopri5_replay(*ops, next(pinned), plan)
+        return zout.to(ct.dtype), zfin.to(ct.dtype), dt0
+
+    with mock.patch.object(k2, "fused_dopri5_solve", replay), torch.no_grad():
+        fed = model(fed_coeffs)
+    if not meshes or next(pinned, None) is not None:
+        raise AssertionError(f"{len(meshes)} K2 meshes recorded, not one for each replayed solve")
+    return own, fed
+
+
+def loader_slices(device):
+    """Phase 32: three slices fed by CoefficientDataLoader(num_workers=4,
+    prefetch=2) at full width, five Adam steps each, every plain version
+    patched to raise and the fused kernel's launches counted from just
+    before the first step: the flagship (Hermite route, K1), the default
+    configuration on 30 %-NaN spirals (masked cubic route, K2) and config 4
+    (logsig route, K2's linear mode).  The model's logits before the first
+    step on the loader's first batch are held against its logits on the
+    port's own card coefficients of the same rows, within FWD_RTOL: the
+    adaptive slices' on the meshes K2 took on the card's own coefficients
+    (logits_on_own_meshes)."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig
+    from torchcde_tpu_torch.solvers import fused_dopri_kernel as k2
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    def k1_counts():
+        return {"fwd": k1.FWD_LAUNCHES, "bwd": k1.BWD_LAUNCHES}
+
+    def k2_counts():
+        return {"fwd": k2.FWD_LAUNCHES, "bwd": k2.BWD_LAUNCHES}
+
+    def k2_linear_counts():
+        return {**k2_counts(), "linear_fwd": k2.LINEAR_FWD_LAUNCHES,
+                "linear_bwd": k2.LINEAR_BWD_LAUNCHES}
+
+    def own_logsig(xb):
+        return tt.linear_interpolation_coeffs(
+            tt.logsig_windows(xb, LOG_ODE_DEPTH, LOG_ODE_WINDOW))
+
+    n = LOADER_STEPS
+    slices = [
+        ("flagship rk4 (hermite)", spiral_data(n * BATCH, LENGTH, seed=2), BATCH,
+         dict(interpolation="hermite"), lambda: make_model(device),
+         tt.hermite_cubic_coefficients_with_backward_differences, k1.reset_launch_counts,
+         k1_counts, {"fwd": n, "bwd": n}),
+        ("default on NaN spirals (cubic)", nan_spiral_data(n * BATCH, LENGTH, seed=3), BATCH,
+         dict(interpolation="cubic"),
+         lambda: NeuralCDE(NeuralCDEConfig(**DEFAULT), generator=torch.Generator().manual_seed(0)),
+         tt.natural_cubic_coeffs, k2.reset_launch_counts, k2_counts, {"fwd": n, "bwd": n}),
+        ("config 4 (logsig)", spiral_data(n * LOG_ODE_BATCH, LOG_ODE_LENGTH, seed=4),
+         LOG_ODE_BATCH, dict(interpolation="logsig", depth=LOG_ODE_DEPTH,
+                             window_length=LOG_ODE_WINDOW),
+         lambda: log_ode_model(device), own_logsig, k2.reset_launch_counts, k2_linear_counts,
+         {"fwd": n, "bwd": n, "linear_fwd": n, "linear_bwd": n}),
+    ]
+    report = {}
+    for label, (x, y), batch, kwargs, build, own, reset, counts, expected in slices:
+        failures = []
+        rows = np.random.default_rng(0).permutation(x.shape[0])[:batch]  # the loader's first batch
+        with plain_versions_raise():
+            model = build()
+            initial = copy.deepcopy(model)
+            step, _optimizer = _adam_step(model)
+            losses, start = [], time.perf_counter()
+            for i, (coeffs, labels) in enumerate(_loader(device, x, y, batch, **kwargs)):
+                if i == 0:
+                    if not torch.equal(labels.cpu(), torch.from_numpy(y[rows])):
+                        failures.append("the first batch's labels are not its rows'")
+                    fed_coeffs = coeffs
+                    own_coeffs = own(torch.from_numpy(x[rows]).to(device))
+                    reset()
+                losses.append(float(step(coeffs, labels)))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = counts()
+        err, scale = _rel(fed_coeffs, own_coeffs.double())
+        _report(f"loader slice {label}: the first batch's coefficients vs the card's own", err,
+                scale, FWD_RTOL * max(scale, 1.0), failures)
+        with torch.no_grad():
+            ref, fed = initial(own_coeffs), initial(fed_coeffs)
+        # Each on its own mesh, where the solve is adaptive: printed only.
+        fed_vs_own = float((fed - ref).abs().max())
+        if initial.cfg.solver == "dopri5":
+            ref, fed = logits_on_own_meshes(initial, own_coeffs, fed_coeffs)
+        logit_err, scale = _rel(fed, ref.double())
+        limit = FWD_RTOL * max(scale, 1.0)
+        _report(f"loader slice {label}: logits of the first batch vs the card's own "
+                f"coefficients'", logit_err, scale, limit, failures, bool(fed.isfinite().all()))
+        print(f"loader slice {label}: the first batch's logits, each solve on its own mesh, "
+              f"differ from those on the card's own coefficients by {fed_vs_own:.3e}",
+              flush=True)
+        print(f"loader slice {label}: B{batch} coefficients {tuple(coeffs.shape)}, "
+              f"{len(losses)} Adam steps in {seconds:.2f} s, losses {losses}, "
+              f"launches {launches}", flush=True)
+        if len(losses) != n or not all(math.isfinite(v) for v in losses) \
+                or losses[-1] == losses[0]:
+            failures.append(f"the loss is not finite or does not change: {losses}")
+        if launches != expected:
+            failures.append(f"the steps did not launch {expected}: {launches}")
+        if failures:
+            raise AssertionError(f"the loader slice {label} failed: " + "; ".join(failures))
+        report[label] = {"losses": losses, "launches": launches, "coefficients_max_abs_err": err,
+                         "logits_max_abs_err": logit_err, "logits_limit": limit,
+                         "logits_fed_vs_own": fed_vs_own, "seconds": seconds}
+    return report
+
+
+def _unnamed(names, kinds):
+    """The kinds (name -> pattern) that no name matches."""
+    return [kind for kind, pattern in kinds.items()
+            if not any(re.search(pattern, name) for name in names)]
+
+
+def observability_slice(device, flagship_profile):
+    """Phase 33 on the flagship, loader-fed: two steps under trace() with
+    annotate("train_step"), whose written trace must name K1's kernels and
+    the annotation; a checkpoint of the model and Adam after step 3, from
+    which steps 4-5 must repeat bit for bit; and device_profile of the step,
+    whose ops must include K1's kernels and whose device time must lie
+    within PROFILE_AGREEMENT of phase 9's kernel time of the same step."""
+    from torchcde_tpu_torch.utils import annotate, load_checkpoint, save_checkpoint, trace
+    from torchcde_tpu_torch.utils.observability import device_profile
+
+    x, y = spiral_data(LOADER_STEPS * BATCH, LENGTH, seed=2)
+    model = make_model(device)
+    step, optimizer = _adam_step(model)
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        it = iter(_loader(device, x, y, BATCH, interpolation="hermite"))
+        with trace(os.path.join(tmp, "trace")):
+            for _ in range(2):
+                with annotate("train_step"):
+                    step(*next(it))
+        (trace_file,) = glob.glob(os.path.join(tmp, "trace", "*.pt.trace.json"))
+        with open(trace_file) as f:
+            names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+        missing = _unnamed(names, {**K1_KINDS, "annotation": r"^train_step$"})
+        print(f"trace: {os.path.getsize(trace_file)} bytes, {len(names)} event names, "
+              f"missing {missing}", flush=True)
+        if missing:
+            failures.append(f"the trace does not name {missing}")
+
+        step(*next(it))
+        checkpoint = os.path.join(tmp, "after_step3")
+        save_checkpoint(checkpoint, {"model": model.state_dict(),
+                                     "optimizer": optimizer.state_dict()})
+        rest = list(it)
+        first = [float(step(*b)) for b in rest]
+        restored = load_checkpoint(checkpoint, {"model": model.state_dict(),
+                                                "optimizer": optimizer.state_dict()})
+        model.load_state_dict(restored["model"])
+        optimizer.load_state_dict(restored["optimizer"])
+        again = [float(step(*b)) for b in rest]
+        print(f"checkpoint: steps 4-5 {first}, resumed {again}", flush=True)
+        if len(rest) != 2 or first != again:
+            failures.append(f"the resumed steps differ: {first} vs {again}")
+
+    prof = device_profile(step, *rest[0])
+    reference = sum(flagship_profile[key] for key in (
+        "k1_fwd_ms_per_call", "k1_bwd_ms_per_call", "other_kernels_ms_per_call"))
+    ops_missing = _unnamed([op[0] for op in prof["ops"]], K1_KINDS)
+    print(f"device_profile: device_ms {prof['device_ms']:.4f} against phase 9's "
+          f"{reference:.4f}, bytes_per_iter {prof['bytes_per_iter']:.0f}, "
+          f"{len(prof['ops'])} ops, top {prof['ops'][:3]}, missing {ops_missing}", flush=True)
+    if ops_missing:
+        failures.append(f"device_profile's ops do not name {ops_missing}")
+    if not abs(prof["device_ms"] - reference) <= PROFILE_AGREEMENT * reference:
+        failures.append(f"device_profile's {prof['device_ms']} ms is not within "
+                        f"{PROFILE_AGREEMENT} of phase 9's {reference} ms")
+    if failures:
+        raise AssertionError("observability: " + "; ".join(failures))
+    return {"resumed_losses": again, "device_profile_ms": prof["device_ms"],
+            "phase9_kernel_ms": reference, "device_profile_bytes_per_iter": prof["bytes_per_iter"],
+            "device_profile_top_ops": prof["ops"][:4]}
+
+
+def time_loader_fed(device):
+    """The flagship step fed by the loader against the in-memory step on the
+    same batches, by CUDA events, TIMED_PASSES of TIMED_BATCHES steps of
+    each variant in turns (each sample from just before the batch is asked
+    for to the step's end, one synchronize a step), medians over the STEADY
+    steps.  Variants that attribute the loader's cost: its native calls on
+    one thread each; one worker; the native Hermite call replaced by a sleep
+    of its own time (index, pinning and copy stay); the loader with
+    device_put=False stepped in lockstep with the in-memory step (its host
+    work without pinning, copy or stream order), also with the sleeping
+    Hermite call (what stays is the index and the loader's own Python); and
+    the in-memory step while a second, unthrottled loader runs on
+    background threads and its own stream.  Also the parts of one batch
+    (fancy index, native Hermite, pinning, the copy on a side stream) and
+    the device-idle share of the loader-fed and in-memory steps by
+    torch.profiler, past the pass's start."""
+    from torchcde_tpu_torch import native
+
+    x, y = spiral_data(TIMED_BATCHES * BATCH, LENGTH, seed=5)
+    base = make_model(device)
+    memory = list(_loader(device, x, y, BATCH, interpolation="hermite"))
+    torch.cuda.synchronize()
+
+    # One batch's parts on the host, and its copy on a side stream.
+    rows = np.random.default_rng(0).permutation(x.shape[0])[:BATCH]
+    t = np.arange(LENGTH, dtype=np.float32)
+    coeffs_np = native.hermite_coeffs(t, x[rows])
+    pinned = torch.from_numpy(coeffs_np).pin_memory()
+    side = torch.cuda.Stream(device)
+
+    def copy_ms():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            for _ in range(10):
+                pinned.to(device, non_blocking=True)
+            end.record(side)
+        end.synchronize()
+        return start.elapsed_time(end) / 10
+
+    copy_ms()
+    parts = {"index_ms": _host_ms(lambda: x[rows]),
+             "hermite_native_ms": _host_ms(lambda: native.hermite_coeffs(t, x[rows])),
+             "hermite_native_1_thread_ms": _host_ms(
+                 lambda: native.hermite_coeffs(t, x[rows], n_threads=1)),
+             "pin_ms": _host_ms(lambda: torch.from_numpy(coeffs_np).pin_memory()),
+             "pinned_copy_ms": copy_ms(), "coefficient_bytes": coeffs_np.nbytes,
+             "native_threads": native._default_threads()}
+
+    def sleeping_hermite(_t, _x, n_threads=None):
+        time.sleep(parts["hermite_native_ms"] / 1e3)
+        return coeffs_np
+
+    def background(stop):
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            while not stop.is_set():
+                for _batch in _loader(device, x, y, BATCH, interpolation="hermite"):
+                    if stop.is_set():
+                        break
+
+    def fed(**kwargs):
+        return lambda: iter(_loader(device, x, y, BATCH, interpolation="hermite", **kwargs))
+
+    def host_only():  # the in-memory batches, each after the loader's host-side batch
+        host = _loader(device, x, y, BATCH, interpolation="hermite", device_put=False)
+        with contextlib.closing(iter(host)) as made:
+            for _made, batch in zip(made, memory):
+                yield batch
+
+    def sleeps():
+        return mock.patch.object(native, "hermite_coeffs", sleeping_hermite)
+
+    # name -> (batches of a pass, what surrounds the pass)
+    variants = {
+        "loader": (fed(), contextlib.nullcontext),
+        "memory": (lambda: (b for b in memory), contextlib.nullcontext),
+        "loader_1_native_thread": (
+            fed(), lambda: mock.patch.object(native, "_default_threads", lambda: 1)),
+        "loader_1_worker": (fed(workers=1), contextlib.nullcontext),
+        "loader_native_sleeps": (fed(), sleeps),
+        "loader_host_only": (host_only, contextlib.nullcontext),
+        "loader_host_only_native_sleeps": (host_only, sleeps),
+        "memory_with_loader_behind": (lambda: (b for b in memory), contextlib.nullcontext),
+    }
+    names = list(variants)
+    steps = {name: _adam_step(copy.deepcopy(base))[0] for name in names}
+
+    def run(name, n_steps):
+        batches, around = variants[name]
+        stop = threading.Event()
+        behind = threading.Thread(target=background, args=(stop,))
+        if name == "memory_with_loader_behind":
+            behind.start()
+        samples = []
+        try:
+            with around(), contextlib.closing(batches()) as source:
+                for _ in range(n_steps):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    steps[name](*next(source))
+                    end.record()
+                    torch.cuda.synchronize()
+                    samples.append(start.elapsed_time(end))
+        finally:
+            stop.set()
+            if behind.is_alive():
+                behind.join()
+        return samples
+
+    for name in names:  # warm-up, dropped
+        run(name, STEADY.start)
+    passes = {name: [] for name in names}
+    for turn in range(TIMED_PASSES):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            passes[name].append(run(name, TIMED_BATCHES))
+    steady = {name: [v for p in ps for v in p[STEADY]] for name, ps in passes.items()}
+    medians = {name: statistics.median(v) for name, v in steady.items()}
+
+    def epochs(loader):
+        while True:
+            yield from loader
+
+    profiles = {}
+    for name, source in (("loader", epochs(_loader(device, x, y, BATCH,
+                                                   interpolation="hermite"))),
+                         ("memory", epochs(memory))):
+        step = _adam_step(copy.deepcopy(base))[0]
+        for _ in range(STEADY.start):  # past the pass's start
+            step(*next(source))
+        profiles[name] = profile_calls(lambda: step(*next(source)), K1_KINDS, PROFILED_CALLS)
+        source.close()
+    for profile in profiles.values():
+        if "device_busy_share" in profile:
+            profile["device_idle_share"] = 1.0 - profile["device_busy_share"]
+    return {"train_step_ms": medians, "steady_steps": [STEADY.start, STEADY.stop],
+            "train_step_pass_samples_ms": passes, "batch_parts": parts, "profiles": profiles}
 
 
 def elapsed(phase):
@@ -3394,8 +3896,8 @@ def main():
         **{f"default_B{b}_train_step_ms": m for b, (m, _) in default_steps.items()},
         **{f"default_B{b}_train_step_samples_ms": v for b, (_, v) in default_steps.items()},
     }))
-    print("profile: " + json.dumps(dict(
-        profile_train_steps(model, coeffs, labels, K1_KINDS), config="flagship rk4", card=smi)))
+    flagship_profile = profile_train_steps(model, coeffs, labels, K1_KINDS)
+    print("profile: " + json.dumps(dict(flagship_profile, config="flagship rk4", card=smi)))
     for batch in DEFAULT_BATCHES:
         print("profile: " + json.dumps(dict(
             profile_train_steps(*default_model(device, batch), K2_KINDS),
@@ -3505,6 +4007,22 @@ def main():
     elapsed("30")
     example = example_slice()
     print("timing: " + json.dumps({"card": smi, "solver_surface": surface, "example": example}))
+
+    elapsed("31")
+    # 31-33. The host side: the C++ runtime against the card's preprocessing,
+    # the loader feeding three slices, observability and the loader's timing.
+    native_report = native_slice(device)
+    elapsed("32")
+    loader_report = loader_slices(device)
+    elapsed("33")
+    observability = observability_slice(device, flagship_profile)
+    loader_timing = time_loader_fed(device)
+    print("timing: " + json.dumps({
+        "card": smi, "host": native_report["host"],
+        "host_preprocessing_ms_per_batch": {
+            route: r["host_ms_per_batch"] for route, r in native_report.items() if route != "host"},
+        "loader_fed_flagship": loader_timing, "loader_slices": loader_report,
+        "observability": observability}))
 
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)

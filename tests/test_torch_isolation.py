@@ -31,11 +31,13 @@ def test_port_imports_no_jax():
         "import torchcde_tpu_torch.solvers.fused_dopri_persample_kernel\n"
         "import torchcde_tpu_torch.utils.tuple_control, torchcde_tpu_torch.solvers.runge_kutta\n"
         "import torchcde_tpu_torch.solvers.integrate, torchcde_tpu_torch.solvers.adjoint\n"
+        "import torchcde_tpu_torch.data, torchcde_tpu_torch.native\n"
+        "import torchcde_tpu_torch.utils.observability\n"
         "sys.path.insert(0, 'examples')\n"
         "import torch_time_series_classification, torch_logsignature_example\n"
         "import torch_irregular_data\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'torchcde_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'torchcde_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = _run(["-c", code])
@@ -53,7 +55,8 @@ def test_port_sources_name_no_jax():
         for line in path.read_text().splitlines():
             stripped = line.strip()
             assert not stripped.startswith(("import jax", "from jax", "import optax",
-                                            "from optax")), (path, line)
+                                            "from optax", "import orbax", "from orbax")), (
+                path, line)
             assert not stripped.startswith(("import torchcde_tpu ", "from torchcde_tpu.",
                                             "from torchcde_tpu ")), (path, line)
 

@@ -13,7 +13,10 @@ rectilinear interpolation with NaN infill (``linear_interpolation_coeffs``,
 ``LinearInterpolation``), and the adaptive kernel pair's linear-control
 mode.  Its ``cdeint`` has every method of the JAX package, ``jump_t``,
 per-sample stepping, tuple states over a ``TupleControl`` and
-``method="scipy_solver"``.  The package imports torch and numpy, never jax.
+``method="scipy_solver"``.  On the host side, ``native`` is the multithreaded
+C++ preprocessing runtime (built with g++ at first use), ``data`` its
+prefetching ``CoefficientDataLoader``, and ``utils`` has tracing, profiling
+and checkpoints.  The package imports torch and numpy, never jax.
 """
 
 from .interpolation import (

@@ -1,3 +1,5 @@
 from .misc import cheap_stack, stack_endpoints, validate_input_path
+from .observability import annotate, load_checkpoint, save_checkpoint, trace
 
-__all__ = ["cheap_stack", "stack_endpoints", "validate_input_path"]
+__all__ = ["annotate", "cheap_stack", "load_checkpoint", "save_checkpoint", "stack_endpoints",
+           "trace", "validate_input_path"]
