@@ -169,7 +169,27 @@ Phases, each of which raises on failure:
    checkpoint after step 3 from which steps 4-5 repeat bit for bit,
    device_profile listing K1's kernels with a device time within 25 % of
    phase 9's; then the loader-fed step against the in-memory step on the
-   same batches, in turns, with each one's device-idle share.
+   same batches, in turns, with each one's device-idle share;
+34-37. parallelism, four ranks on the one card joined by gloo (spawned once
+   by parallel.launch.run_ranks, after the parent has built the kernels and
+   the host library): five data-parallel Adam steps of the flagship (B 4096,
+   1024 rows a rank, K1 on each rank: 5 and 5 launches asserted) and of
+   config 5's widths at B 4096 in both adjoint modes (K8), each against the
+   one-process run of the same steps on the card (first-step gradients
+   within BWD_RTOL, losses within PAR_LOSS_RTOL); tensor parallelism at
+   data 2 x model 2, B 1024, in float32 and float64 (no K1 launch
+   asserted; logits within FWD_RTOL and gradients within BWD_RTOL of the
+   one-process float64 solve); config 3's fits with the
+   length over the four ranks (1024 positions each): the masked fit (K3
+   and K5 on each shard) against the one-process fit (K6/K7), the dense
+   system by SPIKE (K4 on each shard) and by distributed PCR against K4 on
+   the whole rows, within FWD_RTOL, and the masked fit's gradient at B
+   1024 within PAR_FIT_GRAD_RTOL; per phase and rank the wall and
+   CUDA-event ms, the launches and the bytes gloo staged through the host;
+38. one rank in an NCCL group: the data-parallel flagship step and both
+   one-shard fits bit for bit the one-process ones; then
+   examples/torch_parallel_training.py for one epoch on four gloo ranks.
+   A rank that raises makes the script exit non-zero.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -3807,6 +3827,394 @@ def time_loader_fed(device):
             "train_step_pass_samples_ms": passes, "batch_parts": parts, "profiles": profiles}
 
 
+# --------------------------------------------------------------------------
+# Parallelism (phases 34-38): four ranks on the one card, joined by gloo,
+# spawned once for phases 34-37 after the parent has built every library
+# (the ranks load them from _build/), then one single-rank NCCL group and
+# the parallel example.  The ranks time-share the card: their times prove
+# the path and are recorded; they are not a scaling result.
+# --------------------------------------------------------------------------
+
+PAR_WORLD = 4
+PAR_STEPS = 5
+PAR_BATCH = 4096        # the data-parallel flagship: 1024 rows a rank
+PAR_REV_BATCH = 4096    # config 5's widths at a reduced batch
+PAR_TP_BATCH = 1024     # tensor parallelism, data 2 x model 2
+PAR_GRAD_BATCH = 1024   # the sequence-sharded masked fit's gradient
+PAR_EXAMPLE_BATCH = 128  # the parallel example's global batch (4 steps an epoch)
+PAR_LOSS_RTOL = 1e-4
+# The masked fit's gradient through SPIKE against the one-process gradient
+# (K6/K7's recomputed plain pipeline), both float32: relative Frobenius at
+# the observed positions.
+PAR_FIT_GRAD_RTOL = 1e-4
+
+
+def par_counts():
+    """Every launch counter a parallel phase reads, in this process."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    counts = {"K1-fwd": k1.FWD_LAUNCHES, "K1-bwd": k1.BWD_LAUNCHES,
+              "K8-fwd": k8.FWD_LAUNCHES, "K8-bwd": k8.BWD_LAUNCHES}
+    counts.update(fit_counts())
+    return counts
+
+
+def par_reset():
+    from torchcde_tpu_torch.parallel import comm
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
+
+    k1.reset_launch_counts()
+    k8.reset_launch_counts()
+    reset_fit_counts()
+    comm.reset_staged_bytes()
+
+
+def par_phase(fn):
+    """Runs fn() with every counter at 0: (its result, a report of the wall
+    ms and CUDA-event ms, the launches and the bytes staged through the
+    host)."""
+    from torchcde_tpu_torch.parallel import comm
+
+    par_reset()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    report = {"wall_ms": 1e3 * (time.perf_counter() - t0), "event_ms": start.elapsed_time(end),
+              "launches": {k: v for k, v in par_counts().items() if v},
+              "staged_bytes": comm.STAGED_BYTES}
+    return out, report
+
+
+def _first_step_grads(model, optimizer):
+    """Records the gradients the optimizer's first step sees (after the
+    data-parallel all-reduce), whole."""
+    seen = []
+
+    def hook(_opt, _args, _kwargs):
+        if not seen:
+            seen.append([_whole(p.grad).detach().clone() for p in model.parameters()])
+
+    optimizer.register_step_pre_hook(hook)
+    return seen
+
+
+def _train_run(device, config, x, y, mesh=None):
+    """PAR_STEPS Adam steps from one seed's weights: (losses, the first
+    step's gradients)."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models import make_train_step
+    from torchcde_tpu_torch.parallel import place_params, shard_batch
+
+    model = make_model(device, config=config)
+    if mesh is not None:
+        place_params(mesh, model)
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8, foreach=False)
+    grads = _first_step_grads(model, optimizer)
+    coeffs = tt.hermite_cubic_coefficients_with_backward_differences(
+        torch.from_numpy(x).to(device))
+    labels = torch.from_numpy(y).to(device)
+    if mesh is not None:
+        coeffs, labels = shard_batch(mesh, (coeffs, labels))
+    step = make_train_step(model, optimizer, mesh=mesh)
+    losses = [float(step(coeffs, labels)) for _ in range(PAR_STEPS)]
+    return losses, grads[0]
+
+
+def par_data_parallel(device, mesh, config, batch, kernel, bits=False):
+    """Phases 34-35: the data-parallel slice of ``config`` against the
+    one-process run of the same steps on the same card."""
+    x, y = spiral_data(batch, LENGTH)
+    ref_losses, ref_grads = _train_run(device, config, x, y)
+    (losses, grads), report = par_phase(lambda: _train_run(device, config, x, y, mesh))
+    grad_err = _rel_frobenius(grads, [g.double() for g in ref_grads])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    report.update(losses=losses, loss_rel_err=loss_err, grad_rel_frobenius=grad_err)
+    want = {f"{kernel}-fwd": PAR_STEPS, f"{kernel}-bwd": PAR_STEPS}
+    got = {k: report["launches"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"a rank did not launch {kernel} once per step: {report['launches']}")
+    if bits:
+        same = losses == ref_losses and all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+        report["same_bits"] = same
+        if not same:
+            raise AssertionError("the single-rank group's step is not the one-process step, "
+                                 f"bit for bit: {report}")
+    elif grad_err > BWD_RTOL or loss_err > PAR_LOSS_RTOL or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"the data-parallel step disagrees with one process: {report}")
+    return report
+
+
+def _plain_step_grads(model, coeffs, labels):
+    """The one-process solve's logits and the loss's gradients, for a
+    float64 model: K1 takes float32, so on the card its solve is the plain
+    path."""
+    from torchcde_tpu_torch.models.neural_cde import bce_with_logits
+
+    logits = model(coeffs)
+    loss = bce_with_logits(logits[..., 0], labels)
+    return logits.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def par_tensor_parallel(device, mesh):
+    """Phase 36: data 2 x model 2 at the flagship's widths.  The sharded
+    field declines K1 (no launch) and solves on the plain path, its layers
+    as DTensor ops; held against the one-process plain solve in float64 on
+    the card (float32 and float64 runs: logits within FWD_RTOL, gradients
+    within BWD_RTOL)."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.models.neural_cde import bce_with_logits
+    from torchcde_tpu_torch.parallel import place_params, shard_batch
+
+    x, y = spiral_data(PAR_TP_BATCH, LENGTH)
+    coeffs = tt.hermite_cubic_coefficients_with_backward_differences(
+        torch.from_numpy(x).to(device))
+    labels = torch.from_numpy(y).to(device)
+    ref = make_model(device).double()
+    ref_logits, ref_grads = _plain_step_grads(ref, coeffs.double(), labels.double())
+    rows = shard_batch(mesh, torch.arange(PAR_TP_BATCH, device=device))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        def run():
+            model = make_model(device).to(dtype)
+            place_params(mesh, model)
+            c, lab = shard_batch(mesh, (coeffs.to(dtype), labels.to(dtype)))
+            logits = model(c)
+            loss = bce_with_logits(logits[..., 0], lab)
+            loss.backward()
+            from torchcde_tpu_torch.models.training import _average_over_data
+
+            _average_over_data(model, loss.detach(), mesh)
+            return logits.detach(), [_whole(p.grad) for p in model.parameters()]
+
+        (logits, grads), report = par_phase(run)
+        err, scale = _err(logits.double(), ref_logits[rows])
+        report.update(logits_max_abs_err=err, logits_scale=scale,
+                      grad_rel_frobenius=_rel_frobenius(grads, ref_grads))
+        if report["launches"].get("K1-fwd", 0) or report["launches"].get("K1-bwd", 0):
+            raise AssertionError(f"a kernel launched for a sharded field: {report}")
+        out[str(dtype).replace("torch.", "")] = report
+    if any(r["logits_max_abs_err"] > FWD_RTOL * max(r["logits_scale"], 1.0)
+           or r["grad_rel_frobenius"] > BWD_RTOL for r in out.values()):
+        raise AssertionError(f"tensor parallelism disagrees with the plain solve: {out}")
+    return out
+
+
+def _whole(t):
+    from torchcde_tpu_torch.parallel import comm
+
+    return comm.whole(t)
+
+
+def _dense_system(dense):
+    """Config 3's dense natural-spline system on uniform knots: shared bands
+    (hr 1), right-hand sides per row (as interpolation/cubic.py builds it)."""
+    xT = dense.transpose(-1, -2)[..., 0, :]
+    k = xT.shape[-1]
+    hr = torch.ones(k - 1, dtype=xT.dtype, device=xT.device)
+    zero = torch.zeros(1, dtype=xT.dtype, device=xT.device)
+    diag = 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero]))
+    pds = 3 * (xT[..., 1:] - xT[..., :-1])
+    zcol = torch.zeros_like(xT[..., :1])
+    rhs = torch.cat([pds, zcol], -1) + torch.cat([zcol, pds], -1)
+    return rhs, hr, diag, hr
+
+
+def par_sequence(device, mesh):
+    """Phase 37: config 3's fits with the length over 4 ranks (1024
+    positions each): the masked fit (K3 and K5 on each shard) against the
+    one-process masked fit (K6/K7), the dense system by SPIKE (K4 on each
+    shard) and by distributed PCR against K4 on the whole rows, and the
+    masked fit's gradient at a reduced batch against the one-process one."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.ops import tridiagonal_kernel
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve
+    from torchcde_tpu_torch.parallel import (comm, natural_cubic_coeffs_seq_sharded,
+                                             tridiagonal_solve_seq_sharded)
+
+    me = comm.axis_index(mesh, "model")
+    x_np, dense_np = config3_data()
+    x = torch.from_numpy(x_np).to(device)
+    k_loc = FIT_LENGTH // PAR_WORLD
+    out = {}
+
+    ref = tt.natural_cubic_coeffs(x)
+    got, report = par_phase(lambda: natural_cubic_coeffs_seq_sharded(x, None, mesh).to_local())
+    lo, hi = me * k_loc, min((me + 1) * k_loc, FIT_LENGTH - 1)
+    err, scale = _err(got.double(), ref[:, lo:hi].double())
+    report.update(max_abs_err=err, scale=scale, local_rows=got.shape[-2])
+    if got.shape[-2] != hi - lo or err > FWD_RTOL * max(scale, 1.0) or got.device != device:
+        raise AssertionError(f"the sequence-sharded masked fit disagrees: {report}")
+    if report["launches"].get("K5") != 1 or not report["launches"].get("K3"):
+        raise AssertionError(f"the masked fit's shard did not run K3 and K5: {report}")
+    out["masked_fit"] = report
+    del ref, got
+
+    system = _dense_system(torch.from_numpy(dense_np).to(device))
+    ref = tridiagonal_solve(*system, method="auto")
+    for method in ("spike", "pcr"):
+        got, report = par_phase(lambda: tridiagonal_solve_seq_sharded(
+            *system, mesh, method=method).to_local())
+        err, scale = _err(got.double(), ref[:, me * k_loc:(me + 1) * k_loc].double())
+        report.update(max_abs_err=err, scale=scale)
+        if err > FWD_RTOL * max(scale, 1.0) or got.device != device:
+            raise AssertionError(f"the sequence-sharded dense solve ({method}) disagrees: {report}")
+        if method == "spike":
+            report["k4_route"] = tridiagonal_kernel.solve_plan(k_loc, shared=False).variant
+            if report["launches"].get("K4") != 1:
+                raise AssertionError(f"SPIKE's shard did not run K4 once: {report}")
+        out[f"dense_{method}"] = report
+    del ref, system
+
+    xg = x[:PAR_GRAD_BATCH].clone()
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (PAR_GRAD_BATCH, FIT_LENGTH - 1, 4)).astype(np.float32)).to(device)
+    x1 = xg.clone().requires_grad_()
+    (g_ref,) = torch.autograd.grad(torch.sum(tt.natural_cubic_coeffs(x1) * w), x1)
+
+    def sharded_grad():
+        x2 = xg.clone().requires_grad_()
+        local = natural_cubic_coeffs_seq_sharded(x2, None, mesh).to_local()
+        return torch.autograd.grad(torch.sum(local * w[:, lo:hi]), x2)[0]
+
+    g, report = par_phase(sharded_grad)
+    observed = ~torch.isnan(xg)
+    report["grad_rel_frobenius"] = _rel_frobenius([g[observed]], [g_ref[observed].double()])
+    if report["grad_rel_frobenius"] > PAR_FIT_GRAD_RTOL or g.device != device:
+        raise AssertionError(f"the sequence-sharded masked fit's gradient disagrees: {report}")
+    out["masked_fit_gradient"] = report
+    return out
+
+
+def _rank_device(rank, device_type):
+    """Rank r computes on cuda:(r mod the number of cards): here all four
+    share the one card.  (``device_type="cpu"`` rehearses on the CPU.)"""
+    if device_type != "cuda":
+        return torch.device(device_type)
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def par_rank(rank, world, smi, device_type="cuda"):
+    """Phases 34-37 on one of the four gloo ranks (all on the one card)."""
+    from torchcde_tpu_torch.parallel import make_mesh
+
+    device = _rank_device(rank, device_type)
+    start = time.perf_counter()
+
+    def progress(phase):
+        print(f"chip_smoke: rank {rank}: phase {phase} at "
+              f"{time.perf_counter() - start:.1f} s in the rank", flush=True)
+
+    dp = make_mesh(data=PAR_WORLD, model=1, device=device_type)
+    report = {"card": smi}
+    progress("34")
+    report["dp_flagship"] = par_data_parallel(device, dp, FLAGSHIP, PAR_BATCH, "K1")
+    progress("35")
+    for adjoint in (False, True):
+        report[f"dp_config5_adjoint={adjoint}"] = par_data_parallel(
+            device, dp, dict(CONFIG5, adjoint=adjoint), PAR_REV_BATCH, "K8")
+    progress("36")
+    report["tensor_parallel"] = par_tensor_parallel(
+        device, make_mesh(data=2, model=2, device=device_type))
+    progress("37")
+    report["sequence"] = par_sequence(
+        device, make_mesh(data=1, model=PAR_WORLD, device=device_type))
+    progress("37 done")
+    return report
+
+
+def par_nccl_rank(rank, world, smi, device_type="cuda"):
+    """Phase 38: one rank in an NCCL group, a (1, 1) mesh: the flagship's
+    data-parallel step bit for bit the one-process step, and both sequence-
+    sharded fits through their one-shard shortcuts, bit for bit the
+    single-device calls."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve
+    from torchcde_tpu_torch.parallel import (make_mesh, natural_cubic_coeffs_seq_sharded,
+                                             tridiagonal_solve_seq_sharded)
+
+    device = _rank_device(rank, device_type)
+    mesh = make_mesh(data=1, model=1, device=device_type)
+    report = {"card": smi, "backend": torch.distributed.get_backend()}
+    report["dp_flagship"] = par_data_parallel(device, mesh, FLAGSHIP, PAR_BATCH, "K1", bits=True)
+    x_np, dense_np = config3_data()
+    x = torch.from_numpy(x_np).to(device)
+    got, r = par_phase(lambda: natural_cubic_coeffs_seq_sharded(x, None, mesh).to_local())
+    r["same_bits"] = bool(torch.equal(got, tt.natural_cubic_coeffs(x)))
+    report["masked_fit_one_shard"] = r
+    system = _dense_system(torch.from_numpy(dense_np).to(device))
+    got, r = par_phase(lambda: tridiagonal_solve_seq_sharded(*system, mesh).to_local())
+    r["same_bits"] = bool(torch.equal(got, tridiagonal_solve(*system, method="auto")))
+    report["dense_one_shard"] = r
+    if not (report["masked_fit_one_shard"]["same_bits"] and report["dense_one_shard"]["same_bits"]):
+        raise AssertionError(f"a one-shard shortcut is not the single-device call: {report}")
+    if r["launches"].get("K4") != 1:
+        raise AssertionError(f"the one-shard dense solve did not run K4 once: {r}")
+    return report
+
+
+def parallel_example():
+    """The example examples/torch_parallel_training.py for one epoch on the
+    card, four gloo ranks: a finite loss.  Its tensor-parallel field solves
+    on the plain path, about 2.5 s a step here: PAR_EXAMPLE_BATCH makes the
+    epoch 4 steps (its default, 32, 16)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import torch_parallel_training as example
+
+    losses, ms = _timed(lambda: example.main(num_epochs=1, batch_size=PAR_EXAMPLE_BATCH,
+                                             world_size=PAR_WORLD, backend="gloo",
+                                             device="cuda"))
+    print(f"parallel example: losses {losses.tolist()}, {ms:.1f} ms", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"the parallel example's loss is not finite: {losses}")
+    return {"losses": losses.tolist(), "wall_ms": ms}
+
+
+def par_kernel_launches(rank_report):
+    """{kernel: {phase: launches}} from one rank's report of phases 34-37."""
+    phases = {"dp_flagship": rank_report["dp_flagship"]}
+    for key in ("dp_config5_adjoint=False", "dp_config5_adjoint=True"):
+        phases[key] = rank_report[key]
+    for dtype, r in rank_report["tensor_parallel"].items():
+        phases[f"tensor_parallel_{dtype}"] = r
+    for key, r in rank_report["sequence"].items():
+        phases[f"sequence_{key}"] = r
+    out = {}
+    for phase, r in phases.items():
+        for kernel, count in r["launches"].items():
+            out.setdefault(kernel, {})[phase] = count
+    return out
+
+
+def parallel_phases(smi):
+    """Phases 34-38 from the parent: the libraries are built; the ranks'
+    failures raise here (run_ranks), so the script exits non-zero."""
+    from torchcde_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gloo, ms = _timed(lambda: run_ranks(par_rank, PAR_WORLD, backend="gloo", args=(smi,),
+                                        timeout=600))
+    for rank, r in enumerate(gloo):
+        print("parallel: " + json.dumps({"rank": rank, **r}), flush=True)
+    elapsed("38")
+    nccl, nccl_ms = _timed(lambda: run_ranks(par_nccl_rank, 1, backend="nccl", args=(smi,),
+                                             timeout=600))
+    print("parallel: " + json.dumps({"nccl_single_rank": nccl[0]}), flush=True)
+    example = parallel_example()
+    return {"gloo_ranks_wall_ms": ms, "nccl_wall_ms": nccl_ms, "ranks": gloo,
+            "nccl": nccl[0], "example": example}
+
+
 def elapsed(phase):
     """Prints the seconds since the script started, before a phase."""
     print(f"chip_smoke: phase {phase} at {time.perf_counter() - START:.1f} s", flush=True)
@@ -4024,6 +4432,15 @@ def main():
         "loader_fed_flagship": loader_timing, "loader_slices": loader_report,
         "observability": observability}))
 
+    elapsed("34")
+    # 34-38. Parallelism: four gloo ranks on the card (data-parallel K1 and
+    # K8 slices, tensor parallelism, the sequence-sharded fits), one
+    # single-rank NCCL group, and the parallel example.
+    parallel = parallel_phases(smi)
+    print("timing: " + json.dumps({"card": smi, "parallel_wall_ms": {
+        "gloo_ranks": parallel["gloo_ranks_wall_ms"], "nccl_rank": parallel["nccl_wall_ms"],
+        "example": parallel["example"]["wall_ms"]}}))
+
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)
     # No single PyTorch call computes a fused CDE solve: K1's, K2's and K8's
@@ -4100,6 +4517,11 @@ def main():
         if name == "K5":  # the kernel of K5's route at config 3's length
             kernels[-1]["variant"] = K5_VARIANTS[
                 fit_kernel_modules()["K5"].solve_plan(FIT_LENGTH).variant]
+    # Each kernel's launches on one rank of each parallel phase (rank 0; the
+    # ranks' counts are equal, each on its own shard).
+    per_rank = par_kernel_launches(parallel["ranks"][0])
+    for entry in kernels:
+        entry["parallel_launches_per_rank"] = per_rank.get(entry["name"], {})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ The port of ``tests/test_example.py:12-35``, at the same sizes and with the
 same checks, each example's ``main`` (or ``train_one``) given
 ``device="cpu"``.  The irregular example's outputs are held to finiteness,
 as the JAX test holds them, not to JAX's values: on its control float64
-adaptive solves part through mesh drift (ROADMAP.md section 3).
+adaptive solves part through mesh drift (ROADMAP.md section 3).  The
+parallel example, which the JAX tests do not run, runs on four gloo ranks.
 """
 
 import os
@@ -40,3 +41,13 @@ def test_logsignature_example():
     test_X, test_y = ex.get_data(400, num_samples=32, seed=1, device="cpu")
     acc, elapsed = ex.train_one(2, 20.0, train_X, train_y, test_X, test_y, num_epochs=2)
     assert np.isfinite(acc)
+
+
+def test_parallel_training():
+    """Four gloo ranks on the CPU, a (2, 2) mesh: data parallel over the
+    batch, the field's width tensor-parallel over two ranks."""
+    import torch_parallel_training as ex
+
+    losses = ex.main(num_epochs=1, world_size=4, backend="gloo", device="cpu")
+    assert losses.shape == (1,)
+    assert np.isfinite(losses).all()

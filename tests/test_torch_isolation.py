@@ -33,9 +33,11 @@ def test_port_imports_no_jax():
         "import torchcde_tpu_torch.solvers.integrate, torchcde_tpu_torch.solvers.adjoint\n"
         "import torchcde_tpu_torch.data, torchcde_tpu_torch.native\n"
         "import torchcde_tpu_torch.utils.observability\n"
+        "import torchcde_tpu_torch.parallel, torchcde_tpu_torch.parallel.comm\n"
+        "import torchcde_tpu_torch.parallel.launch, torchcde_tpu_torch.parallel.seq_masked\n"
         "sys.path.insert(0, 'examples')\n"
         "import torch_time_series_classification, torch_logsignature_example\n"
-        "import torch_irregular_data\n"
+        "import torch_irregular_data, torch_parallel_training\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'torchcde_tpu'))\n"
         "assert not bad, bad\n"
@@ -45,7 +47,7 @@ def test_port_imports_no_jax():
 
 
 EXAMPLES = ("torch_time_series_classification.py", "torch_logsignature_example.py",
-            "torch_irregular_data.py")
+            "torch_irregular_data.py", "torch_parallel_training.py")
 
 
 def test_port_sources_name_no_jax():

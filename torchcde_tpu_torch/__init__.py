@@ -16,7 +16,11 @@ per-sample stepping, tuple states over a ``TupleControl`` and
 ``method="scipy_solver"``.  On the host side, ``native`` is the multithreaded
 C++ preprocessing runtime (built with g++ at first use), ``data`` its
 prefetching ``CoefficientDataLoader``, and ``utils`` has tracing, profiling
-and checkpoints.  The package imports torch and numpy, never jax.
+and checkpoints.  ``parallel`` runs it on several ranks over
+``torch.distributed``: data parallelism (each rank's fused kernels on its
+shard), tensor parallelism of the vector field's width (``DTensor``), and the
+natural cubic fit and the tridiagonal solve with the length sharded.  The
+package imports torch and numpy, never jax.
 """
 
 from .interpolation import (

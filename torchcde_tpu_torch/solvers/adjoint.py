@@ -26,7 +26,7 @@ import torch
 
 from ..utils.tuple_control import TupleControl
 from .integrate import SolverConfig, host_jumps, host_times, odeint, warn_fixed_jumps
-from .terms import make_cde_rhs
+from .terms import _dtensor_type, make_cde_rhs
 
 
 def control_tensors(X):
@@ -228,6 +228,26 @@ def closure_params(func, X, t0, z0, adjoint_params=None):
     return FieldClosure(func, X, _frontier(f, controls, closed))
 
 
+def _whole(v):
+    """A tensor-parallel parameter's cotangent, whole on every rank: the
+    augmented state, and so the error norm and the step sequence, is then
+    the same on every rank of the mesh."""
+    if not isinstance(v, _dtensor_type()):
+        return v
+    from ..parallel.comm import whole
+
+    return whole(v)
+
+
+def _placed_like(whole, p):
+    """``whole`` placed as the parameter p (this rank's part of a ``DTensor``)."""
+    if not isinstance(p, _dtensor_type()):
+        return whole
+    from ..parallel.mesh import place_like
+
+    return place_like(whole, p)
+
+
 class _OdeintAdjoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, field, cfg, adjoint_cfg, jump_t, ts, z0, *params):
@@ -257,8 +277,9 @@ class _OdeintAdjoint(torch.autograd.Function):
                 # that the next evaluation walks again: keep it.
                 vjps = torch.autograd.grad(f, [z_] + leaves, a, allow_unused=True,
                                            retain_graph=True)
-            parts = [-f.detach()] + [torch.zeros_like(p) if v is None else v
-                                     for v, p in zip(vjps, [z_] + leaves)]
+            parts = [-f.detach()] + [
+                torch.zeros(p.shape, dtype=p.dtype, device=p.device) if v is None
+                else _whole(v) for v, p in zip(vjps, [z_] + leaves)]
             return torch.cat([v.reshape(-1) for v in parts])
 
         neg_jump = None
@@ -287,8 +308,8 @@ class _OdeintAdjoint(torch.autograd.Function):
             # dL/dts[0] = -a(t0) . f(t0, z0), with a(t0) excluding g_0.
             ts_bar[0] = -torch.sum(a * rhs(ts[0], zs[0]))
             ts_bar = ts_bar.to(ctx.ts.dtype)
-        grads = [v.view(p.shape) for v, p in zip(torch.split(a_params, sizes[2:]), params)
-                 ] if params else []
+        grads = [_placed_like(v.view(p.shape), p)
+                 for v, p in zip(torch.split(a_params, sizes[2:]), params)] if params else []
         return (None, None, None, None, ts_bar, a + g[0], *grads)
 
 

@@ -231,7 +231,9 @@ def cdeint(X, func, z0, t, adjoint=True, backend="native", **kwargs):
             e.g. ``CubicSpline`` or ``LinearInterpolation``.
         func: callable f(t, z) -> (..., hidden_channels, input_channels), or an
             object with a ``prod(t, z, dXdt) -> (..., hidden_channels)``
-            method.  An ``MLPVectorField`` over a uniform ``CubicSpline`` lets
+            method.  An ``MLPVectorField`` (with plain-tensor weights; a
+            tensor-parallel one solves on the plain path) over a uniform
+            ``CubicSpline`` lets
             dopri5 and knot-aligned fixed-step solves (reversible Heun
             among them) run as fused kernels; over a uniform
             ``LinearInterpolation``, dopri5 runs the adaptive kernel's

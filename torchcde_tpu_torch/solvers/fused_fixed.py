@@ -16,7 +16,7 @@ from ..interpolation.cubic import CubicSpline
 from ..utils.misc import host_array, numpy_dtype
 from .fused_fixed_kernel import try_fused_mlp
 from .runge_kutta import TABLEAUS, rk_step
-from .terms import MLPVectorField
+from .terms import fusable_field
 
 _MAX_SUBSTEPS = 256
 
@@ -86,7 +86,7 @@ def try_fused_fixed(X, func, z0, ts, method, step_size, kernel_only=False):
         return None
     rows, grid, out_idx, j0, jN, m, step_size_val, uniform = plan
 
-    if uniform and isinstance(func, MLPVectorField):
+    if uniform and fusable_field(func):
         sliced = tuple(r[..., j0:jN, :] for r in rows[1:])
         out = try_fused_mlp(
             sliced, z0, func, method, m, step_size_val, jN - j0,

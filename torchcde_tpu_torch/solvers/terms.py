@@ -3,8 +3,40 @@
 Port of ``torchcde_tpu/solvers/terms.py``.
 """
 
+import functools
+import itertools
+
 import torch
 from torch import nn
+
+
+@functools.cache
+def _dtensor_type():
+    """The DTensor class, imported on first use (``NoneType`` where PyTorch
+    has no ``torch.distributed``)."""
+    if not torch.distributed.is_available():
+        return type(None)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def holds_dtensor(module):
+    """True when a parameter or buffer of ``module`` is a ``DTensor``: the
+    module is tensor-parallel (``parallel.place_params``)."""
+    dtensor = _dtensor_type()
+    return any(isinstance(p, dtensor)
+               for p in itertools.chain(module.parameters(), module.buffers()))
+
+
+def fusable_field(func):
+    """The fused routes' rule for the field (K1, K2, K8, K9): an
+    ``MLPVectorField`` whose weights are plain tensors.  A tensor-parallel
+    field is declined and solved on the plain path, where its layers run as
+    ``DTensor`` ops, as the JAX package declines its kernels on a mesh with a
+    model axis (``fused_pallas.py:530-545``).  A data-parallel rank's field
+    holds plain tensors, so each rank launches its own kernel on its shard."""
+    return isinstance(func, MLPVectorField) and not holds_dtensor(func)
 
 
 class MLPVectorField(nn.Module):
@@ -27,6 +59,12 @@ class MLPVectorField(nn.Module):
         self.linear2 = nn.Linear(width, self.hidden_channels * self.input_channels, **kw)
 
     def forward(self, t, z):
+        if not isinstance(z, _dtensor_type()) and holds_dtensor(self):
+            # Tensor-parallel weights: enter and leave through the replicated
+            # wrapper, which calls this method again with a DTensor z.
+            from ..parallel.mesh import replicated_call
+
+            return replicated_call(self, t, z)
         h = torch.relu(self.linear1(z))
         h = torch.tanh(self.linear2(h))
         return h.reshape(h.shape[:-1] + (self.hidden_channels, self.input_channels))
