@@ -189,7 +189,31 @@ Phases, each of which raises on failure:
 38. one rank in an NCCL group: the data-parallel flagship step and both
    one-shard fits bit for bit the one-process ones; then
    examples/torch_parallel_training.py for one epoch on four gloo ranks.
-   A rank that raises makes the script exit non-zero.
+   A rank that raises makes the script exit non-zero;
+39. per-sample solves that K9 declines, every lane in one lockstep solve
+   (solvers/per_sample.py, plain PyTorch ops on the card): bench_per_sample's
+   problem at its full shape (256 lanes, length 1024, hidden 8, width 32)
+   with return_stats, through dopri5 with the MLPVectorField and with a
+   field that reads t, bosh3, and dopri5 with a jump at every 64th knot;
+   dopri8, adaptive_heun and fehlberg2 at length 128; a direct and an
+   adjoint gradient at length 8.  Each is held against a solve at tighter
+   tolerances (SURFACE_ADAPTIVE_RTOL, gradients SURFACE_BACKSOLVE_RTOL for
+   the adjoint): the MLP's by K9 in float32, the t-reading field's by the
+   lockstep solve in float64, the gradients by direct backpropagation of the
+   whole batch under one controller (integrate.odeint) in float64; every
+   lane finite, K1, K2, K8 and K9 launched zero times on the lockstep
+   solves; and at length 128 in float64, on
+   controls linear in time with an output at every knot, the first 8 lanes
+   (MLP, t-reading field) or 4 (a jump every 16th knot, dopri8) against
+   each lane solved alone by integrate.odeint, as the port solved a
+   per-sample batch before: the same statistics, values within PS39_EXACT
+   of the largest magnitude.  On bench_per_sample's controls the first 8
+   lanes alone through integrate.odeint, within SURFACE_ADAPTIVE_RTOL, and
+   the replayed CUDA graphs against eager iterations.  Each solve prints its
+   per-lane NFE, wall and CUDA-event ms, host reads and iterations; the 8
+   lanes' time in integrate.odeint, scaled to 256, as the extrapolated time
+   of that loop over the lanes; and, by batch size, whether the lanes'
+   right-hand side rounds as in a batch of 64.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -4215,6 +4239,366 @@ def parallel_phases(smi):
             "nccl": nccl[0], "example": example}
 
 
+# --------------------------------------------------------------------------
+# Phase 39: per-sample solves outside K9, every lane in one lockstep solve
+# (solvers/per_sample.py; plain PyTorch ops on the card, no kernel).
+# --------------------------------------------------------------------------
+
+# The full-shape solves: bench_per_sample's problem through each path, with
+# a budget that completes every lane (bench_per_sample's lanes need up to
+# 7642 attempts each at rtol 1e-4, run_benchmarks.py:706-711, past the
+# default 4096).  dopri5 runs at rtol 1e-5: at the benchmark's 1e-4 its
+# global error over the 1023 rough intervals is 4.6-6.2 % of the largest
+# magnitude (measured on an H100), at the edge of SURFACE_ADAPTIVE_RTOL; bosh3's
+# is 0.7 % at 1e-4.
+PS39_FULL_TOL = {"dopri5": dict(rtol=1e-5, atol=1e-7, max_steps=32768),
+                 "bosh3": dict(rtol=1e-4, atol=1e-6, max_steps=65536)}
+# The other methods at a cut length, each at a tolerance that keeps its
+# global error within SURFACE_ADAPTIVE_RTOL (fehlberg2's first-order
+# solution is 16 % off at rtol 1e-4 and length 128).
+PS39_CUT = 128
+PS39_CUT_TOL = {"dopri8": dict(rtol=1e-4, atol=1e-6, max_steps=16384),
+                "adaptive_heun": dict(rtol=1e-4, atol=1e-6),
+                "fehlberg2": dict(rtol=1e-6, atol=1e-8)}
+# The gradients' length and tolerance: at rtol 1e-4 the direct gradient of
+# the realised mesh is 11 % (the CPU) to 25 % (an H100) from the converged
+# gradient on these rough controls, at rtol 1e-6 0.3 % (the CPU).
+PS39_GRAD_LENGTH = 8
+PS39_GRAD_TOL = dict(rtol=1e-6, atol=1e-8)
+PS39_LANES = 8
+PS39_JUMP_EVERY = 64
+# The lane loop's other drivers (jumps, and the restart of a stepper without
+# a dense step) on fewer lanes, with a jump at every 16th knot of the cut.
+PS39_LANES_MORE, PS39_LOOP_JUMP_EVERY = 4, 16
+# The smooth control's slope a knot, in bench_per_sample's scale: gentle
+# enough that the MLP's solve over 128 knots amplifies a rounding difference
+# of its products by little.
+PS39_SMOOTH_SLOPE = 0.125
+# The float64 lanes against the same lanes solved one at a time by the
+# general integrator.
+PS39_EXACT = 1e-12
+# The references, each at tighter tolerances: the MLP's solves by K9 (code
+# that per_sample.py does not run; float32), the t-reading field's by the
+# lockstep solve in float64 (the whole batch under one controller through
+# integrate.odeint took 63 s and 28 s at length 1024 on the card), the
+# gradient by direct backpropagation of the whole batch under one
+# controller through integrate.odeint in float64.
+# K9 at its own budget of 2048 attempts a lane and chunk of 128 intervals:
+# at rtol 1e-6 the hardest lane needs ~2 300 a chunk (18 514 over 1023
+# intervals in float64 on an H100), at 5e-6 ~1 700.
+PS39_REF_K9 = dict(rtol=5e-6, atol=5e-8)
+PS39_REF = dict(method="dopri5", rtol=1e-7, atol=1e-9, max_steps=1 << 17)
+PS39_REF_FULL = dict(method="dopri5", rtol=1e-6, atol=1e-8, max_steps=1 << 17)
+# The batch sizes at which the lanes' right-hand side is compared, bit for
+# bit, with the same rows in a batch of 64 (per_sample._MIN_LANES).
+PS39_PROBE_BATCHES = (1, 2, 16, 17, 32, 63, 64, 65, 128, 256, 512, 1024, 4096)
+
+
+def _t_field(W):
+    """A vector field that reads its time (the JAX contract: called
+    unbatched for each lane)."""
+    def field(s, z):
+        return torch.tanh(z)[..., None] * W * torch.cos(0.01 * torch.as_tensor(s))
+    return field
+
+
+def _cut(X, length):
+    """The spline X over its first ``length`` knots."""
+    import torchcde_tpu_torch as tt
+
+    return tt.CubicSpline(torch.cat([X._a, X._b, X._two_c, X._three_d], -1)[:, :length - 1])
+
+
+def _lane_loop(X, field, z0, lanes, t=None, jump_t=None, **kwargs):
+    """The first ``lanes`` lanes one at a time, as the port solved a
+    per-sample batch before the lockstep solve: each lane's own control rows
+    and integrate.odeint (with ``jump_t``), with its statistics.  Returns (out (lanes, n, H),
+    [stats], wall ms)."""
+    from torchcde_tpu_torch.solvers.integrate import SolverConfig, odeint
+    from torchcde_tpu_torch.solvers.terms import make_cde_rhs
+
+    cfg = SolverConfig(step_size=None, **kwargs)
+
+    def run():
+        outs, stats = [], []
+        for i in range(lanes):
+            Xi = copy.copy(X)
+            for name, v in vars(X).items():
+                if isinstance(v, torch.Tensor) and v.ndim >= 3:
+                    setattr(Xi, name, v[i])
+            out, lane_stats = odeint(make_cde_rhs(field, Xi), z0[i],
+                                     X.interval if t is None else t, cfg, jump_t,
+                                     collect_stats=True)
+            outs.append(out)
+            stats.append(lane_stats)
+        return torch.stack(outs), stats
+
+    with torch.no_grad():
+        (out, stats), ms = _timed(run)
+    return out, stats, ms
+
+
+def lane_invariance_probe(X, field, z0):
+    """{dtype: {batch: whether the rows of the lanes' right-hand side, vmapped
+    over the lanes as the lockstep solve evaluates it, have the same bits as
+    the same rows in a batch of 64}} at bench_per_sample's widths, the rows
+    tiled from X's."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers.per_sample import LaneField, _Lanes
+
+    top = max(PS39_PROBE_BATCHES)
+    reps = -(-top // X._a.shape[0])
+    coeffs = torch.cat([X._a, X._b, X._two_c, X._three_d], -1).repeat(reps, 1, 1)[:top]
+    z = z0.repeat(reps, 1)[:top]
+    found = {}
+    for dtype in (torch.float32, torch.float64):
+        f = copy.deepcopy(field).to(dtype)
+        rows = {}
+        with torch.no_grad():
+            for B in PS39_PROBE_BATCHES:
+                Xb = tt.CubicSpline(coeffs[:B].to(dtype))
+                t = torch.full((B,), 300.37, dtype=dtype, device=z.device)
+                rows[B] = LaneField(f, _Lanes(Xb, B, z.device))(t, z[:B].to(dtype))
+        found[str(dtype).replace("torch.", "")] = {
+            B: bool(torch.equal(rows[B][:min(B, 64)], rows[64][:min(B, 64)]))
+            for B in PS39_PROBE_BATCHES}
+    return found
+
+
+def smooth_control(device, batch, length, seed=1):
+    """A float64 spline at bench_per_sample's magnitudes on paths linear in
+    time: each lane's channels move by a fixed slope, PS39_SMOOTH_SLOPE of
+    bench_per_sample's scale a knot at most times a standard normal."""
+    import torchcde_tpu_torch as tt
+
+    rng = np.random.default_rng(seed)
+    spread = (0.06 * 10.0 ** np.linspace(-0.5, 0.5, batch))[:, None, None]
+    start, slope = (rng.standard_normal((batch, 1, 3)) for _ in range(2))
+    x = spread * (start + PS39_SMOOTH_SLOPE * slope * np.arange(length)[None, :, None])
+    return tt.CubicSpline(tt.hermite_cubic_coefficients_with_backward_differences(
+        torch.from_numpy(x).to(device)))
+
+
+def _double(X, field, z0):
+    import torchcde_tpu_torch as tt
+
+    coeffs = torch.cat([X._a, X._b, X._two_c, X._three_d], -1).double()
+    return tt.CubicSpline(coeffs), copy.deepcopy(field).double(), z0.double()
+
+
+def _lockstep_solve(label, X, field, z0, report, t=None, **kwargs):
+    """One per-sample solve with its statistics, timed by the host's clock
+    and by CUDA events, with its host reads and lockstep iterations."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import per_sample
+
+    per_sample.reset_counts()
+    options = dict(per_sample=True, **kwargs.pop("options", {}))
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        begin.record()
+        out, stats = tt.cdeint(X, field, z0, X.interval if t is None else t, adjoint=False,
+                               return_stats=True, options=options, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+    nfe = stats["nfe"].double()
+    report[label] = dict(
+        wall_ms=1e3 * (time.perf_counter() - start), event_ms=begin.elapsed_time(end),
+        host_reads=per_sample.HOST_READS, iterations=per_sample.ITERATIONS,
+        nfe_min=int(nfe.min()), nfe_mean=float(nfe.mean()), nfe_max=int(nfe.max()),
+        lanes=int(out.shape[0]), finite_lanes=int(torch.isfinite(out).all(dim=(1, 2)).sum()))
+    return out, stats
+
+
+def per_sample_lockstep_phase(device):
+    """Phase 39: options={'per_sample': True} where K9 declines, through the
+    public cdeint on the card: bench_per_sample's problem at its full shape
+    with return_stats (dopri5 through an MLPVectorField and through a field
+    that reads t, bosh3, dopri5 with a jump at every 64th knot), dopri8,
+    adaptive_heun and fehlberg2 at a cut length, one direct and one adjoint
+    gradient, each held against a reference at tighter tolerances (K9, a
+    float64 lockstep solve, a float64 whole-batch gradient), and the first
+    lanes in float64 against each lane solved alone by integrate.odeint.
+    K1, K2, K8 and K9 launch zero times on the lockstep solves."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.solvers import per_sample
+
+    start = time.perf_counter()
+    failures, report = [], {}
+
+    def hold(label, key, err, limit):
+        report[label][key] = err
+        if not err <= limit:
+            failures.append(f"{label} {key}: {err:.3e} > {limit:.1e}")
+
+    def rel_err(out, ref):
+        err, scale = _err(out.double(), ref)
+        return err / scale
+
+    def reference(label, X, field, z0, tol):
+        out, _ = _lockstep_solve(label, X, field, z0, report, **tol)
+        print(f"per-sample lockstep {label}: {json.dumps(report.pop(label))}", flush=True)
+        return out
+
+    def kernel_reference(label, X):
+        """The MLP's solve by K9, declining nothing (dopri5, no stats)."""
+        reset_fused_launches()
+        with torch.no_grad():
+            out, ms = _timed(lambda: tt.cdeint(X, field, z0, X.interval, adjoint=False,
+                                               options=dict(per_sample=True), **PS39_REF_K9))
+        launches = fused_launches()["K9"][0]
+        print(f"per-sample lockstep {label} by K9 (float32, rtol {PS39_REF_K9['rtol']}): "
+              f"{ms:.1f} ms, {launches} launches, finite {bool(torch.isfinite(out).all())}",
+              flush=True)
+        if not launches or not torch.isfinite(out).all():
+            failures.append(f"{label}: K9 declined or is not finite ({launches} launches)")
+        return out.double()
+
+    def show(label):
+        print(f"per-sample lockstep {label}: {json.dumps(report[label])}", flush=True)
+
+    X, field, z0 = per_sample_problem(device)
+    W = (0.3 * torch.randn(PS_HIDDEN, 3, generator=torch.Generator().manual_seed(5))).to(device)
+    t_field = _t_field(W)
+    X64, field64, z064 = _double(X, field, z0)
+    t_field64 = _t_field(W.double())
+    Xc, Xc64 = _cut(X, PS39_CUT), _cut(X64, PS39_CUT)
+    refs = {"MLP": kernel_reference(f"reference MLP B{PS_BATCH} L{PS_LENGTH}", X)}
+    ref_cut = kernel_reference(f"reference MLP B{PS_BATCH} L{PS39_CUT}", Xc)
+    reset_fused_launches()
+    refs["t-reading"] = reference(f"float64 reference t-reading B{PS_BATCH} L{PS_LENGTH}", X64,
+                                  t_field64, z064, PS39_REF_FULL)
+    jumps = X.grid_points[PS39_JUMP_EVERY:-1:PS39_JUMP_EVERY]
+    full = (("dopri5 MLP", field, "MLP", {}),
+            ("dopri5 t-reading field", t_field, "t-reading", {}),
+            ("bosh3 MLP", field, "MLP", dict(method="bosh3")),
+            (f"dopri5 MLP jump every {PS39_JUMP_EVERY}th knot", field, "MLP",
+             dict(options=dict(jump_t=jumps))))
+    for label, f, ref, kwargs in full:
+        method = kwargs.setdefault("method", "dopri5")
+        label = f"{label} B{PS_BATCH} L{PS_LENGTH} rtol {PS39_FULL_TOL[method]['rtol']}"
+        out, _ = _lockstep_solve(label, X, f, z0, report, **kwargs, **PS39_FULL_TOL[method])
+        hold(label, "err", rel_err(out, refs[ref]), SURFACE_ADAPTIVE_RTOL)
+        if report[label]["finite_lanes"] != PS_BATCH or out.shape != (PS_BATCH, 2, PS_HIDDEN):
+            failures.append(f"{label}: shape {tuple(out.shape)}, "
+                            f"{report[label]['finite_lanes']} finite lanes")
+        show(label)
+
+    print(f"per-sample lockstep: the other methods at length {PS39_CUT} "
+          f"(cut from {PS_LENGTH})", flush=True)
+    for method, tol in PS39_CUT_TOL.items():
+        label = f"{method} MLP B{PS_BATCH} L{PS39_CUT} rtol {tol['rtol']}"
+        out, _ = _lockstep_solve(label, Xc, field, z0, report, method=method, **tol)
+        hold(label, "err", rel_err(out, ref_cut), SURFACE_ADAPTIVE_RTOL)
+        if report[label]["finite_lanes"] != PS_BATCH:
+            failures.append(f"{label}: {report[label]['finite_lanes']} finite lanes")
+        show(label)
+
+    # One direct and one adjoint gradient (z0 and W) of the field that
+    # reads t, against direct backpropagation of a tight float64 solve of the
+    # whole batch under one controller.
+    proj = torch.randn(PS_BATCH, PS_HIDDEN, generator=torch.Generator().manual_seed(6))
+    proj = proj.to(device)
+
+    def grads(Xg, Wg, zg, lockstep=True, **kwargs):
+        Wg, zg = Wg.detach().requires_grad_(), zg.detach().requires_grad_()
+        out = tt.cdeint(Xg, _t_field(Wg), zg, Xg.interval,
+                        options=dict(per_sample=True) if lockstep else {}, **kwargs)
+        loss = (out[..., -1, :] * proj.to(out.dtype)).sum()
+        return torch.autograd.grad(loss, [zg, Wg])
+
+    Xg, Xg64 = _cut(X, PS39_GRAD_LENGTH), _cut(X64, PS39_GRAD_LENGTH)
+    (grad_ref, ref_ms) = _timed(lambda: grads(Xg64, W.double(), z064, lockstep=False,
+                                             adjoint=False, **PS39_REF))
+    print(f"per-sample lockstep: float64 reference gradient L{PS39_GRAD_LENGTH}, direct "
+          f"through the whole batch under one controller, {ref_ms:.1f} ms", flush=True)
+    for adjoint in (False, True):
+        label = (f"gradient adjoint={adjoint} B{PS_BATCH} L{PS39_GRAD_LENGTH} "
+                 f"rtol {PS39_GRAD_TOL['rtol']}")
+        per_sample.reset_counts()
+        g, ms = _timed(lambda: grads(Xg, W, z0, adjoint=adjoint, **PS39_GRAD_TOL))
+        report[label] = dict(wall_ms=ms, iterations=per_sample.ITERATIONS)
+        hold(label, "rel_frobenius", _rel_frobenius(g, grad_ref),
+             SURFACE_BACKSOLVE_RTOL if adjoint else SURFACE_ADAPTIVE_RTOL)
+        show(label)
+
+    # The first lanes in float64, in the lockstep batch and each alone through
+    # integrate.odeint, the code that solved a per-sample batch before the
+    # lockstep solve, through each driver of the lockstep: the same
+    # statistics and values, on controls linear in time (on bench_per_sample's
+    # rough controls one ulp of a product, which a lane alone rounds
+    # otherwise, moves the mesh: ROADMAP §3), output at every knot.
+    Xs = smooth_control(device, PS_BATCH, PS39_CUT)
+    ts = Xs.grid_points
+    cases = (("MLP", field64, {}, PS39_LANES), ("t-reading", t_field64, {}, PS39_LANES),
+             (f"MLP jump every {PS39_LOOP_JUMP_EVERY}th knot", field64,
+              dict(jump_t=ts[PS39_LOOP_JUMP_EVERY:-1:PS39_LOOP_JUMP_EVERY]), PS39_LANES_MORE),
+             ("MLP dopri8", field64, dict(method="dopri8"), PS39_LANES_MORE))
+    for name, f64, kwargs, lanes in cases:
+        label = f"float64 {name} B{PS_BATCH} L{PS39_CUT} linear in time, {PS39_CUT} outputs"
+        jump_t = kwargs.pop("jump_t", None)
+        options = {} if jump_t is None else dict(options=dict(jump_t=jump_t))
+        out, stats = _lockstep_solve(label, Xs, f64, z064, report, t=ts, max_steps=8192,
+                                     **kwargs, **options)
+        loop, loop_stats, loop_ms = _lane_loop(Xs, f64, z064, lanes, ts, jump_t,
+                                               max_steps=8192, **kwargs)
+        err, scale = _err(out[:lanes], loop)
+        same = all(int(lane_stats[k]) == int(stats[k][i])
+                   for i, lane_stats in enumerate(loop_stats) for k in stats)
+        report[label].update(lane_loop_max_abs_err=err, lane_loop_largest_value=scale,
+                             lane_loop_same_stats=same, lane_loop_lanes=lanes,
+                             lane_loop_wall_ms=loop_ms)
+        hold(label, "lane_loop_rel_err", err / scale, PS39_EXACT)
+        if not same:
+            failures.append(f"{label}: a lane took other steps than integrate.odeint takes "
+                            "on it alone")
+        show(label)
+
+    # On bench_per_sample's controls: the MLP's lanes alone through
+    # integrate.odeint (the same problem at the same tolerance, on another
+    # mesh), and their time, scaled to the batch, as the witness of that loop
+    # over the lanes (extrapolated, not run); the t-reading field's replayed
+    # CUDA graphs against the eager iterations of the same lockstep solve,
+    # which a solve takes with autograd on (this field has no product whose
+    # kernel the capture could change).
+    label = f"float64 MLP B{PS_BATCH} L{PS39_CUT}"
+    out, _ = _lockstep_solve(label, Xc64, field64, z064, report, max_steps=8192)
+    loop, _, loop_ms = _lane_loop(Xc64, field64, z064, PS39_LANES, max_steps=8192)
+    report[label].update(lane_loop_lanes=PS39_LANES, lane_loop_wall_ms=loop_ms,
+                         extrapolated_lane_loop_wall_ms=loop_ms * PS_BATCH / PS39_LANES)
+    hold(label, "lane_loop_rel_err", rel_err(out[:PS39_LANES], loop.double()),
+         SURFACE_ADAPTIVE_RTOL)
+    show(label)
+    label = f"float64 t-reading B{PS_BATCH} L{PS39_CUT}"
+    out, stats = _lockstep_solve(label, Xc64, t_field64, z064, report, max_steps=8192)
+    with torch.enable_grad():
+        (eager, eager_stats), ms = _timed(lambda: tt.cdeint(
+            Xc64, t_field64, z064, Xc64.interval, adjoint=False, return_stats=True,
+            max_steps=8192, options=dict(per_sample=True)))
+    report[label]["eager_wall_ms"] = ms
+    hold(label, "eager_max_abs_err", float((eager - out).abs().max()), PS39_EXACT)
+    if not all(torch.equal(eager_stats[k], stats[k]) for k in stats):
+        failures.append(f"{label}: the eager iterations took other steps")
+    show(label)
+
+    report["lane_rows_equal_to_64_lanes"] = lane_invariance_probe(X, field, z0)
+    print("per-sample lockstep: the lanes' right-hand side, rows bit for bit those of a "
+          f"batch of 64, by batch size: {json.dumps(report['lane_rows_equal_to_64_lanes'])}",
+          flush=True)
+    launches = fused_launches()
+    report["fused_launches"] = launches
+    report["phase_wall_s"] = time.perf_counter() - start
+    print(f"per-sample lockstep: fused kernel launches {launches}, phase "
+          f"{report['phase_wall_s']:.1f} s", flush=True)
+    if any(n for pair in launches.values() for n in pair):
+        failures.append(f"a fused kernel launched on the lockstep path: {launches}")
+    if failures:
+        raise AssertionError("per-sample lockstep: " + "; ".join(failures))
+    return report
+
+
 def elapsed(phase):
     """Prints the seconds since the script started, before a phase."""
     print(f"chip_smoke: phase {phase} at {time.perf_counter() - START:.1f} s", flush=True)
@@ -4440,6 +4824,11 @@ def main():
     print("timing: " + json.dumps({"card": smi, "parallel_wall_ms": {
         "gloo_ranks": parallel["gloo_ranks_wall_ms"], "nccl_rank": parallel["nccl_wall_ms"],
         "example": parallel["example"]["wall_ms"]}}))
+
+    elapsed("39")
+    # 39. Per-sample solves outside K9: one lockstep solve over the lanes.
+    lockstep = per_sample_lockstep_phase(device)
+    print("timing: " + json.dumps({"card": smi, "per_sample_lockstep": lockstep}))
 
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)

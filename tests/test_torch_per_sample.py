@@ -5,7 +5,8 @@ Every contract of ``tests/test_per_sample.py``, held against the JAX
 package's own per-sample output: each sample runs its own error norm, PI
 controller and accepted steps.  A vector field that is not an
 ``MLPVectorField`` takes the per-lane general integrator on both sides (the
-JAX package vmaps a one-sample solve; the port loops over the lanes), so the
+JAX package vmaps a one-sample solve; the port runs the lanes in one
+lockstep solve, ``solvers/per_sample.py``), so the
 solutions, the per-sample statistics and the gradients are the same up to
 rounding.  The controls are smooth (paths linear in time): on rough controls
 two float64 integrators' meshes drift apart (ROADMAP.md section 3).

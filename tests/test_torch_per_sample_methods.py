@@ -2,9 +2,9 @@
 
 ``options={'per_sample': True}`` with bosh3, dopri8 (the restart driver) and
 fehlberg2, and dopri5 with ``jump_t``, against the JAX package's per-sample
-path in float64 on the CPU: the port loops over the lanes with the general
-integrator (K9 takes dopri5 without jumps only), the JAX package vmaps a
-one-sample solve.  Values within 1e-9 of the largest magnitude, per-sample
+path in float64 on the CPU: the port runs the lanes in one lockstep solve of
+the general integrator (K9 takes dopri5 without jumps only), the JAX
+package vmaps a one-sample solve.  Values within 1e-9 of the largest magnitude, per-sample
 statistics equal, z0 gradients within 1e-8; paths linear in time
 (``tests/test_torch_per_sample.py`` says why).
 """

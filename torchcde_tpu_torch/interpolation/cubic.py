@@ -34,6 +34,20 @@ def _take(x, index):
     return picked.reshape(x.shape[:-2] + index.shape + x.shape[-1:])
 
 
+def _time_dtype(dtype):
+    """The dtype a tensor time is located in: the coefficients', float32 for
+    half-precision coefficients (whose dtype cannot tell knot 1023 from 1024),
+    as the host integrator plans their solves in float32."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _knot(grid, index):
+    """``grid[index]`` of the 1-D knot times, as an index_select: the
+    per-sample adjoint differentiates it per lane (``torch.func.vjp`` under
+    ``vmap``), which advanced indexing does not take."""
+    return torch.index_select(grid, 0, index.reshape(-1)).reshape(index.shape)
+
+
 def _spline_algebra(x, kd, hr, six_pd_hr):
     """Shared coefficient algebra (reference interpolation_cubic.py:44-51).
 
@@ -344,11 +358,12 @@ class CubicSpline(InterpolationBase):
             tv = self._t.dtype.type(t)
             index = int(np.clip(np.searchsorted(self._t, tv, side="left") - 1, 0, maxlen))
             return float(tv - self._t[index]), index
-        t = torch.as_tensor(t, dtype=self._b.dtype, device=self._b.device)
-        grid = torch.as_tensor(self._t, dtype=self._b.dtype, device=self._b.device)
+        work = _time_dtype(self._b.dtype)
+        t = torch.as_tensor(t, dtype=work, device=self._b.device)
+        grid = torch.as_tensor(self._t, dtype=work, device=self._b.device)
         index = torch.searchsorted(grid, t.detach(), side="left") - 1
         index = torch.clamp(index, 0, maxlen)
-        fractional_part = t - grid[index]
+        fractional_part = (t - _knot(grid, index)).to(self._b.dtype)
         return fractional_part[..., None], index
 
     @staticmethod

@@ -17,7 +17,7 @@ import torch
 from ..ops.fill import forward_fill, masked_fill
 from ..utils.misc import numpy_dtype, stack_endpoints, validate_input_path
 from .base import InterpolationBase
-from .cubic import _take
+from .cubic import _knot, _take, _time_dtype
 
 
 def _fill_missing_linear(t, x):
@@ -165,10 +165,11 @@ class LinearInterpolation(InterpolationBase):
             tv = self._t.dtype.type(t)
             index = int(np.clip(np.searchsorted(self._t, tv, side="left") - 1, 0, maxlen))
             return float(tv - self._t[index]), index
-        t = torch.as_tensor(t, dtype=self._derivs.dtype, device=self._derivs.device)
-        grid = _grid_tensor(self._t, self._derivs)
+        work = _time_dtype(self._derivs.dtype)
+        t = torch.as_tensor(t, dtype=work, device=self._derivs.device)
+        grid = _grid_tensor(self._t, self._derivs).to(work)
         index = torch.clamp(torch.searchsorted(grid, t.detach(), side="left") - 1, 0, maxlen)
-        return t - grid[index], index
+        return (t - _knot(grid, index)).to(self._derivs.dtype), index
 
     @staticmethod
     def _pick(x, index):
@@ -182,7 +183,7 @@ class LinearInterpolation(InterpolationBase):
             diff_t = float(self._t[index + 1] - self._t[index])
             return prev_coeff + fractional_part * (next_coeff - prev_coeff) / diff_t
         grid = _grid_tensor(self._t, self._derivs)
-        diff_t = grid[index + 1] - grid[index]
+        diff_t = _knot(grid, index + 1) - _knot(grid, index)
         return (prev_coeff + fractional_part[..., None] * (next_coeff - prev_coeff)
                 / diff_t[..., None])
 

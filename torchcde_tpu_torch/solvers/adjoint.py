@@ -19,6 +19,7 @@ the jumps and the reverse solve on their negated copies.
 
 import copy
 import functools
+import types
 import warnings
 
 import numpy as np
@@ -66,39 +67,137 @@ def _reached(rhs, t0, z0, tensors):
     return [p for p, g in zip(tensors, grads) if g is not None]
 
 
-def _closure_tensors(func):
-    """Tensors the vector field closes over: a Python closure's cells, a
-    ``functools.partial``'s arguments, an ``nn.Module``'s parameters and
-    buffers, a bound method's object."""
-    found, seen = [], set()
+def _replaced(tup, i, value):
+    """The tuple (or named tuple) tup with item i replaced by value."""
+    items = list(tup)
+    items[i] = value
+    return tup._make(items) if hasattr(tup, "_make") else type(tup)(items)
 
-    def visit(obj, depth):
-        if id(obj) in seen or depth > 3:
-            return
-        seen.add(id(obj))
+
+class ClosureSlots:
+    """Every tensor the vector field closes over, and where each is held, so
+    that a call can read another tensor in its place (``call``).
+
+    The search: a Python closure's cells, a bound method's object, the
+    globals the code names, a ``functools.partial``'s arguments, an
+    ``nn.Module``'s parameters, buffers and attributes, a callable object's
+    or a plain object's attributes, and the items of every dict, list and
+    tuple among them (weights held as the JAX package's pytrees).  Objects
+    are searched three levels deep; containers add no level.  A tensor in a
+    tuple is replaced by replacing the tuple where it is held; a tensor held
+    where nothing can be replaced is ``stuck``."""
+
+    def __init__(self, func):
+        self.tensors, self.stuck = [], set()
+        self.where, self._seen = {}, set()  # id(tensor) -> [(get, put)]
+        self._visit(func, 0, None)
+
+    def _add(self, tensor, slot):
+        if id(tensor) not in self.where:
+            self.tensors.append(tensor)
+            self.where[id(tensor)] = []
+        if slot is None:
+            self.stuck.add(id(tensor))
+        else:
+            self.where[id(tensor)].append(slot)
+
+    @staticmethod
+    def _item(table, key):
+        return (lambda: table[key], lambda value: table.__setitem__(key, value))
+
+    @staticmethod
+    def _tuple_item(slot, i):
+        if slot is None:
+            return None
+        get, put = slot
+        return (lambda: get()[i], lambda value: put(_replaced(get(), i, value)))
+
+    @staticmethod
+    def _partial_arg(p, i):
+        return (lambda: p.args[i],
+                lambda value: p.__setstate__((p.func, _replaced(p.args, i, value), p.keywords,
+                                              p.__dict__ or None)))
+
+    def _visit(self, obj, depth, slot):
         if isinstance(obj, torch.Tensor):
-            found.append(obj)
+            self._add(obj, slot)
+            return
+        if isinstance(obj, tuple):  # immutable: each holder replaces its own
+            for i, v in enumerate(obj):
+                self._visit(v, depth, self._tuple_item(slot, i))
+            return
+        if id(obj) in self._seen or depth > 3:
+            return
+        self._seen.add(id(obj))
+        if isinstance(obj, (dict, list)):
+            for key in (list(obj) if isinstance(obj, dict) else range(len(obj))):
+                self._visit(obj[key], depth, self._item(obj, key))
         elif isinstance(obj, torch.nn.Module):
-            found.extend(obj.parameters())
-            found.extend(obj.buffers())
+            modules = list(obj.modules())
+            for table in [m._parameters for m in modules] + [m._buffers for m in modules]:
+                for key, v in list(table.items()):
+                    if v is not None:
+                        self._add(v, self._item(table, key))
+            for m in modules:
+                table = vars(m)
+                for key in [k for k in table if k not in _module_internals()]:
+                    self._visit(table[key], depth + 1, self._item(table, key))
         elif isinstance(obj, functools.partial):
-            for v in (obj.func, *obj.args, *obj.keywords.values()):
-                visit(v, depth + 1)
-        elif isinstance(obj, (tuple, list)):
-            for v in obj:
-                visit(v, depth + 1)
+            self._visit(obj.func, depth + 1, None)
+            for i, v in enumerate(obj.args):
+                self._visit(v, depth + 1, self._partial_arg(obj, i))
+            for key in list(obj.keywords):
+                self._visit(obj.keywords[key], depth + 1, self._item(obj.keywords, key))
         elif hasattr(obj, "__wrapped__"):  # a wrapper of the user's field
-            visit(obj.__wrapped__, depth)
+            self._visit(obj.__wrapped__, depth, None)
         elif callable(obj):
             for cell in getattr(obj, "__closure__", None) or ():
                 try:
-                    visit(cell.cell_contents, depth + 1)
+                    v = cell.cell_contents
                 except ValueError:  # an empty cell
-                    pass
-            visit(getattr(obj, "__self__", None), depth + 1)
+                    continue
+                self._visit(v, depth + 1, (lambda c=cell: c.cell_contents,
+                                           lambda value, c=cell: setattr(c, "cell_contents",
+                                                                         value)))
+            self._visit(getattr(obj, "__self__", None), depth + 1, None)
+            code, names = getattr(obj, "__code__", None), getattr(obj, "__globals__", {})
+            for name in (code.co_names if code is not None else ()):
+                if name in names:
+                    self._visit(names[name], depth + 1, self._item(names, name))
+            if not isinstance(obj, (types.FunctionType, types.MethodType, type)):
+                self._attributes(obj, depth)  # a callable object's
+        elif not isinstance(obj, (type, types.ModuleType)):
+            self._attributes(obj, depth)  # e.g. a bound method's object
 
-    visit(func, 0)
-    return found
+    def _attributes(self, obj, depth):
+        table = getattr(obj, "__dict__", None)
+        if isinstance(table, dict):
+            for key in list(table):
+                self._visit(table[key], depth + 1, self._item(table, key))
+
+    def call(self, fn, tensors, values):
+        """fn() with each of ``tensors`` read as the matching ``values``."""
+        saved = []
+        try:
+            for tensor, value in zip(tensors, values):
+                for get, put in self.where[id(tensor)]:
+                    saved.append((put, get()))
+                    put(value)
+            return fn()
+        finally:
+            for put, old in reversed(saved):
+                put(old)
+
+
+@functools.lru_cache(maxsize=None)
+def _module_internals():
+    """The attributes every ``nn.Module`` has (its tables and hooks)."""
+    return frozenset(vars(torch.nn.Module()))
+
+
+def _closure_tensors(func):
+    """Tensors the vector field closes over (``ClosureSlots``)."""
+    return ClosureSlots(func).tensors
 
 
 def _walk(roots, stops, keep):

@@ -15,19 +15,19 @@ with shape (..., len(t), hidden_channels).  The dispatch, the validation and
 the error texts are the JAX package's.
 """
 
-import copy
 import warnings
 
 import numpy as np
 import torch
 
-from .adjoint import FieldClosure, closure_params, odeint_adjoint
+from .adjoint import closure_params, odeint_adjoint
 from .fused_dopri import try_fused_dopri5
 from .fused_dopri_persample import try_fused_dopri5_per_sample
 from .fused_fixed import try_fused_fixed
 from .fused_reversible_kernel import try_fused_reversible_heun
 from ..utils.misc import host_array
 from .integrate import SolverConfig, host_times, odeint
+from .per_sample import _Lanes, solve_per_sample, time_rows
 from .reversible_adjoint import reversible_heun_solve
 from .runge_kutta import STEPPERS, unknown_method
 from .terms import _matvec, make_cde_rhs
@@ -498,58 +498,6 @@ def _increasing(t):
     return bool(torch.all(torch.diff(t.detach(), dim=-1) > 0))
 
 
-class _Lanes:
-    """The control of each lane of a flattened batch.
-
-    As the JAX package's per-sample path maps the control's pytree: every
-    tensor with three or more dimensions is batched, (..., n, channels),
-    flattened to (batch, n, channels), and a lane reads its own row; the
-    others (knot times, a control shared by every lane) are shared."""
-
-    def __init__(self, X, batch):
-        self.X, self.batch = X, batch
-        self.rows = {}
-        for name, v in vars(X).items():
-            if isinstance(v, torch.Tensor) and v.ndim >= 3:
-                v = v.reshape((-1,) + tuple(v.shape[-2:]))
-                if v.shape[0] != batch:
-                    raise ValueError(
-                        "per_sample: the control's batch dimensions "
-                        f"(flattened size {v.shape[0]}) must match the state's "
-                        f"(flattened size {batch})."
-                    )
-                self.rows[name] = v
-
-    def _with(self, pick):
-        X = copy.copy(self.X)
-        for name, v in self.rows.items():
-            setattr(X, name, pick(v))
-        return X
-
-    def flat(self):
-        """The control with every batched tensor flattened to (batch, n, C)."""
-        return self._with(lambda v: v)
-
-    def __getitem__(self, i):
-        return self._with(lambda v: v[i])
-
-
-def _every_control_tensor(field):
-    """The lane's closure as the JAX package's per-sample adjoint builds it:
-    every array of the control, its knot times too, is an explicit constant
-    of the adjoint (JAX ``cdeint.py:728-743``), read or not, then the tensors
-    the field closes over.  Their cotangents are part of the adjoint's
-    augmented state, whose error norm counts them."""
-    X = copy.copy(field.X)
-    dtype = next(v for v in vars(X).values() if isinstance(v, torch.Tensor)).dtype
-    for name, v in vars(X).items():
-        if isinstance(v, np.ndarray):
-            setattr(X, name, torch.as_tensor(v, dtype=dtype))
-    controls = [v for v in vars(X).values() if isinstance(v, torch.Tensor)]
-    own = {id(v) for v in vars(field.X).values()}
-    return FieldClosure(field.func, X, controls + [p for p in field.params if id(p) not in own])
-
-
 def _cdeint_per_sample(X, func, z0, t, *, adjoint, method, rtol, atol, step_size, max_steps,
                        return_stats, jump_t, adjoint_rtol, adjoint_atol, adjoint_method,
                        adjoint_step_size, adjoint_params, adjoint_max_steps):
@@ -562,11 +510,12 @@ def _cdeint_per_sample(X, func, z0, t, *, adjoint, method, rtol, atol, step_size
     times.  ``return_stats`` reports each sample's counts, shaped like the
     batch.  An ``MLPVectorField`` over a uniform control takes the fused
     per-lane kernel K9 (``fused_dopri_persample.py``), for either
-    ``adjoint``, with dopri5 and no ``jump_t``; otherwise each lane runs the
-    general integrator, a Python loop over the lanes (the JAX
-    package's vmap of a one-sample solve with the fused routes off) or, with
-    ``adjoint=True``, the backsolve adjoint, its field's tensors shared by
-    the lanes (their gradients sum) and the control's its own."""
+    ``adjoint``, with dopri5 and no ``jump_t``; otherwise every lane runs in
+    one lockstep solve of the general integrator (``per_sample.py``, the
+    JAX package's vmap of a one-sample solve with the fused routes off), or,
+    with ``adjoint=True``, of the backsolve adjoint, each lane with its own
+    augmented state: the field's tensors are shared by the lanes (their
+    gradients sum) and the control's rows are each lane's own."""
     if method in _FIXED_METHODS or step_size is not None:
         raise ValueError(
             "options={'per_sample': True} requires an adaptive method "
@@ -581,7 +530,7 @@ def _cdeint_per_sample(X, func, z0, t, *, adjoint, method, rtol, atol, step_size
         )
     batch_shape = tuple(z0.shape[:-1])
     batch = int(np.prod(batch_shape))
-    lanes = _Lanes(X, batch)
+    lanes = _Lanes(X, batch, z0.device)
     z0f = z0.reshape(batch, z0.shape[-1])
 
     batched_t = t.ndim > 1
@@ -608,6 +557,7 @@ def _cdeint_per_sample(X, func, z0, t, *, adjoint, method, rtol, atol, step_size
 
     cfg = SolverConfig(method=method, rtol=rtol, atol=atol, step_size=None,
                        max_steps=max_steps, knots_hint=_knots_hint_of(X))
+    adjoint_cfg = None
     if adjoint:
         if return_stats:
             raise ValueError(
@@ -621,23 +571,12 @@ def _cdeint_per_sample(X, func, z0, t, *, adjoint, method, rtol, atol, step_size
                 adjoint_max_steps, adjoint_method, adjoint_step_size, t),
             knots_hint=cfg.knots_hint,
         )
-    outs, stats = [], []
-    for i in range(batch):
-        ti = t[i] if batched_t else t
-        if adjoint:
-            field = closure_params(func, lanes[i], ti[0], z0f[i], adjoint_params)
-            if adjoint_params is None:
-                field = _every_control_tensor(field)
-            outs.append(odeint_adjoint(field, z0f[i], ti, cfg, adjoint_cfg, jump_t))
-            continue
-        out = odeint(make_cde_rhs(func, lanes[i]), z0f[i], ti, cfg, jump_t,
-                     collect_stats=return_stats)
-        if return_stats:
-            out, lane_stats = out
-            stats.append(lane_stats)
-        outs.append(out)
-    out = torch.stack(outs).reshape(batch_shape + tuple(outs[0].shape))
+    out = solve_per_sample(func, lanes, z0f, time_rows(t, batch, z0f), cfg, jump_t,
+                           return_stats, adjoint_cfg, adjoint_params)
     if return_stats:
-        return out, {k: torch.tensor([s[k] for s in stats]).reshape(batch_shape)
-                     for k in stats[0]}
+        out, stats = out
+        stats = {k: v.reshape(batch_shape) for k, v in stats.items()}
+    out = out.reshape(batch_shape + tuple(out.shape[1:]))
+    if return_stats:
+        return out, stats
     return out
