@@ -3867,6 +3867,10 @@ PAR_TP_BATCH = 1024     # tensor parallelism, data 2 x model 2
 PAR_GRAD_BATCH = 1024   # the sequence-sharded masked fit's gradient
 PAR_EXAMPLE_BATCH = 128  # the parallel example's global batch (4 steps an epoch)
 PAR_LOSS_RTOL = 1e-4
+# Phase 36's per-sample solves on the tensor-parallel field: phase 39's
+# widths, 64 lanes a data slice, float64 on controls linear in time.
+PAR_PS_BATCH = 128
+TP_FIELD_RULES = (("linear1.weight", 0), ("linear1.bias", 0), ("linear2.weight", 1))
 # The masked fit's gradient through SPIKE against the one-process gradient
 # (K6/K7's recomputed plain pipeline), both float32: relative Frobenius at
 # the observed positions.
@@ -3875,22 +3879,26 @@ PAR_FIT_GRAD_RTOL = 1e-4
 
 def par_counts():
     """Every launch counter a parallel phase reads, in this process."""
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
     counts = {"K1-fwd": k1.FWD_LAUNCHES, "K1-bwd": k1.BWD_LAUNCHES,
-              "K8-fwd": k8.FWD_LAUNCHES, "K8-bwd": k8.BWD_LAUNCHES}
+              "K8-fwd": k8.FWD_LAUNCHES, "K8-bwd": k8.BWD_LAUNCHES,
+              "K9-fwd": k9.FWD_LAUNCHES, "K9-bwd": k9.BWD_LAUNCHES}
     counts.update(fit_counts())
     return counts
 
 
 def par_reset():
     from torchcde_tpu_torch.parallel import comm
+    from torchcde_tpu_torch.solvers import fused_dopri_persample_kernel as k9
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
     k1.reset_launch_counts()
     k8.reset_launch_counts()
+    k9.reset_launch_counts()
     reset_fit_counts()
     comm.reset_staged_bytes()
 
@@ -3975,9 +3983,8 @@ def par_data_parallel(device, mesh, config, batch, kernel, bits=False):
 
 
 def _plain_step_grads(model, coeffs, labels):
-    """The one-process solve's logits and the loss's gradients, for a
-    float64 model: K1 takes float32, so on the card its solve is the plain
-    path."""
+    """The model's logits and the loss's gradients.  For a float64 model the
+    solve is the plain path on the card: K1 takes float32."""
     from torchcde_tpu_torch.models.neural_cde import bce_with_logits
 
     logits = model(coeffs)
@@ -3985,34 +3992,64 @@ def _plain_step_grads(model, coeffs, labels):
     return logits.detach(), torch.autograd.grad(loss, list(model.parameters()))
 
 
+def _tp_report(name, report):
+    """Prints a tensor-parallel case's wall ms on this rank; fails if K1 or
+    K9 launched for the sharded field."""
+    rank = torch.distributed.get_rank()
+    print(f"chip_smoke: rank {rank}: phase 36 {name}: {report['wall_ms']:.1f} ms wall, "
+          f"{report['event_ms']:.1f} ms events", flush=True)
+    if any(report["launches"].get(k, 0) for k in ("K1-fwd", "K1-bwd", "K9-fwd", "K9-bwd")):
+        raise AssertionError(f"a kernel launched for a sharded field ({name}): {report}")
+
+
 def par_tensor_parallel(device, mesh):
     """Phase 36: data 2 x model 2 at the flagship's widths.  The sharded
     field declines K1 (no launch) and solves on the plain path, its layers
-    as DTensor ops; held against the one-process plain solve in float64 on
-    the card (float32 and float64 runs: logits within FWD_RTOL, gradients
-    within BWD_RTOL)."""
+    as DTensor ops, directly and (config ``adjoint=True``) by the rk4
+    backsolve, whose parameter cotangents ride the augmented state whole on
+    every rank (``comm.whole`` over gloo); each held against the
+    one-process plain solve of the same kind in float64 on the card
+    (float32 and float64 runs: logits within FWD_RTOL, gradients within
+    BWD_RTOL).  Then the per-sample cases (``par_tp_per_sample``)."""
+    out = {}
+    for adjoint in (False, True):
+        out.update(_tp_flagship(device, mesh, adjoint))
+    out.update(par_tp_per_sample(device, mesh))
+    return out
+
+
+def _tp_flagship(device, mesh, adjoint):
+    """The flagship's tensor-parallel step, float32 and float64, against the
+    one-process float64 step.  With ``adjoint`` (the rk4 backsolve) float64
+    only: a float32 backsolve rebuilds z backwards with its float32 rounding
+    amplified (1e-5 of z after 99 steps in a CPU rehearsal at B 128), so a
+    ReLU that switches on one rank's path and not on another's moves a
+    lane's cotangent, by 2.5e-4 of the whole in that rehearsal, past
+    BWD_RTOL, whichever of two float32 runs is held against the other."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.models.neural_cde import bce_with_logits
+    from torchcde_tpu_torch.models.training import _average_over_data
     from torchcde_tpu_torch.parallel import place_params, shard_batch
+    from torchcde_tpu_torch.solvers import disable_fused_dispatch
 
+    config = dict(FLAGSHIP, adjoint=adjoint)
     x, y = spiral_data(PAR_TP_BATCH, LENGTH)
     coeffs = tt.hermite_cubic_coefficients_with_backward_differences(
         torch.from_numpy(x).to(device))
     labels = torch.from_numpy(y).to(device)
-    ref = make_model(device).double()
-    ref_logits, ref_grads = _plain_step_grads(ref, coeffs.double(), labels.double())
+    ref = make_model(device, config=config).double()
+    with disable_fused_dispatch():  # the plain path, the backsolve under adjoint=True
+        ref_logits, ref_grads = _plain_step_grads(ref, coeffs.double(), labels.double())
     rows = shard_batch(mesh, torch.arange(PAR_TP_BATCH, device=device))
     out = {}
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float64,) if adjoint else (torch.float32, torch.float64):
         def run():
-            model = make_model(device).to(dtype)
+            model = make_model(device, config=config).to(dtype)
             place_params(mesh, model)
             c, lab = shard_batch(mesh, (coeffs.to(dtype), labels.to(dtype)))
             logits = model(c)
             loss = bce_with_logits(logits[..., 0], lab)
             loss.backward()
-            from torchcde_tpu_torch.models.training import _average_over_data
-
             _average_over_data(model, loss.detach(), mesh)
             return logits.detach(), [_whole(p.grad) for p in model.parameters()]
 
@@ -4020,12 +4057,75 @@ def par_tensor_parallel(device, mesh):
         err, scale = _err(logits.double(), ref_logits[rows])
         report.update(logits_max_abs_err=err, logits_scale=scale,
                       grad_rel_frobenius=_rel_frobenius(grads, ref_grads))
-        if report["launches"].get("K1-fwd", 0) or report["launches"].get("K1-bwd", 0):
-            raise AssertionError(f"a kernel launched for a sharded field: {report}")
-        out[str(dtype).replace("torch.", "")] = report
+        name = ("backsolve_" if adjoint else "") + str(dtype).replace("torch.", "")
+        _tp_report(name, report)
+        out[name] = report
     if any(r["logits_max_abs_err"] > FWD_RTOL * max(r["logits_scale"], 1.0)
            or r["grad_rel_frobenius"] > BWD_RTOL for r in out.values()):
         raise AssertionError(f"tensor parallelism disagrees with the plain solve: {out}")
+    return out
+
+
+def par_tp_per_sample(device, mesh):
+    """Phase 36's per-sample cases: dopri5 with options={'per_sample': True}
+    on an MLP field whose weights are sharded over ``model`` (the flagship's
+    rules), at phase 39's widths on controls linear in time, in float64:
+    the values at length PS39_CUT, and the weights' gradients at
+    PS39_GRAD_LENGTH with adjoint=False and adjoint=True (the per-lane
+    backsolve).  Each is held against the one-process solve of every lane
+    with the weights plain and the fused routes off (``disable_fused_dispatch``)
+    at FWD_RTOL / BWD_RTOL; K9 declines the sharded field (no launch)."""
+    import torchcde_tpu_torch as tt
+    from torch.distributed.tensor import Shard
+    from torchcde_tpu_torch.parallel import comm, place_params, shard_batch
+    from torchcde_tpu_torch.solvers import disable_fused_dispatch
+
+    _, field, z0 = per_sample_problem(device, shape=(PAR_PS_BATCH, 2, PS_HIDDEN, 3, PS_WIDTH))
+    field, z0 = field.double(), z0.double()
+    proj = torch.randn(PAR_PS_BATCH, PS_HIDDEN, dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(6)).to(device)
+    rows = shard_batch(mesh, torch.arange(PAR_PS_BATCH, device=device))
+
+    def solve(f, X, z, adjoint, p):
+        out = tt.cdeint(X, f, z, X.interval, adjoint=adjoint, method="dopri5",
+                        options=dict(per_sample=True), **PS39_GRAD_TOL)
+        if p is None:
+            return out.detach()
+        loss = (out[..., -1, :] * p).sum()
+        return torch.autograd.grad(loss, [w for w in f.parameters()])
+
+    out = {}
+    for name, length, adjoint in (("per_sample_values", PS39_CUT, False),
+                                  ("per_sample_gradient_direct", PS39_GRAD_LENGTH, False),
+                                  ("per_sample_gradient_adjoint", PS39_GRAD_LENGTH, True)):
+        X = smooth_control(device, PAR_PS_BATCH, length)
+        values = name == "per_sample_values"
+        with disable_fused_dispatch(), torch.set_grad_enabled(not values):
+            ref = solve(field, X, z0, adjoint, None if values else proj)
+        tp_field = copy.deepcopy(field)
+        place_params(mesh, tp_field, [(n, Shard(d)) for n, d in TP_FIELD_RULES])
+        Xr = tt.CubicSpline(torch.cat([X._a, X._b, X._two_c, X._three_d], -1)[rows])
+
+        def run():
+            with torch.set_grad_enabled(not values):
+                got = solve(tp_field, Xr, z0[rows], adjoint, None if values else proj[rows])
+            if values:
+                return got
+            return [comm.psum(comm.whole(g), mesh, "data") for g in got]
+
+        got, report = par_phase(run)
+        if values:
+            err, scale = _err(got, ref[rows])
+            report.update(max_abs_err=err, scale=scale, lanes=int(got.shape[0]))
+            bad = not err <= FWD_RTOL * max(scale, 1.0)
+        else:
+            report["grad_rel_frobenius"] = _rel_frobenius(got, ref)
+            bad = not report["grad_rel_frobenius"] <= BWD_RTOL
+        _tp_report(name, report)
+        if bad:
+            raise AssertionError(f"a per-sample solve on the tensor-parallel field disagrees "
+                                 f"with one process ({name}): {report}")
+        out[name] = report
     return out
 
 
@@ -4208,8 +4308,8 @@ def par_kernel_launches(rank_report):
     phases = {"dp_flagship": rank_report["dp_flagship"]}
     for key in ("dp_config5_adjoint=False", "dp_config5_adjoint=True"):
         phases[key] = rank_report[key]
-    for dtype, r in rank_report["tensor_parallel"].items():
-        phases[f"tensor_parallel_{dtype}"] = r
+    for case, r in rank_report["tensor_parallel"].items():
+        phases[f"tensor_parallel_{case}"] = r
     for key, r in rank_report["sequence"].items():
         phases[f"sequence_{key}"] = r
     out = {}
@@ -4599,6 +4699,77 @@ def per_sample_lockstep_phase(device):
     return report
 
 
+# --------------------------------------------------------------------------
+# Phase 40: the flagship step with the fused kernels switched off
+# (solvers.force_fused_kernels(False)): the baseline "kernels off on the same
+# card" beside the kernel's step.
+# --------------------------------------------------------------------------
+
+KERNELS_OFF_TURNS = 5  # timed steps of each, in turns, after one warm-up each
+
+
+def kernels_off_phase(device, model, coeffs, labels):
+    """Phase 40: one flagship step (B 4096, rk4) with every fused route
+    declined by the public switch: no K1 launch, its logits within FWD_RTOL
+    and its gradients within BWD_RTOL of the kernel's step on the same
+    weights; then the median train-step ms of both (CUDA events, Adam), in
+    turns, the order reversed every other turn."""
+    from torchcde_tpu_torch.models import make_train_step
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+    from torchcde_tpu_torch.solvers import force_fused_kernels
+
+    on_logits, on_grads = _plain_step_grads(model, coeffs, labels)
+    k1.reset_launch_counts()
+    force_fused_kernels(False)
+    try:
+        off_logits, off_grads = _plain_step_grads(model, coeffs, labels)
+        off_launches = {"fwd": k1.FWD_LAUNCHES, "bwd": k1.BWD_LAUNCHES}
+    finally:
+        force_fused_kernels(None)
+    err, scale = _err(off_logits.double(), on_logits.double())
+    report = {"k1_launches_switched_off": off_launches, "logits_max_abs_err": err,
+              "logits_scale": scale,
+              "grad_rel_frobenius": _rel_frobenius(off_grads, [g.double() for g in on_grads])}
+    if off_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"K1 launched with the fused kernels switched off: {report}")
+    if not (err <= FWD_RTOL * max(scale, 1.0) and report["grad_rel_frobenius"] <= BWD_RTOL
+            and torch.isfinite(off_logits).all()):
+        raise AssertionError(f"the step without kernels disagrees with the kernel's: {report}")
+
+    steps = {}
+    for name in ("kernel", "off"):
+        m = copy.deepcopy(model)
+        steps[name] = make_train_step(m, torch.optim.Adam(m.parameters(), lr=1e-3, eps=1e-8))
+    samples = {"kernel": [], "off": []}
+
+    def timed(name):
+        force_fused_kernels(False if name == "off" else None)
+        try:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            steps[name](coeffs, labels)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            force_fused_kernels(None)
+        return start.elapsed_time(end)
+
+    k1.reset_launch_counts()
+    for name in ("kernel", "off"):
+        timed(name)  # warm-up
+    for turn in range(KERNELS_OFF_TURNS):
+        for name in (("kernel", "off") if turn % 2 == 0 else ("off", "kernel")):
+            samples[name].append(timed(name))
+    report.update(
+        step_ms={k: statistics.median(v) for k, v in samples.items()}, step_samples_ms=samples,
+        k1_launches_in_the_turns={"fwd": k1.FWD_LAUNCHES, "bwd": k1.BWD_LAUNCHES})
+    if report["k1_launches_in_the_turns"] != {"fwd": KERNELS_OFF_TURNS + 1,
+                                              "bwd": KERNELS_OFF_TURNS + 1}:
+        raise AssertionError(f"the turns did not launch K1 once a kernel step: {report}")
+    print("kernels off: " + json.dumps(report), flush=True)
+    return report
+
+
 def elapsed(phase):
     """Prints the seconds since the script started, before a phase."""
     print(f"chip_smoke: phase {phase} at {time.perf_counter() - START:.1f} s", flush=True)
@@ -4829,6 +5000,12 @@ def main():
     # 39. Per-sample solves outside K9: one lockstep solve over the lanes.
     lockstep = per_sample_lockstep_phase(device)
     print("timing: " + json.dumps({"card": smi, "per_sample_lockstep": lockstep}))
+
+    elapsed("40")
+    # 40. The flagship step with the fused kernels switched off, beside the
+    # kernel's step.
+    kernels_off = kernels_off_phase(device, model, coeffs, labels)
+    print("timing: " + json.dumps({"card": smi, "flagship_kernels_off": kernels_off}))
 
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)

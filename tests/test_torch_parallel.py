@@ -11,8 +11,9 @@ is imported lazily, in the parent only.
 
 Beyond the JAX file: an empty shard in the masked fit, ``DTensor`` operands
 of the dense solve, the collectives' transposes, the fused route per rank
-(taken on a data-parallel mesh, declined with a sharded field) and the error
-texts of ``make_mesh``, ``method=`` and the length's divisibility.
+(taken on a data-parallel mesh, declined with a sharded field), per-sample
+solves on a tensor-parallel field, and the error texts of ``make_mesh``,
+``method=`` and the length's divisibility.
 """
 
 import traceback
@@ -236,6 +237,90 @@ def _case_per_sample(inp, refs_in, mesh, key, single=False):
     return out
 
 
+# Per-sample solves on a tensor-parallel field (data 2 x model 2): the
+# custom field under TensorParallelField with the JAX test's rules, the
+# Neural CDE's MLP field placed by place_params, and the custom field under
+# a layout the port's rules do not know (lift's input columns and proj's
+# output rows split, lift's bias plain).
+PS_TP_RULES = {
+    "custom": (("lift.weight", 0), ("lift.bias", 0), ("proj.weight", 1)),
+    "other layout": (("lift.weight", 1), ("proj.weight", 0)),
+}
+PS_TP_FIELDS = ("custom", "mlp", "other layout")
+PS_TP_KW = dict(method="dopri5", rtol=1e-6, atol=1e-8, options=dict(per_sample=True))
+
+
+def _case_per_sample_tp(inp, refs_in, mesh, kind, adjoint):
+    """The per-sample dopri5 solve of every rank's lanes of ``ps_smooth_x``
+    on a tensor-parallel field: the loss and the weights' gradients summed
+    over ``data``, where each gradient lives (its type and placements beside
+    the weight's), and the solves the fused per-lane route (K9's, here its
+    plain version) took."""
+    import importlib
+
+    import torchcde_tpu_torch as tt
+    from torch.distributed.tensor import Shard
+    from torchcde_tpu_torch.interop import from_jax_params
+    from torchcde_tpu_torch.models import NeuralCDE, NeuralCDEConfig
+    from torchcde_tpu_torch.parallel import (TensorParallelField, comm, place_params,
+                                             shard_batch)
+
+    if kind == "mlp":
+        model = NeuralCDE(NeuralCDEConfig(**SMALL), device="cpu", dtype=torch.float64)
+        model.load_state_dict(from_jax_params(refs_in["params"]))
+        place_params(mesh, model)
+        module = field = model.func
+    else:
+        module = _CustomField()
+        with torch.no_grad():
+            module.lift.weight.copy_(torch.from_numpy(refs_in["lift_kernel"].T))
+            module.lift.bias.copy_(torch.from_numpy(refs_in["lift_bias"]))
+            module.proj.weight.copy_(torch.from_numpy(refs_in["proj_kernel"].T))
+        place_params(mesh, module, [(name, Shard(d)) for name, d in PS_TP_RULES[kind]])
+        field = TensorParallelField(module)
+    coeffs = tt.hermite_cubic_coefficients_with_backward_differences(
+        torch.from_numpy(inp["ps_smooth_x"]))
+    c, z0 = shard_batch(mesh, (coeffs, torch.from_numpy(inp["ps_z0"])))
+    cdeint = importlib.import_module("torchcde_tpu_torch.solvers.cdeint")
+    route, taken = cdeint.try_fused_dopri5_per_sample, []
+
+    def counted(*args, **kwargs):
+        out = route(*args, **kwargs)
+        taken.append(out is not None)
+        return out
+
+    cdeint.try_fused_dopri5_per_sample = counted
+    try:
+        X = tt.CubicSpline(c)
+        out = tt.cdeint(X, field, z0, X.interval, adjoint=adjoint, **PS_TP_KW)
+        loss = torch.sum(out[:, -1] ** 2)
+        loss.backward()
+    finally:
+        cdeint.try_fused_dopri5_per_sample = route
+    grads = {name: comm.psum(_full(p.grad), mesh, "data") for name, p in module.named_parameters()}
+    where = {name: (type(p).__name__, str(getattr(p, "placements", "plain")),
+                    type(p.grad).__name__, str(getattr(p.grad, "placements", "plain")))
+             for name, p in module.named_parameters()}
+    res = dict(loss=comm.psum(loss.detach(), mesh, "data"), grads=grads, where=where,
+               fused=sum(taken), routes=len(taken))
+    if kind == "mlp":
+        # The same solve of every lane on this rank alone, the field's weights
+        # plain, off the fused route.
+        from torchcde_tpu_torch.solvers import disable_fused_dispatch
+
+        plain = NeuralCDE(NeuralCDEConfig(**SMALL), device="cpu", dtype=torch.float64).func
+        plain.load_state_dict({k[len("func."):]: v for k, v in
+                               from_jax_params(refs_in["params"]).items() if k.startswith("func.")})
+        X = tt.CubicSpline(coeffs)
+        with disable_fused_dispatch():
+            out = tt.cdeint(X, plain, torch.from_numpy(inp["ps_z0"]), X.interval,
+                            adjoint=adjoint, **PS_TP_KW)
+        one = torch.sum(out[:, -1] ** 2)
+        one.backward()
+        res["single"] = (one.detach(), {name: p.grad for name, p in plain.named_parameters()})
+    return res
+
+
 DIVERGENCE = {"rk4": 0.5, "dopri5": None}  # solver: step size
 
 
@@ -330,6 +415,10 @@ def _rank_cases(rank, world, inp, refs_in):
     _guarded(res, "custom", _case_custom, inp, refs_in, tp)
     _guarded(res, "per_sample", _case_per_sample, inp, refs_in, dp, "ps_smooth_x")
     _guarded(res, "per_sample_rough", _case_per_sample, inp, refs_in, dp, "ps_rough_x", True)
+    for kind in PS_TP_FIELDS:
+        for adjoint in (False, True):
+            _guarded(res, f"ps_tp_{kind}_{adjoint}", _case_per_sample_tp, inp, refs_in, tp, kind,
+                     adjoint)
     _guarded(res, "coeffs", lambda: tt.natural_cubic_coeffs(
         shard_batch(dp, torch.from_numpy(inp["coeff_x"]))))
 
@@ -476,6 +565,8 @@ def jax_refs(inputs):
     refs["custom"] = to_np(jax.jit(jax.grad(closs))(cparams))
 
     # Per-sample dopri5.
+    from torchcde_tpu_torch.interop import from_jax_params
+
     w = jax.random.normal(jax.random.PRNGKey(7), (4, 12), dtype=jnp.float64) * 0.3
     refs_in["ps_w"] = np.asarray(w)
     pcoeffs = herm(inputs["ps_smooth_x"])
@@ -492,6 +583,42 @@ def jax_refs(inputs):
 
     lp, gp = jax.jit(jax.value_and_grad(ploss))(w)
     refs["per_sample"] = (float(lp), np.asarray(gp))
+
+    # Per-sample dopri5 of the tensor-parallel cases' fields on one device,
+    # in the port's weight names ((out, in) weights).
+    state = {k: v.numpy() for k, v in from_jax_params(refs_in["params"]).items()}
+    mlp = {name: state[f"func.{name}"] for name in ("linear1.weight", "linear1.bias",
+                                                     "linear2.weight", "linear2.bias")}
+    custom = {"lift.weight": refs_in["lift_kernel"].T, "lift.bias": refs_in["lift_bias"],
+              "proj.weight": refs_in["proj_kernel"].T}
+
+    def mlp_field(p):
+        def f(t, z):
+            h = jax.nn.relu(z @ p["linear1.weight"].T + p["linear1.bias"])
+            return jnp.tanh(h @ p["linear2.weight"].T + p["linear2.bias"]).reshape(
+                z.shape[:-1] + (4, 3))
+        return f
+
+    def custom_field(p):
+        def f(t, z):
+            h = jnp.tanh(z @ p["lift.weight"].T + p["lift.bias"])
+            return (h @ p["proj.weight"].T).reshape(z.shape[:-1] + (4, 3))
+        return f
+
+    refs["ps_tp"] = {}
+    for kind, make, weights in (("mlp", mlp_field, mlp), ("custom", custom_field, custom)):
+        for adjoint in (False, True):
+            def tp_loss(p, make=make, adjoint=adjoint):
+                X = tc.CubicSpline(pcoeffs)
+                out = tc.cdeint(X, make(p), jnp.asarray(inputs["ps_z0"]), X.interval,
+                                adjoint=adjoint, **PS_TP_KW)
+                return jnp.sum(out[:, -1] ** 2)
+
+            value, grad = jax.jit(jax.value_and_grad(tp_loss))(
+                {k: jnp.asarray(v) for k, v in weights.items()})
+            refs["ps_tp"][kind, adjoint] = (float(value), to_np(grad))
+    refs["ps_tp"]["other layout", False] = refs["ps_tp"]["custom", False]
+    refs["ps_tp"]["other layout", True] = refs["ps_tp"]["custom", True]
 
     refs["coeffs"] = np.asarray(tc.natural_cubic_coeffs(jnp.asarray(inputs["coeff_x"])))
     from torchcde_tpu.ops.tridiagonal import tridiagonal_solve_thomas
@@ -513,7 +640,6 @@ def jax_refs(inputs):
     from torchcde_tpu.parallel.mesh import batch_sharding
     from torchcde_tpu.parallel.mesh import make_mesh as jax_mesh
     from torchcde_tpu.parallel.mesh import shard_batch as jax_shard_batch
-    from torchcde_tpu_torch.interop import from_jax_params
 
     dp_mesh = jax_mesh(data=8, model=1)
     dcoeffs = jax_shard_batch(dp_mesh, herm(inputs["div_x"]))
@@ -664,6 +790,39 @@ def test_data_parallel_per_sample_solve_matches_single_device(ranks, jax_refs):
     for r in _case(ranks, "per_sample"):
         assert np.isclose(l_ref, float(r["loss"]), rtol=1e-9)
         np.testing.assert_allclose(r["grad"], g_ref, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("kind", PS_TP_FIELDS)
+def test_tensor_parallel_per_sample_solve_matches_single_device(ranks, jax_refs, kind, adjoint):
+    """Not in the JAX file, whose mesh GSPMD partitions.  A per-sample solve
+    of a tensor-parallel field computes on its weights whole (gathered once
+    per solve); its values and the weights' gradients, both adjoints, are
+    JAX's single-device per-sample solve's on paths linear in time, at the
+    data-parallel test's tolerance (the MLP's: see below).  The gradients
+    sit on the weights' DTensor shards, and the fused per-lane route
+    declines the field."""
+    l_ref, g_ref = jax_refs[0]["ps_tp"][kind, adjoint]
+    for r in _case(ranks, f"ps_tp_{kind}_{adjoint}"):
+        if kind == "mlp":
+            # The MLP's ReLU switches along these paths, where the error
+            # estimate magnifies rounding and two float64 meshes part (ROADMAP.md
+            # section 3): JAX's own per-sample loss here is 5273.664795819061
+            # directly and 5273.668944189296 with adjoint=True.  Held, as the
+            # rough-control test above, against the port's one-process solve
+            # of every lane with the weights plain.
+            l_ref, g_ref = r["single"]
+            rtol, atol = 1e-12, 1e-14
+        else:
+            rtol, atol = 1e-8, 1e-10
+        assert np.isclose(l_ref, float(r["loss"]), rtol=min(rtol, 1e-9))
+        for name, ref in g_ref.items():
+            np.testing.assert_allclose(r["grads"][name], ref, rtol=rtol, atol=atol, err_msg=name)
+        sharded = {name: w for name, w in r["where"].items() if w[0] == "DTensor"}
+        assert len(sharded) == (3 if kind != "other layout" else 2)
+        for name, (_, placements, grad_type, grad_placements) in sharded.items():
+            assert (grad_type, grad_placements) == ("DTensor", placements), name
+        assert r["fused"] == 0 and r["routes"] == 1
 
 
 def test_data_parallel_per_sample_solve_on_rough_controls(ranks):

@@ -24,6 +24,18 @@ def loss_fn(model, coeffs, labels):
     return bce_with_logits(logits.to(ldt), labels.to(ldt))
 
 
+def make_loss_fn(model):
+    """``loss_fn(coeffs, labels)``: the model's mean BCE-with-logits loss on
+    a batch (``loss_fn`` above).  The port of the JAX package's
+    ``make_loss_fn(cfg)``, whose loss takes the parameters first: here the
+    model holds them."""
+
+    def bound(coeffs, labels):
+        return loss_fn(model, coeffs, labels)
+
+    return bound
+
+
 def _average_over_data(model, loss, mesh):
     """All-reduces each gradient and the loss over the ``data`` dim and
     divides by its size.  A ``DTensor`` gradient (tensor parallelism) is

@@ -20,7 +20,7 @@ dims ``("data", "model")``:
   all-reduce) and the output leaves as a plain, replicated tensor.  The
   built-in ``MLPVectorField`` does this by itself; wrap a field of your own
   in ``TensorParallelField``.  The fused kernels decline such a field
-  (``solvers.terms.fusable_field``).  ``torch.optim.Adam`` over a model
+  (``solvers.fused_fixed.admits_fused``).  ``torch.optim.Adam`` over a model
   that holds both plain tensors and ``DTensor``s needs ``foreach=False``:
   its foreach route refuses the mix.
 """

@@ -90,6 +90,8 @@ class ClosureSlots:
     def __init__(self, func):
         self.tensors, self.stuck = [], set()
         self.where, self._seen = {}, set()  # id(tensor) -> [(get, put)]
+        self.base = []  # tensors every call reads (``gathered``)
+        self.dtensor_of = {}  # id(a gathered tensor) -> its DTensor
         self._visit(func, 0, None)
 
     def _add(self, tensor, slot):
@@ -175,11 +177,42 @@ class ClosureSlots:
             for key in list(table):
                 self._visit(table[key], depth + 1, self._item(table, key))
 
-    def call(self, fn, tensors, values):
-        """fn() with each of ``tensors`` read as the matching ``values``."""
+    def gathered(self):
+        """These slots with each ``DTensor`` among the tensors replaced by its
+        value whole on every rank (``parallel.comm.whole``, differentiable:
+        its backward hands each rank its part of the cotangent), which every
+        ``call`` reads where the ``DTensor`` is held: the field then computes
+        on plain tensors, as ``torch.func.vmap`` needs.  Without a
+        ``DTensor``, these slots themselves."""
+        dtensor = _dtensor_type()
+        if not any(isinstance(p, dtensor) for p in self.tensors):
+            return self
+        from ..parallel.comm import whole
+
+        out = copy.copy(self)
+        out.tensors, out.where, out.dtensor_of = [], dict(self.where), dict(self.dtensor_of)
+        for p in self.tensors:
+            if isinstance(p, dtensor):
+                if id(p) in self.stuck:
+                    raise ValueError(
+                        "a tensor-parallel vector field holds a DTensor of shape "
+                        f"{tuple(p.shape)} where it cannot be read whole (through no "
+                        "closure cell, global, parameter, buffer, attribute, partial "
+                        "argument, or dict, list or tuple item that can be replaced)."
+                    )
+                w = whole(p)
+                out.where[id(w)], out.dtensor_of[id(w)] = self.where[id(p)], p
+                out.base = out.base + [w]
+                p = w
+            out.tensors.append(p)
+        return out
+
+    def call(self, fn, tensors=(), values=()):
+        """fn() with each of ``tensors`` read as the matching ``values`` (and
+        the gathered tensors read whole where their ``DTensor``s are held)."""
         saved = []
         try:
-            for tensor, value in zip(tensors, values):
+            for tensor, value in list(zip(self.base, self.base)) + list(zip(tensors, values)):
                 for get, put in self.where[id(tensor)]:
                     saved.append((put, get()))
                     put(value)

@@ -41,10 +41,11 @@ from ..interpolation.cubic import CubicSpline
 from ..interpolation.linear import LinearInterpolation
 from ..utils.misc import host_array
 from . import fused_dopri_kernel as k2
+from .fused_fixed import admits_fused
 from .fused_fixed_kernel import pack_operands
 from .integrate import select_initial_step
 from .runge_kutta import DOPRI5
-from .terms import fusable_field, make_cde_rhs
+from .terms import make_cde_rhs
 
 
 def _chunk_plan(grid, ts_np, max_intervals):
@@ -84,7 +85,7 @@ def try_fused_dopri5(X, func, z0, ts, cfg):
     ``LinearInterpolation`` with a uniform host knot grid, a tensor state,
     no step_size (the caller checks), output times that do not require grad,
     and the shapes and dtype ``pack_operands`` admits."""
-    if not fusable_field(func) or not isinstance(z0, torch.Tensor):
+    if not admits_fused(func) or not isinstance(z0, torch.Tensor):
         return None
     if isinstance(X, CubicSpline):
         rows, linear = (X._b, X._two_c, X._three_d), False

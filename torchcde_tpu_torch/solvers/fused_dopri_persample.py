@@ -50,9 +50,10 @@ from ..interpolation.cubic import CubicSpline
 from ..interpolation.linear import LinearInterpolation
 from ..utils.misc import host_array
 from . import fused_dopri_persample_kernel as k9
+from .fused_fixed import admits_fused
 from .fused_fixed_kernel import pack_operands
 from .runge_kutta import DOPRI5
-from .terms import _matvec, fusable_field, make_cde_rhs
+from .terms import _matvec, make_cde_rhs
 
 
 def _rms(x):
@@ -157,7 +158,7 @@ def try_fused_dopri5_per_sample(X, func, z0, ts, *, rtol, atol, max_steps, t_row
     vector, or, when ``t_rows`` is given, ``t_rows`` is the (B, n_times)
     matrix of each lane's times and ``ts`` is ignored.  Returns the
     time-leading (n_times, B, H) solution."""
-    if not fusable_field(func) or not isinstance(z0, torch.Tensor):
+    if not admits_fused(func) or not isinstance(z0, torch.Tensor):
         return None
     if isinstance(X, CubicSpline):
         rows, linear = (X._b, X._two_c, X._three_d), False

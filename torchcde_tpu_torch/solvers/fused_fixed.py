@@ -7,7 +7,14 @@ per-interval coefficient rows directly, with no searchsorted and no gathers.
 Uniform grids with the canonical ``MLPVectorField`` go further and run the
 whole solve in one kernel (``fused_fixed_kernel.py``).  Returns None when the
 preconditions do not hold; ``cdeint`` then takes the general integrator.
+
+This module also holds the switch of every fused solve route (K1, K2 in both
+modes, K8 and K9): ``force_fused_kernels`` and ``disable_fused_dispatch``,
+the port of ``torchcde_tpu/solvers/fused_pallas.py``'s ``force_fused_pallas``
+and ``disable_fused_dispatch``, read by each route through ``admits_fused``.
 """
+
+import threading
 
 import numpy as np
 import torch
@@ -16,9 +23,62 @@ from ..interpolation.cubic import CubicSpline
 from ..utils.misc import host_array, numpy_dtype
 from .fused_fixed_kernel import try_fused_mlp
 from .runge_kutta import TABLEAUS, rk_step
-from .terms import fusable_field
+from .terms import MLPVectorField, holds_dtensor
 
 _MAX_SUBSTEPS = 256
+
+# None or True: the fused routes take every solve they admit.  False: never.
+_FORCE = None
+# The depth of the disable_fused_dispatch contexts active in each thread.
+_TLS = threading.local()
+
+
+class disable_fused_dispatch:
+    """Context manager: while it is active, this thread's solves take no
+    fused route (K1, K2, K8, K9): each solves on the general path, the
+    backsolve under ``adjoint=True``.  Nestable; other threads are not
+    affected.  The port of ``fused_pallas.py::disable_fused_dispatch``."""
+
+    def __enter__(self):
+        self._prev = getattr(_TLS, "disable", 0)
+        _TLS.disable = self._prev + 1
+        return self
+
+    def __exit__(self, *exc):
+        _TLS.disable = self._prev
+        return False
+
+
+def force_fused_kernels(mode):
+    """The switch of the fused solve routes, the port of
+    ``fused_pallas.py::force_fused_pallas``.
+
+    ``None`` (the default): each route takes the solves it admits, which
+    launch its kernel on a CUDA device and run its plain version on the
+    CPU.  ``True``: the same; it differs from None in nothing, because the
+    routes decline nothing for being off the card (JAX's auto mode declines
+    off the TPU).  ``False``: every route declines, in every thread, and the
+    solve takes the general path (``runge_kutta`` / ``integrate``, the
+    streamed knot walk for a knot-aligned fixed-step solve, and the backsolve
+    under ``adjoint=True``).  The switch covers the fused solve kernels
+    only; the fit's kernels (K3-K7) follow ``ops.dispatch.runs_kernel``."""
+    global _FORCE
+    if mode not in (None, True, False):
+        raise ValueError(f"force_fused_kernels takes None, True or False, not {mode!r}")
+    _FORCE = mode
+
+
+def admits_fused(func):
+    """The gate of every fused route (K1, K2, K8, K9): the switch is not
+    False, no ``disable_fused_dispatch`` is active in this thread, and the
+    field is an ``MLPVectorField`` whose weights are plain tensors.  A
+    tensor-parallel field is declined and solved on the plain path, where its
+    layers run as ``DTensor`` ops, as the JAX package declines its kernels on
+    a mesh with a model axis (``fused_pallas.py:530-545``).  A data-parallel
+    rank's field holds plain tensors, so each rank launches its own kernel on
+    its shard."""
+    return (_FORCE is not False and not getattr(_TLS, "disable", 0)
+            and isinstance(func, MLPVectorField) and not holds_dtensor(func))
 
 
 def _knot_indices(grid, ts):
@@ -86,7 +146,7 @@ def try_fused_fixed(X, func, z0, ts, method, step_size, kernel_only=False):
         return None
     rows, grid, out_idx, j0, jN, m, step_size_val, uniform = plan
 
-    if uniform and fusable_field(func):
+    if uniform and admits_fused(func):
         sliced = tuple(r[..., j0:jN, :] for r in rows[1:])
         out = try_fused_mlp(
             sliced, z0, func, method, m, step_size_val, jN - j0,

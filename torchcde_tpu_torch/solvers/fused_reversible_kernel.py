@@ -42,9 +42,8 @@ import torch
 
 from .. import _build
 from ..ops.dispatch import check_operands, stream_of
-from .fused_fixed import plan_fixed_grid
+from .fused_fixed import admits_fused, plan_fixed_grid
 from .fused_fixed_kernel import MAX_SUBSTEPS, _shapes, pack_operands
-from .terms import fusable_field
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -270,7 +269,7 @@ def try_fused_reversible_heun(X, func, z0, ts, step_size):
     knot-aligned plan (``plan_fixed_grid``) over uniform knots, at most
     ``MAX_SUBSTEPS`` steps per interval and operands inside the caps.
     Returns the time-leading solution at ``ts``, or None."""
-    if not fusable_field(func) or not isinstance(z0, torch.Tensor):
+    if not admits_fused(func) or not isinstance(z0, torch.Tensor):
         return None
     plan = plan_fixed_grid(X, ts, step_size)
     if plan is None or not plan[-1]:  # uniform spacing required

@@ -13,7 +13,9 @@ integrating, at that lane's own t and dt, with the steppers of
 rejected lane keeps its state, both by ``torch.where``.  The right-hand side
 is the one-lane ``make_cde_rhs`` vmapped over the lanes
 (``torch.func.vmap``): the field is called unbatched for each lane, as the
-JAX package's contract says, and a field that vmap cannot take raises.  The
+JAX package's contract says, and a field that vmap cannot take raises.  A
+tensor-parallel field computes on its weights gathered whole once a solve
+(``plain_field``).  The
 host reads from the device once per iteration, to learn whether any lane is
 still integrating (and how many output times the step passed).
 
@@ -179,27 +181,40 @@ class _Lanes:
         return self.lane({**self.shared, **{n: v[0] for n, v in self.rows.items()}})
 
 
-def _no_dtensor(slots):
+def plain_field(func):
+    """(the field to vmap, its ``ClosureSlots``) for a per-sample solve.
+
+    vmap takes no ``DTensor`` operation, so a tensor-parallel field
+    (``parallel.place_params``) computes on its weights whole: each
+    ``DTensor`` it holds is gathered once, here, outside vmap
+    (``ClosureSlots.gathered``), and every call of the field reads the whole
+    tensor in its place.  A ``parallel.TensorParallelField`` is unwrapped to
+    the field it wraps, which then runs on plain tensors.  The weights'
+    gradients reach their ``DTensor`` shards through the gather's backward."""
+    slots = ClosureSlots(func)
     if any(isinstance(p, _dtensor_type()) for p in slots.tensors):
-        raise ValueError(
-            "options={'per_sample': True} vmaps the vector field over the lanes, "
-            "which does not take a tensor-parallel field (DTensor weights); solve "
-            "it without per_sample, or with the field's weights as plain tensors."
-        )
+        from ..parallel.mesh import TensorParallelField
+
+        if isinstance(func, TensorParallelField):
+            func = func.field
+        slots = slots.gathered()
+    return func, slots
 
 
 class LaneField:
     """rhs(t, z) of every lane: the one-lane CDE right-hand side vmapped over
     t (B,) or (B, 1), z (B, D) and the control's rows.  ``slots``: the
-    field's ``ClosureSlots``, if the caller has them."""
+    field's ``ClosureSlots`` (``plain_field``), if the caller has them."""
 
     def __init__(self, func, lanes, slots=None):
-        _no_dtensor(slots or ClosureSlots(func))
+        if slots is None:
+            func, slots = plain_field(func)
         names = lanes.names()
         self._values = [lanes.value(n) for n in names]
 
         def one(t, z, *values):
-            return make_cde_rhs(func, lanes.lane(dict(zip(names, values))))(t, z)
+            X = lanes.lane(dict(zip(names, values)))
+            return slots.call(lambda: make_cde_rhs(func, X)(t, z))
 
         self._vmapped = torch.func.vmap(
             one, in_dims=(0, 0) + tuple(lanes.in_dim(n) for n in names))
@@ -579,7 +594,7 @@ def _hoisted(func, X, t0, z0, slots):
     through the control's tensors, or one held where a lane cannot read its
     own copy, cannot be passed per lane, and raises."""
     with torch.enable_grad():
-        f = make_cde_rhs(func, X)(t0.detach(), z0.detach())
+        f = slots.call(lambda: make_cde_rhs(func, X)(t0.detach(), z0.detach()))
     if f.grad_fn is None:
         return []
     candidates = [v for v in vars(X).values() if isinstance(v, torch.Tensor)] + slots.tensors
@@ -611,7 +626,7 @@ class _AdjointField:
     constants (JAX ``cdeint.py:728-743``)."""
 
     def __init__(self, func, lanes, z0, t0, adjoint_params):
-        slots = ClosureSlots(func)
+        func, slots = plain_field(func)
         self.forward = LaneField(func, lanes, slots)
         names = lanes.names()
         closed = _hoisted(func, lanes.first(), t0, z0[0], slots)
@@ -619,7 +634,7 @@ class _AdjointField:
         # tensor given to autograd: the lanes' rows or a shared tensor, in_dim)
         entries = [(n, getattr(lanes.X, n) if isinstance(getattr(lanes.X, n), torch.Tensor)
                     else lanes.value(n), lanes.value(n), lanes.in_dim(n)) for n in names]
-        entries += [(None, p, p, None) for p in closed]
+        entries += [(None, slots.dtensor_of.get(id(p), p), p, None) for p in closed]
         if adjoint_params is not None:
             wanted = {id(p) for p in adjoint_params}
             chosen = [e for e in entries if id(e[1]) in wanted]
@@ -651,8 +666,14 @@ class _AdjointField:
             out, pull = torch.func.vjp(f, z, *values[len(fixed):])
             return (out,) + pull(a)
 
-        self._values = ([lanes.value(n) for n in fixed] + [e[2] for e in ctrl]
-                        + [e[2] for e in held])
+        # A gathered tensor (``plain_field``) enters the vjps as a leaf copy:
+        # read itself there, the tensor that the gather's autograd function
+        # made rounds some of the lanes' products otherwise than the
+        # single-device field's weights do (measured on the CPU in float64).
+        # Its gradient reaches it through ``_LockstepAdjoint``'s inputs.
+        gathered = [e[2].detach().requires_grad_() if id(e[2]) in slots.dtensor_of else e[2]
+                    for e in held]
+        self._values = ([lanes.value(n) for n in fixed] + [e[2] for e in ctrl] + gathered)
         in_dims = ([lanes.in_dim(n) for n in fixed] + [e[3] for e in ctrl]
                    + [None] * len(held))
         self._vjp = torch.func.vmap(one, in_dims=(0, 0, 0) + tuple(in_dims))

@@ -29,16 +29,6 @@ def holds_dtensor(module):
                for p in itertools.chain(module.parameters(), module.buffers()))
 
 
-def fusable_field(func):
-    """The fused routes' rule for the field (K1, K2, K8, K9): an
-    ``MLPVectorField`` whose weights are plain tensors.  A tensor-parallel
-    field is declined and solved on the plain path, where its layers run as
-    ``DTensor`` ops, as the JAX package declines its kernels on a mesh with a
-    model axis (``fused_pallas.py:530-545``).  A data-parallel rank's field
-    holds plain tensors, so each rank launches its own kernel on its shard."""
-    return isinstance(func, MLPVectorField) and not holds_dtensor(func)
-
-
 class MLPVectorField(nn.Module):
     """The canonical Neural CDE vector field: Linear -> ReLU -> Linear -> tanh,
     reshaped to (..., hidden, input).
