@@ -11,9 +11,10 @@ Phases, each of which raises on failure:
    (K2's and K9's forwards and backwards), and the team launches' plans
    (teams per block, lanes per team, shared memory) at the default
    configuration, at config 4 (B 256 and B 4096) and at the per-sample
-   slice, and K8's backward plan at config 5 (blocks, warps per block,
-   blocks an SM holds by the occupancy API, SMs, waves) with its ptxas
-   lines and its forward's, K1's forward and backward plans at the flagship
+   slice, and K8's forward and backward plans at config 5 at hidden 8, 16
+   and 32 (the weights' path, blocks, warps, threads per lane, blocks an SM
+   holds by the occupancy API, SMs, waves) with its kernels' ptxas lines by
+   instance, K1's forward and backward plans at the flagship
    in both modes with their kernels' ptxas lines, and K6/K7's and K4's
    plans at config 3 with their kernels' ptxas lines;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
@@ -85,20 +86,23 @@ Phases, each of which raises on failure:
    version run in float64 (forward y and ŷ within FWD_RTOL of the largest
    magnitude; backward after the lane screen, relative Frobenius error
    within BWD_RTOL in each gradient; each forward and backward also against
-   a second launch, bit for bit), at config 5's operands in both variants
-   and at odd cases (m 1, 2 and 8, shapes at the caps, batches that are not
-   a multiple of the backward's 128-lane blocks, the top of the specialised
-   range at W 512, a batch whose lane groups outnumber the resident blocks,
-   so that blocks stride, cotangents on all, the terminal or some interior
-   knots);
+   a second launch, bit for bit), at config 5's operands at hidden 8, 16
+   and 32 and at odd cases (m 1, 2 and 8, shapes at the caps, H 7, 16 and
+   100 with C 2 and 5, batches that are not a multiple of the backward's
+   128-lane blocks, W 200, 500 and 512, weights streamed through shared
+   memory, a batch whose lane groups outnumber the resident blocks, so that
+   blocks stride, cotangents on all, the terminal or some interior knots),
+   each asserted to launch one forward and one backward kernel;
 19. config-5 slice: BASELINE config 5 (16384 spirals of length 100, Hermite
    coefficients, reversible Heun at step 1.0), with direct backpropagation
    and with the adjoint: the logits against the plain version, then five
    Adam steps and one accuracy call each with every plain version patched
-   to raise, K8 launches asserted (6 forward, 5 backward per mode);
-20. timing of K8 (both variants) against its plain version and of the
-   config-5 train step of each mode against the same step with the plain
-   version; 21. a torch.profiler reading of each mode's train step;
+   to raise, K8 launches asserted (6 forward, 5 backward per mode); and
+   the same slice at hidden 16;
+20. timing of K8 at config 5's operands at hidden 8, 16 and 32 against its
+   plain version and of the config-5 train step of each mode at each hidden
+   size against the same step with the plain version; 21. a torch.profiler
+   reading of each mode's train step;
 22. K9 forward and backward: the per-sample adaptive kernels against their
    plain version per realised per-lane mesh (forward against the float64
    replay, accuracy against a tight float64 solve, backward after the lane
@@ -393,11 +397,10 @@ def phase_build():
             ("per-sample slice", (PS_BATCH, PS_HIDDEN, CHANNELS, PS_WIDTH), False)):
         print(f"  team forward at {label} (B H C W {shape}): "
               f"{team_forward_plan(*shape, cooperative)}")
-    print(f"  K8 backward at config 5: {k8_backward_plan_line()}")
-    for name, lines in k8_backward_ptxas(log).items():
-        print(f"  K8 backward kernel {name}: {'; '.join(lines)}")
-    for name, lines in ptxas_lines(log, k8_forward_label).items():
-        print(f"  K8 forward kernel {name}: {'; '.join(lines)}")
+    for hidden in K8_HIDDEN:
+        print(f"  K8 at config 5, hidden {hidden}: {k8_plan_line(hidden)}")
+    for name, lines in ptxas_lines(log, k8_label).items():
+        print(f"  K8 kernel {name}: {'; '.join(lines)}")
     for mode in (0, 1):
         print(f"  K1 forward at the flagship, mode {mode}: {k1_plan_line(mode, 'forward')}")
         print(f"  K1 backward at the flagship, mode {mode}: {k1_plan_line(mode, 'backward')}")
@@ -476,24 +479,39 @@ def k5_label(name):
     return kernel.group(0) if kernel else None
 
 
-def k8_forward_label(name):
-    """K8's tensor-core forward's name in ptxas's log, or None."""
-    return "rev_fwd_tc_kernel" if "rev_fwd_tc_kernel" in name else None
+def k8_label(name):
+    """K8's kernel instances' names in ptxas's log (rev_fwd_kernel<C, tiles>,
+    rev_fwd_split_kernel<C, tiles a warp>, rev_bwd_kernel<C, components a
+    thread, group, register units>), or None."""
+    fwd = re.search(r"(rev_fwd_(?:split_)?kernel)ILi(\d)ELi(\d)E", name)
+    if fwd:
+        return f"{fwd.group(1)}<{fwd.group(2)}, {fwd.group(3)}>"
+    bwd = re.search(r"rev_bwd_kernelILi(\d)ELi(\d+)ELb(\d)ELi(\d)E", name)
+    if bwd:
+        return (f"rev_bwd_kernel<{bwd.group(1)}, {bwd.group(2)}, {bool(int(bwd.group(3)))}, "
+                f"{bwd.group(4)}>")
+    return None
 
 
-def k8_backward_plan_line():
-    """K8's specialised backward launch at config 5, from the occupancy API
-    of the kernel it launches, as one line of text."""
+def k8_plan_line(hidden):
+    """K8's forward and backward launches at config 5 at this hidden size,
+    from the plans and the occupancy API of the kernels they launch, as one
+    line of text."""
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
-    p = k8.backward_plan(CONFIG5_BATCH, HIDDEN, CHANNELS, WIDTH, k8._Plan(1, 1.0),
-                         torch.device("cuda", 0))
-    waves = math.ceil(p["lane_groups"] / (p["resident_per_sm"] * p["sms"]))
-    return (f"B {CONFIG5_BATCH} H {HIDDEN} C {CHANNELS} W {WIDTH}: {p['blocks']} blocks of "
-            f"{p['threads'] // 32} warps ({p['lanes_per_block']} lanes), "
-            f"{p['resident_per_sm']} resident per SM x {p['sms']} SMs, "
-            f"{p['lane_groups']} lane groups, {waves} wave(s), {p['shared_bytes']} shared bytes "
-            f"a block")
+    f = k8.forward_plan(CONFIG5_BATCH, hidden, CHANNELS, WIDTH)
+    b = k8.backward_plan(CONFIG5_BATCH, hidden, CHANNELS, WIDTH, torch.device("cuda", 0))
+    waves = math.ceil(b["lane_groups"] / (b["resident_per_sm"] * b["sms"]))
+    path = ("resident", "streamed")
+    return (f"B {CONFIG5_BATCH} H {hidden} C {CHANNELS} W {WIDTH}: forward {f['blocks']} blocks "
+            f"of {f['threads'] // 32} warps ({f['lanes_per_block']} lanes, "
+            f"{f['warps_per_lane_group']} warp(s) a 16-lane group, H padded to "
+            f"{f['padded_hidden']}), weights {path[f['streamed']]}, {f['shared_bytes']} shared "
+            f"bytes a block; backward {b['blocks']} blocks of {b['threads'] // 32} warps "
+            f"({b['lanes_per_block']} lanes, {b['threads'] // b['lanes_per_block']} thread(s) "
+            f"a lane), weights {path[b['variant']]}, {b['resident_per_sm']} resident per SM x "
+            f"{b['sms']} SMs, {b['lane_groups']} lane groups, {waves} wave(s), "
+            f"{b['shared_bytes']} shared bytes a block")
 
 
 def ptxas_lines(log, label):
@@ -508,15 +526,6 @@ def ptxas_lines(log, label):
         elif entry and ("registers" in line or "spill" in line):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
-
-
-def k8_backward_ptxas(log):
-    """{rev_bwd_tiles_kernel<chunks>: ptxas's lines}."""
-    def label(name):
-        kernel = re.search(r"rev_bwd_tiles_kernelILi(\d)E", name)
-        return f"rev_bwd_tiles_kernel<{kernel.group(1)}>" if kernel else None
-
-    return ptxas_lines(log, label)
 
 
 def team_kernels_ptxas(log):
@@ -1906,6 +1915,7 @@ def time_log_ode(device, coeffs, labels, x):
 # --------------------------------------------------------------------------
 
 K8_SOURCE = "torchcde_tpu_torch/csrc/fused_reversible.cu"
+K8_BWD_SOURCE = "torchcde_tpu_torch/csrc/fused_reversible_bwd.cu"
 # BASELINE config 5 (benchmarks/run_benchmarks.py:500-578, bench_rev_heun):
 # the spiral data at batch 16384, Hermite coefficients, reversible Heun at
 # step 1.0, hidden 8, width 128, with direct backpropagation and with the
@@ -1932,7 +1942,10 @@ K8_CASES = [
     (400, 10, 8, 3, 200, 1, "all"),
     (40000, 6, 8, 3, 128, 1, "terminal"),
 ]
-K8_KINDS = {"k8_fwd": r"\brev_fwd_tc_kernel\b", "k8_bwd": r"\brev_bwd_tiles_kernel\b"}
+K8_KINDS = {"k8_fwd": r"\brev_fwd_(?:split_)?kernel\b", "k8_bwd": r"\brev_bwd_kernel\b"}
+# Config 5 at its hidden size and at 16 and 32: every other width as BASELINE
+# config 5 has it.
+K8_HIDDEN = (HIDDEN, 16, 32)
 
 
 def _k8_gradients(operands, y, yhat, gy, plan):
@@ -1957,7 +1970,14 @@ def check_k8(label, operands, plan, which):
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
     H, (n, _, C, B), W = operands[1].shape[0], operands[0].shape, operands[2].shape[0]
-    label = f"{label} [{k8.kernel_variant(H, C, W, plan)}]"
+    fwd_plan = k8.forward_plan(B, H, C, W)
+    bwd_plan = k8.backward_plan(B, H, C, W, operands[0].device)
+    path = ("resident", "streamed")
+    label = (f"{label} [forward: weights {path[fwd_plan['streamed']]}, "
+             f"{fwd_plan['warps_per_lane_group']} warp(s) a lane group; backward: weights "
+             f"{path[bwd_plan['variant']]}, {bwd_plan['threads'] // bwd_plan['lanes_per_block']} "
+             f"thread(s) a lane]")
+    k8.reset_launch_counts()
     y, yhat = k8.launch_forward(*operands, plan)
     with torch.no_grad():
         refs = [torch.cat(k8.fused_reversible_solve_reference(
@@ -1988,26 +2008,33 @@ def check_k8(label, operands, plan, which):
 
     first = backward()
     failures += bit_identical("K8", label, first, backward)
+    # Every call launched its kernel, no fallback: two forwards, and four
+    # backwards (two in the screen, the first and the second of the pair).
+    if (k8.FWD_LAUNCHES, k8.BWD_LAUNCHES) != (2, 4):
+        failures.append(f"K8 launches ({label}): {(k8.FWD_LAUNCHES, k8.BWD_LAUNCHES)}")
     return fwd_err, bwd_err, failures + bwd_failures
 
 
-def config5_problem(device, adjoint):
-    """Config 5's model, Hermite coefficients of its spiral data, and labels."""
-    return default_model(device, CONFIG5_BATCH, config=dict(CONFIG5, adjoint=adjoint))
+def config5_problem(device, adjoint, hidden=HIDDEN):
+    """Config 5's model (at this hidden size), Hermite coefficients of its
+    spiral data, and labels."""
+    return default_model(device, CONFIG5_BATCH,
+                         config=dict(CONFIG5, adjoint=adjoint, hidden_channels=hidden))
 
 
 def check_k8_cases(device):
-    """Phase 18: K8 against its plain version at config 5's operands, in both
-    variants, and at the odd cases."""
+    """Phase 18: K8 against its plain version at config 5's operands at each
+    of K8_HIDDEN, and at the odd cases."""
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
-    model, coeffs, _ = config5_problem(device, adjoint=True)
-    with torch.no_grad():
-        p = packed_operands(model, coeffs)
-    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-    errors = [check_k8(f"config 5 B{CONFIG5_BATCH} H{HIDDEN} C{CHANNELS} W{WIDTH} m1 terminal",
-                       ops, k8._Plan(1, 1.0, generic), "terminal")
-              for generic in (False, True)]
+    errors = []
+    for hidden in K8_HIDDEN:
+        model, coeffs, _ = config5_problem(device, adjoint=True, hidden=hidden)
+        with torch.no_grad():
+            p = packed_operands(model, coeffs)
+        errors.append(check_k8(f"config 5 B{CONFIG5_BATCH} H{hidden} C{CHANNELS} W{WIDTH} m1 "
+                               f"terminal", (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2),
+                               k8._Plan(1, 1.0), "terminal"))
     for seed, (B, n, H, C, W, m, which) in enumerate(K8_CASES, start=1):
         errors.append(check_k8(f"odd B{B} n{n} H{H} C{C} W{W} m{m} {which}",
                                random_operands(B, n, H, C, W, seed, device),
@@ -2027,17 +2054,17 @@ def plain_k8():
     return mock.patch.object(k8, "fused_reversible_solve", lambda *a: reference(*a)[0])
 
 
-def config5_slice(device):
-    """Phase 19: config 5 through the public entry points, with direct
-    backpropagation and with the adjoint: the logits against the plain
-    version, five Adam steps and one accuracy call with every plain version
-    patched to raise, K8's launches counted."""
+def config5_slice(device, hidden=HIDDEN):
+    """Phase 19: config 5 (at this hidden size) through the public entry
+    points, with direct backpropagation and with the adjoint: the logits
+    against the plain version, five Adam steps and one accuracy call with
+    every plain version patched to raise, K8's launches counted."""
     from torchcde_tpu_torch.models import accuracy, make_train_step
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
     results = {}
     for adjoint in (False, True):
-        model, coeffs, labels = config5_problem(device, adjoint)
+        model, coeffs, labels = config5_problem(device, adjoint, hidden)
         with torch.no_grad():
             with plain_k8():
                 plain_logits = model(coeffs)
@@ -2050,7 +2077,7 @@ def config5_slice(device):
             acc = float(accuracy(model, coeffs, labels))
             torch.cuda.synchronize()
             counts = {"fwd": k8.FWD_LAUNCHES, "bwd": k8.BWD_LAUNCHES}
-        label = f"config 5 B{CONFIG5_BATCH} adjoint={adjoint}"
+        label = f"config 5 B{CONFIG5_BATCH} H{hidden} adjoint={adjoint}"
         print(f"{label}: logits vs plain version max_abs_err {err:.3e} (largest |value| "
               f"{scale:.3e}); 5 Adam steps, losses {losses}, accuracy {acc:.4f}, K8 launches "
               f"{counts}", flush=True)
@@ -2070,42 +2097,51 @@ def config5_slice(device):
 
 
 def time_k8(device):
-    """Phase 20: K8 at config 5's operands (both variants) against its plain
-    version (float32, on the card), and the config-5 train step of each
-    adjoint mode against the same step with the plain version."""
+    """Phase 20: K8 at config 5's operands at each of K8_HIDDEN against its
+    plain version (float32, on the card), and the config-5 train step of
+    each adjoint mode against the same step with the plain version."""
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
-    model, coeffs, labels = config5_problem(device, adjoint=True)
-    with torch.no_grad():
-        p = packed_operands(model, coeffs)
-    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-    timing = {"k8_bwd_plan": k8_backward_plan_line()}
-    for name, generic in (("", False), ("_generic", True)):
-        plan = k8._Plan(1, 1.0, generic)
+    timing = {}
+    for hidden in K8_HIDDEN:
+        key = "k8" if hidden == HIDDEN else f"k8_H{hidden}"
+        model, coeffs, labels = config5_problem(device, adjoint=True, hidden=hidden)
+        with torch.no_grad():
+            p = packed_operands(model, coeffs)
+        ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+        plan = k8._Plan(1, 1.0)
+        timing[f"{key}_plan"] = k8_plan_line(hidden)
         y, yhat = k8.launch_forward(*ops, plan)
         gy = torch.ones_like(y)
-        timing[f"k8_fwd{name}_ms"] = _event_ms(lambda: k8.launch_forward(*ops, plan), 10)
-        timing[f"k8_bwd{name}_ms"] = _event_ms(
+        timing[f"{key}_fwd_ms"] = _event_ms(lambda: k8.launch_forward(*ops, plan), 10)
+        timing[f"{key}_bwd_ms"] = _event_ms(
             lambda: k8.launch_backward(p.ct, y, yhat, gy, *ops[2:], plan), 5)
-    with torch.no_grad():
-        timing["k8_fwd_plain_ms"] = _event_ms(
-            lambda: k8.fused_reversible_solve_reference(*ops, 1, 1.0), 3)
-    leaves = [t.detach().clone().requires_grad_() for t in ops]
-    ref, _ = k8.fused_reversible_solve_reference(*leaves, 1, 1.0)
-    timing["k8_bwd_plain_ms"] = _event_ms(
-        lambda: torch.autograd.grad(ref, leaves, gy, retain_graph=True), 3)
+        with torch.no_grad():
+            timing[f"{key}_fwd_plain_ms"] = _event_ms(
+                lambda: k8.fused_reversible_solve_reference(*ops, 1, 1.0), 3)
+        leaves = [t.detach().clone().requires_grad_() for t in ops]
+        ref, _ = k8.fused_reversible_solve_reference(*leaves, 1, 1.0)
+        timing[f"{key}_bwd_plain_ms"] = _event_ms(
+            lambda: torch.autograd.grad(ref, leaves, gy, retain_graph=True), 3)
+        del ref, leaves
+        fwd_bound, bwd_bound, fwd_fp32_bound = k8_bounds(CONFIG5_BATCH, LENGTH - 1, 1, hidden,
+                                                         CHANNELS)
+        timing.update({f"{key}_fwd_bound_ms": fwd_bound[0], f"{key}_bwd_bound_ms": bwd_bound[0],
+                       f"{key}_fwd_fp32_bound_ms": fwd_fp32_bound[0]})
 
-    def plain_loss(m):
-        from torchcde_tpu_torch.models.training import loss_fn
+        def plain_loss(m):
+            from torchcde_tpu_torch.models.training import loss_fn
 
-        with plain_k8():
-            return loss_fn(m, coeffs, labels)
+            with plain_k8():
+                return loss_fn(m, coeffs, labels)
 
-    for adjoint in (False, True):
-        medians, samples = time_train_steps(config5_problem(device, adjoint)[0], coeffs, labels,
-                                            plain_loss, counts=(5, 2))
-        timing[f"config5_adjoint_{adjoint}_train_step_ms"] = medians
-        timing[f"config5_adjoint_{adjoint}_train_step_samples_ms"] = samples
+        for adjoint in (False, True):
+            medians, samples = time_train_steps(
+                config5_problem(device, adjoint, hidden)[0], coeffs, labels, plain_loss,
+                counts=(5, 2))
+            name = "config5" if hidden == HIDDEN else f"config5_H{hidden}"
+            timing[f"{name}_adjoint_{adjoint}_train_step_ms"] = medians
+            timing[f"{name}_adjoint_{adjoint}_train_step_samples_ms"] = samples
     return timing
 
 
@@ -2966,8 +3002,9 @@ def k9_bounds(timing):
     return tuple((ms / launches, by) for ms, by in (fwd, bwd))
 
 
-def k8_bounds(batch, n, m):
-    """K8's least times at config 5, forward and backward, and the forward's
+def k8_bounds(batch, n, m, hidden, channels):
+    """K8's least times at config 5's batch, intervals and width at this
+    hidden size and channel count, forward and backward, and the forward's
     on the CUDA cores: 2 W H (1 + C) operations per evaluation of one lane's
     MLP field.  The forward evaluates (m + 1) times per interval, its
     products on the tensor cores in three TF32 passes, counted at the TF32
@@ -2977,10 +3014,10 @@ def k8_bounds(batch, n, m):
     Bytes: the control's rows and the initial state read, y and ŷ written
     (forward); the rows, y, ŷ and their cotangent read, the rows' cotangent
     and dz0 written (backward)."""
-    f = 2 * WIDTH * HIDDEN * (1 + CHANNELS)
-    ct_bytes = 4 * n * 3 * CHANNELS * batch
-    states = 4 * n * HIDDEN * batch
-    state = 4 * HIDDEN * batch
+    f = 2 * WIDTH * hidden * (1 + channels)
+    ct_bytes = 4 * n * 3 * channels * batch
+    states = 4 * n * hidden * batch
+    state = 4 * hidden * batch
     fwd_bytes, fwd_flops = ct_bytes + state + 2 * states, (m + 1) * n * batch * f
     return (bound(fwd_bytes, 3 * fwd_flops, TF32_TENSOR_FLOPS),
             bound(2 * ct_bytes + 3 * states + state, 6 * m * n * batch * f),
@@ -4911,12 +4948,13 @@ def main():
     # version, the slice in both adjoint modes, the timing and the profiles.
     k8_fwd_err, k8_bwd_err = check_k8_cases(device)
     config5 = config5_slice(device)
+    config5_h16 = config5_slice(device, hidden=16)
     k8_ms = time_k8(device)
-    k8_fwd_bound, k8_bwd_bound, k8_fwd_fp32_bound = k8_bounds(CONFIG5_BATCH, LENGTH - 1, 1)
+    k8_fwd_bound, k8_bwd_bound, _ = k8_bounds(CONFIG5_BATCH, LENGTH - 1, 1, HIDDEN, CHANNELS)
     print("timing: " + json.dumps({
-        "card": smi, **k8_ms, "k8_fwd_bound_ms": k8_fwd_bound[0],
-        "k8_fwd_fp32_bound_ms": k8_fwd_fp32_bound[0], "k8_bwd_bound_ms": k8_bwd_bound[0],
-        "config5_slice": {f"adjoint={a}": r for a, r in config5.items()}}))
+        "card": smi, **k8_ms,
+        "config5_slice": {f"adjoint={a}": r for a, r in config5.items()},
+        "config5_H16_slice": {f"adjoint={a}": r for a, r in config5_h16.items()}}))
     for adjoint in (False, True):
         profile = profile_train_steps(*config5_problem(device, adjoint), K8_KINDS)
         if "device_busy_ms_per_call" in profile:
@@ -5044,7 +5082,7 @@ def main():
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:741", "launches": k8_launches["fwd"],
          "max_abs_err": k8_fwd_err, "ms": k8_ms["k8_fwd_ms"], "plain_ms": k8_ms["k8_fwd_plain_ms"],
          "bound_ms": k8_fwd_bound[0], "bound_by": k8_fwd_bound[1], "library_ms": None},
-        {"name": "K8-bwd", "route": "cuda", "source": K8_SOURCE,
+        {"name": "K8-bwd", "route": "cuda", "source": K8_BWD_SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:783", "launches": k8_launches["bwd"],
          "max_abs_err": k8_bwd_err, "ms": k8_ms["k8_bwd_ms"], "plain_ms": k8_ms["k8_bwd_plain_ms"],
          "bound_ms": k8_bwd_bound[0], "bound_by": k8_bwd_bound[1], "library_ms": None},

@@ -94,8 +94,8 @@ def _assert_close(got, expected, rtol, name):
                                atol=rtol * 0.1 * float(np.abs(expected).max()), err_msg=name)
 
 
-@pytest.mark.parametrize("H", [4, 8])
-def test_plain_k8_matches_jax_kernel(H):
+@pytest.mark.parametrize("H, C", [(4, 3), (8, 3), (16, 3), (8, 5)], ids=["4", "8", "H16", "C5"])
+def test_plain_k8_matches_jax_kernel(H, C):
     # float32 on both sides: the JAX K8 kernel in interpret mode (its forward
     # and its inverse-map backward) against the port's plain K8 and autograd
     # through it.  They round in different orders, and XLA's CPU code rounds
@@ -106,7 +106,7 @@ def test_plain_k8_matches_jax_kernel(H):
     # from each other than the farther of them from it (measured 0.28..0.6 of
     # that), so their gap is float32 rounding and nothing else.  The
     # gradients hold to 1e-4 (at 1e-5 one entry of 384 differs by 1.2e-4).
-    p = _problem(3, 7, 3, H, 16, np.float32, seed=2)
+    p = _problem(3, 7, C, H, 16, np.float32, seed=2)
     t = np.array([0.0, 3.0, 6.0], dtype=np.float32)
     kwargs = dict(adjoint=True, backend="torchsde", dt=0.5)
     out_j, grads_j = _jax_run(p, H, t, True, **kwargs)
@@ -227,12 +227,12 @@ def test_backward_walk_matches_autograd(m):
         torch.testing.assert_close(g, e, rtol=1e-12, atol=1e-12, msg=name)
 
 
-# The backward plans of a 4-lane batch: the specialised variant's one block
-# of 128 lanes, the generic variant's block per lane.
-STAND_IN_PLANS = [dict(variant=0, blocks=1), dict(variant=1, blocks=4)]
+# Backward plans of a 4-lane batch: the resident weights' one block of 128
+# lanes, and a streamed plan of three blocks (the partials' leading size).
+STAND_IN_PLANS = [dict(variant=0, blocks=1), dict(variant=1, blocks=3)]
 
 
-@pytest.mark.parametrize("launch", STAND_IN_PLANS, ids=["specialised", "generic"])
+@pytest.mark.parametrize("launch", STAND_IN_PLANS, ids=["resident", "streamed"])
 def test_autograd_function_and_launch_counts_with_stand_ins(launch, monkeypatch):
     # The kernels run only on the card: stand-ins for the forward launch (the
     # plain forward, counting) and for the backward kernel (the plain
@@ -265,7 +265,7 @@ def test_autograd_function_and_launch_counts_with_stand_ins(launch, monkeypatch)
     t = np.array([0.0, 3.0, 8.0])
     expected = _torch_run(p, 8, t, adjoint=True, step_size=0.5)
     monkeypatch.setattr(k8, "launch_forward", forward)
-    monkeypatch.setattr(k8, "backward_plan", lambda B, H, C, W, plan, device: launch)
+    monkeypatch.setattr(k8, "backward_plan", lambda B, H, C, W, device: launch)
     monkeypatch.setattr(k8, "_backward_kernel", backward_kernel)
     monkeypatch.setattr(k8, "check_operands", lambda *a: None)
     monkeypatch.setattr(k8, "fused_reversible_solve", solve)
@@ -279,17 +279,19 @@ def test_autograd_function_and_launch_counts_with_stand_ins(launch, monkeypatch)
 
 
 # ---------------------------------------------------------------------------
-# A numpy mirror of the specialised forward kernel's arithmetic
-# (csrc/fused_reversible.cu, rev_fwd_tc_kernel): a warp per 16 batch lanes,
-# the stage products as mma.sync m16n8k8 tiles in TF32, three passes
-# (lo.hi and hi.lo summed apart, then added to hi.hi) with each float32
-# operand split as hi = tf32(x), lo = tf32(x - hi), W in chunks of 8 hidden
-# units padded with zero weights,
-# every operand in the kernel's fragment layout with the contraction index
-# permuted (k t is column 2t, k t + 4 column 2t + 1).  Sums are float64:
-# what is held against the plain version is the algorithm (the layout, the
-# permutation, the padding and the TF32 passes), not the card's rounding of
-# its sums, which chip_smoke.py holds against the plain version.
+# A numpy mirror of the forward kernel's arithmetic (csrc/fused_reversible.cu,
+# rev_fwd_kernel): a warp per 16 batch lanes, the stage products as
+# mma.sync m16n8k8 tiles in TF32, three passes (lo.hi and hi.lo summed apart,
+# then added to hi.hi) with each float32 operand split as hi = tf32(x), lo =
+# tf32(x - hi), W in chunks of 8 hidden units and H in state tiles of 8, both
+# padded with zero weights, every operand in the kernel's fragment layout
+# with the contraction index permuted (k t is column 2t, k t + 4 column
+# 2t + 1), and past two tiles the warp split: S warps per lane group, each
+# computing the whole h1 from every tile's A fragments and the second
+# product for its NTW tiles.  Sums are float64: what is held against the
+# plain version is the algorithm (the layout, the permutation, the padding,
+# the split and the TF32 passes), not the card's rounding of its sums, which
+# chip_smoke.py holds against the plain version.
 
 _G, _T = np.arange(32) // 4, np.arange(32) % 4  # a thread's group and index in it
 
@@ -340,93 +342,127 @@ def _as_a(c):
     return _split(np.asarray(c)[..., [0, 2, 1, 3]])
 
 
-def _stage(w1t, b1, w2t, b2):
-    """The block's weights as the kernel stages them (tc_load_field):
-    fragments (chunks, 4, 32, 4), b1 padded to whole chunks, b2."""
+def _fwd_tiles(H):
+    """(NT, NTW, S) as forward_plan picks them: state tiles (H padded to
+    8 NT), tiles a warp, warps a lane group (past two tiles, at most 8)."""
+    tiles = -(-H // 8)
+    if tiles <= 2:
+        return tiles, tiles, 1
+    ntw = 2
+    while -(-tiles // ntw) > 8:
+        ntw *= 2
+    S = -(-tiles // ntw)
+    return S * ntw, ntw, S
+
+
+def _stage(w1t, b1, w2t, b2, NT):
+    """The weights as the kernel stages them (tc_frag): fragments (chunks,
+    NT (1 + C), 32, 4), b1 padded to whole chunks, b2 (C, 8 NT)."""
     w1t, b1, w2t, b2 = (np.asarray(a, dtype=np.float32) for a in (w1t, b1, w2t, b2))
-    W = w1t.shape[0]
-    chunks = -(-W // 8)
-    frag = np.zeros((chunks, 4, 32, 4), np.float32)
+    W, H = w1t.shape
+    C = w2t.shape[0] // H
+    chunks, F = -(-W // 8), NT * (1 + C)
+    frag = np.zeros((chunks, F, 32, 4), np.float32)
     for c in range(chunks):
-        for j in range(4):
+        for j in range(F):
             v = np.zeros((2, 32), np.float32)
-            if j == 0:  # W1's chunk: B[k][n] = w1t[8c + n][perm k]
-                w = c * 8 + _G
-                ok = w < W
-                v[0, ok], v[1, ok] = w1t[w[ok], 2 * _T[ok]], w1t[w[ok], 2 * _T[ok] + 1]
-            else:  # channel j - 1's W2: B[k][n] = w2t[8 (j - 1) + n][8c + perm k]
-                q, w = (j - 1) * 8 + _G, c * 8 + 2 * _T
+            if j < NT:  # W1's k-step j: B[k][n] = w1t[8c + n][8j + perm k]
+                w, k = c * 8 + _G, 8 * j + 2 * _T
                 for e in range(2):
-                    ok = w + e < W
-                    v[e, ok] = w2t[q[ok], w[ok] + e]
+                    ok = (w < W) & (k + e < H)
+                    v[e, ok] = w1t[w[ok], k[ok] + e]
+            else:  # channel i's W2, state tile s: B[k][n] = w2t[i H + 8s + n][8c + perm k]
+                i, st = divmod(j - NT, NT)
+                k, w = 8 * st + _G, c * 8 + 2 * _T
+                for e in range(2):
+                    ok = (k < H) & (w + e < W)
+                    v[e, ok] = w2t[i * H + k[ok], w[ok] + e]
             (h0, l0), (h1, l1) = _split(v[0]), _split(v[1])
             frag[c, j] = np.stack([h0, h1, l0, l1], axis=-1)
     b1s = np.zeros(chunks * 8, np.float32)
     b1s[:W] = b1
-    return frag, b1s, b2
+    b2s = np.zeros((C, 8 * NT), np.float32)
+    b2s[:, :H] = b2.reshape(C, H)
+    return frag, b1s, b2s
 
 
-def _tc_field(stage, y, dx, passes=3):
-    """k = f(y) . dx for warps of 16 lanes: y (warps, 32, 4) in the
+def _tc_field(stage, y, dx, ntw, passes=3):
+    """k = f(y) . dx for lane groups of 16: y (groups, NT, 32, 4) in the
     accumulator layout (r // 2: lane g or g + 8; r % 2: component 2t or
-    2t + 1), dx (warps, 32, 2, 3) of each thread's two lanes."""
-    frag, b1s, b2 = stage
-    a = _as_a(y)
+    2t + 1 of the tile), dx (groups, 32, 2, C) of each thread's two lanes;
+    warp s of a group owns tiles s ntw .. s ntw + ntw - 1."""
+    frag, b1s, b2s = stage
+    NT, C = y.shape[1], dx.shape[-1]
+    a = [_as_a(y[:, kt]) for kt in range(NT)]  # every warp reads every tile's fragments
 
     def bias(v, at):  # (v[at], v[at + 1]) at both of a thread's lanes
         pair = np.stack([v[at], v[at + 1], v[at], v[at + 1]], axis=-1).astype(np.float64)
-        return np.broadcast_to(pair, y.shape)
+        return np.broadcast_to(pair, y[:, 0].shape)
 
-    G = [bias(b2, i * 8 + 2 * _T) for i in range(3)]
-    X = [np.zeros(y.shape) for _ in range(3)]
-    for c in range(frag.shape[0]):
-        h, hx = _mma3(bias(b1s, c * 8 + 2 * _T), np.zeros(y.shape), a, frag[c, 0], passes)
-        hl = _as_a(np.maximum(h + hx, 0.0))
-        for i in range(3):
-            G[i], X[i] = _mma3(G[i], X[i], hl, frag[c, 1 + i], passes)
-    G = [g + x for g, x in zip(G, X)]
     lane_of = np.array([0, 0, 1, 1])
-    return sum(np.tanh(G[i]) * dx[..., lane_of, i] for i in range(3))
+    k = np.zeros(y.shape)
+    for s in range(NT // ntw):
+        tiles = [s * ntw + nt for nt in range(ntw)]
+        G = {(i, st): bias(b2s[i], 8 * st + 2 * _T) for i in range(C) for st in tiles}
+        X = {key: np.zeros(y[:, 0].shape) for key in G}
+        for c in range(frag.shape[0]):
+            h, hx = bias(b1s, c * 8 + 2 * _T), np.zeros(y[:, 0].shape)
+            for kt in range(NT):
+                h, hx = _mma3(h, hx, a[kt], frag[c, kt], passes)
+            hl = _as_a(np.maximum(h + hx, 0.0))
+            for (i, st) in G:
+                G[i, st], X[i, st] = _mma3(G[i, st], X[i, st], hl, frag[c, NT + i * NT + st],
+                                           passes)
+        for st in tiles:
+            k[:, st] = sum(np.tanh(G[i, st] + X[i, st]) * dx[..., lane_of, i] for i in range(C))
+    return k
 
 
-def _lane_index(B):
-    """(components, lanes) gathering (H, B) arrays into the threads'
-    registers (warps, 32, 4), for B padded to whole warps."""
-    warps = -(-B // 16)
-    w, L, r = np.meshgrid(np.arange(warps), np.arange(32), np.arange(4), indexing="ij")
-    return 2 * (L % 4) + (r & 1), w * 16 + L // 4 + 8 * (r >> 1)
+def _lane_index(B, NT):
+    """(components, lanes) gathering (8 NT, B) arrays into the threads'
+    registers (groups, NT, 32, 4), for B padded to whole lane groups."""
+    groups = -(-B // 16)
+    w, nt, L, r = np.meshgrid(np.arange(groups), np.arange(NT), np.arange(32), np.arange(4),
+                              indexing="ij")
+    return 8 * nt + 2 * (L % 4) + (r & 1), w * 16 + L // 4 + 8 * (r >> 1)
+
+
+def _padded(a, rows, cols):
+    out = np.zeros((rows, cols))
+    out[:a.shape[0], :a.shape[1]] = a
+    return out
 
 
 def _tc_solve(ct, z0t, w1t, b1, w2t, b2, m, dt, passes=3):
-    """The kernel's walk (rev_fwd_tc_kernel) on the mirror's field: (y, ŷ),
-    each (n, H, B), float64, lanes past B on zeros."""
+    """The kernel's walk (rev_fwd_kernel) on the mirror's field: (y, ŷ),
+    each (n, H, B), float64, lanes past B and components past H on zeros."""
     n, _, C, B = ct.shape
-    warps = -(-B // 16)
-    stage = _stage(w1t, b1, w2t, b2)
-    hs, lanes = _lane_index(B)
-    pad = np.zeros((n, 3, C, warps * 16))
+    H = z0t.shape[0]
+    NT, ntw, _S = _fwd_tiles(H)
+    groups = -(-B // 16)
+    stage = _stage(w1t, b1, w2t, b2, NT)
+    hs, lanes = _lane_index(B, NT)
+    pad = np.zeros((n, 3, C, groups * 16))
     pad[..., :B] = ct
-    zp = np.zeros((8, warps * 16))
-    zp[:, :B] = z0t
-    y = yh = zp[hs, lanes]
-    two = (np.arange(warps)[:, None, None] * 16 + _G[None, :, None] + 8 * np.arange(2))
+    y = yh = _padded(z0t, 8 * NT, groups * 16)[hs, lanes]
+    two = np.arange(groups)[:, None, None] * 16 + _G[None, :, None] + 8 * np.arange(2)
     ys, yhs = [], []
     for j in range(n):
-        rows = pad[j][..., two]  # (3, C, warps, 32, 2)
-        sb, sc, sd = (np.moveaxis(r, 0, -1) for r in rows)  # (warps, 32, 2, C)
+        rows = pad[j][..., two]  # (3, C, groups, 32, 2)
+        sb, sc, sd = (np.moveaxis(r, 0, -1) for r in rows)  # (groups, 32, 2, C)
 
         def dxdt(fr):
             return sb + (sc + sd * fr) * fr
 
-        f = _tc_field(stage, yh, dxdt(0.0), passes)
+        f = _tc_field(stage, yh, dxdt(0.0), ntw, passes)
         for s in range(m):
             yn = 2.0 * y - yh + dt * f
-            f1 = _tc_field(stage, yn, dxdt(float(np.float32((s + 1) * dt))), passes)
+            f1 = _tc_field(stage, yn, dxdt(float(np.float32((s + 1) * dt))), ntw, passes)
             y, yh, f = y + 0.5 * dt * (f + f1), yn, f1
         for out, v in ((ys, y), (yhs, yh)):
-            full = np.zeros((8, warps * 16))
+            full = np.zeros((8 * NT, groups * 16))
             full[hs, lanes] = v
-            out.append(full[:, :B])
+            out.append(full[:H, :B])
     return np.stack(ys), np.stack(yhs)
 
 
@@ -435,40 +471,49 @@ def _f32_operands(n, C, B, H, W, seed):
     return [t.float().double() for t in _operands(n, C, B, H, W, seed)]
 
 
-def test_tensor_core_field_matches_the_plain_field():
-    # B 37 (three warps, the last part-filled), W 40 (five chunks, the last
-    # padded): the mirror's field against the plain field in float64 on the
-    # same float32 inputs, within 1e-6 of its largest magnitude; one TF32
+# (H, C): H 8, C 3 (one tile, one warp); H 7, C 2 (a padded tile); H 16
+# (two tiles, one warp); H 16, C 5; H 102, C 5 (the caps: 13 tiles padded to
+# 14, seven warps of two tiles).
+FIELD_SHAPES = [(8, 3), (7, 2), (16, 3), (16, 5), (102, 5)]
+
+
+@pytest.mark.parametrize("H, C", FIELD_SHAPES, ids=[f"H{h}C{c}" for h, c in FIELD_SHAPES])
+def test_tensor_core_field_matches_the_plain_field(H, C):
+    # B 37 (three lane groups, the last part-filled), W 40 (five chunks, the
+    # last padded): the mirror's field against the plain field in float64 on
+    # the same float32 inputs, within 1e-6 of its largest magnitude; one TF32
     # pass is ~2^-11 off, which is why the kernel takes three.
-    ops = _f32_operands(1, 3, 37, 8, 40, seed=11)
+    ops = _f32_operands(1, C, 37, H, 40, seed=11)
     ct, z0t, w1t, b1, w2t, b2 = (t.numpy() for t in ops)
-    stage = _stage(w1t, b1, w2t, b2)
-    hs, lanes = _lane_index(37)
-    zp = np.zeros((8, 48))
-    zp[:, :37] = z0t
+    NT, ntw, _S = _fwd_tiles(H)
+    stage = _stage(w1t, b1, w2t, b2, NT)
+    hs, lanes = _lane_index(37, NT)
     two = np.arange(3)[:, None, None] * 16 + _G[None, :, None] + 8 * np.arange(2)
-    rows = np.zeros((3, 3, 48))
-    rows[..., :37] = ct[0]
-    dx = np.moveaxis(rows[0][:, two], 0, -1)  # dX/dt at fraction 0: the b row
-    full = np.zeros((8, 48))
+    rows = _padded(ct[0, 0], C, 48)  # dX/dt at fraction 0: the b row
+    dx = np.moveaxis(rows[:, two], 0, -1)
     errors = {}
+    with torch.no_grad():
+        ref = k8._field(ops[1].t(), 0.0, tuple(ops[0][0].permute(0, 2, 1)), *ops[2:]).t().numpy()
     for passes in (3, 1):
-        full[hs, lanes] = _tc_field(stage, zp[hs, lanes], dx, passes)
-        got = full[:, :37]
-        with torch.no_grad():
-            ref = k8._field(ops[1].t(), 0.0, tuple(ops[0][0].permute(0, 2, 1)),
-                            *ops[2:]).t().numpy()
-        errors[passes] = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
-    print(f"field relative error: three passes {errors[3]:.2e}, one pass {errors[1]:.2e}")
+        full = np.zeros((8 * NT, 48))
+        full[hs, lanes] = _tc_field(stage, _padded(z0t, 8 * NT, 48)[hs, lanes], dx, ntw, passes)
+        errors[passes] = float(np.abs(full[:H, :37] - ref).max()) / float(np.abs(ref).max())
+    print(f"field relative error (H {H}, C {C}): three passes {errors[3]:.2e}, "
+          f"one pass {errors[1]:.2e}")
     assert errors[3] <= 1e-6, errors
 
 
-@pytest.mark.parametrize("m", [1, 3])
-def test_tensor_core_walk_matches_the_reference_solve(m):
+# (m, H, C); the H 8, C 3 cases keep their first ids.
+WALKS = [(m, H, C) for m in (1, 3) for H, C in FIELD_SHAPES]
+
+
+@pytest.mark.parametrize("m, H, C", WALKS,
+                         ids=[f"{m}" if (H, C) == (8, 3) else f"{m}-H{H}C{C}" for m, H, C in WALKS])
+def test_tensor_core_walk_matches_the_reference_solve(m, H, C):
     # The kernel's walk on the mirror's field against the plain version in
     # float64: B 37 and W 40 are no multiples of the tile; within 1e-5 of
     # the largest magnitude (the one-pass error is printed beside it).
-    ops = _f32_operands(9, 3, 37, 8, 40, seed=20 + m)
+    ops = _f32_operands(9, C, 37, H, 40, seed=20 + m)
     with torch.no_grad():
         ref = torch.cat(k8.fused_reversible_solve_reference(*ops, m, 1.0 / m)).numpy()
     scale = float(np.abs(ref).max())
@@ -477,5 +522,186 @@ def test_tensor_core_walk_matches_the_reference_solve(m):
         got = np.concatenate(_tc_solve(*(t.numpy() for t in ops), m, 1.0 / m, passes))
         assert got.shape == ref.shape
         errors[passes] = float(np.abs(got - ref).max()) / scale
-    print(f"solve relative error (m {m}): three passes {errors[3]:.2e}, one pass {errors[1]:.2e}")
+    print(f"solve relative error (m {m}, H {H}, C {C}): three passes {errors[3]:.2e}, "
+          f"one pass {errors[1]:.2e}")
     assert errors[3] <= 1e-5, errors
+
+
+# ---------------------------------------------------------------------------
+# A numpy mirror of the backward kernel's partition (csrc/
+# fused_reversible_bwd.cu, rev_bwd_kernel), float64: G threads per lane, rank
+# r owning the state components r HS .. r HS + HS - 1 (H padded to Hp = G HS
+# with zero weights) and every channel's second-layer rows of them; per row
+# of the weights' records, the H-long and C H-long dot products summed over
+# the group by a butterfly (each rank adds its partner's sum at distances 1,
+# 2, 4, ...); the W-long ones in one rank.  The weight gradients go through
+# the block's units: chunks of CR rows, unit u of a chunk (row quad u // NB,
+# column block u % NB) to thread u % T, summed over the block's LB lanes
+# and written, past H and W dropped, into the block's partial; the blocks
+# stride over the lane groups, and their partials are summed at the end.
+
+
+def _bwd_shape(H, C):
+    """(HS, G, Hp, LB) as backward_plan picks them."""
+    HS = 16 if C == 1 and H > 256 else 8
+    G = 1
+    while G * HS < H:
+        G *= 2
+    return HS, G, G * HS, (256 // G if G > 1 else 128)
+
+
+def _butterfly(parts):
+    """The group's sum in every rank: parts (G, ...) of the ranks."""
+    G, o = parts.shape[0], 1
+    while o < G:
+        parts = parts + parts[np.arange(G) ^ o]
+        o *= 2
+    assert all(np.array_equal(parts[0], p) for p in parts)
+    return parts[0]
+
+
+def _records(w1t, b1, w2t, Hp, W4):
+    """The weights' records (rec_value): per row W1's row, W2's column in the
+    order q = i Hp + h, b1 and three zeros; rows past W zero."""
+    W, H = w1t.shape
+    C = w2t.shape[0] // H
+    rec = np.zeros((W4, (1 + C) * Hp + 4))
+    rec[:W, :H] = w1t
+    for i in range(C):
+        rec[:W, (1 + i) * Hp:(1 + i) * Hp + H] = w2t[i * H:(i + 1) * H].T
+    rec[:W, (1 + C) * Hp] = b1
+    return rec
+
+
+def _group_vjp(rec, b2s, y, u, dx, HS, G):
+    """One evaluation and its VJP for lanes (L, Hp) partitioned over G ranks:
+    k, dy, ddx and the reduction's operands h1, dp1 (L, W4) and dp2 (L, C Hp)."""
+    L, Hp = y.shape
+    C = dx.shape[1]
+    W4 = rec.shape[0]
+    w1 = rec[:, :Hp].reshape(W4, G, HS)
+    w2 = rec[:, Hp:(1 + C) * Hp].reshape(W4, C, G, HS)
+    ys, us = y.reshape(L, G, HS), u.reshape(L, G, HS)
+    h = np.maximum(_butterfly(np.einsum("wgj,lgj->glw", w1, ys)) + rec[:, (1 + C) * Hp], 0.0)
+    g = np.tanh(np.einsum("wcgj,lw->lcgj", w2, h) + b2s.reshape(C, G, HS))
+    k = np.einsum("lcgj,lc->lgj", g, dx)
+    ddx = _butterfly(np.einsum("lgj,lcgj->glc", us, g))
+    dp2 = us[:, None] * dx[:, :, None, None] * (1.0 - g * g)
+    dh = _butterfly(np.einsum("wcgj,lcgj->glw", w2, dp2))
+    p = np.where(h > 0.0, dh, 0.0)
+    dy = np.einsum("wgj,lw->lgj", w1, p)
+    return k.reshape(L, Hp), dy.reshape(L, Hp), ddx, h, p, dp2.reshape(L, C * Hp)
+
+
+def _unit_cells(W, H, C, Hp, CR, threads):
+    """Every unit of the block's reduction: (chunk, its 4 padded rows, its 8
+    padded columns (dp2 in the order q = i Hp + h, then y), the rows kept
+    (< W), the columns kept (h < H), their columns in the partial (dW2 as
+    q = i H + h, then dW1)).  Each real cell is checked to be written once."""
+    W4 = -(-W // 4) * 4
+    NB, NBQ = (1 + C) * Hp // 8, C * Hp // 8
+    upc = -(-(CR // 4 * NB) // threads)
+    cells, covered = [], np.zeros((W, (1 + C) * H), int)
+    for c in range(-(-W4 // CR)):
+        rows = min(CR, W4 - c * CR)
+        for jj in range(upc):
+            for tid in range(threads):
+                k, b = divmod(tid + jj * threads, NB)
+                if 4 * k >= rows:
+                    continue
+                w, cols = c * CR + 4 * k + np.arange(4), 8 * b + np.arange(8)
+                i, hp = np.divmod(cols if b < NBQ else cols - C * Hp, Hp)
+                real = i * H + hp if b < NBQ else C * H + hp
+                cell = (c, w, cols, w < W, hp < H, real[hp < H])
+                covered[np.ix_(w[w < W], cell[5])] += 1
+                cells.append(cell)
+    assert (covered == 1).all()
+    return cells
+
+
+def _group_backward(ct, y, yhat, gy, w1t, b1, w2t, b2, m, dt, blocks, CR=128):
+    """The backward kernel's walk over its group partition and units:
+    (dct, dz0, dw1t, db1, dw2t, db2) as ``launch_backward`` returns them."""
+    n, _, C, B = ct.shape
+    W, H = w1t.shape
+    HS, G, Hp, LB = _bwd_shape(H, C)
+    rec = _records(w1t, b1, w2t, Hp, -(-W // 4) * 4)
+    b2s = _padded(b2.reshape(C, H), C, Hp).reshape(-1)
+    cells = _unit_cells(W, H, C, Hp, CR, LB * G)
+    partials = np.zeros((blocks, W, (1 + C) * H + 1))  # dW2 | dW1 | db1
+    db2p = np.zeros((blocks, C * H))
+    dct = np.zeros(ct.shape)
+    dz0 = np.zeros((H, B))
+    for grp in range(-(-B // LB)):
+        blk = grp % blocks  # blocks stride over the lane groups
+        lanes = grp * LB + np.arange(LB)
+        live = lanes < B
+        at = np.minimum(lanes, B - 1)
+
+        def lanes_of(a):  # (H, B) -> (LB, Hp), lanes past B zero
+            return _padded(a[:, at].T * live[:, None], LB, Hp)
+
+        ay = ayh = np.zeros((LB, Hp))
+        for j in reversed(range(n)):
+            ay = ay + lanes_of(gy[j])
+            y1, yh1 = lanes_of(y[j]), lanes_of(yhat[j])
+            sb, sc, sd = (ct[j, r][:, at].T * live[:, None] for r in range(3))
+            for st in reversed(range(m)):
+                for fr, second in (((st + 1) * dt, True), (st * dt, False)):
+                    if second:  # f1 = f(yh1) and its VJP
+                        u, yv = 0.5 * dt * ay, yh1
+                    else:  # the inverse map's companion, f0 = f(yh0) and its VJP
+                        yv = 2.0 * y1 - yh1 - dt * f1
+                        ayh = ayh + v
+                        u = 0.5 * dt * ay + dt * ayh
+                    f, v, ddx, h, p, dp2 = _group_vjp(rec, b2s, yv, u, sb + (sc + sd * fr) * fr,
+                                                      HS, G)
+                    right = np.concatenate([dp2, yv], axis=1)
+                    for c, w, cols, rk, ck, real in cells:
+                        dw1_block = cols[0] >= C * Hp
+                        left = (p if dw1_block else h)[:, w]
+                        tile = left.T @ right[:, cols]  # summed over the block's lanes
+                        partials[blk][np.ix_(w[rk], real)] += tile[np.ix_(rk, ck)]
+                        if cols[0] == C * Hp:
+                            partials[blk][w[rk], -1] += left.sum(0)[rk]
+                        if c == 0 and w[0] == 0 and not dw1_block:
+                            db2p[blk][real] += right[:, cols].sum(0)[ck]
+                    for r, scale in enumerate((1.0, fr, fr * fr)):
+                        dct[j, r][:, lanes[live]] += scale * ddx[live].T
+                    if second:
+                        f1 = f
+                    else:
+                        y1, yh1 = y1 - 0.5 * dt * (f1 + f), yv
+                        ay, ayh = ay + 2.0 * ayh, -ayh + v
+        dz0[:, lanes[live]] = (ay + ayh)[live, :H].T
+    total = partials.sum(0)
+    return dct, dz0, total[:, C * H:-1], total[:, -1], total[:, :C * H].T, db2p.sum(0)
+
+
+# (B, H, C, W, blocks): one thread a lane (H 8, C 3) with blocks striding;
+# groups of 2 (H 16, C 3), of 4 (H 32, C 3) and of 16 (H 100, C 5, Hp 128);
+# H 7, C 2 with W 44 (padded rows, a part-filled row quad).
+GROUP_CASES = [(300, 8, 3, 40, 2), (40, 16, 3, 40, 1), (70, 32, 3, 24, 1), (20, 100, 5, 16, 1),
+               (9, 7, 2, 44, 1)]
+
+
+@pytest.mark.parametrize("B, H, C, W, blocks", GROUP_CASES,
+                         ids=[f"H{c[1]}C{c[2]}" for c in GROUP_CASES])
+def test_backward_group_partition_matches_the_reference(B, H, C, W, blocks):
+    # The partition of each lane over its group, the butterflies, the padding
+    # and the units of the weight gradients against the plain backward walk
+    # (fused_reversible_backward_reference), both float64 on the same
+    # stored states: within 1e-12 of each gradient's largest magnitude (the
+    # orders of the float64 sums differ).
+    n, m = 3, 2
+    ops = _operands(n, C, B, H, W, seed=B)
+    with torch.no_grad():
+        y, yhat = k8.fused_reversible_solve_reference(*ops, m, 1.0 / m)
+    gy = torch.from_numpy(np.random.default_rng(5).standard_normal(y.shape))
+    expected = k8.fused_reversible_backward_reference(ops[0], y, yhat, gy, *ops[2:], m, 1.0 / m)
+    got = _group_backward(*(t.numpy() for t in (ops[0], y, yhat, gy, *ops[2:])), m, 1.0 / m,
+                          blocks)
+    for name, g, e in zip(("dct", "dz0", "dw1", "db1", "dw2", "db2"), got, expected):
+        e = e.numpy()
+        assert g.shape == e.shape, name
+        np.testing.assert_allclose(g, e, rtol=0, atol=1e-12 * float(np.abs(e).max()), err_msg=name)

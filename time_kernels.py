@@ -15,8 +15,10 @@ and 256 (CUDA events, 10 steps), K2's linear mode at config 4 (as phase
 forward and backward ms per launch at the per-sample slice (as phase 24
 times them; where the checkout has K9), the accepted steps of each timed
 mesh (a backward's time follows them), K8's forward and backward at config
-5's operands (as phase 20 times them) with the backward's launch plan where
-the checkout reports it, config 5's train step in both adjoint modes, K1's
+5's operands at hidden 8, 16 and 32 (as phase 20 times them) and at phase
+18's two shapes whose weights stream through shared memory, with their
+launch plans as the checkout reports them, config 5's train step in both
+adjoint modes, K1's
 forward and backward at the flagship in float32 and in bfloat16 (as phases
 8 and 28 time them) with both launch plans where the checkout reports
 them, the flagship's train step in both precisions (median of 10), K6/K7,
@@ -114,28 +116,54 @@ def time_k9(cs, device):
             "k9_steps_accepted": int(sum(int(out[5][3].sum()) for _, out in launched))}
 
 
+def k8_launch_plans(k8, B, H, C, W, plan, device):
+    """K8's launch plans as the checkout reports them: the forward's and
+    backward's plans (a checkout with one kernel per direction), or the
+    variant and the backward's plan (a checkout with two variants)."""
+    if hasattr(k8, "forward_plan"):
+        return {"fwd_plan": k8.forward_plan(B, H, C, W),
+                "bwd_plan": k8.backward_plan(B, H, C, W, device)}
+    return {"variant": k8.kernel_variant(H, C, W, plan),
+            "bwd_plan": k8.backward_plan(B, H, C, W, plan, device)}
+
+
 def time_k8(cs, device):
-    """K8's forward and backward ms at config 5's operands (specialised
-    variant), its backward's launch plan where the checkout has one, and
-    config 5's train step's median ms with the adjoint and with direct
-    backpropagation."""
+    """K8's forward and backward ms at config 5's operands at hidden 8, 16
+    and 32 (as phase 20 times them) and at phase 18's two shapes whose
+    weights stream (the caps' H 100, C 5, W 512; H 16, C 5, W 512) with
+    their launch plans, and config 5's train step's median ms with the
+    adjoint and with direct backpropagation (hidden 8)."""
     from torchcde_tpu_torch.models import make_train_step
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
-    model, coeffs, labels = cs.config5_problem(device, adjoint=True)
-    with torch.no_grad():
-        p = cs.packed_operands(model, coeffs)
-    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+    timing = {}
     plan = k8._Plan(1, 1.0)
-    y, yhat = k8.launch_forward(*ops, plan)
-    gy = torch.ones_like(y)
-    timing = {"k8_fwd_ms": cs._event_ms(lambda: k8.launch_forward(*ops, plan), 10),
-              "k8_bwd_ms": cs._event_ms(
-                  lambda: k8.launch_backward(p.ct, y, yhat, gy, *ops[2:], plan), 5)}
-    if hasattr(k8, "backward_plan"):
+    for hidden in (8, 16, 32):
+        model, coeffs, labels = cs.default_model(
+            device, cs.CONFIG5_BATCH, config=dict(cs.CONFIG5, hidden_channels=hidden, adjoint=True))
+        with torch.no_grad():
+            p = cs.packed_operands(model, coeffs)
+        ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+        y, yhat = k8.launch_forward(*ops, plan)
+        gy = torch.ones_like(y)
+        key = f"k8_H{hidden}"
+        timing[f"{key}_fwd_ms"] = cs._event_ms(lambda: k8.launch_forward(*ops, plan), 10)
+        timing[f"{key}_bwd_ms"] = cs._event_ms(
+            lambda: k8.launch_backward(p.ct, y, yhat, gy, *ops[2:], plan), 5)
         C, B = p.ct.shape[2], p.ct.shape[3]
-        timing["k8_bwd_plan"] = k8.backward_plan(B, p.z0t.shape[0], C, p.w1t.shape[0], plan,
-                                                 device)
+        timing[f"{key}_plans"] = k8_launch_plans(k8, B, hidden, C, p.w1t.shape[0], plan, device)
+    # Phase 18's shapes whose weights outgrow a block's shared memory.
+    for B, n, H, C, W, m in ((300, 12, 100, 5, 512, 8), (520, 40, 16, 5, 512, 2)):
+        ops = cs.random_operands(B, n, H, C, W, 0, device)
+        shape_plan = k8._Plan(m, 1.0 / m)
+        y, yhat = k8.launch_forward(*ops, shape_plan)
+        gy = torch.ones_like(y)
+        key = f"k8_B{B}_H{H}_C{C}_W{W}_m{m}"
+        timing[f"{key}_fwd_ms"] = cs._event_ms(lambda: k8.launch_forward(*ops, shape_plan), 3)
+        timing[f"{key}_bwd_ms"] = cs._event_ms(
+            lambda: k8.launch_backward(ops[0], y, yhat, gy, *ops[2:], shape_plan), 3)
+        timing[f"{key}_plans"] = k8_launch_plans(k8, B, H, C, W, shape_plan, device)
+    model, coeffs, labels = cs.config5_problem(device, adjoint=True)
     for adjoint in (True, False):
         if not adjoint:
             model = cs.config5_problem(device, adjoint=False)[0]

@@ -1,12 +1,11 @@
-// The generic variants' pieces shared by the fixed-step kernels
-// (fused_fixed.cu, K1) and the reversible-Heun kernels (fused_reversible.cu,
-// K8): H, C and W known only at run time, one block of GEN_THREADS threads
-// per batch lane, the lane's vectors in shared memory, and the weights read
-// from device memory through L1.
+// The generic variant of the fixed-step kernels (fused_fixed.cu, K1): H, C
+// and W known only at run time, one block of GEN_THREADS threads per batch
+// lane, the lane's vectors in shared memory, and the weights read from
+// device memory through L1.
 //
 // Replaces the stage math of the TPU kernels,
 // torchcde_tpu/solvers/fused_pallas.py::_stage_forward and ::_stage_backward,
-// for the shapes the specialised variants (cde_stage.cuh) do not take.
+// for the shapes K1's specialised variant (cde_stage.cuh) does not take.
 //
 // Layouts (float32): w1t (W, H), b1 (W), w2t (C*H, W), b2 (C*H); the rows of
 // w2t and b2 are in the kernel order q = i*H + h.  Weight-gradient partials
@@ -28,9 +27,7 @@
 namespace {
 
 constexpr int GEN_THREADS = 128; // threads per block of the generic variant
-constexpr size_t MAX_SMEM = 232448;          // dynamic shared memory a block may use
 constexpr size_t MAX_PARTIALS = size_t(1) << 26;  // floats of generic partials
-constexpr int BAD_ARGUMENT = -2;
 constexpr int BAD_VARIANT = -3;
 constexpr int SPECIALISED = 0;
 constexpr int GENERIC = 1;
@@ -159,23 +156,6 @@ __device__ float gen_stage_vjp(const GenField& f, const GenStage& s,
 int gen_backward_blocks(int B, int H, int C, int W) {
   const size_t cap = MAX_PARTIALS / partial_floats(H, C, W);
   return (int)(cap < 1 ? 1 : (cap < (size_t)B ? cap : (size_t)B));
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-// Blocks of `kernel` an SM holds at once with these threads and shared
-// bytes, into n; 0 or an error code.
-template <typename Kernel>
-int resident_blocks(Kernel kernel, int threads, size_t bytes, int& n) {
-  cudaError_t err = set_smem(kernel, bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes);
-  return (int)err;
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
-// Stage math shared by the fused Neural CDE kernels' specialised variants
-// (fused_fixed.cu, fused_reversible.cu, with H and C known at compile
-// time): the control's rows and dX/dt, the contraction k = g . dX/dt of the
-// canonical vector field's output g = tanh(W2 relu(W1 y + b1) + b2), and
-// the bfloat16 rounding of K1's mixed-precision mode.
+// Stage math shared by the fused Neural CDE kernels (fused_fixed.cu,
+// fused_reversible.cu, with C known at compile time): the control's rows and
+// dX/dt, the contraction k = g . dX/dt of the canonical vector field's output
+// g = tanh(W2 relu(W1 y + b1) + b2), the bfloat16 rounding of K1's
+// mixed-precision mode, and the launch helpers both use.
 //
 // Replaces the stage math of the TPU kernels,
 // torchcde_tpu/solvers/fused_pallas.py::_stage_forward.
@@ -20,8 +20,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 
 namespace {
+
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may use
+constexpr int BAD_ARGUMENT = -2;
 
 // x rounded to the nearest bfloat16 when MX, else x.
 template <bool MX>
@@ -72,6 +76,23 @@ __device__ __forceinline__ void contract(const float (&g)[C * H],
     for (int i = 1; i < C; ++i) acc += g[i * H + h] * dx[i];
     k[h] = acc;
   }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Blocks of `kernel` an SM holds at once with these threads and shared
+// bytes, into n; 0 or an error code.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t bytes, int& n) {
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes);
+  return (int)err;
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // Reversible-Heun Neural CDE solve, forward and backward, as two CUDA
-// kernels for Hopper (sm_90a).
+// kernels for Hopper (sm_90a): the forward in this file, the backward in
+// fused_reversible_bwd.cu, what they share in fused_reversible.cuh.
 //
 // Replaces torchcde_tpu/solvers/fused_pallas.py::_rev_fwd_kernel and
 // ::_rev_bwd_kernel (built by _make_fused_rev_solve).  The forward runs the
@@ -25,36 +26,44 @@
 // evaluation.  At BASELINE config 5 (B 16384, 99 intervals, m 1, H 8, W 128,
 // C 3) the forward evaluates (m + 1) n B times, 26.6 GFLOP; the backward
 // evaluates 2 m n B times and adds the VJPs' products and the weight
-// gradients' products, 6 m n B evaluations' worth, 79.7 GFLOP.  The control
-// rows (58 MB) and the stored states (104 MB, written once, read once) are
-// below that: compute-bound, the forward on the tensor cores (three TF32
-// passes, 0.161 ms at their rate), the backward on the CUDA cores.
+// gradients' products, 6 m n B evaluations' worth, 79.7 GFLOP; both scale
+// with H.  The control rows (58 MB) and the stored states (104 MB at H 8,
+// written once, read once) are below that: compute-bound, the forward on the
+// tensor cores (three TF32 passes, 0.161 ms at their rate at H 8), the
+// backward on the CUDA cores.
 //
-// Two variants compute the same function; fr_variant picks one from the
-// shapes, and every shape inside the JAX package's caps (W <= 512,
-// C*H <= 512, 3*C <= 16, m <= 8) launches one of them.
+// One forward and one backward take every shape inside the JAX package's
+// caps (W <= 512, C*H <= 512, 3*C <= 16, m <= 8), H, C and W at run time:
+// C (1..5) and the few register shapes below are template arguments, picked
+// by the plans.  Instances: the forward's 19 (C x one warp at 1 or 2 state
+// tiles, C x the split's tiles a warp), the backward's 22 (C x groups or not
+// x 1 or 2 register tiles, and C 1 at 16 state components a thread).  The
+// weights stay resident in shared memory where they fit; otherwise a small
+// kernel stages them once per launch in device memory, in the layout the
+// main kernel reads, and the block streams them through a ring of two
+// chunks with cp.async (fused_reversible.cuh).
 //
-// Specialised variant (H 8, C 3, every width of the caps, W <= 512).  The
-// forward ("Specialised forward" below) runs a warp per 16 batch lanes and
-// the stage products on the tensor cores (mma.sync m16n8k8 in TF32, three
-// passes for float32 accuracy), in blocks of four warps that share one copy
-// of the weights, staged in fragment order; a batch of 16384 is 1024 warps.
-// The backward ("Specialised backward" below) runs one thread per lane, in
-// blocks of RB_LANES lanes that share one copy of the weights, as many as
-// the SMs hold at once (at config 5, 128 blocks of 4 warps, one wave), and
-// reduces the weight gradients over each block's lanes in register tiles,
-// written once as per-block partials and summed after the launch
-// (deterministic, no float atomics).  Its recompute runs the evaluations on
-// the CUDA cores in float32, so it rounds otherwise than the forward did:
-// the inverse map starts from each interval's stored state, so the two
-// roundings never accumulate across intervals.
+// Forward ("Forward" below): a warp per 16 batch lanes, the stage products
+// on the tensor cores (mma.sync m16n8k8 in TF32, three passes for float32
+// accuracy), the weights staged once per block in fragment order.  H is
+// padded to Hp = 8 NT (NT state tiles) with zero weights; up to two tiles
+// (and resident weights) a warp carries the lane group alone, beyond that S
+// warps share the 16 lanes, each owning NTW state tiles for every channel,
+// and exchange the evaluated state through shared memory once per
+// evaluation.  Config 5 (H 8, C 3) is the one-warp case with one tile, in
+// blocks of four warps.
 //
-// Generic variant (H, C and W at run time): one block of GEN_THREADS threads
-// per lane (blocks stride over the lanes), the lane's vectors in shared
-// memory, the weights through L1, and the stage math of cde_generic.cuh
-// (shared with K1's generic variant).  Weight gradients accumulate per block,
-// in shared memory when they fit and in the block's own slice of the
-// partials otherwise.
+// Backward (fused_reversible_bwd.cu): G threads per lane (a power of two),
+// each owning HS state components (8; 16 for C 1 past H 256) and their C
+// channels' second-layer rows, H padded to Hp = G HS, in blocks of lanes that share one copy of the weights,
+// as many blocks as the SMs hold at once (one resident wave), the weight
+// gradients reduced over each block's lanes in register tiles, written once
+// as per-block partials and summed after the launch (deterministic, no float
+// atomics).  Its recompute runs the evaluations on the CUDA cores in
+// float32, so it rounds otherwise than the forward did: the inverse map
+// starts from each interval's stored state, so the two roundings never
+// accumulate across intervals.  Config 5 (H 8, G 1) runs one thread per
+// lane in blocks of 128 lanes.
 //
 // Layouts (all float32, batch minor):
 //   ct   (n, 3, C, B)  rows b, 2c, 3d of the control's cubic per interval
@@ -63,74 +72,91 @@
 // Backward: gy (n, H, B), the cotangent of y; outputs dct (n, 3, C, B),
 // dz0 (H, B) and per-block partials dw1p (blocks, W, H), db1p (blocks, W),
 // dw2p (blocks, W, C*H), db2p (blocks, C*H), with blocks from
-// fr_backward_plan(...).
-
-#include <stddef.h>
-#include <stdint.h>
+// fr_backward_plan(...).  Where the weights stream, each entry takes a
+// scratch buffer for their staged copy, of fr_forward_plan's and
+// fr_backward_scratch's floats.
+//
+// Build: 41 kernel instances and two staging kernels in two translation
+// units, compiled in parallel (torchcde_tpu_torch/_build.py); PERF.md gives
+// the build time on the card.
 
 #include <algorithm>
 
-#include "cde_generic.cuh"
-#include "cde_stage.cuh"
+#include "fused_reversible.cuh"
 
 namespace {
 
-constexpr int MAX_SUBSTEPS = 8;
-
-// The interval's fraction after s substeps of dt, rounded once.
-__device__ __forceinline__ float fraction(int s, double dt) {
-  return (float)((double)s * dt);
-}
-
 // ---------------------------------------------------------------------------
-// Specialised forward (H 8, C 3, W <= 512): a warp per 16 batch lanes, the
-// stage products on the tensor cores.
+// Forward: a warp per 16 batch lanes (or S warps sharing them), the stage
+// products on the tensor cores.
 //
 // Replaces the TPU kernel's walk (fused_pallas.py::_rev_fwd_kernel), which
 // runs these products on its matrix unit (_dot), float32 as several passes.
 // What bounds it: the two products of every evaluation, 2 W H (1 + C) flops
 // a lane.  As float32 on the CUDA cores, one thread a lane issues a shared
-// load per few FMAs, and at config 5 (B 16384, 99 intervals, m 1, W 128)
-// the issue slots set the pace (1.14 ms against the FMAs' 0.40).  Here the
-// products run as mma.sync.m16n8k8 in TF32: three passes, lo.hi, hi.lo and
-// hi.hi, with each float32 operand split as hi = tf32(x), lo = tf32(x -
-// hi), summed in float32, the two cross terms in an accumulator of their
-// own that joins hi.hi's at the end (smallest terms first): the float32
-// products to about 2^-21, as the TPU kernel's multi-pass f32 dots.  Apart,
-// the two accumulators are two dependent chains of MMAs where one would be
-// three in a row, which the card runs slower (PERF.md).  Three times
-// the 26.6 GFLOP at 495 TFLOP/s TF32 is 0.161 ms.
+// load per few FMAs, and at config 5 the issue slots set the pace (1.14 ms
+// against the FMAs' 0.40).  Here the products run as mma.sync.m16n8k8 in
+// TF32: three passes, lo.hi, hi.lo and hi.hi, with each float32 operand
+// split as hi = tf32(x), lo = tf32(x - hi), summed in float32, the two
+// cross terms in an accumulator of their own that joins hi.hi's at the end
+// (smallest terms first): the float32 products to about 2^-21, as the TPU
+// kernel's multi-pass f32 dots.  Apart, the two accumulators are two
+// dependent chains of MMAs where one would be three in a row, which the card
+// runs slower (PERF.md).  Three times the 26.6 GFLOP at 495 TFLOP/s TF32 is
+// 0.161 ms at config 5.
 //
-// The tile.  A warp's 16 lanes are the M of the products; a chunk of 8
-// hidden units is the K of the first (N = 8 of them from the H = 8 state
-// components) and of the second (N = 8 state components per channel, three
-// n-tiles).  Thread (g = lane / 4, t = lane % 4) holds, in the accumulator
-// layout, rows g and g + 8 (two batch lanes) at columns 2t and 2t + 1.  An
-// accumulator fragment read as an A fragment with k-index t standing for
-// column 2t and t + 4 for 2t + 1 (as_a) needs no shuffle: the state (the
-// first product's A, K = H = 8), each chunk's h1 (the first product's C,
-// the second's A) and g (the second's C) all stay in the registers that
-// hold them, and dX/dt . g and the step are thread-local.  The contraction
-// index is permuted to match when the block stages the weights: W1's
-// columns and W2's rows within a chunk, both in B-fragment order, split
-// into hi and lo once per block (tc_load_field).  W is padded with zero
-// weights to a multiple of 8.  Lanes past B run on zeros and are not
-// written.  Blocks of TC_WARPS warps share one copy of the weights: 2 KB a
-// chunk, 32 KB at W 128, 130 KB at W 512.
+// The tile.  A lane group's 16 lanes are the M of the products; a chunk of 8
+// hidden units is the N of the first product and the K of the second.  The
+// state is NT tiles of 8 components: the first product takes one k-step a
+// tile, the second has C NT n-tiles (NT for each channel).  Thread (g =
+// lane / 4, t = lane % 4) holds, in the accumulator layout, rows g and g + 8
+// (two batch lanes) at columns 2t and 2t + 1 of each tile.  An accumulator
+// fragment read as an A fragment with k-index t standing for column 2t and
+// t + 4 for 2t + 1 (as_a) needs no shuffle: the state (the first product's
+// A), each chunk's h1 (the first product's C, the second's A) and g (the
+// second's C) all stay in the registers that hold them, and dX/dt . g and
+// the step are thread-local.  The contraction index is permuted to match
+// when the block stages the weights: W1's columns and W2's rows within a
+// chunk, both in B-fragment order, split into hi and lo once per block
+// (tc_frag).  W is padded with zero weights to a multiple of 8, H to 8 NT
+// (zero columns of W1 and zero rows of W2 keep the padded components at
+// zero, exactly).  Lanes past B run on zeros and are not written.
+//
+// Two kernels.  rev_fwd_kernel<C, NT>: one warp a lane group, one or two
+// tiles (H <= 16), the weights resident.  At config 5 a lane group's chain
+// of dependent MMAs sets the pace (1024 warps, under 8 an SM), so its chunk
+// loop carries no barrier and no copy, and its walk keeps the launch's
+// scalars and the stores' offsets in registers.  rev_fwd_split_kernel<C,
+// NTW>: every other shape.
+//
+// The split.  A thread holds 8 accumulators (G and the cross terms X) for
+// each n-tile of the second product; with many tiles they outgrow it.  Past
+// two tiles (H > 16) a lane group runs on S warps, each owning NTW tiles of
+// the state for all C channels, so the contraction stays in the warp.  Each
+// warp needs the whole state as the first product's A: before an evaluation
+// every warp writes its tiles' A fragments (hi, lo) to a slot of shared
+// memory, one barrier, and every warp reads all NT k-steps from there; two
+// slots alternate, so one barrier an evaluation suffices (one slot and two
+// barriers where two do not fit).  Every warp computes the whole h1: the
+// first product, 1 / (1 + C) of the work, runs S times.  NTW: 2, or 4 or 8
+// where C is small and H large (at most 8 warps a lane group), from the
+// registers: 8 C NTW accumulators a thread.
+//
+// Blocks: LG lane groups (4 one-warp groups, or 8 / S split groups) share
+// one copy of the weights: 8 W Hp (1 + C) bytes in fragment order, 32 KB at
+// H 8, C 3, W 128, 131 KB at H 32.  Past a block's shared memory (W 512 at
+// H 16, C 5, or the caps), the split kernel takes the shape (S may be 1), the
+// fragments are staged once per launch in device memory (stage_frags_kernel)
+// and each block streams them a chunk of 8 hidden units at a time through
+// the ring, one barrier a chunk.
 
-constexpr int TC_H = 8, TC_C = 3, TC_CH = TC_H * TC_C;
-constexpr int TC_LANES = 16;                    // batch lanes a warp: the M of a product
-constexpr int TC_WARPS = 4;                     // warps a block
-constexpr int TC_BLOCK = TC_LANES * TC_WARPS;   // batch lanes a block
-constexpr int TC_K = 8;                         // hidden units a chunk
-constexpr int TC_FRAGS = 4;                     // B fragments a chunk: W1's, W2's of 3 channels
+constexpr int TC_LANES = 16;   // batch lanes a lane group: the M of a product
+constexpr int TC_K = 8;        // hidden units a chunk
+constexpr int ONE_WARPS = 4;   // warps (lane groups) a block of the one-warp forward
+constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;  // most warps a block of the split forward
 
 __host__ __device__ inline int tc_chunks(int W) { return (W + TC_K - 1) / TC_K; }
-
-__host__ __device__ inline size_t tc_smem_bytes(int W) {
-  return sizeof(float4) * (size_t)tc_chunks(W) * TC_FRAGS * 32 +
-         sizeof(float) * ((size_t)tc_chunks(W) * TC_K + TC_CH);
-}
 
 __device__ __forceinline__ uint32_t tf32_of(float x) {
   uint32_t r;
@@ -175,791 +201,423 @@ __device__ __forceinline__ void as_a(const float (&c)[4], uint32_t (&hi)[4], uin
   tf32_split(c[3], hi[3], lo[3]);
 }
 
-// The block's weights in fragment order: frag[(c * TC_FRAGS + j) * 32 + lane]
-// holds the B fragment (b0, b1 for k t and t + 4, column g) of chunk c of
-// W1 (j = 0: B[k][n] = w1t[8c + n][perm k]) or of channel j - 1's W2 (B[k][n]
-// = w2t[8 (j - 1) + n][8c + perm k]), perm t = 2t, perm t + 4 = 2t + 1, as
-// (hi0, hi1, lo0, lo1); b1s[w], zero past W; b2s[q].
-__device__ void tc_load_field(float4* frag, float* b1s, float* b2s, const float* __restrict__ w1t,
-                              const float* __restrict__ b1, const float* __restrict__ w2t,
-                              const float* __restrict__ b2, int W) {
-  const int chunks = tc_chunks(W);
-  for (int e = threadIdx.x; e < chunks * TC_FRAGS * 32; e += blockDim.x) {
-    const int lane = e & 31, j = (e >> 5) % TC_FRAGS, c = (e >> 5) / TC_FRAGS;
-    const int g = lane >> 2, t = lane & 3;
-    float v0 = 0.f, v1 = 0.f;
-    if (j == 0) {
-      const int w = c * TC_K + g;
-      if (w < W) {
-        v0 = w1t[w * TC_H + 2 * t];
-        v1 = w1t[w * TC_H + 2 * t + 1];
-      }
-    } else {
-      const float* row = w2t + (size_t)((j - 1) * TC_H + g) * W;
-      const int w = c * TC_K + 2 * t;
+// Element e of the weights in fragment order, F = NT (1 + C) fragments of
+// 32 float4s a chunk of 8 hidden units: fragment j < NT of chunk c is W1's
+// k-step j (B[k][n] = w1t[8c + n][8j + perm k]), fragment NT + i NT + s is
+// channel i's W2 for state tile s (B[k][n] = w2t[i H + 8s + n][8c + perm
+// k]), with perm t = 2t, perm t + 4 = 2t + 1, thread (g, t) holding (b0, b1)
+// = (B[t][g], B[t + 4][g]) as (hi0, hi1, lo0, lo1); zero past W and past H.
+__device__ __forceinline__ float4 tc_frag(const float* __restrict__ w1t, const float* __restrict__ w2t, int H,
+                          int C, int W, int NT, int e) {
+  const int F = NT * (1 + C);
+  const int lane = e & 31, j = (e >> 5) % F, c = (e >> 5) / F;
+  const int g = lane >> 2, t = lane & 3;
+  float v0 = 0.f, v1 = 0.f;
+  if (j < NT) {
+    const int w = c * TC_K + g, k = 8 * j + 2 * t;
+    if (w < W) {
+      if (k < H) v0 = w1t[(size_t)w * H + k];
+      if (k + 1 < H) v1 = w1t[(size_t)w * H + k + 1];
+    }
+  } else {
+    const int i = (j - NT) / NT, k = 8 * ((j - NT) % NT) + g, w = c * TC_K + 2 * t;
+    if (k < H) {
+      const float* row = w2t + (size_t)(i * H + k) * W;
       if (w < W) v0 = row[w];
       if (w + 1 < W) v1 = row[w + 1];
     }
-    uint32_t h0, l0, h1, l1;
-    tf32_split(v0, h0, l0);
-    tf32_split(v1, h1, l1);
-    frag[e] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
-                          __uint_as_float(l1));
+  }
+  uint32_t hi0, lo0, hi1, lo1;
+  tf32_split(v0, hi0, lo0);
+  tf32_split(v1, hi1, lo1);
+  return make_float4(__uint_as_float(hi0), __uint_as_float(hi1), __uint_as_float(lo0),
+                     __uint_as_float(lo1));
+}
+
+// The fragments of every chunk into device memory, for the blocks to stream.
+__global__ void stage_frags_kernel(const float* __restrict__ w1t, const float* __restrict__ w2t,
+                                   int H, int C, int W, int NT, float4* __restrict__ out) {
+  const int total = tc_chunks(W) * NT * (1 + C) * 32;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += gridDim.x * blockDim.x)
+    out[e] = tc_frag(w1t, w2t, H, C, W, NT, e);
+}
+
+// Byte offsets of the forward's shared memory: the fragments (every chunk,
+// or the ring's two), the exchanged state's A fragments (split only: slots
+// x LG x NT k-steps x 32 threads x hi, lo), b1 (chunks x 8), b2 (C x Hp).
+struct FwdLayout {
+  size_t frag, ybuf, b1s, b2s, bytes;
+  __host__ __device__ FwdLayout(int C, int W, int NT, int LG, bool split, bool streamed,
+                                bool ysingle) {
+    const size_t F = (size_t)NT * (1 + C);
+    frag = 0;
+    ybuf = frag + 16 * F * 32 * (streamed ? 2 : tc_chunks(W));
+    b1s = ybuf + (split ? (size_t)(ysingle ? 1 : 2) * LG * NT * 32 * 32 : 0);
+    b2s = b1s + 4 * (size_t)tc_chunks(W) * TC_K;
+    bytes = b2s + 4 * (size_t)C * 8 * NT;
+  }
+};
+
+// The block's copy of the weights: the fragments (unless streamed), b1
+// padded to whole chunks, b2 padded to C x 8 NT.
+template <int C>
+__device__ void tc_load_field(float4* frag, float* b1s, float* b2s,
+                              const float* __restrict__ w1t, const float* __restrict__ b1,
+                              const float* __restrict__ w2t, const float* __restrict__ b2,
+                              int H, int W, int NT, bool streamed) {
+  const int chunks = tc_chunks(W);
+  if (!streamed) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < chunks * NT * (1 + C) * 32; e += blockDim.x)
+      frag[e] = tc_frag(w1t, w2t, H, C, W, NT, e);
   }
   for (int i = threadIdx.x; i < chunks * TC_K; i += blockDim.x) b1s[i] = i < W ? b1[i] : 0.f;
-  for (int i = threadIdx.x; i < TC_CH; i += blockDim.x) b2s[i] = b2[i];
+  for (int i = threadIdx.x; i < C * 8 * NT; i += blockDim.x) {
+    const int ch = i / (8 * NT), k = i - ch * 8 * NT;
+    b2s[i] = k < H ? b2[ch * H + k] : 0.f;
+  }
 }
 
-// k = f(y) along dx for the warp's 16 lanes: this thread's y and k at
-// positions r (r / 2: lane g or g + 8; r % 2: component 2t or 2t + 1), dx
-// of its two lanes.
-__device__ __forceinline__ void tc_field(const float4* __restrict__ frag,
-                                         const float* __restrict__ b1s,
-                                         const float* __restrict__ b2s, int chunks,
-                                         const float (&y)[4], const float (&dx)[2][TC_C],
-                                         float (&k)[4]) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  uint32_t yhi[4], ylo[4];
-  as_a(y, yhi, ylo);
-  float G[TC_C][4], X[TC_C][4];  // hi.hi from b2; the cross terms
+// The second product's accumulators for this warp's tiles (from tile nt0):
+// hi.hi from b2, the cross terms from zero.
+template <int C, int NTW>
+__device__ __forceinline__ void tc_start(const float* b2s, int NT, int nt0, float (&G)[C][NTW][4],
+                                         float (&X)[C][NTW][4]) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int i = 0; i < TC_C; ++i) {
-    const float2 bias = *reinterpret_cast<const float2*>(b2s + i * TC_H + 2 * t);
-    G[i][0] = G[i][2] = bias.x;
-    G[i][1] = G[i][3] = bias.y;
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) X[i][r] = 0.f;
-  }
-  const float4* f = frag + lane;
-#pragma unroll 4
-  for (int c = 0; c < chunks; ++c, f += TC_FRAGS * 32) {
-    const float2 bias = *reinterpret_cast<const float2*>(b1s + c * TC_K + 2 * t);
-    float h[4] = {bias.x, bias.y, bias.x, bias.y}, hx[4] = {0.f, 0.f, 0.f, 0.f};
-    mma3(h, hx, yhi, ylo, f[0]);
+    for (int nt = 0; nt < NTW; ++nt) {
+      const float2 bias = *reinterpret_cast<const float2*>(b2s + (i * NT + nt0 + nt) * 8 + 2 * t);
+      G[i][nt][0] = G[i][nt][2] = bias.x;
+      G[i][nt][1] = G[i][nt][3] = bias.y;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      h[r] += hx[r];
-      h[r] = (h[r] < 0.f) ? 0.f : h[r];
+      for (int r = 0; r < 4; ++r) X[i][nt][r] = 0.f;
     }
-    uint32_t hhi[4], hlo[4];
-    as_a(h, hhi, hlo);
-#pragma unroll
-    for (int i = 0; i < TC_C; ++i) mma3(G[i], X[i], hhi, hlo, f[(1 + i) * 32]);
   }
+}
+
+// One chunk of 8 hidden units: h1 = relu(y W1 + b1) from the state's NT
+// k-steps (A fragments from a(kt, hi, lo)), then this warp's tiles of the
+// second product; f: this thread's fragments of the chunk, b1c: its pair
+// of b1 (columns 2t, 2t + 1 of the chunk).
+template <int C, int NTW, typename AFrag>
+__device__ __forceinline__ void tc_chunk(const float4* f, const float* b1c, int NT, int nt0,
+                                         AFrag a, float (&G)[C][NTW][4],
+                                         float (&X)[C][NTW][4]) {
+  const float2 bias = *reinterpret_cast<const float2*>(b1c);
+  float h[4] = {bias.x, bias.y, bias.x, bias.y}, hx[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < TC_C; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) G[i][r] += X[i][r];
+  for (int kt = 0; kt < NT; ++kt) {
+    uint32_t ahi[4], alo[4];
+    a(kt, ahi, alo);
+    mma3(h, hx, ahi, alo, f[kt * 32]);
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const float(&d)[TC_C] = dx[r >> 1];
-    float acc = tanhf(G[0][r]) * d[0];
+    h[r] += hx[r];
+    h[r] = (h[r] < 0.f) ? 0.f : h[r];
+  }
+  uint32_t hhi[4], hlo[4];
+  as_a(h, hhi, hlo);
 #pragma unroll
-    for (int i = 1; i < TC_C; ++i) acc += tanhf(G[i][r]) * d[i];
-    k[r] = acc;
+  for (int i = 0; i < C; ++i) {
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+      mma3(G[i][nt], X[i][nt], hhi, hlo, f[(NT + i * NT + nt0 + nt) * 32]);
   }
 }
 
-__global__ void __launch_bounds__(TC_WARPS * 32)
-    rev_fwd_tc_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
-                      const float* __restrict__ w1t, const float* __restrict__ b1,
-                      const float* __restrict__ w2t, const float* __restrict__ b2,
-                      float* __restrict__ yres, float* __restrict__ yhres, int B, int n, int W,
-                      int m, double dt) {
-  extern __shared__ float4 tc_smem[];
-  const int chunks = tc_chunks(W);
-  float4* frag = tc_smem;
-  float* b1s = reinterpret_cast<float*>(tc_smem + chunks * TC_FRAGS * 32);
-  float* b2s = b1s + chunks * TC_K;
-  tc_load_field(frag, b1s, b2s, w1t, b1, w2t, b2, W);
+// k = sum_i tanh(G_i + X_i) dx_i at this thread's positions.
+template <int C, int NTW>
+__device__ __forceinline__ void tc_contract(const float (&G)[C][NTW][4],
+                                            const float (&X)[C][NTW][4],
+                                            const float (&dx)[2][C], float (&k)[NTW][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float(&d)[C] = dx[r >> 1];
+      float acc = tanhf(G[0][nt][r] + X[0][nt][r]) * d[0];
+#pragma unroll
+      for (int i = 1; i < C; ++i) acc += tanhf(G[i][nt][r] + X[i][nt][r]) * d[i];
+      k[nt][r] = acc;
+    }
+  }
+}
+
+// k = f(y) along dx for one warp's 16 lanes, all NT tiles its own, the
+// weights resident: this thread's y and k at positions [tile][r] (r / 2:
+// lane g or g + 8; r % 2: component 2t or 2t + 1), dx of its two lanes.
+template <int C, int NT>
+__device__ __forceinline__ void tc_field_one(const float4* __restrict__ frag,
+                                             const float* __restrict__ b1s,
+                                             const float* __restrict__ b2s, int chunks,
+                                             const float (&y)[NT][4], const float (&dx)[2][C],
+                                             float (&k)[NT][4]) {
+  uint32_t yhi[NT][4], ylo[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) as_a(y[nt], yhi[nt], ylo[nt]);
+  auto a = [&](int kt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      hi[r] = yhi[kt][r];
+      lo[r] = ylo[kt][r];
+    }
+  };
+  float G[C][NT][4], X[C][NT][4];
+  tc_start<C, NT>(b2s, NT, 0, G, X);
+  const float4* f = frag + (threadIdx.x & 31);
+  const float* b1t = b1s + 2 * (threadIdx.x & 3);
+#pragma unroll 4
+  for (int c = 0; c < chunks; ++c, f += NT * (1 + C) * 32)
+    tc_chunk<C, NT>(f, b1t + c * TC_K, NT, 0, a, G, X);
+  tc_contract<C, NT>(G, X, dx, k);
+}
+
+// What a warp of the split forward needs besides its registers.
+struct SplitCtx {
+  float4* frag;  // resident fragments, or the ring's slots
+  uint4* ybuf;   // the exchanged state
+  const float* b1s;
+  const float* b2s;
+  int chunks, NT, LG, lg, s, ysingle, streamed, ev;
+};
+
+// The same for S warps sharing the lane group, this warp's NTW tiles from
+// tile s NTW, every tile's A fragments exchanged through shared memory.
+template <int C, int NTW>
+__device__ __forceinline__ void tc_field_split(SplitCtx& x, Ring& ring, const float (&y)[NTW][4],
+                                               const float (&dx)[2][C], float (&k)[NTW][4]) {
+  const int lane = threadIdx.x & 31, NT = x.NT, F = NT * (1 + C), nt0 = x.s * NTW;
+  const int slot = x.ysingle ? 0 : (x.ev++ & 1);
+  if (x.ysingle) __syncthreads();  // every warp done with the last evaluation's state
+  uint4* mine = x.ybuf + (size_t)(slot * x.LG + x.lg) * NT * 64;
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt) {
+    uint32_t hi[4], lo[4];
+    as_a(y[nt], hi, lo);
+    mine[(nt0 + nt) * 64 + lane] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    mine[(nt0 + nt) * 64 + 32 + lane] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
   __syncthreads();
-  const int base = blockIdx.x * TC_BLOCK + (threadIdx.x >> 5) * TC_LANES;
-  if (base >= B) return;  // the whole warp: mma.sync needs all its threads
+  const uint4* yb = mine + lane;
+  auto a = [&](int kt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    const uint4 h = yb[kt * 64], l = yb[kt * 64 + 32];
+    hi[0] = h.x, hi[1] = h.y, hi[2] = h.z, hi[3] = h.w;
+    lo[0] = l.x, lo[1] = l.y, lo[2] = l.z, lo[3] = l.w;
+  };
+  float G[C][NTW][4], X[C][NTW][4];
+  tc_start<C, NTW>(x.b2s, NT, nt0, G, X);
+  const float* b1t = x.b1s + 2 * (lane & 3);
+  if (x.streamed) {
+    for (int c = 0; c < x.chunks; ++c)
+      tc_chunk<C, NTW>(ring.step(c) + lane, b1t + c * TC_K, NT, nt0, a, G, X);
+  } else {
+    for (int c = 0; c < x.chunks; ++c)
+      tc_chunk<C, NTW>(x.frag + (size_t)c * F * 32 + lane, b1t + c * TC_K, NT, nt0, a, G, X);
+  }
+  tc_contract<C, NTW>(G, X, dx, k);
+}
+
+// The walk over the intervals for this thread's two lanes and NTW tiles
+// (from tile nt0) of the lane group from lane lbase, field(y, dx, k)
+// evaluating f.  Scalars by value: the compiler keeps them in registers.
+template <int C, int NTW, typename Field>
+__device__ __forceinline__ void tc_walk(const float* __restrict__ ct,
+                                        const float* __restrict__ z0t,
+                                        float* __restrict__ yres, float* __restrict__ yhres,
+                                        int B, int n, int H, int m, double dt, int lbase,
+                                        int nt0, Field field) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int row[2] = {base + g, base + g + 8};
+  const int row[2] = {lbase + g, lbase + g + 8};
   const bool live[2] = {row[0] < B, row[1] < B};
   const float dtf = (float)dt, hdt = (float)(0.5 * dt);
-
-  float y[4], yh[4];
+  // Position [tile][r] is component 8 (nt0 + tile) + 2t + r % 2 of lane
+  // row[r / 2]: its offset in an (H, B) plane, and whether it is stored.
+  const size_t base = (size_t)(8 * nt0 + 2 * t) * B + row[0];
+  bool ok[NTW][4];
+  float y[NTW][4], yh[NTW][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int h = 2 * t + (r & 1);
-    y[r] = yh[r] = live[r >> 1] ? z0t[(size_t)h * B + row[r >> 1]] : 0.f;
-  }
-  for (int j = 0; j < n; ++j) {
-    float sb[2][TC_C], sc[2][TC_C], sd[2][TC_C], dx[2][TC_C], f[4];
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      load_slab<TC_H, TC_C>(ct, j, B, row[p], live[p], sb[p], sc[p], sd[p]);
-      control_derivative<TC_C>(sb[p], sc[p], sd[p], 0.f, dx[p]);
-    }
-    tc_field(frag, b1s, b2s, chunks, yh, dx, f);
-    for (int s = 0; s < m; ++s) {
-      float yn[4], f1[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) yn[r] = 2.f * y[r] - yh[r] + dtf * f[r];
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-        control_derivative<TC_C>(sb[p], sc[p], sd[p], fraction(s + 1, dt), dx[p]);
-      tc_field(frag, b1s, b2s, chunks, yn, dx, f1);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        y[r] = y[r] + hdt * (f[r] + f1[r]);
-        yh[r] = yn[r];
-        f[r] = f1[r];
-      }
-    }
+  for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      if (!live[r >> 1]) continue;
-      const size_t at = ((size_t)j * TC_H + 2 * t + (r & 1)) * B + row[r >> 1];
-      yres[at] = y[r];
-      yhres[at] = yh[r];
+      ok[nt][r] = live[r >> 1] && 8 * (nt0 + nt) + 2 * t + (r & 1) < H;
+      const size_t at = base + (size_t)(8 * nt + (r & 1)) * B + 8 * (r >> 1);
+      y[nt][r] = yh[nt][r] = ok[nt][r] ? z0t[at] : 0.f;
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Specialised backward (H 8, C 3): blocks of RB_LANES lanes, one thread per
-// lane, as many blocks as the SMs hold at once (one resident wave), the
-// weight gradients reduced in register tiles.
-//
-// The JAX kernel walks a tile of lanes per program and accumulates the
-// tile's weight gradients across all intervals as products over the tile's
-// lanes (dw1_acc ... db2_acc).  Here a block's RB_LANES lanes are the tile,
-// and the block holds one copy of the weights in shared memory.  Per VJP
-// each thread runs its lane's evaluation and backward pass, reading weight
-// rows as float4 broadcasts, and stages what the weight gradients need: per
-// lane dp2 and y (the right operands), and h1 and dp1 for a chunk of up to
-// RB_CHUNK weight rows (the left operands; the backward pass recomputes h1,
-// 8 FMAs a row, so nothing of the evaluation is kept across the passes).
-// Then the block reduces the chunk over its lanes as a product: thread
-// (group g = tid % 4, quad k = tid / 4) owns a register tile of 4 rows x 8
-// columns, of dW2 (g < 3: columns 8g..8g+7, h1 x dp2) or of dW1 (g = 3:
-// dp1 x y): three float4 loads and 32 FMAs per lane, into a partial that
-// is added to the tile once per VJP.  The tile holds its sums for the
-// whole walk and is written once, as the block's partial.  Blocks stride over the lane groups where the grid is
-// smaller than their number.  Deterministic: lanes, lane groups and (on
-// the host) blocks are summed in a fixed order, without atomics.
-
-constexpr int RB_H = 8, RB_C = 3, RB_CH = RB_C * RB_H;
-constexpr int RB_LANES = 128;     // lanes (threads) per block
-constexpr int RB_CHUNK = 128;     // weight rows per staged chunk: a quad per tile thread
-constexpr int RB_MAX_CHUNKS = 4;  // W <= 512, the JAX kernel's cap
-constexpr int RB_RIGHT = 36;      // row stride of the right operands: dp2 (24), y (8), pad
-static_assert(RB_CHUNK == RB_LANES, "4 groups x RB_LANES / 4 quads of rows");
-
-__host__ __device__ inline int rb_round4(int W) { return (W + 3) & ~3; }
-
-__host__ __device__ inline int rb_chunks(int W) {
-  return (rb_round4(W) + RB_CHUNK - 1) / RB_CHUNK;
-}
-
-// Row stride of the left operands: the chunk's rows rounded to an odd
-// multiple of 4, so that eight consecutive lanes' float4 stores fall in
-// distinct banks.
-__host__ __device__ inline int rb_stride(int W) {
-  const int rows = rb_round4(W) < RB_CHUNK ? rb_round4(W) : RB_CHUNK;
-  return 4 * ((rows / 4) | 1);
-}
-
-__host__ __device__ inline size_t rb_smem_floats(int W) {
-  return (size_t)rb_round4(W) * (RB_H + RB_CH + 1) + RB_CH +
-         2 * (size_t)RB_LANES * rb_stride(W) + (size_t)RB_LANES * RB_RIGHT;
-}
-
-// The block's shared memory; every offset is a multiple of 4 floats.
-struct RbShared {
-  float* w1;     // [W4][8]    w1t, zero rows past W
-  float* w2;     // [W4][24]   w2t transposed, zero rows past W
-  float* b1;     // [W4]
-  float* b2;     // [24]
-  float* left;   // [2][RB_LANES][S]  h1, then dp1, of the chunk's rows per lane
-  float* right;  // [RB_LANES][RB_RIGHT]  dp2, y per lane
-  int W4, S;
-  __device__ RbShared(float* base, int W) : W4(rb_round4(W)), S(rb_stride(W)) {
-    w1 = base;
-    w2 = w1 + W4 * RB_H;
-    b1 = w2 + W4 * RB_CH;
-    b2 = b1 + W4;
-    left = b2 + RB_CH;
-    right = left + 2 * RB_LANES * S;
-  }
-};
-
-__device__ void rb_load_field(const RbShared& s, const float* __restrict__ w1t,
-                              const float* __restrict__ b1, const float* __restrict__ w2t,
-                              const float* __restrict__ b2, int W) {
-  for (int i = threadIdx.x; i < s.W4 * RB_H; i += blockDim.x)
-    s.w1[i] = i < W * RB_H ? w1t[i] : 0.f;
-  for (int i = threadIdx.x; i < s.W4 * RB_CH; i += blockDim.x) {
-    const int w = i / RB_CH, q = i - w * RB_CH;
-    s.w2[i] = w < W ? w2t[(size_t)q * W + w] : 0.f;
-  }
-  for (int i = threadIdx.x; i < s.W4; i += blockDim.x) s.b1[i] = i < W ? b1[i] : 0.f;
-  for (int i = threadIdx.x; i < RB_CH; i += blockDim.x) s.b2[i] = b2[i];
-}
-
-// h1_w = relu(W1 y + b1)_w, in float32 on the CUDA cores (the forward's
-// products ran on the tensor cores, rounding otherwise); a0, a1: row w of W1.
-__device__ __forceinline__ float rb_hidden(const RbShared& s, int w, const float (&y)[RB_H],
-                                           float4& a0, float4& a1) {
-  const float4* r1 = reinterpret_cast<const float4*>(s.w1 + w * RB_H);
-  a0 = r1[0];
-  a1 = r1[1];
-  float a = 0.f;
-  a = fmaf(a0.x, y[0], a);
-  a = fmaf(a0.y, y[1], a);
-  a = fmaf(a0.z, y[2], a);
-  a = fmaf(a0.w, y[3], a);
-  a = fmaf(a1.x, y[4], a);
-  a = fmaf(a1.y, y[5], a);
-  a = fmaf(a1.z, y[6], a);
-  a = fmaf(a1.w, y[7], a);
-  a += s.b1[w];
-  return (a < 0.f) ? 0.f : a;
-}
-
-// A thread's share of the block's weight gradients.
-template <int R>
-struct RbTile {
-  float w[R][4][8];  // rows RB_CHUNK c + 4k + e; columns 8g + j of dW2 (g < 3), j of dW1 (g = 3)
-  float b1[R][4];    // db1 of those rows (g = 3)
-  float b2[8];       // db2 columns 8g + j (k = 0, g < 3)
-};
-
-// Adds the staged chunk's products over the block's lanes to this thread's
-// tile of the chunk (and db2's columns once per VJP): summed over the lanes
-// in order into a fresh partial first, so the tile's running sums take one
-// addition per VJP rather than one per lane and VJP.
-__device__ __forceinline__ void rb_reduce(const RbShared& s, int rows, bool bias2,
-                                          float (&acc)[4][8], float (&acc_b1)[4],
-                                          float (&acc_b2)[8]) {
-  const int g = threadIdx.x & 3, k = threadIdx.x >> 2;
-  if (4 * k >= rows) return;
-  const float* lp = s.left + (g == 3 ? RB_LANES * s.S : 0) + 4 * k;
-  const float* rp = s.right + 8 * g;
-  const bool db1 = g == 3, db2 = bias2 && k == 0 && g < 3;
-  float part[4][8], part_b1[4], part_b2[8];
+  for (int j = 0; j < n; ++j) {
+    float sb[2][C], sc[2][C], sd[2][C], dx[2][C], f[NTW][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    part_b1[e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) part[e][j] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) part_b2[j] = 0.f;
-#pragma unroll 2
-  for (int l = 0; l < RB_LANES; ++l) {
-    const float4 lv = *reinterpret_cast<const float4*>(lp + l * s.S);
-    const float4 r0 = *reinterpret_cast<const float4*>(rp + l * RB_RIGHT);
-    const float4 r1 = *reinterpret_cast<const float4*>(rp + l * RB_RIGHT + 4);
-    const float L[4] = {lv.x, lv.y, lv.z, lv.w};
-    const float Rt[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[e][j] = fmaf(L[e], Rt[j], part[e][j]);
+    for (int p = 0; p < 2; ++p) {
+      load_slab<1, C>(ct, j, B, row[p], live[p], sb[p], sc[p], sd[p]);
+      control_derivative<C>(sb[p], sc[p], sd[p], 0.f, dx[p]);
     }
-    if (db1) {
+    field(yh, dx, f);
+    for (int s = 0; s < m; ++s) {
+      float yn[NTW][4], f1[NTW][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) part_b1[e] += L[e];
-    }
-    if (db2) {
+      for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) part_b2[j] += Rt[j];
-    }
-  }
+        for (int r = 0; r < 4; ++r) yn[nt][r] = 2.f * y[nt][r] - yh[nt][r] + dtf * f[nt][r];
+      }
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    acc_b1[e] += part_b1[e];
+      for (int p = 0; p < 2; ++p)
+        control_derivative<C>(sb[p], sc[p], sd[p], fraction(s + 1, dt), dx[p]);
+      field(yn, dx, f1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[e][j] += part[e][j];
-  }
+      for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc_b2[j] += part_b2[j];
-}
-
-// One evaluation k = f(y) along dx and its VJP for the cotangent u of k, for
-// this thread's lane: k, dy and ddx, and the evaluation's weight gradients,
-// summed over the block's lanes, added to the tiles.  Every thread of the
-// block calls it (lanes past the batch with zero state and cotangent).
-template <int R>
-__device__ __forceinline__ void rb_vjp(const RbShared& s, const float (&u)[RB_H],
-                                       const float (&y)[RB_H], const float (&dx)[RB_C],
-                                       float (&k)[RB_H], float (&dy)[RB_H],
-                                       float (&ddx)[RB_C], RbTile<R>& t) {
-  const int tid = threadIdx.x;
-  float pre2[RB_CH];
-#pragma unroll
-  for (int q = 0; q < RB_CH; ++q) pre2[q] = 0.f;
-#pragma unroll 4
-  for (int w = 0; w < s.W4; ++w) {
-    float4 a0, a1;
-    const float a = rb_hidden(s, w, y, a0, a1);
-    const float4* r2 = reinterpret_cast<const float4*>(s.w2 + w * RB_CH);
-#pragma unroll
-    for (int j = 0; j < RB_CH / 4; ++j) {
-      const float4 v = r2[j];
-      pre2[4 * j] = fmaf(v.x, a, pre2[4 * j]);
-      pre2[4 * j + 1] = fmaf(v.y, a, pre2[4 * j + 1]);
-      pre2[4 * j + 2] = fmaf(v.z, a, pre2[4 * j + 2]);
-      pre2[4 * j + 3] = fmaf(v.w, a, pre2[4 * j + 3]);
-    }
-  }
-  float g[RB_CH];
-#pragma unroll
-  for (int q = 0; q < RB_CH; ++q) g[q] = tanhf(pre2[q] + s.b2[q]);
-  contract<RB_H, RB_C>(g, dx, k);
-
-  float dp2[RB_CH];
-#pragma unroll
-  for (int i = 0; i < RB_C; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int h = 0; h < RB_H; ++h) {
-      const int q = i * RB_H + h;
-      acc += u[h] * g[q];
-      dp2[q] = (u[h] * dx[i]) * (1.f - g[q] * g[q]);
-    }
-    ddx[i] = acc;
-  }
-  float4* right = reinterpret_cast<float4*>(s.right + tid * RB_RIGHT);
-#pragma unroll
-  for (int j = 0; j < RB_CH / 4; ++j)
-    right[j] = make_float4(dp2[4 * j], dp2[4 * j + 1], dp2[4 * j + 2], dp2[4 * j + 3]);
-  right[RB_CH / 4] = make_float4(y[0], y[1], y[2], y[3]);
-  right[RB_CH / 4 + 1] = make_float4(y[4], y[5], y[6], y[7]);
-#pragma unroll
-  for (int h = 0; h < RB_H; ++h) dy[h] = 0.f;
-
-  float4* h1s = reinterpret_cast<float4*>(s.left + tid * s.S);
-  float4* dp1s = reinterpret_cast<float4*>(s.left + (RB_LANES + tid) * s.S);
-#pragma unroll
-  for (int c = 0; c < R; ++c) {
-    const int w0 = c * RB_CHUNK;
-    const int rows = s.W4 - w0 < RB_CHUNK ? s.W4 - w0 : RB_CHUNK;
-    for (int wq = 0; wq < rows; wq += 4) {
-      float hq[4], pq[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int w = w0 + wq + e;
-        float4 a0, a1;
-        const float h = rb_hidden(s, w, y, a0, a1);
-        const float4* r2 = reinterpret_cast<const float4*>(s.w2 + w * RB_CH);
-        float dh = 0.f;
-#pragma unroll
-        for (int j = 0; j < RB_CH / 4; ++j) {
-          const float4 v = r2[j];
-          dh = fmaf(v.x, dp2[4 * j], dh);
-          dh = fmaf(v.y, dp2[4 * j + 1], dh);
-          dh = fmaf(v.z, dp2[4 * j + 2], dh);
-          dh = fmaf(v.w, dp2[4 * j + 3], dh);
+        for (int r = 0; r < 4; ++r) {
+          y[nt][r] = y[nt][r] + hdt * (f[nt][r] + f1[nt][r]);
+          yh[nt][r] = yn[nt][r];
+          f[nt][r] = f1[nt][r];
         }
-        const float p = h > 0.f ? dh : 0.f;
-        dy[0] = fmaf(a0.x, p, dy[0]);
-        dy[1] = fmaf(a0.y, p, dy[1]);
-        dy[2] = fmaf(a0.z, p, dy[2]);
-        dy[3] = fmaf(a0.w, p, dy[3]);
-        dy[4] = fmaf(a1.x, p, dy[4]);
-        dy[5] = fmaf(a1.y, p, dy[5]);
-        dy[6] = fmaf(a1.z, p, dy[6]);
-        dy[7] = fmaf(a1.w, p, dy[7]);
-        hq[e] = h;
-        pq[e] = p;
       }
-      h1s[wq / 4] = make_float4(hq[0], hq[1], hq[2], hq[3]);
-      dp1s[wq / 4] = make_float4(pq[0], pq[1], pq[2], pq[3]);
     }
-    __syncthreads();
-    rb_reduce(s, rows, c == 0, t.w[c], t.b1[c], t.b2);
-    __syncthreads();
-  }
-}
-
-// Writes the thread's tiles into the block's slice of the partials.
-template <int R>
-__device__ void rb_store(const RbTile<R>& t, int W, float* __restrict__ dw1p,
-                         float* __restrict__ db1p, float* __restrict__ dw2p,
-                         float* __restrict__ db2p) {
-  const int g = threadIdx.x & 3, k = threadIdx.x >> 2;
-  const size_t blk = blockIdx.x;
+    float* yj = yres + (size_t)j * H * B;
+    float* yhj = yhres + (size_t)j * H * B;
 #pragma unroll
-  for (int c = 0; c < R; ++c) {
+    for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int w = c * RB_CHUNK + 4 * k + e;
-      if (w >= W) continue;
-      if (g < 3) {
-        float* row = dw2p + (blk * W + w) * RB_CH + 8 * g;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) row[j] = t.w[c][e][j];
-      } else {
-        float* row = dw1p + (blk * W + w) * RB_H;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) row[j] = t.w[c][e][j];
-        db1p[blk * W + w] = t.b1[c][e];
+      for (int r = 0; r < 4; ++r) {
+        const size_t at = base + (size_t)(8 * nt + (r & 1)) * B + 8 * (r >> 1);
+        if (ok[nt][r]) {
+          yj[at] = y[nt][r];
+          yhj[at] = yh[nt][r];
+        }
       }
     }
   }
-  if (k == 0 && g < 3) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) db2p[blk * RB_CH + 8 * g + j] = t.b2[j];
-  }
 }
 
-template <int R>
-__global__ void __launch_bounds__(RB_LANES)
-    rev_bwd_tiles_kernel(const float* __restrict__ ct, const float* __restrict__ yres,
-                         const float* __restrict__ yhres, const float* __restrict__ gy,
+// A warp per lane group of 16, NT (1 or 2) state tiles, the weights
+// resident: blocks of ONE_WARPS lane groups.
+template <int C, int NT>
+__global__ void __launch_bounds__(ONE_WARPS * 32)
+    rev_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
+                   const float* __restrict__ w1t, const float* __restrict__ b1,
+                   const float* __restrict__ w2t, const float* __restrict__ b2,
+                   float* __restrict__ yres, float* __restrict__ yhres, int B, int n, int H,
+                   int W, int m, double dt) {
+  extern __shared__ float4 fwd_smem[];
+  const FwdLayout L(C, W, NT, ONE_WARPS, false, false, false);
+  char* base = reinterpret_cast<char*>(fwd_smem);
+  float4* frag = reinterpret_cast<float4*>(base + L.frag);
+  float* b1s = reinterpret_cast<float*>(base + L.b1s);
+  float* b2s = reinterpret_cast<float*>(base + L.b2s);
+  tc_load_field<C>(frag, b1s, b2s, w1t, b1, w2t, b2, H, W, NT, false);
+  __syncthreads();
+  const int lbase = (int)blockIdx.x * ONE_WARPS * TC_LANES + (threadIdx.x >> 5) * TC_LANES;
+  if (lbase >= B) return;  // the whole warp: mma.sync needs all
+  const int chunks = tc_chunks(W);
+  tc_walk<C, NT>(ct, z0t, yres, yhres, B, n, H, m, dt, lbase, 0,
+                 [&](const float (&y)[NT][4], const float (&dx)[2][C], float (&k)[NT][4]) {
+                   tc_field_one<C, NT>(frag, b1s, b2s, chunks, y, dx, k);
+                 });
+}
+
+// S warps per lane group, NTW tiles a warp, LG lane groups a block, the
+// weights resident or streamed.  Every warp walks every evaluation, lanes
+// past B on zeros: the barriers of the exchange and of the ring need all.
+template <int C, int NTW>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+    rev_fwd_split_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
                          const float* __restrict__ w1t, const float* __restrict__ b1,
                          const float* __restrict__ w2t, const float* __restrict__ b2,
-                         float* __restrict__ dct, float* __restrict__ dz0,
-                         float* __restrict__ dw1p, float* __restrict__ db1p,
-                         float* __restrict__ dw2p, float* __restrict__ db2p, int B, int n,
-                         int W, int m, double dt) {
-  extern __shared__ float4 rb_smem[];
-  const RbShared s(reinterpret_cast<float*>(rb_smem), W);
-  rb_load_field(s, w1t, b1, w2t, b2, W);
-  RbTile<R> t;
-#pragma unroll
-  for (int c = 0; c < R; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      t.b1[c][e] = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) t.w[c][e][j] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) t.b2[j] = 0.f;
+                         const float4* __restrict__ staged, float* __restrict__ yres,
+                         float* __restrict__ yhres, int B, int n, int H, int W, int m, double dt,
+                         int NT, int LG, int S, int streamed, int ysingle) {
+  extern __shared__ float4 fwd_smem[];
+  const FwdLayout L(C, W, NT, LG, true, streamed, ysingle);
+  char* base = reinterpret_cast<char*>(fwd_smem);
+  const int warp = threadIdx.x >> 5;
+  SplitCtx x{reinterpret_cast<float4*>(base + L.frag), reinterpret_cast<uint4*>(base + L.ybuf),
+             reinterpret_cast<float*>(base + L.b1s), reinterpret_cast<float*>(base + L.b2s),
+             tc_chunks(W), NT, LG, warp / S, warp % S, ysingle, streamed, 0};
+  Ring ring(x.frag, staged, streamed ? NT * (1 + C) * 32 : 0, x.chunks);
+  tc_load_field<C>(x.frag, reinterpret_cast<float*>(base + L.b1s),
+                   reinterpret_cast<float*>(base + L.b2s), w1t, b1, w2t, b2, H, W, NT, streamed);
   __syncthreads();
-
-  const float dtf = (float)dt, hdt = (float)(0.5 * dt);
-  for (int grp = blockIdx.x; grp < (B + RB_LANES - 1) / RB_LANES; grp += gridDim.x) {
-    const int lane = grp * RB_LANES + threadIdx.x;
-    const bool live = lane < B;
-    float ay[RB_H], ayh[RB_H];
-#pragma unroll
-    for (int h = 0; h < RB_H; ++h) ay[h] = ayh[h] = 0.f;
-
-    for (int jr = 0; jr < n; ++jr) {
-      const int j = n - 1 - jr;
-      // Knot j + 1's cotangent enters as its interval's walk starts, from
-      // the state stored there (lanes past the batch walk zeros).
-      float y1[RB_H], yh1[RB_H];
-#pragma unroll
-      for (int h = 0; h < RB_H; ++h) {
-        const size_t at = ((size_t)j * RB_H + h) * B + lane;
-        if (live) ay[h] += gy[at];
-        y1[h] = live ? yres[at] : 0.f;
-        yh1[h] = live ? yhres[at] : 0.f;
-      }
-      float sb[RB_C], sc[RB_C], sd[RB_C];
-      load_slab<RB_H, RB_C>(ct, j, B, lane, live, sb, sc, sd);
-      float acc_b[RB_C], acc_c[RB_C], acc_d[RB_C];
-#pragma unroll
-      for (int i = 0; i < RB_C; ++i) acc_b[i] = acc_c[i] = acc_d[i] = 0.f;
-
-      for (int st = m - 1; st >= 0; --st) {
-        const float fr1 = fraction(st + 1, dt), fr0 = fraction(st, dt);
-        float dx[RB_C], ddx[RB_C], u[RB_H], v[RB_H], f1[RB_H], f0[RB_H], yh0[RB_H];
-        // The step's second evaluation: f1 = f(yh1) and its VJP.
-        control_derivative<RB_C>(sb, sc, sd, fr1, dx);
-#pragma unroll
-        for (int h = 0; h < RB_H; ++h) u[h] = hdt * ay[h];
-        rb_vjp<R>(s, u, yh1, dx, f1, v, ddx, t);
-#pragma unroll
-        for (int i = 0; i < RB_C; ++i) {
-          acc_b[i] += ddx[i];
-          acc_c[i] += fr1 * ddx[i];
-          acc_d[i] += (fr1 * fr1) * ddx[i];
-        }
-        // The inverse map's companion, then its evaluation f0 = f(yh0) and VJP.
-#pragma unroll
-        for (int h = 0; h < RB_H; ++h) {
-          yh0[h] = 2.f * y1[h] - yh1[h] - dtf * f1[h];
-          ayh[h] += v[h];
-          u[h] = hdt * ay[h] + dtf * ayh[h];
-        }
-        control_derivative<RB_C>(sb, sc, sd, fr0, dx);
-        rb_vjp<R>(s, u, yh0, dx, f0, v, ddx, t);
-#pragma unroll
-        for (int i = 0; i < RB_C; ++i) {
-          acc_b[i] += ddx[i];
-          acc_c[i] += fr0 * ddx[i];
-          acc_d[i] += (fr0 * fr0) * ddx[i];
-        }
-#pragma unroll
-        for (int h = 0; h < RB_H; ++h) {
-          y1[h] = y1[h] - hdt * (f1[h] + f0[h]);
-          yh1[h] = yh0[h];
-          ay[h] = ay[h] + 2.f * ayh[h];
-          ayh[h] = -ayh[h] + v[h];
-        }
-      }
-      if (live) {
-        float* row = dct + (size_t)j * 3 * RB_C * B + lane;
-#pragma unroll
-        for (int i = 0; i < RB_C; ++i) {
-          row[(size_t)i * B] = acc_b[i];
-          row[(size_t)(RB_C + i) * B] = acc_c[i];
-          row[(size_t)(2 * RB_C + i) * B] = acc_d[i];
-        }
-      }
-    }
-    // y and yh both start at z0: both adjoints flow there.
-    if (live) {
-#pragma unroll
-      for (int h = 0; h < RB_H; ++h) dz0[(size_t)h * B + lane] = ay[h] + ayh[h];
-    }
-  }
-  rb_store<R>(t, W, dw1p, db1p, dw2p, db2p);
+  tc_walk<C, NTW>(ct, z0t, yres, yhres, B, n, H, m, dt, ((int)blockIdx.x * LG + x.lg) * TC_LANES,
+                  x.s * NTW,
+                  [&](const float (&y)[NTW][4], const float (&dx)[2][C], float (&k)[NTW][4]) {
+                    tc_field_split<C, NTW>(x, ring, y, dx, k);
+                  });
+  copy_wait();
 }
 
-// ---------------------------------------------------------------------------
-// Generic variant: H, C and W at run time.
+using FwdKernel = decltype(&rev_fwd_kernel<1, 1>);
+using SplitKernel = decltype(&rev_fwd_split_kernel<1, 2>);
 
-// Offsets, in floats, of the generic kernels' shared-memory vectors.
-struct RevLayout {
-  size_t y, yh, yn, f, f1, h1, g, dx, slab;  // both kernels
-  size_t ay, ayh, u, v, dp1, dp2, acc;       // backward only
-  size_t total;
-  __host__ __device__ RevLayout(int H, int C, int W, bool bwd, bool acc_smem) {
-    const int CH = C * H;
-    size_t top = 0;
-    y = take(top, H);
-    yh = take(top, H);
-    yn = take(top, H);
-    f = take(top, H);
-    f1 = take(top, H);
-    h1 = take(top, W);
-    g = take(top, CH);
-    dx = take(top, C);
-    slab = take(top, 3 * C);
-    ay = ayh = u = v = dp1 = dp2 = acc = top;
-    if (bwd) {
-      ay = take(top, H);
-      ayh = take(top, H);
-      u = take(top, H);
-      v = take(top, H);
-      dp1 = take(top, W);
-      dp2 = take(top, CH);
-      if (acc_smem) acc = take(top, partial_floats(H, C, W));
-    }
-    total = top;
-  }
+// The instances: one warp at one or two tiles for every C; the split at two
+// tiles a warp for every C, at four for C <= 3 and at eight for C 1.
+FwdKernel fwd_kernel(int C, int NT) {
+#define K8_FWD(c, nt) \
+  if (C == c && NT == nt) return rev_fwd_kernel<c, nt>;
+  K8_FWD(1, 1) K8_FWD(2, 1) K8_FWD(3, 1) K8_FWD(4, 1) K8_FWD(5, 1)
+  K8_FWD(1, 2) K8_FWD(2, 2) K8_FWD(3, 2) K8_FWD(4, 2) K8_FWD(5, 2)
+#undef K8_FWD
+  return nullptr;
+}
+
+SplitKernel split_kernel(int C, int NTW) {
+#define K8_SPLIT(c, ntw) \
+  if (C == c && NTW == ntw) return rev_fwd_split_kernel<c, ntw>;
+  K8_SPLIT(1, 2) K8_SPLIT(2, 2) K8_SPLIT(3, 2) K8_SPLIT(4, 2) K8_SPLIT(5, 2)
+  K8_SPLIT(1, 4) K8_SPLIT(2, 4) K8_SPLIT(3, 4) K8_SPLIT(1, 8)
+#undef K8_SPLIT
+  return nullptr;
+}
+
+// One forward launch, as forward_plan sets it.
+struct FwdPlan {
+  int NT;        // state tiles: Hp / 8
+  int NTW, S;    // tiles a warp; warps a lane group
+  int LG;        // lane groups a block
+  int split;     // the split kernel (else one warp a lane group)
+  int streamed;  // split: the weights through the ring (else resident)
+  int ysingle;   // split: one slot of exchanged state (else two)
+  int blocks, threads;
+  size_t bytes, scratch;  // shared bytes a block; floats of staged fragments
 };
 
-struct RevVecs {
-  float *y, *yh, *yn, *f, *f1, *h1, *g, *dx, *slab;
-  float *ay, *ayh, *u, *v, *dp1, *dp2, *acc;
-  __device__ RevVecs(float* base, const RevLayout& L)
-      : y(base + L.y), yh(base + L.yh), yn(base + L.yn), f(base + L.f),
-        f1(base + L.f1), h1(base + L.h1), g(base + L.g), dx(base + L.dx),
-        slab(base + L.slab), ay(base + L.ay), ayh(base + L.ayh), u(base + L.u),
-        v(base + L.v), dp1(base + L.dp1), dp2(base + L.dp2),
-        acc(base + L.acc) {}
-  __device__ GenStage stage() const { return GenStage{h1, g, dx, u, dp1, dp2}; }
-  // dX/dt at fraction fr of the interval, channel i to thread i < C.
-  __device__ void set_dx(int C, float fr) const {
-    const int i = threadIdx.x;
-    if (i < C) dx[i] = slab[i] + (slab[C + i] + slab[2 * C + i] * fr) * fr;
+// The forward launch for these shapes: one warp a lane group where the
+// state is one or two tiles and the weights fit; otherwise the split, the
+// weights resident or streamed (then a smaller block where needed, and one
+// slot of exchanged state as a last resort).
+int forward_plan(FwdPlan& p, int B, int H, int C, int W) {
+  const int tiles = (H + 7) / 8;
+  p.streamed = 0;
+  p.ysingle = 0;
+  p.split = tiles > 2 ||
+            FwdLayout(C, W, tiles, ONE_WARPS, false, false, false).bytes > MAX_SMEM;
+  if (!p.split) {
+    p.NTW = p.NT = tiles;
+    p.S = 1;
+    p.LG = ONE_WARPS;
+  } else {
+    p.NTW = 2;
+    while ((tiles + p.NTW - 1) / p.NTW > SPLIT_WARPS) p.NTW *= 2;
+    p.S = (tiles + p.NTW - 1) / p.NTW;
+    p.NT = p.S * p.NTW;
+    p.LG = std::max(1, SPLIT_WARPS / p.S);
   }
-  // Entry h of the evaluation, from g and dx.
-  __device__ float entry(int H, int C, int h) const {
-    float acc = g[h] * dx[0];
-    for (int i = 1; i < C; ++i) acc += g[i * H + h] * dx[i];
-    return acc;
-  }
-};
-
-__global__ void __launch_bounds__(GEN_THREADS)
-    gen_rev_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ z0t,
-                       GenField f, float* __restrict__ yres,
-                       float* __restrict__ yhres, int B, int n, int m, double dt) {
-  extern __shared__ float smem[];
-  const RevVecs s(smem, RevLayout(f.H, f.C, f.W, false, false));
-  const int H = f.H, C = f.C, tid = threadIdx.x, nt = blockDim.x;
-  const float dtf = (float)dt, hdt = (float)(0.5 * dt);
-  // Each state entry h belongs to one thread throughout.
-  for (int lane = blockIdx.x; lane < B; lane += gridDim.x) {
-    for (int h = tid; h < H; h += nt) s.y[h] = s.yh[h] = z0t[(size_t)h * B + lane];
-    for (int j = 0; j < n; ++j) {
-      for (int r = tid; r < 3 * C; r += nt) s.slab[r] = ct[((size_t)j * 3 * C + r) * B + lane];
-      __syncthreads();
-      s.set_dx(C, 0.f);
-      __syncthreads();
-      gen_mlp(f, s.yh, s.h1, s.g);
-      for (int h = tid; h < H; h += nt) s.f[h] = s.entry(H, C, h);
-      for (int step = 0; step < m; ++step) {
-        for (int h = tid; h < H; h += nt) s.yn[h] = 2.f * s.y[h] - s.yh[h] + dtf * s.f[h];
-        __syncthreads();
-        s.set_dx(C, fraction(step + 1, dt));
-        __syncthreads();
-        gen_mlp(f, s.yn, s.h1, s.g);
-        for (int h = tid; h < H; h += nt) {
-          const float f1 = s.entry(H, C, h);
-          s.y[h] = s.y[h] + hdt * (s.f[h] + f1);
-          s.yh[h] = s.yn[h];
-          s.f[h] = f1;
-        }
-      }
-      for (int h = tid; h < H; h += nt) {
-        yres[((size_t)j * H + h) * B + lane] = s.y[h];
-        yhres[((size_t)j * H + h) * B + lane] = s.yh[h];
-      }
-      __syncthreads();
-    }
-  }
-}
-
-__global__ void __launch_bounds__(GEN_THREADS)
-    gen_rev_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ yres,
-                       const float* __restrict__ yhres, const float* __restrict__ gy,
-                       GenField f, float* __restrict__ dct, float* __restrict__ dz0,
-                       float* __restrict__ dw1p, float* __restrict__ db1p,
-                       float* __restrict__ dw2p, float* __restrict__ db2p, int B,
-                       int n, int m, double dt, bool acc_smem) {
-  extern __shared__ float smem[];
-  const int H = f.H, C = f.C, W = f.W, CH = C * H;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const RevVecs s(smem, RevLayout(H, C, W, true, acc_smem));
-  const GenStage st = s.stage();
-  const float dtf = (float)dt, hdt = (float)(0.5 * dt);
-  const size_t blk = blockIdx.x;
-  const Grads mine{dw1p + blk * W * H, db1p + blk * W, dw2p + blk * W * CH,
-                   db2p + blk * CH};
-  const Grads gr = acc_smem ? Grads{s.acc, s.acc + W * H, s.acc + W * H + W,
-                                    s.acc + W * H + W + W * CH}
-                            : mine;
-  // Each element of gr is zeroed, summed into and copied out by one thread.
-  for (int e = tid; e < W * H; e += nt) gr.w1[e] = 0.f;
-  for (int e = tid; e < W * CH; e += nt) gr.w2[e] = 0.f;
-  for (int w = tid; w < W; w += nt) gr.b1[w] = 0.f;
-  for (int q = tid; q < CH; q += nt) gr.b2[q] = 0.f;
-
-  for (int lane = blockIdx.x; lane < B; lane += gridDim.x) {
-    for (int h = tid; h < H; h += nt) s.ay[h] = s.ayh[h] = 0.f;
-    for (int jr = 0; jr < n; ++jr) {
-      const int j = n - 1 - jr;
-      for (int h = tid; h < H; h += nt) {
-        const size_t at = ((size_t)j * H + h) * B + lane;
-        s.ay[h] += gy[at];
-        s.y[h] = yres[at];
-        s.yh[h] = yhres[at];
-      }
-      for (int r = tid; r < 3 * C; r += nt) s.slab[r] = ct[((size_t)j * 3 * C + r) * B + lane];
-      float acc_b = 0.f, acc_c = 0.f, acc_d = 0.f;  // channel tid < C
-      for (int step = m - 1; step >= 0; --step) {
-        const float fr1 = fraction(step + 1, dt), fr0 = fraction(step, dt);
-        for (int h = tid; h < H; h += nt) s.u[h] = hdt * s.ay[h];
-        __syncthreads();
-        s.set_dx(C, fr1);
-        __syncthreads();
-        float ddx = gen_stage_vjp(f, st, s.yh, s.v, gr);  // s.g: g(yh1)
-        acc_b += ddx;
-        acc_c += fr1 * ddx;
-        acc_d += (fr1 * fr1) * ddx;
-        for (int h = tid; h < H; h += nt) {
-          const float f1 = s.entry(H, C, h);
-          s.f1[h] = f1;
-          s.yn[h] = 2.f * s.y[h] - s.yh[h] - dtf * f1;  // yh0
-          s.ayh[h] += s.v[h];
-          s.u[h] = hdt * s.ay[h] + dtf * s.ayh[h];
-        }
-        __syncthreads();
-        s.set_dx(C, fr0);
-        __syncthreads();
-        ddx = gen_stage_vjp(f, st, s.yn, s.v, gr);  // s.g: g(yh0)
-        acc_b += ddx;
-        acc_c += fr0 * ddx;
-        acc_d += (fr0 * fr0) * ddx;
-        for (int h = tid; h < H; h += nt) {
-          s.y[h] = s.y[h] - hdt * (s.f1[h] + s.entry(H, C, h));
-          s.yh[h] = s.yn[h];
-          s.ay[h] = s.ay[h] + 2.f * s.ayh[h];
-          s.ayh[h] = -s.ayh[h] + s.v[h];
-        }
-      }
-      if (tid < C) {
-        float* row = dct + (size_t)j * 3 * C * B + lane;
-        row[(size_t)tid * B] = acc_b;
-        row[(size_t)(C + tid) * B] = acc_c;
-        row[(size_t)(2 * C + tid) * B] = acc_d;
-      }
-      __syncthreads();
-    }
-    for (int h = tid; h < H; h += nt) dz0[(size_t)h * B + lane] = s.ay[h] + s.ayh[h];
-  }
-  if (acc_smem) {
-    for (int e = tid; e < W * H; e += nt) mine.w1[e] = gr.w1[e];
-    for (int e = tid; e < W * CH; e += nt) mine.w2[e] = gr.w2[e];
-    for (int w = tid; w < W; w += nt) mine.b1[w] = gr.b1[w];
-    for (int q = tid; q < CH; q += nt) mine.b2[q] = gr.b2[q];
-  }
-}
-
-bool specialised_fits(int H, int C, int W) {
-  return H == RB_H && C == RB_C && rb_chunks(W) <= RB_MAX_CHUNKS &&
-         sizeof(float) * rb_smem_floats(W) <= MAX_SMEM;
-}
-
-int check_call(int B, int n, int H, int C, int W, int m, int variant) {
-  if (B < 1 || n < 1 || H < 1 || C < 1 || W < 1 || m < 1 || m > MAX_SUBSTEPS)
-    return BAD_ARGUMENT;
-  if (variant != GENERIC && !(variant == SPECIALISED && specialised_fits(H, C, W)))
-    return BAD_VARIANT;
-  return 0;
-}
-
-using RbKernel = decltype(&rev_bwd_tiles_kernel<1>);
-
-RbKernel rb_kernel(int W) {
-  switch (rb_chunks(W)) {
-    case 1: return rev_bwd_tiles_kernel<1>;
-    case 2: return rev_bwd_tiles_kernel<2>;
-    case 3: return rev_bwd_tiles_kernel<3>;
-    default: return rev_bwd_tiles_kernel<4>;
-  }
-}
-
-// The backward launch for some shapes.
-struct BwdPlan {
-  int variant, blocks, threads, lanes;  // lanes a block walks at once
-  int resident, sms, groups;            // blocks an SM holds; SMs; lane groups
-  size_t bytes;                         // shared memory of a block
-  bool acc_smem;                        // generic: weight gradients in shared memory
-};
-
-// The specialised variant runs as many blocks as the SMs hold at once, at
-// most one per lane group (blocks stride over the rest); the generic one a
-// block per lane, capped by its partials.
-int backward_plan(BwdPlan& p, int B, int H, int C, int W, int force_generic) {
-  p.variant = !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
-  int dev = 0, rc = (int)cudaGetDevice(&dev);
-  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc) return rc;
-  if (p.variant == SPECIALISED) {
-    p.acc_smem = false;
-    p.threads = p.lanes = RB_LANES;
-    p.bytes = sizeof(float) * rb_smem_floats(W);
-    p.groups = (B + RB_LANES - 1) / RB_LANES;
-    rc = resident_blocks(rb_kernel(W), p.threads, p.bytes, p.resident);
-    if (rc) return rc;
-    if (p.resident < 1) return BAD_ARGUMENT;
-    p.blocks = std::min<long>(p.groups, (long)p.resident * p.sms);
-    return 0;
-  }
-  p.threads = GEN_THREADS;
-  p.lanes = 1;
-  p.acc_smem = sizeof(float) * RevLayout(H, C, W, true, true).total <= MAX_SMEM;
-  p.bytes = sizeof(float) * RevLayout(H, C, W, true, p.acc_smem).total;
+  if (p.split ? !split_kernel(C, p.NTW) : !fwd_kernel(C, p.NT)) return BAD_ARGUMENT;
+  auto bytes = [&] {
+    return FwdLayout(C, W, p.NT, p.LG, p.split, p.streamed, p.ysingle).bytes;
+  };
+  if (bytes() > MAX_SMEM) p.streamed = 1;
+  while (bytes() > MAX_SMEM && p.LG > 1) --p.LG;
+  if (bytes() > MAX_SMEM) p.ysingle = 1;
+  p.bytes = bytes();
   if (p.bytes > MAX_SMEM) return BAD_ARGUMENT;
-  p.groups = B;
-  p.blocks = gen_backward_blocks(B, H, C, W);
-  return resident_blocks(gen_rev_bwd_kernel, p.threads, p.bytes, p.resident);
+  p.scratch = p.streamed ? (size_t)tc_chunks(W) * p.NT * (1 + C) * 32 * 4 : 0;
+  p.threads = p.LG * p.S * 32;
+  const int groups = (B + TC_LANES - 1) / TC_LANES;
+  p.blocks = (groups + p.LG - 1) / p.LG;
+  return 0;
 }
 
 }  // namespace
@@ -968,78 +626,56 @@ extern "C" {
 
 const char* fr_error_string(int code) {
   if (code == BAD_ARGUMENT) return "invalid argument";
-  if (code == BAD_VARIANT) return "no such kernel variant for these shapes";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The variant that runs these shapes: 0 specialised, 1 generic.
-int fr_variant(int H, int C, int W, int force_generic) {
-  return !force_generic && specialised_fits(H, C, W) ? SPECIALISED : GENERIC;
-}
-
-// The backward launch for these shapes, into out[8]: the variant, blocks
-// (the leading size of the weight partials), threads per block, lanes a
-// block walks at once, blocks an SM holds, SMs, lane groups, shared bytes.
-int fr_backward_plan(int B, int H, int C, int W, int force_generic, long* out) {
-  BwdPlan p;
-  if (B < 1 || W < 1) return BAD_ARGUMENT;
-  const int rc = backward_plan(p, B, H, C, W, force_generic);
+// The forward launch for these shapes, into out[8]: the weights' path (0
+// resident in shared memory, 1 streamed), blocks, threads a block, lanes a
+// block, warps a lane group, the padded hidden size, shared bytes a block,
+// and the floats of scratch fr_forward needs (0 when resident).
+int fr_forward_plan(int B, int H, int C, int W, long* out) {
+  FwdPlan p;
+  int rc = check_call(B, 1, H, C, W, 1);
+  if (!rc) rc = forward_plan(p, B, H, C, W);
   if (rc) return rc;
-  const long values[] = {p.variant, p.blocks, p.threads, p.lanes,
-                         p.resident, p.sms, p.groups, (long)p.bytes};
+  const long values[] = {p.streamed, p.blocks, p.threads, (long)p.LG * TC_LANES,
+                         p.S, 8L * p.NT, (long)p.bytes, (long)p.scratch};
   for (int i = 0; i < 8; ++i) out[i] = values[i];
   return 0;
 }
 
-int fr_forward(const float* ct, const float* z0t, const float* w1t,
-               const float* b1, const float* w2t, const float* b2, float* yres,
-               float* yhres, int B, int n, int H, int C, int W, int m,
-               double dt, int variant, void* stream) {
-  const int rc = check_call(B, n, H, C, W, m, variant);
+int fr_forward(const float* ct, const float* z0t, const float* w1t, const float* b1,
+               const float* w2t, const float* b2, float* yres, float* yhres, float* scratch,
+               int B, int n, int H, int C, int W, int m, double dt, void* stream) {
+  FwdPlan p;
+  int rc = check_call(B, n, H, C, W, m);
+  if (!rc) rc = forward_plan(p, B, H, C, W);
   if (rc) return rc;
+  if (p.scratch && !scratch) return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (variant == SPECIALISED) {
-    const size_t smem = tc_smem_bytes(W);
-    err = set_smem(rev_fwd_tc_kernel, smem);
+  float4* staged = reinterpret_cast<float4*>(scratch);
+  if (p.streamed) {
+    const int total = (int)(p.scratch / 4);
+    stage_frags_kernel<<<std::min((total + 255) / 256, 1024), 256, 0, st>>>(w1t, w2t, H, C, W,
+                                                                          p.NT, staged);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    rev_fwd_tc_kernel<<<(B + TC_BLOCK - 1) / TC_BLOCK, TC_WARPS * 32, smem, st>>>(
-        ct, z0t, w1t, b1, w2t, b2, yres, yhres, B, n, W, m, dt);
-    return (int)cudaGetLastError();
   }
-  const size_t smem = sizeof(float) * RevLayout(H, C, W, false, false).total;
-  if (smem > MAX_SMEM) return BAD_ARGUMENT;
-  err = set_smem(gen_rev_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gen_rev_fwd_kernel<<<B, GEN_THREADS, smem, st>>>(
-      ct, z0t, GenField{w1t, b1, w2t, b2, H, C, W}, yres, yhres, B, n, m, dt);
-  return (int)cudaGetLastError();
-}
-
-// The backward launch of fr_backward_plan's variant and blocks, which the
-// caller passes and this entry checks against its own plan.
-int fr_backward(const float* ct, const float* yres, const float* yhres,
-                const float* gy, const float* w1t, const float* b1,
-                const float* w2t, const float* b2, float* dct, float* dz0,
-                float* dw1p, float* db1p, float* dw2p, float* db2p, int B,
-                int n, int H, int C, int W, int m, double dt, int variant,
-                int blocks, void* stream) {
-  int rc = check_call(B, n, H, C, W, m, variant);
-  if (rc) return rc;
-  BwdPlan p;
-  rc = backward_plan(p, B, H, C, W, variant == GENERIC);
-  if (rc) return rc;
-  if (p.variant != variant || p.blocks != blocks) return BAD_ARGUMENT;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (variant == SPECIALISED) {
-    rb_kernel(W)<<<p.blocks, p.threads, p.bytes, st>>>(
-        ct, yres, yhres, gy, w1t, b1, w2t, b2, dct, dz0, dw1p, db1p, dw2p, db2p, B, n, W, m,
-        dt);
-    return (int)cudaGetLastError();
+  cudaError_t err;
+  if (p.split) {
+    const SplitKernel kernel = split_kernel(C, p.NTW);
+    err = set_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<p.blocks, p.threads, p.bytes, st>>>(ct, z0t, w1t, b1, w2t, b2, staged, yres, yhres,
+                                                  B, n, H, W, m, dt, p.NT, p.LG, p.S,
+                                                  p.streamed, p.ysingle);
+  } else {
+    const FwdKernel kernel = fwd_kernel(C, p.NT);
+    err = set_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<p.blocks, p.threads, p.bytes, st>>>(ct, z0t, w1t, b1, w2t, b2, yres, yhres, B, n, H,
+                                                  W, m, dt);
   }
-  gen_rev_bwd_kernel<<<p.blocks, p.threads, p.bytes, st>>>(
-      ct, yres, yhres, gy, GenField{w1t, b1, w2t, b2, H, C, W}, dct, dz0, dw1p,
-      db1p, dw2p, db2p, B, n, m, dt, p.acc_smem);
   return (int)cudaGetLastError();
 }
 

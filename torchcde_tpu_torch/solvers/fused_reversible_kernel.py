@@ -27,8 +27,10 @@ left interval at its end).  For a C1 control (Hermite, natural cubic) the two
 agree up to rounding; the plain version here follows the kernels.
 
 Eligibility is K1's: the caps of ``pack_operands``, m <= 8, one dtype,
-uniform knots.  On the card the kernels take float32, and every float32 shape
-inside the caps launches one of their two variants.  bfloat16 operands are
+uniform knots.  On the card the kernels take float32: one forward and one
+backward take every float32 shape inside the caps, H, C and W at run time,
+the weights resident in shared memory where they fit and streamed through it
+otherwise (``forward_plan``, ``backward_plan``).  bfloat16 operands are
 upcast to float32 at the boundary and the solution is cast back, as the JAX
 package's K8 takes them (it has no bfloat16 mode).  A CUDA tensor never
 falls back to the plain version: the kernel launches or raises.
@@ -132,21 +134,22 @@ def fused_reversible_backward_reference(ct, y, yhat, gy, w1t, b1, w2t, b2, m, dt
 class _Plan(NamedTuple):
     m: int
     dt_sub: float
-    generic: bool = False  # run the generic variant even where the specialised one fits
 
 
 def _library():
     lib = _build.load_library()
     if not getattr(lib, "_fr_declared", False):
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.fr_forward.argtypes = [p] * 8 + [i] * 6 + [d, i, p]
+        p, i, d, out = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_long)
+        lib.fr_forward.argtypes = [p] * 9 + [i] * 6 + [d, p]
         lib.fr_forward.restype = i
-        lib.fr_backward.argtypes = [p] * 14 + [i] * 6 + [d, i, i, p]
+        lib.fr_forward_plan.argtypes = [i] * 4 + [out]
+        lib.fr_forward_plan.restype = i
+        lib.fr_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, p]
         lib.fr_backward.restype = i
-        lib.fr_variant.argtypes = [i] * 4
-        lib.fr_variant.restype = i
-        lib.fr_backward_plan.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_long)]
+        lib.fr_backward_plan.argtypes = [i] * 4 + [out]
         lib.fr_backward_plan.restype = i
+        lib.fr_backward_scratch.argtypes = [i] * 3 + [out]
+        lib.fr_backward_scratch.restype = i
         lib.fr_error_string.argtypes = [i]
         lib.fr_error_string.restype = ctypes.c_char_p
         lib._fr_declared = True
@@ -160,29 +163,50 @@ def _raise_on(lib, rc, which):
             f"{lib.fr_error_string(rc).decode()} (code {rc})")
 
 
-def kernel_variant(H, C, W, plan):
-    """Name of the kernel variant that runs these shapes."""
-    return ("specialised", "generic")[_library().fr_variant(H, C, W, int(plan.generic))]
+def _plan_of(entry, keys, which, *args):
+    lib = _library()
+    out = (ctypes.c_long * len(keys))()
+    _raise_on(lib, getattr(lib, entry)(*args, out), which)
+    return dict(zip(keys, out))
+
+
+FORWARD_PLAN_KEYS = ("streamed", "blocks", "threads", "lanes_per_block", "warps_per_lane_group",
+                     "padded_hidden", "shared_bytes", "scratch_floats")
+
+
+def forward_plan(B, H, C, W):
+    """The forward kernel's launch for these shapes, as a dict
+    (``FORWARD_PLAN_KEYS``): whether the weights stream through shared
+    memory (1) or stay resident in it (0), blocks, threads per block, lanes
+    per block, warps per group of 16 lanes, H padded to whole state tiles,
+    the shared memory of a block and the floats of the staged weights'
+    scratch (0 when resident)."""
+    return _plan_of("fr_forward_plan", FORWARD_PLAN_KEYS, "forward", B, H, C, W)
 
 
 BACKWARD_PLAN_KEYS = ("variant", "blocks", "threads", "lanes_per_block", "resident_per_sm",
                       "sms", "lane_groups", "shared_bytes")
 
 
-def backward_plan(B, H, C, W, plan, device):
+def backward_plan(B, H, C, W, device):
     """The backward kernel's launch for these shapes, as a dict
-    (``BACKWARD_PLAN_KEYS``): the variant (0 specialised, 1 generic), blocks
-    (the leading size of the weight partials), threads per block, lanes a
-    block walks at once, blocks an SM holds, the card's SMs, lane groups
-    (blocks stride over them) and the shared memory of a block.  The
-    specialised variant launches as many blocks as the SMs of ``device``
-    hold at once."""
-    lib = _library()
-    out = (ctypes.c_long * len(BACKWARD_PLAN_KEYS))()
+    (``BACKWARD_PLAN_KEYS``): the weights' path (0 resident in shared
+    memory, 1 streamed through it), blocks (the leading size of the weight
+    partials), threads per block, lanes per block, blocks an SM holds, the
+    card's SMs, lane groups (blocks stride over them) and the shared memory
+    of a block.  It launches as many blocks as the SMs of ``device`` hold at
+    once."""
     with torch.cuda.device(device):
-        rc = lib.fr_backward_plan(B, H, C, W, int(plan.generic), out)
-    _raise_on(lib, rc, "backward")
-    return dict(zip(BACKWARD_PLAN_KEYS, out))
+        return _plan_of("fr_backward_plan", BACKWARD_PLAN_KEYS, "backward", B, H, C, W)
+
+
+def _scratch(floats, like):
+    """The staged weights' scratch buffer and its pointer (None when the
+    weights stay resident)."""
+    if not floats:
+        return None, None
+    buf = torch.empty(floats, dtype=torch.float32, device=like.device)
+    return buf, buf.data_ptr()
 
 
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
@@ -191,12 +215,12 @@ def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
     check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     lib = _library()
-    variant = lib.fr_variant(H, C, W, int(plan.generic))
+    _buf, scratch = _scratch(forward_plan(B, H, C, W)["scratch_floats"], ct)
     y = torch.empty((n, H, B), dtype=ct.dtype, device=ct.device)
     yhat = torch.empty_like(y)
     ptrs = [t.data_ptr() for t in (ct, z0t, w1t, b1, w2t, b2, y, yhat)]
     with torch.cuda.device(ct.device):
-        rc = lib.fr_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub, variant, stream_of(ct))
+        rc = lib.fr_forward(*ptrs, scratch, B, n, H, C, W, plan.m, plan.dt_sub, stream_of(ct))
     _raise_on(lib, rc, "forward")
     FWD_LAUNCHES += 1
     return y, yhat
@@ -211,7 +235,7 @@ def launch_backward(ct, y, yhat, gy, w1t, b1, w2t, b2, plan):
     n, C, B, H, W = _shapes(ct, y[0], w1t, w2t)
     if any(t.shape != (n, H, B) for t in (y, yhat, gy)):
         raise ValueError("inconsistent fused-solve state shapes")
-    launch = backward_plan(B, H, C, W, plan, ct.device)
+    launch = backward_plan(B, H, C, W, ct.device)
     blocks = launch["blocks"]
     empty = functools.partial(torch.empty, dtype=ct.dtype, device=ct.device)
     outs = (empty(ct.shape), empty((H, B)), empty((blocks, W, H)), empty((blocks, W)),
@@ -228,9 +252,12 @@ def _backward_kernel(ops, outs, shape, plan, launch):
     partials), as ``launch`` (``backward_plan``) plans it."""
     lib = _library()
     B, n, H, C, W = shape
+    floats = ctypes.c_long()
     ptrs = [t.data_ptr() for t in (*ops, *outs)]
     with torch.cuda.device(ops[0].device):
-        rc = lib.fr_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub, launch["variant"],
+        _raise_on(lib, lib.fr_backward_scratch(H, C, W, ctypes.byref(floats)), "backward")
+        _buf, scratch = _scratch(floats.value, ops[0])
+        rc = lib.fr_backward(*ptrs, scratch, B, n, H, C, W, plan.m, plan.dt_sub,
                              launch["blocks"], stream_of(ops[0]))
     _raise_on(lib, rc, "backward")
 
