@@ -18,13 +18,16 @@ Phases, each of which raises on failure:
    in both modes with their kernels' ptxas lines, and K6/K7's and K4's
    plans at config 3 with their kernels' ptxas lines;
 3. K1 forward and 4. K1 backward: the fixed-step kernels against their plain
-   PyTorch version on the card, at the flagship shapes (in both kernel
-   variants) and at odd cases covering every tableau, up to 8 substeps, odd
-   batches and shapes at the JAX kernel's caps, each forward and backward
-   also against a second launch on the same inputs, bit for bit;
+   PyTorch version on the card, at the flagship's operands at hidden 8, 16
+   and 32 and at odd cases covering every tableau, up to 8 substeps, odd
+   batches, hidden sizes and channel counts, and shapes at the JAX kernel's
+   caps (weights streamed through shared memory), each launch counted and
+   each forward and backward also against a second launch on the same
+   inputs, bit for bit;
 5. K1 slice: five Adam steps of the spiral Neural CDE at the flagship
    configuration (rk4, step 1) through the public entry points, with the K1
-   launch counts read around that run, then one ``accuracy`` call;
+   launch counts read around that run, then one ``accuracy`` call; then the
+   same at hidden 16 with every plain version patched to raise;
 6. K2 forward and backward: the adaptive dopri5 kernels against their plain
    version, per realised mesh, on every launch of ten cases (the default
    configuration at batch 4096 and 256, two groups, three chunks, 20 output
@@ -35,8 +38,8 @@ Phases, each of which raises on failure:
 7. K2 slice: five Adam steps of the default Neural CDE configuration (dopri5,
    adjoint) at batch 4096 and at batch 256, each with the K2 launch counts
    read around it, then one ``accuracy`` call each;
-8. timing: K1 (both variants), K2 and both train steps against the plain
-   version, by CUDA events;
+8. timing: K1 and its train step at hidden 8, 16 and 32, K2 and the default
+   train step against the plain version, by CUDA events;
 9. profile: torch.profiler over train steps of both configurations: the
    device's busy share, kernels per step and the fused kernels' device time;
 10. K3-K7 checks: the fill (K3), tridiagonal (K4), gappy tridiagonal (K5)
@@ -125,11 +128,10 @@ Phases, each of which raises on failure:
 26. K1's bfloat16 mode (bench.py's ``compute_dtype="bfloat16"``): its
    forward and backward against its plain version on the card, run with the
    same bfloat16 rounding points in float64 and float32 (see BF16_ORDER), at
-   the flagship's operands (specialised variant), at two generic shapes,
-   one with H % 8 != 0 (the selection products round) and one with H 16,
-   and at four specialised ones (a part block, striding blocks, W 512, 8
-   substeps), each forward and backward also against a second launch, bit
-   for bit;
+   the flagship's operands at hidden 8 and 16, at H 5 (H % 8 != 0: the
+   selection products round), at H 16, C 5, W 512, and at four H 8 shapes
+   (a part block, striding blocks, W 512, 8 substeps), each forward and
+   backward also against a second launch, bit for bit;
 27. the bfloat16 slices: bench.py's configuration (the flagship in
    bfloat16) through the public entry points, its logits against the plain
    version and the float32 solve of the same quantized problem, five Adam
@@ -138,7 +140,8 @@ Phases, each of which raises on failure:
    mode; master gradients float32); one bfloat16 default-configuration
    step (dopri5, adjoint, B 256) through K2, and one small bfloat16 solve
    and gradient each through K8 and K9 (route, dtype, closeness);
-28. timing of K1's bfloat16 mode and its plain version, and of the bfloat16
+28. timing of K1's bfloat16 mode and its plain version at hidden 8, 16 and
+   32, and of the bfloat16
    flagship step beside the float32 one and the plain bfloat16 step, in
    turns, and a torch.profiler reading of the bfloat16 step;
 29. the rest of the solver surface, plain PyTorch ops on the card: the
@@ -291,15 +294,21 @@ EXACT_CAP = 16384
 # hold it against needs more steps than a chunk stores.
 PS_CHECK = (16, 33, 8, 3, 32)
 SOURCE = "torchcde_tpu_torch/csrc/fused_fixed.cu"
-# K1's kernels as the profiler names them (the specialised variant's).
-K1_KINDS = {"k1_fwd": r"\bfwd_group_kernel\b", "k1_bwd": r"\bbwd_group_kernel\b"}
+SOURCE_BWD = "torchcde_tpu_torch/csrc/fused_fixed_bwd.cu"
+# K1's kernels as the profiler names them.
+K1_FWD_KERNEL, K1_BWD_KERNEL = "fwd_slice_kernel", "bwd_slice_kernel"
+K1_KINDS = {"k1_fwd": rf"\b{K1_FWD_KERNEL}\b", "k1_bwd": rf"\b{K1_BWD_KERNEL}\b"}
+# The flagship's operands at these hidden sizes (phases 3, 8 and 28).
+K1_HIDDEN = (HIDDEN, 16, 32)
 # Odd K1 cases: (batch, intervals, hidden, channels, width, method, substeps,
 # output knots).  Shapes up to the JAX kernel's caps (C * H <= 512,
-# 3 * C <= 16, width <= 512, 8 substeps).  H 8, C 3 runs the specialised
-# variant at every width of the caps (its forward in blocks of 8 lanes and
-# its backward in blocks of 32: batches of 4090 and 33 end in a part block,
-# one of 40000 has its blocks stride over the lane groups) and up to 8
-# substeps; every tableau runs in both variants.
+# 3 * C <= 16, width <= 512, 8 substeps), every one through the same two
+# kernels: H 8, C 3 at every width of the caps (the forward in blocks of 8
+# lanes and the backward in blocks of 32: batches of 4090 and 33 end in a
+# part block, one of 40000 has its blocks stride over the lane groups) and
+# up to 8 substeps; H 5 and 7 (padded to a slice of 8), H 16 (two slices),
+# H 100 (sixteen slices, weights streamed), C 2 and 5, small batches (fewer
+# lanes a block); every tableau.
 ODD_CASES = [
     (1000, 99, 5, 3, 128, "euler", 2, "all"),
     (520, 40, 8, 3, 64, "euler", 1, "all"),
@@ -381,6 +390,9 @@ def phase_build():
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     print(f"build: {path.name} in {seconds:.1f} s", flush=True)
+    for line in log.splitlines():
+        if re.fullmatch(r"nvcc \S+\.cu: [\d.]+ s", line):
+            print(f"  {line}")
     for line in ptxas:
         print(f"  ptxas: {line}")
     for name, lines in team_kernels_ptxas(log).items():
@@ -402,8 +414,10 @@ def phase_build():
     for name, lines in ptxas_lines(log, k8_label).items():
         print(f"  K8 kernel {name}: {'; '.join(lines)}")
     for mode in (0, 1):
-        print(f"  K1 forward at the flagship, mode {mode}: {k1_plan_line(mode, 'forward')}")
-        print(f"  K1 backward at the flagship, mode {mode}: {k1_plan_line(mode, 'backward')}")
+        for hidden in K1_HIDDEN:
+            for which in ("forward", "backward"):
+                print(f"  K1 {which} at the flagship, hidden {hidden}, mode {mode}: "
+                      f"{k1_plan_line(mode, which, hidden)}")
     for name, lines in k1_ptxas(log).items():
         print(f"  K1 kernel {name}: {'; '.join(lines)}")
     from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
@@ -421,41 +435,42 @@ def phase_build():
         print(f"  K5 kernel {name}: {'; '.join(lines)}")
 
 
-def k1_plan(mode, which):
-    """K1's specialised forward or backward launch at the flagship in mode
-    0 (float32) or 1 (bfloat16), from the occupancy API of the kernel it
-    launches."""
+def k1_plan(mode, which, hidden=HIDDEN):
+    """K1's forward or backward launch at the flagship's shapes at this
+    hidden size in mode 0 (float32) or 1 (bfloat16), from the occupancy API
+    of the kernel it launches."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
     planner = k1.backward_plan if which == "backward" else k1.forward_plan
-    return planner(BATCH, HIDDEN, CHANNELS, WIDTH, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)), mode,
+    return planner(BATCH, hidden, CHANNELS, WIDTH, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)), mode,
                    torch.device("cuda", 0))
 
 
-def k1_plan_line(mode, which):
+def k1_plan_line(mode, which, hidden=HIDDEN):
     """k1_plan as one line of text."""
-    p = k1_plan(mode, which)
+    p = k1_plan(mode, which, hidden)
     groups = math.ceil(BATCH / p["lanes_per_block"])
     waves = math.ceil(groups / (p["resident_per_sm"] * p["sms"]))
-    return (f"B {BATCH} H {HIDDEN} C {CHANNELS} W {WIDTH}: {p['blocks']} blocks of "
+    return (f"B {BATCH} H {hidden} C {CHANNELS} W {WIDTH}: {p['blocks']} blocks of "
             f"{p['threads'] // 32} warps ({p['lanes_per_block']} lanes, "
-            f"{p['threads_per_lane']} threads per lane), {p['resident_per_sm']} resident per "
-            f"SM x {p['sms']} SMs, {groups} lane groups, {waves} wave(s), "
+            f"{p['threads_per_lane']} threads per lane in {p['slices']} slice(s)), "
+            f"{p['resident_per_sm']} resident per SM x {p['sms']} SMs, {groups} lane groups, "
+            f"{waves} wave(s), weights {'streamed' if p['streamed'] else 'resident'}, "
             f"{p['shared_bytes']} shared bytes a block")
 
 
 def k1_ptxas(log):
-    """{bwd_group_kernel<chunks, slab type> or fwd_group_kernel<slab type>:
-    ptxas's lines}."""
+    """{fwd_slice_kernel<C, HS, GW, sliced, slab type> or bwd_slice_kernel<C,
+    HS, GW, sliced, register units, slab type>: ptxas's lines}."""
     def label(name):
-        kernel = re.search(r"bwd_group_kernelILi(\d)E(f|13__nv_bfloat16)", name)
-        if kernel:
-            slabs = "float" if kernel.group(2) == "f" else "bfloat16"
-            return f"bwd_group_kernel<{kernel.group(1)}, {slabs}>"
-        kernel = re.search(r"fwd_group_kernelI(f|13__nv_bfloat16)", name)
-        if kernel:
-            return f"fwd_group_kernel<{'float' if kernel.group(1) == 'f' else 'bfloat16'}>"
-        return None
+        kernel = re.search(r"(fwd|bwd)_slice_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E"
+                           r"(?:Li(\d)E)?(f|13__nv_bfloat16)", name)
+        if not kernel:
+            return None
+        which, c, hs, gw, sliced, nreg, slabs = kernel.groups()
+        sizes = [c, hs, gw, "true" if sliced == "1" else "false"] + ([nreg] if nreg else [])
+        return (f"{which}_slice_kernel<{', '.join(sizes)}, "
+                f"{'float' if slabs == 'f' else 'bfloat16'}>")
 
     return ptxas_lines(log, label)
 
@@ -611,7 +626,8 @@ def _gradients(operands, zres, gz, plan):
     """The backward kernel's gradients and the plain version's, float64 and float32."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
-    grads = k1.launch_backward(operands[0], zres, operands[1], gz, *operands[2:], plan)
+    grads = k1_launched(
+        lambda: k1.launch_backward(operands[0], zres, operands[1], gz, *operands[2:], plan), "bwd")
     plain = []
     for dtype in (torch.float64, torch.float32):
         leaves = [t.detach().to(dtype).requires_grad_() for t in operands]
@@ -622,13 +638,41 @@ def _gradients(operands, zres, gz, plan):
     return grads, plain[0], plain[1]
 
 
+def k1_label(label, operands, plan):
+    """label with the launch both K1 kernels take for these operands."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    H, (n, _, C, B), W = operands[1].shape[0], operands[0].shape, operands[2].shape[0]
+    mode = int(operands[0].dtype == torch.bfloat16)
+    parts = []
+    for which, planner in (("fwd", k1.forward_plan), ("bwd", k1.backward_plan)):
+        p = planner(B, H, C, W, plan, mode, operands[0].device)
+        parts.append(f"{which} {p['threads_per_lane']} threads x {p['slices']} slices a lane, "
+                     f"{p['lanes_per_block']} lanes a block, {p['blocks']} blocks, "
+                     f"{'streamed' if p['streamed'] else 'resident'}")
+    return f"{label} [{'; '.join(parts)}]"
+
+
+def k1_launched(launch, which):
+    """launch()'s result; raises unless it launched K1's forward (which
+    "fwd") or backward kernel exactly once."""
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    name = "FWD_LAUNCHES" if which == "fwd" else "BWD_LAUNCHES"
+    before = getattr(k1, name)
+    result = launch()
+    if getattr(k1, name) != before + 1:
+        raise AssertionError(f"K1's {which} kernel did not launch once")
+    return result
+
+
 def check_k1(label, operands, plan):
     """Kernel forward and backward against autograd through the plain version."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
-    H, (n, _, C, B), W = operands[1].shape[0], operands[0].shape, operands[2].shape[0]
-    label = f"{label} [{k1.kernel_variant(H, C, W, plan)}]"
-    out, zres = k1.launch_forward(*operands, plan)
+    B, n, W = operands[0].shape[3], operands[0].shape[0], operands[2].shape[0]
+    label = k1_label(label, operands, plan)
+    out, zres = k1_launched(lambda: k1.launch_forward(*operands, plan), "fwd")
     with torch.no_grad():
         refs = [k1.fused_fixed_solve_reference(*(t.to(dtype) for t in operands), plan.method,
                                                plan.m, plan.dt_sub, plan.out_knots)
@@ -723,31 +767,91 @@ def _event_ms(fn, repeats):
     return start.elapsed_time(end) / repeats
 
 
-def time_k1(model, coeffs):
-    """Flagship K1 ms: {variant: (forward, backward)} and the plain version's."""
+def flagship_model(device, hidden=HIDDEN, config=FLAGSHIP):
+    """The flagship's model (config) at this hidden size, from seed 0."""
+    return make_model(device, config=dict(config, hidden_channels=hidden))
+
+
+def time_k1_kernels(model, coeffs):
+    """K1 at the model's packed operands on coeffs (the flagship's shapes):
+    {k1_fwd_ms, k1_bwd_ms, k1_fwd_plain_ms, k1_bwd_plain_ms}, by CUDA events;
+    the plain version runs on the same operands (a bfloat16 model's in its
+    bfloat16 mode)."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
     with torch.no_grad():
         p = packed_operands(model, coeffs)
     n = p.ct.shape[0]
     ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-    kernel_ms = {}
-    for name, generic in (("specialised", False), ("generic", True)):
-        plan = k1._Plan("rk4", 1, 1.0, (n,), generic)
-        out, zres = k1.launch_forward(*ops, plan)
-        gz = torch.ones_like(out)
-        kernel_ms[name] = (
-            _event_ms(lambda: k1.launch_forward(*ops, plan), 10),
-            _event_ms(lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5))
-
+    plan = k1._Plan("rk4", 1, 1.0, (n,))
+    out, zres = k1.launch_forward(*ops, plan)
+    gz = torch.ones_like(out)
+    timing = {"k1_fwd_ms": _event_ms(lambda: k1.launch_forward(*ops, plan), 10),
+              "k1_bwd_ms": _event_ms(
+                  lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5)}
     leaves = [t.detach().clone().requires_grad_() for t in ops]
     with torch.no_grad():
-        plain_fwd_ms = _event_ms(
+        timing["k1_fwd_plain_ms"] = _event_ms(
             lambda: k1.fused_fixed_solve_reference(*ops, "rk4", 1, 1.0, (n,)), 3)
     ref = k1.fused_fixed_solve_reference(*leaves, "rk4", 1, 1.0, (n,))
-    plain_bwd_ms = _event_ms(
+    timing["k1_bwd_plain_ms"] = _event_ms(
         lambda: torch.autograd.grad(ref, leaves, gz, retain_graph=True), 3)
-    return kernel_ms, plain_fwd_ms, plain_bwd_ms
+    return timing
+
+
+def time_k1(device, coeffs, labels):
+    """Phase 8: K1's forward and backward and the flagship's train step,
+    kernel and plain version in turns, at each of K1_HIDDEN: {hidden:
+    timing}."""
+    from torchcde_tpu_torch.models.neural_cde import bce_with_logits
+
+    timing = {}
+    for hidden in K1_HIDDEN:
+        model = flagship_model(device, hidden)
+        timing[hidden] = time_k1_kernels(model, coeffs)
+        medians, samples = time_train_steps(
+            model, coeffs, labels,
+            lambda m: bce_with_logits(plain_forward(m, coeffs)[..., 0], labels))
+        timing[hidden].update(train_step_ms=medians, train_step_samples_ms=samples)
+        timing[hidden]["fwd_plan"] = k1_plan(0, "forward", hidden)
+        timing[hidden]["bwd_plan"] = k1_plan(0, "backward", hidden)
+    return timing
+
+
+def k1_hidden_slice(device, coeffs, labels, hidden=16):
+    """Phase 5's second part: the flagship at this hidden size through the
+    public entry points: the logits against the plain version, five Adam
+    steps and one accuracy call with every plain version patched to raise,
+    K1's launches counted."""
+    from torchcde_tpu_torch.models import accuracy, make_train_step
+    from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
+
+    model = flagship_model(device, hidden)
+    with torch.no_grad():
+        logits = model(coeffs)
+        plain_logits = plain_forward(model, coeffs)
+    err, scale = _err(logits, plain_logits)
+    with plain_versions_raise():
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8))
+        k1.reset_launch_counts()
+        losses = [float(step(coeffs, labels)) for _ in range(5)]
+        acc = float(accuracy(model, coeffs, labels))
+        torch.cuda.synchronize()
+        counts = {"fwd": k1.FWD_LAUNCHES, "bwd": k1.BWD_LAUNCHES}
+    print(f"slice at hidden {hidden}: logits vs plain version max_abs_err {err:.3e} (largest "
+          f"|value| {scale:.3e}); 5 Adam steps, losses {losses}, accuracy {acc:.4f}, K1 "
+          f"launches {counts}", flush=True)
+    failures = []
+    if (logits.shape != (BATCH, 1) or not torch.isfinite(logits).all()
+            or err > FWD_RTOL * max(scale, 1.0)):
+        failures.append("the logits disagree with the plain version")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] == losses[0]:
+        failures.append(f"the loss is not finite or does not change: {losses}")
+    if counts != {"fwd": 6, "bwd": 5}:
+        failures.append(f"the steps did not run K1 once per step: {counts}")
+    if failures:
+        raise AssertionError(f"the hidden-{hidden} flagship slice failed: " + "; ".join(failures))
+    return {"logits_max_abs_err": err, "losses": losses, "accuracy": acc, "k1_launches": counts}
 
 
 def time_train_steps(model, coeffs, labels, plain_loss, counts=(5, 2)):
@@ -2623,13 +2727,13 @@ BF16_ORDER = 2.0
 BF16_SHARE = 0.5
 BF16_LANE_RTOL = 1e-2
 # K1-bf16 cases: (label, batch, intervals, hidden, channels, width, method,
-# substeps, output knots): the flagship's shapes (the specialised variant),
-# a generic shape with H % 8 != 0 (the TPU kernel's padded layout, whose
-# selection products round too) and a generic one with H 16 (no selection
-# rounding, as in the TPU kernel's matrix-free path).
+# substeps, output knots): H 5 (H % 8 != 0: the TPU kernel's padded layout,
+# whose selection products round too), H 16 with C 5 at the caps' width
+# (two slices; no selection rounding, as in the TPU kernel's matrix-free
+# path) and four shapes at the flagship's H 8, C 3.
 K1_BF16_CASES = [
-    ("H5 generic", 1000, 99, 5, 3, 128, "euler", 2, "all"),
-    ("H16 generic", 333, 24, 16, 5, 512, "rk4", 1, "all"),
+    ("H5 padded slice", 1000, 99, 5, 3, 128, "euler", 2, "all"),
+    ("H16 C5 two slices", 333, 24, 16, 5, 512, "rk4", 1, "all"),
     ("part block", 2049, 40, 8, 3, 128, "heun", 2, "all"),
     ("striding blocks", 40000, 12, 8, 3, 128, "rk4", 1, "terminal"),
     ("caps width", 200, 16, 8, 3, 512, "midpoint", 3, "subset"),
@@ -2687,9 +2791,8 @@ def check_k1_bf16(label, operands, plan):
     version on the card (see BF16_ORDER)."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
-    H, (n, _, C, B), W = operands[1].shape[0], operands[0].shape, operands[2].shape[0]
-    label = f"{label} [{k1.kernel_variant(H, C, W, plan)}]"
-    out, zres = k1.launch_forward(*operands, plan)
+    label = k1_label(label, operands, plan)
+    out, zres = k1_launched(lambda: k1.launch_forward(*operands, plan), "fwd")
     torch.cuda.synchronize()
     refs = [_bf16_plain(operands, plan, dtype, mx)
             for dtype, mx in ((torch.float64, True), (torch.float32, True), (torch.float64, False))]
@@ -2701,7 +2804,8 @@ def check_k1_bf16(label, operands, plan):
                      device=out.device)
 
     def gradients(gz):
-        grads = k1.launch_backward(operands[0], zres, operands[1], gz, *operands[2:], plan)
+        grads = k1_launched(lambda: k1.launch_backward(operands[0], zres, operands[1], gz,
+                                                        *operands[2:], plan), "bwd")
         plain = [_bf16_plain(operands, plan, dtype, mx, gz)
                  for dtype, mx in ((torch.float64, True), (torch.float32, True),
                                    (torch.float64, False))]
@@ -2733,17 +2837,20 @@ def check_k1_bf16(label, operands, plan):
 
 
 def check_k1_bf16_cases(device, model, coeffs):
-    """Phase 26 over the flagship's operands (from the bfloat16 model) and
-    K1_BF16_CASES."""
+    """Phase 26 over the flagship's operands (from the bfloat16 model, and
+    from one at hidden 16) and K1_BF16_CASES."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
-    with torch.no_grad():
-        p = packed_operands(model, coeffs)
-    ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-    if ops[0].dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in ops[1:]):
-        raise AssertionError("the bfloat16 model's packing is not K1's bfloat16 mode")
-    errors = [check_k1_bf16(f"flagship B{BATCH} H{HIDDEN} C{CHANNELS} W{WIDTH} rk4 m1 terminal",
-                            ops, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,)))]
+    errors = []
+    for hidden, m in ((HIDDEN, model), (16, flagship_model(device, 16, BF16_FLAGSHIP))):
+        with torch.no_grad():
+            p = packed_operands(m, coeffs)
+        ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+        if ops[0].dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in ops[1:]):
+            raise AssertionError("the bfloat16 model's packing is not K1's bfloat16 mode")
+        errors.append(check_k1_bf16(
+            f"flagship B{BATCH} H{hidden} C{CHANNELS} W{WIDTH} rk4 m1 terminal", ops,
+            k1._Plan("rk4", 1, 1.0, (LENGTH - 1,))))
     for seed, (name, B, n, H, C, W, method, m, which) in enumerate(K1_BF16_CASES, start=1):
         plan = k1._Plan(method, m, 1.0 / m, knot_set(which, n))
         errors.append(check_k1_bf16(f"{name} B{B} n{n} H{H} C{C} W{W} {method} m{m} {which}",
@@ -2941,6 +3048,12 @@ def time_bf16(device, model, f32_model, coeffs, labels):
     ref = k1.fused_fixed_solve_reference(*leaves, "rk4", 1, 1.0, (n,))
     timing["k1_bf16_bwd_plain_ms"] = _event_ms(
         lambda: torch.autograd.grad(ref, leaves, gz, retain_graph=True), 3)
+    for hidden in K1_HIDDEN[1:]:
+        fwd_bound, bwd_bound = k1_bounds(True, hidden)
+        timing[f"k1_bf16_H{hidden}"] = dict(
+            time_k1_kernels(flagship_model(device, hidden, BF16_FLAGSHIP), coeffs),
+            fwd_bound_ms=fwd_bound[0], bwd_bound_ms=bwd_bound[0],
+            fwd_plan=k1_plan(1, "forward", hidden), bwd_plan=k1_plan(1, "backward", hidden))
 
     models = {"bf16": copy.deepcopy(model), "f32": copy.deepcopy(f32_model),
               "bf16_plain": copy.deepcopy(model)}
@@ -3002,9 +3115,9 @@ def k9_bounds(timing):
     return tuple((ms / launches, by) for ms, by in (fwd, bwd))
 
 
-def k8_bounds(batch, n, m, hidden, channels):
-    """K8's least times at config 5's batch, intervals and width at this
-    hidden size and channel count, forward and backward, and the forward's
+def k8_bounds(batch, n, m, hidden, channels, width=WIDTH):
+    """K8's least times at this batch, intervals, substeps, hidden size,
+    channel count and width, forward and backward, and the forward's
     on the CUDA cores: 2 W H (1 + C) operations per evaluation of one lane's
     MLP field.  The forward evaluates (m + 1) times per interval, its
     products on the tensor cores in three TF32 passes, counted at the TF32
@@ -3014,7 +3127,7 @@ def k8_bounds(batch, n, m, hidden, channels):
     Bytes: the control's rows and the initial state read, y and ŷ written
     (forward); the rows, y, ŷ and their cotangent read, the rows' cotangent
     and dz0 written (backward)."""
-    f = 2 * WIDTH * hidden * (1 + channels)
+    f = 2 * width * hidden * (1 + channels)
     ct_bytes = 4 * n * 3 * channels * batch
     states = 4 * n * hidden * batch
     state = 4 * hidden * batch
@@ -3134,21 +3247,22 @@ def fused_bounds(k2_ms):
     times 7 per accepted step.  Bytes (the control's coefficients, states
     and cotangents) are far below: operations bound."""
     n = LENGTH - 1
-    return k1_bounds(bf16=False) + k2_bounds(k2_ms, BATCH, n, CHANNELS, 3)
+    return k1_bounds(False) + k2_bounds(k2_ms, BATCH, n, CHANNELS, 3)
 
 
-def k1_bounds(bf16):
-    """K1's least times at the flagship (see fused_bounds), forward and
-    backward.  The bfloat16 mode's slabs (and their cotangents) take 2 bytes
-    instead of 4, and its stage products, whose operands are bfloat16 summed
-    in float32, count at the tensor cores' bfloat16 rate."""
-    f = 2 * WIDTH * HIDDEN * (1 + CHANNELS)
+def k1_bounds(bf16, hidden=HIDDEN, channels=CHANNELS):
+    """K1's least times at the flagship's shapes at this hidden size and
+    channel count (see fused_bounds), forward and backward.  The bfloat16
+    mode's slabs (and their cotangents) take 2 bytes instead of 4, and its
+    stage products, whose operands are bfloat16 summed in float32, count at
+    the tensor cores' bfloat16 rate."""
+    f = 2 * WIDTH * hidden * (1 + channels)
     n = LENGTH - 1
-    ct_bytes = (2 if bf16 else 4) * n * 3 * CHANNELS * BATCH
-    state = 4 * HIDDEN * BATCH
+    ct_bytes = (2 if bf16 else 4) * n * 3 * channels * BATCH
+    state = 4 * hidden * BATCH
     rate = BF16_TENSOR_FLOPS if bf16 else FP32_FLOPS
-    return (bound(ct_bytes + state + 4 * n * HIDDEN * BATCH, n * 4 * BATCH * f, rate),
-            bound(2 * ct_bytes + 2 * 4 * n * HIDDEN * BATCH + 2 * state,
+    return (bound(ct_bytes + state + 4 * n * hidden * BATCH, n * 4 * BATCH * f, rate),
+            bound(2 * ct_bytes + 2 * 4 * n * hidden * BATCH + 2 * state,
                   3 * n * 4 * BATCH * f, rate))
 
 
@@ -4817,7 +4931,6 @@ def main():
 
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.models import accuracy, make_train_step
-    from torchcde_tpu_torch.models.neural_cde import bce_with_logits
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
     phase_build()
@@ -4828,12 +4941,14 @@ def main():
         torch.from_numpy(X_np).to(device))
     labels = torch.from_numpy(y_np).to(device)
     model = make_model(device)
-    with torch.no_grad():
-        p = packed_operands(model, coeffs)
-    flagship_ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-    errors = [check_k1(f"flagship B{BATCH} H{HIDDEN} C{CHANNELS} W{WIDTH} rk4 m1 terminal",
-                       flagship_ops, k1._Plan("rk4", 1, 1.0, (LENGTH - 1,), generic))
-              for generic in (False, True)]
+    errors = []
+    for hidden in K1_HIDDEN:
+        with torch.no_grad():
+            p = packed_operands(model if hidden == HIDDEN else flagship_model(device, hidden),
+                                coeffs)
+        errors.append(check_k1(f"flagship B{BATCH} H{hidden} C{CHANNELS} W{WIDTH} rk4 m1 terminal",
+                               (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2),
+                               k1._Plan("rk4", 1, 1.0, (LENGTH - 1,))))
     for seed, (B, n, H, C, W, method, m, which) in enumerate(ODD_CASES, start=1):
         plan = k1._Plan(method, m, 1.0 / m, knot_set(which, n))
         errors.append(check_k1(f"odd B{B} n{n} H{H} C{C} W{W} {method} m{m} {which}",
@@ -4865,6 +4980,7 @@ def main():
         raise AssertionError(f"the loss is not finite or does not change: {losses}")
     if (fwd_after_steps, bwd_after_steps) != (5, 5) or launches != {"fwd": 6, "bwd": 5}:
         raise AssertionError(f"the main path did not run the kernels once per step: {launches}")
+    hidden_slice = k1_hidden_slice(device, coeffs, labels)
 
     elapsed("6")
     # 6. K2 against its plain version, and 7. the default configuration.
@@ -4873,17 +4989,17 @@ def main():
 
     elapsed("8")
     # 8. Timing, and 9. the profiles.
-    kernel_ms, plain_fwd_ms, plain_bwd_ms = time_k1(model, coeffs)
-    (fwd_ms, bwd_ms), generic_ms = kernel_ms["specialised"], kernel_ms["generic"]
-    medians, samples = time_train_steps(
-        model, coeffs, labels,
-        lambda m: bce_with_logits(plain_forward(m, coeffs)[..., 0], labels))
+    k1_timing = time_k1(device, coeffs, labels)
+    k1_h8 = k1_timing[HIDDEN]
     print("timing: " + json.dumps({
-        "card": smi, "train_step_ms": medians, "train_step_samples_ms": samples,
-        "k1_fwd_ms": fwd_ms, "k1_fwd_plain_ms": plain_fwd_ms,
-        "k1_bwd_ms": bwd_ms, "k1_bwd_plain_ms": plain_bwd_ms,
-        "k1_fwd_generic_ms": generic_ms[0], "k1_bwd_generic_ms": generic_ms[1],
-        "k1_fwd_plan": k1_plan(0, "forward"), "k1_bwd_plan": k1_plan(0, "backward"),
+        "card": smi, "train_step_ms": k1_h8["train_step_ms"],
+        "train_step_samples_ms": k1_h8["train_step_samples_ms"],
+        **{k: v for k, v in k1_h8.items() if k.startswith("k1_")},
+        "k1_fwd_plan": k1_h8["fwd_plan"], "k1_bwd_plan": k1_h8["bwd_plan"],
+        **{f"k1_H{h}": {**t, "fwd_bound_ms": k1_bounds(False, h)[0][0],
+                        "bwd_bound_ms": k1_bounds(False, h)[1][0]}
+           for h, t in k1_timing.items() if h != HIDDEN},
+        "k1_H16_slice": hidden_slice,
     }))
     k2_ms = time_k2(device)
     default_steps = {}
@@ -4993,7 +5109,7 @@ def main():
     bf16_launches = bf16_report["flagship"]["k1_launches"]
     elapsed("28")
     bf16_ms, bf16_profile = time_bf16(device, bf16_model, model, coeffs, labels)
-    k1b_fwd_bound, k1b_bwd_bound = k1_bounds(bf16=True)
+    k1b_fwd_bound, k1b_bwd_bound = k1_bounds(True)
     print("timing: " + json.dumps({"card": smi, **bf16_ms, "k1_bf16_fwd_plan": k1_plan(1, "forward"),
                                    "k1_bf16_bwd_plan": k1_plan(1, "backward"),
                                    "k1_bf16_fwd_bound_ms": k1b_fwd_bound[0],
@@ -5050,14 +5166,26 @@ def main():
     # No single PyTorch call computes a fused CDE solve: K1's, K2's and K8's
     # library_ms is null (the fit kernels': time_fit_kernels).
     kernels = [
-        {"name": "K1-fwd", "route": "cuda", "source": SOURCE,
+        {"name": "K1-fwd", "kernel": K1_FWD_KERNEL, "route": "cuda", "source": SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:182", "launches": launches["fwd"],
-         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+         "max_abs_err": fwd_err, "ms": k1_h8["k1_fwd_ms"], "plain_ms": k1_h8["k1_fwd_plain_ms"],
          "bound_ms": k1_fwd_bound[0], "bound_by": k1_fwd_bound[1], "library_ms": None},
-        {"name": "K1-bwd", "route": "cuda", "source": SOURCE,
+        {"name": "K1-bwd", "kernel": K1_BWD_KERNEL, "route": "cuda", "source": SOURCE_BWD,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:265", "launches": launches["bwd"],
-         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+         "max_abs_err": bwd_err, "ms": k1_h8["k1_bwd_ms"], "plain_ms": k1_h8["k1_bwd_plain_ms"],
          "bound_ms": k1_bwd_bound[0], "bound_by": k1_bwd_bound[1], "library_ms": None},
+        {"name": "K1-fwd H16", "kernel": K1_FWD_KERNEL, "route": "cuda", "source": SOURCE,
+         "replaces": "torchcde_tpu/solvers/fused_pallas.py:182",
+         "launches": hidden_slice["k1_launches"]["fwd"], "max_abs_err": fwd_err,
+         "ms": k1_timing[16]["k1_fwd_ms"], "plain_ms": k1_timing[16]["k1_fwd_plain_ms"],
+         "bound_ms": k1_bounds(False, 16)[0][0], "bound_by": k1_bounds(False, 16)[0][1],
+         "library_ms": None},
+        {"name": "K1-bwd H16", "kernel": K1_BWD_KERNEL, "route": "cuda", "source": SOURCE_BWD,
+         "replaces": "torchcde_tpu/solvers/fused_pallas.py:265",
+         "launches": hidden_slice["k1_launches"]["bwd"], "max_abs_err": bwd_err,
+         "ms": k1_timing[16]["k1_bwd_ms"], "plain_ms": k1_timing[16]["k1_bwd_plain_ms"],
+         "bound_ms": k1_bounds(False, 16)[1][0], "bound_by": k1_bounds(False, 16)[1][1],
+         "library_ms": None},
         {"name": "K2-fwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_dopri_pallas.py:161",
          "launches": k2_total["fwd"], "max_abs_err": k2_fwd_err, "ms": k2_ms["k2_fwd_ms"],
@@ -5101,12 +5229,12 @@ def main():
          "bound_by": k9_bwd_bound[1], "library_ms": None},
     ]
     kernels += [
-        {"name": "K1-bf16-fwd", "route": "cuda", "source": SOURCE,
+        {"name": "K1-bf16-fwd", "kernel": K1_FWD_KERNEL, "route": "cuda", "source": SOURCE,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:182",
          "launches": bf16_launches["bf16_fwd"], "max_abs_err": k1b_fwd_err,
          "ms": bf16_ms["k1_bf16_fwd_ms"], "plain_ms": bf16_ms["k1_bf16_fwd_plain_ms"],
          "bound_ms": k1b_fwd_bound[0], "bound_by": k1b_fwd_bound[1], "library_ms": None},
-        {"name": "K1-bf16-bwd", "route": "cuda", "source": SOURCE,
+        {"name": "K1-bf16-bwd", "kernel": K1_BWD_KERNEL, "route": "cuda", "source": SOURCE_BWD,
          "replaces": "torchcde_tpu/solvers/fused_pallas.py:265",
          "launches": bf16_launches["bf16_bwd"], "max_abs_err": k1b_bwd_err,
          "ms": bf16_ms["k1_bf16_bwd_ms"], "plain_ms": bf16_ms["k1_bf16_bwd_plain_ms"],

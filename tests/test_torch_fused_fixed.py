@@ -106,7 +106,8 @@ def test_cdeint_matches_jax_float64(method, m, H, which):
 
 
 # Other shapes inside the JAX kernel's caps (C * H <= 512, 3 * C <= 16,
-# width <= 512), which the CUDA kernels' generic variant runs on the card.
+# width <= 512), which the CUDA kernels run on the card split over state
+# slices (H 16 and 100; H 7 padded to one slice of 8).
 @pytest.mark.parametrize("H, C_, W_", [(7, 2, 64), (16, 5, 512), (100, 5, 16)])
 def test_cdeint_matches_jax_inside_the_caps(H, C_, W_):
     coeffs, p = _problem(H, np.float64, C_=C_, W_=W_)
@@ -306,8 +307,8 @@ def test_backward_launch_wrapper_with_plain_stand_ins(dtype, blocks, monkeypatch
     magnitude; bfloat16 weights: one bfloat16 step, 2^-7 of it, since a
     float32 difference in the last bit can round to either neighbour)."""
     mode = int(dtype == torch.bfloat16)
-    launch = dict(variant=0, blocks=blocks, threads=128, lanes_per_block=32, threads_per_lane=4,
-                  resident_per_sm=1, sms=blocks, shared_bytes=0)
+    launch = dict(streamed=0, blocks=blocks, threads=256, lanes_per_block=32, threads_per_lane=8,
+                  slices=1, resident_per_sm=1, sms=blocks, shared_bytes=0, scratch_floats=0)
     field = _plain_field(dtype)
     expected = _fused_solve_and_grads(field, dtype)
 
@@ -375,8 +376,8 @@ def test_forward_launch_wrapper_with_plain_stand_ins(dtype, blocks, monkeypatch)
     forward launch per solve, in the slab table's mode, and the solution is
     the plain route's."""
     mode = int(dtype == torch.bfloat16)
-    launch = dict(variant=0, blocks=blocks, threads=64, lanes_per_block=8, threads_per_lane=8,
-                  resident_per_sm=8, sms=blocks, shared_bytes=18528)
+    launch = dict(streamed=0, blocks=blocks, threads=64, lanes_per_block=8, threads_per_lane=8,
+                  slices=1, resident_per_sm=8, sms=blocks, shared_bytes=18528, scratch_floats=0)
     field = _plain_field(dtype)
     expected = _fused_solve_and_grads(field, dtype)[0]
     seen = []
@@ -416,3 +417,321 @@ def test_forward_launch_wrapper_with_plain_stand_ins(dtype, blocks, monkeypatch)
     k1.reset_launch_counts()
     assert got.dtype == expected.dtype
     torch.testing.assert_close(got, expected, rtol=1e-6, atol=0.0)
+
+
+# A numpy mirror of the CUDA kernels' lane group (csrc/fused_fixed.cuh,
+# fused_fixed_bwd.cu): one stage evaluation and its VJP as the group
+# computes them, held against the plain version.  A lane's G threads are GS
+# state slices of HS components (H padded to Hp = GS HS with zero weights,
+# per channel) times GW row threads; thread (s, rw) walks the hidden rows
+# w = rw (mod GW) in order, its slice's part of W1[w] . y summed over the
+# slices by a butterfly, the slice's C HS pre-activations summed over its row
+# threads by a butterfly that scatters them and a second that gathers them;
+# in the VJP dh_w and ddx are summed over the slices and dy over the row
+# threads.  The weight gradients reduce over the block's lanes in units of 4
+# rows x 4 columns (chunks of 128 rows), each real cell in one unit.  In the
+# bfloat16 mode the operands round where the kernels round them, with the
+# padded layout's selection roundings where H % 8 != 0.
+
+
+def _slicing(H, C):
+    """(HS, GS, GW, Hp), as fused_fixed.cuh's slicing() picks them."""
+    HS = 16 if C == 1 and H > 256 else 8
+    GS = 1
+    while GS * HS < H:
+        GS *= 2
+    Hp = GS * HS
+    return HS, GS, (8 if Hp <= 32 else 1), Hp
+
+
+def _small_batch_lanes(lanes, G, B, sms, least=32, fits=lambda lanes: True):
+    """fused_fixed.cuh's small_batch_lanes: lanes a block halved while the
+    lane groups are fewer than half the SMs, the block keeps `least` threads
+    and fits(the halved lanes) holds."""
+    while 2 * -(-B // lanes) < sms and lanes * G // 2 >= least and fits(lanes // 2):
+        lanes //= 2
+    return lanes
+
+
+def _backward_lanes(B, H, C, W, sms):
+    """The backward's small-batch rule (fused_fixed_bwd.cuh backward_plan):
+    halved only while each thread's units of the weight gradients (units of
+    4 rows x 4 columns, chunks of 128 rows) stay in its two registers'
+    tiles."""
+    _, GS, GW, Hp = _slicing(H, C)
+    G, NB, chunks = GS * GW, (1 + C) * Hp // 4, -(-(-(-W // 8) * 8) // 128)
+
+    def units(lanes):
+        return chunks * -(-(32 * NB) // (lanes * G))
+
+    return _small_batch_lanes(256 // G, G, B, sms, 32, lambda lanes: units(lanes) <= 2)
+
+
+def _r(x, mx):
+    """x rounded to bfloat16 (float32 kept) when mx, else x."""
+    if not mx:
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16).float().numpy()
+
+
+def _slice_butterfly(parts):
+    """The sum over the slices (axis 0) by the kernels' xor butterfly: the
+    same bits in every slice."""
+    G, o = parts.shape[0], 1
+    while o < G:
+        parts = parts + parts[np.arange(G) ^ o]
+        o *= 2
+    assert all(np.array_equal(parts[0], p) for p in parts)
+    return parts[0]
+
+
+def _scatter_gather(pre, GW):
+    """pre (GW, L, N) of the row threads: the sums over them as Scatter
+    leaves them (thread rw owning entries [rw N/GW, (rw+1) N/GW)), then
+    gathered; returns (L, N)."""
+    GWn, L, N = pre.shape
+    live = [pre[rw].copy() for rw in range(GW)]
+    own = [np.arange(N) for _ in range(GW)]
+    M = GW // 2
+    while M >= 1:
+        new, new_own = [], []
+        for rw in range(GW):
+            half = live[rw].shape[1] // 2
+            hi = bool(rw & M)
+            keep = live[rw][:, half:] if hi else live[rw][:, :half]
+            partner = live[rw ^ M][:, half:] if hi else live[rw ^ M][:, :half]
+            new.append(keep + partner)
+            new_own.append(own[rw][half:] if hi else own[rw][:half])
+        live, own, M = new, new_own, M // 2
+    out = np.zeros((L, N), np.float32)
+    for rw in range(GW):
+        assert np.array_equal(own[rw], np.arange(rw * N // GW, (rw + 1) * N // GW))
+        out[:, own[rw]] = live[rw]
+    return out
+
+
+def _row_butterfly(parts):
+    """parts (GW, ...) summed over the row threads by row_sum's butterfly."""
+    GW, m = parts.shape[0], 1
+    while m < GW:
+        parts = parts + parts[np.arange(GW) ^ m]
+        m *= 2
+    return parts[0]
+
+
+def _group_step(ct, z0t, w1t, b1, w2t, b2, gz, mx, threads):
+    """One euler step over one interval (one evaluation at fraction 0) and
+    its VJP for the cotangent gz, by the mirror of the lane group: (out,
+    dct, dz0, dw1t, db1, dw2t, db2), float32."""
+    f32 = np.float32
+    _, _, C, L = ct.shape
+    W, H = w1t.shape
+    HS, GS, GW, Hp = _slicing(H, C)
+    rows = -(-W // 8) * 8
+    RS = (1 + C) * Hp + 4
+    rec = np.zeros((rows, RS), f32)  # csrc/cde_stream.cuh's records
+    rec[:W, :H] = w1t
+    for i in range(C):
+        rec[:W, (1 + i) * Hp:(1 + i) * Hp + H] = w2t[i * H:(i + 1) * H].T
+    rec[:W, (1 + C) * Hp] = b1
+    b2s = np.zeros((C, Hp), f32)
+    b2s[:, :H] = b2.reshape(C, H)
+    y = np.zeros((L, Hp), f32)
+    y[:, :H] = z0t.T
+    u = np.zeros((L, Hp), f32)
+    u[:, :H] = gz.T
+    sel = mx and H % 8 != 0
+    dx = ct[0, 0].T.astype(f32)  # b + (2c + 3d fr) fr at fr 0
+    yr = _r(y, mx)
+    w1 = rec[:, :Hp].reshape(rows, GS, HS)
+    w2 = rec[:, Hp:(1 + C) * Hp].reshape(rows, C, GS, HS)
+    # h1: each slice's dot in order, summed over the slices.
+    part = np.zeros((GS, L, rows), f32)
+    for j in range(HS):
+        part = part + np.einsum("wg,lg->glw", w1[:, :, j], yr.reshape(L, GS, HS)[:, :, j])
+    h1 = np.maximum(_slice_butterfly(part) + rec[:, (1 + C) * Hp], f32(0))
+    # The second layer: each row thread's rows in order, then scatter/gather.
+    g = np.zeros((L, C, GS, HS), f32)
+    h1r = _r(h1, mx)
+    for s in range(GS):
+        pre = np.zeros((GW, L, C * HS), f32)
+        for w in range(rows):
+            pre[w % GW] = pre[w % GW] + h1r[:, w, None] * w2[w, :, s].reshape(1, C * HS)
+        g[:, :, s] = np.tanh(_scatter_gather(pre, GW) + b2s[:, s * HS:(s + 1) * HS].reshape(
+            1, C * HS)).reshape(L, C, HS)
+    g = g.reshape(L, C, Hp)
+    dxr = _r(dx, sel)
+    if sel:
+        k = np.zeros((L, Hp), f32)
+        for i in range(C):
+            k = k + _r(g[:, i] * dxr[:, i:i + 1], True)
+    else:
+        k = g[:, 0] * dx[:, 0:1]
+        for i in range(1, C):
+            k = k + g[:, i] * dx[:, i:i + 1]
+    # The VJP.
+    ur = _r(u, sel)
+    acc = np.zeros((GS, L, C), f32)
+    for j in range(HS):
+        for s in range(GS):
+            h = s * HS + j
+            term = ur[:, None, h] * g[:, :, h]
+            acc[s] = acc[s] + (_r(term, True) if sel else term)
+    ddx = _slice_butterfly(acc)
+    dp2 = (ur[:, None, :] * dxr[:, :, None]) * (f32(1) - g * g)  # (L, C, Hp)
+    dp2r = _r(dp2, mx)
+    dh_part = np.zeros((GS, L, rows), f32)
+    for i in range(C):
+        for j in range(HS):
+            dh_part = dh_part + np.einsum("wg,lg->glw", w2[:, i, :, j],
+                                          dp2r[:, i].reshape(L, GS, HS)[:, :, j])
+    p = np.where(h1 > 0, _slice_butterfly(dh_part), f32(0))
+    pr = _r(p, mx)
+    dy_part = np.zeros((GW, L, Hp), f32)
+    for w in range(rows):
+        dy_part[w % GW] = dy_part[w % GW] + pr[:, w, None] * rec[w, :Hp]
+    dy = _row_butterfly(dy_part)
+    # The weight gradients: units of 4 rows x 4 columns over the lanes, in
+    # order; columns q = i Hp + h of dp2, then h of y.
+    right = np.concatenate([dp2r.reshape(L, C * Hp), yr], axis=1)
+    NB, NBQ = (1 + C) * Hp // 4, C * Hp // 4
+    upc = -(-(32 * NB) // threads)
+    dw2 = np.zeros((W, C * H), f32)
+    dw1 = np.zeros((W, H), f32)
+    db1 = np.zeros(W, f32)
+    db2 = np.zeros(C * H, f32)
+    covered = np.zeros((W, (1 + C) * H + 1), int)
+    for c in range(-(-rows // 128)):
+        for tid in range(threads):
+            for jj in range(upc):
+                k4, b = divmod(tid + jj * threads, NB)
+                r0 = c * 128 + 4 * k4
+                if 4 * k4 >= 128 or r0 >= rows:
+                    continue
+                left = _r(p if b >= NBQ else h1, mx)[:, r0:r0 + 4]
+                cols = right[:, 4 * b:4 * b + 4]
+                tile = np.zeros((4, 4), f32)
+                for lane in range(L):
+                    tile = tile + left[lane][:, None] * cols[lane][None, :]
+                for e in range(4):
+                    w = r0 + e
+                    if w >= W:
+                        continue
+                    for jc in range(4):
+                        q = 4 * b + jc
+                        if b < NBQ:
+                            i, h = divmod(q, Hp)
+                            if h < H:
+                                dw2[w, i * H + h] += tile[e, jc]
+                                covered[w, i * H + h] += 1
+                        elif q - C * Hp < H:
+                            dw1[w, q - C * Hp] += tile[e, jc]
+                            covered[w, C * H + q - C * Hp] += 1
+                    if b == NBQ:
+                        db1[w] += p[:, w].sum(dtype=f32)
+                        covered[w, -1] += 1
+                if c == 0 and k4 == 0 and b < NBQ:
+                    for jc in range(4):
+                        i, h = divmod(4 * b + jc, Hp)
+                        if h < H:
+                            db2[i * H + h] += dp2[:, i, h].sum(dtype=f32)
+    assert (covered == 1).all()
+    dct = np.zeros(ct.shape, f32)
+    dct[0, 0] = ddx.T
+    out = (y + k)[:, :H].T
+    return out, dct, (u + dy)[:, :H].T, dw1, db1, dw2.T, db2
+
+
+# (H, C, W): the flagship's H 8, C 3 (one slice, 8 row threads); H 5 and 7
+# padded to one slice (the bfloat16 mode's selection roundings); H 16 in two
+# slices, at W 128 and with C 5 at the caps' width; H 100 in sixteen slices
+# of one row thread each (Hp 128).
+MIRROR_SHAPES = [(8, 3, 128), (5, 3, 128), (7, 2, 64), (16, 3, 128), (16, 5, 512),
+                 (100, 5, 16)]
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("H, C_, W_", MIRROR_SHAPES, ids=[f"H{h}C{c}W{w}" for h, c, w in MIRROR_SHAPES])
+def test_lane_group_mirror_matches_the_plain_version(H, C_, W_, mode):
+    # float32: within 1e-6 of each output's largest magnitude (the plain
+    # version in float64; the mirror sums in float32 in the kernels' order).
+    # bfloat16: within one bfloat16 step (2^-7 of the largest magnitude) of
+    # the plain bfloat16 version, whose roundings a sum order may flip.
+    L = 6
+    rng = np.random.default_rng(H * 100 + C_)
+    f32 = np.float32
+    ops = [rng.standard_normal((1, 3, C_, L)).astype(f32) * f32(0.3),
+           rng.standard_normal((H, L)).astype(f32),
+           (rng.uniform(-1, 1, (W_, H)) / np.sqrt(H)).astype(f32),
+           (rng.uniform(-1, 1, W_) / np.sqrt(H)).astype(f32),
+           (rng.uniform(-1, 1, (C_ * H, W_)) / np.sqrt(W_)).astype(f32),
+           (rng.uniform(-1, 1, C_ * H) / np.sqrt(W_)).astype(f32)]
+    gz = rng.standard_normal((H, L)).astype(f32)
+    mx = bool(mode)
+    if mx:
+        ops = [_r(a, True) for a in ops]
+    _, GS, GW, _ = _slicing(H, C_)
+    threads = _backward_lanes(L, H, C_, W_, 132) * GS * GW
+    got = _group_step(*ops, gz, mx, threads)
+    if mx:
+        leaves = [torch.from_numpy(ops[0]).to(torch.bfloat16).requires_grad_()] + [
+            torch.from_numpy(a).requires_grad_() for a in ops[1:]]
+    else:
+        leaves = [torch.from_numpy(a).double().requires_grad_() for a in ops]
+    ref = k1.fused_fixed_solve_reference(*leaves, "euler", 1, 1.0, (1,))
+    grads = torch.autograd.grad(ref, leaves, torch.from_numpy(gz)[None].to(ref.dtype))
+    names = ["solution", "ct", "z0", "w1", "b1", "w2", "b2"]
+    for name, g, e in zip(names, got, [ref[0]] + list(grads)):
+        e = e.detach().float().numpy().astype(np.float64) if mx else e.detach().numpy()
+        scale = max(float(np.abs(e).max()), 1e-30)
+        np.testing.assert_allclose(g, e, rtol=0, atol=(2.0 ** -7 if mx else 1e-6) * scale,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B, H, C_, W_, fwd, bwd", [
+    (4096, 8, 3, 128, 8, 32),   # the flagship: its plans as before the rule
+    (4096, 16, 3, 128, 8, 16),
+    (4096, 32, 3, 128, 8, 8),
+    (1000, 8, 3, 128, 8, 16),   # 32 groups: the backward halves once, its units in registers
+    (520, 8, 3, 64, 8, 16),     # the forward keeps two warps a block
+    (520, 16, 5, 512, 4, 16),   # the backward's units already past its registers
+    (300, 100, 5, 512, 4, 16),
+    (300, 8, 3, 500, 8, 32),
+])
+def test_small_batch_rule_on_a_stand_in_plan(B, H, C_, W_, fwd, bwd):
+    # The rule on a stand-in of the card's plan (132 SMs), as the CUDA
+    # sources apply it: where the lane groups are fewer than half the SMs,
+    # the forward halves its lanes a block while a block keeps two warps, the
+    # backward while each thread's weight-gradient units stay in registers
+    # (on an H100, halving past either cost more than it spread: PERF.md, PR
+    # 22).  The flagship's plans at B 4096 keep their lanes in both
+    # directions.
+    _, GS, GW, _ = _slicing(H, C_)
+    assert _small_batch_lanes(8, GS * GW, B, 132, 64) == fwd
+    assert _backward_lanes(B, H, C_, W_, 132) == bwd
+
+
+# K8's backward (csrc/fused_reversible_bwd.cu backward_plan) on its group
+# path takes twice the threads a lane (slices of 4 components) where its lane
+# groups are fewer than half the SMs; its lanes a block stay 256 / G.
+def _k8_group_plan(B, H, C, sms):
+    """(components a thread, threads a lane, lanes a block)."""
+    HS = 16 if C == 1 and H > 256 else 8
+    G = 1
+    while G * HS < H:
+        G *= 2
+    if G == 1:
+        return HS, 1, 128  # one thread a lane: 128 lanes at compile time
+    if HS == 8 and 2 * G <= 32 and 2 * -(-B // (256 // G)) < sms:
+        HS, G = 4, 2 * G
+    return HS, G, 256 // G
+
+
+@pytest.mark.parametrize("B, H, C_, plan", [
+    (16384, 8, 3, (8, 1, 128)), (16384, 16, 3, (8, 2, 128)), (16384, 32, 3, (8, 4, 64)),
+    (520, 16, 5, (4, 4, 64)),   # config 5's: as before the rule; 5 groups of 128 lanes: split
+    (300, 100, 5, (4, 32, 8)),
+    (300, 8, 3, (8, 1, 128)),   # one thread a lane: unchanged
+])
+def test_k8_small_batch_rule_on_a_stand_in_plan(B, H, C_, plan):
+    assert _k8_group_plan(B, H, C_, 132) == plan

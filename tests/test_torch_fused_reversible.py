@@ -541,13 +541,17 @@ def test_tensor_core_walk_matches_the_reference_solve(m, H, C):
 # stride over the lane groups, and their partials are summed at the end.
 
 
-def _bwd_shape(H, C):
-    """(HS, G, Hp, LB) as backward_plan picks them."""
+def _bwd_shape(H, C, small=False):
+    """(HS, G, Hp, LB) as backward_plan picks them (small: at a batch whose
+    lane groups are fewer than half the SMs)."""
     HS = 16 if C == 1 and H > 256 else 8
     G = 1
     while G * HS < H:
         G *= 2
-    return HS, G, G * HS, (256 // G if G > 1 else 128)
+    Hp = G * HS
+    if small and G > 1 and HS == 8 and 2 * G <= 32:
+        HS, G = 4, 2 * G
+    return HS, G, Hp, (256 // G if G > 1 else 128)
 
 
 def _butterfly(parts):
@@ -619,12 +623,12 @@ def _unit_cells(W, H, C, Hp, CR, threads):
     return cells
 
 
-def _group_backward(ct, y, yhat, gy, w1t, b1, w2t, b2, m, dt, blocks, CR=128):
+def _group_backward(ct, y, yhat, gy, w1t, b1, w2t, b2, m, dt, blocks, CR=128, small=False):
     """The backward kernel's walk over its group partition and units:
     (dct, dz0, dw1t, db1, dw2t, db2) as ``launch_backward`` returns them."""
     n, _, C, B = ct.shape
     W, H = w1t.shape
-    HS, G, Hp, LB = _bwd_shape(H, C)
+    HS, G, Hp, LB = _bwd_shape(H, C, small)
     rec = _records(w1t, b1, w2t, Hp, -(-W // 4) * 4)
     b2s = _padded(b2.reshape(C, H), C, Hp).reshape(-1)
     cells = _unit_cells(W, H, C, Hp, CR, LB * G)
@@ -701,6 +705,30 @@ def test_backward_group_partition_matches_the_reference(B, H, C, W, blocks):
     expected = k8.fused_reversible_backward_reference(ops[0], y, yhat, gy, *ops[2:], m, 1.0 / m)
     got = _group_backward(*(t.numpy() for t in (ops[0], y, yhat, gy, *ops[2:])), m, 1.0 / m,
                           blocks)
+    for name, g, e in zip(("dct", "dz0", "dw1", "db1", "dw2", "db2"), got, expected):
+        e = e.numpy()
+        assert g.shape == e.shape, name
+        np.testing.assert_allclose(g, e, rtol=0, atol=1e-12 * float(np.abs(e).max()), err_msg=name)
+
+
+# (B, H, C, W): slices of 4 components, twice the threads a lane, as the plan
+# takes them at small batches: H 16 (4 threads), 32 (8), 100 (Hp 128: 32
+# threads, a whole warp) and H 16 with C 5 at W 44 (a part-filled row quad).
+SMALL_CASES = [(40, 16, 3, 40), (70, 32, 3, 24), (20, 100, 5, 16), (9, 16, 5, 44)]
+
+
+@pytest.mark.parametrize("B, H, C, W", SMALL_CASES, ids=[f"H{c[1]}C{c[2]}" for c in SMALL_CASES])
+def test_backward_small_batch_partition_matches_the_reference(B, H, C, W):
+    # As test_backward_group_partition_matches_the_reference, for the
+    # partition into slices of 4 that small batches take.
+    n, m = 3, 2
+    ops = _operands(n, C, B, H, W, seed=B + 1)
+    with torch.no_grad():
+        y, yhat = k8.fused_reversible_solve_reference(*ops, m, 1.0 / m)
+    gy = torch.from_numpy(np.random.default_rng(6).standard_normal(y.shape))
+    expected = k8.fused_reversible_backward_reference(ops[0], y, yhat, gy, *ops[2:], m, 1.0 / m)
+    got = _group_backward(*(t.numpy() for t in (ops[0], y, yhat, gy, *ops[2:])), m, 1.0 / m, 1,
+                          small=True)
     for name, g, e in zip(("dct", "dz0", "dw1", "db1", "dw2", "db2"), got, expected):
         e = e.numpy()
         assert g.shape == e.shape, name

@@ -111,11 +111,12 @@ def _port_k1(p, H, method, m):
 
 @pytest.mark.parametrize("m", [1, 2])
 @pytest.mark.parametrize("method", ["rk4", "euler"])
-@pytest.mark.parametrize("H", [4, 8])
-def test_plain_k1_bf16_matches_jax_kernel(H, method, m, forced_interpret):
+@pytest.mark.parametrize("H, C", [(4, 3), (8, 3), (16, 3), (8, 5)], ids=["4", "8", "H16", "C5"])
+def test_plain_k1_bf16_matches_jax_kernel(H, C, method, m, forced_interpret):
     # H 4 runs the JAX kernel's padded layout (H % 8 != 0), whose selection
-    # products round too; H 8 its matrix-free path.
-    p = _k1_problem(H)
+    # products round too; H 8 and 16 its matrix-free path (the CUDA kernels
+    # take H 16 as two state slices), and C 5 with five channels.
+    p = _k1_problem(H, C=C)
     out16, grads16 = _jax_k1(p, H, method, m, jnp.bfloat16)
     out32, grads32 = _jax_k1(p, H, method, m, jnp.float32)
     out, grads = _port_k1(p, H, method, m)

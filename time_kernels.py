@@ -19,9 +19,12 @@ mesh (a backward's time follows them), K8's forward and backward at config
 18's two shapes whose weights stream through shared memory, with their
 launch plans as the checkout reports them, config 5's train step in both
 adjoint modes, K1's
-forward and backward at the flagship in float32 and in bfloat16 (as phases
-8 and 28 time them) with both launch plans where the checkout reports
-them, the flagship's train step in both precisions (median of 10), K6/K7,
+forward and backward at the flagship's operands at hidden 8, 16 and 32 in
+float32 and in bfloat16 (as phases 8 and 28 time them) with both launch
+plans where the checkout reports them and the flagship's train step at
+each (median of 10), K1 at each of ``chip_smoke.ODD_CASES`` and at the
+flagship's widths at hidden 16 and batch 520 (float32, with both plans:
+the small-batch shapes read the plan's lanes a block), K6/K7,
 K4 and K5 at config 3 (as phase 13 times them; K5 on the operands of one
 masked gradient's last launch, recorded as phase 11 records them), config
 3's NaN-masked and dense fits' forwards and gradients through
@@ -131,8 +134,9 @@ def time_k8(cs, device):
     """K8's forward and backward ms at config 5's operands at hidden 8, 16
     and 32 (as phase 20 times them) and at phase 18's two shapes whose
     weights stream (the caps' H 100, C 5, W 512; H 16, C 5, W 512) with
-    their launch plans, and config 5's train step's median ms with the
-    adjoint and with direct backpropagation (hidden 8)."""
+    their launch plans and their plain versions' ms, and config 5's train
+    step's median ms with the adjoint and with direct backpropagation
+    (hidden 8)."""
     from torchcde_tpu_torch.models import make_train_step
     from torchcde_tpu_torch.solvers import fused_reversible_kernel as k8
 
@@ -163,6 +167,12 @@ def time_k8(cs, device):
         timing[f"{key}_bwd_ms"] = cs._event_ms(
             lambda: k8.launch_backward(ops[0], y, yhat, gy, *ops[2:], shape_plan), 3)
         timing[f"{key}_plans"] = k8_launch_plans(k8, B, H, C, W, shape_plan, device)
+        with torch.no_grad():
+            timing[f"{key}_fwd_plain_ms"] = cs._event_ms(
+                lambda: k8.fused_reversible_solve_reference(*ops, m, 1.0 / m), 1)
+            timing[f"{key}_bwd_plain_ms"] = cs._event_ms(
+                lambda: k8.fused_reversible_backward_reference(ops[0], y, yhat, gy, *ops[2:], m,
+                                                               1.0 / m), 1)
     model, coeffs, labels = cs.config5_problem(device, adjoint=True)
     for adjoint in (True, False):
         if not adjoint:
@@ -213,30 +223,56 @@ def step_ms(cs, model, coeffs, labels, count=10):
     return statistics.median(cs._once_ms(lambda: step(coeffs, labels)) for _ in range(count))
 
 
+def time_k1_launches(k1, cs, ops, plan, mode, device, key, repeats=(10, 5)):
+    """K1's forward and backward ms on ops under key, and both launch plans
+    where the checkout reports them."""
+    out, zres = k1.launch_forward(*ops, plan)
+    gz = torch.ones_like(out)
+    timing = {f"{key}_fwd_ms": cs._event_ms(lambda: k1.launch_forward(*ops, plan), repeats[0]),
+              f"{key}_bwd_ms": cs._event_ms(
+                  lambda: k1.launch_backward(ops[0], zres, ops[1], gz, *ops[2:], plan),
+                  repeats[1])}
+    shape = (ops[0].shape[3], ops[1].shape[0], ops[0].shape[2], ops[2].shape[0], plan, mode,
+             device)
+    for which, short in (("forward", "fwd"), ("backward", "bwd")):
+        if hasattr(k1, f"{which}_plan"):
+            timing[f"{key}_{short}_plan"] = getattr(k1, f"{which}_plan")(*shape)
+    return timing
+
+
+# The flagship's widths at hidden 16 and a batch of 520: 33 lane groups of
+# its backward's 16 lanes, fewer than half the SMs.
+SMALL_BATCH = (520, 40, 16, 3, 128, "rk4", 1, "all")
+
+
 def time_k1(cs, device, coeffs, labels):
-    """K1's forward and backward ms at the flagship (specialised variant),
-    float32 and bfloat16, the backward's plan where the checkout reports
-    it, and the flagship's train step in both precisions."""
+    """K1's forward and backward ms at the flagship's operands at hidden 8,
+    16 and 32, float32 and bfloat16, with the launch plans where the
+    checkout reports them, the flagship's train step at each, and K1 at
+    each odd case of chip_smoke and at SMALL_BATCH (float32, random
+    operands)."""
     from torchcde_tpu_torch.solvers import fused_fixed_kernel as k1
 
     timing = {}
     for mode, (name, config) in enumerate((("k1", cs.FLAGSHIP), ("k1_bf16", cs.BF16_FLAGSHIP))):
-        model = cs.make_model(device, config=config)
-        with torch.no_grad():
-            p = cs.packed_operands(model, coeffs)
-        ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
-        plan = k1._Plan("rk4", 1, 1.0, (p.ct.shape[0],))
-        out, zres = k1.launch_forward(*ops, plan)
-        gz = torch.ones_like(out)
-        timing[f"{name}_fwd_ms"] = cs._event_ms(lambda: k1.launch_forward(*ops, plan), 10)
-        timing[f"{name}_bwd_ms"] = cs._event_ms(
-            lambda: k1.launch_backward(p.ct, zres, p.z0t, gz, *ops[2:], plan), 5)
-        shape = (p.ct.shape[3], p.z0t.shape[0], p.ct.shape[2], p.w1t.shape[0], plan, mode, device)
-        for which, short in (("forward", "fwd"), ("backward", "bwd")):
-            if hasattr(k1, f"{which}_plan"):
-                timing[f"{name}_{short}_plan"] = getattr(k1, f"{which}_plan")(*shape)
-        flagship = "flagship" if mode == 0 else "flagship_bf16"
-        timing[f"{flagship}_train_step_ms"] = step_ms(cs, model, coeffs, labels)
+        for hidden in (8, 16, 32):
+            model = cs.make_model(device, config=dict(config, hidden_channels=hidden))
+            with torch.no_grad():
+                p = cs.packed_operands(model, coeffs)
+            ops = (p.ct, p.z0t, p.w1t, p.b1, p.w2t, p.b2)
+            plan = k1._Plan("rk4", 1, 1.0, (p.ct.shape[0],))
+            key = name if hidden == 8 else f"{name}_H{hidden}"
+            timing.update(time_k1_launches(k1, cs, ops, plan, mode, device, key))
+            flagship = "flagship" if mode == 0 else "flagship_bf16"
+            if hidden != 8:
+                flagship += f"_H{hidden}"
+            timing[f"{flagship}_train_step_ms"] = step_ms(cs, model, coeffs, labels)
+    for seed, (B, n, H, C, W, method, m, which) in enumerate(cs.ODD_CASES + [SMALL_BATCH],
+                                                             start=1):
+        ops = cs.random_operands(B, n, H, C, W, seed, device)
+        plan = k1._Plan(method, m, 1.0 / m, cs.knot_set(which, n))
+        timing.update(time_k1_launches(k1, cs, ops, plan, 0, device,
+                                       f"k1_B{B}_n{n}_H{H}_C{C}_W{W}_{method}_m{m}", (3, 3)))
     return timing
 
 

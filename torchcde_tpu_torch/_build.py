@@ -1,9 +1,9 @@
 """Builds the package's CUDA kernels from ``csrc/`` and loads them.
 
 The sources are compiled at first use with ``nvcc``, one process per source,
-all started together, and linked into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), loaded with
-``ctypes``.  The library goes to ``_build/`` beside this file,
+all started together (the log ends with each source's seconds), and linked
+into one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds), loaded with ``ctypes``.  The library goes to ``_build/`` beside this file,
 named by a hash of the sources and flags, so an edited source builds anew.
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -69,14 +69,24 @@ def build():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    objects = [path.with_name(f"{src.stem}.{os.getpid()}.o")
-               for src in _sources() if src.suffix == ".cu"]
+    sources = [src for src in _sources() if src.suffix == ".cu"]
+    objects = [path.with_name(f"{src.stem}.{os.getpid()}.o") for src in sources]
+    outputs = [obj.with_suffix(".log") for obj in objects]
     start = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip((s for s in _sources() if s.suffix == ".cu"), objects)]
-    logs = [proc.communicate()[0] for proc in procs]
-    log = "".join(logs)
+    procs = []
+    for src, obj, out in zip(sources, objects, outputs):
+        with open(out, "w") as sink:
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                          stdout=sink, stderr=subprocess.STDOUT, text=True))
+    # Each source's seconds from the start, as the processes end.
+    ended = {}
+    while len(ended) < len(procs):
+        for src, proc in zip(sources, procs):
+            if src.name not in ended and proc.poll() is not None:
+                ended[src.name] = time.perf_counter() - start
+        time.sleep(0.05)
+    log = "".join(out.read_text() for out in outputs)
+    log += "".join(f"nvcc {name}: {ended[name]:.1f} s\n" for name in sorted(ended))
     failed = [proc.returncode for proc in procs if proc.returncode != 0]
     if not failed:
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
@@ -84,7 +94,7 @@ def build():
         log += link.stdout + link.stderr
         failed = [link.returncode] if link.returncode != 0 else []
     seconds = time.perf_counter() - start
-    for obj in objects:
+    for obj in objects + outputs:
         obj.unlink(missing_ok=True)
     if failed:
         tmp.unlink(missing_ok=True)

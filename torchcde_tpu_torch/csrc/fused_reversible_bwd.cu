@@ -16,7 +16,8 @@
 // every channel i, the second layer's rows i Hp + r HS ..: its slice of y,
 // u, the cotangents, the recomputed states, pre2, g and dp2 in registers,
 // about what one thread per lane held at H 8 (HS 8; HS 16 for C 1 at H >
-// 256).  Per VJP every rank walks every row w of the weights:
+// 256; HS 4, twice the threads a lane, where the lane groups are fewer than
+// half the SMs).  Per VJP every rank walks every row w of the weights:
 //   * h1_w = relu(W1[w] . y + b1_w): its slice's dot product, summed over the
 //     group by a butterfly of shuffles (every rank gets the same bits), and
 //     pre2 += W2[., w] h1_w on its own rows of the second layer;
@@ -46,7 +47,7 @@
 //
 // Weights that do not fit: a small kernel stages the records in device
 // memory, and each walk streams them a chunk of CR rows at a time through
-// the ring (fused_reversible.cuh), CR as large as the shared memory allows.
+// the ring (cde_stream.cuh), CR as large as the shared memory allows.
 
 #include <algorithm>
 
@@ -58,39 +59,13 @@ constexpr int BW_THREADS = 256;  // most threads a block
 constexpr int BW_LANES = 128;    // lanes a block at G 1
 constexpr int ROW_CHUNK = 128;   // rows a chunk of the reduction (resident weights)
 constexpr int MAX_GROUP = 32;    // threads a lane: a group lies in one warp
+constexpr int SMALL_HS = 4;      // components a thread at small batches (group path)
 
 __host__ __device__ inline int round4(int W) { return (W + 3) & ~3; }
 
 // Row stride of the left operands: rows rounded to an odd multiple of 4, so
 // that eight consecutive lanes' float4 stores fall in distinct banks.
 __host__ __device__ inline int left_stride(int rows) { return 4 * ((round4(rows) / 4) | 1); }
-
-// Floats of one row's record: W1's row (Hp), W2's column (C Hp, in the order
-// q = i Hp + h), b1 and three zeros.
-__host__ __device__ inline int record_floats(int C, int Hp) { return (1 + C) * Hp + 4; }
-
-// Value e of the records, rows past W zero.
-__device__ float rec_value(const float* __restrict__ w1t, const float* __restrict__ b1,
-                           const float* __restrict__ w2t, int H, int C, int W, int Hp, int e) {
-  const int RS = record_floats(C, Hp);
-  const int w = e / RS, o = e - w * RS;
-  if (w >= W) return 0.f;
-  if (o < Hp) return o < H ? w1t[(size_t)w * H + o] : 0.f;
-  if (o < (1 + C) * Hp) {
-    const int i = (o - Hp) / Hp, k = o - Hp - i * Hp;
-    return k < H ? w2t[(size_t)(i * H + k) * W + w] : 0.f;
-  }
-  return o == (1 + C) * Hp ? b1[w] : 0.f;
-}
-
-// The records of `rows` rows into device memory, for the blocks to stream.
-__global__ void stage_records_kernel(const float* __restrict__ w1t, const float* __restrict__ b1,
-                                     const float* __restrict__ w2t, int H, int C, int W, int Hp,
-                                     int rows, float* __restrict__ out) {
-  const int total = rows * record_floats(C, Hp);
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += gridDim.x * blockDim.x)
-    out[e] = rec_value(w1t, b1, w2t, H, C, W, Hp, e);
-}
 
 // One backward launch's shapes, as backward_plan sets them.
 struct BwdArgs {
@@ -560,14 +535,19 @@ __global__ void __launch_bounds__(GROUP ? BW_THREADS : BW_LANES)
 using BwdKernel = decltype(&rev_bwd_kernel<1, 8, false, 1>);
 
 // The instances: every C, one thread a lane (H <= 8) or a group, one or two
-// units in registers; C 1 at 16 components a thread (H > 256).
+// units in registers; C 1 at 16 components a thread (H > 256); every C at 4
+// components a thread (small batches), two units in registers.
 BwdKernel bwd_kernel(int C, int HS, bool group, int nreg) {
 #define K8_BWD(c, hs, gr) \
   if (C == c && HS == hs && group == gr) \
     return nreg == 1 ? rev_bwd_kernel<c, hs, gr, 1> : rev_bwd_kernel<c, hs, gr, 2>;
+#define K8_BWD_SMALL(c) \
+  if (C == c && HS == SMALL_HS && group) return rev_bwd_kernel<c, SMALL_HS, true, 2>;
   K8_BWD(1, 8, false) K8_BWD(2, 8, false) K8_BWD(3, 8, false) K8_BWD(4, 8, false)
   K8_BWD(5, 8, false) K8_BWD(1, 8, true) K8_BWD(2, 8, true) K8_BWD(3, 8, true)
   K8_BWD(4, 8, true) K8_BWD(5, 8, true) K8_BWD(1, 16, true)
+  K8_BWD_SMALL(1) K8_BWD_SMALL(2) K8_BWD_SMALL(3) K8_BWD_SMALL(4) K8_BWD_SMALL(5)
+#undef K8_BWD_SMALL
 #undef K8_BWD
   return nullptr;
 }
@@ -580,7 +560,12 @@ struct BwdPlan {
 
 // The backward launch for these shapes: the group, the block, the chunk of
 // rows (128 with resident weights; streamed, as many as fit), the units, and
-// as many blocks as the SMs hold at once, at most one per lane group.
+// as many blocks as the SMs hold at once, at most one per lane group.  On
+// the group path, where the lane groups are fewer than half the SMs, each
+// lane takes twice the threads, slices of 4 components (SMALL_HS): a lane's
+// serial chain, not the SMs' occupancy, bounds a small batch, and fewer
+// lanes a block spread the same warps over more SMs without shortening it
+// (PERF.md, PR 22).  The one-thread path (H <= 8) keeps its 128 lanes.
 int backward_plan(BwdPlan& p, int B, int H, int C, int W) {
   p.HS = (C == 1 && H > 8 * MAX_GROUP) ? 16 : 8;
   p.a.G = 1;
@@ -588,6 +573,14 @@ int backward_plan(BwdPlan& p, int B, int H, int C, int W) {
   if (p.a.G > MAX_GROUP) return BAD_ARGUMENT;
   p.group = p.a.G > 1;
   p.a.Hp = p.a.G * p.HS;
+  int dev = 0, rc = (int)cudaGetDevice(&dev);
+  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc) return rc;
+  if (p.group && p.HS == 8 && 2 * p.a.G <= MAX_GROUP &&
+      2 * ((B + BW_THREADS / p.a.G - 1) / (BW_THREADS / p.a.G)) < p.sms) {
+    p.HS = SMALL_HS;
+    p.a.G = p.a.Hp / SMALL_HS;
+  }
   p.a.LB = p.group ? BW_THREADS / p.a.G : BW_LANES;
   p.threads = p.a.LB * p.a.G;
   p.a.B = B;
@@ -610,9 +603,7 @@ int backward_plan(BwdPlan& p, int B, int H, int C, int W) {
   p.scratch = p.a.streamed ? (size_t)p.a.R * p.a.CR * record_floats(C, p.a.Hp) : 0;
   const BwdKernel kernel = bwd_kernel(C, p.HS, p.group, p.nreg);
   if (!kernel) return BAD_ARGUMENT;
-  int dev = 0, rc = (int)cudaGetDevice(&dev);
-  if (!rc) rc = (int)cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!rc) rc = resident_blocks(kernel, p.threads, p.bytes, p.resident);
+  rc = resident_blocks(kernel, p.threads, p.bytes, p.resident);
   if (rc) return rc;
   if (p.resident < 1) return BAD_ARGUMENT;
   p.groups = (B + p.a.LB - 1) / p.a.LB;
@@ -640,11 +631,12 @@ int fr_backward_plan(int B, int H, int C, int W, long* out) {
 }
 
 // The floats of scratch fr_backward needs for these shapes (0 when the
-// weights are resident), into out.
-int fr_backward_scratch(int H, int C, int W, long* out) {
+// weights are resident), into out: its plan's chunks of rows, which hang on
+// the lanes a block and so on the batch.
+int fr_backward_scratch(int B, int H, int C, int W, long* out) {
   BwdPlan p;
-  int rc = check_call(1, 1, H, C, W, 1);
-  if (!rc) rc = backward_plan(p, 1, H, C, W);
+  int rc = check_call(B, 1, H, C, W, 1);
+  if (!rc) rc = backward_plan(p, B, H, C, W);
   if (rc) return rc;
   *out = (long)p.scratch;
   return 0;
@@ -667,11 +659,8 @@ int fr_backward(const float* ct, const float* yres, const float* yhres, const fl
   p.a.dt = dt;
   cudaStream_t st = (cudaStream_t)stream;
   if (p.a.streamed) {
-    const int total = (int)p.scratch;
-    stage_records_kernel<<<std::min((total + 255) / 256, 1024), 256, 0, st>>>(
-        w1t, b1, w2t, H, C, W, p.a.Hp, p.a.R * p.a.CR, scratch);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    rc = stage_records(w1t, b1, w2t, H, C, W, p.a.Hp, p.a.R * p.a.CR, scratch, st);
+    if (rc) return rc;
   }
   bwd_kernel(C, p.HS, p.group, p.nreg)<<<p.blocks, p.threads, p.bytes, st>>>(
       ct, yres, yhres, gy, w1t, b1, w2t, b2, reinterpret_cast<const float4*>(scratch), dct,

@@ -65,3 +65,12 @@ def check_operands(tensors, names, mask=None, dtypes=None):
 
 def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def scratch_buffer(floats, like):
+    """A float32 device buffer of ``floats`` on ``like``'s device and its
+    pointer, for a kernel's staged weights (None, None when it needs none)."""
+    if not floats:
+        return None, None
+    buf = torch.empty(floats, dtype=torch.float32, device=like.device)
+    return buf, buf.data_ptr()

@@ -14,8 +14,8 @@ about it.  This module holds what surrounds them:
   ``torch.autograd.Function`` whose backward is the backward kernel) and runs
   the plain version for CPU tensors;
 * ``forward_plan`` / ``backward_plan``: each kernel's launch for some shapes,
-  from the occupancy API of the kernel it launches (the specialised
-  variants run as many blocks of lanes as the SMs hold, striding beyond);
+  from the occupancy API of the kernel it launches (as many blocks of lanes
+  as the SMs hold, striding beyond; fewer lanes a block at small batches);
 * ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``: counts of kernel launches, and
   ``BF16_FWD_LAUNCHES`` / ``BF16_BWD_LAUNCHES`` of those in the bfloat16 mode.
 
@@ -24,8 +24,9 @@ C * H <= 512, 3 * C <= 16, or C <= 16 for a linear control's slopes, m <= 8,
 one dtype) and is decided from shapes
 before any launch; a declined solve returns None and ``try_fused_fixed``
 streams the rows instead.  On the card the kernels take float32, and every
-float32 shape inside the caps launches one of their two variants (see the
-CUDA source).
+float32 shape inside the caps launches the one forward and the one backward
+kernel, H, C and W at run time (see the CUDA sources): the weights resident
+in shared memory where they fit, streamed through it where they do not.
 
 Mixed precision follows the JAX package's dtype policy.  A bfloat16 model's
 solve keeps the coefficient slabs in bfloat16 (``ct_store="native"``), holds
@@ -44,7 +45,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ..ops.dispatch import check_operands, stream_of
+from ..ops.dispatch import check_operands, scratch_buffer, stream_of
 from .runge_kutta import TABLEAUS
 
 # Caps mirrored from the JAX package's _pack_operands.
@@ -240,7 +241,6 @@ class _Plan(NamedTuple):
     m: int
     dt_sub: float
     out_knots: tuple
-    generic: bool = False  # run the generic variant even where the specialised one fits
 
 
 def _library():
@@ -248,14 +248,12 @@ def _library():
     if not getattr(lib, "_ff_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         dp = ctypes.POINTER(ctypes.c_double)
-        lib.ff_forward.argtypes = [p] * 9 + [i] * 6 + [d, i, dp, dp, dp, i, i, i, p]
+        lib.ff_forward.argtypes = [p] * 10 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
         lib.ff_forward.restype = i
-        lib.ff_backward.argtypes = [p] * 15 + [i] * 6 + [d, i, dp, dp, dp, i, i, i, p]
+        lib.ff_backward.argtypes = [p] * 16 + [i] * 6 + [d, i, dp, dp, dp, i, i, p]
         lib.ff_backward.restype = i
-        lib.ff_variant.argtypes = [i] * 4
-        lib.ff_variant.restype = i
         for plan in (lib.ff_forward_plan, lib.ff_backward_plan):
-            plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_long)]
+            plan.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_long)]
             plan.restype = i
         lib.ff_error_string.argtypes = [i]
         lib.ff_error_string.restype = ctypes.c_char_p
@@ -294,11 +292,6 @@ def _shapes(ct, z0t, w1t, w2t):
     return n, C, B, H, W
 
 
-def kernel_variant(H, C, W, plan):
-    """Name of the kernel variant that runs these shapes."""
-    return ("specialised", "generic")[_library().ff_variant(H, C, W, int(plan.generic))]
-
-
 def _slab_mode(ct):
     """The kernels' mode: 1 for a bfloat16 slab table (bfloat16 operands in
     the stage products), 0 for float32."""
@@ -307,8 +300,8 @@ def _slab_mode(ct):
     return int(ct.dtype == torch.bfloat16)
 
 
-PLAN_KEYS = ("variant", "blocks", "threads", "lanes_per_block", "threads_per_lane",
-             "resident_per_sm", "sms", "shared_bytes")
+PLAN_KEYS = ("streamed", "blocks", "threads", "lanes_per_block", "threads_per_lane", "slices",
+             "resident_per_sm", "sms", "shared_bytes", "scratch_floats")
 
 
 def _plan(which, B, H, C, W, plan, mode, device):
@@ -316,19 +309,20 @@ def _plan(which, B, H, C, W, plan, mode, device):
     out = (ctypes.c_long * len(PLAN_KEYS))()
     planner = lib.ff_forward_plan if which == "forward" else lib.ff_backward_plan
     with torch.cuda.device(device):
-        rc = planner(B, H, C, W, plan.m, len(_chain_form(plan.method)[2]), int(plan.generic),
-                     mode, out)
+        rc = planner(B, H, C, W, plan.m, len(_chain_form(plan.method)[2]), mode, out)
     _raise_on(lib, rc, which)
     return dict(zip(PLAN_KEYS, out))
 
 
 def forward_plan(B, H, C, W, plan, mode, device):
     """The forward kernel's launch for these shapes in ``mode`` (0 float32,
-    1 bfloat16), as a dict (``PLAN_KEYS``): the variant (0 specialised, 1
-    generic), blocks, threads per block, lanes a block walks at once, threads
-    per lane, blocks an SM holds, the card's SMs and the shared memory of a
-    block.  The specialised variant launches as many blocks as the SMs of
-    ``device`` hold at once, striding over the lanes beyond that."""
+    1 bfloat16), as a dict (``PLAN_KEYS``): the weights' path (0 resident in
+    shared memory, 1 streamed through it), blocks, threads per block, lanes a
+    block walks at once, threads per lane, state slices per lane, blocks an
+    SM holds, the card's SMs, the shared memory of a block and the floats of
+    the staged weights' scratch (0 when resident).  The kernel launches as
+    many blocks as the SMs of ``device`` hold at once, striding over the
+    lanes beyond that."""
     return _plan("forward", B, H, C, W, plan, mode, device)
 
 
@@ -363,11 +357,12 @@ def _forward_kernel(ops, outs, shape, plan, mode, launch):
     lib = _library()
     B, n, H, C, W = shape
     slot = _knot_slots(plan.out_knots, n, ops[0].device)
+    _buf, scratch = scratch_buffer(launch["scratch_floats"], ops[0])
     ptrs = [t.data_ptr() for t in (*ops, slot, *outs)]
     with torch.cuda.device(ops[0].device):
-        rc = lib.ff_forward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
-                            *_tableau_args(plan.method), launch["variant"], mode,
-                            launch["blocks"], stream_of(ops[0]))
+        rc = lib.ff_forward(*ptrs, scratch, B, n, H, C, W, plan.m, plan.dt_sub,
+                            *_tableau_args(plan.method), mode, launch["blocks"],
+                            stream_of(ops[0]))
     _raise_on(lib, rc, "forward")
 
 
@@ -401,11 +396,12 @@ def _backward_kernel(ops, outs, shape, plan, mode, launch):
     lib = _library()
     B, n, H, C, W = shape
     slot = _knot_slots(plan.out_knots, n, ops[0].device)
+    _buf, scratch = scratch_buffer(launch["scratch_floats"], ops[0])
     ptrs = [t.data_ptr() for t in (*ops, slot, *outs)]
     with torch.cuda.device(ops[0].device):
-        rc = lib.ff_backward(*ptrs, B, n, H, C, W, plan.m, plan.dt_sub,
-                             *_tableau_args(plan.method), launch["variant"], mode,
-                             launch["blocks"], stream_of(ops[0]))
+        rc = lib.ff_backward(*ptrs, scratch, B, n, H, C, W, plan.m, plan.dt_sub,
+                             *_tableau_args(plan.method), mode, launch["blocks"],
+                             stream_of(ops[0]))
     _raise_on(lib, rc, "backward")
 
 

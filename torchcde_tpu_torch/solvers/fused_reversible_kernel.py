@@ -43,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ..ops.dispatch import check_operands, stream_of
+from ..ops.dispatch import check_operands, scratch_buffer, stream_of
 from .fused_fixed import admits_fused, plan_fixed_grid
 from .fused_fixed_kernel import MAX_SUBSTEPS, _shapes, pack_operands
 
@@ -148,7 +148,7 @@ def _library():
         lib.fr_backward.restype = i
         lib.fr_backward_plan.argtypes = [i] * 4 + [out]
         lib.fr_backward_plan.restype = i
-        lib.fr_backward_scratch.argtypes = [i] * 3 + [out]
+        lib.fr_backward_scratch.argtypes = [i] * 4 + [out]
         lib.fr_backward_scratch.restype = i
         lib.fr_error_string.argtypes = [i]
         lib.fr_error_string.restype = ctypes.c_char_p
@@ -200,22 +200,13 @@ def backward_plan(B, H, C, W, device):
         return _plan_of("fr_backward_plan", BACKWARD_PLAN_KEYS, "backward", B, H, C, W)
 
 
-def _scratch(floats, like):
-    """The staged weights' scratch buffer and its pointer (None when the
-    weights stay resident)."""
-    if not floats:
-        return None, None
-    buf = torch.empty(floats, dtype=torch.float32, device=like.device)
-    return buf, buf.data_ptr()
-
-
 def launch_forward(ct, z0t, w1t, b1, w2t, b2, plan):
     """Forward kernel: returns (y, ŷ), each (n, H, B)."""
     global FWD_LAUNCHES
     check_operands((ct, z0t, w1t, b1, w2t, b2), ("ct", "z0t", "w1t", "b1", "w2t", "b2"))
     n, C, B, H, W = _shapes(ct, z0t, w1t, w2t)
     lib = _library()
-    _buf, scratch = _scratch(forward_plan(B, H, C, W)["scratch_floats"], ct)
+    _buf, scratch = scratch_buffer(forward_plan(B, H, C, W)["scratch_floats"], ct)
     y = torch.empty((n, H, B), dtype=ct.dtype, device=ct.device)
     yhat = torch.empty_like(y)
     ptrs = [t.data_ptr() for t in (ct, z0t, w1t, b1, w2t, b2, y, yhat)]
@@ -255,8 +246,8 @@ def _backward_kernel(ops, outs, shape, plan, launch):
     floats = ctypes.c_long()
     ptrs = [t.data_ptr() for t in (*ops, *outs)]
     with torch.cuda.device(ops[0].device):
-        _raise_on(lib, lib.fr_backward_scratch(H, C, W, ctypes.byref(floats)), "backward")
-        _buf, scratch = _scratch(floats.value, ops[0])
+        _raise_on(lib, lib.fr_backward_scratch(B, H, C, W, ctypes.byref(floats)), "backward")
+        _buf, scratch = scratch_buffer(floats.value, ops[0])
         rc = lib.fr_backward(*ptrs, scratch, B, n, H, C, W, plan.m, plan.dt_sub,
                              launch["blocks"], stream_of(ops[0]))
     _raise_on(lib, rc, "backward")
