@@ -425,9 +425,16 @@ def phase_build():
     from torchcde_tpu_torch.ops.tridiagonal_kernel import solve_plan
 
     print(f"  K6/K7 at config 3 (k {FIT_LENGTH}): {fit_plan(FIT_LENGTH)}")
+    for length in LONG_FIT_LENGTHS:
+        print(f"  K6/K7 at k {length}: {fit_plan(length)}")
     for name, lines in ptxas_lines(log, fit_kernel_label).items():
         print(f"  K6/K7 kernel {name}: {'; '.join(lines)}")
     print(f"  K4 at config 3 (k {FIT_LENGTH}, shared bands): {solve_plan(FIT_LENGTH, True)}")
+    print(f"  K4 at config 3 (k {FIT_LENGTH}, per-row bands): {solve_plan(FIT_LENGTH, False)}")
+    for length in LONG_FIT_LENGTHS:
+        for shared in (True, False):
+            print(f"  K4 at k {length}, {'shared' if shared else 'per-row'} bands: "
+                  f"{solve_plan(length, shared)}")
     for name, lines in ptxas_lines(log, k4_label).items():
         print(f"  K4 kernel {name}: {'; '.join(lines)}")
     print(f"  K5 at config 3 (k {FIT_LENGTH}): {masked_tridiagonal_kernel.solve_plan(FIT_LENGTH)}")
@@ -475,17 +482,24 @@ def k1_ptxas(log):
     return ptxas_lines(log, label)
 
 
+def _instance(kernel, name):
+    """kernel, with <false> or <true> where name instantiates it on the
+    cluster level (a mangled ILb0E / ILb1E)."""
+    cluster = re.search(r"ILb([01])E", name)
+    return kernel + (f"<{'true' if cluster.group(1) == '1' else 'false'}>" if cluster else "")
+
+
 def fit_kernel_label(name):
     """K6/K7's kernels' names in ptxas's log, or None."""
     kernel = re.search(r"(resident|long)_fit_kernel", name)
-    return kernel.group(0) if kernel else None
+    return _instance(kernel.group(0), name) if kernel else None
 
 
 def k4_label(name):
     """K4's kernels' names in ptxas's log, or None (K5's masked_thomas_kernel
     and resident_gappy_kernel are not ones)."""
-    kernel = re.search(r"\d(thomas|shared_band|band_pivot)_kernel", name)
-    return kernel.group(1) + "_kernel" if kernel else None
+    kernel = re.search(r"\d(thomas|shared_band|band_pivot|per_row)_kernel", name)
+    return _instance(kernel.group(1) + "_kernel", name) if kernel else None
 
 
 def k5_label(name):
@@ -1327,10 +1341,21 @@ FIT_REPLACES = {
 # BASELINE config 3 (benchmarks/run_benchmarks.py:389-419, bench_cubic_fit).
 FIT_BATCH, FIT_LENGTH, FIT_NAN = 8192, 4096, 0.2
 # The lengths after 4096 are K6/K7's plan boundaries (a row of one warp,
-# 16 x 32 positions, and one past it) and one past the resident maximum,
-# which takes the long-row variant; they come last so that the earlier
-# lengths keep their seeds.
-FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096, 511, 512, 513, 4097)
+# 16 x 32 positions, and one past it), one past the resident maximum, the
+# cluster routes' (two blocks a row, three, four, eight: the reach) and one
+# past the reach, which takes the one-thread routes; they come last so that
+# the earlier lengths keep their seeds.  K3 and K5, whose routes do not
+# change past 4097, keep the lengths up to it.
+FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096, 511, 512, 513, 4097, 8192, 8193, 16384, 32768,
+               32769)
+SHORT_FIT_LENGTHS = FIT_LENGTHS[:FIT_LENGTHS.index(4097) + 1]
+LONG_FIT_LENGTHS = FIT_LENGTHS[len(SHORT_FIT_LENGTHS):]
+# Rows of each NaN density in K6/K7's cases past 4097, where the four
+# densities share one launch a version: the float64 plain version walks
+# the positions one at a time, so one walk holds every density.
+LONG_FIT_ROWS = 251
+# The largest error of each route in phase 10: {"K4" or "K6/K7": {variant: error}}.
+ROUTE_ERRORS = {"K4": {}, "K6/K7": {}}
 FIT_DENSITIES = (0.0, 0.2, 0.8, 1.0)
 SPIRAL_NAN = 0.3
 # The H100 SXM's datasheet rates: HBM bytes per second, float32 operations
@@ -1352,7 +1377,7 @@ FIT_PARTS = ("a", "b", "two_c", "three_d")
 K5_VARIANTS = {"resident": "resident_gappy_kernel", "thomas": "masked_thomas_kernel"}
 # The new kernels' names as the profiler reports them (csrc/*.cu).
 FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b",
-                    "K4": r"\b(?:thomas|shared_band|band_pivot)_kernel\b",
+                    "K4": r"\b(?:thomas|shared_band|band_pivot|per_row)_kernel\b",
                     "K5": r"\b(?:resident_gappy|masked_thomas)_kernel\b",
                     "K6/K7": r"\b(?:resident|long)_fit_kernel\b"}
 
@@ -1482,11 +1507,21 @@ def _rows_for(length, i):
     return 1001 if length >= 1025 else 77 + 2 * i  # odd row counts
 
 
+def route_text(plan):
+    """A K4 or K6/K7 plan's route, threads and cluster size, as text."""
+    if plan.cluster > 1:
+        return (f"{plan.variant}, a cluster of {plan.cluster} blocks a row, {plan.segment} "
+                f"positions a block")
+    if plan.variant in ("thomas", "long"):
+        return f"{plan.variant}, one thread a row"
+    return f"{plan.variant}, {plan.threads_per_row} threads a row"
+
+
 def check_k3(device):
     from torchcde_tpu_torch.ops import fill, fill_kernel
 
     failures, worst = [], 0.0
-    for i, length in enumerate(FIT_LENGTHS):
+    for i, length in enumerate(SHORT_FIT_LENGTHS):
         rows = FIT_BATCH if length == FIT_LENGTH else _rows_for(length, i)
         for n_values in (1, 2, 5):
             for reverse in (False, True):
@@ -1532,8 +1567,10 @@ def check_k4(device):
             err, scale = _rel(got, ref)
             worst = max(worst, err)
             plan = tridiagonal_kernel.solve_plan(length, shared)
+            routes = ROUTE_ERRORS["K4"]
+            routes[plan.variant] = max(routes.get(plan.variant, 0.0), err)
             label = (f"K4 tridiagonal {rows}x{length} {'shared' if shared else 'per-row'} bands "
-                     f"[{plan.variant}, {plan.threads_per_row} threads a row]")
+                     f"[{route_text(plan)}]")
             _report(label, err, scale, FWD_RTOL * max(scale, 1.0), failures,
                     bool(got.isfinite().all()))
             again = tridiagonal_kernel.launch(b, u, d, l)
@@ -1547,7 +1584,7 @@ def check_k5(device):
     from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
 
     failures, worst = [], 0.0
-    for i, length in enumerate(FIT_LENGTHS):
+    for i, length in enumerate(SHORT_FIT_LENGTHS):
         plan = masked_tridiagonal_kernel.solve_plan(length)
         for j, density in enumerate(FIT_DENSITIES):
             rows = _rows_for(length, i)
@@ -1590,19 +1627,32 @@ def check_k6(device):
     for i, length in enumerate(FIT_LENGTHS):
         plan = masked_cubic_kernel.fit_plan(length)
         t = torch.from_numpy(irregular_times(length, i)).to(device)
-        for j, density in enumerate(FIT_DENSITIES):
-            rows = _rows_for(length, i)
-            x = torch.from_numpy(nan_rows(rows, length, density, seed=100 + 10 * i + j)).to(device)
-            for version in (0, 1):
+        rows = LONG_FIT_ROWS if length in LONG_FIT_LENGTHS else _rows_for(length, i)
+        xs = [torch.from_numpy(nan_rows(rows, length, density, seed=100 + 10 * i + j))
+              .to(device) for j, density in enumerate(FIT_DENSITIES)]
+        # Past 4097 the densities' rows share one launch and one plain walk
+        # a version; each density is held on its own rows.
+        cases = list(enumerate(xs))
+        groups = [cases] if length in LONG_FIT_LENGTHS else [[case] for case in cases]
+        for version in (0, 1):
+            for group in groups:
+                x = torch.cat([part for _, part in group])
                 got = masked_cubic_kernel.launch(t, x, version)
                 ref = _masked_fit_plain(t.double(), x.double(), version)
-                label = (f"K6/K7 masked fit {rows}x{length} NaN {density:g} version {version} "
-                         f"[{plan.variant}, {plan.threads_per_row} threads a row]")
-                worst = max(worst, _report_parts(label, got, ref, FWD_RTOL, failures))
                 again = masked_cubic_kernel.launch(t, x, version)
                 torch.cuda.synchronize()
-                if not all(_same_bits(a, b) for a, b in zip(got, again)):
-                    failures.append(f"{label}: a second launch differs")
+                for at, (j, _) in enumerate(group):
+                    rows_of = slice(at * rows, (at + 1) * rows)
+                    label = (f"K6/K7 masked fit {rows}x{length} NaN {FIT_DENSITIES[j]:g} version "
+                             f"{version} [{route_text(plan)}]")
+                    err = _report_parts(label, [g[rows_of] for g in got],
+                                        [r[rows_of] for r in ref], FWD_RTOL, failures)
+                    worst = max(worst, err)
+                    routes = ROUTE_ERRORS["K6/K7"]
+                    routes[plan.variant] = max(routes.get(plan.variant, 0.0), err)
+                    if not all(_same_bits(a[rows_of], b[rows_of]) for a, b in zip(got, again)):
+                        failures.append(f"{label}: a second launch differs")
+                del got, ref, again
     return worst, failures
 
 
@@ -3230,6 +3280,236 @@ def time_fit_kernels(device, recorded):
     # (PyTorch) kernels of the recomputed pipeline and its autograd, idle.
     profiled = profile_calls(lambda: grad_of(xm), FIT_KERNEL_NAMES, 2)
     return out, end_to_end, profiled
+
+
+# The long rows (phases 13 and 41): the routes of K4 and K6/K7 that the
+# resident kernels do not take, each at a shape of its bound's table, and
+# the one-thread routes just past the clusters' reach.  (name in the
+# kernels line, operands, rows, length, the route): K4's bands per row
+# ("rows", diagonally dominant, as phase 10 draws them) or shared
+# ("dense": the dense fit's system on unit times, through the public fit),
+# K6/K7 on values with 20 % NaN ("masked").
+LONG_ROW_CASES = (("K4 per-row", "rows", 8192, 4096, "per_row"),
+                  ("K4 per-row cluster", "rows", 2048, 8192, "per_row_cluster"),
+                  ("K4 cluster", "dense", 2048, 8192, "cluster"),
+                  ("K6/K7 cluster", "masked", 2048, 8192, "cluster"),
+                  ("K6/K7 cluster 2048x16384", "masked", 2048, 16384, "cluster"),
+                  ("K4 thomas", "rows", 2048, 32769, "thomas"),
+                  ("K6/K7 long", "masked", 2048, 32769, "long"))
+# The kernels of each route, as the profiler names them.
+ROUTE_KERNELS = {"per_row": r"per_row_kernel<false>", "per_row_cluster": r"per_row_kernel<true>",
+                 "cluster": r"(?:shared_band|resident_fit)_kernel<true>",
+                 "thomas": r"\bthomas_kernel\b", "long": r"\blong_fit_kernel\b"}
+ONE_THREAD_KERNELS = r"\b(?:thomas|long_fit)_kernel\b"
+LONG_ROW_KERNELS_ARG = "--long-row-kernels"  # runs long_row_kernels alone
+
+
+def long_row_operands(what, n, k, device):
+    """A LONG_ROW_CASES case's operands, drawn on the card from a seed:
+    (b, u, d, l) for "rows"; x (n, k, 1) for "dense" and "masked"."""
+    gen = torch.Generator(device=device).manual_seed(k)
+    if what == "rows":
+        b = torch.randn((n, k), generator=gen, device=device)
+        u = torch.randn((n, k - 1), generator=gen, device=device)
+        l = torch.randn((n, k - 1), generator=gen, device=device)
+        pad = u.new_zeros((n, 1))
+        return b, u, 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1), l
+    x = torch.randn((n, k, 1), generator=gen, device=device)
+    if what == "masked":
+        x[torch.rand((n, k, 1), generator=gen, device=device) < FIT_NAN] = float("nan")
+    return (x,)
+
+
+def long_row_call(what, ops):
+    """The public entry point of a LONG_ROW_CASES case on its operands:
+    tridiagonal_solve and its gradient for per-row bands, the dense fit and
+    its gradient, the masked fit's forward (its gradient recomputes the
+    plain pipeline through K3 and K5).  Returns a call giving (output,
+    gradient or None)."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve
+
+    leaves = [a.clone().requires_grad_() for a in ops]
+
+    def run():
+        if what == "masked":
+            return tt.natural_cubic_coeffs(ops[0]), None
+        out = tridiagonal_solve(*leaves) if what == "rows" else tt.natural_cubic_coeffs(leaves[0])
+        return out, torch.autograd.grad(out.sum(), leaves[0])[0]
+
+    return run
+
+
+def long_row_slice(device):
+    """Phase 41: each LONG_ROW_CASES case through the public entry points
+    (long_row_call) with every plain version patched to raise, the launch
+    counts by route set to 0 before and read after, the outputs against
+    float64 (per-row solves: the plain PCR solve of every row; the fits:
+    the plain path on 8 rows, but past the reach, where phase 10 holds the
+    kernel at the same length); then the device kernels of each case from
+    long_row_kernels_in_child (a case fails where the profiler names none
+    of its route's kernels, or a one-thread kernel up to the reach)."""
+    import torchcde_tpu_torch as tt
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_pcr
+
+    mods = fit_kernel_modules()
+    routes = {"K4": mods["K4"].ROUTE_LAUNCHES, "K6/K7": mods["K6/K7"].ROUTE_LAUNCHES}
+    report, failures = {}, []
+    for name, what, n, k, route in LONG_ROW_CASES:
+        kernel = "K6/K7" if what == "masked" else "K4"
+        ops = long_row_operands(what, n, k, device)
+        run = long_row_call(what, ops)
+        with plain_versions_raise():
+            reset_fit_counts()
+            out, grad = run()
+            torch.cuda.synchronize()
+            counts = fit_counts()
+            by_route = {r: c for r, c in routes[kernel].items() if c}
+        with torch.no_grad():
+            if what == "rows":
+                ref = tridiagonal_solve_pcr(*(a.double() for a in ops))
+                err, scale = _rel(out, ref)
+            elif route == "long":  # phase 10 holds long_fit_kernel at this length
+                ref, err, scale = None, None, float(out.abs().max())
+            else:
+                rows = 8
+                ref = tt.natural_cubic_coeffs(ops[0][:rows].double())
+                err, scale = _rel(out[:rows], ref)
+        report[name] = {"shape": f"{n}x{k}", "launches": counts[kernel], "by_route": by_route,
+                        "max_abs_err": err, "scale": scale}
+        checked = "held in phase 10" if err is None else f"max_abs_err {err:.3e}"
+        print(f"long rows {name} {n}x{k}: route {route}, launches {counts[kernel]} {by_route}, "
+              f"{checked} (largest |value| {scale:.3e})", flush=True)
+        if not bool(out.isfinite().all()) or (err is not None
+                                               and not err <= FWD_RTOL * max(scale, 1.0)):
+            failures.append(f"{name}: the output disagrees with float64")
+        if grad is not None and not bool(grad.isfinite().all()):
+            failures.append(f"{name}: the gradient is not finite")
+        if set(by_route) != {route}:
+            failures.append(f"{name}: launched {by_route}, not the {route} route")
+        del ops, run, out, grad, ref
+        torch.cuda.empty_cache()
+
+    # The device kernels of each case, each from a profiler session of its
+    # own, in a new process of this script (long_row_kernels_in_child).
+    for name, (device_us, events) in long_row_kernels_in_child().items():
+        route = next(case[4] for case in LONG_ROW_CASES if case[0] == name)
+        report[name]["kernel_device_us"] = device_us
+        report[name]["kernels"] = sorted(device_us)
+        if not any(re.search(ROUTE_KERNELS[route], m) for m in device_us):
+            failures.append(f"{name}: the profiler saw none of the {route} route's kernels "
+                            f"({sorted(device_us)}, of {events} device events)")
+        if route not in ("thomas", "long") and any(re.search(ONE_THREAD_KERNELS, m)
+                                                   for m in device_us):
+            failures.append(f"{name}: a one-thread kernel ran: {sorted(device_us)}")
+    if failures:
+        raise AssertionError("the long rows: " + "; ".join(failures))
+    return report
+
+
+def long_row_kernels(device):
+    """Each LONG_ROW_CASES case once more through its public entry point,
+    every plain version raising, in a profiler session of its own: {name:
+    ({fit kernel's name: device us}, count of all device events)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, what, n, k, route in LONG_ROW_CASES:
+        run = long_row_call(what, long_row_operands(what, n, k, device))
+        torch.cuda.synchronize()
+        with plain_versions_raise(), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        pattern = FIT_KERNEL_NAMES["K6/K7" if what == "masked" else "K4"]
+        device_us, events = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                events += 1
+                if re.search(pattern, e.name):
+                    span = e.time_range.end - e.time_range.start
+                    device_us[e.name] = device_us.get(e.name, 0.0) + span
+        out[name] = (device_us, events)
+        print(f"long rows {name}: kernels (device us) {device_us}, of {events} device events",
+              flush=True)
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_row_kernels_in_child():
+    """long_row_kernels in a new process of this script, which it waits for.
+    Late in this script's run the profiler recorded no device event in most
+    of these sessions, with 0.5 s idle on either side of each case too,
+    while a new process names every kernel."""
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), LONG_ROW_KERNELS_ARG],
+                           capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  (child) {line}", flush=True)
+    if child.returncode or not lines:
+        raise AssertionError(f"the long rows' profile exited {child.returncode}: "
+                             f"{child.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def time_long_rows(device):
+    """Phase 13's long rows: each LONG_ROW_CASES route's ms (CUDA events),
+    its plain version's (float32 on the card, one call), its bound, and
+    the library call where there is one: torch.linalg.solve of the dense
+    k x k shared system against the rows as columns for K4's shared bands.
+    Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    from torchcde_tpu_torch.interpolation.cubic import _masked_fit_plain
+    from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_thomas
+
+    mods = fit_kernel_modules()
+    out = {}
+    with torch.no_grad():
+        for name, what, n, k, route in LONG_ROW_CASES:
+            ops = long_row_operands(what, n, k, device)
+            library_ms = None
+            if what == "masked":
+                x2, t = ops[0][..., 0].contiguous(), torch.arange(k, dtype=torch.float32,
+                                                                  device=device)
+                kernel = lambda: mods["K6/K7"].launch(t, x2, 1)
+                plain = lambda: _masked_fit_plain(t, x2, 1)
+                bytes_moved, flops = 4 * (n * k + k + 4 * n * (k - 1)), 42 * n * k
+            else:
+                if what == "dense":
+                    hr = torch.ones(k - 1, device=device)
+                    zero = hr.new_zeros(1)
+                    system = (ops[0][..., 0].contiguous(), hr,
+                              2 * (torch.cat([zero, hr]) + torch.cat([hr, zero])), hr)
+                    bytes_moved = 4 * (2 * n * k + 3 * k)
+                else:
+                    system = ops
+                    bytes_moved = 4 * (3 * n * k + 2 * n * (k - 1))
+                kernel = lambda: mods["K4"].launch(*system)
+                plain = lambda: tridiagonal_solve_thomas(*system)
+                flops = 8 * n * k
+                if what == "dense":
+                    b, hr, diag, _ = system
+                    A = torch.diag(diag) + torch.diag(hr, 1) + torch.diag(hr, -1)
+                    columns = b.t().contiguous()
+                    library_ms = _event_ms(lambda: torch.linalg.solve(A, columns), 3)
+                    err, scale = _rel(torch.linalg.solve(A, columns).t(), kernel().double())
+                    print(f"{name} library call torch.linalg.solve (dense {k}x{k}, {n} columns): "
+                          f"{library_ms:.4f} ms, max_abs_err {err:.3e} against the kernel "
+                          f"(largest |value| {scale:.3e})", flush=True)
+                    if not err <= FWD_RTOL * max(scale, 1.0):
+                        raise AssertionError(f"torch.linalg.solve disagrees with {name}")
+                    del A, columns
+            ms = _event_ms(kernel, 3 if k > 16384 else 10)
+            with kernels_off():
+                plain_ms = _once_ms(plain)
+            out[name] = (ms, plain_ms, *bound(bytes_moved, flops), library_ms)
+            print(f"{name} {n}x{k} ({route}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                  f"{out[name][2]:.4f} ms ({out[name][3]})", flush=True)
+            del ops
+            torch.cuda.empty_cache()
+    return out
 
 
 def fused_bounds(k2_ms):
@@ -5029,6 +5309,7 @@ def main():
     for name, count in spiral_fit.items():
         fit_launches[name] += count
     fit_ms, fit_end_to_end, fit_profile = time_fit_kernels(device, recorded)
+    long_ms = time_long_rows(device)
     print("profile: " + json.dumps(dict(fit_profile, config="config-3 NaN-masked fit gradient",
                                         card=smi)))
     print("timing: " + json.dumps({
@@ -5036,6 +5317,8 @@ def main():
         **{f"{name}_plain_ms": v[1] for name, v in fit_ms.items()},
         **{f"{name}_bound_ms": v[2] for name, v in fit_ms.items()},
         "K4_library_ms": fit_ms["K4"][4], **fit_end_to_end,
+        "long_rows_ms": {name: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                                        v)) for name, v in long_ms.items()},
         "fit_slice_max_abs_err": {" ".join(key): v for key, v in slice_errors.items()},
         "nan_spiral_fit_max_abs_err": spiral_err, "nan_spiral_k2_launches": spiral_k2,
     }))
@@ -5161,6 +5444,12 @@ def main():
     kernels_off = kernels_off_phase(device, model, coeffs, labels)
     print("timing: " + json.dumps({"card": smi, "flagship_kernels_off": kernels_off}))
 
+    elapsed("41")
+    # 41. The long rows: K4's per-row bands and both fits past 4096 through
+    # the public entry points, by route, with the profiler's kernel names.
+    long_rows = long_row_slice(device)
+    print("timing: " + json.dumps({"card": smi, "long_rows": long_rows}))
+
     k2_total = {kind: sum(c[kind] for c in k2_launches.values()) for kind in ("fwd", "bwd")}
     k1_fwd_bound, k1_bwd_bound, k2_fwd_bound, k2_bwd_bound = fused_bounds(k2_ms)
     # No single PyTorch call computes a fused CDE solve: K1's, K2's and K8's
@@ -5249,6 +5538,16 @@ def main():
         if name == "K5":  # the kernel of K5's route at config 3's length
             kernels[-1]["variant"] = K5_VARIANTS[
                 fit_kernel_modules()["K5"].solve_plan(FIT_LENGTH).variant]
+    # The routes past the resident kernels: each one's launches from phase 41,
+    # its largest error over phase 10's cases, its times from phase 13.
+    for name, what, n, k, route in LONG_ROW_CASES:
+        family = "K6/K7" if what == "masked" else "K4"
+        ms, plain_ms, bound_ms, bound_by, library_ms = long_ms[name]
+        kernels.append({"name": name, "route": "cuda", "source": FIT_SOURCES[family],
+                        "replaces": FIT_REPLACES[family], "launches": long_rows[name]["launches"],
+                        "max_abs_err": ROUTE_ERRORS[family][route], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "variant": route, "shape": f"{n}x{k}"})
     # Each kernel's launches on one rank of each parallel phase (rank 0; the
     # ranks' counts are equal, each on its own shard).
     per_rank = par_kernel_launches(parallel["ranks"][0])
@@ -5262,5 +5561,8 @@ def main():
 START = time.perf_counter()
 
 if __name__ == "__main__":
-    main()
-    print(f"chip_smoke: {time.perf_counter() - START:.1f} s", file=sys.stderr)
+    if sys.argv[1:] == [LONG_ROW_KERNELS_ARG]:
+        print(json.dumps(long_row_kernels(phase_device()[1])))
+    else:
+        main()
+        print(f"chip_smoke: {time.perf_counter() - START:.1f} s", file=sys.stderr)

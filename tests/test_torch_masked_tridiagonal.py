@@ -164,11 +164,12 @@ def test_resident_route_mirror_matches_the_jax_kernel_in_interpret_mode():
 
 def test_solve_plan_routes():
     # Up to RESIDENT_MAX the resident route, in K6/K7's threads per row;
-    # longer rows take masked_thomas_kernel, one thread a row.
+    # longer rows take masked_thomas_kernel, one thread a row (K4's plan
+    # type: no cluster, a block's segment the whole row).
     for k, tpr in ((1, 1), (2, 1), (16, 1), (17, 2), (512, 32), (513, 64), (4096, 256)):
         plan = masked_tridiagonal_kernel.solve_plan(k)
-        assert plan == ("resident", tpr, 256 // tpr, 256, POSITIONS), (k, plan)
-    assert masked_tridiagonal_kernel.solve_plan(4097) == ("thomas", 1, 32, 32, 4097)
+        assert plan == ("resident", tpr, 256 // tpr, 256, POSITIONS, 1, k), (k, plan)
+    assert masked_tridiagonal_kernel.solve_plan(4097) == ("thomas", 1, 32, 32, 4097, 1, 4097)
     with pytest.raises(ValueError):
         masked_tridiagonal_kernel.solve_plan(0)
 

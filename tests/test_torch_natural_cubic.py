@@ -262,6 +262,58 @@ def _scan(elems, compose, identity, reverse=False):
     return _shifted(elems, 1, identity, reverse)
 
 
+def _cluster_scan(elems, compose, identity, reverse=False, blocks=1, threads=256):
+    """The exclusive scan over the chunks as the cluster kernels order it:
+    the chunks are (blocks, threads) consecutive threads; within a block,
+    shuffle levels over each warp of 32 and the warps' totals in order
+    (row_scan.cuh: row_scan), then the blocks' totals in rank order
+    (cluster_scan)."""
+    rows = elems[0].shape[0]
+    mine = tuple(v.reshape(rows, blocks, threads) for v in elems)
+    lane = torch.arange(threads) % 32
+
+    def shift(vals, d):
+        out = []
+        for v, i in zip(vals, identity):
+            fill = torch.full_like(v[..., :d], i)
+            out.append(torch.cat([v[..., d:], fill], -1) if reverse
+                       else torch.cat([fill, v[..., :-d]], -1))
+        return tuple(out)
+
+    def ident(like):
+        return tuple(torch.full_like(like, i) for i in identity)
+
+    incl, d = mine, 1
+    while d < 32:
+        take = (lane + d < 32) if reverse else (lane >= d)
+        incl = tuple(torch.where(take, c, v) for c, v in zip(compose(shift(incl, d), incl), incl))
+        d *= 2
+    take = (lane + 1 < 32) if reverse else (lane >= 1)
+    excl = tuple(torch.where(take, s, i) for s, i in zip(shift(incl, 1), ident(incl[0])))
+    warps = threads // 32
+    totals = tuple(v.reshape(rows, blocks, warps, 32)[..., 0 if reverse else 31] for v in incl)
+    carries = []
+    for wr in range(warps):
+        carry = ident(totals[0][..., 0])
+        for w in (range(warps - 1, wr, -1) if reverse else range(wr)):
+            carry = compose(carry, tuple(v[..., w] for v in totals))
+        carries.append(carry)
+    carry = tuple(torch.stack([c[j] for c in carries], -1).repeat_interleave(32, -1)
+                  for j in range(len(identity)))
+    excl = compose(carry, excl)
+    end = 0 if reverse else threads - 1
+    block_totals = compose(tuple(v[..., end] for v in excl), tuple(v[..., end] for v in mine))
+    carries = []
+    for r in range(blocks):
+        carry = ident(block_totals[0][..., 0])
+        for q in (range(blocks - 1, r, -1) if reverse else range(r)):
+            carry = compose(carry, tuple(v[..., q] for v in block_totals))
+        carries.append(carry)
+    carry = tuple(torch.stack([c[j] for c in carries], -1)[..., None].expand(-1, -1, threads)
+                  for j in range(len(identity)))
+    return tuple(v.reshape(rows, blocks * threads) for v in compose(carry, excl))
+
+
 def _select(first, second):  # (present, values...): the later present element wins
     present = second[0] > 0
     return tuple(torch.where(present, s, f) for f, s in zip(first, second))
@@ -291,30 +343,45 @@ def _moebius(rescale):
     return compose
 
 
-def _chunked_fit(t, x, version, positions=16, rescale=True):
+def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
     """K6/K7's function (``_masked_fit_plain``) by chunks and scans, in x's
-    dtype: t (k,), x (rows, k) -> (a, b, two_c, three_d), each (rows, k - 1)."""
+    dtype: t (k,), x (rows, k) -> (a, b, two_c, three_d), each (rows, k - 1).
+    With a cluster ``plan`` the chunks are laid out as the cluster variant
+    holds them (block r's threads from position r * segment on, the threads
+    past its segment holding none) and scanned in its order
+    (``_cluster_scan``)."""
     rows, k = x.shape
-    nc = -(-k // positions)
+    scan = _scan
+    if plan is None or plan.cluster == 1:
+        nc = -(-k // positions)
+        pos = torch.arange(nc * positions)
+        pos = torch.where(pos < k, pos, -1)
+    else:
+        nc = plan.cluster * plan.threads
+        local = torch.arange(plan.threads * positions)
+        pos = torch.cat([r * plan.segment + local for r in range(plan.cluster)])
+        local = local.repeat(plan.cluster)
+        pos = torch.where((local < plan.segment) & (pos < k), pos, -1)
+
+        def scan(elems, compose, identity, reverse=False):
+            return _cluster_scan(elems, compose, identity, reverse, plan.cluster, plan.threads)
     K = nc * positions
-    pos = torch.arange(K)
-    xp = torch.full((rows, K), float("nan"), dtype=x.dtype)
-    xp[:, :k] = x
-    tp = torch.zeros(K, dtype=x.dtype)
-    tp[:k] = t
+    held = pos >= 0  # the layout's slots that hold a position of the row
+    xp = torch.where(held, x[:, pos.clamp(min=0)], float("nan"))
+    tp = torch.where(held, t[pos.clamp(min=0)], 0.0)
     # Phase 0: the first and last observed positions (a reduction).
     seen = ~torch.isnan(xp)
-    first = torch.where(seen, pos, K).amin(-1, keepdim=True)
+    first = torch.where(seen, pos, k).amin(-1, keepdim=True)
     last = torch.where(seen, pos, -1).amax(-1, keepdim=True)
-    first, last = torch.where(first == K, 0, first), torch.where(first == K, k - 1, last)
-    v_first, v_last = xp.gather(1, first), xp.gather(1, last)
-    missing = torch.isnan(xp) & (pos < k)
+    first, last = torch.where(first == k, 0, first), torch.where(first == k, k - 1, last)
+    v_first, v_last = x.gather(1, first), x.gather(1, last)
+    missing = torch.isnan(xp) & held
     if version == 0:
         fill = torch.where(pos == 0, v_first, torch.where(pos == k - 1, v_last, xp))
     else:
         fill = torch.where(pos < first, v_first, torch.where(pos > last, v_last, xp))
     v = torch.where(missing, fill, xp)
-    obs = (~torch.isnan(v)) & (pos < k)
+    obs = (~torch.isnan(v)) & held
     xs = torch.where(obs, v, 0.0)
     ob, xs = obs.reshape(rows, nc, positions), xs.reshape(rows, nc, positions)
     tc_ = tp.reshape(nc, positions).expand(rows, nc, positions)
@@ -326,7 +393,7 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
     elem = (zero, zero, zero)
     for u in reversed(U):
         elem = _select(elem, (ob[..., u].to(x.dtype), xs[..., u], tc_[..., u]))
-    later, cx, ct = _scan(elem, _select, (0.0, 0.0, 0.0), reverse=True)
+    later, cx, ct = scan(elem, _select, (0.0, 0.0, 0.0), reverse=True)
     later = later > 0
     hr, sph, pds = (torch.zeros_like(xs) for _ in range(3))
     for u in reversed(U):
@@ -344,7 +411,7 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
     elem = (zero, zero, zero)
     for u in U:
         elem = _select(elem, (ob[..., u].to(x.dtype), hr[..., u], pds[..., u]))
-    _, hp0, pp0 = _scan(elem, _select, (0.0, 0.0, 0.0))
+    _, hp0, pp0 = scan(elem, _select, (0.0, 0.0, 0.0))
     mob = _moebius(rescale)
     m, hp = (one, zero, zero, one), hp0
     for u in U:
@@ -354,7 +421,7 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
         step = mob(m, (dg, -hp * hp, one, zero))
         m = tuple(torch.where(o, s, v) for s, v in zip(step, m))
         hp = torch.where(o, hr[..., u], hp)
-    a, b, c, d = _scan(m, mob, (1.0, 0.0, 0.0, 1.0))
+    a, b, c, d = scan(m, mob, (1.0, 0.0, 0.0, 1.0))
     prev_d = (a + b) / (c + d)  # the carried map applied to d = 1
     nd, nb, w, r = (torch.zeros_like(xs) for _ in range(4))
     aff, hp, pp = (one, zero), hp0, pp0
@@ -369,7 +436,7 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
         aff = tuple(torch.where(o, s, v) for s, v in zip(_affine(aff, (-wu, ru)), aff))
         prev_d = torch.where(o, du, prev_d)
         hp, pp = torch.where(o, hr[..., u], hp), torch.where(o, pds[..., u], pp)
-    _, prev_b = _scan(aff, _affine, (1.0, 0.0))
+    _, prev_b = scan(aff, _affine, (1.0, 0.0))
     for u in U:
         o = ob[..., u]
         bu = r[..., u] - w[..., u] * prev_b
@@ -383,7 +450,7 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
         o = ob[..., u]
         step = _affine(aff, (-hr[..., u] / nd[..., u], nb[..., u] / nd[..., u]))
         aff = tuple(torch.where(o, s, v) for s, v in zip(step, aff))
-    _, kdn = _scan(aff, _affine, (1.0, 0.0), reverse=True)
+    _, kdn = scan(aff, _affine, (1.0, 0.0), reverse=True)
     kd, c0, d0 = (torch.zeros_like(xs) for _ in range(3))
     for u in reversed(U):
         o = ob[..., u]
@@ -401,7 +468,7 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
     for u in U:
         elem = _select(elem, (start[..., u].to(x.dtype), xs[..., u], kd[..., u], c0[..., u],
                               d0[..., u], tc_[..., u]))
-    carry = _scan(elem, _select, (0.0,) * 6)[1:]
+    carry = scan(elem, _select, (0.0,) * 6)[1:]
     outs = [torch.zeros_like(xs) for _ in range(4)]
     for u in U:
         carry = tuple(torch.where(start[..., u], v, cv) for v, cv in zip(
@@ -412,7 +479,12 @@ def _chunked_fit(t, x, version, positions=16, rescale=True):
         outs[1][..., u] = cb + (cd * off - cc) * off
         outs[2][..., u] = cc - 2.0 * cd * off
         outs[3][..., u] = cd
-    return tuple(o.reshape(rows, K)[:, :k - 1] for o in outs)
+    placed = []
+    for o in outs:  # each slot's value at its position of the row
+        row = torch.zeros((rows, k), dtype=x.dtype)
+        row[:, pos[held]] = o.reshape(rows, K)[:, held]
+        placed.append(row[:, :k - 1])
+    return tuple(placed)
 
 
 def _chunked_case(density, seed):
@@ -458,22 +530,111 @@ def test_unrescaled_moebius_scan_overflows():
     assert all(bool(torch.isfinite(g).all()) for g in _chunked_fit(t, x, 0))
 
 
-@pytest.mark.parametrize("k, variant, threads_per_row", [
-    (2, "resident", 1), (3, "resident", 1), (16, "resident", 1), (17, "resident", 2),
-    (16 * 32 - 1, "resident", 32), (16 * 32, "resident", 32), (16 * 32 + 1, "resident", 64),
-    (4096, "resident", 256), (4097, "long", 1)])
-def test_fit_plan_boundaries(k, variant, threads_per_row):
+def _long_case(k, density, seed, rows=5):
+    """Rows of length k at this NaN density, with a leading and a trailing
+    NaN run, a single observation and an all-NaN row; irregular times."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    x[rng.random(x.shape) < density] = np.nan
+    run = k // 5
+    x[0, :run] = np.nan
+    x[1, -run:] = np.nan
+    x[2] = np.nan
+    x[2, k // 2] = 1.5
+    x[3] = np.nan
+    t = np.cumsum(rng.uniform(0.2, 1.5, k)).astype(np.float32)
+    return t, x
+
+
+@pytest.mark.parametrize("version", [0, 1])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
+@pytest.mark.parametrize("k", [4097, 8192, 8193, 16384, 32768])
+def test_cluster_scans_give_the_jax_masked_fit(k, density, version):
+    """The cluster variant's arithmetic in float32 (each block's segment
+    scanned as a resident block scans a row, the blocks' totals composed in
+    rank order, for all five phases) against the JAX package's masked
+    pipeline after endpoint imputation in float64, within 1e-4 of each
+    output's largest magnitude (or 1), as the resident mirror is held."""
+    plan = masked_cubic_kernel.fit_plan(k)
+    assert plan.variant == "cluster" and plan.cluster == -(-k // 4096)
+    t, x = _long_case(k, density, seed=k + int(10 * density) + version)
+    got = _chunked_fit(torch.from_numpy(t), torch.from_numpy(x), version, plan=plan)
+    expected = jcubic._masked_coeffs_xla(
+        jnp.asarray(t, dtype=jnp.float64),
+        jcubic._impute_endpoints(jnp.asarray(x, dtype=jnp.float64), version))
+    for name, g, e in zip(("a", "b", "two_c", "three_d"), got, expected):
+        e = np.asarray(e)
+        assert g.dtype == torch.float32 and torch.isfinite(g).all() and g.shape == e.shape, name
+        limit = 1e-4 * max(1.0, float(np.abs(e).max()))
+        assert float(np.abs(g.double().numpy() - e).max()) <= limit, name
+
+
+@pytest.mark.parametrize("k, variant, threads_per_row, cluster, segment", [
+    (2, "resident", 1, 1, 2), (3, "resident", 1, 1, 3), (16, "resident", 1, 1, 16),
+    (17, "resident", 2, 1, 17), (16 * 32 - 1, "resident", 32, 1, 511),
+    (16 * 32, "resident", 32, 1, 512), (16 * 32 + 1, "resident", 64, 1, 513),
+    (4096, "resident", 256, 1, 4096), (4097, "cluster", 256, 2, 2064),
+    (8192, "cluster", 256, 2, 4096), (8193, "cluster", 256, 3, 2736),
+    (16384, "cluster", 256, 4, 4096), (32768, "cluster", 256, 8, 4096),
+    (32769, "long", 1, 1, 32769)])
+def test_fit_plan_boundaries(k, variant, threads_per_row, cluster, segment):
     """The plan picks K6/K7's variant and threads per row from k: the
     resident variant holds 16 positions a thread, a row in a power of two of
     threads (several rows a block of 256 for short rows) up to 4096
-    positions; longer rows take the long-row variant, one thread a row."""
+    positions; longer rows up to 32 768 span a cluster of ceil(k / 4096)
+    blocks, the row split evenly in whole chunks of 16; longer rows take the
+    long-row variant, one thread a row."""
     plan = masked_cubic_kernel.fit_plan(k)
-    assert (plan.variant, plan.threads_per_row) == (variant, threads_per_row)
+    assert (plan.variant, plan.threads_per_row, plan.cluster, plan.segment) == (
+        variant, threads_per_row, cluster, segment)
     assert plan.threads_per_row * plan.rows_per_block == plan.threads
     if variant == "resident":
         assert (plan.threads, plan.positions) == (256, 16)
         assert plan.threads_per_row * 16 >= k > plan.threads_per_row * 8 or k <= 16
+    if variant == "cluster":
+        assert (plan.threads, plan.positions, plan.rows_per_block) == (256, 16, 1)
+        assert segment % 16 == 0 and segment <= 4096 and (cluster - 1) * segment < k
+        assert masked_cubic_kernel.cluster_shape(k) == (cluster, segment)
     assert masked_cubic_kernel.RESIDENT_MAX == 4096
+    assert masked_cubic_kernel.CLUSTER_REACH == 8 * 4096
+
+
+@pytest.mark.parametrize("k", [17, 4097, 8193, 32769])
+def test_fit_wrapper_routes_with_stand_ins(k, monkeypatch):
+    """The launch runs only on the card: a stand-in for the variant's kernel
+    (the chunked mirror in the kernel's layout and order for the resident
+    and cluster variants, the plain pipeline for the long-row one) drives
+    the wrapper's own code: the plan handed to the kernel, the outputs'
+    shapes and the counts."""
+    seen = []
+
+    def kernel(plan, t, x, outs, version):
+        seen.append((plan, tuple(x.shape), tuple(o.shape for o in outs), version))
+        if plan.variant == "long":
+            got = cubic._masked_fit_plain(t, x, version)
+        else:
+            got = _chunked_fit(t, x, version, plan=plan)
+        for o, g in zip(outs, got):
+            o.copy_(g)
+
+    monkeypatch.setattr(masked_cubic_kernel.dispatch, "check_operands", lambda *a: None)
+    monkeypatch.setattr(masked_cubic_kernel, "_kernel", kernel)
+    masked_cubic_kernel.reset_launch_counts()
+    t, x = _long_case(k, 0.2, seed=k, rows=4)
+    t, x = torch.from_numpy(t), torch.from_numpy(x)
+    got = masked_cubic_kernel.launch(t, x, 1)
+    expected = cubic._masked_fit_plain(t.double(), x.double(), 1)
+    for g, e in zip(got, expected):
+        assert g.shape == (4, k - 1)
+        assert float((g.double() - e).abs().max()) <= 1e-4 * max(1.0, float(e.abs().max()))
+    plan = masked_cubic_kernel.fit_plan(k)
+    assert seen == [(plan, (4, k), ((4, k - 1),) * 4, 1)]
+    assert masked_cubic_kernel.LAUNCHES == 1
+    assert masked_cubic_kernel.ROUTE_LAUNCHES == {v: int(v == plan.variant)
+                                                  for v in ("resident", "cluster", "long")}
+    masked_cubic_kernel.reset_launch_counts()
+    assert masked_cubic_kernel.LAUNCHES == 0
+    assert set(masked_cubic_kernel.ROUTE_LAUNCHES.values()) == {0}
 
 
 def test_fit_plan_rejects_short_rows():

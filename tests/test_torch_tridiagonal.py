@@ -206,58 +206,162 @@ def _row_scan(ops, compose, identity, rev):
     return excl
 
 
-def _pivots(u, d, l, tpr):
-    """band_pivot_kernel: w, r, c, each (tpr, POSITIONS), zero past k."""
-    dtype, k, P = d.dtype, d.shape[0], tpr * POSITIONS
-    dv, lu = np.ones(P, dtype), np.zeros(P, dtype)
-    dv[:k] = d
-    lu[1:k] = l * u
-    j = np.arange(P).reshape(tpr, POSITIONS)
-    mob = np.broadcast_to(np.array([1, 0, 0, 1], dtype), (tpr, 4))
+def _layout(k, plan):
+    """The position of the row that each (block, thread, slot) of the
+    route's launch holds, -1 where it holds none: (blocks, threads,
+    POSITIONS).  A resident row is one block of its threads per row; over a
+    cluster, block r holds the segment from r * segment on in all its 256
+    threads."""
+    if plan.cluster == 1:
+        g = np.arange(plan.threads_per_row * POSITIONS).reshape(1, -1, POSITIONS)
+        return np.where(g < k, g, -1)
+    local = np.arange(plan.threads * POSITIONS).reshape(1, -1, POSITIONS)
+    g = np.arange(plan.cluster)[:, None, None] * plan.segment + local
+    return np.where((local < plan.segment) & (g < k), g, -1)
+
+
+def _scan(ops, compose, identity, rev, cluster):
+    """The exclusive scan of the threads' operators (..., blocks, threads,
+    N) across the row: row_scan within each block, then, over a cluster
+    (cluster_scan), the blocks' totals before each block (after it when
+    rev) composed in rank order, then the block's own scan."""
+    excl = _row_scan(ops, compose, identity, rev)
+    if not cluster:
+        return excl
+    end = 0 if rev else ops.shape[-2] - 1
+    totals = compose(excl[..., end, :], ops[..., end, :])
+    blocks = ops.shape[-3]
+    ident = np.broadcast_to(identity, totals[..., 0, :].shape).astype(ops.dtype)
+    carries = []
+    for r in range(blocks):
+        carry = ident
+        for q in (range(blocks - 1, r, -1) if rev else range(r)):
+            carry = compose(carry, totals[..., q, :])
+        carries.append(carry)
+    carry = np.stack(carries, axis=-2)[..., None, :]
+    return compose(np.broadcast_to(carry, excl.shape), excl)
+
+
+def _gather(a, g, offset=0):
+    """a (..., m) at positions g + offset of the layout, 0 outside a and
+    where g holds none: (..., blocks, threads, POSITIONS)."""
+    idx = g + offset
+    ok = (g >= 0) & (idx >= 0) & (idx < a.shape[-1])
+    if not a.shape[-1]:
+        return np.zeros(a.shape[:-1] + g.shape, a.dtype)
+    return np.where(ok, a[..., np.clip(idx, 0, a.shape[-1] - 1)], 0)
+
+
+def _pivots(u, d, l, plan):
+    """band_pivot_kernel: w, r, c, each (blocks, threads, POSITIONS), zero
+    where the layout holds no position of the row."""
+    dtype, k = d.dtype, d.shape[0]
+    g = _layout(k, plan)
+    live = g >= 0
+    dv = np.where(live, _gather(d, g), 1)
+    lu = _gather(l * u, g, -1)  # l_{j-1} u_{j-1}, 0 at j = 0
+    mob = np.broadcast_to(np.array([1, 0, 0, 1], dtype), g.shape[:-1] + (4,))
     for s in range(POSITIONS):
-        step = np.stack([dv[j[:, s]], -lu[j[:, s]], np.ones(tpr, dtype), np.zeros(tpr, dtype)], -1)
-        mob = np.where((j[:, s] < k)[:, None], _moebius(mob, step), mob)
-    mob = _row_scan(mob, _moebius, np.array([1, 0, 0, 1], dtype), rev=False)
-    prev = (mob[:, 0] + mob[:, 1]) / (mob[:, 2] + mob[:, 3])  # nd before the chunk
-    w, r, c = (np.zeros((tpr, POSITIONS), dtype) for _ in range(3))
-    lp = np.concatenate([np.zeros(1, dtype), l, np.zeros(P, dtype)])  # l_{j-1}
-    up = np.concatenate([u, np.zeros(P + 1, dtype)])  # u_j, zero from k - 1
+        step = np.stack([dv[..., s], -lu[..., s], np.ones_like(dv[..., s]),
+                         np.zeros_like(dv[..., s])], -1)
+        mob = np.where(live[..., s, None], _moebius(mob, step), mob)
+    mob = _scan(mob, _moebius, np.array([1, 0, 0, 1], dtype), False, plan.cluster > 1)
+    prev = (mob[..., 0] + mob[..., 1]) / (mob[..., 2] + mob[..., 3])  # nd before the chunk
+    lp, up = _gather(l, g, -1), _gather(u, g)  # l_{j-1}; u_j, 0 from j = k - 1
+    w, r, c = (np.zeros(g.shape, dtype) for _ in range(3))
     for s in range(POSITIONS):
-        js = j[:, s]
-        live = js < k
-        w[:, s] = np.where(live, lp[js] / prev, 0)
-        prev = np.where(live, dv[js] - lu[js] / prev, prev)
-        r[:, s] = np.where(live, 1 / prev, 0)
-        c[:, s] = np.where(live, up[js] / prev, 0)
+        on = live[..., s]
+        w[..., s] = np.where(on, lp[..., s] / prev, 0)
+        prev = np.where(on, dv[..., s] - lu[..., s] / prev, prev)
+        r[..., s] = np.where(on, 1 / prev, 0)
+        c[..., s] = np.where(on, up[..., s] / prev, 0)
     return w, r, c
 
 
-def _resident_solve(b, u, d, l):
-    """shared_band_kernel on every row of b (n, k), in b's dtype."""
+def _pivot_scratch(u, d, l, plan):
+    """The (3, P) pivot scratch band_pivot_kernel writes (P:
+    tridiagonal_kernel.pivot_positions): each route's positions in order,
+    a cluster's segments one after another, zero past k."""
+    k = d.shape[0]
+    P = tridiagonal_kernel.pivot_positions(plan)
+    out = np.zeros((3, P), d.dtype)
+    g = _layout(k, plan)
+    for row, a in zip(out, _pivots(u, d, l, plan)):
+        row[g[g >= 0]] = a[g >= 0]
+    return out
+
+
+def _affine_solve(b, w, r, c, g, cluster):
+    """The elimination nb = b - w nb_prev by an affine scan, the
+    substitution x = r nb - c x_next by an affine suffix scan, over the
+    layout g, for every row of b (n, k): x (n, k)."""
     n, k = b.shape
-    plan = tridiagonal_kernel.solve_plan(k, shared=True)
-    tpr = plan.threads_per_row
-    w, r, c = _pivots(u, d, l, tpr)
-    v = np.zeros((n, tpr * POSITIONS), b.dtype)
-    v[:, :k] = b
-    v = v.reshape(n, tpr, POSITIONS)
-    one, zero = np.ones((n, tpr), b.dtype), np.zeros((n, tpr), b.dtype)
+    live = g >= 0
+    v = _gather(b, g)
     ident = np.array([1, 0], b.dtype)
-    aff = np.stack([one, zero], -1)
+    aff = np.broadcast_to(ident, v.shape[:-1] + (2,))
+    for s in range(POSITIONS):  # the slots past the row hold no map
+        step = _affine(aff, np.stack([np.broadcast_to(-w[..., s], v[..., s].shape), v[..., s]], -1))
+        aff = np.where(live[..., s, None], step, aff)
+    carry = _scan(aff, _affine, ident, False, cluster)[..., 1]
     for s in range(POSITIONS):
-        aff = _affine(aff, np.stack([np.broadcast_to(-w[:, s], (n, tpr)), v[..., s]], -1))
-    carry = _row_scan(aff, _affine, ident, rev=False)[..., 1]
+        carry = np.where(live[..., s], v[..., s] - w[..., s] * carry, carry)
+        v[..., s] = carry
+    aff = np.broadcast_to(ident, v.shape[:-1] + (2,))
+    for s in reversed(range(POSITIONS)):
+        step = _affine(aff, np.stack([np.broadcast_to(-c[..., s], v[..., s].shape),
+                                      r[..., s] * v[..., s]], -1))
+        aff = np.where(live[..., s, None], step, aff)
+    carry = _scan(aff, _affine, ident, True, cluster)[..., 1]
+    for s in reversed(range(POSITIONS)):
+        carry = np.where(live[..., s], r[..., s] * v[..., s] - c[..., s] * carry, carry)
+        v[..., s] = carry
+    x = np.zeros((n, k), b.dtype)
+    x[:, g[live]] = v[:, live]
+    return x
+
+
+def _resident_solve(b, u, d, l, plan=None):
+    """The shared-band route (band_pivot_kernel, then shared_band_kernel)
+    on every row of b (n, k), in b's dtype, resident or over a cluster."""
+    k = b.shape[1]
+    plan = plan or tridiagonal_kernel.solve_plan(k, shared=True)
+    g = _layout(k, plan)
+    return _affine_solve(b, *_pivots(u, d, l, plan), g, plan.cluster > 1)
+
+
+def _per_row_solve(b, u, d, l, plan=None):
+    """per_row_kernel on every row of b (n, k) with bands per row (u, l
+    (n, k - 1), d (n, k); a single band broadcasts), in b's dtype: each
+    row's Moebius maps scanned for its own pivots, then the elimination's
+    affine scan and the substitution's affine suffix scan, with w, 1 / nd
+    and u / nd formed where they are used."""
+    n, k = b.shape
+    plan = plan or tridiagonal_kernel.solve_plan(k, shared=False)
+    u, l = (np.broadcast_to(a, (n, k - 1)) for a in (u, l))
+    d = np.broadcast_to(d, (n, k))
+    dtype, g, cluster = b.dtype, _layout(k, plan), plan.cluster > 1
+    live = g >= 0
+    dv, bv = _gather(d, g), _gather(b, g)
+    lp, upv, uc = _gather(l, g, -1), _gather(u, g, -1), _gather(u, g)  # l, u at j - 1; u at j
+    ident4 = np.array([1, 0, 0, 1], dtype)
+    mob = np.broadcast_to(ident4, dv.shape[:-1] + (4,))
     for s in range(POSITIONS):
-        carry = v[..., s] - w[:, s] * carry
-        v[..., s] = carry
-    aff = np.stack([one, zero], -1)
-    for s in reversed(range(POSITIONS)):
-        aff = _affine(aff, np.stack([np.broadcast_to(-c[:, s], (n, tpr)), r[:, s] * v[..., s]], -1))
-    carry = _row_scan(aff, _affine, ident, rev=True)[..., 1]
-    for s in reversed(range(POSITIONS)):
-        carry = r[:, s] * v[..., s] - c[:, s] * carry
-        v[..., s] = carry
-    return v.reshape(n, -1)[:, :k]
+        step = np.stack([dv[..., s], -lp[..., s] * upv[..., s], np.ones_like(dv[..., s]),
+                         np.zeros_like(dv[..., s])], -1)
+        mob = np.where(live[..., s, None], _moebius(mob, step), mob)
+    mob = _scan(mob, _moebius, ident4, False, cluster)
+    prev = (mob[..., 0] + mob[..., 1]) / (mob[..., 2] + mob[..., 3])
+    nd, w = np.ones(dv.shape, dtype), np.zeros(dv.shape, dtype)
+    for s in range(POSITIONS):
+        on = live[..., s]
+        ws = lp[..., s] / prev
+        dg = dv[..., s] - ws * upv[..., s]
+        w[..., s] = np.where(on, ws, 0)
+        nd[..., s] = np.where(on, dg, 1)
+        prev = np.where(on, dg, prev)
+    r = np.where(live, 1 / nd, 0)
+    return _affine_solve(b, w, r, uc * r, g, cluster)
 
 
 def _fit_system(rows, k, seed, dtype):
@@ -287,41 +391,108 @@ def test_shared_band_route_mirror_matches_jax_thomas(k, dtype, tol):
     np.testing.assert_allclose(got, expected, rtol=0, atol=tol * float(np.abs(expected).max()))
 
 
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("k", [2, 17, 513, 4096])
+def test_per_row_route_mirror_matches_jax_thomas(k, dtype, tol):
+    # per_row_kernel's arithmetic (in dtype): each row's pivots by its own
+    # Moebius scan, then the two affine scans, against the JAX package's
+    # Thomas solve in float64, within tol of the largest magnitude.
+    b, u, d, l = _system((5,), k, seed=k, dtype=dtype)
+    assert tridiagonal_kernel.solve_plan(k, shared=False).variant == "per_row"
+    got = _per_row_solve(b, u, d, l)
+    expected = np.asarray(jtri.tridiagonal_solve_thomas(
+        *(jnp.asarray(a, dtype=jnp.float64) for a in (b, u, d, l))))
+    assert got.dtype == dtype and got.shape == expected.shape
+    np.testing.assert_allclose(got, expected, rtol=0, atol=tol * float(np.abs(expected).max()))
+
+
+CLUSTER_LENGTHS = [4097, 8192, 8193, 16384, 32768]
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("k", CLUSTER_LENGTHS)
+def test_cluster_route_mirror_matches_jax_thomas(k, shared, dtype, tol):
+    # The cluster routes: each of the cluster's blocks scans its segment as
+    # a resident block scans a row, and the blocks' totals are composed in
+    # rank order (cluster_scan); against the JAX package's Thomas solve in
+    # float64 within the resident mirrors' tolerances.
+    plan = tridiagonal_kernel.solve_plan(k, shared)
+    assert plan.variant == ("cluster" if shared else "per_row_cluster")
+    assert plan.cluster == -(-k // 4096) and plan.cluster * plan.segment >= k
+    if shared:
+        b, u, d, l = _fit_system(3, k, seed=k, dtype=dtype)
+        got = _resident_solve(b, u, d, l, plan)
+    else:
+        b, u, d, l = _system((3,), k, seed=k, dtype=dtype)
+        got = _per_row_solve(b, u, d, l, plan)
+    expected = np.asarray(jtri.tridiagonal_solve_thomas(
+        *(jnp.asarray(a, dtype=jnp.float64) for a in (b, u, d, l))))
+    assert got.dtype == dtype and got.shape == expected.shape
+    np.testing.assert_allclose(got, expected, rtol=0, atol=tol * float(np.abs(expected).max()))
+
+
 def test_solve_plan_routes():
-    # Shared bands up to RESIDENT_MAX take the resident route, in K6/K7's
-    # threads per row; longer rows and per-row bands take thomas_kernel.
+    # Up to RESIDENT_MAX each row resident in K6/K7's threads per row: shared
+    # bands after the pivots, per-row bands with their own; up to the
+    # cluster's reach over a cluster of ceil(k / 4096) blocks, the row split
+    # evenly in whole chunks; longer rows take thomas_kernel.
     for k, tpr in ((1, 1), (2, 1), (16, 1), (17, 2), (512, 32), (513, 64), (4096, 256)):
-        plan = tridiagonal_kernel.solve_plan(k, shared=True)
-        assert plan == ("resident", tpr, 256 // tpr, 256, POSITIONS), (k, plan)
-    assert tridiagonal_kernel.solve_plan(4097, shared=True).variant == "thomas"
-    for k in (2, 100, 4096):
-        plan = tridiagonal_kernel.solve_plan(k, shared=False)
-        assert plan == ("thomas", 1, 32, 32, k), (k, plan)
+        for shared, variant in ((True, "resident"), (False, "per_row")):
+            plan = tridiagonal_kernel.solve_plan(k, shared=shared)
+            assert plan == (variant, tpr, 256 // tpr, 256, POSITIONS, 1, k), (k, plan)
+    for k, blocks, segment in ((4097, 2, 2064), (8192, 2, 4096), (8193, 3, 2736),
+                               (16384, 4, 4096), (32768, 8, 4096)):
+        for shared, variant in ((True, "cluster"), (False, "per_row_cluster")):
+            plan = tridiagonal_kernel.solve_plan(k, shared=shared)
+            assert plan == (variant, 256, 1, 256, POSITIONS, blocks, segment), (k, plan)
+    assert tridiagonal_kernel.CLUSTER_REACH == 32768
+    for shared in (True, False):
+        plan = tridiagonal_kernel.solve_plan(32769, shared=shared)
+        assert plan == ("thomas", 1, 32, 32, 32769, 1, 32769), plan
+    with pytest.raises(ValueError):
+        tridiagonal_kernel.solve_plan(0, shared=True)
 
 
-@pytest.mark.parametrize("k", [17, 4097])
+# (k, the shared bands' route and scratch, the per-row bands' route and scratch)
+STAND_IN_ROUTES = {
+    17: (("resident", (3, 32)), ("per_row", None)),
+    4097: (("cluster", (3, 4128)), ("per_row_cluster", None)),
+    8193: (("cluster", (3, 8208)), ("per_row_cluster", None)),
+    32769: (("thomas", (32769, 6)), ("thomas", (32769, 6))),
+}
+
+
+@pytest.mark.parametrize("k", sorted(STAND_IN_ROUTES))
 def test_kernel_wrapper_routes_with_stand_ins(k, monkeypatch):
     # The launches run only on the card: a stand-in for the route's kernels
-    # (the mirror above for the resident route, filling the pivot scratch;
-    # the plain Thomas solve for thomas_kernel) drives the wrapper's own
-    # code: the band strides, the route, its scratch and the count.
+    # (the mirrors above for the resident, per-row and cluster routes, the
+    # shared ones filling the pivot scratch; the plain Thomas solve for
+    # thomas_kernel) drives the wrapper's own code: the band strides, the
+    # route, its cluster size and segment, its scratch and the counts.
     routes = []
 
     def kernel(plan, operands, x, scratch, sizes):
         b2, u2, d2, l2 = operands
         n, kk, sb, su, sd, sl = sizes
         assert kk == k and b2.shape == (n, k) and sb == k
-        routes.append((plan.variant, (su, sd, sl), tuple(scratch.shape)))
-        if plan.variant == "resident":
+        assert plan == tridiagonal_kernel.solve_plan(k, su == sd == sl == 0)
+        routes.append((plan.variant, (su, sd, sl), None if scratch is None else
+                       tuple(scratch.shape)))
+        rows = torch.arange(n)[:, None]
+        bands = (u2[rows * su // (k - 1)].squeeze(1), d2[rows * sd // k].squeeze(1),
+                 l2[rows * sl // (k - 1)].squeeze(1))
+        if plan.variant in ("resident", "cluster"):
             arrays = [a.numpy() for a in (b2, u2[0], d2[0], l2[0])]
-            scratch.copy_(torch.from_numpy(np.stack(
-                _pivots(*arrays[1:], plan.threads_per_row)).reshape(3, -1)))
-            x.copy_(torch.from_numpy(_resident_solve(*arrays)))
+            scratch.copy_(torch.from_numpy(_pivot_scratch(*arrays[1:], plan)))
+            x.copy_(torch.from_numpy(_resident_solve(*arrays, plan)))
+        elif plan.variant in ("per_row", "per_row_cluster"):
+            x.copy_(torch.from_numpy(_per_row_solve(b2.numpy(), *(a.numpy() for a in bands),
+                                                    plan)))
         else:
-            rows = torch.arange(n)[:, None]
-            x.copy_(tridiagonal.tridiagonal_solve_thomas(
-                b2, u2[rows * su // (k - 1)].squeeze(1), d2[rows * sd // k].squeeze(1),
-                l2[rows * sl // (k - 1)].squeeze(1)))
+            x.copy_(tridiagonal.tridiagonal_solve_thomas(b2, *bands))
 
     monkeypatch.setattr(tridiagonal_kernel.dispatch, "check_operands", lambda *a: None)
     monkeypatch.setattr(tridiagonal_kernel, "_kernel", kernel)
@@ -332,7 +503,13 @@ def test_kernel_wrapper_routes_with_stand_ins(k, monkeypatch):
         expected = tridiagonal.tridiagonal_solve_thomas(b.reshape(2, 3, k), *bands)
         assert got.shape == (2, 3, k)
         torch.testing.assert_close(got, expected, rtol=1e-10, atol=1e-10)
-    resident = (("resident", (0, 0, 0), (3, 32)),) if k == 17 else (("thomas", (0, 0, 0), (k, 6)),)
-    assert routes == [*resident, ("thomas", (k - 1, k, k - 1), (k, 6))]
+    (shared, shared_scratch), (per_row, per_row_scratch) = STAND_IN_ROUTES[k]
+    assert routes == [(shared, (0, 0, 0), shared_scratch),
+                      (per_row, (k - 1, k, k - 1), per_row_scratch)]
     assert tridiagonal_kernel.LAUNCHES == 2
+    counts = dict.fromkeys(tridiagonal_kernel.ROUTES, 0)
+    counts[shared] += 1
+    counts[per_row] += 1
+    assert tridiagonal_kernel.ROUTE_LAUNCHES == counts
     tridiagonal_kernel.reset_launch_counts()
+    assert set(tridiagonal_kernel.ROUTE_LAUNCHES.values()) == {0}

@@ -28,7 +28,9 @@ the small-batch shapes read the plan's lanes a block), K6/K7,
 K4 and K5 at config 3 (as phase 13 times them; K5 on the operands of one
 masked gradient's last launch, recorded as phase 11 records them), config
 3's NaN-masked and dense fits' forwards and gradients through
-``natural_cubic_coeffs``, and ptxas's report for each kernel of K1, K2, K4,
+``natural_cubic_coeffs``, K4 and K6/K7 at the long-row shapes of
+``LONG_SHAPES`` (K4's shared bands past 4096 also by the per-row cluster
+route, where the checkout has it), and ptxas's report for each kernel of K1, K2, K4,
 K5, K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts`` keeps some
 of the groups (k2: K2 and the default steps, K2's linear mode and caps
 case; k9; k8: K8 and config 5's step; k1: K1 and the flagship steps; fit:
@@ -314,8 +316,10 @@ def time_fit(cs, device):
     diag = 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero]))
     rhs = torch.randn((n, k), generator=torch.Generator(device=device).manual_seed(4),
                       device=device)
-    timing = {"k6_ms": cs._event_ms(lambda: mk.launch(t, x2, 1), 10),
-              "k4_ms": cs._event_ms(lambda: k4.launch(rhs, hr, diag, hr), 10)}
+    # K4 takes ~0.17 ms a launch: 100 launches a mean, so that the launch
+    # gaps' jitter stays under the 3 % that a redesign is held to.
+    timing = {"k6_ms": cs._event_ms(lambda: mk.launch(t, x2, 1), 50),
+              "k4_ms": cs._event_ms(lambda: k4.launch(rhs, hr, diag, hr), 100)}
     xd = torch.from_numpy(dense).to(device)
     w = torch.ones((n, k - 1, 4), device=device)
 
@@ -336,6 +340,63 @@ def time_fit(cs, device):
         timing["k4_plan"] = k4.solve_plan(k, True)._asdict()
     if hasattr(k5, "solve_plan"):
         timing["k5_plan"] = k5.solve_plan(k)._asdict()
+    return timing
+
+
+# The long rows' shapes: (key, kernel, rows, length); K4's bands per row
+# ("rows": diagonally dominant, as chip_smoke.py's phase 10 draws them) or
+# shared ("shared": the dense fit's system on unit times), K6/K7 on values
+# with 20 % NaN.  The last two are past the clusters' reach.
+LONG_SHAPES = (("k4_rows_8192x4096", "rows", 8192, 4096), ("k4_rows_2048x8192", "rows", 2048, 8192),
+               ("k4_shared_2048x8192", "shared", 2048, 8192), ("k6_2048x8192", "k6", 2048, 8192),
+               ("k6_2048x16384", "k6", 2048, 16384), ("k4_rows_2048x65536", "rows", 2048, 65536),
+               ("k6_2048x65536", "k6", 2048, 65536))
+
+
+def long_operands(kind, n, k, device):
+    """The operands of a LONG_SHAPES case, drawn on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(k)
+    if kind == "k6":
+        x = torch.randn((n, k), generator=gen, device=device)
+        x[torch.rand((n, k), generator=gen, device=device) < 0.2] = float("nan")
+        return (torch.arange(k, dtype=torch.float32, device=device), x)
+    b = torch.randn((n, k), generator=gen, device=device)
+    if kind == "shared":
+        hr = torch.ones(k - 1, device=device)
+        zero = hr.new_zeros(1)
+        return b, hr, 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero])), hr
+    u = torch.randn((n, k - 1), generator=gen, device=device)
+    l = torch.randn((n, k - 1), generator=gen, device=device)
+    pad = u.new_zeros((n, 1))
+    return b, u, 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1), l
+
+
+def time_long_rows(cs, device):
+    """K4's and K6/K7's ms at each of LONG_SHAPES (one launch each, K6/K7
+    version 1) with the route the checkout takes, and K4's shared bands
+    past 4096 by the per-row cluster route beside the shared one."""
+    from torchcde_tpu_torch.ops import masked_cubic_kernel as mk
+    from torchcde_tpu_torch.ops import tridiagonal_kernel as k4
+
+    timing = {}
+    for key, kind, n, k in LONG_SHAPES:
+        ops = long_operands(kind, n, k, device)
+        repeats = 3 if k > 32768 else 10
+        if kind == "k6":
+            timing[f"{key}_ms"] = cs._event_ms(lambda: mk.launch(*ops, 1), repeats)
+            timing[f"{key}_plan"] = mk.fit_plan(k)._asdict()
+        else:
+            timing[f"{key}_ms"] = cs._event_ms(lambda: k4.launch(*ops), repeats)
+            timing[f"{key}_plan"] = k4.solve_plan(k, kind == "shared")._asdict()
+        if kind == "shared" and hasattr(k4, "pivot_positions"):
+            b, u, d, l = ops
+            plan = k4.solve_plan(k, shared=False)
+            x = torch.empty_like(b)
+            operands = (b, u.reshape(1, -1), d.reshape(1, -1), l.reshape(1, -1))
+            timing[f"{key}_per_row_cluster_ms"] = cs._event_ms(
+                lambda: k4._kernel(plan, operands, x, None, (n, k, k, 0, 0, 0)), repeats)
+        del ops
+        torch.cuda.empty_cache()
     return timing
 
 
@@ -374,6 +435,7 @@ def main():
         timing.update(time_k1(cs, device, coeffs, labels))
     if "fit" in parts:
         timing.update(time_fit(cs, device))
+        timing.update(time_long_rows(cs, device))
     print(json.dumps({"root": root, "card": smi, "build_s": seconds, "parts": list(parts),
                       **timing, "ptxas": ptxas_report(log)}), flush=True)
 

@@ -34,7 +34,7 @@
 //  4. forward: the last-observed polynomial carry, re-based onto every grid
 //     interval.
 //
-// Two variants; mc_plan (the wrapper's fit_plan) picks one from k.
+// Three variants; the wrapper's fit_plan picks one from k.
 //
 // Resident variant (k <= RES_MAX = 4096): each row stays on chip from x to
 // the outputs, so x is read once and the four outputs written once.  A row
@@ -67,7 +67,18 @@
 // own array (rows k - 1 apart).  Every scan runs in a
 // fixed order without atomics: two launches give the same bits.
 //
-// Long-row variant (k > RES_MAX): one thread per row runs the reference
+// Cluster variant (RES_MAX < k <= CLUSTER_MAX * RES_MAX): the same kernel
+// over a thread block cluster a row (row_scan.cuh: cluster_shape_ok,
+// cluster_scan).  Each of the cluster's cs = ceil(k / RES_MAX) blocks holds
+// one segment of the row in its RT threads as a resident block holds a row,
+// and each of the five phases' scans gains the cluster level: the blocks'
+// totals composed in rank order through distributed shared memory, one
+// exchange each (the span, the next observation, the previous observation,
+// the diagonal, the right-hand side, the substitution, the polynomial), so
+// the row stays on chip from x to the four outputs.  The values at the
+// first and last observed positions come from x in device memory.
+//
+// Long-row variant (k > CLUSTER_MAX * RES_MAX): one thread per row runs the reference
 // recurrences phase by phase, each a loop over the row:
 //  0. scanning in from each end;
 //  1-4. as above, with the carries in registers.
@@ -312,6 +323,7 @@ __global__ void __launch_bounds__(THREADS)
 // scans across them (row_scan.cuh).
 
 constexpr size_t RES_SMEM = sizeof(float) * (2 * RES_BUF + RT / 32 * SCAN_SLOT);
+constexpr size_t CLUSTER_SMEM = RES_SMEM + sizeof(float) * CLUSTER_SLOTS * SCAN_SLOT;
 constexpr float NO_POSITION = 1e30f;        // phase 0's identity for the first position
 
 // Select-carry: v[0] != 0 marks a present value; the later one wins.
@@ -362,35 +374,61 @@ __device__ __forceinline__ Vec<2> row_span(Vec<2> v, int tpr, float* scratch) {
   return v;
 }
 
-// Three blocks an SM: the cap of 80 registers a thread costs ~400 bytes of
-// spills to L1, and on an H100 at config 3 it ran 5 % faster than two
-// blocks without spills (PERF.md).
+// The span over the cluster's blocks, each holding its segment's in every
+// thread (row_span), in rank order.
+__device__ __forceinline__ Vec<2> cluster_span(Vec<2> v, float* slot) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) {
+    slot[0] = v.v[0];
+    slot[1] = v.v[1];
+  }
+  cluster.sync();
+  v = SpanOp::identity();
+  for (int q = 0; q < (int)cluster.dim_blocks().x; ++q) {
+    const float* remote = cluster.map_shared_rank(slot, q);
+    v = SpanOp::compose(v, {{remote[0], remote[1]}});
+  }
+  return v;
+}
+
+// RT / tpr rows a block, or, over a cluster (CLUSTER), one segment of a
+// row a block: the thread's positions are g0 + u of its row, j0 + u of the
+// block's part of it.  Three blocks an SM: the cap of 80 registers a
+// thread costs ~400 bytes of spills to L1, and on an H100 at config 3 it
+// ran 5 % faster than two blocks without spills (PERF.md).
+template <bool CLUSTER>
 __global__ void __launch_bounds__(RT, 3)
     resident_fit_kernel(const float* __restrict__ x, const float* __restrict__ t,
                         float* __restrict__ a, float* __restrict__ b,
                         float* __restrict__ c, float* __restrict__ d, long long n, int k,
-                        int tpr, int version) {
+                        int tpr, int seg, int version) {
   extern __shared__ float mc_smem[];
   float* buf = mc_smem;             // [RES_BUF] the block's rows of x, then of each output
   float* tb = buf + RES_BUF;        // [RES_BUF] t, shared by the rows
   float* scratch = tb + RES_BUF;    // [RT / 32][SCAN_SLOT] the scans' warp totals
-  const int rpb = RT / tpr;         // rows per block
-  const long long row0 = (long long)blockIdx.x * rpb;
-  const int rows = (int)(n - row0 < rpb ? n - row0 : rpb);
-  const int tid = threadIdx.x, rb = tid / tpr, ch = tid % tpr;
-  const bool live = rb < rows;
-  const int j0 = ch * RP;         // the thread's first position in its row
-  const int to = ch * (RP + 1);   // its chunk in tb
+  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [7][SCAN_SLOT] a cluster's exchanges
+  const RowPart p = row_part<CLUSTER>(n, k, tpr, seg);
+  const long long row0 = p.row0;
+  const int rows = p.rows, rb = p.rb, len = p.len;
+  const int tid = threadIdx.x;
+  const bool live = p.live;
+  const int j0 = p.j0;              // the thread's first position in its part of the row
+  const int g0 = p.seg0 + j0;       // and in the row
+  const int to = j0 / RP * (RP + 1);  // its chunk in tb
+  // The outputs' positions (k - 1 a row) in the block's part.
+  const int len_out = CLUSTER ? max(0, min(len, k - 1 - p.seg0)) : k - 1;
+#define IN(u) (live && j0 + (u) < len)
 
   // Stage t and the block's rows of x (one contiguous range), coalesced.
-  for (int i = tid; i < k; i += RT) tb[staged(i)] = t[i];
-  const float* xb = x + row0 * k;
-  for (int i = tid; i < rows * k; i += RT) buf[staged(i)] = xb[i];
+  for (int i = tid; i < len; i += RT) tb[staged(i)] = t[p.seg0 + i];
+  const float* xb = x + row0 * k + p.seg0;
+  for (int i = tid; i < rows * len; i += RT) buf[staged(i)] = xb[i];
   __syncthreads();
   float xs[RP];
 #pragma unroll
   for (int u = 0; u < RP; ++u)
-    xs[u] = live && j0 + u < k ? buf[staged(rb * k + j0 + u)] : NAN;
+    xs[u] = IN(u) ? buf[staged(rb * len + j0 + u)] : NAN;
 
   // Phase 0: first and last observed positions (argmax semantics for a row
   // with none: 0 and k - 1, whose values are NaN and impute nothing).
@@ -398,26 +436,33 @@ __global__ void __launch_bounds__(RT, 3)
 #pragma unroll
   for (int u = RP - 1; u >= 0; --u) {
     if (!isnan(xs[u])) {
-      sp.v[0] = (float)(j0 + u);
-      if (sp.v[1] < 0.f) sp.v[1] = (float)(j0 + u);
+      sp.v[0] = (float)(g0 + u);
+      if (sp.v[1] < 0.f) sp.v[1] = (float)(g0 + u);
     }
   }
   sp = row_span(sp, tpr, scratch);
+  if (CLUSTER) sp = cluster_span(sp, slots);
   int first = 0, last = k - 1;
   if (sp.v[0] < NO_POSITION) {
     first = (int)sp.v[0];
     last = (int)sp.v[1];
   }
-  const float v_first = live ? buf[staged(rb * k + first)] : NAN;
-  const float v_last = live ? buf[staged(rb * k + last)] : NAN;
+  float v_first, v_last;
+  if (CLUSTER) {  // the row's own positions, perhaps in another block's segment
+    v_first = x[row0 * k + first];
+    v_last = x[row0 * k + last];
+  } else {
+    v_first = live ? buf[staged(rb * k + first)] : NAN;
+    v_last = live ? buf[staged(rb * k + last)] : NAN;
+  }
 
   // Imputation: the observed positions (a bit each) and values (0 where missing).
   unsigned obs = 0u;
 #pragma unroll
   for (int u = 0; u < RP; ++u) {
-    const int j = j0 + u;
+    const int j = g0 + u;
     float v = xs[u];
-    if (isnan(v) && live && j < k) {
+    if (isnan(v) && IN(u)) {
       if (version == 0) {
         if (j == 0) v = v_first;
         else if (j == k - 1) v = v_last;
@@ -439,7 +484,7 @@ __global__ void __launch_bounds__(RT, 3)
   for (int u = RP - 1; u >= 0; --u) {
     if (OBS(u)) e3 = {{1.f, xs[u], tb[to + u]}};
   }
-  e3 = row_scan<SelectOp<3>, true>(e3, tpr, scratch);
+  e3 = full_scan<SelectOp<3>, true, CLUSTER>(e3, tpr, scratch, slots + SCAN_SLOT);
   bool later = e3.v[0] != 0.f;
   float cx = e3.v[1], ct = e3.v[2];
   float hr[RP], sph[RP], pds[RP];
@@ -468,7 +513,7 @@ __global__ void __launch_bounds__(RT, 3)
   for (int u = 0; u < RP; ++u) {
     if (OBS(u)) e3 = {{1.f, hr[u], pds[u]}};
   }
-  e3 = row_scan<SelectOp<3>, false>(e3, tpr, scratch);
+  e3 = full_scan<SelectOp<3>, false, CLUSTER>(e3, tpr, scratch, slots + 2 * SCAN_SLOT);
   const float hp0 = e3.v[1], pp0 = e3.v[2];  // 0 with none (the identity)
   Vec<4> mob = MoebiusOp::identity();
   float hp = hp0;
@@ -481,7 +526,7 @@ __global__ void __launch_bounds__(RT, 3)
       hp = hr[u];
     }
   }
-  mob = row_scan<MoebiusOp, false>(mob, tpr, scratch);
+  mob = full_scan<MoebiusOp, false, CLUSTER>(mob, tpr, scratch, slots + 3 * SCAN_SLOT);
   const float d_in = (mob.v[0] + mob.v[1]) / (mob.v[2] + mob.v[3]);  // applied to d = 1
   float nd[RP], nb[RP];
   Vec<2> aff = AffineOp::identity();
@@ -504,7 +549,7 @@ __global__ void __launch_bounds__(RT, 3)
       pp = pds[u];
     }
   }
-  aff = row_scan<AffineOp, false>(aff, tpr, scratch);
+  aff = full_scan<AffineOp, false, CLUSTER>(aff, tpr, scratch, slots + 4 * SCAN_SLOT);
   float prev_b = aff.v[1];  // applied to b = 0
   pp = pp0;
 #pragma unroll
@@ -528,7 +573,7 @@ __global__ void __launch_bounds__(RT, 3)
       aff = AffineOp::compose(aff, {{-hr[u] * inv, nb[u] * inv}});
     }
   }
-  aff = row_scan<AffineOp, true>(aff, tpr, scratch);
+  aff = full_scan<AffineOp, true, CLUSTER>(aff, tpr, scratch, slots + 5 * SCAN_SLOT);
   float kdn = aff.v[1];  // applied to kd = 0
 #pragma unroll
   for (int u = RP - 1; u >= 0; --u) {
@@ -550,18 +595,18 @@ __global__ void __launch_bounds__(RT, 3)
   Vec<6> e6 = SelectOp<6>::identity();
 #pragma unroll
   for (int u = 0; u < RP; ++u) {
-    if (OBS(u) || j0 + u == 0) e6 = {{1.f, xs[u], kd[u], c0[u], d0[u], tb[to + u]}};
+    if (OBS(u) || g0 + u == 0) e6 = {{1.f, xs[u], kd[u], c0[u], d0[u], tb[to + u]}};
   }
-  e6 = row_scan<SelectOp<6>, false>(e6, tpr, scratch);
+  e6 = full_scan<SelectOp<6>, false, CLUSTER>(e6, tpr, scratch, slots + 6 * SCAN_SLOT);
   __syncthreads();  // every read of x in buf is done
-  const long long out0 = row0 * (k - 1);
+  const long long out0 = row0 * (k - 1) + p.seg0;
 #pragma unroll
   for (int o = 0; o < 4; ++o) {
     float ca = e6.v[1], cb = e6.v[2], cc = e6.v[3], cd = e6.v[4], cto = e6.v[5];
 #pragma unroll
     for (int u = 0; u < RP; ++u) {
       const float tj = tb[to + u];
-      if (OBS(u) || j0 + u == 0) {
+      if (OBS(u) || g0 + u == 0) {
         ca = xs[u];
         cb = kd[u];
         cc = c0[u];
@@ -574,14 +619,16 @@ __global__ void __launch_bounds__(RT, 3)
       else if (o == 1) v = cb + (cd * off - cc) * off;
       else if (o == 2) v = cc - 2.f * cd * off;
       else v = cd;
-      if (live && j0 + u < k - 1) buf[staged(rb * (k - 1) + j0 + u)] = v;
+      if (live && j0 + u < len_out) buf[staged(rb * len_out + j0 + u)] = v;
     }
     __syncthreads();
     float* dst = (o == 0 ? a : o == 1 ? b : o == 2 ? c : d) + out0;
-    for (int i = tid; i < rows * (k - 1); i += RT) dst[i] = buf[staged(i)];
+    for (int i = tid; i < rows * len_out; i += RT) dst[i] = buf[staged(i)];
     __syncthreads();
   }
 #undef OBS
+#undef IN
+  if (CLUSTER) cluster_done();
 }
 
 }  // namespace
@@ -593,27 +640,39 @@ const char* mc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The resident variant's shape, into out[3]: positions a thread holds,
-// threads per block, the longest row it takes.
+// The resident variant's shape, into out[4]: positions a thread holds,
+// threads per block, the longest row it takes, and the most blocks a row's
+// cluster spans.
 void mc_resident_shape(int* out) {
   out[0] = RP;
   out[1] = RT;
   out[2] = RES_MAX;
+  out[3] = CLUSTER_MAX;
 }
 
-// The resident variant: x (n, k) and t (k) float32 contiguous, k <= RES_MAX;
-// a, b, c, d (n, k - 1); tpr threads per row, a power of two with
-// tpr * RP >= k (the wrapper's fit_plan), RT / tpr rows per block.
+// The resident and cluster variants: x (n, k) and t (k) float32
+// contiguous; a, b, c, d (n, k - 1).  Resident (cs 1): k <= RES_MAX, tpr
+// threads per row, a power of two with tpr * RP >= k, RT / tpr rows per
+// block.  Cluster: cs blocks a row of seg positions each (cluster_shape_ok;
+// tpr = RT).  The wrapper's fit_plan gives both.
 int mc_fit_resident(const float* x, const float* t, float* a, float* b, float* c, float* d,
-                    long long n, int k, int tpr, int version, void* stream) {
-  if (n <= 0 || k < 2 || k > RES_MAX || tpr < 1 || tpr > RT || (tpr & (tpr - 1)) ||
-      (long long)tpr * RP < k || (version != 0 && version != 1) || !x || !t || !a || !b ||
-      !c || !d)
+                    long long n, int k, int tpr, int cs, int seg, int version, void* stream) {
+  if (n <= 0 || k < 2 || (version != 0 && version != 1) || !x || !t || !a || !b || !c || !d)
     return BAD_ARGUMENT;
-  const long long rpb = RT / tpr, blocks = (n + rpb - 1) / rpb;
-  if (blocks > 0x7fffffffLL) return BAD_ARGUMENT;
-  resident_fit_kernel<<<(unsigned)blocks, RT, RES_SMEM, (cudaStream_t)stream>>>(
-      x, t, a, b, c, d, n, k, tpr, version);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cs == 1) {
+    if (k > RES_MAX || tpr < 1 || tpr > RT || (tpr & (tpr - 1)) || (long long)tpr * RP < k)
+      return BAD_ARGUMENT;
+    const long long rpb = RT / tpr, blocks = (n + rpb - 1) / rpb;
+    if (blocks > 0x7fffffffLL) return BAD_ARGUMENT;
+    resident_fit_kernel<false><<<(unsigned)blocks, RT, RES_SMEM, st>>>(x, t, a, b, c, d, n, k,
+                                                                        tpr, 0, version);
+    return (int)cudaGetLastError();
+  }
+  if (!cluster_shape_ok(k, cs, seg) || tpr != RT || n * cs > 0x7fffffffLL) return BAD_ARGUMENT;
+  cudaError_t err = launch_clusters(resident_fit_kernel<true>, n * cs, cs, CLUSTER_SMEM, st, x,
+                                    t, a, b, c, d, n, k, (int)RT, seg, version);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Scans across a row held in the registers of a power of two of threads,
 // shared by the resident kernels of the natural cubic fit: K6/K7's
-// resident_fit_kernel (masked_cubic.cu), K4's shared-band solve
-// (tridiagonal.cu) and K5's resident_gappy_kernel (masked_tridiagonal.cu).
+// resident_fit_kernel (masked_cubic.cu), K4's shared-band and per-row
+// solves (tridiagonal.cu) and K5's resident_gappy_kernel
+// (masked_tridiagonal.cu).
 //
 // A row of k <= RES_MAX positions belongs to threads_per_row (tpr)
 // consecutive threads of a block of RT, tpr the least power of two with
@@ -15,9 +16,22 @@
 // through shared memory with coalesced accesses, a float of padding after
 // every RP (staged), so that a warp's reads of its chunks fall in distinct
 // banks.
-
+//
+// A row of RES_MAX < k <= CLUSTER_MAX * RES_MAX positions spans a thread
+// block cluster of cs = ceil(k / RES_MAX) blocks (cluster_shape): block
+// rank r of the cluster holds the segment [r seg, (r + 1) seg) of the row,
+// seg = ceil(k / cs) rounded up to RP, in all its RT threads as a resident
+// block holds a row of RES_MAX.  The scans gain a third level
+// (cluster_scan): each block publishes its segment's total operator in a
+// slot of its shared memory, a cluster barrier, and every block composes
+// the totals of the segments before its own (after it, for a suffix scan)
+// in rank order, read through distributed shared memory.  Each exchange
+// has its own slot, so one barrier serves it; a last barrier keeps every
+// block resident until the others' reads of its slots are done.  The order
+// is fixed and there are no atomics here either.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -28,6 +42,8 @@ constexpr int RT = 256;                     // threads per block
 constexpr int RES_MAX = RP * RT;            // longest resident row
 constexpr int RES_BUF = RES_MAX / RP * (RP + 1);  // staging floats: a pad after every RP
 constexpr int SCAN_SLOT = 8;                // floats per warp total in the scan scratch
+constexpr int CLUSTER_MAX = 8;              // blocks a row spans at most (the portable cluster)
+constexpr int CLUSTER_SLOTS = 8;            // exchanges a cluster kernel makes at most
 
 // Staging index of element i of the block's range: a pad after every RP.
 __device__ __forceinline__ int staged(int i) { return i + i / RP; }
@@ -121,6 +137,121 @@ __device__ __forceinline__ Vec<N> row_scan(const Vec<N>& mine, int tpr, float* s
     __syncthreads();
   }
   return excl;
+}
+
+// The part of the rows that a block holds: RT / tpr whole rows (the
+// resident kernels), or one segment of one row (a cluster's block; tpr =
+// RT).  Block b of a cluster launch is rank b % cs of row b / cs's cluster.
+struct RowPart {
+  long long row0;  // the block's first row
+  int rows;        // rows it holds
+  int rb;          // the thread's row among them
+  bool live;       // that row exists
+  int seg0;        // the position where the block's part of a row starts
+  int len;         // positions of a row the block holds
+  int j0;          // the thread's first position in its part
+};
+
+template <bool CLUSTER>
+__device__ __forceinline__ RowPart row_part(long long n, int k, int tpr, int seg) {
+  RowPart p;
+  const int tid = threadIdx.x;
+  if (CLUSTER) {
+    const int cs = (k + seg - 1) / seg;
+    p.row0 = blockIdx.x / cs;
+    p.rows = 1;
+    p.rb = 0;
+    p.live = true;
+    p.seg0 = (int)(blockIdx.x % cs) * seg;
+    p.len = min(seg, k - p.seg0);
+    p.j0 = tid * RP;
+  } else {
+    const int rpb = RT / tpr;
+    p.row0 = (long long)blockIdx.x * rpb;
+    p.rows = (int)(n - p.row0 < rpb ? n - p.row0 : rpb);
+    p.rb = tid / tpr;
+    p.live = p.rb < p.rows;
+    p.seg0 = 0;
+    p.len = k;
+    p.j0 = (tid % tpr) * RP;
+  }
+  return p;
+}
+
+// Waits until every block of the cluster is done reading the others'
+// slots: the last step of a cluster kernel.
+__device__ __forceinline__ void cluster_done() { cooperative_groups::this_cluster().sync(); }
+
+// The segment of a row that each block of its cluster holds: cs blocks
+// (1 <= cs <= CLUSTER_MAX) and seg positions each, the wrapper's plan; the
+// kernels check it.
+__host__ __device__ inline bool cluster_shape_ok(int k, int cs, int seg) {
+  return cs >= 2 && cs <= CLUSTER_MAX && seg % RP == 0 && seg <= RES_MAX &&
+         (long long)cs * seg >= k && (long long)(cs - 1) * seg < k;
+}
+
+// The composition of the cluster's segments before this block's (after it
+// when REV) with excl, this thread's exclusive scan within its block
+// (row_scan over all RT threads, tpr = RT), and mine, its chunk's operator:
+// the thread's exclusive scan over the whole row.  slot: SCAN_SLOT floats of
+// this block's shared memory, for this exchange only.  Every thread of the
+// cluster calls it.
+template <class Op, bool REV, int N>
+__device__ __forceinline__ Vec<N> cluster_scan(const Vec<N>& excl, const Vec<N>& mine,
+                                               float* slot) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == (REV ? 0 : RT - 1)) {  // the block's total, in the scan's direction
+    const Vec<N> total = Op::compose(excl, mine);
+#pragma unroll
+    for (int e = 0; e < N; ++e) slot[e] = total.v[e];
+  }
+  cluster.sync();
+  const int rank = (int)cluster.block_rank(), size = (int)cluster.dim_blocks().x;
+  Vec<N> carry = Op::identity();
+  for (int i = 0; i < size; ++i) {
+    const int q = REV ? size - 1 - i : i;
+    if (REV ? q <= rank : q >= rank) break;
+    const float* remote = cluster.map_shared_rank(slot, q);
+    Vec<N> total;
+#pragma unroll
+    for (int e = 0; e < N; ++e) total.v[e] = remote[e];
+    carry = Op::compose(carry, total);
+  }
+  return Op::compose(carry, excl);
+}
+
+// The exclusive scan across a row: within its block (row_scan), then, for a
+// row spanning a cluster, across the cluster's blocks (cluster_scan, with
+// this exchange's slot).
+template <class Op, bool REV, bool CLUSTER, int N>
+__device__ __forceinline__ Vec<N> full_scan(const Vec<N>& mine, int tpr, float* scratch,
+                                            float* slot) {
+  const Vec<N> excl = row_scan<Op, REV>(mine, tpr, scratch);
+  if constexpr (CLUSTER) {
+    return cluster_scan<Op, REV>(excl, mine, slot);
+  } else {
+    return excl;
+  }
+}
+
+// Launches a kernel of RT-thread blocks in clusters of cs blocks.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), long long blocks, int cs, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks, 1, 1);
+  config.blockDim = dim3(RT, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = (unsigned)cs;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
 }
 
 }  // namespace

@@ -16,8 +16,14 @@ then the masked pipeline.
   to mask;
 * ``fit_plan(k)``: the variant that fits rows of length k (each row
   resident in the registers of a power of two of threads, up to
-  ``RESIDENT_MAX`` positions; a thread per row through scratch beyond);
-* ``LAUNCHES``: the count of kernel launches.
+  ``RESIDENT_MAX`` positions; over a thread block cluster of up to
+  ``CLUSTER_MAX`` blocks, each holding one segment of the row as a resident
+  block holds a row, up to ``CLUSTER_REACH``; a thread per row through
+  scratch beyond);
+* ``cluster_shape(k)``: the blocks of a row's cluster and the positions
+  each holds;
+* ``LAUNCHES``: the count of kernel launches; ``ROUTE_LAUNCHES`` the same by
+  variant.
 """
 
 import ctypes
@@ -30,21 +36,26 @@ from ..interpolation.cubic import _MaskedFitFused, _masked_fit_plain  # the plai
 from . import dispatch
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"resident": 0, "cluster": 0, "long": 0}
 
-# The resident variant's shape (csrc/row_scan.cuh: RP, RT, RES_MAX); the
-# library's own is checked against it when it loads.
+# The resident variant's shape (csrc/row_scan.cuh: RP, RT, RES_MAX,
+# CLUSTER_MAX); the library's own is checked against it when it loads.
 POSITIONS = 16         # positions a thread holds
 BLOCK_THREADS = 256    # threads per block
 RESIDENT_MAX = POSITIONS * BLOCK_THREADS
+CLUSTER_MAX = 8        # blocks a row's cluster spans at most (the portable cluster size)
+CLUSTER_REACH = CLUSTER_MAX * RESIDENT_MAX  # the longest row a cluster holds
 LONG_THREADS = 32      # the long-row variant: one thread per row, one warp per block
 
 
 class FitPlan(NamedTuple):
-    variant: str          # "resident" or "long"
-    threads_per_row: int
+    variant: str          # "resident", "cluster" or "long"
+    threads_per_row: int  # (a cluster's block: the threads holding its segment)
     rows_per_block: int
     threads: int          # per block
     positions: int        # per thread (the long-row variant: the row)
+    cluster: int          # blocks a row spans (1 off the cluster variant)
+    segment: int          # positions of a row a block holds
 
 
 def threads_per_row(k):
@@ -56,22 +67,40 @@ def threads_per_row(k):
     return tpr
 
 
+def cluster_shape(k):
+    """(blocks, positions each) of the cluster that holds a row of
+    ``RESIDENT_MAX`` < k <= ``CLUSTER_REACH`` positions: as few blocks as
+    hold it, the row split evenly between them in whole threads' chunks
+    (``csrc/row_scan.cuh``: cluster_shape_ok)."""
+    if not RESIDENT_MAX < k <= CLUSTER_REACH:
+        raise ValueError(f"rows of {k} positions take no cluster")
+    blocks = -(-k // RESIDENT_MAX)
+    segment = -(-k // blocks)
+    return blocks, -(-segment // POSITIONS) * POSITIONS
+
+
 def fit_plan(k):
     """The launch for rows of length k: the resident variant, its threads
     per row the least power of two that holds k at ``POSITIONS`` a thread,
     ``BLOCK_THREADS / threads_per_row`` rows a block; past
-    ``RESIDENT_MAX``, the long-row variant."""
+    ``RESIDENT_MAX``, the cluster variant (``cluster_shape``); past
+    ``CLUSTER_REACH``, the long-row variant."""
     if k < 2:
         raise ValueError(f"the fit needs rows of at least 2 positions, got {k}")
+    if k > CLUSTER_REACH:
+        return FitPlan("long", 1, LONG_THREADS, LONG_THREADS, k, 1, k)
     if k > RESIDENT_MAX:
-        return FitPlan("long", 1, LONG_THREADS, LONG_THREADS, k)
+        blocks, segment = cluster_shape(k)
+        return FitPlan("cluster", BLOCK_THREADS, 1, BLOCK_THREADS, POSITIONS, blocks, segment)
     tpr = threads_per_row(k)
-    return FitPlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS)
+    return FitPlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS, 1, k)
 
 
 def reset_launch_counts():
     global LAUNCHES
     LAUNCHES = 0
+    for variant in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[variant] = 0
 
 
 def _library():
@@ -80,11 +109,11 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mc_fit.argtypes = [p] * 13 + [ll, i, i, p]
         lib.mc_fit.restype = i
-        lib.mc_fit_resident.argtypes = [p] * 6 + [ll, i, i, i, p]
+        lib.mc_fit_resident.argtypes = [p] * 6 + [ll, i, i, i, i, i, p]
         lib.mc_fit_resident.restype = i
-        shape = (ctypes.c_int * 3)()
+        shape = (ctypes.c_int * 4)()
         lib.mc_resident_shape(shape)
-        if tuple(shape) != (POSITIONS, BLOCK_THREADS, RESIDENT_MAX):
+        if tuple(shape) != (POSITIONS, BLOCK_THREADS, RESIDENT_MAX, CLUSTER_MAX):
             raise RuntimeError(f"masked cubic fit library's resident shape {tuple(shape)} is "
                                "not the wrapper's")
         lib.mc_scratch_positions.argtypes = [i]
@@ -105,14 +134,25 @@ def launch(t, x, version):
     if version not in (0, 1):
         raise ValueError(f"version must be 0 or 1, got {version!r}")
     n, k = x.shape
-    lib = _library()
     plan = fit_plan(k)
     outs = [torch.empty((n, k - 1), dtype=x.dtype, device=x.device) for _ in range(4)]
+    _kernel(plan, t, x, outs, int(version))
+    LAUNCHES += 1
+    ROUTE_LAUNCHES[plan.variant] += 1
+    return tuple(outs)
+
+
+def _kernel(plan, t, x, outs, version):
+    """The variant of ``plan`` on x (n, k) at times t into the four outputs
+    (n, k - 1)."""
+    lib = _library()
+    n, k = x.shape
     ptrs = [a.data_ptr() for a in (x, t, *outs)]
     stream = dispatch.stream_of(x)
-    if plan.variant == "resident":
+    if plan.variant in ("resident", "cluster"):
         with torch.cuda.device(x.device):
-            rc = lib.mc_fit_resident(*ptrs, n, k, plan.threads_per_row, int(version), stream)
+            rc = lib.mc_fit_resident(*ptrs, n, k, plan.threads_per_row, plan.cluster,
+                                     plan.segment, version, stream)
     else:
         # Per-row intermediates, laid out in tiles by the kernel.
         size = n * lib.mc_scratch_positions(k)
@@ -120,12 +160,10 @@ def launch(t, x, version):
         obs = torch.empty(size, dtype=torch.uint8, device=x.device)
         ptrs += [a.data_ptr() for a in (*scratch[:1], obs, *scratch[1:])]
         with torch.cuda.device(x.device):
-            rc = lib.mc_fit(*ptrs, n, k, int(version), stream)
+            rc = lib.mc_fit(*ptrs, n, k, version, stream)
     if rc != 0:
         raise RuntimeError(f"masked cubic fit kernel failed: {lib.mc_error_string(rc).decode()} "
                            f"(code {rc})")
-    LAUNCHES += 1
-    return tuple(outs)
 
 
 def masked_natural_cubic(t, x, version):

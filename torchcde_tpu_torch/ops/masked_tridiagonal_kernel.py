@@ -35,9 +35,9 @@ def solve_plan(k):
     if k < 1:
         raise ValueError(f"the solve needs rows of at least 1 position, got {k}")
     if k > RESIDENT_MAX:
-        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k)
+        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k, 1, k)
     tpr = threads_per_row(k)
-    return SolvePlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS)
+    return SolvePlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS, 1, k)
 
 
 def reset_launch_counts():

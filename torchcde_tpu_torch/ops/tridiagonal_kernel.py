@@ -14,12 +14,15 @@ Its plain version is ``ops.tridiagonal.tridiagonal_solve_thomas``.
 * ``tridiagonal_solve_kernel(b, A_upper, A_diagonal, A_lower)``: the
   reference's signature and broadcasting; the kernel for CUDA
   float32/bfloat16 operands, the plain version otherwise;
-* ``solve_plan(k, shared)``: the route that solves rows of length k (one
-  band for every row up to ``RESIDENT_MAX`` positions: each row resident in
-  the registers of a power of two of threads, after one pass that
-  eliminates the shared diagonal; otherwise one thread per row);
+* ``solve_plan(k, shared)``: the route that solves rows of length k: up to
+  ``RESIDENT_MAX`` positions each row resident in the registers of a power
+  of two of threads (one band for every row: after one pass that
+  eliminates the shared diagonal; bands per row: each row scanning its own
+  pivots); up to ``CLUSTER_REACH`` each row over a thread block cluster,
+  one segment a block, in the same two ways; one thread per row beyond;
 * ``LAUNCHES``: the count of solves launched (forward and transpose solves;
-  a shared-band solve's two kernels count once).
+  a shared-band solve's two kernels count once); ``ROUTE_LAUNCHES`` the
+  same by route.
 """
 
 import ctypes
@@ -30,37 +33,67 @@ import torch
 
 from .. import _build
 from . import dispatch
-from .masked_cubic_kernel import BLOCK_THREADS, POSITIONS, RESIDENT_MAX, threads_per_row
+from .masked_cubic_kernel import (
+    BLOCK_THREADS,
+    CLUSTER_REACH,
+    POSITIONS,
+    RESIDENT_MAX,
+    cluster_shape,
+    threads_per_row,
+)
 from .tridiagonal import tridiagonal_solve_thomas  # the plain version
 
 LAUNCHES = 0
+# The routes: shared bands resident or over a cluster, per-row bands
+# resident or over a cluster, one thread a row.
+ROUTES = ("resident", "cluster", "per_row", "per_row_cluster", "thomas")
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 THOMAS_THREADS = 32  # one thread per row, one warp per block
 
 
 class SolvePlan(NamedTuple):
-    variant: str          # "resident" or "thomas" (K4 and K5 alike)
-    threads_per_row: int
+    variant: str          # one of ROUTES
+    threads_per_row: int  # (over a cluster: the threads of a block's segment)
     rows_per_block: int
     threads: int          # per block
     positions: int        # per thread (thomas: the row)
+    cluster: int          # blocks a row spans (1 off the cluster routes)
+    segment: int          # positions of a row a block holds
 
 
 def solve_plan(k, shared):
     """The launch for rows of length k whose bands are one for every row
-    (``shared``) or one per row: the resident route for shared bands up to
-    ``RESIDENT_MAX`` positions (K6/K7's threads per row), ``thomas_kernel``
-    otherwise."""
+    (``shared``) or one per row: up to ``RESIDENT_MAX`` positions each row
+    resident in K6/K7's threads per row (``resident`` after the shared
+    pivots, or ``per_row``); up to ``CLUSTER_REACH`` over K6/K7's clusters
+    (``cluster_shape``: ``cluster`` or ``per_row_cluster``);
+    ``thomas_kernel`` beyond."""
     if k < 1:
         raise ValueError(f"the solve needs rows of at least 1 position, got {k}")
-    if not shared or k > RESIDENT_MAX:
-        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k)
+    if k > CLUSTER_REACH:
+        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k, 1, k)
+    if k > RESIDENT_MAX:
+        blocks, segment = cluster_shape(k)
+        return SolvePlan("cluster" if shared else "per_row_cluster", BLOCK_THREADS, 1,
+                         BLOCK_THREADS, POSITIONS, blocks, segment)
     tpr = threads_per_row(k)
-    return SolvePlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS)
+    return SolvePlan("resident" if shared else "per_row", tpr, BLOCK_THREADS // tpr,
+                     BLOCK_THREADS, POSITIONS, 1, k)
+
+
+def pivot_positions(plan):
+    """The positions of each row of the shared routes' (3, P) pivot
+    scratch: the threads' chunks of the row, or the cluster's segments."""
+    if plan.variant == "cluster":
+        return plan.cluster * plan.segment
+    return plan.threads_per_row * plan.positions
 
 
 def reset_launch_counts():
     global LAUNCHES
     LAUNCHES = 0
+    for route in ROUTES:
+        ROUTE_LAUNCHES[route] = 0
 
 
 def _library():
@@ -69,8 +102,10 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.td_solve.argtypes = [p] * 6 + [ll, i, ll, ll, ll, ll, p]
         lib.td_solve.restype = i
-        lib.td_solve_shared.argtypes = [p] * 6 + [ll, i, i, p]
+        lib.td_solve_shared.argtypes = [p] * 6 + [ll, i, i, i, i, p]
         lib.td_solve_shared.restype = i
+        lib.td_solve_rows.argtypes = [p] * 5 + [ll, i, i, i, i, ll, ll, ll, p]
+        lib.td_solve_rows.restype = i
         lib.td_error_string.argtypes = [i]
         lib.td_error_string.restype = ctypes.c_char_p
         lib._td_declared = True
@@ -105,15 +140,20 @@ def launch(b, A_upper, A_diagonal, A_lower):
     if n == 0:
         return x.reshape(shape)
     plan = solve_plan(k, shared=su == sd == sl == 0)
-    if plan.variant == "resident":
-        # The pivots w, r, c of the shared band, zero past k.
-        scratch = torch.empty((3, plan.threads_per_row * plan.positions), dtype=b.dtype,
-                              device=b.device)
-    else:
-        scratch = torch.empty((k, n), dtype=b.dtype, device=b.device)  # the eliminated diagonal
-    _kernel(plan, (b2, u2, d2, l2), x, scratch, (n, k, sb, su, sd, sl))
+    _kernel(plan, (b2, u2, d2, l2), x, _scratch(plan, n, k, b), (n, k, sb, su, sd, sl))
     LAUNCHES += 1
+    ROUTE_LAUNCHES[plan.variant] += 1
     return x.reshape(shape)
+
+
+def _scratch(plan, n, k, like):
+    """The route's scratch: the shared band's pivots w, r, c (zero past
+    k), the eliminated diagonal (k, n) of thomas_kernel, or none."""
+    if plan.variant in ("resident", "cluster"):
+        return torch.empty((3, pivot_positions(plan)), dtype=like.dtype, device=like.device)
+    if plan.variant == "thomas":
+        return torch.empty((k, n), dtype=like.dtype, device=like.device)
+    return None
 
 
 def _kernel(plan, operands, x, scratch, sizes):
@@ -121,13 +161,16 @@ def _kernel(plan, operands, x, scratch, sizes):
     into x (n, k), with its scratch."""
     lib = _library()
     n, k, sb, su, sd, sl = sizes
-    ptrs = [t.data_ptr() for t in (*operands, x, scratch)]
+    ptrs = [t.data_ptr() for t in (*operands, x)]
+    shape = (plan.threads_per_row, plan.cluster, plan.segment)
     stream = dispatch.stream_of(x)
     with torch.cuda.device(x.device):
-        if plan.variant == "resident":
-            rc = lib.td_solve_shared(*ptrs, n, k, plan.threads_per_row, stream)
+        if plan.variant in ("resident", "cluster"):
+            rc = lib.td_solve_shared(*ptrs, scratch.data_ptr(), n, k, *shape, stream)
+        elif plan.variant in ("per_row", "per_row_cluster"):
+            rc = lib.td_solve_rows(*ptrs, n, k, *shape, su, sd, sl, stream)
         else:
-            rc = lib.td_solve(*ptrs, n, k, sb, su, sd, sl, stream)
+            rc = lib.td_solve(*ptrs, scratch.data_ptr(), n, k, sb, su, sd, sl, stream)
     if rc != 0:
         raise RuntimeError(f"tridiagonal solve kernel failed: {lib.td_error_string(rc).decode()} "
                            f"(code {rc})")
