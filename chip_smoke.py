@@ -49,10 +49,12 @@ Phases, each of which raises on failure:
    maximum 4096 and the long-row variant at 4097), odd row counts, NaN
    densities 0 to 1, leading and trailing NaN runs, single-observation and
    all-NaN rows, both imputation versions, irregular times, each K4 (both
-   routes: bands shared by every row and bands per row), K5 (the resident
-   route up to 4096, masked_thomas_kernel at 4097) and K6/K7 case also
-   against a second launch, bit for bit; and the public fit on
-   bfloat16 values (upcast at the kernels' boundary);
+   routes: bands shared by every row and bands per row), K5 and K6/K7 case
+   also against a second launch, bit for bit; K4 and K5 also over thread
+   block clusters (lengths 4097 to 32 768) and segmented past them (32 769,
+   65 536 and 65 537; K5's densities stacked into one launch a length past
+   4097);
+   and the public fit on bfloat16 values (upcast at the kernels' boundary);
 11. fit slice: BASELINE config 3 (8192 series of length 4096, one channel,
    20 % NaN, as benchmarks/run_benchmarks.py's bench_cubic_fit makes them)
    through the public natural_cubic_coeffs, forward and gradient, with and
@@ -220,7 +222,14 @@ Phases, each of which raises on failure:
    per-lane NFE, wall and CUDA-event ms, host reads and iterations; the 8
    lanes' time in integrate.odeint, scaled to 256, as the extrapolated time
    of that loop over the lanes; and, by batch size, whether the lanes'
-   right-hand side rounds as in a batch of 64.
+   right-hand side rounds as in a batch of 64;
+40. the flagship step with the fused kernels switched off;
+41. the long rows (LONG_ROW_CASES): K4's per-row and shared bands, K5 in
+   the masked fit's gradient and K6/K7 past 4096 positions, over clusters
+   and segmented, through the public entry points with every plain version
+   patched to raise, launches counted by route, outputs against float64;
+   then each case's device kernels from the profiler in a new process,
+   which fails on any one-thread kernel of K4 or K5.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -431,13 +440,14 @@ def phase_build():
         print(f"  K6/K7 kernel {name}: {'; '.join(lines)}")
     print(f"  K4 at config 3 (k {FIT_LENGTH}, shared bands): {solve_plan(FIT_LENGTH, True)}")
     print(f"  K4 at config 3 (k {FIT_LENGTH}, per-row bands): {solve_plan(FIT_LENGTH, False)}")
-    for length in LONG_FIT_LENGTHS:
+    for length in LONG_FIT_LENGTHS + SEGMENTED_LENGTHS:
         for shared in (True, False):
             print(f"  K4 at k {length}, {'shared' if shared else 'per-row'} bands: "
                   f"{solve_plan(length, shared)}")
     for name, lines in ptxas_lines(log, k4_label).items():
         print(f"  K4 kernel {name}: {'; '.join(lines)}")
-    print(f"  K5 at config 3 (k {FIT_LENGTH}): {masked_tridiagonal_kernel.solve_plan(FIT_LENGTH)}")
+    for length in (FIT_LENGTH,) + LONG_FIT_LENGTHS + SEGMENTED_LENGTHS:
+        print(f"  K5 at k {length}: {masked_tridiagonal_kernel.solve_plan(length)}")
     for name, lines in ptxas_lines(log, k5_label).items():
         print(f"  K5 kernel {name}: {'; '.join(lines)}")
 
@@ -483,10 +493,15 @@ def k1_ptxas(log):
 
 
 def _instance(kernel, name):
-    """kernel, with <false> or <true> where name instantiates it on the
-    cluster level (a mangled ILb0E / ILb1E)."""
-    cluster = re.search(r"ILb([01])E", name)
-    return kernel + (f"<{'true' if cluster.group(1) == '1' else 'false'}>" if cluster else "")
+    """kernel, with the template argument that name instantiates it with:
+    <false> or <true> for the cluster level (a mangled ILb0E / ILb1E), <m>
+    for a RowMode (ILi<m>E)."""
+    level = re.search(r"IL([bi])(\d)E", name)
+    if not level:
+        return kernel
+    if level.group(1) == "i":
+        return f"{kernel}<{level.group(2)}>"
+    return f"{kernel}<{'true' if level.group(2) == '1' else 'false'}>"
 
 
 def fit_kernel_label(name):
@@ -496,16 +511,14 @@ def fit_kernel_label(name):
 
 
 def k4_label(name):
-    """K4's kernels' names in ptxas's log, or None (K5's masked_thomas_kernel
-    and resident_gappy_kernel are not ones)."""
-    kernel = re.search(r"\d(thomas|shared_band|band_pivot|per_row)_kernel", name)
+    """K4's kernels' names in ptxas's log, with their RowMode, or None."""
+    kernel = re.search(r"\d(shared_band|band_pivot|per_row)_kernel", name)
     return _instance(kernel.group(1) + "_kernel", name) if kernel else None
 
 
 def k5_label(name):
-    """K5's kernels' names in ptxas's log, or None."""
-    kernel = re.search(r"(resident_gappy|masked_thomas)_kernel", name)
-    return kernel.group(0) if kernel else None
+    """K5's kernel's names in ptxas's log, with their RowMode, or None."""
+    return _instance("gappy_kernel", name) if "gappy_kernel" in name else None
 
 
 def k8_label(name):
@@ -1350,12 +1363,16 @@ FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096, 511, 512, 513, 4097, 8192, 8193, 16384
                32769)
 SHORT_FIT_LENGTHS = FIT_LENGTHS[:FIT_LENGTHS.index(4097) + 1]
 LONG_FIT_LENGTHS = FIT_LENGTHS[len(SHORT_FIT_LENGTHS):]
+# K4's and K5's segmented lengths past 65 536: 17 segments of 3856, then
+# 16 whole segments of 4096, the split that phases 13 and 41 time; last,
+# so that the earlier lengths keep their seeds.
+SEGMENTED_LENGTHS = (65537, 65536)
 # Rows of each NaN density in K6/K7's cases past 4097, where the four
 # densities share one launch a version: the float64 plain version walks
 # the positions one at a time, so one walk holds every density.
 LONG_FIT_ROWS = 251
-# The largest error of each route in phase 10: {"K4" or "K6/K7": {variant: error}}.
-ROUTE_ERRORS = {"K4": {}, "K6/K7": {}}
+# The largest error of each route in phase 10: {"K4", "K5" or "K6/K7": {variant: error}}.
+ROUTE_ERRORS = {"K4": {}, "K5": {}, "K6/K7": {}}
 FIT_DENSITIES = (0.0, 0.2, 0.8, 1.0)
 SPIRAL_NAN = 0.3
 # The H100 SXM's datasheet rates: HBM bytes per second, float32 operations
@@ -1373,12 +1390,14 @@ BF16_RTOL = 1e-2
 # Each of the fit's four outputs is held to its own largest magnitude: on
 # irregular times three_d reaches ~1e3 while a and b stay ~1.
 FIT_PARTS = ("a", "b", "two_c", "three_d")
-# K5's kernel for each route of its solve_plan.
-K5_VARIANTS = {"resident": "resident_gappy_kernel", "thomas": "masked_thomas_kernel"}
-# The new kernels' names as the profiler reports them (csrc/*.cu).
+# K5's kernel for each route of its solve_plan (gappy_kernel's RowMode:
+# 0 RESIDENT_ROWS, 1 CLUSTERED, 2-4 the three launches of a segmented row).
+K5_VARIANTS = {"resident": "gappy_kernel<0>", "cluster": "gappy_kernel<1>",
+               "segmented": "gappy_kernel<2>, <3>, <4>"}
+# The fit kernels' names as the profiler reports them (csrc/*.cu).
 FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b",
-                    "K4": r"\b(?:thomas|shared_band|band_pivot|per_row)_kernel\b",
-                    "K5": r"\b(?:resident_gappy|masked_thomas)_kernel\b",
+                    "K4": r"\b(?:shared_band|band_pivot|per_row)_kernel\b",
+                    "K5": r"\bgappy_kernel\b",
                     "K6/K7": r"\b(?:resident|long)_fit_kernel\b"}
 
 
@@ -1508,11 +1527,14 @@ def _rows_for(length, i):
 
 
 def route_text(plan):
-    """A K4 or K6/K7 plan's route, threads and cluster size, as text."""
+    """A K4's, K5's or K6/K7's plan's route, threads and segments, as text."""
+    if plan.variant.endswith("segmented"):
+        return (f"{plan.variant}, {plan.cluster} segments a row of {plan.segment} positions, "
+                f"a block each, three launches")
     if plan.cluster > 1:
         return (f"{plan.variant}, a cluster of {plan.cluster} blocks a row, {plan.segment} "
                 f"positions a block")
-    if plan.variant in ("thomas", "long"):
+    if plan.variant == "long":
         return f"{plan.variant}, one thread a row"
     return f"{plan.variant}, {plan.threads_per_row} threads a row"
 
@@ -1541,63 +1563,169 @@ def check_k3(device):
     return worst, failures
 
 
+def hold_route(family, label, plan, got, ref, again, failures):
+    """One K4 or K5 case: got against its float64 reference within FWD_RTOL
+    of the largest magnitude (or 1), finite, and bit for bit a second
+    launch's; the route's largest error kept in ROUTE_ERRORS.  Returns the
+    error."""
+    err, scale = _rel(got, ref)
+    _report(label, err, scale, FWD_RTOL * max(scale, 1.0), failures, bool(got.isfinite().all()))
+    routes = ROUTE_ERRORS[family]
+    routes[plan.variant] = max(routes.get(plan.variant, 0.0), err)
+    if not _same_bits(got, again):
+        failures.append(f"{label}: a second launch differs")
+    return err
+
+
+def k4_system(length, i, shared, device):
+    """Phase 10's K4 system at FIT_LENGTHS-style index i: (b, u, d, l), the
+    dense spline fit's bands from irregular times (one band for every row)
+    or diagonally dominant bands per row."""
+    rows = FIT_BATCH if (length == FIT_LENGTH and shared) else _rows_for(length, i)
+    gen = torch.Generator(device=device).manual_seed(i)
+    b = torch.randn((rows, length), generator=gen, device=device)
+    if shared:
+        t = torch.from_numpy(irregular_times(length, i)).to(device)
+        hr = 1.0 / (t[1:] - t[:-1])
+        zero = hr.new_zeros(1)
+        return b, hr, 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero])), hr
+    u = torch.randn((rows, length - 1), generator=gen, device=device)
+    l = torch.randn((rows, length - 1), generator=gen, device=device)
+    pad = u.new_zeros((rows, 1))
+    return b, u, 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1), l
+
+
 def check_k4(device):
+    """K4 at every length of phase 10 and at SEGMENTED_LENGTHS, both band
+    kinds.  Past 4097 one float64 Thomas walk a band kind serves every
+    length: each length's rows padded to the longest with identity rows (d
+    1, u = l = b = 0), which leave the walk's values before them unchanged,
+    so a row's first k positions are its own solve's, bit for bit."""
     from torchcde_tpu_torch.ops import tridiagonal_kernel
     from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_thomas
 
     failures, worst = [], 0.0
-    for i, length in enumerate(FIT_LENGTHS):
+
+    def label(rows, length, shared, plan):
+        return (f"K4 tridiagonal {rows}x{length} {'shared' if shared else 'per-row'} bands "
+                f"[{route_text(plan)}]")
+
+    for i, length in enumerate(SHORT_FIT_LENGTHS):
         for shared in (True, False):
-            rows = FIT_BATCH if (length == FIT_LENGTH and shared) else _rows_for(length, i)
-            gen = torch.Generator(device=device).manual_seed(i)
-            b = torch.randn((rows, length), generator=gen, device=device)
-            if shared:  # the dense spline fit's system: bands from the times
-                t = torch.from_numpy(irregular_times(length, i)).to(device)
-                hr = 1.0 / (t[1:] - t[:-1])
-                zero = hr.new_zeros(1)
-                u = l = hr
-                d = 2 * (torch.cat([zero, hr]) + torch.cat([hr, zero]))
-            else:  # per-row, diagonally dominant
-                u = torch.randn((rows, length - 1), generator=gen, device=device)
-                l = torch.randn((rows, length - 1), generator=gen, device=device)
-                pad = u.new_zeros((rows, 1))
-                d = 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1)
-            got = tridiagonal_kernel.launch(b, u, d, l)
-            ref = tridiagonal_solve_thomas(b.double(), u.double(), d.double(), l.double())
-            err, scale = _rel(got, ref)
-            worst = max(worst, err)
-            plan = tridiagonal_kernel.solve_plan(length, shared)
-            routes = ROUTE_ERRORS["K4"]
-            routes[plan.variant] = max(routes.get(plan.variant, 0.0), err)
-            label = (f"K4 tridiagonal {rows}x{length} {'shared' if shared else 'per-row'} bands "
-                     f"[{route_text(plan)}]")
-            _report(label, err, scale, FWD_RTOL * max(scale, 1.0), failures,
-                    bool(got.isfinite().all()))
-            again = tridiagonal_kernel.launch(b, u, d, l)
+            system = k4_system(length, i, shared, device)
+            got = tridiagonal_kernel.launch(*system)
+            ref = tridiagonal_solve_thomas(*(a.double() for a in system))
+            again = tridiagonal_kernel.launch(*system)
             torch.cuda.synchronize()
-            if not _same_bits(got, again):
-                failures.append(f"{label}: a second launch differs")
+            plan = tridiagonal_kernel.solve_plan(length, shared)
+            worst = max(worst, hold_route("K4", label(system[0].shape[0], length, shared, plan),
+                                          plan, got, ref, again, failures))
+
+    start = time.perf_counter()
+    lengths = LONG_FIT_LENGTHS + SEGMENTED_LENGTHS
+    longest = max(lengths)
+    for shared in (True, False):
+        launched, blocks = [], []
+        for at, length in enumerate(lengths):
+            system = k4_system(length, len(SHORT_FIT_LENGTHS) + at, shared, device)
+            launched.append((length, tridiagonal_kernel.launch(*system),
+                             tridiagonal_kernel.launch(*system)))
+            blocks.append(system)
+        offsets = [0]
+        for system in blocks:
+            offsets.append(offsets[-1] + system[0].shape[0])
+        stacked = [torch.zeros((offsets[-1], longest - (a in (1, 3))), dtype=torch.float64,
+                               device=device) for a in range(4)]
+        stacked[2].fill_(1.0)
+        for at, ((length, _, _), system) in enumerate(zip(launched, blocks)):
+            for a, (whole, part) in enumerate(zip(stacked, system)):
+                whole[offsets[at]:offsets[at + 1], :length - (a in (1, 3))] = part
+        del blocks, system
+        ref = tridiagonal_solve_thomas(*stacked)
+        del stacked
+        torch.cuda.synchronize()
+        for at, (length, got, again) in enumerate(launched):
+            plan = tridiagonal_kernel.solve_plan(length, shared)
+            worst = max(worst, hold_route("K4", label(got.shape[0], length, shared, plan), plan,
+                                          got, ref[offsets[at]:offsets[at + 1], :length], again,
+                                          failures))
+        del launched, ref
+    print(f"K4 past 4097 (clusters and segmented rows): {time.perf_counter() - start:.1f} s",
+          flush=True)
     return worst, failures
 
 
+def k5_system(rows, length, density, seed, device):
+    """K5's operands on the card: a random gappy system, every coupling in
+    [0.2, 1.2), the mask from nan_rows."""
+    obs = ~torch.isnan(torch.from_numpy(nan_rows(rows, length, density, seed=seed)).to(device))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hr = torch.where(obs, torch.rand(obs.shape, generator=gen, device=device) + 0.2, 0.0)
+    hr_prev = torch.rand(obs.shape, generator=gen, device=device) + 0.2
+    diag = 2 * (hr + hr_prev) + 0.5
+    rhs = torch.randn(obs.shape, generator=gen, device=device)
+    return diag, rhs, hr, hr_prev, obs
+
+
 def check_k5(device):
+    """K5 at every length of phase 10 and at SEGMENTED_LENGTHS.  Up to 4097
+    one launch a density; past it the densities' rows stacked into one
+    launch a length.  One float64 plain walk serves each of the two groups
+    of lengths: each length's rows padded to the group's longest with
+    missing positions, which pass the walk's carries through unchanged, so
+    a row's first k positions are its own solve's, bit for bit.  Each
+    density is held on its own rows."""
+    from torchcde_tpu_torch.interpolation.cubic import _masked_thomas_observed
     from torchcde_tpu_torch.ops import masked_tridiagonal_kernel
 
     failures, worst = [], 0.0
-    for i, length in enumerate(SHORT_FIT_LENGTHS):
-        plan = masked_tridiagonal_kernel.solve_plan(length)
-        for j, density in enumerate(FIT_DENSITIES):
-            rows = _rows_for(length, i)
-            obs = ~torch.isnan(torch.from_numpy(nan_rows(rows, length, density, seed=10 * i + j))
-                               .to(device))
-            gen = torch.Generator(device=device).manual_seed(10 * i + j)
-            hr = torch.where(obs, torch.rand(obs.shape, generator=gen, device=device) + 0.2, 0.0)
-            hr_prev = torch.rand(obs.shape, generator=gen, device=device) + 0.2
-            diag = 2 * (hr + hr_prev) + 0.5
-            rhs = torch.randn(obs.shape, generator=gen, device=device)
-            label = (f"K5 gappy tridiagonal {rows}x{length} NaN {density:g} "
-                     f"[{plan.variant}, {plan.threads_per_row} threads a row]")
-            worst = max(worst, check_k5_case(label, (diag, rhs, hr, hr_prev, obs), failures))
+    start = time.perf_counter()
+    for lengths, stacked_launch in ((SHORT_FIT_LENGTHS, False),
+                                    (LONG_FIT_LENGTHS + SEGMENTED_LENGTHS, True)):
+        first = 0 if lengths is SHORT_FIT_LENGTHS else len(SHORT_FIT_LENGTHS)
+        cases = []  # (length, rows, densities' rows in the walk, got, again)
+        parts_of = []
+        for at, length in enumerate(lengths):
+            i = first + at
+            rows = LONG_FIT_ROWS if stacked_launch else _rows_for(length, i)
+            parts = [k5_system(rows, length, density, 10 * i + j, device)
+                     for j, density in enumerate(FIT_DENSITIES)]
+            groups = [parts] if stacked_launch else [[part] for part in parts]
+            for group in groups:
+                operands = tuple(torch.cat([part[a] for part in group]) for a in range(5))
+                cases.append((length, rows, len(group),
+                              masked_tridiagonal_kernel.launch(*operands),
+                              masked_tridiagonal_kernel.launch(*operands)))
+            parts_of.append(parts)
+        total = sum(case[1] * case[2] for case in cases)
+        shape = (total, max(lengths))
+        stacked = [torch.zeros(shape, dtype=torch.float64, device=device) for _ in range(4)]
+        stacked.append(torch.zeros(shape, dtype=torch.bool, device=device))
+        row = 0
+        for length, parts in zip(lengths, parts_of):
+            for part in parts:
+                for whole, a in zip(stacked, part):
+                    whole[row:row + a.shape[0], :length] = a
+                row += part[0].shape[0]
+        del parts_of, parts
+        ref = _masked_thomas_observed(*stacked)
+        del stacked
+        torch.cuda.synchronize()
+        row, j = 0, 0
+        for length, rows, count, got, again in cases:
+            plan = masked_tridiagonal_kernel.solve_plan(length)
+            for at in range(count):
+                mine = slice(at * rows, (at + 1) * rows)
+                label = (f"K5 gappy tridiagonal {rows}x{length} "
+                         f"NaN {FIT_DENSITIES[j % len(FIT_DENSITIES)]:g} [{route_text(plan)}]")
+                worst = max(worst, hold_route("K5", label, plan, got[mine],
+                                              ref[row:row + rows, :length], again[mine],
+                                              failures))
+                row, j = row + rows, j + 1
+        del cases, ref
+        print(f"K5 {'past' if stacked_launch else 'up to'} 4097: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
     return worst, failures
 
 
@@ -1620,7 +1748,11 @@ def check_k5_case(label, operands, failures):
 
 
 def check_k6(device):
-    from torchcde_tpu_torch.interpolation.cubic import _masked_fit_plain
+    """K6/K7 at every length of phase 10, both imputation versions.  Both
+    versions' float64 references come from one plain pipeline call on the
+    two imputations' rows stacked: its rows are independent, so each half
+    is _masked_fit_plain's for its version, bit for bit."""
+    from torchcde_tpu_torch.interpolation.cubic import _impute_endpoints, _masked_coeffs_plain
     from torchcde_tpu_torch.ops import masked_cubic_kernel
 
     failures, worst = [], 0.0
@@ -1630,15 +1762,18 @@ def check_k6(device):
         rows = LONG_FIT_ROWS if length in LONG_FIT_LENGTHS else _rows_for(length, i)
         xs = [torch.from_numpy(nan_rows(rows, length, density, seed=100 + 10 * i + j))
               .to(device) for j, density in enumerate(FIT_DENSITIES)]
-        # Past 4097 the densities' rows share one launch and one plain walk
-        # a version; each density is held on its own rows.
+        # Past 4097 the densities' rows share one launch a version and one
+        # plain walk; each density is held on its own rows.
         cases = list(enumerate(xs))
         groups = [cases] if length in LONG_FIT_LENGTHS else [[case] for case in cases]
-        for version in (0, 1):
-            for group in groups:
-                x = torch.cat([part for _, part in group])
+        for group in groups:
+            x = torch.cat([part for _, part in group])
+            x64 = x.double()
+            both = _masked_coeffs_plain(t.double(), torch.cat([_impute_endpoints(x64, 0),
+                                                               _impute_endpoints(x64, 1)]))
+            for version in (0, 1):
                 got = masked_cubic_kernel.launch(t, x, version)
-                ref = _masked_fit_plain(t.double(), x.double(), version)
+                ref = [r[version * x.shape[0]:(version + 1) * x.shape[0]] for r in both]
                 again = masked_cubic_kernel.launch(t, x, version)
                 torch.cuda.synchronize()
                 for at, (j, _) in enumerate(group):
@@ -1653,6 +1788,7 @@ def check_k6(device):
                     if not all(_same_bits(a[rows_of], b[rows_of]) for a, b in zip(got, again)):
                         failures.append(f"{label}: a second launch differs")
                 del got, ref, again
+            del both
     return worst, failures
 
 
@@ -1681,8 +1817,10 @@ def check_fit_kernels(device):
     errors, failures = {}, []
     for name, check in (("K3", check_k3), ("K4", check_k4), ("K5", check_k5),
                         ("K6/K7", check_k6)):
+        start = time.perf_counter()
         errors[name], failed = check(device)
         failures += failed
+        print(f"{name} checks: {time.perf_counter() - start:.1f} s", flush=True)
     failures += check_bf16_fit(device)
     torch.cuda.synchronize()
     if failures:
@@ -3282,31 +3420,52 @@ def time_fit_kernels(device, recorded):
     return out, end_to_end, profiled
 
 
-# The long rows (phases 13 and 41): the routes of K4 and K6/K7 that the
-# resident kernels do not take, each at a shape of its bound's table, and
-# the one-thread routes just past the clusters' reach.  (name in the
-# kernels line, operands, rows, length, the route): K4's bands per row
-# ("rows", diagonally dominant, as phase 10 draws them) or shared
-# ("dense": the dense fit's system on unit times, through the public fit),
-# K6/K7 on values with 20 % NaN ("masked").
+# The long rows (phases 13 and 41): the routes of K4, K5 and K6/K7 that
+# the resident kernels do not take, each at a shape of its bound's table.
+# (name in the kernels line, operands, rows, length, the route): K4's bands
+# per row ("rows", diagonally dominant, as phase 10 draws them) or shared
+# ("dense": the dense fit's system on unit times, through the public fit
+# and its gradient), K6/K7 on values with 20 % NaN ("masked", the public
+# fit's forward), K5 in the gradient of the same fit ("masked_grad": its
+# solve and transpose solve).
 LONG_ROW_CASES = (("K4 per-row", "rows", 8192, 4096, "per_row"),
                   ("K4 per-row cluster", "rows", 2048, 8192, "per_row_cluster"),
                   ("K4 cluster", "dense", 2048, 8192, "cluster"),
+                  ("K5 cluster", "masked_grad", 2048, 8192, "cluster"),
+                  ("K5 cluster 2048x16384", "masked_grad", 2048, 16384, "cluster"),
                   ("K6/K7 cluster", "masked", 2048, 8192, "cluster"),
                   ("K6/K7 cluster 2048x16384", "masked", 2048, 16384, "cluster"),
-                  ("K4 thomas", "rows", 2048, 32769, "thomas"),
+                  ("K4 per-row segmented", "rows", 2048, 65536, "per_row_segmented"),
+                  ("K4 segmented", "dense", 2048, 65536, "segmented"),
+                  ("K5 segmented", "masked_grad", 2048, 65536, "segmented"),
                   ("K6/K7 long", "masked", 2048, 32769, "long"))
-# The kernels of each route, as the profiler names them.
-ROUTE_KERNELS = {"per_row": r"per_row_kernel<false>", "per_row_cluster": r"per_row_kernel<true>",
-                 "cluster": r"(?:shared_band|resident_fit)_kernel<true>",
-                 "thomas": r"\bthomas_kernel\b", "long": r"\blong_fit_kernel\b"}
-ONE_THREAD_KERNELS = r"\b(?:thomas|long_fit)_kernel\b"
+# The kernel of each kind of case's operands.
+LONG_ROW_FAMILY = {"rows": "K4", "dense": "K4", "masked_grad": "K5", "masked": "K6/K7"}
+# The kernels each route launches, as the profiler names them (a RowMode
+# or cluster level in brackets): every one must show in its case.
+ROUTE_KERNELS = {
+    ("K4", "per_row"): ("per_row_kernel<0>",),
+    ("K4", "per_row_cluster"): ("per_row_kernel<1>",),
+    ("K4", "per_row_segmented"): ("per_row_kernel<2>", "per_row_kernel<3>", "per_row_kernel<4>"),
+    ("K4", "cluster"): ("band_pivot_kernel<1>", "shared_band_kernel<1>"),
+    ("K4", "segmented"): ("band_pivot_kernel<2>", "band_pivot_kernel<4>", "shared_band_kernel<3>",
+                          "shared_band_kernel<4>"),
+    ("K5", "cluster"): ("gappy_kernel<1>",),
+    ("K5", "segmented"): ("gappy_kernel<2>", "gappy_kernel<3>", "gappy_kernel<4>"),
+    ("K6/K7", "cluster"): ("resident_fit_kernel<true>",),
+    ("K6/K7", "long"): ("long_fit_kernel",),
+}
+# K4's and K5's one-thread kernels, which no route has: none may run in any
+# case.  K6/K7's runs in its cases on the "long" route alone (K5's masked
+# gradient past the reach runs it for the fit's forward).
+RETIRED_KERNELS = r"\b(?:masked_)?thomas_kernel\b"
+LONG_FIT_KERNEL = r"\blong_fit_kernel\b"
 LONG_ROW_KERNELS_ARG = "--long-row-kernels"  # runs long_row_kernels alone
 
 
 def long_row_operands(what, n, k, device):
     """A LONG_ROW_CASES case's operands, drawn on the card from a seed:
-    (b, u, d, l) for "rows"; x (n, k, 1) for "dense" and "masked"."""
+    (b, u, d, l) for "rows"; x (n, k, 1) for the others."""
     gen = torch.Generator(device=device).manual_seed(k)
     if what == "rows":
         b = torch.randn((n, k), generator=gen, device=device)
@@ -3315,27 +3474,41 @@ def long_row_operands(what, n, k, device):
         pad = u.new_zeros((n, 1))
         return b, u, 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1), l
     x = torch.randn((n, k, 1), generator=gen, device=device)
-    if what == "masked":
+    if what in ("masked", "masked_grad"):
         x[torch.rand((n, k, 1), generator=gen, device=device) < FIT_NAN] = float("nan")
     return (x,)
+
+
+def long_row_cotangent(what, ops):
+    """The cotangent of a LONG_ROW_CASES case's gradient: ones, but for the
+    masked fit phase 11's kind, normal from a seed: with ones the float32
+    plain pipeline itself (no kernel, on the CPU too) lands 2-4e-4 of the
+    largest magnitude off float64 at 8 x 8192, past FWD_RTOL."""
+    if what != "masked_grad":
+        return 1.0
+    n, k, _ = ops[0].shape
+    gen = torch.Generator(device=ops[0].device).manual_seed(3)
+    return torch.randn((n, k - 1, 4), generator=gen, device=ops[0].device)
 
 
 def long_row_call(what, ops):
     """The public entry point of a LONG_ROW_CASES case on its operands:
     tridiagonal_solve and its gradient for per-row bands, the dense fit and
-    its gradient, the masked fit's forward (its gradient recomputes the
-    plain pipeline through K3 and K5).  Returns a call giving (output,
-    gradient or None)."""
+    its gradient, the masked fit's forward (K6/K7), the masked fit and its
+    gradient (its recomputed plain pipeline through K3 and K5), the
+    gradients of (output * long_row_cotangent).sum().  Returns a call
+    giving (output, gradient or None)."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve
 
     leaves = [a.clone().requires_grad_() for a in ops]
+    w = long_row_cotangent(what, ops)
 
     def run():
         if what == "masked":
             return tt.natural_cubic_coeffs(ops[0]), None
         out = tridiagonal_solve(*leaves) if what == "rows" else tt.natural_cubic_coeffs(leaves[0])
-        return out, torch.autograd.grad(out.sum(), leaves[0])[0]
+        return out, torch.autograd.grad((out * w).sum(), leaves[0])[0]
 
     return run
 
@@ -3345,41 +3518,57 @@ def long_row_slice(device):
     (long_row_call) with every plain version patched to raise, the launch
     counts by route set to 0 before and read after, the outputs against
     float64 (per-row solves: the plain PCR solve of every row; the fits:
-    the plain path on 8 rows, but past the reach, where phase 10 holds the
-    kernel at the same length); then the device kernels of each case from
-    long_row_kernels_in_child (a case fails where the profiler names none
-    of its route's kernels, or a one-thread kernel up to the reach)."""
+    the plain path on 8 rows, the masked gradient's on 8 rows at 8192
+    positions; past 16 384 positions, and K5's other cases, phase 10 holds
+    the kernels at the same lengths, 16 384 and 65 536, instead); then the
+    device kernels of each case from long_row_kernels_in_child (a case
+    fails where the profiler misses one of its route's kernels; the child
+    fails on a one-thread kernel of K4 or K5 anywhere, or K6/K7's in one of
+    its cases off the long route)."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_pcr
 
     mods = fit_kernel_modules()
-    routes = {"K4": mods["K4"].ROUTE_LAUNCHES, "K6/K7": mods["K6/K7"].ROUTE_LAUNCHES}
-    report, failures = {}, []
+    routes = {family: mods[family].ROUTE_LAUNCHES for family in ("K4", "K5", "K6/K7")}
+    report, failures, added_s = {}, [], 0.0
     for name, what, n, k, route in LONG_ROW_CASES:
-        kernel = "K6/K7" if what == "masked" else "K4"
+        start = time.perf_counter()
+        kernel = LONG_ROW_FAMILY[what]
         ops = long_row_operands(what, n, k, device)
         run = long_row_call(what, ops)
+        torch.cuda.reset_peak_memory_stats()
         with plain_versions_raise():
             reset_fit_counts()
             out, grad = run()
             torch.cuda.synchronize()
             counts = fit_counts()
             by_route = {r: c for r, c in routes[kernel].items() if c}
-        with torch.no_grad():
-            if what == "rows":
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = 8
+        if what == "rows":
+            with torch.no_grad():
                 ref = tridiagonal_solve_pcr(*(a.double() for a in ops))
-                err, scale = _rel(out, ref)
-            elif route == "long":  # phase 10 holds long_fit_kernel at this length
-                ref, err, scale = None, None, float(out.abs().max())
-            else:
-                rows = 8
+            err, scale = _rel(out, ref)
+        elif what == "masked_grad" and k <= 8192:
+            x64 = ops[0][:rows].double().requires_grad_()
+            w64 = long_row_cotangent(what, ops)[:rows].double()
+            ref = torch.autograd.grad((tt.natural_cubic_coeffs(x64) * w64).sum(), x64)[0]
+            err, scale = _rel(grad[:rows], ref)
+            del w64
+        elif route == "long" or what == "masked_grad" or k > 16384:
+            # phase 10 holds the kernel at this length (and K5's masked fit
+            # forward is the K6/K7 case's at the same length and seed)
+            ref, err, scale = None, None, float(out.abs().max())
+        else:
+            with torch.no_grad():
                 ref = tt.natural_cubic_coeffs(ops[0][:rows].double())
-                err, scale = _rel(out[:rows], ref)
+            err, scale = _rel(out[:rows], ref)
         report[name] = {"shape": f"{n}x{k}", "launches": counts[kernel], "by_route": by_route,
-                        "max_abs_err": err, "scale": scale}
+                        "max_abs_err": err, "scale": scale, "peak_gb": peak_gb}
         checked = "held in phase 10" if err is None else f"max_abs_err {err:.3e}"
+        checked += " (the gradient's)" if what == "masked_grad" and k <= 8192 else ""
         print(f"long rows {name} {n}x{k}: route {route}, launches {counts[kernel]} {by_route}, "
-              f"{checked} (largest |value| {scale:.3e})", flush=True)
+              f"{checked} (largest |value| {scale:.3e}), peak {peak_gb:.1f} GB", flush=True)
         if not bool(out.isfinite().all()) or (err is not None
                                                and not err <= FWD_RTOL * max(scale, 1.0)):
             failures.append(f"{name}: the output disagrees with float64")
@@ -3389,19 +3578,21 @@ def long_row_slice(device):
             failures.append(f"{name}: launched {by_route}, not the {route} route")
         del ops, run, out, grad, ref
         torch.cuda.empty_cache()
+        if what == "masked_grad" or route.endswith("segmented"):
+            added_s += time.perf_counter() - start
+    print(f"long rows: the K5 and segmented cases took {added_s:.1f} s", flush=True)
 
     # The device kernels of each case, each from a profiler session of its
     # own, in a new process of this script (long_row_kernels_in_child).
     for name, (device_us, events) in long_row_kernels_in_child().items():
-        route = next(case[4] for case in LONG_ROW_CASES if case[0] == name)
+        _, what, _, _, route = next(case for case in LONG_ROW_CASES if case[0] == name)
         report[name]["kernel_device_us"] = device_us
         report[name]["kernels"] = sorted(device_us)
-        if not any(re.search(ROUTE_KERNELS[route], m) for m in device_us):
-            failures.append(f"{name}: the profiler saw none of the {route} route's kernels "
+        missing = [kernel for kernel in ROUTE_KERNELS[(LONG_ROW_FAMILY[what], route)]
+                   if not any(kernel in m for m in device_us)]
+        if missing:
+            failures.append(f"{name}: the profiler did not see {missing} of the {route} route "
                             f"({sorted(device_us)}, of {events} device events)")
-        if route not in ("thomas", "long") and any(re.search(ONE_THREAD_KERNELS, m)
-                                                   for m in device_us):
-            failures.append(f"{name}: a one-thread kernel ran: {sorted(device_us)}")
     if failures:
         raise AssertionError("the long rows: " + "; ".join(failures))
     return report
@@ -3410,7 +3601,9 @@ def long_row_slice(device):
 def long_row_kernels(device):
     """Each LONG_ROW_CASES case once more through its public entry point,
     every plain version raising, in a profiler session of its own: {name:
-    ({fit kernel's name: device us}, count of all device events)}."""
+    ({fit kernel's name: device us}, count of all device events)}.  Raises
+    where any device event is one of K4's or K5's retired one-thread
+    kernels, or K6/K7's in one of its cases off the long route."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3422,14 +3615,20 @@ def long_row_kernels(device):
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        pattern = FIT_KERNEL_NAMES["K6/K7" if what == "masked" else "K4"]
-        device_us, events = {}, 0
+        pattern = FIT_KERNEL_NAMES[LONG_ROW_FAMILY[what]]
+        device_us, events, one_thread = {}, 0, set()
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 events += 1
+                if re.search(RETIRED_KERNELS, e.name) or (
+                        what == "masked" and route != "long"
+                        and re.search(LONG_FIT_KERNEL, e.name)):
+                    one_thread.add(e.name)
                 if re.search(pattern, e.name):
                     span = e.time_range.end - e.time_range.start
                     device_us[e.name] = device_us.get(e.name, 0.0) + span
+        if one_thread:
+            raise AssertionError(f"long rows {name}: one-thread kernels ran: {sorted(one_thread)}")
         out[name] = (device_us, events)
         print(f"long rows {name}: kernels (device us) {device_us}, of {events} device events",
               flush=True)
@@ -3460,17 +3659,35 @@ def time_long_rows(device):
     its plain version's (float32 on the card, one call), its bound, and
     the library call where there is one: torch.linalg.solve of the dense
     k x k shared system against the rows as columns for K4's shared bands.
-    Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
-    from torchcde_tpu_torch.interpolation.cubic import _masked_fit_plain
+    K5 runs on the operands of the last launch of one masked gradient of
+    its case, and the gradient itself is timed end to end.  Returns ({name:
+    (ms, plain_ms, bound_ms, bound_by, library_ms)}, {name: the gradient's
+    ms})."""
+    from torchcde_tpu_torch.interpolation.cubic import _masked_fit_plain, _masked_thomas_observed
+    from torchcde_tpu_torch.ops.row_split import CLUSTER_REACH
     from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_thomas
 
     mods = fit_kernel_modules()
-    out = {}
-    with torch.no_grad():
-        for name, what, n, k, route in LONG_ROW_CASES:
-            ops = long_row_operands(what, n, k, device)
+    out, gradient_ms = {}, {}
+    for name, what, n, k, route in LONG_ROW_CASES:
+        ops = long_row_operands(what, n, k, device)
+        solve_args = None
+        if what == "masked_grad":
+            run = long_row_call(what, ops)
+            launch, recorded = mods["K5"].launch, []
+            with mock.patch.object(mods["K5"], "launch",
+                                   lambda *a: recorded.append(a) or launch(*a)):
+                run()
+            solve_args = recorded[-1]
+            gradient_ms[name] = _event_ms(run, 3)
+            del run
+        with torch.no_grad():
             library_ms = None
-            if what == "masked":
+            if what == "masked_grad":
+                kernel = lambda: mods["K5"].launch(*solve_args)
+                plain = lambda: _masked_thomas_observed(*solve_args)
+                bytes_moved, flops = 4 * 5 * n * k + n * k, 10 * n * k
+            elif what == "masked":
                 x2, t = ops[0][..., 0].contiguous(), torch.arange(k, dtype=torch.float32,
                                                                   device=device)
                 kernel = lambda: mods["K6/K7"].launch(t, x2, 1)
@@ -3491,25 +3708,36 @@ def time_long_rows(device):
                 flops = 8 * n * k
                 if what == "dense":
                     b, hr, diag, _ = system
-                    A = torch.diag(diag) + torch.diag(hr, 1) + torch.diag(hr, -1)
+                    A = torch.zeros((k, k), device=device)
+                    A.diagonal().copy_(diag)
+                    A.diagonal(1).copy_(hr)
+                    A.diagonal(-1).copy_(hr)
                     columns = b.t().contiguous()
-                    library_ms = _event_ms(lambda: torch.linalg.solve(A, columns), 3)
-                    err, scale = _rel(torch.linalg.solve(A, columns).t(), kernel().double())
+                    if k > CLUSTER_REACH:  # 17 GB at 65 536 and seconds a solve: one call
+                        solved = []
+                        library_ms = _once_ms(
+                            lambda: solved.append(torch.linalg.solve(A, columns)))
+                        solved = solved[0]
+                    else:
+                        library_ms = _event_ms(lambda: torch.linalg.solve(A, columns), 3)
+                        solved = torch.linalg.solve(A, columns)
+                    err, scale = _rel(solved.t(), kernel().double())
                     print(f"{name} library call torch.linalg.solve (dense {k}x{k}, {n} columns): "
                           f"{library_ms:.4f} ms, max_abs_err {err:.3e} against the kernel "
                           f"(largest |value| {scale:.3e})", flush=True)
                     if not err <= FWD_RTOL * max(scale, 1.0):
                         raise AssertionError(f"torch.linalg.solve disagrees with {name}")
-                    del A, columns
+                    del A, columns, solved
             ms = _event_ms(kernel, 3 if k > 16384 else 10)
             with kernels_off():
                 plain_ms = _once_ms(plain)
             out[name] = (ms, plain_ms, *bound(bytes_moved, flops), library_ms)
             print(f"{name} {n}x{k} ({route}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
                   f"{out[name][2]:.4f} ms ({out[name][3]})", flush=True)
-            del ops
+            del ops, solve_args
             torch.cuda.empty_cache()
-    return out
+    print(f"long rows: the masked gradient, end to end (ms): {gradient_ms}", flush=True)
+    return out, gradient_ms
 
 
 def fused_bounds(k2_ms):
@@ -5309,7 +5537,7 @@ def main():
     for name, count in spiral_fit.items():
         fit_launches[name] += count
     fit_ms, fit_end_to_end, fit_profile = time_fit_kernels(device, recorded)
-    long_ms = time_long_rows(device)
+    long_ms, long_grad_ms = time_long_rows(device)
     print("profile: " + json.dumps(dict(fit_profile, config="config-3 NaN-masked fit gradient",
                                         card=smi)))
     print("timing: " + json.dumps({
@@ -5319,6 +5547,7 @@ def main():
         "K4_library_ms": fit_ms["K4"][4], **fit_end_to_end,
         "long_rows_ms": {name: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
                                         v)) for name, v in long_ms.items()},
+        "long_rows_masked_gradient_ms": long_grad_ms,
         "fit_slice_max_abs_err": {" ".join(key): v for key, v in slice_errors.items()},
         "nan_spiral_fit_max_abs_err": spiral_err, "nan_spiral_k2_launches": spiral_k2,
     }))
@@ -5445,8 +5674,9 @@ def main():
     print("timing: " + json.dumps({"card": smi, "flagship_kernels_off": kernels_off}))
 
     elapsed("41")
-    # 41. The long rows: K4's per-row bands and both fits past 4096 through
-    # the public entry points, by route, with the profiler's kernel names.
+    # 41. The long rows: K4's bands, K5 in the masked gradient and K6/K7 past
+    # 4096 through the public entry points, by route, with the profiler's
+    # kernel names.
     long_rows = long_row_slice(device)
     print("timing: " + json.dumps({"card": smi, "long_rows": long_rows}))
 
@@ -5541,7 +5771,7 @@ def main():
     # The routes past the resident kernels: each one's launches from phase 41,
     # its largest error over phase 10's cases, its times from phase 13.
     for name, what, n, k, route in LONG_ROW_CASES:
-        family = "K6/K7" if what == "masked" else "K4"
+        family = LONG_ROW_FAMILY[what]
         ms, plain_ms, bound_ms, bound_by, library_ms = long_ms[name]
         kernels.append({"name": name, "route": "cuda", "source": FIT_SOURCES[family],
                         "replaces": FIT_REPLACES[family], "launches": long_rows[name]["launches"],

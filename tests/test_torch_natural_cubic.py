@@ -26,7 +26,7 @@ from torchcde_tpu.ops.masked_cubic_pallas import (
 from torchcde_tpu.ops.masked_cubic_resident import masked_natural_cubic_resident
 from torchcde_tpu.ops.masked_tridiagonal_pallas import masked_thomas_pallas
 from torchcde_tpu_torch.interpolation import cubic
-from torchcde_tpu_torch.ops import masked_cubic_kernel, masked_tridiagonal_kernel
+from torchcde_tpu_torch.ops import masked_cubic_kernel, masked_tridiagonal_kernel, row_split
 
 torch.set_num_threads(1)
 
@@ -594,7 +594,7 @@ def test_fit_plan_boundaries(k, variant, threads_per_row, cluster, segment):
     if variant == "cluster":
         assert (plan.threads, plan.positions, plan.rows_per_block) == (256, 16, 1)
         assert segment % 16 == 0 and segment <= 4096 and (cluster - 1) * segment < k
-        assert masked_cubic_kernel.cluster_shape(k) == (cluster, segment)
+        assert row_split.row_split(k) == (cluster, segment)
     assert masked_cubic_kernel.RESIDENT_MAX == 4096
     assert masked_cubic_kernel.CLUSTER_REACH == 8 * 4096
 

@@ -16,7 +16,7 @@ import torch
 from torchcde_tpu.ops import tridiagonal as jtri
 from torchcde_tpu.ops.tridiagonal_pallas import tridiagonal_solve_pallas
 from torchcde_tpu_torch import misc
-from torchcde_tpu_torch.ops import tridiagonal, tridiagonal_kernel
+from torchcde_tpu_torch.ops import row_split, tridiagonal, tridiagonal_kernel
 
 torch.set_num_threads(1)
 
@@ -151,9 +151,14 @@ def test_matches_the_jax_kernel_in_interpret_mode():
 # substitution as affine scans, over chunks of POSITIONS positions in
 # solve_plan's threads per row, joined across the threads in the kernel's
 # order (row_scan.cuh: shuffle levels within a warp, then the warps' totals
-# in order).
+# in order).  Past 4096 positions a row is split into segments, one block
+# each: over a cluster the blocks' totals are composed in rank order; in a
+# segmented row each block's carry-ins come from the totals that the
+# earlier launches published (row_scan.cuh: seg_moebius_carry,
+# seg_affine_carries).
 
-POSITIONS = tridiagonal_kernel.POSITIONS
+POSITIONS = row_split.POSITIONS
+CLUSTER_MAX = row_split.CLUSTER_REACH // row_split.RESIDENT_MAX
 
 
 def _moebius(f, s):
@@ -173,6 +178,12 @@ def _moebius(f, s):
 def _affine(f, s):
     """s after f, x -> v[0] x + v[1] (AffineOp)."""
     return np.stack([s[..., 0] * f[..., 0], s[..., 0] * f[..., 1] + s[..., 1]], axis=-1)
+
+
+def _param_affine(f, s):
+    """s after f, x -> v[0] x + v[1] + v[2] p (ParamAffineOp)."""
+    return np.stack([s[..., 0] * f[..., 0], s[..., 0] * f[..., 1] + s[..., 1],
+                     s[..., 0] * f[..., 2] + s[..., 2]], axis=-1)
 
 
 def _row_scan(ops, compose, identity, rev):
@@ -242,6 +253,68 @@ def _scan(ops, compose, identity, rev, cluster):
     return compose(np.broadcast_to(carry, excl.shape), excl)
 
 
+def _split(plan):
+    """How the route holds a row: "resident", "cluster" or "segmented"."""
+    if plan.cluster == 1:
+        return "resident"
+    return "cluster" if plan.cluster <= CLUSTER_MAX else "segmented"
+
+
+def _block_totals(ops, compose, identity, rev):
+    """Each block's total in the scan's direction (publish_total): its
+    exclusive scan at the thread at its end composed with that thread's
+    map, (..., blocks, N)."""
+    end = 0 if rev else ops.shape[-2] - 1
+    excl = _row_scan(ops, compose, identity, rev)
+    return compose(excl[..., end, :], ops[..., end, :])
+
+
+def _carried(excl, compose, carry, moebius):
+    """A segmented block's scan from its carry-in values (..., blocks): the
+    map that sends everything there (moebius_to, affine_to), then excl."""
+    zero, one = np.zeros_like(carry), np.ones_like(carry)
+    to = np.stack([zero, carry, zero, one] if moebius else [zero, carry], -1)[..., None, :]
+    return compose(np.broadcast_to(to, excl.shape), excl)
+
+
+def _moebius_scan(mob, split):
+    """The pivots' Moebius scan across a row held as ``split`` says; in a
+    segmented row each block's carry-in is 1 with the totals before its
+    segment applied in rank order (seg_moebius_carry)."""
+    ident = np.array([1, 0, 0, 1], mob.dtype)
+    if split != "segmented":
+        return _scan(mob, _moebius, ident, False, split == "cluster")
+    totals = _block_totals(mob, _moebius, ident, False)
+    v, carries = np.ones(totals.shape[:-1][:-1], mob.dtype), []
+    for q in range(totals.shape[-2]):
+        carries.append(v)
+        t = totals[..., q, :]
+        v = (t[..., 0] * v + t[..., 1]) / (t[..., 2] * v + t[..., 3])
+    return _carried(_row_scan(mob, _moebius, ident, False), _moebius, np.stack(carries, -1), True)
+
+
+def _affine_carries(te, ts):
+    """seg_affine_carries for every block: the elimination's value at each
+    segment's start (0, then the totals te (..., blocks, 2) in rank order)
+    and the substitution's after its end (the later segments' totals ts
+    (..., blocks, 3), each with the elimination's value at its start as its
+    parameter, composed in rank order, each before the composition so far,
+    applied to 0)."""
+    blocks = te.shape[-2]
+    nb, starts = np.zeros(te.shape[:-2], te.dtype), []
+    for q in range(blocks):
+        starts.append(nb)
+        nb = te[..., q, 0] * nb + te[..., q, 1]
+    after = []
+    for me in range(blocks):
+        total = np.broadcast_to(np.array([1, 0], te.dtype), te.shape[:-2] + (2,))
+        for q in range(me + 1, blocks):
+            t = np.stack([ts[..., q, 0], ts[..., q, 1] + ts[..., q, 2] * starts[q]], -1)
+            total = _affine(t, total)
+        after.append(total[..., 1])
+    return np.stack(starts, -1), np.stack(after, -1)
+
+
 def _gather(a, g, offset=0):
     """a (..., m) at positions g + offset of the layout, 0 outside a and
     where g holds none: (..., blocks, threads, POSITIONS)."""
@@ -265,7 +338,7 @@ def _pivots(u, d, l, plan):
         step = np.stack([dv[..., s], -lu[..., s], np.ones_like(dv[..., s]),
                          np.zeros_like(dv[..., s])], -1)
         mob = np.where(live[..., s, None], _moebius(mob, step), mob)
-    mob = _scan(mob, _moebius, np.array([1, 0, 0, 1], dtype), False, plan.cluster > 1)
+    mob = _moebius_scan(mob, _split(plan))
     prev = (mob[..., 0] + mob[..., 1]) / (mob[..., 2] + mob[..., 3])  # nd before the chunk
     lp, up = _gather(l, g, -1), _gather(u, g)  # l_{j-1}; u_j, 0 from j = k - 1
     w, r, c = (np.zeros(g.shape, dtype) for _ in range(3))
@@ -291,10 +364,14 @@ def _pivot_scratch(u, d, l, plan):
     return out
 
 
-def _affine_solve(b, w, r, c, g, cluster):
+def _affine_solve(b, w, r, c, g, split):
     """The elimination nb = b - w nb_prev by an affine scan, the
     substitution x = r nb - c x_next by an affine suffix scan, over the
-    layout g, for every row of b (n, k): x (n, k)."""
+    layout g of a row held as ``split`` says, for every row of b (n, k): x
+    (n, k).  A segmented row's totals come first (the SEG_TOTALS launch):
+    the elimination's, then the substitution's with nb affine in the
+    segment's unknown carry-in p, nb0 + sens p, composed into each chunk's
+    map in ascending order."""
     n, k = b.shape
     live = g >= 0
     v = _gather(b, g)
@@ -303,7 +380,22 @@ def _affine_solve(b, w, r, c, g, cluster):
     for s in range(POSITIONS):  # the slots past the row hold no map
         step = _affine(aff, np.stack([np.broadcast_to(-w[..., s], v[..., s].shape), v[..., s]], -1))
         aff = np.where(live[..., s, None], step, aff)
-    carry = _scan(aff, _affine, ident, False, cluster)[..., 1]
+    if split == "segmented":
+        excl = _row_scan(aff, _affine, ident, False)
+        nb0, sens = excl[..., 1], excl[..., 0]
+        ident3 = np.array([1, 0, 0], b.dtype)
+        sub = np.broadcast_to(ident3, v.shape[:-1] + (3,))
+        for s in range(POSITIONS):
+            nb0 = np.where(live[..., s], v[..., s] - w[..., s] * nb0, nb0)
+            sens = np.where(live[..., s], -w[..., s] * sens, sens)
+            step = np.stack([np.broadcast_to(-c[..., s], nb0.shape), r[..., s] * nb0,
+                             r[..., s] * sens], -1)
+            sub = np.where(live[..., s, None], _param_affine(step, sub), sub)
+        nb_in, x_in = _affine_carries(_block_totals(aff, _affine, ident, False),
+                                      _block_totals(sub, _param_affine, ident3, True))
+        carry = _carried(excl, _affine, nb_in, False)[..., 1]
+    else:
+        carry = _scan(aff, _affine, ident, False, split == "cluster")[..., 1]
     for s in range(POSITIONS):
         carry = np.where(live[..., s], v[..., s] - w[..., s] * carry, carry)
         v[..., s] = carry
@@ -312,7 +404,10 @@ def _affine_solve(b, w, r, c, g, cluster):
         step = _affine(aff, np.stack([np.broadcast_to(-c[..., s], v[..., s].shape),
                                       r[..., s] * v[..., s]], -1))
         aff = np.where(live[..., s, None], step, aff)
-    carry = _scan(aff, _affine, ident, True, cluster)[..., 1]
+    if split == "segmented":
+        carry = _carried(_row_scan(aff, _affine, ident, True), _affine, x_in, False)[..., 1]
+    else:
+        carry = _scan(aff, _affine, ident, True, split == "cluster")[..., 1]
     for s in reversed(range(POSITIONS)):
         carry = np.where(live[..., s], r[..., s] * v[..., s] - c[..., s] * carry, carry)
         v[..., s] = carry
@@ -323,11 +418,11 @@ def _affine_solve(b, w, r, c, g, cluster):
 
 def _resident_solve(b, u, d, l, plan=None):
     """The shared-band route (band_pivot_kernel, then shared_band_kernel)
-    on every row of b (n, k), in b's dtype, resident or over a cluster."""
+    on every row of b (n, k), in b's dtype, resident or in segments."""
     k = b.shape[1]
     plan = plan or tridiagonal_kernel.solve_plan(k, shared=True)
     g = _layout(k, plan)
-    return _affine_solve(b, *_pivots(u, d, l, plan), g, plan.cluster > 1)
+    return _affine_solve(b, *_pivots(u, d, l, plan), g, _split(plan))
 
 
 def _per_row_solve(b, u, d, l, plan=None):
@@ -340,7 +435,7 @@ def _per_row_solve(b, u, d, l, plan=None):
     plan = plan or tridiagonal_kernel.solve_plan(k, shared=False)
     u, l = (np.broadcast_to(a, (n, k - 1)) for a in (u, l))
     d = np.broadcast_to(d, (n, k))
-    dtype, g, cluster = b.dtype, _layout(k, plan), plan.cluster > 1
+    dtype, g = b.dtype, _layout(k, plan)
     live = g >= 0
     dv, bv = _gather(d, g), _gather(b, g)
     lp, upv, uc = _gather(l, g, -1), _gather(u, g, -1), _gather(u, g)  # l, u at j - 1; u at j
@@ -350,7 +445,7 @@ def _per_row_solve(b, u, d, l, plan=None):
         step = np.stack([dv[..., s], -lp[..., s] * upv[..., s], np.ones_like(dv[..., s]),
                          np.zeros_like(dv[..., s])], -1)
         mob = np.where(live[..., s, None], _moebius(mob, step), mob)
-    mob = _scan(mob, _moebius, ident4, False, cluster)
+    mob = _moebius_scan(mob, _split(plan))
     prev = (mob[..., 0] + mob[..., 1]) / (mob[..., 2] + mob[..., 3])
     nd, w = np.ones(dv.shape, dtype), np.zeros(dv.shape, dtype)
     for s in range(POSITIONS):
@@ -361,7 +456,7 @@ def _per_row_solve(b, u, d, l, plan=None):
         nd[..., s] = np.where(on, dg, 1)
         prev = np.where(on, dg, prev)
     r = np.where(live, 1 / nd, 0)
-    return _affine_solve(b, w, r, uc * r, g, cluster)
+    return _affine_solve(b, w, r, uc * r, g, _split(plan))
 
 
 def _fit_system(rows, k, seed, dtype):
@@ -434,11 +529,41 @@ def test_cluster_route_mirror_matches_jax_thomas(k, shared, dtype, tol):
     np.testing.assert_allclose(got, expected, rtol=0, atol=tol * float(np.abs(expected).max()))
 
 
+SEGMENTED_LENGTHS = [32769, 65536, 65537]
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("k", SEGMENTED_LENGTHS)
+def test_segmented_route_mirror_matches_jax_thomas(k, shared, dtype, tol):
+    # Past the clusters' reach: the same segments, one block each, in
+    # launches of their own; each block's carry-ins from the totals that
+    # the earlier launches published (the Moebius totals, then the
+    # elimination's and the substitution's, the latter affine in the
+    # elimination's carry-in), against the JAX package's Thomas solve in
+    # float64 within the resident mirrors' tolerances.
+    plan = tridiagonal_kernel.solve_plan(k, shared)
+    assert plan.variant == ("segmented" if shared else "per_row_segmented")
+    assert plan.cluster == -(-k // 4096) > CLUSTER_MAX
+    assert plan.cluster * plan.segment >= k > (plan.cluster - 1) * plan.segment
+    if shared:
+        b, u, d, l = _fit_system(3, k, seed=k, dtype=dtype)
+        got = _resident_solve(b, u, d, l, plan)
+    else:
+        b, u, d, l = _system((3,), k, seed=k, dtype=dtype)
+        got = _per_row_solve(b, u, d, l, plan)
+    expected = np.asarray(jtri.tridiagonal_solve_thomas(
+        *(jnp.asarray(a, dtype=jnp.float64) for a in (b, u, d, l))))
+    assert got.dtype == dtype and got.shape == expected.shape
+    np.testing.assert_allclose(got, expected, rtol=0, atol=tol * float(np.abs(expected).max()))
+
+
 def test_solve_plan_routes():
     # Up to RESIDENT_MAX each row resident in K6/K7's threads per row: shared
     # bands after the pivots, per-row bands with their own; up to the
     # cluster's reach over a cluster of ceil(k / 4096) blocks, the row split
-    # evenly in whole chunks; longer rows take thomas_kernel.
+    # evenly in whole chunks; longer rows in the same split, segmented.
     for k, tpr in ((1, 1), (2, 1), (16, 1), (17, 2), (512, 32), (513, 64), (4096, 256)):
         for shared, variant in ((True, "resident"), (False, "per_row")):
             plan = tridiagonal_kernel.solve_plan(k, shared=shared)
@@ -448,30 +573,32 @@ def test_solve_plan_routes():
         for shared, variant in ((True, "cluster"), (False, "per_row_cluster")):
             plan = tridiagonal_kernel.solve_plan(k, shared=shared)
             assert plan == (variant, 256, 1, 256, POSITIONS, blocks, segment), (k, plan)
-    assert tridiagonal_kernel.CLUSTER_REACH == 32768
-    for shared in (True, False):
-        plan = tridiagonal_kernel.solve_plan(32769, shared=shared)
-        assert plan == ("thomas", 1, 32, 32, 32769, 1, 32769), plan
+    assert row_split.CLUSTER_REACH == 32768
+    for k, blocks, segment in ((32769, 9, 3648), (65536, 16, 4096), (65537, 17, 3856)):
+        for shared, variant in ((True, "segmented"), (False, "per_row_segmented")):
+            plan = tridiagonal_kernel.solve_plan(k, shared=shared)
+            assert plan == (variant, 256, 1, 256, POSITIONS, blocks, segment), (k, plan)
     with pytest.raises(ValueError):
         tridiagonal_kernel.solve_plan(0, shared=True)
 
 
-# (k, the shared bands' route and scratch, the per-row bands' route and scratch)
+# (k, the shared bands' route and scratch, the per-row bands' route and
+# scratch); the scratch's (pivots, totals) shapes, for 6 rows.
 STAND_IN_ROUTES = {
-    17: (("resident", (3, 32)), ("per_row", None)),
-    4097: (("cluster", (3, 4128)), ("per_row_cluster", None)),
-    8193: (("cluster", (3, 8208)), ("per_row_cluster", None)),
-    32769: (("thomas", (32769, 6)), ("thomas", (32769, 6))),
+    17: (("resident", ((3, 32), None)), ("per_row", (None, None))),
+    4097: (("cluster", ((3, 4128), None)), ("per_row_cluster", (None, None))),
+    8193: (("cluster", ((3, 8208), None)), ("per_row_cluster", (None, None))),
+    32769: (("segmented", ((3, 32832), (9 * (4 + 5 * 6),))),
+            ("per_row_segmented", (None, (9 * 9 * 6,)))),
 }
 
 
 @pytest.mark.parametrize("k", sorted(STAND_IN_ROUTES))
 def test_kernel_wrapper_routes_with_stand_ins(k, monkeypatch):
     # The launches run only on the card: a stand-in for the route's kernels
-    # (the mirrors above for the resident, per-row and cluster routes, the
-    # shared ones filling the pivot scratch; the plain Thomas solve for
-    # thomas_kernel) drives the wrapper's own code: the band strides, the
-    # route, its cluster size and segment, its scratch and the counts.
+    # (the mirrors above, the shared routes filling the pivot scratch)
+    # drives the wrapper's own code: the band strides, the route, its
+    # segments, its scratch and the counts.
     routes = []
 
     def kernel(plan, operands, x, scratch, sizes):
@@ -479,20 +606,18 @@ def test_kernel_wrapper_routes_with_stand_ins(k, monkeypatch):
         n, kk, sb, su, sd, sl = sizes
         assert kk == k and b2.shape == (n, k) and sb == k
         assert plan == tridiagonal_kernel.solve_plan(k, su == sd == sl == 0)
-        routes.append((plan.variant, (su, sd, sl), None if scratch is None else
-                       tuple(scratch.shape)))
+        routes.append((plan.variant, (su, sd, sl),
+                       tuple(None if t is None else tuple(t.shape) for t in scratch)))
         rows = torch.arange(n)[:, None]
         bands = (u2[rows * su // (k - 1)].squeeze(1), d2[rows * sd // k].squeeze(1),
                  l2[rows * sl // (k - 1)].squeeze(1))
-        if plan.variant in ("resident", "cluster"):
+        if plan.variant in tridiagonal_kernel.SHARED_ROUTES:
             arrays = [a.numpy() for a in (b2, u2[0], d2[0], l2[0])]
-            scratch.copy_(torch.from_numpy(_pivot_scratch(*arrays[1:], plan)))
+            scratch[0].copy_(torch.from_numpy(_pivot_scratch(*arrays[1:], plan)))
             x.copy_(torch.from_numpy(_resident_solve(*arrays, plan)))
-        elif plan.variant in ("per_row", "per_row_cluster"):
+        else:
             x.copy_(torch.from_numpy(_per_row_solve(b2.numpy(), *(a.numpy() for a in bands),
                                                     plan)))
-        else:
-            x.copy_(tridiagonal.tridiagonal_solve_thomas(b2, *bands))
 
     monkeypatch.setattr(tridiagonal_kernel.dispatch, "check_operands", lambda *a: None)
     monkeypatch.setattr(tridiagonal_kernel, "_kernel", kernel)

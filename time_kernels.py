@@ -28,9 +28,11 @@ the small-batch shapes read the plan's lanes a block), K6/K7,
 K4 and K5 at config 3 (as phase 13 times them; K5 on the operands of one
 masked gradient's last launch, recorded as phase 11 records them), config
 3's NaN-masked and dense fits' forwards and gradients through
-``natural_cubic_coeffs``, K4 and K6/K7 at the long-row shapes of
+``natural_cubic_coeffs``, K4, K5 and K6/K7 at the long-row shapes of
 ``LONG_SHAPES`` (K4's shared bands past 4096 also by the per-row cluster
-route, where the checkout has it), and ptxas's report for each kernel of K1, K2, K4,
+route, where the checkout has it; K5 on the operands of one masked
+gradient's last launch at its shape), the masked gradient at
+``MASKED_GRAD_SHAPES`` with K5's share of it, and ptxas's report for each kernel of K1, K2, K4,
 K5, K6/K7, K8 and K9 (registers, stack frame, spills).  ``--parts`` keeps some
 of the groups (k2: K2 and the default steps, K2's linear mode and caps
 case; k9; k8: K8 and config 5's step; k1: K1 and the flagship steps; fit:
@@ -328,7 +330,7 @@ def time_fit(cs, device):
         return torch.autograd.grad((tt.natural_cubic_coeffs(xg) * w).sum(), xg)
 
     solve_args = recorded_k5_operands(grad_of, x)
-    timing["k5_ms"] = cs._event_ms(lambda: k5.launch(*solve_args), 10)
+    timing["k5_ms"] = cs._event_ms(lambda: k5.launch(*solve_args), 50)
     with torch.no_grad():
         timing["masked_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(x), 5)
         timing["dense_fit_ms"] = cs._event_ms(lambda: tt.natural_cubic_coeffs(xd), 5)
@@ -346,20 +348,46 @@ def time_fit(cs, device):
 # The long rows' shapes: (key, kernel, rows, length); K4's bands per row
 # ("rows": diagonally dominant, as chip_smoke.py's phase 10 draws them) or
 # shared ("shared": the dense fit's system on unit times), K6/K7 on values
-# with 20 % NaN.  The last two are past the clusters' reach.
+# with 20 % NaN, K5 on the operands of the masked gradient of such values.
+# Lengths past 32 768 are past the clusters' reach.
 LONG_SHAPES = (("k4_rows_8192x4096", "rows", 8192, 4096), ("k4_rows_2048x8192", "rows", 2048, 8192),
                ("k4_shared_2048x8192", "shared", 2048, 8192), ("k6_2048x8192", "k6", 2048, 8192),
                ("k6_2048x16384", "k6", 2048, 16384), ("k4_rows_2048x65536", "rows", 2048, 65536),
-               ("k6_2048x65536", "k6", 2048, 65536))
+               ("k6_2048x65536", "k6", 2048, 65536), ("k4_rows_2048x32769", "rows", 2048, 32769),
+               ("k5_2048x8192", "k5", 2048, 8192), ("k5_2048x16384", "k5", 2048, 16384),
+               ("k5_2048x65536", "k5", 2048, 65536), ("k4_shared_2048x65536", "shared", 2048, 65536))
+# The masked fit's gradient through natural_cubic_coeffs, end to end (rows,
+# length), timed where its K5 case is.
+MASKED_GRAD_SHAPES = ((2048, 8192),)
+
+
+def masked_values(n, k, device):
+    """Values (n, k) with 20 % NaN, drawn on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(k)
+    x = torch.randn((n, k), generator=gen, device=device)
+    x[torch.rand((n, k), generator=gen, device=device) < 0.2] = float("nan")
+    return x
+
+
+def masked_grad(x):
+    """The gradient of the masked fit's coefficients of x (n, k) (summed)
+    through natural_cubic_coeffs: a call that runs it once."""
+    import torchcde_tpu_torch as tt
+
+    def grad_of(values):
+        xg = values.clone().requires_grad_()
+        return torch.autograd.grad(tt.natural_cubic_coeffs(xg).sum(), xg)
+
+    return lambda: grad_of(x[..., None])
 
 
 def long_operands(kind, n, k, device):
     """The operands of a LONG_SHAPES case, drawn on the card from a seed."""
     gen = torch.Generator(device=device).manual_seed(k)
     if kind == "k6":
-        x = torch.randn((n, k), generator=gen, device=device)
-        x[torch.rand((n, k), generator=gen, device=device) < 0.2] = float("nan")
-        return (torch.arange(k, dtype=torch.float32, device=device), x)
+        return (torch.arange(k, dtype=torch.float32, device=device), masked_values(n, k, device))
+    if kind == "k5":
+        return recorded_k5_operands(lambda x: masked_grad(x)(), masked_values(n, k, device))
     b = torch.randn((n, k), generator=gen, device=device)
     if kind == "shared":
         hr = torch.ones(k - 1, device=device)
@@ -372,10 +400,13 @@ def long_operands(kind, n, k, device):
 
 
 def time_long_rows(cs, device):
-    """K4's and K6/K7's ms at each of LONG_SHAPES (one launch each, K6/K7
-    version 1) with the route the checkout takes, and K4's shared bands
-    past 4096 by the per-row cluster route beside the shared one."""
+    """K4's, K5's and K6/K7's ms at each of LONG_SHAPES (one launch each,
+    K6/K7 version 1) with the route the checkout takes, K4's shared bands
+    past 4096 by the per-row cluster route beside the shared one, and the
+    masked gradient at MASKED_GRAD_SHAPES with the share of it that its two
+    K5 launches take."""
     from torchcde_tpu_torch.ops import masked_cubic_kernel as mk
+    from torchcde_tpu_torch.ops import masked_tridiagonal_kernel as k5
     from torchcde_tpu_torch.ops import tridiagonal_kernel as k4
 
     timing = {}
@@ -385,16 +416,23 @@ def time_long_rows(cs, device):
         if kind == "k6":
             timing[f"{key}_ms"] = cs._event_ms(lambda: mk.launch(*ops, 1), repeats)
             timing[f"{key}_plan"] = mk.fit_plan(k)._asdict()
+        elif kind == "k5":
+            timing[f"{key}_ms"] = cs._event_ms(lambda: k5.launch(*ops), repeats)
+            timing[f"{key}_plan"] = k5.solve_plan(k)._asdict()
+            if (n, k) in MASKED_GRAD_SHAPES:
+                grad_ms = cs._event_ms(masked_grad(masked_values(n, k, device)), 3)
+                timing[f"masked_fit_grad_{n}x{k}_ms"] = grad_ms
+                timing[f"k5_share_of_masked_fit_grad_{n}x{k}"] = 2 * timing[f"{key}_ms"] / grad_ms
         else:
             timing[f"{key}_ms"] = cs._event_ms(lambda: k4.launch(*ops), repeats)
             timing[f"{key}_plan"] = k4.solve_plan(k, kind == "shared")._asdict()
-        if kind == "shared" and hasattr(k4, "pivot_positions"):
+        if kind == "shared" and hasattr(k4, "pivot_positions") and k <= 32768:
             b, u, d, l = ops
             plan = k4.solve_plan(k, shared=False)
             x = torch.empty_like(b)
             operands = (b, u.reshape(1, -1), d.reshape(1, -1), l.reshape(1, -1))
             timing[f"{key}_per_row_cluster_ms"] = cs._event_ms(
-                lambda: k4._kernel(plan, operands, x, None, (n, k, k, 0, 0, 0)), repeats)
+                lambda: k4._kernel(plan, operands, x, (None, None), (n, k, k, 0, 0, 0)), repeats)
         del ops
         torch.cuda.empty_cache()
     return timing

@@ -1,8 +1,7 @@
 // Scans across a row held in the registers of a power of two of threads,
 // shared by the resident kernels of the natural cubic fit: K6/K7's
 // resident_fit_kernel (masked_cubic.cu), K4's shared-band and per-row
-// solves (tridiagonal.cu) and K5's resident_gappy_kernel
-// (masked_tridiagonal.cu).
+// solves (tridiagonal.cu) and K5's gappy_kernel (masked_tridiagonal.cu).
 //
 // A row of k <= RES_MAX positions belongs to threads_per_row (tpr)
 // consecutive threads of a block of RT, tpr the least power of two with
@@ -29,6 +28,31 @@
 // has its own slot, so one barrier serves it; a last barrier keeps every
 // block resident until the others' reads of its slots are done.  The order
 // is fixed and there are no atomics here either.
+//
+// A row of k > CLUSTER_MAX * RES_MAX positions is segmented: S =
+// ceil(k / RES_MAX) segments of seg positions (the same split), one block
+// each as over a cluster, but a cluster cannot grow past CLUSTER_MAX
+// portable blocks, so the segments' totals cross through device memory
+// between launches.  K4's and K5's solves are a Moebius scan (the pivots)
+// and two affine scans (the elimination, the substitution in reverse), in
+// three launches (the kernels' RowMode):
+//  - SEG_PIVOTS: each block publishes its segment's Moebius total;
+//  - SEG_TOTALS: each block takes its pivots' carry-in from the totals
+//    before its segment (seg_moebius_carry), then publishes its
+//    elimination total and its substitution total as a ParamAffineOp: the
+//    eliminated right-hand side is affine in the segment's unknown carry-in
+//    p, so the substitution's maps are affine in x with a constant term
+//    linear in p, and need not wait for a launch of their own;
+//  - SEG_SOLVE: each block takes all three carry-ins (seg_affine_carries:
+//    the elimination's value at each segment's start, the substitution's
+//    totals after its segment with those values as their parameters) and
+//    runs its segment as a cluster's block runs one.
+// Every launch reads the operands again and recomputes what the last one
+// computed: a written and reread scratch of the eliminated diagonal and
+// right-hand side would move more bytes than the operands it saves.  One
+// warp walks the totals of a row in rank order (each lane loads one
+// segment's, the walk reads them by shuffles), so the order is fixed and
+// there are no atomics: two launches give the same bits.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -44,6 +68,12 @@ constexpr int RES_BUF = RES_MAX / RP * (RP + 1);  // staging floats: a pad after
 constexpr int SCAN_SLOT = 8;                // floats per warp total in the scan scratch
 constexpr int CLUSTER_MAX = 8;              // blocks a row spans at most (the portable cluster)
 constexpr int CLUSTER_SLOTS = 8;            // exchanges a cluster kernel makes at most
+
+// How a launch holds its rows: whole rows, RT / tpr a block (RESIDENT_ROWS);
+// one segment of a row a block, over a cluster (CLUSTERED) or in one of a
+// segmented row's three launches (SEG_*).
+enum RowMode { RESIDENT_ROWS, CLUSTERED, SEG_PIVOTS, SEG_TOTALS, SEG_SOLVE };
+__host__ __device__ constexpr bool segmented(int mode) { return mode >= SEG_PIVOTS; }
 
 // Staging index of element i of the block's range: a pad after every RP.
 __device__ __forceinline__ int staged(int i) { return i + i / RP; }
@@ -235,6 +265,207 @@ __device__ __forceinline__ Vec<N> full_scan(const Vec<N>& mine, int tpr, float* 
   }
 }
 
+// x -> v[0] x + v[1] + v[2] p, p a parameter that no scan changes: a
+// segmented row's substitution maps before the elimination's carry-in p of
+// their segment is known.
+struct ParamAffineOp {
+  static __device__ __forceinline__ Vec<3> identity() { return {{1.f, 0.f, 0.f}}; }
+  static __device__ __forceinline__ Vec<3> compose(const Vec<3>& f, const Vec<3>& s) {
+    return {{s.v[0] * f.v[0], s.v[0] * f.v[1] + s.v[1], s.v[0] * f.v[2] + s.v[2]}};
+  }
+};
+
+// A segmented row's split: S segments (CLUSTER_MAX < S) of seg positions
+// each, the wrapper's plan; the launches check it.
+__host__ __device__ inline bool segment_shape_ok(int k, int S, int seg) {
+  return S > CLUSTER_MAX && seg % RP == 0 && seg <= RES_MAX && (long long)S * seg >= k &&
+         (long long)(S - 1) * seg < k;
+}
+
+// The map that sends everything to v: a carry-in value as the map that
+// full_scan's carry would be, so that compose(carry, excl) applies the
+// block's exclusive scan to it.
+__device__ __forceinline__ Vec<4> moebius_to(float v) { return {{0.f, v, 0.f, 1.f}}; }
+__device__ __forceinline__ Vec<2> affine_to(float v) { return {{0.f, v}}; }
+
+// A block's total in its scan's direction, written to dst by the thread
+// that holds it (excl: its exclusive scan within the block, mine: its
+// chunk's map).
+template <class Op, bool REV, int N>
+__device__ __forceinline__ void publish_total(const Vec<N>& excl, const Vec<N>& mine,
+                                              float* dst) {
+  if (threadIdx.x == (REV ? 0 : RT - 1)) {
+    const Vec<N> total = Op::compose(excl, mine);
+#pragma unroll
+    for (int e = 0; e < N; ++e) dst[e] = total.v[e];
+  }
+}
+
+// The value the eliminated diagonal reaches at the start of segment me of
+// its row: 1 (the row's start, as the resident kernels apply their carry
+// to 1) with the row's Moebius totals tm (4 floats a segment) of the
+// segments before me applied in rank order.  Every lane of the calling
+// warp returns it.
+__device__ __forceinline__ float seg_moebius_carry(const float* tm, int me) {
+  const int lane = threadIdx.x & 31;
+  float v = 1.f;
+  for (int q0 = 0; q0 < me; q0 += 32) {
+    Vec<4> t = MoebiusOp::identity();
+    if (q0 + lane < me) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t.v[e] = tm[4 * (q0 + lane) + e];
+    }
+    const int count = min(32, me - q0);
+    for (int i = 0; i < count; ++i) {
+      const float a = __shfl_sync(0xffffffffu, t.v[0], i), b = __shfl_sync(0xffffffffu, t.v[1], i);
+      const float c = __shfl_sync(0xffffffffu, t.v[2], i), d = __shfl_sync(0xffffffffu, t.v[3], i);
+      v = (a * v + b) / (c * v + d);
+    }
+  }
+  return v;
+}
+
+// The elimination's value at the start of segment me (0 at the row's
+// start, then the row's elimination totals te, 2 floats a segment, in rank
+// order) and the substitution's after its end: the substitution totals ts
+// (3 floats a segment, ParamAffineOp) of the later segments, each with the
+// elimination's value at its own start as its parameter, applied from x = 0
+// past the row's end; composed in rank order, each later total before the
+// composition so far.  Every lane of the calling warp returns them.
+__device__ __forceinline__ float2 seg_affine_carries(const float* te, const float* ts, int S,
+                                                     int me) {
+  const int lane = threadIdx.x & 31;
+  float nb = 0.f, nb_me = 0.f;
+  Vec<2> after = AffineOp::identity();
+  for (int q0 = 0; q0 < S; q0 += 32) {
+    Vec<2> e = AffineOp::identity();
+    Vec<3> s = ParamAffineOp::identity();
+    if (q0 + lane < S) {
+      e.v[0] = te[2 * (q0 + lane)], e.v[1] = te[2 * (q0 + lane) + 1];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s.v[i] = ts[3 * (q0 + lane) + i];
+    }
+    const int count = min(32, S - q0);
+    for (int i = 0; i < count; ++i) {
+      const int q = q0 + i;
+      const float e0 = __shfl_sync(0xffffffffu, e.v[0], i);
+      const float e1 = __shfl_sync(0xffffffffu, e.v[1], i);
+      const float s0 = __shfl_sync(0xffffffffu, s.v[0], i);
+      const float s1 = __shfl_sync(0xffffffffu, s.v[1], i);
+      const float s2 = __shfl_sync(0xffffffffu, s.v[2], i);
+      if (q == me) nb_me = nb;
+      if (q > me) after = AffineOp::compose({{s0, s1 + s2 * nb}}, after);
+      nb = e0 * nb + e1;
+    }
+  }
+  return make_float2(nb_me, after.v[1]);
+}
+
+// Where a segmented launch's block finds its row's totals in the one
+// buffer that holds, S segments each, the Moebius totals (4 floats a
+// segment) of every row, or of the one band where the pivots are shared,
+// then the elimination totals (2) and the substitution totals (3) of all n
+// rows; and its segment me.
+struct SegTotals {
+  float* tm;
+  float* te;
+  float* ts;
+  int S, me;
+};
+
+__device__ __forceinline__ SegTotals seg_totals(float* totals, long long n, bool shared_pivots,
+                                                int k, int seg, const RowPart& p) {
+  SegTotals t;
+  t.S = (k + seg - 1) / seg;
+  t.me = p.seg0 / seg;
+  const size_t S = t.S, row = p.row0, pivot_rows = shared_pivots ? 1 : n;
+  t.tm = totals + (shared_pivots ? 0 : row) * S * 4;
+  t.te = totals + pivot_rows * S * 4 + row * S * 2;
+  t.ts = totals + (pivot_rows * 4 + (size_t)n * 2) * S + row * S * 3;
+  return t;
+}
+
+// A segmented launch's carry-ins, as far as MODE needs them, into slot[0]
+// (the eliminated diagonal's, where the row has its own pivots), slot[1]
+// (the elimination's) and slot[2] (the substitution's): warp 0 computes
+// them while the other warps stage; a barrier must pass before they are
+// read.
+template <int MODE>
+__device__ __forceinline__ void seg_carry_ins(const SegTotals& t, bool own_pivots, float* slot) {
+  if (MODE == SEG_PIVOTS || threadIdx.x >= 32) return;
+  const float nd = own_pivots ? seg_moebius_carry(t.tm, t.me) : 1.f;
+  const float2 c =
+      MODE == SEG_SOLVE ? seg_affine_carries(t.te, t.ts, t.S, t.me) : make_float2(0.f, 0.f);
+  if (threadIdx.x == 0) slot[0] = nd, slot[1] = c.x, slot[2] = c.y;
+}
+
+// The end of a SEG_TOTALS launch, for K4's and K5's kernels alike: the
+// segment's elimination total (aff: the thread's chunk's elimination map),
+// then its substitution total, the substitution's maps with nb as
+// nb0 + sens p, p the segment's carry-in, composed in ascending order, each
+// before the ones after it (as the reverse scan composes them).  ready()
+// runs once the elimination total is out, before the first term: where a
+// kernel takes in the substitution's operands (K4's shared bands load r
+// and c, K5 waits for hr), so that they are not live across the scan;
+// term(s, w, b, r, c)
+// gives position s of the thread's chunk, false where it holds none: the
+// elimination nb_s = b - w nb_{s-1} and the substitution
+// x_s = r nb_s - c x_{s+1}.
+template <class Ready, class Term>
+__device__ __forceinline__ void publish_segment_totals(const Vec<2>& aff, int tpr, float* scratch,
+                                                       const SegTotals& tot, Ready ready,
+                                                       Term term) {
+  const Vec<2> excl = row_scan<AffineOp, false>(aff, tpr, scratch);
+  publish_total<AffineOp, false>(excl, aff, tot.te + 2 * tot.me);
+  ready();
+  float nb0 = excl.v[1], sens = excl.v[0];
+  Vec<3> sub = ParamAffineOp::identity();
+#pragma unroll
+  for (int s = 0; s < RP; ++s) {
+    float w, b, r, c;
+    if (term(s, w, b, r, c)) {
+      nb0 = b - w * nb0;
+      sens = -w * sens;
+      sub = ParamAffineOp::compose({{-c, r * nb0, r * sens}}, sub);
+    }
+  }
+  publish_total<ParamAffineOp, true>(row_scan<ParamAffineOp, true>(sub, tpr, scratch), sub,
+                                     tot.ts + 3 * tot.me);
+}
+
+// The exclusive scan across a row in a launch of this mode: full_scan for
+// whole rows and clusters (slot: this exchange's); in a segmented launch,
+// the block's own scan after carry, the segment's carry-in (moebius_to,
+// affine_to).
+template <class Op, bool REV, int MODE, int N>
+__device__ __forceinline__ Vec<N> mode_scan(const Vec<N>& mine, int tpr, float* scratch,
+                                            float* slot, const Vec<N>& carry) {
+  if constexpr (segmented(MODE)) {
+    return Op::compose(carry, row_scan<Op, REV>(mine, tpr, scratch));
+  } else {
+    return full_scan<Op, REV, MODE == CLUSTERED>(mine, tpr, scratch, slot);
+  }
+}
+
+// The blocks of a launch over n rows of k positions: tpr threads a row, a
+// power of two with tpr * RP >= k, k <= RES_MAX (cs 1); or one block for
+// each of a row's cs segments of seg positions, tpr = RT, over a cluster
+// (cluster_shape_ok) or segmented (segment_shape_ok).  -1 for a shape no
+// kernel takes.
+inline long long row_blocks(long long n, int k, int tpr, int cs, int seg) {
+  if (n <= 0 || k <= 0) return -1;
+  long long blocks;
+  if (cs == 1) {
+    if (k > RES_MAX || tpr < 1 || tpr > RT || (tpr & (tpr - 1)) || (long long)tpr * RP < k)
+      return -1;
+    blocks = (n + RT / tpr - 1) / (RT / tpr);
+  } else {
+    if (!(cluster_shape_ok(k, cs, seg) || segment_shape_ok(k, cs, seg)) || tpr != RT) return -1;
+    blocks = n * cs;
+  }
+  return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
 // Launches a kernel of RT-thread blocks in clusters of cs blocks.
 template <typename... Params, typename... Args>
 cudaError_t launch_clusters(void (*kernel)(Params...), long long blocks, int cs, size_t smem,
@@ -252,6 +483,24 @@ cudaError_t launch_clusters(void (*kernel)(Params...), long long blocks, int cs,
   config.attrs = attribute;
   config.numAttrs = 1;
   return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
+// One launch of a kernel of RT-thread blocks that holds its rows as MODE
+// says (in clusters of cs blocks where CLUSTERED), smem bytes of dynamic
+// shared memory each.
+template <int MODE, typename... Params, typename... Args>
+cudaError_t launch_rows_as(void (*kernel)(Params...), long long blocks, int cs, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (MODE == CLUSTERED) {
+    err = launch_clusters(kernel, blocks, cs, smem, stream, args...);
+    if (err != cudaSuccess) return err;
+  } else {
+    kernel<<<(unsigned)blocks, RT, smem, stream>>>(args...);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace

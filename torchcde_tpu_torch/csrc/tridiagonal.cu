@@ -16,8 +16,10 @@
 // warps, under two an SM, each waiting on its own chain of 2 k dependent
 // steps.
 //
-// Four routes; the wrapper (ops/tridiagonal_kernel.py, solve_plan) picks
-// one from k and the bands' strides.
+// Two families of kernels, for shared and for per-row bands, each in three
+// ways of holding a row (row_scan.cuh's RowMode); the wrapper
+// (ops/tridiagonal_kernel.py, solve_plan) picks the route from k and the
+// bands' strides.
 //
 // Shared bands, k <= RES_MAX (the fit's systems, forward and transposed):
 // band_pivot_kernel, then shared_band_kernel.  With one band for every row
@@ -57,25 +59,24 @@
 // Each of the cluster's cs blocks holds one segment of the row exactly as a
 // resident block holds a row, and each scan gains the cluster level: the
 // blocks' totals composed in rank order through distributed shared memory.
-// Per-row bands take per_row_kernel<true>; shared bands compute the pivots
-// once a launch with band_pivot_kernel<true> (one cluster over the band,
-// into a (3, cs seg) scratch, 384 KB at 32 768 positions, resident in L2),
-// then shared_band_kernel<true> reads only b and writes only x.  The launch
+// Per-row bands take per_row_kernel<CLUSTERED>; shared bands compute the
+// pivots once a launch with band_pivot_kernel<CLUSTERED> (one cluster over
+// the band, into a (3, cs seg) scratch, 384 KB at 32 768 positions,
+// resident in L2), then shared_band_kernel<CLUSTERED> reads only b and
+// writes only x.  The launch
 // goes through cudaLaunchKernelEx with the cluster dimension; a refused
 // launch is an error, as any other.
 //
-// Longer rows: thomas_kernel, one thread
-// per row running the Thomas algorithm exactly as the JAX package's
-// tridiagonal_solve_thomas orders it (forward elimination, then back
-// substitution), so against that function it differs only by rounding (and
-// by fused multiply-adds).  The eliminated right-hand side is kept in x
-// itself (the thread's own row); the eliminated diagonal goes to a
-// length-major (k, n) scratch from PyTorch's allocator, so a warp's
-// accesses to it are coalesced.  Each sweep loads the operands of STEP
-// positions before it computes them: the loads do not depend on the
-// recurrence, so STEP of them are in flight at once instead of one memory
-// latency per position.  Blocks are one warp, so the rows spread over every
-// SM.
+// Longer rows: the same segments, one block each, segmented
+// (row_scan.cuh: SEG_PIVOTS, SEG_TOTALS, SEG_SOLVE), the scans' totals
+// crossing through a small buffer in device memory between launches.  Per-
+// row bands take per_row_kernel in its three launches: the Moebius totals
+// (d, u, l read), then the elimination's and the substitution's totals,
+// then x (b, d, u, l read, x written), 12 arrays of (n, k) moved against
+// the function's 5.  Shared bands take band_pivot_kernel twice over the one
+// band (its Moebius totals, then the pivots from their carry-ins) and
+// shared_band_kernel twice (the affine totals, then x): b read twice and x
+// written once, against the function's 2 arrays.
 //
 // The TPU kernel's PCR levels, interleaved slabs and the pre-split of
 // lengths over 1024 exist only to fill vector lanes and fit VMEM; they have
@@ -89,101 +90,41 @@
 
 namespace {
 
-constexpr int THREADS = 32;  // one warp per block: the rows spread over every SM
-constexpr int STEP = 16;  // positions whose operands are loaded together
 constexpr int BAD_ARGUMENT = -2;
-
-__global__ void __launch_bounds__(THREADS)
-    thomas_kernel(const float* __restrict__ b, const float* __restrict__ u,
-                  const float* __restrict__ d, const float* __restrict__ l,
-                  float* __restrict__ x, float* __restrict__ nd, long long n,
-                  int k, long long sb, long long su, long long sd,
-                  long long sl) {
-  const long long row = blockIdx.x * (long long)THREADS + threadIdx.x;
-  if (row >= n) return;
-  const float* br = b + row * sb;
-  const float* ur = u + row * su;
-  const float* dr = d + row * sd;
-  const float* lr = l + row * sl;
-  float* xr = x + row * (long long)k;
-  // Forward elimination: nd_i = d_i - (l_{i-1} / nd_{i-1}) u_{i-1};
-  // nb_i likewise; nb is stored in x, nd in the length-major scratch.
-  float prev_d = dr[0], prev_b = br[0];
-  nd[row] = prev_d;
-  xr[0] = prev_b;
-  for (int i0 = 1; i0 < k; i0 += STEP) {
-    float lv[STEP], uv[STEP], dv[STEP], bv[STEP];
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = i0 + s;
-      if (i < k) {
-        lv[s] = lr[i - 1];
-        uv[s] = ur[i - 1];
-        dv[s] = dr[i];
-        bv[s] = br[i];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = i0 + s;
-      if (i < k) {
-        const float w = lv[s] / prev_d;
-        prev_d = dv[s] - w * uv[s];
-        prev_b = bv[s] - w * prev_b;
-        nd[(long long)i * n + row] = prev_d;
-        xr[i] = prev_b;
-      }
-    }
-  }
-  // Back substitution: x_i = (nb_i - u_i x_{i+1}) / nd_i.
-  float x_next = prev_b / prev_d;
-  xr[k - 1] = x_next;
-  for (int i0 = k - 2; i0 >= 0; i0 -= STEP) {
-    float bv[STEP], uv[STEP], dv[STEP];
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = i0 - s;
-      if (i >= 0) {
-        bv[s] = xr[i];
-        uv[s] = ur[i];
-        dv[s] = nd[(long long)i * n + row];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = i0 - s;
-      if (i >= 0) {
-        x_next = (bv[s] - uv[s] * x_next) / dv[s];
-        xr[i] = x_next;
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Shared bands: the pivots once, then each row resident (or, past RES_MAX,
-// each row over a cluster).
+// each row in segments, over a cluster or segmented).
 
 constexpr size_t BAND_SMEM = sizeof(float) * (RES_BUF + RT / 32 * SCAN_SLOT);
-constexpr size_t BAND_CLUSTER_SMEM = BAND_SMEM + sizeof(float) * CLUSTER_SLOTS * SCAN_SLOT;
+constexpr size_t BAND_SPLIT_SMEM = BAND_SMEM + sizeof(float) * CLUSTER_SLOTS * SCAN_SLOT;
 
 // piv (3, P): rows w, r, c as above, zero at positions past k; P = tpr * RP
 // (one block of RT threads, the first tpr of them holding the band, RP
-// positions each, the rest running the same scan on nothing), or, over a
-// cluster, P = cs * seg (block r of the one cluster holds positions
-// [r seg, (r + 1) seg) in all its threads).
-template <bool CLUSTER>
+// positions each, the rest running the same scan on nothing), or, in
+// segments, P = cs * seg (block r holds positions [r seg, (r + 1) seg) in
+// all its threads: the one cluster over the band, or a segmented launch of
+// cs blocks whose Moebius totals are totals' first cs * 4 floats).
+template <int MODE>
 __global__ void __launch_bounds__(RT)
     band_pivot_kernel(const float* __restrict__ u, const float* __restrict__ d,
-                      const float* __restrict__ l, float* __restrict__ piv, int k, int tpr,
-                      int seg) {
+                      const float* __restrict__ l, float* __restrict__ piv,
+                      float* __restrict__ totals, int k, int tpr, int seg) {
+  constexpr bool SPLIT = MODE != RESIDENT_ROWS;
   __shared__ float scratch[RT / 32 * SCAN_SLOT];
-  __shared__ float slot[SCAN_SLOT];
+  __shared__ float slot[SCAN_SLOT];  // a cluster's exchange, or a segment's carry-in
   const int tid = threadIdx.x;
-  const int cs = CLUSTER ? (k + seg - 1) / seg : 1;
-  const int P = CLUSTER ? cs * seg : tpr * RP;
-  const int j0 = (CLUSTER ? (int)blockIdx.x * seg : 0) + (tid % tpr) * RP;
-  const bool mine = CLUSTER ? tid * RP < seg : tid < tpr;
+  const int cs = SPLIT ? (k + seg - 1) / seg : 1;
+  const int P = SPLIT ? cs * seg : tpr * RP;
+  const int j0 = (SPLIT ? (int)blockIdx.x * seg : 0) + (tid % tpr) * RP;
+  const bool mine = SPLIT ? tid * RP < seg : tid < tpr;
+  if constexpr (MODE == SEG_SOLVE) {
+    if (tid < 32) {
+      const float nd_in = seg_moebius_carry(totals, blockIdx.x);
+      if (tid == 0) slot[0] = nd_in;
+    }
+    __syncthreads();
+  }
   // The chunk's maps: position j's is [[d_j, -l_{j-1} u_{j-1}], [1, 0]]
   // (l_{-1} u_{-1} = 0), applied to 1 at the start of the row.
   Vec<4> mob = MoebiusOp::identity();
@@ -196,7 +137,13 @@ __global__ void __launch_bounds__(RT)
     lu[s] = in && j > 0 ? l[j - 1] * u[j - 1] : 0.f;
     if (in) mob = MoebiusOp::compose(mob, {{dv[s], -lu[s], 1.f, 0.f}});
   }
-  mob = full_scan<MoebiusOp, false, CLUSTER>(mob, tpr, scratch, slot);
+  if constexpr (MODE == SEG_PIVOTS) {
+    publish_total<MoebiusOp, false>(row_scan<MoebiusOp, false>(mob, tpr, scratch), mob,
+                                    totals + 4 * blockIdx.x);
+    return;
+  } else {
+    mob = mode_scan<MoebiusOp, false, MODE>(mob, tpr, scratch, slot, moebius_to(slot[0]));
+  }
   if (mine) {
     float prev = (mob.v[0] + mob.v[1]) / (mob.v[2] + mob.v[3]);  // nd_{j0 - 1}
 #pragma unroll
@@ -214,32 +161,43 @@ __global__ void __launch_bounds__(RT)
       piv[2 * P + j] = c;
     }
   }
-  if (CLUSTER) cluster_done();
+  if constexpr (MODE == CLUSTERED) cluster_done();
 }
 
 // x (n, k) from b (n, k) and the pivots (3, P) of band_pivot_kernel: tpr
-// threads a row, RT / tpr rows a block; or, over a cluster, one segment of a
-// row a block.  Five blocks an SM: the cap of 48 registers a thread costs a
-// few bytes of spills, and on an H100 at config 3 it ran faster than three
-// or four blocks without them, or six (PERF.md).
-template <bool CLUSTER>
+// threads a row, RT / tpr rows a block; or one segment of a row a block,
+// over a cluster or in one of a segmented row's two launches here (totals:
+// after the band's cs * 4 Moebius floats, the rows' (n, cs, 2) elimination
+// and (n, cs, 3) substitution totals).  Five blocks an SM: the cap of 48
+// registers a thread costs a few bytes of spills, and on an H100 at config
+// 3 it ran faster than three or four blocks without them, or six
+// (PERF.md).
+template <int MODE>
 __global__ void __launch_bounds__(RT, 5)
     shared_band_kernel(const float* __restrict__ b, const float* __restrict__ piv,
-                       float* __restrict__ x, long long n, int k, int tpr, int seg) {
+                       float* __restrict__ x, float* __restrict__ totals, long long n, int k,
+                       int tpr, int seg) {
+  constexpr bool SPLIT = MODE != RESIDENT_ROWS;
   extern __shared__ float band_smem[];
   float* buf = band_smem;            // [RES_BUF] the block's rows of b, then of x
   float* scratch = buf + RES_BUF;    // [RT / 32][SCAN_SLOT] the scans' warp totals
-  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [2][SCAN_SLOT] a cluster's exchanges
-  const RowPart p = row_part<CLUSTER>(n, k, tpr, seg);
-  const int P = CLUSTER ? (k + seg - 1) / seg * seg : tpr * RP;
+  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [2][SCAN_SLOT] a cluster's exchanges, or a
+                                                 // segmented launch's carry-ins
+  const RowPart p = row_part<SPLIT>(n, k, tpr, seg);
+  const int P = SPLIT ? (k + seg - 1) / seg * seg : tpr * RP;
   const int tid = threadIdx.x, rb = p.rb, j0 = p.j0, len = p.len;
   const bool live = p.live;
+  SegTotals tot = {};
+  if constexpr (segmented(MODE)) {
+    tot = seg_totals(totals, n, true, k, seg, p);
+    seg_carry_ins<MODE>(tot, false, slots);
+  }
 
   // Stage the block's rows of b (one contiguous range), coalesced.
   const float* bb = b + p.row0 * k + p.seg0;
   for (int i = tid; i < p.rows * len; i += RT) buf[staged(i)] = bb[i];
   float v[RP], w[RP];
-  const bool held = !CLUSTER || j0 < seg;  // the thread's positions lie in the scratch
+  const bool held = !SPLIT || j0 < seg;  // the thread's positions lie in the scratch
   const float4* p4 = reinterpret_cast<const float4*>(piv + p.seg0 + j0);
 #pragma unroll
   for (int q = 0; q < RP / 4; ++q) {
@@ -253,29 +211,43 @@ __global__ void __launch_bounds__(RT, 5)
   // Elimination: nb_j = b_j - w_j nb_{j-1}, the map nb -> -w_j nb + b_j.
   Vec<2> aff = AffineOp::identity();
 #pragma unroll
-  for (int s = 0; s < RP; ++s)  // over a cluster, a block's threads past its segment hold none
-    if (!CLUSTER || j0 + s < len) aff = AffineOp::compose(aff, {{-w[s], v[s]}});
-  aff = full_scan<AffineOp, false, CLUSTER>(aff, tpr, scratch, slots);
+  for (int s = 0; s < RP; ++s)  // in segments, a block's threads past its segment hold none
+    if (!SPLIT || j0 + s < len) aff = AffineOp::compose(aff, {{-w[s], v[s]}});
+  // r and c come in after the elimination's scan: loaded before it, they
+  // spill.
+  float r[RP], c[RP];
+  auto load_rc = [&] {
+#pragma unroll
+    for (int q = 0; q < RP / 4; ++q) {
+      const float4 e = held ? p4[P / 4 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 f = held ? p4[P / 2 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[4 * q] = e.x, r[4 * q + 1] = e.y, r[4 * q + 2] = e.z, r[4 * q + 3] = e.w;
+      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z, c[4 * q + 3] = f.w;
+    }
+  };
+  if constexpr (MODE == SEG_TOTALS) {
+    publish_segment_totals(aff, tpr, scratch, tot, load_rc,
+                           [&](int s, float& ws, float& bs, float& rs, float& cs) {
+                             ws = w[s], bs = v[s], rs = r[s], cs = c[s];
+                             return j0 + s < len;
+                           });
+    return;
+  } else {
+    aff = mode_scan<AffineOp, false, MODE>(aff, tpr, scratch, slots, affine_to(slots[1]));
+  }
   float carry = aff.v[1];  // applied to nb_{-1} = 0
 #pragma unroll
   for (int s = 0; s < RP; ++s) {
     carry = v[s] - w[s] * carry;
     v[s] = carry;
   }
-  float r[RP], c[RP];
-#pragma unroll
-  for (int q = 0; q < RP / 4; ++q) {
-    const float4 e = held ? p4[P / 4 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 f = held ? p4[P / 2 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[4 * q] = e.x, r[4 * q + 1] = e.y, r[4 * q + 2] = e.z, r[4 * q + 3] = e.w;
-    c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z, c[4 * q + 3] = f.w;
-  }
+  load_rc();
   // Substitution: x_j = r_j nb_j - c_j x_{j+1}, in reverse (c_{k-1} = 0).
   aff = AffineOp::identity();
 #pragma unroll
   for (int s = RP - 1; s >= 0; --s)
-    if (!CLUSTER || j0 + s < len) aff = AffineOp::compose(aff, {{-c[s], r[s] * v[s]}});
-  aff = full_scan<AffineOp, true, CLUSTER>(aff, tpr, scratch, slots + SCAN_SLOT);
+    if (!SPLIT || j0 + s < len) aff = AffineOp::compose(aff, {{-c[s], r[s] * v[s]}});
+  aff = mode_scan<AffineOp, true, MODE>(aff, tpr, scratch, slots + SCAN_SLOT, affine_to(slots[2]));
   carry = aff.v[1];  // applied to x_k = 0
 #pragma unroll
   for (int s = RP - 1; s >= 0; --s) {
@@ -289,12 +261,12 @@ __global__ void __launch_bounds__(RT, 5)
   __syncthreads();
   float* xb = x + p.row0 * k + p.seg0;
   for (int i = tid; i < p.rows * len; i += RT) xb[i] = buf[staged(i)];
-  if (CLUSTER) cluster_done();
+  if constexpr (MODE == CLUSTERED) cluster_done();
 }
 
 // ---------------------------------------------------------------------------
-// Per-row bands: each row resident (or, past RES_MAX, over a cluster) with
-// its own pivots.
+// Per-row bands: each row resident (or, past RES_MAX, in segments) with its
+// own pivots.
 
 constexpr int ROW_BUF = RES_BUF + 4;  // staged floats of an operand: RES_MAX + 1 positions
 constexpr size_t ROWS_SMEM =
@@ -316,41 +288,50 @@ __device__ __forceinline__ void stage_band(float* dst, int at, const float* __re
 
 // x (n, k) from b (n, k) and bands u, l (rows of k - 1) and d (rows of k)
 // at row strides su, sl, sd (0: one band for every row): tpr threads a row,
-// RT / tpr rows a block, or one segment of a row a block over a cluster.
+// RT / tpr rows a block, or one segment of a row a block, over a cluster
+// or in one of a segmented row's three launches (totals: the rows' (n, cs,
+// 4) Moebius, (n, cs, 2) elimination and (n, cs, 3) substitution totals).
 // Three buffers serve the four operands, so four blocks share an SM (64
 // registers a thread): d, u and l are staged first; b, needed only from the
 // elimination on, comes by cp.async into d's buffer once the diagonal is
 // done, and x leaves through the same buffer.
-template <bool CLUSTER>
+template <int MODE>
 __global__ void __launch_bounds__(RT, 4)
     per_row_kernel(const float* __restrict__ b, const float* __restrict__ u,
                    const float* __restrict__ d, const float* __restrict__ l,
-                   float* __restrict__ x, long long n, int k, int tpr, int seg, long long su,
-                   long long sd, long long sl) {
+                   float* __restrict__ x, float* __restrict__ totals, long long n, int k, int tpr,
+                   int seg, long long su, long long sd, long long sl) {
+  constexpr bool SPLIT = MODE != RESIDENT_ROWS;
   extern __shared__ float rows_smem[];
   float* sdg = rows_smem;            // [ROW_BUF] the block's rows of d, then b, then x
   float* sup = sdg + ROW_BUF;        // [ROW_BUF] u
   float* slo = sup + ROW_BUF;        // [ROW_BUF] l
   float* scratch = slo + ROW_BUF;    // [RT / 32][SCAN_SLOT] the scans' warp totals
-  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [3][SCAN_SLOT] a cluster's exchanges
+  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [3][SCAN_SLOT] a cluster's exchanges, or a
+                                                 // segmented launch's carry-ins
   float* sb = sdg;
-  const RowPart p = row_part<CLUSTER>(n, k, tpr, seg);
+  const RowPart p = row_part<SPLIT>(n, k, tpr, seg);
   const int km1 = k - 1, j0 = p.j0, len = p.len;
   // Position g of the thread's row: b and d at staged(bi + g), u and l at
   // staged(ui + g).  A resident block holds its rows whole (b, d k apart; u,
-  // l k - 1 apart); a cluster's block holds its segment, u and l from the
-  // position before it on.
+  // l k - 1 apart); a block of a split row holds its segment, u and l from
+  // the position before it on.
   const int bi = p.rb * len - p.seg0;
-  const int ui = CLUSTER ? 1 - p.seg0 : p.rb * km1;
+  const int ui = SPLIT ? 1 - p.seg0 : p.rb * km1;
   const int g0 = p.seg0 + j0;
+  SegTotals tot = {};
+  if constexpr (segmented(MODE)) {
+    tot = seg_totals(totals, n, false, k, seg, p);
+    seg_carry_ins<MODE>(tot, true, slots);
+  }
 
   // The block's range of each operand: nbd elements of b and d, nul of u
-  // and l from position lo on (a cluster's block: from the one before its
+  // and l from position lo on (a segment's block: from the one before its
   // segment).
   const int nbd = p.rows * len;
-  const int lo = CLUSTER ? max(p.seg0 - 1, 0) : 0;
-  const int nul = CLUSTER ? min(p.seg0 + len, km1) - lo : p.rows * km1;
-  const int at = lo + (CLUSTER ? ui : 0);
+  const int lo = SPLIT ? max(p.seg0 - 1, 0) : 0;
+  const int nul = SPLIT ? min(p.seg0 + len, km1) - lo : p.rows * km1;
+  const int at = lo + (SPLIT ? ui : 0);
   stage_band(sdg, 0, d, p.row0, sd, k, p.seg0, nbd);
   stage_band(sup, at, u, p.row0, su, km1, lo, nul);
   stage_band(slo, at, l, p.row0, sl, km1, lo, nul);
@@ -369,7 +350,13 @@ __global__ void __launch_bounds__(RT, 4)
       mob = MoebiusOp::compose(mob, {{sdg[staged(bi + g)], -lu, 1.f, 0.f}});
     }
   }
-  mob = full_scan<MoebiusOp, false, CLUSTER>(mob, tpr, scratch, slots);
+  if constexpr (MODE == SEG_PIVOTS) {
+    publish_total<MoebiusOp, false>(row_scan<MoebiusOp, false>(mob, tpr, scratch), mob,
+                                    tot.tm + 4 * tot.me);
+    return;
+  } else {
+    mob = mode_scan<MoebiusOp, false, MODE>(mob, tpr, scratch, slots, moebius_to(slots[0]));
+  }
   float prev_d = (mob.v[0] + mob.v[1]) / (mob.v[2] + mob.v[3]);
 
   // The diagonal in the chunk, nd_g = d_g - w_g u_{g-1} with w_g =
@@ -406,7 +393,20 @@ __global__ void __launch_bounds__(RT, 4)
 #pragma unroll
   for (int s = 0; s < RP; ++s)
     if (IN(s)) aff = AffineOp::compose(aff, {{-nb[s], sb[staged(bi + g0 + s)]}});
-  aff = full_scan<AffineOp, false, CLUSTER>(aff, tpr, scratch, slots + SCAN_SLOT);
+  if constexpr (MODE == SEG_TOTALS) {
+    publish_segment_totals(aff, tpr, scratch, tot, [] {},
+                           [&](int s, float& w, float& bs, float& r, float& c) {
+                             const int g = g0 + s;
+                             if (!IN(s)) return false;
+                             w = nb[s], bs = sb[staged(bi + g)], r = 1.f / nd[s];
+                             c = g < km1 ? sup[staged(ui + g)] * r : 0.f;
+                             return true;
+                           });
+    return;
+  } else {
+    aff = mode_scan<AffineOp, false, MODE>(aff, tpr, scratch, slots + SCAN_SLOT,
+                                           affine_to(slots[1]));
+  }
   float carry = aff.v[1];
 #pragma unroll
   for (int s = 0; s < RP; ++s) {
@@ -430,7 +430,8 @@ __global__ void __launch_bounds__(RT, 4)
       aff = AffineOp::compose(aff, {{-c, nd[s] * nb[s]}});
     }
   }
-  aff = full_scan<AffineOp, true, CLUSTER>(aff, tpr, scratch, slots + 2 * SCAN_SLOT);
+  aff = mode_scan<AffineOp, true, MODE>(aff, tpr, scratch, slots + 2 * SCAN_SLOT,
+                                        affine_to(slots[2]));
   carry = aff.v[1];
 #pragma unroll
   for (int s = RP - 1; s >= 0; --s) {
@@ -445,7 +446,7 @@ __global__ void __launch_bounds__(RT, 4)
   __syncthreads();
   float* xb = x + p.row0 * k + p.seg0;
   for (int i = threadIdx.x; i < p.rows * len; i += RT) xb[i] = sb[staged(i)];
-  if (CLUSTER) cluster_done();
+  if constexpr (MODE == CLUSTERED) cluster_done();
 }
 
 }  // namespace
@@ -457,93 +458,79 @@ const char* td_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// b (n, k) and x (n, k) contiguous; u, l rows of k - 1 and d rows of k at
-// row strides su, sl, sd (0: one band for every row); nd: (k, n) scratch.
-// The thomas_kernel route.
-int td_solve(const float* b, const float* u, const float* d, const float* l,
-             float* x, float* nd, long long n, int k, long long sb,
-             long long su, long long sd, long long sl, void* stream) {
-  if (n <= 0 || k <= 0 || !b || !d || !x || !nd ||
-      (k > 1 && (!u || !l)) || (n + THREADS - 1) / THREADS > 0x7fffffffLL)
-    return BAD_ARGUMENT;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  thomas_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      b, u, d, l, x, nd, n, k, sb, su, sd, sl);
-  return (int)cudaGetLastError();
-}
-
-// The checks shared by the resident and cluster routes: tpr threads a row,
-// a power of two with tpr * RP >= k, k <= RES_MAX (cs 1); or cs blocks a
-// row of seg positions each (cluster_shape_ok, tpr = RT).  Returns the
-// blocks of the launch, or -1.
-static long long row_blocks(long long n, int k, int tpr, int cs, int seg) {
-  if (n <= 0 || k <= 0) return -1;
-  long long blocks;
-  if (cs == 1) {
-    if (k > RES_MAX || tpr < 1 || tpr > RT || (tpr & (tpr - 1)) || (long long)tpr * RP < k)
-      return -1;
-    blocks = (n + RT / tpr - 1) / (RT / tpr);
-  } else {
-    if (!cluster_shape_ok(k, cs, seg) || tpr != RT) return -1;
-    blocks = n * cs;
-  }
-  return blocks > 0x7fffffffLL ? -1 : blocks;
-}
-
 // The shared-band route: b (n, k) and x (n, k) contiguous, one band each
 // (u, l of k - 1, d of k); piv: (3, P) scratch, 16-byte aligned, P = tpr *
-// RP for a resident row (cs 1), cs * seg over a cluster; the launch shape
-// as row_blocks checks it (the wrapper's solve_plan).
+// RP for a resident row (cs 1), cs * seg in segments; the launch shape as
+// row_blocks checks it (the wrapper's solve_plan); past CLUSTER_MAX
+// segments, totals: (cs * (4 + 5 n)) floats of scratch.
 int td_solve_shared(const float* b, const float* u, const float* d, const float* l,
-                    float* x, float* piv, long long n, int k, int tpr, int cs, int seg,
-                    void* stream) {
+                    float* x, float* piv, float* totals, long long n, int k, int tpr, int cs,
+                    int seg, void* stream) {
   const long long blocks = row_blocks(n, k, tpr, cs, seg);
   if (blocks < 0 || !b || !d || !x || !piv || (k > 1 && (!u || !l)) ||
-      (reinterpret_cast<size_t>(piv) & 15))
+      (reinterpret_cast<size_t>(piv) & 15) || (cs > CLUSTER_MAX && !totals))
     return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (cs == 1) {
-    band_pivot_kernel<false><<<1, RT, 0, st>>>(u, d, l, piv, k, tpr, 0);
+    band_pivot_kernel<RESIDENT_ROWS><<<1, RT, 0, st>>>(u, d, l, piv, totals, k, tpr, 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    shared_band_kernel<false><<<(unsigned)blocks, RT, BAND_SMEM, st>>>(b, piv, x, n, k, tpr, 0);
-    return (int)cudaGetLastError();
+    return (int)launch_rows_as<RESIDENT_ROWS>(shared_band_kernel<RESIDENT_ROWS>, blocks, cs,
+                                              BAND_SMEM, st, b, (const float*)piv, x, totals, n,
+                                              k, tpr, seg);
   }
-  err = launch_clusters(band_pivot_kernel<true>, cs, cs, 0, st, u, d, l, piv, k, (int)RT, seg);
+  if (cs <= CLUSTER_MAX) {
+    err = launch_clusters(band_pivot_kernel<CLUSTERED>, cs, cs, 0, st, u, d, l, piv, totals, k,
+                          (int)RT, seg);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_rows_as<CLUSTERED>(shared_band_kernel<CLUSTERED>, blocks, cs,
+                                          BAND_SPLIT_SMEM, st, b, (const float*)piv, x, totals, n,
+                                          k, tpr, seg);
+  }
+  band_pivot_kernel<SEG_PIVOTS><<<cs, RT, 0, st>>>(u, d, l, piv, totals, k, RT, seg);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = launch_clusters(shared_band_kernel<true>, blocks, cs, BAND_CLUSTER_SMEM, st, b,
-                        (const float*)piv, x, n, k, (int)RT, seg);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  band_pivot_kernel<SEG_SOLVE><<<cs, RT, 0, st>>>(u, d, l, piv, totals, k, RT, seg);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_TOTALS>(shared_band_kernel<SEG_TOTALS>, blocks, cs, BAND_SPLIT_SMEM,
+                                     st, b, (const float*)piv, x, totals, n, k, tpr, seg);
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_SOLVE>(shared_band_kernel<SEG_SOLVE>, blocks, cs, BAND_SPLIT_SMEM, st,
+                                    b, (const float*)piv, x, totals, n, k, tpr, seg);
+  return (int)err;
 }
 
 // The per-row route: b (n, k) and x (n, k) contiguous; u, l rows of k - 1
 // and d rows of k at row strides su, sl, sd (0: one band for every row);
-// the launch shape as row_blocks checks it (the wrapper's solve_plan).
+// the launch shape as row_blocks checks it (the wrapper's solve_plan); past
+// CLUSTER_MAX segments, totals: (n, cs, 9) floats of scratch.
 int td_solve_rows(const float* b, const float* u, const float* d, const float* l, float* x,
-                  long long n, int k, int tpr, int cs, int seg, long long su, long long sd,
-                  long long sl, void* stream) {
+                  float* totals, long long n, int k, int tpr, int cs, int seg, long long su,
+                  long long sd, long long sl, void* stream) {
   const long long blocks = row_blocks(n, k, tpr, cs, seg);
-  if (blocks < 0 || !b || !d || !x || (k > 1 && (!u || !l)) || su < 0 || sd < 0 || sl < 0)
+  if (blocks < 0 || !b || !d || !x || (k > 1 && (!u || !l)) || su < 0 || sd < 0 || sl < 0 ||
+      (cs > CLUSTER_MAX && !totals))
     return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (cs == 1) {
-    err = cudaFuncSetAttribute(per_row_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ROWS_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    per_row_kernel<false><<<(unsigned)blocks, RT, ROWS_SMEM, st>>>(b, u, d, l, x, n, k, tpr,
-                                                                    0, su, sd, sl);
-    return (int)cudaGetLastError();
-  }
-  err = cudaFuncSetAttribute(per_row_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)ROWS_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_clusters(per_row_kernel<true>, blocks, cs, ROWS_SMEM, st, b, u, d, l, x, n, k,
-                        (int)RT, seg, su, sd, sl);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (cs == 1)
+    return (int)launch_rows_as<RESIDENT_ROWS>(per_row_kernel<RESIDENT_ROWS>, blocks, cs, ROWS_SMEM,
+                                              st, b, u, d, l, x, totals, n, k, tpr, seg, su, sd,
+                                              sl);
+  if (cs <= CLUSTER_MAX)
+    return (int)launch_rows_as<CLUSTERED>(per_row_kernel<CLUSTERED>, blocks, cs, ROWS_SMEM, st, b,
+                                          u, d, l, x, totals, n, k, tpr, seg, su, sd, sl);
+  cudaError_t err = launch_rows_as<SEG_PIVOTS>(per_row_kernel<SEG_PIVOTS>, blocks, cs, ROWS_SMEM,
+                                               st, b, u, d, l, x, totals, n, k, tpr, seg, su, sd,
+                                               sl);
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_TOTALS>(per_row_kernel<SEG_TOTALS>, blocks, cs, ROWS_SMEM, st, b, u,
+                                     d, l, x, totals, n, k, tpr, seg, su, sd, sl);
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_SOLVE>(per_row_kernel<SEG_SOLVE>, blocks, cs, ROWS_SMEM, st, b, u, d,
+                                    l, x, totals, n, k, tpr, seg, su, sd, sl);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -19,9 +19,7 @@ then the masked pipeline.
   ``RESIDENT_MAX`` positions; over a thread block cluster of up to
   ``CLUSTER_MAX`` blocks, each holding one segment of the row as a resident
   block holds a row, up to ``CLUSTER_REACH``; a thread per row through
-  scratch beyond);
-* ``cluster_shape(k)``: the blocks of a row's cluster and the positions
-  each holds;
+  scratch beyond; the split is ``row_split``'s);
 * ``LAUNCHES``: the count of kernel launches; ``ROUTE_LAUNCHES`` the same by
   variant.
 """
@@ -34,17 +32,19 @@ import torch
 from .. import _build
 from ..interpolation.cubic import _MaskedFitFused, _masked_fit_plain  # the plain version
 from . import dispatch
+from .row_split import (
+    BLOCK_THREADS,
+    CLUSTER_MAX,
+    CLUSTER_REACH,
+    POSITIONS,
+    RESIDENT_MAX,
+    row_split,
+    threads_per_row,
+)
 
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"resident": 0, "cluster": 0, "long": 0}
 
-# The resident variant's shape (csrc/row_scan.cuh: RP, RT, RES_MAX,
-# CLUSTER_MAX); the library's own is checked against it when it loads.
-POSITIONS = 16         # positions a thread holds
-BLOCK_THREADS = 256    # threads per block
-RESIDENT_MAX = POSITIONS * BLOCK_THREADS
-CLUSTER_MAX = 8        # blocks a row's cluster spans at most (the portable cluster size)
-CLUSTER_REACH = CLUSTER_MAX * RESIDENT_MAX  # the longest row a cluster holds
 LONG_THREADS = 32      # the long-row variant: one thread per row, one warp per block
 
 
@@ -58,39 +58,18 @@ class FitPlan(NamedTuple):
     segment: int          # positions of a row a block holds
 
 
-def threads_per_row(k):
-    """The least power of two of threads that holds a row of k positions at
-    ``POSITIONS`` a thread (the resident kernels' rows, ``csrc/row_scan.cuh``)."""
-    tpr = 1
-    while tpr * POSITIONS < k:
-        tpr *= 2
-    return tpr
-
-
-def cluster_shape(k):
-    """(blocks, positions each) of the cluster that holds a row of
-    ``RESIDENT_MAX`` < k <= ``CLUSTER_REACH`` positions: as few blocks as
-    hold it, the row split evenly between them in whole threads' chunks
-    (``csrc/row_scan.cuh``: cluster_shape_ok)."""
-    if not RESIDENT_MAX < k <= CLUSTER_REACH:
-        raise ValueError(f"rows of {k} positions take no cluster")
-    blocks = -(-k // RESIDENT_MAX)
-    segment = -(-k // blocks)
-    return blocks, -(-segment // POSITIONS) * POSITIONS
-
-
 def fit_plan(k):
     """The launch for rows of length k: the resident variant, its threads
     per row the least power of two that holds k at ``POSITIONS`` a thread,
     ``BLOCK_THREADS / threads_per_row`` rows a block; past
-    ``RESIDENT_MAX``, the cluster variant (``cluster_shape``); past
+    ``RESIDENT_MAX``, the cluster variant (``row_split``); past
     ``CLUSTER_REACH``, the long-row variant."""
     if k < 2:
         raise ValueError(f"the fit needs rows of at least 2 positions, got {k}")
     if k > CLUSTER_REACH:
         return FitPlan("long", 1, LONG_THREADS, LONG_THREADS, k, 1, k)
     if k > RESIDENT_MAX:
-        blocks, segment = cluster_shape(k)
+        blocks, segment = row_split(k)
         return FitPlan("cluster", BLOCK_THREADS, 1, BLOCK_THREADS, POSITIONS, blocks, segment)
     tpr = threads_per_row(k)
     return FitPlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS, 1, k)

@@ -7,11 +7,14 @@ Replaces ``torchcde_tpu/ops/masked_tridiagonal_pallas.py::_fwd_kernel`` and
 * ``masked_thomas_kernel(diag, rhs, hr, hr_prev, observed)``: arrays
   (..., k) and a bool mask; the kernel for CUDA float32/bfloat16 operands,
   the plain version otherwise;
-* ``solve_plan(k)``: the route that solves rows of length k (each row
-  resident in the registers of a power of two of threads up to
-  ``RESIDENT_MAX`` positions, as K4's shared bands and K6/K7's rows; one
-  thread per row beyond);
-* ``LAUNCHES``: the count of solves launched.
+* ``solve_plan(k)``: the route that solves rows of length k, as K4's
+  per-row bands take them: each row resident in the registers of a power
+  of two of threads up to ``RESIDENT_MAX`` positions; over a thread block
+  cluster, one segment a block, up to ``CLUSTER_REACH``; beyond, the same
+  segments in launches of their own, the scans' totals crossing through
+  device memory;
+* ``LAUNCHES``: the count of solves launched; ``ROUTE_LAUNCHES`` the same
+  by route.
 """
 
 import ctypes
@@ -21,38 +24,33 @@ import torch
 from .. import _build
 from ..interpolation.cubic import _masked_thomas_observed  # the plain version
 from . import dispatch
-from .masked_cubic_kernel import BLOCK_THREADS, POSITIONS, RESIDENT_MAX, threads_per_row
-from .tridiagonal_kernel import SolvePlan
+from .row_split import row_plan, segment_totals
 
 LAUNCHES = 0
-THOMAS_THREADS = 32  # masked_thomas_kernel: one thread per row, one warp per block
+ROUTES = ("resident", "cluster", "segmented")
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def solve_plan(k):
-    """The launch for rows of length k: the resident route up to
-    ``RESIDENT_MAX`` positions (K6/K7's threads per row), ``masked_thomas_kernel``
-    beyond."""
-    if k < 1:
-        raise ValueError(f"the solve needs rows of at least 1 position, got {k}")
-    if k > RESIDENT_MAX:
-        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k, 1, k)
-    tpr = threads_per_row(k)
-    return SolvePlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS, 1, k)
+    """The launch for rows of length k: ``row_plan(k)``, the resident route
+    up to ``RESIDENT_MAX`` positions, the cluster route up to
+    ``CLUSTER_REACH``, the segmented route beyond (K4's per-row plans)."""
+    return row_plan(k)
 
 
 def reset_launch_counts():
     global LAUNCHES
     LAUNCHES = 0
+    for route in ROUTES:
+        ROUTE_LAUNCHES[route] = 0
 
 
 def _library():
     lib = _build.load_library()
     if not getattr(lib, "_mt_declared", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mt_solve.argtypes = [p] * 7 + [ll, i, p]
+        lib.mt_solve.argtypes = [p] * 7 + [ll, i, i, i, i, p]
         lib.mt_solve.restype = i
-        lib.mt_solve_resident.argtypes = [p] * 6 + [ll, i, i, p]
-        lib.mt_solve_resident.restype = i
         lib.mt_error_string.argtypes = [i]
         lib.mt_error_string.restype = ctypes.c_char_p
         lib._mt_declared = True
@@ -70,24 +68,28 @@ def launch(diag, rhs, hr, hr_prev, observed):
     if any(a.shape != observed.shape for a in ops):
         raise ValueError("every operand must have the mask's shape")
     x = torch.empty_like(diag)
-    _kernel(solve_plan(observed.shape[1]), ops, x)
+    plan = solve_plan(observed.shape[1])
+    _kernel(plan, ops, x)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[plan.variant] += 1
     return x
 
 
 def _kernel(plan, operands, x):
     """The route of ``plan`` on the operands (diag, rhs, hr, hr_prev,
-    observed, each (n, k)) into x (n, k)."""
+    observed, each (n, k)) into x (n, k); the segmented route with its
+    totals (``segment_totals``)."""
     lib = _library()
     n, k = x.shape
     ptrs = [t.data_ptr() for t in (*operands, x)]
+    totals = None
+    if plan.variant == "segmented":
+        totals = torch.empty(segment_totals(plan.cluster, n, False), dtype=x.dtype,
+                             device=x.device)
     stream = dispatch.stream_of(x)
     with torch.cuda.device(x.device):
-        if plan.variant == "resident":
-            rc = lib.mt_solve_resident(*ptrs, n, k, plan.threads_per_row, stream)
-        else:
-            nd = torch.empty((k, n), dtype=x.dtype, device=x.device)  # the eliminated diagonal
-            rc = lib.mt_solve(*ptrs, nd.data_ptr(), n, k, stream)
+        rc = lib.mt_solve(*ptrs, 0 if totals is None else totals.data_ptr(), n, k,
+                          plan.threads_per_row, plan.cluster, plan.segment, stream)
     if rc != 0:
         raise RuntimeError(f"masked tridiagonal kernel failed: {lib.mt_error_string(rc).decode()} "
                            f"(code {rc})")

@@ -19,72 +19,48 @@ Its plain version is ``ops.tridiagonal.tridiagonal_solve_thomas``.
   of two of threads (one band for every row: after one pass that
   eliminates the shared diagonal; bands per row: each row scanning its own
   pivots); up to ``CLUSTER_REACH`` each row over a thread block cluster,
-  one segment a block, in the same two ways; one thread per row beyond;
+  one segment a block, in the same two ways; beyond, segmented: the same
+  segments in launches of their own, the scans' totals crossing through
+  device memory (``row_split.segment_totals``);
 * ``LAUNCHES``: the count of solves launched (forward and transpose solves;
-  a shared-band solve's two kernels count once); ``ROUTE_LAUNCHES`` the
-  same by route.
+  a route's kernels count once a solve); ``ROUTE_LAUNCHES`` the same by
+  route.
 """
 
 import ctypes
 import math
-from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from . import dispatch
-from .masked_cubic_kernel import (
-    BLOCK_THREADS,
-    CLUSTER_REACH,
-    POSITIONS,
-    RESIDENT_MAX,
-    cluster_shape,
-    threads_per_row,
-)
+from .row_split import row_plan, segment_totals
 from .tridiagonal import tridiagonal_solve_thomas  # the plain version
 
 LAUNCHES = 0
-# The routes: shared bands resident or over a cluster, per-row bands
-# resident or over a cluster, one thread a row.
-ROUTES = ("resident", "cluster", "per_row", "per_row_cluster", "thomas")
+# The routes: shared bands resident, over a cluster or segmented; per-row
+# bands the same three ways.
+SHARED_ROUTES = ("resident", "cluster", "segmented")
+ROUTES = SHARED_ROUTES + ("per_row", "per_row_cluster", "per_row_segmented")
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
-THOMAS_THREADS = 32  # one thread per row, one warp per block
-
-
-class SolvePlan(NamedTuple):
-    variant: str          # one of ROUTES
-    threads_per_row: int  # (over a cluster: the threads of a block's segment)
-    rows_per_block: int
-    threads: int          # per block
-    positions: int        # per thread (thomas: the row)
-    cluster: int          # blocks a row spans (1 off the cluster routes)
-    segment: int          # positions of a row a block holds
 
 
 def solve_plan(k, shared):
     """The launch for rows of length k whose bands are one for every row
-    (``shared``) or one per row: up to ``RESIDENT_MAX`` positions each row
-    resident in K6/K7's threads per row (``resident`` after the shared
-    pivots, or ``per_row``); up to ``CLUSTER_REACH`` over K6/K7's clusters
-    (``cluster_shape``: ``cluster`` or ``per_row_cluster``);
-    ``thomas_kernel`` beyond."""
-    if k < 1:
-        raise ValueError(f"the solve needs rows of at least 1 position, got {k}")
-    if k > CLUSTER_REACH:
-        return SolvePlan("thomas", 1, THOMAS_THREADS, THOMAS_THREADS, k, 1, k)
-    if k > RESIDENT_MAX:
-        blocks, segment = cluster_shape(k)
-        return SolvePlan("cluster" if shared else "per_row_cluster", BLOCK_THREADS, 1,
-                         BLOCK_THREADS, POSITIONS, blocks, segment)
-    tpr = threads_per_row(k)
-    return SolvePlan("resident" if shared else "per_row", tpr, BLOCK_THREADS // tpr,
-                     BLOCK_THREADS, POSITIONS, 1, k)
+    (``shared``) or one per row: ``row_plan(k)``'s split, resident,
+    over a cluster or segmented; per-row bands' routes are named
+    ``per_row``, ``per_row_cluster`` and ``per_row_segmented``."""
+    plan = row_plan(k)
+    if shared:
+        return plan
+    return plan._replace(variant="per_row" if plan.variant == "resident"
+                         else f"per_row_{plan.variant}")
 
 
 def pivot_positions(plan):
     """The positions of each row of the shared routes' (3, P) pivot
-    scratch: the threads' chunks of the row, or the cluster's segments."""
-    if plan.variant == "cluster":
+    scratch: the threads' chunks of the row, or its segments."""
+    if plan.variant in ("cluster", "segmented"):
         return plan.cluster * plan.segment
     return plan.threads_per_row * plan.positions
 
@@ -100,11 +76,9 @@ def _library():
     lib = _build.load_library()
     if not getattr(lib, "_td_declared", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.td_solve.argtypes = [p] * 6 + [ll, i, ll, ll, ll, ll, p]
-        lib.td_solve.restype = i
-        lib.td_solve_shared.argtypes = [p] * 6 + [ll, i, i, i, i, p]
+        lib.td_solve_shared.argtypes = [p] * 7 + [ll, i, i, i, i, p]
         lib.td_solve_shared.restype = i
-        lib.td_solve_rows.argtypes = [p] * 5 + [ll, i, i, i, i, ll, ll, ll, p]
+        lib.td_solve_rows.argtypes = [p] * 6 + [ll, i, i, i, i, ll, ll, ll, p]
         lib.td_solve_rows.restype = i
         lib.td_error_string.argtypes = [i]
         lib.td_error_string.restype = ctypes.c_char_p
@@ -140,37 +114,39 @@ def launch(b, A_upper, A_diagonal, A_lower):
     if n == 0:
         return x.reshape(shape)
     plan = solve_plan(k, shared=su == sd == sl == 0)
-    _kernel(plan, (b2, u2, d2, l2), x, _scratch(plan, n, k, b), (n, k, sb, su, sd, sl))
+    _kernel(plan, (b2, u2, d2, l2), x, _scratch(plan, n, b), (n, k, sb, su, sd, sl))
     LAUNCHES += 1
     ROUTE_LAUNCHES[plan.variant] += 1
     return x.reshape(shape)
 
 
-def _scratch(plan, n, k, like):
-    """The route's scratch: the shared band's pivots w, r, c (zero past
-    k), the eliminated diagonal (k, n) of thomas_kernel, or none."""
-    if plan.variant in ("resident", "cluster"):
-        return torch.empty((3, pivot_positions(plan)), dtype=like.dtype, device=like.device)
-    if plan.variant == "thomas":
-        return torch.empty((k, n), dtype=like.dtype, device=like.device)
-    return None
+def _scratch(plan, n, like):
+    """The route's scratch, (pivots, totals), each a tensor or None: the
+    shared band's pivots w, r, c (3, P), zero past k, on the shared routes;
+    a segmented route's totals (``row_split.segment_totals``)."""
+    pivots = totals = None
+    if plan.variant in SHARED_ROUTES:
+        pivots = torch.empty((3, pivot_positions(plan)), dtype=like.dtype, device=like.device)
+    if plan.variant.endswith("segmented"):
+        totals = torch.empty(segment_totals(plan.cluster, n, plan.variant in SHARED_ROUTES),
+                             dtype=like.dtype, device=like.device)
+    return pivots, totals
 
 
 def _kernel(plan, operands, x, scratch, sizes):
     """The route of ``plan`` on the operands (b, u, d, l as rows, ``_rows``)
-    into x (n, k), with its scratch."""
+    into x (n, k), with its scratch (``_scratch``)."""
     lib = _library()
-    n, k, sb, su, sd, sl = sizes
+    n, k, _sb, su, sd, sl = sizes
     ptrs = [t.data_ptr() for t in (*operands, x)]
+    pivots, totals = (0 if t is None else t.data_ptr() for t in scratch)
     shape = (plan.threads_per_row, plan.cluster, plan.segment)
     stream = dispatch.stream_of(x)
     with torch.cuda.device(x.device):
-        if plan.variant in ("resident", "cluster"):
-            rc = lib.td_solve_shared(*ptrs, scratch.data_ptr(), n, k, *shape, stream)
-        elif plan.variant in ("per_row", "per_row_cluster"):
-            rc = lib.td_solve_rows(*ptrs, n, k, *shape, su, sd, sl, stream)
+        if plan.variant in SHARED_ROUTES:
+            rc = lib.td_solve_shared(*ptrs, pivots, totals, n, k, *shape, stream)
         else:
-            rc = lib.td_solve(*ptrs, scratch.data_ptr(), n, k, sb, su, sd, sl, stream)
+            rc = lib.td_solve_rows(*ptrs, totals, n, k, *shape, su, sd, sl, stream)
     if rc != 0:
         raise RuntimeError(f"tridiagonal solve kernel failed: {lib.td_error_string(rc).decode()} "
                            f"(code {rc})")
