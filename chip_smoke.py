@@ -46,14 +46,14 @@ Phases, each of which raises on failure:
    and masked cubic fit (K6/K7) kernels against their plain versions run in
    float64 on the same inputs: lengths 2 to 4097 (K6/K7's plan boundaries:
    one row of one warp at 512, a row of two warps at 513, the resident
-   maximum 4096 and the long-row variant at 4097), odd row counts, NaN
+   maximum 4096 and the cluster route at 4097), odd row counts, NaN
    densities 0 to 1, leading and trailing NaN runs, single-observation and
    all-NaN rows, both imputation versions, irregular times, each K4 (both
    routes: bands shared by every row and bands per row), K5 and K6/K7 case
-   also against a second launch, bit for bit; K4 and K5 also over thread
-   block clusters (lengths 4097 to 32 768) and segmented past them (32 769,
-   65 536 and 65 537; K5's densities stacked into one launch a length past
-   4097);
+   also against a second launch, bit for bit; K4, K5 and K6/K7 also over
+   thread block clusters (lengths 4097 to 32 768) and segmented past them
+   (32 769, 65 536 and 65 537, K6/K7's with whole segments empty; K5's
+   densities stacked into one launch a length past 4097);
    and the public fit on bfloat16 values (upcast at the kernels' boundary);
 11. fit slice: BASELINE config 3 (8192 series of length 4096, one channel,
    20 % NaN, as benchmarks/run_benchmarks.py's bench_cubic_fit makes them)
@@ -229,7 +229,7 @@ Phases, each of which raises on failure:
    and segmented, through the public entry points with every plain version
    patched to raise, launches counted by route, outputs against float64;
    then each case's device kernels from the profiler in a new process,
-   which fails on any one-thread kernel of K4 or K5.
+   which fails on any one-thread kernel of K4, K5 or K6/K7.
 
 The last line is the JSON object {"ok": true, "device": {...}}; the line
 before it lists every kernel of the paths.  Without a CUDA device the script
@@ -434,7 +434,7 @@ def phase_build():
     from torchcde_tpu_torch.ops.tridiagonal_kernel import solve_plan
 
     print(f"  K6/K7 at config 3 (k {FIT_LENGTH}): {fit_plan(FIT_LENGTH)}")
-    for length in LONG_FIT_LENGTHS:
+    for length in LONG_FIT_LENGTHS + SEGMENTED_LENGTHS:
         print(f"  K6/K7 at k {length}: {fit_plan(length)}")
     for name, lines in ptxas_lines(log, fit_kernel_label).items():
         print(f"  K6/K7 kernel {name}: {'; '.join(lines)}")
@@ -506,7 +506,7 @@ def _instance(kernel, name):
 
 def fit_kernel_label(name):
     """K6/K7's kernels' names in ptxas's log, or None."""
-    kernel = re.search(r"(resident|long)_fit_kernel", name)
+    kernel = re.search(r"(resident|span)_fit_kernel", name)
     return _instance(kernel.group(0), name) if kernel else None
 
 
@@ -1356,17 +1356,22 @@ FIT_BATCH, FIT_LENGTH, FIT_NAN = 8192, 4096, 0.2
 # The lengths after 4096 are K6/K7's plan boundaries (a row of one warp,
 # 16 x 32 positions, and one past it), one past the resident maximum, the
 # cluster routes' (two blocks a row, three, four, eight: the reach) and one
-# past the reach, which takes the one-thread routes; they come last so that
+# past the reach, which takes the segmented routes; they come last so that
 # the earlier lengths keep their seeds.  K3 and K5, whose routes do not
 # change past 4097, keep the lengths up to it.
 FIT_LENGTHS = (2, 3, 17, 100, 1025, 4096, 511, 512, 513, 4097, 8192, 8193, 16384, 32768,
                32769)
 SHORT_FIT_LENGTHS = FIT_LENGTHS[:FIT_LENGTHS.index(4097) + 1]
 LONG_FIT_LENGTHS = FIT_LENGTHS[len(SHORT_FIT_LENGTHS):]
-# K4's and K5's segmented lengths past 65 536: 17 segments of 3856, then
-# 16 whole segments of 4096, the split that phases 13 and 41 time; last,
-# so that the earlier lengths keep their seeds.
+# The segmented lengths past 65 536: 17 segments of 3856, then 16 whole
+# segments of 4096, the split that phases 13 and 41 time; last, so that the
+# earlier lengths keep their seeds.
 SEGMENTED_LENGTHS = (65537, 65536)
+# K6/K7's rows of each NaN density at SEGMENTED_LENGTHS.  Past 4097, the
+# lengths of each group share one float64 plain walk (a walk's time goes with
+# its length, its peak memory, some 35 times its input's, with its rows).
+SEGMENTED_FIT_ROWS = 125
+K6_WALK_GROUPS = ((8192, 8193, 16384), (32768, 32769), SEGMENTED_LENGTHS)
 # Rows of each NaN density in K6/K7's cases past 4097, where the four
 # densities share one launch a version: the float64 plain version walks
 # the positions one at a time, so one walk holds every density.
@@ -1398,7 +1403,7 @@ K5_VARIANTS = {"resident": "gappy_kernel<0>", "cluster": "gappy_kernel<1>",
 FIT_KERNEL_NAMES = {"K3": r"\bfill_kernel\b",
                     "K4": r"\b(?:shared_band|band_pivot|per_row)_kernel\b",
                     "K5": r"\bgappy_kernel\b",
-                    "K6/K7": r"\b(?:resident|long)_fit_kernel\b"}
+                    "K6/K7": r"\b(?:resident|span)_fit_kernel\b"}
 
 
 def fit_kernel_modules():
@@ -1526,16 +1531,15 @@ def _rows_for(length, i):
     return 1001 if length >= 1025 else 77 + 2 * i  # odd row counts
 
 
-def route_text(plan):
-    """A K4's, K5's or K6/K7's plan's route, threads and segments, as text."""
+def route_text(plan, launches=3):
+    """A K4's, K5's or K6/K7's plan's route, threads and segments, as text
+    (a segmented route in this many launches)."""
     if plan.variant.endswith("segmented"):
         return (f"{plan.variant}, {plan.cluster} segments a row of {plan.segment} positions, "
-                f"a block each, three launches")
+                f"a block each, {launches} launches")
     if plan.cluster > 1:
         return (f"{plan.variant}, a cluster of {plan.cluster} blocks a row, {plan.segment} "
                 f"positions a block")
-    if plan.variant == "long":
-        return f"{plan.variant}, one thread a row"
     return f"{plan.variant}, {plan.threads_per_row} threads a row"
 
 
@@ -1747,39 +1751,85 @@ def check_k5_case(label, operands, failures):
     return err
 
 
+def segment_gaps(x):
+    """Segmented rows (float32 (rows, length), from nan_rows) with whole
+    segments empty: row 4 without an observation over a quarter of the row
+    (several whole segments), row 5 with its observations in one stretch of
+    1000 positions at the middle."""
+    length = x.shape[1]
+    if x.shape[0] >= 6:
+        x[4, length // 4:length // 2] = np.nan
+        keep = x[5, length // 2:length // 2 + 1000].copy()
+        x[5] = np.nan
+        x[5, length // 2:length // 2 + 1000] = keep
+    return x
+
+
 def check_k6(device):
-    """K6/K7 at every length of phase 10, both imputation versions.  Both
-    versions' float64 references come from one plain pipeline call on the
-    two imputations' rows stacked: its rows are independent, so each half
-    is _masked_fit_plain's for its version, bit for bit."""
+    """K6/K7 at every length of phase 10 and at SEGMENTED_LENGTHS, both
+    imputation versions.  Both versions' float64 references come from one
+    plain pipeline call on the two imputations' rows stacked: its rows are
+    independent, so each half is _masked_fit_plain's for its version, bit
+    for bit.  A length's densities share one plain walk (past 4097 one
+    launch a version too), and past 4097 the lengths of each of
+    K6_WALK_GROUPS share one: each row takes its own times, and its imputed
+    values, padded with missing positions to the group's longest length,
+    fit as they do alone, bit for bit.  The segmented lengths' rows are
+    SEGMENTED_FIT_ROWS a density, with whole segments left empty
+    (segment_gaps).  Each density is held on its own rows."""
     from torchcde_tpu_torch.interpolation.cubic import _impute_endpoints, _masked_coeffs_plain
     from torchcde_tpu_torch.ops import masked_cubic_kernel
 
+    def launches(i, length):
+        """(length, times, rows a density, [[(density index, rows of x)]]):
+        the densities' launches at this length."""
+        rows = (SEGMENTED_FIT_ROWS if length in SEGMENTED_LENGTHS else
+                LONG_FIT_ROWS if length in LONG_FIT_LENGTHS else _rows_for(length, i))
+        parts = [(j, nan_rows(rows, length, density, seed=100 + 10 * i + j))
+                 for j, density in enumerate(FIT_DENSITIES)]
+        if length in SEGMENTED_LENGTHS:
+            parts = [(j, segment_gaps(x)) for j, x in parts]
+        short = length in SHORT_FIT_LENGTHS
+        return length, irregular_times(length, i), rows, [[p] for p in parts] if short else [parts]
+
+    lengths = FIT_LENGTHS + SEGMENTED_LENGTHS
+    walks = [[launches(i, length)] for i, length in enumerate(SHORT_FIT_LENGTHS)]
+    walks += [[launches(lengths.index(length), length) for length in group]
+              for group in K6_WALK_GROUPS]
     failures, worst = [], 0.0
-    for i, length in enumerate(FIT_LENGTHS):
-        plan = masked_cubic_kernel.fit_plan(length)
-        t = torch.from_numpy(irregular_times(length, i)).to(device)
-        rows = LONG_FIT_ROWS if length in LONG_FIT_LENGTHS else _rows_for(length, i)
-        xs = [torch.from_numpy(nan_rows(rows, length, density, seed=100 + 10 * i + j))
-              .to(device) for j, density in enumerate(FIT_DENSITIES)]
-        # Past 4097 the densities' rows share one launch a version and one
-        # plain walk; each density is held on its own rows.
-        cases = list(enumerate(xs))
-        groups = [cases] if length in LONG_FIT_LENGTHS else [[case] for case in cases]
-        for group in groups:
-            x = torch.cat([part for _, part in group])
-            x64 = x.double()
-            both = _masked_coeffs_plain(t.double(), torch.cat([_impute_endpoints(x64, 0),
-                                                               _impute_endpoints(x64, 1)]))
+    for walk in walks:
+        start = time.perf_counter()
+        longest = max(length for length, *_ in walk)
+        # Each launch's rows of x, and of every row's times (zero past its
+        # length), in the walk's order: a launch's rows imputed by version
+        # 0, then by version 1.
+        runs, imputed, times = [], [], []
+        for length, t, rows, groups in walk:
+            t = torch.from_numpy(t).to(device)
+            for parts in groups:
+                x = torch.from_numpy(np.concatenate([x for _, x in parts])).to(device)
+                runs.append((length, t, rows, parts, x))
+                for version in (0, 1):
+                    imputed.append(torch.nn.functional.pad(
+                        _impute_endpoints(x.double(), version), (0, longest - length),
+                        value=float("nan")))
+                    times.append(torch.nn.functional.pad(t.double(), (0, longest - length))
+                                 .expand(x.shape[0], -1))
+        both = _masked_coeffs_plain(torch.cat(times), torch.cat(imputed))
+        del imputed, times
+        row = 0
+        for length, t, rows, parts, x in runs:
+            plan = masked_cubic_kernel.fit_plan(length)
             for version in (0, 1):
                 got = masked_cubic_kernel.launch(t, x, version)
-                ref = [r[version * x.shape[0]:(version + 1) * x.shape[0]] for r in both]
+                ref = [r[row:row + x.shape[0], :length - 1] for r in both]
+                row += x.shape[0]
                 again = masked_cubic_kernel.launch(t, x, version)
                 torch.cuda.synchronize()
-                for at, (j, _) in enumerate(group):
+                for at, (j, _) in enumerate(parts):
                     rows_of = slice(at * rows, (at + 1) * rows)
                     label = (f"K6/K7 masked fit {rows}x{length} NaN {FIT_DENSITIES[j]:g} version "
-                             f"{version} [{route_text(plan)}]")
+                             f"{version} [{route_text(plan, 4)}]")
                     err = _report_parts(label, [g[rows_of] for g in got],
                                         [r[rows_of] for r in ref], FWD_RTOL, failures)
                     worst = max(worst, err)
@@ -1788,7 +1838,10 @@ def check_k6(device):
                     if not all(_same_bits(a[rows_of], b[rows_of]) for a, b in zip(got, again)):
                         failures.append(f"{label}: a second launch differs")
                 del got, ref, again
-            del both
+        del both, runs
+        if longest > 4097:
+            print(f"K6/K7 at {', '.join(str(length) for length, *_ in walk)}: "
+                  f"{time.perf_counter() - start:.1f} s", flush=True)
     return worst, failures
 
 
@@ -3438,7 +3491,8 @@ LONG_ROW_CASES = (("K4 per-row", "rows", 8192, 4096, "per_row"),
                   ("K4 per-row segmented", "rows", 2048, 65536, "per_row_segmented"),
                   ("K4 segmented", "dense", 2048, 65536, "segmented"),
                   ("K5 segmented", "masked_grad", 2048, 65536, "segmented"),
-                  ("K6/K7 long", "masked", 2048, 32769, "long"))
+                  ("K6/K7 segmented", "masked", 2048, 65536, "segmented"),
+                  ("K6/K7 segmented 2048x32769", "masked", 2048, 32769, "segmented"))
 # The kernel of each kind of case's operands.
 LONG_ROW_FAMILY = {"rows": "K4", "dense": "K4", "masked_grad": "K5", "masked": "K6/K7"}
 # The kernels each route launches, as the profiler names them (a RowMode
@@ -3452,14 +3506,13 @@ ROUTE_KERNELS = {
                           "shared_band_kernel<4>"),
     ("K5", "cluster"): ("gappy_kernel<1>",),
     ("K5", "segmented"): ("gappy_kernel<2>", "gappy_kernel<3>", "gappy_kernel<4>"),
-    ("K6/K7", "cluster"): ("resident_fit_kernel<true>",),
-    ("K6/K7", "long"): ("long_fit_kernel",),
+    ("K6/K7", "cluster"): ("resident_fit_kernel<1>",),
+    ("K6/K7", "segmented"): ("span_fit_kernel", "resident_fit_kernel<2>",
+                             "resident_fit_kernel<3>", "resident_fit_kernel<4>"),
 }
-# K4's and K5's one-thread kernels, which no route has: none may run in any
-# case.  K6/K7's runs in its cases on the "long" route alone (K5's masked
-# gradient past the reach runs it for the fit's forward).
-RETIRED_KERNELS = r"\b(?:masked_)?thomas_kernel\b"
-LONG_FIT_KERNEL = r"\blong_fit_kernel\b"
+# K4's, K5's and K6/K7's one-thread kernels, which no route has: none may run
+# in any case.
+RETIRED_KERNELS = r"\b(?:(?:masked_)?thomas|long_fit)_kernel\b"
 LONG_ROW_KERNELS_ARG = "--long-row-kernels"  # runs long_row_kernels alone
 
 
@@ -3523,8 +3576,7 @@ def long_row_slice(device):
     the kernels at the same lengths, 16 384 and 65 536, instead); then the
     device kernels of each case from long_row_kernels_in_child (a case
     fails where the profiler misses one of its route's kernels; the child
-    fails on a one-thread kernel of K4 or K5 anywhere, or K6/K7's in one of
-    its cases off the long route)."""
+    fails on a one-thread kernel of K4, K5 or K6/K7 anywhere)."""
     import torchcde_tpu_torch as tt
     from torchcde_tpu_torch.ops.tridiagonal import tridiagonal_solve_pcr
 
@@ -3555,7 +3607,7 @@ def long_row_slice(device):
             ref = torch.autograd.grad((tt.natural_cubic_coeffs(x64) * w64).sum(), x64)[0]
             err, scale = _rel(grad[:rows], ref)
             del w64
-        elif route == "long" or what == "masked_grad" or k > 16384:
+        elif what == "masked_grad" or k > 16384:
             # phase 10 holds the kernel at this length (and K5's masked fit
             # forward is the K6/K7 case's at the same length and seed)
             ref, err, scale = None, None, float(out.abs().max())
@@ -3602,8 +3654,8 @@ def long_row_kernels(device):
     """Each LONG_ROW_CASES case once more through its public entry point,
     every plain version raising, in a profiler session of its own: {name:
     ({fit kernel's name: device us}, count of all device events)}.  Raises
-    where any device event is one of K4's or K5's retired one-thread
-    kernels, or K6/K7's in one of its cases off the long route."""
+    where any device event is one of the retired one-thread kernels of K4,
+    K5 or K6/K7."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3620,9 +3672,7 @@ def long_row_kernels(device):
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 events += 1
-                if re.search(RETIRED_KERNELS, e.name) or (
-                        what == "masked" and route != "long"
-                        and re.search(LONG_FIT_KERNEL, e.name)):
+                if re.search(RETIRED_KERNELS, e.name):
                     one_thread.add(e.name)
                 if re.search(pattern, e.name):
                     span = e.time_range.end - e.time_range.start
@@ -5530,13 +5580,17 @@ def main():
     # 10-13. The natural cubic fit: its kernels, the config-3 slice, the NaN
     # spiral slice and the timing.
     fit_errors = check_fit_kernels(device)
+    elapsed("11")
     recorded = {}
     fit_launches, slice_errors = fit_slice(device, recorded)
     fit_errors["K5"] = max(fit_errors["K5"], slice_errors[("masked", "K5")])
+    elapsed("12")
     spiral_fit, spiral_k2, spiral_err = nan_spiral_slice(device)
     for name, count in spiral_fit.items():
         fit_launches[name] += count
+    elapsed("13")
     fit_ms, fit_end_to_end, fit_profile = time_fit_kernels(device, recorded)
+    elapsed("13, the long rows")
     long_ms, long_grad_ms = time_long_rows(device)
     print("profile: " + json.dumps(dict(fit_profile, config="config-3 NaN-masked fit gradient",
                                         card=smi)))

@@ -236,11 +236,13 @@ def test_exports_and_alias():
 
 
 # --------------------------------------------------------------------------
-# The algebra of K6/K7's resident design (csrc/masked_cubic.cu): each row cut
-# into chunks of consecutive positions, every recurrence of the masked fit
+# The algebra of K6/K7's routes (csrc/masked_cubic.cu): each row cut into
+# chunks of consecutive positions, every recurrence of the masked fit
 # composed per chunk and scanned across the chunks, then run in each chunk
 # from its carry-in.  A short emulation in torch, vectorised over rows and
-# chunks, with the scans as Hillis-Steele doubling over the chunks.
+# chunks, with the scans as Hillis-Steele doubling over the chunks, or in
+# the kernel's order over its blocks (a cluster's, or a segmented row's with
+# the carry-ins its launches give each block).
 
 def _shifted(elems, d, identity, reverse):
     """elems (tuples of (rows, chunks) tensors) moved d chunks along the
@@ -262,15 +264,16 @@ def _scan(elems, compose, identity, reverse=False):
     return _shifted(elems, 1, identity, reverse)
 
 
-def _cluster_scan(elems, compose, identity, reverse=False, blocks=1, threads=256):
-    """The exclusive scan over the chunks as the cluster kernels order it:
-    the chunks are (blocks, threads) consecutive threads; within a block,
-    shuffle levels over each warp of 32 and the warps' totals in order
-    (row_scan.cuh: row_scan), then the blocks' totals in rank order
-    (cluster_scan)."""
+def _block_scan(elems, compose, identity, reverse=False, blocks=1, threads=256):
+    """Each block's exclusive scan over its own threads' chunks as the
+    kernels order it: the chunks are (blocks, threads) consecutive threads;
+    shuffle levels over each warp of 32 (or of all the threads, where a toy
+    block has fewer) and the warps' totals in order (row_scan.cuh:
+    row_scan).  Returns (mine, excl), each element (rows, blocks, threads)."""
     rows = elems[0].shape[0]
     mine = tuple(v.reshape(rows, blocks, threads) for v in elems)
-    lane = torch.arange(threads) % 32
+    width = min(threads, 32)
+    lane = torch.arange(threads) % width
 
     def shift(vals, d):
         out = []
@@ -284,28 +287,43 @@ def _cluster_scan(elems, compose, identity, reverse=False, blocks=1, threads=256
         return tuple(torch.full_like(like, i) for i in identity)
 
     incl, d = mine, 1
-    while d < 32:
-        take = (lane + d < 32) if reverse else (lane >= d)
+    while d < width:
+        take = (lane + d < width) if reverse else (lane >= d)
         incl = tuple(torch.where(take, c, v) for c, v in zip(compose(shift(incl, d), incl), incl))
         d *= 2
-    take = (lane + 1 < 32) if reverse else (lane >= 1)
+    take = (lane + 1 < width) if reverse else (lane >= 1)
     excl = tuple(torch.where(take, s, i) for s, i in zip(shift(incl, 1), ident(incl[0])))
-    warps = threads // 32
-    totals = tuple(v.reshape(rows, blocks, warps, 32)[..., 0 if reverse else 31] for v in incl)
+    warps = threads // width
+    totals = tuple(v.reshape(rows, blocks, warps, width)[..., 0 if reverse else width - 1]
+                   for v in incl)
     carries = []
     for wr in range(warps):
         carry = ident(totals[0][..., 0])
         for w in (range(warps - 1, wr, -1) if reverse else range(wr)):
             carry = compose(carry, tuple(v[..., w] for v in totals))
         carries.append(carry)
-    carry = tuple(torch.stack([c[j] for c in carries], -1).repeat_interleave(32, -1)
+    carry = tuple(torch.stack([c[j] for c in carries], -1).repeat_interleave(width, -1)
                   for j in range(len(identity)))
-    excl = compose(carry, excl)
-    end = 0 if reverse else threads - 1
-    block_totals = compose(tuple(v[..., end] for v in excl), tuple(v[..., end] for v in mine))
+    return mine, compose(carry, excl)
+
+
+def _block_totals(mine, excl, compose, reverse=False):
+    """Each block's total in its scan's direction, (rows, blocks) elements:
+    what the block's last thread (first, in reverse) holds."""
+    end = 0 if reverse else -1
+    return compose(tuple(v[..., end] for v in excl), tuple(v[..., end] for v in mine))
+
+
+def _cluster_scan(elems, compose, identity, reverse=False, blocks=1, threads=256):
+    """The exclusive scan over the chunks as the cluster kernels order it:
+    each block's own (_block_scan), then the blocks' totals in rank order
+    (row_scan.cuh: cluster_scan)."""
+    rows = elems[0].shape[0]
+    mine, excl = _block_scan(elems, compose, identity, reverse, blocks, threads)
+    block_totals = _block_totals(mine, excl, compose, reverse)
     carries = []
     for r in range(blocks):
-        carry = ident(block_totals[0][..., 0])
+        carry = tuple(torch.full_like(block_totals[0][..., 0], i) for i in identity)
         for q in (range(blocks - 1, r, -1) if reverse else range(r)):
             carry = compose(carry, tuple(v[..., q] for v in block_totals))
         carries.append(carry)
@@ -343,15 +361,83 @@ def _moebius(rescale):
     return compose
 
 
+def _param_affine(first, second):  # x -> a x + b + c p, first applied first
+    return second[0] * first[0], second[0] * first[1] + second[1], second[0] * first[2] + second[2]
+
+
+def _segment_walk(t, x, version, plan):
+    """What each block of a segmented fit walks from its row's spans
+    (``csrc/masked_cubic.cu``: span_fit_kernel, seg_fit_walk), (rows, S)
+    each: the next observation after the segment (present, value, time),
+    the last observed knot j' before it (present, value, time) and j''s hr
+    and sph, after imputation."""
+    rows, k = x.shape
+    S, seg = plan.cluster, plan.segment
+    big = torch.iinfo(torch.int64).max
+    raw = ~torch.isnan(torch.nn.functional.pad(x, (0, S * seg - k), value=float("nan")))
+    pos = torch.arange(S * seg)
+    span_first = torch.where(raw, pos, big).reshape(rows, S, seg).amin(-1)
+    span_last = torch.where(raw, pos, -1).reshape(rows, S, seg).amax(-1)
+    first = span_first.amin(-1, keepdim=True)
+    last = span_last.amax(-1, keepdim=True)
+    any_ = first != big
+    first, last = torch.where(any_, first, 0), torch.where(any_, last, k - 1)
+    v_first, v_last = x.gather(1, first), x.gather(1, last)
+    first_from = span_first.flip(1).cummin(1).values.flip(1)  # the segments from each on
+    first_after = torch.cat([first_from[:, 1:], torch.full((rows, 1), big)], 1)
+    last_before = torch.cat([torch.full((rows, 1), -1), span_last.cummax(1).values[:, :-1]], 1)
+    starts = torch.arange(S) * seg
+    ends = (starts + seg).clamp(max=k)
+
+    def next_at(s, raw_next):
+        if version == 0:
+            j = torch.where(s == 0, 0, torch.where(raw_next != big, raw_next, k - 1))
+        else:
+            j = torch.where((s < first) | (s > last), s, raw_next)
+        return torch.where(any_ & (s < k), j, -1)
+
+    def prev_before(s, raw_prev):
+        if version == 0:
+            j = torch.where(raw_prev >= 0, raw_prev, 0)
+        else:
+            j = torch.where((s - 1 < first) | (s - 1 > last), s - 1, raw_prev)
+        return torch.where(any_ & (s > 0), j, -1)
+
+    def value(j):  # x after imputation at j (0 where j is -1)
+        jc = j.clamp(min=0)
+        v = x.gather(1, jc)
+        fill = torch.where(jc == 0, v_first, v_last) if version == 0 else torch.where(
+            jc < first, v_first, v_last)
+        return torch.where(j >= 0, torch.where(torch.isnan(v), fill, v), 0.0)
+
+    def time(j):
+        return torch.where(j >= 0, t[j.clamp(min=0)], 0.0)
+
+    after = next_at(ends, first_after)
+    nxt = ((after >= 0).to(x.dtype), value(after), time(after))
+    jp, jn = prev_before(starts, last_before), next_at(starts, first_from)
+    on = (jp >= 0) & (jn >= 0)
+    xj, tj = value(jp), time(jp)
+    hr = torch.where(on, 1.0 / torch.where(on, time(jn) - tj, 1.0), 0.0)
+    sph = torch.where(on, 6.0 * (value(jn) - xj) * hr, 0.0)
+    return nxt, ((jp >= 0).to(x.dtype), xj, tj), hr, sph
+
+
 def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
     """K6/K7's function (``_masked_fit_plain``) by chunks and scans, in x's
     dtype: t (k,), x (rows, k) -> (a, b, two_c, three_d), each (rows, k - 1).
-    With a cluster ``plan`` the chunks are laid out as the cluster variant
-    holds them (block r's threads from position r * segment on, the threads
-    past its segment holding none) and scanned in its order
-    (``_cluster_scan``)."""
+    With a cluster or segmented ``plan`` the chunks are laid out as those
+    routes hold them (block r's threads from position r * segment on, the
+    threads past its segment holding none).  Over a cluster they are scanned
+    in its order (``_cluster_scan``).  Segmented, each block scans its own
+    chunks (``_block_scan``) after its carry-ins, as the four launches give
+    them: the walk over the spans for the observations' carries
+    (``_segment_walk``); the Moebius totals, then the elimination's and the
+    substitution's, walked in rank order; the polynomial's carry-in derived
+    from those of the phases before it."""
     rows, k = x.shape
     scan = _scan
+    segmented = plan is not None and plan.variant == "segmented"
     if plan is None or plan.cluster == 1:
         nc = -(-k // positions)
         pos = torch.arange(nc * positions)
@@ -365,6 +451,20 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
 
         def scan(elems, compose, identity, reverse=False):
             return _cluster_scan(elems, compose, identity, reverse, plan.cluster, plan.threads)
+    if segmented:
+        S, T = plan.cluster, plan.threads
+        walk_next, walk_prev, walk_hr, walk_sph = _segment_walk(t, x, version, plan)
+
+        def block_scan(elems, compose, identity, reverse=False):
+            return _block_scan(elems, compose, identity, reverse, S, T)
+
+        def carried(excl, compose, carry):
+            """A block's scan from its carry-in, carry (rows, S) elements."""
+            carry = tuple(v[..., None].expand_as(excl[0]) for v in carry)
+            return tuple(v.reshape(rows, nc) for v in compose(carry, excl))
+
+        def scan(elems, compose, identity, reverse=False, carry=None):
+            return carried(block_scan(elems, compose, identity, reverse)[1], compose, carry)
     K = nc * positions
     held = pos >= 0  # the layout's slots that hold a position of the row
     xp = torch.where(held, x[:, pos.clamp(min=0)], float("nan"))
@@ -388,12 +488,17 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
     zero = torch.zeros((rows, nc), dtype=x.dtype)
     one = torch.ones_like(zero)
     U = range(positions)
+    carry = {}
+    if segmented:
+        pds_in = 0.5 * walk_sph * walk_hr
+        carry = {"next": walk_next, "prev": (walk_prev[0], walk_hr, pds_in)}
 
     # Phase 1 (reverse): the next observed (value, time), a select-carry.
     elem = (zero, zero, zero)
     for u in reversed(U):
         elem = _select(elem, (ob[..., u].to(x.dtype), xs[..., u], tc_[..., u]))
-    later, cx, ct = scan(elem, _select, (0.0, 0.0, 0.0), reverse=True)
+    later, cx, ct = scan(elem, _select, (0.0, 0.0, 0.0), reverse=True, **(
+        {"carry": carry["next"]} if segmented else {}))
     later = later > 0
     hr, sph, pds = (torch.zeros_like(xs) for _ in range(3))
     for u in reversed(U):
@@ -411,7 +516,8 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
     elem = (zero, zero, zero)
     for u in U:
         elem = _select(elem, (ob[..., u].to(x.dtype), hr[..., u], pds[..., u]))
-    _, hp0, pp0 = scan(elem, _select, (0.0, 0.0, 0.0))
+    _, hp0, pp0 = scan(elem, _select, (0.0, 0.0, 0.0), **(
+        {"carry": carry["prev"]} if segmented else {}))
     mob = _moebius(rescale)
     m, hp = (one, zero, zero, one), hp0
     for u in U:
@@ -421,7 +527,21 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
         step = mob(m, (dg, -hp * hp, one, zero))
         m = tuple(torch.where(o, s, v) for s, v in zip(step, m))
         hp = torch.where(o, hr[..., u], hp)
-    a, b, c, d = scan(m, mob, (1.0, 0.0, 0.0, 1.0))
+    if segmented:
+        # The SEG_PIVOTS launch's totals, walked in rank order from d = 1
+        # (seg_moebius_carry); each block's scan after its carry-in.
+        mine, excl = block_scan(m, mob, (1.0, 0.0, 0.0, 1.0))
+        tm = _block_totals(mine, excl, mob)
+        d_carry, value = [], torch.ones((rows,), dtype=x.dtype)
+        for q in range(S):
+            d_carry.append(value)
+            a, b, c, d = (e[:, q] for e in tm)
+            value = (a * value + b) / (c * value + d)
+        d_carry = torch.stack(d_carry, 1)
+        to = torch.zeros_like(d_carry), torch.ones_like(d_carry)
+        a, b, c, d = carried(excl, mob, (to[0], d_carry, to[0], to[1]))
+    else:
+        a, b, c, d = scan(m, mob, (1.0, 0.0, 0.0, 1.0))
     prev_d = (a + b) / (c + d)  # the carried map applied to d = 1
     nd, nb, w, r = (torch.zeros_like(xs) for _ in range(4))
     aff, hp, pp = (one, zero), hp0, pp0
@@ -436,7 +556,37 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
         aff = tuple(torch.where(o, s, v) for s, v in zip(_affine(aff, (-wu, ru)), aff))
         prev_d = torch.where(o, du, prev_d)
         hp, pp = torch.where(o, hr[..., u], hp), torch.where(o, pds[..., u], pp)
-    _, prev_b = scan(aff, _affine, (1.0, 0.0))
+    if segmented:
+        # The SEG_TOTALS launch: the elimination's total, then the
+        # substitution's, affine in the segment's elimination carry-in p
+        # (nb = nb0 + sens p), composed in ascending order
+        # (publish_segment_totals); then seg_affine_carries' walk.
+        mine, excl = block_scan(aff, _affine, (1.0, 0.0))
+        te = _block_totals(mine, excl, _affine)
+        nb0, sens = excl[1].reshape(rows, nc), excl[0].reshape(rows, nc)
+        sub = (one, zero, zero)
+        for u in U:
+            o, inv = ob[..., u], 1.0 / nd[..., u]
+            nb0 = torch.where(o, r[..., u] - w[..., u] * nb0, nb0)
+            sens = torch.where(o, -w[..., u] * sens, sens)
+            step = _param_affine((-(hr[..., u] * inv), inv * nb0, inv * sens), sub)
+            sub = tuple(torch.where(o, s, v) for s, v in zip(step, sub))
+        ts = _block_totals(*block_scan(sub, _param_affine, (1.0, 0.0, 0.0), True),
+                           _param_affine, True)
+        nb_in, value = [], torch.zeros((rows,), dtype=x.dtype)
+        for q in range(S):
+            nb_in.append(value)
+            value = te[0][:, q] * value + te[1][:, q]
+        x_in = []
+        for me in range(S):
+            after = (torch.ones_like(value), torch.zeros_like(value))
+            for q in range(me + 1, S):
+                after = _affine((ts[0][:, q], ts[1][:, q] + ts[2][:, q] * nb_in[q]), after)
+            x_in.append(after[1])
+        nb_in, x_in = torch.stack(nb_in, 1), torch.stack(x_in, 1)
+        _, prev_b = carried(excl, _affine, (torch.zeros_like(nb_in), nb_in))
+    else:
+        _, prev_b = scan(aff, _affine, (1.0, 0.0))
     for u in U:
         o = ob[..., u]
         bu = r[..., u] - w[..., u] * prev_b
@@ -450,7 +600,11 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
         o = ob[..., u]
         step = _affine(aff, (-hr[..., u] / nd[..., u], nb[..., u] / nd[..., u]))
         aff = tuple(torch.where(o, s, v) for s, v in zip(step, aff))
-    _, kdn = scan(aff, _affine, (1.0, 0.0), reverse=True)
+    if segmented:
+        _, kdn = scan(aff, _affine, (1.0, 0.0), reverse=True,
+                      carry=(torch.zeros_like(x_in), x_in))
+    else:
+        _, kdn = scan(aff, _affine, (1.0, 0.0), reverse=True)
     kd, c0, d0 = (torch.zeros_like(xs) for _ in range(3))
     for u in reversed(U):
         o = ob[..., u]
@@ -460,6 +614,16 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
         c0[..., u] = (s6 - 4.0 * kdu - 2.0 * kdn) * h
         d0[..., u] = (-s6 + 3.0 * (kdu + kdn)) * h * h
         kdn = torch.where(o, kdu, kdn)
+    if segmented:
+        # The polynomial of j', the last observed knot before each segment,
+        # by phase 3's formulas: nd(j') and nb(j') the carry-ins, kd at the
+        # next knot the one the block's first thread ended on.
+        kd_next = kdn.reshape(rows, S, T)[..., 0]
+        present, xj, tj = walk_prev
+        kdj = (nb_in - walk_hr * kd_next) / d_carry
+        poly = (xj, kdj, (walk_sph - 4.0 * kdj - 2.0 * kd_next) * walk_hr,
+                (-walk_sph + 3.0 * (kdj + kd_next)) * walk_hr * walk_hr, tj)
+        carry["poly"] = (present,) + tuple(torch.where(present > 0, v, 0.0) for v in poly)
 
     # Phase 4: the polynomial of the last observed knot at or before each
     # position (position 0's before any), a select-carry, re-based.
@@ -468,7 +632,8 @@ def _chunked_fit(t, x, version, positions=16, rescale=True, plan=None):
     for u in U:
         elem = _select(elem, (start[..., u].to(x.dtype), xs[..., u], kd[..., u], c0[..., u],
                               d0[..., u], tc_[..., u]))
-    carry = scan(elem, _select, (0.0,) * 6)[1:]
+    carry = scan(elem, _select, (0.0,) * 6, **(
+        {"carry": carry["poly"]} if segmented else {}))[1:]
     outs = [torch.zeros_like(xs) for _ in range(4)]
     for u in U:
         carry = tuple(torch.where(start[..., u], v, cv) for v, cv in zip(
@@ -546,6 +711,22 @@ def _long_case(k, density, seed, rows=5):
     return t, x
 
 
+def _check_fit(got, expected):
+    """The mirror's float32 outputs against the float64 expectation within
+    1e-4 of each output's largest magnitude (or 1)."""
+    for name, g, e in zip(("a", "b", "two_c", "three_d"), got, expected):
+        e = np.asarray(e)
+        assert g.dtype == torch.float32 and torch.isfinite(g).all() and g.shape == e.shape, name
+        limit = 1e-4 * max(1.0, float(np.abs(e).max()))
+        assert float(np.abs(g.double().numpy() - e).max()) <= limit, name
+
+
+def _jax_masked_fit(t, x, version):
+    return jcubic._masked_coeffs_xla(
+        jnp.asarray(t, dtype=jnp.float64),
+        jcubic._impute_endpoints(jnp.asarray(x, dtype=jnp.float64), version))
+
+
 @pytest.mark.parametrize("version", [0, 1])
 @pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
 @pytest.mark.parametrize("k", [4097, 8192, 8193, 16384, 32768])
@@ -559,14 +740,101 @@ def test_cluster_scans_give_the_jax_masked_fit(k, density, version):
     assert plan.variant == "cluster" and plan.cluster == -(-k // 4096)
     t, x = _long_case(k, density, seed=k + int(10 * density) + version)
     got = _chunked_fit(torch.from_numpy(t), torch.from_numpy(x), version, plan=plan)
-    expected = jcubic._masked_coeffs_xla(
-        jnp.asarray(t, dtype=jnp.float64),
-        jcubic._impute_endpoints(jnp.asarray(x, dtype=jnp.float64), version))
+    _check_fit(got, _jax_masked_fit(t, x, version))
+
+
+@pytest.mark.parametrize("version", [0, 1])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
+@pytest.mark.parametrize("k", [32769, 65536, 65537])
+def test_segmented_scans_give_the_jax_masked_fit(k, density, version):
+    """The segmented route's arithmetic in float32 (each block's segment
+    scanned from carry-ins that the four launches give it: the walk over the
+    spans, the Moebius totals, the elimination's and the substitution's, in
+    rank order; the polynomial's derived) against the JAX package's masked
+    pipeline after endpoint imputation in float64, within 1e-4 of each
+    output's largest magnitude (or 1), as the cluster mirror is held."""
+    plan = masked_cubic_kernel.fit_plan(k)
+    assert plan.variant == "segmented" and plan.cluster == -(-k // 4096) > 8
+    t, x = _long_case(k, density, seed=k + int(10 * density) + version)
+    got = _chunked_fit(torch.from_numpy(t), torch.from_numpy(x), version, plan=plan)
+    _check_fit(got, _jax_masked_fit(t, x, version))
+
+
+def _sparse_segments(case, k, segment, seed, rows=5):
+    """Rows of length k (20 % NaN elsewhere) whose observations leave whole
+    segments empty: all in one middle segment ("one_segment"), none in
+    several interior segments ("empty_segments"), or a leading and a
+    trailing NaN run each longer than a segment ("long_runs"); irregular
+    times."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = np.nan
+    S = -(-k // segment)
+    if case == "one_segment":
+        mid = S // 2
+        keep = x[:, mid * segment:(mid + 1) * segment].copy()
+        x[:] = np.nan
+        x[:, mid * segment:(mid + 1) * segment] = keep
+        x[1, :mid * segment + segment // 2] = np.nan  # one observation-rich half
+        x[2] = np.nan
+        x[2, mid * segment + 7] = -0.75  # a single observation
+    elif case == "empty_segments":
+        for r, empty in enumerate(((2, 3, 4), (1, 3, 5, 6), tuple(range(1, S - 1)))):
+            for q in empty:
+                x[r, q * segment:(q + 1) * segment] = np.nan
+    else:
+        x[:, :3 * segment // 2] = np.nan
+        x[:, k - (7 * segment // 3):] = np.nan
+        x[1, :5 * segment // 2] = np.nan
+    t = np.cumsum(rng.uniform(0.2, 1.5, k)).astype(np.float32)
+    return t, x
+
+
+SPARSE_CASES = ["one_segment", "empty_segments", "long_runs"]
+
+
+@pytest.mark.parametrize("version", [0, 1])
+@pytest.mark.parametrize("case", SPARSE_CASES)
+@pytest.mark.parametrize("k", [32769, 65537])
+def test_segmented_scans_carry_across_empty_segments(k, case, version):
+    """The segmented mirror on rows whose segments hold no observation:
+    carries pass through them and imputation reaches across several."""
+    plan = masked_cubic_kernel.fit_plan(k)
+    t, x = _sparse_segments(case, k, plan.segment, seed=k + SPARSE_CASES.index(case))
+    got = _chunked_fit(torch.from_numpy(t), torch.from_numpy(x), version, plan=plan)
+    _check_fit(got, _jax_masked_fit(t, x, version))
+
+
+TOY_SEGMENT = 32  # two threads of 16 positions a block
+
+
+def _toy_plan(k):
+    """The segmented route at a toy split: blocks of two threads, segments
+    of 32 positions."""
+    segments = -(-k // TOY_SEGMENT)
+    assert segments > row_split.CLUSTER_MAX
+    return row_split.SolvePlan("segmented", 2, 1, 2, 16, segments, TOY_SEGMENT)
+
+
+@pytest.mark.parametrize("k, case, version", [
+    (301, "density 0.3", 0), (480, "one_segment", 1), (577, "empty_segments", 0),
+    (600, "long_runs", 1), (333, "density 0.8", 1)])
+def test_segmented_scans_at_a_toy_split_match_the_jax_kernel(k, case, version):
+    """The segmented mirror over 10 to 19 segments of 32 positions against
+    the JAX streaming fit in interpret mode, 32 positions a block (the JAX
+    tests' tolerance, 2e-4), on the rows with an observation (the JAX
+    kernel leaves the others to its caller; the port's are zeros)."""
+    if case.startswith("density"):
+        t, x = _long_case(k, float(case.split()[1]), seed=k + version)
+    else:
+        t, x = _sparse_segments(case, k, TOY_SEGMENT, seed=k + version)
+    expected = masked_natural_cubic_full(jnp.asarray(t), jnp.asarray(x), version,
+                                         interpret=True, kb=32)
+    got = _chunked_fit(torch.from_numpy(t), torch.from_numpy(x), version, plan=_toy_plan(k))
+    some = ~np.isnan(x).all(-1)
     for name, g, e in zip(("a", "b", "two_c", "three_d"), got, expected):
-        e = np.asarray(e)
-        assert g.dtype == torch.float32 and torch.isfinite(g).all() and g.shape == e.shape, name
-        limit = 1e-4 * max(1.0, float(np.abs(e).max()))
-        assert float(np.abs(g.double().numpy() - e).max()) <= limit, name
+        assert torch.isfinite(g).all() and not g[~torch.from_numpy(some)].any(), name
+        _close(g.numpy()[some], np.asarray(e)[some, :-1], KERNEL_TOL, name)
 
 
 @pytest.mark.parametrize("k, variant, threads_per_row, cluster, segment", [
@@ -576,14 +844,15 @@ def test_cluster_scans_give_the_jax_masked_fit(k, density, version):
     (4096, "resident", 256, 1, 4096), (4097, "cluster", 256, 2, 2064),
     (8192, "cluster", 256, 2, 4096), (8193, "cluster", 256, 3, 2736),
     (16384, "cluster", 256, 4, 4096), (32768, "cluster", 256, 8, 4096),
-    (32769, "long", 1, 1, 32769)])
+    (32769, "segmented", 256, 9, 3648), (65536, "segmented", 256, 16, 4096),
+    (65537, "segmented", 256, 17, 3856)])
 def test_fit_plan_boundaries(k, variant, threads_per_row, cluster, segment):
-    """The plan picks K6/K7's variant and threads per row from k: the
-    resident variant holds 16 positions a thread, a row in a power of two of
+    """The plan picks K6/K7's route and threads per row from k: the
+    resident route holds 16 positions a thread, a row in a power of two of
     threads (several rows a block of 256 for short rows) up to 4096
-    positions; longer rows up to 32 768 span a cluster of ceil(k / 4096)
-    blocks, the row split evenly in whole chunks of 16; longer rows take the
-    long-row variant, one thread a row."""
+    positions; longer rows span ceil(k / 4096) blocks, the row split evenly
+    in whole chunks of 16, over a cluster up to 32 768 positions and in
+    segmented launches beyond."""
     plan = masked_cubic_kernel.fit_plan(k)
     assert (plan.variant, plan.threads_per_row, plan.cluster, plan.segment) == (
         variant, threads_per_row, cluster, segment)
@@ -591,29 +860,33 @@ def test_fit_plan_boundaries(k, variant, threads_per_row, cluster, segment):
     if variant == "resident":
         assert (plan.threads, plan.positions) == (256, 16)
         assert plan.threads_per_row * 16 >= k > plan.threads_per_row * 8 or k <= 16
-    if variant == "cluster":
+    else:
         assert (plan.threads, plan.positions, plan.rows_per_block) == (256, 16, 1)
         assert segment % 16 == 0 and segment <= 4096 and (cluster - 1) * segment < k
         assert row_split.row_split(k) == (cluster, segment)
+        assert (cluster > 8) == (variant == "segmented")
     assert masked_cubic_kernel.RESIDENT_MAX == 4096
     assert masked_cubic_kernel.CLUSTER_REACH == 8 * 4096
 
 
-@pytest.mark.parametrize("k", [17, 4097, 8193, 32769])
+def test_fit_totals_size():
+    # Each segment's span (2), Moebius (4), elimination (2) and
+    # substitution (3) totals, for every row.
+    assert row_split.fit_totals(17, 2048) == 17 * 2048 * 11
+    assert row_split.fit_totals(9, 1) == 99
+
+
+@pytest.mark.parametrize("k", [17, 4097, 8193, 32769, 65537])
 def test_fit_wrapper_routes_with_stand_ins(k, monkeypatch):
-    """The launch runs only on the card: a stand-in for the variant's kernel
-    (the chunked mirror in the kernel's layout and order for the resident
-    and cluster variants, the plain pipeline for the long-row one) drives
-    the wrapper's own code: the plan handed to the kernel, the outputs'
-    shapes and the counts."""
+    """The launch runs only on the card: a stand-in for the route's kernel
+    (the chunked mirror in the route's layout and order) drives the
+    wrapper's own code: the plan handed to the kernel, the outputs' shapes
+    and the counts."""
     seen = []
 
     def kernel(plan, t, x, outs, version):
         seen.append((plan, tuple(x.shape), tuple(o.shape for o in outs), version))
-        if plan.variant == "long":
-            got = cubic._masked_fit_plain(t, x, version)
-        else:
-            got = _chunked_fit(t, x, version, plan=plan)
+        got = _chunked_fit(t, x, version, plan=plan)
         for o, g in zip(outs, got):
             o.copy_(g)
 
@@ -631,7 +904,7 @@ def test_fit_wrapper_routes_with_stand_ins(k, monkeypatch):
     assert seen == [(plan, (4, k), ((4, k - 1),) * 4, 1)]
     assert masked_cubic_kernel.LAUNCHES == 1
     assert masked_cubic_kernel.ROUTE_LAUNCHES == {v: int(v == plan.variant)
-                                                  for v in ("resident", "cluster", "long")}
+                                                  for v in ("resident", "cluster", "segmented")}
     masked_cubic_kernel.reset_launch_counts()
     assert masked_cubic_kernel.LAUNCHES == 0
     assert set(masked_cubic_kernel.ROUTE_LAUNCHES.values()) == {0}

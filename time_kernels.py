@@ -29,7 +29,8 @@ K4 and K5 at config 3 (as phase 13 times them; K5 on the operands of one
 masked gradient's last launch, recorded as phase 11 records them), config
 3's NaN-masked and dense fits' forwards and gradients through
 ``natural_cubic_coeffs``, K4, K5 and K6/K7 at the long-row shapes of
-``LONG_SHAPES`` (K4's shared bands past 4096 also by the per-row cluster
+``LONG_SHAPES`` with each one's peak memory (K4's shared bands past 4096
+also by the per-row cluster
 route, where the checkout has it; K5 on the operands of one masked
 gradient's last launch at its shape), the masked gradient at
 ``MASKED_GRAD_SHAPES`` with K5's share of it, and ptxas's report for each kernel of K1, K2, K4,
@@ -353,7 +354,8 @@ def time_fit(cs, device):
 LONG_SHAPES = (("k4_rows_8192x4096", "rows", 8192, 4096), ("k4_rows_2048x8192", "rows", 2048, 8192),
                ("k4_shared_2048x8192", "shared", 2048, 8192), ("k6_2048x8192", "k6", 2048, 8192),
                ("k6_2048x16384", "k6", 2048, 16384), ("k4_rows_2048x65536", "rows", 2048, 65536),
-               ("k6_2048x65536", "k6", 2048, 65536), ("k4_rows_2048x32769", "rows", 2048, 32769),
+               ("k6_2048x65536", "k6", 2048, 65536), ("k6_2048x32769", "k6", 2048, 32769),
+               ("k4_rows_2048x32769", "rows", 2048, 32769),
                ("k5_2048x8192", "k5", 2048, 8192), ("k5_2048x16384", "k5", 2048, 16384),
                ("k5_2048x65536", "k5", 2048, 65536), ("k4_shared_2048x65536", "shared", 2048, 65536))
 # The masked fit's gradient through natural_cubic_coeffs, end to end (rows,
@@ -399,12 +401,23 @@ def long_operands(kind, n, k, device):
     return b, u, 1.0 + torch.cat([u.abs(), pad], -1) + torch.cat([pad, l.abs()], -1), l
 
 
+def peak_gb(fn):
+    """The most device memory allocated while fn runs once (operands
+    included), in GB: torch.cuda.max_memory_allocated after a reset."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
 def time_long_rows(cs, device):
     """K4's, K5's and K6/K7's ms at each of LONG_SHAPES (one launch each,
-    K6/K7 version 1) with the route the checkout takes, K4's shared bands
-    past 4096 by the per-row cluster route beside the shared one, and the
-    masked gradient at MASKED_GRAD_SHAPES with the share of it that its two
-    K5 launches take."""
+    K6/K7 version 1) with the route the checkout takes and the peak memory
+    of one launch (peak_gb), K4's shared bands past 4096 by the per-row
+    cluster route beside the shared one, and the masked gradient at
+    MASKED_GRAD_SHAPES with the share of it that its two K5 launches
+    take."""
     from torchcde_tpu_torch.ops import masked_cubic_kernel as mk
     from torchcde_tpu_torch.ops import masked_tridiagonal_kernel as k5
     from torchcde_tpu_torch.ops import tridiagonal_kernel as k4
@@ -414,18 +427,22 @@ def time_long_rows(cs, device):
         ops = long_operands(kind, n, k, device)
         repeats = 3 if k > 32768 else 10
         if kind == "k6":
-            timing[f"{key}_ms"] = cs._event_ms(lambda: mk.launch(*ops, 1), repeats)
+            run = lambda: mk.launch(*ops, 1)
+            timing[f"{key}_ms"] = cs._event_ms(run, repeats)
             timing[f"{key}_plan"] = mk.fit_plan(k)._asdict()
         elif kind == "k5":
-            timing[f"{key}_ms"] = cs._event_ms(lambda: k5.launch(*ops), repeats)
+            run = lambda: k5.launch(*ops)
+            timing[f"{key}_ms"] = cs._event_ms(run, repeats)
             timing[f"{key}_plan"] = k5.solve_plan(k)._asdict()
             if (n, k) in MASKED_GRAD_SHAPES:
                 grad_ms = cs._event_ms(masked_grad(masked_values(n, k, device)), 3)
                 timing[f"masked_fit_grad_{n}x{k}_ms"] = grad_ms
                 timing[f"k5_share_of_masked_fit_grad_{n}x{k}"] = 2 * timing[f"{key}_ms"] / grad_ms
         else:
-            timing[f"{key}_ms"] = cs._event_ms(lambda: k4.launch(*ops), repeats)
+            run = lambda: k4.launch(*ops)
+            timing[f"{key}_ms"] = cs._event_ms(run, repeats)
             timing[f"{key}_plan"] = k4.solve_plan(k, kind == "shared")._asdict()
+        timing[f"{key}_peak_gb"] = peak_gb(run)
         if kind == "shared" and hasattr(k4, "pivot_positions") and k <= 32768:
             b, u, d, l = ops
             plan = k4.solve_plan(k, shared=False)

@@ -48,6 +48,11 @@
 // Weights that do not fit: a small kernel stages the records in device
 // memory, and each walk streams them a chunk of CR rows at a time through
 // the ring (cde_stream.cuh), CR as large as the shared memory allows.
+//
+// The kernel's instances for 4 and 5 channels are compiled apart:
+// fused_reversible_bwd_wide.cu includes this source with K8_BWD_WIDE
+// defined and gives them to bwd_kernel (fr_backward_kernel_wide), so that
+// nvcc builds the two halves side by side (all in one source led the build).
 
 #include <algorithm>
 
@@ -536,21 +541,40 @@ using BwdKernel = decltype(&rev_bwd_kernel<1, 8, false, 1>);
 
 // The instances: every C, one thread a lane (H <= 8) or a group, one or two
 // units in registers; C 1 at 16 components a thread (H > 256); every C at 4
-// components a thread (small batches), two units in registers.
-BwdKernel bwd_kernel(int C, int HS, bool group, int nreg) {
+// components a thread (small batches), two units in registers.  C 4 and 5
+// in fused_reversible_bwd_wide.cu.
 #define K8_BWD(c, hs, gr) \
   if (C == c && HS == hs && group == gr) \
     return nreg == 1 ? rev_bwd_kernel<c, hs, gr, 1> : rev_bwd_kernel<c, hs, gr, 2>;
 #define K8_BWD_SMALL(c) \
   if (C == c && HS == SMALL_HS && group) return rev_bwd_kernel<c, SMALL_HS, true, 2>;
-  K8_BWD(1, 8, false) K8_BWD(2, 8, false) K8_BWD(3, 8, false) K8_BWD(4, 8, false)
-  K8_BWD(5, 8, false) K8_BWD(1, 8, true) K8_BWD(2, 8, true) K8_BWD(3, 8, true)
-  K8_BWD(4, 8, true) K8_BWD(5, 8, true) K8_BWD(1, 16, true)
-  K8_BWD_SMALL(1) K8_BWD_SMALL(2) K8_BWD_SMALL(3) K8_BWD_SMALL(4) K8_BWD_SMALL(5)
-#undef K8_BWD_SMALL
-#undef K8_BWD
+#ifdef K8_BWD_WIDE
+BwdKernel wide_kernel(int C, int HS, bool group, int nreg) {
+  K8_BWD(4, 8, false) K8_BWD(5, 8, false) K8_BWD(4, 8, true) K8_BWD(5, 8, true)
+  K8_BWD_SMALL(4) K8_BWD_SMALL(5)
   return nullptr;
 }
+
+}  // namespace
+
+extern "C" void* fr_backward_kernel_wide(int C, int HS, bool group, int nreg) {
+  return reinterpret_cast<void*>(wide_kernel(C, HS, group, nreg));
+}
+#else
+}  // namespace
+
+extern "C" void* fr_backward_kernel_wide(int C, int HS, bool group, int nreg);
+
+namespace {
+
+BwdKernel bwd_kernel(int C, int HS, bool group, int nreg) {
+  K8_BWD(1, 8, false) K8_BWD(2, 8, false) K8_BWD(3, 8, false) K8_BWD(1, 8, true)
+  K8_BWD(2, 8, true) K8_BWD(3, 8, true) K8_BWD(1, 16, true)
+  K8_BWD_SMALL(1) K8_BWD_SMALL(2) K8_BWD_SMALL(3)
+  return reinterpret_cast<BwdKernel>(fr_backward_kernel_wide(C, HS, group, nreg));
+}
+#undef K8_BWD_SMALL
+#undef K8_BWD
 
 struct BwdPlan {
   BwdArgs a;
@@ -669,3 +693,4 @@ int fr_backward(const float* ct, const float* yres, const float* yhres, const fl
 }
 
 }  // extern "C"
+#endif  // K8_BWD_WIDE

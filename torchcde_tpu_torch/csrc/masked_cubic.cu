@@ -1,5 +1,5 @@
-// The whole NaN-masked natural cubic spline fit in one launch (K6 and K7),
-// as a CUDA kernel for Hopper (sm_90a).
+// The whole NaN-masked natural cubic spline fit (K6 and K7), as CUDA
+// kernels for Hopper (sm_90a).
 //
 // Replaces torchcde_tpu/ops/masked_cubic_pallas.py (the streaming kernels
 // _prep_kernel / _prep_kernel_bm, _assemble_fwd_kernel, _subst_kernel,
@@ -7,9 +7,9 @@
 // masked_natural_cubic_pallas) and ops/masked_cubic_resident.py
 // (_resident_kernel, entry masked_natural_cubic_resident).  The TPU split
 // between the streaming and the resident kernel follows VMEM's size; here
-// one launch serves all three entries, in one of two variants (below).
-// From raw values x (n, k) with NaNs and the times t (k) it computes the
-// coefficients (a, b, two_c, three_d), each (n, k - 1), of
+// one kernel serves all three entries, holding its rows in one of the ways
+// below.  From raw values x (n, k) with NaNs and the times t (k) it computes
+// the coefficients (a, b, two_c, three_d), each (n, k - 1), of
 // interpolation/cubic.py's masked pipeline applied to the
 // endpoint-imputed values (version 0: a missing first or last entry takes
 // the nearest observation; version 1: the values before the first and after
@@ -34,9 +34,10 @@
 //  4. forward: the last-observed polynomial carry, re-based onto every grid
 //     interval.
 //
-// Three variants; the wrapper's fit_plan picks one from k.
+// One kernel, resident_fit_kernel, in the three ways of holding a row of
+// row_scan.cuh's RowMode; the wrapper's fit_plan picks one from k.
 //
-// Resident variant (k <= RES_MAX = 4096): each row stays on chip from x to
+// Rows of k <= RES_MAX (RESIDENT_ROWS): each row stays on chip from x to
 // the outputs, so x is read once and the four outputs written once.  A row
 // belongs to a power of two of threads (threads_per_row, as few as hold it
 // at RP = 16 positions a thread; short rows share a block of RT = 256
@@ -67,7 +68,7 @@
 // own array (rows k - 1 apart).  Every scan runs in a
 // fixed order without atomics: two launches give the same bits.
 //
-// Cluster variant (RES_MAX < k <= CLUSTER_MAX * RES_MAX): the same kernel
+// Rows of RES_MAX < k <= CLUSTER_MAX * RES_MAX (CLUSTERED): the same kernel
 // over a thread block cluster a row (row_scan.cuh: cluster_shape_ok,
 // cluster_scan).  Each of the cluster's cs = ceil(k / RES_MAX) blocks holds
 // one segment of the row in its RT threads as a resident block holds a row,
@@ -78,22 +79,34 @@
 // the row stays on chip from x to the four outputs.  The values at the
 // first and last observed positions come from x in device memory.
 //
-// Long-row variant (k > CLUSTER_MAX * RES_MAX): one thread per row runs the reference
-// recurrences phase by phase, each a loop over the row:
-//  0. scanning in from each end;
-//  1-4. as above, with the carries in registers.
-// The per-row intermediates live in seven scratch arrays from PyTorch's
-// allocator, reused in place as the TPU kernel reuses its VMEM slabs: phase
-// 3 writes b0, c0, d0 over pds, nd, nb: 14 reads and 14 writes of (n, k)
-// arrays in all.
-//
-// The scratch is tiled: the row is cut into tiles of TILE = 16 positions,
-// and tile q of row r is 16 contiguous elements at (q * n + r) * 16.  A
-// thread loads or stores a whole tile with four 16-byte vector accesses,
-// and the 32 threads of a warp touch 2 KB of contiguous memory: the loads
-// of a tile do not depend on the recurrence, so all of them are in flight
-// at once, and every DRAM access is a long contiguous burst.  Blocks are
-// one warp, so the rows spread over every SM.
+// Longer rows (segmented): the same segments, S = ceil(k / RES_MAX) of them
+// (S > CLUSTER_MAX), one block each, in four launches whose totals cross
+// through a small (n, S, 11) buffer in device memory (fit_spans, then
+// row_scan.cuh's seg_totals).  Four of the seven exchanges (the span, the
+// next and the previous observation, the polynomial) follow from where a
+// row's observations lie: the first launch publishes each segment's first
+// and last observed positions, and each later block walks them
+// (seg_fit_walk).  The other three (the diagonal, the right-hand side, the
+// substitution) are K5's segmented solve (masked_tridiagonal.cu), whose
+// algebra phases 2 and 3 share:
+//  - span_fit_kernel: each segment's first and last observed positions of
+//    x, read from each end until a value is not NaN;
+//  - SEG_PIVOTS: each block walks the spans (the row's first and last
+//    observed positions, v_first and v_last from x in device memory, the
+//    first observation after its segment and the last before it, with its
+//    hr and pds), runs phases 0-2 up to the diagonal's Moebius total and
+//    publishes it;
+//  - SEG_TOTALS: the same, then, from the diagonal's carry-in
+//    (seg_moebius_carry), the elimination's total and the substitution's,
+//    affine in the elimination's carry-in (publish_segment_totals);
+//  - SEG_SOLVE: the same with every carry-in (seg_affine_carries), then
+//    phases 3 and 4 and the four outputs.  The polynomial's carry-in is that
+//    of the last observed knot j' before the segment: nd(j') and nb(j') are
+//    the diagonal's and the elimination's carry-ins, hr(j'), sph(j'), x(j')
+//    and t(j') come from the walk, and kd at the next observed knot is the
+//    one that the block's first thread reaches in phase 3.
+// Every launch reads x again: 3 x 4 + 16 bytes a position against the
+// function's 20.  The order is fixed and there are no atomics here either.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,224 +116,8 @@
 
 namespace {
 
-constexpr int THREADS = 32;  // long rows: one warp per block, the rows spread over every SM
-constexpr int TILE = 16;     // positions per scratch tile
 constexpr int BAD_ARGUMENT = -2;
-constexpr int RESIDENT = 0, LONG_ROWS = 1;  // the variants
-
-struct Scratch {  // tiled: position j of row r at ((j / TILE) * n + r) * TILE + j % TILE
-  float* __restrict__ xs;     // observed values, 0 where missing (a0)
-  uint8_t* __restrict__ obs;  // observed after imputation
-  float* __restrict__ hr;
-  float* __restrict__ pds;    // then b0
-  float* __restrict__ sph;
-  float* __restrict__ nd;     // then c0
-  float* __restrict__ nb;     // then d0
-};
-
-__device__ __forceinline__ void load_tile(const float* p, float (&v)[TILE]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < TILE / 4; ++i) {
-    const float4 f = q[i];
-    v[4 * i] = f.x;
-    v[4 * i + 1] = f.y;
-    v[4 * i + 2] = f.z;
-    v[4 * i + 3] = f.w;
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* p, const float (&v)[TILE]) {
-  float4* q = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int i = 0; i < TILE / 4; ++i)
-    q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-}
-
-__device__ __forceinline__ void load_tile(const uint8_t* p, bool (&v)[TILE]) {
-  const uint4 f = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-  for (int i = 0; i < TILE; ++i) v[i] = (w[i / 4] >> (8 * (i % 4))) & 0xffu;
-}
-
-__device__ __forceinline__ void store_tile(uint8_t* p, const bool (&v)[TILE]) {
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int i = 0; i < TILE; ++i) w[i / 4] |= (unsigned)v[i] << (8 * (i % 4));
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    long_fit_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                      float* __restrict__ a, float* __restrict__ b,
-                      float* __restrict__ c, float* __restrict__ d, Scratch s,
-                      long long n, int k, int version) {
-  const long long row = blockIdx.x * (long long)THREADS + threadIdx.x;
-  if (row >= n) return;
-  const float* xr = x + (size_t)row * (size_t)k;
-  const int tiles = (k + TILE - 1) / TILE;
-  // Offset of the row's tile q in a scratch array.
-  auto at = [n, row](int q) { return ((long long)q * n + row) * TILE; };
-
-  // Phase 0: first and last observed positions (argmax semantics for a row
-  // with none: 0 and k - 1, whose values are NaN and impute nothing).
-  int first = 0;
-  while (first < k && isnan(xr[first])) ++first;
-  int last = k - 1;
-  if (first == k) {
-    first = 0;
-  } else {
-    while (isnan(xr[last])) --last;
-  }
-  const float v_first = xr[first], v_last = xr[last];
-
-  // Phase 1 (reverse): imputation, next-observed carry, interval quantities.
-  // Positions past k in the last tile are stored as missing.
-  bool later = false;
-  float cx = 0.f, ct = 0.f;
-  for (int q = tiles - 1; q >= 0; --q) {
-    float xv[TILE], tv[TILE];
-#pragma unroll
-    for (int u = 0; u < TILE; ++u) {
-      const int j = q * TILE + u;
-      xv[u] = j < k ? xr[j] : NAN;
-      tv[u] = j < k ? t[j] : 0.f;
-    }
-    float xs[TILE], hr[TILE], pds[TILE], sph[TILE];
-    bool ob[TILE];
-#pragma unroll
-    for (int u = TILE - 1; u >= 0; --u) {
-      const int j = q * TILE + u;
-      float v = xv[u];
-      if (isnan(v) && j < k) {
-        if (version == 0) {
-          if (j == 0) v = v_first;
-          else if (j == k - 1) v = v_last;
-        } else {
-          if (j < first) v = v_first;
-          else if (j > last) v = v_last;
-        }
-      }
-      const bool o = !isnan(v);
-      ob[u] = o;
-      xs[u] = o ? v : 0.f;
-      hr[u] = sph[u] = pds[u] = 0.f;
-      if (o && later) {
-        hr[u] = 1.f / (ct - tv[u]);
-        sph[u] = 6.f * (cx - xs[u]) * hr[u];
-        pds[u] = 0.5f * sph[u] * hr[u];
-      }
-      if (o) {
-        cx = xs[u];
-        ct = tv[u];
-        later = true;
-      }
-    }
-    const long long p = at(q);
-    store_tile(s.xs + p, xs);
-    store_tile(s.obs + p, ob);
-    store_tile(s.hr + p, hr);
-    store_tile(s.pds + p, pds);
-    store_tile(s.sph + p, sph);
-  }
-
-  // Phase 2 (forward): previous-observed carry, assembly, forward sweep.
-  float hp = 0.f, pp = 0.f, prev_d = 1.f, prev_b = 0.f;
-  for (int q = 0; q < tiles; ++q) {
-    const long long p = at(q);
-    float hv[TILE], pv[TILE], ndv[TILE], nbv[TILE];
-    bool ov[TILE];
-    load_tile(s.obs + p, ov);
-    load_tile(s.hr + p, hv);
-    load_tile(s.pds + p, pv);
-#pragma unroll
-    for (int u = 0; u < TILE; ++u) {
-      ndv[u] = 1.f;
-      nbv[u] = 0.f;
-      if (ov[u]) {
-        float dg = 2.f * (hp + hv[u]);
-        if (!(dg > 0.f)) dg = 1.f;
-        const float r = pp + pv[u];
-        const float w = hp / prev_d;
-        prev_d = dg - w * hp;
-        prev_b = r - w * prev_b;
-        ndv[u] = prev_d;
-        nbv[u] = prev_b;
-        hp = hv[u];
-        pp = pv[u];
-      }
-    }
-    store_tile(s.nd + p, ndv);
-    store_tile(s.nb + p, nbv);
-  }
-
-  // Phase 3 (reverse): back substitution and the spline algebra; kdn, the
-  // knot derivative at the next observed knot, is the substitution carry.
-  float kdn = 0.f;
-  for (int q = tiles - 1; q >= 0; --q) {
-    const long long p = at(q);
-    float hv[TILE], sv[TILE], dv[TILE], bv[TILE], kdv[TILE];
-    bool ov[TILE];
-    load_tile(s.obs + p, ov);
-    load_tile(s.hr + p, hv);
-    load_tile(s.sph + p, sv);
-    load_tile(s.nd + p, dv);
-    load_tile(s.nb + p, bv);
-#pragma unroll
-    for (int u = TILE - 1; u >= 0; --u) {
-      const float hr = hv[u], sph = sv[u];
-      float kd = 0.f;
-      if (ov[u]) kd = (bv[u] - hr * kdn) / dv[u];
-      kdv[u] = kd;
-      dv[u] = (sph - 4.f * kd - 2.f * kdn) * hr;
-      bv[u] = (-sph + 3.f * (kd + kdn)) * hr * hr;
-      if (ov[u]) kdn = kd;
-    }
-    store_tile(s.pds + p, kdv);
-    store_tile(s.nd + p, dv);
-    store_tile(s.nb + p, bv);
-  }
-
-  // Phase 4 (forward): the polynomial of the last observed knot at or
-  // before each interval (position 0's before any), re-based onto it.
-  float ca = 0.f, cb = 0.f, cc = 0.f, cd = 0.f, cto = 0.f;
-  const size_t out_base = (size_t)row * (size_t)(k - 1);
-  for (int q = 0; q < tiles; ++q) {
-    const long long p = at(q);
-    float av[TILE], bv[TILE], cv[TILE], dv[TILE];
-    bool ov[TILE];
-    load_tile(s.obs + p, ov);
-    load_tile(s.xs + p, av);
-    load_tile(s.pds + p, bv);
-    load_tile(s.nd + p, cv);
-    load_tile(s.nb + p, dv);
-#pragma unroll
-    for (int u = 0; u < TILE; ++u) {
-      const int j = q * TILE + u;
-      if (j >= k - 1) break;
-      const float tj = t[j];
-      if (j == 0 || ov[u]) {
-        ca = av[u];
-        cb = bv[u];
-        cc = cv[u];
-        cd = dv[u];
-        cto = tj;
-      }
-      const float off = cto - tj;
-      a[out_base + j] = ca + ((0.5f * cc - cd * off / 3.f) * off - cb) * off;
-      b[out_base + j] = cb + (cd * off - cc) * off;
-      c[out_base + j] = cc - 2.f * cd * off;
-      d[out_base + j] = cd;
-    }
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// Resident variant: a row's RP-position chunks in the registers of
-// threads_per_row (tpr) consecutive threads, the five phases joined by
-// scans across them (row_scan.cuh).
+constexpr int NO_SPAN = 0x7fffffff;  // a segment's first observed position where it has none
 
 constexpr size_t RES_SMEM = sizeof(float) * (2 * RES_BUF + RT / 32 * SCAN_SLOT);
 constexpr size_t CLUSTER_SMEM = RES_SMEM + sizeof(float) * CLUSTER_SLOTS * SCAN_SLOT;
@@ -392,23 +189,160 @@ __device__ __forceinline__ Vec<2> cluster_span(Vec<2> v, float* slot) {
   return v;
 }
 
-// RT / tpr rows a block, or, over a cluster (CLUSTER), one segment of a
-// row a block: the thread's positions are g0 + u of its row, j0 + u of the
-// block's part of it.  Three blocks an SM: the cap of 80 registers a
+// ---------------------------------------------------------------------------
+// What the segmented launches add.
+
+// A segmented fit's spans, ahead of row_scan.cuh's totals in its buffer:
+// each segment's first and last observed positions of x (NO_SPAN and -1
+// where it has none), 2 ints a segment of every row.
+__device__ __forceinline__ int* fit_spans(float* totals, long long row, int S) {
+  return reinterpret_cast<int*>(totals) + (size_t)row * S * 2;
+}
+
+// The walk's results in a block's shared memory (floats, positions as int
+// bits), written by seg_fit_walk before the block's first barrier.
+enum Walk {
+  W_FIRST, W_LAST, W_VFIRST, W_VLAST,  // the row's first and last observed positions and values
+  W_NEXT, W_NEXT_X, W_NEXT_T,          // phase 1's carry-in: the next observation after the segment
+  W_PREV, W_PREV_X, W_PREV_T,          // the last observed knot j' before it (W_PREV 1, else 0)
+  W_PREV_HR, W_PREV_SPH, W_PREV_PDS,   // and its interval quantities
+  WALK_FLOATS
+};
+
+// The first launch of a segmented fit: the first and last observed
+// positions of x in each block's segment, read from each end, RT positions
+// at a time, until a value is not NaN (a segment without one is read once).
+__global__ void __launch_bounds__(RT)
+    span_fit_kernel(const float* __restrict__ x, float* __restrict__ totals, long long n, int k,
+                    int seg) {
+  __shared__ int found[RT / 32];
+  const RowPart p = row_part<true>(n, k, RT, seg);
+  const float* xs = x + p.row0 * k + p.seg0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // The least thread of the block whose value is observed (RT for none).
+  auto least = [&](bool o) {
+    const unsigned w = __ballot_sync(0xffffffffu, o);
+    if (lane == 0) found[warp] = w ? warp * 32 + __ffs(w) - 1 : RT;
+    __syncthreads();
+    int m = RT;
+#pragma unroll
+    for (int q = 0; q < RT / 32; ++q) m = min(m, found[q]);
+    __syncthreads();
+    return m;
+  };
+  int first = NO_SPAN, last = -1;
+  for (int i0 = 0; i0 < p.len && first == NO_SPAN; i0 += RT) {
+    const int m = least(i0 + tid < p.len && !isnan(xs[i0 + tid]));
+    if (m < RT) first = p.seg0 + i0 + m;
+  }
+  for (int i0 = p.len - 1; first != NO_SPAN && last < 0; i0 -= RT) {
+    const int m = least(i0 - tid >= 0 && !isnan(xs[i0 - tid]));
+    if (m < RT) last = p.seg0 + i0 - m;
+  }
+  if (tid == 0) {
+    int* span = fit_spans(totals, p.row0, (k + seg - 1) / seg) + 2 * (p.seg0 / seg);
+    span[0] = first;
+    span[1] = last;
+  }
+}
+
+// The walk of a segmented launch's block over its row's spans (S segments,
+// its own me, its positions [seg0, end)): every lane of warp 0 reduces them
+// (min and max: the order does not matter), and lane 0 reads the few values
+// of x and t it needs and writes the Walk into out.  Positions after
+// imputation: version 1 observes every position before the row's first
+// observation and after its last, version 0 positions 0 and k - 1, where
+// the row has any observation.
+__device__ __forceinline__ void seg_fit_walk(const float* __restrict__ x,
+                                             const float* __restrict__ t, const int* spans,
+                                             int S, int me, long long row, int k, int seg0,
+                                             int end, int version, float* out) {
+  const int lane = threadIdx.x & 31;
+  int first = NO_SPAN, last = -1, first_after = NO_SPAN, first_from = NO_SPAN, last_before = -1;
+  for (int q = lane; q < S; q += 32) {
+    const int f = spans[2 * q], l = spans[2 * q + 1];
+    first = min(first, f);
+    last = max(last, l);
+    if (q > me) first_after = min(first_after, f);
+    if (q >= me) first_from = min(first_from, f);
+    if (q < me) last_before = max(last_before, l);
+  }
+  first = __reduce_min_sync(0xffffffffu, first);
+  last = __reduce_max_sync(0xffffffffu, last);
+  first_after = __reduce_min_sync(0xffffffffu, first_after);
+  first_from = __reduce_min_sync(0xffffffffu, first_from);
+  last_before = __reduce_max_sync(0xffffffffu, last_before);
+  if (lane != 0) return;
+  const bool any = first != NO_SPAN;
+  if (!any) first = 0, last = k - 1;  // argmax semantics: NaN values, which impute nothing
+  const float* xr = x + row * k;
+  const float v_first = xr[first], v_last = xr[last];
+  auto value = [&](int j) {  // x at an observed position, after imputation
+    const float v = xr[j];
+    if (!isnan(v)) return v;
+    if (version == 0) return j == 0 ? v_first : v_last;
+    return j < first ? v_first : v_last;
+  };
+  // The first observed position at or after s (raw: the least raw one
+  // there), and the last before s (raw: the greatest raw one); -1 for none.
+  auto next_at = [&](int s, int raw) {
+    if (!any || s >= k) return -1;
+    if (version == 0) return s == 0 ? 0 : raw != NO_SPAN ? raw : k - 1;
+    return s < first || s > last ? s : raw;
+  };
+  auto prev_before = [&](int s, int raw) {
+    if (!any || s <= 0) return -1;
+    if (version == 0) return raw >= 0 ? raw : 0;
+    return s - 1 < first || s - 1 > last ? s - 1 : raw;
+  };
+  float w[WALK_FLOATS] = {};
+  w[W_FIRST] = __int_as_float(first);
+  w[W_LAST] = __int_as_float(last);
+  w[W_VFIRST] = v_first;
+  w[W_VLAST] = v_last;
+  const int after = next_at(end, first_after);
+  if (after >= 0) w[W_NEXT] = 1.f, w[W_NEXT_X] = value(after), w[W_NEXT_T] = t[after];
+  const int jp = prev_before(seg0, last_before);
+  if (jp >= 0) {
+    const int jn = next_at(seg0, first_from);  // the next observation after j'
+    const float xj = value(jp), tj = t[jp];
+    w[W_PREV] = 1.f, w[W_PREV_X] = xj, w[W_PREV_T] = tj;
+    if (jn >= 0) {  // as phase 1 computes them
+      const float hr = 1.f / (t[jn] - tj);
+      const float sph = 6.f * (value(jn) - xj) * hr;
+      w[W_PREV_HR] = hr, w[W_PREV_SPH] = sph, w[W_PREV_PDS] = 0.5f * sph * hr;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < WALK_FLOATS; ++i) out[i] = w[i];
+}
+
+// ---------------------------------------------------------------------------
+// The kernel: a row's RP-position chunks in the registers of
+// threads_per_row (tpr) consecutive threads, the five phases joined by
+// scans across them (row_scan.cuh).
+
+// RT / tpr rows a block, or one segment of a row a block, over a cluster
+// (CLUSTERED) or in one of a segmented row's launches (SEG_*; totals: its
+// spans and totals): the thread's positions are g0 + u of its row, j0 + u of
+// the block's part of it.  Three blocks an SM: the cap of 80 registers a
 // thread costs ~400 bytes of spills to L1, and on an H100 at config 3 it
 // ran 5 % faster than two blocks without spills (PERF.md).
-template <bool CLUSTER>
+template <int MODE>
 __global__ void __launch_bounds__(RT, 3)
     resident_fit_kernel(const float* __restrict__ x, const float* __restrict__ t,
                         float* __restrict__ a, float* __restrict__ b,
-                        float* __restrict__ c, float* __restrict__ d, long long n, int k,
-                        int tpr, int seg, int version) {
+                        float* __restrict__ c, float* __restrict__ d,
+                        float* __restrict__ totals, long long n, int k, int tpr, int seg,
+                        int version) {
+  constexpr bool SPLIT = MODE != RESIDENT_ROWS;
   extern __shared__ float mc_smem[];
   float* buf = mc_smem;             // [RES_BUF] the block's rows of x, then of each output
   float* tb = buf + RES_BUF;        // [RES_BUF] t, shared by the rows
   float* scratch = tb + RES_BUF;    // [RT / 32][SCAN_SLOT] the scans' warp totals
-  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [7][SCAN_SLOT] a cluster's exchanges
-  const RowPart p = row_part<CLUSTER>(n, k, tpr, seg);
+  float* slots = scratch + RT / 32 * SCAN_SLOT;  // [7][SCAN_SLOT] a cluster's exchanges, or a
+                                                 // segmented launch's carry-ins and walk
+  const RowPart p = row_part<SPLIT>(n, k, tpr, seg);
   const long long row0 = p.row0;
   const int rows = p.rows, rb = p.rb, len = p.len;
   const int tid = threadIdx.x;
@@ -417,8 +351,22 @@ __global__ void __launch_bounds__(RT, 3)
   const int g0 = p.seg0 + j0;       // and in the row
   const int to = j0 / RP * (RP + 1);  // its chunk in tb
   // The outputs' positions (k - 1 a row) in the block's part.
-  const int len_out = CLUSTER ? max(0, min(len, k - 1 - p.seg0)) : k - 1;
+  const int len_out = SPLIT ? max(0, min(len, k - 1 - p.seg0)) : k - 1;
 #define IN(u) (live && j0 + (u) < len)
+
+  // A segmented launch's carry-ins (slots[0..2]) and walk, from warp 0
+  // while the others stage.
+  float* walk = slots + SCAN_SLOT;
+  SegTotals tot = {};
+  if constexpr (segmented(MODE)) {
+    const int S = (k + seg - 1) / seg;
+    tot = seg_totals(totals + 2 * (size_t)n * S, n, false, k, seg, p);
+    if (tid < 32) {
+      seg_fit_walk(x, t, fit_spans(totals, row0, S), S, tot.me, row0, k, p.seg0, p.seg0 + len,
+                   version, walk);
+      seg_carry_ins<MODE>(tot, true, slots);
+    }
+  }
 
   // Stage t and the block's rows of x (one contiguous range), coalesced.
   for (int i = tid; i < len; i += RT) tb[staged(i)] = t[p.seg0 + i];
@@ -432,28 +380,35 @@ __global__ void __launch_bounds__(RT, 3)
 
   // Phase 0: first and last observed positions (argmax semantics for a row
   // with none: 0 and k - 1, whose values are NaN and impute nothing).
-  Vec<2> sp = SpanOp::identity();
-#pragma unroll
-  for (int u = RP - 1; u >= 0; --u) {
-    if (!isnan(xs[u])) {
-      sp.v[0] = (float)(g0 + u);
-      if (sp.v[1] < 0.f) sp.v[1] = (float)(g0 + u);
-    }
-  }
-  sp = row_span(sp, tpr, scratch);
-  if (CLUSTER) sp = cluster_span(sp, slots);
   int first = 0, last = k - 1;
-  if (sp.v[0] < NO_POSITION) {
-    first = (int)sp.v[0];
-    last = (int)sp.v[1];
-  }
   float v_first, v_last;
-  if (CLUSTER) {  // the row's own positions, perhaps in another block's segment
-    v_first = x[row0 * k + first];
-    v_last = x[row0 * k + last];
+  if constexpr (segmented(MODE)) {
+    first = __float_as_int(walk[W_FIRST]);
+    last = __float_as_int(walk[W_LAST]);
+    v_first = walk[W_VFIRST];
+    v_last = walk[W_VLAST];
   } else {
-    v_first = live ? buf[staged(rb * k + first)] : NAN;
-    v_last = live ? buf[staged(rb * k + last)] : NAN;
+    Vec<2> sp = SpanOp::identity();
+#pragma unroll
+    for (int u = RP - 1; u >= 0; --u) {
+      if (!isnan(xs[u])) {
+        sp.v[0] = (float)(g0 + u);
+        if (sp.v[1] < 0.f) sp.v[1] = (float)(g0 + u);
+      }
+    }
+    sp = row_span(sp, tpr, scratch);
+    if constexpr (MODE == CLUSTERED) sp = cluster_span(sp, slots);
+    if (sp.v[0] < NO_POSITION) {
+      first = (int)sp.v[0];
+      last = (int)sp.v[1];
+    }
+    if constexpr (MODE == CLUSTERED) {  // the row's own positions, perhaps in another block's segment
+      v_first = x[row0 * k + first];
+      v_last = x[row0 * k + last];
+    } else {
+      v_first = live ? buf[staged(rb * k + first)] : NAN;
+      v_last = live ? buf[staged(rb * k + last)] : NAN;
+    }
   }
 
   // Imputation: the observed positions (a bit each) and values (0 where missing).
@@ -484,7 +439,9 @@ __global__ void __launch_bounds__(RT, 3)
   for (int u = RP - 1; u >= 0; --u) {
     if (OBS(u)) e3 = {{1.f, xs[u], tb[to + u]}};
   }
-  e3 = full_scan<SelectOp<3>, true, CLUSTER>(e3, tpr, scratch, slots + SCAN_SLOT);
+  Vec<3> in3 = SelectOp<3>::identity();  // a segmented block's carry-in
+  if constexpr (segmented(MODE)) in3 = {{walk[W_NEXT], walk[W_NEXT_X], walk[W_NEXT_T]}};
+  e3 = mode_scan<SelectOp<3>, true, MODE>(e3, tpr, scratch, slots + SCAN_SLOT, in3);
   bool later = e3.v[0] != 0.f;
   float cx = e3.v[1], ct = e3.v[2];
   float hr[RP], sph[RP], pds[RP];
@@ -513,7 +470,8 @@ __global__ void __launch_bounds__(RT, 3)
   for (int u = 0; u < RP; ++u) {
     if (OBS(u)) e3 = {{1.f, hr[u], pds[u]}};
   }
-  e3 = full_scan<SelectOp<3>, false, CLUSTER>(e3, tpr, scratch, slots + 2 * SCAN_SLOT);
+  if constexpr (segmented(MODE)) in3 = {{walk[W_PREV], walk[W_PREV_HR], walk[W_PREV_PDS]}};
+  e3 = mode_scan<SelectOp<3>, false, MODE>(e3, tpr, scratch, slots + 2 * SCAN_SLOT, in3);
   const float hp0 = e3.v[1], pp0 = e3.v[2];  // 0 with none (the identity)
   Vec<4> mob = MoebiusOp::identity();
   float hp = hp0;
@@ -526,7 +484,14 @@ __global__ void __launch_bounds__(RT, 3)
       hp = hr[u];
     }
   }
-  mob = full_scan<MoebiusOp, false, CLUSTER>(mob, tpr, scratch, slots + 3 * SCAN_SLOT);
+  if constexpr (MODE == SEG_PIVOTS) {
+    publish_total<MoebiusOp, false>(row_scan<MoebiusOp, false>(mob, tpr, scratch), mob,
+                                    tot.tm + 4 * tot.me);
+    return;
+  } else {
+    mob = mode_scan<MoebiusOp, false, MODE>(mob, tpr, scratch, slots + 3 * SCAN_SLOT,
+                                            moebius_to(slots[0]));
+  }
   const float d_in = (mob.v[0] + mob.v[1]) / (mob.v[2] + mob.v[3]);  // applied to d = 1
   float nd[RP], nb[RP];
   Vec<2> aff = AffineOp::identity();
@@ -549,7 +514,22 @@ __global__ void __launch_bounds__(RT, 3)
       pp = pds[u];
     }
   }
-  aff = full_scan<AffineOp, false, CLUSTER>(aff, tpr, scratch, slots + 4 * SCAN_SLOT);
+  if constexpr (MODE == SEG_TOTALS) {
+    // The elimination nb -> r - w nb and the substitution kd -> nb / nd -
+    // (hr / nd) kd at the next knot, as phase 3 runs it.
+    pp = pp0;
+    publish_segment_totals(aff, tpr, scratch, tot, [] {},
+                           [&](int u, float& w, float& rhs, float& r, float& cc) {
+                             if (!OBS(u)) return false;
+                             w = nb[u], rhs = pp + pds[u], r = 1.f / nd[u], cc = hr[u] * r;
+                             pp = pds[u];
+                             return true;
+                           });
+    return;
+  } else {
+    aff = mode_scan<AffineOp, false, MODE>(aff, tpr, scratch, slots + 4 * SCAN_SLOT,
+                                           affine_to(slots[1]));
+  }
   float prev_b = aff.v[1];  // applied to b = 0
   pp = pp0;
 #pragma unroll
@@ -573,7 +553,8 @@ __global__ void __launch_bounds__(RT, 3)
       aff = AffineOp::compose(aff, {{-hr[u] * inv, nb[u] * inv}});
     }
   }
-  aff = full_scan<AffineOp, true, CLUSTER>(aff, tpr, scratch, slots + 5 * SCAN_SLOT);
+  aff = mode_scan<AffineOp, true, MODE>(aff, tpr, scratch, slots + 5 * SCAN_SLOT,
+                                        affine_to(slots[2]));
   float kdn = aff.v[1];  // applied to kd = 0
 #pragma unroll
   for (int u = RP - 1; u >= 0; --u) {
@@ -597,7 +578,28 @@ __global__ void __launch_bounds__(RT, 3)
   for (int u = 0; u < RP; ++u) {
     if (OBS(u) || g0 + u == 0) e6 = {{1.f, xs[u], kd[u], c0[u], d0[u], tb[to + u]}};
   }
-  e6 = full_scan<SelectOp<6>, false, CLUSTER>(e6, tpr, scratch, slots + 6 * SCAN_SLOT);
+  Vec<6> in6 = SelectOp<6>::identity();
+  if constexpr (segmented(MODE)) {
+    // The polynomial of j', the last observed knot before the segment, by
+    // phase 3's formulas: its nd and nb are the carry-ins, kdn the kd that
+    // thread 0 ended on (at the first observed knot from the segment on).
+    float* poly = slots + 3 * SCAN_SLOT;
+    if (tid == 0) {
+      Vec<6> q = SelectOp<6>::identity();
+      if (walk[W_PREV] != 0.f) {
+        const float h = walk[W_PREV_HR], s6 = walk[W_PREV_SPH];
+        const float kdj = (slots[1] - h * kdn) / slots[0];
+        q = {{1.f, walk[W_PREV_X], kdj, (s6 - 4.f * kdj - 2.f * kdn) * h,
+              (-s6 + 3.f * (kdj + kdn)) * h * h, walk[W_PREV_T]}};
+      }
+#pragma unroll
+      for (int e = 0; e < 6; ++e) poly[e] = q.v[e];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 6; ++e) in6.v[e] = poly[e];
+  }
+  e6 = mode_scan<SelectOp<6>, false, MODE>(e6, tpr, scratch, slots + 6 * SCAN_SLOT, in6);
   __syncthreads();  // every read of x in buf is done
   const long long out0 = row0 * (k - 1) + p.seg0;
 #pragma unroll
@@ -628,7 +630,7 @@ __global__ void __launch_bounds__(RT, 3)
   }
 #undef OBS
 #undef IN
-  if (CLUSTER) cluster_done();
+  if constexpr (MODE == CLUSTERED) cluster_done();
 }
 
 }  // namespace
@@ -640,9 +642,9 @@ const char* mc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The resident variant's shape, into out[4]: positions a thread holds,
-// threads per block, the longest row it takes, and the most blocks a row's
-// cluster spans.
+// The kernel's shape, into out[4]: positions a thread holds, threads per
+// block, the longest row a block holds, and the most blocks a row's cluster
+// spans.
 void mc_resident_shape(int* out) {
   out[0] = RP;
   out[1] = RT;
@@ -650,52 +652,42 @@ void mc_resident_shape(int* out) {
   out[3] = CLUSTER_MAX;
 }
 
-// The resident and cluster variants: x (n, k) and t (k) float32
-// contiguous; a, b, c, d (n, k - 1).  Resident (cs 1): k <= RES_MAX, tpr
-// threads per row, a power of two with tpr * RP >= k, RT / tpr rows per
-// block.  Cluster: cs blocks a row of seg positions each (cluster_shape_ok;
-// tpr = RT).  The wrapper's fit_plan gives both.
+// The fit: x (n, k) and t (k) float32 contiguous; a, b, c, d (n, k - 1).
+// The launch shape as row_blocks checks it (the wrapper's fit_plan): tpr
+// threads a row, k <= RES_MAX (cs 1); cs blocks a row of seg positions, over
+// a cluster up to CLUSTER_MAX, segmented beyond, then in four launches with
+// totals: (n, cs, 11) floats of scratch.
 int mc_fit_resident(const float* x, const float* t, float* a, float* b, float* c, float* d,
-                    long long n, int k, int tpr, int cs, int seg, int version, void* stream) {
-  if (n <= 0 || k < 2 || (version != 0 && version != 1) || !x || !t || !a || !b || !c || !d)
+                    float* totals, long long n, int k, int tpr, int cs, int seg, int version,
+                    void* stream) {
+  const long long blocks = row_blocks(n, k, tpr, cs, seg);
+  if (blocks < 0 || k < 2 || (version != 0 && version != 1) || !x || !t || !a || !b || !c ||
+      !d || (cs > CLUSTER_MAX && !totals))
     return BAD_ARGUMENT;
   cudaStream_t st = (cudaStream_t)stream;
   if (cs == 1) {
-    if (k > RES_MAX || tpr < 1 || tpr > RT || (tpr & (tpr - 1)) || (long long)tpr * RP < k)
-      return BAD_ARGUMENT;
-    const long long rpb = RT / tpr, blocks = (n + rpb - 1) / rpb;
-    if (blocks > 0x7fffffffLL) return BAD_ARGUMENT;
-    resident_fit_kernel<false><<<(unsigned)blocks, RT, RES_SMEM, st>>>(x, t, a, b, c, d, n, k,
-                                                                        tpr, 0, version);
+    resident_fit_kernel<RESIDENT_ROWS><<<(unsigned)blocks, RT, RES_SMEM, st>>>(
+        x, t, a, b, c, d, totals, n, k, tpr, 0, version);
     return (int)cudaGetLastError();
   }
-  if (!cluster_shape_ok(k, cs, seg) || tpr != RT || n * cs > 0x7fffffffLL) return BAD_ARGUMENT;
-  cudaError_t err = launch_clusters(resident_fit_kernel<true>, n * cs, cs, CLUSTER_SMEM, st, x,
-                                    t, a, b, c, d, n, k, (int)RT, seg, version);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// The positions of a scratch array per row: k rounded up to whole tiles.
-int mc_scratch_positions(int k) { return (k + TILE - 1) / TILE * TILE; }
-
-// The long-row variant: x (n, k) and t (k) float32 contiguous; a, b, c, d
-// (n, k - 1); scratch: six float32 arrays (xs, hr, pds, sph, nd, nb) and one
-// byte array (obs) of n * mc_scratch_positions(k) elements each, 16-byte
-// aligned.
-int mc_fit(const float* x, const float* t, float* a, float* b, float* c,
-           float* d, float* xs, uint8_t* obs, float* hr, float* pds,
-           float* sph, float* nd, float* nb, long long n, int k, int version,
-           void* stream) {
-  if (n <= 0 || k < 2 || (version != 0 && version != 1) || !x || !t || !a ||
-      !b || !c || !d || !xs || !obs || !hr || !pds || !sph || !nd || !nb ||
-      (n + THREADS - 1) / THREADS > 0x7fffffffLL)
-    return BAD_ARGUMENT;
-  Scratch s = {xs, obs, hr, pds, sph, nd, nb};
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  long_fit_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, t, a, b, c, d, s, n, k, version);
-  return (int)cudaGetLastError();
+  if (cs <= CLUSTER_MAX) {
+    cudaError_t err = launch_clusters(resident_fit_kernel<CLUSTERED>, blocks, cs, CLUSTER_SMEM, st,
+                                      x, t, a, b, c, d, totals, n, k, (int)RT, seg, version);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  span_fit_kernel<<<(unsigned)blocks, RT, 0, st>>>(x, totals, n, k, seg);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_PIVOTS>(resident_fit_kernel<SEG_PIVOTS>, blocks, cs, CLUSTER_SMEM, st,
+                                     x, t, a, b, c, d, totals, n, k, (int)RT, seg, version);
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_TOTALS>(resident_fit_kernel<SEG_TOTALS>, blocks, cs, CLUSTER_SMEM, st,
+                                     x, t, a, b, c, d, totals, n, k, (int)RT, seg, version);
+  if (err == cudaSuccess)
+    err = launch_rows_as<SEG_SOLVE>(resident_fit_kernel<SEG_SOLVE>, blocks, cs, CLUSTER_SMEM, st,
+                                    x, t, a, b, c, d, totals, n, k, (int)RT, seg, version);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -47,9 +47,11 @@
 //    the elimination's value at each segment's start, the substitution's
 //    totals after its segment with those values as their parameters) and
 //    runs its segment as a cluster's block runs one.
-// Every launch reads the operands again and recomputes what the last one
-// computed: a written and reread scratch of the eliminated diagonal and
-// right-hand side would move more bytes than the operands it saves.  One
+// K6/K7's segmented fit runs the same three launches after one of its own
+// (masked_cubic.cu).  Every launch reads the operands again and recomputes
+// what the last one computed: a written and reread scratch of the
+// eliminated diagonal and right-hand side would move more bytes than the
+// operands it saves.  One
 // warp walks the totals of a row in rank order (each lane loads one
 // segment's, the walk reads them by shuffles), so the order is fixed and
 // there are no atomics: two launches give the same bits.

@@ -11,9 +11,10 @@ of ``ops/`` (the fill, the tridiagonal solves and the masked cubic fit):
 * a CPU tensor takes the plain path.
 
 The JAX predicate also carries TPU profitability thresholds (minimum batch
-and length, ``k > 256 -> pcr``).  They size TPU vector lanes and VMEM; a
-CUDA kernel with one thread per row has no such fixed cost, so the port has
-none of them (a deliberate divergence, ROADMAP.md section 3).  The same
+and length, ``k > 256 -> pcr``).  They size TPU vector lanes and VMEM; the
+CUDA kernels, which pick their route from the row length, have no such
+fixed cost, so the port has none of them (a deliberate divergence,
+ROADMAP.md section 3).  The same
 function is computed either way.  A failed build or launch raises: nothing
 falls back.
 """

@@ -14,18 +14,18 @@ then the masked pipeline.
   gradient recomputes the plain pipeline: ``cubic._MaskedFitFused``), the
   plain version otherwise.  Rows without an observation are the caller's
   to mask;
-* ``fit_plan(k)``: the variant that fits rows of length k (each row
-  resident in the registers of a power of two of threads, up to
+* ``fit_plan(k)``: the route that fits rows of length k (``row_plan``:
+  each row resident in the registers of a power of two of threads, up to
   ``RESIDENT_MAX`` positions; over a thread block cluster of up to
   ``CLUSTER_MAX`` blocks, each holding one segment of the row as a resident
-  block holds a row, up to ``CLUSTER_REACH``; a thread per row through
-  scratch beyond; the split is ``row_split``'s);
-* ``LAUNCHES``: the count of kernel launches; ``ROUTE_LAUNCHES`` the same by
-  variant.
+  block holds a row, up to ``CLUSTER_REACH``; beyond, the same segments in
+  four launches of their own, the scans' totals crossing through device
+  memory);
+* ``LAUNCHES``: the count of fits launched; ``ROUTE_LAUNCHES`` the same by
+  route.
 """
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
@@ -38,65 +38,42 @@ from .row_split import (
     CLUSTER_REACH,
     POSITIONS,
     RESIDENT_MAX,
-    row_split,
-    threads_per_row,
+    fit_totals,
+    row_plan,
 )
 
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"resident": 0, "cluster": 0, "long": 0}
-
-LONG_THREADS = 32      # the long-row variant: one thread per row, one warp per block
-
-
-class FitPlan(NamedTuple):
-    variant: str          # "resident", "cluster" or "long"
-    threads_per_row: int  # (a cluster's block: the threads holding its segment)
-    rows_per_block: int
-    threads: int          # per block
-    positions: int        # per thread (the long-row variant: the row)
-    cluster: int          # blocks a row spans (1 off the cluster variant)
-    segment: int          # positions of a row a block holds
+ROUTES = ("resident", "cluster", "segmented")
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def fit_plan(k):
-    """The launch for rows of length k: the resident variant, its threads
-    per row the least power of two that holds k at ``POSITIONS`` a thread,
-    ``BLOCK_THREADS / threads_per_row`` rows a block; past
-    ``RESIDENT_MAX``, the cluster variant (``row_split``); past
-    ``CLUSTER_REACH``, the long-row variant."""
+    """The launch for rows of length k: ``row_plan(k)``, the resident route
+    up to ``RESIDENT_MAX`` positions, the cluster route up to
+    ``CLUSTER_REACH``, the segmented route beyond."""
     if k < 2:
         raise ValueError(f"the fit needs rows of at least 2 positions, got {k}")
-    if k > CLUSTER_REACH:
-        return FitPlan("long", 1, LONG_THREADS, LONG_THREADS, k, 1, k)
-    if k > RESIDENT_MAX:
-        blocks, segment = row_split(k)
-        return FitPlan("cluster", BLOCK_THREADS, 1, BLOCK_THREADS, POSITIONS, blocks, segment)
-    tpr = threads_per_row(k)
-    return FitPlan("resident", tpr, BLOCK_THREADS // tpr, BLOCK_THREADS, POSITIONS, 1, k)
+    return row_plan(k)
 
 
 def reset_launch_counts():
     global LAUNCHES
     LAUNCHES = 0
-    for variant in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[variant] = 0
+    for route in ROUTES:
+        ROUTE_LAUNCHES[route] = 0
 
 
 def _library():
     lib = _build.load_library()
     if not getattr(lib, "_mc_declared", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mc_fit.argtypes = [p] * 13 + [ll, i, i, p]
-        lib.mc_fit.restype = i
-        lib.mc_fit_resident.argtypes = [p] * 6 + [ll, i, i, i, i, i, p]
+        lib.mc_fit_resident.argtypes = [p] * 7 + [ll, i, i, i, i, i, p]
         lib.mc_fit_resident.restype = i
         shape = (ctypes.c_int * 4)()
         lib.mc_resident_shape(shape)
         if tuple(shape) != (POSITIONS, BLOCK_THREADS, RESIDENT_MAX, CLUSTER_MAX):
             raise RuntimeError(f"masked cubic fit library's resident shape {tuple(shape)} is "
                                "not the wrapper's")
-        lib.mc_scratch_positions.argtypes = [i]
-        lib.mc_scratch_positions.restype = i
         lib.mc_error_string.argtypes = [i]
         lib.mc_error_string.restype = ctypes.c_char_p
         lib._mc_declared = True
@@ -122,24 +99,18 @@ def launch(t, x, version):
 
 
 def _kernel(plan, t, x, outs, version):
-    """The variant of ``plan`` on x (n, k) at times t into the four outputs
-    (n, k - 1)."""
+    """The route of ``plan`` on x (n, k) at times t into the four outputs
+    (n, k - 1); the segmented route with its totals (``fit_totals``)."""
     lib = _library()
     n, k = x.shape
     ptrs = [a.data_ptr() for a in (x, t, *outs)]
+    totals = None
+    if plan.variant == "segmented":
+        totals = torch.empty(fit_totals(plan.cluster, n), dtype=torch.float32, device=x.device)
     stream = dispatch.stream_of(x)
-    if plan.variant in ("resident", "cluster"):
-        with torch.cuda.device(x.device):
-            rc = lib.mc_fit_resident(*ptrs, n, k, plan.threads_per_row, plan.cluster,
-                                     plan.segment, version, stream)
-    else:
-        # Per-row intermediates, laid out in tiles by the kernel.
-        size = n * lib.mc_scratch_positions(k)
-        scratch = [torch.empty(size, dtype=x.dtype, device=x.device) for _ in range(6)]
-        obs = torch.empty(size, dtype=torch.uint8, device=x.device)
-        ptrs += [a.data_ptr() for a in (*scratch[:1], obs, *scratch[1:])]
-        with torch.cuda.device(x.device):
-            rc = lib.mc_fit(*ptrs, n, k, version, stream)
+    with torch.cuda.device(x.device):
+        rc = lib.mc_fit_resident(*ptrs, 0 if totals is None else totals.data_ptr(), n, k,
+                                 plan.threads_per_row, plan.cluster, plan.segment, version, stream)
     if rc != 0:
         raise RuntimeError(f"masked cubic fit kernel failed: {lib.mc_error_string(rc).decode()} "
                            f"(code {rc})")

@@ -11,7 +11,8 @@ beyond, the scans' totals crossing through device memory.
 * ``row_plan(k)``: the launch of a solve's rows of length k, as
   ``SolvePlan``;
 * ``segment_totals(segments, n, shared_pivots)``: the size of a segmented
-  launch's totals buffer.
+  solve's totals buffer (K4's and K5's); ``fit_totals(segments, n)`` the
+  same for K6/K7's segmented fit.
 """
 
 from typing import NamedTuple
@@ -78,3 +79,11 @@ def segment_totals(segments, n, shared_pivots):
     Moebius total (4 floats) of every row, or once for a shared band, then
     its elimination total (2) and substitution total (3) of every row."""
     return segments * (4 * (1 if shared_pivots else n) + 5 * n)
+
+
+def fit_totals(segments, n):
+    """The floats of K6/K7's segmented fit's totals buffer for n rows of
+    this many segments (``csrc/masked_cubic.cu``: fit_spans): each
+    segment's first and last observed positions (2) of every row, then a
+    solve's totals with pivots per row (``segment_totals``)."""
+    return 2 * segments * n + segment_totals(segments, n, False)
